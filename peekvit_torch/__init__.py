@@ -10,5 +10,6 @@ the package builds nothing).
 
 from peekvit_torch.inference import InferenceEngine
 from peekvit_torch.models.registry import build_model
+from peekvit_torch.training.trainer import Trainer
 
-__all__ = ["InferenceEngine", "build_model"]
+__all__ = ["InferenceEngine", "Trainer", "build_model"]

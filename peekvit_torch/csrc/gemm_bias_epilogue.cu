@@ -10,6 +10,14 @@
 // The residual is fp32 (the layer's mid residual y) or bf16 (the layer
 // input, split path). Every sum is taken in fp32 and rounded once.
 //
+// With W read as (N, K) row-major (C = A . W^T, the "NT" layout, chosen
+// at compile time) and no bias, it also carries the two transposed-weight
+// products inside the backward kernels of peekvit_tpu/ops/pallas/
+// fused_attention_vjp.py (_attn_bwd_kernel :93, _attn_bwd_kernel_saved
+// :172):
+//   epilogue 4: -> bf16   (dattn = g . Wo^T, :111-115 and :196-200)
+//   epilogue 5: -> fp32   (dln = dqkv . Wqkv^T, :159-161 and :238-240)
+//
 // Bound on H100: operations. At ViT-B bs256 the products are
 // (50432 x 768) . (768 x {2304, 768, 3072}) and (50432 x 3072) . (3072 x 768):
 // hundreds of flops per byte, above the card's ~295 flop/byte ridge.
@@ -21,8 +29,10 @@
 // zero-filled on load and masked on store. wgmma and TMA are later work.
 //
 // A: (M, K) bf16 row-major. W: (K, N) bf16 row-major (the JAX (in, out)
-// layout). K % 32 == 0, N % 8 == 0, pointers 16-byte aligned (the wrapper
-// checks).
+// layout), or (N, K) row-major for epilogues 4 and 5. K % 32 == 0,
+// N % 8 == 0, pointers 16-byte aligned (the wrapper checks). In the NT
+// layout W's tile is staged like A's (BN rows of 32 k values) and read
+// with ldmatrix without transpose.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -35,7 +45,9 @@ constexpr int A_STRIDE = BK + 8;   // bf16 elements per smem row of A
 constexpr int B_STRIDE = BN + 8;   // bf16 elements per smem row of W
 constexpr int A_TILE = BM * A_STRIDE;
 constexpr int B_TILE = BK * B_STRIDE;
-constexpr int SMEM_BYTES = STAGES * (A_TILE + B_TILE) * 2;
+constexpr int B_TILE_NT = BN * A_STRIDE;  // W as (N, K): staged like A
+template <bool NT>
+constexpr int smem_bytes() { return STAGES * (A_TILE + (NT ? B_TILE_NT : B_TILE)) * 2; }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -89,6 +101,7 @@ __device__ __forceinline__ float2 load_res2<__nv_bfloat16>(const __nv_bfloat16* 
 
 // Loads the k-th 32-deep slice of A (BM rows) and W (BN columns) into one
 // ring stage. Each thread moves two 16-byte chunks of each operand.
+template <bool NT>
 __device__ __forceinline__ void load_stage(__nv_bfloat16* sa, __nv_bfloat16* sb,
                                            const __nv_bfloat16* __restrict__ a,
                                            const __nv_bfloat16* __restrict__ w, int m,
@@ -102,15 +115,22 @@ __device__ __forceinline__ void load_stage(__nv_bfloat16* sa, __nv_bfloat16* sb,
     const int grow = row0 + ar;
     const __nv_bfloat16* src = a + (long long)(grow < m ? grow : 0) * k + k0 + ac;
     cp_async16(sa + ar * A_STRIDE + ac, src, grow < m ? 16 : 0);
-    // W: 32 rows (k) x 16 chunks of 8 bf16 (n)
-    const int br = chunk >> 4, bc = (chunk & 15) * 8;
-    const int gcol = col0 + bc;
-    const __nv_bfloat16* wsrc = w + (long long)(k0 + br) * n + (gcol < n ? gcol : 0);
-    cp_async16(sb + br * B_STRIDE + bc, wsrc, gcol < n ? 16 : 0);
+    if (NT) {
+      // W as (N, K): 128 rows (n) x 4 chunks of 8 bf16 (k), like A
+      const int gn = col0 + ar;
+      const __nv_bfloat16* wsrc = w + (long long)(gn < n ? gn : 0) * k + k0 + ac;
+      cp_async16(sb + ar * A_STRIDE + ac, wsrc, gn < n ? 16 : 0);
+    } else {
+      // W: 32 rows (k) x 16 chunks of 8 bf16 (n)
+      const int br = chunk >> 4, bc = (chunk & 15) * 8;
+      const int gcol = col0 + bc;
+      const __nv_bfloat16* wsrc = w + (long long)(k0 + br) * n + (gcol < n ? gcol : 0);
+      cp_async16(sb + br * B_STRIDE + bc, wsrc, gcol < n ? 16 : 0);
+    }
   }
 }
 
-template <int EPI, typename RES, typename OUT>
+template <int EPI, bool NT, typename RES, typename OUT>
 __global__ void __launch_bounds__(THREADS)
 gemm_kernel(const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict__ w,
             const __nv_bfloat16* __restrict__ bias, const RES* __restrict__ res,
@@ -118,6 +138,7 @@ gemm_kernel(const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* sa = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* sb = sa + STAGES * A_TILE;
+  constexpr int BT = NT ? B_TILE_NT : B_TILE;
 
   const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -135,7 +156,7 @@ gemm_kernel(const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict
   const int ktiles = k / BK;
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < ktiles) load_stage(sa + s * A_TILE, sb + s * B_TILE, a, w, m, n, k, row0, col0, s * BK);
+    if (s < ktiles) load_stage<NT>(sa + s * A_TILE, sb + s * BT, a, w, m, n, k, row0, col0, s * BK);
     cp_async_commit();
   }
 
@@ -145,12 +166,12 @@ gemm_kernel(const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict
     const int next = kt + STAGES - 1;
     if (next < ktiles) {
       const int st = next % STAGES;
-      load_stage(sa + st * A_TILE, sb + st * B_TILE, a, w, m, n, k, row0, col0, next * BK);
+      load_stage<NT>(sa + st * A_TILE, sb + st * BT, a, w, m, n, k, row0, col0, next * BK);
     }
     cp_async_commit();
 
     const __nv_bfloat16* ta = sa + (kt % STAGES) * A_TILE;
-    const __nv_bfloat16* tb = sb + (kt % STAGES) * B_TILE;
+    const __nv_bfloat16* tb = sb + (kt % STAGES) * BT;
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
       uint32_t af[4][4], bf[4][2];
@@ -162,10 +183,16 @@ gemm_kernel(const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict
       }
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
-        const int r = kk + (lane & 7) + ((lane >> 3) & 1) * 8;
-        const int c = wn + j * 16 + (lane >> 4) * 8;
         uint32_t t4[4];
-        ldmatrix_x4_trans(t4, tb + r * B_STRIDE + c);
+        if (NT) {
+          const int r = wn + j * 16 + (lane & 7) + (lane >> 4) * 8;
+          const int c = kk + ((lane >> 3) & 1) * 8;
+          ldmatrix_x4(t4, tb + r * A_STRIDE + c);
+        } else {
+          const int r = kk + (lane & 7) + ((lane >> 3) & 1) * 8;
+          const int c = wn + j * 16 + (lane >> 4) * 8;
+          ldmatrix_x4_trans(t4, tb + r * B_STRIDE + c);
+        }
         bf[2 * j][0] = t4[0];
         bf[2 * j][1] = t4[1];
         bf[2 * j + 1][0] = t4[2];
@@ -186,7 +213,8 @@ gemm_kernel(const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict
   for (int j = 0; j < 4; ++j) {
     const int col = col0 + wn + j * 8 + tq * 2;
     if (col >= n) continue;
-    const float2 b2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias + col));
+    const float2 b2 = EPI >= 4 ? make_float2(0.f, 0.f)
+                               : __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias + col));
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
 #pragma unroll
@@ -200,12 +228,12 @@ gemm_kernel(const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict
           v0 = gelu_tanh(v0);
           v1 = gelu_tanh(v1);
         }
-        if (EPI >= 2) {
+        if (EPI == 2 || EPI == 3) {
           const float2 r2 = load_res2<RES>(res + off);
           v0 += r2.x;
           v1 += r2.y;
         }
-        if (EPI == 2) {
+        if (EPI == 2 || EPI == 5) {
           *reinterpret_cast<float2*>(reinterpret_cast<float*>(out) + off) = make_float2(v0, v1);
         } else {
           *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<__nv_bfloat16*>(out) + off) =
@@ -216,15 +244,15 @@ gemm_kernel(const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict
   }
 }
 
-template <int EPI, typename RES, typename OUT>
+template <int EPI, bool NT, typename RES, typename OUT>
 int launch(const void* a, const void* w, const void* bias, const void* res, void* out,
            int m, int n, int k, cudaStream_t stream) {
-  auto kern = gemm_kernel<EPI, RES, OUT>;
+  auto kern = gemm_kernel<EPI, NT, RES, OUT>;
   cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<NT>());
   if (err != cudaSuccess) return (int)err;
   dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
-  kern<<<grid, THREADS, SMEM_BYTES, stream>>>(
+  kern<<<grid, THREADS, smem_bytes<NT>(), stream>>>(
       static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(w),
       static_cast<const __nv_bfloat16*>(bias), static_cast<const RES*>(res),
       static_cast<OUT*>(out), m, n, k);
@@ -234,10 +262,11 @@ int launch(const void* a, const void* w, const void* bias, const void* res, void
 }  // namespace
 
 // epilogue: 0 bias, 1 bias + tanh-gelu, 2 bias + residual -> fp32,
-// 3 bias + residual -> bf16. res_f32 selects an fp32 (1) or bf16 (0)
-// residual for epilogues 2 and 3; res is ignored otherwise. Returns the
-// cudaError_t of the launch (an unknown epilogue returns
-// cudaErrorInvalidValue).
+// 3 bias + residual -> bf16, 4 A . W^T -> bf16, 5 A . W^T -> fp32 (W as
+// (N, K); bias and res are ignored for 4 and 5). res_f32 selects an fp32
+// (1) or bf16 (0) residual for epilogues 2 and 3; res is ignored
+// otherwise. Returns the cudaError_t of the launch (an unknown epilogue
+// returns cudaErrorInvalidValue).
 extern "C" int peekvit_gemm_bias_epilogue(const void* a, const void* w, const void* bias,
                                           const void* res, void* out, int m, int n, int k,
                                           int epilogue, int res_f32, void* stream) {
@@ -245,15 +274,19 @@ extern "C" int peekvit_gemm_bias_epilogue(const void* a, const void* w, const vo
   if (m == 0) return 0;
   switch (epilogue) {
     case 0:
-      return launch<0, float, __nv_bfloat16>(a, w, bias, res, out, m, n, k, s);
+      return launch<0, false, float, __nv_bfloat16>(a, w, bias, res, out, m, n, k, s);
     case 1:
-      return launch<1, float, __nv_bfloat16>(a, w, bias, res, out, m, n, k, s);
+      return launch<1, false, float, __nv_bfloat16>(a, w, bias, res, out, m, n, k, s);
     case 2:
-      return res_f32 ? launch<2, float, float>(a, w, bias, res, out, m, n, k, s)
-                     : launch<2, __nv_bfloat16, float>(a, w, bias, res, out, m, n, k, s);
+      return res_f32 ? launch<2, false, float, float>(a, w, bias, res, out, m, n, k, s)
+                     : launch<2, false, __nv_bfloat16, float>(a, w, bias, res, out, m, n, k, s);
     case 3:
-      return res_f32 ? launch<3, float, __nv_bfloat16>(a, w, bias, res, out, m, n, k, s)
-                     : launch<3, __nv_bfloat16, __nv_bfloat16>(a, w, bias, res, out, m, n, k, s);
+      return res_f32 ? launch<3, false, float, __nv_bfloat16>(a, w, bias, res, out, m, n, k, s)
+                     : launch<3, false, __nv_bfloat16, __nv_bfloat16>(a, w, bias, res, out, m, n, k, s);
+    case 4:
+      return launch<4, true, float, __nv_bfloat16>(a, w, bias, res, out, m, n, k, s);
+    case 5:
+      return launch<5, true, float, float>(a, w, bias, res, out, m, n, k, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

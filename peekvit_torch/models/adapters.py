@@ -14,28 +14,47 @@ import torch
 from torch import nn
 
 
-def _flatten(tree: dict, prefix: str = "") -> dict:
+def _flatten(tree: dict, prefix: str = "", sep: str = ".") -> dict:
     flat = {}
     for key, value in tree.items():
         path = f"{prefix}{key}"
         if isinstance(value, dict):
-            flat.update(_flatten(value, path + "."))
+            flat.update(_flatten(value, path + sep, sep))
         else:
             flat[path] = value
     return flat
 
 
-def module_params(model: nn.Module) -> dict:
-    """The module's weights as a nested dict in the JAX tree's grammar, of
-    detached tensors on the module's device."""
+def _nest(items) -> dict:
+    """(dotted key, leaf) pairs -> a nested dict."""
     tree: dict = {}
-    for key, value in model.state_dict().items():
+    for key, value in items:
         *path, leaf = key.split(".")
         node = tree
         for part in path:
             node = node.setdefault(part, {})
-        node[leaf] = value.detach()
+        node[leaf] = value
     return tree
+
+
+def module_params(model: nn.Module) -> dict:
+    """The module's weights as a nested dict in the JAX tree's grammar, of
+    detached tensors on the module's device."""
+    return _nest((key, value.detach()) for key, value in model.state_dict().items())
+
+
+def live_params(model: nn.Module) -> dict:
+    """The module's parameters as a nested dict in the JAX tree's grammar,
+    live: the leaves are the module's own ``nn.Parameter``s, not detached
+    copies, so gradients taken through the tree reach the model (what a
+    train step needs; :func:`module_params` is for read-only use)."""
+    return _nest(model.named_parameters())
+
+
+def tree_leaves(tree: dict) -> list:
+    """(path, leaf) pairs of a nested dict, paths joined by "/" (the JAX
+    package's parameter names)."""
+    return list(_flatten(tree, sep="/").items())
 
 
 def tree_map(fn, tree):

@@ -105,8 +105,11 @@ class VisionTransformer(nn.Module):
         super().__init__()
         # Accepted for constructor parity with the JAX module and its
         # configs. The forward is the eval forward, where dropout is the
-        # identity; representation_size is unused there too.
-        del representation_size, dropout, attention_dropout, noise_type
+        # identity; representation_size is unused there too. The dropout
+        # rates are kept so that the Trainer can refuse to train with them.
+        del representation_size, noise_type
+        self.dropout = dropout
+        self.attention_dropout = attention_dropout
         if image_size % patch_size != 0:
             raise ValueError("Input shape indivisible by patch size!")
         if noise_layer is not None:

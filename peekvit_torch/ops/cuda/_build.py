@@ -26,7 +26,8 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "peekvit_torch")
-SOURCES = ("norm_rows", "gemm_bias_epilogue", "attn_scores_pv")
+SOURCES = ("norm_rows", "gemm_bias_epilogue", "attn_scores_pv", "attn_softmax_fwd",
+           "attn_softmax_bwd", "ln_bwd_rows")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -40,6 +41,12 @@ _SIGNATURES = {
                            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "attn_scores_pv": ("peekvit_attn_scores_pv",
                        [_P, _P, _I, _I, _I, _I, ctypes.c_float, _P]),
+    "attn_softmax_fwd": ("peekvit_attn_softmax_fwd",
+                         [_P, _P, _I, _I, _I, _I, ctypes.c_float, _P]),
+    "attn_softmax_bwd": ("peekvit_attn_softmax_bwd",
+                         [_P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P]),
+    "ln_bwd_rows": ("peekvit_ln_bwd_rows",
+                    [_P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, ctypes.c_float, _P]),
 }
 
 _lock = threading.Lock()

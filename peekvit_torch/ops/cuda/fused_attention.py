@@ -15,6 +15,8 @@ kernel's math and rounding points (not linen's): one-pass statistics,
 tanh-gelu, the clamped exp2 softmax without max subtraction, the fp32
 mid-layer residual, bf16 rounding of normalized rows, qkv, attention
 output and gelu output (rounding to the compute dtype: none in fp32).
+``gemm_nt`` (the same GEMM source with W read as (N, K) and no bias)
+serves the trainable block's backward (fused_attention_vjp.py).
 
 Dispatch is by device only. A wrapper uses the plain version for CPU
 tensors; for CUDA tensors it launches its kernel or raises (wrong dtype,
@@ -36,6 +38,7 @@ LOG2E = 1.4426950408889634  # exp(x) = exp2(x * LOG2E)
 
 LAUNCHES: dict[str, int] = {}
 _EPILOGUES = {"bias": 0, "gelu": 1, "residual_f32": 2, "residual": 3}
+_NT_EPILOGUES = {"none": 4, "none_f32": 5}  # W read as (N, K), no bias
 
 
 def reset_launch_counts() -> None:
@@ -213,6 +216,43 @@ def gemm_bias_epilogue(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
         a.data_ptr(), w.data_ptr(), bias.data_ptr(),
         residual.data_ptr() if needs_res else None, out.data_ptr(),
         m, n, k, _EPILOGUES[epilogue], res_f32, _stream())
+    _launched(key, err)
+    return out
+
+
+def gemm_nt_ref(a, w, epilogue: str):
+    """Plain version of :func:`gemm_nt`: an fp32 product, one rounding."""
+    if epilogue not in _NT_EPILOGUES:
+        raise ValueError(f"unknown epilogue {epilogue!r}")
+    acc = torch.matmul(a.float(), w.float().t())
+    return acc if epilogue == "none_f32" else acc.to(a.dtype)
+
+
+def gemm_nt(a: torch.Tensor, w: torch.Tensor, epilogue: str) -> torch.Tensor:
+    """C = a @ w^T with no bias, the transposed-weight products inside the
+    trainable block's backward kernels. a: (R, K); w: (N, K), a JAX
+    (in, out) kernel read as it lies. ``epilogue``: ``"none"`` -> a.dtype
+    (dattn = g Wo^T), ``"none_f32"`` -> fp32 (dln = dqkv Wqkv^T). Same
+    kernel source as :func:`gemm_bias_epilogue`, with W's layout chosen at
+    compile time."""
+    if epilogue not in _NT_EPILOGUES:
+        raise ValueError(f"unknown epilogue {epilogue!r}")
+    if _on_cpu(a, w):
+        return gemm_nt_ref(a, w, epilogue)
+    key = f"gemm_nt.{epilogue}"
+    _require(a.dim() == 2 and w.dim() == 2 and a.shape[1] == w.shape[1],
+             f"{key}: shapes {tuple(a.shape)} @ {tuple(w.shape)}^T do not chain")
+    m, k = a.shape
+    n = w.shape[0]
+    _require(k % 32 == 0, f"{key}: K={k} must be a multiple of 32")
+    _require(n % 8 == 0, f"{key}: N={n} must be a multiple of 8")
+    for name, t in (("a", a), ("w", w)):
+        _check_bf16(f"{key} {name}", t)
+    out_dtype = torch.float32 if epilogue == "none_f32" else torch.bfloat16
+    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    err = _build.library("gemm_bias_epilogue")(
+        a.data_ptr(), w.data_ptr(), None, None, out.data_ptr(), m, n, k,
+        _NT_EPILOGUES[epilogue], 0, _stream())
     _launched(key, err)
     return out
 

@@ -43,9 +43,10 @@ def test_port_imports_no_jax():
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
-    """Without device="cpu", build_model and InferenceEngine need a card and
-    raise when there is none (decided here, not at import time)."""
-    from peekvit_torch import InferenceEngine, build_model
+    """Without device="cpu", build_model, InferenceEngine and Trainer need a
+    card and raise when there is none (decided here, not at import time)."""
+    from peekvit_torch import InferenceEngine, Trainer, build_model
+    from peekvit_torch.training.optim import AdamW
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -55,6 +56,9 @@ def test_entry_points_default_to_the_card(monkeypatch):
         InferenceEngine(model)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         InferenceEngine(model, compute_dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(model, AdamW())
+    assert Trainer(model, AdamW(), device="cpu").device == torch.device("cpu")
 
 
 def test_import_builds_nothing():
@@ -62,6 +66,8 @@ def test_import_builds_nothing():
     from peekvit_torch.ops.cuda import _build
 
     assert _build._libs == {}
-    assert _build.SOURCES == ("norm_rows", "gemm_bias_epilogue", "attn_scores_pv")
+    assert _build.SOURCES == ("norm_rows", "gemm_bias_epilogue", "attn_scores_pv",
+                              "attn_softmax_fwd", "attn_softmax_bwd", "ln_bwd_rows")
+    assert set(_build._SIGNATURES) == set(_build.SOURCES)
     for name in _build.SOURCES:
         assert os.path.exists(os.path.join(_build.CSRC, name + ".cu"))
