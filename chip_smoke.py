@@ -37,7 +37,23 @@ prints no final result):
    each training kernel's time, bound, plain and library time, the
    step's breakdown, and one step under torch.profiler (device time by
    kernel group, busy share);
-9. the {"kernels": [...]} line, then the card's nvidia-smi line, then
+9. residual kernel checks: the masked variants (masked norm from bf16 and
+   fp32, masked two-pass LN, both masked-residual GEMMs, attention with
+   the phantom key weight at N = 155 and 107) against their plain versions
+   at ResidualViT-B/16 bs256 shapes;
+10. residual engine: build_model("residualvit", ResidualViT-B/16) with
+   seeded weights serves 8 and 256 images at budgets 0.25, 0.5 and 1.0
+   (counts zeroed just before and read just after: 84 launches per
+   forward), held against residualvit_forward_plain (bf16 and fp32), each
+   layer's share of kept image tokens; one ee_outputs=True request on an
+   eeresidualvit (13 outputs); compact=0.75 (merged layer with the
+   phantom) and compact=0.5 (split sublayers) at budget 0.5, 84 launches
+   each, held against the plain twin on the images whose survivors fit
+   the capacity, top-1 agreement with the exact engine;
+11. residual timing at bs256: the exact engine at each budget, the two
+   compact modes, each new kernel variant's time, plain time, bound and
+   library yardstick, and one profiled exact forward;
+12. the {"kernels": [...]} line, then the card's nvidia-smi line, then
    {"ok": true, "device": {...}} as the last line.
 
 Imports nothing of JAX or of peekvit_tpu.
@@ -67,6 +83,17 @@ TRAIN_BATCH = 64       # the Trainer's fixed labelled batch
 TRAIN_STEPS = 5
 GRAD_BATCH = 16        # gradients against the plain versions
 TRAIN_LR = 1e-4
+# configs/model/residualvit_b_16.yaml at image 224 and 1000 classes, less
+# its torch_pretrained_weights (seeded weights here)
+RESIDUALVIT_B16 = dict(B16, residual_layers=["attention+mlp"] * 12, gate_temp=1,
+                       add_input=False, gate_type="sigmoid", gate_threshold=0.5, gate_bias=0,
+                       add_budget_token="learnable", attention_dropout=0.0, dropout=0.0)
+RESIDUAL_REQUESTS = (8, 256)
+BUDGETS = (0.25, 0.5, 1.0)
+COMPACT = (0.75, 0.5)
+COMPACT_BUDGET = 0.5
+EE_REQUEST = 8
+BLOCK_EPS = 1e-6  # ResidualViT block LN
 GRAD_NAMES = ("dx", "dln_scale", "dln_bias", "dw_qkv", "db_qkv", "dw_out", "db_out")
 # Launches per layer of one fused train step (save_qkv, the default): the
 # forward's ln_rows, qkv GEMM, attention and out-proj GEMM; the backward's
@@ -226,17 +253,18 @@ def _kernel_group(name: str) -> str:
     if name.removeprefix("void ").startswith("(anonymous namespace)::"):
         return "port CUDA kernels"  # peekvit_torch/csrc: PyTorch's own sit in at::
     if any(s in name.lower() for s in ("gemm", "xmma", "nvjet", "cutlass", "sm90_")):
-        return "cuBLAS matmuls (MLP, weight grads, embed, head)"
+        return "cuBLAS matmuls (train: MLP, weight grads; both: embed, gates, heads)"
     if "reduce" in name.lower():
         return "reductions (LN statistics, bias sums, norms)"
-    return "elementwise and copies (casts, LN, gelu, bias, residual)"
+    return "elementwise and copies (casts, concatenations, LN, gelu, bias, residual)"
 
 
-def profile_step(torch, smi, step, step_ms) -> None:
-    """Device time by kernel over one profiled train step (torch.profiler,
-    CUPTI): the breakdown of what the kernels' event timing leaves as
-    'other', and the device's busy share against the unprofiled step time.
-    Where the trace holds no device time, says so."""
+def profile_step(torch, smi, step, step_ms, phase="profile_train_step") -> None:
+    """Device time by kernel over one profiled call of ``step`` (a train
+    step, or a forward) with torch.profiler (CUPTI): the breakdown of what
+    the kernels' event timing leaves as 'other', and the device's busy
+    share against the unprofiled time. Where the trace holds no device
+    time, says so."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -254,7 +282,7 @@ def profile_step(torch, smi, step, step_ms) -> None:
         g = _kernel_group(e.key)
         groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:20]
-    emit({"phase": "profile_train_step", "batch": BATCH,
+    emit({"phase": phase, "batch": BATCH,
           "device_ms": total_us / 1e3 if total_us else "not measured",
           "busy_share_of_step": total_us / 1e3 / step_ms if total_us else "not measured",
           "device_ms_by_group": groups, "kernel_launches": sum(e.count for e in kernels),
@@ -353,6 +381,412 @@ def train_kernel_entries(torch, F, fa, vjp, smi, checks, train, kernel_ms, x, qk
           "step_ms": train["step_ms"], "other_ms": train["step_ms"] - kernels_ms,
           "other": "eager MLP half, weight-gradient products, embed/classify, AdamW",
           "card": smi})
+    return entries
+
+
+# Launches per layer of the ResidualViT paths: the exact masked layer (and
+# compact=0.75, 155 tokens, the same layer with the phantom key weight) and
+# compact=0.5 (107 tokens < 128: the split masked sublayers).
+RESIDUAL_PER_LAYER = {"norm_rows.masked.bf16": 1, "norm_rows.masked.f32": 1,
+                      "gemm_bias_epilogue.bias": 1, "attn_scores_pv": 1,
+                      "gemm_bias_epilogue.masked_residual_f32": 1, "gemm_bias_epilogue.gelu": 1,
+                      "gemm_bias_epilogue.residual": 1}
+MERGED_PHANTOM_PER_LAYER = dict(RESIDUAL_PER_LAYER, **{"attn_scores_pv": 0,
+                                                       "attn_scores_pv.kweight": 1})
+SPLIT_PER_LAYER = {"ln_rows.masked": 2, "gemm_bias_epilogue.bias": 1, "attn_scores_pv.kweight": 1,
+                   "gemm_bias_epilogue.masked_residual": 1, "gemm_bias_epilogue.gelu": 1,
+                   "gemm_bias_epilogue.residual": 1}
+
+
+def compact_geometry(capacity: float) -> tuple[int, int, float]:
+    """(tokens, phantom index, phantom multiplier) of a ResidualViT-B/16
+    layer under compact=capacity: the engine's capacity rule
+    (ceil(c * 196) rounded up to 8), one class token, the phantom slot and
+    the budget token."""
+    n_img = (RESIDUALVIT_B16["image_size"] // RESIDUALVIT_B16["patch_size"]) ** 2
+    cap = min(n_img, -8 * (-math.ceil(capacity * n_img) // 8))
+    return 1 + cap + 2, 1 + cap, float(n_img - cap)
+
+
+def compare_logits(torch, name, got, refs, mask=None) -> dict:
+    """Logits against reference logits [(name, ref, rtol, atol)], optionally
+    on the rows ``mask`` selects: max |delta|, top-1 agreement, and top-1
+    agreement on every decided row (top-2 margin > 2 max |delta|). Raises
+    when a check fails."""
+    rec = {}
+    for ref_name, ref, rtol, atol in refs:
+        g, r = (got, ref) if mask is None else (got[mask], ref[mask])
+        if g.shape[0] == 0:
+            rec[ref_name] = {"rows": 0}
+            continue
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{name}: non-finite logits")
+        delta = (g - r).abs()
+        srt = r.sort(dim=-1).values
+        decided = (srt[:, -1] - srt[:, -2]) > 2 * delta.max()
+        agree = g.argmax(-1) == r.argmax(-1)
+        rec[ref_name] = {"rows": int(g.shape[0]), "max_abs_delta": delta.max().item(),
+                         "logit_spread": r.abs().max().item(),
+                         "top1_agreement": agree.float().mean().item(),
+                         "decided": int(decided.sum()), "rtol": rtol, "atol": atol}
+        if not torch.all(delta <= atol + rtol * r.abs()):
+            raise AssertionError(f"{name} vs {ref_name}: {rec[ref_name]}")
+        if not agree[decided].all():
+            raise AssertionError(f"{name}: top-1 differs on a decided image: {rec[ref_name]}")
+    return rec
+
+
+def residual_kernel_checks(torch, fa, check, randn, w_out, b_out, d, h) -> dict:
+    """Phase 9: the masked variants against their plain versions at
+    ResidualViT-B/16 bs256 shapes. Returns their inputs for phase 11."""
+    tol_bf16, tol_f32, tol_attn = 2.0 ** -6, 1e-3, 2e-2
+    n_exact = 1 + (RESIDUALVIT_B16["image_size"] // RESIDUALVIT_B16["patch_size"]) ** 2 + 1
+    (n_m, idx_m, mult_m), (n_s, idx_s, mult_s) = (compact_geometry(c) for c in COMPACT)
+    rows_e, rows_s = BATCH * n_exact, BATCH * n_s
+
+    def gate_mask(rows):  # gate-like: a third exactly 0, the rest in (0, 1]
+        return torch.clamp(randn(rows, dtype=torch.float32, scale=0.5, shift=0.2), 0.0,
+                           1.0).to(torch.bfloat16)
+
+    ins = {"xe": randn(rows_e, d, scale=1.5, shift=0.3),
+           "ye": randn(rows_e, d, dtype=torch.float32, scale=1.5, shift=0.3),
+           "ae": randn(rows_e, d), "me": gate_mask(rows_e),
+           "xs": randn(rows_s, d, scale=1.5, shift=0.3), "as": randn(rows_s, d),
+           "ms": gate_mask(rows_s), "s": randn(d, scale=0.2, shift=1.0), "b": randn(d, scale=0.1),
+           "w_out": w_out, "b_out": b_out, "rows_e": rows_e, "rows_s": rows_s,
+           "qkv_m": randn(BATCH, n_m, 3 * d), "qkv_s": randn(BATCH, n_s, 3 * d),
+           "attn_m": (n_m, idx_m, mult_m), "attn_s": (n_s, idx_s, mult_s)}
+    x, y, xs = ins["xe"], ins["ye"], ins["xs"]
+    me, ms, ln_s, ln_b = ins["me"], ins["ms"], ins["s"], ins["b"]
+    bf16 = torch.bfloat16
+    with torch.inference_mode():
+        check("norm_rows.masked.bf16", fa.norm_rows(x, BLOCK_EPS, bf16, ln_s, ln_b, me),
+              fa.norm_rows_ref(x, BLOCK_EPS, bf16, ln_s, ln_b, me), tol_bf16,
+              "bf16 output rounding")
+        check("norm_rows.masked.f32", fa.norm_rows(y, BLOCK_EPS, bf16, ln_s, ln_b, me),
+              fa.norm_rows_ref(y, BLOCK_EPS, bf16, ln_s, ln_b, me), tol_bf16,
+              "bf16 output rounding")
+        check("ln_rows.masked", fa.ln_rows(xs, ln_s, ln_b, BLOCK_EPS, ms),
+              fa.ln_rows_ref(xs, ln_s, ln_b, BLOCK_EPS, ms), tol_bf16, "bf16 output rounding")
+        check("gemm_bias_epilogue.masked_residual_f32",
+              fa.gemm_bias_epilogue(ins["ae"], w_out, b_out, "masked_residual_f32", residual=x,
+                                    mask=me),
+              fa.gemm_bias_epilogue_ref(ins["ae"], w_out, b_out, "masked_residual_f32",
+                                        residual=x, mask=me), tol_f32,
+              "tensor-core fp32 accumulation against cuBLAS fp32 in another order over K = 768")
+        check("gemm_bias_epilogue.masked_residual",
+              fa.gemm_bias_epilogue(ins["as"], w_out, b_out, "masked_residual", residual=xs,
+                                    mask=ms),
+              fa.gemm_bias_epilogue_ref(ins["as"], w_out, b_out, "masked_residual", residual=xs,
+                                        mask=ms), tol_bf16,
+              "fp32 sums in another order, bf16 output rounding")
+        for tag, qkv, (n, idx, mult) in (("m", ins["qkv_m"], ins["attn_m"]),
+                                         ("s", ins["qkv_s"], ins["attn_s"])):
+            check(f"attn_scores_pv.kweight.n{n}", fa.attn_scores_pv(qkv, h, idx, mult),
+                  fa.attn_scores_pv_ref(qkv, h, idx, mult), tol_attn,
+                  f"phantom key {idx} weighted by {mult:g}; bf16 rounding of logits before "
+                  "exp2 and of the weighted term, bf16 output rounding")
+        torch.cuda.synchronize()
+    return ins
+
+
+def seeded_residual_model(torch, name: str):
+    """build_model(name, ResidualViT-B/16, seed=0) on the card with its head
+    and class token re-drawn at std 0.02 (zero-initialised, they would make
+    every logit 0), and any early-exit heads re-drawn the same way, so that
+    every output has the final logits' scale."""
+    from peekvit_torch import build_model
+
+    model = build_model(name, RESIDUALVIT_B16, seed=0, device=DEVICE)
+    cpu_gen = torch.Generator().manual_seed(1)
+    kernels = [model.head.kernel, model.class_tokens] + [
+        p for k, p in model.named_parameters() if k.startswith("encoder.early_exit_heads_")
+        and k.endswith("_head.kernel")]
+    with torch.no_grad():
+        for p in kernels:
+            p.copy_(torch.randn(p.shape, generator=cpu_gen) * 0.02)
+    return model
+
+
+def counted(torch, fa, fn):
+    """fn()'s result and the kernel launches it made (counts zeroed just
+    before, read just after)."""
+    fa.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(fa.LAUNCHES)
+
+
+def residual_phases(torch, fa, dev, smi) -> dict:
+    """Phase 10: the ResidualViT-B/16 engine on the card (exact path at
+    three budgets, early exits, two compact modes), each held against the
+    plain twin. Returns what phase 11 times and the launch counts."""
+    from peekvit_torch import InferenceEngine
+    from peekvit_torch.inference import prepare_engine_params, residualvit_forward_plain
+    from peekvit_torch.models.adapters import module_params
+
+    layers = RESIDUALVIT_B16["num_layers"]
+    bf16, f32 = torch.bfloat16, torch.float32
+    # models built outside inference mode: their weights are ordinary parameters
+    model = seeded_residual_model(torch, "residualvit")
+    ee_model = seeded_residual_model(torch, "eeresidualvit")
+    engine = InferenceEngine(model, device=DEVICE)  # bf16 on the card
+    fwd = dict(patch_size=model.patch_size, num_heads=model.num_heads,
+               num_class_tokens=model.num_class_tokens, num_registers=model.num_registers,
+               gate_temp=model.gate_temp, gate_bias=model.gate_bias,
+               budget_token=model.add_budget_token)
+    params32 = prepare_engine_params(module_params(model), f32)
+    img_gen = torch.Generator(device=dev).manual_seed(4)
+    size = RESIDUALVIT_B16["image_size"]
+    requests = [torch.randn(b, size, size, 3, generator=img_gen, device=dev)
+                for b in RESIDUAL_REQUESTS]
+    tol_reason = ("plain_bf16: same rounding points, sums in another order; the repo's bf16 "
+                  "kernel tolerance (tests/test_pallas.py:42). plain_fp32: bf16 activations and "
+                  "gates on bf16 tokens over 12 layers; the repo's bf16 engine tolerance "
+                  "(tests/test_inference.py:54)")
+
+    def refs(params16, images, budget, masks=None, **kw):
+        p16 = residualvit_forward_plain(params16, images, budget, compute_dtype=bf16,
+                                        masks=masks, **fwd, **kw)
+        p32 = residualvit_forward_plain(params32, images, budget, compute_dtype=f32, **fwd, **kw)
+        return p16, p32
+
+    with torch.inference_mode():
+        def serve():
+            outs, per_forward = {}, []
+            for images in requests:
+                for budget in BUDGETS:
+                    before = sum(fa.LAUNCHES.values())
+                    outs[(images.shape[0], budget)] = engine(images, budget=budget)
+                    per_forward.append(sum(fa.LAUNCHES.values()) - before)
+            return outs, per_forward
+
+        (outputs, per_forward), res_counts = counted(torch, fa, serve)
+        emit({"phase": "residual_launches", "per_forward": per_forward, "counts": res_counts,
+              "requests": list(RESIDUAL_REQUESTS), "budgets": list(BUDGETS), "card": smi})
+        forwards = len(RESIDUAL_REQUESTS) * len(BUDGETS)
+        want = {k: v * layers * forwards for k, v in RESIDUAL_PER_LAYER.items()}
+        if per_forward != [7 * layers] * forwards or res_counts != want:
+            raise AssertionError(f"residual launches {res_counts}, per forward {per_forward}, "
+                                 f"want {want}")
+
+        masks_by_budget = {}
+        for images in requests:
+            b = images.shape[0]
+            for budget in BUDGETS:
+                masks = {}
+                p16, p32 = refs(engine.params, images, budget, masks)
+                rec = compare_logits(torch, f"residual b{b} budget {budget}",
+                                     outputs[(b, budget)],
+                                     [("plain_bf16", p16, 3e-2, 3e-2), ("plain_fp32", p32, 0.1, 0.05)])
+                kept = [(masks[f"layer_{i}"] > 0).float().mean().item() for i in range(layers)]
+                emit({"phase": "residual_check", "batch": b, "budget": budget, **rec,
+                      "kept_image_token_share_by_layer": kept,
+                      "tolerance_reason": tol_reason, "card": smi})
+                if b == BATCH:
+                    masks_by_budget[budget] = masks
+        low, high = outputs[(BATCH, BUDGETS[0])], outputs[(BATCH, BUDGETS[-1])]
+        budget_delta = (low - high).abs().max().item()
+        emit({"phase": "residual_budget_effect", "batch": BATCH, "budgets": [BUDGETS[0], BUDGETS[-1]],
+              "max_abs_logit_delta": budget_delta,
+              "top1_agreement": (low.argmax(-1) == high.argmax(-1)).float().mean().item(),
+              "card": smi})
+        if not budget_delta > 0.05:  # above the fp32 check's atol
+            raise AssertionError(f"the budget barely changes the logits: {budget_delta}")
+
+        # ---- early exits
+        ee_engine = InferenceEngine(ee_model, device=DEVICE, ee_outputs=True)
+        ee_images = requests[0][:EE_REQUEST]
+        ee_out, ee_counts = counted(torch, fa, lambda: ee_engine(ee_images, budget=COMPACT_BUDGET))
+        ee32 = prepare_engine_params(module_params(ee_model), f32)
+        ee_p16 = residualvit_forward_plain(ee_engine.params, ee_images, COMPACT_BUDGET,
+                                           compute_dtype=bf16, early_exits=True, **fwd)
+        ee_p32 = residualvit_forward_plain(ee32, ee_images, COMPACT_BUDGET, compute_dtype=f32,
+                                           early_exits=True, **fwd)
+        if len(ee_out) != layers + 1 or sum(ee_counts.values()) != 7 * layers:
+            raise AssertionError(f"ee outputs {len(ee_out)}, launches {ee_counts}")
+        ee_recs = [compare_logits(torch, f"ee output {i}", g,
+                                  [("plain_bf16", r16, 3e-2, 3e-2), ("plain_fp32", r32, 0.1, 0.05)])
+                   for i, (g, r16, r32) in enumerate(zip(ee_out, ee_p16, ee_p32))]
+        emit({"phase": "residual_ee", "batch": EE_REQUEST, "budget": COMPACT_BUDGET,
+              "outputs": len(ee_out), "launches": ee_counts,
+              "max_abs_delta_vs_plain_bf16": max(r["plain_bf16"]["max_abs_delta"] for r in ee_recs),
+              "max_abs_delta_vs_plain_fp32": max(r["plain_fp32"]["max_abs_delta"] for r in ee_recs),
+              "card": smi})
+
+        # ---- compaction at budget 0.5 on the bs256 request
+        images = requests[-1]
+        exact = outputs[(BATCH, COMPACT_BUDGET)]
+        compact_engines, compact_counts = {}, {}
+        for capacity in COMPACT:
+            eng = InferenceEngine(model, device=DEVICE, compact=capacity)
+            caps = eng.compact_caps(COMPACT_BUDGET)
+            n, idx, mult = compact_geometry(capacity)
+            got, counts = counted(torch, fa, lambda: eng(images, budget=COMPACT_BUDGET))
+            per_layer = MERGED_PHANTOM_PER_LAYER if n >= 128 else SPLIT_PER_LAYER
+            want = {k: v * layers for k, v in per_layer.items() if v}
+            if caps != (idx - 1,) * layers or counts != want:
+                raise AssertionError(f"compact={capacity}: caps {caps}, launches {counts}, "
+                                     f"want {want}")
+            masks = {}
+            p16 = residualvit_forward_plain(eng.params, images, COMPACT_BUDGET, compute_dtype=bf16,
+                                            compact_caps=caps, masks=masks, **fwd)
+            # kept image tokens per image and layer, as the compacted run's
+            # gates decided them before each gather
+            survivors = torch.stack([(masks[f"layer_{i}"][..., 0] > 0).sum(1)
+                                     for i in range(layers)], dim=1)
+            covered = (survivors <= caps[0]).all(dim=1)
+            rec = compare_logits(torch, f"compact={capacity}", got,
+                                 [("plain_bf16", p16, 3e-2, 3e-2)], mask=covered)
+            emit({"phase": "compact_check", "capacity": capacity, "caps": list(caps),
+                  "tokens": n, "phantom_idx": idx, "phantom_mult": mult,
+                  "path": "merged masked layer" if n >= 128 else "split masked sublayers",
+                  "launches": counts, "launches_per_forward": sum(counts.values()),
+                  "images_covered": int(covered.sum()), "images": BATCH,
+                  "max_survivors_by_layer": survivors.max(0).values.tolist(), **rec,
+                  "top1_agreement_with_exact_engine":
+                      (got.argmax(-1) == exact.argmax(-1)).float().mean().item(),
+                  "max_abs_delta_vs_exact_engine": (got - exact).abs().max().item(),
+                  "tolerance_reason": "held against the plain twin on the images whose "
+                                      "survivors fit the capacity at every layer (the plain "
+                                      "twin's gates); elsewhere the two may keep different "
+                                      "tokens",
+                  "card": smi})
+            compact_engines[capacity] = (eng, caps)
+            compact_counts[capacity] = counts
+    return {"model": model, "engine": engine, "images": images, "masks": masks_by_budget,
+            "compact": compact_engines, "counts": res_counts, "compact_counts": compact_counts,
+            "ee_counts": ee_counts}
+
+
+def residual_timing(torch, F, fa, smi, checks, ins, res, kernel_ms, d, h) -> list:
+    """Phase 11: the exact engine at each budget and the compact modes at
+    bs256, then each new kernel variant beside its plain version, bound and
+    library yardstick. Returns the new kernels' JSON entries."""
+    from peekvit_torch.utils.flops_count import analytic_macs, compact_macs
+
+    model, engine, images = res["model"], res["engine"], res["images"]
+    layers = RESIDUALVIT_B16["num_layers"]
+    dense = 2.0 * analytic_macs(model)
+    with torch.inference_mode():
+        forward_ms = {}
+        for budget in BUDGETS:
+            ms = cuda_ms(torch, lambda: engine(images, budget=budget), iters=10)
+            forward_ms[budget] = ms
+            aware = 2.0 * analytic_macs(model, {"masks": res["masks"][budget]})
+            emit({"phase": "timing_residual", "path": "exact", "batch": BATCH, "budget": budget,
+                  "ms_per_forward": ms, "images_per_s": BATCH / ms * 1e3,
+                  "flops_per_image_dense": dense, "flops_per_image_mask_aware": aware,
+                  "share_of_bf16_peak": dense * BATCH / (ms / 1e3) / PEAK_BF16_FLOPS,
+                  "card": smi})
+        for capacity, (eng, caps) in res["compact"].items():
+            ms = cuda_ms(torch, lambda: eng(images, budget=COMPACT_BUDGET), iters=10)
+            flops = 2.0 * compact_macs(model, caps)
+            emit({"phase": "timing_residual", "path": f"compact={capacity}", "batch": BATCH,
+                  "budget": COMPACT_BUDGET, "caps": list(caps), "ms_per_forward": ms,
+                  "images_per_s": BATCH / ms * 1e3, "flops_per_image_from_caps": flops,
+                  "share_of_bf16_peak": flops * BATCH / (ms / 1e3) / PEAK_BF16_FLOPS,
+                  "speedup_vs_exact": forward_ms[COMPACT_BUDGET] / ms, "card": smi})
+
+        bf, f4 = 2, 4
+        bf16 = torch.bfloat16
+        x, y, xs, ae, as_ = ins["xe"], ins["ye"], ins["xs"], ins["ae"], ins["as"]
+        me, ms_, ln_s, ln_b = ins["me"], ins["ms"], ins["s"], ins["b"]
+        w_out, b_out = ins["w_out"], ins["b_out"]
+        rows_e, rows_s = ins["rows_e"], ins["rows_s"]
+
+        affine = {dt: (ln_s.to(dt), ln_b.to(dt)) for dt in (bf16, torch.float32)}
+
+        def ln_lib(t, m):  # F.layer_norm takes the affine in the input's dtype
+            return F.layer_norm(t, (d,), *affine[t.dtype], BLOCK_EPS) * m[:, None]
+
+        def sdpa_phantom(qkv, n, idx, mult):
+            q, k, v = (qkv[..., i * d:(i + 1) * d].reshape(BATCH, n, h, d // h).transpose(1, 2)
+                       .contiguous() for i in range(3))
+            bias = torch.zeros(1, n, dtype=bf16, device=qkv.device)  # log(mult) at the phantom key
+            bias[0, idx] = math.log(mult)
+            return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+
+        src = "peekvit_torch/csrc/"
+        # name, count key, source, replaces, kernel, plain, library, flops, bytes
+        timed = [
+            ("norm_rows.masked.bf16", "norm_rows.masked.bf16", src + "norm_rows.cu",
+             f"{REPLACES}:672-678 mask * _ln_f32_rows (:578) in _layer_kernel mode 'masked' :616",
+             lambda: fa.norm_rows(x, BLOCK_EPS, bf16, ln_s, ln_b, me),
+             lambda: fa.norm_rows_ref(x, BLOCK_EPS, bf16, ln_s, ln_b, me),
+             lambda: ln_lib(x, me), 9.0 * rows_e * d, rows_e * d * (bf + bf) + rows_e * bf + 2 * d * bf),
+            ("norm_rows.masked.f32", "norm_rows.masked.f32", src + "norm_rows.cu",
+             f"{REPLACES}:707-710 mask * _ln_f32_rows (:578) of the fp32 y in _layer_kernel :616",
+             lambda: fa.norm_rows(y, BLOCK_EPS, bf16, ln_s, ln_b, me),
+             lambda: fa.norm_rows_ref(y, BLOCK_EPS, bf16, ln_s, ln_b, me),
+             lambda: ln_lib(y, me), 9.0 * rows_e * d, rows_e * d * (f4 + bf) + rows_e * bf + 2 * d * bf),
+            ("ln_rows.masked", "ln_rows.masked", src + "norm_rows.cu",
+             f"{REPLACES}:389-395 and :427-432 two-pass mask * LN of _masked_attn_kernel :378 / "
+             "_masked_mlp_kernel :422",
+             lambda: fa.ln_rows(xs, ln_s, ln_b, BLOCK_EPS, ms_),
+             lambda: fa.ln_rows_ref(xs, ln_s, ln_b, BLOCK_EPS, ms_),
+             lambda: ln_lib(xs, ms_), 10.0 * rows_s * d, rows_s * d * (bf + bf) + rows_s * bf + 2 * d * bf),
+            ("gemm_bias_epilogue.masked_residual_f32", "gemm_bias_epilogue.masked_residual_f32",
+             src + "gemm_bias_epilogue.cu",
+             f"{REPLACES}:698-702 masked out-proj + fp32 residual of _layer_kernel mode 'masked' :616",
+             lambda: fa.gemm_bias_epilogue(ae, w_out, b_out, "masked_residual_f32", residual=x, mask=me),
+             lambda: fa.gemm_bias_epilogue_ref(ae, w_out, b_out, "masked_residual_f32", residual=x,
+                                               mask=me),
+             lambda: torch.addmm(b_out, ae, w_out).float() * me[:, None] + x,
+             2.0 * rows_e * d * d, (rows_e * d + d * d + d) * bf + rows_e * d * (f4 + bf) + rows_e * bf),
+            ("gemm_bias_epilogue.masked_residual", "gemm_bias_epilogue.masked_residual",
+             src + "gemm_bias_epilogue.cu",
+             f"{REPLACES}:417-419 masked out-proj + residual of _masked_attn_kernel :378",
+             lambda: fa.gemm_bias_epilogue(as_, w_out, b_out, "masked_residual", residual=xs, mask=ms_),
+             lambda: fa.gemm_bias_epilogue_ref(as_, w_out, b_out, "masked_residual", residual=xs,
+                                               mask=ms_),
+             lambda: (torch.addmm(b_out, as_, w_out) * ms_[:, None] + xs).to(bf16),
+             2.0 * rows_s * d * d, (rows_s * d + d * d + d) * bf + rows_s * d * (bf + bf) + rows_s * bf),
+        ]
+        for qkv, (n, idx, mult) in ((ins["qkv_m"], ins["attn_m"]), (ins["qkv_s"], ins["attn_s"])):
+            timed.append((f"attn_scores_pv.kweight.n{n}", "attn_scores_pv.kweight",
+                          src + "attn_scores_pv.cu", f"{REPLACES}:46 _attn_scores_pv with kweight "
+                          f"(:98-99), in _layer_kernel :616 / _masked_attn_kernel :378",
+                          lambda qkv=qkv, idx=idx, mult=mult: fa.attn_scores_pv(qkv, h, idx, mult),
+                          lambda qkv=qkv, idx=idx, mult=mult: fa.attn_scores_pv_ref(qkv, h, idx, mult),
+                          sdpa_phantom(qkv, n, idx, mult),
+                          4.0 * BATCH * h * n * n * (d // h), BATCH * n * (3 * d + d) * bf))
+        compact_by_n = {compact_geometry(c)[0]: c for c in COMPACT}
+        entries = []
+        for name, key, source, replaces, kfn, pfn, lfn, flops, nbytes in timed:
+            ms = cuda_ms(torch, kfn)
+            kernel_ms[name] = ms
+            plain_ms = cuda_ms(torch, pfn, iters=5)
+            lib_ms = cuda_ms(torch, lfn)
+            bnd, by = bound_ms(flops, nbytes)
+            if key == "attn_scores_pv.kweight":
+                capacity = compact_by_n[int(name.rsplit("n", 1)[1])]
+                launches, path = res["compact_counts"][capacity].get(key, 0), f"compact={capacity}"
+            elif key in res["counts"]:
+                launches, path = res["counts"][key], "residual (exact)"
+            else:
+                launches, path = res["compact_counts"][COMPACT[-1]].get(key, 0), \
+                    f"compact={COMPACT[-1]}"
+            if launches == 0:
+                raise AssertionError(f"{name}: never launched on the residual path")
+            entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                     "launches": launches, "max_abs_err": checks[name], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms,
+                     "path": path, "shape_batch": BATCH, "count_key": key}
+            emit({"phase": "timing_kernel", **{k: v for k, v in entry.items() if k != "count_key"},
+                  "share_of_bound": bnd / ms, "card": smi})
+            entries.append(entry)
+        profile_step(torch, smi, lambda: engine(images, budget=COMPACT_BUDGET),
+                     forward_ms[COMPACT_BUDGET], phase="profile_residual_forward")
+    # exact path per forward: this phase's masked kernels plus the ViT
+    # phase's times of the unchanged GEMMs and attention (N = 197 there)
+    per_layer_ms = {k: kernel_ms[k] for k in RESIDUAL_PER_LAYER}
+    kernels_ms = sum(per_layer_ms.values()) * layers
+    emit({"phase": "timing_breakdown_residual", "budget": 1.0,
+          "kernels_ms_per_forward": kernels_ms,
+          "kernel_ms_per_forward_by_kernel": {k: v * layers for k, v in per_layer_ms.items()},
+          "forward_ms": forward_ms[1.0], "other_ms": forward_ms[1.0] - kernels_ms,
+          "other": "embed, gates, budget token, classify, launch gaps", "card": smi})
     return entries
 
 
@@ -695,11 +1129,43 @@ def main() -> int:
             "engine": main_counts.get(name, 0),
             "split": 0 if other_variant else split_counts.get(name, 0),
             "train": 0 if other_variant else train["counts"].get(name, 0)}
+    # ------------------------------------------------- 9-11. ResidualViT serving
+    res_ins = residual_kernel_checks(torch, fa, check, randn, w_out, b_out, d, h)
+    res = residual_phases(torch, fa, dev, smi)
+    res_entries = residual_timing(torch, F, fa, smi, checks, res_ins, res, kernel_ms, d, h)
+    merged, split = (res["compact_counts"][c] for c in COMPACT)
+
+    def residual_paths(key, residual=True, compact=(merged, split)):
+        # fc2's GEMM takes the fp32 residual in the merged layer and the
+        # bf16 one in the split sublayers; the phantom attention entries
+        # are one per compact mode
+        return {"residual": res["counts"].get(key, 0) if residual else 0,
+                "compact": sum(c.get(key, 0) for c in compact)}
+
+    for entry in kernels:
+        name = entry["name"]
+        entry["launches_by_path"].update(residual_paths(
+            name, compact=(merged,) if name == "gemm_bias_epilogue.residual" else (merged, split)))
     for entry in entries:  # none of them runs on the engine's path
         key = entry.pop("count_key")
-        entry["launches_by_path"] = {"engine": 0, "split": split_counts.get(key, 0),
-                                     "train": train["counts"].get(key, 0)}
-    kernels += entries
+        bf16_res = entry["name"].endswith("bf16_residual")
+        entry["launches_by_path"] = {
+            "engine": 0, "split": split_counts.get(key, 0), "train": train["counts"].get(key, 0),
+            **residual_paths(key, residual=not bf16_res,
+                             compact=(split,) if bf16_res else (merged, split))}
+    for entry in res_entries:
+        key = entry.pop("count_key")
+        by_n = {f"{key}.n{compact_geometry(c)[0]}": (res["compact_counts"][c],) for c in COMPACT}
+        entry["launches_by_path"] = {"engine": 0, "split": 0, "train": 0, **residual_paths(
+            key, compact=by_n.get(entry["name"], (merged, split)))}
+    kernels += entries + res_entries
+    new_keys = ("norm_rows.masked.bf16", "norm_rows.masked.f32", "ln_rows.masked",
+                "gemm_bias_epilogue.masked_residual_f32", "gemm_bias_epilogue.masked_residual",
+                "attn_scores_pv.kweight")
+    missing = [k for k in new_keys
+               if not res["counts"].get(k, 0) + merged.get(k, 0) + split.get(k, 0)]
+    if missing:
+        raise AssertionError(f"kernels never launched on the residual paths: {missing}")
 
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -9,7 +9,15 @@
 //     bf16, and go through exp2 with the result rounded to bf16;
 //   - no max subtraction: the clamp keeps exp2 finite and the rowsum > 0;
 //   - the rowsum accumulates in fp32 beside e . v, and the output is
-//     (e . v) * (1 / rowsum), rounded to bf16.
+//     (e . v) * (1 / rowsum), rounded to bf16;
+//   - with phantom_idx >= 0, key phantom_idx's term becomes
+//     bf16(e * bf16(phantom_mult)) before the rowsum and PV (the key
+//     weight ``kweight`` of _attn_scores_pv :98-99): the token-compaction
+//     engine's phantom slot, one key standing in for phantom_mult dropped
+//     tokens whose keys and values are identical. Unlike the Pallas
+//     kernels, which build the weight only when phantom_mult > 0
+//     (fused_attention.py:398, :660), the weight applies whenever
+//     phantom_idx >= 0, so a phantom with mult 0 contributes nothing.
 //
 // Bound on H100: at ViT-B (N = 197, head dim 64) the two products are
 // 4 * N * N * 64 flops per (image, head) against 4 * N * 64 * 2 bytes
@@ -75,10 +83,14 @@ __device__ __forceinline__ float exp2_term(float logit) {
   const float c = __bfloat162float(__float2bfloat16_rn(fminf(fmaxf(logit, -80.f), 115.f)));
   return __bfloat162float(__float2bfloat16_rn(exp2f(c)));
 }
+// bf16(e * w), w already a bf16 value.
+__device__ __forceinline__ float weighted(float e, float w) {
+  return __bfloat162float(__float2bfloat16_rn(e * w));
+}
 
 __global__ void __launch_bounds__(THREADS)
 attn_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restrict__ out, int n,
-            int d, float qscale) {
+            int d, float qscale, int phantom_idx, float phantom_w) {
   __shared__ __align__(16) __nv_bfloat16 sq[QT * STRIDE];
   __shared__ __align__(16) __nv_bfloat16 sk[2][KT * STRIDE];
   __shared__ __align__(16) __nv_bfloat16 sv[2][KT * STRIDE];
@@ -170,16 +182,24 @@ attn_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restrict__ o
       }
     }
 
-    // e = bf16(exp2(bf16(clamp(s)))), 0 past the last key; rowsum in fp32.
+    // e = bf16(exp2(bf16(clamp(s)))), 0 past the last key, the phantom
+    // key's weighted; rowsum in fp32.
     const int kv0 = t * KT;
     uint32_t pa[4][4];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int key = kv0 + j * 8 + tq * 2;
-      const float e0 = key < n ? exp2_term(s[j][0]) : 0.f;
-      const float e1 = key + 1 < n ? exp2_term(s[j][1]) : 0.f;
-      const float e2 = key < n ? exp2_term(s[j][2]) : 0.f;
-      const float e3 = key + 1 < n ? exp2_term(s[j][3]) : 0.f;
+      float e0 = key < n ? exp2_term(s[j][0]) : 0.f;
+      float e1 = key + 1 < n ? exp2_term(s[j][1]) : 0.f;
+      float e2 = key < n ? exp2_term(s[j][2]) : 0.f;
+      float e3 = key + 1 < n ? exp2_term(s[j][3]) : 0.f;
+      if (key == phantom_idx) {
+        e0 = weighted(e0, phantom_w);
+        e2 = weighted(e2, phantom_w);
+      } else if (key + 1 == phantom_idx) {
+        e1 = weighted(e1, phantom_w);
+        e3 = weighted(e3, phantom_w);
+      }
       rsum0 += e0 + e1;
       rsum1 += e2 + e3;
       pa[j >> 1][(j & 1) * 2] = pack_bf16(e0, e1);
@@ -226,14 +246,18 @@ attn_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restrict__ o
 
 // qkv: (b, n, 3d) bf16 packed as [q | k | v] with head h at columns h*64;
 // out: (b, n, d) bf16. head_dim must be 64 and d a multiple of 64 (the
-// wrapper checks). qscale = head_dim^-0.5 * log2(e). Returns the
-// cudaError_t of the launch.
+// wrapper checks). qscale = head_dim^-0.5 * log2(e). phantom_idx < 0
+// (no phantom key) or in [0, n); phantom_mult is rounded to bf16 here.
+// Returns the cudaError_t of the launch.
 extern "C" int peekvit_attn_scores_pv(const void* qkv, void* out, int b, int n, int d,
-                                      int num_heads, float qscale, void* stream) {
+                                      int num_heads, float qscale, int phantom_idx,
+                                      float phantom_mult, void* stream) {
   if (b == 0 || n == 0) return 0;
-  if (d != num_heads * HD) return (int)cudaErrorInvalidValue;
+  if (d != num_heads * HD || phantom_idx >= n) return (int)cudaErrorInvalidValue;
+  const float phantom_w = __bfloat162float(__float2bfloat16_rn(phantom_mult));
   dim3 grid((n + QT - 1) / QT, num_heads, b);
   attn_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(qkv), static_cast<__nv_bfloat16*>(out), n, d, qscale);
+      static_cast<const __nv_bfloat16*>(qkv), static_cast<__nv_bfloat16*>(out), n, d, qscale,
+      phantom_idx < 0 ? -1 : phantom_idx, phantom_w);
   return (int)cudaGetLastError();
 }

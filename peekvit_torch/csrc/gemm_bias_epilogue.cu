@@ -7,8 +7,13 @@
 //   epilogue 1: + bias, tanh-gelu -> bf16            (fc1, :711-713)
 //   epilogue 2: + bias + residual -> fp32            (out-proj, :698-702)
 //   epilogue 3: + bias + residual -> bf16            (fc2, :714-716)
+// and, with a per-row mask (ResidualViT, _layer_kernel mode 'masked'
+// and _masked_attn_kernel :378):
+//   epilogue 6: (+ bias) * mask[row] + residual -> fp32  (out-proj, :698-702)
+//   epilogue 7: (+ bias) * mask[row] + residual -> bf16  (split out-proj, :417-419)
 // The residual is fp32 (the layer's mid residual y) or bf16 (the layer
-// input, split path). Every sum is taken in fp32 and rounded once.
+// input, split path). The mask is (M,) bf16, read as fp32. Every sum is
+// taken in fp32 and rounded once.
 //
 // With W read as (N, K) row-major (C = A . W^T, the "NT" layout, chosen
 // at compile time) and no bias, it also carries the two transposed-weight
@@ -134,7 +139,8 @@ template <int EPI, bool NT, typename RES, typename OUT>
 __global__ void __launch_bounds__(THREADS)
 gemm_kernel(const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict__ w,
             const __nv_bfloat16* __restrict__ bias, const RES* __restrict__ res,
-            OUT* __restrict__ out, int m, int n, int k) {
+            const __nv_bfloat16* __restrict__ mask, OUT* __restrict__ out, int m, int n,
+            int k) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* sa = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* sb = sa + STAGES * A_TILE;
@@ -213,7 +219,7 @@ gemm_kernel(const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict
   for (int j = 0; j < 4; ++j) {
     const int col = col0 + wn + j * 8 + tq * 2;
     if (col >= n) continue;
-    const float2 b2 = EPI >= 4 ? make_float2(0.f, 0.f)
+    const float2 b2 = (EPI == 4 || EPI == 5) ? make_float2(0.f, 0.f)
                                : __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias + col));
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -228,12 +234,17 @@ gemm_kernel(const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict
           v0 = gelu_tanh(v0);
           v1 = gelu_tanh(v1);
         }
-        if (EPI == 2 || EPI == 3) {
+        if (EPI == 6 || EPI == 7) {
+          const float mk = __bfloat162float(mask[row]);
+          v0 *= mk;
+          v1 *= mk;
+        }
+        if (EPI == 2 || EPI == 3 || EPI == 6 || EPI == 7) {
           const float2 r2 = load_res2<RES>(res + off);
           v0 += r2.x;
           v1 += r2.y;
         }
-        if (EPI == 2 || EPI == 5) {
+        if (EPI == 2 || EPI == 5 || EPI == 6) {
           *reinterpret_cast<float2*>(reinterpret_cast<float*>(out) + off) = make_float2(v0, v1);
         } else {
           *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<__nv_bfloat16*>(out) + off) =
@@ -245,8 +256,8 @@ gemm_kernel(const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict
 }
 
 template <int EPI, bool NT, typename RES, typename OUT>
-int launch(const void* a, const void* w, const void* bias, const void* res, void* out,
-           int m, int n, int k, cudaStream_t stream) {
+int launch(const void* a, const void* w, const void* bias, const void* res, const void* mask,
+           void* out, int m, int n, int k, cudaStream_t stream) {
   auto kern = gemm_kernel<EPI, NT, RES, OUT>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<NT>());
@@ -255,38 +266,53 @@ int launch(const void* a, const void* w, const void* bias, const void* res, void
   kern<<<grid, THREADS, smem_bytes<NT>(), stream>>>(
       static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(w),
       static_cast<const __nv_bfloat16*>(bias), static_cast<const RES*>(res),
-      static_cast<OUT*>(out), m, n, k);
+      static_cast<const __nv_bfloat16*>(mask), static_cast<OUT*>(out), m, n, k);
   return (int)cudaGetLastError();
+}
+
+// Residual epilogues (2, 3, 6, 7) with either residual type.
+template <int EPI, typename OUT>
+int launch_res(int res_f32, const void* a, const void* w, const void* bias, const void* res,
+               const void* mask, void* out, int m, int n, int k, cudaStream_t s) {
+  return res_f32 ? launch<EPI, false, float, OUT>(a, w, bias, res, mask, out, m, n, k, s)
+                 : launch<EPI, false, __nv_bfloat16, OUT>(a, w, bias, res, mask, out, m, n, k, s);
 }
 
 }  // namespace
 
 // epilogue: 0 bias, 1 bias + tanh-gelu, 2 bias + residual -> fp32,
 // 3 bias + residual -> bf16, 4 A . W^T -> bf16, 5 A . W^T -> fp32 (W as
-// (N, K); bias and res are ignored for 4 and 5). res_f32 selects an fp32
-// (1) or bf16 (0) residual for epilogues 2 and 3; res is ignored
-// otherwise. Returns the cudaError_t of the launch (an unknown epilogue
-// returns cudaErrorInvalidValue).
+// (N, K); bias and res are ignored for 4 and 5), 6 (bias) * mask +
+// residual -> fp32, 7 (bias) * mask + residual -> bf16. res_f32 selects an
+// fp32 (1) or bf16 (0) residual for epilogues 2, 3, 6 and 7; res is
+// ignored otherwise. mask ((m,) bf16) is read by epilogues 6 and 7 only.
+// Returns the cudaError_t of the launch (an unknown epilogue, or 6 or 7
+// without a mask, returns cudaErrorInvalidValue).
 extern "C" int peekvit_gemm_bias_epilogue(const void* a, const void* w, const void* bias,
-                                          const void* res, void* out, int m, int n, int k,
-                                          int epilogue, int res_f32, void* stream) {
+                                          const void* res, const void* mask, void* out, int m,
+                                          int n, int k, int epilogue, int res_f32,
+                                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (m == 0) return 0;
   switch (epilogue) {
     case 0:
-      return launch<0, false, float, __nv_bfloat16>(a, w, bias, res, out, m, n, k, s);
+      return launch<0, false, float, __nv_bfloat16>(a, w, bias, res, mask, out, m, n, k, s);
     case 1:
-      return launch<1, false, float, __nv_bfloat16>(a, w, bias, res, out, m, n, k, s);
+      return launch<1, false, float, __nv_bfloat16>(a, w, bias, res, mask, out, m, n, k, s);
     case 2:
-      return res_f32 ? launch<2, false, float, float>(a, w, bias, res, out, m, n, k, s)
-                     : launch<2, false, __nv_bfloat16, float>(a, w, bias, res, out, m, n, k, s);
+      return launch_res<2, float>(res_f32, a, w, bias, res, mask, out, m, n, k, s);
     case 3:
-      return res_f32 ? launch<3, false, float, __nv_bfloat16>(a, w, bias, res, out, m, n, k, s)
-                     : launch<3, false, __nv_bfloat16, __nv_bfloat16>(a, w, bias, res, out, m, n, k, s);
+      return launch_res<3, __nv_bfloat16>(res_f32, a, w, bias, res, mask, out, m, n, k, s);
     case 4:
-      return launch<4, true, float, __nv_bfloat16>(a, w, bias, res, out, m, n, k, s);
+      return launch<4, true, float, __nv_bfloat16>(a, w, bias, res, mask, out, m, n, k, s);
     case 5:
-      return launch<5, true, float, float>(a, w, bias, res, out, m, n, k, s);
+      return launch<5, true, float, float>(a, w, bias, res, mask, out, m, n, k, s);
+    case 6:
+    case 7:
+      if (mask == nullptr) return (int)cudaErrorInvalidValue;
+      return epilogue == 6
+                 ? launch_res<6, float>(res_f32, a, w, bias, res, mask, out, m, n, k, s)
+                 : launch_res<7, __nv_bfloat16>(res_f32, a, w, bias, res, mask, out, m, n, k, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -7,6 +7,14 @@
 // _attn_block_kernel (fused_attention.py:253-258) used by the split
 // fused_attention_block path.
 //
+// With the LN affine and a per-row mask it also carries the ResidualViT
+// mask * LN(x) steps: one-pass statistics with affine and mask for the
+// masked layer kernel (_layer_kernel mode 'masked', :672-678 and
+// :707-710, via _ln_f32_rows :578), and two-pass with affine and mask for
+// the split masked sublayers (_masked_attn_kernel :389-395,
+// _masked_mlp_kernel :426-432). The affine cannot be folded there: the row
+// mask does not commute with the folded bias term.
+//
 // Bound on H100: bytes. A ViT-B row is 768 values; the kernel reads the
 // row and writes it back in bf16, a few flops per byte. Design: one warp
 // owns a row, reads it with 16-byte vector loads (8 bf16 or 4 fp32 per
@@ -15,7 +23,9 @@
 // (the second read mostly hits L1/L2). Eight rows per 256-thread block.
 //
 // Numerics follow the Pallas kernel: statistics in fp32,
-// var = max(E[x^2] - mu^2, 0), rsqrt(var + eps), result rounded to bf16.
+// var = max(E[x^2] - mu^2, 0) (one pass) or E[(x - mu)^2] (two passes),
+// rsqrt(var + eps), then * scale + bias, then * mask[row] (the bf16 mask
+// read as fp32), one rounding to bf16 at the end.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,10 +69,11 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p, const float* v) {
   *reinterpret_cast<uint4*>(p) = raw;
 }
 
-template <typename T, bool kTwoPass>
+template <typename T, bool kTwoPass, bool kAffine, bool kMask>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 norm_rows_kernel(const T* __restrict__ x, const __nv_bfloat16* __restrict__ scale,
                  const __nv_bfloat16* __restrict__ bias,
+                 const __nv_bfloat16* __restrict__ mask,
                  __nv_bfloat16* __restrict__ out, long long rows, int d,
                  float eps) {
   const int lane = threadIdx.x & 31;
@@ -101,52 +112,70 @@ norm_rows_kernel(const T* __restrict__ x, const __nv_bfloat16* __restrict__ scal
     var = fmaxf(sq * inv_d - mu * mu, 0.f);
   }
   const float rs = rsqrtf(var + eps);
+  const float m = kMask ? __bfloat162float(mask[row]) : 1.f;
 
   for (int c = lane * 8; c < d; c += 256) {
     load8(xr + c, v);
-    if (kTwoPass) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = (v[i] - mu) * rs;
+    if (kAffine) {
       float s[8], b[8];
       load8(scale + c, s);
       load8(bias + c, b);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) v[i] = (v[i] - mu) * rs * s[i] + b[i];
-    } else {
+      for (int i = 0; i < 8; ++i) v[i] = v[i] * s[i] + b[i];
+    }
+    if (kMask) {
 #pragma unroll
-      for (int i = 0; i < 8; ++i) v[i] = (v[i] - mu) * rs;
+      for (int i = 0; i < 8; ++i) v[i] *= m;
     }
     store8(orow + c, v);
   }
 }
 
-template <typename T, bool kTwoPass>
-int launch(const void* x, const void* scale, const void* bias, void* out,
+template <typename T, bool kTwoPass, bool kAffine, bool kMask>
+int launch(const void* x, const void* scale, const void* bias, const void* mask, void* out,
            long long rows, int d, float eps, cudaStream_t stream) {
   const unsigned grid = (unsigned)((rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  norm_rows_kernel<T, kTwoPass><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
+  norm_rows_kernel<T, kTwoPass, kAffine, kMask><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const __nv_bfloat16*>(scale),
-      static_cast<const __nv_bfloat16*>(bias), static_cast<__nv_bfloat16*>(out),
-      rows, d, eps);
+      static_cast<const __nv_bfloat16*>(bias), static_cast<const __nv_bfloat16*>(mask),
+      static_cast<__nv_bfloat16*>(out), rows, d, eps);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch(const void* x, const void* scale, const void* bias, const void* mask, void* out,
+             long long rows, int d, float eps, int two_pass, cudaStream_t s) {
+  const bool affine = scale != nullptr, masked = mask != nullptr;
+  if (two_pass) {
+    if (!affine) return (int)cudaErrorInvalidValue;
+    return masked ? launch<T, true, true, true>(x, scale, bias, mask, out, rows, d, eps, s)
+                  : launch<T, true, true, false>(x, scale, bias, mask, out, rows, d, eps, s);
+  }
+  if (affine != masked) return (int)cudaErrorInvalidValue;
+  return masked ? launch<T, false, true, true>(x, scale, bias, mask, out, rows, d, eps, s)
+                : launch<T, false, false, false>(x, scale, bias, mask, out, rows, d, eps, s);
 }
 
 }  // namespace
 
 // x: (rows, d) bf16 (in_f32 = 0) or fp32 (in_f32 = 1), row-major; out:
-// (rows, d) bf16. two_pass = 1 selects two-pass statistics plus the affine
-// (scale, bias: (d,) bf16); otherwise scale and bias are ignored.
-// d must be a multiple of 8 and every pointer 16-byte aligned (the
-// wrapper checks). Returns the cudaError_t of the launch.
+// (rows, d) bf16. scale and bias ((d,) bf16, or both null) select the
+// affine; mask ((rows,) bf16, or null) multiplies each output row.
+// two_pass = 1 selects two-pass statistics and needs the affine; one-pass
+// statistics take the affine exactly when they take the mask (unmasked,
+// the affine is folded into the next GEMM). Other combinations return
+// cudaErrorInvalidValue. d must be a multiple of 8 and x, scale, bias and
+// out 16-byte aligned (the wrapper checks). Returns the cudaError_t of
+// the launch.
 extern "C" int peekvit_norm_rows(const void* x, int in_f32, const void* scale,
-                                 const void* bias, void* out, long long rows,
-                                 int d, float eps, int two_pass,
+                                 const void* bias, const void* mask, void* out,
+                                 long long rows, int d, float eps, int two_pass,
                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rows == 0) return 0;
-  if (in_f32) {
-    return two_pass ? launch<float, true>(x, scale, bias, out, rows, d, eps, s)
-                    : launch<float, false>(x, scale, bias, out, rows, d, eps, s);
-  }
-  return two_pass
-             ? launch<__nv_bfloat16, true>(x, scale, bias, out, rows, d, eps, s)
-             : launch<__nv_bfloat16, false>(x, scale, bias, out, rows, d, eps, s);
+  if ((scale == nullptr) != (bias == nullptr)) return (int)cudaErrorInvalidValue;
+  return in_f32 ? dispatch<float>(x, scale, bias, mask, out, rows, d, eps, two_pass, s)
+                : dispatch<__nv_bfloat16>(x, scale, bias, mask, out, rows, d, eps, two_pass, s);
 }

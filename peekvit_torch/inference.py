@@ -1,25 +1,35 @@
-"""Fused eval engine for the plain ViT (counterpart of
-peekvit_tpu/inference.py: the plain-ViT part of ``prepare_engine_params``,
-``vit_forward_fused``, ``_encoder_stack`` and ``InferenceEngine``).
+"""Fused eval engines for the plain ViT and the ResidualViT family
+(counterpart of peekvit_tpu/inference.py: ``prepare_engine_params``,
+``vit_forward_fused``, ``_encoder_stack``, ``residualvit_forward_fused``
+and ``InferenceEngine``).
 
-The engine reads the model's weights into a param tree in the JAX
-grammar, folds the LN affines into the qkv/fc1 weights and the
+For a plain ViT the engine reads the model's weights into a param tree in
+the JAX grammar, folds the LN affines into the qkv/fc1 weights and the
 pos-embedding into the embed bias once, stacks the layers, and runs::
 
     _embed_posfolded -> encoder_layers_one_call (the CUDA kernels) -> _classify
 
-The patch-embed matmul, the class-token LayerNorm and the head are work
-the JAX package leaves to XLA; here they are plain torch ops.
+For a ResidualViT (sigmoid gates, 'attention+mlp' on every layer, a
+budget token: the shipped configuration) it runs, per layer, the gate and
+then the masked layer on the kernels (``residualvit_forward_fused``);
+``compact=`` gathers the top tokens by gate value first, so the layers run
+on fewer tokens. The patch-embed matmul, the gates, top-k and gather, the
+budget token, the class-token LayerNorm and the heads are work the JAX
+package leaves to XLA; here they are plain torch ops.
 
 Usage::
 
     model = build_model("vit", args)            # on the card
     engine = InferenceEngine(model)             # bf16, the CUDA kernels
     logits = engine(images)                     # NHWC -> (B, classes) fp32
+
+    engine = InferenceEngine(build_model("residualvit", args), compact=0.75)
+    logits = engine(images, budget=0.5)
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, Optional
 
 import numpy as np
@@ -27,7 +37,9 @@ import torch
 import torch.nn.functional as F
 
 from peekvit_torch.models.adapters import module_params, tree_map
+from peekvit_torch.models.eeresidualvit import EEResidualVisionTransformer
 from peekvit_torch.models.registry import resolve_device
+from peekvit_torch.models.residualvit import ResidualVisionTransformer
 from peekvit_torch.models.vit import VisionTransformer
 from peekvit_torch.ops.cuda.fused_attention import (
     encoder_layers_one_call,
@@ -35,6 +47,12 @@ from peekvit_torch.ops.cuda.fused_attention import (
     fold_ln_into_weights,
     fused_attention_block,
     fused_layer_block_folded,
+    masked_attention_block,
+    masked_attention_block_ref,
+    masked_layer_block,
+    masked_layer_block_ref,
+    masked_mlp_block,
+    masked_mlp_block_ref,
 )
 from peekvit_torch.ops.patch_embed import extract_patches as _patchify
 
@@ -89,24 +107,41 @@ def _layer_ids(enc):
     return sorted(int(k.split("_")[1]) for k in enc if k.startswith("layers_"))
 
 
-def prepare_engine_params(params: dict, compute_dtype=None, fold_ln: bool = False) -> dict:
-    """Engine-side param preparation, once at construction (plain ViT):
+# Gate subtrees stay fp32 whatever the compute dtype: thresholding a gate
+# is discontinuous, so the engine's gate arithmetic is fp32 on purpose
+# (JAX inference.py:159-172).
+_FP32_SUBTREES = frozenset({"residual_gate", "budget_token_gate"})
 
-    - fp32 leaves are cast to ``compute_dtype``; 1-D vectors become (1, k);
-    - ``fold_ln=True`` folds every layer's LN affines into its qkv and fc1
-      weights in fp32 from the original weights (``_folded_qkv`` /
-      ``_folded_fc1``, then cast), stacks the layers for the one-call
-      encoder (``encoder._stacked_layers``), and folds the pos-embedding
-      and conv bias into ``_embed_special`` / ``_embed_img_bias``.
-    """
-    def visit(t):
-        if compute_dtype is not None and t.dtype == torch.float32:
+
+def _prepare_tree(tree: dict, compute_dtype, keep_fp32: bool = False) -> dict:
+    out = {}
+    for key, t in tree.items():
+        if isinstance(t, dict):
+            out[key] = _prepare_tree(t, compute_dtype, keep_fp32 or key in _FP32_SUBTREES)
+            continue
+        if compute_dtype is not None and not keep_fp32 and t.dtype == torch.float32:
             t = t.to(compute_dtype)
         if t.dim() == 1 and t.shape[0] > 1:
             t = t.reshape(1, -1)
-        return t
+        out[key] = t
+    return out
 
-    out = tree_map(visit, params)
+
+def prepare_engine_params(params: dict, compute_dtype=None, fold_ln: bool = False) -> dict:
+    """Engine-side param preparation, once at construction:
+
+    - fp32 leaves are cast to ``compute_dtype``, except the gate subtrees
+      (``residual_gate``, ``budget_token_gate``), which stay fp32; 1-D
+      vectors become (1, k);
+    - ``fold_ln=True`` (plain ViT only: a ResidualViT's row masks do not
+      commute with a folded LN bias) folds every layer's LN affines into
+      its qkv and fc1 weights in fp32 from the original weights
+      (``_folded_qkv`` / ``_folded_fc1``, then cast), stacks the layers for
+      the one-call encoder (``encoder._stacked_layers``), and folds the
+      pos-embedding and conv bias into ``_embed_special`` /
+      ``_embed_img_bias``.
+    """
+    out = _prepare_tree(params, compute_dtype)
     if not (fold_ln and "encoder" in params):
         return out
     cdt = compute_dtype or torch.float32
@@ -229,51 +264,304 @@ def vit_forward_plain(params, images, *, patch_size: int, num_heads: int,
         num_registers=num_registers, ln_eps=ln_eps, compute_dtype=compute_dtype)
 
 
+# Below this token count the JAX engine takes the split masked sublayers
+# in place of the merged masked layer (JAX inference.py:306-310, :2312).
+# It is a TPU speed threshold, but it decides which numerics run: the
+# merged layer's one-pass LN with an fp32 mid residual, or the split
+# sublayers' two-pass LN with a bf16 residual between them. Kept as JAX
+# has it, so that the compacted forwards match; its H100 value is later
+# speed work.
+_MERGED_MIN_TOKENS = 128
+
+_MASKED_KERNELS = (masked_layer_block, masked_attention_block, masked_mlp_block)
+_MASKED_PLAIN = (masked_layer_block_ref, masked_attention_block_ref, masked_mlp_block_ref)
+
+
+def _residual_forward(params, images, budget, blocks, *, patch_size: int, num_heads: int,
+                      num_class_tokens: int = 1, num_registers: int = 0,
+                      gate_temp: float = 1.0, gate_bias: float = 0.0,
+                      budget_token: Any = "learnable", compute_dtype=torch.bfloat16,
+                      early_exits: bool = False, compact_caps: Optional[tuple] = None,
+                      masks: Optional[dict] = None):
+    layer_block, attention_block, mlp_block = blocks
+
+    def cast(t):
+        return t.to(compute_dtype)
+
+    c = num_class_tokens
+    tokens, d = _embed(params, images, patch_size, c, num_registers, cast)
+    b, dev = tokens.shape[0], tokens.device
+    enc = params["encoder"]
+    tokens = tokens + cast(enc["pos_embedding"])  # budget token excluded
+
+    bcast = torch.full((b, 1, 1), float(budget), dtype=torch.float32, device=dev).to(compute_dtype)
+    if budget_token == "learnable":
+        btok = cast(params["learnable_budget_token_1"]) * bcast
+    elif budget_token == "learnable_interpolate":
+        btok = (cast(params["learnable_budget_token_1"]) * bcast
+                + cast(params["learnable_budget_token_2"]) * (1.0 - bcast))
+    elif budget_token:
+        btok = bcast
+    else:
+        raise NotImplementedError("the fused residualvit engine needs a budget token")
+    btok = btok.expand(b, 1, d)
+    s = c + num_registers  # special tokens at the front
+    n_img_orig = tokens.shape[1] - s
+    # Compaction carries one PHANTOM zero slot between the image tokens and
+    # the budget token; its key's exp term is weighted by the dropped count
+    # in the attention kernel, standing in for the removed gated-off tokens
+    # (whose keys and values are the same bias terms).
+    phantom = compact_caps is not None and min(compact_caps) < n_img_orig
+    tail = 2 if phantom else 1
+    pieces = [tokens, tokens.new_zeros((b, 1, d))] if phantom else [tokens]
+    tokens = torch.cat(pieces + [btok], dim=1)
+    ones = torch.ones((b, s, 1), dtype=compute_dtype, device=dev)
+    zero = torch.zeros((b, 1, 1), dtype=compute_dtype, device=dev)
+    exits = []
+
+    for li, i in enumerate(_layer_ids(enc)):
+        lp = enc[f"layers_{i}"]
+        # ---- gate, in fp32 (reference residualvit.py:58-69, 154-165)
+        img = tokens[:, s:-tail]
+        gp = lp["residual_gate"]["projection"]
+        sig = torch.sigmoid((img.float() @ gp["kernel"].float() + gp["bias"].float())
+                            / gate_temp + gate_bias)
+        if budget_token == "learnable":
+            bg = lp["budget_token_gate"]
+            thr = torch.sigmoid(tokens[:, -1:].float() @ bg["kernel"].float()
+                                + bg["bias"].float())
+            mask = torch.relu(sig - thr)
+        else:
+            # the mean over the WHOLE batch's (evolving) budget token, a
+            # reference quirk (residualvit.py:208) kept for parity
+            cur_b = tokens[:, -1:].float().mean()
+            mask = torch.relu(sig - (1.0 - cur_b))
+        if masks is not None:
+            masks[f"layer_{i}"] = mask  # fp32 (B, N_img, 1), what the module's aux holds
+        if compact_caps is not None and compact_caps[li] < img.shape[1]:
+            # keep the top-cap tokens by gate value in descending order,
+            # ties by the lower index (jax.lax.top_k's order; torch.topk is
+            # not stable); the surplus slots arrive with mask 0
+            idx = torch.sort(mask[..., 0], dim=1, descending=True, stable=True).indices
+            idx = idx[:, :compact_caps[li], None]
+            img = torch.gather(img, 1, idx.expand(-1, -1, d))
+            mask = torch.gather(mask, 1, idx)
+        mask = mask.to(compute_dtype)
+        if phantom:
+            # the phantom slot: mask 0 (a gated-off token), value carried
+            fwd_mask = torch.cat([ones, mask, zero, ones[:, :1]], dim=1)
+            tokens = torch.cat([tokens[:, :s], mask * img, tokens[:, -2:]], dim=1)
+            ph_mult, ph_idx = float(n_img_orig - img.shape[1]), s + img.shape[1]
+        else:
+            fwd_mask = torch.cat([ones, mask, ones[:, :1]], dim=1)
+            tokens = torch.cat([tokens[:, :s], mask * img, tokens[:, -1:]], dim=1)
+            ph_mult, ph_idx = 0.0, -1
+
+        at, mlp = lp["self_attention"], lp["mlp"]
+        weights = (cast(lp["ln_1"]["scale"]), cast(lp["ln_1"]["bias"]),
+                   cast(at["in_proj_kernel"]), cast(at["in_proj_bias"]),
+                   cast(at["out_proj_kernel"]), cast(at["out_proj_bias"]),
+                   cast(lp["ln_2"]["scale"]), cast(lp["ln_2"]["bias"]),
+                   cast(mlp["fc1_kernel"]), cast(mlp["fc1_bias"]),
+                   cast(mlp["fc2_kernel"]), cast(mlp["fc2_bias"]))
+        if compact_caps is None or tokens.shape[1] >= _MERGED_MIN_TOKENS:
+            tokens = layer_block(tokens, fwd_mask, *weights, num_heads, 1e-6, ph_mult, ph_idx)
+        else:
+            tokens = attention_block(tokens, fwd_mask, *weights[:6], num_heads, 1e-6,
+                                     ph_mult, ph_idx)
+            tokens = mlp_block(tokens, fwd_mask, *weights[6:], 1e-6)
+        if early_exits:
+            ln_p = enc[f"early_exit_heads_{i}_ln"]
+            hd_p = enc[f"early_exit_heads_{i}_head"]
+            cls = _layer_norm(tokens[:, :c], cast(ln_p["scale"]), cast(ln_p["bias"]), 1e-5)[:, 0]
+            exits.append((cls @ cast(hd_p["kernel"]) + cast(hd_p["bias"])).float())
+
+    final = _classify(params, tokens, c, cast, ln_eps=1e-5)
+    return tuple(exits) + (final,) if early_exits else final
+
+
+def residualvit_forward_fused(params, images, budget: float, *, patch_size: int,
+                              num_heads: int, num_class_tokens: int = 1,
+                              num_registers: int = 0, gate_temp: float = 1.0,
+                              gate_bias: float = 0.0, budget_token: Any = "learnable",
+                              compute_dtype=torch.bfloat16, early_exits: bool = False,
+                              compact_caps: Optional[tuple] = None,
+                              masks: Optional[dict] = None):
+    """ResidualViT eval forward (sigmoid gates, 'attention+mlp' skip, a
+    budget token) over the masked-layer kernels (JAX
+    ``residualvit_forward_fused``, inference.py:2141). images: (B, H, W, 3);
+    ``params`` from ``prepare_engine_params`` (unfolded). Returns fp32
+    logits, or with ``early_exits`` the tuple (exit_0, ..., exit_{L-1},
+    final) of an early-exit model.
+
+    Per layer: the gate in fp32 (Dense(1) on the image tokens, then the
+    budget-token threshold), gated image tokens multiplied by their mask,
+    then ``masked_layer_block`` (block LN eps 1e-6; the final LN 1e-5).
+
+    ``compact_caps`` (one static image-token capacity per layer): after
+    each gate the top ``cap`` tokens by gate value are gathered and the
+    layers run on ``s + cap + 2`` tokens (special tokens, survivors and
+    surplus slots with mask 0, the phantom slot, the budget token). Below
+    ``_MERGED_MIN_TOKENS`` tokens the split masked sublayers run. Unlike
+    the JAX engine, a layer that keeps every token gives the phantom key
+    weight 0 (``phantom_idx`` is set whenever the phantom slot is there),
+    so such layers match the exact path.
+
+    ``masks``: if a dict is given, each layer's fp32 gate mask is stored in
+    it under ``layer_{i}``, the grammar of the module's ``aux["masks"]``:
+    (B, N_img, 1), or with compaction the gate's decision over the image
+    slots the layer was given, before the top-``cap`` gather."""
+    return _residual_forward(
+        params, images, budget, _MASKED_KERNELS, patch_size=patch_size, num_heads=num_heads,
+        num_class_tokens=num_class_tokens, num_registers=num_registers, gate_temp=gate_temp,
+        gate_bias=gate_bias, budget_token=budget_token, compute_dtype=compute_dtype,
+        early_exits=early_exits, compact_caps=compact_caps, masks=masks)
+
+
+def residualvit_forward_plain(params, images, budget: float, *, patch_size: int,
+                              num_heads: int, num_class_tokens: int = 1,
+                              num_registers: int = 0, gate_temp: float = 1.0,
+                              gate_bias: float = 0.0, budget_token: Any = "learnable",
+                              compute_dtype=torch.float32, early_exits: bool = False,
+                              compact_caps: Optional[tuple] = None,
+                              masks: Optional[dict] = None):
+    """The same forward with the masked layers on the kernels' plain
+    versions, whatever the device: the reference a check holds the engine
+    against on the card."""
+    return _residual_forward(
+        params, images, budget, _MASKED_PLAIN, patch_size=patch_size, num_heads=num_heads,
+        num_class_tokens=num_class_tokens, num_registers=num_registers, gate_temp=gate_temp,
+        gate_bias=gate_bias, budget_token=budget_token, compute_dtype=compute_dtype,
+        early_exits=early_exits, compact_caps=compact_caps, masks=masks)
+
+
 class InferenceEngine:
-    """Fused eval forward bound to a built plain ViT.
+    """Fused eval forward bound to a built plain ViT or ResidualViT.
 
     ``device`` defaults to the card and raises when there is none; pass
     ``device="cpu"`` to run the kernels' plain versions on the CPU. On the
-    card the kernels take bf16 only."""
+    card the kernels take bf16 only.
+
+    ResidualViT (the shipped mode: sigmoid gates, 'attention+mlp' on every
+    layer, a budget token, ``add_input=False``): ``engine(images,
+    budget=b)``, the budget 1.0 by default. ``ee_outputs=True`` (an
+    early-exit model) returns the tuple of every exit and the final
+    logits. ``compact=`` turns gate sparsity into less work: a float
+    capacity for every layer, a per-layer schedule of fractions, or
+    ``True`` for min(1, budget + ``compact_slack``) per budget; a capacity
+    is ceil(c * N_img) rounded up to a multiple of 8, and one that covers
+    every token runs the exact path."""
 
     def __init__(self, model, compute_dtype=torch.bfloat16, device="cuda",
                  quantized: bool = False, max_budget: Optional[float] = None,
-                 mesh: Any = None, compact: Any = None, ee_outputs: bool = False,
-                 recon_outputs: bool = False, routed: Any = None):
-        if not isinstance(model, VisionTransformer):
+                 mesh: Any = None, compact: Any = None, compact_slack: float = 0.0,
+                 ee_outputs: bool = False, recon_outputs: bool = False, routed: Any = None):
+        residual = isinstance(model, ResidualVisionTransformer)
+        if not residual and not isinstance(model, VisionTransformer):
             raise NotImplementedError(
-                f"the port's engine serves the plain VisionTransformer; "
-                f"{type(model).__name__} is ROADMAP.md port queue A items 4-7")
+                f"the port's engine serves the plain VisionTransformer and the ResidualViT "
+                f"family; {type(model).__name__} is ROADMAP.md port queue A items 5-7")
+        if compact is not None:
+            if not residual:
+                raise NotImplementedError(
+                    "compact= (token-compaction serving) applies to the ResidualViT family "
+                    "- other families either have no gates or already drop physically (RankViT)")
+            if quantized or recon_outputs or mesh is not None:
+                raise NotImplementedError(
+                    "compact= is a bf16 single-program mode: int8 would redefine the "
+                    "calibrated grid per capacity, the recon decoder needs token positions "
+                    "compaction discards, and the TP partial kernels have no compacted "
+                    "variants (serve those dense or data-parallel)")
+        if ee_outputs and not isinstance(model, EEResidualVisionTransformer):
+            raise NotImplementedError("ee_outputs=True needs an EEResidualVisionTransformer")
         not_ported = {
             "quantized=": (quantized, "item 6 (int8)"),
             "max_budget=": (max_budget is not None, "item 5 (RankViT)"),
             "mesh=": (mesh is not None, "item 9 (parallel and serving)"),
-            "compact=": (compact is not None, "item 4 (ResidualViT compaction)"),
-            "ee_outputs=": (ee_outputs, "item 4 (ResidualViT)"),
-            "recon_outputs=": (recon_outputs, "items 4 and 7 (EncDec / MAE)"),
+            "recon_outputs=": (recon_outputs, "item 7 (EncDec / MAE)"),
             "routed=": (routed is not None, "item 7 (MoE)"),
         }
         for name, (used, item) in not_ported.items():
             if used:
                 raise NotImplementedError(
                     f"{name} is not ported yet: ROADMAP.md port queue A {item}")
+        if residual:
+            layers = model.residual_layers or ["attention+mlp"] * model.num_layers
+            if (set(layers) != {"attention+mlp"} or model.gate_type != "sigmoid"
+                    or model.add_input or not model.add_budget_token):
+                raise NotImplementedError(
+                    "fused ResidualViT engine supports the shipped-config mode: sigmoid gates, "
+                    "attention+mlp skip, budget token, add_input=False (SURVEY.md section 7.6)")
         self.device = resolve_device(device)
         if self.device.type == "cuda" and compute_dtype != torch.bfloat16:
             raise NotImplementedError(
                 "the CUDA kernels take bf16 only; an fp32 engine on the card is "
                 "ROADMAP.md port queue B item 15 (fp32 on CUDA)")
+        self._module = model
+        self._residual = residual
+        params = tree_map(lambda t: t.to(self.device), module_params(model))
+        if not residual:
+            self._forward = dict(
+                patch_size=model.patch_size, num_heads=model.num_heads,
+                num_class_tokens=model.num_class_tokens, num_registers=model.num_registers,
+                ln_eps=model.ln_eps, compute_dtype=compute_dtype)
+            self.params = prepare_engine_params(params, compute_dtype, fold_ln=True)
+            return
         self._forward = dict(
             patch_size=model.patch_size, num_heads=model.num_heads,
             num_class_tokens=model.num_class_tokens, num_registers=model.num_registers,
-            ln_eps=model.ln_eps, compute_dtype=compute_dtype)
-        params = tree_map(lambda t: t.to(self.device), module_params(model))
-        self.params = prepare_engine_params(params, compute_dtype, fold_ln=True)
+            gate_temp=model.gate_temp, gate_bias=model.gate_bias,
+            budget_token=model.add_budget_token, compute_dtype=compute_dtype,
+            early_exits=bool(ee_outputs))
+        self.params = prepare_engine_params(params, compute_dtype)
+        self._compact_auto = compact is True
+        self._compact_slack = float(compact_slack)
+        self._compact_caps_by_budget: dict = {}  # compact=True: budget -> capacities
+        self._compact_caps = (None if compact is None or self._compact_auto
+                              else self._compact_caps_for(compact))
 
-    def __call__(self, images) -> torch.Tensor:
+    def _compact_caps_for(self, capacity):
+        """Per-layer image-token capacities for ``compact`` mode:
+        ceil(capacity * N_img) rounded up to a multiple of 8, clamped to
+        N_img. ``capacity`` is one fraction for every layer or a per-layer
+        schedule (a layer whose capacity exceeds the current compacted
+        width leaves it: the buffer never grows back). Returns None when
+        every capacity covers every token: the exact masked path runs."""
+        module = self._module
+        n_img = (module.image_size // module.patch_size) ** 2
+
+        def one(c):
+            return min(n_img, max(8, -8 * (-math.ceil(float(c) * n_img) // 8)))
+
+        if isinstance(capacity, (tuple, list)):
+            if len(capacity) != module.num_layers:
+                raise ValueError(f"compact= schedule has {len(capacity)} entries for a "
+                                 f"{module.num_layers}-layer model")
+            caps = tuple(one(c) for c in capacity)
+            return None if all(c >= n_img for c in caps) else caps
+        cap = one(capacity)
+        return None if cap >= n_img else (cap,) * module.num_layers
+
+    def compact_caps(self, budget: float = 1.0) -> Optional[tuple]:
+        """The capacities a ``budget`` request runs with (None: exact path)."""
+        if not self._compact_auto:
+            return self._compact_caps
+        if budget not in self._compact_caps_by_budget:
+            self._compact_caps_by_budget[budget] = self._compact_caps_for(
+                min(1.0, budget + self._compact_slack))
+        return self._compact_caps_by_budget[budget]
+
+    def __call__(self, images, budget: Optional[float] = None):
         """images: (B, H, W, 3) numpy array or tensor. Returns fp32 logits
-        on the engine's device."""
+        on the engine's device (for ``ee_outputs``, the tuple of exits and
+        final logits). ``budget`` (ResidualViT, default 1.0) is ignored by
+        a plain ViT, as in the JAX engine."""
         if isinstance(images, np.ndarray):
             images = torch.from_numpy(images)
         images = images.to(self.device, torch.float32)
         with torch.inference_mode():
-            return vit_forward_fused(self.params, images, **self._forward)
+            if not self._residual:
+                return vit_forward_fused(self.params, images, **self._forward)
+            b = 1.0 if budget is None else float(budget)
+            return residualvit_forward_fused(self.params, images, b,
+                                             compact_caps=self.compact_caps(b), **self._forward)

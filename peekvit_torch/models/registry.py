@@ -1,6 +1,7 @@
 """build_model for the port (counterpart of peekvit_tpu/models/registry.py
-:115-180). Only the plain ViT is ported; the other registered families
-raise NotImplementedError naming their ROADMAP item."""
+:115-180). The plain ViT, the ResidualViT and the early-exit ResidualViT
+are ported; the other registered families raise NotImplementedError
+naming their ROADMAP item."""
 
 from __future__ import annotations
 
@@ -8,16 +9,24 @@ from typing import Optional
 
 import torch
 
+from torch import nn
+
+from peekvit_torch.models.eeresidualvit import EEResidualVisionTransformer
+from peekvit_torch.models.residualvit import ResidualVisionTransformer
 from peekvit_torch.models.vit import VisionTransformer
 
-_VIT = ("visiontransformer", "VisionTransformer", "vit")
+# name -> class; the aliases are the JAX registry's (registry.py:32-57)
+_PORTED = {
+    **dict.fromkeys(("visiontransformer", "VisionTransformer", "vit"), VisionTransformer),
+    **dict.fromkeys(("residualvisiontransformer", "ResidualVisionTransformer", "residualvit"),
+                    ResidualVisionTransformer),
+    **dict.fromkeys(("EEResidualVisionTransformer", "eeResidualVisionTransformer",
+                     "eeResidualvit", "eeresidualvit"), EEResidualVisionTransformer),
+}
 # JAX registry names not ported yet -> ROADMAP.md port queue A item
 _NOT_PORTED = {
-    **dict.fromkeys(("residualvisiontransformer", "ResidualVisionTransformer",
-                     "residualvit", "EEResidualVisionTransformer",
-                     "eeResidualVisionTransformer", "eeResidualvit", "eeresidualvit",
-                     "ResidualVisionTransformerWithDecoder", "encdecresidualvit"),
-                    "item 4 (ResidualViT)"),
+    **dict.fromkeys(("ResidualVisionTransformerWithDecoder", "encdecresidualvit"),
+                    "item 7 (EncDec, with MAE's decoder)"),
     **dict.fromkeys(("RankingVisionTransformer", "RankVisionTransformer", "rankvit"),
                     "item 5 (RankViT)"),
     **dict.fromkeys(("visiontransformermoe", "VisionTransformerMoE", "vitmoe", "moevit",
@@ -45,7 +54,7 @@ def resolve_device(device) -> torch.device:
 def build_model(model_class: str, model_args: dict,
                 noise_args: Optional[dict] = None,
                 remove_layers: Optional[list] = None,
-                seed: int = 0, device="cuda") -> VisionTransformer:
+                seed: int = 0, device="cuda") -> nn.Module:
     """Build and initialise a model from ``seed`` on ``device`` (default
     the card). Weights are drawn on the CPU from a seeded
     ``torch.Generator`` and then moved, so one seed gives one model on
@@ -55,7 +64,7 @@ def build_model(model_class: str, model_args: dict,
         raise NotImplementedError(
             f"{model_class!r} is not ported yet: ROADMAP.md port queue A "
             f"{_NOT_PORTED[model_class]}")
-    if model_class not in _VIT:
+    if model_class not in _PORTED:
         raise ValueError(f"Unknown model class {model_class}")
     args = dict(model_args)
     args.pop("_target_", None)
@@ -68,5 +77,5 @@ def build_model(model_class: str, model_args: dict,
     if remove_layers:
         raise NotImplementedError("layer removal (models/topology) is ROADMAP.md port queue A item 8")
     gen = torch.Generator().manual_seed(seed)
-    model = VisionTransformer(**args, generator=gen)
+    model = _PORTED[model_class](**args, generator=gen)
     return model.to(dev).eval()

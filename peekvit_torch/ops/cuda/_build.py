@@ -36,11 +36,11 @@ _I = ctypes.c_int
 # C signatures of the kernels' entry points (see each .cu file).
 _SIGNATURES = {
     "norm_rows": ("peekvit_norm_rows",
-                  [_P, _I, _P, _P, _P, ctypes.c_longlong, _I, ctypes.c_float, _I, _P]),
+                  [_P, _I, _P, _P, _P, _P, ctypes.c_longlong, _I, ctypes.c_float, _I, _P]),
     "gemm_bias_epilogue": ("peekvit_gemm_bias_epilogue",
-                           [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+                           [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "attn_scores_pv": ("peekvit_attn_scores_pv",
-                       [_P, _P, _I, _I, _I, _I, ctypes.c_float, _P]),
+                       [_P, _P, _I, _I, _I, _I, ctypes.c_float, _I, ctypes.c_float, _P]),
     "attn_softmax_fwd": ("peekvit_attn_softmax_fwd",
                          [_P, _P, _I, _I, _I, _I, ctypes.c_float, _P]),
     "attn_softmax_bwd": ("peekvit_attn_softmax_bwd",

@@ -18,6 +18,14 @@ output and gelu output (rounding to the compute dtype: none in fp32).
 ``gemm_nt`` (the same GEMM source with W read as (N, K) and no bias)
 serves the trainable block's backward (fused_attention_vjp.py).
 
+The ResidualViT layer (``_layer_kernel`` mode ``masked``, and the split
+``masked_attention_block`` / ``masked_mlp_block``) runs on the same three
+kernels with a per-row mask: the norms take the LN affine and the mask
+(mask * LN(x); the affine cannot be folded, the mask does not commute
+with the folded bias), the out-projection GEMM masks its output before the
+residual add, and the attention kernel weights the compaction engine's
+phantom key (``phantom_idx``/``phantom_mult``, the Pallas ``kweight``).
+
 Dispatch is by device only. A wrapper uses the plain version for CPU
 tensors; for CUDA tensors it launches its kernel or raises (wrong dtype,
 shape, contiguity, a failed build or launch). Nothing sends a CUDA tensor
@@ -37,7 +45,8 @@ from peekvit_torch.ops.cuda import _build
 LOG2E = 1.4426950408889634  # exp(x) = exp2(x * LOG2E)
 
 LAUNCHES: dict[str, int] = {}
-_EPILOGUES = {"bias": 0, "gelu": 1, "residual_f32": 2, "residual": 3}
+_EPILOGUES = {"bias": 0, "gelu": 1, "residual_f32": 2, "residual": 3,
+              "masked_residual_f32": 6, "masked_residual": 7}
 _NT_EPILOGUES = {"none": 4, "none_f32": 5}  # W read as (N, K), no bias
 
 
@@ -95,102 +104,160 @@ def fold_ln_into_weights(ln_scale, ln_bias, w, b):
     return w2, b2
 
 
-def norm_rows_ref(x: torch.Tensor, eps: float, out_dtype: torch.dtype) -> torch.Tensor:
-    """Plain version of :func:`norm_rows` (Pallas ``_norm_rows``)."""
+def _affine_mask_ref(out, scale, bias, mask):
+    """fp32 rows * scale + bias, then * the per-row mask (either optional)."""
+    if scale is not None:
+        out = out * scale.float().reshape(-1) + bias.float().reshape(-1)
+    if mask is not None:
+        out = out * mask.float().reshape(-1, 1)
+    return out
+
+
+def _check_affine_mask(scale, bias, mask):
+    """One-pass rows take the LN affine exactly when they take the row
+    mask: unmasked, the affine is folded into the next GEMM's weights."""
+    _require((scale is None) == (bias is None), "norm_rows: scale and bias come together")
+    _require((scale is None) == (mask is None),
+             "norm_rows: one-pass rows take the LN affine exactly when they take the "
+             "row mask (a mask does not commute with a folded affine)")
+
+
+def norm_rows_ref(x: torch.Tensor, eps: float, out_dtype: torch.dtype,
+                  scale=None, bias=None, mask=None) -> torch.Tensor:
+    """Plain version of :func:`norm_rows` (Pallas ``_norm_rows``, and with
+    the affine and mask ``mask * _ln_f32_rows``)."""
+    _check_affine_mask(scale, bias, mask)
     xf = x.float()
     mu = xf.mean(-1, keepdim=True)
     ms = (xf * xf).mean(-1, keepdim=True)
     var = torch.clamp(ms - mu * mu, min=0.0)
-    return ((xf - mu) * torch.rsqrt(var + eps)).to(out_dtype)
+    return _affine_mask_ref((xf - mu) * torch.rsqrt(var + eps), scale, bias, mask).to(out_dtype)
 
 
 def ln_rows_ref(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                eps: float) -> torch.Tensor:
-    """Plain version of :func:`ln_rows`: two-pass LN with affine, rounded
-    to x's dtype (Pallas ``_attn_block_kernel`` :253-258)."""
+                eps: float, mask=None) -> torch.Tensor:
+    """Plain version of :func:`ln_rows`: two-pass LN with affine (then the
+    row mask), rounded to x's dtype (Pallas ``_attn_block_kernel``
+    :253-258, ``_masked_attn_kernel`` :389-395)."""
     xf = x.float()
     mu = xf.mean(-1, keepdim=True)
     var = ((xf - mu) ** 2).mean(-1, keepdim=True)
     out = (xf - mu) * torch.rsqrt(var + eps)
-    out = out * scale.float().reshape(-1) + bias.float().reshape(-1)
-    return out.to(x.dtype)
+    return _affine_mask_ref(out, scale, bias, mask).to(x.dtype)
 
 
-def _norm_launch(key, x, scale, bias, eps, two_pass):
+def _rows_mask(key, mask, rows):
+    """The (rows,) bf16 mask the kernels read, made contiguous."""
+    mask = mask.reshape(-1).contiguous()
+    _check_bf16(f"{key} mask", mask)
+    _require(mask.numel() == rows, f"{key}: mask has {mask.numel()} values for {rows} rows")
+    return mask
+
+
+def _norm_launch(key, x, scale, bias, mask, eps, two_pass):
     _require(x.dtype in (torch.bfloat16, torch.float32),
              f"{key}: input must be bf16 or fp32, got {x.dtype}")
     _require(x.is_contiguous() and x.data_ptr() % 16 == 0,
              f"{key}: input must be contiguous and 16-byte aligned")
     d = x.shape[-1]
+    rows = x.numel() // d
     _require(d % 8 == 0, f"{key}: row width {d} must be a multiple of 8")
-    if two_pass:
+    if scale is not None:
+        scale, bias = scale.reshape(-1), bias.reshape(-1)
         _check_bf16(f"{key} scale", scale)
         _check_bf16(f"{key} bias", bias)
         _require(scale.numel() == d and bias.numel() == d, f"{key}: affine must have {d} values")
+    if mask is not None:
+        mask = _rows_mask(key, mask, rows)
     out = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
     err = _build.library("norm_rows")(
         x.data_ptr(), int(x.dtype == torch.float32),
-        scale.data_ptr() if two_pass else None, bias.data_ptr() if two_pass else None,
-        out.data_ptr(), x.numel() // d, d, float(eps), int(two_pass), _stream())
+        None if scale is None else scale.data_ptr(), None if bias is None else bias.data_ptr(),
+        None if mask is None else mask.data_ptr(),
+        out.data_ptr(), rows, d, float(eps), int(two_pass), _stream())
     _launched(key, err)
     return out
 
 
-def norm_rows(x: torch.Tensor, eps: float, out_dtype: torch.dtype) -> torch.Tensor:
-    """Row normalization with one-pass statistics and no affine, rounded to
-    ``out_dtype``. x: (..., D), bf16 or fp32. On CUDA the output must be bf16."""
-    if _on_cpu(x):
-        return norm_rows_ref(x, eps, out_dtype)
+def norm_rows(x: torch.Tensor, eps: float, out_dtype: torch.dtype,
+              scale=None, bias=None, mask=None) -> torch.Tensor:
+    """Row normalization with one-pass statistics, rounded to
+    ``out_dtype``. x: (..., D), bf16 or fp32. Without a mask there is no
+    affine (it is folded into the next GEMM); with the row mask (one value
+    per row of x, ResidualViT's masked layer) the LN affine ``scale``,
+    ``bias`` (D,) applies before the mask: mask * (norm(x) * scale + bias).
+    On CUDA the output must be bf16 and scale, bias and mask are bf16."""
+    _check_affine_mask(scale, bias, mask)
+    if _on_cpu(x, scale, bias, mask):
+        return norm_rows_ref(x, eps, out_dtype, scale, bias, mask)
     _require(out_dtype == torch.bfloat16, "norm_rows: the kernel writes bf16 only")
-    key = "norm_rows.f32" if x.dtype == torch.float32 else "norm_rows.bf16"
-    return _norm_launch(key, x, None, None, eps, two_pass=False)
+    key = ("norm_rows.masked" if mask is not None else "norm_rows") + (
+        ".f32" if x.dtype == torch.float32 else ".bf16")
+    return _norm_launch(key, x, scale, bias, mask, eps, two_pass=False)
 
 
 def ln_rows(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-            eps: float) -> torch.Tensor:
+            eps: float, mask=None) -> torch.Tensor:
     """Two-pass LayerNorm with affine, rounded to x's dtype (the split path's
-    LN). On CUDA, x, scale and bias are bf16."""
-    if _on_cpu(x, scale, bias):
-        return ln_rows_ref(x, scale, bias, eps)
+    LN); with ``mask`` (one value per row of x) the result is
+    mask * LN(x) (the split masked sublayers). On CUDA, x, scale, bias and
+    mask are bf16."""
+    if _on_cpu(x, scale, bias, mask):
+        return ln_rows_ref(x, scale, bias, eps, mask)
     _check_bf16("ln_rows x", x)
-    return _norm_launch("ln_rows", x, scale.reshape(-1), bias.reshape(-1), eps,
-                        two_pass=True)
+    key = "ln_rows.masked" if mask is not None else "ln_rows"
+    return _norm_launch(key, x, scale, bias, mask, eps, two_pass=True)
 
 
 # --------------------------------------------------------- gemm_bias_epilogue
 
 
-def gemm_bias_epilogue_ref(a, w, bias, epilogue: str, residual=None):
+def _check_epilogue(epilogue, residual, mask):
+    if epilogue not in _EPILOGUES:
+        raise ValueError(f"unknown epilogue {epilogue!r}")
+    needs_res = "residual" in epilogue
+    needs_mask = epilogue.startswith("masked")
+    _require((residual is not None) == needs_res,
+             f"epilogue {epilogue!r} {'needs' if needs_res else 'takes no'} residual")
+    _require((mask is not None) == needs_mask,
+             f"epilogue {epilogue!r} {'needs' if needs_mask else 'takes no'} mask")
+    return needs_res, needs_mask
+
+
+def gemm_bias_epilogue_ref(a, w, bias, epilogue: str, residual=None, mask=None):
     """Plain version of :func:`gemm_bias_epilogue`: fp32 products and sums,
     one rounding at the end."""
+    _check_epilogue(epilogue, residual, mask)
     acc = torch.matmul(a.float(), w.float()) + bias.float().reshape(-1)
     if epilogue == "gelu":
         acc = F.gelu(acc, approximate="tanh")
-    elif epilogue in ("residual_f32", "residual"):
+    elif mask is not None:
+        acc = acc * mask.float().reshape(-1, 1) + residual.float()
+    elif residual is not None:
         acc = acc + residual.float()
-    elif epilogue != "bias":
-        raise ValueError(f"unknown epilogue {epilogue!r}")
-    return acc if epilogue == "residual_f32" else acc.to(a.dtype)
+    return acc if epilogue.endswith("residual_f32") else acc.to(a.dtype)
 
 
 def gemm_bias_epilogue(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
-                       epilogue: str, residual: torch.Tensor | None = None) -> torch.Tensor:
+                       epilogue: str, residual: torch.Tensor | None = None,
+                       mask: torch.Tensor | None = None) -> torch.Tensor:
     """C = a @ w + bias with a fused epilogue. a: (R, K), w: (K, N) (the
     (in, out) layout), bias: (N,) or (1, N). ``epilogue``:
 
     - ``"bias"``: -> a.dtype (qkv);
     - ``"gelu"``: tanh-gelu -> a.dtype (fc1);
     - ``"residual_f32"``: + residual -> fp32 (out-proj, the mid-layer y);
-    - ``"residual"``: + residual -> a.dtype (fc2, split-path out-proj).
+    - ``"residual"``: + residual -> a.dtype (fc2, split-path out-proj);
+    - ``"masked_residual_f32"``: (.) * mask + residual -> fp32 (the
+      ResidualViT layer's out-proj);
+    - ``"masked_residual"``: (.) * mask + residual -> a.dtype (the split
+      masked attention sublayer's out-proj).
 
-    The residual is (R, N), fp32 or a.dtype."""
-    if epilogue not in _EPILOGUES:
-        raise ValueError(f"unknown epilogue {epilogue!r}")
-    needs_res = epilogue.startswith("residual")
-    _require((residual is not None) == needs_res,
-             f"epilogue {epilogue!r} {'needs' if needs_res else 'takes no'} residual")
-    if _on_cpu(a, w, bias, residual):
-        return gemm_bias_epilogue_ref(a, w, bias, epilogue, residual)
+    The residual is (R, N), fp32 or a.dtype; the mask has one value per
+    row (R values, a.dtype)."""
+    needs_res, needs_mask = _check_epilogue(epilogue, residual, mask)
+    if _on_cpu(a, w, bias, residual, mask):
+        return gemm_bias_epilogue_ref(a, w, bias, epilogue, residual, mask)
     key = f"gemm_bias_epilogue.{epilogue}"
     _require(a.dim() == 2 and w.dim() == 2 and a.shape[1] == w.shape[0],
              f"{key}: shapes {tuple(a.shape)} @ {tuple(w.shape)} do not chain")
@@ -210,11 +277,14 @@ def gemm_bias_epilogue(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
         _require(residual.is_contiguous() and residual.data_ptr() % 16 == 0,
                  f"{key}: residual must be contiguous and 16-byte aligned")
         res_f32 = int(residual.dtype == torch.float32)
-    out_dtype = torch.float32 if epilogue == "residual_f32" else torch.bfloat16
+    if needs_mask:
+        mask = _rows_mask(key, mask, m)
+    out_dtype = torch.float32 if epilogue.endswith("residual_f32") else torch.bfloat16
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     err = _build.library("gemm_bias_epilogue")(
         a.data_ptr(), w.data_ptr(), bias.data_ptr(),
-        residual.data_ptr() if needs_res else None, out.data_ptr(),
+        residual.data_ptr() if needs_res else None,
+        mask.data_ptr() if needs_mask else None, out.data_ptr(),
         m, n, k, _EPILOGUES[epilogue], res_f32, _stream())
     _launched(key, err)
     return out
@@ -251,7 +321,7 @@ def gemm_nt(a: torch.Tensor, w: torch.Tensor, epilogue: str) -> torch.Tensor:
     out_dtype = torch.float32 if epilogue == "none_f32" else torch.bfloat16
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     err = _build.library("gemm_bias_epilogue")(
-        a.data_ptr(), w.data_ptr(), None, None, out.data_ptr(), m, n, k,
+        a.data_ptr(), w.data_ptr(), None, None, None, out.data_ptr(), m, n, k,
         _NT_EPILOGUES[epilogue], 0, _stream())
     _launched(key, err)
     return out
@@ -260,9 +330,11 @@ def gemm_nt(a: torch.Tensor, w: torch.Tensor, epilogue: str) -> torch.Tensor:
 # -------------------------------------------------------------- attn_scores_pv
 
 
-def attn_scores_pv_ref(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+def attn_scores_pv_ref(qkv: torch.Tensor, num_heads: int, phantom_idx: int = -1,
+                       phantom_mult: float = 0.0) -> torch.Tensor:
     """Plain version of :func:`attn_scores_pv` (Pallas ``_attn_scores_pv``
-    without kmask/kweight, applied per image and head)."""
+    without kmask, applied per image and head; ``kweight`` as the phantom
+    key's weight)."""
     b, n, three_d = qkv.shape
     d = three_d // 3
     hd = d // num_heads
@@ -272,19 +344,30 @@ def attn_scores_pv_ref(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     scale = 1.0 / (hd ** 0.5)
     q = (q.float() * (scale * LOG2E)).to(dt)
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
-    e = torch.exp2(logits.clamp(-80.0, 115.0).to(dt).float()).to(dt).float()
+    e = torch.exp2(logits.clamp(-80.0, 115.0).to(dt).float()).to(dt)
+    if phantom_idx >= 0:
+        weight = torch.ones(n, dtype=dt, device=qkv.device)
+        weight[phantom_idx] = phantom_mult
+        e = (e.float() * weight.float()).to(dt)
+    e = e.float()
     pv = torch.matmul(e, v.float())
     s = e.sum(-1, keepdim=True)
     out = pv * (1.0 / s)
     return out.to(dt).permute(0, 2, 1, 3).reshape(b, n, d)
 
 
-def attn_scores_pv(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+def attn_scores_pv(qkv: torch.Tensor, num_heads: int, phantom_idx: int = -1,
+                   phantom_mult: float = 0.0) -> torch.Tensor:
     """softmax(q k^T / sqrt(hd)) v per image and head over packed qkv
     (B, N, 3D) (head h at columns h*hd, D + h*hd, 2D + h*hd) -> (B, N, D),
-    with the Pallas fast-softmax numerics. On CUDA: bf16, head dim 64."""
+    with the Pallas fast-softmax numerics. With ``phantom_idx >= 0`` key
+    ``phantom_idx``'s exp term is multiplied by ``phantom_mult`` (rounded
+    to the input dtype, as ``kweight``), whatever the multiplier, 0
+    included. On CUDA: bf16, head dim 64."""
+    _require(phantom_idx < qkv.shape[1], f"attn_scores_pv: phantom_idx {phantom_idx} "
+             f"outside {qkv.shape[1]} keys")
     if _on_cpu(qkv):
-        return attn_scores_pv_ref(qkv, num_heads)
+        return attn_scores_pv_ref(qkv, num_heads, phantom_idx, phantom_mult)
     _check_bf16("attn_scores_pv qkv", qkv)
     _require(qkv.dim() == 3 and qkv.shape[-1] % 3 == 0, "attn_scores_pv: qkv must be (B, N, 3D)")
     b, n, three_d = qkv.shape
@@ -294,8 +377,9 @@ def attn_scores_pv(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     out = torch.empty((b, n, d), dtype=torch.bfloat16, device=qkv.device)
     qscale = (1.0 / math.sqrt(64)) * LOG2E
     err = _build.library("attn_scores_pv")(
-        qkv.data_ptr(), out.data_ptr(), b, n, d, num_heads, qscale, _stream())
-    _launched("attn_scores_pv", err)
+        qkv.data_ptr(), out.data_ptr(), b, n, d, num_heads, qscale, int(phantom_idx),
+        float(phantom_mult), _stream())
+    _launched("attn_scores_pv.kweight" if phantom_idx >= 0 else "attn_scores_pv", err)
     return out
 
 
@@ -337,6 +421,44 @@ def _attention_block(ops, x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out, num_
     qkv = gemm(ln, w_qkv, b_qkv, "bias")
     attn = attn_fn(qkv.reshape(b, n, 3 * d), num_heads).reshape(b * n, d)
     return gemm(attn, w_out, b_out, "residual", residual=x2).reshape(b, n, d)
+
+
+def _masked_layer(ops, x, mask, ln1s, ln1b, w_qkv, b_qkv, w_out, b_out, ln2s, ln2b,
+                  w1, b1, w2, b2, num_heads, eps, phantom_mult, phantom_idx):
+    norm, _, gemm, attn_fn = ops
+    b, n, d = x.shape
+    x2 = x.reshape(b * n, d)
+    m = mask.reshape(b * n)
+    ln = norm(x2, eps, x.dtype, ln1s, ln1b, m)
+    qkv = gemm(ln, w_qkv, b_qkv, "bias")
+    attn = attn_fn(qkv.reshape(b, n, 3 * d), num_heads, phantom_idx,
+                   phantom_mult).reshape(b * n, d)
+    y = gemm(attn, w_out, b_out, "masked_residual_f32", residual=x2, mask=m)
+    ln2 = norm(y, eps, x.dtype, ln2s, ln2b, m)
+    h = gemm(ln2, w1, b1, "gelu")
+    return gemm(h, w2, b2, "residual", residual=y).reshape(b, n, d)
+
+
+def _masked_attention(ops, x, mask, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out,
+                      num_heads, eps, phantom_mult, phantom_idx):
+    _, ln_fn, gemm, attn_fn = ops
+    b, n, d = x.shape
+    x2 = x.reshape(b * n, d)
+    m = mask.reshape(b * n)
+    ln = ln_fn(x2, ln_scale, ln_bias, eps, m)
+    qkv = gemm(ln, w_qkv, b_qkv, "bias")
+    attn = attn_fn(qkv.reshape(b, n, 3 * d), num_heads, phantom_idx,
+                   phantom_mult).reshape(b * n, d)
+    return gemm(attn, w_out, b_out, "masked_residual", residual=x2, mask=m).reshape(b, n, d)
+
+
+def _masked_mlp(ops, x, mask, ln_scale, ln_bias, w1, b1, w2, b2, eps):
+    _, ln_fn, gemm, _ = ops
+    b, n, d = x.shape
+    x2 = x.reshape(b * n, d)
+    ln = ln_fn(x2, ln_scale, ln_bias, eps, mask.reshape(b * n))
+    h = gemm(ln, w1, b1, "gelu")
+    return gemm(h, w2, b2, "residual", residual=x2).reshape(b, n, d)
 
 
 _KERNELS = (norm_rows, ln_rows, gemm_bias_epilogue, attn_scores_pv)
@@ -387,3 +509,60 @@ def fused_attention_block_ref(x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out,
     """Plain version of :func:`fused_attention_block`."""
     return _attention_block(_PLAIN, x, ln_scale, ln_bias, w_qkv, b_qkv, w_out,
                             b_out, num_heads, eps)
+
+
+def masked_layer_block(x, mask, ln1s, ln1b, w_qkv, b_qkv, w_out, b_out, ln2s, ln2b,
+                       w1, b1, w2, b2, num_heads: int, eps: float = 1e-6,
+                       phantom_mult: float = 0.0, phantom_idx: int = -1) -> torch.Tensor:
+    """The ResidualViT layer (Pallas ``masked_layer_block``, :767:
+    ``_layer_kernel`` mode ``masked``, unfolded affines). x: (B, N, D),
+    mask: (B, N, 1) in x's dtype. mask * LN on both sublayers (one-pass
+    statistics), the attention output masked, the fp32 mid residual
+    y = (attn Wo + bo) * mask + x, and an unmasked MLP output
+    y + fc2(gelu(fc1(mask * LN(y)))). ``phantom_idx >= 0`` weights that key
+    by ``phantom_mult`` (the compaction engine's phantom slot, any
+    multiplier, 0 included). Seven launches on CUDA: 2 ``norm_rows.masked``,
+    4 ``gemm_bias_epilogue``, 1 ``attn_scores_pv``."""
+    return _masked_layer(_KERNELS, x, mask, ln1s, ln1b, w_qkv, b_qkv, w_out, b_out,
+                         ln2s, ln2b, w1, b1, w2, b2, num_heads, eps, phantom_mult, phantom_idx)
+
+
+def masked_layer_block_ref(x, mask, ln1s, ln1b, w_qkv, b_qkv, w_out, b_out, ln2s, ln2b,
+                           w1, b1, w2, b2, num_heads: int, eps: float = 1e-6,
+                           phantom_mult: float = 0.0, phantom_idx: int = -1) -> torch.Tensor:
+    """Plain version of :func:`masked_layer_block`."""
+    return _masked_layer(_PLAIN, x, mask, ln1s, ln1b, w_qkv, b_qkv, w_out, b_out,
+                         ln2s, ln2b, w1, b1, w2, b2, num_heads, eps, phantom_mult, phantom_idx)
+
+
+def masked_attention_block(x, mask, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out,
+                           num_heads: int, eps: float = 1e-6, phantom_mult: float = 0.0,
+                           phantom_idx: int = -1) -> torch.Tensor:
+    """x + mask * OutProj(MHSA(mask * LN(x))) with two-pass LN, rounded to
+    x's dtype (Pallas ``masked_attention_block``, :442). x: (B, N, D), mask:
+    (B, N, 1). Four launches on CUDA: ``ln_rows.masked``, GEMM ``bias``,
+    ``attn_scores_pv``, GEMM ``masked_residual``."""
+    return _masked_attention(_KERNELS, x, mask, ln_scale, ln_bias, w_qkv, b_qkv, w_out,
+                             b_out, num_heads, eps, phantom_mult, phantom_idx)
+
+
+def masked_attention_block_ref(x, mask, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out,
+                               num_heads: int, eps: float = 1e-6, phantom_mult: float = 0.0,
+                               phantom_idx: int = -1) -> torch.Tensor:
+    """Plain version of :func:`masked_attention_block`."""
+    return _masked_attention(_PLAIN, x, mask, ln_scale, ln_bias, w_qkv, b_qkv, w_out,
+                             b_out, num_heads, eps, phantom_mult, phantom_idx)
+
+
+def masked_mlp_block(x, mask, ln_scale, ln_bias, w1, b1, w2, b2,
+                     eps: float = 1e-6) -> torch.Tensor:
+    """x + fc2(gelu(fc1(mask * LN(x)))) with two-pass LN; the output is not
+    masked (Pallas ``masked_mlp_block``, :468). Three launches on CUDA:
+    ``ln_rows.masked``, GEMM ``gelu``, GEMM ``residual``."""
+    return _masked_mlp(_KERNELS, x, mask, ln_scale, ln_bias, w1, b1, w2, b2, eps)
+
+
+def masked_mlp_block_ref(x, mask, ln_scale, ln_bias, w1, b1, w2, b2,
+                         eps: float = 1e-6) -> torch.Tensor:
+    """Plain version of :func:`masked_mlp_block`."""
+    return _masked_mlp(_PLAIN, x, mask, ln_scale, ln_bias, w1, b1, w2, b2, eps)

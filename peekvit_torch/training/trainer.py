@@ -31,6 +31,7 @@ import torch
 
 from peekvit_torch.models.adapters import live_params, tree_leaves
 from peekvit_torch.models.registry import resolve_device
+from peekvit_torch.models.residualvit import TRAINING_ITEM, ResidualVisionTransformer
 from peekvit_torch.models.vit import VisionTransformer
 from peekvit_torch.training.fused import trainable_forward_fn
 from peekvit_torch.training.optim import (
@@ -84,9 +85,9 @@ _NOT_PORTED = {
     "qat": (False, "item 8 (QAT)"),
     "qat_caps": (None, "item 8 (QAT)"),
     "qat_smoothing": (None, "item 8 (QAT)"),
-    "loss_compose": (None, "item 4 (ResidualViT; LossCompose regularizers)"),
-    "reconstruction_weight": (0.0, "items 4 and 7 (EncDec / MAE reconstruction)"),
-    "ee_weights": (None, "item 4 (early exits)"),
+    "loss_compose": (None, "item 4b (ResidualViT training; LossCompose regularizers)"),
+    "reconstruction_weight": (0.0, "item 7 (EncDec / MAE reconstruction)"),
+    "ee_weights": (None, "item 4b (ResidualViT training; early exits)"),
 }
 
 
@@ -137,10 +138,14 @@ class Trainer:
             if used:
                 raise NotImplementedError(
                     f"Trainer({name}=...) is not ported yet: ROADMAP.md port queue A {item}")
+        if isinstance(self.model, ResidualVisionTransformer):
+            raise NotImplementedError(
+                f"the port's Trainer trains the plain VisionTransformer; training a "
+                f"{type(self.model).__name__} is {TRAINING_ITEM}")
         if not isinstance(self.model, VisionTransformer):
             raise NotImplementedError(
                 f"the port's Trainer trains the plain VisionTransformer; "
-                f"{type(self.model).__name__} is ROADMAP.md port queue A items 4-7")
+                f"{type(self.model).__name__} is ROADMAP.md port queue A items 5-7")
         if self.model.dropout or self.model.attention_dropout:
             raise NotImplementedError(
                 "training with dropout is not ported yet (ROADMAP.md port queue A item 3): "
