@@ -53,7 +53,24 @@ prints no final result):
 11. residual timing at bs256: the exact engine at each budget, the two
    compact modes, each new kernel variant's time, plain time, bound and
    library yardstick, and one profiled exact forward;
-12. the {"kernels": [...]} line, then the card's nvidia-smi line, then
+12. masked trainable block: the two new kernel variants (GEMM epilogue
+   masked_rowdot, ln_bwd_rows.masked) against their plain versions at
+   ResidualViT-B/16 bs256 shapes, then masked_attention_block_trainable
+   (save_qkv True and False) against its plain twin at bs32, N = 198: the
+   output and all eight gradients, the mask's included;
+13. residual train: build_model("residualvit", ResidualViT-B/16) under
+   Trainer(Adam(lr=1e-3), clip_grad_norm=1.0, train_backbone=False,
+   loss_compose=configs/loss/crossentropy_mse.yaml's losses), budgets
+   drawn per sample: five fused_residual steps on one bs-64 batch (counts
+   zeroed just before, read just after: 108 launches per step, every
+   kernel of the path launched; losses finite and falling; the mse metric;
+   the frozen leaves unchanged); one bs-16 step's gradients against the
+   plain versions and the save_qkv=False step against the default; one
+   bs-8 module-path step of an eeresidualvit with ee_weights (13 outputs);
+14. residual train timing at bs256: ms per step, images/s, share of the
+   bf16 peak, peak memory, each new kernel's time, plain time, bound and
+   library yardstick, the step's breakdown, one profiled step;
+15. the {"kernels": [...]} line, then the card's nvidia-smi line, then
    {"ok": true, "device": {...}} as the last line.
 
 Imports nothing of JAX or of peekvit_tpu.
@@ -94,6 +111,25 @@ COMPACT = (0.75, 0.5)
 COMPACT_BUDGET = 0.5
 EE_REQUEST = 8
 BLOCK_EPS = 1e-6  # ResidualViT block LN
+RESIDUAL_TRAIN_BATCH = 64
+RESIDUAL_TRAIN_LR = 1e-3
+EE_TRAIN_BATCH = 8
+# configs/loss/crossentropy_mse.yaml's additional_losses
+CROSSENTROPY_MSE = {"mse": {"_target_": "peekvit.utils.losses.MSELoss", "weight": 0.01,
+                            "strict": False, "budget": None, "per_layer": False,
+                            "skip_layers": [0, 1, 2, 3, 4, 5, 7, 8, 9, 10, 11]}}
+MASKED_GRAD_NAMES = ("dx", "dmask", "dln_scale", "dln_bias", "dw_qkv", "db_qkv", "dw_out",
+                     "db_out")
+# Launches per layer of one fused ResidualViT train step (save_qkv): the
+# masked block's forward (masked LN, qkv GEMM, attention, masked out-proj
+# GEMM) and backward (rowdot GEMM, g Wo^T, attention backward, dqkv Wqkv^T,
+# masked LN backward); save_qkv=False adds the qkv GEMM to the backward.
+RESIDUAL_TRAIN_PER_LAYER = {"ln_rows.masked": 1, "gemm_bias_epilogue.bias": 1,
+                            "attn_softmax_fwd": 1, "gemm_bias_epilogue.masked_residual": 1,
+                            "gemm_bias_epilogue.masked_rowdot": 1, "gemm_nt.none": 1,
+                            "attn_softmax_bwd": 1, "gemm_nt.none_f32": 1,
+                            "ln_bwd_rows.masked": 1}
+RESIDUAL_RECOMPUTE_PER_LAYER = dict(RESIDUAL_TRAIN_PER_LAYER, **{"gemm_bias_epilogue.bias": 2})
 GRAD_NAMES = ("dx", "dln_scale", "dln_bias", "dw_qkv", "db_qkv", "dw_out", "db_out")
 # Launches per layer of one fused train step (save_qkv, the default): the
 # forward's ln_rows, qkv GEMM, attention and out-proj GEMM; the backward's
@@ -359,7 +395,7 @@ def train_kernel_entries(torch, F, fa, vjp, smi, checks, train, kernel_ms, x, qk
             ms = cuda_ms(torch, kfn)
             plain_ms = cuda_ms(torch, pfn, iters=5)
         lib_ms = cuda_ms(torch, lfn)
-        ms_by_key[key] = ms
+        ms_by_key[key] = kernel_ms[name] = ms
         bnd, by = bound_ms(flops, nbytes)
         launches = train["counts"].get(key, 0)
         if launches == 0:
@@ -790,6 +826,295 @@ def residual_timing(torch, F, fa, smi, checks, ins, res, kernel_ms, d, h) -> lis
     return entries
 
 
+def masked_block_checks(torch, fa, vjp, check, randn, ln_s, ln_b, w_qkv, b_qkv, w_out, b_out,
+                        d, h) -> dict:
+    """Phase 12: the masked block's two new kernel variants against their
+    plain versions at ResidualViT-B/16 bs256 shapes (N = 198), then the
+    block (both backwards) against its plain twin at BLOCK_BATCH images.
+    Returns the variants' inputs for phase 14."""
+    tol_bf16, tol_f32, tol_block = 2.0 ** -6, 1e-3, 2e-2
+    n = 1 + (RESIDUALVIT_B16["image_size"] // RESIDUALVIT_B16["patch_size"]) ** 2 + 1
+    rows = BATCH * n
+
+    def gate_mask(*shape):  # gate-like: a third exactly 0, the rest in (0, 1]
+        return torch.clamp(randn(*shape, dtype=torch.float32, scale=0.5, shift=0.2), 0.0,
+                           1.0).to(torch.bfloat16)
+
+    ins = {"attn": randn(rows, d), "g": randn(rows, d, scale=0.05), "m": gate_mask(rows),
+           "x": randn(rows, d, scale=1.5, shift=0.3),
+           "ds1": randn(rows, d, dtype=torch.float32, scale=0.05), "rows": rows, "n": n}
+    attn, g, m, x, ds1 = ins["attn"], ins["g"], ins["m"], ins["x"], ins["ds1"]
+    with torch.inference_mode():
+        dproj_k, parts = fa.gemm_masked_rowdot(attn, w_out, b_out, g, m)
+        dproj_p, rowdot_p = fa.gemm_masked_rowdot_ref(attn, w_out, b_out, g, m)
+        check("gemm_bias_epilogue.masked_rowdot", dproj_k, dproj_p, tol_bf16,
+              "bf16(g * mask): one rounding of the same fp32 product")
+        check("gemm_bias_epilogue.masked_rowdot.rowdot", parts.sum(-1), rowdot_p[:, 0], tol_f32,
+              "tensor-core fp32 proj against cuBLAS fp32, row sums over 768 columns in another "
+              "order")
+        ins["parts"] = parts
+        got = vjp.ln_bwd_rows_masked(x, ds1, g, ln_s, ln_b, m, parts, BLOCK_EPS)
+        want = vjp.ln_bwd_rows_masked_ref(x, ds1, g, ln_s, ln_b, m, parts, BLOCK_EPS)
+        check("ln_bwd_rows.masked", got[0], want[0], tol_bf16, "bf16 output rounding")
+        check("ln_bwd_rows.masked.dm", got[1], want[1], tol_bf16,
+              "fp32 row sums in another order, bf16 output rounding")
+        check("ln_bwd_rows.masked.partials", torch.cat([got[2].sum(0), got[3].sum(0)]),
+              torch.cat([want[2][0], want[3][0]]), tol_f32,
+              f"fp32 column sums over {rows:,} rows in another order")
+        torch.cuda.synchronize()
+
+    # The block: the kernels and the plain versions round at the same
+    # points; fp32 sums in another order flip a bf16 rounding now and then,
+    # and the flips feed the backward's sums over 198 keys and the weight
+    # products over 6,336 rows: 2e-2, phase 6's trainable-block tolerance.
+    xb = randn(BLOCK_BATCH, n, d, scale=1.5, shift=0.3)
+    mb = gate_mask(BLOCK_BATCH, n, 1)
+    gb = randn(BLOCK_BATCH, n, d, scale=0.05)
+    block_args = (xb, mb, ln_s, ln_b, w_qkv, b_qkv, w_out, b_out)
+    for save_qkv in (True, False):
+        results = []
+        for fn in (vjp.masked_attention_block_trainable, vjp.masked_attention_block_trainable_ref):
+            leaves = [t.detach().clone().requires_grad_() for t in block_args]
+            out = fn(*leaves, h, BLOCK_EPS, save_qkv)
+            out.backward(gb)
+            results.append([out.detach()] + [t.grad for t in leaves])
+        torch.cuda.synchronize()
+        for name, got_t, want_t in zip(("out",) + MASKED_GRAD_NAMES, *results):
+            check(f"masked_block.save_qkv={save_qkv}.{name}", got_t, want_t, tol_block,
+                  "bf16 roundings flipped by fp32 sums in another order, through one backward")
+    return ins
+
+
+def residual_train_phases(torch, F, fa, dev, smi, macs_per_image) -> dict:
+    """Phases 13 and 14 (the step): a ResidualViT-B/16 Trainer on the fused
+    residual path as configs/training/finetune.yaml with
+    configs/loss/crossentropy_mse.yaml; one step's gradients against the
+    plain versions and the recompute backward; an early-exit module-path
+    step; the bs256 step's time. Returns the main run's counts, the step
+    time and the trainer."""
+    from peekvit_torch import Trainer
+    from peekvit_torch.models.adapters import tree_leaves
+    from peekvit_torch.training.fused import residual_forward_fn, sample_budgets
+    from peekvit_torch.training.optim import Adam
+    from peekvit_torch.training.trainer import param_filter_mask, step_generator
+    from peekvit_torch.utils.losses import LossCompose
+
+    layers = RESIDUALVIT_B16["num_layers"]
+    model = seeded_residual_model(torch, "residualvit")
+    trainer = Trainer(model, Adam(lr=RESIDUAL_TRAIN_LR), clip_grad_norm=1.0, train_backbone=False,
+                      loss_compose=LossCompose(CROSSENTROPY_MSE), device=DEVICE)
+    if trainer._fused_kind() != "residual":
+        raise AssertionError(f"Trainer resolved to {trainer._fused_kind()!r}, not 'residual'")
+    trainable = dict(tree_leaves(param_filter_mask(trainer.params)))
+    frozen = {k: p.detach().clone() for k, p in tree_leaves(trainer.params) if not trainable[k]}
+    moving = {k: p.detach().clone() for k, p in tree_leaves(trainer.params) if trainable[k]}
+    gen = torch.Generator(device=dev).manual_seed(5)
+    size = RESIDUALVIT_B16["image_size"]
+
+    def batch(b):
+        return (torch.randn(b, size, size, 3, generator=gen, device=dev),
+                torch.randint(0, RESIDUALVIT_B16["num_classes"], (b,), generator=gen, device=dev))
+
+    x64, y64 = batch(RESIDUAL_TRAIN_BATCH)
+    fa.reset_launch_counts()
+    metrics, per_step = [], []
+    for i in range(TRAIN_STEPS):
+        before = sum(fa.LAUNCHES.values())
+        metrics.append(trainer.train_step(x64, y64, step_idx=i))
+        per_step.append(sum(fa.LAUNCHES.values()) - before)
+    torch.cuda.synchronize()
+    counts = dict(fa.LAUNCHES)
+    metrics = [{k: float(v) for k, v in m.items()} for m in metrics]
+    losses = [m["total_loss"] for m in metrics]
+    unchanged = all(torch.equal(p, frozen[k]) for k, p in tree_leaves(trainer.params)
+                    if k in frozen)
+    moved = sorted(k for k, p in tree_leaves(trainer.params)
+                   if k in moving and not torch.equal(p, moving[k]))
+    step_launches = sum(RESIDUAL_TRAIN_PER_LAYER.values()) * layers
+    emit({"phase": "residual_train", "kind": trainer._train_kind, "batch": RESIDUAL_TRAIN_BATCH,
+          "steps": TRAIN_STEPS, "optimizer": f"Adam(lr={RESIDUAL_TRAIN_LR}), clip_grad_norm=1.0, "
+          "train_backbone=False", "loss_compose": CROSSENTROPY_MSE, "metrics": metrics,
+          "launches_per_step": per_step, "counts": counts, "frozen_leaves": len(frozen),
+          "frozen_unchanged": unchanged, "trainable_leaves": len(moving),
+          "trainable_moved": len(moved), "card": smi})
+    want = {k: v * layers * TRAIN_STEPS for k, v in RESIDUAL_TRAIN_PER_LAYER.items()}
+    if trainer._train_kind != "fused_residual" or per_step != [step_launches] * TRAIN_STEPS \
+            or counts != want:
+        raise AssertionError(f"residual train launches {per_step} {counts}, want {want}")
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"residual train losses not finite and falling: {losses}")
+    if not all("mse" in m for m in metrics) or not unchanged or not moved:
+        raise AssertionError(f"mse metric, frozen leaves unchanged ({unchanged}) or trainable "
+                             f"leaves moved ({moved})")
+
+    # One step's gradients at GRAD_BATCH with one drawn budget vector:
+    # kernels, plain versions, recompute backward. Tolerance per leaf as
+    # phase 7 (3e-2); a leaf whose plain gradient is exactly 0 (a gate
+    # whose relu is off everywhere) must be exactly 0 through the kernels.
+    tol_grad = 3e-2
+    params = trainer.params
+    xg, yg = batch(GRAD_BATCH)
+    bvec = sample_budgets(model, GRAD_BATCH, step_generator(0, 7), dev)
+
+    def grads(**kwargs):
+        model.zero_grad(set_to_none=True)
+        logits, aux = residual_forward_fn(model, **kwargs)(params, xg, bvec)
+        loss = F.cross_entropy(logits, yg) + trainer.loss_compose.compute(
+            aux, budget=bvec.mean(), return_dict=False)
+        loss.backward()
+        return float(loss.detach()), {k: (p.grad.detach().clone() if p.grad is not None
+                                          else torch.zeros_like(p))
+                                      for k, p in tree_leaves(params)}
+
+    loss_k, g_k = grads()
+    loss_p, g_p = grads(plain=True)
+    fa.reset_launch_counts()
+    loss_r, g_r = grads(save_qkv=False)
+    torch.cuda.synchronize()
+    recompute_counts = dict(fa.LAUNCHES)
+    model.zero_grad(set_to_none=True)
+    err_plain, err_recompute = rel_l2(torch, g_k, g_p), rel_l2(torch, g_r, g_k)
+    zero_leaves = sorted(k for k, v in g_p.items() if not v.abs().max() > 0)
+    zero_kept = all(not g_k[k].abs().max() > 0 for k in zero_leaves)
+    emit({"phase": "residual_train_grads", "batch": GRAD_BATCH, "budgets": bvec.tolist(),
+          "loss_kernels": loss_k, "loss_plain": loss_p, "loss_recompute": loss_r,
+          "leaves": len(g_k), "max_rel_l2_vs_plain": max(err_plain.values()),
+          "rel_l2_vs_plain": err_plain, "zero_plain_leaves": len(zero_leaves),
+          "zero_leaves_zero_through_kernels": zero_kept,
+          "max_rel_l2_recompute_vs_default": max(err_recompute.values()),
+          "recompute_bit_identical": all(torch.equal(g_r[k], g_k[k]) for k in g_k),
+          "recompute_launches": recompute_counts, "tolerance_rel_l2": tol_grad,
+          "tolerance_reason": "same rounding points; bf16 flips from fp32 sums in another "
+                              "order through 12 layers; the repo's bf16 tolerance",
+          "card": smi})
+    if max(err_plain.values()) > tol_grad or max(err_recompute.values()) > tol_grad \
+            or not zero_kept:
+        raise AssertionError("residual train gradients out of tolerance")
+    if recompute_counts != {k: v * layers for k, v in RESIDUAL_RECOMPUTE_PER_LAYER.items()}:
+        raise AssertionError(f"recompute launches {recompute_counts}")
+
+    # One early-exit module-path step (output_format 'early_exits' is never fused).
+    ee_model = seeded_residual_model(torch, "eeresidualvit")
+    ee_trainer = Trainer(ee_model, Adam(lr=RESIDUAL_TRAIN_LR), clip_grad_norm=1.0,
+                         train_backbone=False, loss_compose=LossCompose(CROSSENTROPY_MSE),
+                         ee_weights=[float(i + 1) for i in range(layers + 1)], device=DEVICE)
+    x8, y8 = batch(EE_TRAIN_BATCH)
+    with torch.no_grad():
+        outs, _ = ee_model(x8, train=True, generator=step_generator(0, 0))
+    ee_metrics, ee_counts = counted(torch, fa, lambda: ee_trainer.train_step(x8, y8, step_idx=0))
+    ee_metrics = {k: float(v) for k, v in ee_metrics.items()}
+    emit({"phase": "residual_train_ee", "kind": ee_trainer._train_kind, "batch": EE_TRAIN_BATCH,
+          "ce_terms": len(outs), "metrics": ee_metrics, "launches": ee_counts, "card": smi})
+    if ee_trainer._train_kind != "module" or len(outs) != layers + 1 \
+            or not all(math.isfinite(v) for v in ee_metrics.values()):
+        raise AssertionError(f"early-exit module step: {ee_trainer._train_kind}, {len(outs)} "
+                             f"outputs, {ee_metrics}")
+    del ee_trainer, ee_model
+
+    # ------------------------------------------------------------ 14. timing
+    xb, yb = batch(BATCH)
+    for i in range(2):
+        trainer.train_step(xb, yb, step_idx=100 + i)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = cuda_ms(torch, lambda: trainer.train_step(xb, yb), iters=5)
+    flops_img = 3 * 2.0 * macs_per_image  # fwd + bwd, the 3 x dense forward convention
+    emit({"phase": "timing_residual_train", "batch": BATCH, "ms_per_step": step_ms,
+          "images_per_s": BATCH / step_ms * 1e3, "flops_per_image": flops_img,
+          "achieved_tflops": flops_img * BATCH / step_ms / 1e9,
+          "share_of_bf16_peak": flops_img * BATCH / (step_ms / 1e3) / PEAK_BF16_FLOPS,
+          "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "launches_per_step": step_launches, "card": smi})
+    profile_step(torch, smi, lambda: trainer.train_step(xb, yb), step_ms,
+                 phase="profile_residual_train_step")
+    return {"counts": counts, "step_ms": step_ms, "layers": layers}
+
+
+def residual_train_entries(torch, F, fa, vjp, smi, checks, rtrain, kernel_ms, ins, res_ins,
+                           ln_s, ln_b, w_out, b_out, d) -> list:
+    """Phase 14 per kernel: the two new variants' time at bs256 beside their
+    plain versions, bounds and library yardsticks; then the step's
+    breakdown. Returns the new kernels' JSON entries."""
+    bf, f4 = 2, 4
+    bf16 = torch.bfloat16
+    attn, g, m, x, ds1, parts = (ins[k] for k in ("attn", "g", "m", "x", "ds1", "parts"))
+    rows = ins["rows"]
+    ln_leaves = [x.detach().clone().requires_grad_(), ln_s.detach().clone().requires_grad_(),
+                 ln_b.detach().clone().requires_grad_()]
+    ln_out = F.layer_norm(ln_leaves[0], (d,), ln_leaves[1], ln_leaves[2], BLOCK_EPS)
+    ln_f32 = ln_out.detach().float()
+    ds1_bf16 = ds1.to(bf16)
+
+    def rowdot_lib():  # addmm + mul + row-sum
+        proj = torch.addmm(b_out, attn, w_out)
+        return g * m[:, None], (g.float() * proj.float()).sum(-1)
+
+    def ln_bwd_lib():  # F.layer_norm backward + the row dots
+        grads = torch.autograd.grad(ln_out, ln_leaves, ds1_bf16, retain_graph=True)
+        return grads, (ds1 * ln_f32).sum(-1) + parts.sum(-1)
+
+    src = "peekvit_torch/csrc/"
+    both = (f"{REPLACES_VJP}:753 _masked_trainable_bwd_saved (_masked_bwd_kernel_saved :550) "
+            f"and :703 _masked_trainable_bwd (_masked_bwd_kernel :445)")
+    n_parts = -(-d // fa.ROWDOT_TILE)
+    ln_parts = -(-rows // vjp.ROWS_PER_PARTIAL)
+    timed = [
+        ("gemm_bias_epilogue.masked_rowdot", src + "gemm_bias_epilogue.cu",
+         f"{both}: proj, dproj = g * mask and sum(g * proj) :575-583 / :488-498",
+         lambda: fa.gemm_masked_rowdot(attn, w_out, b_out, g, m),
+         lambda: fa.gemm_masked_rowdot_ref(attn, w_out, b_out, g, m), rowdot_lib,
+         2.0 * rows * d * d,
+         (rows * d + d * d + d + rows * d + rows + rows * d) * bf + rows * n_parts * f4),
+        ("ln_bwd_rows.masked", src + "ln_bwd_rows.cu",
+         f"{both}: LN backward and dm :621-631 / :536-547",
+         lambda: vjp.ln_bwd_rows_masked(x, ds1, g, ln_s, ln_b, m, parts, BLOCK_EPS),
+         lambda: vjp.ln_bwd_rows_masked_ref(x, ds1, g, ln_s, ln_b, m, parts, BLOCK_EPS),
+         ln_bwd_lib, 25.0 * rows * d,
+         rows * d * (bf + f4 + bf + bf) + rows * n_parts * f4 + 2 * rows * bf + 2 * d * bf
+         + 2 * ln_parts * d * f4),
+    ]
+    entries = []
+    for name, source, replaces, kfn, pfn, lfn, flops, nbytes in timed:
+        with torch.inference_mode():
+            ms = cuda_ms(torch, kfn)
+            plain_ms = cuda_ms(torch, pfn, iters=5)
+        lib_ms = cuda_ms(torch, lfn)
+        kernel_ms[name] = ms
+        bnd, by = bound_ms(flops, nbytes)
+        launches = rtrain["counts"].get(name, 0)
+        if launches == 0:
+            raise AssertionError(f"{name}: never launched on the residual train path")
+        entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                 "launches": launches, "max_abs_err": checks[name], "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms,
+                 "path": "residual train (fused ResidualViT step)", "shape_batch": BATCH}
+        emit({"phase": "timing_kernel", **entry, "share_of_bound": bnd / ms,
+              "launches_per_step": launches // TRAIN_STEPS, "card": smi})
+        entries.append(entry)
+    # the masked forward kernels at N = 198 (phases 9-11 time them at the
+    # compact=0.5 shapes), for the breakdown only
+    with torch.inference_mode():
+        kernel_ms["ln_rows.masked.n198"] = cuda_ms(
+            torch, lambda: fa.ln_rows(res_ins["xe"], ln_s, ln_b, BLOCK_EPS, res_ins["me"]))
+        kernel_ms["gemm_bias_epilogue.masked_residual.n198"] = cuda_ms(
+            torch, lambda: fa.gemm_bias_epilogue(res_ins["ae"], w_out, b_out, "masked_residual",
+                                                 residual=res_ins["xe"], mask=res_ins["me"]))
+    by_key = {"ln_rows.masked": "ln_rows.masked.n198",
+              "gemm_bias_epilogue.masked_residual": "gemm_bias_epilogue.masked_residual.n198",
+              "gemm_bias_epilogue.bias": "gemm_bias_epilogue.bias"}
+    per_step = {k: kernel_ms[by_key.get(k, k)] * v * rtrain["layers"]
+                for k, v in RESIDUAL_TRAIN_PER_LAYER.items()}
+    kernels_ms = sum(per_step.values())
+    emit({"phase": "timing_breakdown_residual_train", "kernels_ms_per_step": kernels_ms,
+          "kernel_ms_per_step_by_kernel": per_step, "step_ms": rtrain["step_ms"],
+          "other_ms": rtrain["step_ms"] - kernels_ms,
+          "other": "gates, concatenations, eager MLP half, weight-gradient products, "
+                   "embed/classify, regularizer, Adam",
+          "note": "qkv GEMM, attention and NT GEMM times from the ViT phases (N = 197)",
+          "card": smi})
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -1134,6 +1459,12 @@ def main() -> int:
     res = residual_phases(torch, fa, dev, smi)
     res_entries = residual_timing(torch, F, fa, smi, checks, res_ins, res, kernel_ms, d, h)
     merged, split = (res["compact_counts"][c] for c in COMPACT)
+    # ------------------------------------------------ 12-14. ResidualViT training
+    rt_ins = masked_block_checks(torch, fa, vjp, check, randn, ln_s, ln_b, w_qkv, b_qkv, w_out,
+                                 b_out, d, h)
+    rtrain = residual_train_phases(torch, F, fa, dev, smi, analytic_macs(res["model"]))
+    rt_entries = residual_train_entries(torch, F, fa, vjp, smi, checks, rtrain, kernel_ms, rt_ins,
+                                        res_ins, ln_s, ln_b, w_out, b_out, d)
 
     def residual_paths(key, residual=True, compact=(merged, split)):
         # fc2's GEMM takes the fp32 residual in the merged layer and the
@@ -1158,7 +1489,16 @@ def main() -> int:
         by_n = {f"{key}.n{compact_geometry(c)[0]}": (res["compact_counts"][c],) for c in COMPACT}
         entry["launches_by_path"] = {"engine": 0, "split": 0, "train": 0, **residual_paths(
             key, compact=by_n.get(entry["name"], (merged, split)))}
-    kernels += entries + res_entries
+    for entry in rt_entries:
+        entry["launches_by_path"] = {"engine": 0, "split": 0, "train": 0, "residual": 0,
+                                     "compact": 0}
+    kernels += entries + res_entries + rt_entries
+    for entry in kernels:
+        # the masked-residual GEMM row is the bf16-residual one the
+        # residual train step runs; fc2's residual GEMM does not run there
+        key = entry["name"].removesuffix(".bf16_residual").split(".n1")[0]
+        entry["launches_by_path"]["residual_train"] = (
+            rtrain["counts"].get(key, 0) if key in RESIDUAL_TRAIN_PER_LAYER else 0)
     new_keys = ("norm_rows.masked.bf16", "norm_rows.masked.f32", "ln_rows.masked",
                 "gemm_bias_epilogue.masked_residual_f32", "gemm_bias_epilogue.masked_residual",
                 "attn_scores_pv.kweight")

@@ -23,6 +23,20 @@
 //   epilogue 4: -> bf16   (dattn = g . Wo^T, :111-115 and :196-200)
 //   epilogue 5: -> fp32   (dln = dqkv . Wqkv^T, :159-161 and :238-240)
 //
+// Epilogue 8 ("masked_rowdot") is the head of the masked trainable
+// block's backward (_masked_bwd_kernel :445 at :488-494 and
+// _masked_bwd_kernel_saved :550 at :575-579). It rebuilds
+// proj = attn . Wo + bo in fp32 from the saved attn and never writes it.
+// Reading the block's output cotangent g (res, bf16) and the row mask, it
+// writes dproj = bf16(g * mask) (out), which feeds the NT GEMM g Wo^T,
+// and for every (row, 128-column tile) the fp32 partial of
+// sum(g * proj) (aux, (M, ceil(N / 128)) fp32): the output-mask term of
+// the gate cotangent dm, summed per row by ln_bwd_rows.masked. The four
+// warps that share a tile's rows add their partials in shared memory in a
+// fixed order: no atomics, the same bits on every run. Bound on H100 at
+// ResidualViT-B bs256 (50688 x 768 x 768): bytes (attn, g and dproj in
+// bf16, about 236 MB, against 60 GFLOP), as for epilogue 7.
+//
 // Bound on H100: operations. At ViT-B bs256 the products are
 // (50432 x 768) . (768 x {2304, 768, 3072}) and (50432 x 3072) . (3072 x 768):
 // hundreds of flops per byte, above the card's ~295 flop/byte ridge.
@@ -139,8 +153,8 @@ template <int EPI, bool NT, typename RES, typename OUT>
 __global__ void __launch_bounds__(THREADS)
 gemm_kernel(const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict__ w,
             const __nv_bfloat16* __restrict__ bias, const RES* __restrict__ res,
-            const __nv_bfloat16* __restrict__ mask, OUT* __restrict__ out, int m, int n,
-            int k) {
+            const __nv_bfloat16* __restrict__ mask, OUT* __restrict__ out,
+            float* __restrict__ aux, int m, int n, int k) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* sa = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* sb = sa + STAGES * A_TILE;
@@ -215,6 +229,48 @@ gemm_kernel(const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict
   // Epilogue straight from the accumulator fragments: thread holds
   // (row g, cols 2t, 2t+1) and (row g + 8, same cols) of each 16 x 8 tile.
   const int g = lane >> 2, tq = lane & 3;
+  if constexpr (EPI == 8) {
+    __shared__ float red[4][BM];  // [column quarter of the tile][row in the tile]
+    float rs[4][2];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) rs[i][0] = rs[i][1] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = col0 + wn + j * 8 + tq * 2;
+      if (col >= n) continue;
+      const float2 b2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias + col));
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = row0 + wm + i * 16 + g + h * 8;
+          if (row >= m) continue;
+          const long long off = (long long)row * n + col;
+          const float2 g2 = load_res2<RES>(res + off);
+          const float mk = __bfloat162float(mask[row]);
+          *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<__nv_bfloat16*>(out) + off) =
+              __floats2bfloat162_rn(g2.x * mk, g2.y * mk);
+          rs[i][h] += g2.x * (acc[i][j][2 * h] + b2.x) + g2.y * (acc[i][j][2 * h + 1] + b2.y);
+        }
+      }
+    }
+    // the four lanes of a row, then the four warps of a row, in order
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        rs[i][h] += __shfl_xor_sync(0xffffffffu, rs[i][h], 1);
+        rs[i][h] += __shfl_xor_sync(0xffffffffu, rs[i][h], 2);
+        if (tq == 0) red[warp & 3][wm + i * 16 + g + h * 8] = rs[i][h];
+      }
+    }
+    __syncthreads();
+    const int r = threadIdx.x;
+    if (r < BM && row0 + r < m)
+      aux[(long long)(row0 + r) * gridDim.x + blockIdx.x] =
+          ((red[0][r] + red[1][r]) + red[2][r]) + red[3][r];
+    return;
+  }
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const int col = col0 + wn + j * 8 + tq * 2;
@@ -257,7 +313,7 @@ gemm_kernel(const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict
 
 template <int EPI, bool NT, typename RES, typename OUT>
 int launch(const void* a, const void* w, const void* bias, const void* res, const void* mask,
-           void* out, int m, int n, int k, cudaStream_t stream) {
+           void* out, int m, int n, int k, cudaStream_t stream, void* aux = nullptr) {
   auto kern = gemm_kernel<EPI, NT, RES, OUT>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<NT>());
@@ -266,7 +322,8 @@ int launch(const void* a, const void* w, const void* bias, const void* res, cons
   kern<<<grid, THREADS, smem_bytes<NT>(), stream>>>(
       static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(w),
       static_cast<const __nv_bfloat16*>(bias), static_cast<const RES*>(res),
-      static_cast<const __nv_bfloat16*>(mask), static_cast<OUT*>(out), m, n, k);
+      static_cast<const __nv_bfloat16*>(mask), static_cast<OUT*>(out), static_cast<float*>(aux),
+      m, n, k);
   return (int)cudaGetLastError();
 }
 
@@ -283,15 +340,18 @@ int launch_res(int res_f32, const void* a, const void* w, const void* bias, cons
 // epilogue: 0 bias, 1 bias + tanh-gelu, 2 bias + residual -> fp32,
 // 3 bias + residual -> bf16, 4 A . W^T -> bf16, 5 A . W^T -> fp32 (W as
 // (N, K); bias and res are ignored for 4 and 5), 6 (bias) * mask +
-// residual -> fp32, 7 (bias) * mask + residual -> bf16. res_f32 selects an
-// fp32 (1) or bf16 (0) residual for epilogues 2, 3, 6 and 7; res is
-// ignored otherwise. mask ((m,) bf16) is read by epilogues 6 and 7 only.
-// Returns the cudaError_t of the launch (an unknown epilogue, or 6 or 7
-// without a mask, returns cudaErrorInvalidValue).
+// residual -> fp32, 7 (bias) * mask + residual -> bf16, 8 masked_rowdot:
+// out = bf16(res * mask) and aux = per-(row, 128-column tile) partials of
+// sum(res * (A . W + bias)), fp32 (m, ceil(n / 128)); res is the bf16
+// cotangent. res_f32 selects an fp32 (1) or bf16 (0) residual for
+// epilogues 2, 3, 6 and 7; res is ignored for 0, 1, 4 and 5. mask ((m,)
+// bf16) is read by epilogues 6, 7 and 8 only; aux is written by 8 only.
+// Returns the cudaError_t of the launch (an unknown epilogue, or 6, 7 or 8
+// without a mask, 8 without res or aux, returns cudaErrorInvalidValue).
 extern "C" int peekvit_gemm_bias_epilogue(const void* a, const void* w, const void* bias,
-                                          const void* res, const void* mask, void* out, int m,
-                                          int n, int k, int epilogue, int res_f32,
-                                          void* stream) {
+                                          const void* res, const void* mask, void* out,
+                                          void* aux, int m, int n, int k, int epilogue,
+                                          int res_f32, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (m == 0) return 0;
   switch (epilogue) {
@@ -313,6 +373,10 @@ extern "C" int peekvit_gemm_bias_epilogue(const void* a, const void* w, const vo
       return epilogue == 6
                  ? launch_res<6, float>(res_f32, a, w, bias, res, mask, out, m, n, k, s)
                  : launch_res<7, __nv_bfloat16>(res_f32, a, w, bias, res, mask, out, m, n, k, s);
+    case 8:
+      if (mask == nullptr || res == nullptr || aux == nullptr) return (int)cudaErrorInvalidValue;
+      return launch<8, false, __nv_bfloat16, __nv_bfloat16>(a, w, bias, res, mask, out, m, n, k,
+                                                            s, aux);
     default:
       return (int)cudaErrorInvalidValue;
   }

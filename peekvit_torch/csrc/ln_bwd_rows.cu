@@ -22,6 +22,20 @@
 // across its rows; at the end the 8 warps' partials meet in shared memory
 // and are summed in a fixed order, so reruns give the same bits (no
 // atomics). 64 rows per block.
+//
+// The masked mode ("ln_bwd_rows.masked") is the tail of the masked
+// trainable block's backward kernels (_masked_bwd_kernel :445 at
+// :536-547, _masked_bwd_kernel_saved :550 at :621-631), where the block's
+// input to the qkv GEMM was s1 = mask * LN(x) and the row mask is a
+// differentiable operand. The kernel reads ds1 = dqkv . Wqkv^T (fp32) in
+// dln's place, the mask, beta and the per-(row, column tile) partials of
+// sum(g * proj) that GEMM epilogue masked_rowdot wrote, and per row:
+//   - ln_f32 = xhat * gamma + beta, fp32 and never rounded (:624);
+//   - dm = sum(partials) + sum(ds1 * ln_f32), rounded once to bf16 (the
+//     mask's dtype): the gate cotangent's output-mask and input-mask terms;
+//   - dln = ds1 * mask, then dx and the column partials from dln as above.
+// Same bound (bytes) and design; beta is read per row from L1 rather than
+// held in registers, which the unmasked mode already fills.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -67,12 +81,15 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p, const float* v) {
 }
 
 // NC = ceil(d / 256): 8-value chunks per lane (column lane*8 + i*256).
-template <int NC>
+template <int NC, bool MASKED>
 __global__ void __launch_bounds__(WARPS * 32)
 ln_bwd_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ dln,
               const __nv_bfloat16* __restrict__ g, const __nv_bfloat16* __restrict__ gamma,
               __nv_bfloat16* __restrict__ dx, float* __restrict__ part_w,
-              float* __restrict__ part_b, long long rows, int d, float eps) {
+              float* __restrict__ part_b, long long rows, int d, float eps,
+              const __nv_bfloat16* __restrict__ mask, const __nv_bfloat16* __restrict__ beta,
+              const float* __restrict__ rowdot, int rowdot_parts,
+              __nv_bfloat16* __restrict__ dm) {
   __shared__ float red[WARPS][MAX_D];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const float inv_d = 1.0f / (float)d;
@@ -123,12 +140,40 @@ ln_bwd_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ dln
       }
     }
     const float inv = rsqrtf(warp_sum(dev) * inv_d + eps);
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) xv[i][e] = (xv[i][e] - mu) * inv;  // xhat
+    }
+    if (MASKED) {
+      // dm = sum(g * proj) + sum(ds1 * ln_f32); then dln = ds1 * mask
+      float dot = 0.f;
+#pragma unroll
+      for (int i = 0; i < NC; ++i) {
+        const int c = lane * 8 + i * 256;
+        if (c < d) {
+          float bet[8];
+          load8(beta + c, bet);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) dot += dv[i][e] * (xv[i][e] * gam[i][e] + bet[e]);
+        }
+      }
+      dot = warp_sum(dot);
+      float rd = 0.f;
+      for (int p = 0; p < rowdot_parts; ++p) rd += rowdot[row * rowdot_parts + p];
+      if (lane == 0) dm[row] = __float2bfloat16_rn(rd + dot);
+      const float mk = __bfloat162float(mask[row]);
+#pragma unroll
+      for (int i = 0; i < NC; ++i) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) dv[i][e] *= mk;
+      }
+    }
     float s1 = 0.f, s2 = 0.f;
 #pragma unroll
     for (int i = 0; i < NC; ++i) {
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        xv[i][e] = (xv[i][e] - mu) * inv;  // xhat; unused columns have dv = 0
+      for (int e = 0; e < 8; ++e) {  // unused columns have dv = 0
         const float dxhat = dv[i][e] * gam[i][e];
         s1 += dxhat;
         s2 += dxhat * xv[i][e];
@@ -176,13 +221,18 @@ ln_bwd_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ dln
 
 template <int NC>
 int launch(const void* x, const void* dln, const void* g, const void* gamma, void* dx,
-           void* part_w, void* part_b, long long rows, int d, float eps, cudaStream_t stream) {
+           void* part_w, void* part_b, long long rows, int d, float eps, const void* mask,
+           const void* beta, const void* rowdot, int rowdot_parts, void* dm,
+           cudaStream_t stream) {
   const unsigned grid = (unsigned)((rows + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK);
-  ln_bwd_kernel<NC><<<grid, WARPS * 32, 0, stream>>>(
+  auto kern = mask != nullptr ? ln_bwd_kernel<NC, true> : ln_bwd_kernel<NC, false>;
+  kern<<<grid, WARPS * 32, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(dln),
       static_cast<const __nv_bfloat16*>(g), static_cast<const __nv_bfloat16*>(gamma),
       static_cast<__nv_bfloat16*>(dx), static_cast<float*>(part_w),
-      static_cast<float*>(part_b), rows, d, eps);
+      static_cast<float*>(part_b), rows, d, eps, static_cast<const __nv_bfloat16*>(mask),
+      static_cast<const __nv_bfloat16*>(beta), static_cast<const float*>(rowdot), rowdot_parts,
+      static_cast<__nv_bfloat16*>(dm));
   return (int)cudaGetLastError();
 }
 
@@ -190,23 +240,34 @@ int launch(const void* x, const void* dln, const void* g, const void* gamma, voi
 
 // x, g, dx: (rows, d) bf16; dln: (rows, d) fp32; gamma: (d,) bf16;
 // part_w, part_b: (ceil(rows / 64), d) fp32, the per-block column sums of
-// dln * xhat and dln. d must be a multiple of 8 and at most 1024, every
-// pointer 16-byte aligned (the wrapper checks). Returns the cudaError_t
-// of the launch.
+// dln * xhat and dln. The masked mode (mask != nullptr) also takes mask
+// ((rows,) bf16), beta ((d,) bf16) and rowdot ((rows, rowdot_parts)
+// fp32), reads dln as ds1, and writes dm ((rows,) bf16). d must be a
+// multiple of 8 and at most 1024, every pointer 16-byte aligned (the
+// wrapper checks). Returns the cudaError_t of the launch (a masked call
+// missing beta, rowdot or dm returns cudaErrorInvalidValue).
 extern "C" int peekvit_ln_bwd_rows(const void* x, const void* dln, const void* g,
                                    const void* gamma, void* dx, void* part_w, void* part_b,
-                                   long long rows, int d, float eps, void* stream) {
+                                   long long rows, int d, float eps, const void* mask,
+                                   const void* beta, const void* rowdot, int rowdot_parts,
+                                   void* dm, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rows == 0) return 0;
+  if (mask != nullptr && (beta == nullptr || rowdot == nullptr || dm == nullptr))
+    return (int)cudaErrorInvalidValue;
   switch ((d + 255) / 256) {
     case 1:
-      return launch<1>(x, dln, g, gamma, dx, part_w, part_b, rows, d, eps, s);
+      return launch<1>(x, dln, g, gamma, dx, part_w, part_b, rows, d, eps, mask, beta, rowdot,
+                       rowdot_parts, dm, s);
     case 2:
-      return launch<2>(x, dln, g, gamma, dx, part_w, part_b, rows, d, eps, s);
+      return launch<2>(x, dln, g, gamma, dx, part_w, part_b, rows, d, eps, mask, beta, rowdot,
+                       rowdot_parts, dm, s);
     case 3:
-      return launch<3>(x, dln, g, gamma, dx, part_w, part_b, rows, d, eps, s);
+      return launch<3>(x, dln, g, gamma, dx, part_w, part_b, rows, d, eps, mask, beta, rowdot,
+                       rowdot_parts, dm, s);
     case 4:
-      return launch<4>(x, dln, g, gamma, dx, part_w, part_b, rows, d, eps, s);
+      return launch<4>(x, dln, g, gamma, dx, part_w, part_b, rows, d, eps, mask, beta, rowdot,
+                       rowdot_parts, dm, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,13 +1,15 @@
 """Residual Vision Transformer: per-layer token gating with a budget token
 (counterpart of peekvit_tpu/models/residualvit.py; reference
-models/residualvit.py). Eval forward only. The early-exit variant is
-models/eeresidualvit.py; its exit heads live in this file's encoder.
+models/residualvit.py): the eval forward and the train forward
+(``train=True``) the Trainer's module path runs. The early-exit variant
+is models/eeresidualvit.py; its exit heads live in this file's encoder.
 
 Behavioural contract, as the JAX modules:
 
-- ``ResidualGate``: Dense(1) ``projection`` -> gumbel gate (eval:
-  round(sigmoid)) or sigmoid gate pushed toward {0, 1} by
-  ``relu(mask - (1 - budget))`` or ``relu(mask - threshold)``.
+- ``ResidualGate``: Dense(1) ``projection`` -> gumbel gate (train: the
+  straight-through gumbel-sigmoid; eval: round(sigmoid)) or sigmoid gate
+  pushed toward {0, 1} by ``relu(mask - (1 - budget))`` or
+  ``relu(mask - threshold)``.
 - ``ResidualViTBlock`` skip modes 'attention', 'mlp', 'attention+mlp' and
   plain, LN eps 1e-6. The masked-LN trick ``mask * ln(x)`` keeps gated
   tokens exactly zero through the block (residualvit.py:175-183); gated
@@ -18,6 +20,12 @@ Behavioural contract, as the JAX modules:
   two embeddings). Non-'learnable' modes gate on the mean of the WHOLE
   batch's budget token (a scalar, residualvit.py:208).
 - The pos-embedding skips the budget token (JAX :283-288).
+- Under ``train=True`` a budget is drawn per sample (JAX :408-417): a
+  float ``add_budget_token`` is the constant, a list or tuple a uniform
+  choice, anything else uniform over ``budget_interval``; a given
+  ``budget`` is broadcast instead. The draws come from ``generator``
+  (budgets first, then each gumbel gate in layer order). Dropout is not
+  ported: ``train=True`` on a model built with dropout raises.
 - ``forward`` returns ``(logits, aux)``, aux = {"masks": {"layer_i":
   (B, N_img, 1)}, "current_budget": ...}; the early-exit model returns the
   tuple ``(exit_0, ..., exit_{L-1}, final)`` in place of the logits, its
@@ -35,11 +43,11 @@ from torch import nn
 
 from peekvit_torch.models.vit import Dense, LayerNorm
 from peekvit_torch.ops.attention import SelfAttention
-from peekvit_torch.ops.gates import hard_sigmoid_eval, sigmoid_with_temp
+from peekvit_torch.ops.gates import gumbel_sigmoid, hard_sigmoid_eval, sigmoid_with_temp
 from peekvit_torch.ops.mlp import MLP, lecun_normal_
 from peekvit_torch.ops.patch_embed import PatchEmbed
 
-TRAINING_ITEM = "ROADMAP.md port queue A item 4b (ResidualViT training)"
+DROPOUT_ITEM = "ROADMAP.md port queue A item 3 (training with dropout)"
 
 
 def _dense(in_dim: int, out_dim: int, generator) -> Dense:
@@ -48,6 +56,24 @@ def _dense(in_dim: int, out_dim: int, generator) -> Dense:
     with torch.no_grad():
         lecun_normal_(layer.kernel, generator)
     return layer
+
+
+def sample_budgets(model, batch: int, generator: Optional[torch.Generator] = None,
+                   device=None) -> torch.Tensor:
+    """Per-sample training budgets of a ResidualViT, (batch,) fp32 on
+    ``device`` (JAX residualvit.py:408-417, training/fused.py:273-283): a
+    float ``add_budget_token`` is the constant; a list or tuple, a uniform
+    choice; anything else, uniform over ``budget_interval``. Drawn from
+    ``generator`` on its own device, then moved."""
+    bt = model.add_budget_token
+    if isinstance(bt, float):
+        return torch.full((batch,), bt, dtype=torch.float32, device=device)
+    gen_device = generator.device if generator is not None else None
+    if isinstance(bt, (list, tuple)):
+        idx = torch.randint(len(bt), (batch,), generator=generator, device=gen_device)
+        return torch.tensor(bt, dtype=torch.float32, device=gen_device)[idx].to(device)
+    lo, hi = getattr(model, "budget_interval", (0.0, 1.0))
+    return (torch.rand(batch, generator=generator, device=gen_device) * (hi - lo) + lo).to(device)
 
 
 class ResidualGate(nn.Module):
@@ -70,13 +96,15 @@ class ResidualGate(nn.Module):
         if gate_type == "sigmoid" and threshold == "learnable" and own_threshold:
             self.threshold = nn.Parameter(torch.tensor(0.5))
 
-    def forward(self, x, budget=None, threshold=None):
+    def forward(self, x, budget=None, threshold=None, train: bool = False, generator=None):
         if budget is not None and threshold is not None:
             raise ValueError("Cannot specify both budget and threshold")
         logits = self.projection(x)
         if self.gate_type == "gumbel":
             if budget is not None:
                 raise ValueError("Gumbel gate does not support budget")
+            if train:
+                return gumbel_sigmoid(logits, generator, tau=self.temp, bias=self.sigmoid_bias)
             return hard_sigmoid_eval(logits)
         mask = sigmoid_with_temp(logits, self.temp, self.sigmoid_bias)
         if budget is not None:
@@ -121,13 +149,14 @@ class ResidualViTBlock(nn.Module):
             return tokens[:, :s], tokens[:, s:-1], tokens[:, -1:]
         return tokens[:, :s], tokens[:, s:], None
 
-    def _gate(self, img, budget_token):
+    def _gate(self, img, budget_token, train, generator):
         current_budget = threshold = None
         if self.budget_token == "learnable":
             threshold = torch.sigmoid(self.budget_token_gate(budget_token))
         elif self.budget_token:
             current_budget = budget_token.mean()  # the whole batch's (reference quirk)
-        return self.residual_gate(img, budget=current_budget, threshold=threshold)
+        return self.residual_gate(img, budget=current_budget, threshold=threshold, train=train,
+                                  generator=generator)
 
     def _with_budget(self, special, img, budget_token):
         parts = [special, img] + ([budget_token] if self.budget_token else [])
@@ -146,22 +175,22 @@ class ResidualViTBlock(nn.Module):
         x = m * self.self_attention(m * self.ln_1(tokens)) + tokens
         return x + self.mlp(m * self.ln_2(x))
 
-    def forward(self, tokens):
+    def forward(self, tokens, train: bool = False, generator=None):
         """-> (tokens, mask or None); mask is (B, N_img, 1)."""
         if self.skip == "attention":
             special, img, _ = self._split(tokens)
-            mask = self._gate(img, None)
+            mask = self._gate(img, None, train, generator)
             x = self.self_attention(self.ln_1(torch.cat([special, mask * img], dim=1))) + tokens
             return self.mlp(self.ln_2(x)), mask  # literal: final residual dropped
         if self.skip == "mlp":
             x = self.self_attention(self.ln_1(tokens)) + tokens
             special, img, budget_token = self._split(x)
-            mask = self._gate(img, budget_token)
+            mask = self._gate(img, budget_token, train, generator)
             y = self.mlp(self.ln_2(self._with_budget(special, mask * img, budget_token)))
             return self._add_input(y, special, img, mask, budget_token), mask
         if self.skip == "attention+mlp":
             special, img, budget_token = self._split(tokens)
-            mask = self._gate(img, budget_token)
+            mask = self._gate(img, budget_token, train, generator)
             ones = torch.ones((mask.shape[0], self.num_special_tokens, 1), dtype=mask.dtype,
                               device=mask.device)
             fwd_mask = self._with_budget(ones, mask, ones[:, :1])
@@ -202,7 +231,7 @@ class ResidualViTEncoder(nn.Module):
                                 _dense(hidden_dim, early_exit_classes, generator))
         self.ln = LayerNorm(hidden_dim, 1e-5)
 
-    def forward(self, tokens):
+    def forward(self, tokens, train: bool = False, generator=None):
         """-> (tokens after the final LN, early exits (a list, empty without
         exit heads), masks)."""
         if self.budget_token:
@@ -211,7 +240,7 @@ class ResidualViTEncoder(nn.Module):
             tokens = tokens + self.pos_embedding
         masks, exits = {}, []
         for i in range(self.num_layers):
-            tokens, mask = getattr(self, f"layers_{i}")(tokens)
+            tokens, mask = getattr(self, f"layers_{i}")(tokens, train, generator)
             if mask is not None:
                 masks[f"layer_{i}"] = mask
             if self.early_exits:
@@ -221,8 +250,8 @@ class ResidualViTEncoder(nn.Module):
 
 
 class ResidualVisionTransformer(nn.Module):
-    """ResidualViT classifier (eval forward). Returns (logits, aux) with
-    aux['masks'] and aux['current_budget'] ((B,) budgets)."""
+    """ResidualViT classifier. Returns (logits, aux) with aux['masks'] and
+    aux['current_budget'] ((B,) budgets)."""
 
     early_exits = False
 
@@ -236,9 +265,9 @@ class ResidualVisionTransformer(nn.Module):
                  budget_interval: tuple = (0, 1), noise_layer: Optional[int] = None,
                  noise_type: str = "gaussian", generator: torch.Generator | None = None):
         super().__init__()
-        # Constructor parity with the JAX module: the eval forward has no
-        # dropout, representation head, budget sampling or noise.
-        del representation_size, budget_interval, noise_type
+        # Constructor parity with the JAX module: there is no
+        # representation head or noise, and dropout is refused in training.
+        del representation_size, noise_type
         if image_size % patch_size != 0:
             raise ValueError("Input shape indivisible by patch size!")
         if noise_layer is not None:
@@ -262,6 +291,7 @@ class ResidualVisionTransformer(nn.Module):
         self.gate_bias = gate_bias
         self.gate_threshold = gate_threshold
         self.add_budget_token = add_budget_token
+        self.budget_interval = tuple(budget_interval)
 
         self.conv_proj = PatchEmbed(hidden_dim, patch_size, generator=generator)
         self.class_tokens = nn.Parameter(torch.zeros(1, num_class_tokens, hidden_dim))
@@ -300,22 +330,32 @@ class ResidualVisionTransformer(nn.Module):
             return self.learnable_budget_token_1 * b + self.learnable_budget_token_2 * (1.0 - b)
         return torch.zeros(budget_vec.shape[0], 1, self.hidden_dim, device=b.device) + b
 
-    def forward(self, x: torch.Tensor, budget=None, train: bool = False):
-        if train:
-            raise NotImplementedError(f"training a ResidualViT is not ported yet: {TRAINING_ITEM}")
+    def _current_budget(self, budget, n: int, train: bool, generator, device) -> torch.Tensor:
+        """The aux budget: (n,) per sample (drawn under ``train`` when no
+        budget is given)."""
+        if train and budget is None:
+            return sample_budgets(self, n, generator, device)
+        if budget is None:
+            raise ValueError("Budget not set. Call set_budget() (or pass budget=) before "
+                             "evaluating this model.")
+        return torch.broadcast_to(torch.as_tensor(budget, dtype=torch.float32, device=device),
+                                  (n,))
+
+    def forward(self, x: torch.Tensor, budget=None, train: bool = False,
+                generator: torch.Generator | None = None):
+        """(outputs, aux). ``train=True`` draws the budgets (when ``budget``
+        is None) and the gumbel gates' noise from ``generator``."""
+        if train and (self.dropout or self.attention_dropout):
+            raise NotImplementedError(f"training with dropout is not ported yet: {DROPOUT_ITEM}; "
+                                      "build the model with dropout=0.0 and attention_dropout=0.0")
         tokens = self.embed(x)
         n = tokens.shape[0]
         current_budget = None
         if self.add_budget_token:
-            if budget is None:
-                raise ValueError("Budget not set. Call set_budget() (or pass budget=) before "
-                                 "evaluating this model.")
-            current_budget = torch.as_tensor(budget, dtype=torch.float32, device=x.device)
+            current_budget = self._current_budget(budget, n, train, generator, x.device)
             budget_vec = torch.broadcast_to(current_budget, (n,))
-            if not self.early_exits:  # the EE model keeps one scalar budget per batch
-                current_budget = budget_vec
             tokens = torch.cat([tokens, self._budget_token(budget_vec)], dim=1)
-        tokens, exits, masks = self.encoder(tokens)
+        tokens, exits, masks = self.encoder(tokens, train, generator)
         logits = self.head(tokens[:, :self.num_class_tokens].sum(dim=1))
         aux = {"masks": masks}
         if current_budget is not None:

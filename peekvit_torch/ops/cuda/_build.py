@@ -38,7 +38,7 @@ _SIGNATURES = {
     "norm_rows": ("peekvit_norm_rows",
                   [_P, _I, _P, _P, _P, _P, ctypes.c_longlong, _I, ctypes.c_float, _I, _P]),
     "gemm_bias_epilogue": ("peekvit_gemm_bias_epilogue",
-                           [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+                           [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "attn_scores_pv": ("peekvit_attn_scores_pv",
                        [_P, _P, _I, _I, _I, _I, ctypes.c_float, _I, ctypes.c_float, _P]),
     "attn_softmax_fwd": ("peekvit_attn_softmax_fwd",
@@ -46,7 +46,8 @@ _SIGNATURES = {
     "attn_softmax_bwd": ("peekvit_attn_softmax_bwd",
                          [_P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P]),
     "ln_bwd_rows": ("peekvit_ln_bwd_rows",
-                    [_P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, ctypes.c_float, _P]),
+                    [_P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, ctypes.c_float,
+                     _P, _P, _P, _I, _P, _P]),
 }
 
 _lock = threading.Lock()

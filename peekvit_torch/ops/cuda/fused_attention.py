@@ -16,7 +16,9 @@ tanh-gelu, the clamped exp2 softmax without max subtraction, the fp32
 mid-layer residual, bf16 rounding of normalized rows, qkv, attention
 output and gelu output (rounding to the compute dtype: none in fp32).
 ``gemm_nt`` (the same GEMM source with W read as (N, K) and no bias)
-serves the trainable block's backward (fused_attention_vjp.py).
+serves the trainable block's backward (fused_attention_vjp.py), and
+``gemm_masked_rowdot`` (epilogue ``masked_rowdot``) the masked block's:
+the bf16 g * mask and the row partials of sum(g * proj).
 
 The ResidualViT layer (``_layer_kernel`` mode ``masked``, and the split
 ``masked_attention_block`` / ``masked_mlp_block``) runs on the same three
@@ -284,7 +286,7 @@ def gemm_bias_epilogue(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     err = _build.library("gemm_bias_epilogue")(
         a.data_ptr(), w.data_ptr(), bias.data_ptr(),
         residual.data_ptr() if needs_res else None,
-        mask.data_ptr() if needs_mask else None, out.data_ptr(),
+        mask.data_ptr() if needs_mask else None, out.data_ptr(), None,
         m, n, k, _EPILOGUES[epilogue], res_f32, _stream())
     _launched(key, err)
     return out
@@ -321,10 +323,54 @@ def gemm_nt(a: torch.Tensor, w: torch.Tensor, epilogue: str) -> torch.Tensor:
     out_dtype = torch.float32 if epilogue == "none_f32" else torch.bfloat16
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     err = _build.library("gemm_bias_epilogue")(
-        a.data_ptr(), w.data_ptr(), None, None, None, out.data_ptr(), m, n, k,
+        a.data_ptr(), w.data_ptr(), None, None, None, out.data_ptr(), None, m, n, k,
         _NT_EPILOGUES[epilogue], 0, _stream())
     _launched(key, err)
     return out
+
+
+ROWDOT_TILE = 128  # gemm_masked_rowdot writes one partial per 128 output columns
+
+
+def gemm_masked_rowdot_ref(a, w, bias, g, mask):
+    """Plain version of :func:`gemm_masked_rowdot`; its partials are the
+    full row sums, shape (R, 1)."""
+    proj = torch.matmul(a.float(), w.float()) + bias.float().reshape(-1)
+    gf = g.float()
+    dproj = (gf * mask.float().reshape(-1, 1)).to(a.dtype)
+    return dproj, (gf * proj).sum(-1, keepdim=True)
+
+
+def gemm_masked_rowdot(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, g: torch.Tensor,
+                       mask: torch.Tensor):
+    """The head of the masked trainable block's backward, GEMM epilogue
+    ``masked_rowdot``: with proj = a @ w + bias in fp32 (never stored),
+    returns dproj = (g * mask) rounded to a's dtype, (R, N), and the fp32
+    partials of sum(g * proj) per row, (R, P) with P = ceil(N / 128), for
+    the caller to sum over P. a: (R, K), w: (K, N), g: (R, N), mask: one
+    value per row. On CUDA every tensor is bf16."""
+    if _on_cpu(a, w, bias, g, mask):
+        return gemm_masked_rowdot_ref(a, w, bias, g, mask)
+    key = "gemm_bias_epilogue.masked_rowdot"
+    _require(a.dim() == 2 and w.dim() == 2 and a.shape[1] == w.shape[0],
+             f"{key}: shapes {tuple(a.shape)} @ {tuple(w.shape)} do not chain")
+    m, k = a.shape
+    n = w.shape[1]
+    _require(k % 32 == 0, f"{key}: K={k} must be a multiple of 32")
+    _require(n % 8 == 0, f"{key}: N={n} must be a multiple of 8")
+    bias = bias.reshape(-1)
+    _require(bias.numel() == n, f"{key}: bias has {bias.numel()} values, want {n}")
+    _require(g.shape == (m, n), f"{key}: g must be {(m, n)}")
+    for name, t in (("a", a), ("w", w), ("bias", bias), ("g", g)):
+        _check_bf16(f"{key} {name}", t)
+    mask = _rows_mask(key, mask, m)
+    dproj = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
+    parts = torch.empty((m, -(-n // ROWDOT_TILE)), dtype=torch.float32, device=a.device)
+    err = _build.library("gemm_bias_epilogue")(
+        a.data_ptr(), w.data_ptr(), bias.data_ptr(), g.data_ptr(), mask.data_ptr(),
+        dproj.data_ptr(), parts.data_ptr(), m, n, k, 8, 0, _stream())
+    _launched(key, err)
+    return dproj, parts
 
 
 # -------------------------------------------------------------- attn_scores_pv

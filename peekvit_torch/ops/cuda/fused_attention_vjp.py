@@ -1,6 +1,5 @@
-"""The trainable attention sublayer: an autograd Function over CUDA kernels
-(counterpart of the unmasked half of
-peekvit_tpu/ops/pallas/fused_attention_vjp.py:29-394).
+"""The trainable attention sublayers: autograd Functions over CUDA kernels
+(counterpart of peekvit_tpu/ops/pallas/fused_attention_vjp.py).
 
 ``attention_block_trainable`` is x + OutProj(MHSA(LN(x))) with the Pallas
 numerics: two-pass LN with affine rounded to the compute dtype, qkv
@@ -20,6 +19,22 @@ also recomputes qkv with one more gemm(+bias) launch. The weight-gradient
 products, bias sums and the sum of the LN partials stay plain torch, as
 the JAX package leaves them to XLA (:334-348, :382-390); the fp32 dWo
 product assumes TF32 is off for fp32 matmuls (PyTorch's default).
+
+``masked_attention_block_trainable`` is the ResidualViT sublayer
+x + m * OutProj(MHSA(m * LN(x))) with the row mask m a differentiable
+operand (:397-786), at the same rounding points plus the mask's::
+
+    forward:  ln_rows.masked -> gemm(+bias) -> attn_softmax_fwd
+              -> gemm(* mask + x)
+    backward: gemm(masked_rowdot) -> gemm_nt(dproj Wo^T) -> attn_softmax_bwd
+              -> gemm_nt(dqkv Wqkv^T, fp32) -> ln_bwd_rows.masked
+
+The forward saves s1 = bf16(m * LN(x)), so the backward re-runs no LN (the
+Pallas kernels rebuild s1 bit for bit, :466 = :573). The mask cotangent
+dm = sum(g * proj) + sum(ds1 * ln_f32) takes both terms from fp32 values:
+proj = attn Wo + bo rebuilt in the first GEMM's epilogue (never stored),
+ln_f32 = xhat * gamma + beta in the LN backward (never rounded). Nine
+launches per layer, ten with ``save_qkv=False``.
 
 The Pallas ``images_per_cell`` (``mi``) is a TPU grid knob: how many images
 one grid step holds in VMEM. Only the order in which the per-cell LN
@@ -44,9 +59,12 @@ from peekvit_torch.ops.cuda.fused_attention import (
     _launched,
     _on_cpu,
     _require,
+    _rows_mask,
     _stream,
     gemm_bias_epilogue,
     gemm_bias_epilogue_ref,
+    gemm_masked_rowdot,
+    gemm_masked_rowdot_ref,
     gemm_nt,
     gemm_nt_ref,
     ln_rows,
@@ -202,9 +220,61 @@ def ln_bwd_rows(x: torch.Tensor, dln: torch.Tensor, g: torch.Tensor, gamma: torc
     part_b = torch.empty((parts, d), dtype=torch.float32, device=x.device)
     err = _build.library("ln_bwd_rows")(
         x.data_ptr(), dln.data_ptr(), g.data_ptr(), gamma.data_ptr(), dx.data_ptr(),
-        part_w.data_ptr(), part_b.data_ptr(), rows, d, float(eps), _stream())
+        part_w.data_ptr(), part_b.data_ptr(), rows, d, float(eps), None, None, None, 0, None,
+        _stream())
     _launched("ln_bwd_rows", err)
     return dx, part_w, part_b
+
+
+def ln_bwd_rows_masked_ref(x, ds1, g, gamma, beta, mask, rowdot, eps: float):
+    """Plain version of :func:`ln_bwd_rows_masked`; its column partials are
+    the full column sums, shape (1, D)."""
+    gf = gamma.float().reshape(-1)
+    ln, xhat, inv = _ln_f32(x, gf, beta.float().reshape(-1), eps)
+    dm = (rowdot.sum(-1) + (ds1 * ln).sum(-1)).to(mask.dtype)
+    dln = ds1 * mask.float().reshape(-1, 1)
+    dx = (_ln_bwd(dln, xhat, inv, gf) + g.float()).to(x.dtype)
+    return dx, dm, (dln * xhat).sum(0, keepdim=True), dln.sum(0, keepdim=True)
+
+
+def ln_bwd_rows_masked(x: torch.Tensor, ds1: torch.Tensor, g: torch.Tensor,
+                       gamma: torch.Tensor, beta: torch.Tensor, mask: torch.Tensor,
+                       rowdot: torch.Tensor, eps: float):
+    """The masked block's LN backward, per row (Pallas
+    ``_masked_bwd_kernel``'s tail). x, g: (R, D); ds1 = dqkv Wqkv^T: (R, D)
+    fp32; gamma, beta: (D,); mask: R values; rowdot: (R, P) fp32 partials
+    of sum(g * proj) (``gemm_masked_rowdot``). With ln_f32 = xhat * gamma
+    + beta in fp32, returns dx (R, D) in x's dtype, dm = sum(rowdot) +
+    sum(ds1 * ln_f32) (R,) in the mask's dtype, and the fp32 column
+    partials of sum(dln * xhat) and sum(dln), dln = ds1 * mask, (Q, D)
+    each. On CUDA: x, g, gamma, beta, mask bf16, D <= 1024."""
+    if _on_cpu(x, ds1, g, gamma, beta, mask, rowdot):
+        return ln_bwd_rows_masked_ref(x, ds1, g, gamma, beta, mask, rowdot, eps)
+    key = "ln_bwd_rows.masked"
+    _require(x.dim() == 2 and ds1.shape == x.shape and g.shape == x.shape,
+             f"{key}: x, ds1 and g must be the same (R, D)")
+    rows, d = x.shape
+    _require(d % 8 == 0 and d <= 1024, f"{key}: D={d} must be a multiple of 8, <= 1024")
+    gamma, beta = gamma.reshape(-1), beta.reshape(-1)
+    _require(gamma.numel() == d and beta.numel() == d, f"{key}: gamma and beta need {d} values")
+    for name, t in (("x", x), ("g", g), ("gamma", gamma), ("beta", beta)):
+        _check_bf16(f"{key} {name}", t)
+    mask = _rows_mask(key, mask, rows)
+    _require(ds1.dtype == torch.float32 and ds1.is_contiguous() and ds1.data_ptr() % 16 == 0,
+             f"{key}: ds1 must be contiguous, 16-byte aligned fp32")
+    _require(rowdot.dtype == torch.float32 and rowdot.dim() == 2 and rowdot.shape[0] == rows
+             and rowdot.is_contiguous(), f"{key}: rowdot must be contiguous fp32 ({rows}, P)")
+    dx = torch.empty_like(x)
+    dm = torch.empty(rows, dtype=torch.bfloat16, device=x.device)
+    parts = -(-rows // ROWS_PER_PARTIAL)
+    part_w = torch.empty((parts, d), dtype=torch.float32, device=x.device)
+    part_b = torch.empty((parts, d), dtype=torch.float32, device=x.device)
+    err = _build.library("ln_bwd_rows")(
+        x.data_ptr(), ds1.data_ptr(), g.data_ptr(), gamma.data_ptr(), dx.data_ptr(),
+        part_w.data_ptr(), part_b.data_ptr(), rows, d, float(eps), mask.data_ptr(),
+        beta.data_ptr(), rowdot.data_ptr(), rowdot.shape[1], dm.data_ptr(), _stream())
+    _launched(key, err)
+    return dx, dm, part_w, part_b
 
 
 # ------------------------------------------------------------- the sublayer
@@ -295,3 +365,101 @@ def attention_block_trainable_ref(x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_o
     """:func:`attention_block_trainable` on the plain versions alone."""
     return _AttentionBlock.apply(_PLAIN, x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out,
                                  num_heads, eps, save_qkv)
+
+
+# ------------------------------------------------- the masked (gated) sublayer
+
+
+def _masked_forward(ops, x, mask, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out, num_heads,
+                    eps):
+    ln_fn, gemm, attn_fwd = ops[0], ops[1], ops[3]
+    b, n, d = x.shape
+    x2, m = x.reshape(b * n, d), mask.reshape(b * n)
+    s1 = ln_fn(x2, ln_scale, ln_bias, eps, m)
+    qkv = gemm(s1, w_qkv, b_qkv, "bias").reshape(b, n, 3 * d)
+    attn = attn_fwd(qkv, num_heads)
+    out = gemm(attn.reshape(b * n, d), w_out, b_out, "masked_residual", residual=x2, mask=m)
+    return out.reshape(b, n, d), s1, attn, qkv
+
+
+def _masked_backward(ops, g, x, mask, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out, s1, attn,
+                     qkv, num_heads, eps):
+    """dx, dmask and the six parameter grads; ``qkv=None`` recomputes it
+    from the saved s1 (``_masked_bwd_kernel``'s recompute)."""
+    _, gemm, gemm_t, _, attn_bwd, _, rowdot_gemm, ln_bwd = ops
+    b, n, d = x.shape
+    x2, m = x.reshape(b * n, d), mask.reshape(b * n)
+    g2 = g.reshape(b * n, d).to(x.dtype).contiguous()
+    attn2 = attn.reshape(b * n, d)
+    if qkv is None:
+        qkv = gemm(s1, w_qkv, b_qkv, "bias").reshape(b, n, 3 * d)
+    dproj_c, rowdot = rowdot_gemm(attn2, w_out, b_out, g2, m)
+    dattn = gemm_t(dproj_c, w_out, "none")
+    dqkv = attn_bwd(qkv, dattn.reshape(b, n, d), num_heads).reshape(b * n, 3 * d)
+    ds1 = gemm_t(dqkv, w_qkv, "none_f32")
+    dx, dm, dlns_parts, dlnb_parts = ln_bwd(x2, ds1, g2, ln_scale, ln_bias, m, rowdot, eps)
+
+    # Weight grads: plain torch (XLA's in the JAX package, :772-782). dWo
+    # and dbo take the fp32 dproj = g * mask, not the bf16 copy the NT GEMM
+    # read.
+    dproj = g2.float() * m.float().reshape(-1, 1)
+    d_wqkv = (s1.t() @ dqkv).to(w_qkv.dtype)
+    d_bqkv = dqkv.float().sum(0).to(b_qkv.dtype)
+    d_wout = (attn2.float().t() @ dproj).to(w_out.dtype)
+    d_bout = dproj.sum(0).to(b_out.dtype)
+    d_lns = dlns_parts.sum(0).to(ln_scale.dtype)
+    d_lnb = dlnb_parts.sum(0).to(ln_bias.dtype)
+    return (dx.reshape(b, n, d), dm.reshape(mask.shape).to(mask.dtype),
+            d_lns.reshape(ln_scale.shape), d_lnb.reshape(ln_bias.shape), d_wqkv,
+            d_bqkv.reshape(b_qkv.shape), d_wout, d_bout.reshape(b_out.shape))
+
+
+class _MaskedAttentionBlock(torch.autograd.Function):
+    """Forward saves (x, mask, params, s1, attn[, qkv]); the backward is
+    ``_masked_trainable_bwd_saved`` with qkv, ``_masked_trainable_bwd``
+    (recompute) without."""
+
+    @staticmethod
+    def forward(ctx, ops, x, mask, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out, num_heads,
+                eps, save_qkv):
+        x, mask = x.contiguous(), mask.contiguous()
+        out, s1, attn, qkv = _masked_forward(ops, x, mask, ln_scale, ln_bias, w_qkv, b_qkv,
+                                             w_out, b_out, num_heads, eps)
+        ctx.ops, ctx.num_heads, ctx.eps = ops, num_heads, eps
+        ctx.save_for_backward(x, mask, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out, s1, attn,
+                              qkv if save_qkv else None)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = _masked_backward(ctx.ops, g, *ctx.saved_tensors, ctx.num_heads, ctx.eps)
+        return (None, *grads, None, None, None)
+
+
+_MASKED_KERNELS = _KERNELS + (gemm_masked_rowdot, ln_bwd_rows_masked)
+_MASKED_PLAIN = _PLAIN + (gemm_masked_rowdot_ref, ln_bwd_rows_masked_ref)
+
+
+def masked_attention_block_trainable(x, mask, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out,
+                                     num_heads: int, eps: float = 1e-6,
+                                     save_qkv: bool = False) -> torch.Tensor:
+    """Differentiable x + mask * OutProj(MHSA(mask * LN(x))), the
+    ResidualViT attention sublayer with the mask (B, N, 1) a differentiable
+    operand, so the gate gradients flow (Pallas
+    ``masked_attention_block_trainable``, :661). Four launches forward
+    (``ln_rows.masked``, GEMM ``bias``, ``attn_softmax_fwd``, GEMM
+    ``masked_residual``) and five backward (GEMM ``masked_rowdot``, GEMM NT
+    ``none``, ``attn_softmax_bwd``, GEMM NT ``none_f32``,
+    ``ln_bwd_rows.masked``); ``save_qkv=False`` adds the qkv GEMM to the
+    backward. dmask comes back in the mask's shape and dtype. On CUDA every
+    tensor is bf16."""
+    return _MaskedAttentionBlock.apply(_MASKED_KERNELS, x, mask, ln_scale, ln_bias, w_qkv, b_qkv,
+                                       w_out, b_out, num_heads, eps, save_qkv)
+
+
+def masked_attention_block_trainable_ref(x, mask, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out,
+                                         num_heads: int, eps: float = 1e-6,
+                                         save_qkv: bool = False) -> torch.Tensor:
+    """:func:`masked_attention_block_trainable` on the plain versions alone."""
+    return _MaskedAttentionBlock.apply(_MASKED_PLAIN, x, mask, ln_scale, ln_bias, w_qkv, b_qkv,
+                                       w_out, b_out, num_heads, eps, save_qkv)

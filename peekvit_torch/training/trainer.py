@@ -1,22 +1,39 @@
 """Train/eval harness, single device (counterpart of the single-device part
 of peekvit_tpu/training/trainer.py).
 
-A ``Trainer`` holds a built plain ``VisionTransformer`` on its device and
-runs one of two train steps:
+A ``Trainer`` holds a built ``VisionTransformer``, ``ResidualVisionTransformer``
+or ``EEResidualVisionTransformer`` on its device and runs one of three
+train steps (``_fused_kind``, the JAX conditions of trainer.py:278-308):
 
-- **fused** (``fused="auto"`` on the card, or ``fused=True`` anywhere):
-  ``training.fused.vit_forward_trainable``, the attention sublayer on the
-  CUDA kernels (their plain versions on the CPU) with bf16 compute over
-  fp32 master params. This is the JAX rule "fused only on the accelerator
-  backend" (trainer.py:283).
-- **module** (``fused=False`` / ``"never"``, or ``"auto"`` on the CPU): the
-  model's own fp32 forward under autograd, as the linen step.
+- **fused_vit** (a plain ViT; ``fused="auto"`` on the card, or
+  ``fused=True`` anywhere): ``training.fused.vit_forward_trainable``, the
+  attention sublayer on the CUDA kernels (their plain versions on the CPU)
+  with bf16 compute over fp32 master params. This is the JAX rule "fused
+  only on the accelerator backend" (trainer.py:283).
+- **fused_residual** (a ResidualViT with sigmoid gates, 'attention+mlp' on
+  every layer, no ``add_input``, a budget token, no early exits):
+  ``training.fused.residualvit_forward_trainable`` over the masked block's
+  kernels, then cross-entropy plus the ``loss_compose`` regularizers
+  against the batch-mean budget (trainer.py:746-764).
+- **module** (otherwise, ``fused=False`` / ``"never"``, or ``"auto"`` on
+  the CPU): the model's own fp32 forward under autograd, as the linen step
+  (trainer.py:344-380): the cross-entropy of every early exit weighted by
+  ``ee_weights``, and the regularizers.
 
-Both feed the same update: optional gradient accumulation, global-norm
-clipping, freezing and the optimizer (``optim.GradientTransform``). The
-JAX trainer's multi-device, quantisation-aware, regulariser and noise
-options are not ported; each raises ``NotImplementedError`` naming its
-ROADMAP.md port queue A item. Batches are moved to the trainer's device
+All feed the same update: optional gradient accumulation, global-norm
+clipping, freezing and the optimizer (``optim.GradientTransform``).
+
+Random numbers (the budgets drawn per sample when no ``budget=`` is
+given, the gumbel gates' noise) come from a CPU ``torch.Generator``
+seeded, for each step, with ``(seed << 32) | step_idx`` (both taken
+modulo 2^32): one stream per step as the JAX step's
+``fold_in(key(seed), step_idx)``, though not JAX's bits. The budgets are
+drawn first, then each gumbel gate in layer order. ``train_epoch`` passes
+``step_idx = epoch * steps_per_epoch + i`` as the JAX trainer does.
+
+The JAX trainer's multi-device, quantisation-aware, reconstruction and
+noise options are not ported; each raises ``NotImplementedError`` naming
+its ROADMAP.md port queue A item. Batches are moved to the trainer's device
 as they come; the JAX ``prefetch_to_device`` (data/loader.py) is not
 ported.
 """
@@ -31,9 +48,13 @@ import torch
 
 from peekvit_torch.models.adapters import live_params, tree_leaves
 from peekvit_torch.models.registry import resolve_device
-from peekvit_torch.models.residualvit import TRAINING_ITEM, ResidualVisionTransformer
+from peekvit_torch.models.residualvit import DROPOUT_ITEM, ResidualVisionTransformer
 from peekvit_torch.models.vit import VisionTransformer
-from peekvit_torch.training.fused import trainable_forward_fn
+from peekvit_torch.training.fused import (
+    residual_forward_fn,
+    sample_budgets,
+    trainable_forward_fn,
+)
 from peekvit_torch.training.optim import (
     CrossEntropyLoss,
     GradientTransform,
@@ -64,6 +85,13 @@ def param_filter_mask(params: dict, keywords=FINETUNE_KEYWORDS) -> dict:
     return visit(params, "")
 
 
+def step_generator(seed: int, step_idx: int) -> torch.Generator:
+    """The CPU generator of one train step: seeded with
+    ``(seed << 32) | step_idx``, each modulo 2^32."""
+    return torch.Generator().manual_seed(((int(seed) & 0xFFFFFFFF) << 32)
+                                         | (int(step_idx) & 0xFFFFFFFF))
+
+
 def _main_logits(out, output_format: Optional[str]):
     if output_format == "early_exits":
         return out[-1]
@@ -85,9 +113,7 @@ _NOT_PORTED = {
     "qat": (False, "item 8 (QAT)"),
     "qat_caps": (None, "item 8 (QAT)"),
     "qat_smoothing": (None, "item 8 (QAT)"),
-    "loss_compose": (None, "item 4b (ResidualViT training; LossCompose regularizers)"),
     "reconstruction_weight": (0.0, "item 7 (EncDec / MAE reconstruction)"),
-    "ee_weights": (None, "item 4b (ResidualViT training; early exits)"),
 }
 
 
@@ -104,8 +130,7 @@ class Trainer:
     train_backbone: bool = True
     reconstruction_weight: float = 0.0
     ee_weights: Optional[list] = None
-    # the supported paths draw no random numbers (no dropout, no noise);
-    # kept for parity with the JAX Trainer's PRNG seed
+    # seeds each step's generator with step_idx (budget sampling, gumbel gates)
     seed: int = 0
     mesh: Any = None
     fused: Any = "auto"
@@ -124,31 +149,25 @@ class Trainer:
     qat_caps: Optional[tuple] = None
     qat_smoothing: Optional[tuple] = None
     tensor_parallel: bool = False
-    # per-layer torch.utils.checkpoint on the fused path (the backward
-    # recomputes each layer; save_qkv then defaults off)
+    # per-layer torch.utils.checkpoint on the fused plain-ViT path (the
+    # backward recomputes each layer; save_qkv then defaults off)
     remat: bool = False
     device: Any = "cuda"
 
     def __post_init__(self):
         for name, (unused, item) in _NOT_PORTED.items():
             value = getattr(self, name)
-            if name == "loss_compose" and not getattr(value, "additional_losses", None):
-                continue  # no additional losses: the main criterion alone
             used = value is not None if unused is None else value != unused
             if used:
                 raise NotImplementedError(
                     f"Trainer({name}=...) is not ported yet: ROADMAP.md port queue A {item}")
-        if isinstance(self.model, ResidualVisionTransformer):
+        if not isinstance(self.model, (VisionTransformer, ResidualVisionTransformer)):
             raise NotImplementedError(
-                f"the port's Trainer trains the plain VisionTransformer; training a "
-                f"{type(self.model).__name__} is {TRAINING_ITEM}")
-        if not isinstance(self.model, VisionTransformer):
-            raise NotImplementedError(
-                f"the port's Trainer trains the plain VisionTransformer; "
+                f"the port's Trainer trains the plain ViT and the ResidualViT family; "
                 f"{type(self.model).__name__} is ROADMAP.md port queue A items 5-7")
         if self.model.dropout or self.model.attention_dropout:
             raise NotImplementedError(
-                "training with dropout is not ported yet (ROADMAP.md port queue A item 3): "
+                f"training with dropout is not ported yet ({DROPOUT_ITEM}): "
                 "build the model with dropout=0.0 and attention_dropout=0.0")
         self.device = resolve_device(self.device)
         self.model.to(self.device)
@@ -159,57 +178,109 @@ class Trainer:
         self.torch_optimizer = self.optimizer.build(self.params, param_mask=mask)
         self.tx = GradientTransform(self.torch_optimizer, [p for _, p in tree_leaves(self.params)],
                                     self.clip_grad_norm, self.grad_accumulation)
-        self.output_format = None
+        self.output_format = getattr(self.model, "output_format", None)
         self._forward = None
         self._train_kind = None
 
     # ------------------------------------------------------------ train step
 
     def _fused_kind(self):
-        """'vit' | None: whether the fused train path applies."""
+        """'vit' | 'residual' | None: which fused train path applies, under
+        the JAX conditions (trainer.py:278-308)."""
+        model = self.model
         if self.fused in (False, "never"):
             return None
         if self.fused == "auto" and self.device.type != "cuda":
             return None
-        return "vit"
+        if (model.dropout or model.attention_dropout
+                or getattr(model, "noise_layer", None) is not None
+                or self.output_format is not None):
+            return None
+        if isinstance(model, VisionTransformer):
+            if self.loss_compose and self.loss_compose.additional_losses:
+                return None  # a plain ViT emits no aux for regularizers
+            return "vit"
+        layers = model.residual_layers or ["attention+mlp"] * model.num_layers
+        if (set(layers) == {"attention+mlp"} and model.gate_type == "sigmoid"
+                and not model.add_input and model.add_budget_token):
+            return "residual"
+        return None
 
     def _fused_eligible(self) -> bool:
         return self._fused_kind() is not None
 
     def _build_forward(self):
-        if self.remat and self._fused_kind() != "vit":
+        """(images, budget vector or None, generator) -> (outputs, aux)."""
+        kind = self._fused_kind()
+        if self.remat and kind != "vit":
             raise NotImplementedError(
                 "remat=True is a fused plain-ViT train-path knob (per-layer checkpoint in "
-                "training/fused.vit_forward_trainable); for the module path trade memory with "
+                "training/fused.vit_forward_trainable); for other paths trade memory with "
                 "grad_accumulation or a smaller batch")
-        if self._fused_eligible():
+        if kind == "vit":
             self._train_kind = "fused_vit"
             fwd = trainable_forward_fn(self.model, remat=self.remat)
-            return lambda x: fwd(self.params, x)
+            return lambda x, budget, gen: (fwd(self.params, x), {})
+        if kind == "residual":
+            self._train_kind = "fused_residual"
+            fwd = residual_forward_fn(self.model)
+            return lambda x, bvec, gen: fwd(self.params, x, bvec)
         self._train_kind = "module"
-        return lambda x: self.model(x)[0]
+        if isinstance(self.model, ResidualVisionTransformer):
+            return lambda x, budget, gen: self.model(x, budget=budget, train=True, generator=gen)
+        return lambda x, budget, gen: self.model(x)
+
+    def _loss(self, out, aux, y, budget):
+        """The linen ``loss_fn`` (trainer.py:352-380): the cross-entropy (of
+        every early exit, weighted by ``ee_weights``) plus the regularizers
+        against the batch-mean budget. Returns (total, metrics)."""
+        if self.output_format == "early_exits":
+            ces = torch.stack([self.main_criterion(o, y) for o in out])
+            n = len(out)
+            w = (torch.tensor(self.ee_weights, dtype=torch.float32) / sum(self.ee_weights)
+                 if self.ee_weights else torch.full((n,), 1.0 / n))
+            ce = (ces * w.to(ces.device)).sum()
+        else:
+            ce = self.main_criterion(_main_logits(out, self.output_format), y)
+        metrics = {"classification_loss": ce}
+        total = ce
+        if self.loss_compose is not None and self.loss_compose.additional_losses:
+            b = aux.get("current_budget", budget)
+            if isinstance(b, torch.Tensor) and b.dim() > 0:
+                b = b.mean()
+            losses, reg = self.loss_compose.compute(aux, budget=b)
+            metrics.update(losses)
+            total = total + reg
+        metrics["total_loss"] = total
+        return total, metrics
 
     def train_step(self, x, y, budget=None, noise_value=None, step_idx: int = 0):
         """One forward/backward and update. Returns the metrics as 0-d
-        tensors on the device: classification_loss and total_loss.
-        ``step_idx`` seeds nothing here (no path draws random numbers)."""
-        del step_idx
+        tensors on the device: classification_loss, the regularizers by
+        name, and total_loss. ``step_idx`` seeds the step's generator
+        (``step_generator``); the fused residual step draws its per-sample
+        budgets from it when ``budget`` is None, and broadcasts ``budget``
+        otherwise."""
         self._check_unported_args(budget, noise_value)
         if self._forward is None:
             self._forward = self._build_forward()
         x, y = self._to_device(x, y)
-        ce = self.main_criterion(self._forward(x), y)
-        ce.backward()
+        gen = step_generator(self.seed, step_idx)
+        if self._train_kind == "fused_residual":
+            n = x.shape[0]
+            budget = (sample_budgets(self.model, n, gen, x.device) if budget is None
+                      else torch.full((n,), float(budget), dtype=torch.float32, device=x.device))
+        out, aux = self._forward(x, budget, gen)
+        total, metrics = self._loss(out, aux, y, budget)
+        total.backward()
         self.tx()
-        ce = ce.detach()
-        return {"classification_loss": ce, "total_loss": ce}
+        return {k: v.detach() for k, v in metrics.items()}
 
-    @staticmethod
-    def _check_unported_args(budget, noise_value):
-        if budget is not None:
+    def _check_unported_args(self, budget, noise_value):
+        if budget is not None and not isinstance(self.model, ResidualVisionTransformer):
             raise NotImplementedError(
-                "a token budget (RankViT / ResidualViT) is not ported yet: ROADMAP.md port "
-                "queue A items 4-5")
+                "a token budget on a plain VisionTransformer (RankViT's ranking) is not ported "
+                "yet: ROADMAP.md port queue A item 5")
         if noise_value is not None:
             raise NotImplementedError("noise is not ported yet: ROADMAP.md port queue A item 10")
 
@@ -220,7 +291,8 @@ class Trainer:
         self._check_unported_args(budget, noise_value)
         x, y = self._to_device(x, y)
         with torch.no_grad():
-            out, aux = self.model(x)
+            out, aux = (self.model(x, budget=budget)
+                        if isinstance(self.model, ResidualVisionTransformer) else self.model(x))
             logits = _main_logits(out, self.output_format)
             loss = self.main_criterion(logits, y)
             correct = (logits.argmax(-1) == y).sum()
@@ -255,9 +327,12 @@ class Trainer:
                 logger.log({f"{log_prefix}{k}": v for k, v in rec.items()})
             pending.clear()
 
+        steps_per_epoch = len(loader) if hasattr(loader, "__len__") else 0
         interrupted = False
-        for x, y in loader:
-            metrics = self.train_step(x, y, budget=budget, noise_value=noise_value)
+        for i, (x, y) in enumerate(loader):
+            step_idx = epoch * max(steps_per_epoch, 1) + i
+            metrics = self.train_step(x, y, budget=budget, noise_value=noise_value,
+                                      step_idx=step_idx)
             if logger is not None:
                 pending.append(metrics)
                 if len(pending) >= max(self.log_every, 1):

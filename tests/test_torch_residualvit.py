@@ -160,14 +160,17 @@ def test_ee_module_matches_linen():
 
 
 def test_module_refuses_training_and_a_missing_budget():
+    """Eval needs a budget; training (ported since) still refuses dropout."""
     _, tm, _ = _pair("residualvit", dict(SMALL, add_budget_token="learnable"), 7)
     x = torch.from_numpy(_images(1, 1, 32))
     with pytest.raises(ValueError, match="Budget not set"):
         tm(x)
-    with pytest.raises(NotImplementedError, match="item 4b"):
-        tm(x, budget=0.5, train=True)
-    with pytest.raises(NotImplementedError, match="item 4b"):
-        Trainer(tm, AdamW(), device="cpu")
+    dropout = build_model("residualvit", dict(SMALL, add_budget_token="learnable",
+                                              attention_dropout=0.1), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 3"):
+        dropout(x, budget=0.5, train=True)
+    with pytest.raises(NotImplementedError, match="item 3"):
+        Trainer(dropout, AdamW(), device="cpu")
 
 
 # ------------------------------------------------------------------- engine

@@ -429,15 +429,14 @@ def test_trainer_refuses_what_is_not_ported():
     for kwargs in (dict(mesh=object()), dict(pipeline_stages=2),
                    dict(sequence_parallel_devices=2), dict(tensor_parallel=True),
                    dict(fsdp_sharded_params=True), dict(zero_sharded_optimizer=True),
-                   dict(qat=True), dict(qat="static"), dict(ee_weights=[1.0]),
-                   dict(reconstruction_weight=0.5)):
+                   dict(qat=True), dict(qat="static"), dict(reconstruction_weight=0.5)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md port queue A item"):
             Trainer(**base, **kwargs)
     trainer = Trainer(**base)
     x, y = _batch(1, n=2)
     with pytest.raises(NotImplementedError, match="item 10"):
         trainer.train_step(x, y, noise_value=0.5)
-    with pytest.raises(NotImplementedError, match="items 4-5"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         trainer.train_step(x, y, budget=0.5)
     with pytest.raises(NotImplementedError, match="remat"):
         Trainer(**base, remat=True, fused=False).train_step(x, y)
