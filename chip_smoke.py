@@ -70,7 +70,27 @@ prints no final result):
 14. residual train timing at bs256: ms per step, images/s, share of the
    bf16 peak, peak memory, each new kernel's time, plain time, bound and
    library yardstick, the step's breakdown, one profiled step;
-15. the {"kernels": [...]} line, then the card's nvidia-smi line, then
+15. RankViT kernel checks at bs256 shapes: attn_scores_pv.kmask,
+   keymasked_layer_block_folded and keymasked_attention_block at N = 148
+   (the max_budget=0.75 buffer after layer 3) with about half of each
+   image's keys excluded and the excluded rows poisoned with NaN and Inf
+   (valid rows compared, finite, and bit-identical to a clean input's),
+   fused_mlp_block and fused_attention_block at N = 99 (the exact drop at
+   budget 0.5) and fused_layer_block_folded at N = 197, against their
+   plain versions;
+16. RankViT serving: build_model("rankvit", RankViT-B/16) with seeded
+   weights (head and class token re-drawn) serves 8 and 256 images, the
+   exact drop at budgets 0.25/0.5/0.75/1.0 and max_budget=0.75 at
+   0.25/0.5/0.75 (counts zeroed just before, read just after: 84 launches
+   per forward, every kernel of each path), each held against its plain
+   twin on the engine's kept tokens (bf16 and fp32), with the share of
+   images whose kept sets a free-running plain twin picks too; the padded
+   against the exact drop;
+17. RankViT timing at bs256: each path and budget (ms, images/s, share of
+   the bf16 peak from analytic_macs), attn_scores_pv.kmask and the three
+   compositions beside their plain versions, bounds and library
+   yardsticks, one profiled exact forward at budget 0.5;
+18. the {"kernels": [...]} line, then the card's nvidia-smi line, then
    {"ok": true, "device": {...}} as the last line.
 
 Imports nothing of JAX or of peekvit_tpu.
@@ -1115,6 +1135,430 @@ def residual_train_entries(torch, F, fa, vjp, smi, checks, rtrain, kernel_ms, in
     return entries
 
 
+# RankViT serving: configs/model/rankvit_b_16.yaml at image 224 and 1000
+# classes, less its torch_pretrained_weights (seeded weights here)
+RANKVIT_B16 = dict(B16, rankvit_layers=[3, 6, 9])
+RANK_REQUESTS = (8, 256)
+RANK_BUDGETS = (0.25, 0.5, 0.75, 1.0)          # the exact drop
+RANK_MAX_BUDGET = 0.75
+RANK_PADDED_BUDGETS = (0.25, 0.5, 0.75)        # max_budget=0.75: one set of shapes
+RANK_PROFILE_BUDGET = 0.5
+RANK_RUNS = ([("exact", b) for b in RANK_BUDGETS]
+             + [("padded", b) for b in RANK_PADDED_BUDGETS])
+# Launches per layer of the RankViT paths: the folded layer (128 tokens or
+# more on the exact path, and before the first ranked layer on the padded
+# one), its key-masked form (the padded path from the first ranked layer
+# on) and the split sublayers (the exact path below 128 tokens).
+RANK_PER_LAYER = {
+    "merged": {"norm_rows.bf16": 1, "norm_rows.f32": 1, "gemm_bias_epilogue.bias": 1,
+               "attn_scores_pv": 1, "gemm_bias_epilogue.residual_f32": 1,
+               "gemm_bias_epilogue.gelu": 1, "gemm_bias_epilogue.residual": 1},
+    "split": {"ln_rows": 2, "gemm_bias_epilogue.bias": 1, "attn_scores_pv": 1,
+              "gemm_bias_epilogue.residual": 2, "gemm_bias_epilogue.gelu": 1},
+}
+RANK_PER_LAYER["keymasked"] = dict(RANK_PER_LAYER["merged"], **{"attn_scores_pv": 0,
+                                                                "attn_scores_pv.kmask": 1})
+
+
+def rank_layer_paths(budget: float, max_budget=None) -> list:
+    """'merged', 'split' or 'keymasked' for each layer of a RankViT-B/16
+    forward, from the engine's keep counts (inference.rank_schedule)."""
+    from peekvit_torch.inference import rank_schedule
+
+    width = (RANKVIT_B16["image_size"] // RANKVIT_B16["patch_size"]) ** 2
+    schedule = rank_schedule(width, tuple(RANKVIT_B16["rankvit_layers"]), budget, max_budget)
+    paths, masked = [], False
+    for i in range(RANKVIT_B16["num_layers"]):
+        if i in schedule:
+            width, masked = schedule[i][0], max_budget is not None
+        paths.append("keymasked" if masked else "merged"
+                     if max_budget is not None or 1 + width >= 128 else "split")
+    return paths
+
+
+def rank_counts(paths_list) -> dict:
+    """The launches the forwards with these per-layer paths make."""
+    total: dict = {}
+    for paths in paths_list:
+        for path in paths:
+            for key, v in RANK_PER_LAYER[path].items():
+                if v:
+                    total[key] = total.get(key, 0) + v
+    return total
+
+
+def rank_kernel_checks(torch, fa, check, randn, ln_s, ln_b, w_qkv, b_qkv, w_out, b_out, w1, b1,
+                       w2, b2, d, h, smi) -> dict:
+    """Phase 15: attn_scores_pv.kmask, keymasked_layer_block_folded and
+    keymasked_attention_block at N = 148 (the max_budget=0.75 buffer after
+    layer 3) with about half of each image's keys excluded and the excluded
+    rows poisoned with NaN and Inf, and fused_mlp_block at N = 99 (the
+    exact drop at budget 0.5 after layer 3), against their plain versions
+    at bs256 shapes; then the earlier slices' fused_attention_block (N =
+    99) and fused_layer_block_folded (N = 197), which the exact drop runs.
+    Returns the inputs phase 17 times."""
+    tol_bf16, tol_attn = 2.0 ** -6, 2e-2
+    n_img = (RANKVIT_B16["image_size"] // RANKVIT_B16["patch_size"]) ** 2
+    n_pad, n_split = 1 + math.ceil(n_img * RANK_MAX_BUDGET), 1 + math.ceil(n_img * 0.5)
+    bf16 = torch.bfloat16
+    keep = randn(BATCH, n_pad, dtype=torch.float32) > 0.0  # about half
+    keep[:, 0] = True  # the class token is always a key
+    excluded = ~keep
+    kmask = keep.to(bf16)
+
+    def poison(t):
+        """t with the excluded rows NaN (even rows) and Inf (odd rows)."""
+        t = t.clone()
+        rows = excluded.nonzero()
+        bad = torch.where(rows[:, 1] % 2 == 0, float("nan"), float("inf")).to(t.dtype)
+        t[rows[:, 0], rows[:, 1]] = bad[:, None]
+        return t
+
+    qkv = randn(BATCH, n_pad, 3 * d)
+    x = randn(BATCH, n_pad, d, scale=1.5, shift=0.3)
+    ins = {"qkv": poison(qkv), "x": poison(x), "km": kmask, "km3": kmask[:, None, :],
+           "xs": randn(BATCH, n_split, d, scale=1.5, shift=0.3), "n_pad": n_pad,
+           "n_split": n_split, "kept_keys": keep.float().sum(1).mean().item()}
+    layer_w = (w_qkv, b_qkv, w_out, b_out, w1, b1, w2, b2)
+    attn_w = (ln_s, ln_b, w_qkv, b_qkv, w_out, b_out)
+    with torch.inference_mode():
+        cases = {
+            "attn_scores_pv.kmask": (
+                lambda q: fa.attn_scores_pv(q, h, kmask=kmask),
+                lambda q: fa.attn_scores_pv_ref(q, h, kmask=kmask), qkv, ins["qkv"], tol_attn,
+                "bf16 rounding of logits before exp2, bf16 output rounding"),
+            "keymasked_layer_block_folded": (
+                lambda t: fa.keymasked_layer_block_folded(t, ins["km3"], *layer_w, h, EPS),
+                lambda t: fa.keymasked_layer_block_folded_ref(t, ins["km3"], *layer_w, h, EPS),
+                x, ins["x"], tol_attn,
+                "seven launches; bf16 roundings flipped by fp32 sums in another order, the "
+                "attention kernel's tolerance"),
+            "keymasked_attention_block": (
+                lambda t: fa.keymasked_attention_block(t, ins["km3"], *attn_w, h, EPS),
+                lambda t: fa.keymasked_attention_block_ref(t, ins["km3"], *attn_w, h, EPS),
+                x, ins["x"], tol_attn,
+                "four launches; bf16 roundings flipped by fp32 sums in another order, the "
+                "attention kernel's tolerance"),
+        }
+        for name, (kfn, pfn, clean, bad, tol, reason) in cases.items():
+            got, want = kfn(bad), pfn(bad)
+            # only the valid rows (queries) are compared; they must be finite
+            check(name, got[keep], want[keep], tol,
+                  f"valid rows of {int(keep.sum())} with {int(excluded.sum())} excluded rows "
+                  f"poisoned with NaN/Inf; {reason}")
+            unchanged = torch.equal(got[keep], kfn(clean)[keep])
+            emit({"phase": "kmask_inert", "kernel": name, "tokens": n_pad,
+                  "excluded_rows": int(excluded.sum()), "valid_rows": int(keep.sum()),
+                  "valid_rows_bit_identical_to_clean_input": unchanged, "card": smi})
+            if not unchanged:
+                raise AssertionError(f"{name}: garbage in excluded rows changed a valid row")
+        check("fused_mlp_block", fa.fused_mlp_block(ins["xs"], ln_s, ln_b, w1, b1, w2, b2, EPS),
+              fa.fused_mlp_block_ref(ins["xs"], ln_s, ln_b, w1, b1, w2, b2, EPS), tol_bf16,
+              "three launches; fp32 sums in another order, bf16 roundings of LN and gelu "
+              "output")
+        # the two compositions of earlier slices that the exact drop runs,
+        # whole against their plain twins: the split attention sublayer
+        # below 128 tokens and the folded layer at 197
+        check("fused_attention_block", fa.fused_attention_block(ins["xs"], *attn_w, h, EPS),
+              fa.fused_attention_block_ref(ins["xs"], *attn_w, h, EPS), tol_attn,
+              "four launches; bf16 roundings flipped by fp32 sums in another order, the "
+              "attention kernel's tolerance")
+        x197 = randn(BATCH, 1 + n_img, d, scale=1.5, shift=0.3)
+        check("fused_layer_block_folded", fa.fused_layer_block_folded(x197, *layer_w, h, EPS),
+              fa.fused_layer_block_folded_ref(x197, *layer_w, h, EPS), tol_attn,
+              "seven launches; bf16 roundings flipped by fp32 sums in another order, the "
+              "attention kernel's tolerance")
+        torch.cuda.synchronize()
+    return ins
+
+
+def kept_set_agreement(torch, kept: dict, other: dict, schedule: dict) -> dict:
+    """{ranked layer: share of images whose valid kept tokens are the same
+    set in both index dicts at that layer and every ranked layer before}.
+    Each layer's indices point into the previous layer's gathered buffer
+    (in descending-norm order), so they are composed into the original
+    patch positions first."""
+    out, agree, ids_a, ids_b = {}, None, None, None
+    for i, (_, n_valid) in schedule.items():
+        ids_a = kept[i] if ids_a is None else torch.gather(ids_a, 1, kept[i])
+        ids_b = other[i] if ids_b is None else torch.gather(ids_b, 1, other[i])
+        same = (torch.sort(ids_a[:, :n_valid], dim=1).values
+                == torch.sort(ids_b[:, :n_valid], dim=1).values).all(dim=1)
+        agree = same if agree is None else agree & same
+        out[i] = agree.float().mean().item()
+    return out
+
+
+def rank_phases(torch, fa, dev, smi) -> dict:
+    """Phase 16: RankViT-B/16 served at 8 and 256 images, the exact drop at
+    four budgets and max_budget=0.75 at three (84 launches per forward,
+    every kernel of the path launched), each forward held against its plain
+    twin on the engine's kept tokens (bf16 and fp32); the share of images
+    whose kept sets a free-running plain twin picks too; the padded against
+    the exact drop."""
+    from peekvit_torch import InferenceEngine, build_model
+    from peekvit_torch.inference import (
+        prepare_engine_params,
+        rank_schedule,
+        rankvit_forward_fused,
+        rankvit_forward_padded,
+        rankvit_forward_padded_plain,
+        rankvit_forward_plain,
+    )
+    from peekvit_torch.models.adapters import module_params
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    model = build_model("rankvit", RANKVIT_B16, seed=0, device=DEVICE)
+    cpu_gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():  # zero-initialised head and class token: re-drawn as in phase 4
+        model.head.kernel.copy_(torch.randn(model.head.kernel.shape, generator=cpu_gen) * 0.02)
+        model.class_tokens.copy_(torch.randn(model.class_tokens.shape, generator=cpu_gen) * 0.02)
+    engines = {"exact": InferenceEngine(model, device=DEVICE),
+               "padded": InferenceEngine(model, device=DEVICE, max_budget=RANK_MAX_BUDGET)}
+    fwd = dict(engines["exact"]._forward)
+    del fwd["compute_dtype"]
+    params32 = prepare_engine_params(module_params(model), f32, fold_ln=True)
+    img_gen = torch.Generator(device=dev).manual_seed(6)
+    size = RANKVIT_B16["image_size"]
+    requests = [torch.randn(b, size, size, 3, generator=img_gen, device=dev)
+                for b in RANK_REQUESTS]
+    n_img = (size // RANKVIT_B16["patch_size"]) ** 2
+    ranked = tuple(RANKVIT_B16["rankvit_layers"])
+
+    def forwards(mode, budget):
+        """(kernel forward, plain twin) with the mode's arguments bound."""
+        if mode == "exact":
+            return (lambda p, x, **kw: rankvit_forward_fused(p, x, budget=budget, **fwd, **kw),
+                    lambda p, x, **kw: rankvit_forward_plain(p, x, budget=budget, **fwd, **kw))
+        return (lambda p, x, **kw: rankvit_forward_padded(
+                    p, x, budget, max_budget=RANK_MAX_BUDGET, **fwd, **kw),
+                lambda p, x, **kw: rankvit_forward_padded_plain(
+                    p, x, budget, max_budget=RANK_MAX_BUDGET, **fwd, **kw))
+
+    with torch.inference_mode():
+        def serve():
+            outs, per_forward = {}, []
+            for images in requests:
+                for mode, budget in RANK_RUNS:
+                    before = sum(fa.LAUNCHES.values())
+                    outs[(images.shape[0], mode, budget)] = engines[mode](images, budget=budget)
+                    per_forward.append(sum(fa.LAUNCHES.values()) - before)
+            return outs, per_forward
+
+        (outputs, per_forward), counts = counted(torch, fa, serve)
+        paths = {(mode, b): rank_layer_paths(b, RANK_MAX_BUDGET if mode == "padded" else None)
+                 for mode, b in RANK_RUNS}
+        want = rank_counts([paths[run] for _ in requests for run in RANK_RUNS])
+        emit({"phase": "rank_launches", "per_forward": per_forward, "counts": counts,
+              "requests": list(RANK_REQUESTS), "runs": [list(r) for r in RANK_RUNS],
+              "layer_paths": {f"{m} {b}": p for (m, b), p in paths.items()}, "card": smi})
+        layers = RANKVIT_B16["num_layers"]
+        if per_forward != [7 * layers] * len(per_forward) or counts != want:
+            raise AssertionError(f"rank launches {counts}, per forward {per_forward}, "
+                                 f"want {want}")
+        tol_reason = ("both sides on the engine's kept tokens. plain_bf16: same rounding "
+                      "points, sums in another order; the repo's bf16 kernel tolerance "
+                      "(tests/test_pallas.py:42). plain_fp32: bf16 activations over 12 layers; "
+                      "the repo's bf16 engine tolerance (tests/test_inference.py:54)")
+        for images in requests:
+            b = images.shape[0]
+            for mode, budget in RANK_RUNS:
+                kfn, pfn = forwards(mode, budget)
+                kept, free = {}, {}
+                got = outputs[(b, mode, budget)]
+                if not torch.equal(kfn(engines[mode].params, images, kept_out=kept), got):
+                    raise AssertionError(f"rank {mode} {budget}: a second forward differs")
+                p16 = pfn(engines[mode].params, images, kept_idx=kept, compute_dtype=bf16)
+                p32 = pfn(params32, images, kept_idx=kept, compute_dtype=f32)
+                pfn(engines[mode].params, images, kept_out=free, compute_dtype=bf16)
+                schedule = rank_schedule(n_img, ranked, budget,
+                                         RANK_MAX_BUDGET if mode == "padded" else None)
+                agree = kept_set_agreement(torch, kept, free, schedule)
+                rec = compare_logits(torch, f"rank {mode} b{b} budget {budget}", got,
+                                     [("plain_bf16", p16, 3e-2, 3e-2),
+                                      ("plain_fp32", p32, 0.1, 0.05)])
+                emit({"phase": "rank_check", "mode": mode, "batch": b, "budget": budget,
+                      "max_budget": RANK_MAX_BUDGET if mode == "padded" else None,
+                      "keep_by_ranked_layer": {i: list(v) for i, v in schedule.items()},
+                      "layer_paths": paths[(mode, budget)], **rec,
+                      "free_running_kept_set_agreement_by_layer": agree,
+                      "tolerance_reason": tol_reason, "card": smi})
+        big = {run: outputs[(BATCH,) + run] for run in RANK_RUNS}
+        for budget in RANK_PADDED_BUDGETS:
+            padded, exact = big[("padded", budget)], big[("exact", budget)]
+            emit({"phase": "rank_padded_vs_exact", "batch": BATCH, "budget": budget,
+                  "max_budget": RANK_MAX_BUDGET,
+                  "max_abs_delta": (padded - exact).abs().max().item(),
+                  "top1_agreement": (padded.argmax(-1) == exact.argmax(-1)).float().mean().item(),
+                  "note": "numerics differ below 128 tokens (the padded path runs the folded "
+                          "layer: one-pass LN, fp32 mid residual; the exact path the split "
+                          "sublayers), and bf16 ties may keep other tokens",
+                  "card": smi})
+        low, high = big[("exact", RANK_BUDGETS[0])], big[("exact", 1.0)]
+        budget_delta = (low - high).abs().max().item()
+        emit({"phase": "rank_budget_effect", "batch": BATCH, "budgets": [RANK_BUDGETS[0], 1.0],
+              "max_abs_logit_delta": budget_delta,
+              "top1_agreement": (low.argmax(-1) == high.argmax(-1)).float().mean().item(),
+              "card": smi})
+        if not budget_delta > 0.0:
+            raise AssertionError("the budget does not change the RankViT logits")
+    return {"model": model, "engines": engines, "images": requests[-1], "counts": counts,
+            "paths": paths}
+
+
+def _schedule_masks(torch, schedule: dict, n_img: int, which: int) -> dict:
+    """aux-style (1, n_img, 1) masks keeping the first count tokens, which=0
+    the buffer's count, 1 the valid count, for analytic_macs."""
+    masks = {}
+    for i, counts in schedule.items():
+        m = torch.zeros(1, n_img, 1)
+        m[:, :counts[which]] = 1.0
+        masks[f"layer_{i}"] = m
+    return {"masks": masks}
+
+
+def rank_timing(torch, F, fa, smi, checks, ins, rank, kernel_ms, ln_s, ln_b, w_qkv, b_qkv,
+                w_out, b_out, w1, b1, w2, b2, d, h, m) -> list:
+    """Phase 17: each path and budget at bs256 (ms, images/s, share of the
+    bf16 peak from analytic_macs), the new kernel and compositions beside
+    their plain versions, bounds and library yardsticks, and one profiled
+    exact forward at budget 0.5. Returns the JSON entries."""
+    from peekvit_torch.inference import rank_schedule
+    from peekvit_torch.utils.flops_count import analytic_macs
+
+    model, engines, images = rank["model"], rank["engines"], rank["images"]
+    n_img = (RANKVIT_B16["image_size"] // RANKVIT_B16["patch_size"]) ** 2
+    ranked = tuple(RANKVIT_B16["rankvit_layers"])
+    dense = 2.0 * analytic_macs(model)
+    forward_ms = {}
+    with torch.inference_mode():
+        for mode, budget in RANK_RUNS:
+            ms = cuda_ms(torch, lambda: engines[mode](images, budget=budget), iters=10)
+            forward_ms[(mode, budget)] = ms
+            schedule = rank_schedule(n_img, ranked, budget,
+                                     RANK_MAX_BUDGET if mode == "padded" else None)
+            run = 2.0 * analytic_macs(model, _schedule_masks(torch, schedule, n_img, 0))
+            useful = 2.0 * analytic_macs(model, _schedule_masks(torch, schedule, n_img, 1))
+            emit({"phase": "timing_rank", "path": mode, "batch": BATCH, "budget": budget,
+                  "max_budget": RANK_MAX_BUDGET if mode == "padded" else None,
+                  "ms_per_forward": ms, "images_per_s": BATCH / ms * 1e3,
+                  "flops_per_image_dense": dense, "flops_per_image_run": run,
+                  "flops_per_image_budget": useful,
+                  "share_of_bf16_peak_run": run * BATCH / (ms / 1e3) / PEAK_BF16_FLOPS,
+                  "share_of_bf16_peak_budget": useful * BATCH / (ms / 1e3) / PEAK_BF16_FLOPS,
+                  "card": smi})
+
+        bf, bf16 = 2, torch.bfloat16
+        n_pad, n_split, qkv, x, xs = ins["n_pad"], ins["n_split"], ins["qkv"], ins["x"], ins["xs"]
+        km, km3 = ins["km"], ins["km3"]
+        rows_p, rows_s, hd = BATCH * n_pad, BATCH * n_split, d // h
+        kept_keys = ins["kept_keys"]
+        key_bool = (km > 0)[:, None, None, :]
+
+        def heads(t):
+            return t.reshape(BATCH, n_pad, h, hd).transpose(1, 2)
+
+        sq, sk, sv = (heads(qkv[..., i * d:(i + 1) * d]).contiguous() for i in range(3))
+
+        def sdpa_mask(q, k, v):
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=key_bool)
+
+        def mlp_lib(t):  # F.layer_norm + addmm + gelu + addmm + add
+            t2 = t.reshape(-1, d)
+            z = F.layer_norm(t2, (d,), ln_s, ln_b, EPS)
+            z = F.gelu(torch.addmm(b1, z, w1), approximate="tanh")
+            return torch.addmm(b2, z, w2) + t2
+
+        def layer_lib(t):  # the key-masked layer from PyTorch calls, SDPA with the key mask
+            t2 = t.reshape(-1, d)
+            z = F.layer_norm(t2, (d,), eps=EPS)
+            q, k, v = (heads(c) for c in torch.addmm(b_qkv, z, w_qkv).split(d, dim=-1))
+            a = sdpa_mask(q, k, v).transpose(1, 2).reshape(-1, d)
+            y = torch.addmm(b_out, a, w_out).float() + t2
+            z = F.gelu(torch.addmm(b1, F.layer_norm(y, (d,), eps=EPS).to(bf16), w1),
+                       approximate="tanh")
+            return torch.addmm(b2, z, w2) + y
+
+        def attn_block_lib(t):
+            t2 = t.reshape(-1, d)
+            z = F.layer_norm(t2, (d,), ln_s, ln_b, EPS)
+            q, k, v = (heads(c) for c in torch.addmm(b_qkv, z, w_qkv).split(d, dim=-1))
+            return torch.addmm(b_out, sdpa_mask(q, k, v).transpose(1, 2).reshape(-1, d),
+                               w_out) + t2
+
+        # attention work on the attended keys only (the data decide it)
+        attn_flops = 4.0 * BATCH * h * n_pad * kept_keys * hd
+        weights_b = (4 * d * d + 2 * d * m + 3 * d + d + m + d) * bf
+        counts, paths = rank["counts"], rank["paths"]
+        split_layers = sum(p.count("split") for p in paths.values()) * len(RANK_REQUESTS)
+        masked_layers = counts.get("attn_scores_pv.kmask", 0)
+        src = "peekvit_torch/"
+        # name, source, replaces, kernel, plain, library, flops, bytes, launches, calls
+        timed = [
+            ("attn_scores_pv.kmask", src + "csrc/attn_scores_pv.cu",
+             f"{REPLACES}:46 _attn_scores_pv with kmask (:80-97), in _layer_kernel mode "
+             "'keymasked' :616 and _keymasked_attn_kernel :494",
+             lambda: fa.attn_scores_pv(qkv, h, kmask=km),
+             lambda: fa.attn_scores_pv_ref(qkv, h, kmask=km),
+             lambda: sdpa_mask(sq, sk, sv), attn_flops,
+             BATCH * n_pad * (3 * d + d + 1) * bf, masked_layers, masked_layers),
+            ("keymasked_layer_block_folded", src + "ops/cuda/fused_attention.py",
+             f"{REPLACES}:887 keymasked_layer_block_folded (_merged_call :737, _layer_kernel "
+             "mode 'keymasked' :616)",
+             lambda: fa.keymasked_layer_block_folded(x, km3, w_qkv, b_qkv, w_out, b_out, w1, b1,
+                                                     w2, b2, h, EPS),
+             lambda: fa.keymasked_layer_block_folded_ref(x, km3, w_qkv, b_qkv, w_out, b_out, w1,
+                                                         b1, w2, b2, h, EPS),
+             lambda: layer_lib(x),
+             2.0 * rows_p * (4 * d * d + 2 * d * m) + attn_flops,
+             2 * rows_p * d * bf + BATCH * n_pad * bf + weights_b,
+             7 * masked_layers, masked_layers),
+            ("fused_mlp_block", src + "ops/cuda/fused_attention.py",
+             f"{REPLACES}:352 fused_mlp_block (_mlp_block_kernel :317)",
+             lambda: fa.fused_mlp_block(xs, ln_s, ln_b, w1, b1, w2, b2, EPS),
+             lambda: fa.fused_mlp_block_ref(xs, ln_s, ln_b, w1, b1, w2, b2, EPS),
+             lambda: mlp_lib(xs), 4.0 * rows_s * d * m,
+             2 * rows_s * d * bf + (2 * d * m + m + 3 * d) * bf, 3 * split_layers,
+             split_layers),
+        ]
+        entries = []
+        for name, source, replaces, kfn, pfn, lfn, flops, nbytes, launches, calls in timed:
+            ms = cuda_ms(torch, kfn)
+            kernel_ms[name] = ms
+            plain_ms = cuda_ms(torch, pfn, iters=5)
+            lib_ms = cuda_ms(torch, lfn)
+            bnd, by = bound_ms(flops, nbytes)
+            if launches == 0:
+                raise AssertionError(f"{name}: never launched on the RankViT path")
+            entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                     "launches": launches, "max_abs_err": checks[name], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+                     "library_ms": lib_ms, "path": "rankvit", "shape_batch": BATCH}
+            emit({"phase": "timing_kernel", **entry, "share_of_bound": bnd / ms,
+                  "calls_on_path": calls,
+                  "note": None if name == "attn_scores_pv.kmask" else
+                  "a composition of the port's kernels; launches = its kernel launches on "
+                  "the path; library = the same function from PyTorch calls",
+                  "card": smi})
+            entries.append(entry)
+        # site 7: tests reach it, the engine does not; its four kernels run on the path
+        ms = cuda_ms(torch, lambda: fa.keymasked_attention_block(x, km3, ln_s, ln_b, w_qkv, b_qkv,
+                                                                 w_out, b_out, h, EPS))
+        bnd, by = bound_ms(2.0 * rows_p * 4 * d * d + attn_flops,
+                           2 * rows_p * d * bf + BATCH * n_pad * bf + (4 * d * d + 6 * d) * bf)
+        emit({"phase": "timing_composition", "name": "keymasked_attention_block", "ms": ms,
+              "plain_ms": cuda_ms(torch, lambda: fa.keymasked_attention_block_ref(
+                  x, km3, ln_s, ln_b, w_qkv, b_qkv, w_out, b_out, h, EPS), iters=5),
+              "library_ms": cuda_ms(torch, lambda: attn_block_lib(x)), "bound_ms": bnd,
+              "bound_by": by, "max_abs_err": checks["keymasked_attention_block"],
+              "launches_on_path": 0, "tokens": n_pad, "batch": BATCH,
+              "replaces": f"{REPLACES}:548 keymasked_attention_block (_keymasked_attn_kernel "
+                          ":494)", "card": smi})
+        profile_step(torch, smi, lambda: engines["exact"](images, budget=RANK_PROFILE_BUDGET),
+                     forward_ms[("exact", RANK_PROFILE_BUDGET)], phase="profile_rank_forward")
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -1133,6 +1577,7 @@ def main() -> int:
     from peekvit_torch.ops.cuda import fused_attention_vjp as vjp
     from peekvit_torch.utils.flops_count import analytic_macs
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False  # plain fp32 versions in full fp32
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device(DEVICE)
@@ -1506,6 +1951,31 @@ def main() -> int:
                if not res["counts"].get(k, 0) + merged.get(k, 0) + split.get(k, 0)]
     if missing:
         raise AssertionError(f"kernels never launched on the residual paths: {missing}")
+    # ----------------------------------------------------- 15-17. RankViT serving
+    fc1_w, fc1_b = gemms["fc1"][1], gemms["fc1"][2]
+    fc2_w, fc2_b = gemms["fc2"][1], gemms["fc2"][2]
+    rank_w = (ln_s, ln_b, w_qkv, b_qkv, w_out, b_out, fc1_w, fc1_b, fc2_w, fc2_b)
+    rank_ins = rank_kernel_checks(torch, fa, check, randn, *rank_w, d, h, smi)
+    rank = rank_phases(torch, fa, dev, smi)
+    rank_entries = rank_timing(torch, F, fa, smi, checks, rank_ins, rank, kernel_ms, *rank_w,
+                               d, h, m)
+    rank_paths = [rank["paths"][run] for _ in RANK_REQUESTS for run in RANK_RUNS]
+    split_layers = sum(p.count("split") for p in rank_paths)
+    folded_layers = len(rank_paths) * RANKVIT_B16["num_layers"] - split_layers
+    for entry in kernels:
+        # fc2's GEMM takes the fp32 residual in the folded layers; both
+        # split sublayers' GEMMs take the bf16 one
+        name = entry["name"]
+        entry["launches_by_path"]["rank"] = (
+            folded_layers if name == "gemm_bias_epilogue.residual"
+            else 2 * split_layers if name == "gemm_bias_epilogue.residual.bf16_residual"
+            else rank["counts"].get(name, 0))
+    for entry in rank_entries:
+        entry["launches_by_path"] = {"engine": 0, "split": 0, "train": 0, "residual": 0,
+                                     "compact": 0, "residual_train": 0,
+                                     "rank": entry["launches"]}
+    kernels += rank_entries
+    emit({"phase": "elapsed", "seconds": time.perf_counter() - t_start, "card": smi})
 
     emit({"kernels": kernels})
     print(smi, flush=True)

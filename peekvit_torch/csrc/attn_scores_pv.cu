@@ -17,7 +17,21 @@
 //     tokens whose keys and values are identical. Unlike the Pallas
 //     kernels, which build the weight only when phantom_mult > 0
 //     (fused_attention.py:398, :660), the weight applies whenever
-//     phantom_idx >= 0, so a phantom with mult 0 contributes nothing.
+//     phantom_idx >= 0, so a phantom with mult 0 contributes nothing;
+//   - with a key mask (kmask, (b, n) bf16, 1 = attend; the padded RankViT
+//     layer, _layer_kernel mode 'keymasked' :616 and
+//     _keymasked_attn_kernel :494), a key whose kmask is not > 0 (the
+//     predicate in fp32) has its term SELECTED to 0 after the exp2, so a
+//     NaN or Inf logit from a garbage excluded row never reaches the
+//     rowsum; and every non-finite v value is scrubbed to 0, element by
+//     element (_attn_scores_pv :80-97), so that 0 * NaN cannot reach PV.
+//     The scrub runs in shared memory after the cp.async wait, on the
+//     chunks each thread copied itself (its own copies are visible to it
+//     after the wait), before the barrier that publishes the tile. The
+//     clamp here is fminf/fmaxf, which turns a NaN logit finite where
+//     torch.clamp keeps it NaN: the select after the exp is what makes
+//     the kernel and its plain version agree on excluded keys. A key mask
+//     and a phantom key are exclusive (no JAX path combines them).
 //
 // Bound on H100: at ViT-B (N = 197, head dim 64) the two products are
 // 4 * N * N * 64 flops per (image, head) against 4 * N * 64 * 2 bytes
@@ -83,17 +97,26 @@ __device__ __forceinline__ float exp2_term(float logit) {
   const float c = __bfloat162float(__float2bfloat16_rn(fminf(fmaxf(logit, -80.f), 115.f)));
   return __bfloat162float(__float2bfloat16_rn(exp2f(c)));
 }
+// Two bf16 values with every non-finite one (exponent all ones) set to 0.
+__device__ __forceinline__ uint32_t scrub_bf16x2(uint32_t w) {
+  const uint32_t lo = (w & 0x7F80u) == 0x7F80u ? 0u : (w & 0x0000FFFFu);
+  const uint32_t hi = (w & 0x7F800000u) == 0x7F800000u ? 0u : (w & 0xFFFF0000u);
+  return lo | hi;
+}
 // bf16(e * w), w already a bf16 value.
 __device__ __forceinline__ float weighted(float e, float w) {
   return __bfloat162float(__float2bfloat16_rn(e * w));
 }
 
+template <bool KMASK>
 __global__ void __launch_bounds__(THREADS)
-attn_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restrict__ out, int n,
-            int d, float qscale, int phantom_idx, float phantom_w) {
+attn_kernel(const __nv_bfloat16* __restrict__ qkv, const __nv_bfloat16* __restrict__ kmask,
+            __nv_bfloat16* __restrict__ out, int n, int d, float qscale, int phantom_idx,
+            float phantom_w) {
   __shared__ __align__(16) __nv_bfloat16 sq[QT * STRIDE];
   __shared__ __align__(16) __nv_bfloat16 sk[2][KT * STRIDE];
   __shared__ __align__(16) __nv_bfloat16 sv[2][KT * STRIDE];
+  __shared__ float skeep[2][KT];  // KMASK: 1 where the key is attended
 
   const int q0 = blockIdx.x * QT, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -112,6 +135,11 @@ attn_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restrict__ o
       const __nv_bfloat16* src = base + (long long)(ok ? key : 0) * row_stride + h * HD + c;
       cp_async16(&sk[buf][r * STRIDE + c], src + d, ok ? 16 : 0);
       cp_async16(&sv[buf][r * STRIDE + c], src + 2 * d, ok ? 16 : 0);
+    }
+    if (KMASK && tid < KT) {
+      const int key = kv0 + tid;
+      skeep[buf][tid] =
+          key < n && __bfloat162float(kmask[(long long)b * n + key]) > 0.f ? 1.f : 0.f;
     }
   };
 
@@ -159,6 +187,19 @@ attn_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restrict__ o
     if (t + 1 < ntiles) load_kv(t + 1, (t + 1) & 1);
     cp_async_commit();
     cp_async_wait<1>();
+    if (KMASK) {  // scrub the V chunks this thread copied for tile t
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int chunk = tid + i * THREADS;
+        uint4* p = reinterpret_cast<uint4*>(&sv[t & 1][(chunk >> 3) * STRIDE + (chunk & 7) * 8]);
+        uint4 v = *p;
+        v.x = scrub_bf16x2(v.x);
+        v.y = scrub_bf16x2(v.y);
+        v.z = scrub_bf16x2(v.z);
+        v.w = scrub_bf16x2(v.w);
+        *p = v;
+      }
+    }
     __syncthreads();
     const __nv_bfloat16* tk = sk[t & 1];
     const __nv_bfloat16* tv = sv[t & 1];
@@ -182,17 +223,22 @@ attn_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restrict__ o
       }
     }
 
-    // e = bf16(exp2(bf16(clamp(s)))), 0 past the last key, the phantom
-    // key's weighted; rowsum in fp32.
+    // e = bf16(exp2(bf16(clamp(s)))), 0 past the last key and (KMASK) on
+    // an excluded key, the phantom key's weighted; rowsum in fp32.
     const int kv0 = t * KT;
     uint32_t pa[4][4];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int key = kv0 + j * 8 + tq * 2;
-      float e0 = key < n ? exp2_term(s[j][0]) : 0.f;
-      float e1 = key + 1 < n ? exp2_term(s[j][1]) : 0.f;
-      float e2 = key < n ? exp2_term(s[j][2]) : 0.f;
-      float e3 = key + 1 < n ? exp2_term(s[j][3]) : 0.f;
+      bool ok0 = key < n, ok1 = key + 1 < n;
+      if (KMASK) {  // skeep is 0 past the last key too
+        ok0 = skeep[t & 1][j * 8 + tq * 2] != 0.f;
+        ok1 = skeep[t & 1][j * 8 + tq * 2 + 1] != 0.f;
+      }
+      float e0 = ok0 ? exp2_term(s[j][0]) : 0.f;
+      float e1 = ok1 ? exp2_term(s[j][1]) : 0.f;
+      float e2 = ok0 ? exp2_term(s[j][2]) : 0.f;
+      float e3 = ok1 ? exp2_term(s[j][3]) : 0.f;
       if (key == phantom_idx) {
         e0 = weighted(e0, phantom_w);
         e2 = weighted(e2, phantom_w);
@@ -248,16 +294,24 @@ attn_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restrict__ o
 // out: (b, n, d) bf16. head_dim must be 64 and d a multiple of 64 (the
 // wrapper checks). qscale = head_dim^-0.5 * log2(e). phantom_idx < 0
 // (no phantom key) or in [0, n); phantom_mult is rounded to bf16 here.
+// kmask: null, or (b, n) bf16 (1 = attend), and then phantom_idx < 0.
 // Returns the cudaError_t of the launch.
-extern "C" int peekvit_attn_scores_pv(const void* qkv, void* out, int b, int n, int d,
-                                      int num_heads, float qscale, int phantom_idx,
-                                      float phantom_mult, void* stream) {
+extern "C" int peekvit_attn_scores_pv(const void* qkv, void* out, const void* kmask, int b,
+                                      int n, int d, int num_heads, float qscale,
+                                      int phantom_idx, float phantom_mult, void* stream) {
   if (b == 0 || n == 0) return 0;
-  if (d != num_heads * HD || phantom_idx >= n) return (int)cudaErrorInvalidValue;
+  if (d != num_heads * HD || phantom_idx >= n || (kmask != nullptr && phantom_idx >= 0))
+    return (int)cudaErrorInvalidValue;
   const float phantom_w = __bfloat162float(__float2bfloat16_rn(phantom_mult));
   dim3 grid((n + QT - 1) / QT, num_heads, b);
-  attn_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(qkv), static_cast<__nv_bfloat16*>(out), n, d, qscale,
-      phantom_idx < 0 ? -1 : phantom_idx, phantom_w);
+  const auto* q = static_cast<const __nv_bfloat16*>(qkv);
+  const auto* km = static_cast<const __nv_bfloat16*>(kmask);
+  auto* o = static_cast<__nv_bfloat16*>(out);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (km != nullptr)
+    attn_kernel<true><<<grid, THREADS, 0, st>>>(q, km, o, n, d, qscale, -1, phantom_w);
+  else
+    attn_kernel<false><<<grid, THREADS, 0, st>>>(q, nullptr, o, n, d, qscale,
+                                                 phantom_idx < 0 ? -1 : phantom_idx, phantom_w);
   return (int)cudaGetLastError();
 }

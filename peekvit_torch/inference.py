@@ -1,7 +1,8 @@
-"""Fused eval engines for the plain ViT and the ResidualViT family
+"""Fused eval engines for the plain ViT, the ResidualViT family and RankViT
 (counterpart of peekvit_tpu/inference.py: ``prepare_engine_params``,
-``vit_forward_fused``, ``_encoder_stack``, ``residualvit_forward_fused``
-and ``InferenceEngine``).
+``vit_forward_fused``, ``_encoder_stack``, ``residualvit_forward_fused``,
+``rankvit_forward_fused``, ``rankvit_forward_padded`` and
+``InferenceEngine``).
 
 For a plain ViT the engine reads the model's weights into a param tree in
 the JAX grammar, folds the LN affines into the qkv/fc1 weights and the
@@ -17,6 +18,15 @@ on fewer tokens. The patch-embed matmul, the gates, top-k and gather, the
 budget token, the class-token LayerNorm and the heads are work the JAX
 package leaves to XLA; here they are plain torch ops.
 
+For a RankViT the engine drops tokens physically: at each ranked layer the
+top ``ceil(n * budget)`` image tokens by fp32 norm are gathered and every
+later layer runs on fewer tokens (``rankvit_forward_fused``: the folded
+layer from 128 tokens up, the split sublayers below). ``max_budget=``
+keeps one set of shapes for every budget up to it
+(``rankvit_forward_padded``): the buffer keeps ``ceil(n * max_budget)``
+tokens, the tail past the budget's count is zeroed and excluded as keys by
+the key-masked folded layer.
+
 Usage::
 
     model = build_model("vit", args)            # on the card
@@ -24,6 +34,9 @@ Usage::
     logits = engine(images)                     # NHWC -> (B, classes) fp32
 
     engine = InferenceEngine(build_model("residualvit", args), compact=0.75)
+    logits = engine(images, budget=0.5)
+
+    engine = InferenceEngine(build_model("rankvit", args), max_budget=0.75)
     logits = engine(images, budget=0.5)
 """
 
@@ -38,6 +51,7 @@ import torch.nn.functional as F
 
 from peekvit_torch.models.adapters import module_params, tree_map
 from peekvit_torch.models.eeresidualvit import EEResidualVisionTransformer
+from peekvit_torch.models.rankvit import RankVisionTransformer
 from peekvit_torch.models.registry import resolve_device
 from peekvit_torch.models.residualvit import ResidualVisionTransformer
 from peekvit_torch.models.vit import VisionTransformer
@@ -46,7 +60,13 @@ from peekvit_torch.ops.cuda.fused_attention import (
     encoder_layers_one_call_ref,
     fold_ln_into_weights,
     fused_attention_block,
+    fused_attention_block_ref,
     fused_layer_block_folded,
+    fused_layer_block_folded_ref,
+    fused_mlp_block,
+    fused_mlp_block_ref,
+    keymasked_layer_block_folded,
+    keymasked_layer_block_folded_ref,
     masked_attention_block,
     masked_attention_block_ref,
     masked_layer_block,
@@ -133,8 +153,8 @@ def prepare_engine_params(params: dict, compute_dtype=None, fold_ln: bool = Fals
     - fp32 leaves are cast to ``compute_dtype``, except the gate subtrees
       (``residual_gate``, ``budget_token_gate``), which stay fp32; 1-D
       vectors become (1, k);
-    - ``fold_ln=True`` (plain ViT only: a ResidualViT's row masks do not
-      commute with a folded LN bias) folds every layer's LN affines into
+    - ``fold_ln=True`` (plain ViT and RankViT: a ResidualViT's row masks
+      do not commute with a folded LN bias) folds every layer's LN affines into
       its qkv and fc1 weights in fp32 from the original weights
       (``_folded_qkv`` / ``_folded_fc1``, then cast), stacks the layers for
       the one-call encoder (``encoder._stacked_layers``), and folds the
@@ -186,6 +206,25 @@ def prepare_engine_params(params: dict, compute_dtype=None, fold_ln: bool = Fals
     return out
 
 
+def _folded_weights(lp, cast):
+    """A layer's (wqkv, bqkv, wo, bo, w1, b1, w2, b2) with the LN affines
+    folded into qkv and fc1: the prepared ``_folded_qkv``/``_folded_fc1``
+    where present, else folded here from the cast weights."""
+    at, mlp = lp["self_attention"], lp["mlp"]
+    if "_folded_qkv" in lp:
+        wqkv, bqkv = cast(lp["_folded_qkv"]["kernel"]), cast(lp["_folded_qkv"]["bias"])
+        w1, b1 = cast(lp["_folded_fc1"]["kernel"]), cast(lp["_folded_fc1"]["bias"])
+    else:
+        wqkv, bqkv = fold_ln_into_weights(
+            cast(lp["ln_1"]["scale"]), cast(lp["ln_1"]["bias"]),
+            cast(at["in_proj_kernel"]), cast(at["in_proj_bias"]))
+        w1, b1 = fold_ln_into_weights(
+            cast(lp["ln_2"]["scale"]), cast(lp["ln_2"]["bias"]),
+            cast(mlp["fc1_kernel"]), cast(mlp["fc1_bias"]))
+    return (wqkv, bqkv, cast(at["out_proj_kernel"]), cast(at["out_proj_bias"]), w1, b1,
+            cast(mlp["fc2_kernel"]), cast(mlp["fc2_bias"]))
+
+
 def _encoder_stack(enc, tokens, num_heads, ln_eps, cast, fused_mlp=True):
     """The plain pre-LN encoder stack over the kernels: the one-call stack
     when ``_stacked_layers`` is present (``prepare_engine_params`` with
@@ -202,15 +241,8 @@ def _encoder_stack(enc, tokens, num_heads, ln_eps, cast, fused_mlp=True):
         lp = enc[f"layers_{i}"]
         at, mlp = lp["self_attention"], lp["mlp"]
         if fused_mlp:
-            wqkv, bqkv = fold_ln_into_weights(
-                cast(lp["ln_1"]["scale"]), cast(lp["ln_1"]["bias"]),
-                cast(at["in_proj_kernel"]), cast(at["in_proj_bias"]))
-            w1, b1 = fold_ln_into_weights(
-                cast(lp["ln_2"]["scale"]), cast(lp["ln_2"]["bias"]),
-                cast(mlp["fc1_kernel"]), cast(mlp["fc1_bias"]))
-            tokens = fused_layer_block_folded(
-                tokens, wqkv, bqkv, cast(at["out_proj_kernel"]), cast(at["out_proj_bias"]),
-                w1, b1, cast(mlp["fc2_kernel"]), cast(mlp["fc2_bias"]), num_heads, ln_eps)
+            tokens = fused_layer_block_folded(tokens, *_folded_weights(lp, cast), num_heads,
+                                              ln_eps)
             continue
         tokens = fused_attention_block(
             tokens, cast(lp["ln_1"]["scale"]), cast(lp["ln_1"]["bias"]),
@@ -435,8 +467,201 @@ def residualvit_forward_plain(params, images, budget: float, *, patch_size: int,
         early_exits=early_exits, compact_caps=compact_caps, masks=masks)
 
 
+# ---------------------------------------------------------------- RankViT
+
+_RANK_KERNELS = (fused_layer_block_folded, fused_attention_block, fused_mlp_block,
+                 keymasked_layer_block_folded)
+_RANK_PLAIN = (fused_layer_block_folded_ref, fused_attention_block_ref, fused_mlp_block_ref,
+               keymasked_layer_block_folded_ref)
+
+
+def rank_schedule(n_img: int, ranked: tuple, budget: float,
+                  max_budget: Optional[float] = None) -> dict:
+    """{ranked layer id: (image tokens the buffer keeps, valid ones among
+    them)} of a RankViT forward over ``n_img`` image tokens, ``ranked``
+    the ranking layers in forward order.
+
+    Exact drop (``max_budget`` None): each ranked layer keeps
+    ``ceil(float32(n_alive) * float32(budget))`` tokens, all valid; none
+    ranks at budget >= 1 (JAX inference.py:1161-1167, the float32 product
+    as the linen ``_rank_update``). Padded drop: the buffer keeps
+    ``keep_max = min(ceil(n * max_budget), n)`` of its n tokens whatever
+    the budget, and the first ``ceil(float32(n_valid) * float32(budget))``
+    of them are valid (:1261-1273)."""
+    out = {}
+    if max_budget is None:
+        if budget >= 1.0:
+            return out
+        for i in ranked:
+            n_img = int(np.ceil(np.float32(n_img) * np.float32(budget)))
+            out[i] = (n_img, n_img)
+        return out
+    n_valid = np.float32(n_img)
+    for i in ranked:
+        keep_max = min(math.ceil(n_img * max_budget), n_img)
+        n_valid = np.ceil(n_valid * np.float32(budget))
+        out[i] = (keep_max, int(n_valid))
+        n_img = keep_max
+    return out
+
+
+def _top_by_norm(img, k, valid=None):
+    """(B, k) indices of the k image tokens of largest fp32 norm in
+    descending order, ties to the lower index (``jax.lax.top_k``'s order:
+    a stable sort; torch.topk is not stable); tokens where ``valid`` is 0
+    rank last."""
+    norms = torch.linalg.vector_norm(img.float(), dim=-1)
+    if valid is not None:
+        norms = torch.where(valid > 0, norms,
+                            torch.full_like(norms, torch.finfo(torch.float32).min))
+    return torch.sort(norms, dim=1, descending=True, stable=True).indices[:, :k]
+
+
+def _rank_forward(params, images, budget, blocks, *, patch_size: int, num_heads: int,
+                  rankvit_layers: tuple, max_budget: Optional[float] = None,
+                  num_class_tokens: int = 1, ln_eps: float = 1e-5, compute_dtype=torch.bfloat16,
+                  kept_idx: Optional[dict] = None, kept_out: Optional[dict] = None):
+    layer_block, attention_block, mlp_block, keymasked_block = blocks
+
+    def cast(t):
+        return t.to(compute_dtype)
+
+    c = num_class_tokens
+    enc = params["encoder"]
+    if "_embed_special" in params:
+        tokens, d = _embed_posfolded(params, images, patch_size, cast)
+    else:
+        tokens, d = _embed(params, images, patch_size, c, 0, cast)
+        tokens = tokens + cast(enc["pos_embedding"])
+    b, dev = tokens.shape[0], tokens.device
+    ids = _layer_ids(enc)
+    schedule = rank_schedule(tokens.shape[1] - c, tuple(i for i in ids if i in rankvit_layers),
+                             budget, max_budget)
+    valid = key_mask = None
+    for i in ids:
+        if i in schedule:
+            keep, n_valid = schedule[i]
+            img = tokens[:, c:]
+            if kept_idx is not None:
+                idx = kept_idx[i]
+                if tuple(idx.shape) != (b, keep):
+                    raise ValueError(f"kept_idx[{i}] has shape {tuple(idx.shape)}, "
+                                     f"want {(b, keep)}")
+            else:
+                idx = _top_by_norm(img, keep, valid)
+            if kept_out is not None:
+                kept_out[i] = idx
+            img = torch.gather(img, 1, idx[..., None].expand(-1, -1, d))
+            if max_budget is not None:
+                # the tail past the budget's count: zeroed, excluded as keys
+                # and ranked last from here on
+                valid = (torch.arange(keep, device=dev) < n_valid).to(compute_dtype)
+                img = img * valid[:, None]
+                key_mask = torch.cat([torch.ones(c, dtype=compute_dtype, device=dev), valid])
+                key_mask = key_mask.expand(b, 1, c + keep).contiguous()
+            tokens = torch.cat([tokens[:, :c], img], dim=1)
+        lp = enc[f"layers_{i}"]
+        if key_mask is not None:
+            tokens = keymasked_block(tokens, key_mask, *_folded_weights(lp, cast), num_heads,
+                                     ln_eps)
+        elif max_budget is not None or tokens.shape[1] >= _MERGED_MIN_TOKENS:
+            tokens = layer_block(tokens, *_folded_weights(lp, cast), num_heads, ln_eps)
+        else:  # the split sublayers below 128 tokens (JAX inference.py:1196-1210)
+            at, mlp = lp["self_attention"], lp["mlp"]
+            tokens = attention_block(
+                tokens, cast(lp["ln_1"]["scale"]), cast(lp["ln_1"]["bias"]),
+                cast(at["in_proj_kernel"]), cast(at["in_proj_bias"]),
+                cast(at["out_proj_kernel"]), cast(at["out_proj_bias"]), num_heads, ln_eps)
+            tokens = mlp_block(
+                tokens, cast(lp["ln_2"]["scale"]), cast(lp["ln_2"]["bias"]),
+                cast(mlp["fc1_kernel"]), cast(mlp["fc1_bias"]),
+                cast(mlp["fc2_kernel"]), cast(mlp["fc2_bias"]), ln_eps)
+    return _classify(params, tokens, c, cast, ln_eps)
+
+
+def rankvit_forward_fused(params, images, *, budget: float, patch_size: int, num_heads: int,
+                          rankvit_layers: tuple, num_class_tokens: int = 1,
+                          ln_eps: float = 1e-5, compute_dtype=torch.bfloat16,
+                          kept_out: Optional[dict] = None) -> torch.Tensor:
+    """RankViT eval forward with the exact physical token drop (JAX
+    ``rankvit_forward_fused``, inference.py:1118). images: (B, H, W, 3);
+    ``params`` from ``prepare_engine_params(fold_ln=True)``. Returns fp32
+    logits.
+
+    At each ranked layer (none at budget >= 1) the top
+    ``ceil(float32(n_alive) * float32(budget))`` image tokens by the fp32
+    norm of the compute-dtype tokens are gathered in descending-norm order
+    (``rank_schedule``); the class tokens stay. Each layer runs
+    ``fused_layer_block_folded`` at 128 tokens or more and
+    ``fused_attention_block`` + ``fused_mlp_block`` below: the JAX switch,
+    kept because it picks the numerics (one-pass LN and an fp32 mid
+    residual, or two-pass LN and a bf16 residual). ``kept_out``: if a
+    dict is given, each ranked layer's (B, keep) gathered indices are
+    stored in it under the layer id."""
+    return _rank_forward(params, images, budget, _RANK_KERNELS, patch_size=patch_size,
+                         num_heads=num_heads, rankvit_layers=rankvit_layers,
+                         num_class_tokens=num_class_tokens, ln_eps=ln_eps,
+                         compute_dtype=compute_dtype, kept_out=kept_out)
+
+
+def rankvit_forward_plain(params, images, *, budget: float, patch_size: int, num_heads: int,
+                          rankvit_layers: tuple, num_class_tokens: int = 1,
+                          ln_eps: float = 1e-5, compute_dtype=torch.float32,
+                          kept_idx: Optional[dict] = None,
+                          kept_out: Optional[dict] = None) -> torch.Tensor:
+    """The same forward on the kernels' plain versions, whatever the device:
+    the reference a check holds the engine against on the card.
+    ``kept_idx`` ({layer id: (B, keep) indices}, a ``kept_out`` of the
+    engine's forward) replaces the ranking, so that both gather the same
+    tokens where a bf16 norm tie at the keep boundary would pick others."""
+    return _rank_forward(params, images, budget, _RANK_PLAIN, patch_size=patch_size,
+                         num_heads=num_heads, rankvit_layers=rankvit_layers,
+                         num_class_tokens=num_class_tokens, ln_eps=ln_eps,
+                         compute_dtype=compute_dtype, kept_idx=kept_idx, kept_out=kept_out)
+
+
+def rankvit_forward_padded(params, images, budget: float, *, max_budget: float,
+                           patch_size: int, num_heads: int, rankvit_layers: tuple,
+                           num_class_tokens: int = 1, ln_eps: float = 1e-5,
+                           compute_dtype=torch.bfloat16,
+                           kept_out: Optional[dict] = None) -> torch.Tensor:
+    """RankViT eval forward with the single-shape padded drop (JAX
+    ``rankvit_forward_padded``, inference.py:1214): the shapes depend on
+    ``max_budget`` alone, so every budget up to it runs the same launches
+    on the same shapes (the eager analogue of JAX's one compile).
+
+    Each ranked layer gathers the top ``keep_max = min(ceil(n *
+    max_budget), n)`` tokens by fp32 norm, the tokens past
+    ``ceil(float32(n_valid) * float32(budget))`` invalid
+    (``rank_schedule``): their rows are zeroed, they rank with the
+    float32-min norm from then on, and every later layer runs
+    ``keymasked_layer_block_folded`` with them excluded as keys (the class
+    tokens' key mask is 1). Layers before the first ranked one run
+    ``fused_layer_block_folded``. Invalid rows are not re-zeroed after a
+    layer; the key mask keeps them inert. ``kept_out`` as in
+    :func:`rankvit_forward_fused`, the indices (B, keep_max)."""
+    return _rank_forward(params, images, budget, _RANK_KERNELS, patch_size=patch_size,
+                         num_heads=num_heads, rankvit_layers=rankvit_layers,
+                         max_budget=max_budget, num_class_tokens=num_class_tokens,
+                         ln_eps=ln_eps, compute_dtype=compute_dtype, kept_out=kept_out)
+
+
+def rankvit_forward_padded_plain(params, images, budget: float, *, max_budget: float,
+                                 patch_size: int, num_heads: int, rankvit_layers: tuple,
+                                 num_class_tokens: int = 1, ln_eps: float = 1e-5,
+                                 compute_dtype=torch.float32, kept_idx: Optional[dict] = None,
+                                 kept_out: Optional[dict] = None) -> torch.Tensor:
+    """:func:`rankvit_forward_padded` on the plain versions, ``kept_idx``
+    as in :func:`rankvit_forward_plain`."""
+    return _rank_forward(params, images, budget, _RANK_PLAIN, patch_size=patch_size,
+                         num_heads=num_heads, rankvit_layers=rankvit_layers,
+                         max_budget=max_budget, num_class_tokens=num_class_tokens,
+                         ln_eps=ln_eps, compute_dtype=compute_dtype, kept_idx=kept_idx,
+                         kept_out=kept_out)
+
+
 class InferenceEngine:
-    """Fused eval forward bound to a built plain ViT or ResidualViT.
+    """Fused eval forward bound to a built plain ViT, ResidualViT or RankViT.
 
     ``device`` defaults to the card and raises when there is none; pass
     ``device="cpu"`` to run the kernels' plain versions on the CPU. On the
@@ -450,17 +675,31 @@ class InferenceEngine:
     capacity for every layer, a per-layer schedule of fractions, or
     ``True`` for min(1, budget + ``compact_slack``) per budget; a capacity
     is ceil(c * N_img) rounded up to a multiple of 8, and one that covers
-    every token runs the exact path."""
+    every token runs the exact path.
+
+    RankViT: ``engine(images, budget=b)``, the budget 1.0 by default. By
+    default the exact physical drop (``rankvit_forward_fused``: the shapes
+    shrink with the budget); ``max_budget=`` the padded drop
+    (``rankvit_forward_padded``: one set of shapes for every budget up to
+    ``max_budget``; a budget above it raises ``ValueError``)."""
 
     def __init__(self, model, compute_dtype=torch.bfloat16, device="cuda",
                  quantized: bool = False, max_budget: Optional[float] = None,
                  mesh: Any = None, compact: Any = None, compact_slack: float = 0.0,
                  ee_outputs: bool = False, recon_outputs: bool = False, routed: Any = None):
+        # RankViT first: it is no VisionTransformer, and a plain-ViT path
+        # would ignore its budget
+        rank = isinstance(model, RankVisionTransformer)
         residual = isinstance(model, ResidualVisionTransformer)
-        if not residual and not isinstance(model, VisionTransformer):
+        if not (rank or residual or isinstance(model, VisionTransformer)):
             raise NotImplementedError(
-                f"the port's engine serves the plain VisionTransformer and the ResidualViT "
-                f"family; {type(model).__name__} is ROADMAP.md port queue A items 5-7")
+                f"the port's engine serves the plain VisionTransformer, the ResidualViT "
+                f"family and RankViT; {type(model).__name__} is ROADMAP.md port queue A "
+                f"items 6-7")
+        if max_budget is not None and not rank:
+            raise NotImplementedError(
+                "max_budget= (the single-shape padded drop) applies to RankViT models only "
+                "(ROADMAP.md port queue A item 5)")
         if compact is not None:
             if not residual:
                 raise NotImplementedError(
@@ -476,7 +715,6 @@ class InferenceEngine:
             raise NotImplementedError("ee_outputs=True needs an EEResidualVisionTransformer")
         not_ported = {
             "quantized=": (quantized, "item 6 (int8)"),
-            "max_budget=": (max_budget is not None, "item 5 (RankViT)"),
             "mesh=": (mesh is not None, "item 9 (parallel and serving)"),
             "recon_outputs=": (recon_outputs, "item 7 (EncDec / MAE)"),
             "routed=": (routed is not None, "item 7 (MoE)"),
@@ -499,7 +737,16 @@ class InferenceEngine:
                 "ROADMAP.md port queue B item 15 (fp32 on CUDA)")
         self._module = model
         self._residual = residual
+        self._rank = rank
         params = tree_map(lambda t: t.to(self.device), module_params(model))
+        if rank:
+            self._forward = dict(
+                patch_size=model.patch_size, num_heads=model.num_heads,
+                rankvit_layers=model.rankvit_layers, num_class_tokens=model.num_class_tokens,
+                ln_eps=model.ln_eps, compute_dtype=compute_dtype)
+            self._max_budget = None if max_budget is None else float(max_budget)
+            self.params = prepare_engine_params(params, compute_dtype, fold_ln=True)
+            return
         if not residual:
             self._forward = dict(
                 patch_size=model.patch_size, num_heads=model.num_heads,
@@ -554,12 +801,21 @@ class InferenceEngine:
     def __call__(self, images, budget: Optional[float] = None):
         """images: (B, H, W, 3) numpy array or tensor. Returns fp32 logits
         on the engine's device (for ``ee_outputs``, the tuple of exits and
-        final logits). ``budget`` (ResidualViT, default 1.0) is ignored by
-        a plain ViT, as in the JAX engine."""
+        final logits). ``budget`` (ResidualViT and RankViT, default 1.0) is
+        ignored by a plain ViT, as in the JAX engine."""
         if isinstance(images, np.ndarray):
             images = torch.from_numpy(images)
         images = images.to(self.device, torch.float32)
         with torch.inference_mode():
+            if self._rank:
+                b = 1.0 if budget is None else float(budget)
+                if self._max_budget is None:
+                    return rankvit_forward_fused(self.params, images, budget=b, **self._forward)
+                if b > self._max_budget + 1e-9:
+                    raise ValueError(f"budget {b} exceeds the engine's static max_budget "
+                                     f"{self._max_budget}")
+                return rankvit_forward_padded(self.params, images, b,
+                                              max_budget=self._max_budget, **self._forward)
             if not self._residual:
                 return vit_forward_fused(self.params, images, **self._forward)
             b = 1.0 if budget is None else float(budget)

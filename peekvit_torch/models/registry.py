@@ -1,7 +1,7 @@
 """build_model for the port (counterpart of peekvit_tpu/models/registry.py
-:115-180). The plain ViT, the ResidualViT and the early-exit ResidualViT
-are ported; the other registered families raise NotImplementedError
-naming their ROADMAP item."""
+:115-180). The plain ViT, the ResidualViT, the early-exit ResidualViT and
+RankViT are ported; the other registered families raise
+NotImplementedError naming their ROADMAP item."""
 
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ import torch
 from torch import nn
 
 from peekvit_torch.models.eeresidualvit import EEResidualVisionTransformer
+from peekvit_torch.models.rankvit import RankVisionTransformer
 from peekvit_torch.models.residualvit import ResidualVisionTransformer
 from peekvit_torch.models.vit import VisionTransformer
 
@@ -22,13 +23,13 @@ _PORTED = {
                     ResidualVisionTransformer),
     **dict.fromkeys(("EEResidualVisionTransformer", "eeResidualVisionTransformer",
                      "eeResidualvit", "eeresidualvit"), EEResidualVisionTransformer),
+    **dict.fromkeys(("RankingVisionTransformer", "RankVisionTransformer", "rankvit"),
+                    RankVisionTransformer),
 }
 # JAX registry names not ported yet -> ROADMAP.md port queue A item
 _NOT_PORTED = {
     **dict.fromkeys(("ResidualVisionTransformerWithDecoder", "encdecresidualvit"),
                     "item 7 (EncDec, with MAE's decoder)"),
-    **dict.fromkeys(("RankingVisionTransformer", "RankVisionTransformer", "rankvit"),
-                    "item 5 (RankViT)"),
     **dict.fromkeys(("visiontransformermoe", "VisionTransformerMoE", "vitmoe", "moevit",
                      "MoEVisionTransformer", "AdaptiveVisionTransformer", "adavit",
                      "MAEVisionTransformer", "maevit", "PointCloudTransformer",

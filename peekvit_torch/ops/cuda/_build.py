@@ -40,7 +40,7 @@ _SIGNATURES = {
     "gemm_bias_epilogue": ("peekvit_gemm_bias_epilogue",
                            [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "attn_scores_pv": ("peekvit_attn_scores_pv",
-                       [_P, _P, _I, _I, _I, _I, ctypes.c_float, _I, ctypes.c_float, _P]),
+                       [_P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, ctypes.c_float, _P]),
     "attn_softmax_fwd": ("peekvit_attn_softmax_fwd",
                          [_P, _P, _I, _I, _I, _I, ctypes.c_float, _P]),
     "attn_softmax_bwd": ("peekvit_attn_softmax_bwd",

@@ -28,6 +28,14 @@ with the folded bias), the out-projection GEMM masks its output before the
 residual add, and the attention kernel weights the compaction engine's
 phantom key (``phantom_idx``/``phantom_mult``, the Pallas ``kweight``).
 
+The padded RankViT layer (``_layer_kernel`` mode ``keymasked``, folded)
+and its split attention sublayer (``keymasked_attention_block``) run the
+plain compositions with the attention kernel's key mask (the Pallas
+``kmask``: excluded keys selected to weight 0, non-finite values of v
+scrubbed, so garbage in excluded rows stays inert). ``fused_mlp_block``
+is the split MLP sublayer the exact RankViT engine takes below 128
+tokens.
+
 Dispatch is by device only. A wrapper uses the plain version for CPU
 tensors; for CUDA tensors it launches its kernel or raises (wrong dtype,
 shape, contiguity, a failed build or launch). Nothing sends a CUDA tensor
@@ -376,11 +384,26 @@ def gemm_masked_rowdot(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, g: 
 # -------------------------------------------------------------- attn_scores_pv
 
 
+def _check_kmask(qkv, phantom_idx, kmask):
+    """The key mask as (B, N), or None. A key mask and a phantom key are
+    exclusive: no JAX path combines them."""
+    _require(phantom_idx < qkv.shape[1], f"attn_scores_pv: phantom_idx {phantom_idx} "
+             f"outside {qkv.shape[1]} keys")
+    if kmask is None:
+        return None
+    _require(phantom_idx < 0, "attn_scores_pv: a key mask and a phantom key are exclusive")
+    b, n = qkv.shape[0], qkv.shape[1]
+    _require(kmask.numel() == b * n, f"attn_scores_pv: kmask has {kmask.numel()} values "
+             f"for {b} images of {n} keys")
+    return kmask.reshape(b, n)
+
+
 def attn_scores_pv_ref(qkv: torch.Tensor, num_heads: int, phantom_idx: int = -1,
-                       phantom_mult: float = 0.0) -> torch.Tensor:
+                       phantom_mult: float = 0.0, kmask=None) -> torch.Tensor:
     """Plain version of :func:`attn_scores_pv` (Pallas ``_attn_scores_pv``
-    without kmask, applied per image and head; ``kweight`` as the phantom
-    key's weight)."""
+    applied per image and head; ``kweight`` as the phantom key's weight,
+    ``kmask`` as the key mask)."""
+    kmask = _check_kmask(qkv, phantom_idx, kmask)
     b, n, three_d = qkv.shape
     d = three_d // 3
     hd = d // num_heads
@@ -391,6 +414,12 @@ def attn_scores_pv_ref(qkv: torch.Tensor, num_heads: int, phantom_idx: int = -1,
     q = (q.float() * (scale * LOG2E)).to(dt)
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
     e = torch.exp2(logits.clamp(-80.0, 115.0).to(dt).float()).to(dt)
+    if kmask is not None:
+        # select, not multiply: an excluded garbage key's NaN term becomes
+        # 0, and non-finite values are scrubbed from v (0 * NaN = NaN)
+        keep = (kmask.float() > 0.0)[:, None, None, :]
+        e = torch.where(keep, e, torch.zeros((), dtype=dt, device=e.device))
+        v = torch.where(torch.isfinite(v), v, torch.zeros((), dtype=dt, device=v.device))
     if phantom_idx >= 0:
         weight = torch.ones(n, dtype=dt, device=qkv.device)
         weight[phantom_idx] = phantom_mult
@@ -403,18 +432,24 @@ def attn_scores_pv_ref(qkv: torch.Tensor, num_heads: int, phantom_idx: int = -1,
 
 
 def attn_scores_pv(qkv: torch.Tensor, num_heads: int, phantom_idx: int = -1,
-                   phantom_mult: float = 0.0) -> torch.Tensor:
+                   phantom_mult: float = 0.0, kmask=None) -> torch.Tensor:
     """softmax(q k^T / sqrt(hd)) v per image and head over packed qkv
     (B, N, 3D) (head h at columns h*hd, D + h*hd, 2D + h*hd) -> (B, N, D),
     with the Pallas fast-softmax numerics. With ``phantom_idx >= 0`` key
     ``phantom_idx``'s exp term is multiplied by ``phantom_mult`` (rounded
     to the input dtype, as ``kweight``), whatever the multiplier, 0
-    included. On CUDA: bf16, head dim 64."""
-    _require(phantom_idx < qkv.shape[1], f"attn_scores_pv: phantom_idx {phantom_idx} "
-             f"outside {qkv.shape[1]} keys")
-    if _on_cpu(qkv):
-        return attn_scores_pv_ref(qkv, num_heads, phantom_idx, phantom_mult)
+    included. ``kmask`` (B * N values, (B, N) or (B, 1, N), 1 = attend):
+    a key whose mask is not > 0 gets weight 0 for every query, selected
+    (not multiplied) so that NaN or Inf in its row cannot leak, and
+    non-finite values of v are scrubbed to 0 (Pallas ``kmask``). On CUDA:
+    bf16, head dim 64, a bf16 key mask."""
+    km = _check_kmask(qkv, phantom_idx, kmask)
+    if _on_cpu(qkv, kmask):
+        return attn_scores_pv_ref(qkv, num_heads, phantom_idx, phantom_mult, kmask)
     _check_bf16("attn_scores_pv qkv", qkv)
+    if km is not None:
+        km = km.contiguous()
+        _check_bf16("attn_scores_pv kmask", km)
     _require(qkv.dim() == 3 and qkv.shape[-1] % 3 == 0, "attn_scores_pv: qkv must be (B, N, 3D)")
     b, n, three_d = qkv.shape
     d = three_d // 3
@@ -423,9 +458,11 @@ def attn_scores_pv(qkv: torch.Tensor, num_heads: int, phantom_idx: int = -1,
     out = torch.empty((b, n, d), dtype=torch.bfloat16, device=qkv.device)
     qscale = (1.0 / math.sqrt(64)) * LOG2E
     err = _build.library("attn_scores_pv")(
-        qkv.data_ptr(), out.data_ptr(), b, n, d, num_heads, qscale, int(phantom_idx),
-        float(phantom_mult), _stream())
-    _launched("attn_scores_pv.kweight" if phantom_idx >= 0 else "attn_scores_pv", err)
+        qkv.data_ptr(), out.data_ptr(), None if km is None else km.data_ptr(), b, n, d,
+        num_heads, qscale, int(phantom_idx), float(phantom_mult), _stream())
+    key = ("attn_scores_pv.kmask" if km is not None
+           else "attn_scores_pv.kweight" if phantom_idx >= 0 else "attn_scores_pv")
+    _launched(key, err)
     return out
 
 
@@ -437,13 +474,14 @@ def attn_scores_pv(qkv: torch.Tensor, num_heads: int, phantom_idx: int = -1,
 # against on the card).
 
 
-def _folded_layer(ops, x, w_qkv, b_qkv, w_out, b_out, w1, b1, w2, b2, num_heads, eps):
+def _folded_layer(ops, x, w_qkv, b_qkv, w_out, b_out, w1, b1, w2, b2, num_heads, eps,
+                  kmask=None):
     norm, _, gemm, attn_fn = ops
     b, n, d = x.shape
     x2 = x.reshape(b * n, d)
     ln = norm(x2, eps, x.dtype)
     qkv = gemm(ln, w_qkv, b_qkv, "bias")
-    attn = attn_fn(qkv.reshape(b, n, 3 * d), num_heads).reshape(b * n, d)
+    attn = attn_fn(qkv.reshape(b, n, 3 * d), num_heads, kmask=kmask).reshape(b * n, d)
     y = gemm(attn, w_out, b_out, "residual_f32", residual=x2)
     ln2 = norm(y, eps, x.dtype)
     h = gemm(ln2, w1, b1, "gelu")
@@ -459,13 +497,14 @@ def _layer_stack(ops, x, stacked, num_heads, eps):
     return x
 
 
-def _attention_block(ops, x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out, num_heads, eps):
+def _attention_block(ops, x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out, num_heads, eps,
+                     kmask=None):
     _, ln_fn, gemm, attn_fn = ops
     b, n, d = x.shape
     x2 = x.reshape(b * n, d)
     ln = ln_fn(x2, ln_scale, ln_bias, eps)
     qkv = gemm(ln, w_qkv, b_qkv, "bias")
-    attn = attn_fn(qkv.reshape(b, n, 3 * d), num_heads).reshape(b * n, d)
+    attn = attn_fn(qkv.reshape(b, n, 3 * d), num_heads, kmask=kmask).reshape(b * n, d)
     return gemm(attn, w_out, b_out, "residual", residual=x2).reshape(b, n, d)
 
 
@@ -498,11 +537,11 @@ def _masked_attention(ops, x, mask, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_ou
     return gemm(attn, w_out, b_out, "masked_residual", residual=x2, mask=m).reshape(b, n, d)
 
 
-def _masked_mlp(ops, x, mask, ln_scale, ln_bias, w1, b1, w2, b2, eps):
+def _mlp_block(ops, x, mask, ln_scale, ln_bias, w1, b1, w2, b2, eps):
     _, ln_fn, gemm, _ = ops
     b, n, d = x.shape
     x2 = x.reshape(b * n, d)
-    ln = ln_fn(x2, ln_scale, ln_bias, eps, mask.reshape(b * n))
+    ln = ln_fn(x2, ln_scale, ln_bias, eps, None if mask is None else mask.reshape(b * n))
     h = gemm(ln, w1, b1, "gelu")
     return gemm(h, w2, b2, "residual", residual=x2).reshape(b, n, d)
 
@@ -605,10 +644,62 @@ def masked_mlp_block(x, mask, ln_scale, ln_bias, w1, b1, w2, b2,
     """x + fc2(gelu(fc1(mask * LN(x)))) with two-pass LN; the output is not
     masked (Pallas ``masked_mlp_block``, :468). Three launches on CUDA:
     ``ln_rows.masked``, GEMM ``gelu``, GEMM ``residual``."""
-    return _masked_mlp(_KERNELS, x, mask, ln_scale, ln_bias, w1, b1, w2, b2, eps)
+    return _mlp_block(_KERNELS, x, mask, ln_scale, ln_bias, w1, b1, w2, b2, eps)
 
 
 def masked_mlp_block_ref(x, mask, ln_scale, ln_bias, w1, b1, w2, b2,
                          eps: float = 1e-6) -> torch.Tensor:
     """Plain version of :func:`masked_mlp_block`."""
-    return _masked_mlp(_PLAIN, x, mask, ln_scale, ln_bias, w1, b1, w2, b2, eps)
+    return _mlp_block(_PLAIN, x, mask, ln_scale, ln_bias, w1, b1, w2, b2, eps)
+
+
+def fused_mlp_block(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float = 1e-5) -> torch.Tensor:
+    """x + fc2(tanh-gelu(fc1(LN(x)))) with two-pass LN and unfolded affine,
+    rounded to x's dtype (Pallas ``fused_mlp_block``, :343, body
+    ``_mlp_block_kernel`` :317). x: (B, N, D). Three launches on CUDA:
+    ``ln_rows``, GEMM ``gelu``, GEMM ``residual`` (bf16 residual)."""
+    return _mlp_block(_KERNELS, x, None, ln_scale, ln_bias, w1, b1, w2, b2, eps)
+
+
+def fused_mlp_block_ref(x, ln_scale, ln_bias, w1, b1, w2, b2,
+                        eps: float = 1e-5) -> torch.Tensor:
+    """Plain version of :func:`fused_mlp_block`."""
+    return _mlp_block(_PLAIN, x, None, ln_scale, ln_bias, w1, b1, w2, b2, eps)
+
+
+def keymasked_attention_block(x, key_mask, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out,
+                              num_heads: int, eps: float = 1e-5) -> torch.Tensor:
+    """x + OutProj(MHSA(LN(x))) with key exclusion (Pallas
+    ``keymasked_attention_block``, :536, body ``_keymasked_attn_kernel``
+    :494). x: (B, N, D); key_mask: (B, 1, N), 1 = attend, 0 = exclude, in
+    x's dtype. Four launches on CUDA: ``ln_rows``, GEMM ``bias``,
+    ``attn_scores_pv.kmask``, GEMM ``residual`` (bf16 residual)."""
+    return _attention_block(_KERNELS, x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out,
+                            num_heads, eps, key_mask)
+
+
+def keymasked_attention_block_ref(x, key_mask, ln_scale, ln_bias, w_qkv, b_qkv, w_out,
+                                  b_out, num_heads: int, eps: float = 1e-5) -> torch.Tensor:
+    """Plain version of :func:`keymasked_attention_block`."""
+    return _attention_block(_PLAIN, x, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out,
+                            num_heads, eps, key_mask)
+
+
+def keymasked_layer_block_folded(x, key_mask, w_qkv, b_qkv, w_out, b_out, w1, b1, w2, b2,
+                                 num_heads: int, eps: float = 1e-5) -> torch.Tensor:
+    """One pre-LN layer with the LN affines folded and key exclusion (Pallas
+    ``keymasked_layer_block_folded``, :887: ``_layer_kernel`` mode
+    ``keymasked``, folded). The key mask only gates the attention scores,
+    so the folded LN stays exact; one-pass norms and the fp32 mid residual
+    as :func:`fused_layer_block_folded`. x: (B, N, D); key_mask: (B, 1, N)
+    in x's dtype. Seven launches on CUDA, the attention's
+    ``attn_scores_pv.kmask``."""
+    return _folded_layer(_KERNELS, x, w_qkv, b_qkv, w_out, b_out, w1, b1, w2, b2,
+                         num_heads, eps, key_mask)
+
+
+def keymasked_layer_block_folded_ref(x, key_mask, w_qkv, b_qkv, w_out, b_out, w1, b1, w2, b2,
+                                     num_heads: int, eps: float = 1e-5) -> torch.Tensor:
+    """Plain version of :func:`keymasked_layer_block_folded`."""
+    return _folded_layer(_PLAIN, x, w_qkv, b_qkv, w_out, b_out, w1, b1, w2, b2,
+                         num_heads, eps, key_mask)

@@ -1,11 +1,13 @@
 """Train/eval harness, single device (counterpart of the single-device part
 of peekvit_tpu/training/trainer.py).
 
-A ``Trainer`` holds a built ``VisionTransformer``, ``ResidualVisionTransformer``
-or ``EEResidualVisionTransformer`` on its device and runs one of three
-train steps (``_fused_kind``, the JAX conditions of trainer.py:278-308):
+A ``Trainer`` holds a built ``VisionTransformer``, ``RankVisionTransformer``,
+``ResidualVisionTransformer`` or ``EEResidualVisionTransformer`` on its
+device and runs one of three train steps (``_fused_kind``, the JAX
+conditions of trainer.py:278-308):
 
-- **fused_vit** (a plain ViT; ``fused="auto"`` on the card, or
+- **fused_vit** (a plain ViT or a RankViT, which trains as a plain ViT:
+  ranking is an eval-time mechanism; ``fused="auto"`` on the card, or
   ``fused=True`` anywhere): ``training.fused.vit_forward_trainable``, the
   attention sublayer on the CUDA kernels (their plain versions on the CPU)
   with bf16 compute over fp32 master params. This is the JAX rule "fused
@@ -18,7 +20,9 @@ train steps (``_fused_kind``, the JAX conditions of trainer.py:278-308):
 - **module** (otherwise, ``fused=False`` / ``"never"``, or ``"auto"`` on
   the CPU): the model's own fp32 forward under autograd, as the linen step
   (trainer.py:344-380): the cross-entropy of every early exit weighted by
-  ``ee_weights``, and the regularizers.
+  ``ee_weights``, and the regularizers. A RankViT given a ``budget=``
+  ranks there; on the fused path a budget raises (it would be ignored),
+  as in JAX (trainer.py:814-828).
 
 All feed the same update: optional gradient accumulation, global-norm
 clipping, freezing and the optimizer (``optim.GradientTransform``).
@@ -47,6 +51,7 @@ import numpy as np
 import torch
 
 from peekvit_torch.models.adapters import live_params, tree_leaves
+from peekvit_torch.models.rankvit import RankVisionTransformer
 from peekvit_torch.models.registry import resolve_device
 from peekvit_torch.models.residualvit import DROPOUT_ITEM, ResidualVisionTransformer
 from peekvit_torch.models.vit import VisionTransformer
@@ -161,10 +166,11 @@ class Trainer:
             if used:
                 raise NotImplementedError(
                     f"Trainer({name}=...) is not ported yet: ROADMAP.md port queue A {item}")
-        if not isinstance(self.model, (VisionTransformer, ResidualVisionTransformer)):
+        if not isinstance(self.model, (VisionTransformer, RankVisionTransformer,
+                                       ResidualVisionTransformer)):
             raise NotImplementedError(
-                f"the port's Trainer trains the plain ViT and the ResidualViT family; "
-                f"{type(self.model).__name__} is ROADMAP.md port queue A items 5-7")
+                f"the port's Trainer trains the plain ViT, RankViT and the ResidualViT "
+                f"family; {type(self.model).__name__} is ROADMAP.md port queue A items 6-7")
         if self.model.dropout or self.model.attention_dropout:
             raise NotImplementedError(
                 f"training with dropout is not ported yet ({DROPOUT_ITEM}): "
@@ -196,7 +202,7 @@ class Trainer:
                 or getattr(model, "noise_layer", None) is not None
                 or self.output_format is not None):
             return None
-        if isinstance(model, VisionTransformer):
+        if isinstance(model, (VisionTransformer, RankVisionTransformer)):
             if self.loss_compose and self.loss_compose.additional_losses:
                 return None  # a plain ViT emits no aux for regularizers
             return "vit"
@@ -228,6 +234,8 @@ class Trainer:
         self._train_kind = "module"
         if isinstance(self.model, ResidualVisionTransformer):
             return lambda x, budget, gen: self.model(x, budget=budget, train=True, generator=gen)
+        if isinstance(self.model, RankVisionTransformer):
+            return lambda x, budget, gen: self.model(x, budget=budget)
         return lambda x, budget, gen: self.model(x)
 
     def _loss(self, out, aux, y, budget):
@@ -264,6 +272,10 @@ class Trainer:
         self._check_unported_args(budget, noise_value)
         if self._forward is None:
             self._forward = self._build_forward()
+        if budget is not None and self._train_kind == "fused_vit":
+            raise NotImplementedError(
+                "the fused train path treats RankViT as a plain ViT: pass fused='never' to "
+                "train with an active ranking budget")
         x, y = self._to_device(x, y)
         gen = step_generator(self.seed, step_idx)
         if self._train_kind == "fused_residual":
@@ -277,10 +289,11 @@ class Trainer:
         return {k: v.detach() for k, v in metrics.items()}
 
     def _check_unported_args(self, budget, noise_value):
-        if budget is not None and not isinstance(self.model, ResidualVisionTransformer):
+        if budget is not None and not isinstance(
+                self.model, (ResidualVisionTransformer, RankVisionTransformer)):
             raise NotImplementedError(
-                "a token budget on a plain VisionTransformer (RankViT's ranking) is not ported "
-                "yet: ROADMAP.md port queue A item 5")
+                "a plain VisionTransformer takes no token budget: ranking is RankViT's "
+                "(build_model('rankvit'), ROADMAP.md port queue A item 5)")
         if noise_value is not None:
             raise NotImplementedError("noise is not ported yet: ROADMAP.md port queue A item 10")
 
@@ -292,7 +305,9 @@ class Trainer:
         x, y = self._to_device(x, y)
         with torch.no_grad():
             out, aux = (self.model(x, budget=budget)
-                        if isinstance(self.model, ResidualVisionTransformer) else self.model(x))
+                        if isinstance(self.model, (ResidualVisionTransformer,
+                                                   RankVisionTransformer))
+                        else self.model(x))
             logits = _main_logits(out, self.output_format)
             loss = self.main_criterion(logits, y)
             correct = (logits.argmax(-1) == y).sum()
