@@ -90,7 +90,29 @@ prints no final result):
    the bf16 peak from analytic_macs), attn_scores_pv.kmask and the three
    compositions beside their plain versions, bounds and library
    yardsticks, one profiled exact forward at budget 0.5;
-18. the {"kernels": [...]} line, then the card's nvidia-smi line, then
+18. int8 kernel checks at ViT-B/16 bs256 shapes: quant_rows (LN from
+   bf16 x, the bf16 attention output, LN from the fp32 y, the fp32 gelu
+   output; dynamic and static) with codes within 1 on at most 1e-3 of
+   the elements and scales within 1e-6; the four s8 GEMM epilogues (bias,
+   residual_f32, gelu_f32, residual) and a static row scale, exact s32
+   sums; quant_layer_block at N = 197 (dynamic and static caps),
+   quant_keymasked_layer_block at N = 148 with the excluded rows poisoned
+   (valid rows finite and bit-identical to a clean input's),
+   quant_attention_block and quant_mlp_block at N = 99;
+19. int8 serving: ViT-B/16 with dynamic scales and with SmoothQuant +
+   static caps from 32 seeded calibration images (bench.py:213-250's
+   recipe), RankViT-B/16 exact at 0.25/0.5/1.0 and max_budget=0.75 at
+   0.25/0.5, at 8 and 256 images (counts zeroed before and read after
+   each forward: 108 launches, the expected keys, every new variant
+   launched), logits against each path's plain twin (bf16, 5e-2 of
+   max|logit|, top-1 on decided images; the RankViT twins fed the
+   engine's kept indices), top-1 agreement with the bf16 engine reported;
+20. int8 timing at bs256: each path beside the bf16 engine (ms, images/s,
+   share of the int8 and of the bf16 peak), each new kernel's time,
+   launches, bound, plain time and library yardstick (torch._int_mm +
+   dequant; amax/round/clamp), the merged int8 layer, one profiled ViT
+   int8 forward;
+21. the {"kernels": [...]} line, then the card's nvidia-smi line, then
    {"ok": true, "device": {...}} as the last line.
 
 Imports nothing of JAX or of peekvit_tpu.
@@ -106,6 +128,8 @@ import sys
 import time
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_INT8_OPS = 1979e12   # H100 SXM dense int8 (NVIDIA data sheet)
+PEAK_FP32_FLOPS = 67e12   # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 B16 = dict(image_size=224, patch_size=16, num_layers=12, num_heads=12,
            hidden_dim=768, mlp_dim=3072, num_classes=1000)
@@ -1559,6 +1583,433 @@ def rank_timing(torch, F, fa, smi, checks, ins, rank, kernel_ms, ln_s, ln_b, w_q
     return entries
 
 
+# ------------------------------------------------------------------ int8 (w8a8)
+
+REPLACES_Q = "peekvit_tpu/ops/pallas/quant_blocks.py"
+QUANT_REQUESTS = (8, 256)
+QUANT_CALIB = 32  # calibration images, bench.py:213-250's recipe
+QUANT_RANK_EXACT = (0.25, 0.5, 1.0)
+QUANT_RANK_MAX_BUDGET = 0.75
+QUANT_RANK_PADDED = (0.25, 0.5)
+QUANT_RUNS = ([("vit", None), ("vit_static", None)]
+              + [("rank", b) for b in QUANT_RANK_EXACT]
+              + [("rank_padded", b) for b in QUANT_RANK_PADDED])
+# static caps for the kernel checks: ((attn LN, attn out), (mlp LN, gelu h))
+QUANT_CAPS = ((4.0, 1.5), (4.0, 2.5))
+QUANT_ROWS_KEYS = ("quant_rows.ln.bf16", "quant_rows.bf16", "quant_rows.ln.f32", "quant_rows.f32")
+GEMM_S8_KEYS = tuple(f"gemm_s8_epilogue.{e}" for e in ("bias", "residual_f32", "gelu_f32",
+                                                       "residual"))
+
+
+def quant_layer_counts(path: str, static: bool) -> dict:
+    """The launches of one int8 layer: the merged layer (its key-masked
+    form with ``attn_scores_pv.kmask``) or the split sublayers; nine each."""
+    sfx = ".static" if static else ""
+    attn = "attn_scores_pv.kmask" if path == "keymasked" else "attn_scores_pv"
+    out = {attn: 1, f"quant_rows.bf16{sfx}": 1, f"quant_rows.f32{sfx}": 1,
+           "gemm_s8_epilogue.bias": 1, "gemm_s8_epilogue.gelu_f32": 1}
+    if path == "split":  # LN2 from the bf16 sublayer output, a bf16 residual out-proj
+        out.update({f"quant_rows.ln.bf16{sfx}": 2, "gemm_s8_epilogue.residual": 2})
+    else:
+        out.update({f"quant_rows.ln.bf16{sfx}": 1, f"quant_rows.ln.f32{sfx}": 1,
+                    "gemm_s8_epilogue.residual_f32": 1, "gemm_s8_epilogue.residual": 1})
+    return out
+
+
+def quant_run_counts(name: str, budget) -> dict:
+    """The launches one int8 forward of a QUANT_RUNS entry makes."""
+    if name.startswith("vit"):
+        paths = ["merged"] * B16["num_layers"]
+    else:
+        paths = rank_layer_paths(budget, QUANT_RANK_MAX_BUDGET if name == "rank_padded" else None)
+    total: dict = {}
+    for p in paths:
+        for k, v in quant_layer_counts(p, name == "vit_static").items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def quant_kernel_checks(torch, F, tq, check, checks, randn, ln_s, ln_b, w_qkv, b_qkv, w_out,
+                        b_out, w1, b1, w2, b2, d, h, m, smi) -> dict:
+    """Phase 18: quant_rows in its four modes, dynamic and static, and the
+    four s8 GEMM epilogues against their plain versions at ViT-B/16 bs256
+    shapes; then quant_layer_block (N = 197, dynamic and static caps),
+    quant_keymasked_layer_block (N = 148, about half the keys excluded,
+    the excluded rows poisoned with NaN/Inf) and quant_attention_block +
+    quant_mlp_block (N = 99). Returns the inputs phase 20 times."""
+    f32 = torch.float32
+    n_img = (B16["image_size"] // B16["patch_size"]) ** 2
+    rows = BATCH * (1 + n_img)
+    ins = {"x": randn(rows, d, scale=1.5, shift=0.3), "attn": randn(rows, d, scale=0.5),
+           "y": randn(rows, d, dtype=f32, scale=1.5, shift=0.3),
+           "h": F.gelu(randn(rows, m, dtype=f32), approximate="tanh")}
+    q = {}
+    for name, w in (("qkv", w_qkv), ("out", w_out), ("fc1", w1), ("fc2", w2)):
+        wq, sw = tq.quantize_linear(w)
+        q[name] = (tq.kernel_layout(wq), sw)
+    ins["q"] = q
+    ln = (ln_s, ln_b)
+    modes = {"quant_rows.ln.bf16": ("x", ln, QUANT_CAPS[0][0]),
+             "quant_rows.bf16": ("attn", None, QUANT_CAPS[0][1]),
+             "quant_rows.ln.f32": ("y", ln, QUANT_CAPS[1][0]),
+             "quant_rows.f32": ("h", None, QUANT_CAPS[1][1])}
+    ins["modes"] = modes
+    codes = {}
+    with torch.inference_mode():
+        # codes may differ by 1 where v / s lies within an ulp of a .5
+        # boundary: the LN's sums run in another order and rsqrtf is not
+        # correctly rounded; the dynamic scale is absmax / 127 of the same
+        # values, so it differs only where the row's absmax does
+        for key, (src, aff, cap) in modes.items():
+            for c in (None, cap):
+                name = key + ("" if c is None else ".static")
+                kc, ks = tq.quant_rows(ins[src], c, *(aff or (None, None)), EPS)
+                pc, ps = tq.quant_rows_ref(ins[src], c, *(aff or (None, None)), EPS)
+                diff = (kc.int() - pc.int()).abs()
+                share = (diff > 0).float().mean().item()
+                rel = ((ks - ps).abs() / ps).max().item() if c is None else abs(ks - ps) / ps
+                rec = {"phase": "kernel_check", "kernel": name, "shape": list(kc.shape),
+                       "max_abs_err": int(diff.max().item()), "code_mismatch_share": share,
+                       "saturated_share": (kc.abs() == 127).float().mean().item(),
+                       "scale_max_rel_err": rel, "tolerance": "codes within 1 on at most 1e-3 "
+                       "of elements; scales within 1e-6 relative", "card": smi}
+                emit(rec)
+                if rec["max_abs_err"] > 1 or share > 1e-3 or rel > 1e-6:
+                    raise AssertionError(f"{name}: {rec}")
+                checks[name] = float(rec["max_abs_err"])
+                if c is None:
+                    codes[key] = (kc, ks)
+        ins["codes"] = codes
+        # The GEMMs: s32 sums exact on both sides; the dequant, bias and
+        # residual steps are the same IEEE operations in the same order
+        # (no FMA contraction in the kernel's epilogue), so fp32 outputs
+        # agree bit for bit except gelu (tanhf against torch's tanh, a few
+        # ulps) and bf16 outputs within one rounding: 2^-20 and 2^-7 of max.
+        gemms = {"bias": ("ln.bf16", "qkv", b_qkv, None),
+                 "residual_f32": ("bf16", "out", b_out, ins["x"]),
+                 "gelu_f32": ("ln.f32", "fc1", b1, None),
+                 "residual": ("f32", "fc2", b2, ins["y"])}
+        ins["gemms"] = gemms
+        for epi, (src, wname, b, res) in gemms.items():
+            a, sa = codes[f"quant_rows.{src}"]
+            w, sw = q[wname]
+            got = tq.gemm_s8_epilogue(a, sa, w, sw, b, epi, residual=res)
+            want = tq.gemm_s8_epilogue_ref(a, sa, w, sw, b, epi, residual=res)
+            tol = 2.0 ** -20 if got.dtype == f32 else 2.0 ** -7
+            check(f"gemm_s8_epilogue.{epi}", got, want, tol,
+                  "s32 sums exact; FMA contraction off in the epilogue (__f*_rn); "
+                  + ("tanhf ulps" if epi == "gelu_f32" else "same IEEE steps")
+                  + ("" if got.dtype == f32 else ", bf16 output rounding"))
+            emit({"phase": "gemm_s8_bits", "epilogue": epi,
+                  "bit_identical_share": (got == want).float().mean().item(), "card": smi})
+        a, _ = codes["quant_rows.ln.bf16"]
+        s_static = tq.static_scale(QUANT_CAPS[0][0])
+        check("gemm_s8_epilogue.bias.static_scale",
+              tq.gemm_s8_epilogue(a, s_static, *q["qkv"], b_qkv, "bias"),
+              tq.gemm_s8_epilogue_ref(a, s_static, *q["qkv"], b_qkv, "bias"), 2.0 ** -7,
+              "one static row scale; bf16 output rounding")
+
+        qw = (ln_s, ln_b, *q["qkv"], b_qkv, *q["out"], b_out, ln_s, ln_b, *q["fc1"], b1,
+              *q["fc2"], b2)
+        ins["qw"] = qw
+        reason = ("nine launches; bf16 roundings of qkv and the attention output flipped by "
+                  "fp32 sums in another order, requantized; the bf16 kernel tolerance "
+                  "(tests/test_pallas.py:42)")
+        x197 = randn(BATCH, 1 + n_img, d, scale=1.5, shift=0.3)
+        ins["x197"] = x197
+        for caps in (None, QUANT_CAPS):
+            check("quant_layer_block" + ("" if caps is None else ".static"),
+                  tq.quant_layer_block(x197, *qw, h, EPS, caps=caps),
+                  tq.quant_layer_block_ref(x197, *qw, h, EPS, caps=caps), 3e-2, reason)
+        n_pad, n_split = 1 + math.ceil(n_img * RANK_MAX_BUDGET), 1 + math.ceil(n_img * 0.5)
+        keep = randn(BATCH, n_pad, dtype=f32) > 0.0
+        keep[:, 0] = True
+        km3 = keep.to(torch.bfloat16)[:, None, :]
+        x148 = randn(BATCH, n_pad, d, scale=1.5, shift=0.3)
+        bad = x148.clone()
+        rows_bad = (~keep).nonzero()
+        bad[rows_bad[:, 0], rows_bad[:, 1]] = torch.where(
+            rows_bad[:, 1] % 2 == 0, float("nan"), float("inf")).to(bad.dtype)[:, None]
+        got = tq.quant_keymasked_layer_block(bad, km3, *qw, h, EPS)
+        check("quant_keymasked_layer_block", got[keep],
+              tq.quant_keymasked_layer_block_ref(bad, km3, *qw, h, EPS)[keep], 3e-2,
+              f"valid rows of {int(keep.sum())} with {int((~keep).sum())} excluded rows "
+              f"poisoned with NaN/Inf; {reason}")
+        unchanged = torch.equal(got[keep],
+                                tq.quant_keymasked_layer_block(x148, km3, *qw, h, EPS)[keep])
+        emit({"phase": "kmask_inert", "kernel": "quant_keymasked_layer_block", "tokens": n_pad,
+              "excluded_rows": int((~keep).sum()), "valid_rows": int(keep.sum()),
+              "valid_rows_bit_identical_to_clean_input": unchanged, "card": smi})
+        if not unchanged:
+            raise AssertionError("quant_keymasked_layer_block: garbage in excluded rows "
+                                 "changed a valid row")
+        ins.update(x148=x148, km3=km3, kept_keys=keep.float().sum(1).mean().item())
+        x99 = randn(BATCH, n_split, d, scale=1.5, shift=0.3)
+        ins["x99"] = x99
+        check("quant_attention_block", tq.quant_attention_block(x99, *qw[:8], h, EPS),
+              tq.quant_attention_block_ref(x99, *qw[:8], h, EPS), 3e-2,
+              "five launches; " + reason)
+        check("quant_mlp_block", tq.quant_mlp_block(x99, *qw[8:], EPS),
+              tq.quant_mlp_block_ref(x99, *qw[8:], EPS), 2.0 ** -6,
+              "four launches; no attention: codes flipped by LN sums in another order")
+        torch.cuda.synchronize()
+    return ins
+
+
+def quant_phases(torch, fa, dev, smi) -> dict:
+    """Phase 19: int8 serving of ViT-B/16 (dynamic, and SmoothQuant +
+    static caps from 32 seeded calibration images) and RankViT-B/16
+    (exact drop at 0.25/0.5/1.0, max_budget=0.75 at 0.25/0.5) at 8 and 256
+    images; counts zeroed before and read after each forward (108 launches,
+    the expected keys); logits against each path's plain twin (the RankViT
+    twins fed the engine's kept indices); top-1 agreement with the bf16
+    engine reported."""
+    from peekvit_torch import InferenceEngine, build_model
+    from peekvit_torch.inference import (
+        rankvit_forward_padded_quant,
+        rankvit_forward_padded_quant_plain,
+        rankvit_forward_quant,
+        rankvit_forward_quant_plain,
+        vit_forward_quant_plain,
+    )
+
+    bf16 = torch.bfloat16
+    cpu_gen = torch.Generator().manual_seed(1)
+    models = {"vit": build_model("vit", B16, seed=0, device=DEVICE),
+              "rank": build_model("rankvit", RANKVIT_B16, seed=0, device=DEVICE)}
+    with torch.no_grad():  # zero-initialised head and class token: re-drawn as in phase 4
+        for model in models.values():
+            model.head.kernel.copy_(torch.randn(model.head.kernel.shape, generator=cpu_gen) * 0.02)
+            model.class_tokens.copy_(torch.randn(model.class_tokens.shape,
+                                                 generator=cpu_gen) * 0.02)
+    img_gen = torch.Generator(device=dev).manual_seed(7)
+    size = B16["image_size"]
+    calib = torch.randn(QUANT_CALIB, size, size, 3, generator=img_gen, device=dev)
+    requests = [torch.randn(b, size, size, 3, generator=img_gen, device=dev)
+                for b in QUANT_REQUESTS]
+    t0 = time.perf_counter()
+    engines = {"vit": InferenceEngine(models["vit"], device=DEVICE, quantized=True)}
+    t1 = time.perf_counter()
+    engines["vit_static"] = InferenceEngine(models["vit"], device=DEVICE, quantized=True,
+                                            calib_images=calib, calib_static_caps=True)
+    t2 = time.perf_counter()
+    engines["rank"] = InferenceEngine(models["rank"], device=DEVICE, quantized=True)
+    engines["rank_padded"] = InferenceEngine(models["rank"], device=DEVICE, quantized=True,
+                                             max_budget=QUANT_RANK_MAX_BUDGET)
+    emit({"phase": "int8_build", "quantize_s": t1 - t0, "calibrate_and_quantize_s": t2 - t1,
+          "calib_images": QUANT_CALIB, "caps_layer0": engines["vit_static"].caps[0],
+          "card": smi})
+    bf16_engines = {"vit": InferenceEngine(models["vit"], device=DEVICE),
+                    "rank": InferenceEngine(models["rank"], device=DEVICE),
+                    "rank_padded": InferenceEngine(models["rank"], device=DEVICE,
+                                                   max_budget=QUANT_RANK_MAX_BUDGET)}
+
+    def call(name, images, budget, **kw):
+        e = engines[name]
+        if name.startswith("vit"):
+            return e(images)
+        if name == "rank":
+            return rankvit_forward_quant(e.params, images, budget=budget, **e._forward, **kw)
+        return rankvit_forward_padded_quant(e.params, images, budget,
+                                            max_budget=QUANT_RANK_MAX_BUDGET, **e._forward, **kw)
+
+    def plain(name, images, budget, kept):
+        e = engines[name]
+        fwd = dict(e._forward, compute_dtype=bf16)
+        if name.startswith("vit"):
+            return vit_forward_quant_plain(e.params, images, caps=e.caps, **fwd)
+        if name == "rank":
+            return rankvit_forward_quant_plain(e.params, images, budget=budget, kept_idx=kept,
+                                               **fwd)
+        return rankvit_forward_padded_quant_plain(e.params, images, budget,
+                                                  max_budget=QUANT_RANK_MAX_BUDGET,
+                                                  kept_idx=kept, **fwd)
+
+    totals: dict = {}
+    per_forward = []
+    outputs = {}
+    layers = B16["num_layers"]
+    with torch.inference_mode():
+        for images in requests:
+            b = images.shape[0]
+            for name, budget in QUANT_RUNS:
+                kept = {}
+                if name.startswith("vit"):
+                    got, counts = counted(torch, fa, lambda: engines[name](images))
+                else:
+                    got, counts = counted(torch, fa, lambda: engines[name](images, budget=budget))
+                    again = call(name, images, budget, kept_out=kept)
+                    if not torch.equal(again, got):
+                        raise AssertionError(f"int8 {name} {budget}: a second forward differs")
+                want_counts = quant_run_counts(name, budget)
+                per_forward.append(sum(counts.values()))
+                for k, v in counts.items():
+                    totals[k] = totals.get(k, 0) + v
+                if counts != want_counts or sum(counts.values()) != 9 * layers:
+                    raise AssertionError(f"int8 {name} {budget}: launches {counts}, want "
+                                         f"{want_counts}")
+                outputs[(b, name, budget)] = got
+                if got.shape != (b, B16["num_classes"]):
+                    raise AssertionError(f"int8 {name}: output shape {tuple(got.shape)}")
+                ref = plain(name, images, budget, kept)
+                rec = compare_logits(torch, f"int8 {name} b{b} budget {budget}", got,
+                                     [("plain_bf16", ref, 0.0, 5e-2 * ref.abs().max().item())])
+                base = bf16_engines["vit" if name.startswith("vit") else name]
+                bf = base(images) if name.startswith("vit") else base(images, budget=budget)
+                emit({"phase": "int8_check", "path": name, "batch": b, "budget": budget,
+                      "launches": sum(counts.values()), "counts": counts, **rec,
+                      "top1_agreement_with_bf16_engine":
+                          (got.argmax(-1) == bf.argmax(-1)).float().mean().item(),
+                      "max_abs_delta_vs_bf16_engine": (got - bf).abs().max().item(),
+                      "tolerance_reason": "the plain twin on the same int8 tree (the RankViT "
+                      "twins fed the engine's kept indices): same rounding points, sums in "
+                      "another order; a flipped bf16 rounding of qkv or the attention output "
+                      "is requantized (it can move a row's scale and every code of the row) "
+                      "and runs on through 12 layers: 5e-2 of max|logit|, not of each logit "
+                      "(the port against the JAX int8 engine on the CPU: up to 3.1% of max from "
+                      "the same flips, tests/test_torch_quant_engine.py). The bf16 engine: "
+                      "reported only (random weights)", "card": smi})
+    new_keys = (QUANT_ROWS_KEYS + tuple(k + ".static" for k in QUANT_ROWS_KEYS) + GEMM_S8_KEYS
+                + ("attn_scores_pv", "attn_scores_pv.kmask"))
+    emit({"phase": "int8_launches", "per_forward": per_forward, "counts": totals,
+          "requests": list(QUANT_REQUESTS), "runs": [list(r) for r in QUANT_RUNS], "card": smi})
+    missing = [k for k in new_keys if not totals.get(k)]
+    if missing:
+        raise AssertionError(f"kernels never launched on the int8 paths: {missing}")
+    return {"models": models, "engines": engines, "bf16_engines": bf16_engines,
+            "images": requests[-1], "counts": totals}
+
+
+def quant_timing(torch, F, tq, smi, checks, ins, quant, d, h, m) -> list:
+    """Phase 20 at bs256: each int8 path's ms per forward beside the bf16
+    engine's (images/s, share of the int8 and of the bf16 peak), each new
+    kernel's time, launches, bound, plain time and library yardstick, the
+    merged int8 layer's time, one profiled ViT int8 forward. Returns the
+    JSON entries."""
+    from peekvit_torch.inference import rank_schedule
+    from peekvit_torch.utils.flops_count import analytic_macs
+
+    engines, bf16_engines, images = quant["engines"], quant["bf16_engines"], quant["images"]
+    n_img = (B16["image_size"] // B16["patch_size"]) ** 2
+    ranked = tuple(RANKVIT_B16["rankvit_layers"])
+    forward_ms = {}
+    with torch.inference_mode():
+        for name, budget in QUANT_RUNS:
+            kw = {} if name.startswith("vit") else {"budget": budget}
+            ms = cuda_ms(torch, lambda: engines[name](images, **kw), iters=10)
+            base = bf16_engines["vit" if name.startswith("vit") else name]
+            bf_ms = cuda_ms(torch, lambda: base(images, **kw), iters=10)
+            forward_ms[(name, budget)] = ms
+            model = quant["models"]["vit" if name.startswith("vit") else "rank"]
+            if name.startswith("vit"):
+                flops = 2.0 * analytic_macs(model)
+            else:
+                schedule = rank_schedule(n_img, ranked, budget, QUANT_RANK_MAX_BUDGET
+                                         if name == "rank_padded" else None)
+                flops = 2.0 * analytic_macs(model, _schedule_masks(torch, schedule, n_img, 0))
+            rate = flops * BATCH / (ms / 1e3)
+            emit({"phase": "timing_int8", "path": name, "batch": BATCH, "budget": budget,
+                  "ms_per_forward": ms, "images_per_s": BATCH / ms * 1e3,
+                  "bf16_engine_ms_per_forward": bf_ms, "int8_over_bf16_time": ms / bf_ms,
+                  "flops_per_image_run": flops, "share_of_int8_peak": rate / PEAK_INT8_OPS,
+                  "share_of_bf16_peak": rate / PEAK_BF16_FLOPS,
+                  "note": "FLOPs of every matmul (int8 GEMMs and the bf16 attention) over one "
+                          "peak: the int8 peak (1,979 TOP/s) and the bf16 peak (989 TFLOP/s)",
+                  "card": smi})
+
+        rows = ins["x"].shape[0]
+        codes, q, gemms, modes = ins["codes"], ins["q"], ins["gemms"], ins["modes"]
+        counts = quant["counts"]
+        entries = []
+
+        def entry(name, source, replaces, kfn, pfn, lfn, ops, peak, nbytes, library):
+            ms = cuda_ms(torch, kfn)
+            plain_ms = cuda_ms(torch, pfn, iters=5)
+            lib_ms = cuda_ms(torch, lfn)
+            t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+            bnd, by = (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+            launches = counts.get(name, 0)
+            if launches == 0:
+                raise AssertionError(f"{name}: never launched on the int8 paths")
+            e = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                 "launches": launches, "max_abs_err": checks[name], "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms,
+                 "path": "int8", "shape_batch": BATCH}
+            emit({"phase": "timing_kernel", **e, "share_of_bound": bnd / ms, "library": library,
+                  "card": smi})
+            entries.append(e)
+
+        def lib_quant(t, aff, cap):
+            v = t.float() if aff is None else F.layer_norm(
+                t.float(), (t.shape[-1],), aff[0].float(), aff[1].float(), EPS)
+            s = (v.abs().amax(-1, keepdim=True) / 127.0).clamp_min(1e-12) if cap is None \
+                else tq.static_scale(cap)
+            return torch.round(v / s).clamp(-127, 127).to(torch.int8), s
+
+        for key, (src, aff, cap) in modes.items():
+            t = ins[src]
+            width = t.shape[-1]
+            for c in (None, cap):
+                name = key + ("" if c is None else ".static")
+                nbytes = rows * width * (t.element_size() + 1) + (0 if c else rows * 4) + (
+                    4 * width if aff else 0)
+                entry(name, "peekvit_torch/csrc/quant_rows.cu",
+                      f"{REPLACES_Q}:42 _quant_rows" + (" after :73 _ln_f32" if aff else "")
+                      + " (in _q_layer_kernel :359)",
+                      lambda t=t, aff=aff, c=c: tq.quant_rows(t, c, *(aff or (None, None)), EPS),
+                      lambda t=t, aff=aff, c=c: tq.quant_rows_ref(t, c, *(aff or (None, None)),
+                                                                  EPS),
+                      lambda t=t, aff=aff, c=c: lib_quant(t, aff, c),
+                      (12 if aff else 4) * rows * width, PEAK_FP32_FLOPS, nbytes,
+                      ("F.layer_norm + " if aff else "") + "amax, round, clamp")
+        for epi, (src, wname, b, res) in gemms.items():
+            a, sa = codes[f"quant_rows.{src}"]
+            w, sw = q[wname]
+            kk, nn_ = w.shape
+            out_b = 4 if epi in ("gelu_f32", "residual_f32") else 2
+            res_b = 0 if res is None else res.element_size()
+
+            try:  # the yardstick takes W as it lies if cuBLASLt accepts the layout
+                torch._int_mm(a[:32], w)
+                w_lib = w
+            except RuntimeError:
+                w_lib = w.contiguous()
+
+            def lib(a=a, sa=sa, w=w_lib, sw=sw, b=b, res=res, epi=epi):
+                v = torch._int_mm(a, w).float() * sa * sw + b.float()
+                if epi == "gelu_f32":
+                    return F.gelu(v, approximate="tanh")
+                if res is not None:
+                    v = v + res.float()
+                return v if epi == "residual_f32" else v.to(torch.bfloat16)
+
+            entry(f"gemm_s8_epilogue.{epi}", "peekvit_torch/csrc/gemm_s8_epilogue.cu",
+                  f"{REPLACES_Q}:63 _qmatmul and its epilogue in _q_layer_kernel :359",
+                  lambda a=a, sa=sa, w=w, sw=sw, b=b, res=res, epi=epi:
+                      tq.gemm_s8_epilogue(a, sa, w, sw, b, epi, residual=res),
+                  lambda a=a, sa=sa, w=w, sw=sw, b=b, res=res, epi=epi:
+                      tq.gemm_s8_epilogue_ref(a, sa, w, sw, b, epi, residual=res),
+                  lib, 2.0 * rows * kk * nn_, PEAK_INT8_OPS,
+                  rows * kk + kk * nn_ + rows * 4 + nn_ * 6 + rows * nn_ * (out_b + res_b),
+                  "torch._int_mm + the dequant and epilogue in torch ops")
+        qw, x197 = ins["qw"], ins["x197"]
+        ms = cuda_ms(torch, lambda: tq.quant_layer_block(x197, *qw, h, EPS))
+        wbytes = 4 * d * d + 2 * d * m
+        t_ops = 2.0 * rows * (4 * d * d + 2 * d * m) / PEAK_INT8_OPS * 1e3
+        t_attn = 4.0 * rows * (1 + n_img) * d / PEAK_BF16_FLOPS * 1e3
+        emit({"phase": "timing_composition", "name": "quant_layer_block", "ms": ms,
+              "plain_ms": cuda_ms(torch, lambda: tq.quant_layer_block_ref(x197, *qw, h, EPS),
+                                  iters=3),
+              "launches_per_call": 9, "tokens": 1 + n_img, "batch": BATCH,
+              "int8_ops_ms_bound": t_ops, "attention_ops_ms_bound": t_attn,
+              "weight_bytes": wbytes, "max_abs_err": checks["quant_layer_block"],
+              "replaces": f"{REPLACES_Q}:465 quant_layer_block (_q_layer_call :424, "
+                          "_q_layer_kernel :359)", "card": smi})
+        profile_step(torch, smi, lambda: engines["vit"](images), forward_ms[("vit", None)],
+                     phase="profile_int8_forward")
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -1575,6 +2026,7 @@ def main() -> int:
     from peekvit_torch.ops.cuda import _build
     from peekvit_torch.ops.cuda import fused_attention as fa
     from peekvit_torch.ops.cuda import fused_attention_vjp as vjp
+    from peekvit_torch.ops.cuda import quant_blocks as tq
     from peekvit_torch.utils.flops_count import analytic_macs
 
     t_start = time.perf_counter()
@@ -1975,6 +2427,18 @@ def main() -> int:
                                      "compact": 0, "residual_train": 0,
                                      "rank": entry["launches"]}
     kernels += rank_entries
+    # ----------------------------------------------------- 18-20. int8 (w8a8)
+    quant_ins = quant_kernel_checks(torch, F, tq, check, checks, randn, ln_s, ln_b, w_qkv, b_qkv,
+                                    w_out, b_out, fc1_w, fc1_b, fc2_w, fc2_b, d, h, m, smi)
+    quant = quant_phases(torch, fa, dev, smi)
+    quant_entries = quant_timing(torch, F, tq, smi, checks, quant_ins, quant, d, h, m)
+    for entry in kernels:  # the int8 paths run the attention, plain and key-masked
+        entry["launches_by_path"]["int8"] = quant["counts"].get(entry["name"], 0)
+    for entry in quant_entries:
+        entry["launches_by_path"] = {"engine": 0, "split": 0, "train": 0, "residual": 0,
+                                     "compact": 0, "residual_train": 0, "rank": 0,
+                                     "int8": entry["launches"]}
+    kernels += quant_entries
     emit({"phase": "elapsed", "seconds": time.perf_counter() - t_start, "card": smi})
 
     emit({"kernels": kernels})

@@ -1,7 +1,8 @@
-"""Fused eval engines for the plain ViT, the ResidualViT family and RankViT
-(counterpart of peekvit_tpu/inference.py: ``prepare_engine_params``,
-``vit_forward_fused``, ``_encoder_stack``, ``residualvit_forward_fused``,
-``rankvit_forward_fused``, ``rankvit_forward_padded`` and
+"""Fused eval engines for the plain ViT, the ResidualViT family and RankViT,
+in bf16 and (ViT, RankViT) int8 (counterpart of peekvit_tpu/inference.py:
+``prepare_engine_params``, ``vit_forward_fused``, ``_encoder_stack``,
+``residualvit_forward_fused``, ``rankvit_forward_fused``,
+``rankvit_forward_padded``, the int8 forwards and calibration, and
 ``InferenceEngine``).
 
 For a plain ViT the engine reads the model's weights into a param tree in
@@ -27,6 +28,13 @@ keeps one set of shapes for every budget up to it
 tokens, the tail past the budget's count is zeroed and excluded as keys by
 the key-masked folded layer.
 
+``quantized=True`` (ViT and RankViT) serves int8 w8a8: the weights
+quantized per output column at build (``quantize_vit_params``, optionally
+after SmoothQuant and with static activation caps from calibration
+images), every layer the int8 layer of ``ops/cuda/quant_blocks.py``
+(``vit_forward_quant``, ``rankvit_forward_quant``,
+``rankvit_forward_padded_quant``).
+
 Usage::
 
     model = build_model("vit", args)            # on the card
@@ -38,6 +46,9 @@ Usage::
 
     engine = InferenceEngine(build_model("rankvit", args), max_budget=0.75)
     logits = engine(images, budget=0.5)
+
+    engine = InferenceEngine(model, quantized=True, calib_images=calib,
+                             calib_static_caps=True)
 """
 
 from __future__ import annotations
@@ -73,6 +84,19 @@ from peekvit_torch.ops.cuda.fused_attention import (
     masked_layer_block_ref,
     masked_mlp_block,
     masked_mlp_block_ref,
+)
+from peekvit_torch.ops.attention import attention_core
+from peekvit_torch.ops.cuda.quant_blocks import (
+    kernel_layout,
+    quant_attention_block,
+    quant_attention_block_ref,
+    quant_keymasked_layer_block,
+    quant_keymasked_layer_block_ref,
+    quant_layer_block,
+    quant_layer_block_ref,
+    quant_mlp_block,
+    quant_mlp_block_ref,
+    quantize_linear,
 )
 from peekvit_torch.ops.patch_embed import extract_patches as _patchify
 
@@ -131,6 +155,9 @@ def _layer_ids(enc):
 # is discontinuous, so the engine's gate arithmetic is fp32 on purpose
 # (JAX inference.py:159-172).
 _FP32_SUBTREES = frozenset({"residual_gate", "budget_token_gate"})
+# int8 dequant scales stay fp32 too (JAX FP_LEAVES, inference.py:160)
+_FP32_LEAVES = frozenset({"sqkv", "so", "s1", "s2"})
+_S8_LEAVES = ("wqkv_q", "wo_q", "w1_q", "w2_q")
 
 
 def _prepare_tree(tree: dict, compute_dtype, keep_fp32: bool = False) -> dict:
@@ -139,7 +166,8 @@ def _prepare_tree(tree: dict, compute_dtype, keep_fp32: bool = False) -> dict:
         if isinstance(t, dict):
             out[key] = _prepare_tree(t, compute_dtype, keep_fp32 or key in _FP32_SUBTREES)
             continue
-        if compute_dtype is not None and not keep_fp32 and t.dtype == torch.float32:
+        if (compute_dtype is not None and not keep_fp32 and key not in _FP32_LEAVES
+                and t.dtype == torch.float32):
             t = t.to(compute_dtype)
         if t.dim() == 1 and t.shape[0] > 1:
             t = t.reshape(1, -1)
@@ -151,8 +179,13 @@ def prepare_engine_params(params: dict, compute_dtype=None, fold_ln: bool = Fals
     """Engine-side param preparation, once at construction:
 
     - fp32 leaves are cast to ``compute_dtype``, except the gate subtrees
-      (``residual_gate``, ``budget_token_gate``), which stay fp32; 1-D
+      (``residual_gate``, ``budget_token_gate``) and the int8 dequant
+      scales (``sqkv``, ``so``, ``s1``, ``s2``), which stay fp32; 1-D
       vectors become (1, k);
+    - a quantized tree (``quantize_vit_params``) gets each int8 kernel as
+      the (in, out) view of an (out, in) copy (``kernel_layout``: the
+      layout the s8 GEMM reads), made here once; its LN affines are
+      neither folded nor stacked (the int8 layer applies them);
     - ``fold_ln=True`` (plain ViT and RankViT: a ResidualViT's row masks
       do not commute with a folded LN bias) folds every layer's LN affines into
       its qkv and fc1 weights in fp32 from the original weights
@@ -162,12 +195,17 @@ def prepare_engine_params(params: dict, compute_dtype=None, fold_ln: bool = Fals
       ``_embed_img_bias``.
     """
     out = _prepare_tree(params, compute_dtype)
+    enc = params.get("encoder", {})
+    ids = _layer_ids(enc)
+    quantized = any("wqkv_q" in enc[f"layers_{i}"] for i in ids)
+    for i in ids if quantized else ():
+        lp = out["encoder"][f"layers_{i}"]
+        for key in _S8_LEAVES:
+            lp[key] = kernel_layout(lp[key])
     if not (fold_ln and "encoder" in params):
         return out
     cdt = compute_dtype or torch.float32
-    enc = params["encoder"]
-    ids = _layer_ids(enc)
-    for i in ids:
+    for i in ids if not quantized else ():
         sp = enc[f"layers_{i}"]
         at, mlp = sp["self_attention"], sp["mlp"]
         wq, bq = fold_ln_into_weights(sp["ln_1"]["scale"], sp["ln_1"]["bias"],
@@ -176,7 +214,7 @@ def prepare_engine_params(params: dict, compute_dtype=None, fold_ln: bool = Fals
                                       mlp["fc1_kernel"], mlp["fc1_bias"])
         out["encoder"][f"layers_{i}"]["_folded_qkv"] = {"kernel": wq.to(cdt), "bias": bq.to(cdt)}
         out["encoder"][f"layers_{i}"]["_folded_fc1"] = {"kernel": w1.to(cdt), "bias": b1.to(cdt)}
-    if ids:
+    if ids and not quantized:
         layers = [out["encoder"][f"layers_{i}"] for i in ids]
 
         def stack(get):
@@ -517,18 +555,49 @@ def _top_by_norm(img, k, valid=None):
     return torch.sort(norms, dim=1, descending=True, stable=True).indices[:, :k]
 
 
-def _rank_forward(params, images, budget, blocks, *, patch_size: int, num_heads: int,
-                  rankvit_layers: tuple, max_budget: Optional[float] = None,
-                  num_class_tokens: int = 1, ln_eps: float = 1e-5, compute_dtype=torch.bfloat16,
-                  kept_idx: Optional[dict] = None, kept_out: Optional[dict] = None):
+def _rank_layers(blocks, num_heads: int, ln_eps: float, compute_dtype):
+    """A RankViT layer over the bf16 blocks (fused_layer_block_folded,
+    fused_attention_block, fused_mlp_block, keymasked_layer_block_folded or
+    their plain twins) for :func:`_rank_forward`."""
     layer_block, attention_block, mlp_block, keymasked_block = blocks
+
+    def cast(t):
+        return t.to(compute_dtype)
+
+    def run(tokens, lp, li, key_mask, merged):
+        if key_mask is not None:
+            return keymasked_block(tokens, key_mask, *_folded_weights(lp, cast), num_heads, ln_eps)
+        if merged:
+            return layer_block(tokens, *_folded_weights(lp, cast), num_heads, ln_eps)
+        at, mlp = lp["self_attention"], lp["mlp"]
+        tokens = attention_block(
+            tokens, cast(lp["ln_1"]["scale"]), cast(lp["ln_1"]["bias"]),
+            cast(at["in_proj_kernel"]), cast(at["in_proj_bias"]),
+            cast(at["out_proj_kernel"]), cast(at["out_proj_bias"]), num_heads, ln_eps)
+        return mlp_block(
+            tokens, cast(lp["ln_2"]["scale"]), cast(lp["ln_2"]["bias"]),
+            cast(mlp["fc1_kernel"]), cast(mlp["fc1_bias"]),
+            cast(mlp["fc2_kernel"]), cast(mlp["fc2_bias"]), ln_eps)
+
+    return run
+
+
+def _rank_forward(params, images, budget, run_layer, *, patch_size: int, rankvit_layers: tuple,
+                  max_budget: Optional[float] = None, num_class_tokens: int = 1,
+                  ln_eps: float = 1e-5, compute_dtype=torch.bfloat16,
+                  kept_idx: Optional[dict] = None, kept_out: Optional[dict] = None,
+                  fold_embed: bool = True):
+    """The RankViT schedule, ranking and gather around ``run_layer(tokens,
+    layer params, layer position, key mask or None, merged)``, the bf16
+    (:func:`_rank_layers`) or the int8 (:func:`_quant_layers`)
+    layer. ``fold_embed=False`` embeds unfolded (the JAX int8 forwards)."""
 
     def cast(t):
         return t.to(compute_dtype)
 
     c = num_class_tokens
     enc = params["encoder"]
-    if "_embed_special" in params:
+    if fold_embed and "_embed_special" in params:
         tokens, d = _embed_posfolded(params, images, patch_size, cast)
     else:
         tokens, d = _embed(params, images, patch_size, c, 0, cast)
@@ -538,7 +607,7 @@ def _rank_forward(params, images, budget, blocks, *, patch_size: int, num_heads:
     schedule = rank_schedule(tokens.shape[1] - c, tuple(i for i in ids if i in rankvit_layers),
                              budget, max_budget)
     valid = key_mask = None
-    for i in ids:
+    for li, i in enumerate(ids):
         if i in schedule:
             keep, n_valid = schedule[i]
             img = tokens[:, c:]
@@ -560,22 +629,9 @@ def _rank_forward(params, images, budget, blocks, *, patch_size: int, num_heads:
                 key_mask = torch.cat([torch.ones(c, dtype=compute_dtype, device=dev), valid])
                 key_mask = key_mask.expand(b, 1, c + keep).contiguous()
             tokens = torch.cat([tokens[:, :c], img], dim=1)
-        lp = enc[f"layers_{i}"]
-        if key_mask is not None:
-            tokens = keymasked_block(tokens, key_mask, *_folded_weights(lp, cast), num_heads,
-                                     ln_eps)
-        elif max_budget is not None or tokens.shape[1] >= _MERGED_MIN_TOKENS:
-            tokens = layer_block(tokens, *_folded_weights(lp, cast), num_heads, ln_eps)
-        else:  # the split sublayers below 128 tokens (JAX inference.py:1196-1210)
-            at, mlp = lp["self_attention"], lp["mlp"]
-            tokens = attention_block(
-                tokens, cast(lp["ln_1"]["scale"]), cast(lp["ln_1"]["bias"]),
-                cast(at["in_proj_kernel"]), cast(at["in_proj_bias"]),
-                cast(at["out_proj_kernel"]), cast(at["out_proj_bias"]), num_heads, ln_eps)
-            tokens = mlp_block(
-                tokens, cast(lp["ln_2"]["scale"]), cast(lp["ln_2"]["bias"]),
-                cast(mlp["fc1_kernel"]), cast(mlp["fc1_bias"]),
-                cast(mlp["fc2_kernel"]), cast(mlp["fc2_bias"]), ln_eps)
+        # the split sublayers below 128 tokens (JAX inference.py:1196-1210)
+        merged = max_budget is not None or tokens.shape[1] >= _MERGED_MIN_TOKENS
+        tokens = run_layer(tokens, enc[f"layers_{i}"], li, key_mask, merged)
     return _classify(params, tokens, c, cast, ln_eps)
 
 
@@ -598,8 +654,9 @@ def rankvit_forward_fused(params, images, *, budget: float, patch_size: int, num
     residual, or two-pass LN and a bf16 residual). ``kept_out``: if a
     dict is given, each ranked layer's (B, keep) gathered indices are
     stored in it under the layer id."""
-    return _rank_forward(params, images, budget, _RANK_KERNELS, patch_size=patch_size,
-                         num_heads=num_heads, rankvit_layers=rankvit_layers,
+    return _rank_forward(params, images, budget,
+                         _rank_layers(_RANK_KERNELS, num_heads, ln_eps, compute_dtype),
+                         patch_size=patch_size, rankvit_layers=rankvit_layers,
                          num_class_tokens=num_class_tokens, ln_eps=ln_eps,
                          compute_dtype=compute_dtype, kept_out=kept_out)
 
@@ -614,8 +671,9 @@ def rankvit_forward_plain(params, images, *, budget: float, patch_size: int, num
     ``kept_idx`` ({layer id: (B, keep) indices}, a ``kept_out`` of the
     engine's forward) replaces the ranking, so that both gather the same
     tokens where a bf16 norm tie at the keep boundary would pick others."""
-    return _rank_forward(params, images, budget, _RANK_PLAIN, patch_size=patch_size,
-                         num_heads=num_heads, rankvit_layers=rankvit_layers,
+    return _rank_forward(params, images, budget,
+                         _rank_layers(_RANK_PLAIN, num_heads, ln_eps, compute_dtype),
+                         patch_size=patch_size, rankvit_layers=rankvit_layers,
                          num_class_tokens=num_class_tokens, ln_eps=ln_eps,
                          compute_dtype=compute_dtype, kept_idx=kept_idx, kept_out=kept_out)
 
@@ -640,8 +698,9 @@ def rankvit_forward_padded(params, images, budget: float, *, max_budget: float,
     ``fused_layer_block_folded``. Invalid rows are not re-zeroed after a
     layer; the key mask keeps them inert. ``kept_out`` as in
     :func:`rankvit_forward_fused`, the indices (B, keep_max)."""
-    return _rank_forward(params, images, budget, _RANK_KERNELS, patch_size=patch_size,
-                         num_heads=num_heads, rankvit_layers=rankvit_layers,
+    return _rank_forward(params, images, budget,
+                         _rank_layers(_RANK_KERNELS, num_heads, ln_eps, compute_dtype),
+                         patch_size=patch_size, rankvit_layers=rankvit_layers,
                          max_budget=max_budget, num_class_tokens=num_class_tokens,
                          ln_eps=ln_eps, compute_dtype=compute_dtype, kept_out=kept_out)
 
@@ -653,11 +712,279 @@ def rankvit_forward_padded_plain(params, images, budget: float, *, max_budget: f
                                  kept_out: Optional[dict] = None) -> torch.Tensor:
     """:func:`rankvit_forward_padded` on the plain versions, ``kept_idx``
     as in :func:`rankvit_forward_plain`."""
-    return _rank_forward(params, images, budget, _RANK_PLAIN, patch_size=patch_size,
-                         num_heads=num_heads, rankvit_layers=rankvit_layers,
+    return _rank_forward(params, images, budget,
+                         _rank_layers(_RANK_PLAIN, num_heads, ln_eps, compute_dtype),
+                         patch_size=patch_size, rankvit_layers=rankvit_layers,
                          max_budget=max_budget, num_class_tokens=num_class_tokens,
                          ln_eps=ln_eps, compute_dtype=compute_dtype, kept_idx=kept_idx,
                          kept_out=kept_out)
+
+
+# ------------------------------------------------------------ int8 (w8a8)
+
+
+def quantize_vit_params(params: dict) -> dict:
+    """Every layer's four linear weights to int8 with per-output-column
+    fp32 scales (``quantize_linear``); the LNs, biases, embed and head stay
+    as they are (JAX ``quantize_vit_params``, inference.py:688). The int8
+    kernels keep JAX's (in, out) layout, so the tree compares 1:1 with
+    JAX's; ``prepare_engine_params`` makes the kernel layout."""
+    q = {"conv_proj": params["conv_proj"], "class_tokens": params["class_tokens"],
+         "head": params["head"], "encoder": {"pos_embedding": params["encoder"]["pos_embedding"],
+                                             "ln": params["encoder"]["ln"]}}
+    if "register_tokens" in params:
+        q["register_tokens"] = params["register_tokens"]
+    for name, lp in params["encoder"].items():
+        if not name.startswith("layers_"):
+            continue
+        at = lp["self_attention"]
+        wqkv_q, sqkv = quantize_linear(at["in_proj_kernel"])
+        wo_q, so = quantize_linear(at["out_proj_kernel"])
+        w1_q, s1 = quantize_linear(lp["mlp"]["fc1_kernel"])
+        w2_q, s2 = quantize_linear(lp["mlp"]["fc2_kernel"])
+        q["encoder"][name] = {
+            "ln_1": lp["ln_1"], "ln_2": lp["ln_2"],
+            "wqkv_q": wqkv_q, "sqkv": sqkv, "bqkv": at["in_proj_bias"],
+            "wo_q": wo_q, "so": so, "bo": at["out_proj_bias"],
+            "w1_q": w1_q, "s1": s1, "b1": lp["mlp"]["fc1_bias"],
+            "w2_q": w2_q, "s2": s2, "b2": lp["mlp"]["fc2_bias"],
+        }
+    return q
+
+
+def _calibration_layers(params, images, *, patch_size, num_heads, num_class_tokens,
+                        num_registers, ln_eps):
+    """The fp32 eager forward the JAX calibrations mirror (two-pass LN,
+    linen's attention core, tanh-gelu): yields each layer's params and its
+    four quantized sites' inputs (ln1, attn, ln2, h)."""
+
+    def cast(t):
+        return t.float()
+
+    tokens, _ = _embed(params, images, patch_size, num_class_tokens, num_registers, cast)
+    enc = params["encoder"]
+    tokens = tokens + cast(enc["pos_embedding"])
+    for i in _layer_ids(enc):
+        lp = enc[f"layers_{i}"]
+        at, mlp = lp["self_attention"], lp["mlp"]
+        ln1 = _layer_norm(tokens, cast(lp["ln_1"]["scale"]), cast(lp["ln_1"]["bias"]), ln_eps)
+        qkv = ln1 @ cast(at["in_proj_kernel"]) + cast(at["in_proj_bias"])
+        q, k, v = qkv.chunk(3, dim=-1)
+        attn = attention_core(q, k, v, num_heads)
+        tokens = tokens + attn @ cast(at["out_proj_kernel"]) + cast(at["out_proj_bias"])
+        ln2 = _layer_norm(tokens, cast(lp["ln_2"]["scale"]), cast(lp["ln_2"]["bias"]), ln_eps)
+        h = F.gelu(ln2 @ cast(mlp["fc1_kernel"]) + cast(mlp["fc1_bias"]), approximate="tanh")
+        tokens = tokens + h @ cast(mlp["fc2_kernel"]) + cast(mlp["fc2_bias"])
+        yield lp, (ln1, attn, ln2, h)
+
+
+def _percentile(x: torch.Tensor, q: float) -> float:
+    """numpy's (and jnp's) linear-interpolation percentile of |x|, on the
+    host: torch.quantile refuses inputs above 2^24 elements."""
+    return float(np.percentile(x.abs().float().cpu().numpy(), q))
+
+
+def collect_activation_caps(params, images, *, patch_size: int, num_heads: int,
+                            num_class_tokens: int = 1, num_registers: int = 0,
+                            ln_eps: float = 1e-5, percentile: float = 99.9) -> tuple:
+    """Static activation caps for the w8a8 engines (JAX
+    ``collect_activation_caps``, inference.py:716): the ``percentile`` of
+    |activation| at each layer's four quantized sites over a fp32 forward
+    of ``images``, as ((attn_ln, attn_out), (mlp_ln, mlp_h)) per layer."""
+    with torch.no_grad():
+        return tuple(((_percentile(ln1, percentile), _percentile(attn, percentile)),
+                      (_percentile(ln2, percentile), _percentile(h, percentile)))
+                     for _, (ln1, attn, ln2, h) in _calibration_layers(
+                         params, images, patch_size=patch_size, num_heads=num_heads,
+                         num_class_tokens=num_class_tokens, num_registers=num_registers,
+                         ln_eps=ln_eps))
+
+
+def _smoothing_vec(act: torch.Tensor, w: torch.Tensor, alpha: float = 0.5) -> torch.Tensor:
+    """s_j = max|act_j|^alpha / max|W_j,:|^(1 - alpha), clipped to [1e-2,
+    1e4], fp32 (JAX ``_smoothing_vec``, inference.py:1002)."""
+    a = act.float().reshape(-1, act.shape[-1]).abs().amax(0)
+    wmax = w.float().abs().amax(1)
+    s = a.clamp(min=1e-5) ** alpha / wmax.clamp(min=1e-5) ** (1.0 - alpha)
+    return s.clamp(1e-2, 1e4)
+
+
+def compute_smoothing_vectors(params, images, *, patch_size: int, num_heads: int,
+                              num_class_tokens: int = 1, num_registers: int = 0,
+                              ln_eps: float = 1e-5, alpha: float = 0.5) -> list:
+    """SmoothQuant per-channel equalization vectors for each layer's two
+    LN-output sites, [(s1, s2), ...] (JAX ``compute_smoothing_vectors``,
+    inference.py:957)."""
+    with torch.no_grad():
+        return [(_smoothing_vec(ln1, lp["self_attention"]["in_proj_kernel"], alpha),
+                 _smoothing_vec(ln2, lp["mlp"]["fc1_kernel"], alpha))
+                for lp, (ln1, _, ln2, _) in _calibration_layers(
+                    params, images, patch_size=patch_size, num_heads=num_heads,
+                    num_class_tokens=num_class_tokens, num_registers=num_registers,
+                    ln_eps=ln_eps)]
+
+
+def smooth_vit_params(params: dict, smoothing) -> dict:
+    """A fp32 copy of ``params`` with the equalization baked in: each LN's
+    scale and bias divided by s, the next weight's rows multiplied by s
+    (exact in real arithmetic; JAX ``smooth_vit_params``, inference.py:1011)."""
+    params = tree_map(lambda t: t.float().clone(), params)
+    enc = params["encoder"]
+    for li, i in enumerate(_layer_ids(enc)):
+        lp = enc[f"layers_{i}"]
+        s1, s2 = (torch.as_tensor(s, dtype=torch.float32, device=lp["ln_1"]["scale"].device)
+                  for s in smoothing[li])
+        lp["ln_1"]["scale"] /= s1
+        lp["ln_1"]["bias"] /= s1
+        lp["self_attention"]["in_proj_kernel"] *= s1[:, None]
+        lp["ln_2"]["scale"] /= s2
+        lp["ln_2"]["bias"] /= s2
+        lp["mlp"]["fc1_kernel"] *= s2[:, None]
+    return params
+
+
+def _quant_weights(lp, cast):
+    """A quantized layer's 16 arguments in the int8 blocks' order."""
+    return (cast(lp["ln_1"]["scale"]), cast(lp["ln_1"]["bias"]), lp["wqkv_q"], lp["sqkv"],
+            cast(lp["bqkv"]), lp["wo_q"], lp["so"], cast(lp["bo"]), cast(lp["ln_2"]["scale"]),
+            cast(lp["ln_2"]["bias"]), lp["w1_q"], lp["s1"], cast(lp["b1"]), lp["w2_q"],
+            lp["s2"], cast(lp["b2"]))
+
+
+_QUANT_KERNELS = (quant_layer_block, quant_attention_block, quant_mlp_block,
+                  quant_keymasked_layer_block)
+_QUANT_PLAIN = (quant_layer_block_ref, quant_attention_block_ref, quant_mlp_block_ref,
+                quant_keymasked_layer_block_ref)
+
+
+def _quant_layers(blocks, num_heads: int, ln_eps: float, compute_dtype, caps):
+    """The int8 layer for :func:`_rank_forward` (and the ViT stack): the
+    merged layer (key-masked under a key mask), else the split sublayers;
+    ``caps`` one static pair of pairs per layer, or None."""
+    layer_block, attention_block, mlp_block, keymasked_block = blocks
+
+    def cast(t):
+        return t.to(compute_dtype)
+
+    def run(tokens, lp, li, key_mask, merged):
+        w = _quant_weights(lp, cast)
+        lcaps = caps[li] if caps else None
+        if key_mask is not None:
+            return keymasked_block(tokens, key_mask, *w, num_heads, ln_eps, lcaps)
+        if merged:
+            return layer_block(tokens, *w, num_heads, ln_eps, lcaps)
+        tokens = attention_block(tokens, *w[:8], num_heads, ln_eps, lcaps[0] if lcaps else None)
+        return mlp_block(tokens, *w[8:], ln_eps, lcaps[1] if lcaps else None)
+
+    return run
+
+
+def _vit_quant(blocks, params, images, *, patch_size, num_heads, num_class_tokens,
+               num_registers, ln_eps, compute_dtype, caps):
+    run = _quant_layers(blocks, num_heads, ln_eps, compute_dtype, caps)
+
+    def encoder(enc, tokens, cast):
+        for li, i in enumerate(_layer_ids(enc)):
+            tokens = run(tokens, enc[f"layers_{i}"], li, None, True)
+        return tokens
+
+    return _vit_forward(params, images, encoder, patch_size=patch_size,
+                        num_class_tokens=num_class_tokens, num_registers=num_registers,
+                        ln_eps=ln_eps, compute_dtype=compute_dtype)
+
+
+def vit_forward_quant(qparams, images, *, patch_size: int, num_heads: int,
+                      num_class_tokens: int = 1, num_registers: int = 0, ln_eps: float = 1e-5,
+                      compute_dtype=torch.bfloat16, caps=None) -> torch.Tensor:
+    """int8 (w8a8) eval forward of a plain ViT (JAX ``vit_forward_quant``,
+    inference.py:1029) from ``prepare_engine_params(quantize_vit_params(
+    ...), fold_ln=True)``: the folded embed, then ``quant_layer_block`` on
+    every layer (the port has no VMEM guard: the merged layer at every
+    width), ``caps`` per layer or None (dynamic scales). Returns fp32
+    logits."""
+    return _vit_quant(_QUANT_KERNELS, qparams, images, patch_size=patch_size,
+                      num_heads=num_heads, num_class_tokens=num_class_tokens,
+                      num_registers=num_registers, ln_eps=ln_eps, compute_dtype=compute_dtype,
+                      caps=caps)
+
+
+def vit_forward_quant_plain(qparams, images, *, patch_size: int, num_heads: int,
+                            num_class_tokens: int = 1, num_registers: int = 0,
+                            ln_eps: float = 1e-5, compute_dtype=torch.float32,
+                            caps=None) -> torch.Tensor:
+    """:func:`vit_forward_quant` on the kernels' plain versions, whatever
+    the device."""
+    return _vit_quant(_QUANT_PLAIN, qparams, images, patch_size=patch_size, num_heads=num_heads,
+                      num_class_tokens=num_class_tokens, num_registers=num_registers,
+                      ln_eps=ln_eps, compute_dtype=compute_dtype, caps=caps)
+
+
+def _rank_quant(blocks, qparams, images, budget, *, num_heads, ln_eps, compute_dtype, caps,
+                **kw):
+    return _rank_forward(qparams, images, budget,
+                         _quant_layers(blocks, num_heads, ln_eps, compute_dtype, caps),
+                         ln_eps=ln_eps, compute_dtype=compute_dtype, fold_embed=False, **kw)
+
+
+def rankvit_forward_quant(qparams, images, *, budget: float, patch_size: int, num_heads: int,
+                          rankvit_layers: tuple, num_class_tokens: int = 1, ln_eps: float = 1e-5,
+                          compute_dtype=torch.bfloat16, caps=None,
+                          kept_out: Optional[dict] = None) -> torch.Tensor:
+    """int8 RankViT with the exact physical drop (JAX
+    ``rankvit_forward_quant``, inference.py:1393): ``rankvit_forward_fused``'s
+    schedule, ranking and gather, ``quant_layer_block`` from 128 tokens up
+    and ``quant_attention_block`` + ``quant_mlp_block`` below. It embeds
+    UNFOLDED (the conv bias, then the pos-embedding added in the compute
+    dtype), as the JAX int8 RankViT forwards do: in bf16 that rounds
+    otherwise than the folded embed."""
+    return _rank_quant(_QUANT_KERNELS, qparams, images, budget, num_heads=num_heads,
+                       ln_eps=ln_eps, compute_dtype=compute_dtype, caps=caps,
+                       patch_size=patch_size, rankvit_layers=rankvit_layers,
+                       num_class_tokens=num_class_tokens, kept_out=kept_out)
+
+
+def rankvit_forward_quant_plain(qparams, images, *, budget: float, patch_size: int,
+                                num_heads: int, rankvit_layers: tuple, num_class_tokens: int = 1,
+                                ln_eps: float = 1e-5, compute_dtype=torch.float32, caps=None,
+                                kept_idx: Optional[dict] = None,
+                                kept_out: Optional[dict] = None) -> torch.Tensor:
+    """:func:`rankvit_forward_quant` on the plain versions, ``kept_idx`` as
+    in :func:`rankvit_forward_plain`."""
+    return _rank_quant(_QUANT_PLAIN, qparams, images, budget, num_heads=num_heads,
+                       ln_eps=ln_eps, compute_dtype=compute_dtype, caps=caps,
+                       patch_size=patch_size, rankvit_layers=rankvit_layers,
+                       num_class_tokens=num_class_tokens, kept_idx=kept_idx, kept_out=kept_out)
+
+
+def rankvit_forward_padded_quant(qparams, images, budget: float, *, max_budget: float,
+                                 patch_size: int, num_heads: int, rankvit_layers: tuple,
+                                 num_class_tokens: int = 1, ln_eps: float = 1e-5,
+                                 compute_dtype=torch.bfloat16, caps=None,
+                                 kept_out: Optional[dict] = None) -> torch.Tensor:
+    """int8 RankViT with the single-shape padded drop (JAX
+    ``rankvit_forward_padded_quant``, inference.py:1313):
+    ``rankvit_forward_padded``'s schedule, every layer the merged int8
+    layer, ``quant_keymasked_layer_block`` from the first ranked layer on;
+    the unfolded embed of :func:`rankvit_forward_quant`."""
+    return _rank_quant(_QUANT_KERNELS, qparams, images, budget, num_heads=num_heads,
+                       ln_eps=ln_eps, compute_dtype=compute_dtype, caps=caps,
+                       patch_size=patch_size, rankvit_layers=rankvit_layers,
+                       max_budget=max_budget, num_class_tokens=num_class_tokens,
+                       kept_out=kept_out)
+
+
+def rankvit_forward_padded_quant_plain(qparams, images, budget: float, *, max_budget: float,
+                                       patch_size: int, num_heads: int, rankvit_layers: tuple,
+                                       num_class_tokens: int = 1, ln_eps: float = 1e-5,
+                                       compute_dtype=torch.float32, caps=None,
+                                       kept_idx: Optional[dict] = None,
+                                       kept_out: Optional[dict] = None) -> torch.Tensor:
+    """:func:`rankvit_forward_padded_quant` on the plain versions."""
+    return _rank_quant(_QUANT_PLAIN, qparams, images, budget, num_heads=num_heads,
+                       ln_eps=ln_eps, compute_dtype=compute_dtype, caps=caps,
+                       patch_size=patch_size, rankvit_layers=rankvit_layers,
+                       max_budget=max_budget, num_class_tokens=num_class_tokens,
+                       kept_idx=kept_idx, kept_out=kept_out)
 
 
 class InferenceEngine:
@@ -681,10 +1008,21 @@ class InferenceEngine:
     default the exact physical drop (``rankvit_forward_fused``: the shapes
     shrink with the budget); ``max_budget=`` the padded drop
     (``rankvit_forward_padded``: one set of shapes for every budget up to
-    ``max_budget``; a budget above it raises ``ValueError``)."""
+    ``max_budget``; a budget above it raises ``ValueError``).
+
+    ``quantized=True`` (ViT and RankViT) serves int8 w8a8
+    (``vit_forward_quant``, ``rankvit_forward_quant``, with ``max_budget=``
+    ``rankvit_forward_padded_quant``): weights quantized per output
+    column at build, activations per row. ``calib_images=`` (NHWC)
+    calibrates: SmoothQuant vectors baked into the weights before they are
+    quantized, and with ``calib_static_caps=True`` static activation caps
+    (the ``calib_percentile`` of |activation|) from the smoothed model,
+    the JAX engine's recipe (JAX inference.py:2845-2893)."""
 
     def __init__(self, model, compute_dtype=torch.bfloat16, device="cuda",
                  quantized: bool = False, max_budget: Optional[float] = None,
+                 calib_images: Any = None, calib_percentile: float = 99.9,
+                 calib_static_caps: bool = False,
                  mesh: Any = None, compact: Any = None, compact_slack: float = 0.0,
                  ee_outputs: bool = False, recon_outputs: bool = False, routed: Any = None):
         # RankViT first: it is no VisionTransformer, and a plain-ViT path
@@ -713,8 +1051,12 @@ class InferenceEngine:
                     "variants (serve those dense or data-parallel)")
         if ee_outputs and not isinstance(model, EEResidualVisionTransformer):
             raise NotImplementedError("ee_outputs=True needs an EEResidualVisionTransformer")
+        if quantized and residual:
+            raise NotImplementedError(
+                "quantized=True on the ResidualViT family is not ported yet: ROADMAP.md port "
+                "queue A item 6 (A6, the ResidualViT int8 engine: its own calibration, tree "
+                "and masked int8 layer)")
         not_ported = {
-            "quantized=": (quantized, "item 6 (int8)"),
             "mesh=": (mesh is not None, "item 9 (parallel and serving)"),
             "recon_outputs=": (recon_outputs, "item 7 (EncDec / MAE)"),
             "routed=": (routed is not None, "item 7 (MoE)"),
@@ -738,7 +1080,11 @@ class InferenceEngine:
         self._module = model
         self._residual = residual
         self._rank = rank
+        self._quantized = bool(quantized)
+        self.caps = None
         params = tree_map(lambda t: t.to(self.device), module_params(model))
+        if quantized:
+            params = self._quantize(params, calib_images, calib_percentile, calib_static_caps)
         if rank:
             self._forward = dict(
                 patch_size=model.patch_size, num_heads=model.num_heads,
@@ -766,6 +1112,26 @@ class InferenceEngine:
         self._compact_caps_by_budget: dict = {}  # compact=True: budget -> capacities
         self._compact_caps = (None if compact is None or self._compact_auto
                               else self._compact_caps_for(compact))
+
+    def _quantize(self, params, calib_images, percentile, static_caps):
+        """The int8 tree of ``params``, calibrated on ``calib_images`` when
+        given (on the engine's device, in fp32); sets ``self.caps``."""
+        module = self._module
+        if calib_images is not None:
+            if isinstance(calib_images, np.ndarray):
+                calib_images = torch.from_numpy(calib_images)
+            calib = calib_images.to(self.device, torch.float32)
+            geom = dict(patch_size=module.patch_size, num_heads=module.num_heads,
+                        num_class_tokens=module.num_class_tokens,
+                        num_registers=module.num_registers, ln_eps=module.ln_eps)
+            params = smooth_vit_params(params, compute_smoothing_vectors(params, calib, **geom))
+            if static_caps:
+                # static caps skip the per-row absmax but clip activations
+                # the calibration set never saw: opt-in, as in JAX
+                self.caps = collect_activation_caps(params, calib, percentile=percentile,
+                                                    **geom)
+        with torch.no_grad():
+            return quantize_vit_params(params)
 
     def _compact_caps_for(self, capacity):
         """Per-layer image-token capacities for ``compact`` mode:
@@ -807,17 +1173,21 @@ class InferenceEngine:
             images = torch.from_numpy(images)
         images = images.to(self.device, torch.float32)
         with torch.inference_mode():
+            q = dict(caps=self.caps) if self._quantized else {}
             if self._rank:
                 b = 1.0 if budget is None else float(budget)
                 if self._max_budget is None:
-                    return rankvit_forward_fused(self.params, images, budget=b, **self._forward)
+                    fwd = rankvit_forward_quant if self._quantized else rankvit_forward_fused
+                    return fwd(self.params, images, budget=b, **self._forward, **q)
                 if b > self._max_budget + 1e-9:
                     raise ValueError(f"budget {b} exceeds the engine's static max_budget "
                                      f"{self._max_budget}")
-                return rankvit_forward_padded(self.params, images, b,
-                                              max_budget=self._max_budget, **self._forward)
+                fwd = rankvit_forward_padded_quant if self._quantized else rankvit_forward_padded
+                return fwd(self.params, images, b, max_budget=self._max_budget, **self._forward,
+                           **q)
             if not self._residual:
-                return vit_forward_fused(self.params, images, **self._forward)
+                fwd = vit_forward_quant if self._quantized else vit_forward_fused
+                return fwd(self.params, images, **self._forward, **q)
             b = 1.0 if budget is None else float(budget)
             return residualvit_forward_fused(self.params, images, b,
                                              compact_caps=self.compact_caps(b), **self._forward)

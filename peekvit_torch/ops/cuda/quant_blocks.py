@@ -1,0 +1,404 @@
+"""The int8 (w8a8) layer's kernels: wrappers, plain versions and the layer
+compositions (counterpart of peekvit_tpu/ops/pallas/quant_blocks.py).
+
+The Pallas int8 layer (``_q_layer_kernel``) keeps a layer's int8 weights
+resident in TPU VMEM and quantizes its activations inside the kernel. On
+Hopper its contract becomes nine launches per layer over two hand-written
+CUDA kernels (``peekvit_torch/csrc``) and the ported attention::
+
+    quant_rows(LN1) -> gemm_s8(+bias -> bf16 qkv) -> attn_scores_pv
+    -> quant_rows -> gemm_s8(+bias+x -> fp32 y) -> quant_rows(LN2)
+    -> gemm_s8(+bias, tanh-gelu -> fp32 h) -> quant_rows
+    -> gemm_s8(+bias+y -> x.dtype)
+
+``quant_rows`` is ``_quant_rows`` (per-row dynamic absmax / 127 with a
+1e-12 floor, or a static calibrated cap with saturation; codes
+clip(round(v / s), -127, 127), true division, round half to even),
+optionally after the one-pass LN with its affine applied (``_ln_f32``).
+``gemm_s8_epilogue`` is ``_qmatmul``: s8 x s8 summed exactly in s32,
+dequantized as float(acc) * s_row * s_col, then + bias and the epilogue.
+The rounding points are the Pallas bodies': qkv and the attention output
+are bf16 even under an fp32 compute dtype, the merged layer's mid
+residual y and the gelu output h stay fp32, the output is in x's dtype.
+
+The GEMM kernel reads W as (out, in) (the 8-bit mma operand must be
+K-contiguous per output column). The public functions keep JAX's (in,
+out) weights; on the card each int8 weight must be the (in, out) view of
+an (out, in) copy, which :func:`kernel_layout` makes once at engine build
+(``prepare_engine_params``), so no forward transposes a weight.
+
+Each kernel has a plain PyTorch version here (``*_ref``). The plain GEMM
+multiplies the codes in float64, exact below 2^53 (an fp32 product is
+not: 127^2 * 3072 > 2^24), on the CPU and on the card alike.
+
+Dispatch is by device only, as in ``fused_attention.py``: a wrapper uses
+the plain version for CPU tensors; for CUDA tensors it launches its
+kernel or raises. Launches are counted in ``fused_attention.LAUNCHES``
+by kernel and variant (``quant_rows[.ln].{bf16,f32}[.static]``,
+``gemm_s8_epilogue.<epilogue>``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from peekvit_torch.ops.cuda import _build
+from peekvit_torch.ops.cuda.fused_attention import (
+    _check_bf16,
+    _launched,
+    _on_cpu,
+    _require,
+    _stream,
+    attn_scores_pv,
+    attn_scores_pv_ref,
+)
+
+_EPILOGUES = {"bias": 0, "gelu_f32": 1, "residual_f32": 2, "residual": 3}
+MAX_ROW_WIDTH = 3072  # quant_rows keeps a row in one warp's registers
+
+
+def _div(t: torch.Tensor, c) -> torch.Tensor:
+    """t / c in true fp32 division on every device (torch divides a CUDA
+    tensor by a Python scalar through the scalar's reciprocal)."""
+    return t / torch.tensor(c, dtype=torch.float32, device=t.device)
+
+
+def quantize_linear(w: torch.Tensor):
+    """(in, out) weights -> (int8 weights (in, out), (1, out) fp32 scales):
+    symmetric per output column, absmax / 127 with a 1e-12 floor, codes
+    rounded half to even (``quantize_linear``, quant_blocks.py:33). Done
+    once at engine build, not a kernel."""
+    w = w.float()
+    scale = torch.clamp(_div(w.abs().amax(0, keepdim=True), 127.0), min=1e-12)
+    return torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8), scale
+
+
+def kernel_layout(wq: torch.Tensor) -> torch.Tensor:
+    """The same (in, out) int8 weight as a view of an (out, in) contiguous
+    copy: the layout :func:`gemm_s8_epilogue` reads on the card."""
+    return wq.t().contiguous().t()
+
+
+def static_scale(cap: float) -> float:
+    """The static activation scale max(cap, 1e-12) / 127 in fp32 (Pallas
+    ``_quant_rows`` with a cap)."""
+    return float(np.maximum(np.float32(cap), np.float32(1e-12)) / np.float32(127.0))
+
+
+# ----------------------------------------------------------------- quant_rows
+
+
+def _check_ln(ln_scale, ln_bias):
+    _require((ln_scale is None) == (ln_bias is None), "quant_rows: the LN scale and bias "
+             "come together")
+
+
+def ln_f32_ref(x, ln_scale, ln_bias, eps):
+    """One-pass LN in fp32 with the affine applied (Pallas ``_ln_f32``):
+    var = max(E[x^2] - mu^2, 0), the means as sums over the row width."""
+    xf = x.float()
+    d = xf.shape[-1]
+    mu = _div(xf.sum(-1, keepdim=True), d)
+    ms = _div((xf * xf).sum(-1, keepdim=True), d)
+    var = torch.clamp(ms - mu * mu, min=0.0)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return out * ln_scale.float().reshape(-1) + ln_bias.float().reshape(-1)
+
+
+def quant_rows_ref(x: torch.Tensor, cap=None, ln_scale=None, ln_bias=None, eps: float = 1e-5):
+    """Plain version of :func:`quant_rows`."""
+    _check_ln(ln_scale, ln_bias)
+    v = x.float() if ln_scale is None else ln_f32_ref(x, ln_scale, ln_bias, eps)
+    if cap is not None:
+        s = static_scale(cap)
+        q = _div(v, s)
+    else:
+        s = torch.clamp(_div(v.abs().amax(-1, keepdim=True), 127.0), min=1e-12)
+        q = v / s
+    return torch.clamp(torch.round(q), -127, 127).to(torch.int8), s
+
+
+def quant_rows(x: torch.Tensor, cap=None, ln_scale=None, ln_bias=None, eps: float = 1e-5):
+    """Per-row symmetric int8 quantization of x (R, D), bf16 or fp32, after
+    the one-pass LN with affine when ``ln_scale``/``ln_bias`` (D,) are
+    given. Returns (codes (R, D) int8, scale): with ``cap=None`` the scale
+    is per row, (R, 1) fp32 (absmax / 127, floor 1e-12); with a static
+    ``cap`` it is the Python float max(cap, 1e-12) / 127 and values beyond
+    the cap saturate at +-127 (Pallas ``_quant_rows``, after ``_ln_f32``).
+    On CUDA the LN affine is bf16, D a multiple of 8 up to 3072."""
+    _check_ln(ln_scale, ln_bias)
+    if _on_cpu(x, ln_scale, ln_bias):
+        return quant_rows_ref(x, cap, ln_scale, ln_bias, eps)
+    ln = ln_scale is not None
+    key = ("quant_rows.ln" if ln else "quant_rows") + (
+        ".f32" if x.dtype == torch.float32 else ".bf16") + (".static" if cap is not None else "")
+    _require(x.dtype in (torch.bfloat16, torch.float32),
+             f"{key}: input must be bf16 or fp32, got {x.dtype}")
+    _require(x.is_contiguous() and x.data_ptr() % 16 == 0,
+             f"{key}: input must be contiguous and 16-byte aligned")
+    d = x.shape[-1]
+    rows = x.numel() // d
+    _require(d % 8 == 0 and d <= MAX_ROW_WIDTH,
+             f"{key}: row width {d} must be a multiple of 8 up to {MAX_ROW_WIDTH}")
+    if ln:
+        ln_scale, ln_bias = ln_scale.reshape(-1), ln_bias.reshape(-1)
+        _check_bf16(f"{key} ln_scale", ln_scale)
+        _check_bf16(f"{key} ln_bias", ln_bias)
+        _require(ln_scale.numel() == d and ln_bias.numel() == d,
+                 f"{key}: LN affine must have {d} values")
+    codes = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    if cap is None:
+        scale = torch.empty(x.shape[:-1] + (1,), dtype=torch.float32, device=x.device)
+        s_static, scale_ptr = 0.0, scale.data_ptr()
+    else:
+        scale = s_static = static_scale(cap)
+        scale_ptr = None
+    err = _build.library("quant_rows")(
+        x.data_ptr(), int(x.dtype == torch.float32),
+        ln_scale.data_ptr() if ln else None, ln_bias.data_ptr() if ln else None,
+        codes.data_ptr(), scale_ptr, rows, d, float(eps), s_static, int(cap is not None),
+        _stream())
+    _launched(key, err)
+    return codes, scale
+
+
+# ------------------------------------------------------------ gemm_s8_epilogue
+
+
+def _check_epilogue(epilogue, residual):
+    if epilogue not in _EPILOGUES:
+        raise ValueError(f"unknown epilogue {epilogue!r}")
+    needs_res = epilogue.startswith("residual")
+    _require((residual is not None) == needs_res,
+             f"epilogue {epilogue!r} {'needs' if needs_res else 'takes no'} residual")
+    return needs_res
+
+
+def _out_dtype(epilogue, out_dtype):
+    if epilogue == "bias":
+        return torch.bfloat16
+    if epilogue in ("gelu_f32", "residual_f32"):
+        return torch.float32
+    return out_dtype
+
+
+def gemm_s8_epilogue_ref(a, s_a, w, s_w, bias, epilogue: str, residual=None,
+                         out_dtype=torch.bfloat16):
+    """Plain version of :func:`gemm_s8_epilogue`: the codes multiplied in
+    float64 (exact), rounded once to fp32, then the Pallas dequant order."""
+    _check_epilogue(epilogue, residual)
+    acc = torch.matmul(a.double(), w.double()).float()
+    if isinstance(s_a, torch.Tensor):
+        s_a = s_a.float().reshape(-1, 1)
+    v = acc * s_a * s_w.float().reshape(1, -1) + bias.float().reshape(-1)
+    if epilogue == "gelu_f32":
+        v = F.gelu(v, approximate="tanh")
+    elif residual is not None:
+        v = v + residual.float()
+    return v.to(_out_dtype(epilogue, out_dtype))
+
+
+def gemm_s8_epilogue(a: torch.Tensor, s_a, w: torch.Tensor, s_w: torch.Tensor,
+                     bias: torch.Tensor, epilogue: str, residual: torch.Tensor | None = None,
+                     out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """C = dequant(a @ w) with a fused epilogue (Pallas ``_qmatmul`` and
+    the steps after it). a: (R, K) int8 codes with ``s_a`` their scale,
+    (R, 1) fp32 or one Python float (a static cap's scale); w: (K, N) int8,
+    the (in, out) layout, with ``s_w`` (1, N) fp32; bias (N,). The value
+    is float(a @ w) * s_a * s_w + bias, then per ``epilogue``:
+
+    - ``"bias"``: -> bf16 (qkv, bf16 under any compute dtype);
+    - ``"gelu_f32"``: tanh-gelu -> fp32 (fc1: h is never rounded);
+    - ``"residual_f32"``: + residual -> fp32 (the merged out-proj: y);
+    - ``"residual"``: + residual -> ``out_dtype`` (fc2, the split
+      out-proj).
+
+    The residual is (R, N), fp32 or bf16. On CUDA: bias bf16, out_dtype
+    bf16, and w the (in, out) view of an (out, in) contiguous tensor
+    (:func:`kernel_layout`); K a multiple of 16, N of 8."""
+    needs_res = _check_epilogue(epilogue, residual)
+    scale_t = s_a if isinstance(s_a, torch.Tensor) else None
+    if _on_cpu(a, scale_t, w, s_w, bias, residual):
+        return gemm_s8_epilogue_ref(a, s_a, w, s_w, bias, epilogue, residual, out_dtype)
+    key = f"gemm_s8_epilogue.{epilogue}"
+    _require(a.dim() == 2 and w.dim() == 2 and a.shape[1] == w.shape[0],
+             f"{key}: shapes {tuple(a.shape)} @ {tuple(w.shape)} do not chain")
+    m, k = a.shape
+    n = w.shape[1]
+    _require(k % 16 == 0, f"{key}: K={k} must be a multiple of 16")
+    _require(n % 8 == 0, f"{key}: N={n} must be a multiple of 8")
+    _require(a.dtype == torch.int8 and w.dtype == torch.int8, f"{key}: a and w must be int8")
+    _require(a.is_contiguous() and a.data_ptr() % 16 == 0,
+             f"{key}: a must be contiguous and 16-byte aligned")
+    wt = w.t()
+    _require(wt.is_contiguous() and wt.data_ptr() % 16 == 0,
+             f"{key}: w must be the (in, out) view of an (out, in) contiguous tensor "
+             f"(kernel_layout, made once at engine build)")
+    _require(epilogue != "residual" or out_dtype == torch.bfloat16,
+             f"{key}: the kernel writes bf16 for this epilogue")
+    s_w = s_w.reshape(-1)
+    _require(s_w.dtype == torch.float32 and s_w.is_contiguous() and s_w.numel() == n,
+             f"{key}: s_w must be {n} contiguous fp32 values")
+    bias = bias.reshape(-1)
+    _require(bias.numel() == n, f"{key}: bias has {bias.numel()} values, want {n}")
+    _check_bf16(f"{key} bias", bias)
+    if scale_t is not None:
+        _require(scale_t.dtype == torch.float32 and scale_t.is_contiguous()
+                 and scale_t.numel() == m, f"{key}: s_a must be {m} contiguous fp32 values")
+    res_f32 = 0
+    if needs_res:
+        _require(residual.shape == (m, n), f"{key}: residual must be {(m, n)}")
+        _require(residual.dtype in (torch.float32, torch.bfloat16),
+                 f"{key}: residual must be fp32 or bf16")
+        _require(residual.is_contiguous() and residual.data_ptr() % 16 == 0,
+                 f"{key}: residual must be contiguous and 16-byte aligned")
+        res_f32 = int(residual.dtype == torch.float32)
+    out = torch.empty((m, n), dtype=_out_dtype(epilogue, out_dtype), device=a.device)
+    err = _build.library("gemm_s8_epilogue")(
+        a.data_ptr(), wt.data_ptr(), None if scale_t is None else scale_t.data_ptr(),
+        0.0 if scale_t is not None else float(s_a), s_w.data_ptr(), bias.data_ptr(),
+        residual.data_ptr() if needs_res else None, out.data_ptr(), m, n, k,
+        _EPILOGUES[epilogue], res_f32, _stream())
+    _launched(key, err)
+    return out
+
+
+# ------------------------------------------------------------ layer compositions
+#
+# One composition of each Pallas body, bound twice: to the wrappers (the
+# engine's path) and to the plain versions alone (``*_ref``, the reference
+# a check holds the kernels against on the card).
+
+
+def _attention_half(ops, x2, b, n, ln_s, ln_b, wqkv_q, sqkv, b_qkv, num_heads, eps, caps, kmask):
+    """LN1 -> quant -> qkv (bf16) -> attention (bf16) -> quant: the
+    out-projection's input codes and scale."""
+    qrows, gemm, attn_fn = ops
+    d = x2.shape[-1]
+    lq, ls = qrows(x2, caps[0] if caps else None, ln_s, ln_b, eps)
+    qkv = gemm(lq, ls, wqkv_q, sqkv, b_qkv, "bias")
+    attn = attn_fn(qkv.reshape(b, n, 3 * d), num_heads, kmask=kmask).reshape(b * n, d)
+    return qrows(attn, caps[1] if caps else None)
+
+
+def _mlp_half(ops, y, ln_s, ln_b, w1_q, s1, b1, eps, caps):
+    """LN2 -> quant -> fc1 + gelu (fp32 h) -> quant: fc2's input."""
+    qrows, gemm, _ = ops
+    lq, ls = qrows(y, caps[0] if caps else None, ln_s, ln_b, eps)
+    h = gemm(lq, ls, w1_q, s1, b1, "gelu_f32")
+    return qrows(h, caps[1] if caps else None)
+
+
+def _q_layer(ops, x, kmask, ln1s, ln1b, wqkv_q, sqkv, b_qkv, wo_q, so, b_out, ln2s, ln2b,
+             w1_q, s1, b1, w2_q, s2, b2, num_heads, eps, caps):
+    _, gemm, _ = ops
+    b, n, d = x.shape
+    x2 = x.reshape(b * n, d)
+    acaps, mcaps = caps if caps else (None, None)
+    aq, as_ = _attention_half(ops, x2, b, n, ln1s, ln1b, wqkv_q, sqkv, b_qkv, num_heads, eps,
+                              acaps, kmask)
+    y = gemm(aq, as_, wo_q, so, b_out, "residual_f32", residual=x2)  # fp32 mid residual
+    hq, hs = _mlp_half(ops, y, ln2s, ln2b, w1_q, s1, b1, eps, mcaps)
+    return gemm(hq, hs, w2_q, s2, b2, "residual", residual=y, out_dtype=x.dtype).reshape(b, n, d)
+
+
+def _q_attention(ops, x, ln_s, ln_b, wqkv_q, sqkv, b_qkv, wo_q, so, b_out, num_heads, eps, caps):
+    _, gemm, _ = ops
+    b, n, d = x.shape
+    x2 = x.reshape(b * n, d)
+    aq, as_ = _attention_half(ops, x2, b, n, ln_s, ln_b, wqkv_q, sqkv, b_qkv, num_heads, eps,
+                              caps, None)
+    return gemm(aq, as_, wo_q, so, b_out, "residual", residual=x2,
+                out_dtype=x.dtype).reshape(b, n, d)
+
+
+def _q_mlp(ops, x, ln_s, ln_b, w1_q, s1, b1, w2_q, s2, b2, eps, caps):
+    _, gemm, _ = ops
+    b, n, d = x.shape
+    x2 = x.reshape(b * n, d)
+    hq, hs = _mlp_half(ops, x2, ln_s, ln_b, w1_q, s1, b1, eps, caps)
+    return gemm(hq, hs, w2_q, s2, b2, "residual", residual=x2, out_dtype=x.dtype).reshape(b, n, d)
+
+
+_KERNELS = (quant_rows, gemm_s8_epilogue, attn_scores_pv)
+_PLAIN = (quant_rows_ref, gemm_s8_epilogue_ref, attn_scores_pv_ref)
+
+
+def quant_layer_block(x, ln1s, ln1b, wqkv_q, sqkv, b_qkv, wo_q, so, b_out, ln2s, ln2b, w1_q, s1,
+                      b1, w2_q, s2, b2, num_heads: int, eps: float = 1e-5,
+                      caps=None) -> torch.Tensor:
+    """The merged int8 layer (Pallas ``quant_layer_block``, :465:
+    ``_q_layer_kernel`` mode ``plain``). x: (B, N, D); int8 weights (in,
+    out) from :func:`quantize_linear` with their (1, out) fp32 scales; LN
+    affines and biases in x's dtype. ``caps``: None (dynamic scales) or
+    ((attn_ln, attn_out), (mlp_ln, mlp_h)) static caps. Nine launches on
+    CUDA: 4 ``quant_rows``, GEMMs ``bias``, ``residual_f32``,
+    ``gelu_f32``, ``residual``, and ``attn_scores_pv``."""
+    return _q_layer(_KERNELS, x, None, ln1s, ln1b, wqkv_q, sqkv, b_qkv, wo_q, so, b_out, ln2s,
+                    ln2b, w1_q, s1, b1, w2_q, s2, b2, num_heads, eps, caps)
+
+
+def quant_layer_block_ref(x, ln1s, ln1b, wqkv_q, sqkv, b_qkv, wo_q, so, b_out, ln2s, ln2b, w1_q,
+                          s1, b1, w2_q, s2, b2, num_heads: int, eps: float = 1e-5,
+                          caps=None) -> torch.Tensor:
+    """Plain version of :func:`quant_layer_block`."""
+    return _q_layer(_PLAIN, x, None, ln1s, ln1b, wqkv_q, sqkv, b_qkv, wo_q, so, b_out, ln2s,
+                    ln2b, w1_q, s1, b1, w2_q, s2, b2, num_heads, eps, caps)
+
+
+def quant_keymasked_layer_block(x, key_mask, ln1s, ln1b, wqkv_q, sqkv, b_qkv, wo_q, so, b_out,
+                                ln2s, ln2b, w1_q, s1, b1, w2_q, s2, b2, num_heads: int,
+                                eps: float = 1e-5, caps=None) -> torch.Tensor:
+    """:func:`quant_layer_block` with key exclusion (Pallas
+    ``quant_keymasked_layer_block``, :496: mode ``keymasked``). key_mask:
+    (B, 1, N) in x's dtype, 1 = attend, 0 = exclude; the attention's
+    ``kmask`` selects an excluded key's term to 0 and scrubs non-finite
+    values of v, so garbage in excluded rows stays inert. Nine launches on
+    CUDA, the attention's ``attn_scores_pv.kmask``."""
+    return _q_layer(_KERNELS, x, key_mask, ln1s, ln1b, wqkv_q, sqkv, b_qkv, wo_q, so, b_out,
+                    ln2s, ln2b, w1_q, s1, b1, w2_q, s2, b2, num_heads, eps, caps)
+
+
+def quant_keymasked_layer_block_ref(x, key_mask, ln1s, ln1b, wqkv_q, sqkv, b_qkv, wo_q, so,
+                                    b_out, ln2s, ln2b, w1_q, s1, b1, w2_q, s2, b2,
+                                    num_heads: int, eps: float = 1e-5,
+                                    caps=None) -> torch.Tensor:
+    """Plain version of :func:`quant_keymasked_layer_block`."""
+    return _q_layer(_PLAIN, x, key_mask, ln1s, ln1b, wqkv_q, sqkv, b_qkv, wo_q, so, b_out,
+                    ln2s, ln2b, w1_q, s1, b1, w2_q, s2, b2, num_heads, eps, caps)
+
+
+def quant_attention_block(x, ln_scale, ln_bias, wqkv_q, sqkv, b_qkv, wo_q, so, b_out,
+                          num_heads: int, eps: float = 1e-5, caps=None) -> torch.Tensor:
+    """int8 x + OutProj(MHSA(LN(x))), rounded to x's dtype (Pallas
+    ``quant_attention_block``, :199, body ``_q_attn_kernel`` :145).
+    ``caps``: None or (ln_cap, attn_cap). Five launches on CUDA:
+    ``quant_rows.ln``, GEMM ``bias``, ``attn_scores_pv``, ``quant_rows``,
+    GEMM ``residual``."""
+    return _q_attention(_KERNELS, x, ln_scale, ln_bias, wqkv_q, sqkv, b_qkv, wo_q, so, b_out,
+                        num_heads, eps, caps)
+
+
+def quant_attention_block_ref(x, ln_scale, ln_bias, wqkv_q, sqkv, b_qkv, wo_q, so, b_out,
+                              num_heads: int, eps: float = 1e-5, caps=None) -> torch.Tensor:
+    """Plain version of :func:`quant_attention_block`."""
+    return _q_attention(_PLAIN, x, ln_scale, ln_bias, wqkv_q, sqkv, b_qkv, wo_q, so, b_out,
+                        num_heads, eps, caps)
+
+
+def quant_mlp_block(x, ln_scale, ln_bias, w1_q, s1, b1, w2_q, s2, b2, eps: float = 1e-5,
+                    caps=None) -> torch.Tensor:
+    """int8 x + fc2(gelu(fc1(LN(x)))), h fp32, rounded to x's dtype
+    (Pallas ``quant_mlp_block``, :224, body ``_q_mlp_kernel`` :177).
+    ``caps``: None or (ln_cap, gelu_cap). Four launches on CUDA:
+    ``quant_rows.ln``, GEMM ``gelu_f32``, ``quant_rows.f32``, GEMM
+    ``residual``."""
+    return _q_mlp(_KERNELS, x, ln_scale, ln_bias, w1_q, s1, b1, w2_q, s2, b2, eps, caps)
+
+
+def quant_mlp_block_ref(x, ln_scale, ln_bias, w1_q, s1, b1, w2_q, s2, b2, eps: float = 1e-5,
+                        caps=None) -> torch.Tensor:
+    """Plain version of :func:`quant_mlp_block`."""
+    return _q_mlp(_PLAIN, x, ln_scale, ln_bias, w1_q, s1, b1, w2_q, s2, b2, eps, caps)

@@ -135,7 +135,7 @@ def test_engine_bf16_matches_jax_engine():
 
 def test_engine_refuses_unported_modes(fp32_pair):
     _, tm, _, _, _ = fp32_pair
-    for kwargs in (dict(quantized=True), dict(max_budget=0.5), dict(compact=0.5)):
+    for kwargs in (dict(quantized=True, max_budget=0.5), dict(max_budget=0.5), dict(compact=0.5)):
         with pytest.raises(NotImplementedError):
             InferenceEngine(tm, device="cpu", **kwargs)
     with pytest.raises(NotImplementedError):

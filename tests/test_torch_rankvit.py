@@ -244,10 +244,14 @@ def test_engine_guards(wide_pair):
         InferenceEngine(vit, device="cpu", max_budget=0.5)
     with pytest.raises(NotImplementedError, match="ResidualViT family"):
         InferenceEngine(tm, device="cpu", compact=0.5)
-    for kwargs, item in ((dict(quantized=True), "item 6"), (dict(mesh=object()), "item 9"),
-                         (dict(quantized=True, max_budget=0.5), "item 6")):
+    plain_args = {k: v for k, v in SMALL.items() if k != "rankvit_layers"}
+    residual = build_model("residualvit", dict(plain_args, residual_layers=["attention+mlp"] * 3),
+                           device="cpu")
+    for model, kwargs, item in ((residual, dict(quantized=True), "item 6"),
+                                (tm, dict(mesh=object()), "item 9"),
+                                (vit, dict(quantized=True, max_budget=0.5), "RankViT")):
         with pytest.raises(NotImplementedError, match=item):
-            InferenceEngine(tm, device="cpu", **kwargs)
+            InferenceEngine(model, device="cpu", **kwargs)
     with pytest.raises(NotImplementedError, match="item 10"):
         build_model("rankvit", dict(SMALL, noise_layer=1), device="cpu")
     with pytest.raises(NotImplementedError, match="item 10"):
