@@ -112,7 +112,34 @@ prints no final result):
    launches, bound, plain time and library yardstick (torch._int_mm +
    dequant; amax/round/clamp), the merged int8 layer, one profiled ViT
    int8 forward;
-21. the {"kernels": [...]} line, then the card's nvidia-smi line, then
+21. residual int8 kernel checks at ResidualViT-B/16 bs256 shapes:
+   quant_rows with the row mask (LN from bf16 x and from the fp32 y,
+   dynamic and static; masks of zeros, ones and fractions: a masked row
+   gets zero codes and the 1e-12 floor), the two masked-residual s8
+   epilogues (exact s32), quant_masked_layer_block at N = 198 (dynamic
+   and static caps), quant_masked_attention_block and
+   quant_masked_mlp_block at N = 107;
+22. residual int8 serving: build_model("residualvit", ResidualViT-B/16)
+   with InferenceEngine(quantized=True), dynamic and with SmoothQuant +
+   static caps from 32 seeded images, at budgets 0.25/0.5/1.0 and 8 and
+   256 images, and one ee_outputs=True request on an eeresidualvit (13
+   outputs); counts zeroed before and read after each forward (108
+   launches, the expected keys, every new variant); logits against
+   residualvit_forward_quant_plain (5e-2 of max|logit|, top-1 on decided
+   images); top-1 agreement with the bf16 engine; then the split int8
+   sublayers (sites 15-16) once through their compositions, counted;
+23. A-ViT: norm_rows.avit (0/1 and fractional masks) and avit_layer_block
+   against their plain versions at A-ViT-S/16 bs256 shapes; then
+   build_model("adavit", A-ViT-S/16) at 8 and 256 images, at the config's
+   gates and at gate_scale=5, gate_center=0 (84 launches per forward),
+   logits against adavit_forward_plain fed the engine's halting
+   decisions, each layer's active share, the free-running twin's depth
+   agreement;
+24. timing at bs256: the int8 ResidualViT at each budget beside the bf16
+   engine, A-ViT-S/16 beside a ViT-S/16 bf16 engine, each new variant's
+   time, launches, bound, plain time and library yardstick, the two new
+   compositions, one profiled forward of each path;
+25. the {"kernels": [...]} line, then the card's nvidia-smi line, then
    {"ok": true, "device": {...}} as the last line.
 
 Imports nothing of JAX or of peekvit_tpu.
@@ -1969,11 +1996,7 @@ def quant_timing(torch, F, tq, smi, checks, ins, quant, d, h, m) -> list:
             out_b = 4 if epi in ("gelu_f32", "residual_f32") else 2
             res_b = 0 if res is None else res.element_size()
 
-            try:  # the yardstick takes W as it lies if cuBLASLt accepts the layout
-                torch._int_mm(a[:32], w)
-                w_lib = w
-            except RuntimeError:
-                w_lib = w.contiguous()
+            w_lib = int_mm_operand(torch, a, w)
 
             def lib(a=a, sa=sa, w=w_lib, sw=sw, b=b, res=res, epi=epi):
                 v = torch._int_mm(a, w).float() * sa * sw + b.float()
@@ -1997,9 +2020,14 @@ def quant_timing(torch, F, tq, smi, checks, ins, quant, d, h, m) -> list:
         wbytes = 4 * d * d + 2 * d * m
         t_ops = 2.0 * rows * (4 * d * d + 2 * d * m) / PEAK_INT8_OPS * 1e3
         t_attn = 4.0 * rows * (1 + n_img) * d / PEAK_BF16_FLOPS * 1e3
+        wlib = int_mm_weights(torch, ins)
         emit({"phase": "timing_composition", "name": "quant_layer_block", "ms": ms,
               "plain_ms": cuda_ms(torch, lambda: tq.quant_layer_block_ref(x197, *qw, h, EPS),
                                   iters=3),
+              "library_ms": cuda_ms(torch, lambda: library_quant_layer(torch, F, x197, None, qw,
+                                                                       h, EPS, wlib)),
+              "library": "the layer from PyTorch calls: F.layer_norm, amax/round/clamp, "
+                         "torch._int_mm + dequant, SDPA (dynamic scales)",
               "launches_per_call": 9, "tokens": 1 + n_img, "batch": BATCH,
               "int8_ops_ms_bound": t_ops, "attention_ops_ms_bound": t_attn,
               "weight_bytes": wbytes, "max_abs_err": checks["quant_layer_block"],
@@ -2007,6 +2035,589 @@ def quant_timing(torch, F, tq, smi, checks, ins, quant, d, h, m) -> list:
                           "_q_layer_kernel :359)", "card": smi})
         profile_step(torch, smi, lambda: engines["vit"](images), forward_ms[("vit", None)],
                      phase="profile_int8_forward")
+    return entries
+
+
+# -------------------------------------------- ResidualViT int8 and A-ViT (21-24)
+
+RESIDUAL_INT8_RUNS = [(name, b) for name in ("dynamic", "static") for b in BUDGETS]
+RESIDUAL_INT8_PROFILE = ("dynamic", COMPACT_BUDGET)
+# configs/model/avit_s_16_224.yaml at image 224 and 1000 classes; "mixed"
+# is the setting of tests/test_inference.py:388, where tokens halt at
+# mixed depths (with random weights and the config's gates no token
+# halts before the last layer)
+AVIT_S16 = dict(image_size=224, patch_size=16, num_layers=12, num_heads=6, hidden_dim=384,
+                mlp_dim=1536, num_classes=1000)
+AVIT_GATES = {"config": (10.0, 30.0), "mixed": (5.0, 0.0)}
+AVIT_REQUESTS = (8, 256)
+AVIT_PER_LAYER = {"norm_rows.avit.bf16": 1, "norm_rows.avit.f32": 1,
+                  "gemm_bias_epilogue.bias": 1, "attn_scores_pv": 1,
+                  "gemm_bias_epilogue.residual_f32": 1, "gemm_bias_epilogue.gelu": 1,
+                  "gemm_bias_epilogue.residual": 1}
+RQ_ROWS_KEYS = ("quant_rows.ln.bf16.masked", "quant_rows.ln.bf16.static.masked",
+                "quant_rows.ln.f32.masked", "quant_rows.ln.f32.static.masked")
+
+
+def residual_int8_layer_counts(static: bool) -> dict:
+    """The nine launches of one merged int8 ResidualViT layer."""
+    sfx = ".static" if static else ""
+    return {f"quant_rows.ln.bf16{sfx}.masked": 1, f"quant_rows.bf16{sfx}": 1,
+            f"quant_rows.ln.f32{sfx}.masked": 1, f"quant_rows.f32{sfx}": 1,
+            "gemm_s8_epilogue.bias": 1, "gemm_s8_epilogue.masked_residual_f32": 1,
+            "gemm_s8_epilogue.gelu_f32": 1, "gemm_s8_epilogue.residual": 1, "attn_scores_pv": 1}
+
+
+def gate_like_mask(torch, randn, rows):
+    """(rows,) bf16: a third exactly 0, a third exactly 1, a third
+    fractions in (0, 1), interleaved."""
+    m = torch.sigmoid(randn(rows, dtype=torch.float32))
+    idx = torch.arange(rows, device=m.device) % 3
+    return torch.where(idx == 0, 0.0, torch.where(idx == 1, 1.0, m)).to(torch.bfloat16)
+
+
+def residual_int8_kernel_checks(torch, tq, check, checks, randn, quant_ins, ln_s, ln_b, b_out,
+                                d, h, smi) -> dict:
+    """Phase 21: quant_rows with the row mask (LN from bf16 x and from the
+    fp32 y, dynamic and static; masks of zeros, ones and fractions), the
+    two masked-residual s8 epilogues, quant_masked_layer_block (N = 198,
+    dynamic and static caps), quant_masked_attention_block and
+    quant_masked_mlp_block (N = 107) against their plain versions at
+    ResidualViT-B/16 bs256 shapes. Returns the inputs phase 24 times."""
+    f32 = torch.float32
+    n_exact = 1 + (RESIDUALVIT_B16["image_size"] // RESIDUALVIT_B16["patch_size"]) ** 2 + 1
+    n_split = compact_geometry(COMPACT[1])[0]
+    rows, rows_s = BATCH * n_exact, BATCH * n_split
+    m = gate_like_mask(torch, randn, rows)
+    ms = gate_like_mask(torch, randn, rows_s)
+    ins = {"x": randn(rows, d, scale=1.5, shift=0.3),
+           "y": randn(rows, d, dtype=f32, scale=1.5, shift=0.3), "m": m,
+           "xs": randn(rows_s, d, scale=1.5, shift=0.3), "ms": ms, "rows": rows,
+           "rows_s": rows_s, "n_exact": n_exact, "n_split": n_split,
+           "modes": {"quant_rows.ln.bf16": ("x", QUANT_CAPS[0][0]),
+                     "quant_rows.ln.f32": ("y", QUANT_CAPS[1][0])}}
+    zero = m == 0
+    with torch.inference_mode():
+        for key, (src, cap) in ins["modes"].items():
+            for c in (None, cap):
+                name = key + ("" if c is None else ".static") + ".masked"
+                kc, ks = tq.quant_rows(ins[src], c, ln_s, ln_b, BLOCK_EPS, mask=m)
+                pc, ps = tq.quant_rows_ref(ins[src], c, ln_s, ln_b, BLOCK_EPS, mask=m)
+                diff = (kc.int() - pc.int()).abs()
+                share = (diff > 0).float().mean().item()
+                rel = ((ks - ps).abs() / ps).max().item() if c is None else abs(ks - ps) / ps
+                zero_ok = bool((kc[zero] == 0).all()) and (
+                    c is not None or bool((ks[zero] == 1e-12).all()))
+                rec = {"phase": "kernel_check", "kernel": name, "shape": list(kc.shape),
+                       "max_abs_err": int(diff.max().item()), "code_mismatch_share": share,
+                       "saturated_share": (kc.abs() == 127).float().mean().item(),
+                       "scale_max_rel_err": rel, "mask": "a third 0, a third 1, a third in (0, 1)",
+                       "masked_rows_zero_codes_and_floor_scale": zero_ok,
+                       "tolerance": "codes within 1 on at most 1e-3 of elements; scales within "
+                       "1e-6 relative; a row of mask 0: zero codes and the 1e-12 floor",
+                       "card": smi}
+                emit(rec)
+                if rec["max_abs_err"] > 1 or share > 1e-3 or rel > 1e-6 or not zero_ok:
+                    raise AssertionError(f"{name}: {rec}")
+                checks[name] = float(rec["max_abs_err"])
+        # the out-projections' input codes: a bf16 attention output, quantized
+        ins["ac"], ins["acs"] = tq.quant_rows(randn(rows, d)), tq.quant_rows(randn(rows_s, d))
+        w_out, s_out = quant_ins["q"]["out"]
+        epis = {"masked_residual_f32": (ins["ac"], ins["x"], m, 2.0 ** -20),
+                "masked_residual": (ins["acs"], ins["xs"], ms, 2.0 ** -7)}
+        for epi, ((a, sa), res, mk, tol) in epis.items():
+            got = tq.gemm_s8_epilogue(a, sa, w_out, s_out, b_out, epi, residual=res, mask=mk)
+            want = tq.gemm_s8_epilogue_ref(a, sa, w_out, s_out, b_out, epi, residual=res, mask=mk)
+            check(f"gemm_s8_epilogue.{epi}", got, want, tol,
+                  "s32 sums exact; FMA contraction off in the epilogue (__f*_rn); the same "
+                  "IEEE steps" + ("" if got.dtype == f32 else ", bf16 output rounding"))
+            emit({"phase": "gemm_s8_bits", "epilogue": epi,
+                  "bit_identical_share": (got == want).float().mean().item(), "card": smi})
+
+        qw = quant_ins["qw"]
+        reason = ("nine launches; bf16 roundings of qkv and the attention output flipped by "
+                  "fp32 sums in another order, requantized; the bf16 kernel tolerance "
+                  "(tests/test_pallas.py:42)")
+        x3, m3 = ins["x"].reshape(BATCH, n_exact, d), m.reshape(BATCH, n_exact, 1)
+        xs3, ms3 = ins["xs"].reshape(BATCH, n_split, d), ms.reshape(BATCH, n_split, 1)
+        ins.update(x3=x3, m3=m3, xs3=xs3, ms3=ms3)
+        for caps in (None, QUANT_CAPS):
+            check("quant_masked_layer_block" + ("" if caps is None else ".static"),
+                  tq.quant_masked_layer_block(x3, m3, *qw, h, BLOCK_EPS, caps=caps),
+                  tq.quant_masked_layer_block_ref(x3, m3, *qw, h, BLOCK_EPS, caps=caps), 3e-2,
+                  reason)
+        check("quant_masked_attention_block",
+              tq.quant_masked_attention_block(xs3, ms3, *qw[:8], h, BLOCK_EPS),
+              tq.quant_masked_attention_block_ref(xs3, ms3, *qw[:8], h, BLOCK_EPS), 3e-2,
+              "five launches; " + reason)
+        check("quant_masked_mlp_block", tq.quant_masked_mlp_block(xs3, ms3, *qw[8:], BLOCK_EPS),
+              tq.quant_masked_mlp_block_ref(xs3, ms3, *qw[8:], BLOCK_EPS), 2.0 ** -6,
+              "four launches; no attention: codes flipped by LN sums in another order")
+        torch.cuda.synchronize()
+    return ins
+
+
+def residual_int8_phases(torch, fa, tq, dev, smi, rq_ins, qw, h) -> dict:
+    """Phase 22: the int8 ResidualViT-B/16 engine, dynamic and with
+    SmoothQuant + static caps from 32 seeded images, at budgets 0.25, 0.5
+    and 1.0 and 8 and 256 images, then one ee_outputs=True request on an
+    eeresidualvit (counts zeroed before and read after each forward: 108
+    launches, the expected keys), each held against
+    residualvit_forward_quant_plain; top-1 agreement with the bf16
+    engine; then sites 15-16 (the split sublayers, which no engine path
+    takes) once through their compositions, counted."""
+    from peekvit_torch import InferenceEngine
+    from peekvit_torch.inference import residualvit_forward_quant_plain
+
+    bf16 = torch.bfloat16
+    layers = RESIDUALVIT_B16["num_layers"]
+    model = seeded_residual_model(torch, "residualvit")
+    ee_model = seeded_residual_model(torch, "eeresidualvit")
+    img_gen = torch.Generator(device=dev).manual_seed(9)
+    size = RESIDUALVIT_B16["image_size"]
+    calib = torch.randn(QUANT_CALIB, size, size, 3, generator=img_gen, device=dev)
+    requests = [torch.randn(b, size, size, 3, generator=img_gen, device=dev)
+                for b in RESIDUAL_REQUESTS]
+    t0 = time.perf_counter()
+    engines = {"dynamic": InferenceEngine(model, device=DEVICE, quantized=True)}
+    t1 = time.perf_counter()
+    engines["static"] = InferenceEngine(model, device=DEVICE, quantized=True, calib_images=calib,
+                                        calib_static_caps=True)
+    t2 = time.perf_counter()
+    bf16_engine = InferenceEngine(model, device=DEVICE)
+    emit({"phase": "residual_int8_build", "quantize_s": t1 - t0,
+          "calibrate_and_quantize_s": t2 - t1, "calib_images": QUANT_CALIB,
+          "caps_layer0": engines["static"].caps[0], "card": smi})
+    fwd = dict(patch_size=model.patch_size, num_heads=model.num_heads,
+               num_class_tokens=model.num_class_tokens, num_registers=model.num_registers,
+               gate_temp=model.gate_temp, gate_bias=model.gate_bias,
+               budget_token=model.add_budget_token, compute_dtype=bf16)
+    reason = ("the plain twin on the same int8 tree: same rounding points, sums in another "
+              "order; a flipped bf16 rounding of qkv or the attention output is requantized and "
+              "runs on through 12 layers: 5e-2 of max|logit|, as phase 19. The bf16 engine: "
+              "reported only (random weights)")
+    totals: dict = {}
+    per_forward = []
+
+    def add(counts):
+        per_forward.append(sum(counts.values()))
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    with torch.inference_mode():
+        for images in requests:
+            b = images.shape[0]
+            for name, budget in RESIDUAL_INT8_RUNS:
+                e = engines[name]
+                got, counts = counted(torch, fa, lambda: e(images, budget=budget))
+                add(counts)
+                want = {k: v * layers
+                        for k, v in residual_int8_layer_counts(name == "static").items()}
+                if counts != want:
+                    raise AssertionError(f"int8 residual {name} {budget}: launches {counts}, "
+                                         f"want {want}")
+                if got.shape != (b, RESIDUALVIT_B16["num_classes"]):
+                    raise AssertionError(f"int8 residual: output shape {tuple(got.shape)}")
+                masks = {}
+                ref = residualvit_forward_quant_plain(e.params, images, budget, caps=e.caps,
+                                                      masks=masks, **fwd)
+                rec = compare_logits(torch, f"int8 residual {name} b{b} budget {budget}", got,
+                                     [("plain_bf16", ref, 0.0, 5e-2 * ref.abs().max().item())])
+                bf = bf16_engine(images, budget=budget)
+                emit({"phase": "residual_int8_check", "scales": name, "batch": b,
+                      "budget": budget, "launches": sum(counts.values()), "counts": counts,
+                      **rec, "top1_agreement_with_bf16_engine":
+                          (got.argmax(-1) == bf.argmax(-1)).float().mean().item(),
+                      "max_abs_delta_vs_bf16_engine": (got - bf).abs().max().item(),
+                      "kept_image_token_share_by_layer":
+                          [(masks[f"layer_{i}"] > 0).float().mean().item() for i in range(layers)],
+                      "tolerance_reason": reason, "card": smi})
+
+        ee_engine = InferenceEngine(ee_model, device=DEVICE, quantized=True, ee_outputs=True)
+        ee_images = requests[0][:EE_REQUEST]
+        ee_out, ee_counts = counted(torch, fa, lambda: ee_engine(ee_images, budget=COMPACT_BUDGET))
+        add(ee_counts)
+        ee_ref = residualvit_forward_quant_plain(ee_engine.params, ee_images, COMPACT_BUDGET,
+                                                 early_exits=True, **fwd)
+        want = {k: v * layers for k, v in residual_int8_layer_counts(False).items()}
+        if len(ee_out) != layers + 1 or ee_counts != want:
+            raise AssertionError(f"int8 ee outputs {len(ee_out)}, launches {ee_counts}")
+        recs = [compare_logits(torch, f"int8 ee output {i}", g,
+                               [("plain_bf16", r, 0.0, 5e-2 * r.abs().max().item())])
+                for i, (g, r) in enumerate(zip(ee_out, ee_ref))]
+        emit({"phase": "residual_int8_ee", "batch": EE_REQUEST, "budget": COMPACT_BUDGET,
+              "outputs": len(ee_out), "launches": ee_counts,
+              "max_abs_delta_vs_plain_bf16": max(r["plain_bf16"]["max_abs_delta"] for r in recs),
+              "tolerance_reason": reason, "card": smi})
+
+        # sites 15-16: no engine path reaches the split int8 sublayers
+        # (JAX inference.py:2075), so their compositions run once here
+        def split():
+            t = tq.quant_masked_attention_block(rq_ins["xs3"], rq_ins["ms3"], *qw[:8], h,
+                                                BLOCK_EPS)
+            return tq.quant_masked_mlp_block(t, rq_ins["ms3"], *qw[8:], BLOCK_EPS)
+
+        out, split_counts = counted(torch, fa, split)
+        if sum(split_counts.values()) != 9 or split_counts.get(
+                "gemm_s8_epilogue.masked_residual") != 1 or not torch.isfinite(out).all():
+            raise AssertionError(f"int8 split sublayers: launches {split_counts}")
+        emit({"phase": "residual_int8_split_sublayers", "tokens": rq_ins["n_split"],
+              "batch": BATCH, "launches": split_counts, "card": smi})
+    emit({"phase": "residual_int8_launches", "per_forward": per_forward, "counts": totals,
+          "requests": list(RESIDUAL_REQUESTS), "runs": [list(r) for r in RESIDUAL_INT8_RUNS],
+          "ee_request": EE_REQUEST, "card": smi})
+    if set(per_forward) != {9 * layers}:
+        raise AssertionError(f"int8 residual launches per forward {per_forward}")
+    missing = [k for k in RQ_ROWS_KEYS + ("gemm_s8_epilogue.masked_residual_f32",)
+               if not totals.get(k)]
+    if missing:
+        raise AssertionError(f"kernels never launched on the int8 residual path: {missing}")
+    return {"model": model, "engines": engines, "bf16_engine": bf16_engine,
+            "images": requests[-1], "counts": totals, "split_counts": split_counts}
+
+
+def avit_phases(torch, fa, check, checks, randn, dev, smi) -> dict:
+    """Phase 23: norm_rows.avit (bf16 x and fp32 y, a 0/1 and a fractional
+    mask) and avit_layer_block against their plain versions at A-ViT-S/16
+    bs256 shapes; then build_model("adavit", A-ViT-S/16) served at 8 and
+    256 images at the config's gates and at gate_scale=5, gate_center=0
+    (counts zeroed before and read after each forward: 84 launches), the
+    logits against adavit_forward_plain fed the engine's halting
+    decisions, each layer's active share, and how often a free-running
+    plain twin picks the same depths."""
+    from peekvit_torch import InferenceEngine, build_model
+    from peekvit_torch.inference import adavit_forward_fused, adavit_forward_plain
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    d, h, m = AVIT_S16["hidden_dim"], AVIT_S16["num_heads"], AVIT_S16["mlp_dim"]
+    layers = AVIT_S16["num_layers"]
+    n = (AVIT_S16["image_size"] // AVIT_S16["patch_size"]) ** 2 + 1
+    rows = BATCH * n
+    masks = {"binary": (randn(rows, dtype=f32) > -0.5).to(bf16),
+             "fraction": torch.sigmoid(randn(rows, dtype=f32)).to(bf16)}
+    ins = {"x": randn(rows, d, scale=1.5, shift=0.3),
+           "y": randn(rows, d, dtype=f32, scale=1.5, shift=0.3), "masks": masks,
+           "s": randn(d, scale=0.2, shift=1.0), "b": randn(d, scale=0.1), "rows": rows, "n": n,
+           "w": (randn(d, scale=0.2, shift=1.0), randn(d, scale=0.1),
+                 randn(d, 3 * d, scale=d ** -0.5), randn(3 * d, scale=0.1),
+                 randn(d, d, scale=d ** -0.5), randn(d, scale=0.1),
+                 randn(d, scale=0.2, shift=1.0), randn(d, scale=0.1),
+                 randn(d, m, scale=d ** -0.5), randn(m, scale=0.1),
+                 randn(m, d, scale=m ** -0.5), randn(d, scale=0.1))}
+    s, b = ins["s"], ins["b"]
+    with torch.inference_mode():
+        for src in ("x", "y"):
+            key = "norm_rows.avit." + ("bf16" if src == "x" else "f32")
+            for mname, a in masks.items():
+                got = fa.norm_rows(ins[src], EPS, bf16, s, b, a, premask=True)
+                check(f"{key}.{mname}", got,
+                      fa.norm_rows_ref(ins[src], EPS, bf16, s, b, a, premask=True),
+                      2.0 ** -6, "bf16 output rounding")
+                if mname == "binary":  # a 0/1 mask: the masked mode's values
+                    masked = fa.norm_rows(ins[src], EPS, bf16, s, b, a)
+                    emit({"phase": "norm_rows_avit_vs_masked", "input": key, "mask": mname,
+                          "equal_share": (got == masked).float().mean().item(), "card": smi})
+                    if not torch.equal(got, masked):
+                        raise AssertionError(f"{key}: a 0/1 mask differs from norm_rows.masked")
+            checks[key] = max(checks[f"{key}.{mname}"] for mname in masks)
+        x3 = ins["x"].reshape(BATCH, n, d)
+        for mname, a in masks.items():
+            a3 = a.reshape(BATCH, n, 1)
+            check(f"avit_layer_block.{mname}", fa.avit_layer_block(x3 * a3, a3, *ins["w"], h, EPS),
+                  fa.avit_layer_block_ref(x3 * a3, a3, *ins["w"], h, EPS), 3e-2,
+                  "seven launches; bf16 roundings flipped by fp32 sums in another order, the "
+                  "attention kernel's tolerance")
+        ins.update(x3=x3, a3=masks["fraction"].reshape(BATCH, n, 1))
+        torch.cuda.synchronize()
+
+    cpu_gen = torch.Generator().manual_seed(1)
+    engines = {}
+    for gname, (gs, gc) in AVIT_GATES.items():
+        model = build_model("adavit", dict(AVIT_S16, gate_scale=gs, gate_center=gc), seed=0,
+                            device=DEVICE)
+        with torch.no_grad():  # zero-initialised head and class token: re-drawn as in phase 4
+            for p in (model.head.kernel, model.class_tokens):
+                p.copy_(torch.randn(p.shape, generator=cpu_gen) * 0.02)
+        engines[gname] = InferenceEngine(model, device=DEVICE)
+    img_gen = torch.Generator(device=dev).manual_seed(11)
+    size = AVIT_S16["image_size"]
+    requests = [torch.randn(bb, size, size, 3, generator=img_gen, device=dev)
+                for bb in AVIT_REQUESTS]
+    totals: dict = {}
+    per_forward = []
+    want = {k: v * layers for k, v in AVIT_PER_LAYER.items()}
+    with torch.inference_mode():
+        for images in requests:
+            bb = images.shape[0]
+            for gname, e in engines.items():
+                got, counts = counted(torch, fa, lambda: e(images))
+                per_forward.append(sum(counts.values()))
+                for k, v in counts.items():
+                    totals[k] = totals.get(k, 0) + v
+                if counts != want:
+                    raise AssertionError(f"A-ViT {gname}: launches {counts}, want {want}")
+                if got.shape != (bb, AVIT_S16["num_classes"]):
+                    raise AssertionError(f"A-ViT: output shape {tuple(got.shape)}")
+                decisions = []
+                again = adavit_forward_fused(e.params, images, active_out=decisions, **e._forward)
+                if not torch.equal(again, got):
+                    raise AssertionError(f"A-ViT {gname}: a second forward differs")
+                ref = adavit_forward_plain(e.params, images, active_in=decisions, **e._forward)
+                rec = compare_logits(torch, f"A-ViT {gname} b{bb}", got,
+                                     [("plain_bf16", ref, 3e-2, 3e-2)])
+                free = []
+                adavit_forward_plain(e.params, images, active_out=free, **e._forward)
+                same = torch.ones(bb, dtype=torch.bool, device=images.device)
+                for (ka, kb), (pa, pb) in zip(decisions, free):
+                    same &= ((ka == pa) & (kb == pb)).all(dim=1)
+                emit({"phase": "avit_check", "gates": gname,
+                      "gate_scale_center": AVIT_GATES[gname], "batch": bb,
+                      "launches": sum(counts.values()), "counts": counts, **rec,
+                      "active_share_after_layer": [dec[1].mean().item() for dec in decisions],
+                      "tokens_halted_before_last_layer": 1.0 - decisions[-2][1].mean().item(),
+                      "free_running_twin_same_depths_share": same.float().mean().item(),
+                      "tolerance_reason": "the plain twin fed the engine's halting decisions "
+                      "(c > 1 - eps is a hard threshold; bf16 near-ties flip in a free-running "
+                      "twin): same rounding points, sums in another order; the repo's bf16 "
+                      "kernel tolerance (tests/test_pallas.py:42)", "card": smi})
+    emit({"phase": "avit_launches", "per_forward": per_forward, "counts": totals,
+          "requests": list(AVIT_REQUESTS), "gates": AVIT_GATES, "card": smi})
+    missing = [k for k in AVIT_PER_LAYER if not totals.get(k)]
+    if missing or set(per_forward) != {7 * layers}:
+        raise AssertionError(f"A-ViT launches: missing {missing}, per forward {per_forward}")
+    return {"engines": engines, "images": requests[-1], "counts": totals, "ins": ins}
+
+
+def int_mm_operand(torch, a, w):
+    """w in a layout torch._int_mm takes with a: as it lies if cuBLASLt
+    accepts that, else a contiguous copy (for the yardsticks only)."""
+    try:
+        torch._int_mm(a[:32], w)
+        return w
+    except RuntimeError:
+        return w.contiguous()
+
+
+def int_mm_weights(torch, quant_ins):
+    """The four int8 weights of the kernel checks' layer in a layout
+    torch._int_mm takes."""
+    qw, codes = quant_ins["qw"], quant_ins["codes"]
+    return [int_mm_operand(torch, codes[k][0], w) for k, w in (
+        ("quant_rows.ln.bf16", qw[2]), ("quant_rows.bf16", qw[5]),
+        ("quant_rows.ln.f32", qw[10]), ("quant_rows.f32", qw[13]))]
+
+
+def library_quant_layer(torch, F, x, mask, qw, h, eps, wlib):
+    """The int8 layer (mask None: quant_layer_block; else the masked one)
+    from PyTorch calls: F.layer_norm, amax/round/clamp, torch._int_mm +
+    dequant, SDPA; dynamic scales. A yardstick, never called by the port."""
+    ln1s, ln1b, _, sqkv, bqkv, _, so, bo, ln2s, ln2b, _, s1, b1, _, s2, b2 = qw
+    wqkv, wo, w1, w2 = wlib
+    bb, n, d = x.shape
+    x2 = x.reshape(bb * n, d)
+    m = None if mask is None else mask.reshape(-1, 1).float()
+
+    def q(v):
+        s = (v.abs().amax(-1, keepdim=True) / 127.0).clamp_min(1e-12)
+        return torch.round(v / s).clamp(-127, 127).to(torch.int8), s
+
+    def mm(a_s, w, sw, bias):
+        return torch._int_mm(a_s[0], w).float() * a_s[1] * sw + bias.float()
+
+    def ln(t, sc, bi):
+        v = F.layer_norm(t.float(), (d,), sc.float(), bi.float(), eps)
+        return v if m is None else v * m
+
+    qkv = mm(q(ln(x2, ln1s, ln1b)), wqkv, sqkv, bqkv).to(torch.bfloat16)
+    qh = qkv.reshape(bb, n, 3, h, d // h).permute(2, 0, 3, 1, 4)
+    attn = F.scaled_dot_product_attention(qh[0], qh[1], qh[2]).transpose(1, 2).reshape(bb * n, d)
+    proj = mm(q(attn.float()), wo, so, bo)
+    y = (proj if m is None else proj * m) + x2.float()
+    hh = F.gelu(mm(q(ln(y, ln2s, ln2b)), w1, s1, b1), approximate="tanh")
+    return (mm(q(hh), w2, s2, b2) + y).to(x.dtype).reshape(bb, n, d)
+
+
+def library_avit_layer(torch, F, x, a, w, h, eps):
+    """The A-ViT layer from PyTorch calls (F.layer_norm, addmm, SDPA,
+    gelu): a yardstick, never called by the port."""
+    ln1s, ln1b, wqkv, bqkv, wo, bo, ln2s, ln2b, w1, b1, w2, b2 = w
+    bb, n, d = x.shape
+    x2, am = x.reshape(bb * n, d), a.reshape(-1, 1)
+    qkv = torch.addmm(bqkv, F.layer_norm(x2 * am, (d,), ln1s, ln1b, eps) * am, wqkv)
+    qh = qkv.reshape(bb, n, 3, h, d // h).permute(2, 0, 3, 1, 4)
+    attn = F.scaled_dot_product_attention(qh[0], qh[1], qh[2]).transpose(1, 2).reshape(bb * n, d)
+    y = torch.addmm(bo, attn, wo).float() + x2
+    l2 = (F.layer_norm(y * am, (d,), ln2s.float(), ln2b.float(), eps) * am).to(x.dtype)
+    hh = F.gelu(torch.addmm(b1, l2, w1), approximate="tanh")
+    return (torch.addmm(b2, hh, w2) + y).to(x.dtype).reshape(bb, n, d)
+
+
+def new_paths_timing(torch, F, fa, tq, smi, checks, rq_ins, rq, av, quant_ins, b_out, d, h,
+                     m) -> list:
+    """Phase 24 at bs256: the int8 ResidualViT at each budget beside the
+    bf16 exact engine, A-ViT-S/16 at both gate settings beside a ViT-S/16
+    bf16 engine of the same widths, in the same call; each new kernel
+    variant's time, launches, bound, plain time and library yardstick; the
+    two new compositions; one profiled forward of each path. Returns the
+    new kernels' JSON entries."""
+    from peekvit_torch import InferenceEngine, build_model
+
+    bf16 = torch.bfloat16
+    images = rq["images"]
+    forward_ms = {}
+    with torch.inference_mode():
+        for name, budget in RESIDUAL_INT8_RUNS:
+            ms = cuda_ms(torch, lambda: rq["engines"][name](images, budget=budget), iters=10)
+            bf_ms = cuda_ms(torch, lambda: rq["bf16_engine"](images, budget=budget), iters=10)
+            forward_ms[(name, budget)] = ms
+            emit({"phase": "timing_residual_int8", "scales": name, "batch": BATCH,
+                  "budget": budget, "ms_per_forward": ms, "images_per_s": BATCH / ms * 1e3,
+                  "bf16_engine_ms_per_forward": bf_ms, "bf16_images_per_s": BATCH / bf_ms * 1e3,
+                  "int8_over_bf16_time": ms / bf_ms, "card": smi})
+    vit_s = InferenceEngine(build_model("vit", AVIT_S16, seed=0, device=DEVICE), device=DEVICE)
+    av_images = av["images"]
+    with torch.inference_mode():
+        vit_ms = cuda_ms(torch, lambda: vit_s(av_images), iters=10)
+        for gname, e in av["engines"].items():
+            ms = cuda_ms(torch, lambda: e(av_images), iters=10)
+            forward_ms[gname] = ms
+            emit({"phase": "timing_avit", "gates": gname, "batch": BATCH, "ms_per_forward": ms,
+                  "images_per_s": BATCH / ms * 1e3, "vit_s16_bf16_ms_per_forward": vit_ms,
+                  "vit_s16_images_per_s": BATCH / vit_ms * 1e3, "avit_over_vit_time": ms / vit_ms,
+                  "note": "the A-ViT engine runs every layer on every token (halted tokens "
+                          "masked, as the JAX engine); ViT-S/16 is the same widths unmasked",
+                  "card": smi})
+
+        rows, rows_s = rq_ins["rows"], rq_ins["rows_s"]
+        m_ = rq_ins["m"]
+        qw = quant_ins["qw"]
+        ln_s, ln_b = qw[0], qw[1]
+        w_out, s_out = quant_ins["q"]["out"]
+        wlib = int_mm_weights(torch, quant_ins)
+        entries = []
+        src = "peekvit_torch/csrc/"
+
+        def entry(name, source, replaces, launches, path, kfn, pfn, lfn, ops, peak, nbytes,
+                  library):
+            ms = cuda_ms(torch, kfn)
+            plain_ms = cuda_ms(torch, pfn, iters=5)
+            lib_ms = cuda_ms(torch, lfn)
+            t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+            bnd, by = (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+            if launches == 0:
+                raise AssertionError(f"{name}: never launched on its path")
+            e = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                 "launches": launches, "max_abs_err": checks[name], "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms,
+                 "path": path, "shape_batch": BATCH}
+            emit({"phase": "timing_kernel", **e, "share_of_bound": bnd / ms, "library": library,
+                  "card": smi})
+            entries.append(e)
+
+        def lib_quant_masked(t, c):
+            v = F.layer_norm(t.float(), (d,), ln_s.float(), ln_b.float(), BLOCK_EPS) * \
+                m_.float()[:, None]
+            s = (v.abs().amax(-1, keepdim=True) / 127.0).clamp_min(1e-12) if c is None \
+                else tq.static_scale(c)
+            return torch.round(v / s).clamp(-127, 127).to(torch.int8), s
+
+        for key, (srcname, cap) in rq_ins["modes"].items():
+            t = rq_ins[srcname]
+            for c in (None, cap):
+                name = key + ("" if c is None else ".static") + ".masked"
+                nbytes = rows * d * (t.element_size() + 1) + (0 if c else rows * 4) + 4 * d + \
+                    rows * 2
+                entry(name, src + "quant_rows.cu",
+                      f"{REPLACES_Q}:42 _quant_rows after :73 _ln_f32 times the row mask "
+                      "(_q_layer_kernel mode masked :384-387, :411-413)",
+                      rq["counts"].get(name, 0), "residual int8",
+                      lambda t=t, c=c: tq.quant_rows(t, c, ln_s, ln_b, BLOCK_EPS, mask=m_),
+                      lambda t=t, c=c: tq.quant_rows_ref(t, c, ln_s, ln_b, BLOCK_EPS, mask=m_),
+                      lambda t=t, c=c: lib_quant_masked(t, c),
+                      13.0 * rows * d, PEAK_FP32_FLOPS, nbytes,
+                      "F.layer_norm * mask + amax, round, clamp")
+        for epi, (a, sa), res, mk, rr, count, path in (
+                ("masked_residual_f32", rq_ins["ac"], rq_ins["x"], m_, rows,
+                 rq["counts"].get("gemm_s8_epilogue.masked_residual_f32", 0), "residual int8"),
+                ("masked_residual", rq_ins["acs"], rq_ins["xs"], rq_ins["ms"], rows_s,
+                 rq["split_counts"].get("gemm_s8_epilogue.masked_residual", 0),
+                 "int8 split sublayers (sites 15-16, composition only)")):
+            out_b = 4 if epi.endswith("_f32") else 2
+
+            def lib(a=a, sa=sa, res=res, mk=mk, epi=epi):
+                v = (torch._int_mm(a, wlib[1]).float() * sa * s_out + b_out.float()) * \
+                    mk.float()[:, None] + res.float()
+                return v if epi.endswith("_f32") else v.to(bf16)
+
+            entry(f"gemm_s8_epilogue.{epi}", src + "gemm_s8_epilogue.cu",
+                  f"{REPLACES_Q}:63 _qmatmul and the masked out-proj of "
+                  + ("_q_layer_kernel :407-410" if epi.endswith("_f32")
+                     else "_q_masked_attn_kernel :277-279"), count, path,
+                  lambda a=a, sa=sa, res=res, mk=mk, epi=epi: tq.gemm_s8_epilogue(
+                      a, sa, w_out, s_out, b_out, epi, residual=res, mask=mk),
+                  lambda a=a, sa=sa, res=res, mk=mk, epi=epi: tq.gemm_s8_epilogue_ref(
+                      a, sa, w_out, s_out, b_out, epi, residual=res, mask=mk),
+                  lib, 2.0 * rr * d * d, PEAK_INT8_OPS,
+                  rr * d + d * d + rr * 4 + d * 6 + rr * d * (out_b + 2) + rr * 2,
+                  "torch._int_mm + dequant * mask + add")
+        ai = av["ins"]
+        a_frac = ai["masks"]["fraction"]
+        for srcname, key in (("x", "norm_rows.avit.bf16"), ("y", "norm_rows.avit.f32")):
+            t = ai[srcname]
+            width = t.shape[-1]
+            entry(key, src + "norm_rows.cu",
+                  f"{REPLACES}:578 _ln_f32_rows(x * a) * a in _layer_kernel mode avit :671-672, "
+                  ":704-705", av["counts"].get(key, 0), "avit",
+                  lambda t=t: fa.norm_rows(t, EPS, bf16, ai["s"], ai["b"], a_frac, premask=True),
+                  lambda t=t: fa.norm_rows_ref(t, EPS, bf16, ai["s"], ai["b"], a_frac,
+                                               premask=True),
+                  lambda t=t: (F.layer_norm(t * a_frac[:, None].to(t.dtype), (width,),
+                                            ai["s"].to(t.dtype), ai["b"].to(t.dtype), EPS)
+                               * a_frac[:, None]).to(bf16),
+                  10.0 * ai["rows"] * width, PEAK_FP32_FLOPS,
+                  ai["rows"] * width * (t.element_size() + 2) + 4 * width + ai["rows"] * 2,
+                  "F.layer_norm(x * a) * a")
+
+        # the two new compositions beside the layer from PyTorch calls
+        x3, m3 = rq_ins["x3"], rq_ins["m3"]
+        n_tok = x3.shape[1]
+        rr = BATCH * n_tok
+        t_ops = 2.0 * rr * (4 * d * d + 2 * d * m) / PEAK_INT8_OPS * 1e3
+        t_attn = 4.0 * rr * n_tok * d / PEAK_BF16_FLOPS * 1e3
+        emit({"phase": "timing_composition", "name": "quant_masked_layer_block",
+              "ms": cuda_ms(torch, lambda: tq.quant_masked_layer_block(x3, m3, *qw, h, BLOCK_EPS)),
+              "plain_ms": cuda_ms(torch, lambda: tq.quant_masked_layer_block_ref(
+                  x3, m3, *qw, h, BLOCK_EPS), iters=3),
+              "library_ms": cuda_ms(torch, lambda: library_quant_layer(
+                  torch, F, x3, m3, qw, h, BLOCK_EPS, wlib)),
+              "library": "the layer from PyTorch calls: F.layer_norm * mask, amax/round/clamp, "
+                         "torch._int_mm + dequant, SDPA (dynamic scales)",
+              "launches_per_call": 9, "tokens": n_tok, "batch": BATCH,
+              "int8_ops_ms_bound": t_ops, "attention_ops_ms_bound": t_attn,
+              "bound_ms": t_ops + t_attn, "max_abs_err": checks["quant_masked_layer_block"],
+              "replaces": f"{REPLACES_Q}:480 quant_masked_layer_block (_q_layer_kernel mode "
+                          "masked :359)", "card": smi})
+        h_av, d_av, m_av, n_av = (AVIT_S16["num_heads"], AVIT_S16["hidden_dim"],
+                                  AVIT_S16["mlp_dim"], ai["n"])
+        rr = BATCH * n_av
+        flops = 2.0 * rr * (4 * d_av * d_av + 2 * d_av * m_av + 2 * n_av * d_av)
+        emit({"phase": "timing_composition", "name": "avit_layer_block",
+              "ms": cuda_ms(torch, lambda: fa.avit_layer_block(ai["x3"], ai["a3"], *ai["w"],
+                                                               h_av, EPS)),
+              "plain_ms": cuda_ms(torch, lambda: fa.avit_layer_block_ref(
+                  ai["x3"], ai["a3"], *ai["w"], h_av, EPS), iters=3),
+              "library_ms": cuda_ms(torch, lambda: library_avit_layer(
+                  torch, F, ai["x3"], ai["a3"], ai["w"], h_av, EPS)),
+              "library": "the layer from PyTorch calls: F.layer_norm(x * a) * a, addmm, SDPA, "
+                         "gelu", "launches_per_call": 7, "tokens": n_av, "batch": BATCH,
+              "bound_ms": flops / PEAK_BF16_FLOPS * 1e3, "bound_by": "operations",
+              "max_abs_err": checks["avit_layer_block.fraction"],
+              "replaces": f"{REPLACES}:904 avit_layer_block (_layer_kernel mode avit :616)",
+              "card": smi})
+        profile_step(torch, smi, lambda: rq["engines"][RESIDUAL_INT8_PROFILE[0]](
+            images, budget=RESIDUAL_INT8_PROFILE[1]), forward_ms[RESIDUAL_INT8_PROFILE],
+                     phase="profile_residual_int8_forward")
+        profile_step(torch, smi, lambda: av["engines"]["mixed"](av_images), forward_ms["mixed"],
+                     phase="profile_avit_forward")
     return entries
 
 
@@ -2439,6 +3050,25 @@ def main() -> int:
                                      "compact": 0, "residual_train": 0, "rank": 0,
                                      "int8": entry["launches"]}
     kernels += quant_entries
+    # ------------------------------------ 21-24. ResidualViT int8 and A-ViT
+    rq_ins = residual_int8_kernel_checks(torch, tq, check, checks, randn, quant_ins, ln_s, ln_b,
+                                         b_out, d, h, smi)
+    rq = residual_int8_phases(torch, fa, tq, dev, smi, rq_ins, quant_ins["qw"], h)
+    av = avit_phases(torch, fa, check, checks, randn, dev, smi)
+    new_entries = new_paths_timing(torch, F, fa, tq, smi, checks, rq_ins, rq, av, quant_ins,
+                                   b_out, d, h, m)
+    for entry in kernels:  # the new paths run the earlier slices' kernels too
+        entry["launches_by_path"]["residual_int8"] = rq["counts"].get(entry["name"], 0)
+        entry["launches_by_path"]["avit"] = av["counts"].get(entry["name"], 0)
+    for entry in new_entries:
+        name = entry["name"]
+        entry["launches_by_path"] = {
+            **dict.fromkeys(("engine", "split", "train", "residual", "compact", "residual_train",
+                             "rank", "int8"), 0),
+            "residual_int8": rq["counts"].get(name, 0),
+            "int8_split_sublayers": rq["split_counts"].get(name, 0),
+            "avit": av["counts"].get(name, 0)}
+    kernels += new_entries
     emit({"phase": "elapsed", "seconds": time.perf_counter() - t_start, "card": smi})
 
     emit({"kernels": kernels})

@@ -8,11 +8,19 @@
 //   epilogue 1 "gelu_f32":     + bias, tanh-gelu -> fp32      (fc1, :417-418; h is never rounded)
 //   epilogue 2 "residual_f32": + bias + residual -> fp32      (merged out-proj, :408-411: y)
 //   epilogue 3 "residual":     + bias + residual -> bf16      (fc2 :420, split out-proj :173, fc2 :187)
-// The residual is bf16 (the layer input) or fp32 (the mid residual y).
+// and, with a per-row mask (the ResidualViT int8 layer, mode 'masked'):
+//   epilogue 4 "masked_residual_f32": (+ bias) * mask + residual -> fp32
+//                                     (merged out-proj, :407-410: y)
+//   epilogue 5 "masked_residual":     (+ bias) * mask + residual -> bf16
+//                                     (split out-proj, _q_masked_attn_kernel :277-279)
+// The residual is bf16 (the layer input) or fp32 (the mid residual y);
+// the mask is (M,) bf16, read as fp32, as gemm_bias_epilogue.cu's
+// epilogues 6 and 7. Site 16's MLP (_q_masked_mlp_kernel :293) keeps an
+// unmasked residual: epilogue 3.
 //
 // Numerics: s8 x s8 products summed in s32 by the tensor cores (exact),
-// then, as _qmatmul: v = float(acc) * s_row * s_col, then + bias, then +
-// residual, every step rounded in fp32 with the __f*_rn intrinsics, so
+// then, as _qmatmul: v = float(acc) * s_row * s_col, then + bias, then
+// (masked) * mask, then + residual, every step rounded in fp32 with the __f*_rn intrinsics, so
 // nvcc contracts none of them into an FMA (FMA contraction is off for the
 // epilogue arithmetic): the dequantized value is the plain version's,
 // bit for bit, and gelu differs only by tanhf's ulps. float(acc) rounds
@@ -125,7 +133,8 @@ __global__ void __launch_bounds__(THREADS)
 gemm_s8_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ w,
                const float* __restrict__ s_row, float s_static, const float* __restrict__ s_col,
                const __nv_bfloat16* __restrict__ bias, const RES* __restrict__ res,
-               OUT* __restrict__ out, int m, int n, int k) {
+               const __nv_bfloat16* __restrict__ mask, OUT* __restrict__ out, int m, int n,
+               int k) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   int8_t* sa = reinterpret_cast<int8_t*>(smem_raw);
   int8_t* sb = sa + STAGES * TILE;
@@ -195,13 +204,15 @@ gemm_s8_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ w,
   // Epilogue straight from the accumulator fragments: thread holds
   // (row g, cols 2t, 2t+1) and (row g + 8, same cols) of each 16 x 8 tile.
   const int g = lane >> 2, tq = lane & 3;
-  float sr[4][2];
+  constexpr bool kMask = EPI == 4 || EPI == 5;
+  float sr[4][2], mk[4][2];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = row0 + wm + i * 16 + g + h * 8;
       sr[i][h] = s_row == nullptr ? s_static : (row < m ? s_row[row] : 0.f);
+      mk[i][h] = kMask && row < m ? __bfloat162float(mask[row]) : 0.f;
     }
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
@@ -223,12 +234,16 @@ gemm_s8_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ w,
           v0 = gelu_tanh(v0);
           v1 = gelu_tanh(v1);
         }
-        if (EPI == 2 || EPI == 3) {
+        if (kMask) {
+          v0 = __fmul_rn(v0, mk[i][h]);
+          v1 = __fmul_rn(v1, mk[i][h]);
+        }
+        if (EPI >= 2) {
           const float2 r2 = load_res2<RES>(res + off);
           v0 = __fadd_rn(v0, r2.x);
           v1 = __fadd_rn(v1, r2.y);
         }
-        if (EPI == 1 || EPI == 2) {
+        if (EPI == 1 || EPI == 2 || EPI == 4) {
           *reinterpret_cast<float2*>(reinterpret_cast<float*>(out) + off) = make_float2(v0, v1);
         } else {
           *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<__nv_bfloat16*>(out) + off) =
@@ -241,7 +256,7 @@ gemm_s8_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ w,
 
 template <int EPI, typename RES, typename OUT>
 int launch(const void* a, const void* w, const void* s_row, float s_static, const void* s_col,
-           const void* bias, const void* res, void* out, int m, int n, int k,
+           const void* bias, const void* res, const void* mask, void* out, int m, int n, int k,
            cudaStream_t stream) {
   auto kern = gemm_s8_kernel<EPI, RES, OUT>;
   cudaError_t err =
@@ -252,44 +267,60 @@ int launch(const void* a, const void* w, const void* s_row, float s_static, cons
       static_cast<const int8_t*>(a), static_cast<const int8_t*>(w),
       static_cast<const float*>(s_row), s_static, static_cast<const float*>(s_col),
       static_cast<const __nv_bfloat16*>(bias), static_cast<const RES*>(res),
-      static_cast<OUT*>(out), m, n, k);
+      static_cast<const __nv_bfloat16*>(mask), static_cast<OUT*>(out), m, n, k);
   return (int)cudaGetLastError();
+}
+
+// An epilogue that reads the residual, in either residual type.
+template <int EPI, typename OUT>
+int launch_res(int res_f32, const void* a, const void* w, const void* s_row, float s_static,
+               const void* s_col, const void* bias, const void* res, const void* mask, void* out,
+               int m, int n, int k, cudaStream_t s) {
+  return res_f32 ? launch<EPI, float, OUT>(a, w, s_row, s_static, s_col, bias, res, mask, out, m,
+                                           n, k, s)
+                 : launch<EPI, __nv_bfloat16, OUT>(a, w, s_row, s_static, s_col, bias, res, mask,
+                                                   out, m, n, k, s);
 }
 
 }  // namespace
 
 // epilogue: 0 bias -> bf16, 1 bias + tanh-gelu -> fp32, 2 bias + residual
-// -> fp32, 3 bias + residual -> bf16. a: (m, k) int8; w: (n, k) int8 (the
+// -> fp32, 3 bias + residual -> bf16, 4 (bias) * mask + residual -> fp32,
+// 5 (bias) * mask + residual -> bf16. a: (m, k) int8; w: (n, k) int8 (the
 // (out, in) layout); s_row: (m,) fp32, or null to use s_static for every
 // row; s_col: (n,) fp32; bias: (n,) bf16; res: (m, n), fp32 (res_f32 = 1)
-// or bf16 (0), read by epilogues 2 and 3 only; out: (m, n) in the
-// epilogue's type. Returns the cudaError_t of the launch (an unknown
-// epilogue, or 2 or 3 without a residual, returns cudaErrorInvalidValue).
+// or bf16 (0), read by epilogues 2-5 only; mask: (m,) bf16, read by 4 and
+// 5 only; out: (m, n) in the epilogue's type. Returns the cudaError_t of
+// the launch (an unknown epilogue, 2-5 without a residual or 4-5 without
+// a mask returns cudaErrorInvalidValue).
 extern "C" int peekvit_gemm_s8_epilogue(const void* a, const void* w, const void* s_row,
                                         float s_static, const void* s_col, const void* bias,
-                                        const void* res, void* out, int m, int n, int k,
-                                        int epilogue, int res_f32, void* stream) {
+                                        const void* res, const void* mask, void* out, int m,
+                                        int n, int k, int epilogue, int res_f32, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (m == 0) return 0;
   if (k % 16 != 0 || n % 8 != 0) return (int)cudaErrorInvalidValue;
+  if (epilogue >= 2 && res == nullptr) return (int)cudaErrorInvalidValue;
+  if (epilogue >= 4 && mask == nullptr) return (int)cudaErrorInvalidValue;
   switch (epilogue) {
     case 0:
-      return launch<0, float, __nv_bfloat16>(a, w, s_row, s_static, s_col, bias, res, out, m, n,
-                                             k, s);
+      return launch<0, float, __nv_bfloat16>(a, w, s_row, s_static, s_col, bias, res, mask, out,
+                                             m, n, k, s);
     case 1:
-      return launch<1, float, float>(a, w, s_row, s_static, s_col, bias, res, out, m, n, k, s);
+      return launch<1, float, float>(a, w, s_row, s_static, s_col, bias, res, mask, out, m, n, k,
+                                     s);
     case 2:
+      return launch_res<2, float>(res_f32, a, w, s_row, s_static, s_col, bias, res, mask, out, m,
+                                  n, k, s);
     case 3:
-      if (res == nullptr) return (int)cudaErrorInvalidValue;
-      if (epilogue == 2)
-        return res_f32 ? launch<2, float, float>(a, w, s_row, s_static, s_col, bias, res, out, m,
-                                                 n, k, s)
-                       : launch<2, __nv_bfloat16, float>(a, w, s_row, s_static, s_col, bias, res,
-                                                         out, m, n, k, s);
-      return res_f32 ? launch<3, float, __nv_bfloat16>(a, w, s_row, s_static, s_col, bias, res,
-                                                       out, m, n, k, s)
-                     : launch<3, __nv_bfloat16, __nv_bfloat16>(a, w, s_row, s_static, s_col, bias,
-                                                               res, out, m, n, k, s);
+      return launch_res<3, __nv_bfloat16>(res_f32, a, w, s_row, s_static, s_col, bias, res, mask,
+                                          out, m, n, k, s);
+    case 4:
+      return launch_res<4, float>(res_f32, a, w, s_row, s_static, s_col, bias, res, mask, out, m,
+                                  n, k, s);
+    case 5:
+      return launch_res<5, __nv_bfloat16>(res_f32, a, w, s_row, s_static, s_col, bias, res, mask,
+                                          out, m, n, k, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -3,7 +3,7 @@
 // Replaces the normalization step of the Pallas layer kernel,
 // peekvit_tpu/ops/pallas/fused_attention.py:583 _norm_rows (one-pass
 // statistics, no affine: the LN affine is folded into the next matmul's
-// weights) and, with two_pass=1, the two-pass LayerNorm with affine of
+// weights) and, with mode 1, the two-pass LayerNorm with affine of
 // _attn_block_kernel (fused_attention.py:253-258) used by the split
 // fused_attention_block path.
 //
@@ -15,6 +15,13 @@
 // _masked_mlp_kernel :426-432). The affine cannot be folded there: the row
 // mask does not commute with the folded bias term.
 //
+// With mode 2 it carries A-ViT's LN(x * a) * a (_layer_kernel mode 'avit',
+// :671-672 and :704-705; reference adavit.py:65-70): each value is
+// multiplied by its row's mask in fp32 BEFORE the one-pass statistics,
+// then the affine, then the mask again. For a 0/1 mask this is the masked
+// mode's value (up to the sign of a zero), but the Pallas contract takes
+// any mask, so the kernel computes the contract.
+//
 // Bound on H100: bytes. A ViT-B row is 768 values; the kernel reads the
 // row and writes it back in bf16, a few flops per byte. Design: one warp
 // owns a row, reads it with 16-byte vector loads (8 bf16 or 4 fp32 per
@@ -25,7 +32,8 @@
 // Numerics follow the Pallas kernel: statistics in fp32,
 // var = max(E[x^2] - mu^2, 0) (one pass) or E[(x - mu)^2] (two passes),
 // rsqrt(var + eps), then * scale + bias, then * mask[row] (the bf16 mask
-// read as fp32), one rounding to bf16 at the end.
+// read as fp32), one rounding to bf16 at the end; mode 2 first takes
+// x * mask[row] in fp32 as the row.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -69,7 +77,7 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p, const float* v) {
   *reinterpret_cast<uint4*>(p) = raw;
 }
 
-template <typename T, bool kTwoPass, bool kAffine, bool kMask>
+template <typename T, bool kTwoPass, bool kAffine, bool kMask, bool kPreMask>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 norm_rows_kernel(const T* __restrict__ x, const __nv_bfloat16* __restrict__ scale,
                  const __nv_bfloat16* __restrict__ bias,
@@ -82,11 +90,16 @@ norm_rows_kernel(const T* __restrict__ x, const __nv_bfloat16* __restrict__ scal
   const T* xr = x + row * d;
   __nv_bfloat16* orow = out + row * d;
   const float inv_d = 1.0f / (float)d;
+  const float m = kMask ? __bfloat162float(mask[row]) : 1.f;
   float v[8];
 
   float sum = 0.f, sq = 0.f;
   for (int c = lane * 8; c < d; c += 256) {
     load8(xr + c, v);
+    if (kPreMask) {  // rounded, as the plain version's x * a
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[i] = __fmul_rn(v[i], m);
+    }
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       sum += v[i];
@@ -112,10 +125,13 @@ norm_rows_kernel(const T* __restrict__ x, const __nv_bfloat16* __restrict__ scal
     var = fmaxf(sq * inv_d - mu * mu, 0.f);
   }
   const float rs = rsqrtf(var + eps);
-  const float m = kMask ? __bfloat162float(mask[row]) : 1.f;
 
   for (int c = lane * 8; c < d; c += 256) {
     load8(xr + c, v);
+    if (kPreMask) {  // rounded, as the plain version's x * a
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[i] = __fmul_rn(v[i], m);
+    }
 #pragma unroll
     for (int i = 0; i < 8; ++i) v[i] = (v[i] - mu) * rs;
     if (kAffine) {
@@ -133,11 +149,12 @@ norm_rows_kernel(const T* __restrict__ x, const __nv_bfloat16* __restrict__ scal
   }
 }
 
-template <typename T, bool kTwoPass, bool kAffine, bool kMask>
+template <typename T, bool kTwoPass, bool kAffine, bool kMask, bool kPreMask = false>
 int launch(const void* x, const void* scale, const void* bias, const void* mask, void* out,
            long long rows, int d, float eps, cudaStream_t stream) {
   const unsigned grid = (unsigned)((rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  norm_rows_kernel<T, kTwoPass, kAffine, kMask><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
+  norm_rows_kernel<T, kTwoPass, kAffine, kMask, kPreMask>
+      <<<grid, kWarpsPerBlock * 32, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const __nv_bfloat16*>(scale),
       static_cast<const __nv_bfloat16*>(bias), static_cast<const __nv_bfloat16*>(mask),
       static_cast<__nv_bfloat16*>(out), rows, d, eps);
@@ -146,9 +163,13 @@ int launch(const void* x, const void* scale, const void* bias, const void* mask,
 
 template <typename T>
 int dispatch(const void* x, const void* scale, const void* bias, const void* mask, void* out,
-             long long rows, int d, float eps, int two_pass, cudaStream_t s) {
+             long long rows, int d, float eps, int mode, cudaStream_t s) {
   const bool affine = scale != nullptr, masked = mask != nullptr;
-  if (two_pass) {
+  if (mode == 2) {
+    if (!affine || !masked) return (int)cudaErrorInvalidValue;
+    return launch<T, false, true, true, true>(x, scale, bias, mask, out, rows, d, eps, s);
+  }
+  if (mode == 1) {
     if (!affine) return (int)cudaErrorInvalidValue;
     return masked ? launch<T, true, true, true>(x, scale, bias, mask, out, rows, d, eps, s)
                   : launch<T, true, true, false>(x, scale, bias, mask, out, rows, d, eps, s);
@@ -163,19 +184,21 @@ int dispatch(const void* x, const void* scale, const void* bias, const void* mas
 // x: (rows, d) bf16 (in_f32 = 0) or fp32 (in_f32 = 1), row-major; out:
 // (rows, d) bf16. scale and bias ((d,) bf16, or both null) select the
 // affine; mask ((rows,) bf16, or null) multiplies each output row.
-// two_pass = 1 selects two-pass statistics and needs the affine; one-pass
-// statistics take the affine exactly when they take the mask (unmasked,
-// the affine is folded into the next GEMM). Other combinations return
-// cudaErrorInvalidValue. d must be a multiple of 8 and x, scale, bias and
+// mode 0: one-pass statistics, which take the affine exactly when they
+// take the mask (unmasked, the affine is folded into the next GEMM);
+// mode 1: two-pass statistics, needs the affine; mode 2: A-ViT's
+// LN(x * mask) * mask, one-pass, needs the affine and the mask. Other
+// combinations return cudaErrorInvalidValue. d must be a multiple of 8 and x, scale, bias and
 // out 16-byte aligned (the wrapper checks). Returns the cudaError_t of
 // the launch.
 extern "C" int peekvit_norm_rows(const void* x, int in_f32, const void* scale,
                                  const void* bias, const void* mask, void* out,
-                                 long long rows, int d, float eps, int two_pass,
+                                 long long rows, int d, float eps, int mode,
                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rows == 0) return 0;
-  if ((scale == nullptr) != (bias == nullptr)) return (int)cudaErrorInvalidValue;
-  return in_f32 ? dispatch<float>(x, scale, bias, mask, out, rows, d, eps, two_pass, s)
-                : dispatch<__nv_bfloat16>(x, scale, bias, mask, out, rows, d, eps, two_pass, s);
+  if ((scale == nullptr) != (bias == nullptr) || mode < 0 || mode > 2)
+    return (int)cudaErrorInvalidValue;
+  return in_f32 ? dispatch<float>(x, scale, bias, mask, out, rows, d, eps, mode, s)
+                : dispatch<__nv_bfloat16>(x, scale, bias, mask, out, rows, d, eps, mode, s);
 }

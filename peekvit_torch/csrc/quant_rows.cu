@@ -7,13 +7,20 @@
 // :385-388), the bf16 attention output (:407), LN2 of the fp32 mid
 // residual y (:413-416) and the fp32 gelu output (:419); _q_attn_kernel
 // (:145) and _q_mlp_kernel (:177), the split sublayers, run the same
-// steps.
+// steps. With a row mask it carries the ResidualViT int8 layer's
+// mask * LN(x) (_q_layer_kernel mode 'masked', :384-387 and :411-413;
+// _q_masked_attn_kernel :259 and _q_masked_mlp_kernel :289): the LN
+// output times the row's mask in fp32, and only then the scale and the
+// codes. The mask is continuous (relu(sig - thr) in [0, 1)), so with a
+// static cap the multiply comes before the rounding; a row of zeros
+// takes the 1e-12 floor and all-zero codes.
 //
 // Numerics follow the Pallas kernel, every step in fp32:
 //   LN (optional): mu = sum(x) / d, ms = sum(x * x) / d,
 //     var = max(ms - mu * mu, 0), v = (x - mu) * rsqrt(var + eps) * scale
 //     + bias; the affine is applied, not folded, and v is never rounded
-//     to bf16 (unlike norm_rows);
+//     to bf16 (unlike norm_rows); masked: v = v * mask[row] (bf16 mask
+//     read as fp32);
 //   dynamic: s = max(max|v| / 127, 1e-12), one per row, written out;
 //   static: s = max(cap, 1e-12) / 127, computed by the wrapper and shared
 //     by every row (values beyond the cap saturate);
@@ -74,10 +81,11 @@ __device__ __forceinline__ void load8(const float* p, float* v) {
 }
 
 // C: chunks of 256 values (8 per lane) a row may hold; d <= 256 * C.
-template <typename T, int C, bool kLN, bool kStatic>
+template <typename T, int C, bool kLN, bool kMask, bool kStatic>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 quant_rows_kernel(const T* __restrict__ x, const __nv_bfloat16* __restrict__ scale,
-                  const __nv_bfloat16* __restrict__ bias, int8_t* __restrict__ codes,
+                  const __nv_bfloat16* __restrict__ bias,
+                  const __nv_bfloat16* __restrict__ mask, int8_t* __restrict__ codes,
                   float* __restrict__ row_scale, long long rows, int d, float eps,
                   float s_static) {
   const int lane = threadIdx.x & 31;
@@ -110,6 +118,7 @@ quant_rows_kernel(const T* __restrict__ x, const __nv_bfloat16* __restrict__ sca
     const float ms = __fdiv_rn(warp_sum(sq), fd);
     const float var = fmaxf(__fsub_rn(ms, __fmul_rn(mu, mu)), 0.f);
     const float rs = rsqrtf(__fadd_rn(var, eps));
+    const float m = kMask ? __bfloat162float(mask[row]) : 1.f;
 #pragma unroll
     for (int c = 0; c < C; ++c) {
       const int col = c * 256 + lane * 8;
@@ -118,96 +127,110 @@ quant_rows_kernel(const T* __restrict__ x, const __nv_bfloat16* __restrict__ sca
       load8(scale + col, s);
       load8(bias + col, b);
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+      for (int i = 0; i < 8; ++i) {
         v[c][i] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v[c][i], mu), rs), s[i]), b[i]);
+        if (kMask) v[c][i] = __fmul_rn(v[c][i], m);
+      }
     }
   }
 
-  float s;
-  if (kStatic) {
-    s = s_static;
-  } else {
-    float amax = 0.f;
+  // The row's absmax: the dynamic scale, and for both modes the test for
+  // an all-zero row (a masked row, or gelu(0)), whose codes are 0 and
+  // which skips the division on a warp-uniform branch: a zero dividend
+  // takes __fdiv_rn's slow path. (fmaxf drops NaN, so a row of zeros and
+  // NaN, the garbage a key-masked engine leaves in excluded rows, also
+  // gets zero codes.)
+  float amax = 0.f;
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      if (c * 256 + lane * 8 >= d) continue;
+  for (int c = 0; c < C; ++c) {
+    if (c * 256 + lane * 8 >= d) continue;
 #pragma unroll
-      for (int i = 0; i < 8; ++i) amax = fmaxf(amax, fabsf(v[c][i]));
-    }
-    s = fmaxf(__fdiv_rn(warp_max(amax), 127.f), 1e-12f);
+    for (int i = 0; i < 8; ++i) amax = fmaxf(amax, fabsf(v[c][i]));
+  }
+  amax = warp_max(amax);
+  float s = s_static;
+  if (!kStatic) {
+    s = fmaxf(__fdiv_rn(amax, 127.f), 1e-12f);
     if (lane == 0) row_scale[row] = s;
   }
 
   int8_t* cr = codes + row * d;
+  const bool zero_row = amax == 0.f;
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     const int col = c * 256 + lane * 8;
     if (col >= d) continue;
     uint32_t packed[2] = {0u, 0u};
+    if (!zero_row) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float q = fminf(fmaxf(rintf(__fdiv_rn(v[c][i], s)), -127.f), 127.f);
-      packed[i >> 2] |= (uint32_t)(uint8_t)(int8_t)(int)q << (8 * (i & 3));
+      for (int i = 0; i < 8; ++i) {
+        const float q = fminf(fmaxf(rintf(__fdiv_rn(v[c][i], s)), -127.f), 127.f);
+        packed[i >> 2] |= (uint32_t)(uint8_t)(int8_t)(int)q << (8 * (i & 3));
+      }
     }
     *reinterpret_cast<uint2*>(cr + col) = make_uint2(packed[0], packed[1]);
   }
 }
 
-template <typename T, int C, bool kLN, bool kStatic>
-int launch(const void* x, const void* scale, const void* bias, void* codes, void* row_scale,
-           long long rows, int d, float eps, float s_static, cudaStream_t stream) {
-  const unsigned grid = (unsigned)((rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  quant_rows_kernel<T, C, kLN, kStatic><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const __nv_bfloat16*>(scale),
-      static_cast<const __nv_bfloat16*>(bias), static_cast<int8_t*>(codes),
-      static_cast<float*>(row_scale), rows, d, eps, s_static);
+struct Args {
+  const void* x;
+  const void* scale;
+  const void* bias;
+  const void* mask;
+  void* codes;
+  void* row_scale;
+  long long rows;
+  int d;
+  float eps;
+  float s_static;
+};
+
+template <typename T, int C, bool kLN, bool kMask, bool kStatic>
+int launch(const Args& a, cudaStream_t stream) {
+  const unsigned grid = (unsigned)((a.rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
+  quant_rows_kernel<T, C, kLN, kMask, kStatic><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
+      static_cast<const T*>(a.x), static_cast<const __nv_bfloat16*>(a.scale),
+      static_cast<const __nv_bfloat16*>(a.bias), static_cast<const __nv_bfloat16*>(a.mask),
+      static_cast<int8_t*>(a.codes), static_cast<float*>(a.row_scale), a.rows, a.d, a.eps,
+      a.s_static);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int C>
-int by_mode(const void* x, const void* scale, const void* bias, void* codes, void* row_scale,
-            long long rows, int d, float eps, float s_static, int is_static, cudaStream_t s) {
-  const bool ln = scale != nullptr;
-  if (ln)
-    return is_static ? launch<T, C, true, true>(x, scale, bias, codes, row_scale, rows, d, eps,
-                                                s_static, s)
-                     : launch<T, C, true, false>(x, scale, bias, codes, row_scale, rows, d, eps,
-                                                 s_static, s);
-  return is_static ? launch<T, C, false, true>(x, scale, bias, codes, row_scale, rows, d, eps,
-                                               s_static, s)
-                   : launch<T, C, false, false>(x, scale, bias, codes, row_scale, rows, d, eps,
-                                                s_static, s);
+template <typename T, int C, bool kStatic>
+int by_mode(const Args& a, cudaStream_t s) {
+  if (a.scale == nullptr) return launch<T, C, false, false, kStatic>(a, s);
+  return a.mask != nullptr ? launch<T, C, true, true, kStatic>(a, s)
+                           : launch<T, C, true, false, kStatic>(a, s);
 }
 
 template <typename T>
-int by_width(const void* x, const void* scale, const void* bias, void* codes, void* row_scale,
-             long long rows, int d, float eps, float s_static, int is_static, cudaStream_t s) {
-  if (d <= 4 * 256)
-    return by_mode<T, 4>(x, scale, bias, codes, row_scale, rows, d, eps, s_static, is_static, s);
-  return by_mode<T, 12>(x, scale, bias, codes, row_scale, rows, d, eps, s_static, is_static, s);
+int by_width(const Args& a, int is_static, cudaStream_t s) {
+  if (a.d <= 4 * 256)
+    return is_static ? by_mode<T, 4, true>(a, s) : by_mode<T, 4, false>(a, s);
+  return is_static ? by_mode<T, 12, true>(a, s) : by_mode<T, 12, false>(a, s);
 }
 
 }  // namespace
 
 // x: (rows, d) bf16 (in_f32 = 0) or fp32 (in_f32 = 1), row-major. scale
-// and bias ((d,) bf16, or both null) select the LN with its affine.
-// codes: (rows, d) int8 out. is_static = 0: row_scale ((rows,) fp32) gets
-// each row's scale; is_static = 1: every row uses s_static (the wrapper's
-// max(cap, 1e-12) / 127) and row_scale is not written. d must be a
-// multiple of 8 and at most 3072; x, scale, bias 16-byte and codes 8-byte
-// aligned (the wrapper checks). Other inputs return cudaErrorInvalidValue.
-// Returns the cudaError_t of the launch.
+// and bias ((d,) bf16, or both null) select the LN with its affine; mask
+// ((rows,) bf16, or null; only with the LN) multiplies each LN output row
+// before the scale and the codes. codes: (rows, d) int8 out. is_static =
+// 0: row_scale ((rows,) fp32) gets each row's scale; is_static = 1: every
+// row uses s_static (the wrapper's max(cap, 1e-12) / 127) and row_scale
+// is not written. d must be a multiple of 8 and at most 3072; x, scale,
+// bias 16-byte and codes 8-byte aligned (the wrapper checks). Other
+// inputs return cudaErrorInvalidValue. Returns the cudaError_t of the
+// launch.
 extern "C" int peekvit_quant_rows(const void* x, int in_f32, const void* scale,
-                                  const void* bias, void* codes, void* row_scale,
-                                  long long rows, int d, float eps, float s_static,
-                                  int is_static, void* stream) {
+                                  const void* bias, const void* mask, void* codes,
+                                  void* row_scale, long long rows, int d, float eps,
+                                  float s_static, int is_static, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rows == 0) return 0;
-  if ((scale == nullptr) != (bias == nullptr) || d % 8 != 0 || d <= 0 || d > 12 * 256 ||
-      (!is_static && row_scale == nullptr))
+  if ((scale == nullptr) != (bias == nullptr) || (mask != nullptr && scale == nullptr) ||
+      d % 8 != 0 || d <= 0 || d > 12 * 256 || (!is_static && row_scale == nullptr))
     return (int)cudaErrorInvalidValue;
-  return in_f32 ? by_width<float>(x, scale, bias, codes, row_scale, rows, d, eps, s_static,
-                                  is_static, s)
-                : by_width<__nv_bfloat16>(x, scale, bias, codes, row_scale, rows, d, eps,
-                                          s_static, is_static, s);
+  const Args a{x, scale, bias, mask, codes, row_scale, rows, d, eps, s_static};
+  return in_f32 ? by_width<float>(a, is_static, s) : by_width<__nv_bfloat16>(a, is_static, s);
 }

@@ -1,9 +1,10 @@
-"""Fused eval engines for the plain ViT, the ResidualViT family and RankViT,
-in bf16 and (ViT, RankViT) int8 (counterpart of peekvit_tpu/inference.py:
+"""Fused eval engines for the plain ViT, the ResidualViT family, RankViT and
+A-ViT, in bf16 and (ViT, ResidualViT, RankViT) int8 (counterpart of
+peekvit_tpu/inference.py:
 ``prepare_engine_params``, ``vit_forward_fused``, ``_encoder_stack``,
 ``residualvit_forward_fused``, ``rankvit_forward_fused``,
-``rankvit_forward_padded``, the int8 forwards and calibration, and
-``InferenceEngine``).
+``rankvit_forward_padded``, ``adavit_forward_fused``, the int8 forwards
+and calibration, and ``InferenceEngine``).
 
 For a plain ViT the engine reads the model's weights into a param tree in
 the JAX grammar, folds the LN affines into the qkv/fc1 weights and the
@@ -28,12 +29,17 @@ keeps one set of shapes for every budget up to it
 tokens, the tail past the budget's count is zeroed and excluded as keys by
 the key-masked folded layer.
 
-``quantized=True`` (ViT and RankViT) serves int8 w8a8: the weights
-quantized per output column at build (``quantize_vit_params``, optionally
+For an A-ViT the ACT carry (cumulative halting, remainder, active mask)
+runs in torch in fp32 and each layer runs ``avit_layer_block`` on the
+kernels (``adavit_forward_fused``).
+
+``quantized=True`` (ViT, RankViT and the ResidualViT family) serves int8
+w8a8: the weights quantized per output column at build
+(``quantize_vit_params``, ``quantize_residualvit_params``, optionally
 after SmoothQuant and with static activation caps from calibration
 images), every layer the int8 layer of ``ops/cuda/quant_blocks.py``
 (``vit_forward_quant``, ``rankvit_forward_quant``,
-``rankvit_forward_padded_quant``).
+``rankvit_forward_padded_quant``, ``residualvit_forward_quant``).
 
 Usage::
 
@@ -49,6 +55,9 @@ Usage::
 
     engine = InferenceEngine(model, quantized=True, calib_images=calib,
                              calib_static_caps=True)
+
+    engine = InferenceEngine(build_model("adavit", args))
+    logits = engine(images)
 """
 
 from __future__ import annotations
@@ -61,12 +70,15 @@ import torch
 import torch.nn.functional as F
 
 from peekvit_torch.models.adapters import module_params, tree_map
+from peekvit_torch.models.adavit import AdaptiveVisionTransformer
 from peekvit_torch.models.eeresidualvit import EEResidualVisionTransformer
 from peekvit_torch.models.rankvit import RankVisionTransformer
 from peekvit_torch.models.registry import resolve_device
 from peekvit_torch.models.residualvit import ResidualVisionTransformer
 from peekvit_torch.models.vit import VisionTransformer
 from peekvit_torch.ops.cuda.fused_attention import (
+    avit_layer_block,
+    avit_layer_block_ref,
     encoder_layers_one_call,
     encoder_layers_one_call_ref,
     fold_ln_into_weights,
@@ -94,6 +106,8 @@ from peekvit_torch.ops.cuda.quant_blocks import (
     quant_keymasked_layer_block_ref,
     quant_layer_block,
     quant_layer_block_ref,
+    quant_masked_layer_block,
+    quant_masked_layer_block_ref,
     quant_mlp_block,
     quant_mlp_block_ref,
     quantize_linear,
@@ -347,13 +361,43 @@ _MASKED_KERNELS = (masked_layer_block, masked_attention_block, masked_mlp_block)
 _MASKED_PLAIN = (masked_layer_block_ref, masked_attention_block_ref, masked_mlp_block_ref)
 
 
-def _residual_forward(params, images, budget, blocks, *, patch_size: int, num_heads: int,
+def _residual_layers(blocks, num_heads: int, compute_dtype):
+    """The bf16 ResidualViT layer over ``blocks`` (masked_layer_block,
+    masked_attention_block, masked_mlp_block or their plain twins) for
+    :func:`_residual_forward`: the merged layer, else the split
+    sublayers."""
+    layer_block, attention_block, mlp_block = blocks
+
+    def cast(t):
+        return t.to(compute_dtype)
+
+    def run(tokens, fwd_mask, lp, li, merged, ph_mult, ph_idx):
+        at, mlp = lp["self_attention"], lp["mlp"]
+        weights = (cast(lp["ln_1"]["scale"]), cast(lp["ln_1"]["bias"]),
+                   cast(at["in_proj_kernel"]), cast(at["in_proj_bias"]),
+                   cast(at["out_proj_kernel"]), cast(at["out_proj_bias"]),
+                   cast(lp["ln_2"]["scale"]), cast(lp["ln_2"]["bias"]),
+                   cast(mlp["fc1_kernel"]), cast(mlp["fc1_bias"]),
+                   cast(mlp["fc2_kernel"]), cast(mlp["fc2_bias"]))
+        if merged:
+            return layer_block(tokens, fwd_mask, *weights, num_heads, 1e-6, ph_mult, ph_idx)
+        tokens = attention_block(tokens, fwd_mask, *weights[:6], num_heads, 1e-6, ph_mult,
+                                 ph_idx)
+        return mlp_block(tokens, fwd_mask, *weights[6:], 1e-6)
+
+    return run
+
+
+def _residual_forward(params, images, budget, run_layer, *, patch_size: int,
                       num_class_tokens: int = 1, num_registers: int = 0,
                       gate_temp: float = 1.0, gate_bias: float = 0.0,
                       budget_token: Any = "learnable", compute_dtype=torch.bfloat16,
                       early_exits: bool = False, compact_caps: Optional[tuple] = None,
                       masks: Optional[dict] = None):
-    layer_block, attention_block, mlp_block = blocks
+    """The gates, the budget token, compaction and the early exits around
+    ``run_layer(tokens, fwd_mask, layer params, layer position, merged,
+    phantom_mult, phantom_idx)``, the bf16 (:func:`_residual_layers`) or
+    the int8 (:func:`_quant_residual_layers`) layer."""
 
     def cast(t):
         return t.to(compute_dtype)
@@ -427,19 +471,8 @@ def _residual_forward(params, images, budget, blocks, *, patch_size: int, num_he
             tokens = torch.cat([tokens[:, :s], mask * img, tokens[:, -1:]], dim=1)
             ph_mult, ph_idx = 0.0, -1
 
-        at, mlp = lp["self_attention"], lp["mlp"]
-        weights = (cast(lp["ln_1"]["scale"]), cast(lp["ln_1"]["bias"]),
-                   cast(at["in_proj_kernel"]), cast(at["in_proj_bias"]),
-                   cast(at["out_proj_kernel"]), cast(at["out_proj_bias"]),
-                   cast(lp["ln_2"]["scale"]), cast(lp["ln_2"]["bias"]),
-                   cast(mlp["fc1_kernel"]), cast(mlp["fc1_bias"]),
-                   cast(mlp["fc2_kernel"]), cast(mlp["fc2_bias"]))
-        if compact_caps is None or tokens.shape[1] >= _MERGED_MIN_TOKENS:
-            tokens = layer_block(tokens, fwd_mask, *weights, num_heads, 1e-6, ph_mult, ph_idx)
-        else:
-            tokens = attention_block(tokens, fwd_mask, *weights[:6], num_heads, 1e-6,
-                                     ph_mult, ph_idx)
-            tokens = mlp_block(tokens, fwd_mask, *weights[6:], 1e-6)
+        merged = compact_caps is None or tokens.shape[1] >= _MERGED_MIN_TOKENS
+        tokens = run_layer(tokens, fwd_mask, lp, li, merged, ph_mult, ph_idx)
         if early_exits:
             ln_p = enc[f"early_exit_heads_{i}_ln"]
             hd_p = enc[f"early_exit_heads_{i}_head"]
@@ -482,10 +515,11 @@ def residualvit_forward_fused(params, images, budget: float, *, patch_size: int,
     (B, N_img, 1), or with compaction the gate's decision over the image
     slots the layer was given, before the top-``cap`` gather."""
     return _residual_forward(
-        params, images, budget, _MASKED_KERNELS, patch_size=patch_size, num_heads=num_heads,
-        num_class_tokens=num_class_tokens, num_registers=num_registers, gate_temp=gate_temp,
-        gate_bias=gate_bias, budget_token=budget_token, compute_dtype=compute_dtype,
-        early_exits=early_exits, compact_caps=compact_caps, masks=masks)
+        params, images, budget, _residual_layers(_MASKED_KERNELS, num_heads, compute_dtype),
+        patch_size=patch_size, num_class_tokens=num_class_tokens, num_registers=num_registers,
+        gate_temp=gate_temp, gate_bias=gate_bias, budget_token=budget_token,
+        compute_dtype=compute_dtype, early_exits=early_exits, compact_caps=compact_caps,
+        masks=masks)
 
 
 def residualvit_forward_plain(params, images, budget: float, *, patch_size: int,
@@ -499,10 +533,11 @@ def residualvit_forward_plain(params, images, budget: float, *, patch_size: int,
     versions, whatever the device: the reference a check holds the engine
     against on the card."""
     return _residual_forward(
-        params, images, budget, _MASKED_PLAIN, patch_size=patch_size, num_heads=num_heads,
-        num_class_tokens=num_class_tokens, num_registers=num_registers, gate_temp=gate_temp,
-        gate_bias=gate_bias, budget_token=budget_token, compute_dtype=compute_dtype,
-        early_exits=early_exits, compact_caps=compact_caps, masks=masks)
+        params, images, budget, _residual_layers(_MASKED_PLAIN, num_heads, compute_dtype),
+        patch_size=patch_size, num_class_tokens=num_class_tokens, num_registers=num_registers,
+        gate_temp=gate_temp, gate_bias=gate_bias, budget_token=budget_token,
+        compute_dtype=compute_dtype, early_exits=early_exits, compact_caps=compact_caps,
+        masks=masks)
 
 
 # ---------------------------------------------------------------- RankViT
@@ -987,6 +1022,248 @@ def rankvit_forward_padded_quant_plain(qparams, images, budget: float, *, max_bu
                        kept_idx=kept_idx, kept_out=kept_out)
 
 
+# ------------------------------------------------------- ResidualViT int8 (w8a8)
+
+
+def quantize_residualvit_params(params: dict) -> dict:
+    """:func:`quantize_vit_params` for the ResidualViT family (JAX
+    ``quantize_residualvit_params``, inference.py:1971): the four big
+    matrices int8; the gate projections, the budget-token gates, the
+    learnable budget tokens and the early-exit heads stay as they are."""
+    q = quantize_vit_params(params)
+    for name, lp in params["encoder"].items():
+        if name.startswith("early_exit_heads_"):
+            q["encoder"][name] = lp
+        elif name.startswith("layers_"):
+            q["encoder"][name]["residual_gate"] = lp["residual_gate"]
+            if "budget_token_gate" in lp:
+                q["encoder"][name]["budget_token_gate"] = lp["budget_token_gate"]
+    for key in ("learnable_budget_token_1", "learnable_budget_token_2"):
+        if key in params:
+            q[key] = params[key]
+    return q
+
+
+def collect_residualvit_activation_stats(params, images, budget: float = 1.0, *,
+                                         patch_size: int, num_heads: int,
+                                         num_class_tokens: int = 1, num_registers: int = 0,
+                                         gate_temp: float = 1.0, gate_bias: float = 0.0,
+                                         budget_token: Any = "learnable",
+                                         percentile: float = 99.9):
+    """Calibration of the ResidualViT int8 engine (JAX
+    ``collect_residualvit_activation_stats``, inference.py:768): an fp32
+    eager forward with the gates and the masked LNs (two-pass, eps 1e-6),
+    linen's attention core and tanh-gelu, at ``budget`` (1.0: masking only
+    removes tokens, so full-budget statistics bound every sparser budget).
+    Returns ``(caps, smoothing)``: per layer the ``percentile`` of
+    |activation| at the four quantized sites, ((attn_ln, attn_out),
+    (mlp_ln, mlp_h)), and the SmoothQuant vectors (s1, s2) of the two
+    masked LN outputs."""
+
+    def cast(t):
+        return t.float()
+
+    with torch.no_grad():
+        c = num_class_tokens
+        tokens, d = _embed(params, images, patch_size, c, num_registers, cast)
+        b, dev = tokens.shape[0], tokens.device
+        enc = params["encoder"]
+        tokens = tokens + cast(enc["pos_embedding"])
+        bcast = torch.full((b, 1, 1), float(budget), dtype=torch.float32, device=dev)
+        if budget_token == "learnable":
+            btok = cast(params["learnable_budget_token_1"]) * bcast
+        elif budget_token == "learnable_interpolate":
+            btok = (cast(params["learnable_budget_token_1"]) * bcast
+                    + cast(params["learnable_budget_token_2"]) * (1.0 - bcast))
+        else:
+            btok = bcast
+        tokens = torch.cat([tokens, btok.expand(b, 1, d)], dim=1)
+        s = c + num_registers
+        ones = torch.ones((b, s, 1), dtype=torch.float32, device=dev)
+        caps, smoothing = [], []
+        for i in _layer_ids(enc):
+            lp = enc[f"layers_{i}"]
+            at, mlp = lp["self_attention"], lp["mlp"]
+            img = tokens[:, s:-1]
+            gp = lp["residual_gate"]["projection"]
+            sig = torch.sigmoid((img @ cast(gp["kernel"]) + cast(gp["bias"])) / gate_temp
+                                + gate_bias)
+            if budget_token == "learnable":
+                bg = lp["budget_token_gate"]
+                thr = torch.sigmoid(tokens[:, -1:] @ cast(bg["kernel"]) + cast(bg["bias"]))
+                mask = torch.relu(sig - thr)
+            else:
+                mask = torch.relu(sig - (1.0 - tokens[:, -1:].mean()))
+            fwd_mask = torch.cat([ones, mask, ones[:, :1]], dim=1)
+            tokens = torch.cat([tokens[:, :s], mask * img, tokens[:, -1:]], dim=1)
+            ln1 = _layer_norm(tokens, cast(lp["ln_1"]["scale"]), cast(lp["ln_1"]["bias"]),
+                              1e-6) * fwd_mask
+            qkv = ln1 @ cast(at["in_proj_kernel"]) + cast(at["in_proj_bias"])
+            attn = attention_core(*qkv.chunk(3, dim=-1), num_heads)
+            tokens = tokens + (attn @ cast(at["out_proj_kernel"])
+                               + cast(at["out_proj_bias"])) * fwd_mask
+            ln2 = _layer_norm(tokens, cast(lp["ln_2"]["scale"]), cast(lp["ln_2"]["bias"]),
+                              1e-6) * fwd_mask
+            h = F.gelu(ln2 @ cast(mlp["fc1_kernel"]) + cast(mlp["fc1_bias"]), approximate="tanh")
+            tokens = tokens + h @ cast(mlp["fc2_kernel"]) + cast(mlp["fc2_bias"])
+            caps.append(((_percentile(ln1, percentile), _percentile(attn, percentile)),
+                         (_percentile(ln2, percentile), _percentile(h, percentile))))
+            smoothing.append((_smoothing_vec(ln1, at["in_proj_kernel"]),
+                              _smoothing_vec(ln2, mlp["fc1_kernel"])))
+    return tuple(caps), smoothing
+
+
+def _quant_residual_layers(layer_block, num_heads: int, compute_dtype, caps):
+    """The int8 ResidualViT layer for :func:`_residual_forward`: the merged
+    masked int8 layer on every layer (the int8 engine does not compact, so
+    there is no phantom key and no split sublayer; the port has no VMEM
+    guard), ``caps`` one static pair of pairs per layer, or None."""
+
+    def cast(t):
+        return t.to(compute_dtype)
+
+    def run(tokens, fwd_mask, lp, li, merged, ph_mult, ph_idx):
+        return layer_block(tokens, fwd_mask, *_quant_weights(lp, cast), num_heads, 1e-6,
+                           caps[li] if caps else None)
+
+    return run
+
+
+def residualvit_forward_quant(qparams, images, budget: float, *, patch_size: int,
+                              num_heads: int, num_class_tokens: int = 1,
+                              num_registers: int = 0, gate_temp: float = 1.0,
+                              gate_bias: float = 0.0, budget_token: Any = "learnable",
+                              compute_dtype=torch.bfloat16, early_exits: bool = False,
+                              caps=None, masks: Optional[dict] = None):
+    """int8 (w8a8) ResidualViT eval forward (JAX
+    ``residualvit_forward_quant``, inference.py:1990) from
+    ``prepare_engine_params(quantize_residualvit_params(...))``: the gates,
+    budget token and early exits of :func:`residualvit_forward_fused` (fp32
+    gates, fp exit heads, LN eps 1e-5), every layer
+    ``quant_masked_layer_block`` (block LN eps 1e-6), no compaction.
+    ``caps``: per layer ((attn_ln, attn_out), (mlp_ln, mlp_h)) static caps
+    or None (dynamic scales); ``masks`` as in
+    :func:`residualvit_forward_fused`."""
+    return _residual_forward(
+        qparams, images, budget,
+        _quant_residual_layers(quant_masked_layer_block, num_heads, compute_dtype, caps),
+        patch_size=patch_size, num_class_tokens=num_class_tokens, num_registers=num_registers,
+        gate_temp=gate_temp, gate_bias=gate_bias, budget_token=budget_token,
+        compute_dtype=compute_dtype, early_exits=early_exits, masks=masks)
+
+
+def residualvit_forward_quant_plain(qparams, images, budget: float, *, patch_size: int,
+                                    num_heads: int, num_class_tokens: int = 1,
+                                    num_registers: int = 0, gate_temp: float = 1.0,
+                                    gate_bias: float = 0.0, budget_token: Any = "learnable",
+                                    compute_dtype=torch.float32, early_exits: bool = False,
+                                    caps=None, masks: Optional[dict] = None):
+    """:func:`residualvit_forward_quant` on the plain versions, whatever
+    the device."""
+    return _residual_forward(
+        qparams, images, budget,
+        _quant_residual_layers(quant_masked_layer_block_ref, num_heads, compute_dtype, caps),
+        patch_size=patch_size, num_class_tokens=num_class_tokens, num_registers=num_registers,
+        gate_temp=gate_temp, gate_bias=gate_bias, budget_token=budget_token,
+        compute_dtype=compute_dtype, early_exits=early_exits, masks=masks)
+
+
+# ------------------------------------------------------------------- A-ViT
+
+
+def _adavit_forward(params, images, layer_block, *, patch_size: int, num_heads: int,
+                    num_layers: int, num_class_tokens: int = 1, num_registers: int = 0,
+                    act_eps: float = 0.01, gate_scale: float = 10.0, gate_center: float = 30.0,
+                    ln_eps: float = 1e-5, compute_dtype=torch.bfloat16,
+                    active_in: Optional[list] = None, active_out: Optional[list] = None):
+    def cast(t):
+        return t.to(compute_dtype)
+
+    tokens, _ = _embed(params, images, patch_size, num_class_tokens, num_registers, cast)
+    enc = params["encoder"]
+    tokens = tokens + cast(enc["pos_embedding"])
+    bp = enc["blocks"]["block"]  # a leading (num_layers, ...) axis
+    at, mlp = bp["self_attention"], bp["mlp"]
+    b, n, _ = tokens.shape
+    f32 = torch.float32
+    out = tokens
+    output = torch.zeros_like(tokens)
+    c = torch.zeros((b, n), dtype=f32, device=tokens.device)
+    R = torch.ones_like(c)
+    active = torch.ones_like(c)
+    threshold = 1.0 - act_eps
+    for li in range(num_layers):
+        a3 = active[..., None].to(compute_dtype)
+        x_new = layer_block(
+            out * a3, a3, cast(bp["ln_1"]["scale"][li]), cast(bp["ln_1"]["bias"][li]),
+            cast(at["in_proj_kernel"][li]), cast(at["in_proj_bias"][li]),
+            cast(at["out_proj_kernel"][li]), cast(at["out_proj_bias"][li]),
+            cast(bp["ln_2"]["scale"][li]), cast(bp["ln_2"]["bias"][li]),
+            cast(mlp["fc1_kernel"][li]), cast(mlp["fc1_bias"][li]),
+            cast(mlp["fc2_kernel"][li]), cast(mlp["fc2_bias"][li]), num_heads, ln_eps)
+        h = torch.sigmoid(x_new[:, :, 0].float() * gate_scale - gate_center)
+        if li == num_layers - 1:  # every remaining token halts
+            h = torch.ones_like(h)
+        block_out = x_new * a3
+        c = c + h
+        above, below = (c > threshold).to(f32), (c < threshold).to(f32)
+        if active_in is not None:
+            above, below = active_in[li]
+        if active_out is not None:
+            active_out.append((above, below))
+        reached = above * active
+        delta1 = block_out * (R * reached)[..., None].to(compute_dtype)
+        R = R - below * h
+        delta2 = block_out * (h * below)[..., None].to(compute_dtype)
+        active = below
+        output = output + delta1 + delta2
+        out = x_new
+    return _classify({"encoder": enc, "head": params["head"]}, output, num_class_tokens, cast,
+                     ln_eps)
+
+
+def adavit_forward_fused(params, images, *, patch_size: int, num_heads: int, num_layers: int,
+                         num_class_tokens: int = 1, num_registers: int = 0,
+                         act_eps: float = 0.01, gate_scale: float = 10.0,
+                         gate_center: float = 30.0, ln_eps: float = 1e-5,
+                         compute_dtype=torch.bfloat16,
+                         active_out: Optional[list] = None) -> torch.Tensor:
+    """A-ViT eval forward (JAX ``adavit_forward_fused``, inference.py:1906)
+    from ``prepare_engine_params`` (unfolded, the block's stacked weights
+    sliced per layer). The ACT carry (cumulative halting c, remainder R,
+    the active mask) runs in torch in fp32, the tokens and the output sum
+    in the compute dtype; each layer is ``avit_layer_block`` on the
+    kernels, fed the masked tokens and the active mask. Returns fp32
+    logits.
+
+    ``active_out``: if a list is given, each layer's halting decisions are
+    appended to it as the fp32 (B, N) pair (c > 1 - eps, c < 1 - eps),
+    for :func:`adavit_forward_plain`'s ``active_in``."""
+    return _adavit_forward(params, images, avit_layer_block, patch_size=patch_size,
+                           num_heads=num_heads, num_layers=num_layers,
+                           num_class_tokens=num_class_tokens, num_registers=num_registers,
+                           act_eps=act_eps, gate_scale=gate_scale, gate_center=gate_center,
+                           ln_eps=ln_eps, compute_dtype=compute_dtype, active_out=active_out)
+
+
+def adavit_forward_plain(params, images, *, patch_size: int, num_heads: int, num_layers: int,
+                         num_class_tokens: int = 1, num_registers: int = 0,
+                         act_eps: float = 0.01, gate_scale: float = 10.0,
+                         gate_center: float = 30.0, ln_eps: float = 1e-5,
+                         compute_dtype=torch.float32, active_in: Optional[list] = None,
+                         active_out: Optional[list] = None) -> torch.Tensor:
+    """:func:`adavit_forward_fused` on the plain versions, whatever the
+    device. ``active_in`` (an ``active_out`` of the engine's forward)
+    replaces the halting decisions layer by layer: c > 1 - eps is a hard
+    threshold, so a token whose c lies within a rounding of it can halt at
+    another depth in a bf16 run with sums in another order."""
+    return _adavit_forward(params, images, avit_layer_block_ref, patch_size=patch_size,
+                           num_heads=num_heads, num_layers=num_layers,
+                           num_class_tokens=num_class_tokens, num_registers=num_registers,
+                           act_eps=act_eps, gate_scale=gate_scale, gate_center=gate_center,
+                           ln_eps=ln_eps, compute_dtype=compute_dtype, active_in=active_in,
+                           active_out=active_out)
+
 class InferenceEngine:
     """Fused eval forward bound to a built plain ViT, ResidualViT or RankViT.
 
@@ -1010,14 +1287,21 @@ class InferenceEngine:
     (``rankvit_forward_padded``: one set of shapes for every budget up to
     ``max_budget``; a budget above it raises ``ValueError``).
 
-    ``quantized=True`` (ViT and RankViT) serves int8 w8a8
-    (``vit_forward_quant``, ``rankvit_forward_quant``, with ``max_budget=``
-    ``rankvit_forward_padded_quant``): weights quantized per output
-    column at build, activations per row. ``calib_images=`` (NHWC)
-    calibrates: SmoothQuant vectors baked into the weights before they are
-    quantized, and with ``calib_static_caps=True`` static activation caps
-    (the ``calib_percentile`` of |activation|) from the smoothed model,
-    the JAX engine's recipe (JAX inference.py:2845-2893)."""
+    A-ViT: ``engine(images)`` (``adavit_forward_fused``: the ACT carry in
+    torch, each layer on ``avit_layer_block``), bf16 only.
+
+    ``quantized=True`` (ViT, RankViT and the ResidualViT family) serves
+    int8 w8a8 (``vit_forward_quant``, ``rankvit_forward_quant``, with
+    ``max_budget=`` ``rankvit_forward_padded_quant``,
+    ``residualvit_forward_quant``, ``ee_outputs=`` included): weights
+    quantized per output column at build, activations per row.
+    ``calib_images=`` (NHWC) calibrates: SmoothQuant vectors baked into
+    the weights before they are quantized, and with
+    ``calib_static_caps=True`` static activation caps (the
+    ``calib_percentile`` of |activation|) from the smoothed model, the JAX
+    engine's recipe (JAX inference.py:2773-2804, :2845-2893); a
+    ResidualViT calibrates on its own gated, masked forward
+    (``collect_residualvit_activation_stats``) at budget 1.0."""
 
     def __init__(self, model, compute_dtype=torch.bfloat16, device="cuda",
                  quantized: bool = False, max_budget: Optional[float] = None,
@@ -1029,11 +1313,18 @@ class InferenceEngine:
         # would ignore its budget
         rank = isinstance(model, RankVisionTransformer)
         residual = isinstance(model, ResidualVisionTransformer)
-        if not (rank or residual or isinstance(model, VisionTransformer)):
+        avit = isinstance(model, AdaptiveVisionTransformer)
+        if not (rank or residual or avit or isinstance(model, VisionTransformer)):
             raise NotImplementedError(
                 f"the port's engine serves the plain VisionTransformer, the ResidualViT "
-                f"family and RankViT; {type(model).__name__} is ROADMAP.md port queue A "
-                f"items 6-7")
+                f"family, RankViT and A-ViT; {type(model).__name__} is ROADMAP.md port queue A "
+                f"item 7")
+        if avit and (quantized or max_budget is not None):
+            raise NotImplementedError(
+                "the A-ViT engine is bf16-only by design: int8 would quantize the "
+                "halting-score inputs feeding the hard ACT threshold c > 1-eps (token depths "
+                "flip against the module), and the avit-mode masked kernels have no quant "
+                "variants")
         if max_budget is not None and not rank:
             raise NotImplementedError(
                 "max_budget= (the single-shape padded drop) applies to RankViT models only "
@@ -1051,11 +1342,6 @@ class InferenceEngine:
                     "variants (serve those dense or data-parallel)")
         if ee_outputs and not isinstance(model, EEResidualVisionTransformer):
             raise NotImplementedError("ee_outputs=True needs an EEResidualVisionTransformer")
-        if quantized and residual:
-            raise NotImplementedError(
-                "quantized=True on the ResidualViT family is not ported yet: ROADMAP.md port "
-                "queue A item 6 (A6, the ResidualViT int8 engine: its own calibration, tree "
-                "and masked int8 layer)")
         not_ported = {
             "mesh=": (mesh is not None, "item 9 (parallel and serving)"),
             "recon_outputs=": (recon_outputs, "item 7 (EncDec / MAE)"),
@@ -1080,6 +1366,7 @@ class InferenceEngine:
         self._module = model
         self._residual = residual
         self._rank = rank
+        self._avit = avit
         self._quantized = bool(quantized)
         self.caps = None
         params = tree_map(lambda t: t.to(self.device), module_params(model))
@@ -1092,6 +1379,15 @@ class InferenceEngine:
                 ln_eps=model.ln_eps, compute_dtype=compute_dtype)
             self._max_budget = None if max_budget is None else float(max_budget)
             self.params = prepare_engine_params(params, compute_dtype, fold_ln=True)
+            return
+        if avit:
+            self._forward = dict(
+                patch_size=model.patch_size, num_heads=model.num_heads,
+                num_layers=model.num_layers, num_class_tokens=model.num_class_tokens,
+                num_registers=model.num_registers, act_eps=model.eps,
+                gate_scale=model.gate_scale, gate_center=model.gate_center,
+                ln_eps=model.ln_eps, compute_dtype=compute_dtype)
+            self.params = prepare_engine_params(params, compute_dtype)
             return
         if not residual:
             self._forward = dict(
@@ -1115,7 +1411,9 @@ class InferenceEngine:
 
     def _quantize(self, params, calib_images, percentile, static_caps):
         """The int8 tree of ``params``, calibrated on ``calib_images`` when
-        given (on the engine's device, in fp32); sets ``self.caps``."""
+        given (on the engine's device, in fp32); sets ``self.caps``. Static
+        caps skip the per-row absmax but clip activations the calibration
+        set never saw: opt-in, as in JAX."""
         module = self._module
         if calib_images is not None:
             if isinstance(calib_images, np.ndarray):
@@ -1123,15 +1421,26 @@ class InferenceEngine:
             calib = calib_images.to(self.device, torch.float32)
             geom = dict(patch_size=module.patch_size, num_heads=module.num_heads,
                         num_class_tokens=module.num_class_tokens,
-                        num_registers=module.num_registers, ln_eps=module.ln_eps)
-            params = smooth_vit_params(params, compute_smoothing_vectors(params, calib, **geom))
-            if static_caps:
-                # static caps skip the per-row absmax but clip activations
-                # the calibration set never saw: opt-in, as in JAX
-                self.caps = collect_activation_caps(params, calib, percentile=percentile,
-                                                    **geom)
+                        num_registers=module.num_registers)
+            if self._residual:
+                # the gated, masked forward's own statistics, on the raw
+                # weights, then again on the smoothed ones for the caps
+                geom.update(gate_temp=module.gate_temp, gate_bias=module.gate_bias,
+                            budget_token=module.add_budget_token, percentile=percentile)
+                _, smoothing = collect_residualvit_activation_stats(params, calib, **geom)
+                params = smooth_vit_params(params, smoothing)
+                if static_caps:
+                    self.caps, _ = collect_residualvit_activation_stats(params, calib, **geom)
+            else:
+                geom["ln_eps"] = module.ln_eps
+                params = smooth_vit_params(params,
+                                           compute_smoothing_vectors(params, calib, **geom))
+                if static_caps:
+                    self.caps = collect_activation_caps(params, calib, percentile=percentile,
+                                                        **geom)
         with torch.no_grad():
-            return quantize_vit_params(params)
+            return (quantize_residualvit_params if self._residual else quantize_vit_params)(
+                params)
 
     def _compact_caps_for(self, capacity):
         """Per-layer image-token capacities for ``compact`` mode:
@@ -1168,7 +1477,7 @@ class InferenceEngine:
         """images: (B, H, W, 3) numpy array or tensor. Returns fp32 logits
         on the engine's device (for ``ee_outputs``, the tuple of exits and
         final logits). ``budget`` (ResidualViT and RankViT, default 1.0) is
-        ignored by a plain ViT, as in the JAX engine."""
+        ignored by a plain ViT and by A-ViT, as in the JAX engine."""
         if isinstance(images, np.ndarray):
             images = torch.from_numpy(images)
         images = images.to(self.device, torch.float32)
@@ -1185,9 +1494,13 @@ class InferenceEngine:
                 fwd = rankvit_forward_padded_quant if self._quantized else rankvit_forward_padded
                 return fwd(self.params, images, b, max_budget=self._max_budget, **self._forward,
                            **q)
+            if self._avit:
+                return adavit_forward_fused(self.params, images, **self._forward)
             if not self._residual:
                 fwd = vit_forward_quant if self._quantized else vit_forward_fused
                 return fwd(self.params, images, **self._forward, **q)
             b = 1.0 if budget is None else float(budget)
+            if self._quantized:
+                return residualvit_forward_quant(self.params, images, b, **self._forward, **q)
             return residualvit_forward_fused(self.params, images, b,
                                              compact_caps=self.compact_caps(b), **self._forward)

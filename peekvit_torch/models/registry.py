@@ -1,6 +1,6 @@
 """build_model for the port (counterpart of peekvit_tpu/models/registry.py
-:115-180). The plain ViT, the ResidualViT, the early-exit ResidualViT and
-RankViT are ported; the other registered families raise
+:115-180). The plain ViT, the ResidualViT, the early-exit ResidualViT,
+RankViT and A-ViT are ported; the other registered families raise
 NotImplementedError naming their ROADMAP item."""
 
 from __future__ import annotations
@@ -11,6 +11,7 @@ import torch
 
 from torch import nn
 
+from peekvit_torch.models.adavit import AdaptiveVisionTransformer
 from peekvit_torch.models.eeresidualvit import EEResidualVisionTransformer
 from peekvit_torch.models.rankvit import RankVisionTransformer
 from peekvit_torch.models.residualvit import ResidualVisionTransformer
@@ -25,15 +26,16 @@ _PORTED = {
                      "eeResidualvit", "eeresidualvit"), EEResidualVisionTransformer),
     **dict.fromkeys(("RankingVisionTransformer", "RankVisionTransformer", "rankvit"),
                     RankVisionTransformer),
+    **dict.fromkeys(("AdaptiveVisionTransformer", "adavit"), AdaptiveVisionTransformer),
 }
 # JAX registry names not ported yet -> ROADMAP.md port queue A item
 _NOT_PORTED = {
     **dict.fromkeys(("ResidualVisionTransformerWithDecoder", "encdecresidualvit"),
                     "item 7 (EncDec, with MAE's decoder)"),
     **dict.fromkeys(("visiontransformermoe", "VisionTransformerMoE", "vitmoe", "moevit",
-                     "MoEVisionTransformer", "AdaptiveVisionTransformer", "adavit",
-                     "MAEVisionTransformer", "maevit", "PointCloudTransformer",
-                     "pointcloudtransformer", "pct", "RankPointCloudTransformer",
+                     "MoEVisionTransformer", "MAEVisionTransformer", "maevit",
+                     "PointCloudTransformer", "pointcloudtransformer", "pct",
+                     "RankPointCloudTransformer",
                      "rankpointcloudtransformer", "rankpct"),
                     "item 7 (remaining families)"),
 }

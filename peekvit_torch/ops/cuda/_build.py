@@ -49,10 +49,11 @@ _SIGNATURES = {
                     [_P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, ctypes.c_float,
                      _P, _P, _P, _I, _P, _P]),
     "quant_rows": ("peekvit_quant_rows",
-                   [_P, _I, _P, _P, _P, _P, ctypes.c_longlong, _I, ctypes.c_float,
+                   [_P, _I, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, ctypes.c_float,
                     ctypes.c_float, _I, _P]),
     "gemm_s8_epilogue": ("peekvit_gemm_s8_epilogue",
-                         [_P, _P, _P, ctypes.c_float, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+                         [_P, _P, _P, ctypes.c_float, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _P]),
 }
 
 _lock = threading.Lock()

@@ -28,6 +28,11 @@ with the folded bias), the out-projection GEMM masks its output before the
 residual add, and the attention kernel weights the compaction engine's
 phantom key (``phantom_idx``/``phantom_mult``, the Pallas ``kweight``).
 
+The A-ViT layer (``_layer_kernel`` mode ``avit``, ``avit_layer_block``)
+runs the same seven launches with the norms in their ``avit`` mode,
+LN(x * a) * a (the row multiplied by its mask before the statistics and
+again after the affine), and unmasked residual adds.
+
 The padded RankViT layer (``_layer_kernel`` mode ``keymasked``, folded)
 and its split attention sublayer (``keymasked_attention_block``) run the
 plain compositions with the attention kernel's key mask (the Pallas
@@ -123,21 +128,26 @@ def _affine_mask_ref(out, scale, bias, mask):
     return out
 
 
-def _check_affine_mask(scale, bias, mask):
+def _check_affine_mask(scale, bias, mask, premask=False):
     """One-pass rows take the LN affine exactly when they take the row
-    mask: unmasked, the affine is folded into the next GEMM's weights."""
+    mask: unmasked, the affine is folded into the next GEMM's weights.
+    ``premask`` (A-ViT) needs the mask."""
     _require((scale is None) == (bias is None), "norm_rows: scale and bias come together")
     _require((scale is None) == (mask is None),
              "norm_rows: one-pass rows take the LN affine exactly when they take the "
              "row mask (a mask does not commute with a folded affine)")
+    _require(mask is not None or not premask, "norm_rows: premask needs the row mask")
 
 
 def norm_rows_ref(x: torch.Tensor, eps: float, out_dtype: torch.dtype,
-                  scale=None, bias=None, mask=None) -> torch.Tensor:
-    """Plain version of :func:`norm_rows` (Pallas ``_norm_rows``, and with
-    the affine and mask ``mask * _ln_f32_rows``)."""
-    _check_affine_mask(scale, bias, mask)
+                  scale=None, bias=None, mask=None, premask: bool = False) -> torch.Tensor:
+    """Plain version of :func:`norm_rows` (Pallas ``_norm_rows``, with the
+    affine and mask ``mask * _ln_f32_rows``, and with ``premask``
+    ``_ln_f32_rows(x * mask) * mask``)."""
+    _check_affine_mask(scale, bias, mask, premask)
     xf = x.float()
+    if premask:
+        xf = xf * mask.float().reshape(-1, 1)
     mu = xf.mean(-1, keepdim=True)
     ms = (xf * xf).mean(-1, keepdim=True)
     var = torch.clamp(ms - mu * mu, min=0.0)
@@ -164,7 +174,8 @@ def _rows_mask(key, mask, rows):
     return mask
 
 
-def _norm_launch(key, x, scale, bias, mask, eps, two_pass):
+def _norm_launch(key, x, scale, bias, mask, eps, mode):
+    """``mode``: 0 one-pass, 1 two-pass, 2 one-pass of x * mask (A-ViT)."""
     _require(x.dtype in (torch.bfloat16, torch.float32),
              f"{key}: input must be bf16 or fp32, got {x.dtype}")
     _require(x.is_contiguous() and x.data_ptr() % 16 == 0,
@@ -184,26 +195,28 @@ def _norm_launch(key, x, scale, bias, mask, eps, two_pass):
         x.data_ptr(), int(x.dtype == torch.float32),
         None if scale is None else scale.data_ptr(), None if bias is None else bias.data_ptr(),
         None if mask is None else mask.data_ptr(),
-        out.data_ptr(), rows, d, float(eps), int(two_pass), _stream())
+        out.data_ptr(), rows, d, float(eps), mode, _stream())
     _launched(key, err)
     return out
 
 
 def norm_rows(x: torch.Tensor, eps: float, out_dtype: torch.dtype,
-              scale=None, bias=None, mask=None) -> torch.Tensor:
+              scale=None, bias=None, mask=None, premask: bool = False) -> torch.Tensor:
     """Row normalization with one-pass statistics, rounded to
     ``out_dtype``. x: (..., D), bf16 or fp32. Without a mask there is no
     affine (it is folded into the next GEMM); with the row mask (one value
     per row of x, ResidualViT's masked layer) the LN affine ``scale``,
     ``bias`` (D,) applies before the mask: mask * (norm(x) * scale + bias).
+    ``premask`` (A-ViT's layer) also multiplies the row by its mask, in
+    fp32, before the statistics: mask * (norm(x * mask) * scale + bias).
     On CUDA the output must be bf16 and scale, bias and mask are bf16."""
-    _check_affine_mask(scale, bias, mask)
+    _check_affine_mask(scale, bias, mask, premask)
     if _on_cpu(x, scale, bias, mask):
-        return norm_rows_ref(x, eps, out_dtype, scale, bias, mask)
+        return norm_rows_ref(x, eps, out_dtype, scale, bias, mask, premask)
     _require(out_dtype == torch.bfloat16, "norm_rows: the kernel writes bf16 only")
-    key = ("norm_rows.masked" if mask is not None else "norm_rows") + (
-        ".f32" if x.dtype == torch.float32 else ".bf16")
-    return _norm_launch(key, x, scale, bias, mask, eps, two_pass=False)
+    mode = "norm_rows.avit" if premask else "norm_rows.masked" if mask is not None else "norm_rows"
+    key = mode + (".f32" if x.dtype == torch.float32 else ".bf16")
+    return _norm_launch(key, x, scale, bias, mask, eps, 2 if premask else 0)
 
 
 def ln_rows(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -216,7 +229,7 @@ def ln_rows(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         return ln_rows_ref(x, scale, bias, eps, mask)
     _check_bf16("ln_rows x", x)
     key = "ln_rows.masked" if mask is not None else "ln_rows"
-    return _norm_launch(key, x, scale, bias, mask, eps, two_pass=True)
+    return _norm_launch(key, x, scale, bias, mask, eps, 1)
 
 
 # --------------------------------------------------------- gemm_bias_epilogue
@@ -524,6 +537,21 @@ def _masked_layer(ops, x, mask, ln1s, ln1b, w_qkv, b_qkv, w_out, b_out, ln2s, ln
     return gemm(h, w2, b2, "residual", residual=y).reshape(b, n, d)
 
 
+def _avit_layer(ops, x, active, ln1s, ln1b, w_qkv, b_qkv, w_out, b_out, ln2s, ln2b, w1, b1,
+                w2, b2, num_heads, eps):
+    norm, _, gemm, attn_fn = ops
+    b, n, d = x.shape
+    x2 = x.reshape(b * n, d)
+    a = active.reshape(b * n)
+    ln = norm(x2, eps, x.dtype, ln1s, ln1b, a, premask=True)
+    qkv = gemm(ln, w_qkv, b_qkv, "bias")
+    attn = attn_fn(qkv.reshape(b, n, 3 * d), num_heads).reshape(b * n, d)
+    y = gemm(attn, w_out, b_out, "residual_f32", residual=x2)
+    ln2 = norm(y, eps, x.dtype, ln2s, ln2b, a, premask=True)
+    h = gemm(ln2, w1, b1, "gelu")
+    return gemm(h, w2, b2, "residual", residual=y).reshape(b, n, d)
+
+
 def _masked_attention(ops, x, mask, ln_scale, ln_bias, w_qkv, b_qkv, w_out, b_out,
                       num_heads, eps, phantom_mult, phantom_idx):
     _, ln_fn, gemm, attn_fn = ops
@@ -703,3 +731,24 @@ def keymasked_layer_block_folded_ref(x, key_mask, w_qkv, b_qkv, w_out, b_out, w1
     """Plain version of :func:`keymasked_layer_block_folded`."""
     return _folded_layer(_PLAIN, x, w_qkv, b_qkv, w_out, b_out, w1, b1, w2, b2,
                          num_heads, eps, key_mask)
+
+
+def avit_layer_block(x, active, ln1s, ln1b, w_qkv, b_qkv, w_out, b_out, ln2s, ln2b, w1, b1,
+                     w2, b2, num_heads: int, eps: float = 1e-5) -> torch.Tensor:
+    """The A-ViT layer (Pallas ``avit_layer_block``, :904: ``_layer_kernel``
+    mode ``avit``, unfolded affines). x: (B, N, D); active: (B, N, 1) in
+    x's dtype, any value (the ACT engine's 0/1 still-computing mask).
+    LN(x * a) * a on both sublayers (one-pass statistics), unmasked
+    residual adds with the fp32 mid residual y = attn Wo + bo + x, and
+    y + fc2(gelu(fc1(LN(y * a) * a))). Tokens with a = 0 stay keys with
+    the bias-only values, as in the Pallas kernel. Seven launches on CUDA:
+    2 ``norm_rows.avit``, 4 ``gemm_bias_epilogue``, 1 ``attn_scores_pv``."""
+    return _avit_layer(_KERNELS, x, active, ln1s, ln1b, w_qkv, b_qkv, w_out, b_out, ln2s, ln2b,
+                       w1, b1, w2, b2, num_heads, eps)
+
+
+def avit_layer_block_ref(x, active, ln1s, ln1b, w_qkv, b_qkv, w_out, b_out, ln2s, ln2b, w1,
+                         b1, w2, b2, num_heads: int, eps: float = 1e-5) -> torch.Tensor:
+    """Plain version of :func:`avit_layer_block`."""
+    return _avit_layer(_PLAIN, x, active, ln1s, ln1b, w_qkv, b_qkv, w_out, b_out, ln2s, ln2b,
+                       w1, b1, w2, b2, num_heads, eps)

@@ -31,10 +31,19 @@ Each kernel has a plain PyTorch version here (``*_ref``). The plain GEMM
 multiplies the codes in float64, exact below 2^53 (an fp32 product is
 not: 127^2 * 3072 > 2^24), on the CPU and on the card alike.
 
+The ResidualViT int8 layer (``_q_layer_kernel`` mode ``masked``, and the
+split ``quant_masked_attention_block`` / ``quant_masked_mlp_block``) runs
+the same launches with a per-row mask: ``quant_rows`` multiplies the LN
+output by the mask before the scale and the codes (mask * LN on both
+sublayers), and the out-projection's epilogue masks its output before
+the residual add (``masked_residual_f32`` in the merged layer,
+``masked_residual`` in the split sublayer); the MLP's residual stays
+unmasked.
+
 Dispatch is by device only, as in ``fused_attention.py``: a wrapper uses
 the plain version for CPU tensors; for CUDA tensors it launches its
 kernel or raises. Launches are counted in ``fused_attention.LAUNCHES``
-by kernel and variant (``quant_rows[.ln].{bf16,f32}[.static]``,
+by kernel and variant (``quant_rows[.ln].{bf16,f32}[.static][.masked]``,
 ``gemm_s8_epilogue.<epilogue>``).
 """
 
@@ -50,12 +59,14 @@ from peekvit_torch.ops.cuda.fused_attention import (
     _launched,
     _on_cpu,
     _require,
+    _rows_mask,
     _stream,
     attn_scores_pv,
     attn_scores_pv_ref,
 )
 
-_EPILOGUES = {"bias": 0, "gelu_f32": 1, "residual_f32": 2, "residual": 3}
+_EPILOGUES = {"bias": 0, "gelu_f32": 1, "residual_f32": 2, "residual": 3,
+              "masked_residual_f32": 4, "masked_residual": 5}
 MAX_ROW_WIDTH = 3072  # quant_rows keeps a row in one warp's registers
 
 
@@ -90,9 +101,11 @@ def static_scale(cap: float) -> float:
 # ----------------------------------------------------------------- quant_rows
 
 
-def _check_ln(ln_scale, ln_bias):
+def _check_ln(ln_scale, ln_bias, mask=None):
     _require((ln_scale is None) == (ln_bias is None), "quant_rows: the LN scale and bias "
              "come together")
+    _require(mask is None or ln_scale is not None, "quant_rows: the row mask multiplies the "
+             "LN output and needs the LN")
 
 
 def ln_f32_ref(x, ln_scale, ln_bias, eps):
@@ -107,10 +120,13 @@ def ln_f32_ref(x, ln_scale, ln_bias, eps):
     return out * ln_scale.float().reshape(-1) + ln_bias.float().reshape(-1)
 
 
-def quant_rows_ref(x: torch.Tensor, cap=None, ln_scale=None, ln_bias=None, eps: float = 1e-5):
+def quant_rows_ref(x: torch.Tensor, cap=None, ln_scale=None, ln_bias=None, eps: float = 1e-5,
+                   mask=None):
     """Plain version of :func:`quant_rows`."""
-    _check_ln(ln_scale, ln_bias)
+    _check_ln(ln_scale, ln_bias, mask)
     v = x.float() if ln_scale is None else ln_f32_ref(x, ln_scale, ln_bias, eps)
+    if mask is not None:
+        v = v * mask.float().reshape(-1, 1)
     if cap is not None:
         s = static_scale(cap)
         q = _div(v, s)
@@ -120,20 +136,25 @@ def quant_rows_ref(x: torch.Tensor, cap=None, ln_scale=None, ln_bias=None, eps: 
     return torch.clamp(torch.round(q), -127, 127).to(torch.int8), s
 
 
-def quant_rows(x: torch.Tensor, cap=None, ln_scale=None, ln_bias=None, eps: float = 1e-5):
+def quant_rows(x: torch.Tensor, cap=None, ln_scale=None, ln_bias=None, eps: float = 1e-5,
+               mask=None):
     """Per-row symmetric int8 quantization of x (R, D), bf16 or fp32, after
     the one-pass LN with affine when ``ln_scale``/``ln_bias`` (D,) are
-    given. Returns (codes (R, D) int8, scale): with ``cap=None`` the scale
-    is per row, (R, 1) fp32 (absmax / 127, floor 1e-12); with a static
-    ``cap`` it is the Python float max(cap, 1e-12) / 127 and values beyond
-    the cap saturate at +-127 (Pallas ``_quant_rows``, after ``_ln_f32``).
-    On CUDA the LN affine is bf16, D a multiple of 8 up to 3072."""
-    _check_ln(ln_scale, ln_bias)
-    if _on_cpu(x, ln_scale, ln_bias):
-        return quant_rows_ref(x, cap, ln_scale, ln_bias, eps)
+    given, and after the LN output times the row ``mask`` (one value per
+    row, the ResidualViT int8 layer's mask * LN) when it is given.
+    Returns (codes (R, D) int8, scale): with ``cap=None`` the scale is per
+    row, (R, 1) fp32 (absmax / 127, floor 1e-12: a masked row of zeros
+    gets the floor and zero codes); with a static ``cap`` it is the Python
+    float max(cap, 1e-12) / 127 and values beyond the cap saturate at +-127
+    (Pallas ``_quant_rows``, after ``_ln_f32`` and the mask). On CUDA the
+    LN affine and the mask are bf16, D a multiple of 8 up to 3072."""
+    _check_ln(ln_scale, ln_bias, mask)
+    if _on_cpu(x, ln_scale, ln_bias, mask):
+        return quant_rows_ref(x, cap, ln_scale, ln_bias, eps, mask)
     ln = ln_scale is not None
     key = ("quant_rows.ln" if ln else "quant_rows") + (
-        ".f32" if x.dtype == torch.float32 else ".bf16") + (".static" if cap is not None else "")
+        ".f32" if x.dtype == torch.float32 else ".bf16") + (
+        ".static" if cap is not None else "") + (".masked" if mask is not None else "")
     _require(x.dtype in (torch.bfloat16, torch.float32),
              f"{key}: input must be bf16 or fp32, got {x.dtype}")
     _require(x.is_contiguous() and x.data_ptr() % 16 == 0,
@@ -148,6 +169,8 @@ def quant_rows(x: torch.Tensor, cap=None, ln_scale=None, ln_bias=None, eps: floa
         _check_bf16(f"{key} ln_bias", ln_bias)
         _require(ln_scale.numel() == d and ln_bias.numel() == d,
                  f"{key}: LN affine must have {d} values")
+    if mask is not None:
+        mask = _rows_mask(key, mask, rows)
     codes = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     if cap is None:
         scale = torch.empty(x.shape[:-1] + (1,), dtype=torch.float32, device=x.device)
@@ -158,8 +181,8 @@ def quant_rows(x: torch.Tensor, cap=None, ln_scale=None, ln_bias=None, eps: floa
     err = _build.library("quant_rows")(
         x.data_ptr(), int(x.dtype == torch.float32),
         ln_scale.data_ptr() if ln else None, ln_bias.data_ptr() if ln else None,
-        codes.data_ptr(), scale_ptr, rows, d, float(eps), s_static, int(cap is not None),
-        _stream())
+        None if mask is None else mask.data_ptr(), codes.data_ptr(), scale_ptr, rows, d,
+        float(eps), s_static, int(cap is not None), _stream())
     _launched(key, err)
     return codes, scale
 
@@ -167,42 +190,48 @@ def quant_rows(x: torch.Tensor, cap=None, ln_scale=None, ln_bias=None, eps: floa
 # ------------------------------------------------------------ gemm_s8_epilogue
 
 
-def _check_epilogue(epilogue, residual):
+def _check_epilogue(epilogue, residual, mask):
     if epilogue not in _EPILOGUES:
         raise ValueError(f"unknown epilogue {epilogue!r}")
-    needs_res = epilogue.startswith("residual")
+    needs_res = "residual" in epilogue
+    needs_mask = epilogue.startswith("masked")
     _require((residual is not None) == needs_res,
              f"epilogue {epilogue!r} {'needs' if needs_res else 'takes no'} residual")
-    return needs_res
+    _require((mask is not None) == needs_mask,
+             f"epilogue {epilogue!r} {'needs' if needs_mask else 'takes no'} mask")
+    return needs_res, needs_mask
 
 
 def _out_dtype(epilogue, out_dtype):
     if epilogue == "bias":
         return torch.bfloat16
-    if epilogue in ("gelu_f32", "residual_f32"):
+    if epilogue.endswith("_f32"):
         return torch.float32
     return out_dtype
 
 
 def gemm_s8_epilogue_ref(a, s_a, w, s_w, bias, epilogue: str, residual=None,
-                         out_dtype=torch.bfloat16):
+                         out_dtype=torch.bfloat16, mask=None):
     """Plain version of :func:`gemm_s8_epilogue`: the codes multiplied in
     float64 (exact), rounded once to fp32, then the Pallas dequant order."""
-    _check_epilogue(epilogue, residual)
+    _check_epilogue(epilogue, residual, mask)
     acc = torch.matmul(a.double(), w.double()).float()
     if isinstance(s_a, torch.Tensor):
         s_a = s_a.float().reshape(-1, 1)
     v = acc * s_a * s_w.float().reshape(1, -1) + bias.float().reshape(-1)
     if epilogue == "gelu_f32":
         v = F.gelu(v, approximate="tanh")
-    elif residual is not None:
+    if mask is not None:
+        v = v * mask.float().reshape(-1, 1)
+    if residual is not None:
         v = v + residual.float()
     return v.to(_out_dtype(epilogue, out_dtype))
 
 
 def gemm_s8_epilogue(a: torch.Tensor, s_a, w: torch.Tensor, s_w: torch.Tensor,
                      bias: torch.Tensor, epilogue: str, residual: torch.Tensor | None = None,
-                     out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                     out_dtype: torch.dtype = torch.bfloat16,
+                     mask: torch.Tensor | None = None) -> torch.Tensor:
     """C = dequant(a @ w) with a fused epilogue (Pallas ``_qmatmul`` and
     the steps after it). a: (R, K) int8 codes with ``s_a`` their scale,
     (R, 1) fp32 or one Python float (a static cap's scale); w: (K, N) int8,
@@ -213,15 +242,20 @@ def gemm_s8_epilogue(a: torch.Tensor, s_a, w: torch.Tensor, s_w: torch.Tensor,
     - ``"gelu_f32"``: tanh-gelu -> fp32 (fc1: h is never rounded);
     - ``"residual_f32"``: + residual -> fp32 (the merged out-proj: y);
     - ``"residual"``: + residual -> ``out_dtype`` (fc2, the split
-      out-proj).
+      out-proj);
+    - ``"masked_residual_f32"``: (.) * mask + residual -> fp32 (the
+      ResidualViT int8 layer's out-proj: y);
+    - ``"masked_residual"``: (.) * mask + residual -> ``out_dtype`` (the
+      split masked attention sublayer's out-proj).
 
-    The residual is (R, N), fp32 or bf16. On CUDA: bias bf16, out_dtype
-    bf16, and w the (in, out) view of an (out, in) contiguous tensor
+    The residual is (R, N), fp32 or bf16; the mask has one value per row
+    (R values). On CUDA: bias and mask bf16, out_dtype bf16, and w the
+    (in, out) view of an (out, in) contiguous tensor
     (:func:`kernel_layout`); K a multiple of 16, N of 8."""
-    needs_res = _check_epilogue(epilogue, residual)
+    needs_res, needs_mask = _check_epilogue(epilogue, residual, mask)
     scale_t = s_a if isinstance(s_a, torch.Tensor) else None
-    if _on_cpu(a, scale_t, w, s_w, bias, residual):
-        return gemm_s8_epilogue_ref(a, s_a, w, s_w, bias, epilogue, residual, out_dtype)
+    if _on_cpu(a, scale_t, w, s_w, bias, residual, mask):
+        return gemm_s8_epilogue_ref(a, s_a, w, s_w, bias, epilogue, residual, out_dtype, mask)
     key = f"gemm_s8_epilogue.{epilogue}"
     _require(a.dim() == 2 and w.dim() == 2 and a.shape[1] == w.shape[0],
              f"{key}: shapes {tuple(a.shape)} @ {tuple(w.shape)} do not chain")
@@ -236,7 +270,7 @@ def gemm_s8_epilogue(a: torch.Tensor, s_a, w: torch.Tensor, s_w: torch.Tensor,
     _require(wt.is_contiguous() and wt.data_ptr() % 16 == 0,
              f"{key}: w must be the (in, out) view of an (out, in) contiguous tensor "
              f"(kernel_layout, made once at engine build)")
-    _require(epilogue != "residual" or out_dtype == torch.bfloat16,
+    _require(epilogue not in ("residual", "masked_residual") or out_dtype == torch.bfloat16,
              f"{key}: the kernel writes bf16 for this epilogue")
     s_w = s_w.reshape(-1)
     _require(s_w.dtype == torch.float32 and s_w.is_contiguous() and s_w.numel() == n,
@@ -255,11 +289,14 @@ def gemm_s8_epilogue(a: torch.Tensor, s_a, w: torch.Tensor, s_w: torch.Tensor,
         _require(residual.is_contiguous() and residual.data_ptr() % 16 == 0,
                  f"{key}: residual must be contiguous and 16-byte aligned")
         res_f32 = int(residual.dtype == torch.float32)
+    if needs_mask:
+        mask = _rows_mask(key, mask, m)
     out = torch.empty((m, n), dtype=_out_dtype(epilogue, out_dtype), device=a.device)
     err = _build.library("gemm_s8_epilogue")(
         a.data_ptr(), wt.data_ptr(), None if scale_t is None else scale_t.data_ptr(),
         0.0 if scale_t is not None else float(s_a), s_w.data_ptr(), bias.data_ptr(),
-        residual.data_ptr() if needs_res else None, out.data_ptr(), m, n, k,
+        residual.data_ptr() if needs_res else None, mask.data_ptr() if needs_mask else None,
+        out.data_ptr(), m, n, k,
         _EPILOGUES[epilogue], res_f32, _stream())
     _launched(key, err)
     return out
@@ -272,53 +309,62 @@ def gemm_s8_epilogue(a: torch.Tensor, s_a, w: torch.Tensor, s_w: torch.Tensor,
 # a check holds the kernels against on the card).
 
 
-def _attention_half(ops, x2, b, n, ln_s, ln_b, wqkv_q, sqkv, b_qkv, num_heads, eps, caps, kmask):
-    """LN1 -> quant -> qkv (bf16) -> attention (bf16) -> quant: the
-    out-projection's input codes and scale."""
+def _attention_half(ops, x2, b, n, ln_s, ln_b, wqkv_q, sqkv, b_qkv, num_heads, eps, caps, kmask,
+                    mask=None):
+    """LN1 (times the row mask) -> quant -> qkv (bf16) -> attention (bf16)
+    -> quant: the out-projection's input codes and scale."""
     qrows, gemm, attn_fn = ops
     d = x2.shape[-1]
-    lq, ls = qrows(x2, caps[0] if caps else None, ln_s, ln_b, eps)
+    lq, ls = qrows(x2, caps[0] if caps else None, ln_s, ln_b, eps, mask=mask)
     qkv = gemm(lq, ls, wqkv_q, sqkv, b_qkv, "bias")
     attn = attn_fn(qkv.reshape(b, n, 3 * d), num_heads, kmask=kmask).reshape(b * n, d)
     return qrows(attn, caps[1] if caps else None)
 
 
-def _mlp_half(ops, y, ln_s, ln_b, w1_q, s1, b1, eps, caps):
-    """LN2 -> quant -> fc1 + gelu (fp32 h) -> quant: fc2's input."""
+def _mlp_half(ops, y, ln_s, ln_b, w1_q, s1, b1, eps, caps, mask=None):
+    """LN2 (times the row mask) -> quant -> fc1 + gelu (fp32 h) -> quant:
+    fc2's input."""
     qrows, gemm, _ = ops
-    lq, ls = qrows(y, caps[0] if caps else None, ln_s, ln_b, eps)
+    lq, ls = qrows(y, caps[0] if caps else None, ln_s, ln_b, eps, mask=mask)
     h = gemm(lq, ls, w1_q, s1, b1, "gelu_f32")
     return qrows(h, caps[1] if caps else None)
 
 
 def _q_layer(ops, x, kmask, ln1s, ln1b, wqkv_q, sqkv, b_qkv, wo_q, so, b_out, ln2s, ln2b,
-             w1_q, s1, b1, w2_q, s2, b2, num_heads, eps, caps):
+             w1_q, s1, b1, w2_q, s2, b2, num_heads, eps, caps, mask=None):
     _, gemm, _ = ops
     b, n, d = x.shape
     x2 = x.reshape(b * n, d)
+    m = None if mask is None else mask.reshape(b * n)
     acaps, mcaps = caps if caps else (None, None)
     aq, as_ = _attention_half(ops, x2, b, n, ln1s, ln1b, wqkv_q, sqkv, b_qkv, num_heads, eps,
-                              acaps, kmask)
-    y = gemm(aq, as_, wo_q, so, b_out, "residual_f32", residual=x2)  # fp32 mid residual
-    hq, hs = _mlp_half(ops, y, ln2s, ln2b, w1_q, s1, b1, eps, mcaps)
+                              acaps, kmask, m)
+    # the fp32 mid residual y, the projection masked before the add
+    y = gemm(aq, as_, wo_q, so, b_out, "residual_f32" if m is None else "masked_residual_f32",
+             residual=x2, mask=m)
+    hq, hs = _mlp_half(ops, y, ln2s, ln2b, w1_q, s1, b1, eps, mcaps, m)
     return gemm(hq, hs, w2_q, s2, b2, "residual", residual=y, out_dtype=x.dtype).reshape(b, n, d)
 
 
-def _q_attention(ops, x, ln_s, ln_b, wqkv_q, sqkv, b_qkv, wo_q, so, b_out, num_heads, eps, caps):
+def _q_attention(ops, x, ln_s, ln_b, wqkv_q, sqkv, b_qkv, wo_q, so, b_out, num_heads, eps, caps,
+                 mask=None):
     _, gemm, _ = ops
     b, n, d = x.shape
     x2 = x.reshape(b * n, d)
+    m = None if mask is None else mask.reshape(b * n)
     aq, as_ = _attention_half(ops, x2, b, n, ln_s, ln_b, wqkv_q, sqkv, b_qkv, num_heads, eps,
-                              caps, None)
-    return gemm(aq, as_, wo_q, so, b_out, "residual", residual=x2,
-                out_dtype=x.dtype).reshape(b, n, d)
+                              caps, None, m)
+    return gemm(aq, as_, wo_q, so, b_out, "residual" if m is None else "masked_residual",
+                residual=x2, out_dtype=x.dtype, mask=m).reshape(b, n, d)
 
 
-def _q_mlp(ops, x, ln_s, ln_b, w1_q, s1, b1, w2_q, s2, b2, eps, caps):
+def _q_mlp(ops, x, ln_s, ln_b, w1_q, s1, b1, w2_q, s2, b2, eps, caps, mask=None):
     _, gemm, _ = ops
     b, n, d = x.shape
     x2 = x.reshape(b * n, d)
-    hq, hs = _mlp_half(ops, x2, ln_s, ln_b, w1_q, s1, b1, eps, caps)
+    hq, hs = _mlp_half(ops, x2, ln_s, ln_b, w1_q, s1, b1, eps, caps,
+                       None if mask is None else mask.reshape(b * n))
+    # the residual stays unmasked (Pallas _q_masked_mlp_kernel)
     return gemm(hq, hs, w2_q, s2, b2, "residual", residual=x2, out_dtype=x.dtype).reshape(b, n, d)
 
 
@@ -402,3 +448,65 @@ def quant_mlp_block_ref(x, ln_scale, ln_bias, w1_q, s1, b1, w2_q, s2, b2, eps: f
                         caps=None) -> torch.Tensor:
     """Plain version of :func:`quant_mlp_block`."""
     return _q_mlp(_PLAIN, x, ln_scale, ln_bias, w1_q, s1, b1, w2_q, s2, b2, eps, caps)
+
+
+def quant_masked_layer_block(x, mask, ln1s, ln1b, wqkv_q, sqkv, b_qkv, wo_q, so, b_out, ln2s,
+                             ln2b, w1_q, s1, b1, w2_q, s2, b2, num_heads: int,
+                             eps: float = 1e-6, caps=None) -> torch.Tensor:
+    """The merged int8 ResidualViT layer (Pallas ``quant_masked_layer_block``,
+    :480: ``_q_layer_kernel`` mode ``masked``). x: (B, N, D); mask: (B, N,
+    1) in x's dtype, continuous (the gate's relu(sig - thr)). mask * LN
+    before each sublayer's quantization, the out-projection masked before
+    the fp32 mid residual y = (attn Wo + bo) * mask + x, and an unmasked
+    MLP output y + fc2(gelu(fc1(q8(mask * LN(y))))), rounded to x's dtype.
+    ``caps`` as :func:`quant_layer_block`. Nine launches on CUDA: 2
+    ``quant_rows.ln.*.masked``, ``quant_rows.bf16``, ``quant_rows.f32``,
+    GEMMs ``bias``, ``masked_residual_f32``, ``gelu_f32``, ``residual``,
+    and ``attn_scores_pv``."""
+    return _q_layer(_KERNELS, x, None, ln1s, ln1b, wqkv_q, sqkv, b_qkv, wo_q, so, b_out, ln2s,
+                    ln2b, w1_q, s1, b1, w2_q, s2, b2, num_heads, eps, caps, mask)
+
+
+def quant_masked_layer_block_ref(x, mask, ln1s, ln1b, wqkv_q, sqkv, b_qkv, wo_q, so, b_out,
+                                 ln2s, ln2b, w1_q, s1, b1, w2_q, s2, b2, num_heads: int,
+                                 eps: float = 1e-6, caps=None) -> torch.Tensor:
+    """Plain version of :func:`quant_masked_layer_block`."""
+    return _q_layer(_PLAIN, x, None, ln1s, ln1b, wqkv_q, sqkv, b_qkv, wo_q, so, b_out, ln2s,
+                    ln2b, w1_q, s1, b1, w2_q, s2, b2, num_heads, eps, caps, mask)
+
+
+def quant_masked_attention_block(x, mask, ln_scale, ln_bias, wqkv_q, sqkv, b_qkv, wo_q, so,
+                                 b_out, num_heads: int, eps: float = 1e-6,
+                                 caps=None) -> torch.Tensor:
+    """int8 x + mask * OutProj(MHSA(q8(mask * LN(x)))), rounded to x's
+    dtype (Pallas ``quant_masked_attention_block``, :311, body
+    ``_q_masked_attn_kernel`` :246). mask: (B, N, 1); ``caps``: None or
+    (ln_cap, attn_cap). Five launches on CUDA: ``quant_rows.ln.*.masked``,
+    GEMM ``bias``, ``attn_scores_pv``, ``quant_rows``, GEMM
+    ``masked_residual``."""
+    return _q_attention(_KERNELS, x, ln_scale, ln_bias, wqkv_q, sqkv, b_qkv, wo_q, so, b_out,
+                        num_heads, eps, caps, mask)
+
+
+def quant_masked_attention_block_ref(x, mask, ln_scale, ln_bias, wqkv_q, sqkv, b_qkv, wo_q, so,
+                                     b_out, num_heads: int, eps: float = 1e-6,
+                                     caps=None) -> torch.Tensor:
+    """Plain version of :func:`quant_masked_attention_block`."""
+    return _q_attention(_PLAIN, x, ln_scale, ln_bias, wqkv_q, sqkv, b_qkv, wo_q, so, b_out,
+                        num_heads, eps, caps, mask)
+
+
+def quant_masked_mlp_block(x, mask, ln_scale, ln_bias, w1_q, s1, b1, w2_q, s2, b2,
+                           eps: float = 1e-6, caps=None) -> torch.Tensor:
+    """int8 x + fc2(gelu(fc1(q8(mask * LN(x))))), h fp32, the residual
+    unmasked, rounded to x's dtype (Pallas ``quant_masked_mlp_block``,
+    :337, body ``_q_masked_mlp_kernel`` :282). ``caps``: None or (ln_cap,
+    gelu_cap). Four launches on CUDA: ``quant_rows.ln.*.masked``, GEMM
+    ``gelu_f32``, ``quant_rows.f32``, GEMM ``residual``."""
+    return _q_mlp(_KERNELS, x, ln_scale, ln_bias, w1_q, s1, b1, w2_q, s2, b2, eps, caps, mask)
+
+
+def quant_masked_mlp_block_ref(x, mask, ln_scale, ln_bias, w1_q, s1, b1, w2_q, s2, b2,
+                               eps: float = 1e-6, caps=None) -> torch.Tensor:
+    """Plain version of :func:`quant_masked_mlp_block`."""
+    return _q_mlp(_PLAIN, x, ln_scale, ln_bias, w1_q, s1, b1, w2_q, s2, b2, eps, caps, mask)

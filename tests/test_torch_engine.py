@@ -139,6 +139,6 @@ def test_engine_refuses_unported_modes(fp32_pair):
         with pytest.raises(NotImplementedError):
             InferenceEngine(tm, device="cpu", **kwargs)
     with pytest.raises(NotImplementedError):
-        build_model("adavit", SMALL, device="cpu")
+        build_model("moevit", SMALL, device="cpu")
     with pytest.raises(NotImplementedError):
         build_model("vit", SMALL, noise_args={"layer": 1}, device="cpu")

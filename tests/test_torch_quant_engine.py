@@ -243,15 +243,18 @@ def test_rankvit_padded_engine_matches_jax(rank_pair, budget, monkeypatch):
 
 
 def test_int8_engine_guards(rank_pair):
-    """quantized=True on a ResidualViT waits for its own slice (A6);
-    max_budget= with quantized=True takes a RankViT, as in JAX."""
+    """quantized=True on a ResidualViT is served, but not with compact=
+    (JAX's bf16 single-program refusal); max_budget= with quantized=True
+    takes a RankViT, as in JAX."""
     _, tm, _ = rank_pair
     small = dict(image_size=32, patch_size=8, num_layers=1, num_heads=2, hidden_dim=32,
                  mlp_dim=64, num_classes=5)
-    residual = build_model("residualvit", dict(small, residual_layers=["attention+mlp"]),
+    residual = build_model("residualvit", dict(small, residual_layers=["attention+mlp"],
+                                               gate_type="sigmoid", add_budget_token="learnable"),
                            device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        InferenceEngine(residual, device="cpu", quantized=True)
+    with pytest.raises(NotImplementedError, match="bf16 single-program"):
+        InferenceEngine(residual, device="cpu", quantized=True, compact=0.5)
+    assert InferenceEngine(residual, device="cpu", quantized=True)._quantized
     with pytest.raises(NotImplementedError, match="RankViT models only"):
         InferenceEngine(build_model("vit", small, device="cpu"), device="cpu", quantized=True,
                         max_budget=0.5)

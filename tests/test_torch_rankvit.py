@@ -247,7 +247,7 @@ def test_engine_guards(wide_pair):
     plain_args = {k: v for k, v in SMALL.items() if k != "rankvit_layers"}
     residual = build_model("residualvit", dict(plain_args, residual_layers=["attention+mlp"] * 3),
                            device="cpu")
-    for model, kwargs, item in ((residual, dict(quantized=True), "item 6"),
+    for model, kwargs, item in ((residual, dict(quantized=True, compact=0.5), "single-program"),
                                 (tm, dict(mesh=object()), "item 9"),
                                 (vit, dict(quantized=True, max_budget=0.5), "RankViT")):
         with pytest.raises(NotImplementedError, match=item):
@@ -259,7 +259,7 @@ def test_engine_guards(wide_pair):
     with pytest.raises(ValueError, match="Registers"):
         build_model("rankvit", dict(SMALL, num_registers=2), device="cpu")
     with pytest.raises(NotImplementedError, match="item 7"):
-        build_model("adavit", SMALL, device="cpu")
+        build_model("moevit", SMALL, device="cpu")
 
 
 # ------------------------------------------------------------------ trainer
