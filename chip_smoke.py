@@ -139,7 +139,25 @@ prints no final result):
    engine, A-ViT-S/16 beside a ViT-S/16 bf16 engine, each new variant's
    time, launches, bound, plain time and library yardstick, the two new
    compositions, one profiled forward of each path;
-25. the {"kernels": [...]} line, then the card's nvidia-smi line, then
+25. PCT kernel checks at ModelNet40 bs128 shapes (1024 points, d = 128, 4
+   heads): arpe_tokens against arpe_tokens_ref on clouds sampled on simple
+   surfaces, 8 of them with tied points (every row's kNN threshold
+   bit-equal and its neighbour count equal; fp32 tokens within 1e-5, bf16
+   tokens), attn_scores_pv at head dim 32 at N = 1024, N = 64 and with
+   every logit at the clamp, fused_layer_block_folded at N = 1024;
+26. PCT / RankPCT serving: build_model("pct") and build_model("rankpct")
+   with ranking on, at configs/model/pct.yaml's widths and 1024 points,
+   seeded weights and BatchNorm statistics, serve 8 and 128 clouds
+   (RankPCT at budgets 0.25/0.5/1.0 and with none); counts zeroed before
+   and read after each forward: 29 launches (arpe_tokens, 4 x 7, among
+   them attn_scores_pv.hd32); logits against pct_forward_plain /
+   rankpct_forward_plain (bf16 and fp32, the RankPCT twins fed the
+   engine's kept indices), the free-running twin's kept-set agreement;
+27. PCT timing at bs128: each path and budget (ms, clouds/s), both new
+   kernels' time, launches, bound, plain time and library yardstick, the
+   exp2 count beside the SFU's rate, the ARPE share of the forward, the
+   folded layer at N = 1024, one profiled forward of each path;
+28. the {"kernels": [...]} line, then the card's nvidia-smi line, then
    {"ok": true, "device": {...}} as the last line.
 
 Imports nothing of JAX or of peekvit_tpu.
@@ -366,18 +384,25 @@ def _kernel_group(name: str) -> str:
     return "elementwise and copies (casts, concatenations, LN, gelu, bias, residual)"
 
 
-def profile_step(torch, smi, step, step_ms, phase="profile_train_step") -> None:
+def profile_step(torch, smi, step, step_ms, phase="profile_train_step", batch=BATCH,
+                 warmup: bool = False) -> None:
     """Device time by kernel over one profiled call of ``step`` (a train
     step, or a forward) with torch.profiler (CUPTI): the breakdown of what
     the kernels' event timing leaves as 'other', and the device's busy
     share against the unprofiled time. Where the trace holds no device
-    time, says so."""
+    time, says so. A window opened cold can miss the first kernels of the
+    call; ``warmup`` (forwards only: the step runs twice) traces one call
+    first and keeps the second (torch.profiler's schedule)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step()
-        torch.cuda.synchronize()
+    sched = schedule(wait=0, warmup=1, active=1, repeat=1) if warmup else None
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=sched) as prof:
+        for _ in range(2 if warmup else 1):
+            step()
+            torch.cuda.synchronize()
+            prof.step()
     # device-side events less annotation spans (the optimizer's
     # "Optimizer.step#AdamW.step" covers kernels already counted)
     kernels = [e for e in prof.key_averages()
@@ -389,7 +414,7 @@ def profile_step(torch, smi, step, step_ms, phase="profile_train_step") -> None:
         g = _kernel_group(e.key)
         groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:20]
-    emit({"phase": phase, "batch": BATCH,
+    emit({"phase": phase, "batch": batch,
           "device_ms": total_us / 1e3 if total_us else "not measured",
           "busy_share_of_step": total_us / 1e3 / step_ms if total_us else "not measured",
           "device_ms_by_group": groups, "kernel_launches": sum(e.count for e in kernels),
@@ -2621,6 +2646,372 @@ def new_paths_timing(torch, F, fa, tq, smi, checks, rq_ins, rq, av, quant_ins, b
     return entries
 
 
+# ------------------------------------------------------------ PCT / RankPCT (25-27)
+
+REPLACES_PCT = "peekvit_tpu/ops/pallas/pct_embed.py"
+# configs/model/pct.yaml and rankpct.yaml at configs/dataset/modelnet40.yaml's
+# 1024 points and 40 classes: full width and depth, seeded weights and
+# BatchNorm statistics, synthetic clouds (ModelNet40 is not in the repo)
+PCT_M40 = dict(num_points=1024, num_layers=4, num_heads=4, hidden_dim=128, mlp_dim=512,
+               num_classes=40)
+PCT_BATCH = 128
+PCT_REQUESTS = (8, 128)
+PCT_BUDGETS = (0.25, 0.5, 1.0, None)
+PCT_PROFILE_BUDGET = 0.5
+PCT_TIE_CLOUDS = 8      # clouds of each bs128 batch built with duplicated points
+PCT_PER_LAYER = {"norm_rows.bf16": 1, "norm_rows.f32": 1, "gemm_bias_epilogue.bias": 1,
+                 "attn_scores_pv.hd32": 1, "gemm_bias_epilogue.residual_f32": 1,
+                 "gemm_bias_epilogue.gelu": 1, "gemm_bias_epilogue.residual": 1}
+PCT_FORWARD_COUNTS = dict({k: v * PCT_M40["num_layers"] for k, v in PCT_PER_LAYER.items()},
+                          arpe_tokens=1)
+SFU_PER_S = 132 * 16 * 1.98e9  # H100 SXM: 16 MUFU results per SM and cycle, boost clock
+
+
+def surface_clouds(torch, gen, b: int, n: int, dev, ties: int = 0):
+    """(b, n, 3) clouds sampled on the surfaces of simple shapes (sphere,
+    box, cylinder, torus, one per cloud in turn), each scaled per axis,
+    rotated and normalised into the unit ball, as ModelNet40's clouds are.
+    The last ``ties`` clouds repeat each point three times, so that about
+    every row has points tied at its k-th distance."""
+    def u(*shape):
+        return torch.rand(*shape, generator=gen, device=dev)
+
+    two_pi = 2.0 * math.pi
+    g = torch.randn(b, n, 3, generator=gen, device=dev)
+    sphere = g / g.norm(dim=-1, keepdim=True)
+    face = torch.randint(0, 6, (b, n), generator=gen, device=dev)
+    box = u(b, n, 3) * 2.0 - 1.0
+    axis = (face // 2)[..., None] == torch.arange(3, device=dev)
+    box = torch.where(axis, (face % 2 * 2 - 1).float()[..., None], box)
+    th, z = u(b, n) * two_pi, u(b, n) * 2.0 - 1.0
+    cylinder = torch.stack([th.cos(), th.sin(), z], dim=-1)
+    uu, vv = u(b, n) * two_pi, u(b, n) * two_pi
+    ring = 1.0 + 0.35 * vv.cos()
+    torus = torch.stack([ring * uu.cos(), ring * uu.sin(), 0.35 * vv.sin()], dim=-1)
+    kind = (torch.arange(b, device=dev) % 4)[:, None, None]
+    pts = torch.where(kind == 0, sphere, torch.where(kind == 1, box,
+                                                     torch.where(kind == 2, cylinder, torus)))
+    rot = torch.linalg.qr(torch.randn(b, 3, 3, generator=gen, device=dev)).Q
+    pts = (pts * (0.5 + u(b, 1, 3))) @ rot
+    pts = pts - pts.mean(dim=1, keepdim=True)
+    pts = pts / pts.norm(dim=-1).amax(dim=1)[:, None, None]
+    if ties:
+        pts[-ties:] = pts[-ties:, :(n + 2) // 3].repeat_interleave(3, dim=1)[:, :n]
+    return pts.contiguous()
+
+
+def seeded_pct_model(torch, name: str):
+    """build_model(name, PCT_M40, seed=0) on the card with its BatchNorm
+    running statistics seeded away from (0, 1) (mean ~ N(0, 0.3), var in
+    [0.5, 2]), so that the engine's folds are exercised; RankPCT with
+    ranking on every layer."""
+    from peekvit_torch import build_model
+
+    model = build_model(name, PCT_M40, seed=0, device=DEVICE)
+    cpu_gen = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        for key, buf in model.named_buffers():
+            new = (torch.randn(buf.shape, generator=cpu_gen) * 0.3 if key.endswith(".mean")
+                   else 0.5 + 1.5 * torch.rand(buf.shape, generator=cpu_gen))
+            buf.copy_(new)
+    if name == "rankpct":
+        model.enable_ranking(True)
+    return model
+
+
+def pct_kernel_checks(torch, fa, check, checks, dev, smi) -> dict:
+    """Phase 25 at ModelNet40 bs128 shapes: arpe_tokens against
+    arpe_tokens_ref (the engine's BN-folded pack; every row's kNN threshold
+    bit-equal and its neighbour count equal, fp32 and bf16 tokens), with
+    8 of the 128 clouds holding tied points; attn_scores_pv at head dim 32
+    against its plain version at N = 1024 (and with logits at the clamp:
+    1024 terms of 2^115 stay finite) and at N = 64; fused_layer_block_folded
+    at D = 128, H = 4, N = 1024 with the engine's layer-0 weights. Returns
+    the engines and the inputs phases 26-27 use."""
+    from peekvit_torch import InferenceEngine
+    from peekvit_torch.ops.cuda import pct_embed as tpe
+    from peekvit_torch.models.adapters import module_state
+    from peekvit_torch.inference import prepare_pct_engine_params
+
+    bf16 = torch.bfloat16
+    models = {name: seeded_pct_model(torch, name) for name in ("pct", "rankpct")}
+    engines = {name: InferenceEngine(m, device=DEVICE) for name, m in models.items()}
+    params32 = {name: prepare_pct_engine_params(*module_state(m), torch.float32)
+                for name, m in models.items()}
+    gen = torch.Generator(device=dev).manual_seed(25)
+    n, d, h = PCT_M40["num_points"], PCT_M40["hidden_dim"], PCT_M40["num_heads"]
+    k = int(32 * n / 512)
+    clouds = surface_clouds(torch, gen, PCT_BATCH, n, dev, ties=PCT_TIE_CLOUDS)
+    pack = engines["pct"].params["embedder"]["_arpe_kernel_pack"]
+    pack_args = (pack["wc"], pack["wb"], pack["b1"], pack["w2"], pack["b2"])
+    with torch.inference_mode():
+        got, thr_k, cnt_k = tpe.arpe_tokens(clouds, *pack_args, k, knn_stats=True)
+        want, thr_p, cnt_p = tpe.arpe_tokens_ref(clouds, *pack_args, k, knn_stats=True)
+        torch.cuda.synchronize()
+        tied = cnt_p > k
+        rec = {"phase": "arpe_knn_check", "clouds": PCT_BATCH, "points": n, "k": k,
+               "threshold_bit_equal_share": (thr_k == thr_p).float().mean().item(),
+               "count_equal_share": (cnt_k == cnt_p).float().mean().item(),
+               "rows_with_ties_past_k": int(tied.sum()),
+               "rows_with_ties_in_tie_clouds": int(tied[-PCT_TIE_CLOUDS:].sum()),
+               "count_min_max": [int(cnt_p.min()), int(cnt_p.max())], "card": smi}
+        emit(rec)
+        if not (torch.equal(thr_k, thr_p) and torch.equal(cnt_k, cnt_p)):
+            raise AssertionError(f"arpe_tokens: neighbour sets differ from the plain version: {rec}")
+        if int(tied[-PCT_TIE_CLOUDS:].sum()) == 0:
+            raise AssertionError("arpe_tokens: the tie clouds produced no tied rows")
+        check("arpe_tokens.f32", got, want, 1e-5,
+              "same neighbour sets and masked max; expf against torch.exp in the two elus")
+        check("arpe_tokens", tpe.arpe_tokens(clouds, *pack_args, k, out_dtype=bf16),
+              tpe.arpe_tokens_ref(clouds, *pack_args, k, out_dtype=bf16), 2.0 ** -6,
+              "the fp32 tokens within 1e-5, then one bf16 rounding")
+        tokens = tpe.arpe_tokens(clouds, *pack_args, k, out_dtype=bf16)
+
+        qkv = {1024: torch.randn(PCT_BATCH, n, 3 * d, generator=gen, device=dev).to(bf16),
+               64: torch.randn(PCT_BATCH, 64, 3 * d, generator=gen, device=dev).to(bf16)}
+        clamp = torch.full((PCT_BATCH, n, 3 * d), 4.0, device=dev)
+        clamp[..., 2 * d:] = torch.randn(PCT_BATCH, n, d, generator=gen, device=dev)
+        qkv["clamp"] = clamp.to(bf16)  # q.k 32^-0.5 log2 e ~ 130 for every pair: at the clamp
+        for name, t in qkv.items():
+            out = fa.attn_scores_pv(t, h)
+            check(f"attn_scores_pv.hd32.n{name}", out, fa.attn_scores_pv_ref(t, h), 2e-2,
+                  "bf16 rounding of logits before exp2, bf16 output rounding")
+        checks["attn_scores_pv.hd32"] = checks["attn_scores_pv.hd32.n1024"]
+
+        st = engines["pct"].params["encoder"]["_stacked_layers"]
+        w = [st[key][0] for key in ("wqkv", "bqkv", "wo", "bo", "w1", "b1", "w2", "b2")]
+        check("fused_layer_block_folded.pct", fa.fused_layer_block_folded(tokens, *w, h, EPS),
+              fa.fused_layer_block_folded_ref(tokens, *w, h, EPS), 3e-2,
+              "seven launches; bf16 roundings flipped by fp32 sums in another order, the "
+              "attention kernel's tolerance")
+        torch.cuda.synchronize()
+    return {"models": models, "engines": engines, "params32": params32, "clouds": clouds,
+            "tokens": tokens, "qkv": qkv[1024], "pack": pack_args, "k": k, "layer": w}
+
+
+def _composed_kept(torch, kept: dict) -> dict:
+    """{layer: (B, n - 1) original positions (after position 0) of the
+    tokens kept before that layer}: each layer's indices point into the
+    previous layer's kept tokens."""
+    out, ids = {}, None
+    for i in sorted(kept):
+        ids = kept[i] if ids is None else torch.gather(ids, 1, kept[i])
+        out[i] = ids
+    return out
+
+
+def pct_phases(torch, fa, dev, smi, ins) -> dict:
+    """Phase 26: PCT and RankPCT (ranking on) at the ModelNet40 config
+    serve 8 and 128 synthetic clouds, RankPCT at budgets 0.25/0.5/1.0 and
+    with no budget. Counts zeroed just before and read just after each
+    forward: 29 launches (arpe_tokens and 4 x 7, attn_scores_pv.hd32
+    among them: PCT_FORWARD_COUNTS). Logits against pct_forward_plain / rankpct_forward_plain
+    in bf16 and fp32 (the RankPCT twins fed the engine's kept indices),
+    top-1 on decided clouds, and the share of clouds whose kept sets a
+    free-running bf16 twin also picks."""
+    from peekvit_torch.inference import (pct_forward_plain, rankpct_forward_fused,
+                                         rankpct_forward_plain)
+
+    engines, params32 = ins["engines"], ins["params32"]
+    # num_heads, num_points, ln_eps: the same for both engines
+    fwd = {k: v for k, v in engines["pct"]._forward.items() if k != "compute_dtype"}
+    gen = torch.Generator(device=dev).manual_seed(26)
+    n = PCT_M40["num_points"]
+    requests = [surface_clouds(torch, gen, bb, n, dev,
+                               ties=PCT_TIE_CLOUDS if bb == PCT_BATCH else 0)
+                for bb in PCT_REQUESTS]
+    totals: dict = {}
+    per_forward = []
+    reason = ("plain_bf16: the same rounding points, sums in another order; the repo's bf16 "
+              "kernel tolerance (tests/test_pallas.py:42). plain_fp32: bf16 tokens over 4 layers; "
+              "the repo's bf16 engine tolerance (tests/test_inference.py:54)")
+
+    def record(counts):
+        per_forward.append(sum(counts.values()))
+        for key, v in counts.items():
+            totals[key] = totals.get(key, 0) + v
+        if counts != PCT_FORWARD_COUNTS:
+            raise AssertionError(f"PCT launches {counts}, want {PCT_FORWARD_COUNTS}")
+
+    with torch.inference_mode():
+        for pts in requests:
+            bb = pts.shape[0]
+            e = engines["pct"]
+            got, counts = counted(torch, fa, lambda: e(pts))
+            record(counts)
+            if got.shape != (bb, PCT_M40["num_classes"]):
+                raise AssertionError(f"PCT: output shape {tuple(got.shape)}")
+            ref16 = pct_forward_plain(e.params, pts, compute_dtype=torch.bfloat16, **fwd)
+            ref32 = pct_forward_plain(params32["pct"], pts, compute_dtype=torch.float32, **fwd)
+            rec = compare_logits(torch, f"PCT b{bb}", got, [("plain_bf16", ref16, 3e-2, 3e-2),
+                                                           ("plain_fp32", ref32, 0.1, 0.05)])
+            emit({"phase": "pct_check", "model": "pct", "batch": bb, "launches": counts,
+                  **rec, "tolerance_reason": reason, "card": smi})
+            e = engines["rankpct"]
+            for budget in PCT_BUDGETS:
+                got, counts = counted(torch, fa, lambda: e(pts, budget=budget))
+                record(counts)
+                b = 1.0 if budget is None else budget
+                kept = {}
+                again = rankpct_forward_fused(e.params, pts, budget=b, ranking=e._ranking,
+                                              kept_out=kept, compute_dtype=torch.bfloat16, **fwd)
+                if not torch.equal(again, got):
+                    raise AssertionError(f"RankPCT {budget}: a second forward differs")
+                ref16 = rankpct_forward_plain(e.params, pts, budget=b, ranking=e._ranking,
+                                              kept_idx=kept, compute_dtype=torch.bfloat16, **fwd)
+                ref32 = rankpct_forward_plain(params32["rankpct"], pts, budget=b,
+                                              ranking=e._ranking, kept_idx=kept,
+                                              compute_dtype=torch.float32, **fwd)
+                rec = compare_logits(torch, f"RankPCT {budget} b{bb}", got,
+                                     [("plain_bf16", ref16, 3e-2, 3e-2),
+                                      ("plain_fp32", ref32, 0.1, 0.05)])
+                free = {}
+                rankpct_forward_plain(e.params, pts, budget=b, ranking=e._ranking, kept_out=free,
+                                      compute_dtype=torch.bfloat16, **fwd)
+                same = torch.ones(bb, dtype=torch.bool, device=dev)
+                for (_, ka), (_, kb) in zip(sorted(_composed_kept(torch, kept).items()),
+                                            sorted(_composed_kept(torch, free).items())):
+                    same &= (ka.sort(dim=1).values == kb.sort(dim=1).values).all(dim=1)
+                emit({"phase": "pct_check", "model": "rankpct", "batch": bb, "budget": budget,
+                      "tokens_per_layer": [1 + v.shape[1] for _, v in sorted(kept.items())],
+                      "launches": counts, **rec,
+                      "free_running_twin_same_kept_sets_share": same.float().mean().item(),
+                      "tolerance_reason": "the plain twins fed the engine's kept indices (bf16 "
+                      "norm ties at the keep boundary pick others in a free-running twin); "
+                      + reason, "card": smi})
+    emit({"phase": "pct_launches", "per_forward": per_forward, "counts": totals,
+          "requests": list(PCT_REQUESTS), "budgets": list(PCT_BUDGETS), "card": smi})
+    missing = [key for key in PCT_FORWARD_COUNTS if not totals.get(key)]
+    if missing or set(per_forward) != {sum(PCT_FORWARD_COUNTS.values())}:
+        raise AssertionError(f"PCT launches: missing {missing}, per forward {per_forward}")
+    return {"counts": totals, "clouds": requests[-1]}
+
+
+def library_arpe(torch, F, pts, pack, k):
+    """The ARPE embedding in its linen form from PyTorch calls, with both
+    BatchNorms folded: distances by bmm, torch.topk, gather, F.linear,
+    elu, amax, F.linear, elu. It computes the kernel's function on clouds
+    without ties at the k-th distance. A yardstick, never called by the
+    port."""
+    wc, wb, b1, w2, b2 = pack
+    b, n, c = pts.shape
+    sq = (pts * pts).sum(-1)
+    d2 = sq[:, :, None] + sq[:, None, :] - 2.0 * torch.bmm(pts, pts.transpose(1, 2))
+    idx = torch.topk(-d2, k, dim=-1).indices
+    knn = torch.gather(pts[:, None].expand(b, n, n, c), 2, idx[..., None].expand(b, n, k, c))
+    centre = pts[:, :, None].expand_as(knn)
+    h = F.elu(F.linear(torch.cat([centre, centre - knn], -1), torch.cat([wc - wb, wb]).t(), b1))
+    return F.elu(F.linear(h.amax(2), w2.t(), b2)).to(torch.bfloat16)
+
+
+def library_folded_layer(torch, F, x, w, h, eps):
+    """The folded layer from PyTorch calls (F.layer_norm without affine,
+    addmm, SDPA, tanh-gelu): a yardstick, never called by the port."""
+    wqkv, bqkv, wo, bo, w1, b1, w2, b2 = w
+    bb, n, d = x.shape
+    x2 = x.reshape(bb * n, d)
+    qkv = torch.addmm(bqkv, F.layer_norm(x2, (d,), eps=eps), wqkv)
+    qh = qkv.reshape(bb, n, 3, h, d // h).permute(2, 0, 3, 1, 4)
+    attn = F.scaled_dot_product_attention(qh[0], qh[1], qh[2]).transpose(1, 2).reshape(bb * n, d)
+    y = torch.addmm(bo, attn, wo).float() + x2
+    hh = F.gelu(torch.addmm(b1, F.layer_norm(y, (d,), eps=eps).to(x.dtype), w1),
+                approximate="tanh")
+    return (torch.addmm(b2, hh, w2) + y).to(x.dtype).reshape(bb, n, d)
+
+
+def pct_timing(torch, F, fa, smi, checks, ins, pct) -> list:
+    """Phase 27 at bs128: PCT and RankPCT at each budget (ms, clouds/s);
+    arpe_tokens and attn_scores_pv.hd32 (time, launches on phase 26's
+    path, bound, plain time, library yardstick), the exp2 count beside
+    the SFU's rate; the ARPE share of the PCT forward; the folded layer at
+    N = 1024 beside its plain twin and the layer from PyTorch calls; one
+    profiled forward of each path. Returns the two kernels' entries."""
+    from peekvit_torch.ops.cuda import pct_embed as tpe
+
+    bf16 = torch.bfloat16
+    engines, pts = ins["engines"], pct["clouds"]
+    n, d, h = PCT_M40["num_points"], PCT_M40["hidden_dim"], PCT_M40["num_heads"]
+    hd, k, pack = d // h, ins["k"], ins["pack"]
+    forward_ms = {}
+    with torch.inference_mode():
+        for name, budget in [("pct", None)] + [("rankpct", b) for b in PCT_BUDGETS]:
+            e = engines[name]
+            ms = cuda_ms(torch, lambda: e(pts, budget=budget), iters=10)
+            forward_ms[(name, budget)] = ms
+            emit({"phase": "timing_pct", "model": name, "budget": budget, "batch": PCT_BATCH,
+                  "points": n, "ms_per_forward": ms, "clouds_per_s": PCT_BATCH / ms * 1e3,
+                  "card": smi})
+        entries = []
+        attn_flops = 4.0 * PCT_BATCH * h * n * n * hd
+        exp2_count = PCT_BATCH * h * n * n
+        arpe_ops = PCT_BATCH * n * (78.0 * n + 120.0 + 15.0 * d)
+        specs = [
+            ("arpe_tokens", "peekvit_torch/csrc/arpe_tokens.cu",
+             f"{REPLACES_PCT}:121 arpe_tokens (_arpe_kernel :55)",
+             lambda: tpe.arpe_tokens(pts, *pack, k, out_dtype=bf16),
+             lambda: tpe.arpe_tokens_ref(pts, *pack, k, out_dtype=bf16),
+             lambda: library_arpe(torch, F, pts, pack, k),
+             arpe_ops / PEAK_FP32_FLOPS, PCT_BATCH * n * (3 * 4 + d * 2),
+             "the linen form: bmm distances, torch.topk, gather, F.linear, elu, amax, "
+             "F.linear, elu", {}),
+            ("attn_scores_pv.hd32", "peekvit_torch/csrc/attn_scores_pv.cu",
+             f"{REPLACES}:46 _attn_scores_pv at head dim 32",
+             lambda: fa.attn_scores_pv(ins["qkv"], h),
+             lambda: fa.attn_scores_pv_ref(ins["qkv"], h),
+             None, attn_flops / PEAK_BF16_FLOPS, PCT_BATCH * n * 4 * d * 2, "SDPA",
+             {"exp2_count": exp2_count, "sfu_results_per_s": SFU_PER_S,
+              "sfu_bound_ms": exp2_count / SFU_PER_S * 1e3}),
+        ]
+        sdpa = [ins["qkv"][..., i * d:(i + 1) * d].reshape(PCT_BATCH, n, h, hd)
+                .transpose(1, 2).contiguous() for i in range(3)]
+        for name, source, replaces, kfn, pfn, lfn, t_ops, nbytes, library, extra in specs:
+            if lfn is None:
+                lfn = lambda: F.scaled_dot_product_attention(*sdpa)  # noqa: E731
+            ms = cuda_ms(torch, kfn)
+            plain_ms = cuda_ms(torch, pfn, iters=3)
+            lib_ms = cuda_ms(torch, lfn)
+            t_ops *= 1e3
+            t_bytes = nbytes / PEAK_BYTES * 1e3
+            bnd, by = (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+            launches = pct["counts"].get(name, 0)
+            if launches == 0:
+                raise AssertionError(f"{name}: never launched on the PCT paths")
+            entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                     "launches": launches, "max_abs_err": checks[name], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+                     "library_ms": lib_ms, "path": "pct", "shape_batch": PCT_BATCH}
+            emit({"phase": "timing_kernel", **entry, "share_of_bound": bnd / ms,
+                  "launches_per_forward": PCT_FORWARD_COUNTS[name], "library": library,
+                  **extra, "card": smi})
+            entries.append(entry)
+        arpe_ms = entries[0]["ms"]
+        emit({"phase": "timing_pct_breakdown", "forward_ms": forward_ms[("pct", None)],
+              "arpe_ms": arpe_ms, "arpe_share_of_forward": arpe_ms / forward_ms[("pct", None)],
+              "attention_ms_per_forward": entries[1]["ms"] * PCT_M40["num_layers"], "card": smi})
+        x3, w = ins["tokens"], ins["layer"]
+        rows = PCT_BATCH * n
+        m = PCT_M40["mlp_dim"]
+        flops = 2.0 * rows * (4 * d * d + 2 * d * m) + attn_flops
+        emit({"phase": "timing_composition", "name": "fused_layer_block_folded.pct",
+              "ms": cuda_ms(torch, lambda: fa.fused_layer_block_folded(x3, *w, h, EPS)),
+              "plain_ms": cuda_ms(torch, lambda: fa.fused_layer_block_folded_ref(x3, *w, h, EPS),
+                                  iters=3),
+              "library_ms": cuda_ms(torch, lambda: library_folded_layer(torch, F, x3, w, h, EPS)),
+              "library": "the layer from PyTorch calls: F.layer_norm, addmm, SDPA, gelu",
+              "launches_per_call": 7, "tokens": n, "batch": PCT_BATCH,
+              "bound_ms": flops / PEAK_BF16_FLOPS * 1e3, "bound_by": "operations",
+              "max_abs_err": checks["fused_layer_block_folded.pct"],
+              "replaces": f"{REPLACES}:788 fused_layer_block_folded at D = 128, H = 4",
+              "card": smi})
+        # warmed windows: a cold one misses the forward's first kernels (ARPE's among them)
+        profile_step(torch, smi, lambda: engines["pct"](pts), forward_ms[("pct", None)],
+                     phase="profile_pct_forward", batch=PCT_BATCH, warmup=True)
+        profile_step(torch, smi, lambda: engines["rankpct"](pts, budget=PCT_PROFILE_BUDGET),
+                     forward_ms[("rankpct", PCT_PROFILE_BUDGET)],
+                     phase="profile_rankpct_forward", batch=PCT_BATCH, warmup=True)
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -3069,6 +3460,18 @@ def main() -> int:
             "int8_split_sublayers": rq["split_counts"].get(name, 0),
             "avit": av["counts"].get(name, 0)}
     kernels += new_entries
+    # ----------------------------------------------------- 25-27. PCT / RankPCT
+    pct_ins = pct_kernel_checks(torch, fa, check, checks, dev, smi)
+    pct = pct_phases(torch, fa, dev, smi, pct_ins)
+    pct_entries = pct_timing(torch, F, fa, smi, checks, pct_ins, pct)
+    for entry in kernels:  # the PCT paths run the earlier slices' layer kernels
+        entry["launches_by_path"]["pct"] = pct["counts"].get(entry["name"], 0)
+    for entry in pct_entries:
+        entry["launches_by_path"] = {
+            **dict.fromkeys(("engine", "split", "train", "residual", "compact", "residual_train",
+                             "rank", "int8", "residual_int8", "int8_split_sublayers", "avit"), 0),
+            "pct": entry["launches"]}
+    kernels += pct_entries
     emit({"phase": "elapsed", "seconds": time.perf_counter() - t_start, "card": smi})
 
     emit({"kernels": kernels})

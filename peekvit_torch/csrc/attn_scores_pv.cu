@@ -33,14 +33,30 @@
 //     the kernel and its plain version agree on excluded keys. A key mask
 //     and a phantom key are exclusive (no JAX path combines them).
 //
+// The head dim HD is a template parameter, instantiated at 64 (ViT-B,
+// ViT-S, every earlier model) and 32 (PCT: d = 128 over 4 heads). Only
+// the tile geometry follows HD: a shared-memory row is HD + 8 bf16 (144 B
+// at 64, 80 B at 32, both multiples of ldmatrix's 16-byte rows, and with
+// 8 rows of a ldmatrix landing on distinct banks), Q K^T takes HD / 16
+// k-steps of m16n8k16 and P V HD / 8 n8 tiles. The arithmetic and its
+// order are the same for both, so the HD = 64 kernel is the one built
+// before the template.
+//
 // Bound on H100: at ViT-B (N = 197, head dim 64) the two products are
 // 4 * N * N * 64 flops per (image, head) against 4 * N * 64 * 2 bytes
 // of q, k, v and output, about 100 flops per byte, under the card's
 // ~295 flop/byte ridge: bytes bound it, with the exp2 on the SFU close.
+// At PCT (N = 1024, head dim 32) the products are 4 * N * 32 flops per
+// query against 4 * 32 * 2 bytes of its q, k, v and output: 4 N / 2 =
+// 2,048 flops per byte, far past the ridge, so the tensor-core
+// operations bound it (128 flops per score), and the exp2 terms, one per
+// score at the SFU's 16 per SM and cycle (132 SMs at 1.98 GHz: 4.2e12
+// per second), take about twice the tensor-core time at 989 TFLOP/s: at
+// that length the SFU is what limits this design.
 // Design: grid (query tile of 64, head, image), 4 warps of 16 query rows.
 // Q, K and V are read straight from the packed (B, N, 3D) buffer at
-// columns h*64, D + h*64 and 2D + h*64 and the output is written at
-// column h*64 of (B, N, D): no transposes through memory. Because there
+// columns h*HD, D + h*HD and 2D + h*HD and the output is written at
+// column h*HD of (B, N, D): no transposes through memory. Because there
 // is no max subtraction, key tiles of 64 stream through a 2-stage
 // cp.async ring and their partial sums simply add: no online rescaling,
 // no (N, N) score tile in memory. Scores stay in registers and feed the
@@ -54,10 +70,8 @@
 
 namespace {
 
-constexpr int HD = 64;          // head dim the kernel is built for
 constexpr int QT = 64;          // query rows per block
 constexpr int KT = 64;          // keys per streamed tile
-constexpr int STRIDE = HD + 8;  // padded smem row (bf16 elements)
 constexpr int THREADS = 128;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -108,11 +122,14 @@ __device__ __forceinline__ float weighted(float e, float w) {
   return __bfloat162float(__float2bfloat16_rn(e * w));
 }
 
-template <bool KMASK>
+template <int HD, bool KMASK>
 __global__ void __launch_bounds__(THREADS)
 attn_kernel(const __nv_bfloat16* __restrict__ qkv, const __nv_bfloat16* __restrict__ kmask,
             __nv_bfloat16* __restrict__ out, int n, int d, float qscale, int phantom_idx,
             float phantom_w) {
+  constexpr int STRIDE = HD + 8;               // padded smem row (bf16 elements)
+  constexpr int CH = HD / 8;                   // 16-byte chunks per row
+  constexpr int LOADS = QT * CH / THREADS;     // chunks per thread per tile (QT == KT)
   __shared__ __align__(16) __nv_bfloat16 sq[QT * STRIDE];
   __shared__ __align__(16) __nv_bfloat16 sk[2][KT * STRIDE];
   __shared__ __align__(16) __nv_bfloat16 sv[2][KT * STRIDE];
@@ -123,13 +140,13 @@ attn_kernel(const __nv_bfloat16* __restrict__ qkv, const __nv_bfloat16* __restri
   const long long row_stride = 3LL * d;
   const __nv_bfloat16* base = qkv + (long long)b * n * row_stride;
 
-  // K/V tile loader: 64 keys x 8 chunks of 8 bf16, for K and for V.
+  // K/V tile loader: 64 keys x CH chunks of 8 bf16, for K and for V.
   auto load_kv = [&](int tile, int buf) {
     const int kv0 = tile * KT;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < LOADS; ++i) {
       const int chunk = tid + i * THREADS;
-      const int r = chunk >> 3, c = (chunk & 7) * 8;
+      const int r = chunk / CH, c = (chunk % CH) * 8;
       const int key = kv0 + r;
       const int ok = key < n;
       const __nv_bfloat16* src = base + (long long)(ok ? key : 0) * row_stride + h * HD + c;
@@ -149,9 +166,9 @@ attn_kernel(const __nv_bfloat16* __restrict__ qkv, const __nv_bfloat16* __restri
 
   // Q tile, pre-scaled by scale * log2(e) in fp32 and rounded to bf16.
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < LOADS; ++i) {
     const int chunk = tid + i * THREADS;
-    const int r = chunk >> 3, c = (chunk & 7) * 8;
+    const int r = chunk / CH, c = (chunk % CH) * 8;
     const int qrow = q0 + r;
     uint4 raw = make_uint4(0, 0, 0, 0);
     if (qrow < n) {
@@ -167,17 +184,17 @@ attn_kernel(const __nv_bfloat16* __restrict__ qkv, const __nv_bfloat16* __restri
   }
   __syncthreads();
 
-  uint32_t qf[4][4];
+  uint32_t qf[HD / 16][4];
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < HD / 16; ++kk) {
     const int r = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
     const int c = kk * 16 + (lane >> 4) * 8;
     ldmatrix_x4(qf[kk], &sq[r * STRIDE + c]);
   }
 
-  float o[8][4];
+  float o[HD / 8][4];
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < HD / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
   float rsum0 = 0.f, rsum1 = 0.f;  // rows g and g + 8
@@ -189,9 +206,9 @@ attn_kernel(const __nv_bfloat16* __restrict__ qkv, const __nv_bfloat16* __restri
     cp_async_wait<1>();
     if (KMASK) {  // scrub the V chunks this thread copied for tile t
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < LOADS; ++i) {
         const int chunk = tid + i * THREADS;
-        uint4* p = reinterpret_cast<uint4*>(&sv[t & 1][(chunk >> 3) * STRIDE + (chunk & 7) * 8]);
+        uint4* p = reinterpret_cast<uint4*>(&sv[t & 1][(chunk / CH) * STRIDE + (chunk % CH) * 8]);
         uint4 v = *p;
         v.x = scrub_bf16x2(v.x);
         v.y = scrub_bf16x2(v.y);
@@ -213,7 +230,7 @@ attn_kernel(const __nv_bfloat16* __restrict__ qkv, const __nv_bfloat16* __restri
 #pragma unroll
     for (int jp = 0; jp < 4; ++jp) {
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
+      for (int kk = 0; kk < HD / 16; ++kk) {
         uint32_t kf[4];
         const int r = jp * 16 + (lane & 7) + (lane >> 4) * 8;
         const int c = kk * 16 + ((lane >> 3) & 1) * 8;
@@ -256,7 +273,7 @@ attn_kernel(const __nv_bfloat16* __restrict__ qkv, const __nv_bfloat16* __restri
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) {
 #pragma unroll
-      for (int jn = 0; jn < 4; ++jn) {
+      for (int jn = 0; jn < HD / 16; ++jn) {
         uint32_t vf[4];
         const int r = jj * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
         const int c = jn * 16 + (lane >> 4) * 8;
@@ -278,7 +295,7 @@ attn_kernel(const __nv_bfloat16* __restrict__ qkv, const __nv_bfloat16* __restri
   const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
   __nv_bfloat16* obase = out + (long long)b * n * d + h * HD + tq * 2;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < HD / 8; ++j) {
     if (r0 < n)
       *reinterpret_cast<__nv_bfloat162*>(obase + (long long)r0 * d + j * 8) =
           __floats2bfloat162_rn(o[j][0] * inv0, o[j][1] * inv0);
@@ -288,30 +305,41 @@ attn_kernel(const __nv_bfloat16* __restrict__ qkv, const __nv_bfloat16* __restri
   }
 }
 
+template <int HD>
+int launch(const __nv_bfloat16* q, const __nv_bfloat16* km, __nv_bfloat16* o, int b, int n,
+           int d, int num_heads, float qscale, int phantom_idx, float phantom_w,
+           cudaStream_t st) {
+  dim3 grid((n + QT - 1) / QT, num_heads, b);
+  if (km != nullptr)
+    attn_kernel<HD, true><<<grid, THREADS, 0, st>>>(q, km, o, n, d, qscale, -1, phantom_w);
+  else
+    attn_kernel<HD, false><<<grid, THREADS, 0, st>>>(q, nullptr, o, n, d, qscale,
+                                                     phantom_idx < 0 ? -1 : phantom_idx,
+                                                     phantom_w);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// qkv: (b, n, 3d) bf16 packed as [q | k | v] with head h at columns h*64;
-// out: (b, n, d) bf16. head_dim must be 64 and d a multiple of 64 (the
-// wrapper checks). qscale = head_dim^-0.5 * log2(e). phantom_idx < 0
-// (no phantom key) or in [0, n); phantom_mult is rounded to bf16 here.
-// kmask: null, or (b, n) bf16 (1 = attend), and then phantom_idx < 0.
-// Returns the cudaError_t of the launch.
+// qkv: (b, n, 3d) bf16 packed as [q | k | v] with head h at columns
+// h*head_dim; out: (b, n, d) bf16. head_dim must be 64 or 32 and d =
+// num_heads * head_dim (the wrapper checks). qscale = head_dim^-0.5 *
+// log2(e). phantom_idx < 0 (no phantom key) or in [0, n); phantom_mult
+// is rounded to bf16 here. kmask: null, or (b, n) bf16 (1 = attend), and
+// then phantom_idx < 0. Returns the cudaError_t of the launch.
 extern "C" int peekvit_attn_scores_pv(const void* qkv, void* out, const void* kmask, int b,
-                                      int n, int d, int num_heads, float qscale,
+                                      int n, int d, int num_heads, int head_dim, float qscale,
                                       int phantom_idx, float phantom_mult, void* stream) {
   if (b == 0 || n == 0) return 0;
-  if (d != num_heads * HD || phantom_idx >= n || (kmask != nullptr && phantom_idx >= 0))
+  if ((head_dim != 64 && head_dim != 32) || d != num_heads * head_dim || phantom_idx >= n ||
+      (kmask != nullptr && phantom_idx >= 0))
     return (int)cudaErrorInvalidValue;
   const float phantom_w = __bfloat162float(__float2bfloat16_rn(phantom_mult));
-  dim3 grid((n + QT - 1) / QT, num_heads, b);
   const auto* q = static_cast<const __nv_bfloat16*>(qkv);
   const auto* km = static_cast<const __nv_bfloat16*>(kmask);
   auto* o = static_cast<__nv_bfloat16*>(out);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (km != nullptr)
-    attn_kernel<true><<<grid, THREADS, 0, st>>>(q, km, o, n, d, qscale, -1, phantom_w);
-  else
-    attn_kernel<false><<<grid, THREADS, 0, st>>>(q, nullptr, o, n, d, qscale,
-                                                 phantom_idx < 0 ? -1 : phantom_idx, phantom_w);
-  return (int)cudaGetLastError();
+  return head_dim == 64
+             ? launch<64>(q, km, o, b, n, d, num_heads, qscale, phantom_idx, phantom_w, st)
+             : launch<32>(q, km, o, b, n, d, num_heads, qscale, phantom_idx, phantom_w, st);
 }

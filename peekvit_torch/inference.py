@@ -1,10 +1,11 @@
-"""Fused eval engines for the plain ViT, the ResidualViT family, RankViT and
-A-ViT, in bf16 and (ViT, ResidualViT, RankViT) int8 (counterpart of
-peekvit_tpu/inference.py:
+"""Fused eval engines for the plain ViT, the ResidualViT family, RankViT,
+A-ViT, PCT and RankPCT, in bf16 and (ViT, ResidualViT, RankViT) int8
+(counterpart of peekvit_tpu/inference.py:
 ``prepare_engine_params``, ``vit_forward_fused``, ``_encoder_stack``,
 ``residualvit_forward_fused``, ``rankvit_forward_fused``,
 ``rankvit_forward_padded``, ``adavit_forward_fused``, the int8 forwards
-and calibration, and ``InferenceEngine``).
+and calibration, ``prepare_pct_engine_params``, ``pct_forward_fused``,
+``rankpct_forward_fused`` and ``InferenceEngine``).
 
 For a plain ViT the engine reads the model's weights into a param tree in
 the JAX grammar, folds the LN affines into the qkv/fc1 weights and the
@@ -33,6 +34,13 @@ For an A-ViT the ACT carry (cumulative halting, remainder, active mask)
 runs in torch in fp32 and each layer runs ``avit_layer_block`` on the
 kernels (``adavit_forward_fused``).
 
+For a PCT the engine embeds the point clouds with the gather-free ARPE
+kernel (``ops/cuda/pct_embed.arpe_tokens``: kNN threshold by bisection,
+masked max, both BatchNorms folded at build), runs the plain folded stack
+(the ViT's kernels at head dim 32), mean-pools and runs the BatchNorm
+head in fp32 torch (``pct_forward_fused``). A RankPCT drops tokens
+physically before each ranking layer (``rankpct_forward_fused``).
+
 ``quantized=True`` (ViT, RankViT and the ResidualViT family) serves int8
 w8a8: the weights quantized per output column at build
 (``quantize_vit_params``, ``quantize_residualvit_params``, optionally
@@ -58,6 +66,13 @@ Usage::
 
     engine = InferenceEngine(build_model("adavit", args))
     logits = engine(images)
+
+    engine = InferenceEngine(build_model("pct", args))
+    logits = engine(points)                     # (B, N, 3) -> (B, classes) fp32
+
+    model = build_model("rankpct", args)
+    model.enable_ranking(True)                  # read when the engine is built
+    logits = InferenceEngine(model)(points, budget=0.5)
 """
 
 from __future__ import annotations
@@ -69,9 +84,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from peekvit_torch.models.adapters import module_params, tree_map
+from peekvit_torch.models.adapters import module_params, module_state, tree_map
 from peekvit_torch.models.adavit import AdaptiveVisionTransformer
 from peekvit_torch.models.eeresidualvit import EEResidualVisionTransformer
+from peekvit_torch.models.pct import PointCloudTransformer
+from peekvit_torch.models.rankpct import RankPointCloudTransformer
 from peekvit_torch.models.rankvit import RankVisionTransformer
 from peekvit_torch.models.registry import resolve_device
 from peekvit_torch.models.residualvit import ResidualVisionTransformer
@@ -98,6 +115,7 @@ from peekvit_torch.ops.cuda.fused_attention import (
     masked_mlp_block_ref,
 )
 from peekvit_torch.ops.attention import attention_core
+from peekvit_torch.ops.cuda.pct_embed import arpe_tokens, arpe_tokens_ref
 from peekvit_torch.ops.cuda.quant_blocks import (
     kernel_layout,
     quant_attention_block,
@@ -1264,8 +1282,175 @@ def adavit_forward_plain(params, images, *, patch_size: int, num_heads: int, num
                            ln_eps=ln_eps, compute_dtype=compute_dtype, active_in=active_in,
                            active_out=active_out)
 
+
+# --------------------------------------------------------------------- PCT
+
+
+def _bn_eval(x, pr, st, eps: float = 1e-5):
+    """Inference-mode BatchNorm from the running statistics, in fp32 (JAX
+    ``_bn_eval``, inference.py:512): ((x - mean) * rsqrt(var + eps)) *
+    scale + bias."""
+    inv = torch.rsqrt(st["var"].float() + eps)
+    return ((x.float() - st["mean"].float()) * inv * pr["scale"].float().reshape(-1)
+            + pr["bias"].float().reshape(-1))
+
+
+def prepare_pct_engine_params(params: dict, batch_stats: dict, compute_dtype=None) -> dict:
+    """The PCT engine tree (JAX ``prepare_pct_engine_params``,
+    inference.py:636): the blocks under ``encoder`` so that
+    :func:`prepare_engine_params` folds and stacks them (``fold_ln=True``),
+    ``embedder`` and ``head`` cast to ``compute_dtype`` with everything
+    else (the head's weights are rounded there and lifted back to fp32 in
+    the forward, as in JAX), ``_bn_stats`` the fp32 ``batch_stats``, and
+    the ARPE pack ``embedder._arpe_kernel_pack`` folded in fp32 from the
+    original weights: each BatchNorm's running affine into its Dense,
+    W' = W * a, b' = (b - mean) * a + bias with a = rsqrt(var + 1e-5) *
+    scale per output channel; wc = Wa' + Wb', wb = Wb' (the point and the
+    difference halves of lin1's rows), unpadded."""
+    tree = {"embedder": params["embedder"], "head": params["head"],
+            "encoder": {k: v for k, v in params.items() if k.startswith("layers_")}}
+    out = prepare_engine_params(tree, compute_dtype, fold_ln=True)
+
+    def bn_fold(w, b, pr, bn):
+        a = torch.rsqrt(bn["var"].float() + 1e-5) * pr["scale"].float().reshape(-1)
+        return (w.float() * a[None, :],
+                (b.float().reshape(-1) - bn["mean"].float()) * a + pr["bias"].float().reshape(-1))
+
+    emb, ebs = params["embedder"], batch_stats["embedder"]
+    w1, b1 = bn_fold(emb["lin1"]["kernel"], emb["lin1"]["bias"], emb["bn1"], ebs["bn1"])
+    w2, b2 = bn_fold(emb["lin2"]["kernel"], emb["lin2"]["bias"], emb["bn2"], ebs["bn2"])
+    c = w1.shape[0] // 2
+    wa, wb = w1[:c], w1[c:]
+    out["embedder"]["_arpe_kernel_pack"] = {
+        "wc": (wa + wb).contiguous(), "wb": wb.contiguous(), "b1": b1.contiguous(),
+        "w2": w2.contiguous(), "b2": b2.contiguous()}
+    out["_bn_stats"] = tree_map(lambda t: t.float(), batch_stats)
+    return out
+
+
+def _pct_embed(params, points, num_points, compute_dtype, arpe):
+    """ARPE tokens of (B, N, 3) points in the compute dtype, k =
+    int(32 * num_points / 512)."""
+    pack = params["embedder"]["_arpe_kernel_pack"]
+    k = int(32 * num_points / 512)
+    return arpe(points.float().contiguous(), pack["wc"], pack["wb"], pack["b1"], pack["w2"],
+                pack["b2"], k, out_dtype=compute_dtype)
+
+
+def _pct_head(params, pooled):
+    """The classifier on the fp32 pooled tokens: lin1 -> BatchNorm (running
+    statistics) -> exact gelu -> lin2, fp32 (JAX inference.py:562-568)."""
+    hd, hbs = params["head"], params["_bn_stats"]["head"]
+    z = pooled @ hd["lin1"]["kernel"].float() + hd["lin1"]["bias"].float().reshape(-1)
+    z = F.gelu(_bn_eval(z, hd["bn1"], hbs["bn1"]), approximate="none")
+    return (z @ hd["lin2"]["kernel"].float() + hd["lin2"]["bias"].float().reshape(-1)).float()
+
+
+def _pct_forward(params, points, arpe, encoder: Callable, *, num_points: int, compute_dtype):
+    def cast(t):
+        return t.to(compute_dtype)
+
+    tokens = encoder(params["encoder"], _pct_embed(params, points, num_points, compute_dtype,
+                                                   arpe), cast)
+    return _pct_head(params, tokens.float().mean(dim=1))
+
+
+def pct_forward_fused(params, points, *, num_heads: int, num_points: int, ln_eps: float = 1e-5,
+                      compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """PCT eval forward (JAX ``pct_forward_fused``, inference.py:521) from
+    :func:`prepare_pct_engine_params`. points: (B, N, 3). The ARPE kernel
+    (``arpe_tokens``, one launch) writes the tokens in the compute dtype,
+    the blocks run the plain folded stack (``encoder_layers_one_call``, 7
+    launches per layer), then the fp32 mean over all tokens and the
+    BatchNorm head in torch. Returns fp32 logits."""
+    return _pct_forward(
+        params, points, arpe_tokens,
+        lambda enc, tokens, cast: _encoder_stack(enc, tokens, num_heads, ln_eps, cast),
+        num_points=num_points, compute_dtype=compute_dtype)
+
+
+def pct_forward_plain(params, points, *, num_heads: int, num_points: int, ln_eps: float = 1e-5,
+                      compute_dtype=torch.float32) -> torch.Tensor:
+    """:func:`pct_forward_fused` on the kernels' plain versions, whatever
+    the device: the reference a check holds the engine against on the
+    card."""
+    return _pct_forward(
+        params, points, arpe_tokens_ref,
+        lambda enc, tokens, cast: encoder_layers_one_call_ref(
+            tokens, tree_map(cast, enc["_stacked_layers"]), num_heads, ln_eps),
+        num_points=num_points, compute_dtype=compute_dtype)
+
+
+def _rankpct_forward(params, points, budget, arpe, layer_block, *, ranking: tuple,
+                     num_heads: int, num_points: int, ln_eps: float, compute_dtype,
+                     kept_idx: Optional[dict] = None, kept_out: Optional[dict] = None):
+    def cast(t):
+        return t.to(compute_dtype)
+
+    tokens = _pct_embed(params, points, num_points, compute_dtype, arpe)
+    enc = params["encoder"]
+    b, alive, d = tokens.shape
+    for i in _layer_ids(enc):
+        if ranking[i] and budget is not None:
+            n_keep = max(min(int(np.ceil(alive * float(budget))), alive), 1)
+            if n_keep < alive:
+                rest = tokens[:, 1:]
+                if kept_idx is not None:
+                    idx = kept_idx[i]
+                    if tuple(idx.shape) != (b, n_keep - 1):
+                        raise ValueError(f"kept_idx[{i}] has shape {tuple(idx.shape)}, "
+                                         f"want {(b, n_keep - 1)}")
+                else:
+                    # the reference's tie-break: a stable argsort of -norms
+                    norms = torch.linalg.vector_norm(rest.float(), dim=-1)
+                    idx = torch.argsort(-norms, dim=-1, stable=True)[:, :n_keep - 1]
+                if kept_out is not None:
+                    kept_out[i] = idx
+                kept = torch.gather(rest, 1, idx[..., None].expand(-1, -1, d))
+                tokens = torch.cat([tokens[:, :1], kept], dim=1)
+                alive = n_keep
+        tokens = layer_block(tokens, *_folded_weights(enc[f"layers_{i}"], cast), num_heads, ln_eps)
+    return _pct_head(params, tokens.float().sum(dim=1) / float(alive))
+
+
+def rankpct_forward_fused(params, points, *, budget: Optional[float], ranking: tuple,
+                          num_heads: int, num_points: int, ln_eps: float = 1e-5,
+                          compute_dtype=torch.bfloat16,
+                          kept_out: Optional[dict] = None) -> torch.Tensor:
+    """RankPCT eval forward with the physical token drop (JAX
+    ``rankpct_forward_fused``, inference.py:572). Before each layer whose
+    ``ranking`` flag is set (none without a budget) the layer keeps
+    ``n = max(min(ceil(alive * budget), alive), 1)`` tokens (the float64
+    product, as JAX): position 0 and the ``n - 1`` others of largest fp32
+    norm, gathered in descending-norm order (a stable argsort of -norms).
+    Every layer runs ``fused_layer_block_folded`` at its width, down to
+    the last (no 128-token switch to the split sublayers here, as in JAX),
+    and the mean divides by the survivor count. ``kept_out``: if a dict is
+    given, each dropping layer's (B, n - 1) indices into the previous
+    tokens after position 0 are stored in it under the layer id. Returns
+    fp32 logits."""
+    return _rankpct_forward(params, points, budget, arpe_tokens, fused_layer_block_folded,
+                            ranking=ranking, num_heads=num_heads, num_points=num_points,
+                            ln_eps=ln_eps, compute_dtype=compute_dtype, kept_out=kept_out)
+
+
+def rankpct_forward_plain(params, points, *, budget: Optional[float], ranking: tuple,
+                          num_heads: int, num_points: int, ln_eps: float = 1e-5,
+                          compute_dtype=torch.float32, kept_idx: Optional[dict] = None,
+                          kept_out: Optional[dict] = None) -> torch.Tensor:
+    """:func:`rankpct_forward_fused` on the plain versions, whatever the
+    device. ``kept_idx`` (a ``kept_out`` of the engine's forward) replaces
+    the ranking, so that both gather the same tokens where a bf16 norm tie
+    at the keep boundary would pick others."""
+    return _rankpct_forward(params, points, budget, arpe_tokens_ref, fused_layer_block_folded_ref,
+                            ranking=ranking, num_heads=num_heads, num_points=num_points,
+                            ln_eps=ln_eps, compute_dtype=compute_dtype, kept_idx=kept_idx,
+                            kept_out=kept_out)
+
+
 class InferenceEngine:
-    """Fused eval forward bound to a built plain ViT, ResidualViT or RankViT.
+    """Fused eval forward bound to a built plain ViT, ResidualViT, RankViT,
+    A-ViT, PCT or RankPCT.
 
     ``device`` defaults to the card and raises when there is none; pass
     ``device="cpu"`` to run the kernels' plain versions on the CPU. On the
@@ -1289,6 +1474,14 @@ class InferenceEngine:
 
     A-ViT: ``engine(images)`` (``adavit_forward_fused``: the ACT carry in
     torch, each layer on ``avit_layer_block``), bf16 only.
+
+    PCT: ``engine(points)``, points (B, N, 3) (``pct_forward_fused``).
+    RankPCT: ``engine(points, budget=b)`` (``rankpct_forward_fused``, the
+    physical drop): the ranking flags are read when the engine is built
+    (call ``enable_ranking`` first); with ranking on, the budget is 1.0 by
+    default; with none on, no layer ranks and the budget is ignored. Both
+    are bf16 eval only, as in JAX: ``quantized=`` and ``max_budget=``
+    raise, as do registers and a model without its BatchNorm statistics.
 
     ``quantized=True`` (ViT, RankViT and the ResidualViT family) serves
     int8 w8a8 (``vit_forward_quant``, ``rankvit_forward_quant``, with
@@ -1314,17 +1507,25 @@ class InferenceEngine:
         rank = isinstance(model, RankVisionTransformer)
         residual = isinstance(model, ResidualVisionTransformer)
         avit = isinstance(model, AdaptiveVisionTransformer)
-        if not (rank or residual or avit or isinstance(model, VisionTransformer)):
+        pct = isinstance(model, (PointCloudTransformer, RankPointCloudTransformer))
+        if not (rank or residual or avit or pct or isinstance(model, VisionTransformer)):
             raise NotImplementedError(
                 f"the port's engine serves the plain VisionTransformer, the ResidualViT "
-                f"family, RankViT and A-ViT; {type(model).__name__} is ROADMAP.md port queue A "
-                f"item 7")
+                f"family, RankViT, A-ViT, PCT and RankPCT; {type(model).__name__} is ROADMAP.md "
+                f"port queue A item 7")
         if avit and (quantized or max_budget is not None):
             raise NotImplementedError(
                 "the A-ViT engine is bf16-only by design: int8 would quantize the "
                 "halting-score inputs feeding the hard ACT threshold c > 1-eps (token depths "
                 "flip against the module), and the avit-mode masked kernels have no quant "
                 "variants")
+        if pct and (quantized or max_budget is not None):
+            raise NotImplementedError(
+                "the PCT engine is bf16 eval only (no quantized / max_budget / noise modes)")
+        if pct and model.num_registers:
+            raise NotImplementedError(
+                "PCT engine: num_registers > 0 not supported (the reference PCT config never "
+                "sets it)")
         if max_budget is not None and not rank:
             raise NotImplementedError(
                 "max_budget= (the single-shape padded drop) applies to RankViT models only "
@@ -1367,8 +1568,22 @@ class InferenceEngine:
         self._residual = residual
         self._rank = rank
         self._avit = avit
+        self._pct = pct
         self._quantized = bool(quantized)
         self.caps = None
+        if pct:
+            params, stats = (tree_map(lambda t: t.to(self.device), tree)
+                             for tree in module_state(model))
+            if not all("bn1" in stats.get(sub, {}) for sub in ("embedder", "head")):
+                raise NotImplementedError("PCT engine needs the model's batch_stats collection")
+            self._forward = dict(num_heads=model.num_heads, num_points=model.num_points,
+                                 ln_eps=1e-5, compute_dtype=compute_dtype)
+            # RankPCT: the ranking flags as they are now (JAX reads them at
+            # engine build); None for a PCT
+            self._ranking = (tuple(model.ranking_enabled or (False,) * model.num_layers)
+                             if isinstance(model, RankPointCloudTransformer) else None)
+            self.params = prepare_pct_engine_params(params, stats, compute_dtype)
+            return
         params = tree_map(lambda t: t.to(self.device), module_params(model))
         if quantized:
             params = self._quantize(params, calib_images, calib_percentile, calib_static_caps)
@@ -1474,14 +1689,23 @@ class InferenceEngine:
         return self._compact_caps_by_budget[budget]
 
     def __call__(self, images, budget: Optional[float] = None):
-        """images: (B, H, W, 3) numpy array or tensor. Returns fp32 logits
-        on the engine's device (for ``ee_outputs``, the tuple of exits and
-        final logits). ``budget`` (ResidualViT and RankViT, default 1.0) is
-        ignored by a plain ViT and by A-ViT, as in the JAX engine."""
+        """images: (B, H, W, 3), or point clouds (B, N, 3) for PCT and
+        RankPCT, numpy array or tensor. Returns fp32 logits on the engine's
+        device (for ``ee_outputs``, the tuple of exits and final logits).
+        ``budget`` (ResidualViT, RankViT and a RankPCT with ranking on,
+        default 1.0) is ignored by a plain ViT, by A-ViT and by PCT, as in
+        the JAX engine."""
         if isinstance(images, np.ndarray):
             images = torch.from_numpy(images)
         images = images.to(self.device, torch.float32)
         with torch.inference_mode():
+            if self._pct:
+                if self._ranking is None:
+                    return pct_forward_fused(self.params, images, **self._forward)
+                b = (None if not any(self._ranking)
+                     else 1.0 if budget is None else float(budget))
+                return rankpct_forward_fused(self.params, images, budget=b,
+                                             ranking=self._ranking, **self._forward)
             q = dict(caps=self.caps) if self._quantized else {}
             if self._rank:
                 b = 1.0 if budget is None else float(budget)

@@ -1,5 +1,5 @@
 """Models of the port (plain ViT, ResidualViT, early-exit ResidualViT,
-RankViT, A-ViT) and weight adapters."""
+RankViT, A-ViT, PCT, RankPCT) and weight adapters."""
 
 from peekvit_torch.models.registry import build_model
 

@@ -5,6 +5,11 @@ The port's modules keep the JAX names and layouts, so a JAX tree path
 joined by dots is a state_dict key and no array needs a transpose: the
 (P*P*C, D) patch kernel, the (in, out) dense kernels and the packed
 (D, 3D) qkv kernel cross as they are. Arrays are numpy on both sides.
+
+A model with BatchNorm (PCT, RankPCT) also carries JAX's ``batch_stats``
+collection: the running ``mean`` / ``var`` of each BatchNorm are the
+module's buffers, beside its ``scale`` / ``bias`` parameters, under the
+same paths.
 """
 
 from __future__ import annotations
@@ -64,11 +69,27 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
-def params_from_jax(model: nn.Module, tree: dict) -> nn.Module:
+def module_state(model: nn.Module) -> tuple[dict, dict]:
+    """(params, batch_stats): the module's parameters and its buffers (the
+    BatchNorm running statistics; empty for a model without) as two nested
+    dicts of detached tensors in the JAX tree's grammar."""
+    buffers = {key for key, _ in model.named_buffers()}
+    items = model.state_dict().items()
+    return (_nest((k, v.detach()) for k, v in items if k not in buffers),
+            _nest((k, v.detach()) for k, v in items if k in buffers))
+
+
+def params_from_jax(model: nn.Module, tree: dict, batch_stats: dict | None = None) -> nn.Module:
     """Load a JAX param tree (nested dicts of numpy arrays, or anything
-    ``np.asarray`` takes) into ``model`` in place. Strict: every key must
-    match and every shape agree. Returns the model."""
+    ``np.asarray`` takes), and for a model with BatchNorm its
+    ``batch_stats`` collection, into ``model`` in place. Strict: every key
+    of the two trees together must match the model's and every shape
+    agree. Returns the model."""
     flat = _flatten(tree)
+    stats = _flatten(batch_stats or {})
+    if set(flat) & set(stats):
+        raise KeyError(f"keys in both params and batch_stats: {sorted(set(flat) & set(stats))}")
+    flat.update(stats)
     own = model.state_dict()
     missing = sorted(set(own) - set(flat))
     unexpected = sorted(set(flat) - set(own))
@@ -85,7 +106,10 @@ def params_from_jax(model: nn.Module, tree: dict) -> nn.Module:
     return model
 
 
-def params_to_jax(model: nn.Module) -> dict:
+def params_to_jax(model: nn.Module):
     """The inverse of :func:`params_from_jax`: the model's weights as a
-    nested dict of fp32 numpy arrays in the JAX tree's grammar."""
-    return tree_map(lambda t: t.float().cpu().numpy(), module_params(model))
+    nested dict of fp32 numpy arrays in the JAX tree's grammar; for a
+    model with BatchNorm the pair (params, batch_stats)."""
+    params, stats = (tree_map(lambda t: t.float().cpu().numpy(), tree)
+                     for tree in module_state(model))
+    return (params, stats) if stats else params

@@ -1,7 +1,7 @@
 """build_model for the port (counterpart of peekvit_tpu/models/registry.py
 :115-180). The plain ViT, the ResidualViT, the early-exit ResidualViT,
-RankViT and A-ViT are ported; the other registered families raise
-NotImplementedError naming their ROADMAP item."""
+RankViT, A-ViT, PCT and RankPCT are ported; the other registered families
+raise NotImplementedError naming their ROADMAP item."""
 
 from __future__ import annotations
 
@@ -13,6 +13,8 @@ from torch import nn
 
 from peekvit_torch.models.adavit import AdaptiveVisionTransformer
 from peekvit_torch.models.eeresidualvit import EEResidualVisionTransformer
+from peekvit_torch.models.pct import PointCloudTransformer
+from peekvit_torch.models.rankpct import RankPointCloudTransformer
 from peekvit_torch.models.rankvit import RankVisionTransformer
 from peekvit_torch.models.residualvit import ResidualVisionTransformer
 from peekvit_torch.models.vit import VisionTransformer
@@ -27,16 +29,17 @@ _PORTED = {
     **dict.fromkeys(("RankingVisionTransformer", "RankVisionTransformer", "rankvit"),
                     RankVisionTransformer),
     **dict.fromkeys(("AdaptiveVisionTransformer", "adavit"), AdaptiveVisionTransformer),
+    **dict.fromkeys(("PointCloudTransformer", "pointcloudtransformer", "pct"),
+                    PointCloudTransformer),
+    **dict.fromkeys(("RankPointCloudTransformer", "rankpointcloudtransformer", "rankpct"),
+                    RankPointCloudTransformer),
 }
 # JAX registry names not ported yet -> ROADMAP.md port queue A item
 _NOT_PORTED = {
     **dict.fromkeys(("ResidualVisionTransformerWithDecoder", "encdecresidualvit"),
                     "item 7 (EncDec, with MAE's decoder)"),
     **dict.fromkeys(("visiontransformermoe", "VisionTransformerMoE", "vitmoe", "moevit",
-                     "MoEVisionTransformer", "MAEVisionTransformer", "maevit",
-                     "PointCloudTransformer", "pointcloudtransformer", "pct",
-                     "RankPointCloudTransformer",
-                     "rankpointcloudtransformer", "rankpct"),
+                     "MoEVisionTransformer", "MAEVisionTransformer", "maevit"),
                     "item 7 (remaining families)"),
 }
 

@@ -27,7 +27,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "peekvit_torch")
 SOURCES = ("norm_rows", "gemm_bias_epilogue", "attn_scores_pv", "attn_softmax_fwd",
-           "attn_softmax_bwd", "ln_bwd_rows", "quant_rows", "gemm_s8_epilogue")
+           "attn_softmax_bwd", "ln_bwd_rows", "quant_rows", "gemm_s8_epilogue", "arpe_tokens")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -40,7 +40,8 @@ _SIGNATURES = {
     "gemm_bias_epilogue": ("peekvit_gemm_bias_epilogue",
                            [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "attn_scores_pv": ("peekvit_attn_scores_pv",
-                       [_P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, ctypes.c_float, _P]),
+                       [_P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, ctypes.c_float,
+                        _P]),
     "attn_softmax_fwd": ("peekvit_attn_softmax_fwd",
                          [_P, _P, _I, _I, _I, _I, ctypes.c_float, _P]),
     "attn_softmax_bwd": ("peekvit_attn_softmax_bwd",
@@ -54,6 +55,8 @@ _SIGNATURES = {
     "gemm_s8_epilogue": ("peekvit_gemm_s8_epilogue",
                          [_P, _P, _P, ctypes.c_float, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _P]),
+    "arpe_tokens": ("peekvit_arpe_tokens",
+                    [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P]),
 }
 
 _lock = threading.Lock()

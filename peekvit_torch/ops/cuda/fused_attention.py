@@ -41,6 +41,10 @@ scrubbed, so garbage in excluded rows stays inert). ``fused_mlp_block``
 is the split MLP sublayer the exact RankViT engine takes below 128
 tokens.
 
+The attention kernel is instantiated at head dims 64 (the ViT family)
+and 32 (PCT: d = 128 over 4 heads, counted as ``attn_scores_pv.hd32``),
+so every composition here runs at either.
+
 Dispatch is by device only. A wrapper uses the plain version for CPU
 tensors; for CUDA tensors it launches its kernel or raises (wrong dtype,
 shape, contiguity, a failed build or launch). Nothing sends a CUDA tensor
@@ -49,8 +53,6 @@ variant; :func:`reset_launch_counts` zeroes it.
 """
 
 from __future__ import annotations
-
-import math
 
 import torch
 import torch.nn.functional as F
@@ -397,6 +399,17 @@ def gemm_masked_rowdot(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, g: 
 # -------------------------------------------------------------- attn_scores_pv
 
 
+# Head dims the attention kernel is instantiated for (attn_scores_pv.cu):
+# 64 (the ViT family) and 32 (PCT).
+HEAD_DIMS = (64, 32)
+
+
+def _qscale(hd: int) -> float:
+    """The query's pre-scale, head_dim^-0.5 * log2(e) (Pallas ``scale *
+    LOG2E``), for the kernel and its plain version alike."""
+    return (1.0 / (hd ** 0.5)) * LOG2E
+
+
 def _check_kmask(qkv, phantom_idx, kmask):
     """The key mask as (B, N), or None. A key mask and a phantom key are
     exclusive: no JAX path combines them."""
@@ -423,8 +436,7 @@ def attn_scores_pv_ref(qkv: torch.Tensor, num_heads: int, phantom_idx: int = -1,
     dt = qkv.dtype
     heads = qkv.reshape(b, n, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
     q, k, v = heads[0], heads[1], heads[2]  # (B, H, N, hd)
-    scale = 1.0 / (hd ** 0.5)
-    q = (q.float() * (scale * LOG2E)).to(dt)
+    q = (q.float() * _qscale(hd)).to(dt)
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
     e = torch.exp2(logits.clamp(-80.0, 115.0).to(dt).float()).to(dt)
     if kmask is not None:
@@ -455,7 +467,8 @@ def attn_scores_pv(qkv: torch.Tensor, num_heads: int, phantom_idx: int = -1,
     a key whose mask is not > 0 gets weight 0 for every query, selected
     (not multiplied) so that NaN or Inf in its row cannot leak, and
     non-finite values of v are scrubbed to 0 (Pallas ``kmask``). On CUDA:
-    bf16, head dim 64, a bf16 key mask."""
+    bf16, head dim 64 or 32 (counted as ``attn_scores_pv[.kmask|.kweight]``,
+    with ``.hd32`` appended at head dim 32), a bf16 key mask."""
     km = _check_kmask(qkv, phantom_idx, kmask)
     if _on_cpu(qkv, kmask):
         return attn_scores_pv_ref(qkv, num_heads, phantom_idx, phantom_mult, kmask)
@@ -466,16 +479,17 @@ def attn_scores_pv(qkv: torch.Tensor, num_heads: int, phantom_idx: int = -1,
     _require(qkv.dim() == 3 and qkv.shape[-1] % 3 == 0, "attn_scores_pv: qkv must be (B, N, 3D)")
     b, n, three_d = qkv.shape
     d = three_d // 3
-    _require(d == num_heads * 64,
-             f"attn_scores_pv: the kernel is built for head dim 64, got D={d}, H={num_heads}")
+    hd = d // num_heads
+    _require(hd in HEAD_DIMS and d == num_heads * hd,
+             f"attn_scores_pv: the kernel is built for head dims {HEAD_DIMS}, got D={d}, "
+             f"H={num_heads}")
     out = torch.empty((b, n, d), dtype=torch.bfloat16, device=qkv.device)
-    qscale = (1.0 / math.sqrt(64)) * LOG2E
     err = _build.library("attn_scores_pv")(
         qkv.data_ptr(), out.data_ptr(), None if km is None else km.data_ptr(), b, n, d,
-        num_heads, qscale, int(phantom_idx), float(phantom_mult), _stream())
+        num_heads, hd, _qscale(hd), int(phantom_idx), float(phantom_mult), _stream())
     key = ("attn_scores_pv.kmask" if km is not None
            else "attn_scores_pv.kweight" if phantom_idx >= 0 else "attn_scores_pv")
-    _launched(key, err)
+    _launched(key + ("" if hd == 64 else f".hd{hd}"), err)
     return out
 
 
