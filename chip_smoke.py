@@ -157,7 +157,34 @@ prints no final result):
    kernels' time, launches, bound, plain time and library yardstick, the
    exp2 count beside the SFU's rate, the ARPE share of the forward, the
    folded layer at N = 1024, one profiled forward of each path;
-28. the {"kernels": [...]} line, then the card's nvidia-smi line, then
+28. merged-layer kernel checks at ViT-B/16 bs256 shapes: ln_rows on the
+   fp32 y, the GEMM epilogues gelu_hpre (h and the fp32 hpre) and NT
+   gelu_grad (dhpre and the db1 partials), gemm_wgrad on the merged
+   backward's four shapes (dWqkv, dWo, dW1, dW2; the column sums of dqkv
+   and g; a rerun bit-identical), ln_bwd_rows.f32 and ln_bwd_rows.g_f32,
+   attn_softmax_fwd on separate q, k, v (bit-identical to the packed
+   mode); then layer_block_trainable and layer_block_hybrid against their
+   _ref twins at bs32, N = 197 (output and 13 gradients, rel-L2 3e-2; two
+   runs of each backward bit-identical);
+29. merged training: a ViT-B/16 make_fused_train_step(AdamW(1e-4),
+   merged=True) takes five steps on one bs-64 batch, then merged="hybrid"
+   from the same weights (counts zeroed just before each step and read
+   just after: 288 and 84 launches per step, every new kernel launched;
+   losses finite and falling); one bs-16 step's gradients of each against
+   the same step on the plain versions (rel-L2 per leaf 3e-2);
+30. merged timing at bs256: the split, merged and hybrid steps in turns on
+   one model and one AdamW (ms per step, images/s, peak memory), each new
+   kernel's time, launches, bound, plain time and one PyTorch call
+   (gemm_wgrad: a.t() @ b, bf16 out), one profiled merged step (warmed
+   window);
+31. the module path: the seeded ViT-B/16 module in eval mode, bf16, under
+   set_attention_impl("pallas") serves 8 and 256 images (12
+   attn_scores_pv launches per forward, logits against the same module
+   under "xla" at 3e-2 of max|logit|, top-1 on decided images, both timed);
+   the grad guard and the fp32 guard raise; fused_mhsa and
+   fused_attention at (256, 197, 768) against their plain versions, timed
+   beside SDPA;
+32. the {"kernels": [...]} line, then the card's nvidia-smi line, then
    {"ok": true, "device": {...}} as the last line.
 
 Imports nothing of JAX or of peekvit_tpu.
@@ -3012,6 +3039,506 @@ def pct_timing(torch, F, fa, smi, checks, ins, pct) -> list:
     return entries
 
 
+# ------------------------- the merged layer VJP and the attention switch (28-31)
+
+REPLACES_LAYER = "peekvit_tpu/ops/pallas/fused_layer_vjp.py"
+MERGED_GRAD_NAMES = ("dx", "dln1_scale", "dln1_bias", "dw_qkv", "db_qkv", "dw_out", "db_out",
+                     "dln2_scale", "dln2_bias", "dw1", "db1", "dw2", "db2")
+# Launches per layer of one merged train step: the forward's seven, then
+# the backward's recompute of the first five, gelu_hpre, the gelu_grad NT
+# GEMM, two NT none_f32, ln_bwd_rows.f32, NT none, attn_softmax_bwd,
+# ln_bwd_rows.g_f32 and four gemm_wgrad (merged_per_layer adds them, one
+# key per shape, with their summing launches). The hybrid step launches
+# the forward's seven only: its backward is torch autograd.
+MERGED_FWD_PER_LAYER = {"ln_rows": 1, "gemm_bias_epilogue.bias": 1, "attn_softmax_fwd": 1,
+                        "gemm_bias_epilogue.residual_f32": 1, "ln_rows.f32": 1,
+                        "gemm_bias_epilogue.gelu": 1, "gemm_bias_epilogue.residual": 1}
+MERGED_BWD_PER_LAYER = {"ln_rows": 1, "gemm_bias_epilogue.bias": 1, "attn_softmax_fwd": 1,
+                        "gemm_bias_epilogue.residual_f32": 1, "ln_rows.f32": 1,
+                        "gemm_bias_epilogue.gelu_hpre": 1, "gemm_nt.gelu_grad": 1,
+                        "gemm_nt.none_f32": 2, "ln_bwd_rows.f32": 1, "gemm_nt.none": 1,
+                        "attn_softmax_bwd": 1, "ln_bwd_rows.g_f32": 1}
+MERGED_NEW_KEYS = ("ln_rows.f32", "gemm_bias_epilogue.gelu_hpre", "gemm_nt.gelu_grad",
+                   "ln_bwd_rows.f32", "ln_bwd_rows.g_f32")
+MODULE_REQUESTS = (8, 256)
+MERGED_PATHS = (("split", "auto"), ("merged", True), ("hybrid", "hybrid"))
+
+
+def wgrad_shapes(d: int, m: int) -> dict:
+    """The merged backward's weight-gradient products: name -> (K, N,
+    column sums asked)."""
+    return {"dwqkv": (d, 3 * d, True), "dwo": (d, d, False), "dw1": (d, m, False),
+            "dw2": (m, d, True)}
+
+
+def merged_per_layer(lv, rows: int, d: int, m: int) -> dict:
+    """Launches per layer of one merged train step at ``rows`` token rows:
+    MERGED_FWD_PER_LAYER and MERGED_BWD_PER_LAYER, one gemm_wgrad.<K>x<N>
+    per product, and after each product whose rows are split one summing
+    launch for C and one for its column sums (lv.wgrad_splits)."""
+    want = {k: MERGED_FWD_PER_LAYER.get(k, 0) + MERGED_BWD_PER_LAYER.get(k, 0)
+            for k in {**MERGED_FWD_PER_LAYER, **MERGED_BWD_PER_LAYER}}
+    for k, n, colsum in wgrad_shapes(d, m).values():
+        want[f"gemm_wgrad.{k}x{n}"] = 1
+        if lv.wgrad_splits(rows, k, n)[0] > 1:
+            want[f"gemm_wgrad.{k}x{n}.reduce"] = 1 + colsum
+    return want
+
+
+def merged_kernel_checks(torch, fa, vjp, lv, check, randn, x, y, ln_s, ln_b, g_rows, dln_in,
+                         w1, b1, w2, qkv, d, h, m, rows, smi) -> dict:
+    """Phase 28 at ViT-B/16 bs256 shapes: ln_rows on the fp32 y, the GEMM
+    epilogues gelu_hpre (h and hpre) and NT gelu_grad (dhpre and the db1
+    partials), gemm_wgrad on the merged backward's four shapes (with the
+    column sums of dqkv and g, and a rerun that must give the same bits),
+    ln_bwd_rows.f32 (dy, its bf16 copy, the three sets of partials) and
+    ln_bwd_rows.g_f32, attn_softmax_fwd on separate q, k, v (bit-equal to
+    the packed mode on the same values). Returns the inputs phase 30
+    times."""
+    bf16 = torch.bfloat16
+    tol_bf16, tol_f32, tol_attn = 2.0 ** -6, 1e-3, 2e-2
+    f32_sums = "fp32 column sums over 50,432 rows in another order"
+    with torch.inference_mode():
+        ln2 = fa.ln_rows(y, ln_s, ln_b, EPS, out_dtype=bf16)
+        check("ln_rows.f32", ln2, fa.ln_rows_ref(y, ln_s, ln_b, EPS, out_dtype=bf16), tol_bf16,
+              "bf16 output rounding")
+        h_k, hpre = fa.gemm_gelu_hpre(ln2, w1, b1)
+        h_p, hpre_p = fa.gemm_gelu_hpre_ref(ln2, w1, b1)
+        check("gemm_bias_epilogue.gelu_hpre", h_k, h_p, tol_bf16,
+              "fp32 sums in another order, bf16 output rounding")
+        check("gemm_bias_epilogue.gelu_hpre.hpre", hpre, hpre_p, tol_f32,
+              "tensor-core fp32 accumulation against cuBLAS fp32 over K = 768")
+        dh_k, p_k = fa.gemm_nt_gelu_grad(g_rows, w2, hpre)
+        dh_p, p_p = fa.gemm_nt_gelu_grad_ref(g_rows, w2, hpre)
+        check("gemm_nt.gelu_grad", dh_k, dh_p, tol_bf16,
+              "fp32 sums in another order, bf16 output rounding")
+        check("gemm_nt.gelu_grad.db1", p_k.sum(0), p_p[0], tol_f32, f32_sums)
+        wgrad = {name: (randn(rows, k, scale=0.5), randn(rows, n, scale=0.05), colsum)
+                 for name, (k, n, colsum) in wgrad_shapes(d, m).items()}
+        rerun = {}
+        for name, (a, b, colsum) in wgrad.items():
+            c_k, s_k = lv.gemm_wgrad(a, b, colsum=colsum)
+            c_p, s_p = lv.gemm_wgrad_ref(a, b, colsum=colsum)
+            check(f"gemm_wgrad.{name}", c_k, c_p, tol_f32,
+                  "fp32 sums over 50,432 rows in another order (split partials, then their sum)")
+            if colsum:
+                check(f"gemm_wgrad.{name}.colsum", s_k, s_p, tol_f32, f32_sums)
+            c_2, s_2 = lv.gemm_wgrad(a, b, colsum=colsum)
+            rerun[name] = torch.equal(c_2, c_k) and (not colsum or torch.equal(s_2, s_k))
+        emit({"phase": "gemm_wgrad_rerun", "bit_identical": rerun,
+              "splits": {k: lv.wgrad_splits(rows, a.shape[1], b.shape[1])
+                         for k, (a, b, _) in wgrad.items()}, "card": smi})
+        if not all(rerun.values()):
+            raise AssertionError(f"gemm_wgrad: a rerun gave other bits {rerun}")
+        dy, dy_b, pw, pb, pdy = vjp.ln_bwd_rows_f32(y, dln_in, g_rows, ln_s, EPS)
+        ref = vjp.ln_bwd_rows_f32_ref(y, dln_in, g_rows, ln_s, EPS)
+        check("ln_bwd_rows.f32", dy, ref[0], tol_f32, "fp32 output, row sums in another order")
+        check("ln_bwd_rows.f32.dy_b", dy_b, ref[1], tol_bf16, "bf16 rounding of dy")
+        check("ln_bwd_rows.f32.partials", torch.cat([pw.sum(0), pb.sum(0), pdy.sum(0)]),
+              torch.cat([ref[2][0], ref[3][0], ref[4][0]]), tol_f32, f32_sums)
+        dx, pw, pb = vjp.ln_bwd_rows(x, dln_in, dy, ln_s, EPS)
+        ref = vjp.ln_bwd_rows_ref(x, dln_in, dy, ln_s, EPS)
+        check("ln_bwd_rows.g_f32", dx, ref[0], tol_bf16, "bf16 output rounding")
+        check("ln_bwd_rows.g_f32.partials", torch.cat([pw.sum(0), pb.sum(0)]),
+              torch.cat([ref[1][0], ref[2][0]]), tol_f32, f32_sums)
+        q, k, v = (qkv[..., i * d:(i + 1) * d].contiguous() for i in range(3))
+        sep = fa.fused_attention(q, k, v, h)
+        check("attn_softmax_fwd.separate", sep, fa.fused_attention_ref(q, k, v, h), tol_attn,
+              "bf16 rounding of the normalised P, bf16 output rounding")
+        same = torch.equal(sep, vjp.attn_softmax_fwd(qkv, h))
+        emit({"phase": "attn_softmax_fwd_separate_vs_packed", "bit_identical": same, "card": smi})
+        if not same:
+            raise AssertionError("attn_softmax_fwd: separate q, k, v differ from packed qkv")
+        torch.cuda.synchronize()
+    return {"ln2": ln2, "hpre": hpre, "dy": dy, "wgrad": wgrad, "q": q, "k": k, "v": v}
+
+
+def merged_block_checks(torch, lv, randn, layer_w, d, h, n, smi) -> None:
+    """Phase 28, whole blocks: layer_block_trainable and layer_block_hybrid
+    against their _ref twins at bs32, N = 197, the output and all thirteen
+    gradients; a second run of each backward must give the same bits."""
+    tol = 3e-2
+    xb = randn(BLOCK_BATCH, n, d, scale=1.5, shift=0.3)
+    gb = randn(BLOCK_BATCH, n, d, scale=0.05)
+    pairs = {"trainable": (lv.layer_block_trainable, lv.layer_block_trainable_ref),
+             "hybrid": (lv.layer_block_hybrid, lv.layer_block_hybrid_ref)}
+    for kind, (fn, ref_fn) in pairs.items():
+        runs = []
+        for f in (fn, ref_fn, fn):
+            leaves = [t.detach().clone().requires_grad_() for t in (xb, *layer_w)]
+            out = f(*leaves, h, EPS)
+            out.backward(gb)
+            torch.cuda.synchronize()
+            runs.append({"out": out.detach(),
+                         **{name: t.grad for name, t in zip(MERGED_GRAD_NAMES, leaves)}})
+        err = rel_l2(torch, runs[0], runs[1])
+        same = all(torch.equal(runs[0][k], runs[2][k]) for k in runs[0])
+        emit({"phase": "merged_block_check", "block": kind, "batch": BLOCK_BATCH, "tokens": n,
+              "rel_l2": err, "max_rel_l2": max(err.values()), "rerun_bit_identical": same,
+              "tolerance_rel_l2": tol,
+              "tolerance_reason": "same rounding points; bf16 roundings flipped by fp32 sums in "
+                                  "another order through one layer forward and back; the "
+                                  "port's gradient bar", "card": smi})
+        if max(err.values()) > tol or not same:
+            raise AssertionError(f"{kind} block: rel-L2 {err}, rerun bit-identical {same}")
+
+
+def merged_train_phases(torch, F, fa, dev, smi, args) -> dict:
+    """Phase 29: build_model("vit", ViT-B/16) with seeded weights,
+    make_fused_train_step(AdamW(1e-4), merged=True) for five steps on one
+    bs-64 batch, then the same from the same weights with merged="hybrid":
+    counts zeroed just before and read just after each step (merged: 24
+    wrapper calls and 6 gemm_wgrad summing launches per layer, held per
+    key to merged_per_layer; hybrid: 7), losses finite and falling; one bs-16
+    step's gradients of each against the same step on the plain versions.
+    Returns the counts, the model and its batch maker."""
+    from peekvit_torch import build_model
+    from peekvit_torch.models.adapters import live_params, tree_leaves
+    from peekvit_torch.ops.cuda import fused_layer_vjp as lv
+    from peekvit_torch.training.fused import make_fused_train_step, trainable_forward_fn
+    from peekvit_torch.training.optim import AdamW
+
+    layers = args["num_layers"]
+    model = build_model("vit", args, seed=0, device=DEVICE)
+    cpu_gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():  # zero-initialised head and class tokens: re-drawn as in phase 4
+        model.head.kernel.copy_(torch.randn(model.head.kernel.shape, generator=cpu_gen) * 0.02)
+        model.class_tokens.copy_(torch.randn(model.class_tokens.shape, generator=cpu_gen) * 0.02)
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    params = live_params(model)
+    gen = torch.Generator(device=dev).manual_seed(29)
+    size = args["image_size"]
+
+    def batch(b):
+        return (torch.randn(b, size, size, 3, generator=gen, device=dev),
+                torch.randint(0, args["num_classes"], (b,), generator=gen, device=dev))
+
+    x64, y64 = batch(TRAIN_BATCH)
+    tokens = (size // args["patch_size"]) ** 2 + 1
+    per_layer = merged_per_layer(lv, TRAIN_BATCH * tokens, args["hidden_dim"], args["mlp_dim"])
+    want = {"merged": {k: v * layers for k, v in per_layer.items()},
+            "hybrid": {k: v * layers for k, v in MERGED_FWD_PER_LAYER.items()}}
+    counts = {}
+    for kind, merged in MERGED_PATHS[1:]:
+        with torch.no_grad():
+            model.load_state_dict(init)
+        step = make_fused_train_step(model, AdamW(lr=TRAIN_LR).build(params), merged=merged)
+        losses, totals = [], {}
+        for _ in range(TRAIN_STEPS):
+            fa.reset_launch_counts()
+            losses.append(float(step(x64, y64)))
+            torch.cuda.synchronize()
+            got = dict(fa.LAUNCHES)
+            if got != want[kind]:
+                raise AssertionError(f"{kind} step launches {got}, want {want[kind]}")
+            for k, v in got.items():
+                totals[k] = totals.get(k, 0) + v
+        counts[kind] = totals
+        emit({"phase": "merged_train", "merged": merged, "batch": TRAIN_BATCH,
+              "steps": TRAIN_STEPS, "optimizer": f"AdamW(lr={TRAIN_LR})", "losses": losses,
+              "launches_per_step": sum(want[kind].values()), "counts": totals, "card": smi})
+        if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+            raise AssertionError(f"{kind} losses not finite and falling: {losses}")
+    missing = [k for k in (*MERGED_NEW_KEYS, *(k for k in per_layer if k.startswith("gemm_wgrad")))
+               if not counts["merged"].get(k)]
+    if missing:
+        raise AssertionError(f"kernels never launched on the merged step: {missing}")
+
+    # One step's gradients at GRAD_BATCH against the plain versions, as
+    # phase 7 (rel-L2 per leaf 3e-2, the repo's bf16 tolerance).
+    tol_grad = 3e-2
+    xg, yg = batch(GRAD_BATCH)
+
+    def grads(**kwargs):
+        model.zero_grad(set_to_none=True)
+        loss = F.cross_entropy(trainable_forward_fn(model, **kwargs)(params, xg), yg)
+        loss.backward()
+        return float(loss.detach()), {name: p.grad.detach().clone()
+                                      for name, p in tree_leaves(params)}
+
+    for kind, merged in MERGED_PATHS[1:]:
+        loss_k, g_k = grads(merged=merged)
+        loss_p, g_p = grads(merged=merged, plain=True)
+        err = rel_l2(torch, g_k, g_p)
+        emit({"phase": "merged_train_grads", "merged": merged, "batch": GRAD_BATCH,
+              "loss_kernels": loss_k, "loss_plain": loss_p, "leaves": len(g_k),
+              "rel_l2_vs_plain": err, "max_rel_l2_vs_plain": max(err.values()),
+              "tolerance_rel_l2": tol_grad,
+              "tolerance_reason": "same rounding points; bf16 flips from fp32 sums in another "
+                                  "order through 12 layers; the repo's bf16 tolerance",
+              "card": smi})
+        if max(err.values()) > tol_grad:
+            raise AssertionError(f"{kind} train gradients out of tolerance")
+    model.zero_grad(set_to_none=True)
+    return {"counts": counts, "model": model, "params": params, "batch": batch,
+            "layers": layers, "per_layer": per_layer}
+
+
+def merged_timing(torch, F, fa, vjp, lv, smi, checks, ins, mtrain, x, y, ln_s, ln_b, g_rows,
+                  dln_in, w1, b1, w2, d, m, rows, macs_per_image) -> list:
+    """Phase 30 at bs256: the split, merged and hybrid steps on one model
+    and one AdamW, in turns (split, merged, hybrid, hybrid, merged, split):
+    ms per step, images/s, peak memory; each new kernel's time, launches
+    on phase 29's merged steps, bound, plain time and one PyTorch call's
+    time; one profiled merged step (warmed window). Returns the new
+    kernels' entries."""
+    from peekvit_torch.training.fused import make_fused_train_step
+    from peekvit_torch.training.optim import AdamW
+
+    model, params = mtrain["model"], mtrain["params"]
+    xb, yb = mtrain["batch"](BATCH)
+    opt = AdamW(lr=TRAIN_LR).build(params)
+    steps = {kind: make_fused_train_step(model, opt, merged=merged)
+             for kind, merged in MERGED_PATHS}
+    flops_img = 3 * 2.0 * macs_per_image
+    runs = {}
+    for kind in ("split", "merged", "hybrid", "hybrid", "merged", "split"):
+        step = steps[kind]
+        for _ in range(2):
+            step(xb, yb)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        ms = cuda_ms(torch, lambda: step(xb, yb), iters=5)
+        peak = torch.cuda.max_memory_allocated()
+        runs.setdefault(kind, []).append((ms, peak / 2 ** 30, (peak - start) / 2 ** 30))
+        emit({"phase": "timing_merged_step", "path": kind, "batch": BATCH, "ms_per_step": ms,
+              "images_per_s": BATCH / ms * 1e3,
+              "share_of_bf16_peak": flops_img * BATCH / (ms / 1e3) / PEAK_BF16_FLOPS,
+              "peak_memory_gib": peak / 2 ** 30, "step_memory_gib": (peak - start) / 2 ** 30,
+              "card": smi})
+    mean = {k: sum(r[0] for r in v) / len(v) for k, v in runs.items()}
+    emit({"phase": "timing_merged_summary", "batch": BATCH, "ms_per_step": mean,
+          "peak_memory_gib": {k: max(r[1] for r in v) for k, v in runs.items()},
+          "step_memory_gib": {k: max(r[2] for r in v) for k, v in runs.items()},
+          "ratio_to_split": {k: mean[k] / mean["split"] for k in mean},
+          "launches_per_step": {"merged": sum(mtrain["per_layer"].values()) * mtrain["layers"],
+                                "hybrid": sum(MERGED_FWD_PER_LAYER.values()) * mtrain["layers"],
+                                "split": sum(TRAIN_PER_LAYER.values()) * mtrain["layers"]},
+          "note": "one model and one AdamW (no clipping) for all three; peak memory is the "
+                  "process's (the earlier phases' tensors, the weights, gradients and AdamW "
+                  "state included), step memory the peak above what was allocated before the "
+                  "timed steps", "card": smi})
+
+    bf, f4 = 2, 4
+    bf16 = torch.bfloat16
+    counts = mtrain["counts"]["merged"]
+    src = "peekvit_torch/csrc/"
+    y_leaves = [y.detach().clone().requires_grad_(), ln_s.float().requires_grad_(),
+                torch.zeros(d, device=y.device, requires_grad=True)]
+    y_out = F.layer_norm(y_leaves[0], (d,), y_leaves[1], y_leaves[2], EPS)
+    x_leaves = [x.detach().clone().requires_grad_(), ln_s.detach().clone().requires_grad_(),
+                torch.zeros_like(ln_s, requires_grad=True)]
+    x_out = F.layer_norm(x_leaves[0], (d,), x_leaves[1], x_leaves[2], EPS)
+    ln2, hpre, dy = ins["ln2"], ins["hpre"], ins["dy"]
+    g32, dy16 = g_rows.clone().float(), dy.clone().to(bf16)  # ordinary tensors for autograd
+    parts_gemm, parts_ln = -(-rows // 128), -(-rows // vjp.ROWS_PER_PARTIAL)
+    bwd = f"{REPLACES_LAYER}:330 _trainable_bwd (_layer_bwd_kernel :135)"
+    # name, count key, launches, source, replaces, kernel, plain, library call, library,
+    # flops, bytes
+    timed = [
+        ("ln_rows.f32", "ln_rows.f32", counts["ln_rows.f32"], src + "norm_rows.cu",
+         f"{REPLACES_LAYER}:278 _fwd_call (_layer_fwd_kernel :107, LN2 on the fp32 y :122) and "
+         f"{bwd} :181",
+         lambda: fa.ln_rows(y, ln_s, ln_b, EPS, out_dtype=bf16),
+         lambda: fa.ln_rows_ref(y, ln_s, ln_b, EPS, out_dtype=bf16),
+         lambda: F.layer_norm(y, (d,), ln_s.float(), ln_b.float(), EPS).to(bf16),
+         "F.layer_norm (fp32) + .to(bf16)", 8.0 * rows * d, rows * d * (f4 + bf) + 2 * d * bf),
+        ("gemm_bias_epilogue.gelu_hpre", "gemm_bias_epilogue.gelu_hpre",
+         counts["gemm_bias_epilogue.gelu_hpre"], src + "gemm_bias_epilogue.cu",
+         f"{bwd}: fc1 recompute :184-186",
+         lambda: fa.gemm_gelu_hpre(ln2, w1, b1), lambda: fa.gemm_gelu_hpre_ref(ln2, w1, b1),
+         lambda: (lambda hp: (F.gelu(hp, approximate="tanh"), hp.float()))(
+             torch.addmm(b1, ln2, w1)),
+         "addmm (bf16 out) + gelu + .float()", 2.0 * rows * d * m,
+         (rows * d + d * m + m) * bf + rows * m * (bf + f4)),
+        ("gemm_nt.gelu_grad", "gemm_nt.gelu_grad", counts["gemm_nt.gelu_grad"],
+         src + "gemm_bias_epilogue.cu", f"{bwd}: dh = g W2^T, dhpre, db1 :193-202",
+         lambda: fa.gemm_nt_gelu_grad(g_rows, w2, hpre),
+         lambda: fa.gemm_nt_gelu_grad_ref(g_rows, w2, hpre),
+         lambda: (lambda dh: (dh.to(bf16), dh.sum(0)))(
+             torch.matmul(g_rows, w2.t()).float() * fa.gelu_tanh_grad(hpre)),
+         "matmul (bf16 out) + eager gelu' + cast + column sum", 2.0 * rows * d * m,
+         (rows * d + m * d) * bf + rows * m * (f4 + bf) + parts_gemm * m * f4),
+        ("ln_bwd_rows.f32", "ln_bwd_rows.f32", counts["ln_bwd_rows.f32"], src + "ln_bwd_rows.cu",
+         f"{bwd}: LN2 backward, dy, dbo :206-215",
+         lambda: vjp.ln_bwd_rows_f32(y, dln_in, g_rows, ln_s, EPS),
+         lambda: vjp.ln_bwd_rows_f32_ref(y, dln_in, g_rows, ln_s, EPS),
+         lambda: torch.autograd.grad(y_out, y_leaves, g32, retain_graph=True),
+         "F.layer_norm backward (fp32)", 25.0 * rows * d,
+         rows * d * (f4 + f4 + bf + f4 + bf) + d * bf + 3 * parts_ln * d * f4),
+        ("ln_bwd_rows.g_f32", "ln_bwd_rows.g_f32", counts["ln_bwd_rows.g_f32"],
+         src + "ln_bwd_rows.cu", f"{bwd}: LN1 backward + dy :259-265",
+         lambda: vjp.ln_bwd_rows(x, dln_in, dy, ln_s, EPS),
+         lambda: vjp.ln_bwd_rows_ref(x, dln_in, dy, ln_s, EPS),
+         lambda: torch.autograd.grad(x_out, x_leaves, dy16, retain_graph=True),
+         "F.layer_norm backward", 20.0 * rows * d,
+         rows * d * (bf + f4 + f4 + bf) + d * bf + 2 * parts_ln * d * f4),
+    ]
+    lines = {"dwqkv": ":255-258 dWqkv = ln1^T dqkv, dbqkv", "dwo": ":212-215 dWo = attn^T dy_b",
+             "dw1": ":199-201 dW1 = ln2b^T dhpre_b", "dw2": ":189-192 dW2 = h^T g, db2"}
+    for name, (a, b, colsum) in ins["wgrad"].items():
+        kk, nn_ = a.shape[1], b.shape[1]
+        key = f"gemm_wgrad.{kk}x{nn_}"
+        timed.append((f"gemm_wgrad.{name}", key, counts.get(key, 0),
+                      src + "gemm_wgrad.cu", f"{bwd}: {lines[name]}",
+                      lambda a=a, b=b, c=colsum: lv.gemm_wgrad(a, b, colsum=c),
+                      lambda a=a, b=b, c=colsum: lv.gemm_wgrad_ref(a, b, colsum=c),
+                      lambda a=a, b=b: torch.matmul(a.t(), b),
+                      "a.t() @ b, bf16 out (cuBLAS)", 2.0 * rows * kk * nn_,
+                      rows * (kk + nn_) * bf + kk * nn_ * f4 + (nn_ * f4 if colsum else 0)))
+    entries = []
+    for name, key, launches, source, replaces, kfn, pfn, lfn, library, flops, nbytes in timed:
+        with torch.inference_mode():
+            ms = cuda_ms(torch, kfn)
+            plain_ms = cuda_ms(torch, pfn, iters=5)
+        lib_ms = cuda_ms(torch, lfn)  # outside inference mode: two calls are autograd's
+        bnd, by = bound_ms(flops, nbytes)
+        if launches == 0:
+            raise AssertionError(f"{name}: never launched on the merged step")
+        entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                 "launches": launches, "max_abs_err": checks[name], "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+                 "library_ms": lib_ms, "path": "merged train step", "shape_batch": BATCH,
+                 "count_key": key}
+        if name.startswith("gemm_wgrad."):  # its summing launches, timed within ms
+            entry["reduce_launches"] = counts.get(f"{key}.reduce", 0)
+        emit({"phase": "timing_kernel", **entry, "share_of_bound": bnd / ms,
+              "library": library, "launches_per_step": launches // TRAIN_STEPS, "card": smi})
+        entries.append(entry)
+    wgrad_ms = sum(e["ms"] for e in entries if e["name"].startswith("gemm_wgrad."))
+    emit({"phase": "timing_wgrad_per_layer", "ms": wgrad_ms,
+          "bound_ms": sum(e["bound_ms"] for e in entries if e["name"].startswith("gemm_wgrad.")),
+          "library_ms": sum(e["library_ms"] for e in entries
+                            if e["name"].startswith("gemm_wgrad.")), "card": smi})
+    profile_step(torch, smi, lambda: steps["merged"](xb, yb), mean["merged"],
+                 phase="profile_merged_train_step", warmup=True)
+    return entries
+
+
+def module_path_phases(torch, F, fa, dev, smi, check, checks, qkv, q, k, v, d, h,
+                       n) -> dict:
+    """Phase 31: build_model("vit", ViT-B/16) (phase 4's seeded weights) in
+    eval mode, bf16, on the card, under set_attention_impl("pallas")
+    serves 8 and 256 images: counts zeroed just before and read just after
+    each forward (12 attn_scores_pv launches, nothing else), logits
+    against the same module under "xla" at 3e-2 of max|logit| and top-1
+    on every decided image; both forwards timed at bs256. Then the grad
+    guard (a forward that needs a gradient) and the fp32 guard (an fp32
+    module) must raise. fused_mhsa and fused_attention at (256, 197, 768)
+    against their plain versions, timed beside SDPA; one counted
+    fused_attention launch. Returns the counts and the new entry."""
+    from peekvit_torch import build_model
+    from peekvit_torch.ops import set_attention_impl
+
+    bf16 = torch.bfloat16
+    model = build_model("vit", B16, seed=0, device=DEVICE)
+    cpu_gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():  # phase 4's re-drawn head and class tokens
+        model.head.kernel.copy_(torch.randn(model.head.kernel.shape, generator=cpu_gen) * 0.02)
+        model.class_tokens.copy_(torch.randn(model.class_tokens.shape, generator=cpu_gen) * 0.02)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    size = B16["image_size"]
+    requests = [torch.randn(b, size, size, 3, generator=gen, device=dev).to(bf16)
+                for b in MODULE_REQUESTS]
+    totals, guards = {}, {}
+    try:
+        set_attention_impl("pallas")
+        try:  # an fp32 module on the card: the kernels take bf16 only (B15)
+            with torch.inference_mode():
+                model(requests[0].float())
+            guards["fp32"] = "did not raise"
+        except NotImplementedError as e:
+            guards["fp32"] = str(e)
+        model.to(bf16)
+        try:  # the kernel has no backward: a forward that needs a gradient raises
+            model(requests[0])
+            guards["grad"] = "did not raise"
+        except RuntimeError as e:
+            guards["grad"] = str(e)
+        emit({"phase": "module_guards", **guards, "card": smi})
+        if "item 15" not in guards["fp32"] or "no backward" not in guards["grad"]:
+            raise AssertionError(f"module-path guards: {guards}")
+        with torch.inference_mode():
+            for images in requests:
+                set_attention_impl("pallas")
+                fa.reset_launch_counts()
+                got, _ = model(images)
+                torch.cuda.synchronize()
+                counts = dict(fa.LAUNCHES)
+                if counts != {"attn_scores_pv": B16["num_layers"]}:
+                    raise AssertionError(f"module forward launches {counts}")
+                for key, val in counts.items():
+                    totals[key] = totals.get(key, 0) + val
+                set_attention_impl("xla")
+                ref, _ = model(images)
+                delta = (got.float() - ref.float()).abs()
+                spread = ref.float().abs().max().item()
+                srt = ref.float().sort(dim=-1).values
+                decided = (srt[:, -1] - srt[:, -2]) > 2 * delta.max()
+                agree = got.argmax(-1) == ref.argmax(-1)
+                rec = {"phase": "module_check", "batch": images.shape[0], "launches": counts,
+                       "max_abs_delta": delta.max().item(), "logit_spread": spread,
+                       "tolerance": 3e-2, "top1_agreement": agree.float().mean().item(),
+                       "decided": int(decided.sum()),
+                       "tolerance_reason": "the exp2 softmax against the module's max-"
+                                           "subtracted one agree up to bf16 rounding inside "
+                                           "the clamp; PERF.md section 2's bf16 bar",
+                       "card": smi}
+                emit(rec)
+                if not torch.isfinite(got).all() or delta.max().item() > 3e-2 * spread:
+                    raise AssertionError(f"module logits under pallas: {rec}")
+                if not agree[decided].all():
+                    raise AssertionError(f"module top-1 differs on a decided image: {rec}")
+            images = requests[-1]
+            forward_ms = {}
+            for impl in ("pallas", "xla", "xla", "pallas"):
+                set_attention_impl(impl)
+                forward_ms.setdefault(impl, []).append(
+                    cuda_ms(torch, lambda: model(images), iters=5))
+            emit({"phase": "timing_module", "batch": BATCH, "ms_per_forward": forward_ms,
+                  "images_per_s": {k: BATCH / (sum(v) / len(v)) * 1e3
+                                   for k, v in forward_ms.items()}, "card": smi})
+
+            # the two attention functions alone at ViT-B/16 bs256
+            sdpa = [t.reshape(BATCH, n, h, d // h).transpose(1, 2).contiguous() for t in (q, k, v)]
+            check("fused_mhsa", fa.fused_mhsa(qkv, h), fa.fused_mhsa_ref(qkv, h), 2e-2,
+                  "bf16 rounding of logits before exp2, bf16 output rounding (attn_scores_pv)")
+            fa.reset_launch_counts()
+            fa.fused_attention(q, k, v, h)
+            torch.cuda.synchronize()
+            sep_counts = dict(fa.LAUNCHES)
+            if sep_counts != {"attn_softmax_fwd.separate": 1}:
+                raise AssertionError(f"fused_attention launches {sep_counts}")
+            alone = {}
+            for name, kfn, pfn in (
+                    ("fused_mhsa", lambda: fa.fused_mhsa(qkv, h),
+                     lambda: fa.fused_mhsa_ref(qkv, h)),
+                    ("fused_attention", lambda: fa.fused_attention(q, k, v, h),
+                     lambda: fa.fused_attention_ref(q, k, v, h))):
+                alone[name] = {"ms": cuda_ms(torch, kfn), "plain_ms": cuda_ms(torch, pfn, iters=5)}
+            sdpa_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(*sdpa))
+            emit({"phase": "timing_attention_sites", "batch": BATCH, "tokens": n, "heads": h,
+                  **alone, "sdpa_ms": sdpa_ms, "fused_mhsa_max_abs_err": checks["fused_mhsa"],
+                  "fused_attention_max_abs_err": checks["attn_softmax_fwd.separate"],
+                  "card": smi})
+    finally:
+        set_attention_impl("xla")
+    bnd, by = bound_ms(4.0 * BATCH * h * n * n * (d // h), BATCH * n * 4 * d * 2)
+    entry = {"name": "attn_softmax_fwd.separate", "route": "cuda",
+             "source": "peekvit_torch/csrc/attn_softmax_fwd.cu",
+             "replaces": f"{REPLACES}:220 fused_attention (_attn_kernel :168)",
+             "launches": sep_counts["attn_softmax_fwd.separate"],
+             "max_abs_err": checks["attn_softmax_fwd.separate"],
+             "ms": alone["fused_attention"]["ms"], "plain_ms": alone["fused_attention"]["plain_ms"],
+             "bound_ms": bnd, "bound_by": by, "library_ms": sdpa_ms,
+             "path": "fused_attention alone (no engine path; JAX's tests only)",
+             "shape_batch": BATCH, "count_key": "attn_softmax_fwd.separate"}
+    emit({"phase": "timing_kernel", **entry, "share_of_bound": bnd / entry["ms"],
+          "library": "SDPA", "card": smi})
+    return {"counts": totals, "entry": entry, "alone": sep_counts, "mhsa": alone["fused_mhsa"]}
+
+
 def main() -> int:
     import torch
 
@@ -3472,6 +3999,38 @@ def main() -> int:
                              "rank", "int8", "residual_int8", "int8_split_sublayers", "avit"), 0),
             "pct": entry["launches"]}
     kernels += pct_entries
+    # ------------------------- 28-31. the merged layer VJP and the attention switch
+    from peekvit_torch.ops.cuda import fused_layer_vjp as lv
+
+    m_ins = merged_kernel_checks(torch, fa, vjp, lv, check, randn, x, y, ln_s, ln_b, g_rows,
+                                 dln_in, fc1_w, fc1_b, fc2_w, qkv, d, h, m, rows, smi)
+    merged_block_checks(torch, lv, randn, (ln_s, ln_b, w_qkv, b_qkv, w_out, b_out, ln_s, ln_b,
+                                           fc1_w, fc1_b, fc2_w, fc2_b), d, h, n, smi)
+    mtrain = merged_train_phases(torch, F, fa, dev, smi, B16)
+    merged_entries = merged_timing(torch, F, fa, vjp, lv, smi, checks, m_ins, mtrain, x, y, ln_s,
+                                   ln_b, g_rows, dln_in, fc1_w, fc1_b, fc2_w, d, m, rows,
+                                   analytic_macs(model))
+    mod = module_path_phases(torch, F, fa, dev, smi, check, checks, qkv, m_ins["q"], m_ins["k"],
+                             m_ins["v"], d, h, n)
+    for entry in kernels:  # the merged steps and the module path run earlier kernels too
+        entry["launches_by_path"]["merged"] = mtrain["counts"]["merged"].get(entry["name"], 0)
+        entry["launches_by_path"]["hybrid"] = mtrain["counts"]["hybrid"].get(entry["name"], 0)
+        entry["launches_by_path"]["module"] = mod["counts"].get(entry["name"], 0)
+    # every path's counts as this run measured them, read by each new
+    # entry's count key
+    measured = {"engine": main_counts, "split": split_counts, "train": train["counts"],
+                "residual": res["counts"],
+                "compact": {k: merged.get(k, 0) + split.get(k, 0) for k in {**merged, **split}},
+                "residual_train": rtrain["counts"], "rank": rank["counts"],
+                "int8": quant["counts"], "residual_int8": rq["counts"],
+                "int8_split_sublayers": rq["split_counts"], "avit": av["counts"],
+                "pct": pct["counts"], "merged": mtrain["counts"]["merged"],
+                "hybrid": mtrain["counts"]["hybrid"], "module": mod["counts"],
+                "attention_alone": mod["alone"]}
+    for entry in merged_entries + [mod["entry"]]:
+        key = entry.pop("count_key")
+        entry["launches_by_path"] = {path: c.get(key, 0) for path, c in measured.items()}
+    kernels += merged_entries + [mod["entry"]]
     emit({"phase": "elapsed", "seconds": time.perf_counter() - t_start, "card": smi})
 
     emit({"kernels": kernels})

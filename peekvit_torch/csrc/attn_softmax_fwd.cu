@@ -25,6 +25,14 @@
 // (B, N, 3D) buffer; both passes read them from there. Scores stay in
 // registers and feed the PV product as its A operand. Keys past N get
 // logit -inf (e = 0); query rows past N are not stored.
+//
+// q, k and v are addressed by three base pointers and one row stride, so
+// the same kernel also carries peekvit_tpu/ops/pallas/fused_attention.py
+// :220 fused_attention (_attn_kernel :168, the test-only attention over
+// separate (B, N, D) q, k, v; row stride D). Its padding of N and the
+// head dim to 128 with masked keys is a TPU layout artefact: keys past N
+// already get -inf here. The packed mode passes qkv, qkv + D, qkv + 2D
+// and stride 3D, the addresses it always read.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -112,8 +120,9 @@ __device__ __forceinline__ void scaled_logits(float (*s)[4], uint32_t (*qf)[4],
 }
 
 __global__ void __launch_bounds__(THREADS)
-attn_fwd_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restrict__ out, int n,
-                int d, float scale) {
+attn_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, int n,
+                int d, int row_stride, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int ntiles = (n + KT - 1) / KT;
   const int npad = ntiles * KT;
@@ -123,22 +132,21 @@ attn_fwd_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restrict
 
   const int q0 = blockIdx.x * QT, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const long long row_stride = 3LL * d;
-  const __nv_bfloat16* base = qkv + (long long)b * n * row_stride + h * HD;
+  const long long head = (long long)b * n * row_stride + h * HD;
 
   for (int chunk = tid; chunk < QT * 8; chunk += THREADS) {
     const int r = chunk >> 3, c = (chunk & 7) * 8;
     const int row = q0 + r;
     const int ok = row < n;
-    cp_async16(&sq[r * STRIDE + c], base + (long long)(ok ? row : 0) * row_stride + c,
+    cp_async16(&sq[r * STRIDE + c], q + head + (long long)(ok ? row : 0) * row_stride + c,
                ok ? 16 : 0);
   }
   for (int chunk = tid; chunk < npad * 8; chunk += THREADS) {
     const int r = chunk >> 3, c = (chunk & 7) * 8;
     const int ok = r < n;
-    const __nv_bfloat16* src = base + (long long)(ok ? r : 0) * row_stride + c;
-    cp_async16(&sk[r * STRIDE + c], src + d, ok ? 16 : 0);
-    cp_async16(&sv[r * STRIDE + c], src + 2 * d, ok ? 16 : 0);
+    const long long off = head + (long long)(ok ? r : 0) * row_stride + c;
+    cp_async16(&sk[r * STRIDE + c], k + off, ok ? 16 : 0);
+    cp_async16(&sv[r * STRIDE + c], v + off, ok ? 16 : 0);
   }
   cp_async_commit();
   cp_async_wait_all();
@@ -223,14 +231,17 @@ attn_fwd_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restrict
 
 }  // namespace
 
-// qkv: (b, n, 3d) bf16 packed as [q | k | v] with head h at columns h*64;
-// out: (b, n, d) bf16. head_dim must be 64, d a multiple of 64 and n at
-// most 768 (K and V of one head in shared memory; the wrapper checks).
-// scale = head_dim^-0.5. Returns the cudaError_t of the launch.
-extern "C" int peekvit_attn_softmax_fwd(const void* qkv, void* out, int b, int n, int d,
-                                        int num_heads, float scale, void* stream) {
+// q, k, v: row r of image b at base + (b * n + r) * row_stride, head h
+// at columns h*64 (packed qkv: qkv, qkv + d, qkv + 2d and row_stride 3d;
+// separate (b, n, d) tensors: row_stride d); out: (b, n, d) bf16. head_dim
+// must be 64, d a multiple of 64 and n at most 768 (K and V of one head in
+// shared memory; the wrapper checks). scale = head_dim^-0.5. Returns the
+// cudaError_t of the launch.
+extern "C" int peekvit_attn_softmax_fwd(const void* q, const void* k, const void* v, void* out,
+                                        int b, int n, int d, int row_stride, int num_heads,
+                                        float scale, void* stream) {
   if (b == 0 || n == 0) return 0;
-  if (d != num_heads * HD) return (int)cudaErrorInvalidValue;
+  if (d != num_heads * HD || row_stride < d) return (int)cudaErrorInvalidValue;
   const int npad = (n + KT - 1) / KT * KT;
   const int smem = (QT + 2 * npad) * STRIDE * 2;
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
@@ -239,6 +250,8 @@ extern "C" int peekvit_attn_softmax_fwd(const void* qkv, void* out, int b, int n
   if (err != cudaSuccess) return (int)err;
   dim3 grid((n + QT - 1) / QT, num_heads, b);
   attn_fwd_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(qkv), static_cast<__nv_bfloat16*>(out), n, d, scale);
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), n, d, row_stride,
+      scale);
   return (int)cudaGetLastError();
 }

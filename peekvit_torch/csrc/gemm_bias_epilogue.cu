@@ -37,6 +37,23 @@
 // ResidualViT-B bs256 (50688 x 768 x 768): bytes (attn, g and dproj in
 // bf16, about 236 MB, against 60 GFLOP), as for epilogue 7.
 //
+// Two epilogues carry the merged trainable layer (peekvit_tpu/ops/pallas/
+// fused_layer_vjp.py, the backward _layer_bwd_kernel :135):
+//   epilogue 9 ("gelu_hpre"): the recomputed fc1, hpre = A . W1 + b1 in
+//     fp32 (:184-185), writes h = bf16(gelu(hpre)) (out, :186) and hpre
+//     itself (aux, (M, N) fp32), which gelu' reads in the backward;
+//   epilogue 10 ("gelu_grad", NT): dh = g . W2^T (:193-196), then
+//     dhpre = dh * gelu'(hpre) in fp32 (:197) with hpre read as res
+//     ((M, N) fp32); writes dhpre_b = bf16(dhpre) (out, :198) and, per
+//     128-row tile, the fp32 column partials of the unrounded dhpre (aux,
+//     (ceil(M / 128), N) fp32) for db1 = sum(dhpre) (:202). The fp32
+//     dhpre is never stored. The two row halves of a tile meet in shared
+//     memory in a fixed order: no atomics, the same bits on every run.
+// Bytes at ViT-B bs256 (M = 50432, K = 768, N = 3072): epilogue 9 reads
+// 77 MB and writes 310 MB of h and 620 MB of hpre; epilogue 10 reads
+// 77 MB of g and 620 MB of hpre and writes 310 MB of dhpre_b and 2.4 MB
+// of partials.
+//
 // Bound on H100: operations. At ViT-B bs256 the products are
 // (50432 x 768) . (768 x {2304, 768, 3072}) and (50432 x 3072) . (3072 x 768):
 // hundreds of flops per byte, above the card's ~295 flop/byte ridge.
@@ -105,6 +122,15 @@ __device__ __forceinline__ float gelu_tanh(float x) {
   const float k0 = 0.7978845608028654f;  // sqrt(2 / pi)
   const float k1 = 0.044715f;
   return 0.5f * x * (1.0f + tanhf(k0 * (x + k1 * x * x * x)));
+}
+
+// Its derivative, fused_layer_vjp.py:70 _gelu_tanh_grad, in fp32.
+__device__ __forceinline__ float gelu_tanh_grad(float x) {
+  const float k0 = 0.7978845608028654f;
+  const float k1 = 0.044715f;
+  const float t = tanhf(k0 * (x + k1 * x * x * x));
+  const float du = k0 * (1.0f + 3.0f * k1 * x * x);
+  return 0.5f * (1.0f + t) + 0.5f * x * (1.0f - t * t) * du;
 }
 
 template <typename R>
@@ -271,6 +297,49 @@ gemm_kernel(const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict
           ((red[0][r] + red[1][r]) + red[2][r]) + red[3][r];
     return;
   }
+  if constexpr (EPI == 10) {
+    __shared__ float cred[2][BN];  // [row half of the tile][column in the tile]
+    float cs[4][2];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) cs[j][0] = cs[j][1] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = col0 + wn + j * 8 + tq * 2;
+      if (col >= n) continue;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = row0 + wm + i * 16 + g + h * 8;
+          if (row >= m) continue;
+          const long long off = (long long)row * n + col;
+          const float2 hp = load_res2<RES>(res + off);
+          const float d0 = acc[i][j][2 * h] * gelu_tanh_grad(hp.x);
+          const float d1 = acc[i][j][2 * h + 1] * gelu_tanh_grad(hp.y);
+          *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<__nv_bfloat16*>(out) + off) =
+              __floats2bfloat162_rn(d0, d1);
+          cs[j][0] += d0;
+          cs[j][1] += d1;
+        }
+      }
+    }
+    // the eight lanes of a column (g = 0..7), then the two row halves
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float v = cs[j][e];
+        v += __shfl_xor_sync(0xffffffffu, v, 4);
+        v += __shfl_xor_sync(0xffffffffu, v, 8);
+        v += __shfl_xor_sync(0xffffffffu, v, 16);
+        if (g == 0) cred[warp >> 2][wn + j * 8 + tq * 2 + e] = v;
+      }
+    }
+    __syncthreads();
+    const int c = threadIdx.x;
+    if (c < BN && col0 + c < n) aux[(long long)blockIdx.y * n + col0 + c] = cred[0][c] + cred[1][c];
+    return;
+  }
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const int col = col0 + wn + j * 8 + tq * 2;
@@ -286,7 +355,8 @@ gemm_kernel(const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict
         float v0 = acc[i][j][2 * h] + b2.x;
         float v1 = acc[i][j][2 * h + 1] + b2.y;
         const long long off = (long long)row * n + col;
-        if (EPI == 1) {
+        if (EPI == 9) *reinterpret_cast<float2*>(aux + off) = make_float2(v0, v1);
+        if (EPI == 1 || EPI == 9) {
           v0 = gelu_tanh(v0);
           v1 = gelu_tanh(v1);
         }
@@ -343,11 +413,16 @@ int launch_res(int res_f32, const void* a, const void* w, const void* bias, cons
 // residual -> fp32, 7 (bias) * mask + residual -> bf16, 8 masked_rowdot:
 // out = bf16(res * mask) and aux = per-(row, 128-column tile) partials of
 // sum(res * (A . W + bias)), fp32 (m, ceil(n / 128)); res is the bf16
-// cotangent. res_f32 selects an fp32 (1) or bf16 (0) residual for
-// epilogues 2, 3, 6 and 7; res is ignored for 0, 1, 4 and 5. mask ((m,)
-// bf16) is read by epilogues 6, 7 and 8 only; aux is written by 8 only.
+// cotangent. 9 gelu_hpre: out = bf16(gelu(A . W + bias)) and aux = the
+// fp32 A . W + bias, (m, n). 10 gelu_grad (W as (N, K), no bias): with
+// res the fp32 hpre (m, n), out = bf16(A . W^T * gelu'(res)) and aux =
+// per-128-row-tile column partials of the fp32 product, (ceil(m / 128),
+// n). res_f32 selects an fp32 (1) or bf16 (0) residual for epilogues 2,
+// 3, 6 and 7; res is ignored for 0, 1, 4, 5 and 9. mask ((m,) bf16) is
+// read by epilogues 6, 7 and 8 only; aux is written by 8, 9 and 10 only.
 // Returns the cudaError_t of the launch (an unknown epilogue, or 6, 7 or 8
-// without a mask, 8 without res or aux, returns cudaErrorInvalidValue).
+// without a mask, 8 or 10 without res or aux, 9 without aux, returns
+// cudaErrorInvalidValue).
 extern "C" int peekvit_gemm_bias_epilogue(const void* a, const void* w, const void* bias,
                                           const void* res, const void* mask, void* out,
                                           void* aux, int m, int n, int k, int epilogue,
@@ -377,6 +452,12 @@ extern "C" int peekvit_gemm_bias_epilogue(const void* a, const void* w, const vo
       if (mask == nullptr || res == nullptr || aux == nullptr) return (int)cudaErrorInvalidValue;
       return launch<8, false, __nv_bfloat16, __nv_bfloat16>(a, w, bias, res, mask, out, m, n, k,
                                                             s, aux);
+    case 9:
+      if (aux == nullptr) return (int)cudaErrorInvalidValue;
+      return launch<9, false, float, __nv_bfloat16>(a, w, bias, res, mask, out, m, n, k, s, aux);
+    case 10:
+      if (res == nullptr || aux == nullptr) return (int)cudaErrorInvalidValue;
+      return launch<10, true, float, __nv_bfloat16>(a, w, bias, res, mask, out, m, n, k, s, aux);
     default:
       return (int)cudaErrorInvalidValue;
   }

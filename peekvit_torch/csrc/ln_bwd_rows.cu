@@ -36,10 +36,24 @@
 //   - dln = ds1 * mask, then dx and the column partials from dln as above.
 // Same bound (bytes) and design; beta is read per row from L1 rather than
 // held in registers, which the unmasked mode already fills.
+//
+// Two operand-type variants carry the LN backwards of the merged
+// trainable layer (peekvit_tpu/ops/pallas/fused_layer_vjp.py:135
+// _layer_bwd_kernel):
+//   - "ln_bwd_rows.f32" (LN2, :206-208): x is the fp32 mid residual y, g
+//     the layer's bf16 output cotangent; it writes dy in fp32 (dx's
+//     place), its bf16 copy (dx_b, the next GEMMs' operand, :211) and a
+//     third set of column partials, sum(dy), for dbo (:215);
+//   - "ln_bwd_rows.g_f32" (LN1, :262-265): g is that fp32 dy, x the bf16
+//     layer input, dx bf16.
+// The bf16 mode is the same template at <bf16, bf16, false>: its
+// arithmetic is unchanged.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -80,21 +94,29 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p, const float* v) {
   *reinterpret_cast<uint4*>(p) = raw;
 }
 
+__device__ __forceinline__ void store8(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
+}
+
 // NC = ceil(d / 256): 8-value chunks per lane (column lane*8 + i*256).
-template <int NC, bool MASKED>
+// TX, TG: the types of x and g. F32OUT: dx is fp32, with its bf16 copy in
+// dx_b and its column partials in part_dx.
+template <int NC, bool MASKED, typename TX, typename TG, bool F32OUT>
 __global__ void __launch_bounds__(WARPS * 32)
-ln_bwd_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ dln,
-              const __nv_bfloat16* __restrict__ g, const __nv_bfloat16* __restrict__ gamma,
-              __nv_bfloat16* __restrict__ dx, float* __restrict__ part_w,
-              float* __restrict__ part_b, long long rows, int d, float eps,
-              const __nv_bfloat16* __restrict__ mask, const __nv_bfloat16* __restrict__ beta,
-              const float* __restrict__ rowdot, int rowdot_parts,
-              __nv_bfloat16* __restrict__ dm) {
+ln_bwd_kernel(const TX* __restrict__ x, const float* __restrict__ dln,
+              const TG* __restrict__ g, const __nv_bfloat16* __restrict__ gamma,
+              typename std::conditional<F32OUT, float, __nv_bfloat16>::type* __restrict__ dx,
+              __nv_bfloat16* __restrict__ dx_b, float* __restrict__ part_w,
+              float* __restrict__ part_b, float* __restrict__ part_dx, long long rows, int d,
+              float eps, const __nv_bfloat16* __restrict__ mask,
+              const __nv_bfloat16* __restrict__ beta, const float* __restrict__ rowdot,
+              int rowdot_parts, __nv_bfloat16* __restrict__ dm) {
   __shared__ float red[WARPS][MAX_D];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const float inv_d = 1.0f / (float)d;
 
-  float gam[NC][8], pw[NC][8], pb[NC][8];
+  float gam[NC][8], pw[NC][8], pb[NC][8], pd[F32OUT ? NC : 1][8];
 #pragma unroll
   for (int i = 0; i < NC; ++i) {
     const int c = lane * 8 + i * 256;
@@ -103,6 +125,7 @@ ln_bwd_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ dln
       gam[i][e] = 0.f;
       pw[i][e] = 0.f;
       pb[i][e] = 0.f;
+      if (F32OUT) pd[F32OUT ? i : 0][e] = 0.f;
     }
     if (c < d) load8(gamma + c, gam[i]);
   }
@@ -192,23 +215,29 @@ ln_bwd_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ dln
         for (int e = 0; e < 8; ++e)
           out[e] = (dv[i][e] * gam[i][e] - m1 - xv[i][e] * m2) * inv + gv[e];
         store8(dx + row * d + c, out);
+        if (F32OUT) {
+          store8(dx_b + row * d + c, out);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) pd[F32OUT ? i : 0][e] += out[e];
+        }
       }
     }
   }
 
   // Column partials of this block: the warps' registers summed in order.
 #pragma unroll
-  for (int which = 0; which < 2; ++which) {
+  for (int which = 0; which < (F32OUT ? 3 : 2); ++which) {
 #pragma unroll
     for (int i = 0; i < NC; ++i) {
       const int c = lane * 8 + i * 256;
       if (c < d) {
 #pragma unroll
-        for (int e = 0; e < 8; ++e) red[warp][c + e] = which == 0 ? pw[i][e] : pb[i][e];
+        for (int e = 0; e < 8; ++e)
+          red[warp][c + e] = which == 0 ? pw[i][e] : which == 1 ? pb[i][e] : pd[F32OUT ? i : 0][e];
       }
     }
     __syncthreads();
-    float* part = (which == 0 ? part_w : part_b) + (long long)blockIdx.x * d;
+    float* part = (which == 0 ? part_w : which == 1 ? part_b : part_dx) + (long long)blockIdx.x * d;
     for (int c = threadIdx.x; c < d; c += WARPS * 32) {
       float acc = 0.f;
 #pragma unroll
@@ -219,55 +248,87 @@ ln_bwd_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ dln
   }
 }
 
-template <int NC>
+template <int NC, bool MASKED, typename TX, typename TG, bool F32OUT>
 int launch(const void* x, const void* dln, const void* g, const void* gamma, void* dx,
-           void* part_w, void* part_b, long long rows, int d, float eps, const void* mask,
-           const void* beta, const void* rowdot, int rowdot_parts, void* dm,
-           cudaStream_t stream) {
+           void* dx_b, void* part_w, void* part_b, void* part_dx, long long rows, int d,
+           float eps, const void* mask, const void* beta, const void* rowdot, int rowdot_parts,
+           void* dm, cudaStream_t stream) {
+  using DX = typename std::conditional<F32OUT, float, __nv_bfloat16>::type;
   const unsigned grid = (unsigned)((rows + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK);
-  auto kern = mask != nullptr ? ln_bwd_kernel<NC, true> : ln_bwd_kernel<NC, false>;
-  kern<<<grid, WARPS * 32, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(dln),
-      static_cast<const __nv_bfloat16*>(g), static_cast<const __nv_bfloat16*>(gamma),
-      static_cast<__nv_bfloat16*>(dx), static_cast<float*>(part_w),
-      static_cast<float*>(part_b), rows, d, eps, static_cast<const __nv_bfloat16*>(mask),
-      static_cast<const __nv_bfloat16*>(beta), static_cast<const float*>(rowdot), rowdot_parts,
-      static_cast<__nv_bfloat16*>(dm));
+  ln_bwd_kernel<NC, MASKED, TX, TG, F32OUT><<<grid, WARPS * 32, 0, stream>>>(
+      static_cast<const TX*>(x), static_cast<const float*>(dln), static_cast<const TG*>(g),
+      static_cast<const __nv_bfloat16*>(gamma), static_cast<DX*>(dx),
+      static_cast<__nv_bfloat16*>(dx_b), static_cast<float*>(part_w),
+      static_cast<float*>(part_b), static_cast<float*>(part_dx), rows, d, eps,
+      static_cast<const __nv_bfloat16*>(mask), static_cast<const __nv_bfloat16*>(beta),
+      static_cast<const float*>(rowdot), rowdot_parts, static_cast<__nv_bfloat16*>(dm));
   return (int)cudaGetLastError();
+}
+
+// mode 0 bf16 (masked or not), 1 fp32 x with fp32 dx, 2 fp32 g.
+template <int NC>
+int dispatch(int mode, const void* x, const void* dln, const void* g, const void* gamma,
+             void* dx, void* dx_b, void* part_w, void* part_b, void* part_dx, long long rows,
+             int d, float eps, const void* mask, const void* beta, const void* rowdot,
+             int rowdot_parts, void* dm, cudaStream_t s) {
+  using bf16 = __nv_bfloat16;
+  if (mode == 1)
+    return launch<NC, false, float, bf16, true>(x, dln, g, gamma, dx, dx_b, part_w, part_b,
+                                                part_dx, rows, d, eps, mask, beta, rowdot,
+                                                rowdot_parts, dm, s);
+  if (mode == 2)
+    return launch<NC, false, bf16, float, false>(x, dln, g, gamma, dx, dx_b, part_w, part_b,
+                                                 part_dx, rows, d, eps, mask, beta, rowdot,
+                                                 rowdot_parts, dm, s);
+  return mask != nullptr
+             ? launch<NC, true, bf16, bf16, false>(x, dln, g, gamma, dx, dx_b, part_w, part_b,
+                                                   part_dx, rows, d, eps, mask, beta, rowdot,
+                                                   rowdot_parts, dm, s)
+             : launch<NC, false, bf16, bf16, false>(x, dln, g, gamma, dx, dx_b, part_w, part_b,
+                                                    part_dx, rows, d, eps, mask, beta, rowdot,
+                                                    rowdot_parts, dm, s);
 }
 
 }  // namespace
 
-// x, g, dx: (rows, d) bf16; dln: (rows, d) fp32; gamma: (d,) bf16;
-// part_w, part_b: (ceil(rows / 64), d) fp32, the per-block column sums of
-// dln * xhat and dln. The masked mode (mask != nullptr) also takes mask
+// mode 0: x, g, dx: (rows, d) bf16. mode 1 (LN2 of the merged layer):
+// x fp32, dx fp32, plus dx_b ((rows, d) bf16, dx rounded) and part_dx
+// (the column partials of dx). mode 2 (its LN1): g fp32. dln: (rows, d)
+// fp32; gamma: (d,) bf16; part_w, part_b (and part_dx):
+// (ceil(rows / 64), d) fp32, the per-block column sums of dln * xhat and
+// dln (and dx). The masked mode (mode 0, mask != nullptr) also takes mask
 // ((rows,) bf16), beta ((d,) bf16) and rowdot ((rows, rowdot_parts)
 // fp32), reads dln as ds1, and writes dm ((rows,) bf16). d must be a
 // multiple of 8 and at most 1024, every pointer 16-byte aligned (the
 // wrapper checks). Returns the cudaError_t of the launch (a masked call
-// missing beta, rowdot or dm returns cudaErrorInvalidValue).
+// missing beta, rowdot or dm, a masked call in mode 1 or 2, or mode 1
+// without dx_b or part_dx, returns cudaErrorInvalidValue).
 extern "C" int peekvit_ln_bwd_rows(const void* x, const void* dln, const void* g,
-                                   const void* gamma, void* dx, void* part_w, void* part_b,
-                                   long long rows, int d, float eps, const void* mask,
-                                   const void* beta, const void* rowdot, int rowdot_parts,
-                                   void* dm, void* stream) {
+                                   const void* gamma, void* dx, void* dx_b, void* part_w,
+                                   void* part_b, void* part_dx, long long rows, int d, float eps,
+                                   int mode, const void* mask, const void* beta,
+                                   const void* rowdot, int rowdot_parts, void* dm,
+                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rows == 0) return 0;
+  if (mode < 0 || mode > 2 || (mask != nullptr && mode != 0) ||
+      (mode == 1 && (dx_b == nullptr || part_dx == nullptr)))
+    return (int)cudaErrorInvalidValue;
   if (mask != nullptr && (beta == nullptr || rowdot == nullptr || dm == nullptr))
     return (int)cudaErrorInvalidValue;
   switch ((d + 255) / 256) {
     case 1:
-      return launch<1>(x, dln, g, gamma, dx, part_w, part_b, rows, d, eps, mask, beta, rowdot,
-                       rowdot_parts, dm, s);
+      return dispatch<1>(mode, x, dln, g, gamma, dx, dx_b, part_w, part_b, part_dx, rows, d, eps,
+                         mask, beta, rowdot, rowdot_parts, dm, s);
     case 2:
-      return launch<2>(x, dln, g, gamma, dx, part_w, part_b, rows, d, eps, mask, beta, rowdot,
-                       rowdot_parts, dm, s);
+      return dispatch<2>(mode, x, dln, g, gamma, dx, dx_b, part_w, part_b, part_dx, rows, d, eps,
+                         mask, beta, rowdot, rowdot_parts, dm, s);
     case 3:
-      return launch<3>(x, dln, g, gamma, dx, part_w, part_b, rows, d, eps, mask, beta, rowdot,
-                       rowdot_parts, dm, s);
+      return dispatch<3>(mode, x, dln, g, gamma, dx, dx_b, part_w, part_b, part_dx, rows, d, eps,
+                         mask, beta, rowdot, rowdot_parts, dm, s);
     case 4:
-      return launch<4>(x, dln, g, gamma, dx, part_w, part_b, rows, d, eps, mask, beta, rowdot,
-                       rowdot_parts, dm, s);
+      return dispatch<4>(mode, x, dln, g, gamma, dx, dx_b, part_w, part_b, part_dx, rows, d, eps,
+                         mask, beta, rowdot, rowdot_parts, dm, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

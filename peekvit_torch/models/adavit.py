@@ -80,7 +80,8 @@ class _StackedSelfAttention(nn.Module):
             x, {"in_proj": {"kernel": self.in_proj_kernel[layer],
                             "bias": self.in_proj_bias[layer]},
                 "out_proj": {"kernel": self.out_proj_kernel[layer],
-                             "bias": self.out_proj_bias[layer]}}, self.num_heads)
+                             "bias": self.out_proj_bias[layer]}}, self.num_heads,
+            deterministic=not self.training)
 
 
 class _StackedMLP(nn.Module):

@@ -10,6 +10,15 @@ Parameters keep the JAX layout and names:
 
 This is the model's (linen-equivalent) attention; the inference engine's
 kernel with the fast softmax lives in ops/cuda/fused_attention.py.
+
+:func:`set_attention_impl` ("xla", the default, or "pallas", JAX's names)
+chooses between two numerics for every module forward at once, as the
+JAX package's switch does: under "pallas" a deterministic forward without
+a key mask runs the attention core through ``fused_mhsa`` (the fast
+clamped exp2 softmax; ``attn_scores_pv`` on the card). That kernel has no
+backward, so a CUDA forward under "pallas" whose qkv needs a gradient
+raises; ``SelfAttention`` is deterministic exactly when the module is in
+eval mode.
 """
 
 from __future__ import annotations
@@ -19,6 +28,23 @@ from typing import Optional
 
 import torch
 from torch import nn
+
+from peekvit_torch.ops.cuda.fused_attention import fused_mhsa
+
+# Global switch: "xla" (the module's own attention, default) or "pallas"
+# (the fused kernel, deterministic forwards only).
+_ATTENTION_IMPL = "xla"
+
+
+def set_attention_impl(name: str) -> None:
+    global _ATTENTION_IMPL
+    if name not in ("xla", "pallas"):
+        raise ValueError(f"unknown attention impl {name!r}")
+    _ATTENTION_IMPL = name
+
+
+def get_attention_impl() -> str:
+    return _ATTENTION_IMPL
 
 
 def qkv_projection(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor):
@@ -50,11 +76,22 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def multi_head_attention(x: torch.Tensor, params: dict, num_heads: int, *,
-                         key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                         key_mask: Optional[torch.Tensor] = None,
+                         deterministic: bool = True) -> torch.Tensor:
     """Full MHSA: packed qkv proj -> attention -> out proj. x: (B, N, D).
-    params: {'in_proj': {'kernel', 'bias'}, 'out_proj': {'kernel', 'bias'}}."""
-    q, k, v = qkv_projection(x, params["in_proj"]["kernel"], params["in_proj"]["bias"])
-    out = attention_core(q, k, v, num_heads, key_mask=key_mask)
+    params: {'in_proj': {'kernel', 'bias'}, 'out_proj': {'kernel', 'bias'}}.
+    Under ``set_attention_impl("pallas")`` a deterministic call without a
+    key mask takes ``fused_mhsa`` (JAX ops/attention.py:114-119)."""
+    if _ATTENTION_IMPL == "pallas" and key_mask is None and deterministic:
+        qkv = torch.matmul(x, params["in_proj"]["kernel"]) + params["in_proj"]["bias"]
+        if qkv.is_cuda and qkv.requires_grad:
+            raise RuntimeError(
+                "attention impl 'pallas': the fused kernel has no backward; run the forward "
+                "under torch.no_grad() / inference_mode, or train with impl 'xla'")
+        out = fused_mhsa(qkv, num_heads)
+    else:
+        q, k, v = qkv_projection(x, params["in_proj"]["kernel"], params["in_proj"]["bias"])
+        out = attention_core(q, k, v, num_heads, key_mask=key_mask)
     return torch.matmul(out, params["out_proj"]["kernel"]) + params["out_proj"]["bias"]
 
 
@@ -80,4 +117,4 @@ class SelfAttention(nn.Module):
             x,
             {"in_proj": {"kernel": self.in_proj_kernel, "bias": self.in_proj_bias},
              "out_proj": {"kernel": self.out_proj_kernel, "bias": self.out_proj_bias}},
-            self.num_heads, key_mask=key_mask)
+            self.num_heads, key_mask=key_mask, deterministic=not self.training)

@@ -27,7 +27,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "peekvit_torch")
 SOURCES = ("norm_rows", "gemm_bias_epilogue", "attn_scores_pv", "attn_softmax_fwd",
-           "attn_softmax_bwd", "ln_bwd_rows", "quant_rows", "gemm_s8_epilogue", "arpe_tokens")
+           "attn_softmax_bwd", "ln_bwd_rows", "quant_rows", "gemm_s8_epilogue", "arpe_tokens",
+           "gemm_wgrad")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -43,12 +44,12 @@ _SIGNATURES = {
                        [_P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, ctypes.c_float,
                         _P]),
     "attn_softmax_fwd": ("peekvit_attn_softmax_fwd",
-                         [_P, _P, _I, _I, _I, _I, ctypes.c_float, _P]),
+                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P]),
     "attn_softmax_bwd": ("peekvit_attn_softmax_bwd",
                          [_P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P]),
     "ln_bwd_rows": ("peekvit_ln_bwd_rows",
-                    [_P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, ctypes.c_float,
-                     _P, _P, _P, _I, _P, _P]),
+                    [_P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, ctypes.c_float,
+                     _I, _P, _P, _P, _I, _P, _P]),
     "quant_rows": ("peekvit_quant_rows",
                    [_P, _I, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, ctypes.c_float,
                     ctypes.c_float, _I, _P]),
@@ -57,6 +58,8 @@ _SIGNATURES = {
                           _P]),
     "arpe_tokens": ("peekvit_arpe_tokens",
                     [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P]),
+    "gemm_wgrad": ("peekvit_gemm_wgrad",
+                   [_P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, ctypes.c_longlong, _I, _P]),
 }
 
 _lock = threading.Lock()

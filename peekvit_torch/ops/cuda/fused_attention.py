@@ -18,7 +18,15 @@ output and gelu output (rounding to the compute dtype: none in fp32).
 ``gemm_nt`` (the same GEMM source with W read as (N, K) and no bias)
 serves the trainable block's backward (fused_attention_vjp.py), and
 ``gemm_masked_rowdot`` (epilogue ``masked_rowdot``) the masked block's:
-the bf16 g * mask and the row partials of sum(g * proj).
+the bf16 g * mask and the row partials of sum(g * proj). The merged
+trainable layer (fused_layer_vjp.py) adds ``ln_rows`` on its fp32 mid
+residual and two two-output epilogues, ``gemm_gelu_hpre`` (h and the
+fp32 pre-activation) and ``gemm_nt_gelu_grad`` (dhpre and the column
+partials of db1).
+
+``fused_mhsa`` and ``fused_attention`` are the linen attention switch's
+Pallas sites 1 and 2 (:153, :220): packed qkv through ``attn_scores_pv``,
+and separate q, k, v through ``attn_softmax_fwd``'s kernel.
 
 The ResidualViT layer (``_layer_kernel`` mode ``masked``, and the split
 ``masked_attention_block`` / ``masked_mlp_block``) runs on the same three
@@ -157,15 +165,16 @@ def norm_rows_ref(x: torch.Tensor, eps: float, out_dtype: torch.dtype,
 
 
 def ln_rows_ref(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                eps: float, mask=None) -> torch.Tensor:
+                eps: float, mask=None, out_dtype=None) -> torch.Tensor:
     """Plain version of :func:`ln_rows`: two-pass LN with affine (then the
-    row mask), rounded to x's dtype (Pallas ``_attn_block_kernel``
-    :253-258, ``_masked_attn_kernel`` :389-395)."""
+    row mask), rounded to ``out_dtype`` (default x's dtype; Pallas
+    ``_attn_block_kernel`` :253-258, ``_masked_attn_kernel`` :389-395,
+    ``_layer_fwd_kernel`` :122-124)."""
     xf = x.float()
     mu = xf.mean(-1, keepdim=True)
     var = ((xf - mu) ** 2).mean(-1, keepdim=True)
     out = (xf - mu) * torch.rsqrt(var + eps)
-    return _affine_mask_ref(out, scale, bias, mask).to(x.dtype)
+    return _affine_mask_ref(out, scale, bias, mask).to(out_dtype or x.dtype)
 
 
 def _rows_mask(key, mask, rows):
@@ -222,15 +231,23 @@ def norm_rows(x: torch.Tensor, eps: float, out_dtype: torch.dtype,
 
 
 def ln_rows(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-            eps: float, mask=None) -> torch.Tensor:
-    """Two-pass LayerNorm with affine, rounded to x's dtype (the split path's
-    LN); with ``mask`` (one value per row of x) the result is
-    mask * LN(x) (the split masked sublayers). On CUDA, x, scale, bias and
-    mask are bf16."""
+            eps: float, mask=None, out_dtype=None) -> torch.Tensor:
+    """Two-pass LayerNorm with affine, rounded to ``out_dtype`` (default x's
+    dtype; the split path's LN); with ``mask`` (one value per row of x) the
+    result is mask * LN(x) (the split masked sublayers). On CUDA, scale,
+    bias, mask and the output are bf16, and x is bf16, or fp32 without a
+    mask (the merged trainable layer's LN2 on its fp32 mid residual,
+    ``ln_rows.f32``, with ``out_dtype=torch.bfloat16``)."""
     if _on_cpu(x, scale, bias, mask):
-        return ln_rows_ref(x, scale, bias, eps, mask)
-    _check_bf16("ln_rows x", x)
-    key = "ln_rows.masked" if mask is not None else "ln_rows"
+        return ln_rows_ref(x, scale, bias, eps, mask, out_dtype)
+    if x.dtype == torch.float32 and mask is None:
+        _require(out_dtype == torch.bfloat16, "ln_rows: from fp32 the kernel writes bf16 only; "
+                 "pass out_dtype=torch.bfloat16")
+        key = "ln_rows.f32"
+    else:
+        _check_bf16("ln_rows x", x)
+        _require(out_dtype in (None, torch.bfloat16), "ln_rows: the kernel writes bf16 only")
+        key = "ln_rows.masked" if mask is not None else "ln_rows"
     return _norm_launch(key, x, scale, bias, mask, eps, 1)
 
 
@@ -247,6 +264,20 @@ def _check_epilogue(epilogue, residual, mask):
     _require((mask is not None) == needs_mask,
              f"epilogue {epilogue!r} {'needs' if needs_mask else 'takes no'} mask")
     return needs_res, needs_mask
+
+
+def _check_gemm(key, a, w, nt: bool):
+    """(m, n, k) of a @ w (``nt``: a @ w^T) after the GEMM kernel's checks."""
+    _require(a.dim() == 2 and w.dim() == 2 and a.shape[1] == w.shape[1 if nt else 0],
+             f"{key}: shapes {tuple(a.shape)} @ {tuple(w.shape)}{'^T' if nt else ''} "
+             "do not chain")
+    m, k = a.shape
+    n = w.shape[0 if nt else 1]
+    _require(k % 32 == 0, f"{key}: K={k} must be a multiple of 32")
+    _require(n % 8 == 0, f"{key}: N={n} must be a multiple of 8")
+    for name, t in (("a", a), ("w", w)):
+        _check_bf16(f"{key} {name}", t)
+    return m, n, k
 
 
 def gemm_bias_epilogue_ref(a, w, bias, epilogue: str, residual=None, mask=None):
@@ -284,16 +315,10 @@ def gemm_bias_epilogue(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     if _on_cpu(a, w, bias, residual, mask):
         return gemm_bias_epilogue_ref(a, w, bias, epilogue, residual, mask)
     key = f"gemm_bias_epilogue.{epilogue}"
-    _require(a.dim() == 2 and w.dim() == 2 and a.shape[1] == w.shape[0],
-             f"{key}: shapes {tuple(a.shape)} @ {tuple(w.shape)} do not chain")
-    m, k = a.shape
-    n = w.shape[1]
-    _require(k % 32 == 0, f"{key}: K={k} must be a multiple of 32")
-    _require(n % 8 == 0, f"{key}: N={n} must be a multiple of 8")
+    m, n, k = _check_gemm(key, a, w, nt=False)
     bias = bias.reshape(-1)
     _require(bias.numel() == n, f"{key}: bias has {bias.numel()} values, want {n}")
-    for name, t in (("a", a), ("w", w), ("bias", bias)):
-        _check_bf16(f"{key} {name}", t)
+    _check_bf16(f"{key} bias", bias)
     res_f32 = 0
     if needs_res:
         _require(residual.shape == (m, n), f"{key}: residual must be {(m, n)}")
@@ -335,14 +360,7 @@ def gemm_nt(a: torch.Tensor, w: torch.Tensor, epilogue: str) -> torch.Tensor:
     if _on_cpu(a, w):
         return gemm_nt_ref(a, w, epilogue)
     key = f"gemm_nt.{epilogue}"
-    _require(a.dim() == 2 and w.dim() == 2 and a.shape[1] == w.shape[1],
-             f"{key}: shapes {tuple(a.shape)} @ {tuple(w.shape)}^T do not chain")
-    m, k = a.shape
-    n = w.shape[0]
-    _require(k % 32 == 0, f"{key}: K={k} must be a multiple of 32")
-    _require(n % 8 == 0, f"{key}: N={n} must be a multiple of 8")
-    for name, t in (("a", a), ("w", w)):
-        _check_bf16(f"{key} {name}", t)
+    m, n, k = _check_gemm(key, a, w, nt=True)
     out_dtype = torch.float32 if epilogue == "none_f32" else torch.bfloat16
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     err = _build.library("gemm_bias_epilogue")(
@@ -350,6 +368,77 @@ def gemm_nt(a: torch.Tensor, w: torch.Tensor, epilogue: str) -> torch.Tensor:
         _NT_EPILOGUES[epilogue], 0, _stream())
     _launched(key, err)
     return out
+
+
+def gemm_gelu_hpre_ref(a, w, bias):
+    """Plain version of :func:`gemm_gelu_hpre`."""
+    hpre = torch.matmul(a.float(), w.float()) + bias.float().reshape(-1)
+    return F.gelu(hpre, approximate="tanh").to(a.dtype), hpre
+
+
+def gemm_gelu_hpre(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor):
+    """The merged layer backward's recomputed fc1 (Pallas
+    ``_layer_bwd_kernel`` :184-186), GEMM epilogue ``gelu_hpre``: with
+    hpre = a @ w + bias in fp32, returns h = tanh-gelu(hpre) rounded to a's
+    dtype, (R, N), and hpre itself, (R, N) fp32, which gelu' reads. a:
+    (R, K), w: (K, N), bias: (N,). On CUDA a, w and bias are bf16."""
+    if _on_cpu(a, w, bias):
+        return gemm_gelu_hpre_ref(a, w, bias)
+    key = "gemm_bias_epilogue.gelu_hpre"
+    m, n, k = _check_gemm(key, a, w, nt=False)
+    bias = bias.reshape(-1)
+    _require(bias.numel() == n, f"{key}: bias has {bias.numel()} values, want {n}")
+    _check_bf16(f"{key} bias", bias)
+    h = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
+    hpre = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    err = _build.library("gemm_bias_epilogue")(
+        a.data_ptr(), w.data_ptr(), bias.data_ptr(), None, None, h.data_ptr(), hpre.data_ptr(),
+        m, n, k, 9, 0, _stream())
+    _launched(key, err)
+    return h, hpre
+
+
+_SQRT_2_OVER_PI = 0.7978845608028654
+_GELU_C = 0.044715
+
+
+def gelu_tanh_grad(x: torch.Tensor) -> torch.Tensor:
+    """d/dx of the tanh-approximate gelu, fp32 (Pallas
+    ``fused_layer_vjp._gelu_tanh_grad`` :70)."""
+    t = torch.tanh(_SQRT_2_OVER_PI * (x + _GELU_C * x * x * x))
+    du = _SQRT_2_OVER_PI * (1.0 + 3.0 * _GELU_C * x * x)
+    return 0.5 * (1.0 + t) + 0.5 * x * (1.0 - t * t) * du
+
+
+def gemm_nt_gelu_grad_ref(a, w, hpre):
+    """Plain version of :func:`gemm_nt_gelu_grad`; its partials are the
+    full column sums, shape (1, N)."""
+    dhpre = torch.matmul(a.float(), w.float().t()) * gelu_tanh_grad(hpre.float())
+    return dhpre.to(a.dtype), dhpre.sum(0, keepdim=True)
+
+
+def gemm_nt_gelu_grad(a: torch.Tensor, w: torch.Tensor, hpre: torch.Tensor):
+    """The merged layer backward's MLP step (Pallas ``_layer_bwd_kernel``
+    :193-202), GEMM NT epilogue ``gelu_grad``: with dhpre = (a @ w^T) *
+    gelu'(hpre) in fp32, returns dhpre rounded to a's dtype, (R, N), and
+    the fp32 column partials of the unrounded dhpre, (P, N) with P =
+    ceil(R / 128), for the caller to sum over P (db1). a: (R, K) (the
+    output cotangent g), w: (N, K) (fc2's (in, out) kernel read as it
+    lies), hpre: (R, N) fp32. On CUDA a and w are bf16."""
+    if _on_cpu(a, w, hpre):
+        return gemm_nt_gelu_grad_ref(a, w, hpre)
+    key = "gemm_nt.gelu_grad"
+    m, n, k = _check_gemm(key, a, w, nt=True)
+    _require(hpre.shape == (m, n) and hpre.dtype == torch.float32 and hpre.is_contiguous()
+             and hpre.data_ptr() % 16 == 0, f"{key}: hpre must be contiguous, aligned fp32 "
+             f"{(m, n)}")
+    dhpre = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
+    parts = torch.empty((-(-m // 128), n), dtype=torch.float32, device=a.device)
+    err = _build.library("gemm_bias_epilogue")(
+        a.data_ptr(), w.data_ptr(), None, hpre.data_ptr(), None, dhpre.data_ptr(),
+        parts.data_ptr(), m, n, k, 10, 0, _stream())
+    _launched(key, err)
+    return dhpre, parts
 
 
 ROWDOT_TILE = 128  # gemm_masked_rowdot writes one partial per 128 output columns
@@ -375,16 +464,11 @@ def gemm_masked_rowdot(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, g: 
     if _on_cpu(a, w, bias, g, mask):
         return gemm_masked_rowdot_ref(a, w, bias, g, mask)
     key = "gemm_bias_epilogue.masked_rowdot"
-    _require(a.dim() == 2 and w.dim() == 2 and a.shape[1] == w.shape[0],
-             f"{key}: shapes {tuple(a.shape)} @ {tuple(w.shape)} do not chain")
-    m, k = a.shape
-    n = w.shape[1]
-    _require(k % 32 == 0, f"{key}: K={k} must be a multiple of 32")
-    _require(n % 8 == 0, f"{key}: N={n} must be a multiple of 8")
+    m, n, k = _check_gemm(key, a, w, nt=False)
     bias = bias.reshape(-1)
     _require(bias.numel() == n, f"{key}: bias has {bias.numel()} values, want {n}")
     _require(g.shape == (m, n), f"{key}: g must be {(m, n)}")
-    for name, t in (("a", a), ("w", w), ("bias", bias), ("g", g)):
+    for name, t in (("bias", bias), ("g", g)):
         _check_bf16(f"{key} {name}", t)
     mask = _rows_mask(key, mask, m)
     dproj = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
@@ -490,6 +574,79 @@ def attn_scores_pv(qkv: torch.Tensor, num_heads: int, phantom_idx: int = -1,
     key = ("attn_scores_pv.kmask" if km is not None
            else "attn_scores_pv.kweight" if phantom_idx >= 0 else "attn_scores_pv")
     _launched(key + ("" if hd == 64 else f".hd{hd}"), err)
+    return out
+
+
+# ----------------------------------------------- the attention switch's kernels
+
+# attn_softmax_fwd.cu is built for head dim 64 and keeps one head's K and V
+# in shared memory up to 768 tokens.
+SOFTMAX_HEAD_DIM = 64
+SOFTMAX_MAX_TOKENS = 768
+
+
+def _check_b15(key: str, t: torch.Tensor) -> None:
+    if t.dtype == torch.float32:
+        raise NotImplementedError(
+            f"{key}: the CUDA kernels take bf16 only; fp32 on the card is ROADMAP.md port "
+            "queue B item 15 (fp32 on CUDA)")
+
+
+def fused_mhsa_ref(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Plain version of :func:`fused_mhsa`."""
+    return attn_scores_pv_ref(qkv, num_heads)
+
+
+def fused_mhsa(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Pallas site 1 (``fused_mhsa``, :153, ``_mhsa_kernel`` :118): all
+    heads of packed qkv (B, N, 3D) -> (B, N, D) with the fast softmax of
+    ``_attn_scores_pv``, which the linen attention takes under
+    ``set_attention_impl("pallas")``. On CUDA it is one ``attn_scores_pv``
+    launch (bf16, head dim 64 or 32); an fp32 input raises naming B15."""
+    if not _on_cpu(qkv):
+        _check_b15("fused_mhsa", qkv)
+    return attn_scores_pv(qkv, num_heads)
+
+
+def fused_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        num_heads: int) -> torch.Tensor:
+    """Plain version of :func:`fused_attention` (``_attn_kernel`` :168 per
+    image and head, without its padding)."""
+    dt = q.dtype
+    b, n, d = q.shape
+    hd = d // num_heads
+    qh, kh, vh = (t.float().reshape(b, n, num_heads, hd).transpose(1, 2) for t in (q, k, v))
+    s = torch.softmax(torch.matmul(qh, kh.transpose(-1, -2)) * (1.0 / hd ** 0.5), dim=-1)
+    out = torch.matmul(s.to(dt).float(), vh).to(dt)
+    return out.transpose(1, 2).reshape(b, n, d)
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    num_heads: int) -> torch.Tensor:
+    """Pallas site 2 (``fused_attention``, :220): softmax(q k^T / sqrt(hd)) v
+    per image and head over separate q, k, v (B, N, D) -> (B, N, D), the
+    max-subtracted softmax normalised and rounded to the input dtype
+    before PV. On CUDA: ``attn_softmax_fwd``'s kernel on three pointers
+    (``attn_softmax_fwd.separate``), bf16, head dim 64, N <= 768; an fp32
+    input raises naming B15."""
+    if _on_cpu(q, k, v):
+        return fused_attention_ref(q, k, v, num_heads)
+    key = "attn_softmax_fwd.separate"
+    _check_b15(key, q)
+    _require(q.dim() == 3 and k.shape == q.shape and v.shape == q.shape,
+             f"{key}: q, k and v must be the same (B, N, D)")
+    b, n, d = q.shape
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_bf16(f"{key} {name}", t)
+    _require(d == num_heads * SOFTMAX_HEAD_DIM, f"{key}: the kernel is built for head dim "
+             f"{SOFTMAX_HEAD_DIM}, got D={d}, H={num_heads}")
+    _require(n <= SOFTMAX_MAX_TOKENS, f"{key}: N={n} tokens exceed the kernel's "
+             f"{SOFTMAX_MAX_TOKENS}")
+    out = torch.empty((b, n, d), dtype=torch.bfloat16, device=q.device)
+    err = _build.library("attn_softmax_fwd")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, n, d, d, num_heads,
+        SOFTMAX_HEAD_DIM ** -0.5, _stream())
+    _launched(key, err)
     return out
 
 

@@ -55,12 +55,15 @@ import torch
 
 from peekvit_torch.ops.cuda import _build
 from peekvit_torch.ops.cuda.fused_attention import (
+    SOFTMAX_HEAD_DIM,
+    SOFTMAX_MAX_TOKENS,
     _check_bf16,
     _launched,
     _on_cpu,
     _require,
     _rows_mask,
     _stream,
+    fused_attention_ref,
     gemm_bias_epilogue,
     gemm_bias_epilogue_ref,
     gemm_masked_rowdot,
@@ -71,8 +74,6 @@ from peekvit_torch.ops.cuda.fused_attention import (
     ln_rows_ref,
 )
 
-HEAD_DIM = 64
-MAX_TOKENS_FWD = 768  # K and V of one head in shared memory
 MAX_TOKENS_BWD = 384  # Q, K, V and dA of one head in shared memory
 ROWS_PER_PARTIAL = 64  # ln_bwd_rows writes one LN-grad partial per 64 rows
 
@@ -113,12 +114,9 @@ def _merge_heads(t: torch.Tensor) -> torch.Tensor:
 
 def attn_softmax_fwd_ref(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     """Plain version of :func:`attn_softmax_fwd` (``_attn_fwd_kernel``
-    :65-82, per image and head)."""
-    dt = qkv.dtype
-    q, k, v = _split_heads(qkv, 3, num_heads)
-    scale = 1.0 / (q.shape[-1] ** 0.5)
-    s = torch.softmax(torch.matmul(q, k.transpose(-1, -2)) * scale, dim=-1)
-    return _merge_heads(torch.matmul(s.to(dt).float(), v).to(dt))
+    :65-82, per image and head): ``fused_attention_ref`` on qkv's parts."""
+    d = qkv.shape[-1] // 3
+    return fused_attention_ref(qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:], num_heads)
 
 
 def _check_qkv(key: str, qkv: torch.Tensor, num_heads: int, max_tokens: int):
@@ -126,8 +124,8 @@ def _check_qkv(key: str, qkv: torch.Tensor, num_heads: int, max_tokens: int):
     _require(qkv.dim() == 3 and qkv.shape[-1] % 3 == 0, f"{key}: qkv must be (B, N, 3D)")
     b, n, three_d = qkv.shape
     d = three_d // 3
-    _require(d == num_heads * HEAD_DIM,
-             f"{key}: the kernel is built for head dim {HEAD_DIM}, got D={d}, H={num_heads}")
+    _require(d == num_heads * SOFTMAX_HEAD_DIM, f"{key}: the kernel is built for head dim "
+             f"{SOFTMAX_HEAD_DIM}, got D={d}, H={num_heads}")
     _require(n <= max_tokens, f"{key}: N={n} tokens exceed the kernel's {max_tokens}")
     return b, n, d
 
@@ -139,10 +137,12 @@ def attn_softmax_fwd(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     head dim 64, N <= 768."""
     if _on_cpu(qkv):
         return attn_softmax_fwd_ref(qkv, num_heads)
-    b, n, d = _check_qkv("attn_softmax_fwd", qkv, num_heads, MAX_TOKENS_FWD)
+    b, n, d = _check_qkv("attn_softmax_fwd", qkv, num_heads, SOFTMAX_MAX_TOKENS)
     out = torch.empty((b, n, d), dtype=torch.bfloat16, device=qkv.device)
+    base, step = qkv.data_ptr(), d * qkv.element_size()
     err = _build.library("attn_softmax_fwd")(
-        qkv.data_ptr(), out.data_ptr(), b, n, d, num_heads, HEAD_DIM ** -0.5, _stream())
+        base, base + step, base + 2 * step, out.data_ptr(), b, n, d, 3 * d, num_heads,
+        SOFTMAX_HEAD_DIM ** -0.5, _stream())
     _launched("attn_softmax_fwd", err)
     return out
 
@@ -179,7 +179,7 @@ def attn_softmax_bwd(qkv: torch.Tensor, dattn: torch.Tensor, num_heads: int) -> 
     dqkv = torch.empty((b, n, 3 * d), dtype=torch.bfloat16, device=qkv.device)
     err = _build.library("attn_softmax_bwd")(
         qkv.data_ptr(), dattn.data_ptr(), dqkv.data_ptr(), b, n, d, num_heads,
-        HEAD_DIM ** -0.5, _stream())
+        SOFTMAX_HEAD_DIM ** -0.5, _stream())
     _launched("attn_softmax_bwd", err)
     return dqkv
 
@@ -196,34 +196,80 @@ def ln_bwd_rows_ref(x, dln, g, gamma, eps: float):
     return dx, (dln * xhat).sum(0, keepdim=True), dln.sum(0, keepdim=True)
 
 
+def _check_ln_bwd(key, x, dln, g, gamma):
+    """(rows, d, gamma as (D,), the two (P, D) fp32 partials) after the LN
+    backward kernel's shared checks."""
+    _require(x.dim() == 2 and dln.shape == x.shape and g.shape == x.shape,
+             f"{key}: x, dln and g must be the same (R, D)")
+    rows, d = x.shape
+    _require(d % 8 == 0 and d <= 1024, f"{key}: D={d} must be a multiple of 8, <= 1024")
+    gamma = gamma.reshape(-1)
+    _require(gamma.numel() == d, f"{key}: gamma must have {d} values")
+    _check_bf16(f"{key} gamma", gamma)
+    for name, t in (("x", x), ("dln", dln), ("g", g)):
+        _require(t.is_contiguous() and t.data_ptr() % 16 == 0,
+                 f"{key}: {name} must be contiguous and 16-byte aligned")
+    _require(dln.dtype == torch.float32, f"{key}: dln must be fp32")
+    parts = [torch.empty((-(-rows // ROWS_PER_PARTIAL), d), dtype=torch.float32,
+                         device=x.device) for _ in range(2)]
+    return rows, d, gamma, parts
+
+
 def ln_bwd_rows(x: torch.Tensor, dln: torch.Tensor, g: torch.Tensor, gamma: torch.Tensor,
                 eps: float):
     """LN backward plus the residual cotangent, per row. x, g: (R, D);
     dln: (R, D) fp32; gamma: (D,). Returns dx (R, D) in x's dtype and the
     fp32 column partials of sum(dln * xhat) and sum(dln), (P, D) each, for
-    the caller to sum over P. On CUDA: x, g, gamma bf16, D <= 1024."""
+    the caller to sum over P. On CUDA: x and gamma bf16, g bf16 or fp32
+    (the merged layer's LN1 with the fp32 dy, ``ln_bwd_rows.g_f32``),
+    D <= 1024."""
     if _on_cpu(x, dln, g, gamma):
         return ln_bwd_rows_ref(x, dln, g, gamma, eps)
-    _require(x.dim() == 2 and dln.shape == x.shape and g.shape == x.shape,
-             "ln_bwd_rows: x, dln and g must be the same (R, D)")
-    rows, d = x.shape
-    _require(d % 8 == 0 and d <= 1024, f"ln_bwd_rows: D={d} must be a multiple of 8, <= 1024")
-    gamma = gamma.reshape(-1)
-    _require(gamma.numel() == d, f"ln_bwd_rows: gamma must have {d} values")
-    for name, t in (("x", x), ("g", g), ("gamma", gamma)):
-        _check_bf16(f"ln_bwd_rows {name}", t)
-    _require(dln.dtype == torch.float32 and dln.is_contiguous() and dln.data_ptr() % 16 == 0,
-             "ln_bwd_rows: dln must be contiguous, 16-byte aligned fp32")
+    g_f32 = g.dtype == torch.float32
+    key = "ln_bwd_rows.g_f32" if g_f32 else "ln_bwd_rows"
+    rows, d, gamma, (part_w, part_b) = _check_ln_bwd(key, x, dln, g, gamma)
+    _check_bf16(f"{key} x", x)
+    if not g_f32:
+        _check_bf16(f"{key} g", g)
     dx = torch.empty_like(x)
-    parts = -(-rows // ROWS_PER_PARTIAL)
-    part_w = torch.empty((parts, d), dtype=torch.float32, device=x.device)
-    part_b = torch.empty((parts, d), dtype=torch.float32, device=x.device)
     err = _build.library("ln_bwd_rows")(
-        x.data_ptr(), dln.data_ptr(), g.data_ptr(), gamma.data_ptr(), dx.data_ptr(),
-        part_w.data_ptr(), part_b.data_ptr(), rows, d, float(eps), None, None, None, 0, None,
-        _stream())
-    _launched("ln_bwd_rows", err)
+        x.data_ptr(), dln.data_ptr(), g.data_ptr(), gamma.data_ptr(), dx.data_ptr(), None,
+        part_w.data_ptr(), part_b.data_ptr(), None, rows, d, float(eps), 2 if g_f32 else 0,
+        None, None, None, 0, None, _stream())
+    _launched(key, err)
     return dx, part_w, part_b
+
+
+def ln_bwd_rows_f32_ref(y, dln, g, gamma, eps: float):
+    """Plain version of :func:`ln_bwd_rows_f32`; its partials are the full
+    column sums, shape (1, D)."""
+    dy, part_w, part_b = ln_bwd_rows_ref(y, dln, g, gamma, eps)
+    return dy, dy.to(g.dtype), part_w, part_b, dy.sum(0, keepdim=True)
+
+
+def ln_bwd_rows_f32(y: torch.Tensor, dln: torch.Tensor, g: torch.Tensor, gamma: torch.Tensor,
+                    eps: float):
+    """The merged layer's LN2 backward (Pallas ``_layer_bwd_kernel``
+    :206-208, :211, :215) on its fp32 mid residual y: dy = LN backward of
+    dln + g in fp32, (R, D). Returns dy, dy rounded to g's dtype (the next
+    GEMMs' operand), and the fp32 column partials of sum(dln * xhat),
+    sum(dln) and sum(dy) (dbo), (P, D) each. y, dln: (R, D) fp32; g: (R,
+    D); gamma: (D,). On CUDA g and gamma are bf16 (``ln_bwd_rows.f32``)."""
+    if _on_cpu(y, dln, g, gamma):
+        return ln_bwd_rows_f32_ref(y, dln, g, gamma, eps)
+    key = "ln_bwd_rows.f32"
+    rows, d, gamma, (part_w, part_b) = _check_ln_bwd(key, y, dln, g, gamma)
+    _require(y.dtype == torch.float32, f"{key}: y must be fp32")
+    _check_bf16(f"{key} g", g)
+    dy = torch.empty_like(y)
+    dy_b = torch.empty_like(g)
+    part_dy = torch.empty_like(part_w)
+    err = _build.library("ln_bwd_rows")(
+        y.data_ptr(), dln.data_ptr(), g.data_ptr(), gamma.data_ptr(), dy.data_ptr(),
+        dy_b.data_ptr(), part_w.data_ptr(), part_b.data_ptr(), part_dy.data_ptr(), rows, d,
+        float(eps), 1, None, None, None, 0, None, _stream())
+    _launched(key, err)
+    return dy, dy_b, part_w, part_b, part_dy
 
 
 def ln_bwd_rows_masked_ref(x, ds1, g, gamma, beta, mask, rowdot, eps: float):
@@ -251,27 +297,19 @@ def ln_bwd_rows_masked(x: torch.Tensor, ds1: torch.Tensor, g: torch.Tensor,
     if _on_cpu(x, ds1, g, gamma, beta, mask, rowdot):
         return ln_bwd_rows_masked_ref(x, ds1, g, gamma, beta, mask, rowdot, eps)
     key = "ln_bwd_rows.masked"
-    _require(x.dim() == 2 and ds1.shape == x.shape and g.shape == x.shape,
-             f"{key}: x, ds1 and g must be the same (R, D)")
-    rows, d = x.shape
-    _require(d % 8 == 0 and d <= 1024, f"{key}: D={d} must be a multiple of 8, <= 1024")
-    gamma, beta = gamma.reshape(-1), beta.reshape(-1)
-    _require(gamma.numel() == d and beta.numel() == d, f"{key}: gamma and beta need {d} values")
-    for name, t in (("x", x), ("g", g), ("gamma", gamma), ("beta", beta)):
+    rows, d, gamma, (part_w, part_b) = _check_ln_bwd(key, x, ds1, g, gamma)
+    beta = beta.reshape(-1)
+    _require(beta.numel() == d, f"{key}: beta needs {d} values")
+    for name, t in (("x", x), ("g", g), ("beta", beta)):
         _check_bf16(f"{key} {name}", t)
     mask = _rows_mask(key, mask, rows)
-    _require(ds1.dtype == torch.float32 and ds1.is_contiguous() and ds1.data_ptr() % 16 == 0,
-             f"{key}: ds1 must be contiguous, 16-byte aligned fp32")
     _require(rowdot.dtype == torch.float32 and rowdot.dim() == 2 and rowdot.shape[0] == rows
              and rowdot.is_contiguous(), f"{key}: rowdot must be contiguous fp32 ({rows}, P)")
     dx = torch.empty_like(x)
     dm = torch.empty(rows, dtype=torch.bfloat16, device=x.device)
-    parts = -(-rows // ROWS_PER_PARTIAL)
-    part_w = torch.empty((parts, d), dtype=torch.float32, device=x.device)
-    part_b = torch.empty((parts, d), dtype=torch.float32, device=x.device)
     err = _build.library("ln_bwd_rows")(
-        x.data_ptr(), ds1.data_ptr(), g.data_ptr(), gamma.data_ptr(), dx.data_ptr(),
-        part_w.data_ptr(), part_b.data_ptr(), rows, d, float(eps), mask.data_ptr(),
+        x.data_ptr(), ds1.data_ptr(), g.data_ptr(), gamma.data_ptr(), dx.data_ptr(), None,
+        part_w.data_ptr(), part_b.data_ptr(), None, rows, d, float(eps), 0, mask.data_ptr(),
         beta.data_ptr(), rowdot.data_ptr(), rowdot.shape[1], dm.data_ptr(), _stream())
     _launched(key, err)
     return dx, dm, part_w, part_b

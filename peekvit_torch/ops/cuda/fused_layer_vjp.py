@@ -1,0 +1,323 @@
+"""The merged trainable layer: autograd Functions over CUDA kernels
+(counterpart of peekvit_tpu/ops/pallas/fused_layer_vjp.py, sites 10-11).
+
+``layer_block_trainable`` is the whole pre-LN layer
+y = x + OutProj(MHSA(LN1(x))), out = y + fc2(gelu(fc1(LN2(y)))) with the
+Pallas numerics: two-pass LNs with affine (LN1 on the input, LN2 on the
+fp32 y), qkv rounded, the max-subtracted softmax normalised and rounded
+before PV, the fp32 mid residual y = attn Wo + bo + x, tanh-gelu, and one
+rounding of out = h W2 + b2 + y. The Pallas forward and backward kernels
+each run a whole image in one call; on Hopper each becomes a chain of
+launches (``peekvit_torch/csrc``)::
+
+    forward:  ln_rows -> gemm(+bias) -> attn_softmax_fwd -> gemm(+bias+x, fp32)
+              -> ln_rows.f32 -> gemm(+bias, gelu) -> gemm(+bias+y)
+    backward: the forward's first five again, gemm(gelu_hpre: h and the
+              fp32 hpre), then
+              MLP:  gemm_wgrad(h, g: dW2, db2) -> gemm_nt.gelu_grad(g W2^T:
+                    dhpre, db1 partials) -> gemm_wgrad(ln2, dhpre: dW1)
+                    -> gemm_nt.none_f32(dhpre W1^T) -> ln_bwd_rows.f32 (dy,
+                    its bf16 copy, dLN2 and dbo partials)
+              attn: gemm_wgrad(attn, dy: dWo) -> gemm_nt.none(dy Wo^T)
+                    -> attn_softmax_bwd -> gemm_wgrad(ln1, dqkv: dWqkv,
+                    dbqkv) -> gemm_nt.none_f32(dqkv Wqkv^T)
+                    -> ln_bwd_rows.g_f32 (dx, dLN1 partials)
+
+Seven launches forward and seventeen backward. As the Pallas VJP
+(``_trainable_fwd`` :309) the forward saves only x and the weights: the
+backward recomputes the layer, and the (B, N, M) fp32 hpre it needs for
+gelu' lives only inside one backward. Every weight gradient is a
+``gemm_wgrad`` product (the Pallas ``accum`` blocks, :189-263); every bias
+sum is taken over the fp32 values the Pallas kernel sums: db2 and dbqkv
+over the bf16 GEMM operands (``gemm_wgrad``'s column sums), db1 over the
+unrounded dhpre (the ``gelu_grad`` epilogue's partials) and dbo over the
+fp32 dy (``ln_bwd_rows.f32``'s partials). Only the sums over those (P, D)
+partials are torch ``.sum(0)``, as JAX sums its (8, k) blocks outside the
+kernel (``row0`` :365). Gradients come back in the weights' dtypes.
+
+``layer_block_hybrid`` has the same forward; its backward is torch
+autograd over :func:`_layer_plain`, the port of ``_layer_jnp`` (:397),
+as JAX hands that backward to XLA.
+
+The Pallas ``interpret`` and ``images_per_cell`` arguments are TPU grid
+knobs and are dropped. Dispatch follows ops/cuda/fused_attention.py: a
+wrapper runs its plain version (``*_ref``) for CPU tensors and launches
+its kernel (or raises) for CUDA tensors; the ``*_ref`` Functions are
+bound to the plain versions alone, whatever the device. Launches count
+into ``fused_attention.LAUNCHES``; ``gemm_wgrad`` counts its product
+under ``gemm_wgrad.<K>x<N>`` and each summing launch that follows a row
+split under ``gemm_wgrad.<K>x<N>.reduce`` (one for C, one more for the
+column sums), so the seventeen backward calls are 23 kernel launches at
+ViT-B/16 width.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from peekvit_torch.ops.cuda import _build
+from peekvit_torch.ops.cuda.fused_attention import (
+    _check_bf16,
+    _count,
+    _launched,
+    _on_cpu,
+    _require,
+    _stream,
+    gemm_bias_epilogue,
+    gemm_bias_epilogue_ref,
+    gemm_gelu_hpre,
+    gemm_gelu_hpre_ref,
+    gemm_nt,
+    gemm_nt_gelu_grad,
+    gemm_nt_gelu_grad_ref,
+    gemm_nt_ref,
+    ln_rows,
+    ln_rows_ref,
+)
+from peekvit_torch.ops.cuda.fused_attention_vjp import (
+    _ln_f32,
+    attn_softmax_bwd,
+    attn_softmax_bwd_ref,
+    attn_softmax_fwd,
+    attn_softmax_fwd_ref,
+    ln_bwd_rows,
+    ln_bwd_rows_f32,
+    ln_bwd_rows_f32_ref,
+    ln_bwd_rows_ref,
+)
+
+WGRAD_TILE = 128    # gemm_wgrad's C tile is 128 x 128
+WGRAD_ROWS = 32     # rows per pipeline stage; a split is a multiple of it
+WGRAD_BLOCKS = 264  # two blocks on each of the H100's 132 SMs
+
+
+# ------------------------------------------------------------------ gemm_wgrad
+
+
+def gemm_wgrad_ref(a, b, colsum: bool = False):
+    """Plain version of :func:`gemm_wgrad`."""
+    bf = b.float()
+    return torch.matmul(a.float().t(), bf), (bf.sum(0) if colsum else None)
+
+
+def wgrad_splits(rows: int, k: int, n: int) -> tuple[int, int]:
+    """(splits, rows per split) for gemm_wgrad: enough row splits that
+    the (k, n) tiles times the splits come near WGRAD_BLOCKS, each split
+    a multiple of WGRAD_ROWS rows and at least eight stages long."""
+    tiles = -(-k // WGRAD_TILE) * -(-n // WGRAD_TILE)
+    splits = max(1, min(-(-WGRAD_BLOCKS // tiles), rows // (8 * WGRAD_ROWS)))
+    per = -(-rows // splits)
+    per = max(WGRAD_ROWS, -(-per // WGRAD_ROWS) * WGRAD_ROWS)
+    return max(1, -(-rows // per)), per
+
+
+def gemm_wgrad(a: torch.Tensor, b: torch.Tensor, colsum: bool = False):
+    """C = a^T @ b in fp32, the reduction over the rows (the merged layer's
+    weight gradients, Pallas ``_layer_bwd_kernel``'s ``accum`` products).
+    a: (R, K), b: (R, N). Returns C (K, N) fp32 and, with ``colsum``, the
+    fp32 column sums of b (N,) (db2, dbqkv), else None. The rows are split
+    across blocks and the fp32 partials summed by a second pass in a fixed
+    order: reruns give the same bits. On CUDA a and b are bf16, K and N
+    multiples of 8. Counted as ``gemm_wgrad.<K>x<N>``, and its summing
+    launches as ``gemm_wgrad.<K>x<N>.reduce``."""
+    if _on_cpu(a, b):
+        return gemm_wgrad_ref(a, b, colsum)
+    _require(a.dim() == 2 and b.dim() == 2 and a.shape[0] == b.shape[0],
+             f"gemm_wgrad: a {tuple(a.shape)} and b {tuple(b.shape)} must share their rows")
+    rows, k = a.shape
+    n = b.shape[1]
+    key = f"gemm_wgrad.{k}x{n}"
+    _require(k % 8 == 0 and n % 8 == 0, f"{key}: K={k} and N={n} must be multiples of 8")
+    _check_bf16(f"{key} a", a)
+    _check_bf16(f"{key} b", b)
+    splits, per = wgrad_splits(rows, k, n)
+    c = torch.empty((k, n), dtype=torch.float32, device=a.device)
+    sums = torch.empty(n, dtype=torch.float32, device=a.device) if colsum else None
+    work = (torch.empty(splits * (k * n + n), dtype=torch.float32, device=a.device)
+            if splits > 1 else None)
+    err = _build.library("gemm_wgrad")(
+        a.data_ptr(), b.data_ptr(), c.data_ptr(), None if sums is None else sums.data_ptr(),
+        None if work is None else work.data_ptr(), rows, k, n, per, splits, _stream())
+    _launched(key, err)
+    if splits > 1:  # the summing pass: C, then the column sums
+        for _ in range(1 + colsum):
+            _count(f"{key}.reduce")
+    return c, sums
+
+
+# ------------------------------------------------------------ the merged layer
+
+
+class _Ops(NamedTuple):
+    """The functions one merged layer calls: the kernel wrappers, or their
+    plain versions."""
+    ln: Callable
+    gemm: Callable
+    gemm_hpre: Callable
+    gemm_t: Callable
+    gemm_t_gelu: Callable
+    wgrad: Callable
+    attn_fwd: Callable
+    attn_bwd: Callable
+    ln_bwd: Callable
+    ln_bwd_f32: Callable
+
+
+def _layer_head(ops, x2, lns1, lnb1, w_qkv, b_qkv, w_out, b_out, lns2, lnb2, num_heads, eps,
+                rows_shape):
+    """LN1 -> qkv -> attention -> y (fp32) -> LN2, shared by the forward
+    and the backward's recompute."""
+    b, n, d = rows_shape
+    ln1 = ops.ln(x2, lns1, lnb1, eps)
+    qkv = ops.gemm(ln1, w_qkv, b_qkv, "bias").reshape(b, n, 3 * d)
+    attn = ops.attn_fwd(qkv, num_heads).reshape(b * n, d)
+    y = ops.gemm(attn, w_out, b_out, "residual_f32", residual=x2)
+    ln2 = ops.ln(y, lns2, lnb2, eps, out_dtype=x2.dtype)
+    return ln1, qkv, attn, y, ln2
+
+
+def _layer_forward(ops, x, lns1, lnb1, w_qkv, b_qkv, w_out, b_out, lns2, lnb2, w1, b1, w2, b2,
+                   num_heads, eps):
+    x2 = x.reshape(-1, x.shape[-1])
+    *_, y, ln2 = _layer_head(ops, x2, lns1, lnb1, w_qkv, b_qkv, w_out, b_out, lns2, lnb2,
+                             num_heads, eps, x.shape)
+    h = ops.gemm(ln2, w1, b1, "gelu")
+    return ops.gemm(h, w2, b2, "residual", residual=y).reshape(x.shape)
+
+
+def _layer_backward(ops, g, x, lns1, lnb1, w_qkv, b_qkv, w_out, b_out, lns2, lnb2, w1, b1, w2,
+                    b2, num_heads, eps):
+    """dx and the twelve parameter grads (``_trainable_bwd`` :317)."""
+    b, n, d = x.shape
+    x2 = x.reshape(b * n, d)
+    g2 = g.reshape(b * n, d).to(x.dtype).contiguous()
+    ln1, qkv, attn, y, ln2 = _layer_head(ops, x2, lns1, lnb1, w_qkv, b_qkv, w_out, b_out, lns2,
+                                         lnb2, num_heads, eps, x.shape)
+    h, hpre = ops.gemm_hpre(ln2, w1, b1)
+
+    # MLP backward (out = h W2 + b2 + y)
+    dw2, db2 = ops.wgrad(h, g2, colsum=True)
+    del h
+    dhpre, db1_parts = ops.gemm_t_gelu(g2, w2, hpre)
+    del hpre
+    dw1, _ = ops.wgrad(ln2, dhpre)
+    dln2 = ops.gemm_t(dhpre, w1, "none_f32")
+    del dhpre, ln2
+    dy, dy_b, dlns2_parts, dlnb2_parts, dbo_parts = ops.ln_bwd_f32(y, dln2, g2, lns2, eps)
+    del y, dln2
+
+    # attention backward (y = attn Wo + bo + x) with cotangent dy
+    dwo, _ = ops.wgrad(attn, dy_b)
+    dattn = ops.gemm_t(dy_b, w_out, "none")
+    del attn, dy_b
+    dqkv = ops.attn_bwd(qkv, dattn.reshape(b, n, d), num_heads).reshape(b * n, 3 * d)
+    del qkv, dattn
+    dwqkv, dbqkv = ops.wgrad(ln1, dqkv, colsum=True)
+    dln1 = ops.gemm_t(dqkv, w_qkv, "none_f32")
+    del dqkv
+    dx, dlns1_parts, dlnb1_parts = ops.ln_bwd(x2, dln1, dy, lns1, eps)
+
+    def row0(parts, like):
+        return parts.sum(0).to(like.dtype).reshape(like.shape)
+
+    return (dx.reshape(b, n, d), row0(dlns1_parts, lns1), row0(dlnb1_parts, lnb1),
+            dwqkv.to(w_qkv.dtype), dbqkv.to(b_qkv.dtype).reshape(b_qkv.shape),
+            dwo.to(w_out.dtype), row0(dbo_parts, b_out), row0(dlns2_parts, lns2),
+            row0(dlnb2_parts, lnb2), dw1.to(w1.dtype), row0(db1_parts, b1),
+            dw2.to(w2.dtype), db2.to(b2.dtype).reshape(b2.shape))
+
+
+def _layer_plain(x, lns1, lnb1, w_qkv, b_qkv, w_out, b_out, lns2, lnb2, w1, b1, w2, b2,
+                 num_heads, eps):
+    """Differentiable torch replica of the layer (``_layer_jnp`` :397):
+    fp32 LNs and residuals, matmuls in the operands' dtype, the qkv and
+    the attention output rounded, the hybrid backward's recompute."""
+    dt = x.dtype
+    b, n, d = x.shape
+    hd = d // num_heads
+    ln1, _, _ = _ln_f32(x.reshape(b * n, d), lns1.float(), lnb1.float(), eps)
+    qkv = ((ln1.reshape(b, n, d).to(dt) @ w_qkv).float() + b_qkv.float()).to(dt)
+    q, k, v = (qkv[..., i * d:(i + 1) * d].reshape(b, n, num_heads, hd).transpose(1, 2)
+               for i in range(3))
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (1.0 / hd ** 0.5)
+    s = torch.softmax(logits, dim=-1)
+    attn = torch.matmul(s.to(dt).float(), v.float()).to(dt).transpose(1, 2).reshape(b, n, d)
+    y = (attn @ w_out).float() + b_out.float() + x.float()
+    ln2, _, _ = _ln_f32(y.reshape(b * n, d), lns2.float(), lnb2.float(), eps)
+    hpre = (ln2.reshape(b, n, d).to(dt) @ w1).float() + b1.float()
+    h = F.gelu(hpre, approximate="tanh").to(dt)
+    return ((h @ w2).float() + b2.float() + y).to(dt)
+
+
+class _LayerBlock(torch.autograd.Function):
+    """Forward saves x and the weights only (``_trainable_fwd`` :309). The
+    backward is ``_trainable_bwd`` on the kernels, or with ``hybrid``
+    torch autograd over :func:`_layer_plain` (``_hybrid_bwd`` :453)."""
+
+    @staticmethod
+    def forward(ctx, ops, hybrid, x, *rest):
+        *params, num_heads, eps = rest
+        x = x.contiguous()
+        out = _layer_forward(ops, x, *params, num_heads, eps)
+        ctx.ops, ctx.hybrid, ctx.num_heads, ctx.eps = ops, hybrid, num_heads, eps
+        ctx.save_for_backward(x, *params)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        if ctx.hybrid:
+            with torch.enable_grad():
+                leaves = [t.detach().requires_grad_() for t in saved]
+                out = _layer_plain(*leaves, ctx.num_heads, ctx.eps)
+                grads = torch.autograd.grad(out, leaves, g)
+        else:
+            grads = _layer_backward(ctx.ops, g, *saved, ctx.num_heads, ctx.eps)
+        return (None, None, *grads, None, None)
+
+
+_KERNELS = _Ops(ln=ln_rows, gemm=gemm_bias_epilogue, gemm_hpre=gemm_gelu_hpre, gemm_t=gemm_nt,
+                gemm_t_gelu=gemm_nt_gelu_grad, wgrad=gemm_wgrad, attn_fwd=attn_softmax_fwd,
+                attn_bwd=attn_softmax_bwd, ln_bwd=ln_bwd_rows, ln_bwd_f32=ln_bwd_rows_f32)
+_PLAIN = _Ops(ln=ln_rows_ref, gemm=gemm_bias_epilogue_ref, gemm_hpre=gemm_gelu_hpre_ref,
+              gemm_t=gemm_nt_ref, gemm_t_gelu=gemm_nt_gelu_grad_ref, wgrad=gemm_wgrad_ref,
+              attn_fwd=attn_softmax_fwd_ref, attn_bwd=attn_softmax_bwd_ref, ln_bwd=ln_bwd_rows_ref,
+              ln_bwd_f32=ln_bwd_rows_f32_ref)
+
+
+def layer_block_trainable(x, lns1, lnb1, w_qkv, b_qkv, w_out, b_out, lns2, lnb2, w1, b1, w2,
+                          b2, num_heads: int, eps: float = 1e-5) -> torch.Tensor:
+    """Differentiable merged pre-LN layer (Pallas ``layer_block_trainable``,
+    :297): y = x + OutProj(MHSA(LN1(x))); out = y + fc2(gelu(fc1(LN2(y)))).
+    x: (B, N, D); kernels in the (in, out) layout, (D, 3D), (D, D), (D, M),
+    (M, D). Seven launches forward, seventeen backward; the backward emits
+    dx and all twelve parameter gradients. On CUDA every tensor is bf16,
+    head dim 64."""
+    return _LayerBlock.apply(_KERNELS, False, x, lns1, lnb1, w_qkv, b_qkv, w_out, b_out, lns2,
+                             lnb2, w1, b1, w2, b2, num_heads, eps)
+
+
+def layer_block_trainable_ref(x, lns1, lnb1, w_qkv, b_qkv, w_out, b_out, lns2, lnb2, w1, b1,
+                              w2, b2, num_heads: int, eps: float = 1e-5) -> torch.Tensor:
+    """:func:`layer_block_trainable` on the plain versions alone."""
+    return _LayerBlock.apply(_PLAIN, False, x, lns1, lnb1, w_qkv, b_qkv, w_out, b_out, lns2,
+                             lnb2, w1, b1, w2, b2, num_heads, eps)
+
+
+def layer_block_hybrid(x, lns1, lnb1, w_qkv, b_qkv, w_out, b_out, lns2, lnb2, w1, b1, w2, b2,
+                       num_heads: int, eps: float = 1e-5) -> torch.Tensor:
+    """The merged forward of :func:`layer_block_trainable` with a torch
+    autograd backward over the recomputed layer (Pallas
+    ``layer_block_hybrid``, :434). Seven launches forward."""
+    return _LayerBlock.apply(_KERNELS, True, x, lns1, lnb1, w_qkv, b_qkv, w_out, b_out, lns2,
+                             lnb2, w1, b1, w2, b2, num_heads, eps)
+
+
+def layer_block_hybrid_ref(x, lns1, lnb1, w_qkv, b_qkv, w_out, b_out, lns2, lnb2, w1, b1, w2,
+                           b2, num_heads: int, eps: float = 1e-5) -> torch.Tensor:
+    """:func:`layer_block_hybrid` with its forward on the plain versions."""
+    return _LayerBlock.apply(_PLAIN, True, x, lns1, lnb1, w_qkv, b_qkv, w_out, b_out, lns2,
+                             lnb2, w1, b1, w2, b2, num_heads, eps)

@@ -13,10 +13,12 @@ in fp32.
 fp32 plain torch and their gradients flowing back through the block's
 mask cotangent.
 
-Only the SPLIT path is ported (attention kernel + eager MLP, the JAX
-default and its measured best). The merged layer VJP (``merged=True``) and
-``"hybrid"`` are the JAX package's measured negatives and raise
-``NotImplementedError`` (ROADMAP.md port queue B item 14).
+``merged=True`` runs each layer through the merged layer VJP
+(``layer_block_trainable``, ops/cuda/fused_layer_vjp.py: the whole layer
+forward and backward on CUDA kernels, every weight gradient included) and
+``merged="hybrid"`` through its merged forward with a torch backward
+(``layer_block_hybrid``); the JAX package keeps both as measured
+negatives of the split path (its default, ``merged="auto"``).
 """
 
 from __future__ import annotations
@@ -36,6 +38,12 @@ from peekvit_torch.ops.cuda.fused_attention_vjp import (
     masked_attention_block_trainable,
     masked_attention_block_trainable_ref,
 )
+from peekvit_torch.ops.cuda.fused_layer_vjp import (
+    layer_block_hybrid,
+    layer_block_hybrid_ref,
+    layer_block_trainable,
+    layer_block_trainable_ref,
+)
 
 __all__ = ["make_fused_train_step", "residual_forward_fn", "residualvit_forward_trainable",
            "sample_budgets", "trainable_forward_fn", "vit_forward_trainable"]
@@ -50,25 +58,33 @@ def vit_forward_trainable(params, images, *, patch_size: int, num_heads: int,
     (``models.adapters.live_params``). images: (B, H, W, 3). Returns fp32
     logits. No dropout paths: the reference ViT configs train with 0.0.
 
+    - ``merged`` (fused.py:80-95): ``"auto"`` / False the split path
+      (the attention block + an eager MLP), True the merged layer VJP,
+      ``"hybrid"`` the merged forward with a torch backward. On the card
+      the merged layers take bf16 only (fp32 is ROADMAP.md port queue B
+      item 15).
     - ``save_qkv="auto"`` means ``not remat`` (fused.py:97-105): the
       backward reads the forward's qkv instead of recomputing it.
-    - ``remat=True`` checkpoints each layer
+    - ``remat=True`` checkpoints each split-path layer
       (``torch.utils.checkpoint``, non-reentrant): the backward re-runs the
-      layer's forward and then the recompute backward.
-    - The MLP is LN -> fc1 -> tanh-gelu -> fc2 -> residual, as fused.py:116-121
-      (``jax.nn.gelu``'s default is the tanh form; the model's own MLP,
-      ops/mlp.py, keeps erf like linen).
-    - ``plain=True`` runs the attention block on its plain versions
-      whatever the device: the reference the kernels are held against on
-      the card.
+      layer's forward and then the recompute backward. The merged
+      backward already recomputes the layer, so it is a no-op there.
+    - The split MLP is LN -> fc1 -> tanh-gelu -> fc2 -> residual, as
+      fused.py:116-121 (``jax.nn.gelu``'s default is the tanh form; the
+      model's own MLP, ops/mlp.py, keeps erf like linen).
+    - ``plain=True`` runs the blocks on their plain versions whatever the
+      device: the reference the kernels are held against on the card.
     """
-    if merged not in ("auto", False):
+    if merged not in ("auto", False, True, "hybrid"):
+        raise ValueError(f"merged must be 'auto', False, True or 'hybrid', got {merged!r}")
+    if merged == "auto":
+        merged = False  # the split path, JAX's measured best
+    if merged and images.is_cuda and compute_dtype != torch.bfloat16:
         raise NotImplementedError(
-            f"merged={merged!r} (the merged layer VJP, fused_layer_vjp.py) is not ported: "
-            "ROADMAP.md port queue B item 14; the split path (merged='auto') is")
+            "the merged layer's CUDA kernels take bf16 only; fp32 on the card is ROADMAP.md "
+            "port queue B item 15 (fp32 on CUDA)")
     if save_qkv == "auto":
         save_qkv = not remat
-    block = attention_block_trainable_ref if plain else attention_block_trainable
 
     def cast(t):
         return t.to(compute_dtype)
@@ -76,6 +92,25 @@ def vit_forward_trainable(params, images, *, patch_size: int, num_heads: int,
     tokens, _ = _embed(params, images, patch_size, num_class_tokens, num_registers, cast)
     enc = params["encoder"]
     tokens = tokens + cast(enc["pos_embedding"])
+
+    if merged:
+        if merged == "hybrid":
+            merged_block = layer_block_hybrid_ref if plain else layer_block_hybrid
+        else:
+            merged_block = layer_block_trainable_ref if plain else layer_block_trainable
+        for i in _layer_ids(enc):
+            lp = enc[f"layers_{i}"]
+            at, mlp = lp["self_attention"], lp["mlp"]
+            tokens = merged_block(
+                tokens, cast(lp["ln_1"]["scale"]), cast(lp["ln_1"]["bias"]),
+                cast(at["in_proj_kernel"]), cast(at["in_proj_bias"]),
+                cast(at["out_proj_kernel"]), cast(at["out_proj_bias"]),
+                cast(lp["ln_2"]["scale"]), cast(lp["ln_2"]["bias"]),
+                cast(mlp["fc1_kernel"]), cast(mlp["fc1_bias"]),
+                cast(mlp["fc2_kernel"]), cast(mlp["fc2_bias"]), num_heads, ln_eps)
+        return _classify(params, tokens, num_class_tokens, cast, ln_eps)
+
+    block = attention_block_trainable_ref if plain else attention_block_trainable
 
     def layer(tokens, lp):
         at = lp["self_attention"]
@@ -208,7 +243,8 @@ def make_fused_train_step(model, optimizer: torch.optim.Optimizer,
     """``step(x, y) -> loss`` for a plain ViT on the fused path: forward,
     mean cross-entropy, backward, ``optimizer.step()``. The model's
     parameters (those ``optimizer`` holds) are updated in place, where the
-    JAX step returns new params and opt state."""
+    JAX step returns new params and opt state. ``merged``, ``remat`` and
+    ``save_qkv`` as :func:`vit_forward_trainable`."""
     params = live_params(model)
     fwd = trainable_forward_fn(model, compute_dtype=compute_dtype, remat=remat,
                                merged=merged, save_qkv=save_qkv)

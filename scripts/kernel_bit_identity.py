@@ -1,0 +1,147 @@
+"""Holds the port's older CUDA kernel modes bit for bit against the same
+modes built from another checkout of the repo (normally the parent commit).
+
+A change that adds a mode to a kernel source (a template argument, a new
+operand type) must leave the modes that were there giving the same bits.
+The tolerance checks in chip_smoke.py hold a kernel against its plain
+version and would not catch a drift inside that tolerance; this script
+does. It needs one NVIDIA card and nvcc. Usage::
+
+    mkdir -p workspace/parent
+    git archive <parent commit> | tar -x -C workspace/parent
+    python3 scripts/kernel_bit_identity.py --other workspace/parent
+
+For each checkout (this one, then --other) a child process imports that
+checkout's ``peekvit_torch``, builds its kernels into that checkout's
+``build/``, runs every mode below on the same seeded inputs (drawn on the
+card from one seed), and prints a SHA-256 of each output's bytes and the
+launch counts. The parent process prints one JSON line per mode and a
+summary line, and exits 1 if any mode differs or did not launch its kernel.
+
+Modes: ``ln_rows`` (bf16), ``gemm_bias_epilogue`` (bias, gelu,
+residual_f32, residual with an fp32 and a bf16 residual), ``gemm_nt``
+(none, none_f32), ``attn_softmax_fwd`` (packed qkv), ``ln_bwd_rows``
+(bf16 g) and ``ln_bwd_rows_masked``, at ViT-B/16 bs256 shapes and at a
+small ragged shape.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# name -> (images, tokens, width, heads, mlp width)
+SHAPES = {"vit_b16_bs256": (256, 197, 768, 12, 3072), "ragged": (3, 50, 128, 2, 256)}
+EPS = 1e-6
+
+
+def _digest(t) -> str:
+    import torch
+
+    raw = t.detach().contiguous().view(-1).view(torch.uint8).cpu()
+    return hashlib.sha256(raw.numpy().tobytes()).hexdigest()
+
+
+def child(root: str) -> dict:
+    """Runs every mode on the checkout at ``root``; returns
+    {mode: {"sha256": [...], "launches": {...}}}."""
+    root = os.path.realpath(root)
+    sys.path.insert(0, root)
+    import torch
+
+    import peekvit_torch
+    from peekvit_torch.ops.cuda import fused_attention as fa
+    from peekvit_torch.ops.cuda import fused_attention_vjp as vjp
+
+    here = os.path.realpath(os.path.dirname(peekvit_torch.__file__))
+    if not here.startswith(root + os.sep):
+        raise RuntimeError(f"imported peekvit_torch from {here}, not from {root}")
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    out = {}
+    for tag, (b, n, d, h, m) in SHAPES.items():
+        gen = torch.Generator(device=dev).manual_seed(7)
+
+        def randn(*shape, scale=1.0, dtype=bf16):
+            return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+        rows = b * n
+        x = randn(rows, d, scale=1.5)
+        scale, shift = randn(d, scale=0.2) + 1, randn(d, scale=0.1)
+        w1, b1 = randn(d, m, scale=0.03), randn(m, scale=0.1)
+        wo, bo = randn(d, d, scale=0.03), randn(d, scale=0.1)
+        res_f32 = randn(rows, d, dtype=torch.float32)
+        res_bf16 = randn(rows, d)
+        a_nt, w_nt = randn(rows, d), randn(m, d, scale=0.03)
+        qkv = randn(b, n, 3 * d)
+        dln, g = randn(rows, d, scale=0.05, dtype=torch.float32), randn(rows, d, scale=0.05)
+        mask = (torch.rand(rows, generator=gen, device=dev) > 0.3).to(bf16)
+        rowdot = randn(rows, 3, scale=0.05, dtype=torch.float32)
+        modes = {
+            "ln_rows": lambda: fa.ln_rows(x, scale, shift, EPS),
+            "gemm_bias_epilogue.bias": lambda: fa.gemm_bias_epilogue(x, w1, b1, "bias"),
+            "gemm_bias_epilogue.gelu": lambda: fa.gemm_bias_epilogue(x, w1, b1, "gelu"),
+            "gemm_bias_epilogue.residual_f32": lambda: fa.gemm_bias_epilogue(
+                x, wo, bo, "residual_f32", residual=res_bf16),
+            "gemm_bias_epilogue.residual": lambda: fa.gemm_bias_epilogue(
+                x, wo, bo, "residual", residual=res_f32),
+            "gemm_bias_epilogue.residual.bf16_residual": lambda: fa.gemm_bias_epilogue(
+                x, wo, bo, "residual", residual=res_bf16),
+            "gemm_nt.none": lambda: fa.gemm_nt(a_nt, w_nt, "none"),
+            "gemm_nt.none_f32": lambda: fa.gemm_nt(a_nt, w_nt, "none_f32"),
+            "attn_softmax_fwd": lambda: vjp.attn_softmax_fwd(qkv, h),
+            "ln_bwd_rows": lambda: vjp.ln_bwd_rows(x, dln, g, scale, EPS),
+            "ln_bwd_rows.masked": lambda: vjp.ln_bwd_rows_masked(x, dln, g, scale, shift, mask,
+                                                                 rowdot, EPS),
+        }
+        for name, fn in modes.items():
+            fa.reset_launch_counts()
+            with torch.inference_mode():
+                got = fn()
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            out[f"{tag}/{name}"] = {"sha256": [_digest(t) for t in got],
+                                    "launches": dict(fa.LAUNCHES)}
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--other", help="root of the checkout to compare with (the parent)")
+    ap.add_argument("--child", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.child:
+        print(json.dumps(child(args.child)))
+        return 0
+    if not args.other:
+        ap.error("--other is required")
+    runs = {}
+    for label, root in (("this", REPO), ("other", args.other)):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", root],
+                              capture_output=True, text=True, cwd=root, timeout=900)
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-8000:], file=sys.stderr)
+            raise SystemExit(f"{label} checkout ({root}) failed with exit {proc.returncode}")
+        runs[label] = json.loads(proc.stdout.strip().splitlines()[-1])
+    failed = []
+    for mode, this in runs["this"].items():
+        other = runs["other"].get(mode)
+        same = other is not None and this["sha256"] == other["sha256"]
+        launched = sum(this["launches"].values()) > 0 and other is not None and sum(
+            other["launches"].values()) > 0
+        print(json.dumps({"mode": mode, "bit_identical": same, "outputs": len(this["sha256"]),
+                          "launches": this["launches"],
+                          "other_launches": None if other is None else other["launches"]}))
+        if not (same and launched):
+            failed.append(mode)
+    print(json.dumps({"modes": len(runs["this"]), "differ_or_not_launched": failed}))
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -68,7 +68,7 @@ def test_import_builds_nothing():
     assert _build._libs == {}
     assert _build.SOURCES == ("norm_rows", "gemm_bias_epilogue", "attn_scores_pv",
                               "attn_softmax_fwd", "attn_softmax_bwd", "ln_bwd_rows",
-                              "quant_rows", "gemm_s8_epilogue", "arpe_tokens")
+                              "quant_rows", "gemm_s8_epilogue", "arpe_tokens", "gemm_wgrad")
     assert set(_build._SIGNATURES) == set(_build.SOURCES)
     for name in _build.SOURCES:
         assert os.path.exists(os.path.join(_build.CSRC, name + ".cu"))
