@@ -184,7 +184,29 @@ prints no final result):
    the grad guard and the fp32 guard raise; fused_mhsa and
    fused_attention at (256, 197, 768) against their plain versions, timed
    beside SDPA;
-32. the {"kernels": [...]} line, then the card's nvidia-smi line, then
+32. tensor-parallel kernel checks at ViT-B/16 widths: the GEMM epilogue
+   partial_f32 at the four partial shapes (out-projection and fc2 for
+   n_model 2 and 4) and GEMM bias at N = 576; sites 25-28
+   (tp_attention_partial, tp_masked_attention_partial,
+   tp_masked_mlp_partial, tp_mlp_partial) on layer 0's shard-0 slices of
+   the seeded models, cut by the port's prepare functions, for n_model 2
+   and 4 at 8 and 256 images, against their plain versions; the Megatron
+   identity (every shard's partials summed, plus bias and residual, against
+   the single-device layer on the kernels) at 8 images;
+33. tensor-parallel serving: n_model ranks (2, then 4), one spawned process
+   each, all on cuda:0 over a gloo group (n_data 1; every library built
+   before the first rank starts), serve ViT-B/16, RankViT-B/16 (0.5 and
+   1.0), ResidualViT-B/16 (0.5) and the EE ResidualViT at
+   configs/model/eeresidualvit.yaml's widths (its exit tuple) at 8 images
+   through InferenceEngine(mesh=make_mesh(1, n_model)): counts zeroed just
+   before each forward and read just after (7 launches per layer on every
+   rank), every rank's outputs bit-identical, logits against the
+   single-device engine (bf16 3e-2, top-1 on decided images); the ViT-B/16
+   TP forward per rank at 1 and 8 images beside the single-device engine
+   (gloo through the host: not NCCL across cards); each partial and
+   partial_f32 timed per shard at 8 and 256 images beside its bound, plain
+   version and a PyTorch yardstick;
+34. the {"kernels": [...]} line, then the card's nvidia-smi line, then
    {"ok": true, "device": {...}} as the last line.
 
 Imports nothing of JAX or of peekvit_tpu.
@@ -649,14 +671,14 @@ def residual_kernel_checks(torch, fa, check, randn, w_out, b_out, d, h) -> dict:
     return ins
 
 
-def seeded_residual_model(torch, name: str):
-    """build_model(name, ResidualViT-B/16, seed=0) on the card with its head
-    and class token re-drawn at std 0.02 (zero-initialised, they would make
-    every logit 0), and any early-exit heads re-drawn the same way, so that
-    every output has the final logits' scale."""
+def seeded_residual_model(torch, name: str, args=None):
+    """build_model(name, ResidualViT-B/16 or ``args``, seed=0) on the card
+    with its head and class token re-drawn at std 0.02 (zero-initialised,
+    they would make every logit 0), and any early-exit heads re-drawn the
+    same way, so that every output has the final logits' scale."""
     from peekvit_torch import build_model
 
-    model = build_model(name, RESIDUALVIT_B16, seed=0, device=DEVICE)
+    model = build_model(name, args or RESIDUALVIT_B16, seed=0, device=DEVICE)
     cpu_gen = torch.Generator().manual_seed(1)
     kernels = [model.head.kernel, model.class_tokens] + [
         p for k, p in model.named_parameters() if k.startswith("encoder.early_exit_heads_")
@@ -3539,6 +3561,496 @@ def module_path_phases(torch, F, fa, dev, smi, check, checks, qkv, q, k, v, d, h
     return {"counts": totals, "entry": entry, "alone": sep_counts, "mhsa": alone["fused_mhsa"]}
 
 
+REPLACES_TP = "peekvit_tpu/ops/pallas/tp_blocks.py"
+TP_MODELS = (2, 4)                  # model-axis sizes: ranks on one card
+TP_SHAPE_BATCHES = (8, 256)         # the partials' checks and timings
+TP_REQUEST = 8                      # the TP engines' checked request
+TP_TIMING_BATCHES = (1, 8)          # the TP forward's timed batches
+TP_TIMING_ITERS = 10
+TP_JOIN_TIMEOUT = 400.0             # seconds for every rank of one spawn
+# configs/model/eeresidualvit.yaml at image 224 and 1000 classes
+EE_YAML = dict(image_size=224, patch_size=8, hidden_dim=256, mlp_dim=768, num_layers=4,
+               num_heads=4, num_classes=1000, residual_layers=["attention+mlp"] * 4,
+               gate_temp=1, add_input=False, gate_type="sigmoid", gate_threshold=0.5,
+               gate_bias=0, add_budget_token="learnable", attention_dropout=0.0, dropout=0.0)
+TP_RUNS = (("vit", (None,)), ("rankvit", (0.5, 1.0)), ("residualvit", (0.5,)),
+           ("eeresidualvit", (0.5,)))
+# Launches per layer of one TP forward on each rank: the attention
+# partial (norm, qkv GEMM, attention, partial_f32 GEMM) and the MLP
+# partial (norm, fc1 GEMM, partial_f32 GEMM); every norm reads bf16 tokens.
+TP_PER_LAYER = {"norm_rows.bf16": 2, "gemm_bias_epilogue.bias": 1, "attn_scores_pv": 1,
+                "gemm_bias_epilogue.gelu": 1, "gemm_bias_epilogue.partial_f32": 2}
+TP_RES_PER_LAYER = dict({"norm_rows.masked.bf16": 2},
+                        **{k: v for k, v in TP_PER_LAYER.items() if k != "norm_rows.bf16"})
+TP_SITES = {  # composition -> (site, Pallas line, launches per call)
+    "tp_attention_partial": (25, 91, 4), "tp_masked_attention_partial": (26, 173, 4),
+    "tp_masked_mlp_partial": (27, 231, 3), "tp_mlp_partial": (28, 277, 3)}
+
+
+def tp_model(torch, name: str):
+    """The seeded model of a TP run on the card: ViT-B/16 and RankViT-B/16
+    as in phases 4 and 16, ResidualViT-B/16 as in phase 10, the EE
+    ResidualViT at configs/model/eeresidualvit.yaml's widths (heads, class
+    token and exit heads re-drawn at std 0.02). The same bits in every
+    process: the weights come from seeded CPU generators."""
+    from peekvit_torch import build_model
+
+    if name in ("residualvit", "eeresidualvit"):
+        return seeded_residual_model(torch, name, EE_YAML if name == "eeresidualvit" else None)
+    model = build_model(name, B16 if name == "vit" else RANKVIT_B16, seed=0, device=DEVICE)
+    cpu_gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        model.head.kernel.copy_(torch.randn(model.head.kernel.shape, generator=cpu_gen) * 0.02)
+        model.class_tokens.copy_(torch.randn(model.class_tokens.shape, generator=cpu_gen) * 0.02)
+    return model
+
+
+def tp_images(torch, batch: int):
+    """A TP request: seeded on the CPU, so every process draws the same."""
+    gen = torch.Generator().manual_seed(33 + batch)
+    size = B16["image_size"]
+    return torch.randn(batch, size, size, 3, generator=gen).to(DEVICE)
+
+
+def tp_rank(rank: int, world: int, rdzv: str, out_dir: str) -> None:
+    """Phase 33, one rank of a pure-TP mesh (n_data 1, n_model = world) on
+    cuda:0 over gloo: every run of TP_RUNS at TP_REQUEST images (launch
+    counts zeroed just before each forward and read just after), then the
+    ViT-B/16 TP forward timed at TP_TIMING_BATCHES (host clock around
+    TP_TIMING_ITERS forwards ending in a synchronize, after a warm-up and a
+    barrier). Writes rank<r>.pt into out_dir."""
+    import torch
+    import torch.distributed as dist
+
+    from peekvit_torch import InferenceEngine
+    from peekvit_torch.ops.cuda import fused_attention as fa
+    from peekvit_torch.parallel import make_mesh
+    from peekvit_torch.parallel.tp_serving import make_tp_vit_forward
+
+    dist.init_process_group("gloo", init_method=f"file://{rdzv}", world_size=world, rank=rank)
+    try:
+        mesh = make_mesh(n_data=1, n_model=world, device=DEVICE)  # cuda:0 on one card
+        res = {"device": str(mesh.device), "logits": {}, "counts": {}, "ms": {}, "kept": {}}
+        images = {b: tp_images(torch, b) for b in set(TP_TIMING_BATCHES) | {TP_REQUEST}}
+        for name, budgets in TP_RUNS:
+            model = tp_model(torch, name)
+            engine = InferenceEngine(model, device=DEVICE, mesh=mesh,
+                                     ee_outputs=name == "eeresidualvit")
+            for budget in budgets:
+                key = f"{name}/{budget}"
+                fa.reset_launch_counts()
+                out = engine(images[TP_REQUEST], budget=budget)
+                torch.cuda.synchronize()
+                res["counts"][key] = dict(fa.LAUNCHES)
+                res["logits"][key] = [t.cpu() for t in (out if isinstance(out, tuple) else (out,))]
+                if name == "rankvit" and budget < 1.0:
+                    # the same forward again, uncounted, for its kept indices
+                    kept = {}
+                    again = make_tp_vit_forward(
+                        mesh, num_heads=model.num_heads, patch_size=model.patch_size,
+                        num_class_tokens=model.num_class_tokens, ln_eps=model.ln_eps,
+                        rank_layers=model.rankvit_layers, budget=budget,
+                        kept_out=kept)(engine.params, images[TP_REQUEST])
+                    if not torch.equal(again, out):
+                        raise AssertionError(f"TP {key}: a rerun gave other logits")
+                    res["kept"][key] = {li: idx.cpu() for li, idx in kept.items()}
+            if name == "vit":
+                for b in TP_TIMING_BATCHES:
+                    engine(images[b])
+                    torch.cuda.synchronize()
+                    dist.barrier()
+                    t0 = time.perf_counter()
+                    for _ in range(TP_TIMING_ITERS):
+                        engine(images[b])
+                    torch.cuda.synchronize()
+                    res["ms"][b] = (time.perf_counter() - t0) / TP_TIMING_ITERS * 1e3
+            del engine, model
+        torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(torch, fn, world: int, args: tuple, timeout: float) -> None:
+    """Runs fn(rank, *args) in ``world`` spawned processes (no CUDA context
+    is forked) and joins them: a rank's exception fails the phase, and ranks
+    still running at the deadline are killed and fail it too."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(fn, args=args, nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
+            if time.monotonic() >= deadline:
+                raise TimeoutError(f"{world} ranks still running after {timeout} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+
+
+def tp_shard_weights(torch, n_model: int, bf16) -> dict:
+    """Layer 0's shard-0 slices at ViT-B/16 widths from the seeded models,
+    cut by the port's prepare functions: the folded ViT slices (sites 25,
+    28) and the unfolded ResidualViT slices with their LN affines (26,
+    27), and the single-device layers' weights for the Megatron identity
+    (every shard)."""
+    from peekvit_torch.inference import prepare_engine_params
+    from peekvit_torch.models.adapters import module_params
+    from peekvit_torch.parallel.tp_serving import (
+        prepare_tp_residual_serving_params,
+        prepare_tp_serving_params,
+    )
+
+    h = B16["num_heads"]
+    vit, res = module_params(tp_model(torch, "vit")), module_params(tp_model(torch, "residualvit"))
+    return {"vit": prepare_tp_serving_params(vit, n_model, h, bf16),
+            "res": prepare_tp_residual_serving_params(res, n_model, h, bf16),
+            "vit_layer": prepare_engine_params(vit, bf16, fold_ln=True)["encoder"]["layers_0"],
+            "res_layer": prepare_engine_params(res, bf16)["encoder"]["layers_0"]}
+
+
+def tp_site_args(w: dict, s: int, x, mask) -> dict:
+    """Each composition's arguments for shard s of layer 0; ``x`` holds the
+    ViT-width ("vit", N = 197) and residual-width ("res", N = 198) tokens
+    (either may be missing)."""
+    tv, tr, sr = w["vit"]["tp"], w["res"]["tp"], w["res"]["shared"]
+    xv, xr = x.get("vit"), x.get("res")
+    return {"tp_attention_partial": (xv, tv["wqkv"][s, 0], tv["bqkv"][s, 0], tv["wo"][s, 0]),
+            "tp_masked_attention_partial": (xr, mask, sr["ln1s"][0], sr["ln1b"][0],
+                                            tr["wqkv"][s, 0], tr["bqkv"][s, 0], tr["wo"][s, 0]),
+            "tp_masked_mlp_partial": (xr, mask, sr["ln2s"][0], sr["ln2b"][0],
+                                      tr["w1"][s, 0], tr["b1"][s, 0], tr["w2"][s, 0]),
+            "tp_mlp_partial": (xv, tv["w1"][s, 0], tv["b1"][s, 0], tv["w2"][s, 0])}
+
+
+def tp_call(ttp, name: str, args: tuple, heads_local: int, plain: bool = False):
+    fn = getattr(ttp, name + ("_ref" if plain else ""))
+    return fn(*args, heads_local) if name.endswith("attention_partial") else fn(*args)
+
+
+def tp_kernel_checks(torch, fa, check, randn, smi) -> dict:
+    """Phase 32: the GEMM epilogue partial_f32 against its plain version at
+    the four partial shapes of ViT-B/16 (out-projection K = 384 / 192, fc2
+    K = 1536 / 768 for n_model 2 / 4; N = 768) at bs256 and bs8, and GEMM
+    bias at the qkv width N = 576 (n_model 4, not a multiple of the 128
+    tile); each of sites 25-28 against its plain version for n_model 2 and
+    4 at bs8 and bs256 (layer 0's shard-0 slices of the seeded models);
+    the Megatron identity at bs8: the shards' partials summed, plus bias
+    and residual, against the single-device kernels' layer
+    (fused_layer_block_folded / masked_layer_block). Returns the inputs
+    for the timing."""
+    from peekvit_torch.ops.cuda import tp_blocks as ttp
+
+    bf16 = torch.bfloat16
+    d, m, h = B16["hidden_dim"], B16["mlp_dim"], B16["num_heads"]
+    n_vit = (B16["image_size"] // B16["patch_size"]) ** 2 + 1
+    tol_bf16, tol_f32, tol_attn = 2.0 ** -6, 1e-3, 2e-2
+    ins = {"gemm": {}, "x": {}, "mask": {}, "w": {}}
+    with torch.inference_mode():
+        for b in TP_SHAPE_BATCHES:
+            rows = b * n_vit
+            for k in sorted({d // n for n in TP_MODELS} | {m // n for n in TP_MODELS}):
+                a, w = randn(rows, k), randn(k, d, scale=k ** -0.5)
+                ins["gemm"][(b, k)] = (a, w)
+                check(f"gemm_bias_epilogue.partial_f32.k{k}.bs{b}", fa.gemm_partial_f32(a, w),
+                      fa.gemm_partial_f32_ref(a, w), tol_f32,
+                      f"tensor-core fp32 accumulation against cuBLAS fp32 in another order "
+                      f"over K = {k}")
+            ins["x"][b] = {"vit": randn(b, n_vit, d, scale=1.5, shift=0.3),
+                           "res": randn(b, n_vit + 1, d, scale=1.5, shift=0.3)}
+            mask = torch.clamp(randn(b, n_vit + 1, 1, dtype=torch.float32, scale=0.5, shift=0.2),
+                               0.0, 1.0)
+            mask[:, 0] = mask[:, -1] = 1.0  # the class and budget tokens
+            ins["mask"][b] = mask.to(bf16)
+        a, w, bias = randn(BATCH * n_vit, d), randn(d, 576, scale=d ** -0.5), randn(576, scale=0.1)
+        check("gemm_bias_epilogue.bias.n576", fa.gemm_bias_epilogue(a, w, bias, "bias"),
+              fa.gemm_bias_epilogue_ref(a, w, bias, "bias"), tol_bf16,
+              "fp32 sums in another order, bf16 output rounding; N = 576 leaves a ragged "
+              "64-column tile")
+        for n_model in TP_MODELS:
+            w = ins["w"][n_model] = tp_shard_weights(torch, n_model, bf16)
+            hl = h // n_model
+            for b in TP_SHAPE_BATCHES:
+                for name, args in tp_site_args(w, 0, ins["x"][b], ins["mask"][b]).items():
+                    attn = "attention" in name
+                    check(f"{name}.n{n_model}.bs{b}", tp_call(ttp, name, args, hl),
+                          tp_call(ttp, name, args, hl, plain=True), tol_attn if attn else tol_bf16,
+                          "bf16 roundings of the normalized rows, qkv and the attention output "
+                          "(flipped by fp32 sums in another order) feed an fp32 product"
+                          if attn else "bf16 roundings of the normalized rows and of gelu's "
+                          "output feed an fp32 product")
+            # the Megatron identity, bs8: every shard's partials summed, then
+            # bias and residual once, as the engine's epilogues
+            x, mask = ins["x"][TP_SHAPE_BATCHES[0]], ins["mask"][TP_SHAPE_BATCHES[0]]
+
+            def psum(name, x_in, w=w, hl=hl, n_model=n_model, mask=mask):
+                return sum(tp_call(ttp, name, tp_site_args(w, s, x_in, mask)[name], hl)
+                           for s in range(n_model))
+
+            reason = ("the TP path rounds the mid residual y to bf16 after the all-reduce, the "
+                      "single-device layer keeps it in fp32: the bf16 engine tolerance")
+            sv, lv = w["vit"]["shared"], w["vit_layer"]
+            y = (x["vit"].float() + psum("tp_attention_partial", x)
+                 + sv["bo"][0].float()).to(bf16)
+            got = (y.float() + psum("tp_mlp_partial", {"vit": y})
+                   + sv["b2"][0].float()).to(bf16)
+            want = fa.fused_layer_block_folded(
+                x["vit"], lv["_folded_qkv"]["kernel"], lv["_folded_qkv"]["bias"],
+                lv["self_attention"]["out_proj_kernel"], lv["self_attention"]["out_proj_bias"],
+                lv["_folded_fc1"]["kernel"], lv["_folded_fc1"]["bias"], lv["mlp"]["fc2_kernel"],
+                lv["mlp"]["fc2_bias"], h)
+            check(f"megatron_identity.plain.n{n_model}", got, want, 3e-2, reason)
+            sr, lr = w["res"]["shared"], w["res_layer"]
+            y = ((psum("tp_masked_attention_partial", x) + sr["bo"][0].float()) * mask.float()
+                 + x["res"].float()).to(bf16)
+            got = (psum("tp_masked_mlp_partial", {"res": y}) + sr["b2"][0].float()
+                   + y.float()).to(bf16)
+            at, mlp = lr["self_attention"], lr["mlp"]
+            want = fa.masked_layer_block(
+                x["res"], mask, lr["ln_1"]["scale"], lr["ln_1"]["bias"], at["in_proj_kernel"],
+                at["in_proj_bias"], at["out_proj_kernel"], at["out_proj_bias"],
+                lr["ln_2"]["scale"], lr["ln_2"]["bias"], mlp["fc1_kernel"], mlp["fc1_bias"],
+                mlp["fc2_kernel"], mlp["fc2_bias"], h, BLOCK_EPS)
+            check(f"megatron_identity.masked.n{n_model}", got, want, 3e-2, reason)
+        torch.cuda.synchronize()
+    emit({"phase": "tp_kernel_checks", "checked": len(TP_MODELS) * len(TP_SHAPE_BATCHES) * 4,
+          "card": smi})
+    return ins
+
+
+def tp_phases(torch, fa, smi) -> dict:
+    """Phase 33: the TP engines as n_model spawned ranks on cuda:0 over a
+    gloo group (n_data 1), for n_model 2 and 4: every rank's logits equal
+    every other rank's bit for bit and hold against the single-device
+    engine on the card (bf16 3e-2, top-1 on every decided image, as
+    compare_logits); launches per rank per forward 7 per layer (84 for a
+    ViT-B/16 forward), every key of the path; the ViT-B/16 TP forward per
+    rank at bs1 and bs8 beside the single-device engine's. Returns the
+    launches summed over every rank and forward, by key."""
+    import shutil
+
+    from peekvit_torch import InferenceEngine
+    from peekvit_torch.inference import rankvit_forward_fused, rankvit_forward_plain
+    from peekvit_torch.ops.cuda import _build
+
+    refs, single_ms, rank_kept = {}, {}, {}
+    with torch.inference_mode():
+        images = {b: tp_images(torch, b) for b in set(TP_TIMING_BATCHES) | {TP_REQUEST}}
+    for name, budgets in TP_RUNS:
+        model = tp_model(torch, name)
+        engine = InferenceEngine(model, device=DEVICE, ee_outputs=name == "eeresidualvit")
+        for budget in budgets:
+            out = engine(images[TP_REQUEST], budget=budget)
+            refs[f"{name}/{budget}"] = out if isinstance(out, tuple) else (out,)
+        if name == "vit":
+            single_ms = {b: cuda_ms(torch, lambda b=b: engine(images[b]), iters=TP_TIMING_ITERS)
+                         for b in TP_TIMING_BATCHES}
+        if name == "rankvit":
+            # a bf16 norm tie at the keep boundary flips kept sets between two
+            # roundings of the same layers (phase 16), so the dropping runs are
+            # held against the plain twin fed the TP run's kept indices
+            rank_fwd = dict(patch_size=model.patch_size, num_heads=model.num_heads,
+                            rankvit_layers=model.rankvit_layers,
+                            num_class_tokens=model.num_class_tokens, ln_eps=model.ln_eps)
+            rank_params = engine.params
+            with torch.inference_mode():
+                for budget in budgets:
+                    if budget < 1.0:
+                        kept = rank_kept[f"{name}/{budget}"] = {}
+                        rankvit_forward_fused(rank_params, images[TP_REQUEST], budget=budget,
+                                              kept_out=kept, **rank_fwd)
+        del engine, model
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    _build.build_all()  # every library built before a rank starts: no rank runs nvcc
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "tp_smoke")
+    totals, calls = {}, {}
+    for n_model in TP_MODELS:
+        out_dir = os.path.join(root, f"n{n_model}")
+        shutil.rmtree(out_dir, ignore_errors=True)
+        os.makedirs(out_dir)
+        t0 = time.perf_counter()
+        spawn_ranks(torch, tp_rank, n_model, (n_model, os.path.join(out_dir, "rdzv"), out_dir),
+                    TP_JOIN_TIMEOUT)
+        seconds = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt")) for r in range(n_model)]
+        for key, ref in refs.items():
+            name, layers = key.split("/")[0], (EE_YAML if key.startswith("ee") else B16)[
+                "num_layers"]
+            per_layer = TP_RES_PER_LAYER if "residual" in name else TP_PER_LAYER
+            want_counts = {k: v * layers for k, v in per_layer.items()}
+            for r, rank in enumerate(ranks):
+                if rank["counts"][key] != want_counts:
+                    raise AssertionError(f"TP {key} rank {r} launches {rank['counts'][key]}, "
+                                         f"want {want_counts}")
+                same = all(torch.equal(a, b) for a, b in zip(rank["logits"][key],
+                                                             ranks[0]["logits"][key]))
+                same = same and all(torch.equal(idx, ranks[0]["kept"][key][li])
+                                    for li, idx in rank["kept"].get(key, {}).items())
+                if not same:
+                    raise AssertionError(f"TP {key}: rank {r}'s outputs differ from rank 0's")
+                for k, v in rank["counts"][key].items():
+                    totals[k] = totals.get(k, 0) + v
+            attn_comp, mlp_comp = (("tp_masked_attention_partial", "tp_masked_mlp_partial")
+                                   if "residual" in name
+                                   else ("tp_attention_partial", "tp_mlp_partial"))
+            calls[attn_comp] = calls.get(attn_comp, 0) + want_counts["attn_scores_pv"] * n_model
+            calls[mlp_comp] = (calls.get(mlp_comp, 0)
+                               + want_counts["gemm_bias_epilogue.gelu"] * n_model)
+            got = [t.to(DEVICE) for t in ranks[0]["logits"][key]]
+            if len(got) != len(ref):
+                raise AssertionError(f"TP {key}: {len(got)} outputs, want {len(ref)}")
+            extra = {}
+            if key in rank_kept:
+                kept = {li: idx.to(DEVICE) for li, idx in ranks[0]["kept"][key].items()}
+                extra["kept_sets_as_single_device"] = {
+                    li: (kept[li].sort(-1).values == idx.sort(-1).values).all(-1).float()
+                    .mean().item() for li, idx in rank_kept[key].items()}
+                delta = (got[0] - ref[0]).abs()
+                extra["single_device"] = {
+                    "max_abs_delta": delta.max().item(),
+                    "top1_agreement": (got[0].argmax(-1) == ref[0].argmax(-1)).float()
+                    .mean().item()}
+                with torch.inference_mode():
+                    ref = (rankvit_forward_plain(rank_params, images[TP_REQUEST],
+                                                 budget=float(key.split("/")[1]), kept_idx=kept,
+                                                 compute_dtype=torch.bfloat16, **rank_fwd),)
+                against = "plain_twin_on_tp_kept"
+            else:
+                against = "single_device"
+            recs = [compare_logits(torch, f"TP n_model={n_model} {key} output {i}", g.float(),
+                                   [(against, r.float(), 3e-2, 3e-2)])
+                    for i, (g, r) in enumerate(zip(got, ref))]
+            emit({"phase": "tp_check", "n_model": n_model, "run": key, "batch": TP_REQUEST,
+                  "outputs": len(got), "ranks_bit_identical": True,
+                  "launches_per_rank": sum(want_counts.values()), "final": recs[-1], **extra,
+                  "tolerance_reason": "bf16 engine tolerance: the TP path rounds the mid "
+                                      "residual to bf16 and sums the fp32 partials in another "
+                                      "order than the single-device layer",
+                  "card": smi})
+        emit({"phase": "timing_tp", "n_model": n_model, "ranks_device": ranks[0]["device"],
+              "seconds_for_spawn": seconds,
+              "ms_per_forward_by_rank": {b: [rk["ms"][b] for rk in ranks]
+                                         for b in TP_TIMING_BATCHES},
+              "single_device_ms": single_ms,
+              "label": f"gloo through the host, {n_model} processes sharing one card: says "
+                       "nothing about NCCL on separate cards",
+              "card": smi})
+    return {"counts": totals, "calls": calls, "single_ms": single_ms}
+
+
+def tp_timing(torch, F, fa, smi, checks, ins, tp) -> list:
+    """Phase 33's kernel timing: GEMM partial_f32 at the four partial shapes
+    and each of sites 25-28 per shard for n_model 2 and 4, at bs256 and
+    bs8: ms (CUDA events), bound, plain ms and one PyTorch yardstick
+    (F.layer_norm, addmm, SDPA, mm: never called by the port). Returns the
+    kernels-line entries: partial_f32 at fc2's n_model 2 shape and each
+    composition at n_model 2, bs256, every other shape under ``by_shape``."""
+    from peekvit_torch.ops.cuda import tp_blocks as ttp
+
+    d, m, h = B16["hidden_dim"], B16["mlp_dim"], B16["num_heads"]
+    hd = d // h
+    n_vit = (B16["image_size"] // B16["patch_size"]) ** 2 + 1
+    bf, f4 = 2, 4
+
+    def lib_norm(x, s=None, bias=None, mask=None, eps=EPS):
+        ln = F.layer_norm(x, (d,), None if s is None else s.reshape(-1),
+                          None if bias is None else bias.reshape(-1), eps)
+        return ln if mask is None else ln * mask
+
+    def lib_attn(ln, wqkv, bqkv, wo, hl):
+        b, n, _ = ln.shape
+        qkv = torch.addmm(bqkv.reshape(-1), ln.reshape(b * n, d), wqkv)
+        qkv = qkv.reshape(b, n, 3, hl, hd).permute(2, 0, 3, 1, 4)
+        o = F.scaled_dot_product_attention(qkv[0], qkv[1], qkv[2])
+        return torch.mm(o.transpose(1, 2).reshape(b * n, hl * hd), wo).float()
+
+    def lib_mlp(ln, w1, b1, w2):
+        b, n, _ = ln.shape
+        hid = F.gelu(torch.addmm(b1.reshape(-1), ln.reshape(b * n, d), w1), approximate="tanh")
+        return torch.mm(hid, w2).float()
+
+    library = {
+        "tp_attention_partial":
+            lambda x, wqkv, bqkv, wo, hl: lib_attn(lib_norm(x), wqkv, bqkv, wo, hl),
+        "tp_masked_attention_partial":
+            lambda x, mk, s, bb, wqkv, bqkv, wo, hl: lib_attn(
+                lib_norm(x, s, bb, mk, BLOCK_EPS), wqkv, bqkv, wo, hl),
+        "tp_masked_mlp_partial":
+            lambda x, mk, s, bb, w1, b1, w2, hl: lib_mlp(lib_norm(x, s, bb, mk, BLOCK_EPS),
+                                                          w1, b1, w2),
+        "tp_mlp_partial": lambda x, w1, b1, w2, hl: lib_mlp(lib_norm(x), w1, b1, w2),
+    }
+    gemm_rows, comp_rows = {}, {}
+    with torch.inference_mode():
+        for (b, k), (a, w) in sorted(ins["gemm"].items()):
+            rows = b * n_vit
+            bnd, by = bound_ms(2.0 * rows * k * d, (rows * k + k * d) * bf + rows * d * f4)
+            rec = {"ms": cuda_ms(torch, lambda a=a, w=w: fa.gemm_partial_f32(a, w)),
+                   "plain_ms": cuda_ms(torch, lambda a=a, w=w: fa.gemm_partial_f32_ref(a, w),
+                                       iters=5),
+                   "library_ms": cuda_ms(torch, lambda a=a, w=w: torch.mm(a, w).float()),
+                   "bound_ms": bnd, "bound_by": by}
+            gemm_rows[f"k{k}.bs{b}"] = rec
+            emit({"phase": "timing_kernel", "name": "gemm_bias_epilogue.partial_f32",
+                  "shape": [rows, k, d], "batch": b, **rec, "share_of_bound": bnd / rec["ms"],
+                  "library": "torch.mm (bf16 out) + .float()", "card": smi})
+        for n_model in TP_MODELS:
+            hl, dl, ml = h // n_model, d // n_model, m // n_model
+            for b in TP_SHAPE_BATCHES:
+                args_by = tp_site_args(ins["w"][n_model], 0, ins["x"][b], ins["mask"][b])
+                for name, args in args_by.items():
+                    masked = "masked" in name
+                    n = n_vit + 1 if masked else n_vit
+                    rows = b * n
+                    extra = (rows + 2 * d) * bf if masked else 0
+                    if "attention" in name:
+                        flops = (2.0 * rows * d * 3 * dl + 4.0 * b * hl * n * n * hd
+                                 + 2.0 * rows * dl * d)
+                        nbytes = rows * d * (bf + f4) + (4 * d * dl + 3 * dl) * bf + extra
+                    else:
+                        flops = 4.0 * rows * d * ml
+                        nbytes = rows * d * (bf + f4) + (2 * d * ml + ml) * bf + extra
+                    bnd, by = bound_ms(flops, nbytes)
+                    rec = {"ms": cuda_ms(torch, lambda n_=name, a=args: tp_call(ttp, n_, a, hl)),
+                           "plain_ms": cuda_ms(torch, lambda n_=name, a=args: tp_call(
+                               ttp, n_, a, hl, plain=True), iters=3),
+                           "library_ms": cuda_ms(torch, lambda n_=name, a=args:
+                                                 library[n_](*a, hl)),
+                           "bound_ms": bnd, "bound_by": by}
+                    comp_rows.setdefault(name, {})[f"n{n_model}.bs{b}"] = rec
+                    emit({"phase": "timing_kernel", "name": name, "n_model": n_model,
+                          "batch": b, "tokens": n, **rec, "share_of_bound": bnd / rec["ms"],
+                          "library": "F.layer_norm + addmm + SDPA + mm" if "attention" in name
+                          else "F.layer_norm + addmm + gelu + mm", "card": smi})
+    bs = TP_SHAPE_BATCHES[-1]
+    canon = f"n{TP_MODELS[0]}.bs{bs}"
+    k_fc2 = m // TP_MODELS[0]
+    g = gemm_rows[f"k{k_fc2}.bs{bs}"]
+    entries = [{"name": "gemm_bias_epilogue.partial_f32", "route": "cuda",
+                "source": "peekvit_torch/csrc/gemm_bias_epilogue.cu",
+                "replaces": f"{REPLACES_TP}:68, :144, :206, :257 (the partial products)",
+                "launches": tp["counts"].get("gemm_bias_epilogue.partial_f32", 0),
+                "max_abs_err": checks[f"gemm_bias_epilogue.partial_f32.k{k_fc2}.bs{bs}"],
+                **g, "path": "tp", "shape_batch": bs,
+                "shape": f"fc2 at n_model {TP_MODELS[0]}: ({bs * n_vit}, "
+                         f"{k_fc2}) x ({k_fc2}, {d})",
+                "by_shape": gemm_rows, "count_key": "gemm_bias_epilogue.partial_f32"}]
+    for name, (site, line, per_call) in TP_SITES.items():
+        rec = comp_rows[name][canon]
+        entries.append({"name": name, "route": "cuda",
+                        "source": "peekvit_torch/ops/cuda/tp_blocks.py",
+                        "replaces": f"{REPLACES_TP}:{line} (site {site})",
+                        "launches": tp["calls"].get(name, 0) * per_call,
+                        "calls": tp["calls"].get(name, 0),
+                        "max_abs_err": checks[f"{name}.{canon}"], **rec, "path": "tp",
+                        "note": "a composition of the port's kernels; launches = its kernel "
+                                "launches on the TP path (calls x launches per call)",
+                        "shape_batch": bs, "shape": canon,
+                        "by_shape": comp_rows[name], "count_key": None})
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -4012,10 +4524,15 @@ def main() -> int:
                                    analytic_macs(model))
     mod = module_path_phases(torch, F, fa, dev, smi, check, checks, qkv, m_ins["q"], m_ins["k"],
                              m_ins["v"], d, h, n)
-    for entry in kernels:  # the merged steps and the module path run earlier kernels too
+    # ------------------------------------------- 32-33. tensor-parallel serving
+    tp_ins = tp_kernel_checks(torch, fa, check, randn, smi)
+    tp = tp_phases(torch, fa, smi)
+    tp_entries = tp_timing(torch, F, fa, smi, checks, tp_ins, tp)
+    for entry in kernels:  # the later paths run earlier kernels too
         entry["launches_by_path"]["merged"] = mtrain["counts"]["merged"].get(entry["name"], 0)
         entry["launches_by_path"]["hybrid"] = mtrain["counts"]["hybrid"].get(entry["name"], 0)
         entry["launches_by_path"]["module"] = mod["counts"].get(entry["name"], 0)
+        entry["launches_by_path"]["tp"] = tp["counts"].get(entry["name"], 0)
     # every path's counts as this run measured them, read by each new
     # entry's count key
     measured = {"engine": main_counts, "split": split_counts, "train": train["counts"],
@@ -4026,11 +4543,13 @@ def main() -> int:
                 "int8_split_sublayers": rq["split_counts"], "avit": av["counts"],
                 "pct": pct["counts"], "merged": mtrain["counts"]["merged"],
                 "hybrid": mtrain["counts"]["hybrid"], "module": mod["counts"],
-                "attention_alone": mod["alone"]}
-    for entry in merged_entries + [mod["entry"]]:
+                "attention_alone": mod["alone"], "tp": tp["counts"]}
+    for entry in merged_entries + [mod["entry"]] + tp_entries:
         key = entry.pop("count_key")
         entry["launches_by_path"] = {path: c.get(key, 0) for path, c in measured.items()}
-    kernels += merged_entries + [mod["entry"]]
+        if key is None:  # a TP composition: its calls' launches on the TP path
+            entry["launches_by_path"]["tp"] = entry["launches"]
+    kernels += merged_entries + [mod["entry"]] + tp_entries
     emit({"phase": "elapsed", "seconds": time.perf_counter() - t_start, "card": smi})
 
     emit({"kernels": kernels})

@@ -54,6 +54,17 @@
 // 77 MB of g and 620 MB of hpre and writes 310 MB of dhpre_b and 2.4 MB
 // of partials.
 //
+// Epilogue 11 ("partial_f32") is the bare product C = A . W in fp32, W
+// read as (K, N) as it lies, with no bias and no residual, rounded
+// nowhere: the out-projection and fc2 partials of the tensor-parallel
+// sublayers (peekvit_tpu/ops/pallas/tp_blocks.py :68, :144, :206, :257),
+// whose sum over the model shards a collective takes before bias and
+// residual are added once. Bound on H100 at ViT-B/16 bs256 (M = 50432,
+// N = 768): the fp32 (M, 768) write is 155 MB (0.046 ms). With the bf16 A
+// at K = 384 / 192 (out-proj, n_model 2 / 4) and 768 (fc2, n_model 4)
+// bytes bound it; fc2 at n_model 2 (K = 1536, 119 GFLOP: 0.120 ms against
+// 0.093 ms of bytes) is bound by operations.
+//
 // Bound on H100: operations. At ViT-B bs256 the products are
 // (50432 x 768) . (768 x {2304, 768, 3072}) and (50432 x 3072) . (3072 x 768):
 // hundreds of flops per byte, above the card's ~295 flop/byte ridge.
@@ -344,7 +355,7 @@ gemm_kernel(const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict
   for (int j = 0; j < 4; ++j) {
     const int col = col0 + wn + j * 8 + tq * 2;
     if (col >= n) continue;
-    const float2 b2 = (EPI == 4 || EPI == 5) ? make_float2(0.f, 0.f)
+    const float2 b2 = (EPI == 4 || EPI == 5 || EPI == 11) ? make_float2(0.f, 0.f)
                                : __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias + col));
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -370,7 +381,7 @@ gemm_kernel(const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict
           v0 += r2.x;
           v1 += r2.y;
         }
-        if (EPI == 2 || EPI == 5 || EPI == 6) {
+        if (EPI == 2 || EPI == 5 || EPI == 6 || EPI == 11) {
           *reinterpret_cast<float2*>(reinterpret_cast<float*>(out) + off) = make_float2(v0, v1);
         } else {
           *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<__nv_bfloat16*>(out) + off) =
@@ -417,8 +428,9 @@ int launch_res(int res_f32, const void* a, const void* w, const void* bias, cons
 // fp32 A . W + bias, (m, n). 10 gelu_grad (W as (N, K), no bias): with
 // res the fp32 hpre (m, n), out = bf16(A . W^T * gelu'(res)) and aux =
 // per-128-row-tile column partials of the fp32 product, (ceil(m / 128),
-// n). res_f32 selects an fp32 (1) or bf16 (0) residual for epilogues 2,
-// 3, 6 and 7; res is ignored for 0, 1, 4, 5 and 9. mask ((m,) bf16) is
+// n). 11 partial_f32: A . W -> fp32, no bias (bias, res and mask are
+// ignored). res_f32 selects an fp32 (1) or bf16 (0) residual for
+// epilogues 2, 3, 6 and 7; res is ignored for 0, 1, 4, 5, 9 and 11. mask ((m,) bf16) is
 // read by epilogues 6, 7 and 8 only; aux is written by 8, 9 and 10 only.
 // Returns the cudaError_t of the launch (an unknown epilogue, or 6, 7 or 8
 // without a mask, 8 or 10 without res or aux, 9 without aux, returns
@@ -458,6 +470,8 @@ extern "C" int peekvit_gemm_bias_epilogue(const void* a, const void* w, const vo
     case 10:
       if (res == nullptr || aux == nullptr) return (int)cudaErrorInvalidValue;
       return launch<10, true, float, __nv_bfloat16>(a, w, bias, res, mask, out, m, n, k, s, aux);
+    case 11:
+      return launch<11, false, float, float>(a, w, bias, res, mask, out, m, n, k, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

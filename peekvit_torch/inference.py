@@ -1494,7 +1494,17 @@ class InferenceEngine:
     ``calib_percentile`` of |activation|) from the smoothed model, the JAX
     engine's recipe (JAX inference.py:2773-2804, :2845-2893); a
     ResidualViT calibrates on its own gated, masked forward
-    (``collect_residualvit_activation_stats``) at budget 1.0."""
+    (``collect_residualvit_activation_stats``) at budget 1.0.
+
+    ``mesh=`` (``parallel.make_mesh`` with a model axis > 1, built by every
+    rank of the process group, and so is the engine) serves tensor-parallel
+    (``parallel/tp_serving.py``: the Megatron partials of
+    ``ops/cuda/tp_blocks.py``, one all-reduce per sublayer): the bf16 plain
+    ViT, RankViT's exact drop and the ResidualViT family, early exits
+    included. Each rank takes the whole batch, which the data axis size
+    must divide, and returns the whole batch's logits. ``device`` names
+    the mesh device's type; a mesh with model axis 1 (the data-parallel
+    engine) is not ported."""
 
     def __init__(self, model, compute_dtype=torch.bfloat16, device="cuda",
                  quantized: bool = False, max_budget: Optional[float] = None,
@@ -1543,8 +1553,12 @@ class InferenceEngine:
                     "variants (serve those dense or data-parallel)")
         if ee_outputs and not isinstance(model, EEResidualVisionTransformer):
             raise NotImplementedError("ee_outputs=True needs an EEResidualVisionTransformer")
+        # a mesh with a model axis > 1 serves tensor-parallel; any other is the
+        # data-parallel engine, not ported
+        tp = mesh is not None and getattr(mesh, "shape", {}).get("model", 1) > 1
         not_ported = {
-            "mesh=": (mesh is not None, "item 9 (parallel and serving)"),
+            "mesh=": (mesh is not None and not tp,
+                      "item 9 (the data-parallel engine: a mesh with model axis 1)"),
             "recon_outputs=": (recon_outputs, "item 7 (EncDec / MAE)"),
             "routed=": (routed is not None, "item 7 (MoE)"),
         }
@@ -1559,7 +1573,18 @@ class InferenceEngine:
                 raise NotImplementedError(
                     "fused ResidualViT engine supports the shipped-config mode: sigmoid gates, "
                     "attention+mlp skip, budget token, add_input=False (SURVEY.md section 7.6)")
+        if tp and (avit or pct or quantized or max_budget is not None):
+            raise NotImplementedError(
+                "tensor-parallel serving (a mesh with a model axis > 1) covers the bf16 plain "
+                "ViT, RankViT (exact drop) and ResidualViT-family engines; other families and "
+                "modes (quantized=, max_budget=) have no partial kernels: serve them on one "
+                "device")
         self.device = resolve_device(device)
+        if tp:
+            if mesh.device.type != self.device.type:
+                raise ValueError(f"the mesh's device {mesh.device} is not on the engine's "
+                                 f"device type {self.device.type!r}")
+            self.device = mesh.device
         if self.device.type == "cuda" and compute_dtype != torch.bfloat16:
             raise NotImplementedError(
                 "the CUDA kernels take bf16 only; an fp32 engine on the card is "
@@ -1571,6 +1596,13 @@ class InferenceEngine:
         self._pct = pct
         self._quantized = bool(quantized)
         self.caps = None
+        self._tp_make = None
+        if tp:
+            from peekvit_torch.parallel.tp_serving import tp_serving_engine
+
+            self.params, self._tp_make = tp_serving_engine(
+                model, mesh, compute_dtype=compute_dtype, ee_outputs=bool(ee_outputs))
+            return
         if pct:
             params, stats = (tree_map(lambda t: t.to(self.device), tree)
                              for tree in module_state(model))
@@ -1699,6 +1731,12 @@ class InferenceEngine:
             images = torch.from_numpy(images)
         images = images.to(self.device, torch.float32)
         with torch.inference_mode():
+            if self._tp_make is not None:
+                if self._residual:
+                    b = 1.0 if budget is None else float(budget)
+                    return self._tp_make(None)(self.params, images, b)
+                b = None if not self._rank or budget is None else float(budget)
+                return self._tp_make(b)(self.params, images)
             if self._pct:
                 if self._ranking is None:
                     return pct_forward_fused(self.params, images, **self._forward)

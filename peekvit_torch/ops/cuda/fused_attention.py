@@ -22,7 +22,9 @@ the bf16 g * mask and the row partials of sum(g * proj). The merged
 trainable layer (fused_layer_vjp.py) adds ``ln_rows`` on its fp32 mid
 residual and two two-output epilogues, ``gemm_gelu_hpre`` (h and the
 fp32 pre-activation) and ``gemm_nt_gelu_grad`` (dhpre and the column
-partials of db1).
+partials of db1). ``gemm_partial_f32`` (epilogue ``partial_f32``: the
+bare fp32 product) carries the tensor-parallel partials
+(``tp_blocks.py``).
 
 ``fused_mhsa`` and ``fused_attention`` are the linen attention switch's
 Pallas sites 1 and 2 (:153, :220): packed qkv through ``attn_scores_pv``,
@@ -366,6 +368,29 @@ def gemm_nt(a: torch.Tensor, w: torch.Tensor, epilogue: str) -> torch.Tensor:
     err = _build.library("gemm_bias_epilogue")(
         a.data_ptr(), w.data_ptr(), None, None, None, out.data_ptr(), None, m, n, k,
         _NT_EPILOGUES[epilogue], 0, _stream())
+    _launched(key, err)
+    return out
+
+
+def gemm_partial_f32_ref(a, w):
+    """Plain version of :func:`gemm_partial_f32`: the fp32 product."""
+    return torch.matmul(a.float(), w.float())
+
+
+def gemm_partial_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """C = a @ w in fp32 with no bias and no rounding, GEMM epilogue
+    ``partial_f32``: the out-projection and fc2 partials of the
+    tensor-parallel sublayers (``ops/cuda/tp_blocks.py``), summed over the
+    model shards before bias and residual are added once. a: (R, K), w:
+    (K, N) (the (in, out) layout). On CUDA a and w are bf16."""
+    if _on_cpu(a, w):
+        return gemm_partial_f32_ref(a, w)
+    key = "gemm_bias_epilogue.partial_f32"
+    m, n, k = _check_gemm(key, a, w, nt=False)
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    err = _build.library("gemm_bias_epilogue")(
+        a.data_ptr(), w.data_ptr(), None, None, None, out.data_ptr(), None, m, n, k, 11, 0,
+        _stream())
     _launched(key, err)
     return out
 

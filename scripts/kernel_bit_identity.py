@@ -18,11 +18,15 @@ card from one seed), and prints a SHA-256 of each output's bytes and the
 launch counts. The parent process prints one JSON line per mode and a
 summary line, and exits 1 if any mode differs or did not launch its kernel.
 
-Modes: ``ln_rows`` (bf16), ``gemm_bias_epilogue`` (bias, gelu,
-residual_f32, residual with an fp32 and a bf16 residual), ``gemm_nt``
-(none, none_f32), ``attn_softmax_fwd`` (packed qkv), ``ln_bwd_rows``
-(bf16 g) and ``ln_bwd_rows_masked``, at ViT-B/16 bs256 shapes and at a
-small ragged shape.
+Modes: ``ln_rows`` (bf16), ``gemm_bias_epilogue`` (epilogues 0-3 and
+6-10: bias, gelu, residual_f32, residual with an fp32 and a bf16
+residual, masked_residual_f32, masked_residual, masked_rowdot, gelu_hpre
+and NT gelu_grad), ``gemm_nt`` (none, none_f32), ``attn_softmax_fwd``
+(packed qkv), ``ln_bwd_rows`` (bf16 g) and ``ln_bwd_rows_masked``, at
+ViT-B/16 bs256 shapes and at a small ragged shape. A mode only this
+checkout has (``gemm_bias_epilogue.partial_f32``, epilogue 11, when the
+other checkout predates it) is reported as new and must launch; it is
+held against its plain version by chip_smoke.py.
 """
 
 from __future__ import annotations
@@ -82,6 +86,7 @@ def child(root: str) -> dict:
         dln, g = randn(rows, d, scale=0.05, dtype=torch.float32), randn(rows, d, scale=0.05)
         mask = (torch.rand(rows, generator=gen, device=dev) > 0.3).to(bf16)
         rowdot = randn(rows, 3, scale=0.05, dtype=torch.float32)
+        w_nt2, hpre = randn(m, d, scale=0.03), randn(rows, m, dtype=torch.float32)
         modes = {
             "ln_rows": lambda: fa.ln_rows(x, scale, shift, EPS),
             "gemm_bias_epilogue.bias": lambda: fa.gemm_bias_epilogue(x, w1, b1, "bias"),
@@ -92,6 +97,13 @@ def child(root: str) -> dict:
                 x, wo, bo, "residual", residual=res_f32),
             "gemm_bias_epilogue.residual.bf16_residual": lambda: fa.gemm_bias_epilogue(
                 x, wo, bo, "residual", residual=res_bf16),
+            "gemm_bias_epilogue.masked_residual_f32": lambda: fa.gemm_bias_epilogue(
+                x, wo, bo, "masked_residual_f32", residual=res_f32, mask=mask),
+            "gemm_bias_epilogue.masked_residual": lambda: fa.gemm_bias_epilogue(
+                x, wo, bo, "masked_residual", residual=res_bf16, mask=mask),
+            "gemm_bias_epilogue.masked_rowdot": lambda: fa.gemm_masked_rowdot(x, wo, bo, g, mask),
+            "gemm_bias_epilogue.gelu_hpre": lambda: fa.gemm_gelu_hpre(x, w1, b1),
+            "gemm_nt.gelu_grad": lambda: fa.gemm_nt_gelu_grad(g, w_nt2, hpre),
             "gemm_nt.none": lambda: fa.gemm_nt(a_nt, w_nt, "none"),
             "gemm_nt.none_f32": lambda: fa.gemm_nt(a_nt, w_nt, "none_f32"),
             "attn_softmax_fwd": lambda: vjp.attn_softmax_fwd(qkv, h),
@@ -99,6 +111,8 @@ def child(root: str) -> dict:
             "ln_bwd_rows.masked": lambda: vjp.ln_bwd_rows_masked(x, dln, g, scale, shift, mask,
                                                                  rowdot, EPS),
         }
+        if hasattr(fa, "gemm_partial_f32"):  # added after the earlier modes
+            modes["gemm_bias_epilogue.partial_f32"] = lambda: fa.gemm_partial_f32(x, w1)
         for name, fn in modes.items():
             fa.reset_launch_counts()
             with torch.inference_mode():
@@ -121,25 +135,32 @@ def main() -> int:
     if not args.other:
         ap.error("--other is required")
     runs = {}
-    for label, root in (("this", REPO), ("other", args.other)):
+    for label, root in (("this", REPO), ("other", os.path.abspath(args.other))):
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", root],
                               capture_output=True, text=True, cwd=root, timeout=900)
         if proc.returncode != 0:
             print(proc.stdout[-4000:], proc.stderr[-8000:], file=sys.stderr)
             raise SystemExit(f"{label} checkout ({root}) failed with exit {proc.returncode}")
         runs[label] = json.loads(proc.stdout.strip().splitlines()[-1])
-    failed = []
+    failed, new = [], []
     for mode, this in runs["this"].items():
         other = runs["other"].get(mode)
-        same = other is not None and this["sha256"] == other["sha256"]
-        launched = sum(this["launches"].values()) > 0 and other is not None and sum(
-            other["launches"].values()) > 0
+        if other is None:  # a mode this checkout adds: nothing to compare with
+            new.append(mode)
+            print(json.dumps({"mode": mode, "new_in_this": True, "launches": this["launches"]}))
+            if not sum(this["launches"].values()):
+                failed.append(mode)
+            continue
+        same = this["sha256"] == other["sha256"]
+        launched = sum(this["launches"].values()) > 0 and sum(other["launches"].values()) > 0
         print(json.dumps({"mode": mode, "bit_identical": same, "outputs": len(this["sha256"]),
-                          "launches": this["launches"],
-                          "other_launches": None if other is None else other["launches"]}))
+                          "launches": this["launches"], "other_launches": other["launches"]}))
         if not (same and launched):
             failed.append(mode)
-    print(json.dumps({"modes": len(runs["this"]), "differ_or_not_launched": failed}))
+    missing = sorted(set(runs["other"]) - set(runs["this"]))
+    print(json.dumps({"modes": len(runs["this"]) - len(new), "new_in_this": new,
+                      "missing_in_this": missing, "differ_or_not_launched": failed}))
+    failed += missing
     return 1 if failed else 0
 
 
