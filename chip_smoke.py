@@ -206,7 +206,30 @@ prints no final result):
    (gloo through the host: not NCCL across cards); each partial and
    partial_f32 timed per shard at 8 and 256 images beside its bound, plain
    version and a PyTorch yardstick;
-34. the {"kernels": [...]} line, then the card's nvidia-smi line, then
+34. sequence-parallel kernel checks at ViT-B/16 widths for 2 and 4 ranks
+   (n_local 99 / 50 against n_pad 198 / 200 keys) at 8 and 256 images:
+   attn_softmax_fwd.kmask and sp_tail_block (site 12, the SP tail) against
+   their plain versions, q a slice of a local qkv, k and v of a gathered
+   kv buffer, a key mask from a RankViT budget of 0.5 plus the padding and
+   one image's first 64-key tile all excluded; the tail's gradients after
+   the kernel forward equal the plain tail's; then each timed beside its
+   bound, plain version and a PyTorch yardstick (SDPA with the boolean
+   key mask, addmm chains); the old modes' bit identity is
+   scripts/kernel_bit_identity.py's;
+35. sequence-parallel training: S ranks (2, then 4), one spawned process
+   each, all on cuda:0 over gloo (every library built before the first
+   rank starts, joined with a deadline, a rank's exception failing the
+   run), train the seeded ViT-B/16 and RankViT-B/16 at budget 0.5 through
+   Trainer(AdamW, clip 1.0, sequence_parallel_devices=S) at bs8:
+   parallel_kernels="auto" resolves to the tail kernel; one gradient of
+   the step on every rank, which rank 0 holds against the same forward on
+   sp_tail_block_ref with no collective, fed the run's kept tokens (loss
+   rel 1e-2, rel-L2 per leaf 3e-2); three steps with the counts zeroed
+   just before each and read just after (5 tail launches per layer per
+   rank, 12 attn_softmax_fwd.kmask per forward); every rank's losses and
+   final parameters bit-identical; ms per step per rank (gloo through the
+   host: not NCCL across cards);
+36. the {"kernels": [...]} line, then the card's nvidia-smi line, then
    {"ok": true, "device": {...}} as the last line.
 
 Imports nothing of JAX or of peekvit_tpu.
@@ -4051,6 +4074,352 @@ def tp_timing(torch, F, fa, smi, checks, ins, tp) -> list:
     return entries
 
 
+# ---------------------------------------------- 34-35. sequence-parallel training
+
+SP_RANKS = (2, 4)                 # sequence-parallel ranks sharing cuda:0
+SP_SHAPE_BATCHES = (8, 256)       # the tail's checks and timings
+SP_TRAIN_BATCH = 8                # the SP Trainer's batch: the host all-reduces stay short
+SP_TRAIN_STEPS = 3
+SP_BUDGET = 0.5                   # the RankViT runs and the checked key masks
+SP_RUNS = (("vit", None), ("rankvit", SP_BUDGET))
+SP_JOIN_TIMEOUT = 500.0           # seconds for every rank of one spawn
+SP_TAIL_PER_LAYER = {"attn_softmax_fwd.kmask": 1, "gemm_bias_epilogue.residual_f32": 1,
+                     "ln_rows.f32": 1, "gemm_bias_epilogue.gelu": 1,
+                     "gemm_bias_epilogue.residual": 1}
+
+
+def sp_shape(s: int) -> tuple[int, int, int]:
+    """(N, n_pad, n_local) of a ViT-B/16 sequence over s ranks."""
+    n = (B16["image_size"] // B16["patch_size"]) ** 2 + 1
+    n_pad = -(-n // s) * s
+    return n, n_pad, n_pad // s
+
+
+def sp_key_mask(torch, gen, b: int, n: int, n_pad: int, dev):
+    """A RankViT key mask at SP_BUDGET over the padded sequence: the class
+    key, then the top half of the image keys by a random score, padding
+    excluded; image 0 also loses its first 64 keys (one all-excluded key
+    tile, the class key's included)."""
+    score = torch.rand(b, n - 1, generator=gen, device=dev)
+    keep = math.ceil((n - 1) * SP_BUDGET)
+    ranks = torch.argsort(torch.argsort(-score, dim=-1), dim=-1)
+    kmask = torch.zeros(b, n_pad, device=dev)
+    kmask[:, 0] = 1.0
+    kmask[:, 1:n] = (ranks < keep).float()
+    kmask[0, :64] = 0.0
+    return kmask
+
+
+def sp_kernel_checks(torch, lv, check, randn, layer_w, d, h, smi) -> dict:
+    """Phase 34, checks: attn_softmax_fwd.kmask and sp_tail_block (site 12)
+    against their plain versions at ViT-B/16 widths for S ranks and
+    SP_SHAPE_BATCHES images: q a slice of a local qkv, k and v of a
+    gathered kv buffer, the key mask of sp_key_mask; every row finite. The
+    kernel-forward tail's gradients equal the plain-forward tail's bit for
+    bit (both backwards recompute the plain math from the same inputs).
+    Returns the inputs for the timing."""
+    gen = torch.Generator(device=DEVICE).manual_seed(34)
+    tol = 3e-2
+    ins = {}
+    with torch.inference_mode():
+        for s in SP_RANKS:
+            n, n_pad, nl = sp_shape(s)
+            for b in SP_SHAPE_BATCHES:
+                x = randn(b, nl, d, scale=1.5, shift=0.3)
+                qkv_local = randn(b, nl, 3 * d)
+                kv = randn(b, n_pad, 2 * d)
+                kmask = sp_key_mask(torch, gen, b, n, n_pad, DEVICE)
+                q, k, v = qkv_local[..., :d], kv[..., :d], kv[..., d:]
+                tag = f"s{s}.bs{b}"
+                check(f"attn_softmax_fwd.kmask.{tag}", lv.attn_softmax_fwd_kmask(q, k, v, kmask, h),
+                      lv.attn_softmax_fwd_kmask_ref(q, k, v, kmask, h), tol,
+                      "bf16 rounding of P before PV and of the output, fp32 sums in another "
+                      "order; the repo's bf16 tolerance (one image's first key tile all "
+                      "excluded, padding and half the image keys excluded)")
+                check(f"sp_tail_block.{tag}", lv.sp_tail_block(x, q, k, v, kmask, *layer_w, h, EPS),
+                      lv.sp_tail_block_ref(x, q, k, v, kmask, *layer_w, h, EPS), tol,
+                      "the attention's roundings, then three GEMMs and a LayerNorm in another "
+                      "sum order; the repo's bf16 tolerance")
+                ins[(s, b)] = (x, q, k, v, kmask)
+    s, b = SP_RANKS[0], SP_SHAPE_BATCHES[0]
+    x, q, k, v, kmask = (t.clone() for t in ins[(s, b)])  # normal tensors, for autograd
+    g = randn(*x.shape, scale=0.05)
+    grads = []
+    for fn in (lv.sp_tail_block, lv.sp_tail_block_ref):
+        leaves = [t.detach().clone().requires_grad_() for t in (x, q, k, v, *layer_w)]
+        out = fn(*leaves[:4], kmask, *leaves[4:], h, EPS)
+        grads.append(torch.autograd.grad(out, leaves, g))
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, c) for a, c in zip(*grads))
+    finite = all(torch.isfinite(t).all().item() for t in grads[0])
+    emit({"phase": "sp_tail_grads", "ranks": s, "batch": b, "grads": len(grads[0]),
+          "bit_identical_to_plain_forward": same, "finite": finite, "card": smi})
+    if not (same and finite):
+        raise AssertionError("sp_tail_block: the backward differs from the plain tail's")
+    return ins
+
+
+def sp_batch(torch, b: int):
+    """The SP Trainer's batch: seeded on the CPU, the same in every rank."""
+    gen = torch.Generator().manual_seed(35)
+    size = B16["image_size"]
+    return (torch.randn(b, size, size, 3, generator=gen).to(DEVICE),
+            torch.randint(0, B16["num_classes"], (b,), generator=gen).to(DEVICE))
+
+
+def sp_rank(rank: int, world: int, rdzv: str, out_dir: str) -> None:
+    """Phase 35, one rank of an SP group of ``world`` ranks on cuda:0 over
+    gloo: for each run of SP_RUNS a Trainer(AdamW, clip 1.0,
+    sequence_parallel_devices=world, parallel_kernels="auto") from the
+    seeded weights; first one gradient of the SP step (the Trainer's own
+    forward with its arguments, loss / world, backward, the gradient
+    all-reduce; not applied), which rank 0 holds against the same forward
+    on sp_tail_block_ref with no collective (a one-rank mesh) fed the run's
+    kept tokens; then SP_TRAIN_STEPS train steps, the launch counts zeroed
+    just before each and read just after, timed on the host clock between
+    synchronizes. Writes rank<r>.pt into out_dir: the resolved tail form,
+    losses, counts, ms, a SHA-256 of the final parameters, rank 0's check."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from peekvit_torch import Trainer
+    from peekvit_torch.models.adapters import tree_leaves
+    from peekvit_torch.ops.cuda import fused_attention as fa
+    from peekvit_torch.parallel.sequence import sequence_parallel_vit_forward
+    from peekvit_torch.training.optim import AdamW
+
+    dist.init_process_group("gloo", init_method=f"file://{rdzv}", world_size=world, rank=rank)
+    try:
+        x, y = sp_batch(torch, SP_TRAIN_BATCH)
+        res = {}
+        for name, budget in SP_RUNS:
+            trainer = Trainer(model=tp_model(torch, name), optimizer=AdamW(lr=TRAIN_LR),
+                              clip_grad_norm=1.0, sequence_parallel_devices=world,
+                              device=DEVICE)
+            trainer._forward = trainer._build_forward()
+            kw = trainer._sp_fwd_kwargs
+            rec = {"kernels": kw["kernels"], "losses": [], "counts": [], "ms": []}
+            kept = {}
+            fa.reset_launch_counts()
+            loss = trainer.main_criterion(sequence_parallel_vit_forward(
+                trainer.params, x, budget=budget, kept_out=kept, **kw), y)
+            (loss / world).backward()
+            trainer._all_reduce_grads()
+            torch.cuda.synchronize()
+            rec["check_counts"] = dict(fa.LAUNCHES)
+            grads = {p: t.grad.detach().clone() for p, t in tree_leaves(trainer.params)}
+            trainer.torch_optimizer.zero_grad(set_to_none=True)
+            if rank == 0:
+                rec["check"] = sp_reference_check(torch, trainer, budget, x, y,
+                                                  float(loss.detach()), grads, kept)
+            del grads, loss
+            for step in range(SP_TRAIN_STEPS):
+                torch.cuda.synchronize()
+                dist.barrier()
+                fa.reset_launch_counts()
+                t0 = time.perf_counter()
+                metrics = trainer.train_step(x, y, budget=budget, step_idx=step)
+                torch.cuda.synchronize()
+                rec["ms"].append((time.perf_counter() - t0) * 1e3)
+                rec["counts"].append(dict(fa.LAUNCHES))
+                rec["losses"].append(metrics["total_loss"].cpu())
+            digest = hashlib.sha256()
+            for _, p in tree_leaves(trainer.params):
+                digest.update(p.detach().contiguous().view(-1).view(torch.uint8).cpu()
+                              .numpy().tobytes())
+            rec["param_sha256"] = digest.hexdigest()
+            res[name] = rec
+            del trainer
+            torch.cuda.empty_cache()
+        torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def sp_reference_check(torch, trainer, budget, x, y, loss_sp: float, grads_sp: dict,
+                       kept: dict) -> dict:
+    """Rank 0's reference for one SP step: the same forward (the Trainer's
+    arguments) on a one-rank mesh, no collective, the tail on
+    sp_tail_block_ref, the ranked layers fed the SP run's kept tokens (bf16
+    norm ties flip kept sets between two roundings, phases 16 and 33); its
+    loss and gradients against the SP step's: loss rel 1e-2, rel-L2 per
+    leaf 3e-2 (the repo's bf16 gradient bar)."""
+    from peekvit_torch.models.adapters import tree_leaves
+    from peekvit_torch.parallel import DATA_AXIS, MODEL_AXIS, Mesh
+    from peekvit_torch.parallel.sequence import sequence_parallel_vit_forward
+
+    kw = dict(trainer._sp_fwd_kwargs, plain=True,
+              mesh=Mesh({DATA_AXIS: 1, MODEL_AXIS: 1}, None, None, 0, 0, trainer.device))
+    n_img = sp_shape(1)[0] - 1
+    loss = trainer.main_criterion(sequence_parallel_vit_forward(
+        trainer.params, x, budget=budget, kept={i: a[:, :n_img] for i, a in kept.items()},
+        **kw), y)
+    loss.backward()
+    loss = loss.item()
+    grads = {p: t.grad.detach().clone() for p, t in tree_leaves(trainer.params)}
+    trainer.torch_optimizer.zero_grad(set_to_none=True)
+    err = rel_l2(torch, grads_sp, grads)
+    return {"loss_sp": loss_sp, "loss_ref": loss, "loss_rel": abs(loss_sp - loss) / abs(loss),
+            "max_rel_l2": max(err.values()), "worst_leaf": max(err, key=err.get),
+            "leaves": len(err), "kept_layers": sorted(kept)}
+
+
+def sp_phases(torch, smi) -> dict:
+    """Phase 35: SP training as S spawned ranks on cuda:0 over a gloo group
+    (every library built before the first rank starts, the ranks joined
+    with a deadline, a rank's exception failing the run), S = 2 then 4:
+    parallel_kernels="auto" resolves to the tail kernel; each step's
+    launches on every rank are SP_TAIL_PER_LAYER per layer (five tail
+    launches, attn_softmax_fwd.kmask 12 per forward); every rank's losses
+    and final parameters bit-identical; losses finite; rank 0's SP gradient
+    against the plain one-process reference; ms per step per rank. Returns
+    the launches summed over every rank and step, by key."""
+    import shutil
+
+    from peekvit_torch.ops.cuda import _build
+
+    _build.build_all()  # every library built before a rank starts: no rank runs nvcc
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    layers = B16["num_layers"]
+    want = {k: v * layers for k, v in SP_TAIL_PER_LAYER.items()}
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "sp_smoke")
+    totals, calls, step_ms = {}, 0, {}
+    for s in SP_RANKS:
+        out_dir = os.path.join(root, f"s{s}")
+        shutil.rmtree(out_dir, ignore_errors=True)
+        os.makedirs(out_dir)
+        t0 = time.perf_counter()
+        spawn_ranks(torch, sp_rank, s, (s, os.path.join(out_dir, "rdzv"), out_dir),
+                    SP_JOIN_TIMEOUT)
+        seconds = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt")) for r in range(s)]
+        for name, budget in SP_RUNS:
+            recs = [rk[name] for rk in ranks]
+            for r, rec in enumerate(recs):
+                if rec["kernels"] != "pallas":
+                    raise AssertionError(f"SP {name} S={s} rank {r}: parallel_kernels='auto' "
+                                         f"resolved to {rec['kernels']!r}")
+                for i, got in enumerate([rec["check_counts"], *rec["counts"]]):
+                    if got != want:
+                        raise AssertionError(f"SP {name} S={s} rank {r} step {i}: launches "
+                                             f"{got}, want {want}")
+                    for k, v in got.items():
+                        totals[k] = totals.get(k, 0) + v
+                calls += layers * (1 + SP_TRAIN_STEPS)
+                same = (rec["param_sha256"] == recs[0]["param_sha256"]
+                        and all(torch.equal(a, b) for a, b in zip(rec["losses"],
+                                                                 recs[0]["losses"])))
+                if not same:
+                    raise AssertionError(f"SP {name} S={s}: rank {r}'s losses or parameters "
+                                         "differ from rank 0's")
+            losses = [float(v) for v in recs[0]["losses"]]
+            check = recs[0]["check"]
+            ok = (all(math.isfinite(v) for v in losses) and check["loss_rel"] <= 1e-2
+                  and check["max_rel_l2"] <= 3e-2)
+            step_ms[(s, name)] = [rec["ms"] for rec in recs]
+            emit({"phase": "sp_train", "ranks": s, "model": name, "budget": budget,
+                  "batch": SP_TRAIN_BATCH, "optimizer": f"AdamW(lr={TRAIN_LR}), clip 1.0",
+                  "parallel_kernels": "auto -> pallas", "losses": losses,
+                  "launches_per_rank_per_step": sum(want.values()),
+                  "ranks_bit_identical": True, "reference_check": check,
+                  "tolerance": "loss rel 1e-2, gradients rel-L2 per leaf 3e-2 against the "
+                               "one-process forward on sp_tail_block_ref fed the kept tokens",
+                  "ms_per_step_by_rank": step_ms[(s, name)],
+                  "label": f"gloo through the host, {s} processes sharing one card: says "
+                           "nothing about NCCL on separate cards",
+                  "card": smi})
+            if not ok:
+                raise AssertionError(f"SP {name} S={s}: losses {losses}, check {check}")
+        emit({"phase": "sp_spawn", "ranks": s, "seconds_for_spawn": seconds, "card": smi})
+    return {"counts": totals, "calls": calls, "step_ms": step_ms}
+
+
+def sp_timing(torch, F, lv, smi, checks, ins, layer_w, sp, d, h, m) -> list:
+    """Phase 34's timing: attn_softmax_fwd.kmask and sp_tail_block for S
+    ranks and SP_SHAPE_BATCHES images (CUDA events): ms, bound (the
+    attention's work counted over the attended keys only, as this data
+    needs), plain ms and one PyTorch yardstick (SDPA with the boolean key
+    mask; then addmm + add, F.layer_norm, addmm + tanh-gelu, addmm + add:
+    never called by the port). Returns the two kernels-line entries at
+    S = 2, bs256, every other shape under ``by_shape``."""
+    w_out, b_out, lns2, lnb2, w1, b1, w2, b2 = layer_w
+    hd = d // h
+    bf = 2
+
+    def lib_attn(q, k, v, kmask):
+        b, nq, _ = q.shape
+        nk = k.shape[1]
+        qh = q.reshape(b, nq, h, hd).transpose(1, 2)
+        kh, vh = (t.reshape(b, nk, h, hd).transpose(1, 2) for t in (k, v))
+        o = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=(kmask > 0)[:, None, None, :])
+        return o.transpose(1, 2).reshape(b, nq, d)
+
+    def lib_tail(x, q, k, v, kmask):
+        b, nq, _ = x.shape
+        a = lib_attn(q, k, v, kmask).reshape(b * nq, d)
+        yv = torch.addmm(b_out, a, w_out).float() + x.reshape(b * nq, d).float()
+        ln = F.layer_norm(yv, (d,), lns2.float(), lnb2.float(), EPS).to(x.dtype)
+        hid = F.gelu(torch.addmm(b1, ln, w1), approximate="tanh")
+        return (torch.addmm(b2, hid, w2).float() + yv).to(x.dtype)
+
+    rows_by = {}
+    with torch.inference_mode():
+        for (s, b), (x, q, k, v, kmask) in sorted(ins.items()):
+            nq, nk = q.shape[1], k.shape[1]
+            attended = kmask.sum().item()  # keys this data attends, over every image
+            attn_flops = 4.0 * h * nq * hd * attended
+            attn_bytes = (2 * b * nq * d + 2 * b * nk * d) * bf + b * nk * 4
+            rows = b * nq
+            tail_flops = attn_flops + 2.0 * rows * (d * d + 2 * d * m)
+            tail_bytes = (attn_bytes + rows * d * bf
+                          + (d * d + 2 * d * m + 5 * d + m) * bf)
+            tag = f"s{s}.bs{b}"
+            for name, fn, ref, lib, flops, nbytes in (
+                    ("attn_softmax_fwd.kmask",
+                     lambda: lv.attn_softmax_fwd_kmask(q, k, v, kmask, h),
+                     lambda: lv.attn_softmax_fwd_kmask_ref(q, k, v, kmask, h),
+                     lambda: lib_attn(q, k, v, kmask), attn_flops, attn_bytes),
+                    ("sp_tail_block",
+                     lambda: lv.sp_tail_block(x, q, k, v, kmask, *layer_w, h, EPS),
+                     lambda: lv.sp_tail_block_ref(x, q, k, v, kmask, *layer_w, h, EPS),
+                     lambda: lib_tail(x, q, k, v, kmask), tail_flops, tail_bytes)):
+                bnd, by = bound_ms(flops, nbytes)
+                rec = {"ms": cuda_ms(torch, fn), "plain_ms": cuda_ms(torch, ref, iters=5),
+                       "library_ms": cuda_ms(torch, lib), "bound_ms": bnd, "bound_by": by}
+                rows_by.setdefault(name, {})[tag] = rec
+                emit({"phase": "timing_kernel", "name": name, "ranks": s, "batch": b,
+                      "queries": nq, "keys": nk, "attended_keys": attended, **rec,
+                      "share_of_bound": bnd / rec["ms"],
+                      "library": "SDPA, boolean key mask" if name.startswith("attn")
+                      else "SDPA (boolean key mask) + addmm + add + F.layer_norm + addmm + "
+                           "gelu + addmm + add",
+                      "card": smi})
+    canon = f"s{SP_RANKS[0]}.bs{SP_SHAPE_BATCHES[-1]}"
+    return [
+        {"name": "attn_softmax_fwd.kmask", "route": "cuda",
+         "source": "peekvit_torch/csrc/attn_softmax_fwd.cu",
+         "replaces": f"{REPLACES_LAYER}:560 (site 12, the attention of _sp_tail_math :478-514)",
+         "launches": sp["counts"].get("attn_softmax_fwd.kmask", 0),
+         "max_abs_err": checks[f"attn_softmax_fwd.kmask.{canon}"],
+         **rows_by["attn_softmax_fwd.kmask"][canon], "path": "sp", "shape": canon,
+         "by_shape": rows_by["attn_softmax_fwd.kmask"],
+         "count_key": "attn_softmax_fwd.kmask"},
+        {"name": "sp_tail_block", "route": "cuda",
+         "source": "peekvit_torch/ops/cuda/fused_layer_vjp.py",
+         "replaces": f"{REPLACES_LAYER}:560 (site 12, _sp_tail_call)",
+         "launches": sp["calls"] * len(SP_TAIL_PER_LAYER), "calls": sp["calls"],
+         "max_abs_err": checks[f"sp_tail_block.{canon}"],
+         **rows_by["sp_tail_block"][canon], "path": "sp",
+         "note": "a composition of the port's kernels (attn_softmax_fwd.kmask, GEMM "
+                 "residual_f32, ln_rows.f32, GEMM gelu, GEMM residual); launches = its kernel "
+                 "launches on the SP path (calls x 5)",
+         "shape": canon, "by_shape": rows_by["sp_tail_block"], "count_key": None},
+    ]
+
+
 def main() -> int:
     import torch
 
@@ -4528,11 +4897,17 @@ def main() -> int:
     tp_ins = tp_kernel_checks(torch, fa, check, randn, smi)
     tp = tp_phases(torch, fa, smi)
     tp_entries = tp_timing(torch, F, fa, smi, checks, tp_ins, tp)
+    # ------------------------------------------ 34-35. sequence-parallel training
+    sp_w = (w_out, b_out, ln_s, ln_b, fc1_w, fc1_b, fc2_w, fc2_b)
+    sp_ins = sp_kernel_checks(torch, lv, check, randn, sp_w, d, h, smi)
+    sp = sp_phases(torch, smi)
+    sp_entries = sp_timing(torch, F, lv, smi, checks, sp_ins, sp_w, sp, d, h, m)
     for entry in kernels:  # the later paths run earlier kernels too
         entry["launches_by_path"]["merged"] = mtrain["counts"]["merged"].get(entry["name"], 0)
         entry["launches_by_path"]["hybrid"] = mtrain["counts"]["hybrid"].get(entry["name"], 0)
         entry["launches_by_path"]["module"] = mod["counts"].get(entry["name"], 0)
         entry["launches_by_path"]["tp"] = tp["counts"].get(entry["name"], 0)
+        entry["launches_by_path"]["sp"] = sp["counts"].get(entry["name"], 0)
     # every path's counts as this run measured them, read by each new
     # entry's count key
     measured = {"engine": main_counts, "split": split_counts, "train": train["counts"],
@@ -4543,13 +4918,13 @@ def main() -> int:
                 "int8_split_sublayers": rq["split_counts"], "avit": av["counts"],
                 "pct": pct["counts"], "merged": mtrain["counts"]["merged"],
                 "hybrid": mtrain["counts"]["hybrid"], "module": mod["counts"],
-                "attention_alone": mod["alone"], "tp": tp["counts"]}
-    for entry in merged_entries + [mod["entry"]] + tp_entries:
+                "attention_alone": mod["alone"], "tp": tp["counts"], "sp": sp["counts"]}
+    for entry in merged_entries + [mod["entry"]] + tp_entries + sp_entries:
         key = entry.pop("count_key")
         entry["launches_by_path"] = {path: c.get(key, 0) for path, c in measured.items()}
-        if key is None:  # a TP composition: its calls' launches on the TP path
-            entry["launches_by_path"]["tp"] = entry["launches"]
-    kernels += merged_entries + [mod["entry"]] + tp_entries
+        if key is None:  # a composition: its calls' launches on its path
+            entry["launches_by_path"][entry["path"]] = entry["launches"]
+    kernels += merged_entries + [mod["entry"]] + tp_entries + sp_entries
     emit({"phase": "elapsed", "seconds": time.perf_counter() - t_start, "card": smi})
 
     emit({"kernels": kernels})

@@ -33,6 +33,24 @@
 // head dim to 128 with masked keys is a TPU layout artefact: keys past N
 // already get -inf here. The packed mode passes qkv, qkv + D, qkv + 2D
 // and stride 3D, the addresses it always read.
+//
+// A third mode carries the attention of peekvit_tpu/ops/pallas/
+// fused_layer_vjp.py:560 _sp_tail_call (_sp_tail_math :478-514, the
+// sequence-parallel tail): the rank's n_q local queries attend to the
+// n_k gathered keys (n_q != n_k, q and k/v with their own row strides:
+// q is a slice of the local qkv, k and v of the gathered kv buffer), and
+// a per-image key mask (B, n_k) fp32, 1 = attend, gives an excluded key
+// logit -inf before the row max, as keys past n_k get. It is the template
+// instance MASK = true; the other modes are MASK = false, whose code is
+// the earlier modes' unchanged. The mask is read once per block into
+// shared memory. A 64-key tile whose keys are all excluded, met while a
+// row's running max is still -inf, would give exp(-inf - (-inf)) = NaN
+// in pass 1: the masked instance takes the exponent's base as 0 while the
+// max is -inf (every term is then exp(-inf) = 0), so any mask that leaves
+// a row one key gives that row the plain version's softmax, wherever the
+// key sits. At ViT-B/16 bs256 over two ranks (n_q 99, n_k 198) this
+// attention alone is bytes-bound as the square mode is; the tail's GEMMs
+// make the whole site operation-bound.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -89,10 +107,12 @@ __device__ __forceinline__ float quad_sum(float v) {
 }
 
 // S = Q K^T for the warp's 16 query rows x the 64 keys of tile t, times
-// scale, with keys past n at -inf.
+// scale, with keys past n (and, with MASK, keys whose skm entry is not
+// > 0; skm is 0 past n) at -inf.
+template <bool MASK>
 __device__ __forceinline__ void scaled_logits(float (*s)[4], uint32_t (*qf)[4],
-                                              const __nv_bfloat16* sk, int t, int n,
-                                              float scale, int lane) {
+                                              const __nv_bfloat16* sk, const float* skm, int t,
+                                              int n, float scale, int lane) {
 #pragma unroll
   for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -114,31 +134,41 @@ __device__ __forceinline__ void scaled_logits(float (*s)[4], uint32_t (*qf)[4],
   for (int j = 0; j < 8; ++j) {
     const int key = t * KT + j * 8 + tq * 2;
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      s[j][e] = (key + (e & 1) < n) ? s[j][e] * scale : -INFINITY;
+    for (int e = 0; e < 4; ++e) {
+      if constexpr (MASK)
+        s[j][e] = (skm[key + (e & 1)] > 0.f) ? s[j][e] * scale : -INFINITY;
+      else
+        s[j][e] = (key + (e & 1) < n) ? s[j][e] * scale : -INFINITY;
+    }
   }
 }
 
+// nq query rows at q_stride, nk key / value rows at kv_stride; out is
+// (b, nq, d). kmask (b, nk) is read only by the MASK instance.
+template <bool MASK>
 __global__ void __launch_bounds__(THREADS)
 attn_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, int n,
-                int d, int row_stride, float scale) {
+                const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+                const float* __restrict__ kmask, int nq, int n, int d, int q_stride,
+                int row_stride, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int ntiles = (n + KT - 1) / KT;
   const int npad = ntiles * KT;
   __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* sk = sq + QT * STRIDE;
   __nv_bfloat16* sv = sk + npad * STRIDE;
+  float* skm = reinterpret_cast<float*>(sv + npad * STRIDE);
 
   const int q0 = blockIdx.x * QT, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const long long qhead = (long long)b * nq * q_stride + h * HD;
   const long long head = (long long)b * n * row_stride + h * HD;
 
   for (int chunk = tid; chunk < QT * 8; chunk += THREADS) {
     const int r = chunk >> 3, c = (chunk & 7) * 8;
     const int row = q0 + r;
-    const int ok = row < n;
-    cp_async16(&sq[r * STRIDE + c], q + head + (long long)(ok ? row : 0) * row_stride + c,
+    const int ok = row < nq;
+    cp_async16(&sq[r * STRIDE + c], q + qhead + (long long)(ok ? row : 0) * q_stride + c,
                ok ? 16 : 0);
   }
   for (int chunk = tid; chunk < npad * 8; chunk += THREADS) {
@@ -147,6 +177,10 @@ attn_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
     const long long off = head + (long long)(ok ? r : 0) * row_stride + c;
     cp_async16(&sk[r * STRIDE + c], k + off, ok ? 16 : 0);
     cp_async16(&sv[r * STRIDE + c], v + off, ok ? 16 : 0);
+  }
+  if constexpr (MASK) {
+    for (int r = tid; r < npad; r += THREADS)
+      skm[r] = r < n ? kmask[(long long)b * n + r] : 0.f;
   }
   cp_async_commit();
   cp_async_wait_all();
@@ -164,7 +198,7 @@ attn_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
   float s[8][4];
   for (int t = 0; t < ntiles; ++t) {
-    scaled_logits(s, qf, sk, t, n, scale, lane);
+    scaled_logits<MASK>(s, qf, sk, skm, t, n, scale, lane);
     float c0 = -INFINITY, c1 = -INFINITY;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -172,12 +206,23 @@ attn_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
       c1 = fmaxf(c1, fmaxf(s[j][2], s[j][3]));
     }
     const float n0 = fmaxf(m0, quad_max(c0)), n1 = fmaxf(m1, quad_max(c1));
-    l0 *= expf(m0 - n0);
-    l1 *= expf(m1 - n1);
+    if constexpr (MASK) {  // no key of the row seen yet: every term below is 0
+      const float e0 = n0 == -INFINITY ? 0.f : n0, e1 = n1 == -INFINITY ? 0.f : n1;
+      l0 *= expf(m0 - e0);
+      l1 *= expf(m1 - e1);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      l0 += expf(s[j][0] - n0) + expf(s[j][1] - n0);
-      l1 += expf(s[j][2] - n1) + expf(s[j][3] - n1);
+      for (int j = 0; j < 8; ++j) {
+        l0 += expf(s[j][0] - e0) + expf(s[j][1] - e0);
+        l1 += expf(s[j][2] - e1) + expf(s[j][3] - e1);
+      }
+    } else {
+      l0 *= expf(m0 - n0);
+      l1 *= expf(m1 - n1);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        l0 += expf(s[j][0] - n0) + expf(s[j][1] - n0);
+        l1 += expf(s[j][2] - n1) + expf(s[j][3] - n1);
+      }
     }
     m0 = n0;
     m1 = n1;
@@ -192,7 +237,7 @@ attn_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
   for (int t = 0; t < ntiles; ++t) {
-    scaled_logits(s, qf, sk, t, n, scale, lane);
+    scaled_logits<MASK>(s, qf, sk, skm, t, n, scale, lane);
     uint32_t pa[4][4];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -217,13 +262,13 @@ attn_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
 
   const int g = lane >> 2, tq = lane & 3;
   const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  __nv_bfloat16* obase = out + (long long)b * n * d + h * HD + tq * 2;
+  __nv_bfloat16* obase = out + (long long)b * nq * d + h * HD + tq * 2;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
-    if (r0 < n)
+    if (r0 < nq)
       *reinterpret_cast<__nv_bfloat162*>(obase + (long long)r0 * d + j * 8) =
           __floats2bfloat162_rn(o[j][0], o[j][1]);
-    if (r1 < n)
+    if (r1 < nq)
       *reinterpret_cast<__nv_bfloat162*>(obase + (long long)r1 * d + j * 8) =
           __floats2bfloat162_rn(o[j][2], o[j][3]);
   }
@@ -231,27 +276,33 @@ attn_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
 
 }  // namespace
 
-// q, k, v: row r of image b at base + (b * n + r) * row_stride, head h
-// at columns h*64 (packed qkv: qkv, qkv + d, qkv + 2d and row_stride 3d;
-// separate (b, n, d) tensors: row_stride d); out: (b, n, d) bf16. head_dim
-// must be 64, d a multiple of 64 and n at most 768 (K and V of one head in
+// q: row r of image b at q + (b * nq + r) * q_stride, k and v at base +
+// (b * nk + r) * kv_stride, head h at columns h*64 (packed qkv: qkv,
+// qkv + d, qkv + 2d and both strides 3d, nq = nk; separate (b, n, d)
+// tensors: strides d; the SP tail: q a slice of the local qkv, stride 3d,
+// k and v of the gathered kv, stride 2d); out: (b, nq, d) bf16. kmask:
+// null, or (b, nk) fp32 with 1 = attend (the MASK instance). head_dim must
+// be 64, d a multiple of 64 and nk at most 768 (K and V of one head in
 // shared memory; the wrapper checks). scale = head_dim^-0.5. Returns the
 // cudaError_t of the launch.
 extern "C" int peekvit_attn_softmax_fwd(const void* q, const void* k, const void* v, void* out,
-                                        int b, int n, int d, int row_stride, int num_heads,
-                                        float scale, void* stream) {
-  if (b == 0 || n == 0) return 0;
-  if (d != num_heads * HD || row_stride < d) return (int)cudaErrorInvalidValue;
-  const int npad = (n + KT - 1) / KT * KT;
-  const int smem = (QT + 2 * npad) * STRIDE * 2;
+                                        const void* kmask, int b, int nq, int nk, int d,
+                                        int q_stride, int kv_stride, int num_heads, float scale,
+                                        void* stream) {
+  if (b == 0 || nq == 0) return 0;
+  if (nk == 0 || d != num_heads * HD || q_stride < d || kv_stride < d)
+    return (int)cudaErrorInvalidValue;
+  const int npad = (nk + KT - 1) / KT * KT;
+  const int smem = (QT + 2 * npad) * STRIDE * 2 + (kmask ? npad * 4 : 0);
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(attn_fwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  auto kernel = kmask ? attn_fwd_kernel<true> : attn_fwd_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((n + QT - 1) / QT, num_heads, b);
-  attn_fwd_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  dim3 grid((nq + QT - 1) / QT, num_heads, b);
+  kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), n, d, row_stride,
-      scale);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
+      static_cast<const float*>(kmask), nq, nk, d, q_stride, kv_stride, scale);
   return (int)cudaGetLastError();
 }

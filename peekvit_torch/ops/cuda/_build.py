@@ -44,7 +44,7 @@ _SIGNATURES = {
                        [_P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, ctypes.c_float,
                         _P]),
     "attn_softmax_fwd": ("peekvit_attn_softmax_fwd",
-                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P]),
+                         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]),
     "attn_softmax_bwd": ("peekvit_attn_softmax_bwd",
                          [_P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P]),
     "ln_bwd_rows": ("peekvit_ln_bwd_rows",

@@ -669,8 +669,8 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              f"{SOFTMAX_MAX_TOKENS}")
     out = torch.empty((b, n, d), dtype=torch.bfloat16, device=q.device)
     err = _build.library("attn_softmax_fwd")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, n, d, d, num_heads,
-        SOFTMAX_HEAD_DIM ** -0.5, _stream())
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, b, n, n, d, d, d,
+        num_heads, SOFTMAX_HEAD_DIM ** -0.5, _stream())
     _launched(key, err)
     return out
 

@@ -141,8 +141,8 @@ def attn_softmax_fwd(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     out = torch.empty((b, n, d), dtype=torch.bfloat16, device=qkv.device)
     base, step = qkv.data_ptr(), d * qkv.element_size()
     err = _build.library("attn_softmax_fwd")(
-        base, base + step, base + 2 * step, out.data_ptr(), b, n, d, 3 * d, num_heads,
-        SOFTMAX_HEAD_DIM ** -0.5, _stream())
+        base, base + step, base + 2 * step, out.data_ptr(), None, b, n, n, d, 3 * d, 3 * d,
+        num_heads, SOFTMAX_HEAD_DIM ** -0.5, _stream())
     _launched("attn_softmax_fwd", err)
     return out
 

@@ -49,6 +49,23 @@ under ``gemm_wgrad.<K>x<N>`` and each summing launch that follows a row
 split under ``gemm_wgrad.<K>x<N>.reduce`` (one for C, one more for the
 column sums), so the seventeen backward calls are 23 kernel launches at
 ViT-B/16 width.
+
+``sp_tail_block`` is Pallas site 12 (``sp_tail_block`` :576,
+``_sp_tail_call`` :548): the sequence-parallel tail, everything of a
+layer after its K/V gather. A rank's local rows x and queries q (B,
+n_local, D) attend to the gathered k, v (B, n_full, D) under a per-image
+key mask (B, n_full), then out = y + fc2(gelu(fc1(LN2(y)))) with the fp32
+y = x + attn Wo + bo: ``_sp_tail_math``'s numerics (:478-531). The Pallas
+forward runs one image per grid step; on Hopper it is five launches::
+
+    attn_softmax_fwd.kmask -> gemm(+bias+x, fp32) -> ln_rows.f32
+    -> gemm(+bias, gelu) -> gemm(+bias+y)
+
+the masked, rectangular mode of ``attn_softmax_fwd.cu`` and then the last
+four launches of ``layer_block_trainable``'s forward, unchanged. Its
+backward is torch autograd over :func:`_sp_tail_plain`, the port of
+``_sp_tail_math``'s batched form, as ``_sp_tail_bwd`` (:595) hands it to
+XLA; kmask gets no gradient.
 """
 
 from __future__ import annotations
@@ -60,6 +77,9 @@ import torch.nn.functional as F
 
 from peekvit_torch.ops.cuda import _build
 from peekvit_torch.ops.cuda.fused_attention import (
+    SOFTMAX_HEAD_DIM,
+    SOFTMAX_MAX_TOKENS,
+    _check_b15,
     _check_bf16,
     _count,
     _launched,
@@ -321,3 +341,141 @@ def layer_block_hybrid_ref(x, lns1, lnb1, w_qkv, b_qkv, w_out, b_out, lns2, lnb2
     """:func:`layer_block_hybrid` with its forward on the plain versions."""
     return _LayerBlock.apply(_PLAIN, True, x, lns1, lnb1, w_qkv, b_qkv, w_out, b_out, lns2,
                              lnb2, w1, b1, w2, b2, num_heads, eps)
+
+
+# ------------------------------------------------- the sequence-parallel tail
+
+
+def attn_softmax_fwd_kmask_ref(q, k, v, kmask, num_heads: int) -> torch.Tensor:
+    """Plain version of :func:`attn_softmax_fwd_kmask` (``_sp_tail_math``
+    :478-514, batched): fp32 logits times hd^-0.5, excluded keys at -inf,
+    the max-subtracted softmax, P rounded to q's dtype before PV, PV in
+    fp32 rounded to q's dtype. Differentiable."""
+    dt = q.dtype
+    b, nq, d = q.shape
+    nk = k.shape[1]
+    hd = d // num_heads
+    qh = q.float().reshape(b, nq, num_heads, hd).transpose(1, 2)
+    kh, vh = (t.float().reshape(b, nk, num_heads, hd).transpose(1, 2) for t in (k, v))
+    logits = torch.matmul(qh, kh.transpose(-1, -2)) * (1.0 / hd ** 0.5)
+    logits = torch.where(kmask[:, None, None, :] > 0, logits, float("-inf"))
+    s = torch.softmax(logits, dim=-1)
+    out = torch.matmul(s.to(dt).float(), vh).to(dt)
+    return out.transpose(1, 2).reshape(b, nq, d)
+
+
+def _row_stride(key: str, name: str, t: torch.Tensor, d: int) -> int:
+    """The row stride of a (B, n, D) bf16 operand whose rows may be a
+    column slice of a wider buffer (q of the local qkv, k and v of the
+    gathered kv)."""
+    _require(t.dtype == torch.bfloat16, f"{key} {name}: the kernel takes bf16, got {t.dtype}")
+    _require(t.dim() == 3 and t.shape[-1] == d, f"{key} {name}: must be (B, n, {d})")
+    rs = t.stride(1)
+    _require(t.stride(2) == 1 and t.stride(0) == t.shape[1] * rs and rs >= d and rs % 8 == 0,
+             f"{key} {name}: rows must be dense slices of one buffer, strides {t.stride()}")
+    _require(t.data_ptr() % 16 == 0, f"{key} {name}: must be 16-byte aligned")
+    return rs
+
+
+def attn_softmax_fwd_kmask(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           kmask: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """The SP tail's attention: q (B, n_q, D) against k, v (B, n_k, D)
+    under kmask (B, n_k), 1 = attend -> (B, n_q, D), the trainable block's
+    softmax (max subtracted, normalised, rounded to bf16 before PV). q may
+    be a column slice of a wider buffer (the local qkv) and k, v of another
+    (the gathered kv); k and v share one row stride. A row needs one
+    attended key. On CUDA: ``attn_softmax_fwd``'s masked mode, bf16, head
+    dim 64, n_k <= 768, kmask fp32; counted as ``attn_softmax_fwd.kmask``."""
+    if _on_cpu(q, k, v, kmask):
+        return attn_softmax_fwd_kmask_ref(q, k, v, kmask, num_heads)
+    key = "attn_softmax_fwd.kmask"
+    b, nq, d = q.shape
+    nk = k.shape[1]
+    _require(d == num_heads * SOFTMAX_HEAD_DIM, f"{key}: the kernel is built for head dim "
+             f"{SOFTMAX_HEAD_DIM}, got D={d}, H={num_heads}")
+    _require(k.shape == (b, nk, d) and v.shape == (b, nk, d),
+             f"{key}: k and v must be {(b, nk, d)}")
+    _require(nk <= SOFTMAX_MAX_TOKENS, f"{key}: n_k={nk} keys exceed the kernel's "
+             f"{SOFTMAX_MAX_TOKENS}")
+    q_stride = _row_stride(key, "q", q, d)
+    kv_stride = _row_stride(key, "k", k, d)
+    _require(_row_stride(key, "v", v, d) == kv_stride, f"{key}: k and v must share a row stride")
+    _require(kmask.dtype == torch.float32 and kmask.shape == (b, nk) and kmask.is_contiguous(),
+             f"{key}: kmask must be a contiguous fp32 {(b, nk)}")
+    out = torch.empty((b, nq, d), dtype=torch.bfloat16, device=q.device)
+    err = _build.library("attn_softmax_fwd")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), kmask.data_ptr(), b, nq, nk,
+        d, q_stride, kv_stride, num_heads, SOFTMAX_HEAD_DIM ** -0.5, _stream())
+    _launched(key, err)
+    return out
+
+
+def _sp_tail_plain(x, q, k, v, kmask, w_out, b_out, lns2, lnb2, w1, b1, w2, b2, num_heads, eps):
+    """Differentiable torch replica of the tail (``_sp_tail_math``
+    batched, :499-531): the products take the operands in their dtype and
+    sum in fp32, y and the residual sums in fp32, LN2 two-pass on y, then
+    LN2, h and the output rounded to x's dtype. The backward's recompute."""
+    dt = x.dtype
+    d = x.shape[-1]
+    attn = attn_softmax_fwd_kmask_ref(q, k, v, kmask, num_heads)
+    y = torch.matmul(attn.float(), w_out.float()) + b_out.float().reshape(-1) + x.float()
+    ln2, _, _ = _ln_f32(y.reshape(-1, d), lns2.float().reshape(-1), lnb2.float().reshape(-1), eps)
+    ln2 = ln2.reshape(y.shape).to(dt)
+    hpre = torch.matmul(ln2.float(), w1.float()) + b1.float().reshape(-1)
+    h = F.gelu(hpre, approximate="tanh").to(dt)
+    return (torch.matmul(h.float(), w2.float()) + b2.float().reshape(-1) + y).to(dt)
+
+
+class _SpTail(torch.autograd.Function):
+    """Forward: the five launches (``_sp_tail_call``), saving the inputs.
+    Backward: torch autograd over :func:`_sp_tail_plain` (``_sp_tail_bwd``
+    :595); no gradient for kmask."""
+
+    @staticmethod
+    def forward(ctx, ops, x, q, k, v, kmask, w_out, b_out, lns2, lnb2, w1, b1, w2, b2,
+                num_heads, eps):
+        ln, gemm, attn_fn = ops
+        b, nq, d = x.shape
+        x2 = x.contiguous().reshape(b * nq, d)
+        attn = attn_fn(q, k, v, kmask, num_heads).reshape(b * nq, d)
+        y = gemm(attn, w_out, b_out, "residual_f32", residual=x2)
+        ln2 = ln(y, lns2, lnb2, eps, out_dtype=x.dtype)
+        h = gemm(ln2, w1, b1, "gelu")
+        ctx.num_heads, ctx.eps = num_heads, eps
+        ctx.save_for_backward(x, q, k, v, kmask, w_out, b_out, lns2, lnb2, w1, b1, w2, b2)
+        return gemm(h, w2, b2, "residual", residual=y).reshape(b, nq, d)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, q, k, v, kmask, *ws = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in (x, q, k, v, *ws)]
+            out = _sp_tail_plain(*leaves[:4], kmask, *leaves[4:], ctx.num_heads, ctx.eps)
+            dx, dq, dk, dv, *dws = torch.autograd.grad(out, leaves, g)
+        return (None, dx, dq, dk, dv, None, *dws, None, None)
+
+
+_TAIL_KERNELS = (ln_rows, gemm_bias_epilogue, attn_softmax_fwd_kmask)
+_TAIL_PLAIN = (ln_rows_ref, gemm_bias_epilogue_ref, attn_softmax_fwd_kmask_ref)
+
+
+def sp_tail_block(x, q, k, v, kmask, w_out, b_out, lns2, lnb2, w1, b1, w2, b2,
+                  num_heads: int, eps: float = 1e-5) -> torch.Tensor:
+    """Post-gather SP tail (Pallas ``sp_tail_block``, :576): out = y +
+    MLP(LN2(y)), y = x + OutProj(Attn(q, k, v; kmask)). x, q: (B, n_local,
+    D); k, v: (B, n_full, D); kmask: (B, n_full) fp32, 1 = attend. Weights
+    in the (in, out) layout. Differentiable in every tensor but kmask. On
+    the CPU the plain versions; on CUDA five kernel launches, every tensor
+    bf16 but kmask (fp32 raises naming B15), head dim 64, n_full <= 768."""
+    if not _on_cpu(x, q, k, v, kmask):
+        _check_b15("sp_tail_block", x)
+    return _SpTail.apply(_TAIL_KERNELS, x, q, k, v, kmask, w_out, b_out, lns2, lnb2, w1, b1,
+                         w2, b2, num_heads, eps)
+
+
+def sp_tail_block_ref(x, q, k, v, kmask, w_out, b_out, lns2, lnb2, w1, b1, w2, b2,
+                      num_heads: int, eps: float = 1e-5) -> torch.Tensor:
+    """:func:`sp_tail_block` on the plain versions alone, whatever the
+    device: the reference the kernels are held against."""
+    return _SpTail.apply(_TAIL_PLAIN, x, q, k, v, kmask, w_out, b_out, lns2, lnb2, w1, b1, w2,
+                         b2, num_heads, eps)

@@ -24,6 +24,15 @@ conditions of trainer.py:278-308):
   ranks there; on the fused path a budget raises (it would be ignored),
   as in JAX (trainer.py:814-828).
 
+- **sp** (``sequence_parallel_devices=S`` > 1, a plain ViT or a RankViT,
+  the JAX ``_build_sp_train_step``, trainer.py:582-676): the token axis
+  sharded over the mesh's model axis, one rank per process
+  (``parallel.sequence.sequence_parallel_vit_forward``). Every rank
+  computes the global loss; it backpropagates ``loss / world size`` and
+  the parameter gradients are summed over every rank in one fp32
+  all-reduce, so each rank ends the step with the gradient of JAX's one
+  global loss and, after the same update, the same parameters.
+
 All feed the same update: optional gradient accumulation, global-norm
 clipping, freezing and the optimizer (``optim.GradientTransform``).
 
@@ -35,11 +44,12 @@ modulo 2^32): one stream per step as the JAX step's
 drawn first, then each gumbel gate in layer order. ``train_epoch`` passes
 ``step_idx = epoch * steps_per_epoch + i`` as the JAX trainer does.
 
-The JAX trainer's multi-device, quantisation-aware, reconstruction and
-noise options are not ported; each raises ``NotImplementedError`` naming
-its ROADMAP.md port queue A item. Batches are moved to the trainer's device
-as they come; the JAX ``prefetch_to_device`` (data/loader.py) is not
-ported.
+The JAX trainer's other multi-device options (``mesh=`` without SP, the
+pipeline, tensor-parallel, ZeRO and FSDP), its quantisation-aware,
+reconstruction and noise options are not ported; each raises
+``NotImplementedError`` naming its ROADMAP.md port queue A item. Batches
+are moved to the trainer's device as they come; the JAX
+``prefetch_to_device`` (data/loader.py) is not ported.
 """
 
 from __future__ import annotations
@@ -49,12 +59,16 @@ from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from peekvit_torch.models.adapters import live_params, tree_leaves
 from peekvit_torch.models.rankvit import RankVisionTransformer
 from peekvit_torch.models.registry import resolve_device
 from peekvit_torch.models.residualvit import DROPOUT_ITEM, ResidualVisionTransformer
 from peekvit_torch.models.vit import VisionTransformer
+from peekvit_torch.ops.cuda.fused_attention import SOFTMAX_HEAD_DIM, SOFTMAX_MAX_TOKENS
+from peekvit_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, make_mesh
+from peekvit_torch.parallel.sequence import sequence_parallel_vit_forward
 from peekvit_torch.training.fused import (
     residual_forward_fn,
     sample_budgets,
@@ -105,13 +119,12 @@ def _main_logits(out, output_format: Optional[str]):
     return out
 
 
-# field -> (value that means "unused", ROADMAP.md port queue A item)
+# field -> (value that means "unused", ROADMAP.md port queue A item);
+# ``mesh`` is ported with sequence_parallel_devices > 1 only
 _NOT_PORTED = {
     "mesh": (None, "item 9 (parallel and serving)"),
     "pipeline_stages": (0, "item 9 (parallel and serving)"),
     "pipeline_microbatches": (0, "item 9 (parallel and serving)"),
-    "sequence_parallel_devices": (0, "item 9 (parallel and serving)"),
-    "parallel_kernels": ("auto", "item 9 (parallel and serving)"),
     "tensor_parallel": (False, "item 9 (parallel and serving)"),
     "fsdp_sharded_params": (False, "item 9 (parallel and serving)"),
     "zero_sharded_optimizer": (False, "item 9 (parallel and serving)"),
@@ -160,17 +173,21 @@ class Trainer:
     device: Any = "cuda"
 
     def __post_init__(self):
+        sp = (self.sequence_parallel_devices or 0) > 1
         for name, (unused, item) in _NOT_PORTED.items():
             value = getattr(self, name)
             used = value is not None if unused is None else value != unused
-            if used:
+            if used and not (name == "mesh" and sp):
                 raise NotImplementedError(
                     f"Trainer({name}=...) is not ported yet: ROADMAP.md port queue A {item}")
+        if self.parallel_kernels not in ("auto", "xla", "pallas"):
+            raise ValueError(f"parallel_kernels must be 'auto', 'xla' or 'pallas', got "
+                             f"{self.parallel_kernels!r}")
         if not isinstance(self.model, (VisionTransformer, RankVisionTransformer,
                                        ResidualVisionTransformer)):
             raise NotImplementedError(
                 f"the port's Trainer trains the plain ViT, RankViT and the ResidualViT "
-                f"family; {type(self.model).__name__} is ROADMAP.md port queue A items 6-7")
+                f"family; {type(self.model).__name__} is ROADMAP.md port queue A item 7")
         if self.model.dropout or self.model.attention_dropout:
             raise NotImplementedError(
                 f"training with dropout is not ported yet ({DROPOUT_ITEM}): "
@@ -187,6 +204,8 @@ class Trainer:
         self.output_format = getattr(self.model, "output_format", None)
         self._forward = None
         self._train_kind = None
+        self._sp_world = 1
+        self._sp_fwd_kwargs = None  # the SP forward's arguments, once the step is built
 
     # ------------------------------------------------------------ train step
 
@@ -217,6 +236,9 @@ class Trainer:
 
     def _build_forward(self):
         """(images, budget vector or None, generator) -> (outputs, aux)."""
+        if (self.sequence_parallel_devices or 0) > 1:
+            self._train_kind = "sp"
+            return self._build_sp_forward()
         kind = self._fused_kind()
         if self.remat and kind != "vit":
             raise NotImplementedError(
@@ -237,6 +259,80 @@ class Trainer:
         if isinstance(self.model, RankVisionTransformer):
             return lambda x, budget, gen: self.model(x, budget=budget)
         return lambda x, budget, gen: self.model(x)
+
+    def _sp_kernels(self, model, s: int) -> str:
+        """``parallel_kernels`` resolved: ``"auto"`` takes the tail kernel
+        (``"pallas"``) on a CUDA device where its limits hold (head dim 64,
+        the padded sequence at most 768 keys), ``"xla"`` otherwise (so
+        always on the CPU), decided from the shapes up front. JAX's rule
+        (``_train_layer_fusable``, training/fused.py:26: the weights and
+        gradient accumulators fit VMEM, TPU only) is a TPU layout artefact;
+        both rules pick the tail kernel at ViT-B/16."""
+        if self.parallel_kernels != "auto":
+            return self.parallel_kernels
+        n = model.encoder.pos_embedding.shape[1]
+        n_pad = -(-n // s) * s
+        fits = (model.hidden_dim == model.num_heads * SOFTMAX_HEAD_DIM
+                and n_pad <= SOFTMAX_MAX_TOKENS)
+        return "pallas" if self.device.type == "cuda" and fits else "xla"
+
+    def _build_sp_forward(self):
+        """The SP step's forward (the JAX ``_build_sp_train_step``,
+        trainer.py:582-676): the mesh checks, then
+        ``sequence_parallel_vit_forward`` with dp x sp where the mesh's data
+        axis is > 1, the tail in bf16 on CUDA and fp32 on the CPU (JAX: bf16
+        on a TPU, fp32 elsewhere)."""
+        model = self.model
+        what = "sequence_parallel_devices"
+        if isinstance(model, ResidualVisionTransformer):
+            raise NotImplementedError(
+                f"{what} with a gated ResidualViT (JAX parallel/residual.py:183, fp32 linen "
+                "math) is not ported yet: ROADMAP.md port queue A item 9 (parallel and serving)")
+        if self.loss_compose and self.loss_compose.additional_losses:
+            raise NotImplementedError(f"plain ViT emits no aux for regularizers under {what}")
+        s = int(self.sequence_parallel_devices)
+        data_axis = None
+        if self.mesh is not None:
+            mesh = self.mesh
+            if mesh.shape[MODEL_AXIS] != s:
+                raise ValueError(f"mesh 'model' axis has {mesh.shape[MODEL_AXIS]} devices but "
+                                 f"{what}={s}")
+            if mesh.device.type != self.device.type:
+                raise ValueError(f"the mesh's device {mesh.device} is not on the Trainer's "
+                                 f"device type {self.device.type}")
+            if mesh.shape[DATA_AXIS] > 1:
+                data_axis = DATA_AXIS  # dp x sp
+        else:
+            world = dist.get_world_size() if dist.is_initialized() else 1
+            if world != s:
+                raise ValueError(f"{what}={s} needs a default process group of {s} ranks "
+                                 f"(torch.distributed.init_process_group), have {world}")
+            mesh = make_mesh(1, s, device=self.device)
+        if mesh.device != self.device:  # the rank's own card ("cuda" names the current one)
+            self.device = mesh.device
+            model.to(self.device)
+        self._sp_world = mesh.shape[MODEL_AXIS] * mesh.shape[DATA_AXIS]
+        self._sp_fwd_kwargs = kw = dict(
+            num_heads=model.num_heads, patch_size=model.patch_size, mesh=mesh,
+            num_class_tokens=model.num_class_tokens,
+            num_registers=getattr(model, "num_registers", 0), ln_eps=model.ln_eps,
+            rankvit_layers=tuple(getattr(model, "rankvit_layers", ()) or ()),
+            data_axis=data_axis, kernels=self._sp_kernels(model, s),
+            compute_dtype=torch.bfloat16 if self.device.type == "cuda" else torch.float32)
+        return lambda x, budget, gen: (
+            sequence_parallel_vit_forward(self.params, x, budget=budget, **kw), {})
+
+    def _all_reduce_grads(self) -> None:
+        """Every parameter's gradient summed over all ranks: one fp32
+        all-reduce of the flattened gradients (gloo pays per call)."""
+        params = self.tx.params
+        flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p))
+                          .reshape(-1).float() for p in params])
+        dist.all_reduce(flat)
+        offset = 0
+        for p in params:
+            p.grad = flat[offset:offset + p.numel()].view_as(p).to(p.dtype)
+            offset += p.numel()
 
     def _loss(self, out, aux, y, budget):
         """The linen ``loss_fn`` (trainer.py:352-380): the cross-entropy (of
@@ -284,7 +380,11 @@ class Trainer:
                       else torch.full((n,), float(budget), dtype=torch.float32, device=x.device))
         out, aux = self._forward(x, budget, gen)
         total, metrics = self._loss(out, aux, y, budget)
-        total.backward()
+        if self._train_kind == "sp":
+            (total / self._sp_world).backward()
+            self._all_reduce_grads()
+        else:
+            total.backward()
         self.tx()
         return {k: v.detach() for k, v in metrics.items()}
 

@@ -22,11 +22,13 @@ Modes: ``ln_rows`` (bf16), ``gemm_bias_epilogue`` (epilogues 0-3 and
 6-10: bias, gelu, residual_f32, residual with an fp32 and a bf16
 residual, masked_residual_f32, masked_residual, masked_rowdot, gelu_hpre
 and NT gelu_grad), ``gemm_nt`` (none, none_f32), ``attn_softmax_fwd``
-(packed qkv), ``ln_bwd_rows`` (bf16 g) and ``ln_bwd_rows_masked``, at
-ViT-B/16 bs256 shapes and at a small ragged shape. A mode only this
-checkout has (``gemm_bias_epilogue.partial_f32``, epilogue 11, when the
-other checkout predates it) is reported as new and must launch; it is
-held against its plain version by chip_smoke.py.
+(packed qkv, and separate q, k, v), ``ln_bwd_rows`` (bf16 g) and
+``ln_bwd_rows_masked``, at ViT-B/16 bs256 shapes and at a small ragged
+shape. A mode only this checkout has (``gemm_bias_epilogue.partial_f32``,
+epilogue 11, or ``attn_softmax_fwd.kmask``, the sequence-parallel tail's
+masked rectangular attention at half the tokens against all of them,
+when the other checkout predates it) is reported as new and must launch;
+it is held against its plain version by chip_smoke.py.
 """
 
 from __future__ import annotations
@@ -61,6 +63,7 @@ def child(root: str) -> dict:
     import peekvit_torch
     from peekvit_torch.ops.cuda import fused_attention as fa
     from peekvit_torch.ops.cuda import fused_attention_vjp as vjp
+    from peekvit_torch.ops.cuda import fused_layer_vjp as lv
 
     here = os.path.realpath(os.path.dirname(peekvit_torch.__file__))
     if not here.startswith(root + os.sep):
@@ -87,6 +90,11 @@ def child(root: str) -> dict:
         mask = (torch.rand(rows, generator=gen, device=dev) > 0.3).to(bf16)
         rowdot = randn(rows, 3, scale=0.05, dtype=torch.float32)
         w_nt2, hpre = randn(m, d, scale=0.03), randn(rows, m, dtype=torch.float32)
+        q_sep, k_sep, v_sep = (randn(b, n, d) for _ in range(3))
+        qkv_local = randn(b, (n + 1) // 2, 3 * d)
+        kv = randn(b, n, 2 * d)
+        kmask = (torch.rand(b, n, generator=gen, device=dev) > 0.4).float()
+        kmask[:, 0] = 1.0
         modes = {
             "ln_rows": lambda: fa.ln_rows(x, scale, shift, EPS),
             "gemm_bias_epilogue.bias": lambda: fa.gemm_bias_epilogue(x, w1, b1, "bias"),
@@ -107,12 +115,16 @@ def child(root: str) -> dict:
             "gemm_nt.none": lambda: fa.gemm_nt(a_nt, w_nt, "none"),
             "gemm_nt.none_f32": lambda: fa.gemm_nt(a_nt, w_nt, "none_f32"),
             "attn_softmax_fwd": lambda: vjp.attn_softmax_fwd(qkv, h),
+            "attn_softmax_fwd.separate": lambda: fa.fused_attention(q_sep, k_sep, v_sep, h),
             "ln_bwd_rows": lambda: vjp.ln_bwd_rows(x, dln, g, scale, EPS),
             "ln_bwd_rows.masked": lambda: vjp.ln_bwd_rows_masked(x, dln, g, scale, shift, mask,
                                                                  rowdot, EPS),
         }
         if hasattr(fa, "gemm_partial_f32"):  # added after the earlier modes
             modes["gemm_bias_epilogue.partial_f32"] = lambda: fa.gemm_partial_f32(x, w1)
+        if hasattr(lv, "attn_softmax_fwd_kmask"):
+            modes["attn_softmax_fwd.kmask"] = lambda: lv.attn_softmax_fwd_kmask(
+                qkv_local[..., :d], kv[..., :d], kv[..., d:], kmask, h)
         for name, fn in modes.items():
             fa.reset_launch_counts()
             with torch.inference_mode():

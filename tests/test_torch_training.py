@@ -428,13 +428,16 @@ def test_trainer_refuses_what_is_not_ported():
     _, tm = _model_pair()
     base = dict(model=tm, optimizer=optim.Adam(), device="cpu")
     for kwargs in (dict(mesh=object()), dict(pipeline_stages=2),
-                   dict(sequence_parallel_devices=2), dict(tensor_parallel=True),
+                   dict(pipeline_microbatches=2), dict(tensor_parallel=True),
                    dict(fsdp_sharded_params=True), dict(zero_sharded_optimizer=True),
                    dict(qat=True), dict(qat="static"), dict(reconstruction_weight=0.5)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md port queue A item"):
             Trainer(**base, **kwargs)
     trainer = Trainer(**base)
     x, y = _batch(1, n=2)
+    # sequence parallelism is ported: without a process group of 2 ranks it raises
+    with pytest.raises(ValueError, match="process group of 2 ranks"):
+        Trainer(**base, sequence_parallel_devices=2).train_step(x, y)
     with pytest.raises(NotImplementedError, match="item 10"):
         trainer.train_step(x, y, noise_value=0.5)
     with pytest.raises(NotImplementedError, match="item 5"):
