@@ -3119,15 +3119,23 @@ def wgrad_shapes(d: int, m: int) -> dict:
 def merged_per_layer(lv, rows: int, d: int, m: int) -> dict:
     """Launches per layer of one merged train step at ``rows`` token rows:
     MERGED_FWD_PER_LAYER and MERGED_BWD_PER_LAYER, one gemm_wgrad.<K>x<N>
-    per product, and after each product whose rows are split one summing
-    launch for C and one for its column sums (lv.wgrad_splits)."""
+    per product, and after each product whose plan splits rows one summing
+    launch (C and its column sums together; lv.wgrad_plan)."""
     want = {k: MERGED_FWD_PER_LAYER.get(k, 0) + MERGED_BWD_PER_LAYER.get(k, 0)
             for k in {**MERGED_FWD_PER_LAYER, **MERGED_BWD_PER_LAYER}}
-    for k, n, colsum in wgrad_shapes(d, m).values():
+    for k, n, _ in wgrad_shapes(d, m).values():
         want[f"gemm_wgrad.{k}x{n}"] = 1
-        if lv.wgrad_splits(rows, k, n)[0] > 1:
-            want[f"gemm_wgrad.{k}x{n}.reduce"] = 1 + colsum
+        if lv.wgrad_plan(rows, k, n).splits > 1:
+            want[f"gemm_wgrad.{k}x{n}.reduce"] = 1
     return want
+
+
+def wgrad_plan_summary(lv, rows: int, k: int, n: int) -> dict:
+    """gemm_wgrad's schedule at one shape, for the record."""
+    p = lv.wgrad_plan(rows, k, n)
+    return {"bn": p.bn, "tiles": p.tiles_m * p.tiles_n, "stages": p.stages,
+            "units": len(p.units), "grid": p.grid, "split_tiles": len(p.red_tiles),
+            "splits": p.splits, "waves": len(p.units) / lv.WGRAD_SMS}
 
 
 def merged_kernel_checks(torch, fa, vjp, lv, check, randn, x, y, ln_s, ln_b, g_rows, dln_in,
@@ -3171,8 +3179,8 @@ def merged_kernel_checks(torch, fa, vjp, lv, check, randn, x, y, ln_s, ln_b, g_r
             c_2, s_2 = lv.gemm_wgrad(a, b, colsum=colsum)
             rerun[name] = torch.equal(c_2, c_k) and (not colsum or torch.equal(s_2, s_k))
         emit({"phase": "gemm_wgrad_rerun", "bit_identical": rerun,
-              "splits": {k: lv.wgrad_splits(rows, a.shape[1], b.shape[1])
-                         for k, (a, b, _) in wgrad.items()}, "card": smi})
+              "plan": {k: wgrad_plan_summary(lv, rows, a.shape[1], b.shape[1])
+                       for k, (a, b, _) in wgrad.items()}, "card": smi})
         if not all(rerun.values()):
             raise AssertionError(f"gemm_wgrad: a rerun gave other bits {rerun}")
         dy, dy_b, pw, pb, pdy = vjp.ln_bwd_rows_f32(y, dln_in, g_rows, ln_s, EPS)
@@ -3196,6 +3204,70 @@ def merged_kernel_checks(torch, fa, vjp, lv, check, randn, x, y, ln_s, ln_b, g_r
             raise AssertionError("attn_softmax_fwd: separate q, k, v differ from packed qkv")
         torch.cuda.synchronize()
     return {"ln2": ln2, "hpre": hpre, "dy": dy, "wgrad": wgrad, "q": q, "k": k, "v": v}
+
+
+ATTN_EDGE_TOKENS = (1, 15, 16, 17, 64, 65, 197, 198, 208, 256, 257, 768)
+KMASK_EDGES = ((99, 198), (50, 200), (1, 17), (130, 260))
+WGRAD_EDGE_ROWS = (0, 31, 32, 33, 50432)
+EDGE_BATCH = 4
+
+
+def redesign_edge_checks(torch, fa, vjp, lv, check, randn, d, h, m, smi) -> None:
+    """Phase 28, the redesigned kernels at their edge shapes (ViT-B/16
+    width, 4 images): attn_softmax_fwd packed at every N of
+    ATTN_EDGE_TOKENS (16-key padding, the 256-key switch to the two-pass
+    kernel, the 768 limit) against attn_softmax_fwd_ref, and .separate on
+    the same values bit-equal to it; attn_softmax_fwd.kmask at every n_q /
+    n_k of KMASK_EDGES with image 0 under a random mask, image 1 with its
+    first 64 keys (or all but the last) excluded, image 2 attending its
+    last key only, image 3 every key; gemm_wgrad at every R of
+    WGRAD_EDGE_ROWS and (K, N) of (32, 96), (768, 776) and the four
+    ViT-B/16 products, column sums off and on, against gemm_wgrad_ref, and
+    a rerun bit-identical."""
+    tol_attn, tol_f32 = 3e-2, 1e-3
+    reason_attn = "bf16 rounding of the normalised P and of the output (3e-2 of max|plain|)"
+    same = {}
+    with torch.inference_mode():
+        for n in ATTN_EDGE_TOKENS:
+            qkv = randn(EDGE_BATCH, n, 3 * d)
+            got = vjp.attn_softmax_fwd(qkv, h)
+            check(f"edge.attn_softmax_fwd.N{n}", got, vjp.attn_softmax_fwd_ref(qkv, h), tol_attn,
+                  reason_attn)
+            q, k, v = (qkv[..., i * d:(i + 1) * d].contiguous() for i in range(3))
+            same[f"separate.N{n}"] = torch.equal(fa.fused_attention(q, k, v, h), got)
+        for nq, nk in KMASK_EDGES:
+            q = randn(EDGE_BATCH, nq, 3 * d)[..., :d]
+            kv = randn(EDGE_BATCH, nk, 2 * d)
+            gen = torch.Generator(device=kv.device).manual_seed(nq * 1000 + nk)
+            kmask = (torch.rand(EDGE_BATCH, nk, generator=gen, device=kv.device) > 0.5).float()
+            kmask[0, 0] = 1.0
+            kmask[1] = 1.0
+            kmask[1, :min(64, nk - 1)] = 0.0
+            kmask[2] = 0.0
+            kmask[2, nk - 1] = 1.0
+            kmask[3] = 1.0
+            got = lv.attn_softmax_fwd_kmask(q, kv[..., :d], kv[..., d:], kmask, h)
+            want = lv.attn_softmax_fwd_kmask_ref(q, kv[..., :d], kv[..., d:], kmask, h)
+            check(f"edge.attn_softmax_fwd.kmask.{nq}x{nk}", got, want, tol_attn, reason_attn)
+        shapes = [(32, 96), (768, 776)] + [(k, n) for k, n, _ in wgrad_shapes(d, m).values()]
+        for rows in WGRAD_EDGE_ROWS:
+            for k, n in shapes:
+                a, b = randn(rows, k, scale=0.5), randn(rows, n, scale=0.05)
+                for colsum in (False, True):
+                    c, s = lv.gemm_wgrad(a, b, colsum=colsum)
+                    c_p, s_p = lv.gemm_wgrad_ref(a, b, colsum=colsum)
+                    name = f"edge.gemm_wgrad.R{rows}.{k}x{n}" + (".colsum" if colsum else "")
+                    check(name, c, c_p, tol_f32, "fp32 sums over the rows in another order")
+                    if colsum:
+                        check(name + ".sums", s, s_p, tol_f32, "fp32 column sums in another order")
+                    c2, s2 = lv.gemm_wgrad(a, b, colsum=colsum)
+                    same[name + ".rerun"] = torch.equal(c, c2) and (
+                        not colsum or torch.equal(s, s2))
+        torch.cuda.synchronize()
+    emit({"phase": "redesign_edges", "checked_bit_identical": len(same),
+          "differ": [k for k, v in same.items() if not v], "card": smi})
+    if not all(same.values()):
+        raise AssertionError(f"redesign edges: bits differ {[k for k, v in same.items() if not v]}")
 
 
 def merged_block_checks(torch, lv, randn, layer_w, d, h, n, smi) -> None:
@@ -3233,7 +3305,7 @@ def merged_train_phases(torch, F, fa, dev, smi, args) -> dict:
     make_fused_train_step(AdamW(1e-4), merged=True) for five steps on one
     bs-64 batch, then the same from the same weights with merged="hybrid":
     counts zeroed just before and read just after each step (merged: 24
-    wrapper calls and 6 gemm_wgrad summing launches per layer, held per
+    wrapper calls and 4 gemm_wgrad summing launches per layer, held per
     key to merged_per_layer; hybrid: 7), losses finite and falling; one bs-16
     step's gradients of each against the same step on the plain versions.
     Returns the counts, the model and its batch maker."""
@@ -4885,6 +4957,7 @@ def main() -> int:
 
     m_ins = merged_kernel_checks(torch, fa, vjp, lv, check, randn, x, y, ln_s, ln_b, g_rows,
                                  dln_in, fc1_w, fc1_b, fc2_w, qkv, d, h, m, rows, smi)
+    redesign_edge_checks(torch, fa, vjp, lv, check, randn, d, h, m, smi)
     merged_block_checks(torch, lv, randn, (ln_s, ln_b, w_qkv, b_qkv, w_out, b_out, ln_s, ln_b,
                                            fc1_w, fc1_b, fc2_w, fc2_b), d, h, n, smi)
     mtrain = merged_train_phases(torch, F, fa, dev, smi, B16)

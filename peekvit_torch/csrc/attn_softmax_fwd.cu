@@ -4,58 +4,80 @@
 // fused_attention_vjp.py:49 _attn_fwd_kernel (:65-82), the forward of
 // attention_block_trainable: softmax(q k^T * scale) v per image and head,
 // with the Pallas numerics kept:
-//   - logits = (q . k^T) accumulated in fp32, then multiplied by scale
-//     (the scale is not folded into q);
+//   - logits = (q . k^T) accumulated in fp32, then multiplied by scale;
 //   - softmax in fp32 with the row max subtracted: e = exp(x - max),
-//     s = e / sum(e) (a division, as jax.nn.softmax does);
+//     s = e / sum(e);
 //   - s is rounded to bf16 BEFORE the PV product, s_bf16 . v accumulates
 //     in fp32 and the output is rounded to bf16.
-// An online (flash) softmax that divides after PV rounds elsewhere, so
-// the kernel makes two passes over the keys: the first takes each row's
-// max and sum (online, rescaling the partial sum when the max grows), the
-// second forms the normalised bf16 P and multiplies.
+// Because P is normalised before PV, the whole row of logits is needed
+// before any PV product: no online rescaling.
 //
-// Bound on H100: at ViT-B (N = 197, head dim 64) the two products are
-// 4 * N * N * 64 flops per (image, head) against 4 * N * 64 * 2 bytes of
-// q, k, v and output, about 100 flops per byte, under the ~295 flop/byte
-// ridge: bytes bound it. Design: grid (query tile of 64, head, image), 4
-// warps of 16 query rows. The head's whole K and V (N padded to a
-// multiple of 64, zero-filled) sit in dynamic shared memory (2 x 256 x 72
-// bf16 at N = 197), loaded once with cp.async straight from the packed
-// (B, N, 3D) buffer; both passes read them from there. Scores stay in
-// registers and feed the PV product as its A operand. Keys past N get
-// logit -inf (e = 0); query rows past N are not stored.
+// q, k and v are addressed by three base pointers and their row strides,
+// so the same kernels carry peekvit_tpu/ops/pallas/fused_attention.py:220
+// fused_attention (_attn_kernel :168, separate (B, N, D) q, k, v; row
+// stride D; its padding to 128 is a TPU layout artefact) and the
+// attention of fused_layer_vjp.py:560 _sp_tail_call (_sp_tail_math
+// :478-514, the sequence-parallel tail): n_q local queries against n_k
+// gathered keys under a per-image key mask (B, n_k) fp32, 1 = attend; an
+// excluded key, like a key past n_k, has logit -inf before the row max.
+// The packed mode passes qkv, qkv + D, qkv + 2D and stride 3D.
 //
-// q, k and v are addressed by three base pointers and one row stride, so
-// the same kernel also carries peekvit_tpu/ops/pallas/fused_attention.py
-// :220 fused_attention (_attn_kernel :168, the test-only attention over
-// separate (B, N, D) q, k, v; row stride D). Its padding of N and the
-// head dim to 128 with masked keys is a TPU layout artefact: keys past N
-// already get -inf here. The packed mode passes qkv, qkv + D, qkv + 2D
-// and stride 3D, the addresses it always read.
+// Bound on H100: at ViT-B bs256 (N = 197, head dim 64) the two products
+// are 4 * N * N * 64 flops per (image, head), 3.1e10 in all (0.031 ms of
+// bf16 tensor time), against 310 MB of q, k, v and output (0.0925 ms):
+// bytes bound it. What costs time in practice is the work per logit
+// (max, exp, sum, scale, pack) and the latency of loading a head.
 //
-// A third mode carries the attention of peekvit_tpu/ops/pallas/
-// fused_layer_vjp.py:560 _sp_tail_call (_sp_tail_math :478-514, the
-// sequence-parallel tail): the rank's n_q local queries attend to the
-// n_k gathered keys (n_q != n_k, q and k/v with their own row strides:
-// q is a slice of the local qkv, k and v of the gathered kv buffer), and
-// a per-image key mask (B, n_k) fp32, 1 = attend, gives an excluded key
-// logit -inf before the row max, as keys past n_k get. It is the template
-// instance MASK = true; the other modes are MASK = false, whose code is
-// the earlier modes' unchanged. The mask is read once per block into
-// shared memory. A 64-key tile whose keys are all excluded, met while a
-// row's running max is still -inf, would give exp(-inf - (-inf)) = NaN
-// in pass 1: the masked instance takes the exponent's base as 0 while the
-// max is -inf (every term is then exp(-inf) = 0), so any mask that leaves
-// a row one key gives that row the plain version's softmax, wherever the
-// key sits. At ViT-B/16 bs256 over two ranks (n_q 99, n_k 198) this
-// attention alone is bytes-bound as the square mode is; the tail's GEMMs
-// make the whole site operation-bound.
+// Design for n_k <= 256 (attn_wgmma_kernel; every path the port runs:
+// N = 197 / 198, n_k 198 / 200 in the SP tail): one CTA of one warpgroup
+// per (image, head, 256 query rows). Thread 0 loads the head's K and V
+// once per CTA, and up to four 64-row Q tiles, by TMA (3-D tensor maps
+// over (column, token, image), 128-byte swizzle: a head row is 128
+// bytes) onto three mbarriers: Q tile 0 with K first, the other Q tiles,
+// then V, so the first product starts while V and the later Q tiles are
+// still in flight. Keys are padded to a multiple of 16 (NT chunks of 16,
+// a template argument: N = 197 becomes 208), the rows past n_k read as
+// zero. Per 64-row query tile, in one pass:
+//   S = Q K^T: Q's fragments by ldmatrix from the swizzled tile (register
+//     A operand), K in shared memory K-major, 4 x NT wgmma m64n16k16;
+//     the whole row of logits stays in registers (8 NT fp32 a thread);
+//   the row max (quad shuffles), exp once, the sum, one reciprocal per
+//     row, the normalised bf16 P packed in registers as wgmma's A
+//     operand;
+//   O = P V: NT wgmma m64n64k16 with V in shared memory as the MN-major
+//     (transposed) B operand, the fp32 O rounded to bf16 on store.
+// So Q K^T is computed once per logit and exp once (the two-pass kernel
+// below computes both twice and divides per logit). 96 KB of shared
+// memory and ~140 registers a thread: two CTAs per SM.
+// Numerics decisions: exp is taken as exp2f of the raw logit times
+// scale * log2(e) less the raw row max times the same factor (one FFMA and
+// one MUFU.EX2 a logit; the max commutes with the positive scale), and
+// the division is one IEEE reciprocal per row and one multiply a logit;
+// both move P by about an fp32 ulp before its bf16 rounding (2^-9). Both
+// were taken for their instruction count (expf is a few FMAs around the
+// same MUFU.EX2, a division several instructions a logit); the kernel's
+// time with expf and a division per logit instead was not measured.
+// The key mask (and the n_k edge) becomes 64 register bits per thread
+// once per CTA: a thread's key columns are fixed by the fragment layout.
+// A row's max is taken over all its keys at once, so a fully excluded run
+// of keys needs no guard; a row with one attended key gets the plain
+// version's softmax wherever that key sits.
+//
+// For 256 < n_k <= 768 the C entry point keeps the earlier two-pass
+// kernel (attn_fwd_kernel, its code and bits unchanged): grid (query tile
+// of 64, head, image), 4 warps of 16 query rows, the head's whole K and V
+// (n_k padded to a multiple of 64) in shared memory by cp.async; pass 1
+// takes each row's max and sum online (the masked instance takes the
+// exponent's base as 0 while a row's max is still -inf), pass 2 forms the
+// normalised bf16 P with mma.sync and multiplies. The choice is by shape
+// inside the entry point, never a fallback on error.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -274,6 +296,224 @@ attn_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
   }
 }
 
+
+// ------------------------------------------------------- the wgmma kernel
+
+constexpr int WG_QTILES = 4;          // 64-row query tiles per CTA
+constexpr int WG_QBYTES = 64 * 128;   // one swizzled Q tile
+constexpr int WG_MAX_KEYS = 256;
+
+__device__ __forceinline__ void wgmma_m64n16k16_rs(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{" 
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{" 
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// Bit (r & 1) | ((r >> 2) << 1) of a 16-key chunk: the key column of
+// accumulator register r of wgmma m64n16 (r = 0, 1: row g, columns 2t,
+// 2t + 1; r = 2, 3: row g + 8, the same columns; r = 4..7: columns 8 + 2t,
+// 9 + 2t).
+__device__ __forceinline__ int key_bit(int r) { return (r & 1) | ((r >> 2) << 1); }
+
+template <int NT, bool MASK>
+__global__ void __launch_bounds__(128)
+attn_wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+                  const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ out,
+                  const float* __restrict__ kmask, int nq, int nk, int d, float scale_log2e) {
+  constexpr int KV_BYTES = NT * 16 * 128;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  const uint32_t sq = (raw + 1023) & ~1023u;  // 1024-aligned for the swizzle
+  const uint32_t sk = sq + WG_QTILES * WG_QBYTES;
+  const uint32_t sv = sk + KV_BYTES;
+  const uint32_t bars = sv + KV_BYTES;  // three mbarriers: Q0 + K, Q1-3, V
+
+  const int q0 = blockIdx.x * WG_QTILES * 64, h = blockIdx.y, b = blockIdx.z;
+  const int left = (nq - q0 + 63) / 64;
+  const int ntq = left < WG_QTILES ? left : WG_QTILES;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) hopper::mbar_init(bars + 8 * i, 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbar_expect_tx(bars, WG_QBYTES + KV_BYTES);
+    hopper::tma_load_3d(sq, &qmap, h * 64, q0, b, bars);
+    hopper::tma_load_3d(sk, &kmap, h * 64, 0, b, bars);
+    if (ntq > 1) {
+      hopper::mbar_expect_tx(bars + 8, (ntq - 1) * WG_QBYTES);
+      for (int t = 1; t < ntq; ++t)
+        hopper::tma_load_3d(sq + t * WG_QBYTES, &qmap, h * 64, q0 + 64 * t, b, bars + 8);
+    }
+    hopper::mbar_expect_tx(bars + 16, KV_BYTES);
+    hopper::tma_load_3d(sv, &vmap, h * 64, 0, b, bars + 16);
+  }
+
+  // The thread's key columns, attended or not: bit 4 j + key_bit(r).
+  uint64_t keep = 0;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = 16 * j + (e >> 1) * 8 + 2 * t4 + (e & 1);
+      bool ok = key < nk;
+      if constexpr (MASK) ok = ok && kmask[(long long)b * nk + key] > 0.f;
+      keep |= (uint64_t)ok << (4 * j + e);
+    }
+
+  for (int t = 0; t < ntq; ++t) {
+    hopper::mbar_wait(t == 0 ? bars : bars + 8, 0);
+    // Q's fragments (register A operand) from the swizzled tile.
+    uint32_t qa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int r = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+      const int chunk = 2 * kk + (lane >> 4);
+      const uint32_t addr = sq + t * WG_QBYTES + r * 128 + ((chunk ^ (r & 7)) << 4);
+      asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                   : "=r"(qa[kk][0]), "=r"(qa[kk][1]), "=r"(qa[kk][2]), "=r"(qa[kk][3])
+                   : "r"(addr));
+    }
+    float s[NT][8];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int r = 0; r < 8; ++r) s[j][r] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) hopper::fence_regs<8>(s[j]);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        wgmma_m64n16k16_rs(s[j], qa[kk], hopper::desc_sw128(sk + j * 2048 + kk * 32, 16, 1024));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+#pragma unroll
+    for (int j = 0; j < NT; ++j) hopper::fence_regs<8>(s[j]);
+
+    // Rows g (registers 0, 1, 4, 5) and g + 8 (2, 3, 6, 7).
+    float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const float x = (keep >> (4 * j + key_bit(r))) & 1 ? s[j][r] : -INFINITY;
+        s[j][r] = x;
+        if ((r >> 1) & 1)
+          m1 = fmaxf(m1, x);
+        else
+          m0 = fmaxf(m0, x);
+      }
+    m0 = quad_max(m0);
+    m1 = quad_max(m1);
+    const float b0 = -m0 * scale_log2e, b1 = -m1 * scale_log2e;
+    float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const bool hi = (r >> 1) & 1;
+        const float e = exp2f(fmaf(s[j][r], scale_log2e, hi ? b1 : b0));
+        s[j][r] = e;
+        if (hi)
+          l1 += e;
+        else
+          l0 += e;
+      }
+    const float i0 = 1.f / quad_sum(l0), i1 = 1.f / quad_sum(l1);
+    uint32_t pa[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      pa[j][0] = pack_bf16(s[j][0] * i0, s[j][1] * i0);
+      pa[j][1] = pack_bf16(s[j][2] * i1, s[j][3] * i1);
+      pa[j][2] = pack_bf16(s[j][4] * i0, s[j][5] * i0);
+      pa[j][3] = pack_bf16(s[j][6] * i1, s[j][7] * i1);
+    }
+
+    if (t == 0) hopper::mbar_wait(bars + 16, 0);
+    float o[32];
+#pragma unroll
+    for (int r = 0; r < 32; ++r) o[r] = 0.f;
+    hopper::fence_regs<32>(o);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) hopper::fence_regs<4>(pa[j]);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      wgmma_m64n64k16_rs(o, pa[j], hopper::desc_sw128(sv + j * 2048, 1024, 1024));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs<32>(o);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) hopper::fence_regs<4>(pa[j]);
+
+    const int r0 = q0 + t * 64 + warp * 16 + g, r1 = r0 + 8;
+    __nv_bfloat16* obase = out + (long long)b * nq * d + h * HD + t4 * 2;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (r0 < nq)
+        *reinterpret_cast<__nv_bfloat162*>(obase + (long long)r0 * d + j * 8) =
+            __floats2bfloat162_rn(o[4 * j], o[4 * j + 1]);
+      if (r1 < nq)
+        *reinterpret_cast<__nv_bfloat162*>(obase + (long long)r1 * d + j * 8) =
+            __floats2bfloat162_rn(o[4 * j + 2], o[4 * j + 3]);
+    }
+  }
+}
+
+template <int NT, bool MASK>
+int launch_wgmma(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
+                 __nv_bfloat16* out, const float* kmask, int b, int nq, int nk, int d, int heads,
+                 float scale_log2e, cudaStream_t stream) {
+  const int smem = 1024 + WG_QTILES * WG_QBYTES + 2 * NT * 16 * 128 + 64;
+  auto kernel = attn_wgmma_kernel<NT, MASK>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((nq + WG_QTILES * 64 - 1) / (WG_QTILES * 64), heads, b);
+  kernel<<<grid, 128, smem, stream>>>(qm, km, vm, out, kmask, nq, nk, d, scale_log2e);
+  return (int)cudaGetLastError();
+}
+
+template <bool MASK>
+int dispatch_wgmma(int nt, const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
+                   __nv_bfloat16* out, const float* kmask, int b, int nq, int nk, int d, int heads,
+                   float sl2e, cudaStream_t st) {
+  switch (nt) {
+#define PEEKVIT_NT(n) \
+  case n:             \
+    return launch_wgmma<n, MASK>(qm, km, vm, out, kmask, b, nq, nk, d, heads, sl2e, st);
+    PEEKVIT_NT(1) PEEKVIT_NT(2) PEEKVIT_NT(3) PEEKVIT_NT(4) PEEKVIT_NT(5) PEEKVIT_NT(6)
+    PEEKVIT_NT(7) PEEKVIT_NT(8) PEEKVIT_NT(9) PEEKVIT_NT(10) PEEKVIT_NT(11) PEEKVIT_NT(12)
+    PEEKVIT_NT(13) PEEKVIT_NT(14) PEEKVIT_NT(15) PEEKVIT_NT(16)
+#undef PEEKVIT_NT
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // q: row r of image b at q + (b * nq + r) * q_stride, k and v at base +
@@ -281,10 +521,11 @@ attn_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
 // qkv + d, qkv + 2d and both strides 3d, nq = nk; separate (b, n, d)
 // tensors: strides d; the SP tail: q a slice of the local qkv, stride 3d,
 // k and v of the gathered kv, stride 2d); out: (b, nq, d) bf16. kmask:
-// null, or (b, nk) fp32 with 1 = attend (the MASK instance). head_dim must
-// be 64, d a multiple of 64 and nk at most 768 (K and V of one head in
-// shared memory; the wrapper checks). scale = head_dim^-0.5. Returns the
-// cudaError_t of the launch.
+// null, or (b, nk) fp32 with 1 = attend (the MASK instances). head_dim
+// must be 64, d a multiple of 64, nk at most 768, the pointers 16-byte
+// aligned and the strides multiples of 8 (the wrappers check). nk <= 256
+// runs the wgmma kernel, a larger nk the two-pass kernel. scale =
+// head_dim^-0.5. Returns the cudaError_t of the launch.
 extern "C" int peekvit_attn_softmax_fwd(const void* q, const void* k, const void* v, void* out,
                                         const void* kmask, int b, int nq, int nk, int d,
                                         int q_stride, int kv_stride, int num_heads, float scale,
@@ -292,6 +533,26 @@ extern "C" int peekvit_attn_softmax_fwd(const void* q, const void* k, const void
   if (b == 0 || nq == 0) return 0;
   if (nk == 0 || d != num_heads * HD || q_stride < d || kv_stride < d)
     return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
+  const float* km = static_cast<const float*>(kmask);
+  if (nk <= WG_MAX_KEYS) {
+    const int nt = (nk + 15) / 16;
+    CUtensorMap qmap, kmap, vmap;
+    const uint64_t qdims[3] = {(uint64_t)d, (uint64_t)nq, (uint64_t)b};
+    const uint64_t qstr[2] = {(uint64_t)q_stride * 2, (uint64_t)q_stride * 2 * nq};
+    const uint64_t kdims[3] = {(uint64_t)d, (uint64_t)nk, (uint64_t)b};
+    const uint64_t kstr[2] = {(uint64_t)kv_stride * 2, (uint64_t)kv_stride * 2 * nk};
+    const uint32_t qbox[3] = {64, 64, 1}, kbox[3] = {64, (uint32_t)(16 * nt), 1};
+    if (!hopper::make_map_bf16(&qmap, q, 3, qdims, qstr, qbox) ||
+        !hopper::make_map_bf16(&kmap, k, 3, kdims, kstr, kbox) ||
+        !hopper::make_map_bf16(&vmap, v, 3, kdims, kstr, kbox))
+      return (int)cudaErrorInvalidValue;
+    const float sl2e = scale * 1.4426950408889634f;
+    return km ? dispatch_wgmma<true>(nt, qmap, kmap, vmap, o, km, b, nq, nk, d, num_heads, sl2e, st)
+              : dispatch_wgmma<false>(nt, qmap, kmap, vmap, o, km, b, nq, nk, d, num_heads, sl2e,
+                                      st);
+  }
   const int npad = (nk + KT - 1) / KT * KT;
   const int smem = (QT + 2 * npad) * STRIDE * 2 + (kmask ? npad * 4 : 0);
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
@@ -300,9 +561,8 @@ extern "C" int peekvit_attn_softmax_fwd(const void* q, const void* k, const void
                                          smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((nq + QT - 1) / QT, num_heads, b);
-  kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, THREADS, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      static_cast<const float*>(kmask), nq, nk, d, q_stride, kv_stride, scale);
+      static_cast<const __nv_bfloat16*>(v), o, km, nq, nk, d, q_stride, kv_stride, scale);
   return (int)cudaGetLastError();
 }

@@ -7,8 +7,8 @@ interface::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas -v -o build/peekvit_torch/<name>-<hash>.so <name>.cu
 
-The library name carries a hash of the source and flags, so an edited
-source is rebuilt and a finished build is reused. Importing this module
+The library name carries a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt and a finished build is reused. Importing this module
 builds nothing and needs no ``nvcc``; :func:`library` builds on the first
 launch. A failed build raises: nothing falls back to the plain versions.
 """
@@ -59,7 +59,8 @@ _SIGNATURES = {
     "arpe_tokens": ("peekvit_arpe_tokens",
                     [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P]),
     "gemm_wgrad": ("peekvit_gemm_wgrad",
-                   [_P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, ctypes.c_longlong, _I, _P]),
+                   [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, ctypes.c_longlong, _I, _I,
+                    _I, _P]),
 }
 
 _lock = threading.Lock()
@@ -78,8 +79,12 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    # the source and the shared headers (csrc/*.cuh) it may include
+    for path in [os.path.join(CSRC, name + ".cu")] + sorted(
+            os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(".cuh")):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:12]}.so")
 
 

@@ -45,10 +45,10 @@ wrapper runs its plain version (``*_ref``) for CPU tensors and launches
 its kernel (or raises) for CUDA tensors; the ``*_ref`` Functions are
 bound to the plain versions alone, whatever the device. Launches count
 into ``fused_attention.LAUNCHES``; ``gemm_wgrad`` counts its product
-under ``gemm_wgrad.<K>x<N>`` and each summing launch that follows a row
-split under ``gemm_wgrad.<K>x<N>.reduce`` (one for C, one more for the
-column sums), so the seventeen backward calls are 23 kernel launches at
-ViT-B/16 width.
+under ``gemm_wgrad.<K>x<N>`` and the summing launch that follows a row
+split under ``gemm_wgrad.<K>x<N>.reduce`` (C and its column sums in one),
+so the seventeen backward calls are 21 kernel launches at ViT-B/16
+width.
 
 ``sp_tail_block`` is Pallas site 12 (``sp_tail_block`` :576,
 ``_sp_tail_call`` :548): the sequence-parallel tail, everything of a
@@ -70,6 +70,7 @@ XLA; kmask gets no gradient.
 
 from __future__ import annotations
 
+import math
 from typing import Callable, NamedTuple
 
 import torch
@@ -109,9 +110,73 @@ from peekvit_torch.ops.cuda.fused_attention_vjp import (
     ln_bwd_rows_ref,
 )
 
-WGRAD_TILE = 128    # gemm_wgrad's C tile is 128 x 128
-WGRAD_ROWS = 32     # rows per pipeline stage; a split is a multiple of it
-WGRAD_BLOCKS = 264  # two blocks on each of the H100's 132 SMs
+WGRAD_SMS = 132    # persistent CTAs: one on each of the H100's SMs
+WGRAD_ROWS = 64    # rows per ring stage; a split is a whole number of stages
+WGRAD_TILE_M = 128  # C rows per tile (A's columns)
+
+
+class WgradPlan(NamedTuple):
+    """gemm_wgrad's static schedule (see csrc/gemm_wgrad.cu). ``units``
+    holds (tile, first stage, end stage, slot) in the order the persistent
+    CTAs take them (CTA c: units c, c + grid, ...); tile = tm * tiles_n +
+    tn; slot -1 writes C directly, else the unit's fp32 partial goes to
+    slot k * len(red_tiles) + i for the k-th row split of red_tiles[i],
+    summed in split order by one more launch when splits > 1."""
+    bn: int
+    tiles_m: int
+    tiles_n: int
+    stages: int
+    units: tuple
+    grid: int
+    red_tiles: tuple
+    splits: int
+
+
+def wgrad_plan(rows: int, k: int, n: int, bn: int | None = None) -> WgradPlan:
+    """The work units of gemm_wgrad for A (rows, k) and B (rows, n): whole
+    waves of WGRAD_SMS C tiles over all the rows first, then the remaining
+    tiles each cut into ``splits`` row runs of whole WGRAD_ROWS-row stages,
+    ``splits`` the least count that makes their units fill whole waves of
+    WGRAD_SMS (at most one run per stage), split-major so that a wave
+    reads the same rows. C tiles are 128 x bn: bn 256 (half the L2 reads
+    per product of bn 128) when it still gives a quarter of WGRAD_SMS
+    tiles, else 128 (``scripts/wgrad_widths.py`` times both widths at the
+    ViT-B/16 products; ``bn`` forces one)."""
+    tiles_m = -(-k // WGRAD_TILE_M)
+    if bn is None:
+        bn = 256 if tiles_m * -(-n // 256) >= WGRAD_SMS // 4 else 128
+    tiles_n = -(-n // bn)
+    tiles = tiles_m * tiles_n
+    stages = -(-rows // WGRAD_ROWS)
+    whole = tiles // WGRAD_SMS * WGRAD_SMS
+    rest = tiles - whole
+    splits = WGRAD_SMS // math.gcd(rest, WGRAD_SMS) if rest else 1
+    splits = max(1, min(splits, stages))
+    if splits == 1:
+        whole = tiles
+    units = [(t, 0, stages, -1) for t in range(whole)]
+    red = tuple(range(whole, tiles)) if splits > 1 else ()
+    for k_split in range(splits if red else 0):
+        lo, hi = k_split * stages // splits, (k_split + 1) * stages // splits
+        units += [(t, lo, hi, k_split * len(red) + i) for i, t in enumerate(red)]
+    return WgradPlan(bn, tiles_m, tiles_n, stages, tuple(units),
+                     max(1, min(WGRAD_SMS, len(units))), red, splits)
+
+
+_WGRAD_PLANS: dict = {}
+
+
+def _wgrad_plan_on(device, rows: int, k: int, n: int, bn: int | None):
+    """The plan and its int32 unit and tile tensors on ``device``, made
+    once per shape."""
+    key = (device, rows, k, n, bn)
+    got = _WGRAD_PLANS.get(key)
+    if got is None:
+        plan = wgrad_plan(rows, k, n, bn)
+        units = torch.tensor(plan.units or [(0, 0, 0, -1)], dtype=torch.int32, device=device)
+        red = torch.tensor(plan.red_tiles or (0,), dtype=torch.int32, device=device)
+        got = _WGRAD_PLANS[key] = (plan, units, red)
+    return got
 
 
 # ------------------------------------------------------------------ gemm_wgrad
@@ -123,28 +188,23 @@ def gemm_wgrad_ref(a, b, colsum: bool = False):
     return torch.matmul(a.float().t(), bf), (bf.sum(0) if colsum else None)
 
 
-def wgrad_splits(rows: int, k: int, n: int) -> tuple[int, int]:
-    """(splits, rows per split) for gemm_wgrad: enough row splits that
-    the (k, n) tiles times the splits come near WGRAD_BLOCKS, each split
-    a multiple of WGRAD_ROWS rows and at least eight stages long."""
-    tiles = -(-k // WGRAD_TILE) * -(-n // WGRAD_TILE)
-    splits = max(1, min(-(-WGRAD_BLOCKS // tiles), rows // (8 * WGRAD_ROWS)))
-    per = -(-rows // splits)
-    per = max(WGRAD_ROWS, -(-per // WGRAD_ROWS) * WGRAD_ROWS)
-    return max(1, -(-rows // per)), per
-
-
 def gemm_wgrad(a: torch.Tensor, b: torch.Tensor, colsum: bool = False):
     """C = a^T @ b in fp32, the reduction over the rows (the merged layer's
     weight gradients, Pallas ``_layer_bwd_kernel``'s ``accum`` products).
     a: (R, K), b: (R, N). Returns C (K, N) fp32 and, with ``colsum``, the
-    fp32 column sums of b (N,) (db2, dbqkv), else None. The rows are split
-    across blocks and the fp32 partials summed by a second pass in a fixed
-    order: reruns give the same bits. On CUDA a and b are bf16, K and N
-    multiples of 8. Counted as ``gemm_wgrad.<K>x<N>``, and its summing
-    launches as ``gemm_wgrad.<K>x<N>.reduce``."""
+    fp32 column sums of b (N,) (db2, dbqkv), else None. The rows are cut
+    by :func:`wgrad_plan` and split partials summed by a second launch in
+    a fixed order: reruns give the same bits. On CUDA a and b are bf16, K
+    and N multiples of 8. Counted as ``gemm_wgrad.<K>x<N>``, and its
+    summing launch as ``gemm_wgrad.<K>x<N>.reduce``."""
     if _on_cpu(a, b):
         return gemm_wgrad_ref(a, b, colsum)
+    return _gemm_wgrad(a, b, colsum, None)
+
+
+def _gemm_wgrad(a: torch.Tensor, b: torch.Tensor, colsum: bool, bn: int | None):
+    """gemm_wgrad on CUDA tensors with the C tile width ``bn`` (None: the
+    plan's rule)."""
     _require(a.dim() == 2 and b.dim() == 2 and a.shape[0] == b.shape[0],
              f"gemm_wgrad: a {tuple(a.shape)} and b {tuple(b.shape)} must share their rows")
     rows, k = a.shape
@@ -153,18 +213,21 @@ def gemm_wgrad(a: torch.Tensor, b: torch.Tensor, colsum: bool = False):
     _require(k % 8 == 0 and n % 8 == 0, f"{key}: K={k} and N={n} must be multiples of 8")
     _check_bf16(f"{key} a", a)
     _check_bf16(f"{key} b", b)
-    splits, per = wgrad_splits(rows, k, n)
+    plan, units, red = _wgrad_plan_on(a.device, rows, k, n, bn)
     c = torch.empty((k, n), dtype=torch.float32, device=a.device)
     sums = torch.empty(n, dtype=torch.float32, device=a.device) if colsum else None
-    work = (torch.empty(splits * (k * n + n), dtype=torch.float32, device=a.device)
-            if splits > 1 else None)
+    slots = plan.splits * len(plan.red_tiles) if plan.splits > 1 else 0
+    work = (torch.empty(slots * (WGRAD_TILE_M + 1) * plan.bn, dtype=torch.float32,
+                        device=a.device) if slots else None)
+    ws = None if work is None else work.data_ptr()
+    cs_ws = None if work is None else ws + slots * WGRAD_TILE_M * plan.bn * 4
     err = _build.library("gemm_wgrad")(
         a.data_ptr(), b.data_ptr(), c.data_ptr(), None if sums is None else sums.data_ptr(),
-        None if work is None else work.data_ptr(), rows, k, n, per, splits, _stream())
+        ws, cs_ws, units.data_ptr(), len(plan.units), plan.grid, red.data_ptr(),
+        len(plan.red_tiles), plan.splits, rows, k, n, plan.bn, _stream())
     _launched(key, err)
-    if splits > 1:  # the summing pass: C, then the column sums
-        for _ in range(1 + colsum):
-            _count(f"{key}.reduce")
+    if slots and rows:  # the summing pass over the split tiles
+        _count(f"{key}.reduce")
     return c, sums
 
 

@@ -24,6 +24,7 @@ from peekvit_torch.models.adapters import params_from_jax
 from peekvit_torch.ops import attention as tatt
 from peekvit_torch.ops import get_attention_impl, multi_head_attention, set_attention_impl
 from peekvit_torch.ops.cuda import fused_attention as tfa
+from peekvit_torch.ops.cuda import fused_attention_vjp as tvjp
 
 ARGS = dict(image_size=32, patch_size=8, num_layers=2, num_heads=4,
             hidden_dim=64, mlp_dim=128, num_classes=10)  # tests/test_vit.py:21-24
@@ -69,6 +70,29 @@ def test_fused_attention_bf16_matches_jax():
     got = tfa.fused_attention(*(torch.tensor(t).to(torch.bfloat16) for t in (q, k, v)), 4)
     assert got.dtype == torch.bfloat16
     _close(got, want, 3e-2)
+
+
+@pytest.mark.parametrize("n", [16, 17, 256, 257])
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-5), ("bfloat16", 3e-2)])
+def test_attn_softmax_fwd_at_the_kernel_edges(n, dtype, tol):
+    """``attn_softmax_fwd`` (packed qkv) at the key counts where the CUDA
+    kernel changes its padding or instance (16 / 17: one or two 16-key
+    chunks; 256: the wgmma kernel's last count, 257: the two-pass
+    kernel's first), head dim 64 as the kernel's, against the Pallas
+    ``fused_attention`` in interpret mode on the same q, k, v (fp32 2e-5,
+    bf16 3e-2); on the CPU the wrapper is its plain version, bit for bit,
+    and counts no launch."""
+    rng = np.random.default_rng(n)
+    d, heads = 128, 2
+    qkv = rng.normal(size=(1, n, 3 * d)).astype(np.float32)
+    q, k, v = (jnp.asarray(qkv[..., i * d:(i + 1) * d], getattr(jnp, dtype)) for i in range(3))
+    want = jax_fused_attention(q, k, v, heads, True)
+    packed = torch.tensor(qkv).to(getattr(torch, dtype))
+    tfa.reset_launch_counts()
+    got = tvjp.attn_softmax_fwd(packed, heads)
+    assert tfa.LAUNCHES == {} and got.dtype == packed.dtype
+    assert torch.equal(got, tvjp.attn_softmax_fwd_ref(packed, heads))
+    _close(got, want, tol)
 
 
 def _mhsa_params(rng, d, in_bias=True):

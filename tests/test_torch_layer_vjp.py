@@ -183,14 +183,80 @@ def test_new_kernels_plain_versions_against_float64():
     assert tfa.LAUNCHES == {}
 
 
-@pytest.mark.parametrize("rows,k,n", [(50432, 768, 768), (50432, 768, 2304), (50432, 3072, 768),
-                                      (6304, 768, 3072), (37, 32, 96), (0, 64, 64)])
+VIT_B16_WGRAD = [(50432, 768, 2304), (50432, 768, 768), (50432, 768, 3072), (50432, 3072, 768)]
+
+
+@pytest.mark.parametrize("rows,k,n", VIT_B16_WGRAD + [(6304, 768, 3072), (37, 32, 96), (0, 64, 64),
+                                                      (1000, 768, 776), (1000, 32, 96),
+                                                      (33, 768, 776)])
 def test_wgrad_splits_cover_the_rows(rows, k, n):
-    """Each split is a whole number of 32-row stages, the splits cover
-    every row once, and no split is empty (gemm_wgrad.cu's contract)."""
-    splits, per = tlv.wgrad_splits(rows, k, n)
-    assert per % tlv.WGRAD_ROWS == 0 and per > 0 and splits >= 1
-    assert splits * per >= rows and (splits - 1) * per < max(rows, 1)
+    """wgrad_plan (gemm_wgrad.cu's persistent schedule): every unit is a
+    non-empty run of whole 64-row stages, each C tile's units cover every
+    stage exactly once, whole tiles write C and split tiles one slot per
+    split, at most WGRAD_SMS CTAs take the units, and at the ViT-B/16
+    shapes the units fill whole waves of 132."""
+    plan = tlv.wgrad_plan(rows, k, n)
+    tiles = plan.tiles_m * plan.tiles_n
+    assert plan.tiles_m == -(-k // 128) and plan.tiles_n == -(-n // plan.bn)
+    assert plan.bn in (128, 256) and plan.stages == -(-rows // tlv.WGRAD_ROWS)
+    assert 1 <= plan.grid <= tlv.WGRAD_SMS and plan.grid <= max(1, len(plan.units))
+    covered = {t: [] for t in range(tiles)}
+    for tile, lo, hi, slot in plan.units:
+        assert 0 <= lo < hi <= plan.stages or (rows == 0 and lo == hi == 0)
+        covered[tile].append((lo, hi, slot))
+    slots = []
+    for tile, runs in covered.items():
+        stages = sorted(st for lo, hi, _ in runs for st in range(lo, hi))
+        assert stages == list(range(plan.stages)), f"tile {tile}: stages {stages}"
+        if tile in plan.red_tiles:
+            assert len(runs) == plan.splits > 1
+            i = plan.red_tiles.index(tile)
+            assert [r[2] for r in runs] == [k_ * len(plan.red_tiles) + i
+                                            for k_ in range(plan.splits)]
+            slots += [r[2] for r in runs]
+        else:
+            assert runs == [(0, plan.stages, -1)]
+    assert sorted(slots) == list(range(len(slots)))
+    if (rows, k, n) in VIT_B16_WGRAD:
+        assert len(plan.units) % tlv.WGRAD_SMS == 0 and plan.grid == tlv.WGRAD_SMS
+        # split-major: one wave of the split units reads few row runs
+        if plan.splits > 1:
+            split = plan.units[len(plan.units) - plan.splits * len(plan.red_tiles):]
+            most = -(-tlv.WGRAD_SMS // len(plan.red_tiles)) + 1
+            for w in range(0, len(split), tlv.WGRAD_SMS):
+                assert len({u[1] for u in split[w:w + tlv.WGRAD_SMS]}) <= most
+
+
+@pytest.mark.parametrize("rows,k,n", [(1000, 768, 776), (1000, 32, 96), (333, 136, 264)])
+def test_wgrad_plan_partials_sum_to_the_product(rows, k, n):
+    """Each unit's partial A[rows]^T B[rows] over its C tile, the split
+    tiles' partials added with torch in split order (reduce_kernel's
+    order) and the whole tiles written directly, equals gemm_wgrad_ref
+    (fp32 sums in another order: 1e-5)."""
+    rng = np.random.default_rng(3)
+    a = torch.tensor(rng.normal(size=(rows, k)) * 0.5, dtype=torch.float32)
+    b = torch.tensor(rng.normal(size=(rows, n)) * 0.05, dtype=torch.float32)
+    plan = tlv.wgrad_plan(rows, k, n)
+    assert plan.splits > 1
+    r = tlv.WGRAD_ROWS
+    c = torch.full((k, n), float("nan"))
+    parts = {}
+    for tile, lo, hi, slot in plan.units:
+        tm, tn = divmod(tile, plan.tiles_n)
+        rs, ks, ns = slice(lo * r, hi * r), slice(tm * 128, tm * 128 + 128), \
+            slice(tn * plan.bn, tn * plan.bn + plan.bn)
+        part = a[rs, ks].t() @ b[rs, ns]
+        if slot < 0:
+            c[ks, ns] = part
+        else:
+            parts[slot] = (ks, ns, part)
+    for i, _ in enumerate(plan.red_tiles):
+        ks, ns, acc = parts[i]
+        for k_ in range(1, plan.splits):
+            acc = acc + parts[k_ * len(plan.red_tiles) + i][2]
+        c[ks, ns] = acc
+    want, _ = tlv.gemm_wgrad_ref(a, b)
+    torch.testing.assert_close(c, want, rtol=1e-5, atol=1e-5)
 
 
 def test_kernel_ops_pair_with_their_plain_versions():
