@@ -163,7 +163,11 @@ prints no final result):
    backward's four shapes (dWqkv, dWo, dW1, dW2; the column sums of dqkv
    and g; a rerun bit-identical), ln_bwd_rows.f32 and ln_bwd_rows.g_f32,
    attn_softmax_fwd on separate q, k, v (bit-identical to the packed
-   mode); then layer_block_trainable and layer_block_hybrid against their
+   mode); the wgmma kernels at their edges: attn_softmax_fwd (N 1-768,
+   .kmask), gemm_wgrad (0-50,432 rows), attn_softmax_bwd (N 1-384, with
+   the kernel each N takes) and every gemm_bias_epilogue epilogue in both
+   layouts (M 1-50,688, N 8-3,072, K 128 and 3,072), reruns bit-identical;
+   then layer_block_trainable and layer_block_hybrid against their
    _ref twins at bs32, N = 197 (output and 13 gradients, rel-L2 3e-2; two
    runs of each backward bit-identical);
 29. merged training: a ViT-B/16 make_fused_train_step(AdamW(1e-4),
@@ -176,7 +180,10 @@ prints no final result):
    one model and one AdamW (ms per step, images/s, peak memory), each new
    kernel's time, launches, bound, plain time and one PyTorch call
    (gemm_wgrad: a.t() @ b, bf16 out), one profiled merged step (warmed
-   window);
+   window); attn_softmax_bwd and every GEMM mode at ViT-B/16, PCT and
+   A-ViT-S/16 shapes beside their bounds, plain versions and PyTorch
+   calls, with the schedule each took, and ptxas's registers and spills of
+   both sources (a spill fails the run);
 31. the module path: the seeded ViT-B/16 module in eval mode, bf16, under
    set_attention_impl("pallas") serves 8 and 256 images (12
    attn_scores_pv launches per forward, logits against the same module
@@ -1017,7 +1024,7 @@ def masked_block_checks(torch, fa, vjp, check, randn, ln_s, ln_b, w_qkv, b_qkv, 
         dproj_p, rowdot_p = fa.gemm_masked_rowdot_ref(attn, w_out, b_out, g, m)
         check("gemm_bias_epilogue.masked_rowdot", dproj_k, dproj_p, tol_bf16,
               "bf16(g * mask): one rounding of the same fp32 product")
-        check("gemm_bias_epilogue.masked_rowdot.rowdot", parts.sum(-1), rowdot_p[:, 0], tol_f32,
+        check("gemm_bias_epilogue.masked_rowdot.rowdot", parts.sum(-1), rowdot_p.sum(-1), tol_f32,
               "tensor-core fp32 proj against cuBLAS fp32, row sums over 768 columns in another "
               "order")
         ins["parts"] = parts
@@ -3165,7 +3172,7 @@ def merged_kernel_checks(torch, fa, vjp, lv, check, randn, x, y, ln_s, ln_b, g_r
         dh_p, p_p = fa.gemm_nt_gelu_grad_ref(g_rows, w2, hpre)
         check("gemm_nt.gelu_grad", dh_k, dh_p, tol_bf16,
               "fp32 sums in another order, bf16 output rounding")
-        check("gemm_nt.gelu_grad.db1", p_k.sum(0), p_p[0], tol_f32, f32_sums)
+        check("gemm_nt.gelu_grad.db1", p_k.sum(0), p_p.sum(0), tol_f32, f32_sums)
         wgrad = {name: (randn(rows, k, scale=0.5), randn(rows, n, scale=0.05), colsum)
                  for name, (k, n, colsum) in wgrad_shapes(d, m).items()}
         rerun = {}
@@ -3210,6 +3217,10 @@ ATTN_EDGE_TOKENS = (1, 15, 16, 17, 64, 65, 197, 198, 208, 256, 257, 768)
 KMASK_EDGES = ((99, 198), (50, 200), (1, 17), (130, 260))
 WGRAD_EDGE_ROWS = (0, 31, 32, 33, 50432)
 EDGE_BATCH = 4
+ATTN_BWD_EDGE_TOKENS = (1, 15, 16, 17, 64, 65, 197, 198, 208, 224, 225, 256, 257, 384)
+GEMM_EDGE_M = (1, 127, 129, 50432, 50688)
+GEMM_EDGE_N = (8, 120, 136, 576, 3072)
+GEMM_EDGE_K = (128, 3072)  # the smallest (PCT) and the largest (ViT fc2) K a path runs
 
 
 def redesign_edge_checks(torch, fa, vjp, lv, check, randn, d, h, m, smi) -> None:
@@ -3268,6 +3279,253 @@ def redesign_edge_checks(torch, fa, vjp, lv, check, randn, d, h, m, smi) -> None
           "differ": [k for k, v in same.items() if not v], "card": smi})
     if not all(same.values()):
         raise AssertionError(f"redesign edges: bits differ {[k for k, v in same.items() if not v]}")
+
+
+def gemm_modes(fa, a, w, wt, b, res32, res16, mask, g, hpre) -> dict:
+    """Every epilogue of gemm_bias_epilogue.cu in its layout (NN: W as
+    (K, N); NT: W as (N, K)) on one set of inputs: name -> (kernel, plain),
+    each returning a tuple of outputs (the partials of masked_rowdot and
+    gelu_grad in the kernel's grouping)."""
+    def both(kfn, pfn):
+        def wrap(fn):
+            return lambda: (lambda out: out if isinstance(out, tuple) else (out,))(fn())
+        return wrap(kfn), wrap(pfn)
+
+    modes = {}
+    for epi, res in (("bias", None), ("gelu", None), ("residual_f32", res32),
+                     ("residual_f32.bf16_residual", res16), ("residual", res32),
+                     ("residual.bf16_residual", res16)):
+        e = epi.split(".")[0]
+        modes[f"gemm_bias_epilogue.{epi}"] = both(
+            lambda e=e, r=res: fa.gemm_bias_epilogue(a, w, b, e, residual=r),
+            lambda e=e, r=res: fa.gemm_bias_epilogue_ref(a, w, b, e, residual=r))
+    for epi, res in (("masked_residual_f32", res32), ("masked_residual", res16)):
+        modes[f"gemm_bias_epilogue.{epi}"] = both(
+            lambda e=epi, r=res: fa.gemm_bias_epilogue(a, w, b, e, residual=r, mask=mask),
+            lambda e=epi, r=res: fa.gemm_bias_epilogue_ref(a, w, b, e, residual=r, mask=mask))
+    for epi in ("none", "none_f32"):
+        modes[f"gemm_nt.{epi}"] = both(lambda e=epi: fa.gemm_nt(a, wt, e),
+                                       lambda e=epi: fa.gemm_nt_ref(a, wt, e))
+    modes["gemm_bias_epilogue.masked_rowdot"] = both(
+        lambda: fa.gemm_masked_rowdot(a, w, b, g, mask),
+        lambda: fa.gemm_masked_rowdot_ref(a, w, b, g, mask))
+    modes["gemm_bias_epilogue.gelu_hpre"] = both(lambda: fa.gemm_gelu_hpre(a, w, b),
+                                                 lambda: fa.gemm_gelu_hpre_ref(a, w, b))
+    modes["gemm_nt.gelu_grad"] = both(lambda: fa.gemm_nt_gelu_grad(a, wt, hpre),
+                                      lambda: fa.gemm_nt_gelu_grad_ref(a, wt, hpre))
+    modes["gemm_bias_epilogue.partial_f32"] = both(lambda: fa.gemm_partial_f32(a, w),
+                                                   lambda: fa.gemm_partial_f32_ref(a, w))
+    return modes
+
+
+def gemm_attn_bwd_edge_checks(torch, fa, vjp, randn, d, h, smi) -> None:
+    """Phase 28, the wgmma / TMA attention backward and GEMM at their
+    edges: attn_softmax_bwd at every N of ATTN_BWD_EDGE_TOKENS (4
+    images, ViT-B/16 width; 16-row padding, 64-row tiles, the switch to the
+    kept kernel past 256, the 384 limit) against attn_softmax_bwd_ref at
+    its phase 3 tolerance (2e-2 of max|plain|), with the kernel each N
+    took; every epilogue of the GEMM in both layouts (gemm_modes) at every
+    M of GEMM_EDGE_M, N of GEMM_EDGE_N and K of GEMM_EDGE_K against its
+    plain version at its phase 3 tolerance (2^-6 of max|plain| for a bf16
+    output, 1e-3 for an fp32 output or partial), the partials' shapes
+    pinned; a rerun of each at the largest shape (and of the attention at
+    every N) bit-identical."""
+    bf16 = torch.bfloat16
+    tol = {bf16: 2.0 ** -6, torch.float32: 1e-3}
+    same, routes, worst, count = {}, {}, {}, 0
+    with torch.inference_mode():
+        for n in ATTN_BWD_EDGE_TOKENS:
+            qkv, da = randn(EDGE_BATCH, n, 3 * d), randn(EDGE_BATCH, n, d, scale=0.05)
+            got = vjp.attn_softmax_bwd(qkv, da, h)
+            want = vjp.attn_softmax_bwd_ref(qkv, da, h)
+            err = (got.float() - want.float()).abs().max().item()
+            scale = want.float().abs().max().item()
+            routes[n] = vjp.attn_softmax_bwd_route(n)
+            emit({"phase": "kernel_check", "kernel": f"edge.attn_softmax_bwd.N{n}",
+                  "kernel_path": routes[n], "shape": list(got.shape), "max_abs_err": err,
+                  "max_rel_err": err / max(scale, 1e-30), "tolerance_rel": 2e-2,
+                  "reason": "bf16 rounding of P and dZ * scale, bf16 output rounding",
+                  "card": smi})
+            if not torch.isfinite(got).all() or err > 2e-2 * scale:
+                raise AssertionError(f"attn_softmax_bwd at N = {n}: {err} > 2e-2 * {scale}")
+            same[f"attn_softmax_bwd.N{n}.rerun"] = torch.equal(
+                got, vjp.attn_softmax_bwd(qkv, da, h))
+        largest = (GEMM_EDGE_M[-1], GEMM_EDGE_N[-1], GEMM_EDGE_K[-1])
+        for m in GEMM_EDGE_M:
+            for n in GEMM_EDGE_N:
+                for k in GEMM_EDGE_K:
+                    a, w = randn(m, k), randn(k, n, scale=k ** -0.5)
+                    wt, b = randn(n, k, scale=k ** -0.5), randn(n, scale=0.1)
+                    res32, res16 = randn(m, n, dtype=torch.float32), randn(m, n)
+                    mask = (randn(m, dtype=torch.float32) > -0.5).to(bf16)
+                    g, hpre = randn(m, n, scale=0.05), randn(m, n, dtype=torch.float32)
+                    for name, (kfn, pfn) in gemm_modes(fa, a, w, wt, b, res32, res16, mask, g,
+                                                       hpre).items():
+                        got, want = kfn(), pfn()
+                        for i, (gt, wn) in enumerate(zip(got, want)):
+                            if gt.shape != wn.shape or gt.dtype != wn.dtype:
+                                raise AssertionError(f"{name} output {i} at {(m, n, k)}: "
+                                                     f"{gt.shape} {gt.dtype}, want {wn.shape} "
+                                                     f"{wn.dtype}")
+                            scale = wn.float().abs().max().item()
+                            rel = (gt.float() - wn.float()).abs().max().item() / max(scale, 1e-30)
+                            if not torch.isfinite(gt).all() or rel > tol[wn.dtype]:
+                                raise AssertionError(f"{name} output {i} at (M, N, K) = "
+                                                     f"{(m, n, k)}: {rel} > {tol[wn.dtype]}")
+                            key = f"{name}.{i}"
+                            if rel >= worst.get(key, (-1.0,))[0]:
+                                worst[key] = (rel, [m, n, k])
+                            count += 1
+                        if (m, n, k) == largest:
+                            same[f"{name}.rerun"] = all(
+                                torch.equal(x, y) for x, y in zip(got, kfn()))
+                    del a, w, wt, res32, res16, g, hpre
+        torch.cuda.synchronize()
+    plans = {f"{epi}.{m}x{n}": fa.gemm_plan(m, n, epi) for epi in ("bias", "gelu_grad")
+             for m in GEMM_EDGE_M for n in GEMM_EDGE_N}
+    emit({"phase": "gemm_attn_bwd_edges", "attn_softmax_bwd_route": routes, "gemm_checks": count,
+          "gemm_worst_rel_err": {k: {"rel": v[0], "mnk": v[1]} for k, v in worst.items()},
+          "gemm_tolerance_rel": {"bf16": 2.0 ** -6, "fp32": 1e-3}, "gemm_plan": plans,
+          "checked_bit_identical": len(same), "differ": [k for k, v in same.items() if not v],
+          "card": smi})
+    if not all(same.values()):
+        raise AssertionError(f"redesign edges: bits differ {[k for k, v in same.items() if not v]}")
+
+
+def ptxas_summary(build_info: dict, sources=("attn_softmax_bwd", "gemm_bias_epilogue")) -> list:
+    """Registers and spills of every kernel that ptxas reported for
+    ``sources`` (none for a library reused from an earlier build)."""
+    import re
+
+    fields = {"registers": r"Used (\d+) registers", "stack_bytes": r"(\d+) bytes stack frame",
+              "spill_store_bytes": r"(\d+) bytes spill stores",
+              "spill_load_bytes": r"(\d+) bytes spill loads"}
+    rows = []
+    for src in sources:
+        for line in build_info.get(src, {}).get("ptxas", []):
+            if "Compiling entry function" in line:
+                rows.append({"source": src, "kernel": line.split("'")[1]})
+            elif rows:
+                for key, pattern in fields.items():
+                    found = re.search(pattern, line)
+                    if found:
+                        rows[-1][key] = int(found.group(1))
+    return rows
+
+
+def gemm_attn_bwd_timing(torch, F, fa, vjp, smi, randn, build_info) -> None:
+    """Phase 30, the wgmma / TMA attention backward and GEMM beside their
+    bounds, plain versions and PyTorch calls: attn_softmax_bwd at bs256, N =
+    197 and 198 (SDPA's backward the yardstick), every GEMM mode at the
+    ViT-B/16 bs256 shapes, and the four layer GEMMs at PCT's (bs128, 1024
+    points, d 128) and A-ViT-S/16's (bs256, D 384) shapes; each with the
+    kernel or schedule it took. Then ptxas's registers and spills of both
+    sources' kernels (none may spill)."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    bf, f4 = 2, 4
+
+    def gemm_row(name, m, k, n, kfn, pfn, lfn, out_b, extra_b=0, nt=False):
+        epi = name.split(".", 1)[1].split(".")[0].replace("nt_", "")
+        bnd, by = bound_ms(2.0 * m * n * k, (m * k + k * n + n) * bf + m * n * out_b + extra_b)
+        with torch.inference_mode():
+            ms, plain = cuda_ms(torch, kfn), cuda_ms(torch, pfn, iters=3)
+            lib = cuda_ms(torch, lfn) if lfn is not None else None
+        emit({"phase": "timing_redesigned", "name": name, "m": m, "k": k, "n": n,
+              "layout": "NT" if nt else "NN", "kernel_path": {"wgmma": fa.gemm_plan(m, n, epi)},
+              "ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bnd, "bound_by": by,
+              "share_of_bound": bnd / ms, "card": smi})
+
+    def layer_gemms(tag, rows, d, mlp):
+        x, h = randn(rows, d), randn(rows, mlp)
+        y = randn(rows, d, dtype=f32)
+        wq, bq = randn(d, 3 * d, scale=d ** -0.5), randn(3 * d, scale=0.1)
+        wo, bo = randn(d, d, scale=d ** -0.5), randn(d, scale=0.1)
+        w1, b1 = randn(d, mlp, scale=d ** -0.5), randn(mlp, scale=0.1)
+        w2, b2 = randn(mlp, d, scale=mlp ** -0.5), randn(d, scale=0.1)
+        gemm = fa.gemm_bias_epilogue
+        ref = fa.gemm_bias_epilogue_ref
+        gemm_row(f"{tag}.bias", rows, d, 3 * d, lambda: gemm(x, wq, bq, "bias"),
+                 lambda: ref(x, wq, bq, "bias"), lambda: torch.addmm(bq, x, wq), bf)
+        gemm_row(f"{tag}.residual_f32", rows, d, d,
+                 lambda: gemm(x, wo, bo, "residual_f32", residual=x),
+                 lambda: ref(x, wo, bo, "residual_f32", residual=x),
+                 lambda: torch.addmm(bo, x, wo).float() + x, f4, rows * d * bf)
+        gemm_row(f"{tag}.gelu", rows, d, mlp, lambda: gemm(x, w1, b1, "gelu"),
+                 lambda: ref(x, w1, b1, "gelu"),
+                 lambda: F.gelu(torch.addmm(b1, x, w1), approximate="tanh"), bf)
+        gemm_row(f"{tag}.residual", rows, mlp, d, lambda: gemm(h, w2, b2, "residual", residual=y),
+                 lambda: ref(h, w2, b2, "residual", residual=y),
+                 lambda: (torch.addmm(b2, h, w2) + y).to(bf16), bf, rows * d * f4)
+        return x, h, y, (wq, bq, wo, bo, w1, b1, w2, b2)
+
+    d, mlp, heads = B16["hidden_dim"], B16["mlp_dim"], B16["num_heads"]
+    for n in (197, 198):
+        qkv, da = randn(BATCH, n, 3 * d), randn(BATCH, n, d, scale=0.05)
+        leaves = [qkv[..., i * d:(i + 1) * d].reshape(BATCH, n, heads, d // heads)
+                  .transpose(1, 2).contiguous().requires_grad_() for i in range(3)]
+        out = F.scaled_dot_product_attention(*leaves)
+        dout = da.reshape(BATCH, n, heads, d // heads).transpose(1, 2).contiguous()
+        with torch.inference_mode():
+            ms = cuda_ms(torch, lambda: vjp.attn_softmax_bwd(qkv, da, heads))
+            plain = cuda_ms(torch, lambda: vjp.attn_softmax_bwd_ref(qkv, da, heads), iters=3)
+        lib = cuda_ms(torch, lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True))
+        bnd, by = bound_ms(10.0 * BATCH * heads * n * n * (d // heads),
+                           BATCH * n * (3 * d + d + 3 * d) * bf)
+        emit({"phase": "timing_redesigned", "name": f"attn_softmax_bwd.n{n}", "batch": BATCH,
+              "kernel_path": vjp.attn_softmax_bwd_route(n), "ms": ms, "plain_ms": plain,
+              "library_ms": lib, "bound_ms": bnd, "bound_by": by, "share_of_bound": bnd / ms,
+              "card": smi})
+        del qkv, da, leaves, out, dout
+    rows = BATCH * 197
+    x, h, y, (wq, bq, wo, bo, w1, b1, w2, b2) = layer_gemms("vit_b16", rows, d, mlp)
+    g, dq = randn(rows, d, scale=0.05), randn(rows, 3 * d, scale=0.05)
+    hpre = randn(rows, mlp, dtype=f32)
+    mask = (randn(rows, dtype=f32) > -0.5).to(bf16)
+    gemm_row("vit_b16.residual.bf16_residual", rows, d, d,
+             lambda: fa.gemm_bias_epilogue(x, wo, bo, "residual", residual=x),
+             lambda: fa.gemm_bias_epilogue_ref(x, wo, bo, "residual", residual=x),
+             lambda: (torch.addmm(bo, x, wo) + x).to(bf16), bf, rows * d * bf)
+    gemm_row("vit_b16.masked_residual_f32", rows, d, d,
+             lambda: fa.gemm_bias_epilogue(x, wo, bo, "masked_residual_f32", residual=y,
+                                           mask=mask),
+             lambda: fa.gemm_bias_epilogue_ref(x, wo, bo, "masked_residual_f32", residual=y,
+                                               mask=mask),
+             lambda: torch.addmm(bo, x, wo).float() * mask.float()[:, None] + y, f4,
+             rows * d * f4 + rows * bf)
+    gemm_row("vit_b16.masked_rowdot", rows, d, d, lambda: fa.gemm_masked_rowdot(x, wo, bo, g, mask),
+             lambda: fa.gemm_masked_rowdot_ref(x, wo, bo, g, mask),
+             lambda: ((g * mask[:, None]).to(bf16),
+                      (g.float() * torch.addmm(bo, x, wo).float()).sum(-1)), bf,
+             rows * d * bf + rows * bf + rows * 6 * f4)
+    gemm_row("vit_b16.gelu_hpre", rows, d, mlp, lambda: fa.gemm_gelu_hpre(x, w1, b1),
+             lambda: fa.gemm_gelu_hpre_ref(x, w1, b1),
+             lambda: F.gelu(torch.addmm(b1, x, w1).float(), approximate="tanh").to(bf16),
+             bf + f4)
+    gemm_row("vit_b16.nt_none", rows, d, d, lambda: fa.gemm_nt(g, wo, "none"),
+             lambda: fa.gemm_nt_ref(g, wo, "none"), lambda: torch.matmul(g, wo.t()), bf, nt=True)
+    gemm_row("vit_b16.nt_none_f32", rows, 3 * d, d, lambda: fa.gemm_nt(dq, wq, "none_f32"),
+             lambda: fa.gemm_nt_ref(dq, wq, "none_f32"),
+             lambda: torch.matmul(dq, wq.t()).float(), f4, nt=True)
+    gemm_row("vit_b16.nt_gelu_grad", rows, d, mlp, lambda: fa.gemm_nt_gelu_grad(g, w2, hpre),
+             lambda: fa.gemm_nt_gelu_grad_ref(g, w2, hpre),
+             lambda: (torch.matmul(g, w2.t()).float() * fa.gelu_tanh_grad(hpre)).to(bf16), bf,
+             rows * mlp * f4 + (-(-rows // 128)) * mlp * f4, nt=True)
+    hk, w2k = h[:, :mlp // 2].contiguous(), w2[:mlp // 2]  # fc2 of one of two model shards
+    gemm_row("vit_b16.partial_f32.k1536", rows, mlp // 2, d, lambda: fa.gemm_partial_f32(hk, w2k),
+             lambda: fa.gemm_partial_f32_ref(hk, w2k), lambda: torch.mm(hk, w2k).float(), f4)
+    del x, h, y, g, dq, hpre, mask, hk
+    torch.cuda.empty_cache()
+    layer_gemms("pct_d128", PCT_BATCH * PCT_M40["num_points"], PCT_M40["hidden_dim"],
+                PCT_M40["mlp_dim"])
+    torch.cuda.empty_cache()
+    layer_gemms("avit_s16", BATCH * 197, AVIT_S16["hidden_dim"], AVIT_S16["mlp_dim"])
+    torch.cuda.empty_cache()
+    rows = ptxas_summary(build_info)
+    spilled = [r["kernel"] for r in rows if r.get("spill_store_bytes") or r.get("spill_load_bytes")]
+    emit({"phase": "ptxas_redesigned", "kernels": rows if rows else "not rebuilt in this run",
+          "spilled": spilled, "card": smi})
+    if spilled:
+        raise AssertionError(f"ptxas spilled registers in {spilled}")
 
 
 def merged_block_checks(torch, lv, randn, layer_w, d, h, n, smi) -> None:
@@ -4958,12 +5216,14 @@ def main() -> int:
     m_ins = merged_kernel_checks(torch, fa, vjp, lv, check, randn, x, y, ln_s, ln_b, g_rows,
                                  dln_in, fc1_w, fc1_b, fc2_w, qkv, d, h, m, rows, smi)
     redesign_edge_checks(torch, fa, vjp, lv, check, randn, d, h, m, smi)
+    gemm_attn_bwd_edge_checks(torch, fa, vjp, randn, d, h, smi)
     merged_block_checks(torch, lv, randn, (ln_s, ln_b, w_qkv, b_qkv, w_out, b_out, ln_s, ln_b,
                                            fc1_w, fc1_b, fc2_w, fc2_b), d, h, n, smi)
     mtrain = merged_train_phases(torch, F, fa, dev, smi, B16)
     merged_entries = merged_timing(torch, F, fa, vjp, lv, smi, checks, m_ins, mtrain, x, y, ln_s,
                                    ln_b, g_rows, dln_in, fc1_w, fc1_b, fc2_w, d, m, rows,
                                    analytic_macs(model))
+    gemm_attn_bwd_timing(torch, F, fa, vjp, smi, randn, info)
     mod = module_path_phases(torch, F, fa, dev, smi, check, checks, qkv, m_ins["q"], m_ins["k"],
                              m_ins["v"], d, h, n)
     # ------------------------------------------- 32-33. tensor-parallel serving

@@ -303,32 +303,6 @@ constexpr int WG_QTILES = 4;          // 64-row query tiles per CTA
 constexpr int WG_QBYTES = 64 * 128;   // one swizzled Q tile
 constexpr int WG_MAX_KEYS = 256;
 
-__device__ __forceinline__ void wgmma_m64n16k16_rs(float* d, const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{" 
-      "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_m64n64k16_rs(float* d, const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{" 
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
 // Bit (r & 1) | ((r >> 2) << 1) of a 16-key chunk: the key column of
 // accumulator register r of wgmma m64n16 (r = 0, 1: row g, columns 2t,
 // 2t + 1; r = 2, 3: row g + 8, the same columns; r = 4..7: columns 8 + 2t,
@@ -409,7 +383,8 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constan
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
       for (int j = 0; j < NT; ++j)
-        wgmma_m64n16k16_rs(s[j], qa[kk], hopper::desc_sw128(sk + j * 2048 + kk * 32, 16, 1024));
+        hopper::wgmma_m64n16k16_rs<0>(s[j], qa[kk],
+                                      hopper::desc_sw128(sk + j * 2048 + kk * 32, 16, 1024));
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
 #pragma unroll
@@ -464,7 +439,7 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constan
     hopper::wgmma_fence();
 #pragma unroll
     for (int j = 0; j < NT; ++j)
-      wgmma_m64n64k16_rs(o, pa[j], hopper::desc_sw128(sv + j * 2048, 1024, 1024));
+      hopper::wgmma_m64n64k16_rs<1>(o, pa[j], hopper::desc_sw128(sv + j * 2048, 1024, 1024));
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
     hopper::fence_regs<32>(o);

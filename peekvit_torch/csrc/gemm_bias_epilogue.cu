@@ -68,65 +68,70 @@
 // Bound on H100: operations. At ViT-B bs256 the products are
 // (50432 x 768) . (768 x {2304, 768, 3072}) and (50432 x 3072) . (3072 x 768):
 // hundreds of flops per byte, above the card's ~295 flop/byte ridge.
-// Design (a simple first version, not the card's peak): 128 x 128 output
-// tile per 256-thread block, 8 warps each owning 64 x 32, bf16
-// mma.sync.m16n8k16 with fp32 accumulators, operands staged in shared
-// memory by a 3-stage cp.async ring of 32-deep K slices and read with
-// ldmatrix (padded rows: no bank conflicts). Ragged rows and columns are
-// zero-filled on load and masked on store. wgmma and TMA are later work.
+// Design (wgmma on TMA-fed shared memory, persistent CTAs):
+//   - One CTA per SM (at most the card's SM count, never more than there
+//     are tiles) walks the 128 x BN output tiles in row-major tile order
+//     (tile t: rows 128 (t / tiles_n), columns BN (t % tiles_n)), CTA c
+//     taking tiles c, c + grid, ...: the CTAs in flight at one time read
+//     the same few 128-row panels of A, and W (at most 4.7 MB here) stays
+//     in L2.
+//   - A producer warp keeps a ring of STAGES 64-deep K slices in flight by
+//     TMA (2-D tensor maps, 128-byte swizzle) onto `full` mbarriers: A's
+//     128 x 64 tile (K-major as it lies) and W's slice, (64, BN) as
+//     BN / 64 MN-major slabs in the NN layout or one (BN, 64) K-major tile
+//     in the NT layout. Rows past M, columns past N and K past its end load
+//     as zero (TMA fills them), so any K % 8 == 0 takes the same path.
+//     The producer runs ahead into the next tile while the consumers finish
+//     this one's epilogue.
+//   - Two consumer warpgroups own 64 rows each of the 128 x BN tile and
+//     issue wgmma m64nBNk16 from shared memory with fp32 accumulators in
+//     registers (BN / 2 a thread); wait_group 1 keeps one slice's products
+//     in flight, and a slice is freed on its `empty` mbarrier (one arrival
+//     per consumer warp) once the products reading it have completed.
+//   - BN = 256 where it pads N no more than 128 does and the tiles still
+//     fill the card, else 128, and 128 for gelu_grad, whose epilogue needs
+//     the registers (peekvit_gemm_bias_epilogue_plan; the other ViT-B/16
+//     bs256 products all take 256). 4 stages of 48 KB (BN 256) or 6 of
+//     32 KB (BN 128). 288 threads take registers as 12 warps would: 168 a
+//     thread, of which a 128 x 256 tile's accumulators hold 128.
+//   - The epilogue runs on the accumulator fragment, whose layout per
+//     8-column group is mma.sync's (row g / g + 8, columns 2 t, 2 t + 1), so
+//     each epilogue's element code is unchanged. It loads the inputs of 8
+//     column groups (bias, residual, cotangent, hpre) before it stores
+//     their outputs: an output may share its type with an input, and the
+//     compiler then kept each load behind the store before it. Epilogue
+//     8's per-row partials: a thread's 16 column pairs of a 128-column
+//     group, then the quad, in that order. Epilogue 10's per-tile column partials: a
+//     thread's two rows, the warp's eight row groups by shuffles, then the
+//     eight warps in order through shared memory. No atomics and no split
+//     of K: every output and partial is summed by one CTA in one order, so
+//     a rerun gives the same bits.
 //
 // A: (M, K) bf16 row-major. W: (K, N) bf16 row-major (the JAX (in, out)
-// layout), or (N, K) row-major for epilogues 4 and 5. K % 32 == 0,
-// N % 8 == 0, pointers 16-byte aligned (the wrapper checks). In the NT
-// layout W's tile is staged like A's (BN rows of 32 k values) and read
-// with ldmatrix without transpose.
+// layout), or (N, K) row-major for epilogues 4, 5 and 10. K % 32 == 0,
+// N % 8 == 0, pointers 16-byte aligned (the wrapper checks).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int BM = 128, BN = 128, BK = 32, STAGES = 3, THREADS = 256;
-constexpr int A_STRIDE = BK + 8;   // bf16 elements per smem row of A
-constexpr int B_STRIDE = BN + 8;   // bf16 elements per smem row of W
-constexpr int A_TILE = BM * A_STRIDE;
-constexpr int B_TILE = BK * B_STRIDE;
-constexpr int B_TILE_NT = BN * A_STRIDE;  // W as (N, K): staged like A
-template <bool NT>
-constexpr int smem_bytes() { return STAGES * (A_TILE + (NT ? B_TILE_NT : B_TILE)) * 2; }
+constexpr int BM = 128;             // output rows per tile
+constexpr int BK = 64;              // K per stage: one 128-byte swizzle row
+constexpr int A_BYTES = BM * 128;   // A's 128 x 64 tile
+constexpr int SLAB = 64 * 128;      // 64 rows x 64 bf16, swizzled
+constexpr int THREADS = 288;        // two consumer warpgroups + a producer warp
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy; src_bytes = 0 zero-fills the destination.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+template <int BN>
+struct Cfg {
+  static constexpr int STAGES = BN == 256 ? 4 : 6;
+  static constexpr int STAGE_BYTES = A_BYTES + BN * 128;
+  static constexpr int RED_BYTES = 8 * BN * 4;  // epilogue 10: [warp][column]
+  static constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + RED_BYTES + 2 * STAGES * 8;
+};
 
 // jax.nn.gelu(approximate=True), in fp32.
 __device__ __forceinline__ float gelu_tanh(float x) {
@@ -155,265 +160,297 @@ __device__ __forceinline__ float2 load_res2<__nv_bfloat16>(const __nv_bfloat16* 
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
-// Loads the k-th 32-deep slice of A (BM rows) and W (BN columns) into one
-// ring stage. Each thread moves two 16-byte chunks of each operand.
-template <bool NT>
-__device__ __forceinline__ void load_stage(__nv_bfloat16* sa, __nv_bfloat16* sb,
-                                           const __nv_bfloat16* __restrict__ a,
-                                           const __nv_bfloat16* __restrict__ w, int m,
-                                           int n, int k, int row0, int col0, int k0) {
-  const int t = threadIdx.x;
+template <int BN, bool NT>
+__device__ __forceinline__ void mma_slice(float* acc, uint32_t sa, uint32_t sw) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int chunk = t + i * THREADS;  // 0..511
-    // A: 128 rows x 4 chunks of 8 bf16
-    const int ar = chunk >> 2, ac = (chunk & 3) * 8;
-    const int grow = row0 + ar;
-    const __nv_bfloat16* src = a + (long long)(grow < m ? grow : 0) * k + k0 + ac;
-    cp_async16(sa + ar * A_STRIDE + ac, src, grow < m ? 16 : 0);
-    if (NT) {
-      // W as (N, K): 128 rows (n) x 4 chunks of 8 bf16 (k), like A
-      const int gn = col0 + ar;
-      const __nv_bfloat16* wsrc = w + (long long)(gn < n ? gn : 0) * k + k0 + ac;
-      cp_async16(sb + ar * A_STRIDE + ac, wsrc, gn < n ? 16 : 0);
-    } else {
-      // W: 32 rows (k) x 16 chunks of 8 bf16 (n)
-      const int br = chunk >> 4, bc = (chunk & 15) * 8;
-      const int gcol = col0 + bc;
-      const __nv_bfloat16* wsrc = w + (long long)(k0 + br) * n + (gcol < n ? gcol : 0);
-      cp_async16(sb + br * B_STRIDE + bc, wsrc, gcol < n ? 16 : 0);
-    }
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t da = hopper::desc_sw128(sa + kk * 32, 16, 1024);
+    // NT: W's (BN, 64) tile is K-major; NN: its BN / 64 slabs of (64, 64)
+    // are MN-major, 16 K rows = 2048 bytes a step.
+    const uint64_t dw = NT ? hopper::desc_sw128(sw + kk * 32, 16, 1024)
+                           : hopper::desc_sw128(sw + kk * 2048, SLAB, 1024);
+    if constexpr (BN == 256)
+      hopper::wgmma_m64n256k16_ss<0, NT ? 0 : 1>(acc, da, dw);
+    else
+      hopper::wgmma_m64n128k16_ss<0, NT ? 0 : 1>(acc, da, dw);
   }
 }
 
-template <int EPI, bool NT, typename RES, typename OUT>
-__global__ void __launch_bounds__(THREADS)
-gemm_kernel(const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict__ w,
+template <int EPI, bool NT, int BN, typename RES, typename OUT>
+__global__ void __launch_bounds__(THREADS, 1)
+gemm_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap wmap,
             const __nv_bfloat16* __restrict__ bias, const RES* __restrict__ res,
             const __nv_bfloat16* __restrict__ mask, OUT* __restrict__ out,
-            float* __restrict__ aux, int m, int n, int k) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sa = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sb = sa + STAGES * A_TILE;
-  constexpr int BT = NT ? B_TILE_NT : B_TILE;
+            float* __restrict__ aux, int m, int n, int k, int tiles_n, int n_tiles) {
+  using C = Cfg<BN>;
+  constexpr int STAGES = C::STAGES, NACC = BN / 2;
+  constexpr bool HAS_BIAS = EPI != 4 && EPI != 5 && EPI != 10 && EPI != 11;
+  constexpr bool HAS_IN = EPI == 2 || EPI == 3 || EPI == 6 || EPI == 7 || EPI == 8 || EPI == 10;
+  constexpr int EPI_CHUNK = 8;  // 8-column groups whose epilogue inputs load together
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  const uint32_t ring = (raw + 1023) & ~1023u;
+  float* red = reinterpret_cast<float*>(smem_raw + (ring - raw) + STAGES * C::STAGE_BYTES);
+  const uint32_t full = ring + STAGES * C::STAGE_BYTES + C::RED_BYTES;
+  const uint32_t empty = full + STAGES * 8;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int ksteps = (k + BK - 1) / BK;
 
-  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = (warp >> 2) * 64;  // warp's row offset in the tile
-  const int wn = (warp & 3) * 32;   // warp's column offset in the tile
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  const int ktiles = k / BK;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < ktiles) load_stage<NT>(sa + s * A_TILE, sb + s * BT, a, w, m, n, k, row0, col0, s * BK);
-    cp_async_commit();
-  }
-
-  for (int kt = 0; kt < ktiles; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    const int next = kt + STAGES - 1;
-    if (next < ktiles) {
-      const int st = next % STAGES;
-      load_stage<NT>(sa + st * A_TILE, sb + st * BT, a, w, m, n, k, row0, col0, next * BK);
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(full + 8 * s, 1);
+      hopper::mbar_init(empty + 8 * s, 8);  // one arrival per consumer warp
     }
-    cp_async_commit();
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
 
-    const __nv_bfloat16* ta = sa + (kt % STAGES) * A_TILE;
-    const __nv_bfloat16* tb = sb + (kt % STAGES) * BT;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t af[4][4], bf[4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = wm + i * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-        const int c = kk + (lane >> 4) * 8;
-        ldmatrix_x4(af[i], ta + r * A_STRIDE + c);
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        uint32_t t4[4];
-        if (NT) {
-          const int r = wn + j * 16 + (lane & 7) + (lane >> 4) * 8;
-          const int c = kk + ((lane >> 3) & 1) * 8;
-          ldmatrix_x4(t4, tb + r * A_STRIDE + c);
+  if (warp == 8) {  // the producer: the CTA's tiles in order, K slice by slice
+    if (lane != 0) return;
+    int it = 0;
+    for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+      const int m0 = (t / tiles_n) * BM, n0 = (t % tiles_n) * BN;
+      for (int ks = 0; ks < ksteps; ++ks, ++it) {
+        const int s = it % STAGES;
+        hopper::mbar_wait(empty + 8 * s, ((it / STAGES) & 1) ^ 1);
+        const uint32_t fb = full + 8 * s, dst = ring + s * C::STAGE_BYTES;
+        hopper::mbar_expect_tx(fb, C::STAGE_BYTES);
+        hopper::tma_load_2d(dst, &amap, ks * BK, m0, fb);
+        if constexpr (NT) {
+          hopper::tma_load_2d(dst + A_BYTES, &wmap, ks * BK, n0, fb);
         } else {
-          const int r = kk + (lane & 7) + ((lane >> 3) & 1) * 8;
-          const int c = wn + j * 16 + (lane >> 4) * 8;
-          ldmatrix_x4_trans(t4, tb + r * B_STRIDE + c);
-        }
-        bf[2 * j][0] = t4[0];
-        bf[2 * j][1] = t4[1];
-        bf[2 * j + 1][0] = t4[2];
-        bf[2 * j + 1][1] = t4[3];
-      }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], af[i], bf[j]);
-    }
-  }
-  cp_async_wait<0>();
-
-  // Epilogue straight from the accumulator fragments: thread holds
-  // (row g, cols 2t, 2t+1) and (row g + 8, same cols) of each 16 x 8 tile.
-  const int g = lane >> 2, tq = lane & 3;
-  if constexpr (EPI == 8) {
-    __shared__ float red[4][BM];  // [column quarter of the tile][row in the tile]
-    float rs[4][2];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) rs[i][0] = rs[i][1] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = col0 + wn + j * 8 + tq * 2;
-      if (col >= n) continue;
-      const float2 b2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias + col));
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = row0 + wm + i * 16 + g + h * 8;
-          if (row >= m) continue;
-          const long long off = (long long)row * n + col;
-          const float2 g2 = load_res2<RES>(res + off);
-          const float mk = __bfloat162float(mask[row]);
-          *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<__nv_bfloat16*>(out) + off) =
-              __floats2bfloat162_rn(g2.x * mk, g2.y * mk);
-          rs[i][h] += g2.x * (acc[i][j][2 * h] + b2.x) + g2.y * (acc[i][j][2 * h + 1] + b2.y);
+          for (int j = 0; j < BN / 64; ++j)
+            hopper::tma_load_2d(dst + A_BYTES + j * SLAB, &wmap, n0 + 64 * j, ks * BK, fb);
         }
       }
     }
-    // the four lanes of a row, then the four warps of a row, in order
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        rs[i][h] += __shfl_xor_sync(0xffffffffu, rs[i][h], 1);
-        rs[i][h] += __shfl_xor_sync(0xffffffffu, rs[i][h], 2);
-        if (tq == 0) red[warp & 3][wm + i * 16 + g + h * 8] = rs[i][h];
-      }
-    }
-    __syncthreads();
-    const int r = threadIdx.x;
-    if (r < BM && row0 + r < m)
-      aux[(long long)(row0 + r) * gridDim.x + blockIdx.x] =
-          ((red[0][r] + red[1][r]) + red[2][r]) + red[3][r];
     return;
   }
-  if constexpr (EPI == 10) {
-    __shared__ float cred[2][BN];  // [row half of the tile][column in the tile]
-    float cs[4][2];
+
+  // The consumers: warpgroup w owns rows [64 w, 64 w + 64) of every tile.
+  const int w = warp >> 2, wq = warp & 3, g = lane >> 2, t4 = lane & 3;
+  int it = 0;
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const int tm = t / tiles_n, m0 = tm * BM, n0 = (t % tiles_n) * BN;
+    float acc[NACC];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) cs[j][0] = cs[j][1] = 0.f;
+    for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
+    int prev = -1;
+    for (int ks = 0; ks < ksteps; ++ks, ++it) {
+      const int s = it % STAGES;
+      hopper::mbar_wait(full + 8 * s, (it / STAGES) & 1);
+      const uint32_t st = ring + s * C::STAGE_BYTES;
+      hopper::fence_regs<NACC>(acc);
+      hopper::wgmma_fence();
+      mma_slice<BN, NT>(acc, st + w * (A_BYTES / 2), st + A_BYTES);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();
+      hopper::fence_regs<NACC>(acc);
+      if (prev >= 0 && lane == 0) hopper::mbar_arrive(empty + 8 * prev);
+      prev = s;
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs<NACC>(acc);
+    if (prev >= 0 && lane == 0) hopper::mbar_arrive(empty + 8 * prev);
+
+    // acc[4 j + 2 hh + e]: row lr + 8 hh of the tile, column 8 j + 2 t4 + e.
+    // The epilogue reads its inputs (bias, residual, cotangent or hpre) for
+    // EPI_CHUNK column groups before it writes their outputs: an output may
+    // share its type with an input, and a load after a store of that type
+    // would wait for the store.
+    const int lr = 64 * w + 16 * wq + g;
+    float mk[2] = {1.f, 1.f};
+    if constexpr (EPI == 6 || EPI == 7 || EPI == 8) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = col0 + wn + j * 8 + tq * 2;
-      if (col >= n) continue;
+      for (int hh = 0; hh < 2; ++hh)
+        if (m0 + lr + 8 * hh < m) mk[hh] = __bfloat162float(mask[m0 + lr + 8 * hh]);
+    }
+    float rs[2] = {0.f, 0.f};  // epilogue 8: the rows' partials of the current 128 columns
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+    for (int j0 = 0; j0 < BN / 8; j0 += EPI_CHUNK) {
+      float2 b2[EPI_CHUNK], in[EPI_CHUNK][2];
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = row0 + wm + i * 16 + g + h * 8;
-          if (row >= m) continue;
+      for (int jj = 0; jj < EPI_CHUNK; ++jj) {
+        const int col = n0 + 8 * (j0 + jj) + 2 * t4;
+        b2[jj] = make_float2(0.f, 0.f);
+        if (HAS_BIAS && col < n)
+          b2[jj] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias + col));
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int row = m0 + lr + 8 * hh;
+          in[jj][hh] = make_float2(0.f, 0.f);
+          if (HAS_IN && col < n && row < m) in[jj][hh] = load_res2<RES>(res + (long long)row * n + col);
+        }
+      }
+#pragma unroll
+      for (int jj = 0; jj < EPI_CHUNK; ++jj) {
+        const int j = j0 + jj, col = n0 + 8 * j + 2 * t4;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int row = m0 + lr + 8 * hh;
+          const bool ok = col < n && row < m;
           const long long off = (long long)row * n + col;
-          const float2 hp = load_res2<RES>(res + off);
-          const float d0 = acc[i][j][2 * h] * gelu_tanh_grad(hp.x);
-          const float d1 = acc[i][j][2 * h + 1] * gelu_tanh_grad(hp.y);
-          *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<__nv_bfloat16*>(out) + off) =
-              __floats2bfloat162_rn(d0, d1);
-          cs[j][0] += d0;
-          cs[j][1] += d1;
+          float v0 = acc[4 * j + 2 * hh] + b2[jj].x;
+          float v1 = acc[4 * j + 2 * hh + 1] + b2[jj].y;
+          if constexpr (EPI == 8) {
+            // dproj = bf16(g * mask); the row partial of g * (A . W + bias)
+            if (ok)
+              *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<__nv_bfloat16*>(out) + off) =
+                  __floats2bfloat162_rn(in[jj][hh].x * mk[hh], in[jj][hh].y * mk[hh]);
+            rs[hh] += in[jj][hh].x * v0 + in[jj][hh].y * v1;
+          } else if constexpr (EPI == 10) {
+            // dhpre = acc * gelu'(hpre), rounded on store and kept in acc for the sums
+            v0 = ok ? v0 * gelu_tanh_grad(in[jj][hh].x) : 0.f;
+            v1 = ok ? v1 * gelu_tanh_grad(in[jj][hh].y) : 0.f;
+            if (ok)
+              *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<__nv_bfloat16*>(out) + off) =
+                  __floats2bfloat162_rn(v0, v1);
+            acc[4 * j + 2 * hh] = v0;
+            acc[4 * j + 2 * hh + 1] = v1;
+          } else {
+            if (!ok) continue;
+            if (EPI == 9) *reinterpret_cast<float2*>(aux + off) = make_float2(v0, v1);
+            if (EPI == 1 || EPI == 9) {
+              v0 = gelu_tanh(v0);
+              v1 = gelu_tanh(v1);
+            }
+            if (EPI == 6 || EPI == 7) {
+              v0 *= mk[hh];
+              v1 *= mk[hh];
+            }
+            if (HAS_IN) {
+              v0 += in[jj][hh].x;
+              v1 += in[jj][hh].y;
+            }
+            if (EPI == 2 || EPI == 5 || EPI == 6 || EPI == 11) {
+              *reinterpret_cast<float2*>(reinterpret_cast<float*>(out) + off) = make_float2(v0, v1);
+            } else {
+              *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<__nv_bfloat16*>(out) + off) =
+                  __floats2bfloat162_rn(v0, v1);
+            }
+          }
+        }
+      }
+      if constexpr (EPI == 8) {
+        // per row and 128-column group: the thread's 16 column pairs, then the quad
+        if ((j0 + EPI_CHUNK) % 16 == 0) {
+          const int part = (n0 + 8 * (j0 + EPI_CHUNK - 16)) / 128, parts = (n + 127) / 128;
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            float v = rs[hh];
+            v += __shfl_xor_sync(0xffffffffu, v, 1);
+            v += __shfl_xor_sync(0xffffffffu, v, 2);
+            const int row = m0 + lr + 8 * hh;
+            if (t4 == 0 && row < m && part < parts) aux[(long long)row * parts + part] = v;
+            rs[hh] = 0.f;
+          }
         }
       }
     }
-    // the eight lanes of a column (g = 0..7), then the two row halves
+    if constexpr (EPI == 10) {
+      // per column: the thread's two rows, the warp's eight row groups, then
+      // the eight warps in order
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < BN / 8; ++j) {
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        float v = cs[j][e];
-        v += __shfl_xor_sync(0xffffffffu, v, 4);
-        v += __shfl_xor_sync(0xffffffffu, v, 8);
-        v += __shfl_xor_sync(0xffffffffu, v, 16);
-        if (g == 0) cred[warp >> 2][wn + j * 8 + tq * 2 + e] = v;
-      }
-    }
-    __syncthreads();
-    const int c = threadIdx.x;
-    if (c < BN && col0 + c < n) aux[(long long)blockIdx.y * n + col0 + c] = cred[0][c] + cred[1][c];
-    return;
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int col = col0 + wn + j * 8 + tq * 2;
-    if (col >= n) continue;
-    const float2 b2 = (EPI == 4 || EPI == 5 || EPI == 11) ? make_float2(0.f, 0.f)
-                               : __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias + col));
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = row0 + wm + i * 16 + g + h * 8;
-        if (row >= m) continue;
-        float v0 = acc[i][j][2 * h] + b2.x;
-        float v1 = acc[i][j][2 * h + 1] + b2.y;
-        const long long off = (long long)row * n + col;
-        if (EPI == 9) *reinterpret_cast<float2*>(aux + off) = make_float2(v0, v1);
-        if (EPI == 1 || EPI == 9) {
-          v0 = gelu_tanh(v0);
-          v1 = gelu_tanh(v1);
-        }
-        if (EPI == 6 || EPI == 7) {
-          const float mk = __bfloat162float(mask[row]);
-          v0 *= mk;
-          v1 *= mk;
-        }
-        if (EPI == 2 || EPI == 3 || EPI == 6 || EPI == 7) {
-          const float2 r2 = load_res2<RES>(res + off);
-          v0 += r2.x;
-          v1 += r2.y;
-        }
-        if (EPI == 2 || EPI == 5 || EPI == 6 || EPI == 11) {
-          *reinterpret_cast<float2*>(reinterpret_cast<float*>(out) + off) = make_float2(v0, v1);
-        } else {
-          *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<__nv_bfloat16*>(out) + off) =
-              __floats2bfloat162_rn(v0, v1);
+        for (int e = 0; e < 2; ++e) {
+          float v = acc[4 * j + e] + acc[4 * j + 2 + e];
+          v += __shfl_xor_sync(0xffffffffu, v, 4);
+          v += __shfl_xor_sync(0xffffffffu, v, 8);
+          v += __shfl_xor_sync(0xffffffffu, v, 16);
+          if (g == 0) red[warp * BN + 8 * j + 2 * t4 + e] = v;
         }
       }
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");
+      if (tid < BN && n0 + tid < n) {
+        float v = red[tid];
+#pragma unroll
+        for (int r = 1; r < 8; ++r) v += red[r * BN + tid];
+        aux[(long long)tm * n + n0 + tid] = v;
+      }
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");
     }
   }
 }
 
-template <int EPI, bool NT, typename RES, typename OUT>
-int launch(const void* a, const void* w, const void* bias, const void* res, const void* mask,
-           void* out, int m, int n, int k, cudaStream_t stream, void* aux = nullptr) {
-  auto kern = gemm_kernel<EPI, NT, RES, OUT>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<NT>());
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
-  kern<<<grid, THREADS, smem_bytes<NT>(), stream>>>(
-      static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(w),
-      static_cast<const __nv_bfloat16*>(bias), static_cast<const RES*>(res),
-      static_cast<const __nv_bfloat16*>(mask), static_cast<OUT*>(out), static_cast<float*>(aux),
-      m, n, k);
+int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+        sms < 1)
+      sms = 132;
+  }
+  return sms;
+}
+
+// The C tile width for an (m, n) output of `epilogue`, 256 where it pads N
+// no more than 128 does and the tiles still fill the card, else 128 (and
+// always 128 for gelu_grad, whose epilogue needs the registers); and the
+// persistent grid.
+void plan(int m, int n, int epilogue, int* bn, int* grid) {
+  const long long tiles_m = (m + BM - 1) / BM;
+  const int t128 = (n + 127) / 128, t256 = (n + 255) / 256;
+  const bool wide = epilogue != 10 && t256 * 256 <= t128 * 128 && tiles_m * t256 >= sm_count();
+  *bn = wide ? 256 : 128;
+  const long long tiles = tiles_m * (wide ? t256 : t128);
+  *grid = (int)(tiles < sm_count() ? tiles : sm_count());
+}
+
+struct Args {
+  const void *a, *w, *bias, *res, *mask;
+  void *out, *aux;
+  int m, n, k;
+};
+
+template <int EPI, bool NT, int BN, typename RES, typename OUT>
+int launch_bn(const Args& p, int grid, cudaStream_t stream) {
+  auto kern = gemm_kernel<EPI, NT, BN, RES, OUT>;
+  static bool sized = false;  // the attribute is set once per instance
+  if (!sized) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<BN>::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    sized = true;
+  }
+  CUtensorMap am, wm;
+  const uint64_t adims[2] = {(uint64_t)p.k, (uint64_t)p.m}, astr[1] = {(uint64_t)p.k * 2};
+  const uint32_t abox[2] = {BK, BM};
+  // NT: W is (N, K), K innermost; NN: W is (K, N), N innermost.
+  const uint64_t wdims[2] = {(uint64_t)(NT ? p.k : p.n), (uint64_t)(NT ? p.n : p.k)};
+  const uint64_t wstr[1] = {(uint64_t)(NT ? p.k : p.n) * 2};
+  const uint32_t wbox[2] = {64, NT ? (uint32_t)BN : 64u};
+  if (!hopper::make_map_bf16(&am, p.a, 2, adims, astr, abox) ||
+      !hopper::make_map_bf16(&wm, p.w, 2, wdims, wstr, wbox))
+    return (int)cudaErrorInvalidValue;
+  const int tiles_n = (p.n + BN - 1) / BN;
+  const int n_tiles = ((p.m + BM - 1) / BM) * tiles_n;
+  kern<<<grid, THREADS, Cfg<BN>::SMEM, stream>>>(
+      am, wm, static_cast<const __nv_bfloat16*>(p.bias), static_cast<const RES*>(p.res),
+      static_cast<const __nv_bfloat16*>(p.mask), static_cast<OUT*>(p.out),
+      static_cast<float*>(p.aux), p.m, p.n, p.k, tiles_n, n_tiles);
   return (int)cudaGetLastError();
+}
+
+template <int EPI, bool NT, typename RES, typename OUT>
+int launch(const Args& p, cudaStream_t stream) {
+  int bn, grid;
+  plan(p.m, p.n, EPI, &bn, &grid);
+  if constexpr (EPI == 10) {
+    return launch_bn<EPI, NT, 128, RES, OUT>(p, grid, stream);
+  } else {
+    return bn == 256 ? launch_bn<EPI, NT, 256, RES, OUT>(p, grid, stream)
+                     : launch_bn<EPI, NT, 128, RES, OUT>(p, grid, stream);
+  }
 }
 
 // Residual epilogues (2, 3, 6, 7) with either residual type.
 template <int EPI, typename OUT>
-int launch_res(int res_f32, const void* a, const void* w, const void* bias, const void* res,
-               const void* mask, void* out, int m, int n, int k, cudaStream_t s) {
-  return res_f32 ? launch<EPI, false, float, OUT>(a, w, bias, res, mask, out, m, n, k, s)
-                 : launch<EPI, false, __nv_bfloat16, OUT>(a, w, bias, res, mask, out, m, n, k, s);
+int launch_res(int res_f32, const Args& p, cudaStream_t s) {
+  return res_f32 ? launch<EPI, false, float, OUT>(p, s)
+                 : launch<EPI, false, __nv_bfloat16, OUT>(p, s);
 }
 
 }  // namespace
@@ -422,7 +459,7 @@ int launch_res(int res_f32, const void* a, const void* w, const void* bias, cons
 // 3 bias + residual -> bf16, 4 A . W^T -> bf16, 5 A . W^T -> fp32 (W as
 // (N, K); bias and res are ignored for 4 and 5), 6 (bias) * mask +
 // residual -> fp32, 7 (bias) * mask + residual -> bf16, 8 masked_rowdot:
-// out = bf16(res * mask) and aux = per-(row, 128-column tile) partials of
+// out = bf16(res * mask) and aux = per-(row, 128-column group) partials of
 // sum(res * (A . W + bias)), fp32 (m, ceil(n / 128)); res is the bf16
 // cotangent. 9 gelu_hpre: out = bf16(gelu(A . W + bias)) and aux = the
 // fp32 A . W + bias, (m, n). 10 gelu_grad (W as (N, K), no bias): with
@@ -441,38 +478,45 @@ extern "C" int peekvit_gemm_bias_epilogue(const void* a, const void* w, const vo
                                           int res_f32, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (m == 0) return 0;
+  const Args p{a, w, bias, res, mask, out, aux, m, n, k};
   switch (epilogue) {
     case 0:
-      return launch<0, false, float, __nv_bfloat16>(a, w, bias, res, mask, out, m, n, k, s);
+      return launch<0, false, float, __nv_bfloat16>(p, s);
     case 1:
-      return launch<1, false, float, __nv_bfloat16>(a, w, bias, res, mask, out, m, n, k, s);
+      return launch<1, false, float, __nv_bfloat16>(p, s);
     case 2:
-      return launch_res<2, float>(res_f32, a, w, bias, res, mask, out, m, n, k, s);
+      return launch_res<2, float>(res_f32, p, s);
     case 3:
-      return launch_res<3, __nv_bfloat16>(res_f32, a, w, bias, res, mask, out, m, n, k, s);
+      return launch_res<3, __nv_bfloat16>(res_f32, p, s);
     case 4:
-      return launch<4, true, float, __nv_bfloat16>(a, w, bias, res, mask, out, m, n, k, s);
+      return launch<4, true, float, __nv_bfloat16>(p, s);
     case 5:
-      return launch<5, true, float, float>(a, w, bias, res, mask, out, m, n, k, s);
+      return launch<5, true, float, float>(p, s);
     case 6:
     case 7:
       if (mask == nullptr) return (int)cudaErrorInvalidValue;
-      return epilogue == 6
-                 ? launch_res<6, float>(res_f32, a, w, bias, res, mask, out, m, n, k, s)
-                 : launch_res<7, __nv_bfloat16>(res_f32, a, w, bias, res, mask, out, m, n, k, s);
+      return epilogue == 6 ? launch_res<6, float>(res_f32, p, s)
+                           : launch_res<7, __nv_bfloat16>(res_f32, p, s);
     case 8:
       if (mask == nullptr || res == nullptr || aux == nullptr) return (int)cudaErrorInvalidValue;
-      return launch<8, false, __nv_bfloat16, __nv_bfloat16>(a, w, bias, res, mask, out, m, n, k,
-                                                            s, aux);
+      return launch<8, false, __nv_bfloat16, __nv_bfloat16>(p, s);
     case 9:
       if (aux == nullptr) return (int)cudaErrorInvalidValue;
-      return launch<9, false, float, __nv_bfloat16>(a, w, bias, res, mask, out, m, n, k, s, aux);
+      return launch<9, false, float, __nv_bfloat16>(p, s);
     case 10:
       if (res == nullptr || aux == nullptr) return (int)cudaErrorInvalidValue;
-      return launch<10, true, float, __nv_bfloat16>(a, w, bias, res, mask, out, m, n, k, s, aux);
+      return launch<10, true, float, __nv_bfloat16>(p, s);
     case 11:
-      return launch<11, false, float, float>(a, w, bias, res, mask, out, m, n, k, s);
+      return launch<11, false, float, float>(p, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// The schedule peekvit_gemm_bias_epilogue takes for an (m, n) output of
+// `epilogue`: writes the C tile width (128 or 256) to out[0] and the number
+// of persistent CTAs to out[1]. Returns 0.
+extern "C" int peekvit_gemm_bias_epilogue_plan(int m, int n, int epilogue, int* out) {
+  plan(m, n, epilogue, &out[0], &out[1]);
+  return 0;
 }

@@ -63,8 +63,16 @@ _SIGNATURES = {
                     _I, _P]),
 }
 
+# Further entry points, loaded beside a kernel's own: the schedule a
+# kernel takes for a shape (chosen by shape alone inside its C entry point).
+_EXTRA = {
+    "gemm_bias_epilogue": ("peekvit_gemm_bias_epilogue_plan", [_I, _I, _I, _P]),
+    "attn_softmax_bwd": ("peekvit_attn_softmax_bwd_route", [_I]),
+}
+
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_extra: dict[str, ctypes.CDLL] = {}
 # name -> {"seconds": float, "ptxas": [lines], "cached": bool}
 BUILD_INFO: dict[str, dict] = {}
 
@@ -133,9 +141,18 @@ def library(name: str):
         if name not in _libs:
             build_all()
             for src in SOURCES:
-                symbol, argtypes = _SIGNATURES[src]
-                entry = getattr(ctypes.CDLL(_target(src)), symbol)
-                entry.argtypes = argtypes
-                entry.restype = ctypes.c_int
-                _libs[src] = entry
+                lib = ctypes.CDLL(_target(src))
+                for table, store in ((_SIGNATURES, _libs), (_EXTRA, _extra)):
+                    if src in table:
+                        symbol, argtypes = table[src]
+                        entry = getattr(lib, symbol)
+                        entry.argtypes = argtypes
+                        entry.restype = ctypes.c_int
+                        store[src] = entry
     return _libs[name]
+
+
+def extra(name: str):
+    """The loaded further entry point of kernel ``name`` (``_EXTRA``)."""
+    library(name)
+    return _extra[name]

@@ -64,6 +64,8 @@ variant; :func:`reset_launch_counts` zeroes it.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
@@ -75,6 +77,9 @@ LAUNCHES: dict[str, int] = {}
 _EPILOGUES = {"bias": 0, "gelu": 1, "residual_f32": 2, "residual": 3,
               "masked_residual_f32": 6, "masked_residual": 7}
 _NT_EPILOGUES = {"none": 4, "none_f32": 5}  # W read as (N, K), no bias
+# Every epilogue of gemm_bias_epilogue.cu by name, for gemm_plan
+GEMM_EPILOGUES = {**_EPILOGUES, **_NT_EPILOGUES, "masked_rowdot": 8, "gelu_hpre": 9,
+                  "gelu_grad": 10, "partial_f32": 11}
 
 
 def reset_launch_counts() -> None:
@@ -282,6 +287,16 @@ def _check_gemm(key, a, w, nt: bool):
     return m, n, k
 
 
+def gemm_plan(m: int, n: int, epilogue: str = "bias") -> dict:
+    """The schedule the GEMM kernel takes for an (m, n) output of
+    ``epilogue`` (a key of ``GEMM_EPILOGUES``) on the card, chosen by shape
+    inside its C entry point: the C tile width (128 or 256) and the number
+    of persistent CTAs. For the record; needs the built library."""
+    out = (ctypes.c_int * 2)()
+    _build.extra("gemm_bias_epilogue")(m, n, GEMM_EPILOGUES[epilogue], out)
+    return {"bn": out[0], "grid": out[1]}
+
+
 def gemm_bias_epilogue_ref(a, w, bias, epilogue: str, residual=None, mask=None):
     """Plain version of :func:`gemm_bias_epilogue`: fp32 products and sums,
     one rounding at the end."""
@@ -389,8 +404,8 @@ def gemm_partial_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     m, n, k = _check_gemm(key, a, w, nt=False)
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
     err = _build.library("gemm_bias_epilogue")(
-        a.data_ptr(), w.data_ptr(), None, None, None, out.data_ptr(), None, m, n, k, 11, 0,
-        _stream())
+        a.data_ptr(), w.data_ptr(), None, None, None, out.data_ptr(), None, m, n, k,
+        GEMM_EPILOGUES["partial_f32"], 0, _stream())
     _launched(key, err)
     return out
 
@@ -418,11 +433,12 @@ def gemm_gelu_hpre(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor):
     hpre = torch.empty((m, n), dtype=torch.float32, device=a.device)
     err = _build.library("gemm_bias_epilogue")(
         a.data_ptr(), w.data_ptr(), bias.data_ptr(), None, None, h.data_ptr(), hpre.data_ptr(),
-        m, n, k, 9, 0, _stream())
+        m, n, k, GEMM_EPILOGUES["gelu_hpre"], 0, _stream())
     _launched(key, err)
     return h, hpre
 
 
+GELU_GRAD_TILE = 128  # gemm_nt_gelu_grad writes one column partial per 128 rows
 _SQRT_2_OVER_PI = 0.7978845608028654
 _GELU_C = 0.044715
 
@@ -436,10 +452,14 @@ def gelu_tanh_grad(x: torch.Tensor) -> torch.Tensor:
 
 
 def gemm_nt_gelu_grad_ref(a, w, hpre):
-    """Plain version of :func:`gemm_nt_gelu_grad`; its partials are the
-    full column sums, shape (1, N)."""
+    """Plain version of :func:`gemm_nt_gelu_grad`, with the kernel's
+    partials: the column sums of each 128-row tile, (ceil(R / 128), N)."""
     dhpre = torch.matmul(a.float(), w.float().t()) * gelu_tanh_grad(hpre.float())
-    return dhpre.to(a.dtype), dhpre.sum(0, keepdim=True)
+    r, n = dhpre.shape
+    tiles = -(-r // GELU_GRAD_TILE)
+    parts = F.pad(dhpre, (0, 0, 0, tiles * GELU_GRAD_TILE - r)).reshape(
+        tiles, GELU_GRAD_TILE, n).sum(1)
+    return dhpre.to(a.dtype), parts
 
 
 def gemm_nt_gelu_grad(a: torch.Tensor, w: torch.Tensor, hpre: torch.Tensor):
@@ -458,10 +478,10 @@ def gemm_nt_gelu_grad(a: torch.Tensor, w: torch.Tensor, hpre: torch.Tensor):
              and hpre.data_ptr() % 16 == 0, f"{key}: hpre must be contiguous, aligned fp32 "
              f"{(m, n)}")
     dhpre = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
-    parts = torch.empty((-(-m // 128), n), dtype=torch.float32, device=a.device)
+    parts = torch.empty((-(-m // GELU_GRAD_TILE), n), dtype=torch.float32, device=a.device)
     err = _build.library("gemm_bias_epilogue")(
         a.data_ptr(), w.data_ptr(), None, hpre.data_ptr(), None, dhpre.data_ptr(),
-        parts.data_ptr(), m, n, k, 10, 0, _stream())
+        parts.data_ptr(), m, n, k, GEMM_EPILOGUES["gelu_grad"], 0, _stream())
     _launched(key, err)
     return dhpre, parts
 
@@ -470,12 +490,16 @@ ROWDOT_TILE = 128  # gemm_masked_rowdot writes one partial per 128 output column
 
 
 def gemm_masked_rowdot_ref(a, w, bias, g, mask):
-    """Plain version of :func:`gemm_masked_rowdot`; its partials are the
-    full row sums, shape (R, 1)."""
+    """Plain version of :func:`gemm_masked_rowdot`, with the kernel's
+    partials: the row sums over each 128-column group, (R, ceil(N / 128))."""
     proj = torch.matmul(a.float(), w.float()) + bias.float().reshape(-1)
     gf = g.float()
     dproj = (gf * mask.float().reshape(-1, 1)).to(a.dtype)
-    return dproj, (gf * proj).sum(-1, keepdim=True)
+    r, n = proj.shape
+    groups = -(-n // ROWDOT_TILE)
+    parts = F.pad(gf * proj, (0, groups * ROWDOT_TILE - n)).reshape(
+        r, groups, ROWDOT_TILE).sum(-1)
+    return dproj, parts
 
 
 def gemm_masked_rowdot(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, g: torch.Tensor,
@@ -500,7 +524,8 @@ def gemm_masked_rowdot(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, g: 
     parts = torch.empty((m, -(-n // ROWDOT_TILE)), dtype=torch.float32, device=a.device)
     err = _build.library("gemm_bias_epilogue")(
         a.data_ptr(), w.data_ptr(), bias.data_ptr(), g.data_ptr(), mask.data_ptr(),
-        dproj.data_ptr(), parts.data_ptr(), m, n, k, 8, 0, _stream())
+        dproj.data_ptr(), parts.data_ptr(), m, n, k, GEMM_EPILOGUES["masked_rowdot"], 0,
+        _stream())
     _launched(key, err)
     return dproj, parts
 

@@ -167,6 +167,14 @@ def attn_softmax_bwd_ref(qkv: torch.Tensor, dattn: torch.Tensor, num_heads: int)
     return torch.cat([_merge_heads(dq), _merge_heads(dk), _merge_heads(dv)], dim=-1)
 
 
+def attn_softmax_bwd_route(n: int) -> str:
+    """Which kernel :func:`attn_softmax_bwd` runs at ``n`` tokens on the
+    card, chosen by shape inside its C entry point: ``"wgmma"`` (n <= 256)
+    or ``"kept"`` (the earlier kernel). For the record; needs the built
+    library."""
+    return "wgmma" if _build.extra("attn_softmax_bwd")(n) else "kept"
+
+
 def attn_softmax_bwd(qkv: torch.Tensor, dattn: torch.Tensor, num_heads: int) -> torch.Tensor:
     """dqkv (B, N, 3D) in qkv's packed layout from qkv and the attention
     output's cotangent dattn (B, N, D). On CUDA: bf16, head dim 64,
