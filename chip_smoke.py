@@ -3528,6 +3528,134 @@ def gemm_attn_bwd_timing(torch, F, fa, vjp, smi, randn, build_info) -> None:
         raise AssertionError(f"ptxas spilled registers in {spilled}")
 
 
+SCORES_PV_EDGE_TOKENS = (1, 15, 16, 17, 63, 64, 65, 148, 197, 208, 256, 257, 786, 1024)
+SCORES_PV_WIDTHS = ((64, 768, 12), (32, 128, 4), (64, 256, 4))  # head dim, d, heads
+S8_EDGE_M = (1, 127, 129, 300, 50432)
+S8_EDGE_N = (8, 136, 264, 768, 2304)
+S8_EDGE_K = (16, 144, 784, 3072)
+
+
+def scores_pv_s8_edge_checks(torch, fa, tq, randn, smi, build_info) -> None:
+    """Phase 36, the wgmma / TMA attn_scores_pv and gemm_s8_epilogue at their
+    edges: the attention at every N of SCORES_PV_EDGE_TOKENS (16-key slices,
+    64-key chunks and tiles, the kept kernel past 832 tokens at head dim
+    64) at ViT-B/16 width (head dim 64) and PCT's (32), and at the EE
+    ResidualViT's (d 256, 4 heads) at its 786 tokens, 4 images, in every
+    mode (plain; the phantom key at the last token with mult 0 and 45; a
+    key mask with about half the keys excluded and their rows poisoned with
+    NaN and Inf, the attended rows compared and bit-equal to a clean
+    input's) against attn_scores_pv_ref within 2e-2 of max|plain|, with the
+    schedule each took; the exhaustive check of the packed exp2 terms over
+    all 2^32 fp32 logits; the s8 GEMM's six epilogues and a static scale
+    at every M of S8_EDGE_M, N of S8_EDGE_N and K of S8_EDGE_K against its
+    plain version (bit for bit wherever the plain version takes the
+    kernel's IEEE steps, every epilogue but the tanh-gelu: 2^-20 of max);
+    a rerun of each bit-identical; ptxas's registers and spills of both
+    sources' kernels (none may spill)."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    same, plans, worst, count = {}, {}, {}, 0
+
+    def held(name, got, want, tol, rows=None):
+        if rows is not None:
+            got, want = got[rows], want[rows]
+        scale = want.float().abs().max().item()
+        rel = (got.float() - want.float()).abs().max().item() / max(scale, 1e-30)
+        if not torch.isfinite(got).all() or rel > tol:
+            raise AssertionError(f"{name}: {rel} > {tol} of max|plain|")
+        worst[name.split(".N")[0]] = max(worst.get(name.split(".N")[0], 0.0), rel)
+
+    with torch.inference_mode():
+        ex2 = fa.attn_scores_pv_ex2_check()
+        for hd, d, h in SCORES_PV_WIDTHS:
+            for n in SCORES_PV_EDGE_TOKENS if d != 256 else (786,):
+                qkv = randn(EDGE_BATCH, n, 3 * d)
+                gen = torch.Generator(device=qkv.device).manual_seed(n)
+                km = (torch.rand(EDGE_BATCH, n, generator=gen, device=qkv.device) > 0.5).to(bf16)
+                km[:, 0] = 1
+                poison = torch.tensor([float("nan"), float("inf"), -float("inf")],
+                                      device=qkv.device, dtype=bf16)
+                bad = (km == 0)[..., None].expand(-1, -1, 3 * d)
+                garbage = poison[torch.randint(0, 3, qkv.shape, generator=gen,
+                                               device=qkv.device)]
+                qkv_km = torch.where(bad, garbage, qkv)
+                tag = f"hd{hd}.d{d}.N{n}"
+                plans[tag] = fa.attn_scores_pv_plan(EDGE_BATCH, n, h, hd)
+                modes = {"plain": (qkv, {})}
+                for mult in ((45.0,) if n == 1 else (0.0, 45.0)):
+                    modes[f"kweight{mult:g}"] = (qkv, {"phantom_idx": n - 1, "phantom_mult": mult})
+                modes["kmask"] = (qkv_km, {"kmask": km})
+                for mode, (x, kw) in modes.items():
+                    got = fa.attn_scores_pv(x, h, **kw)
+                    want = fa.attn_scores_pv_ref(x, h, **kw)
+                    rows = (km > 0) if mode == "kmask" else None
+                    held(f"attn_scores_pv.{mode}.hd{hd}.N{n}", got, want, 2e-2, rows)
+                    same[f"attn_scores_pv.{mode}.{tag}.rerun"] = torch.equal(
+                        got, fa.attn_scores_pv(x, h, **kw)) if rows is None else torch.equal(
+                        got[rows], fa.attn_scores_pv(x, h, **kw)[rows])
+                    count += 1
+                clean = torch.where(bad, torch.zeros((), dtype=bf16, device=qkv.device), qkv_km)
+                same[f"attn_scores_pv.kmask.{tag}.poison_free"] = torch.equal(
+                    fa.attn_scores_pv(clean, h, kmask=km)[km > 0],
+                    fa.attn_scores_pv(qkv_km, h, kmask=km)[km > 0])
+        attn_checks = count
+        for m in S8_EDGE_M:
+            for n in S8_EDGE_N:
+                for k in S8_EDGE_K:
+                    wq, sw = tq.quantize_linear(randn(k, n, scale=k ** -0.5))
+                    w8 = tq.kernel_layout(wq)
+                    codes, scale = tq.quant_rows_ref(randn(m, k))  # inputs: any codes do
+                    bias = randn(n, scale=0.1)
+                    frac = (randn(m, dtype=f32) > -0.5).to(bf16) * randn(m).abs().clamp(max=1)
+                    r32, r16 = randn(m, n, dtype=f32), randn(m, n)
+                    runs = [(epi, scale, res, mask) for epi, res, mask in (
+                        ("bias", None, None), ("gelu_f32", None, None),
+                        ("residual_f32", r16, None), ("residual", r32, None),
+                        ("masked_residual_f32", r32, frac), ("masked_residual", r16, frac))]
+                    runs.append(("bias.static_scale", tq.static_scale(QUANT_CAPS[0][0]), None,
+                                 None))
+                    for name, sa, res, mask in runs:
+                        epi = name.split(".")[0]
+                        got = tq.gemm_s8_epilogue(codes, sa, w8, sw, bias, epi, residual=res,
+                                                  mask=mask)
+                        want = tq.gemm_s8_epilogue_ref(codes, sa, w8, sw, bias, epi,
+                                                       residual=res, mask=mask)
+                        if got.shape != want.shape or got.dtype != want.dtype:
+                            raise AssertionError(f"gemm_s8_epilogue.{name} at {(m, n, k)}: "
+                                                 f"{got.shape} {got.dtype}")
+                        key = f"gemm_s8_epilogue.{name}"
+                        if epi == "gelu_f32":
+                            held(key, got, want, 2.0 ** -20)
+                        else:
+                            share = (got == want).float().mean().item()
+                            worst[key + ".bit_identical_share"] = min(
+                                worst.get(key + ".bit_identical_share", 1.0), share)
+                            if share != 1.0:
+                                raise AssertionError(f"{key} at {(m, n, k)}: bit_identical_share "
+                                                     f"{share} != 1.0")
+                        same[f"{key}.{m}x{n}x{k}.rerun"] = torch.equal(got, tq.gemm_s8_epilogue(
+                            codes, sa, w8, sw, bias, epi, residual=res, mask=mask))
+                        count += 1
+                    del codes, r32, r16, wq, w8
+        torch.cuda.synchronize()
+    s8_plans = {f"{m}x{n}": tq.gemm_s8_plan(m, n) for m in S8_EDGE_M for n in S8_EDGE_N}
+    rows = ptxas_summary(build_info, ("attn_scores_pv", "gemm_s8_epilogue"))
+    spilled = [r["kernel"] for r in rows if r.get("spill_store_bytes") or r.get("spill_load_bytes")]
+    emit({"phase": "scores_pv_s8_edges", "attn_checks": attn_checks,
+          "gemm_s8_checks": count - attn_checks, "worst": worst,
+          "tolerance_rel": {"attn_scores_pv": 2e-2, "gemm_s8_epilogue.gelu_f32": 2.0 ** -20,
+                            "gemm_s8_epilogue, every other epilogue": "bit-identical"},
+          "attn_scores_pv_plan": plans, "gemm_s8_plan": s8_plans, "ex2_check": ex2,
+          "checked_bit_identical": len(same), "differ": [k for k, v in same.items() if not v],
+          "ptxas": rows if rows else "not rebuilt in this run", "spilled": spilled, "card": smi})
+    if ex2["mismatches"] or ex2["checked"] != 1 << 32:
+        raise AssertionError(f"packed exp2 terms differ from exp2f's: {ex2}")
+    if not all(same.values()):
+        differ = [k for k, v in same.items() if not v]
+        raise AssertionError(f"scores_pv / s8 edges: bits differ {differ}")
+    if spilled:
+        raise AssertionError(f"ptxas spilled registers in {spilled}")
+
+
 def merged_block_checks(torch, lv, randn, layer_w, d, h, n, smi) -> None:
     """Phase 28, whole blocks: layer_block_trainable and layer_block_hybrid
     against their _ref twins at bs32, N = 197, the output and all thirteen
@@ -5235,6 +5363,8 @@ def main() -> int:
     sp_ins = sp_kernel_checks(torch, lv, check, randn, sp_w, d, h, smi)
     sp = sp_phases(torch, smi)
     sp_entries = sp_timing(torch, F, lv, smi, checks, sp_ins, sp_w, sp, d, h, m)
+    # ------------------------- 36. the redesigned attention and s8 GEMM at their edges
+    scores_pv_s8_edge_checks(torch, fa, tq, randn, smi, info)
     for entry in kernels:  # the later paths run earlier kernels too
         entry["launches_by_path"]["merged"] = mtrain["counts"]["merged"].get(entry["name"], 0)
         entry["launches_by_path"]["hybrid"] = mtrain["counts"]["hybrid"].get(entry["name"], 0)

@@ -24,10 +24,8 @@
 //     predicate in fp32) has its term SELECTED to 0 after the exp2, so a
 //     NaN or Inf logit from a garbage excluded row never reaches the
 //     rowsum; and every non-finite v value is scrubbed to 0, element by
-//     element (_attn_scores_pv :80-97), so that 0 * NaN cannot reach PV.
-//     The scrub runs in shared memory after the cp.async wait, on the
-//     chunks each thread copied itself (its own copies are visible to it
-//     after the wait), before the barrier that publishes the tile. The
+//     element (_attn_scores_pv :80-97), so that 0 * NaN cannot reach PV,
+//     in shared memory before the products read it (below). The
 //     clamp here is fminf/fmaxf, which turns a NaN logit finite where
 //     torch.clamp keeps it NaN: the select after the exp is what makes
 //     the kernel and its plain version agree on excluded keys. A key mask
@@ -35,38 +33,80 @@
 //
 // The head dim HD is a template parameter, instantiated at 64 (ViT-B,
 // ViT-S, every earlier model) and 32 (PCT: d = 128 over 4 heads). Only
-// the tile geometry follows HD: a shared-memory row is HD + 8 bf16 (144 B
-// at 64, 80 B at 32, both multiples of ldmatrix's 16-byte rows, and with
-// 8 rows of a ldmatrix landing on distinct banks), Q K^T takes HD / 16
-// k-steps of m16n8k16 and P V HD / 8 n8 tiles. The arithmetic and its
-// order are the same for both, so the HD = 64 kernel is the one built
-// before the template.
+// the tile geometry follows HD; the arithmetic and its order are the same
+// for both.
 //
 // Bound on H100: at ViT-B (N = 197, head dim 64) the two products are
 // 4 * N * N * 64 flops per (image, head) against 4 * N * 64 * 2 bytes
 // of q, k, v and output, about 100 flops per byte, under the card's
-// ~295 flop/byte ridge: bytes bound it, with the exp2 on the SFU close.
-// At PCT (N = 1024, head dim 32) the products are 4 * N * 32 flops per
-// query against 4 * 32 * 2 bytes of its q, k, v and output: 4 N / 2 =
-// 2,048 flops per byte, far past the ridge, so the tensor-core
-// operations bound it (128 flops per score), and the exp2 terms, one per
-// score at the SFU's 16 per SM and cycle (132 SMs at 1.98 GHz: 4.2e12
-// per second), take about twice the tensor-core time at 989 TFLOP/s: at
-// that length the SFU is what limits this design.
-// Design: grid (query tile of 64, head, image), 4 warps of 16 query rows.
-// Q, K and V are read straight from the packed (B, N, 3D) buffer at
-// columns h*HD, D + h*HD and 2D + h*HD and the output is written at
-// column h*HD of (B, N, D): no transposes through memory. Because there
-// is no max subtraction, key tiles of 64 stream through a 2-stage
-// cp.async ring and their partial sums simply add: no online rescaling,
-// no (N, N) score tile in memory. Scores stay in registers and feed the
-// PV product as its A operand (the accumulator layout of m16n8k16 is the
-// A-fragment layout). Keys past N are zero-filled on load and their e
-// set to 0; query rows past N are not stored.
+// ~295 flop/byte ridge: bytes bound it (310 MB at bs256, 0.0925 ms), with
+// the exp2 terms close (one MUFU and about ten ALU instructions a
+// score). At PCT (N = 1024, head dim 32) the products are 4 * N * 32 flops
+// per query against 4 * 32 * 2 bytes of its q, k, v and output: 2,048
+// flops per byte, far past the ridge, so the tensor-core operations bound
+// it (128 flops per score), and the exp2 terms, one per score at the SFU's
+// 16 per SM and cycle (132 SMs at 1.98 GHz: 4.2e12 per second), take about
+// twice the tensor-core time at 989 TFLOP/s: there the per-score
+// instructions are what limits any design.
+//
+// Design (attn_wgmma_kernel, every N the port runs: up to 832 tokens at
+// head dim 64, 1,728 at 32): one CTA of two warpgroups (four where K and V
+// leave room for one CTA an SM only, so that 16 warps share the SM all the
+// same) per (image, head, set of 64-row query tiles), no producer warp.
+// The head's whole K and V (keys padded to a multiple of 64) stay in
+// shared memory, loaded ONCE per CTA by TMA in 64-key chunks, each on its
+// own mbarrier, all waited for before the first product (a wait inside
+// the chunk loop made ptxas serialize the wgmma pipeline, C7511). One 3-D
+// tensor map over the packed (B, N, 3D) buffer (column, token, image)
+// serves Q, K and V, so keys past N of image b load as zeros, never as
+// image b + 1's rows. The swizzle is the row's: 128 bytes at head dim 64,
+// 64 bytes at 32 (rows of 64 bytes), in the map and in the wgmma
+// descriptors alike. Warpgroup w takes the CTA's query tiles w, w + NWG,
+// ... (of the head's tiles, interleaved over gridDim.x CTAs when the batch
+// is small), each through its own Q buffer: the next tile's TMA is issued
+// as soon as the warpgroup holds the current one in registers.
+// Per query tile, chunk by chunk:
+//   S = Q K^T: Q's fragments by ldmatrix from the swizzled tile, scaled by
+//     qscale in fp32 and rounded to bf16 (the register A operand), K
+//     K-major in shared memory; wgmma m64n64k16 over a full chunk, and
+//     m64n16k16 per 16-key slice over the last, ragged one (no work on
+//     slices wholly past N);
+//   the terms in registers: e = bf16(exp2f(bf16(clamp(s)))), two keys at
+//     a time in bf16x2 form (exp2_terms: about six instructions a score,
+//     where the scalar form took about twelve; the instructions a score
+//     bound the kernel at PCT's length), 0 past N or on an excluded key,
+//     the phantom key's weighted, the fp32 rowsum;
+//   O += P V: wgmma m64n{HD}k16 per 16-key slice, P packed in bf16 as the
+//     A operand, V MN-major in shared memory; the chunk's PV runs while
+//     the next chunk's S is issued.
+// No max is subtracted, so key chunks simply add: nothing is rescaled.
+// The output is O * (1 / rowsum), rounded to bf16, written per row as
+// before. With a key mask every CTA then scrubs its V in shared memory
+// and fences the async proxy (wgmma reads through it) before the barrier
+// that publishes it: edit, fence, barrier, product.
+// Numerics: the old kernel's bits. The wgmma accumulator gives each
+// thread the (row, key) pairs of the m16n8 fragments, the terms are the
+// scalar ones bit for bit (peekvit_attn_scores_pv_ex2_check holds the two
+// on every fp32 logit), the rowsum is summed in the same key order, PV is
+// fed the same 16-key slices in order, and the slices the old kernel
+// padded with (zero P, zero V) add exact zeros.
+//
+// Past those token counts (head dim 64 above 832 keys: K and V no longer
+// fit beside the Q buffers) the C entry point keeps the earlier kernel
+// (attn_kernel below, its code and bits unchanged): grid (query tile of
+// 64, head, image), 4 warps of 16 query rows, Q, K and V read straight
+// from the packed buffer by cp.async, key tiles of 64 streamed through a
+// 2-stage ring, mma.sync fed by ldmatrix, padded shared-memory rows of
+// HD + 8 bf16, V scrubbed by each thread on the chunks it copied itself
+// after the cp.async wait. The choice is by shape inside the entry point
+// (peekvit_attn_scores_pv_plan), never a fallback on error. No path the
+// port runs reaches it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -319,14 +359,404 @@ int launch(const __nv_bfloat16* q, const __nv_bfloat16* km, __nv_bfloat16* o, in
   return (int)cudaGetLastError();
 }
 
+
+// ------------------------------------------------------- the wgmma kernel
+
+constexpr int CHUNK = 64;              // keys per TMA chunk (and query rows per tile)
+constexpr int MAX_SMEM = 232448;
+
+template <int HD>
+struct Geo {
+  static constexpr int ROW = HD * 2;            // bytes per K / V / Q row
+  static constexpr int TILE = CHUNK * ROW;      // one chunk of K or V, one Q tile
+  static constexpr int SBO = 8 * ROW;           // between 8-row groups
+};
+
+// Descriptors of K rows (K-major: lbo not read) and of V rows (MN-major:
+// lbo the step between N atoms, one atom wide here) at `addr`, in the
+// swizzle of a row of HD bf16.
+template <int HD>
+__device__ __forceinline__ uint64_t k_desc(uint32_t addr) {
+  if constexpr (HD == 64)
+    return hopper::desc_sw128(addr, 16, Geo<HD>::SBO);
+  else
+    return hopper::desc_sw64(addr, 16, Geo<HD>::SBO);
+}
+template <int HD>
+__device__ __forceinline__ uint64_t v_desc(uint32_t addr) {
+  if constexpr (HD == 64)
+    return hopper::desc_sw128(addr, 1024, Geo<HD>::SBO);
+  else
+    return hopper::desc_sw64(addr, 512, Geo<HD>::SBO);
+}
+
+__device__ __forceinline__ void wg_bar(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The terms of two logits a and b as a bf16x2 word (a low, b high), each
+// bf16(exp2(bf16(clamp(x, -80, 115)))), 0 where `keep` clears its half:
+// the bf16 rounding first and both halves at once (cvt.rn.bf16x2), the
+// clamp on the rounded pair (max / min.bf16x2: -80 and 115 are bf16
+// values and the rounding is monotone, so clamp and rounding commute;
+// both return the other operand for a NaN, as fminf / fmaxf do), then
+// ex2.approx.ftz.f32 on each, which on every bf16 value in [-80, 115] is
+// exp2f's result bit for bit, rounded and packed again. exp2_term's bits:
+// peekvit_attn_scores_pv_ex2_check compares the two on every fp32 logit.
+__device__ __forceinline__ uint32_t exp2_terms(float a, float b) {
+  uint32_t p;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(p) : "f"(b), "f"(a));
+  asm("max.bf16x2 %0, %0, %1;\n" : "+r"(p) : "r"(0xC2A0C2A0u));  // -80
+  asm("min.bf16x2 %0, %0, %1;\n" : "+r"(p) : "r"(0x42E642E6u));  // 115
+  float lo = __uint_as_float(p << 16), hi = __uint_as_float(p & 0xFFFF0000u);
+  asm("ex2.approx.ftz.f32 %0, %0;\n" : "+f"(lo));
+  asm("ex2.approx.ftz.f32 %0, %0;\n" : "+f"(hi));
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(p) : "f"(hi), "f"(lo));
+  return p;
+}
+__device__ __forceinline__ float lo_f(uint32_t p) { return __uint_as_float(p << 16); }
+__device__ __forceinline__ float hi_f(uint32_t p) { return __uint_as_float(p & 0xFFFF0000u); }
+
+// Bytes of dynamic shared memory for `nchunks` chunks of keys and NWG
+// warpgroups: K and V, one Q buffer per warpgroup, the key mask, the
+// mbarriers.
+template <int HD>
+constexpr int wg_smem(int nchunks, int nwg) {
+  return 1024 + 2 * nchunks * Geo<HD>::TILE + nwg * Geo<HD>::TILE + nchunks * CHUNK +
+         (nchunks + nwg) * 8;
+}
+
+template <int HD, bool KMASK, int NWG>
+__global__ void __launch_bounds__(128 * NWG, 2 / (NWG / 2))
+attn_wgmma_kernel(const __grid_constant__ CUtensorMap map, const __nv_bfloat16* __restrict__ kmask,
+                  __nv_bfloat16* __restrict__ out, int n, int d, float qscale, int phantom_idx,
+                  float phantom_w) {
+  using G = Geo<HD>;
+  constexpr int THREADS = 128 * NWG;
+  extern __shared__ unsigned char smem_raw[];
+  const int nchunks = (n + CHUNK - 1) / CHUNK;
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;  // 1024-aligned for the swizzle
+  const uint32_t sk = base;
+  const uint32_t sv = sk + nchunks * G::TILE;
+  const uint32_t sq = sv + nchunks * G::TILE;    // one Q buffer per warpgroup
+  unsigned char* skeep = smem_raw + (sq + NWG * G::TILE - raw);  // KMASK: 1 = attended
+  const uint32_t kvbar = sq + NWG * G::TILE + nchunks * CHUNK;
+  const uint32_t qbar = kvbar + 8 * nchunks;
+
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int ntiles = nchunks;  // query tiles of 64 rows, as many as key chunks
+  const int step = NWG * gridDim.x;
+  const int tid = threadIdx.x, w = tid >> 7, wtid = tid & 127;
+  const int warp = wtid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int first = blockIdx.x + w * gridDim.x;  // this warpgroup's first query tile
+
+  if (tid == 0) {
+    for (int c = 0; c < nchunks + NWG; ++c) hopper::mbar_init(kvbar + 8 * c, 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {  // each warpgroup's first Q tile, then K and V chunk by chunk
+    for (int q = 0; q < NWG; ++q) {
+      const int t = blockIdx.x + q * gridDim.x;
+      if (t < ntiles) {
+        hopper::mbar_expect_tx(qbar + 8 * q, G::TILE);
+        hopper::tma_load_3d(sq + q * G::TILE, &map, h * HD, t * CHUNK, b, qbar + 8 * q);
+      }
+    }
+    for (int c = 0; c < nchunks; ++c) {
+      hopper::mbar_expect_tx(kvbar + 8 * c, 2 * G::TILE);
+      hopper::tma_load_3d(sk + c * G::TILE, &map, d + h * HD, c * CHUNK, b, kvbar + 8 * c);
+      hopper::tma_load_3d(sv + c * G::TILE, &map, 2 * d + h * HD, c * CHUNK, b, kvbar + 8 * c);
+    }
+  }
+  for (int c = 0; c < nchunks; ++c) hopper::mbar_wait(kvbar + 8 * c, 0);
+  if constexpr (KMASK) {
+    // the keys attended (0 past N), then V scrubbed of every non-finite
+    // value: edit, fence the async proxy, barrier
+    for (int key = tid; key < nchunks * CHUNK; key += THREADS)
+      skeep[key] = key < n && __bfloat162float(kmask[(long long)b * n + key]) > 0.f ? 1 : 0;
+    uint4* v4 = reinterpret_cast<uint4*>(smem_raw + (sv - raw));
+    for (int i = tid; i < nchunks * G::TILE / 16; i += THREADS) {
+      uint4 v = v4[i];
+      v.x = scrub_bf16x2(v.x);
+      v.y = scrub_bf16x2(v.y);
+      v.z = scrub_bf16x2(v.z);
+      v.w = scrub_bf16x2(v.w);
+      v4[i] = v;
+    }
+    fence_async_smem();
+    __syncthreads();
+  }
+
+  const uint32_t my_q = sq + w * G::TILE, my_qbar = qbar + 8 * w;
+  for (int i = 0, t = first; t < ntiles; ++i, t += step) {
+    hopper::mbar_wait(my_qbar, i & 1);
+    // Q's fragments from the swizzled tile, scaled by qscale in fp32 and
+    // rounded to bf16: the register A operand of S = Q K^T.
+    uint32_t qa[HD / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const int r = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+      const int chunk = 2 * kk + (lane >> 4);
+      const int swz = HD == 64 ? (chunk ^ (r & 7)) : (chunk ^ ((r >> 1) & 3));
+      asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                   : "=r"(qa[kk][0]), "=r"(qa[kk][1]), "=r"(qa[kk][2]), "=r"(qa[kk][3])
+                   : "r"(my_q + r * G::ROW + (swz << 4))
+                   : "memory");
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&qa[kk][e]));
+        qa[kk][e] = pack_bf16(f.x * qscale, f.y * qscale);
+      }
+    }
+    // The buffer takes the warpgroup's next tile once every thread has read
+    // it: the reads, the barrier, then (the async proxy writes it) a proxy
+    // fence before the TMA.
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) hopper::fence_regs<4>(qa[kk]);
+    fence_async_smem();
+    wg_bar(1 + w);
+    if (wtid == 0 && t + step < ntiles) {
+      fence_async_smem();
+      hopper::mbar_expect_tx(my_qbar, G::TILE);
+      hopper::tma_load_3d(my_q, &map, h * HD, (t + step) * CHUNK, b, my_qbar);
+    }
+
+    float o[HD / 2];
+#pragma unroll
+    for (int r = 0; r < HD / 2; ++r) o[r] = 0.f;
+    float rsum0 = 0.f, rsum1 = 0.f;  // rows g and g + 8
+    uint32_t pa[4][4];               // the previous chunk's P, read by its PV in flight
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pa[j][e] = 0u;
+
+    for (int c = 0; c < nchunks; ++c) {
+      const int left = n - c * CHUNK;
+      const int nsl = left >= CHUNK ? 4 : (left + 15) / 16;  // 16-key slices with keys
+      const uint32_t kc = sk + c * G::TILE, vc = sv + c * G::TILE;
+
+      // S = Q K^T for the warpgroup's 64 rows x the chunk's keys.
+      float s[32];
+#pragma unroll
+      for (int r = 0; r < 32; ++r) s[r] = 0.f;
+      hopper::fence_regs<32>(s);
+      hopper::wgmma_fence();
+      if (nsl == 4) {
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk)
+          hopper::wgmma_m64n64k16_rs<0>(s, qa[kk], k_desc<HD>(kc + kk * 32));
+      } else {
+#pragma unroll
+        for (int sl = 0; sl < 3; ++sl)
+          if (sl < nsl) {
+#pragma unroll
+            for (int kk = 0; kk < HD / 16; ++kk)
+              hopper::wgmma_m64n16k16_rs<0>(s + 8 * sl, qa[kk],
+                                            k_desc<HD>(kc + sl * 16 * G::ROW + kk * 32));
+          }
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();  // this S, and the previous chunk's PV
+      hopper::fence_regs<32>(s);
+      hopper::fence_regs<HD / 2>(o);
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) hopper::fence_regs<4>(qa[kk]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) hopper::fence_regs<4>(pa[j]);
+
+      // The terms, packed two keys a word as P's A fragment: 0 past the last
+      // key and (KMASK) on an excluded key, the phantom key's weighted; the
+      // rowsum in fp32, in the old kernel's key order.
+      const int kv0 = c * CHUNK;
+      const bool full = !KMASK && left >= CHUNK;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (j < 2 * nsl) {
+          const int key = kv0 + j * 8 + t4 * 2;
+          uint32_t p0 = exp2_terms(s[4 * j], s[4 * j + 1]);      // row g
+          uint32_t p1 = exp2_terms(s[4 * j + 2], s[4 * j + 3]);  // row g + 8
+          if (!full) {
+            bool ok0 = key < n, ok1 = key + 1 < n;
+            if (KMASK) {  // skeep is 0 past the last key too
+              ok0 = skeep[key] != 0;
+              ok1 = skeep[key + 1] != 0;
+            }
+            const uint32_t keep = (ok0 ? 0x0000FFFFu : 0u) | (ok1 ? 0xFFFF0000u : 0u);
+            p0 &= keep;
+            p1 &= keep;
+          }
+          if (key == phantom_idx) {
+            p0 = pack_bf16(weighted(lo_f(p0), phantom_w), hi_f(p0));
+            p1 = pack_bf16(weighted(lo_f(p1), phantom_w), hi_f(p1));
+          } else if (key + 1 == phantom_idx) {
+            p0 = pack_bf16(lo_f(p0), weighted(hi_f(p0), phantom_w));
+            p1 = pack_bf16(lo_f(p1), weighted(hi_f(p1), phantom_w));
+          }
+          rsum0 += lo_f(p0) + hi_f(p0);
+          rsum1 += lo_f(p1) + hi_f(p1);
+          pa[j >> 1][(j & 1) * 2] = p0;
+          pa[j >> 1][(j & 1) * 2 + 1] = p1;
+        }
+      }
+
+      // O += P V, slice by slice; completes under the next chunk's wait.
+#pragma unroll
+      for (int j = 0; j < 4; ++j) hopper::fence_regs<4>(pa[j]);
+      hopper::fence_regs<HD / 2>(o);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int sl = 0; sl < 4; ++sl)
+        if (sl < nsl) {
+          if constexpr (HD == 64)
+            hopper::wgmma_m64n64k16_rs<1>(o, pa[sl], v_desc<HD>(vc + sl * 16 * G::ROW));
+          else
+            hopper::wgmma_m64n32k16_rs<1>(o, pa[sl], v_desc<HD>(vc + sl * 16 * G::ROW));
+        }
+      hopper::wgmma_commit();
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs<HD / 2>(o);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) hopper::fence_regs<4>(pa[j]);
+
+    rsum0 += __shfl_xor_sync(0xffffffffu, rsum0, 1);
+    rsum0 += __shfl_xor_sync(0xffffffffu, rsum0, 2);
+    rsum1 += __shfl_xor_sync(0xffffffffu, rsum1, 1);
+    rsum1 += __shfl_xor_sync(0xffffffffu, rsum1, 2);
+    const float inv0 = 1.0f / rsum0, inv1 = 1.0f / rsum1;
+    const int r0 = t * CHUNK + warp * 16 + g, r1 = r0 + 8;
+    __nv_bfloat16* obase = out + (long long)b * n * d + h * HD + t4 * 2;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      if (r0 < n)
+        *reinterpret_cast<__nv_bfloat162*>(obase + (long long)r0 * d + j * 8) =
+            __floats2bfloat162_rn(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+      if (r1 < n)
+        *reinterpret_cast<__nv_bfloat162*>(obase + (long long)r1 * d + j * 8) =
+            __floats2bfloat162_rn(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+    }
+  }
+}
+
+// Every fp32 bit pattern x (NaN and +-Inf included), as a logit: counts
+// where exp2_terms(x, x) differs in either half from the scalar
+// bf16(exp2f(bf16(clamp(x)))) of the earlier kernel (exp2_term), and keeps
+// the first such x. counts: [mismatches, patterns checked, first x].
+__global__ void ex2_check_kernel(unsigned long long* counts) {
+  unsigned long long bad = 0, seen = 0;
+  const unsigned long long total = 1ull << 32;
+  for (unsigned long long i = blockIdx.x * (unsigned long long)blockDim.x + threadIdx.x;
+       i < total; i += (unsigned long long)gridDim.x * blockDim.x) {
+    const float x = __uint_as_float((uint32_t)i);
+    const uint32_t want = __float_as_uint(exp2_term(x)) >> 16;
+    const uint32_t got = exp2_terms(x, x);
+    if ((got & 0xFFFFu) != want || (got >> 16) != want) {
+      ++bad;
+      atomicCAS(&counts[2], 0ull, i | (1ull << 32));
+    }
+    ++seen;
+  }
+  atomicAdd(&counts[0], bad);
+  atomicAdd(&counts[1], seen);
+}
+
+int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+        sms < 1)
+      sms = 132;
+  }
+  return sms;
+}
+
+int smem_for(int head_dim, int nchunks, int nwg) {
+  return head_dim == 64 ? wg_smem<64>(nchunks, nwg) : wg_smem<32>(nchunks, nwg);
+}
+
+// The schedule for b images of n tokens and `heads` heads of head_dim:
+// out[0] = 1 for the wgmma kernel (the head's K and V fit in shared
+// memory beside the Q buffers), 0 for the kept mma.sync kernel; out[1] =
+// CTAs per (image, head) (enough for two waves of CTAs on the card when
+// the batch is small, at most one per warpgroup's tile); out[2] = the
+// wgmma kernel's dynamic shared memory in bytes; out[3] = its warpgroups
+// per CTA: 2, with two CTAs an SM, or 4 where K and V leave room for one
+// CTA an SM only (so that 16 warps share each SM all the same).
+void plan(int b, int n, int heads, int head_dim, int* out) {
+  const int nchunks = (n + CHUNK - 1) / CHUNK;
+  int nwg = 2, smem = smem_for(head_dim, nchunks, 2);
+  out[0] = smem <= MAX_SMEM ? 1 : 0;
+  if (smem > MAX_SMEM / 2 && smem_for(head_dim, nchunks, 4) <= MAX_SMEM) {
+    nwg = 4;
+    smem = smem_for(head_dim, nchunks, 4);
+  }
+  const long long heads_total = (long long)b * heads;
+  const int per_sm = smem <= MAX_SMEM / 2 ? 2 : 1;
+  const long long want = 2LL * sm_count() * per_sm;
+  const long long x = (want + heads_total - 1) / heads_total;
+  const int most = (nchunks + nwg - 1) / nwg;
+  out[1] = (int)(x < 1 ? 1 : x > most ? most : x);
+  out[2] = smem;
+  out[3] = nwg;
+}
+
+template <int HD, bool KMASK, int NWG>
+int launch_nwg(const CUtensorMap& map, const __nv_bfloat16* km, __nv_bfloat16* o, int b, int d,
+               int n, int heads, float qscale, int phantom_idx, float phantom_w, const int* pl,
+               cudaStream_t st) {
+  auto kernel = attn_wgmma_kernel<HD, KMASK, NWG>;
+  static bool sized = false;  // the attribute is set once per instance
+  if (!sized) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    sized = true;
+  }
+  dim3 grid(pl[1], heads, b);
+  kernel<<<grid, 128 * NWG, pl[2], st>>>(map, km, o, n, d, qscale,
+                                         KMASK || phantom_idx < 0 ? -1 : phantom_idx, phantom_w);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_wgmma(const void* qkv, const __nv_bfloat16* km, __nv_bfloat16* o, int b, int n, int d,
+                 int heads, float qscale, int phantom_idx, float phantom_w, const int* pl,
+                 cudaStream_t st) {
+  CUtensorMap map;
+  const uint64_t dims[3] = {(uint64_t)(3 * d), (uint64_t)n, (uint64_t)b};
+  const uint64_t strides[2] = {(uint64_t)d * 6, (uint64_t)d * 6 * n};
+  const uint32_t box[3] = {HD, CHUNK, 1};
+  if (!hopper::make_map_bf16(&map, qkv, 3, dims, strides, box,
+                             HD == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B))
+    return (int)cudaErrorInvalidValue;
+  const bool four = pl[3] == 4;
+  if (km != nullptr)
+    return four
+               ? launch_nwg<HD, true, 4>(map, km, o, b, d, n, heads, qscale, -1, phantom_w, pl, st)
+               : launch_nwg<HD, true, 2>(map, km, o, b, d, n, heads, qscale, -1, phantom_w, pl, st);
+  return four ? launch_nwg<HD, false, 4>(map, km, o, b, d, n, heads, qscale, phantom_idx,
+                                         phantom_w, pl, st)
+              : launch_nwg<HD, false, 2>(map, km, o, b, d, n, heads, qscale, phantom_idx,
+                                         phantom_w, pl, st);
+}
+
 }  // namespace
 
 // qkv: (b, n, 3d) bf16 packed as [q | k | v] with head h at columns
-// h*head_dim; out: (b, n, d) bf16. head_dim must be 64 or 32 and d =
-// num_heads * head_dim (the wrapper checks). qscale = head_dim^-0.5 *
-// log2(e). phantom_idx < 0 (no phantom key) or in [0, n); phantom_mult
-// is rounded to bf16 here. kmask: null, or (b, n) bf16 (1 = attend), and
-// then phantom_idx < 0. Returns the cudaError_t of the launch.
+// h*head_dim, 16-byte aligned; out: (b, n, d) bf16. head_dim must be 64
+// or 32 and d = num_heads * head_dim (the wrapper checks). qscale =
+// head_dim^-0.5 * log2(e). phantom_idx < 0 (no phantom key) or in [0, n);
+// phantom_mult is rounded to bf16 here. kmask: null, or (b, n) bf16 (1 =
+// attend), and then phantom_idx < 0. The kernel is chosen by shape
+// (peekvit_attn_scores_pv_plan). Returns the cudaError_t of the launch.
 extern "C" int peekvit_attn_scores_pv(const void* qkv, void* out, const void* kmask, int b,
                                       int n, int d, int num_heads, int head_dim, float qscale,
                                       int phantom_idx, float phantom_mult, void* stream) {
@@ -339,7 +769,34 @@ extern "C" int peekvit_attn_scores_pv(const void* qkv, void* out, const void* km
   const auto* km = static_cast<const __nv_bfloat16*>(kmask);
   auto* o = static_cast<__nv_bfloat16*>(out);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int pl[4];
+  plan(b, n, num_heads, head_dim, pl);
+  if (pl[0])
+    return head_dim == 64 ? launch_wgmma<64>(qkv, km, o, b, n, d, num_heads, qscale, phantom_idx,
+                                             phantom_w, pl, st)
+                          : launch_wgmma<32>(qkv, km, o, b, n, d, num_heads, qscale, phantom_idx,
+                                             phantom_w, pl, st);
   return head_dim == 64
              ? launch<64>(q, km, o, b, n, d, num_heads, qscale, phantom_idx, phantom_w, st)
              : launch<32>(q, km, o, b, n, d, num_heads, qscale, phantom_idx, phantom_w, st);
+}
+
+// The schedule peekvit_attn_scores_pv takes for b images of n tokens and
+// num_heads heads of head_dim: out[0] = 1 (the wgmma kernel) or 0 (the
+// kept mma.sync kernel), out[1] = CTAs per (image, head), out[2] = the
+// wgmma kernel's dynamic shared memory in bytes, out[3] = its warpgroups
+// per CTA. Returns 0.
+extern "C" int peekvit_attn_scores_pv_plan(int b, int n, int num_heads, int head_dim, int* out) {
+  plan(b, n, num_heads, head_dim, out);
+  return 0;
+}
+
+// The exhaustive check of the packed exp2 terms against the earlier
+// kernel's scalar ones over all 2^32 fp32 logits: counts (3 x u64 on the
+// card, zeroed by the caller) gets [mismatches, patterns checked, 2^32 +
+// the first mismatching pattern or 0]. Returns the cudaError_t.
+extern "C" int peekvit_attn_scores_pv_ex2_check(void* counts, void* stream) {
+  ex2_check_kernel<<<4 * sm_count(), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<unsigned long long*>(counts));
+  return (int)cudaGetLastError();
 }

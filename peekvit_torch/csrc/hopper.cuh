@@ -1,13 +1,16 @@
 // Hopper building blocks shared by the wgmma / TMA kernels
 // (attn_softmax_fwd.cu, attn_softmax_bwd.cu, gemm_wgrad.cu,
-// gemm_bias_epilogue.cu): mbarriers, TMA tensor loads and their host-side
-// tensor maps, the wgmma shared-memory descriptor for tiles that TMA wrote
-// with the 128-byte swizzle, and the wgmma instructions the kernels issue.
+// gemm_bias_epilogue.cu, attn_scores_pv.cu, gemm_s8_epilogue.cu):
+// mbarriers, TMA tensor loads and their host-side tensor maps, the wgmma
+// shared-memory descriptors for tiles that TMA wrote with the 128-byte or
+// the 64-byte swizzle, and the wgmma instructions the kernels issue.
 //
-// A tile row of 64 bf16 is 128 bytes, the swizzle's span: TMA stores row r
-// of a box with its 16-byte chunk c at chunk c ^ (r & 7), and 8 rows make
-// one 1024-byte swizzle atom. Every tile here starts 1024-byte aligned, so
-// the descriptors' base offset is 0.
+// A tile row of 64 bf16 (or 128 int8) is 128 bytes, the 128-byte
+// swizzle's span: TMA stores row r of a box with its 16-byte chunk c at
+// chunk c ^ (r & 7), and 8 rows make one 1024-byte swizzle atom. A row of
+// 32 bf16 is 64 bytes, the 64-byte swizzle's span: chunk c of row r lands
+// at c ^ ((r >> 1) & 3), and 8 rows make one 512-byte atom. Every tile
+// here starts 1024-byte aligned, so the descriptors' base offset is 0.
 //
 // cuTensorMapEncodeTiled is a driver API call; it is reached through the
 // runtime's driver entry point, so nothing links libcuda.
@@ -111,6 +114,18 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint
   return d;
 }
 
+// The same for a 64-byte-swizzled tile (rows of 64 bytes): K-major, sbo =
+// 512, the step between 8-row groups; MN-major, lbo = the step between
+// 32-element atoms along M or N, sbo = 512, the step between 8-row groups
+// along the reduction.
+__device__ __forceinline__ uint64_t desc_sw64(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  uint64_t d = (uint64_t)((addr & 0x3FFFF) >> 4);
+  d |= (uint64_t)((lbo >> 4) & 0x3FFF) << 16;
+  d |= (uint64_t)((sbo >> 4) & 0x3FFF) << 32;
+  d |= (uint64_t)2 << 62;  // 64-byte swizzle
+  return d;
+}
+
 // wgmma with fp32 accumulators d (+= A . B) on bf16 operands: _ss reads A
 // and B from shared memory by descriptor, _rs takes A from registers
 // (the m16n8k16 A-fragment layout of mma.sync, four registers a
@@ -203,6 +218,71 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float* d, const uint32_t* a, 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
 }
 
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n32k16_rs(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
+}
+
+// wgmma with s32 accumulators d (+= A . B) on s8 operands, both K-major in
+// shared memory (8-bit wgmma takes no transposed operand), 32 K-bytes an
+// instruction. The accumulator layout is the fp32 one above.
+
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_m64n192k32_s8(int* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95])
+      : "l"(da), "l"(db), "r"(1));
+}
+
 // ------------------------------------------------------------------ host
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -227,12 +307,13 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor map with the 128-byte swizzle over `rank` dimensions
-// (innermost first, dims[0] elements of 2 bytes, strides[i] the byte step
-// of dimension i + 1) and a box of `box` elements per dimension. Elements
+// A tensor map of `type` with the swizzle `sw` over `rank` dimensions
+// (innermost first, dims[0] elements, strides[i] the byte step of
+// dimension i + 1) and a box of `box` elements per dimension. Elements
 // outside the dimensions load as zero. Returns false if the driver refuses.
-inline bool make_map_bf16(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
-                          const uint64_t* strides, const uint32_t* box) {
+inline bool make_map(CUtensorMap* map, CUtensorMapDataType type, CUtensorMapSwizzle sw,
+                     const void* base, int rank, const uint64_t* dims, const uint64_t* strides,
+                     const uint32_t* box) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
   cuuint64_t d[3], s[2];
@@ -243,10 +324,25 @@ inline bool make_map_bf16(CUtensorMap* map, const void* base, int rank, const ui
     es[i] = 1;
     if (i + 1 < rank) s[i] = strides[i];
   }
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank, const_cast<void*>(base), d,
-            s, bx, es, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return fn(map, type, (cuuint32_t)rank, const_cast<void*>(base), d, s, bx, es,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A bf16 tensor map (dims[0] elements of 2 bytes), 128-byte swizzle unless
+// `sw` says otherwise (64-byte for rows of 32 bf16).
+inline bool make_map_bf16(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
+                          const uint64_t* strides, const uint32_t* box,
+                          CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B) {
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, sw, base, rank, dims, strides, box);
+}
+
+// An 8-bit tensor map (dims[0] bytes; int8 codes load as their bytes) with
+// the 128-byte swizzle: a box row of 128 K-bytes is one swizzle row.
+inline bool make_map_s8(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
+                        const uint64_t* strides, const uint32_t* box) {
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, CU_TENSOR_MAP_SWIZZLE_128B, base, rank,
+                  dims, strides, box);
 }
 
 }  // namespace hopper

@@ -64,15 +64,19 @@ _SIGNATURES = {
 }
 
 # Further entry points, loaded beside a kernel's own: the schedule a
-# kernel takes for a shape (chosen by shape alone inside its C entry point).
+# kernel takes for a shape (chosen by shape alone inside its C entry
+# point), and the attention's exhaustive check of its exp2 terms.
 _EXTRA = {
-    "gemm_bias_epilogue": ("peekvit_gemm_bias_epilogue_plan", [_I, _I, _I, _P]),
-    "attn_softmax_bwd": ("peekvit_attn_softmax_bwd_route", [_I]),
+    "gemm_bias_epilogue": [("peekvit_gemm_bias_epilogue_plan", [_I, _I, _I, _P])],
+    "attn_softmax_bwd": [("peekvit_attn_softmax_bwd_route", [_I])],
+    "attn_scores_pv": [("peekvit_attn_scores_pv_plan", [_I, _I, _I, _I, _P]),
+                       ("peekvit_attn_scores_pv_ex2_check", [_P, _P])],
+    "gemm_s8_epilogue": [("peekvit_gemm_s8_epilogue_plan", [_I, _I, _P])],
 }
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
-_extra: dict[str, ctypes.CDLL] = {}
+_extra: dict = {}  # symbol -> entry point
 # name -> {"seconds": float, "ptxas": [lines], "cached": bool}
 BUILD_INFO: dict[str, dict] = {}
 
@@ -142,17 +146,18 @@ def library(name: str):
             build_all()
             for src in SOURCES:
                 lib = ctypes.CDLL(_target(src))
-                for table, store in ((_SIGNATURES, _libs), (_EXTRA, _extra)):
-                    if src in table:
-                        symbol, argtypes = table[src]
-                        entry = getattr(lib, symbol)
-                        entry.argtypes = argtypes
-                        entry.restype = ctypes.c_int
-                        store[src] = entry
+                entries = [(src, _SIGNATURES[src], _libs)] + [
+                    (sig[0], sig, _extra) for sig in _EXTRA.get(src, [])]
+                for key, (symbol, argtypes), store in entries:
+                    entry = getattr(lib, symbol)
+                    entry.argtypes = argtypes
+                    entry.restype = ctypes.c_int
+                    store[key] = entry
     return _libs[name]
 
 
-def extra(name: str):
-    """The loaded further entry point of kernel ``name`` (``_EXTRA``)."""
+def extra(name: str, symbol: str | None = None):
+    """A loaded further entry point of kernel ``name`` (``_EXTRA``): its
+    first, or the one called ``symbol``."""
     library(name)
-    return _extra[name]
+    return _extra[symbol or _EXTRA[name][0][0]]

@@ -558,6 +558,36 @@ def _check_kmask(qkv, phantom_idx, kmask):
     return kmask.reshape(b, n)
 
 
+def attn_scores_pv_plan(b: int, n: int, num_heads: int, head_dim: int = 64) -> dict:
+    """The schedule :func:`attn_scores_pv` takes on the card for b images
+    of n tokens, chosen by shape inside its C entry point: the kernel
+    (``"wgmma"``, the head's K and V resident in shared memory, or
+    ``"kept"``, the earlier mma.sync kernel, at head dim 64 past 832
+    tokens), the CTAs per (image, head), the wgmma kernel's shared memory
+    in bytes and its warpgroups per CTA. For the record; needs the built
+    library."""
+    out = (ctypes.c_int * 4)()
+    _build.extra("attn_scores_pv")(b, n, num_heads, head_dim, out)
+    return {"kernel": "wgmma" if out[0] else "kept", "ctas_per_head": out[1], "smem": out[2],
+            "warpgroups": out[3]}
+
+
+def attn_scores_pv_ex2_check() -> dict:
+    """The exhaustive check on the card that the kernel's packed exp2 terms
+    (cvt / max / min.bf16x2, ex2.approx.ftz.f32) give the bits of the
+    earlier scalar bf16(exp2f(bf16(clamp(x)))) for every fp32 logit x, NaN
+    and +-Inf included: mismatches, patterns checked (2^32) and the first
+    mismatching pattern (None if none). Needs the built library."""
+    counts = torch.zeros(3, dtype=torch.int64, device="cuda")
+    err = _build.extra("attn_scores_pv", "peekvit_attn_scores_pv_ex2_check")(
+        counts.data_ptr(), _stream())
+    if err != 0:
+        raise RuntimeError(f"attn_scores_pv ex2 check: launch failed with cudaError_t {err}")
+    bad, seen, first = counts.tolist()
+    return {"mismatches": bad, "checked": seen,
+            "first_mismatch": None if first == 0 else first - (1 << 32)}
+
+
 def attn_scores_pv_ref(qkv: torch.Tensor, num_heads: int, phantom_idx: int = -1,
                        phantom_mult: float = 0.0, kmask=None) -> torch.Tensor:
     """Plain version of :func:`attn_scores_pv` (Pallas ``_attn_scores_pv``

@@ -21,11 +21,12 @@ The rounding points are the Pallas bodies': qkv and the attention output
 are bf16 even under an fp32 compute dtype, the merged layer's mid
 residual y and the gelu output h stay fp32, the output is in x's dtype.
 
-The GEMM kernel reads W as (out, in) (the 8-bit mma operand must be
-K-contiguous per output column). The public functions keep JAX's (in,
-out) weights; on the card each int8 weight must be the (in, out) view of
-an (out, in) copy, which :func:`kernel_layout` makes once at engine build
-(``prepare_engine_params``), so no forward transposes a weight.
+The GEMM kernel reads W as (out, in) (8-bit wgmma takes both operands
+K-major: K-contiguous per output column). The public functions keep
+JAX's (in, out) weights; on the card each int8 weight must be the (in,
+out) view of an (out, in) copy, which :func:`kernel_layout` makes once
+at engine build (``prepare_engine_params``), so no forward transposes a
+weight.
 
 Each kernel has a plain PyTorch version here (``*_ref``). The plain GEMM
 multiplies the codes in float64, exact below 2^53 (an fp32 product is
@@ -48,6 +49,8 @@ by kernel and variant (``quant_rows[.ln].{bf16,f32}[.static][.masked]``,
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -208,6 +211,16 @@ def _out_dtype(epilogue, out_dtype):
     if epilogue.endswith("_f32"):
         return torch.float32
     return out_dtype
+
+
+def gemm_s8_plan(m: int, n: int) -> dict:
+    """The schedule :func:`gemm_s8_epilogue` takes on the card for an (m, n)
+    output, chosen by shape inside its C entry point: the C tile width
+    (128 or 192) and the number of persistent CTAs. For the record; needs
+    the built library."""
+    out = (ctypes.c_int * 2)()
+    _build.extra("gemm_s8_epilogue")(m, n, out)
+    return {"bn": out[0], "grid": out[1]}
 
 
 def gemm_s8_epilogue_ref(a, s_a, w, s_w, bias, epilogue: str, residual=None,

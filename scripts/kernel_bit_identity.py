@@ -20,17 +20,25 @@ summary line, and exits 1 if any mode differs or did not launch its kernel.
 
 A mode in REDESIGNED is one whose kernel was rewritten and may change its
 bits: ``attn_softmax_bwd`` at up to 256 tokens (wgmma on TMA-fed shared
-memory, P kept in registers through phase A) and every mode of the GEMM
+memory, P kept in registers through phase A), every mode of the GEMM
 ``gemm_bias_epilogue`` (its 12 epilogues, ``gemm_nt`` and ``partial_f32``
-among them: wgmma on a TMA-fed ring, persistent CTAs). Both keep the
-earlier kernels' operations and summing order, so their bits come out the
-same, and the report says so (``bit_identical``). Such a mode is reported
-as ``redesigned`` and held against the other build's output at its plain
-tolerance: 2e-2 of max|.| for the attention backward (bf16 P and dZ, bf16
-outputs), 2^-6 for a GEMM's bf16 output and 1e-3 for its fp32 output and
-partials. Each child also times every redesigned mode at the ViT-B/16
-bs256 shapes with CUDA events (20 launches after a warm-up), so one call
-gives the old and the new time on one card. The outputs of the
+among them: wgmma on a TMA-fed ring, persistent CTAs), every mode of
+``attn_scores_pv`` (plain, kweight, kmask, head dim 32: wgmma with the
+head's K and V resident in shared memory) and of the int8 GEMM
+``gemm_s8_epilogue`` (its six epilogues: s8 wgmma on a TMA-fed ring,
+persistent CTAs). All keep the earlier kernels' operations and summing
+order, so their bits come out the same, and the report says so
+(``bit_identical``). Such a mode is reported as ``redesigned`` and held
+against the other build's output at its plain tolerance: 2e-2 of max|.|
+for the attention kernels (bf16 P and dZ, bf16 outputs), 2^-6 for a bf16
+GEMM's bf16 output and 1e-3 for its fp32 output and partials, 2^-7 for an
+int8 GEMM's bf16 output and 2^-20 for its fp32 output (its s32 sums are
+exact). Each child also times every redesigned mode at the ViT-B/16
+bs256 shapes, and ``attn_scores_pv.hd32`` at PCT's (128 clouds of 1024
+points, d 128, 4 heads), with CUDA events (20 launches after a warm-up),
+so one call gives the old and the new time on one card. The ``edges``
+modes hold both kernels at the token counts and GEMM shapes where the new
+kernels change their padding, chunking or tiling. The outputs of the
 redesigned modes are kept under each checkout's ``build/bit_identity/``
 for the comparison. ``attn_softmax_bwd.kept`` (300 tokens, the kernel
 kept past 256) is not redesigned and must keep its bits.
@@ -64,9 +72,15 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # by output dtype
 _GEMM_TOL = {"torch.bfloat16": 2.0 ** -6, "torch.float32": 1e-3}
 REDESIGNED = {"attn_softmax_bwd": {"torch.bfloat16": 2e-2},
-              "gemm_bias_epilogue": _GEMM_TOL, "gemm_nt": _GEMM_TOL}
+              "gemm_bias_epilogue": _GEMM_TOL, "gemm_nt": _GEMM_TOL,
+              "attn_scores_pv": {"torch.bfloat16": 2e-2},
+              "gemm_s8_epilogue": {"torch.bfloat16": 2.0 ** -7, "torch.float32": 2.0 ** -20}}
 KEPT = ("attn_softmax_bwd.kept",)  # modes under a redesigned prefix that keep their bits
-TIMED_TAG = "vit_b16_bs256"
+TIMED_TAGS = ("vit_b16_bs256", "pct_bs128")
+# the edges: attn_scores_pv at these token counts (head dim 64 and 32), the
+# s8 GEMM at these (M, N, K)
+EDGE_TOKENS = (1, 17, 64, 65, 148, 208, 257, 786)
+EDGE_GEMMS = ((1, 8, 16), (129, 136, 144), (300, 264, 784))
 # name -> (images, tokens, width, heads, mlp width)
 SHAPES = {"vit_b16_bs256": (256, 197, 768, 12, 3072), "ragged": (3, 50, 128, 2, 256)}
 EPS = 1e-6
@@ -250,9 +264,63 @@ def child(root: str) -> dict:
             out[mode] = {"sha256": [_digest(t) for t in got], "launches": dict(fa.LAUNCHES)}
             if _redesigned(mode) is not None:
                 torch.save([t.cpu() for t in got], _saved(root, mode))
-                if tag == TIMED_TAG:
+                if tag in TIMED_TAGS:
                     out[mode]["ms"] = _cuda_ms(torch, fn)
+    for mode, fn in _extra_modes(torch, dev, fa, tq).items():
+        fa.reset_launch_counts()
+        with torch.inference_mode():
+            got = fn()
+        torch.cuda.synchronize()
+        got = tuple(got if isinstance(got, tuple) else (got,))
+        out[mode] = {"sha256": [_digest(t) for t in got], "launches": dict(fa.LAUNCHES)}
+        torch.save([t.cpu() for t in got], _saved(root, mode))
+        if mode.split("/")[0] in TIMED_TAGS:
+            out[mode]["ms"] = _cuda_ms(torch, fn)
     return out
+
+
+def _extra_modes(torch, dev, fa, tq) -> dict:
+    """attn_scores_pv.hd32 at PCT's shape (timed), and the edges of the two
+    kernels redesigned last: attn_scores_pv in its four modes at
+    EDGE_TOKENS, the s8 GEMM's six epilogues at EDGE_GEMMS."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    bf16 = torch.bfloat16
+
+    def randn(*shape, scale=1.0, dtype=bf16):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    qkv_pct = randn(128, 1024, 3 * 128)
+    modes = {"pct_bs128/attn_scores_pv.hd32": lambda: fa.attn_scores_pv(qkv_pct, 4)}
+    for n in EDGE_TOKENS:
+        qkv, qkv32 = randn(2, n, 3 * 128), randn(2, n, 3 * 128)
+        km = (torch.rand(2, n, generator=gen, device=dev) > 0.4).to(bf16)
+        km[:, 0] = 1
+        bad = km == 0  # excluded keys' k and v poisoned
+        qkv_km = qkv.clone()
+        qkv_km[..., 128:][bad] = float("nan")
+        modes.update({
+            f"edges/attn_scores_pv.N{n}": lambda q=qkv: fa.attn_scores_pv(q, 2),
+            f"edges/attn_scores_pv.kweight.N{n}": lambda q=qkv, n=n: fa.attn_scores_pv(
+                q, 2, n - 1, 45.0),
+            f"edges/attn_scores_pv.kmask.N{n}": lambda q=qkv_km, k=km: fa.attn_scores_pv(
+                q, 2, kmask=k),
+            f"edges/attn_scores_pv.hd32.N{n}": lambda q=qkv32: fa.attn_scores_pv(q, 4),
+        })
+    for m, n, k in EDGE_GEMMS:
+        wq, sw = tq.quantize_linear(randn(k, n, scale=0.03))
+        w8 = tq.kernel_layout(wq)
+        codes, scale = tq.quant_rows(randn(m, k))
+        bias, frac = randn(n, scale=0.1), torch.rand(m, generator=gen, device=dev).to(bf16)
+        r32, r16 = randn(m, n, dtype=torch.float32), randn(m, n)
+        for epi, res, mask in (("bias", None, None), ("gelu_f32", None, None),
+                               ("residual_f32", r16, None), ("residual", r32, None),
+                               ("masked_residual_f32", r32, frac), ("masked_residual", r16, frac)):
+            modes[f"edges/gemm_s8_epilogue.{epi}.{m}x{n}x{k}"] = (
+                lambda e=epi, r=res, mk=mask, c=codes, s=scale, w=w8, sw=sw, b=bias:
+                tq.gemm_s8_epilogue(c, s, w, sw, b, e, residual=r, mask=mk))
+        modes[f"edges/gemm_s8_epilogue.bias.static.{m}x{n}x{k}"] = (
+            lambda c=codes, w=w8, sw=sw, b=bias: tq.gemm_s8_epilogue(c, 0.02, w, sw, b, "bias"))
+    return modes
 
 
 def _saved(root: str, mode: str) -> str:

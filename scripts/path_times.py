@@ -21,7 +21,11 @@ a warm-up:
   AdamW(1e-4), split (``merged="auto"``) and merged (``merged=True``);
 - the ResidualViT-B/16 fine-tune step at 256 images, ``Trainer(Adam(1e-3),
   clip_grad_norm=1.0, train_backbone=False)`` with
-  configs/loss/crossentropy_mse.yaml's losses on the fused residual path.
+  configs/loss/crossentropy_mse.yaml's losses on the fused residual path;
+- the int8 (w8a8, dynamic scales) ViT-B/16 engine and the int8 RankViT-B/16
+  (layers 3/6/9, the exact drop at budget 0.5) at 256 images;
+- the PCT engine at ModelNet40 width (1024 points, d 128, 4 heads, 4
+  layers) at 128 clouds.
 
 The parent process prints one JSON line per run and a summary line with
 each path's two times per checkout and the card's name and power limit.
@@ -44,8 +48,12 @@ RESIDUALVIT_B16 = dict(B16, residual_layers=["attention+mlp"] * 12, gate_temp=1,
 CROSSENTROPY_MSE = {"mse": {"_target_": "peekvit.utils.losses.MSELoss", "weight": 0.01,
                             "strict": False, "budget": None, "per_layer": False,
                             "skip_layers": [0, 1, 2, 3, 4, 5, 7, 8, 9, 10, 11]}}
+RANKVIT_B16 = dict(B16, rankvit_layers=[3, 6, 9])
+PCT_M40 = dict(num_points=1024, num_layers=4, num_heads=4, hidden_dim=128, mlp_dim=512,
+               num_classes=40)
 EVAL_BATCHES = (1, 8, 256)
 TRAIN_BATCH = 256
+PCT_BATCH = 128
 
 
 def _cuda_ms(torch, fn, iters: int) -> float:
@@ -95,6 +103,7 @@ def child(root: str) -> dict:
 
     import peekvit_torch
     from peekvit_torch import InferenceEngine, Trainer, build_model
+    from peekvit_torch.inference import rankvit_forward_quant
     from peekvit_torch.models.adapters import live_params
     from peekvit_torch.ops.cuda import _build
     from peekvit_torch.training.fused import make_fused_train_step
@@ -125,7 +134,20 @@ def child(root: str) -> dict:
                                            for _ in range(3))
             if b < 256:  # a launch chain: how much of it the card spends in kernels
                 times[f"vit_eval.bs{b}.device"] = _device_ms(torch, lambda: engine(images))
-    del engine
+        qengine = InferenceEngine(model, device="cuda", quantized=True)
+        images = batch(256, 1)[0]
+        times["vit_int8_eval.bs256"] = min(_cuda_ms(torch, lambda: qengine(images), 10)
+                                           for _ in range(3))
+        rank = InferenceEngine(_seeded(torch, build_model, "rankvit", RANKVIT_B16),
+                               device="cuda", quantized=True)
+        times["rankvit_int8_exact0.5.bs256"] = min(_cuda_ms(
+            torch, lambda: rankvit_forward_quant(rank.params, images, budget=0.5,
+                                                 **rank._forward), 10) for _ in range(3))
+        pct = InferenceEngine(build_model("pct", PCT_M40, seed=0, device="cuda"), device="cuda")
+        clouds = torch.randn(PCT_BATCH, PCT_M40["num_points"], 3, generator=gen, device=dev)
+        times[f"pct_eval.bs{PCT_BATCH}"] = min(_cuda_ms(torch, lambda: pct(clouds), 10)
+                                               for _ in range(3))
+    del engine, qengine, rank, pct
     params = live_params(model)
     opt = AdamW(lr=1e-4).build(params)
     x, y = batch(TRAIN_BATCH, B16["num_classes"])
