@@ -22,7 +22,11 @@ prints no final result):
    the engine's params) serves one request;
 5. timing (CUDA events, after warm-up) at bs256: images/s, FLOPs/image
    and share of the bf16 peak, and per kernel its time, its plain
-   version's time, its bound and one PyTorch library call's time;
+   version's time, its bound and one PyTorch library call's time. Every
+   timing phase takes a kernel's time twice: over 20 launches from
+   Python (ms) and over 10 launches replayed from one CUDA graph
+   (device_ms: the card's time, where a kernel of a few tens of
+   microseconds is shorter than its wrapper's host work);
 6. trainable block: attention_block_trainable (save_qkv True and False)
    against attention_block_trainable_ref on the card, the output and all
    seven gradients;
@@ -154,9 +158,11 @@ prints no final result):
    rankpct_forward_plain (bf16 and fp32, the RankPCT twins fed the
    engine's kept indices), the free-running twin's kept-set agreement;
 27. PCT timing at bs128: each path and budget (ms, clouds/s), both new
-   kernels' time, launches, bound, plain time and library yardstick, the
-   exp2 count beside the SFU's rate, the ARPE share of the forward, the
-   folded layer at N = 1024, one profiled forward of each path;
+   kernels' time, launches, bound, plain time and library yardstick (the
+   ARPE bound from the kernel's own operations on this run's neighbour
+   sets, the counting bisection's beside it), the exp2 count beside the
+   SFU's rate, the ARPE share of the forward, the folded layer at N =
+   1024, one profiled forward of each path;
 28. merged-layer kernel checks at ViT-B/16 bs256 shapes: ln_rows on the
    fp32 y, the GEMM epilogues gelu_hpre (h and the fp32 hpre) and NT
    gelu_grad (dhpre and the db1 partials), gemm_wgrad on the merged
@@ -236,7 +242,11 @@ prints no final result):
    rank, 12 attn_softmax_fwd.kmask per forward); every rank's losses and
    final parameters bit-identical; ms per step per rank (gloo through the
    host: not NCCL across cards);
-36. the {"kernels": [...]} line, then the card's nvidia-smi line, then
+36. attn_scores_pv and gemm_s8_epilogue at their edges (see
+   scores_pv_s8_edge_checks);
+37. ptxas's registers and spills of arpe_tokens.cu and norm_rows.cu
+   (none may spill);
+38. the {"kernels": [...]} line, then the card's nvidia-smi line, then
    {"ok": true, "device": {...}} as the last line.
 
 Imports nothing of JAX or of peekvit_tpu.
@@ -329,6 +339,31 @@ def cuda_ms(torch, fn, iters: int = 20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, iters: int = 10) -> float:
+    """Device milliseconds per call: ``iters`` calls captured in one CUDA
+    graph, replayed once to warm up and once timed with CUDA events. No
+    Python runs between the launches, so this is the card's time even
+    where a kernel is shorter than its wrapper's host work (a few tens of
+    microseconds), which cuda_ms then times instead."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / iters
+    del graph
+    return ms
 
 
 def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
@@ -568,6 +603,7 @@ def train_kernel_entries(torch, F, fa, vjp, smi, checks, train, kernel_ms, x, qk
     for name, key, source, replaces, kfn, pfn, lfn, flops, nbytes in timed:
         with torch.inference_mode():
             ms = cuda_ms(torch, kfn)
+            dev_ms = graph_ms(torch, kfn)
             plain_ms = cuda_ms(torch, pfn, iters=5)
         lib_ms = cuda_ms(torch, lfn)
         ms_by_key[key] = kernel_ms[name] = ms
@@ -576,7 +612,7 @@ def train_kernel_entries(torch, F, fa, vjp, smi, checks, train, kernel_ms, x, qk
         if launches == 0:
             raise AssertionError(f"{name}: never launched on the training path")
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                 "launches": launches, "max_abs_err": checks[name], "ms": ms,
+                 "launches": launches, "max_abs_err": checks[name], "ms": ms, "device_ms": dev_ms,
                  "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms,
                  "path": "train (fused ViT step)", "shape_batch": BATCH, "count_key": key}
         if name == "ln_bwd_rows":
@@ -966,6 +1002,7 @@ def residual_timing(torch, F, fa, smi, checks, ins, res, kernel_ms, d, h) -> lis
         entries = []
         for name, key, source, replaces, kfn, pfn, lfn, flops, nbytes in timed:
             ms = cuda_ms(torch, kfn)
+            dev_ms = graph_ms(torch, kfn)
             kernel_ms[name] = ms
             plain_ms = cuda_ms(torch, pfn, iters=5)
             lib_ms = cuda_ms(torch, lfn)
@@ -982,6 +1019,7 @@ def residual_timing(torch, F, fa, smi, checks, ins, res, kernel_ms, d, h) -> lis
                 raise AssertionError(f"{name}: never launched on the residual path")
             entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": launches, "max_abs_err": checks[name], "ms": ms,
+                     "device_ms": dev_ms,
                      "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms,
                      "path": path, "shape_batch": BATCH, "count_key": key}
             emit({"phase": "timing_kernel", **{k: v for k, v in entry.items() if k != "count_key"},
@@ -1252,6 +1290,7 @@ def residual_train_entries(torch, F, fa, vjp, smi, checks, rtrain, kernel_ms, in
     for name, source, replaces, kfn, pfn, lfn, flops, nbytes in timed:
         with torch.inference_mode():
             ms = cuda_ms(torch, kfn)
+            dev_ms = graph_ms(torch, kfn)
             plain_ms = cuda_ms(torch, pfn, iters=5)
         lib_ms = cuda_ms(torch, lfn)
         kernel_ms[name] = ms
@@ -1260,7 +1299,7 @@ def residual_train_entries(torch, F, fa, vjp, smi, checks, rtrain, kernel_ms, in
         if launches == 0:
             raise AssertionError(f"{name}: never launched on the residual train path")
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                 "launches": launches, "max_abs_err": checks[name], "ms": ms,
+                 "launches": launches, "max_abs_err": checks[name], "ms": ms, "device_ms": dev_ms,
                  "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms,
                  "path": "residual train (fused ResidualViT step)", "shape_batch": BATCH}
         emit({"phase": "timing_kernel", **entry, "share_of_bound": bnd / ms,
@@ -1679,6 +1718,7 @@ def rank_timing(torch, F, fa, smi, checks, ins, rank, kernel_ms, ln_s, ln_b, w_q
         entries = []
         for name, source, replaces, kfn, pfn, lfn, flops, nbytes, launches, calls in timed:
             ms = cuda_ms(torch, kfn)
+            dev_ms = graph_ms(torch, kfn)
             kernel_ms[name] = ms
             plain_ms = cuda_ms(torch, pfn, iters=5)
             lib_ms = cuda_ms(torch, lfn)
@@ -1687,6 +1727,7 @@ def rank_timing(torch, F, fa, smi, checks, ins, rank, kernel_ms, ln_s, ln_b, w_q
                 raise AssertionError(f"{name}: never launched on the RankViT path")
             entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": launches, "max_abs_err": checks[name], "ms": ms,
+                     "device_ms": dev_ms,
                      "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
                      "library_ms": lib_ms, "path": "rankvit", "shape_batch": BATCH}
             emit({"phase": "timing_kernel", **entry, "share_of_bound": bnd / ms,
@@ -1697,11 +1738,15 @@ def rank_timing(torch, F, fa, smi, checks, ins, rank, kernel_ms, ln_s, ln_b, w_q
                   "card": smi})
             entries.append(entry)
         # site 7: tests reach it, the engine does not; its four kernels run on the path
-        ms = cuda_ms(torch, lambda: fa.keymasked_attention_block(x, km3, ln_s, ln_b, w_qkv, b_qkv,
-                                                                 w_out, b_out, h, EPS))
+        def kmab():
+            return fa.keymasked_attention_block(x, km3, ln_s, ln_b, w_qkv, b_qkv, w_out, b_out, h,
+                                                EPS)
+
+        ms = cuda_ms(torch, kmab)
         bnd, by = bound_ms(2.0 * rows_p * 4 * d * d + attn_flops,
                            2 * rows_p * d * bf + BATCH * n_pad * bf + (4 * d * d + 6 * d) * bf)
         emit({"phase": "timing_composition", "name": "keymasked_attention_block", "ms": ms,
+              "device_ms": graph_ms(torch, kmab),
               "plain_ms": cuda_ms(torch, lambda: fa.keymasked_attention_block_ref(
                   x, km3, ln_s, ln_b, w_qkv, b_qkv, w_out, b_out, h, EPS), iters=5),
               "library_ms": cuda_ms(torch, lambda: attn_block_lib(x)), "bound_ms": bnd,
@@ -2055,6 +2100,7 @@ def quant_timing(torch, F, tq, smi, checks, ins, quant, d, h, m) -> list:
 
         def entry(name, source, replaces, kfn, pfn, lfn, ops, peak, nbytes, library):
             ms = cuda_ms(torch, kfn)
+            dev_ms = graph_ms(torch, kfn)
             plain_ms = cuda_ms(torch, pfn, iters=5)
             lib_ms = cuda_ms(torch, lfn)
             t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
@@ -2063,7 +2109,7 @@ def quant_timing(torch, F, tq, smi, checks, ins, quant, d, h, m) -> list:
             if launches == 0:
                 raise AssertionError(f"{name}: never launched on the int8 paths")
             e = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                 "launches": launches, "max_abs_err": checks[name], "ms": ms,
+                 "launches": launches, "max_abs_err": checks[name], "ms": ms, "device_ms": dev_ms,
                  "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms,
                  "path": "int8", "shape_batch": BATCH}
             emit({"phase": "timing_kernel", **e, "share_of_bound": bnd / ms, "library": library,
@@ -2121,11 +2167,13 @@ def quant_timing(torch, F, tq, smi, checks, ins, quant, d, h, m) -> list:
                   "torch._int_mm + the dequant and epilogue in torch ops")
         qw, x197 = ins["qw"], ins["x197"]
         ms = cuda_ms(torch, lambda: tq.quant_layer_block(x197, *qw, h, EPS))
+        dev_ms = graph_ms(torch, lambda: tq.quant_layer_block(x197, *qw, h, EPS))
         wbytes = 4 * d * d + 2 * d * m
         t_ops = 2.0 * rows * (4 * d * d + 2 * d * m) / PEAK_INT8_OPS * 1e3
         t_attn = 4.0 * rows * (1 + n_img) * d / PEAK_BF16_FLOPS * 1e3
         wlib = int_mm_weights(torch, ins)
         emit({"phase": "timing_composition", "name": "quant_layer_block", "ms": ms,
+              "device_ms": dev_ms,
               "plain_ms": cuda_ms(torch, lambda: tq.quant_layer_block_ref(x197, *qw, h, EPS),
                                   iters=3),
               "library_ms": cuda_ms(torch, lambda: library_quant_layer(torch, F, x197, None, qw,
@@ -2603,6 +2651,7 @@ def new_paths_timing(torch, F, fa, tq, smi, checks, rq_ins, rq, av, quant_ins, b
         def entry(name, source, replaces, launches, path, kfn, pfn, lfn, ops, peak, nbytes,
                   library):
             ms = cuda_ms(torch, kfn)
+            dev_ms = graph_ms(torch, kfn)
             plain_ms = cuda_ms(torch, pfn, iters=5)
             lib_ms = cuda_ms(torch, lfn)
             t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
@@ -2610,7 +2659,7 @@ def new_paths_timing(torch, F, fa, tq, smi, checks, rq_ins, rq, av, quant_ins, b
             if launches == 0:
                 raise AssertionError(f"{name}: never launched on its path")
             e = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                 "launches": launches, "max_abs_err": checks[name], "ms": ms,
+                 "launches": launches, "max_abs_err": checks[name], "ms": ms, "device_ms": dev_ms,
                  "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms,
                  "path": path, "shape_batch": BATCH}
             emit({"phase": "timing_kernel", **e, "share_of_bound": bnd / ms, "library": library,
@@ -2689,6 +2738,8 @@ def new_paths_timing(torch, F, fa, tq, smi, checks, rq_ins, rq, av, quant_ins, b
         t_attn = 4.0 * rr * n_tok * d / PEAK_BF16_FLOPS * 1e3
         emit({"phase": "timing_composition", "name": "quant_masked_layer_block",
               "ms": cuda_ms(torch, lambda: tq.quant_masked_layer_block(x3, m3, *qw, h, BLOCK_EPS)),
+              "device_ms": graph_ms(
+                  torch, lambda: tq.quant_masked_layer_block(x3, m3, *qw, h, BLOCK_EPS)),
               "plain_ms": cuda_ms(torch, lambda: tq.quant_masked_layer_block_ref(
                   x3, m3, *qw, h, BLOCK_EPS), iters=3),
               "library_ms": cuda_ms(torch, lambda: library_quant_layer(
@@ -2744,6 +2795,13 @@ PCT_PER_LAYER = {"norm_rows.bf16": 1, "norm_rows.f32": 1, "gemm_bias_epilogue.bi
 PCT_FORWARD_COUNTS = dict({k: v * PCT_M40["num_layers"] for k, v in PCT_PER_LAYER.items()},
                           arpe_tokens=1)
 SFU_PER_S = 132 * 16 * 1.98e9  # H100 SXM: 16 MUFU results per SM and cycle, boost clock
+# fp32 operations of csrc/arpe_tokens.cu (its note): per pair d2 8, the row
+# max 1, the histogram pass 5, the compaction 5, the neighbour test 1; per
+# neighbour the 6 maxima; per row the 30 replayed steps of 3, c_i, the
+# elus and lin2 (120 + 15 d). The counting bisection it replaced did 78 a
+# pair (31 counts of a compare and an add, the masked max's 7).
+ARPE_OPS_PER_PAIR, ARPE_OPS_PER_NEIGHBOUR, ARPE_OPS_PER_ROW = 20, 6, 90 + 120
+BISECTION_OPS_PER_PAIR, BISECTION_OPS_PER_ROW = 78, 120
 
 
 def surface_clouds(torch, gen, b: int, n: int, dev, ties: int = 0):
@@ -3001,7 +3059,9 @@ def library_folded_layer(torch, F, x, w, h, eps):
 def pct_timing(torch, F, fa, smi, checks, ins, pct) -> list:
     """Phase 27 at bs128: PCT and RankPCT at each budget (ms, clouds/s);
     arpe_tokens and attn_scores_pv.hd32 (time, launches on phase 26's
-    path, bound, plain time, library yardstick), the exp2 count beside
+    path, bound, plain time, library yardstick; ARPE's bound counts the
+    kernel's own operations on these clouds' neighbour sets, with the
+    counting bisection's bound beside it), the exp2 count beside
     the SFU's rate; the ARPE share of the PCT forward; the folded layer at
     N = 1024 beside its plain twin and the layer from PyTorch calls; one
     profiled forward of each path. Returns the two kernels' entries."""
@@ -3023,7 +3083,13 @@ def pct_timing(torch, F, fa, smi, checks, ins, pct) -> list:
         entries = []
         attn_flops = 4.0 * PCT_BATCH * h * n * n * hd
         exp2_count = PCT_BATCH * h * n * n
-        arpe_ops = PCT_BATCH * n * (78.0 * n + 120.0 + 15.0 * d)
+        # the work this run's clouds need: the neighbour sets' sizes count
+        neighbours = float(tpe.arpe_tokens(pts, *pack, k, out_dtype=bf16,
+                                           knn_stats=True)[2].sum())
+        arpe_ops = (PCT_BATCH * n * (ARPE_OPS_PER_PAIR * n + ARPE_OPS_PER_ROW + 15.0 * d)
+                    + ARPE_OPS_PER_NEIGHBOUR * neighbours)
+        bisection_ms = (PCT_BATCH * n * (BISECTION_OPS_PER_PAIR * n + BISECTION_OPS_PER_ROW
+                                         + 15.0 * d) / PEAK_FP32_FLOPS * 1e3)
         specs = [
             ("arpe_tokens", "peekvit_torch/csrc/arpe_tokens.cu",
              f"{REPLACES_PCT}:121 arpe_tokens (_arpe_kernel :55)",
@@ -3032,7 +3098,10 @@ def pct_timing(torch, F, fa, smi, checks, ins, pct) -> list:
              lambda: library_arpe(torch, F, pts, pack, k),
              arpe_ops / PEAK_FP32_FLOPS, PCT_BATCH * n * (3 * 4 + d * 2),
              "the linen form: bmm distances, torch.topk, gather, F.linear, elu, amax, "
-             "F.linear, elu", {}),
+             "F.linear, elu",
+             {"ops_per_pair": ARPE_OPS_PER_PAIR, "neighbours": neighbours,
+              "bound_ms_counting_bisection": bisection_ms,
+              "counting_bisection_ops_per_pair": BISECTION_OPS_PER_PAIR}),
             ("attn_scores_pv.hd32", "peekvit_torch/csrc/attn_scores_pv.cu",
              f"{REPLACES}:46 _attn_scores_pv at head dim 32",
              lambda: fa.attn_scores_pv(ins["qkv"], h),
@@ -3047,6 +3116,7 @@ def pct_timing(torch, F, fa, smi, checks, ins, pct) -> list:
             if lfn is None:
                 lfn = lambda: F.scaled_dot_product_attention(*sdpa)  # noqa: E731
             ms = cuda_ms(torch, kfn)
+            dev_ms = graph_ms(torch, kfn)
             plain_ms = cuda_ms(torch, pfn, iters=3)
             lib_ms = cuda_ms(torch, lfn)
             t_ops *= 1e3
@@ -3057,7 +3127,7 @@ def pct_timing(torch, F, fa, smi, checks, ins, pct) -> list:
                 raise AssertionError(f"{name}: never launched on the PCT paths")
             entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": launches, "max_abs_err": checks[name], "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+                     "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
                      "library_ms": lib_ms, "path": "pct", "shape_batch": PCT_BATCH}
             emit({"phase": "timing_kernel", **entry, "share_of_bound": bnd / ms,
                   "launches_per_forward": PCT_FORWARD_COUNTS[name], "library": library,
@@ -3894,13 +3964,14 @@ def merged_timing(torch, F, fa, vjp, lv, smi, checks, ins, mtrain, x, y, ln_s, l
     for name, key, launches, source, replaces, kfn, pfn, lfn, library, flops, nbytes in timed:
         with torch.inference_mode():
             ms = cuda_ms(torch, kfn)
+            dev_ms = graph_ms(torch, kfn)
             plain_ms = cuda_ms(torch, pfn, iters=5)
         lib_ms = cuda_ms(torch, lfn)  # outside inference mode: two calls are autograd's
         bnd, by = bound_ms(flops, nbytes)
         if launches == 0:
             raise AssertionError(f"{name}: never launched on the merged step")
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                 "launches": launches, "max_abs_err": checks[name], "ms": ms,
+                 "launches": launches, "max_abs_err": checks[name], "ms": ms, "device_ms": dev_ms,
                  "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
                  "library_ms": lib_ms, "path": "merged train step", "shape_batch": BATCH,
                  "count_key": key}
@@ -4494,6 +4565,8 @@ def tp_timing(torch, F, fa, smi, checks, ins, tp) -> list:
                         nbytes = rows * d * (bf + f4) + (2 * d * ml + ml) * bf + extra
                     bnd, by = bound_ms(flops, nbytes)
                     rec = {"ms": cuda_ms(torch, lambda n_=name, a=args: tp_call(ttp, n_, a, hl)),
+                           "device_ms": graph_ms(
+                               torch, lambda n_=name, a=args: tp_call(ttp, n_, a, hl)),
                            "plain_ms": cuda_ms(torch, lambda n_=name, a=args: tp_call(
                                ttp, n_, a, hl, plain=True), iters=3),
                            "library_ms": cuda_ms(torch, lambda n_=name, a=args:
@@ -4878,6 +4951,17 @@ def sp_timing(torch, F, lv, smi, checks, ins, layer_w, sp, d, h, m) -> list:
     ]
 
 
+def arpe_norm_build_checks(smi, build_info) -> None:
+    """Phase 37: ptxas's registers and spills of arpe_tokens.cu and
+    norm_rows.cu (none may spill)."""
+    rows = ptxas_summary(build_info, ("arpe_tokens", "norm_rows"))
+    spilled = [r["kernel"] for r in rows if r.get("spill_store_bytes") or r.get("spill_load_bytes")]
+    emit({"phase": "arpe_norm_build", "ptxas": rows if rows else "not rebuilt in this run",
+          "spilled": spilled, "card": smi})
+    if spilled:
+        raise AssertionError(f"kernels spill registers: {spilled}")
+
+
 def main() -> int:
     import torch
 
@@ -5159,6 +5243,7 @@ def main() -> int:
         kernels, per_forward_ms, kernel_ms = [], 0.0, {}
         for key, path, kfn, pfn, lfn, flops, nbytes in timed:
             ms = cuda_ms(torch, kfn)
+            dev_ms = graph_ms(torch, kfn)
             kernel_ms[key] = ms
             plain_ms = cuda_ms(torch, pfn, iters=5)
             lib_ms = cuda_ms(torch, lfn) if lfn is not None else None
@@ -5169,7 +5254,8 @@ def main() -> int:
                 per_forward_ms += ms * B16["num_layers"]
             entry = {"name": key, "route": "cuda", "source": sources[base],
                      "replaces": replaces[base], "launches": launches,
-                     "max_abs_err": checks[key], "ms": ms, "plain_ms": plain_ms,
+                     "max_abs_err": checks[key], "ms": ms, "device_ms": dev_ms,
+                     "plain_ms": plain_ms,
                      "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms,
                      "path": "main" if path == "main" else "split (fused_mlp=False)",
                      "shape_batch": BATCH}
@@ -5365,6 +5451,7 @@ def main() -> int:
     sp_entries = sp_timing(torch, F, lv, smi, checks, sp_ins, sp_w, sp, d, h, m)
     # ------------------------- 36. the redesigned attention and s8 GEMM at their edges
     scores_pv_s8_edge_checks(torch, fa, tq, randn, smi, info)
+    arpe_norm_build_checks(smi, info)
     for entry in kernels:  # the later paths run earlier kernels too
         entry["launches_by_path"]["merged"] = mtrain["counts"]["merged"].get(entry["name"], 0)
         entry["launches_by_path"]["hybrid"] = mtrain["counts"]["hybrid"].get(entry["name"], 0)

@@ -19,7 +19,10 @@ no top-k, no gather. Points tied at the k-th distance are all included.
 (6, d), ``b2`` (d,), all fp32, and k; it returns (B, N, d) tokens in fp32
 or rounded once to bf16 (the JAX engine casts the fp32 output to the
 compute dtype, inference.py:555-557). On CUDA it launches
-``csrc/arpe_tokens.cu`` (N up to 1024); on CPU tensors it runs
+``csrc/arpe_tokens.cu`` (N up to 1024), which finds each row's k-th
+smallest distance v_k by one exact radix selection and replays the 30
+steps deciding each by v_k <= mid (the count reaches k exactly then), so
+its thresholds are the counting bisection's; on CPU tensors it runs
 :func:`arpe_tokens_ref`.
 
 The plain version fixes the order of every fp32 operation that decides a

@@ -43,6 +43,22 @@ redesigned modes are kept under each checkout's ``build/bit_identity/``
 for the comparison. ``attn_softmax_bwd.kept`` (300 tokens, the kernel
 kept past 256) is not redesigned and must keep its bits.
 
+A mode in RETIMED belongs to a kernel rewritten with its bits kept
+(``norm_rows.cu`` in every mode, ``arpe_tokens``): it is held bit for bit
+like any other, and a third child times it at its shapes (ViT-B/16,
+ResidualViT-B/16 N = 198 and 107, A-ViT-S/16, PCT) in one process with
+the other checkout's library of its kernel and with this one's, in turns
+(other, this, this, other), each from a CUDA graph of 20 launches, so the
+wrapper's Python between launches is not timed; those C entry points are
+unchanged. Its ``edges`` modes: every ``norm_rows.cu`` mode at widths 128,
+200, 384, 768 and 1,024 (one to four chunks a lane) and 1,280 (the
+one-warp-a-row kernel kept for wider rows) and 1, 7, 27,392 and 50,688
+rows, masks holding zeros and fractions; ``arpe_tokens`` at 1, 33, 1,000
+and 1,024 points and k from 1 to N, on clouds drawn at random, tripled
+(ties at the k-th distance), piled 40 deep (more than 32 equal
+distances) and of one point, bf16 tokens at d 128 and fp32 at d 256,
+with the kNN threshold and count.
+
 Modes: ``norm_rows`` (bf16 and fp32 in, masked, A-ViT), ``ln_rows``
 (bf16, fp32 in, masked), ``gemm_bias_epilogue`` (epilogues 0-3 and 6-11:
 bias, gelu, residual_f32, residual with an fp32 and a bf16 residual,
@@ -76,11 +92,20 @@ REDESIGNED = {"attn_softmax_bwd": {"torch.bfloat16": 2e-2},
               "attn_scores_pv": {"torch.bfloat16": 2e-2},
               "gemm_s8_epilogue": {"torch.bfloat16": 2.0 ** -7, "torch.float32": 2.0 ** -20}}
 KEPT = ("attn_softmax_bwd.kept",)  # modes under a redesigned prefix that keep their bits
-TIMED_TAGS = ("vit_b16_bs256", "pct_bs128")
+# rewritten kernels that must keep their bits: held bit for bit like every
+# other mode, and timed with both builds' libraries in one process (their C
+# entry points are unchanged): mode prefix -> source
+RETIMED = {"norm_rows": "norm_rows", "ln_rows": "norm_rows", "arpe_tokens": "arpe_tokens"}
+TIMED_TAGS = ("vit_b16_bs256", "pct_bs128", "residual_bs256", "avit_bs256")
 # the edges: attn_scores_pv at these token counts (head dim 64 and 32), the
 # s8 GEMM at these (M, N, K)
 EDGE_TOKENS = (1, 17, 64, 65, 148, 208, 257, 786)
 EDGE_GEMMS = ((1, 8, 16), (129, 136, 144), (300, 264, 784))
+# the row kernels (norm_rows.cu) at these widths and row counts; arpe_tokens
+# at these (points, ks)
+NORM_EDGE_WIDTHS = (128, 200, 384, 768, 1024, 1280)
+NORM_EDGE_ROWS = (1, 7, 27392, 50688)
+ARPE_EDGES = ((1, (1,)), (33, (1, 16, 33)), (1000, (1, 16, 64, 1000)), (1024, (1, 16, 64, 1024)))
 # name -> (images, tokens, width, heads, mlp width)
 SHAPES = {"vit_b16_bs256": (256, 197, 768, 12, 3072), "ragged": (3, 50, 128, 2, 256)}
 EPS = 1e-6
@@ -100,6 +125,33 @@ def _redesigned(mode: str):
     if name in KEPT:
         return None
     return next((tol for key, tol in REDESIGNED.items() if name.split(".")[0] == key), None)
+
+
+def _graph_ms(torch, fn, iters: int = 20) -> float:
+    """Device milliseconds per call: ``iters`` calls captured in one CUDA
+    graph and replayed, so the wrapper's Python between launches is not
+    timed (a kernel of a few tens of microseconds is shorter than it)."""
+    with torch.inference_mode():
+        fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(iters):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _retimed(mode: str):
+    """The source of a rewritten mode at a timed shape, else None."""
+    tag, name = mode.split("/", 1)
+    return RETIMED.get(name.split(".")[0]) if tag in TIMED_TAGS else None
 
 
 def _cuda_ms(torch, fn, iters: int = 20) -> float:
@@ -266,31 +318,151 @@ def child(root: str) -> dict:
                 torch.save([t.cpu() for t in got], _saved(root, mode))
                 if tag in TIMED_TAGS:
                     out[mode]["ms"] = _cuda_ms(torch, fn)
-    for mode, fn in _extra_modes(torch, dev, fa, tq).items():
+    for mode, fn in _extra_modes(torch, dev, fa, tq, pe).items():
         fa.reset_launch_counts()
         with torch.inference_mode():
             got = fn()
         torch.cuda.synchronize()
         got = tuple(got if isinstance(got, tuple) else (got,))
         out[mode] = {"sha256": [_digest(t) for t in got], "launches": dict(fa.LAUNCHES)}
-        torch.save([t.cpu() for t in got], _saved(root, mode))
-        if mode.split("/")[0] in TIMED_TAGS:
-            out[mode]["ms"] = _cuda_ms(torch, fn)
+        if _redesigned(mode) is not None:
+            torch.save([t.cpu() for t in got], _saved(root, mode))
+            if mode.split("/")[0] in TIMED_TAGS:
+                out[mode]["ms"] = _cuda_ms(torch, fn)
     return out
 
 
-def _extra_modes(torch, dev, fa, tq) -> dict:
-    """attn_scores_pv.hd32 at PCT's shape (timed), and the edges of the two
-    kernels redesigned last: attn_scores_pv in its four modes at
-    EDGE_TOKENS, the s8 GEMM's six epilogues at EDGE_GEMMS."""
+def child_ab(root: str, other: str) -> dict:
+    """Times every rewritten mode at a timed shape (RETIMED) in one
+    process, on the same inputs, with the other checkout's library of its
+    kernel and with this one's in turns: other, this, this, other (20
+    launches in a CUDA graph each, _graph_ms). Both builds must exist (the
+    children built them). Returns {mode: {"other": [ms, ms], "this": [ms,
+    ms]}}."""
+    import ctypes
+    import importlib.util
+
+    root, other = os.path.realpath(root), os.path.realpath(other)
+    sys.path.insert(0, root)
+    import torch
+
+    from peekvit_torch.ops.cuda import _build
+    from peekvit_torch.ops.cuda import fused_attention as fa
+    from peekvit_torch.ops.cuda import pct_embed as pe
+    from peekvit_torch.ops.cuda import quant_blocks as tq
+
+    spec = importlib.util.spec_from_file_location(
+        "other_build", os.path.join(other, "peekvit_torch", "ops", "cuda", "_build.py"))
+    other_build = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(other_build)
+    libs = {}
+    for src in sorted(set(RETIMED.values())):
+        symbol, argtypes = _build._SIGNATURES[src]
+        if other_build._SIGNATURES[src][0] != symbol:
+            raise RuntimeError(f"{src}: the other build's entry point differs")
+        fn = getattr(ctypes.CDLL(other_build._target(src)), symbol)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        libs[src] = {"this": _build.library(src), "other": fn}
+    out = {}
+    for mode, fn in _extra_modes(torch, torch.device("cuda"), fa, tq, pe).items():
+        src = _retimed(mode)
+        if src is None:
+            continue
+        out[mode] = {"other": [], "this": []}
+        for which in ("other", "this", "this", "other"):
+            _build._libs[src] = libs[src][which]
+            out[mode][which].append(_graph_ms(torch, fn))
+        _build._libs[src] = libs[src]["this"]
+    return out
+
+
+def _norm_modes(fa, x, y32, scale, shift, mask, eps) -> dict:
+    """Every mode of norm_rows.cu on bf16 rows x and fp32 rows y32."""
+    bf16 = x.dtype
+    return {
+        "norm_rows.bf16": lambda: fa.norm_rows(x, eps, bf16),
+        "norm_rows.f32": lambda: fa.norm_rows(y32, eps, bf16),
+        "norm_rows.masked.bf16": lambda: fa.norm_rows(x, eps, bf16, scale, shift, mask),
+        "norm_rows.masked.f32": lambda: fa.norm_rows(y32, eps, bf16, scale, shift, mask),
+        "norm_rows.avit.bf16": lambda: fa.norm_rows(x, eps, bf16, scale, shift, mask,
+                                                    premask=True),
+        "norm_rows.avit.f32": lambda: fa.norm_rows(y32, eps, bf16, scale, shift, mask,
+                                                   premask=True),
+        "ln_rows": lambda: fa.ln_rows(x, scale, shift, eps),
+        "ln_rows.f32": lambda: fa.ln_rows(y32, scale, shift, eps, out_dtype=bf16),
+        "ln_rows.masked": lambda: fa.ln_rows(x, scale, shift, eps, mask=mask),
+    }
+
+
+def _arpe_clouds(torch, gen, n: int, dev):
+    """Five clouds of n points: two normal draws (one scaled), each point
+    tripled (ties at the k-th distance), each point 40 times (more than
+    32 equal distances) and one point n times (every distance 0)."""
+    base = torch.randn(5, n, 3, generator=gen, device=dev)
+    base[1] *= 7.0
+    base[2] = base[2, :(n + 2) // 3].repeat_interleave(3, dim=0)[:n]
+    base[3] = base[3, :(n + 39) // 40].repeat_interleave(40, dim=0)[:n]
+    base[4] = base[4, 0].clone().expand(n, 3)
+    return base.contiguous()
+
+
+def _extra_modes(torch, dev, fa, tq, pe) -> dict:
+    """attn_scores_pv.hd32, arpe_tokens and norm_rows at PCT's shape, the
+    masked row norms at ResidualViT-B/16's (N = 198 and, split, 107) and
+    norm_rows.avit at A-ViT-S/16's (all timed), and the edges: of the two
+    redesigned kernels, attn_scores_pv in its four modes at EDGE_TOKENS
+    and the s8 GEMM's six epilogues at EDGE_GEMMS; of the two rewritten
+    with their bits kept, every norm_rows.cu mode at NORM_EDGE_WIDTHS x
+    NORM_EDGE_ROWS (masks with zeros) and arpe_tokens at ARPE_EDGES on
+    _arpe_clouds, bf16 tokens at d 128 and fp32 at d 256, with knn_stats."""
     gen = torch.Generator(device=dev).manual_seed(11)
     bf16 = torch.bfloat16
 
     def randn(*shape, scale=1.0, dtype=bf16):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
 
+    def row_mask(rows):  # zeros, and fractions in (0, 1)
+        keep = torch.rand(rows, generator=gen, device=dev) > 0.3
+        return (keep * torch.rand(rows, generator=gen, device=dev)).to(bf16)
+
     qkv_pct = randn(128, 1024, 3 * 128)
     modes = {"pct_bs128/attn_scores_pv.hd32": lambda: fa.attn_scores_pv(qkv_pct, 4)}
+    pct_pts = torch.randn(128, 1024, 3, generator=gen, device=dev)
+    pct_pack = [torch.randn(*shape, generator=gen, device=dev) * 0.3
+                for shape in ((3, 6), (3, 6), (6,), (6, 128), (128,))]
+    modes["pct_bs128/arpe_tokens"] = lambda: pe.arpe_tokens(pct_pts, *pct_pack, 64, bf16)
+    modes["pct_bs128/arpe_tokens.knn_stats"] = lambda: pe.arpe_tokens(
+        pct_pts, *pct_pack, 64, bf16, knn_stats=True)
+    # (tag, rows, width, the modes timed there)
+    vit_names = ("norm_rows.bf16", "norm_rows.f32", "norm_rows.masked.bf16",
+                 "norm_rows.masked.f32", "norm_rows.avit.bf16", "norm_rows.avit.f32", "ln_rows",
+                 "ln_rows.f32", "ln_rows.masked")
+    for tag, rows, d, names in (
+            ("vit_b16_bs256", 256 * 197, 768, vit_names),
+            ("pct_bs128", 128 * 1024, 128, ("norm_rows.bf16", "norm_rows.f32")),
+            ("residual_bs256", 256 * 198, 768, ("norm_rows.masked.bf16", "norm_rows.masked.f32")),
+            ("residual_bs256", 256 * 107, 768, ("ln_rows.masked",)),
+            ("avit_bs256", 256 * 197, 384, ("norm_rows.avit.bf16", "norm_rows.avit.f32"))):
+        x, y32 = randn(rows, d, scale=1.5), randn(rows, d, dtype=torch.float32)
+        scale, shift = randn(d, scale=0.2) + 1, randn(d, scale=0.1)
+        every = _norm_modes(fa, x, y32, scale, shift, row_mask(rows), EPS)
+        for name in names:
+            modes[f"{tag}/{name}.rows{rows}"] = every[name]
+    for d in NORM_EDGE_WIDTHS:
+        scale, shift = randn(d, scale=0.2) + 1, randn(d, scale=0.1)
+        for rows in NORM_EDGE_ROWS:
+            x, y32 = randn(rows, d, scale=1.5), randn(rows, d, dtype=torch.float32)
+            for name, fn in _norm_modes(fa, x, y32, scale, shift, row_mask(rows), EPS).items():
+                modes[f"edges/{name}.d{d}.rows{rows}"] = fn
+    for n, ks in ARPE_EDGES:
+        pts = _arpe_clouds(torch, gen, n, dev)
+        for d, out_dtype in ((128, bf16), (256, torch.float32)):
+            pack = [torch.randn(*shape, generator=gen, device=dev) * 0.3
+                    for shape in ((3, 6), (3, 6), (6,), (6, d), (d,))]
+            for k in ks:
+                modes[f"edges/arpe_tokens.n{n}.k{k}.d{d}"] = (
+                    lambda pts=pts, pack=pack, k=k, dt=out_dtype:
+                    pe.arpe_tokens(pts, *pack, k, dt, knn_stats=True))
     for n in EDGE_TOKENS:
         qkv, qkv32 = randn(2, n, 3 * 128), randn(2, n, 3 * 128)
         km = (torch.rand(2, n, generator=gen, device=dev) > 0.4).to(bf16)
@@ -349,9 +521,13 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", help="root of the checkout to compare with (the parent)")
     ap.add_argument("--child", help=argparse.SUPPRESS)
+    ap.add_argument("--ab", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
         print(json.dumps(child(args.child)))
+        return 0
+    if args.ab:
+        print(json.dumps(child_ab(args.ab, args.other)))
         return 0
     if not args.other:
         ap.error("--other is required")
@@ -364,6 +540,12 @@ def main() -> int:
             print(proc.stdout[-4000:], proc.stderr[-8000:], file=sys.stderr)
             raise SystemExit(f"{label} checkout ({root}) failed with exit {proc.returncode}")
         runs[label] = json.loads(proc.stdout.strip().splitlines()[-1])
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--ab", REPO, "--other",
+                           roots["other"]], capture_output=True, text=True, cwd=REPO, timeout=900)
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:], proc.stderr[-8000:], file=sys.stderr)
+        raise SystemExit(f"the old-against-new timing failed with exit {proc.returncode}")
+    ab = json.loads(proc.stdout.strip().splitlines()[-1])
     failed, new = [], []
     for mode, this in runs["this"].items():
         other = runs["other"].get(mode)
@@ -385,8 +567,13 @@ def main() -> int:
             if not (held["within"] and launched):
                 failed.append(mode)
             continue
+        times = {}
+        if mode in ab:  # the mean of the two turns of each build
+            times = {"ms": sum(ab[mode]["this"]) / 2, "other_ms": sum(ab[mode]["other"]) / 2,
+                     "turns_ms": ab[mode]}
         print(json.dumps({"mode": mode, "bit_identical": same, "outputs": len(this["sha256"]),
-                          "launches": this["launches"], "other_launches": other["launches"]}))
+                          **times, "launches": this["launches"],
+                          "other_launches": other["launches"]}))
         if not (same and launched):
             failed.append(mode)
     missing = sorted(set(runs["other"]) - set(runs["this"]))

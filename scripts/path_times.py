@@ -24,6 +24,9 @@ a warm-up:
   configs/loss/crossentropy_mse.yaml's losses on the fused residual path;
 - the int8 (w8a8, dynamic scales) ViT-B/16 engine and the int8 RankViT-B/16
   (layers 3/6/9, the exact drop at budget 0.5) at 256 images;
+- the ResidualViT-B/16 engine at budget 0.5 and 256 images, exact (the
+  masked layer on all 198 tokens) and with ``compact=0.5`` (the split
+  masked sublayers on 107 tokens);
 - the PCT engine at ModelNet40 width (1024 points, d 128, 4 heads, 4
   layers) at 128 clouds.
 
@@ -143,6 +146,12 @@ def child(root: str) -> dict:
         times["rankvit_int8_exact0.5.bs256"] = min(_cuda_ms(
             torch, lambda: rankvit_forward_quant(rank.params, images, budget=0.5,
                                                  **rank._forward), 10) for _ in range(3))
+        residual = _seeded(torch, build_model, "residualvit", RESIDUALVIT_B16)
+        for name, kw in (("exact", {}), ("compact0.5", {"compact": 0.5})):
+            reng = InferenceEngine(residual, device="cuda", **kw)
+            times[f"residualvit_{name}.budget0.5.bs256"] = min(
+                _cuda_ms(torch, lambda: reng(images, budget=0.5), 10) for _ in range(3))
+        del residual, reng
         pct = InferenceEngine(build_model("pct", PCT_M40, seed=0, device="cuda"), device="cuda")
         clouds = torch.randn(PCT_BATCH, PCT_M40["num_points"], 3, generator=gen, device=dev)
         times[f"pct_eval.bs{PCT_BATCH}"] = min(_cuda_ms(torch, lambda: pct(clouds), 10)
