@@ -246,7 +246,24 @@ prints no final result):
    scores_pv_s8_edge_checks);
 37. ptxas's registers and spills of arpe_tokens.cu and norm_rows.cu
    (none may spill);
-38. the {"kernels": [...]} line, then the card's nvidia-smi line, then
+38. the training attention at every shipped shape (see
+   tiled_kernel_checks): attn_softmax_fwd (packed, separate, kmask) and
+   attn_softmax_bwd at head dims 32 and 64 at every route and tile edge
+   (1-1024 tokens) against their plain versions, each call's launch key
+   and the C entry points' routes against the documented reach, the
+   backward rerun bit-identical; ptxas of both sources (none may spill);
+39. the shipped training configs (vit_tiny, rankvit, residualvit at full
+   width and depth) under Trainer(Adam(1e-3), clip 1.0, fused="auto") at
+   bs128 (see shipped_train_phases): at 160 px the fused path, one step's
+   gradients against the plain versions (rel-L2 3e-2; 0.2 on a leaf that
+   bf16 rounding alone moves past 3e-2), five counted
+   steps (every launch key at its per-layer count; the attention on the
+   key-tiled kernels where the shape takes them), finite losses, ms per
+   step beside the module path's; at 224 px (785 / 786 tokens) one
+   counted step each and the gradients at bs32;
+40. the key-tiled kernels' times at the Trainer's shapes beside their
+   bounds, plain versions and SDPA (see tiled_timing);
+41. the {"kernels": [...]} line, then the card's nvidia-smi line, then
    {"ok": true, "device": {...}} as the last line.
 
 Imports nothing of JAX or of peekvit_tpu.
@@ -3296,8 +3313,8 @@ GEMM_EDGE_K = (128, 3072)  # the smallest (PCT) and the largest (ViT fc2) K a pa
 def redesign_edge_checks(torch, fa, vjp, lv, check, randn, d, h, m, smi) -> None:
     """Phase 28, the redesigned kernels at their edge shapes (ViT-B/16
     width, 4 images): attn_softmax_fwd packed at every N of
-    ATTN_EDGE_TOKENS (16-key padding, the 256-key switch to the two-pass
-    kernel, the 768 limit) against attn_softmax_fwd_ref, and .separate on
+    ATTN_EDGE_TOKENS (16-key padding, the 256-key switch to the key-tiled
+    kernel, 768) against attn_softmax_fwd_ref, and .separate on
     the same values bit-equal to it; attn_softmax_fwd.kmask at every n_q /
     n_k of KMASK_EDGES with image 0 under a random mask, image 1 with its
     first 64 keys (or all but the last) excluded, image 2 attending its
@@ -4962,6 +4979,443 @@ def arpe_norm_build_checks(smi, build_info) -> None:
         raise AssertionError(f"kernels spill registers: {spilled}")
 
 
+# ------------------------ 38-40. the training attention at every shipped shape
+
+# (head dim, d, heads): the shipped ViT-Ti / RankViT and ResidualViT widths
+TILED_WIDTHS = ((32, 256, 8), (64, 256, 4))
+# every route and tile edge of attn_softmax_fwd / _bwd at both head dims:
+# the wgmma kernels stop at 256 and the kept backward at 384; 704 and 768
+# fill whole 64-key tiles, 705 and 769 one key past them; 401 / 402 and
+# 785 / 786 are the shipped models at 160 and 224 px
+TILED_EDGE_TOKENS = (1, 17, 64, 65, 256, 257, 384, 385, 401, 402, 704, 705, 768, 769, 785, 786,
+                     1024)
+TILED_KMASK_EDGES = ((201, 402), (300, 705), (512, 1024))  # n_q, n_k
+# configs/model/{vit_tiny,rankvit,residualvit}.yaml at
+# configs/dataset/imagenette.yaml (160 px, 10 classes); full width and depth
+SHIPPED_WIDTHS = dict(patch_size=8, hidden_dim=256, mlp_dim=768, num_layers=4, num_classes=10)
+SHIPPED = {
+    "vit_tiny": ("vit", dict(SHIPPED_WIDTHS, num_heads=8)),
+    "rankvit": ("rankvit", dict(SHIPPED_WIDTHS, num_heads=8, rankvit_layers=[1, 2, 3])),
+    "residualvit": ("residualvit", dict(
+        SHIPPED_WIDTHS, num_heads=4, attention_dropout=0.0, dropout=0.0,
+        residual_layers=["attention+mlp"] * 4, gate_temp=1, add_input=False, gate_type="sigmoid",
+        gate_threshold=0.5, gate_bias=0, add_budget_token="learnable")),
+}
+SHIPPED_KIND = {"vit_tiny": "vit", "rankvit": "vit", "residualvit": "residual"}
+SHIPPED_PIXELS = (160, 224)      # imagenette.yaml, imagenet.yaml
+SHIPPED_BATCH = 128              # configs/training/base.yaml: train_batch_size
+SHIPPED_LR = 1e-3                # configs/optimizer/adam.yaml
+SHIPPED_GRAD_BATCH = {160: SHIPPED_BATCH, 224: 32}  # the plain versions' fp32 maps at 786 tokens
+# rel-L2 limit, against the all-plain step, of a leaf whose plain bf16
+# gradient bf16 rounding alone moves past 3e-2 (the ResidualViT's gate
+# leaves). Readings on an H100 (PERF.md): the kernels against the
+# plain versions at most 0.089 (160 px) and 0.070 (224 px) on such leaves;
+# the plain bf16 step against fp32 compute up to 0.39 (160 px) and 4.2
+# (224 px). 0.2 sits above the first with room and below the second: the
+# kernels must stay closer to the plain bf16 step than bf16 itself keeps
+# that step to fp32; a wrong mask cotangent would move a leaf by about its
+# own norm.
+ILL_CONDITIONED_TOL = 0.2
+
+
+def expected_route(hd: int, n: int, backward: bool = False) -> str:
+    """The kernel the attention sources document for a shape: at head dim
+    64 the wgmma kernels up to 256 tokens and the kept backward up to 384;
+    the key-tiled kernels otherwise."""
+    if hd == 64 and n <= 256:
+        return "wgmma"
+    return "kept" if backward and hd == 64 and n <= 384 else "tiled"
+
+
+def shipped_tokens(name: str, px: int) -> int:
+    args = SHIPPED[name][1]
+    return (px // args["patch_size"]) ** 2 + 1 + (1 if args.get("add_budget_token") else 0)
+
+
+def shipped_per_layer(fa, name: str, px: int) -> dict:
+    """Launches per layer of one fused train step of a shipped model: the
+    split path's (TRAIN_PER_LAYER / RESIDUAL_TRAIN_PER_LAYER) with the
+    attention keyed by the route its shape takes (``.tiled``)."""
+    args = SHIPPED[name][1]
+    hd, n = args["hidden_dim"] // args["num_heads"], shipped_tokens(name, px)
+    base = TRAIN_PER_LAYER if SHIPPED_KIND[name] == "vit" else RESIDUAL_TRAIN_PER_LAYER
+    keys = {"attn_softmax_fwd": fa.softmax_key("attn_softmax_fwd", hd, n),
+            "attn_softmax_bwd": fa.softmax_key("attn_softmax_bwd", hd, n, backward=True)}
+    return {keys.get(k, k): v for k, v in base.items()}
+
+
+def tiled_kernel_checks(torch, fa, vjp, lv, check, randn, smi, build_info) -> None:
+    """Phase 38: attn_softmax_fwd (packed and .separate) and
+    attn_softmax_bwd at head dims 32 and 64 (d 256) and every N of
+    TILED_EDGE_TOKENS, 4 images, against their plain versions; .separate
+    bit-equal to packed; each backward rerun bit-identical (two launches,
+    no atomics); attn_softmax_fwd.kmask at every n_q / n_k of
+    TILED_KMASK_EDGES with image 0 under a random mask, image 1 with its
+    whole first 64-key tile excluded, image 2 attending its last key only,
+    image 3 every key. Each call's launch key, and the C entry points'
+    routes (fa.softmax_route) against the reach the sources document
+    (expected_route). Then ptxas's registers and spills of both sources
+    (none may spill)."""
+    tol = 2e-2
+    reason = "bf16 rounding of the normalised P (and of dZ * scale), bf16 output rounding"
+    same, routes, bad_keys = {}, {}, []
+
+    def keyed(fn, want_key):
+        out, counts = counted(torch, fa, fn)
+        if counts != {want_key: 1}:
+            bad_keys.append((want_key, counts))
+        return out
+
+    with torch.inference_mode():
+        for hd, d, heads in TILED_WIDTHS:
+            for n in TILED_EDGE_TOKENS:
+                tag = f"hd{hd}.N{n}"
+                routes[tag] = {"fwd": fa.softmax_route(hd, n),
+                               "bwd": vjp.attn_softmax_bwd_route(n, hd),
+                               "fwd_rule": expected_route(hd, n),
+                               "bwd_rule": expected_route(hd, n, backward=True)}
+                qkv, da = randn(EDGE_BATCH, n, 3 * d), randn(EDGE_BATCH, n, d, scale=0.05)
+                got = keyed(lambda: vjp.attn_softmax_fwd(qkv, heads),
+                            fa.softmax_key("attn_softmax_fwd", hd, n))
+                check(f"tiled.attn_softmax_fwd.{tag}", got, vjp.attn_softmax_fwd_ref(qkv, heads),
+                      tol, reason)
+                q, k, v = (qkv[..., i * d:(i + 1) * d].contiguous() for i in range(3))
+                sep = keyed(lambda: fa.fused_attention(q, k, v, heads),
+                            fa.softmax_key("attn_softmax_fwd.separate", hd, n))
+                same[f"separate.{tag}"] = torch.equal(sep, got)
+                bkey = fa.softmax_key("attn_softmax_bwd", hd, n, backward=True)
+                dq = keyed(lambda: vjp.attn_softmax_bwd(qkv, da, heads), bkey)
+                check(f"tiled.attn_softmax_bwd.{tag}", dq,
+                      vjp.attn_softmax_bwd_ref(qkv, da, heads), tol, reason)
+                same[f"bwd_rerun.{tag}"] = torch.equal(dq, vjp.attn_softmax_bwd(qkv, da, heads))
+            for nq, nk in TILED_KMASK_EDGES:
+                tag = f"hd{hd}.{nq}x{nk}"
+                routes[f"kmask.{tag}"] = {"fwd": fa.softmax_route(hd, nk),
+                                          "fwd_rule": expected_route(hd, nk)}
+                q = randn(EDGE_BATCH, nq, 3 * d)[..., :d]
+                kv = randn(EDGE_BATCH, nk, 2 * d)
+                gen = torch.Generator(device=kv.device).manual_seed(nq * 1000 + nk)
+                kmask = (torch.rand(EDGE_BATCH, nk, generator=gen, device=kv.device) > 0.5).float()
+                kmask[0, 0] = 1.0
+                kmask[1] = 1.0
+                kmask[1, :64] = 0.0
+                kmask[2] = 0.0
+                kmask[2, nk - 1] = 1.0
+                kmask[3] = 1.0
+                got = keyed(lambda: lv.attn_softmax_fwd_kmask(q, kv[..., :d], kv[..., d:], kmask,
+                                                              heads),
+                            fa.softmax_key("attn_softmax_fwd.kmask", hd, nk))
+                check(f"tiled.attn_softmax_fwd.kmask.{tag}", got,
+                      lv.attn_softmax_fwd_kmask_ref(q, kv[..., :d], kv[..., d:], kmask, heads),
+                      tol, reason)
+        torch.cuda.synchronize()
+    mismatched = [t for t, r in routes.items()
+                  if r["fwd"] != r["fwd_rule"] or r.get("bwd") != r.get("bwd_rule")]
+    rows = ptxas_summary(build_info, ("attn_softmax_fwd", "attn_softmax_bwd"))
+    spilled = [r["kernel"] for r in rows if r.get("spill_store_bytes") or r.get("spill_load_bytes")]
+    emit({"phase": "tiled_edges", "routes": routes, "routes_differ_from_rule": mismatched,
+          "checked_bit_identical": len(same), "differ": [k for k, v in same.items() if not v],
+          "launch_keys_wrong": bad_keys,
+          "ptxas_tiled": [r for r in rows if "tiled" in r["kernel"]] if rows
+          else "not rebuilt in this run", "spilled": spilled, "card": smi})
+    if mismatched or bad_keys or not all(same.values()):
+        raise AssertionError(f"tiled edges: routes {mismatched}, keys {bad_keys}, bits "
+                             f"{[k for k, v in same.items() if not v]}")
+    if spilled:
+        raise AssertionError(f"ptxas spilled registers in {spilled}")
+
+
+def shipped_train_phases(torch, F, fa, vjp, dev, smi) -> dict:
+    """Phase 39: vit_tiny, rankvit and residualvit (the shipped training
+    configs at full width and depth, seeded weights, head and class token
+    re-drawn) under Trainer(Adam(1e-3), clip_grad_norm=1.0) with
+    fused="auto" at bs128. At 160 px (N 401 / 402): the path must resolve
+    to the fused one; one step's gradients against the same step on the
+    plain versions (rel-L2 per leaf 3e-2, or ILL_CONDITIONED_TOL on an
+    ill-conditioned leaf, below; a leaf whose plain gradient is exactly 0
+    must be 0 through the kernels) and against the same step with only
+    the attention kernels on their plain versions (3e-2 on every leaf:
+    their own share). A leaf is ill-conditioned where bf16 rounding alone
+    moves the plain step's gradient past 3e-2: against the same step in
+    fp32 compute, or against the same bf16 step on the images times
+    (1 +- 2^-8), about one bf16 ulp. (The ResidualViT's gate leaves take
+    their gradient through the mask cotangent, a sum of many cancelling
+    terms.) Then five steps with the counts
+    zeroed just before and read just after, each key at its per-layer
+    count times layers and steps; finite losses; ms per step beside the
+    module path's (Trainer(fused=False), the model's own fp32 forward) at
+    the same batch. At 224 px (N 785 / 786): one counted step each and the
+    gradients at bs32. Returns the 160 px run's counts (the main path) and
+    each run's."""
+    from peekvit_torch import Trainer
+    from peekvit_torch.models.adapters import tree_leaves
+    from peekvit_torch.training.fused import residual_forward_fn, sample_budgets
+    from peekvit_torch.training.fused import trainable_forward_fn
+    from peekvit_torch.training.optim import Adam
+    from peekvit_torch.training.trainer import step_generator
+
+    tol_grad = 3e-2
+    main_counts, by_run = {}, {}
+    for px in SHIPPED_PIXELS:
+        for name, (family, args) in SHIPPED.items():
+            model = seeded_residual_model(torch, family, dict(args, image_size=px))
+            trainer = Trainer(model, Adam(lr=SHIPPED_LR), clip_grad_norm=1.0, device=DEVICE)
+            kind = trainer._fused_kind()
+            gen = torch.Generator(device=dev).manual_seed(px)
+
+            def batch(b):
+                return (torch.randn(b, px, px, 3, generator=gen, device=dev),
+                        torch.randint(0, args["num_classes"], (b,), generator=gen, device=dev))
+
+            gb = SHIPPED_GRAD_BATCH[px]
+            xg, yg = batch(gb)
+            params = trainer.params
+            bvec = (sample_budgets(model, gb, step_generator(0, 0), dev)
+                    if kind == "residual" else None)
+
+            def grads(xb=xg, **kw):
+                model.zero_grad(set_to_none=True)
+                if kind == "residual":
+                    logits = residual_forward_fn(model, **kw)(params, xb, bvec)[0]
+                else:
+                    logits = trainable_forward_fn(model, **kw)(params, xb)
+                loss = F.cross_entropy(logits, yg)
+                loss.backward()
+                return float(loss.detach()), {k: (p.grad.detach().clone() if p.grad is not None
+                                                  else torch.zeros_like(p))
+                                              for k, p in tree_leaves(params)}
+
+            loss_k, g_k = grads()
+            loss_p, g_p = grads(plain=True)
+            g_32 = grads(plain=True, compute_dtype=torch.float32)[1]
+            flips = torch.randint(0, 2, xg.shape, device=dev,
+                                  generator=torch.Generator(device=dev).manual_seed(px + 1))
+            flips = flips * 2 - 1
+            g_nudged = grads(xg * (1 + flips * 2.0 ** -8), plain=True)[1]
+            kernels = (vjp._KERNELS, vjp._MASKED_KERNELS)
+            try:  # the attention kernels' own share: the same step with their plain versions
+                vjp._KERNELS = kernels[0][:3] + (vjp.attn_softmax_fwd_ref,
+                                                 vjp.attn_softmax_bwd_ref) + kernels[0][5:]
+                vjp._MASKED_KERNELS = vjp._KERNELS + kernels[1][6:]
+                g_a = grads()[1]
+            finally:
+                vjp._KERNELS, vjp._MASKED_KERNELS = kernels
+            model.zero_grad(set_to_none=True)
+            err = rel_l2(torch, g_k, g_p)
+            err_attn = rel_l2(torch, g_k, g_a)
+            plain_32, kernels_32 = rel_l2(torch, g_p, g_32), rel_l2(torch, g_k, g_32)
+            nudged = rel_l2(torch, g_nudged, g_p)
+            # the leaves whose plain bf16 gradient bf16 rounding alone moves
+            # past the tolerance: held at ILL_CONDITIONED_TOL
+            ill = {k for k in err if max(plain_32[k], nudged[k]) > tol_grad}
+            failed = sorted(k for k in err
+                            if err[k] > (ILL_CONDITIONED_TOL if k in ill else tol_grad))
+            failed += sorted(k for k in err_attn if err_attn[k] > tol_grad)
+            zero_leaves = sorted(k for k, v in g_p.items() if not v.abs().max() > 0)
+            zero_kept = all(not g_k[k].abs().max() > 0 for k in zero_leaves)
+            steps = TRAIN_STEPS if px == SHIPPED_PIXELS[0] else 1
+            x, y = batch(SHIPPED_BATCH)
+            fa.reset_launch_counts()
+            losses, per_step = [], []
+            for i in range(steps):
+                before = sum(fa.LAUNCHES.values())
+                losses.append(trainer.train_step(x, y, step_idx=i)["total_loss"])
+                per_step.append(sum(fa.LAUNCHES.values()) - before)
+            torch.cuda.synchronize()
+            counts = dict(fa.LAUNCHES)
+            losses = [float(v) for v in losses]
+            layers = args["num_layers"]
+            per_layer = shipped_per_layer(fa, name, px)
+            want = {k: v * layers * steps for k, v in per_layer.items()}
+            rec = {"phase": "shipped_train", "model": name, "image_size": px,
+                   "tokens": shipped_tokens(name, px), "fused": trainer.fused,
+                   "resolved": kind, "train_kind": trainer._train_kind, "batch": SHIPPED_BATCH,
+                   "steps": steps, "losses": losses, "launches_per_step": per_step,
+                   "per_layer": per_layer, "counts": counts, "grad_batch": gb,
+                   "loss_kernels": loss_k, "loss_plain": loss_p, "leaves": len(g_k),
+                   "max_rel_l2_vs_plain": max(err.values()), "rel_l2_vs_plain": err,
+                   "max_rel_l2_vs_plain_attention": max(err_attn.values()),
+                   "max_rel_l2_plain_vs_fp32": max(plain_32.values()),
+                   "max_rel_l2_kernels_vs_fp32": max(kernels_32.values()),
+                   "max_rel_l2_plain_nudged": max(nudged.values()),
+                   "ill_conditioned_vs_plain_plain_vs_fp32_nudged_kernels_vs_fp32": {
+                       k: [err[k], plain_32[k], nudged[k], kernels_32[k]] for k in sorted(ill)},
+                   "max_rel_l2_well_conditioned_vs_plain": max(
+                       [v for k, v in err.items() if k not in ill], default=0.0),
+                   "failed": failed, "zero_plain_leaves": len(zero_leaves),
+                   "zero_leaves_zero_through_kernels": zero_kept, "tolerance_rel_l2": tol_grad,
+                   "tolerance_ill_conditioned": ILL_CONDITIONED_TOL,
+                   "tolerance_reason": "same rounding points; bf16 flips from fp32 sums in "
+                                       "another order through 4 layers; the repo's bf16 "
+                                       "tolerance, and ILL_CONDITIONED_TOL on the leaves that "
+                                       "bf16 rounding alone moves past it",
+                   "card": smi}
+            if px == SHIPPED_PIXELS[0]:
+                for _ in range(2):
+                    trainer.train_step(x, y, step_idx=100)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                rec["ms_per_step"] = cuda_ms(torch, lambda: trainer.train_step(x, y), iters=5)
+                rec["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+                module = Trainer(model, Adam(lr=SHIPPED_LR), clip_grad_norm=1.0, fused=False,
+                                 device=DEVICE)
+                module.train_step(x, y)
+                rec["module_ms_per_step"] = cuda_ms(torch, lambda: module.train_step(x, y),
+                                                    iters=3)
+                rec["module_kind"] = module._train_kind
+                rec["images_per_s"] = SHIPPED_BATCH / rec["ms_per_step"] * 1e3
+                del module
+                for k, v in counts.items():
+                    main_counts[k] = main_counts.get(k, 0) + v
+            emit(rec)
+            by_run[f"{name}@{px}"] = counts
+            want_kind = "fused_" + SHIPPED_KIND[name]
+            if kind != SHIPPED_KIND[name] or trainer._train_kind != want_kind:
+                raise AssertionError(f"{name} at {px} px resolved to {kind!r} / "
+                                     f"{trainer._train_kind!r}, not {want_kind}")
+            if per_step != [sum(per_layer.values()) * layers] * steps or counts != want:
+                raise AssertionError(f"{name} at {px} px: launches {per_step} {counts}, "
+                                     f"want {want}")
+            if not all(math.isfinite(v) for v in losses):
+                raise AssertionError(f"{name} at {px} px: losses not finite: {losses}")
+            if failed or not zero_kept:
+                raise AssertionError(f"{name} at {px} px: gradients out of tolerance at "
+                                     f"{failed}")
+            del trainer, model, g_k, g_p, g_32, g_a, g_nudged
+            torch.cuda.empty_cache()
+    return {"counts": main_counts, "by_run": by_run}
+
+
+def tiled_timing(torch, F, fa, vjp, lv, smi, check, checks, randn, shipped) -> list:
+    """Phase 40: the key-tiled kernels at the Trainer's shapes beside their
+    bounds, plain versions and one PyTorch call (SDPA forward, SDPA's
+    backward, SDPA with the boolean key mask; never called by the port):
+    ms (CUDA events over 20 launches from Python) and device_ms (10
+    launches replayed from one CUDA graph). Bound = max(bytes: each input
+    read once, each output written once, over 3.35 TB/s; the products'
+    flops over the bf16 peak); beside it ``exp_ms``, the kernel's own
+    exponentials at the SFU's rate (forward: two sweeps, backward: four).
+    Returns the kernels-line entries."""
+    bf = 2
+    entries = []
+
+    def sdpa_heads(t, n, heads):
+        b = t.shape[0]
+        return t.reshape(b, n, heads, -1).transpose(1, 2)
+
+    def row(name, shape, tag, fn, ref, lib, flops, nbytes, exps, count_key, replaces, path,
+            runs):
+        bnd, by = bound_ms(flops, nbytes)
+        with torch.inference_mode():
+            ms, dev_ms = cuda_ms(torch, fn), graph_ms(torch, fn)
+            plain = cuda_ms(torch, ref, iters=3)
+        lib_ms = cuda_ms(torch, lib)
+        exp_ms = exps / SFU_PER_S * 1e3
+        emit({"phase": "timing_tiled", "name": name, "shape": shape, "ms": ms,
+              "device_ms": dev_ms, "plain_ms": plain, "library_ms": lib_ms, "bound_ms": bnd,
+              "bound_by": by, "share_of_bound": bnd / dev_ms, "exp_ms": exp_ms, "card": smi})
+        entries.append({"name": name, "route": "cuda",
+                        "source": "peekvit_torch/csrc/" + name.split(".")[0] + ".cu",
+                        "replaces": replaces,
+                        "launches": sum(shipped["by_run"][r].get(count_key, 0) for r in runs),
+                        "launches_counted_in": runs,
+                        "max_abs_err": checks[tag], "ms": ms, "device_ms": dev_ms,
+                        "plain_ms": plain, "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms,
+                        "exp_ms": exp_ms, "shape": shape, "path": path,
+                        "count_key": count_key})
+
+    check_tol = 2e-2
+    fwd_replaces = (f"{REPLACES_VJP}:261 (sites 18 and 21: _attn_fwd_kernel :49-87; site 10 "
+                    f"{REPLACES_LAYER}:278)")
+    bwd_replaces = (f"{REPLACES_VJP}:364 (sites 19-20 and 22-23: the head core of "
+                    f"_attn_bwd_kernel_saved :202-236; site 11 {REPLACES_LAYER}:330)")
+    vit_runs = [f"{m}@{SHIPPED_PIXELS[0]}" for m in ("vit_tiny", "rankvit")]
+    for name, (b, n, hd, heads), count_key, runs in (
+            ("attn_softmax_fwd.tiled", (SHIPPED_BATCH, 401, 32, 8), "attn_softmax_fwd.tiled",
+             vit_runs),
+            ("attn_softmax_fwd.tiled.hd64", (SHIPPED_BATCH, 786, 64, 4),
+             "attn_softmax_fwd.tiled", [f"residualvit@{SHIPPED_PIXELS[-1]}"]),
+            ("attn_softmax_fwd.tiled.hd64.N402", (SHIPPED_BATCH, 402, 64, 4),
+             "attn_softmax_fwd.tiled", [f"residualvit@{SHIPPED_PIXELS[0]}"]),
+            ("attn_softmax_bwd.tiled", (SHIPPED_BATCH, 401, 32, 8), "attn_softmax_bwd.tiled",
+             vit_runs),
+            ("attn_softmax_bwd.tiled.hd64", (SHIPPED_BATCH, 402, 64, 4),
+             "attn_softmax_bwd.tiled", [f"residualvit@{SHIPPED_PIXELS[0]}"])):
+        d = hd * heads
+        qkv, da = randn(b, n, 3 * d), randn(b, n, d, scale=0.05)
+        shape = f"bs{b}.N{n}.hd{hd}.h{heads}"
+        tag = f"{name}.{shape}"
+        logits = b * heads * n * n
+        if name.startswith("attn_softmax_fwd"):
+            with torch.inference_mode():
+                check(tag, vjp.attn_softmax_fwd(qkv, heads), vjp.attn_softmax_fwd_ref(qkv, heads),
+                      check_tol, "bf16 rounding of the normalised P, bf16 output rounding")
+            qh, kh, vh = (sdpa_heads(qkv[..., i * d:(i + 1) * d], n, heads) for i in range(3))
+            row(name, shape, tag, lambda: vjp.attn_softmax_fwd(qkv, heads),
+                lambda: vjp.attn_softmax_fwd_ref(qkv, heads),
+                lambda: F.scaled_dot_product_attention(qh, kh, vh), 4.0 * logits * hd,
+                b * n * (3 * d + d) * bf, 2.0 * logits, count_key, fwd_replaces,
+                "shipped_train", runs)
+        else:
+            with torch.inference_mode():
+                check(tag, vjp.attn_softmax_bwd(qkv, da, heads),
+                      vjp.attn_softmax_bwd_ref(qkv, da, heads), check_tol,
+                      "bf16 rounding of P and dZ * scale, bf16 output rounding")
+            leaves = [sdpa_heads(qkv[..., i * d:(i + 1) * d], n, heads).contiguous()
+                      .requires_grad_() for i in range(3)]
+            out = F.scaled_dot_product_attention(*leaves)
+            dout = sdpa_heads(da, n, heads).contiguous()
+            row(name, shape, tag, lambda: vjp.attn_softmax_bwd(qkv, da, heads),
+                lambda: vjp.attn_softmax_bwd_ref(qkv, da, heads),
+                lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True),
+                10.0 * logits * hd, b * n * (3 * d + d + 3 * d) * bf, 4.0 * logits, count_key,
+                bwd_replaces, "shipped_train", runs)
+            del leaves, out, dout
+        del qkv, da
+    # the separate (site 2) and masked (site 12) modes at ViT-Ti's width
+    b, n, hd, heads = SHIPPED_BATCH, 401, 32, 8
+    d = hd * heads
+    q, k, v = (randn(b, n, d) for _ in range(3))
+    shape = f"bs{b}.N{n}.hd{hd}.h{heads}"
+    tag = f"attn_softmax_fwd.separate.tiled.{shape}"
+    with torch.inference_mode():
+        check(tag, fa.fused_attention(q, k, v, heads), fa.fused_attention_ref(q, k, v, heads),
+              check_tol, "bf16 rounding of the normalised P, bf16 output rounding")
+    row("attn_softmax_fwd.separate.tiled", shape, tag, lambda: fa.fused_attention(q, k, v, heads),
+        lambda: fa.fused_attention_ref(q, k, v, heads),
+        lambda: F.scaled_dot_product_attention(*(sdpa_heads(t, n, heads) for t in (q, k, v))),
+        4.0 * b * heads * n * n * hd, b * n * 4 * d * bf, 2.0 * b * heads * n * n,
+        "attn_softmax_fwd.separate.tiled",
+        f"{REPLACES}:220 (site 2, fused_attention: _attn_kernel :168)", "module", vit_runs)
+    nq, nk = 201, 402  # a rank's queries of RankViT-at-160 px's tokens over two ranks
+    kv = randn(b, nk, 2 * d)
+    gen = torch.Generator(device=kv.device).manual_seed(7)
+    kmask = (torch.rand(b, nk, generator=gen, device=kv.device) > 0.5).float()
+    kmask[:, 0] = 1.0
+    kmask[0, :64] = 0.0
+    kmask[0, nk - 1] = 1.0
+    qq = q[:, :nq].contiguous()
+    attended = kmask.sum().item()
+    shape = f"bs{b}.{nq}x{nk}.hd{hd}.h{heads}"
+    tag = f"attn_softmax_fwd.kmask.tiled.{shape}"
+    with torch.inference_mode():
+        check(tag, lv.attn_softmax_fwd_kmask(qq, kv[..., :d], kv[..., d:], kmask, heads),
+              lv.attn_softmax_fwd_kmask_ref(qq, kv[..., :d], kv[..., d:], kmask, heads),
+              check_tol, "bf16 rounding of the normalised P, bf16 output rounding")
+    mask4 = (kmask > 0)[:, None, None, :]
+    row("attn_softmax_fwd.kmask.tiled", shape, tag,
+        lambda: lv.attn_softmax_fwd_kmask(qq, kv[..., :d], kv[..., d:], kmask, heads),
+        lambda: lv.attn_softmax_fwd_kmask_ref(qq, kv[..., :d], kv[..., d:], kmask, heads),
+        lambda: F.scaled_dot_product_attention(
+            sdpa_heads(qq, nq, heads), sdpa_heads(kv[..., :d], nk, heads),
+            sdpa_heads(kv[..., d:], nk, heads), attn_mask=mask4),
+        4.0 * heads * nq * hd * attended, (2 * b * nq * d + 2 * b * nk * d) * bf + b * nk * 4,
+        2.0 * heads * nq * b * nk, "attn_softmax_fwd.kmask.tiled",
+        f"{REPLACES_LAYER}:560 (site 12, the attention of _sp_tail_math :478-514)", "sp",
+        vit_runs)
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -5452,12 +5906,17 @@ def main() -> int:
     # ------------------------- 36. the redesigned attention and s8 GEMM at their edges
     scores_pv_s8_edge_checks(torch, fa, tq, randn, smi, info)
     arpe_norm_build_checks(smi, info)
+    # ------------------------- 38-40. the training attention at every shipped shape
+    tiled_kernel_checks(torch, fa, vjp, lv, check, randn, smi, info)
+    shipped = shipped_train_phases(torch, F, fa, vjp, dev, smi)
+    tiled_entries = tiled_timing(torch, F, fa, vjp, lv, smi, check, checks, randn, shipped)
     for entry in kernels:  # the later paths run earlier kernels too
         entry["launches_by_path"]["merged"] = mtrain["counts"]["merged"].get(entry["name"], 0)
         entry["launches_by_path"]["hybrid"] = mtrain["counts"]["hybrid"].get(entry["name"], 0)
         entry["launches_by_path"]["module"] = mod["counts"].get(entry["name"], 0)
         entry["launches_by_path"]["tp"] = tp["counts"].get(entry["name"], 0)
         entry["launches_by_path"]["sp"] = sp["counts"].get(entry["name"], 0)
+        entry["launches_by_path"]["shipped_train"] = shipped["counts"].get(entry["name"], 0)
     # every path's counts as this run measured them, read by each new
     # entry's count key
     measured = {"engine": main_counts, "split": split_counts, "train": train["counts"],
@@ -5468,13 +5927,14 @@ def main() -> int:
                 "int8_split_sublayers": rq["split_counts"], "avit": av["counts"],
                 "pct": pct["counts"], "merged": mtrain["counts"]["merged"],
                 "hybrid": mtrain["counts"]["hybrid"], "module": mod["counts"],
-                "attention_alone": mod["alone"], "tp": tp["counts"], "sp": sp["counts"]}
-    for entry in merged_entries + [mod["entry"]] + tp_entries + sp_entries:
+                "attention_alone": mod["alone"], "tp": tp["counts"], "sp": sp["counts"],
+                "shipped_train": shipped["counts"]}
+    for entry in merged_entries + [mod["entry"]] + tp_entries + sp_entries + tiled_entries:
         key = entry.pop("count_key")
         entry["launches_by_path"] = {path: c.get(key, 0) for path, c in measured.items()}
         if key is None:  # a composition: its calls' launches on its path
             entry["launches_by_path"][entry["path"]] = entry["launches"]
-    kernels += merged_entries + [mod["entry"]] + tp_entries + sp_entries
+    kernels += merged_entries + [mod["entry"]] + tp_entries + sp_entries + tiled_entries
     emit({"phase": "elapsed", "seconds": time.perf_counter() - t_start, "card": smi})
 
     emit({"kernels": kernels})

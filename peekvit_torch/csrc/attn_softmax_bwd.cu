@@ -91,8 +91,31 @@
 // over all queries, which phase B has; so neither needs atomics or a
 // second launch. Keys past N are masked (S = 0); query rows past N have
 // zero dA and are masked in phase B, so they add nothing to dK or dV.
-// The choice between the two kernels is by N alone, never a fallback on
-// error.
+//
+// Every other shape takes the key-tiled pair (a template on the head dim,
+// 32 or 64): head dim 32 at any N (ViT-Ti at 160 px: 401 tokens) and head
+// dim 64 past 384 (ResidualViT at 160 px: 402). It is the kernel above
+// with its operands streamed, in two launches and no atomics, so every run
+// gives the same bits:
+//   attn_tiled_bwd_q_kernel, grid (64-row query tile, head, image), four
+//   warps of 16 query rows: phase A with K and V streamed in 64-key tiles
+//   through two shared buffers each (cp.async, the next tile in flight).
+//   Three sweeps over the keys: the rows' max and sum, D = rowsum(dS * P),
+//   dQ. It stores dQ and each row's max, sum and D, fp32, in a (3, B, H,
+//   N) workspace the wrapper allocates.
+//   attn_tiled_bwd_kv_kernel, grid (64-row key tile, head, image): phase B
+//   with Q, dA and those statistics streamed in 64-query tiles; dK and dV
+//   sum over the query chunks in order.
+// The statistics are stored as the max, the sum and D (not 1/sum), so P
+// is expf(logit * scale - max) / sum in both launches, as in the kernel
+// above and the forward. Keys past N have logit -inf in phase A (only the
+// last chunk can hold any) and their rows of dK and dV are never stored;
+// queries past N get P = dZ = 0 in phase B.
+// Bound at ResidualViT bs128 (N = 402, head dim 64, 4 heads): ~184 MB
+// (0.055 ms) against ~5.3e10 flops (0.054 ms).
+//
+// The choice between the three is by shape (peekvit_attn_softmax_bwd_route),
+// never a fallback on error.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -876,21 +899,404 @@ int launch_wgmma(const CUtensorMap& qm, const CUtensorMap& dm, __nv_bfloat16* dq
   return (int)cudaGetLastError();
 }
 
+// --------------------------------------------------- the key-tiled kernels
+
+constexpr int KEPT_MAX_TOKENS = 384;  // the kernel above: Q, K, V, dA whole in shared memory
+constexpr int TL = 64;                // rows of a CTA and of a streamed tile
+constexpr int TL_THREADS = 128;       // four warps of 16 rows
+
+// The helpers above with the head dim a parameter (for HD = 64 the same
+// instructions in the same order).
+template <int HD>
+__device__ __forceinline__ void t_load_a(uint32_t (*f)[4], const __nv_bfloat16* s, int r0,
+                                         int lane) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const int r = r0 + (lane & 7) + ((lane >> 3) & 1) * 8;
+    const int c = kk * 16 + (lane >> 4) * 8;
+    ldmatrix_x4(f[kk], &s[r * (HD + 8) + c]);
+  }
+}
+
+template <int HD>
+__device__ __forceinline__ void t_product_nt(float (*acc)[4], uint32_t (*a)[4],
+                                             const __nv_bfloat16* s, int r0, int lane) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    uint32_t f[4];
+    const int r = r0 + (lane & 7) + (lane >> 4) * 8;
+    const int c = kk * 16 + ((lane >> 3) & 1) * 8;
+    ldmatrix_x4(f, &s[r * (HD + 8) + c]);
+    mma_bf16(acc[0], a[kk], f[0], f[1]);
+    mma_bf16(acc[1], a[kk], f[2], f[3]);
+  }
+}
+
+template <int HD>
+__device__ __forceinline__ void t_product_nn(float (*acc)[4], const uint32_t* p,
+                                             const __nv_bfloat16* s, int r0, int lane) {
+#pragma unroll
+  for (int jn = 0; jn < HD / 16; ++jn) {
+    uint32_t f[4];
+    const int r = r0 + (lane & 7) + ((lane >> 3) & 1) * 8;
+    const int c = jn * 16 + (lane >> 4) * 8;
+    ldmatrix_x4_trans(f, &s[r * (HD + 8) + c]);
+    mma_bf16(acc[2 * jn], p, f[0], f[1]);
+    mma_bf16(acc[2 * jn + 1], p, f[2], f[3]);
+  }
+}
+
+template <int HD>
+__device__ __forceinline__ void t_store_rows(__nv_bfloat16* dst, float (*acc)[4], int r0, int n,
+                                             long long row_stride, int lane) {
+  const int g = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
+    const int c = j * 8 + tq * 2;
+    if (r0 + g < n)
+      *reinterpret_cast<__nv_bfloat162*>(dst + (long long)(r0 + g) * row_stride + c) =
+          __floats2bfloat162_rn(acc[j][0], acc[j][1]);
+    if (r0 + g + 8 < n)
+      *reinterpret_cast<__nv_bfloat162*>(dst + (long long)(r0 + g + 8) * row_stride + c) =
+          __floats2bfloat162_rn(acc[j][2], acc[j][3]);
+  }
+}
+
+// Rows [r0, r0 + 64) of one head (HD columns at row stride `stride`) into
+// a padded shared tile by cp.async; rows at or past n read as zero.
+template <int HD>
+__device__ __forceinline__ void t_load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                            long long stride, int r0, int n, int tid) {
+  constexpr int CPR = HD / 8;  // 16-byte chunks a row
+  for (int chunk = tid; chunk < TL * CPR; chunk += TL_THREADS) {
+    const int r = chunk / CPR, c = (chunk % CPR) * 8;
+    const int row = r0 + r;
+    const int ok = row < n;
+    cp_async16(&dst[r * (HD + 8) + c], src + (long long)(ok ? row : 0) * stride + c,
+               ok ? 16 : 0);
+  }
+}
+
+// Streams `ntiles` pairs of 64-row tiles (a from a_src, b from b_src, or
+// a alone when b_src is null) through two shared buffers each, double-
+// buffered by cp.async, and calls body(t, a_tile, b_tile) with tile t
+// resident and visible to every thread. extra(t, buf), if given, stages
+// more of tile t (plain stores) beside the cp.async copies.
+template <int HD, class Body, class Extra>
+__device__ __forceinline__ void stream_tiles(int ntiles, const __nv_bfloat16* a_src,
+                                             const __nv_bfloat16* b_src, long long stride, int n,
+                                             __nv_bfloat16* sa, __nv_bfloat16* sb, int tid,
+                                             Body body, Extra extra) {
+  constexpr int TILE = TL * (HD + 8);
+  auto load = [&](int t) {
+    const int buf = t & 1;
+    t_load_tile<HD>(sa + buf * TILE, a_src, stride, t * TL, n, tid);
+    if (b_src) t_load_tile<HD>(sb + buf * TILE, b_src, stride, t * TL, n, tid);
+    extra(t, buf);
+    cp_async_commit();
+  };
+  load(0);
+  for (int t = 0; t < ntiles; ++t) {
+    if (t + 1 < ntiles) {
+      load(t + 1);
+      asm volatile("cp.async.wait_group 1;\n" ::);
+    } else {
+      cp_async_wait_all();
+    }
+    __syncthreads();
+    body(t, sa + (t & 1) * TILE, sb + (t & 1) * TILE);
+    __syncthreads();  // every warp is done with this buffer before it is refilled
+  }
+}
+
+// Launch 1, by 64-row query tiles: the kept kernel's phase A with K and V
+// streamed in 64-key tiles. Three sweeps over the keys: the row max and
+// sum, the row term D = rowsum(dS * P), then dQ. Writes dQ and each row's
+// max, sum and D (fp32, (b, heads, n) each, at ws, ws + bhn, ws + 2 bhn).
+template <int HD>
+__global__ void __launch_bounds__(TL_THREADS)
+attn_tiled_bwd_q_kernel(const __nv_bfloat16* __restrict__ qkv,
+                        const __nv_bfloat16* __restrict__ dattn, __nv_bfloat16* __restrict__ dqkv,
+                        float* __restrict__ ws, int n, int d, float scale) {
+  constexpr int STR = HD + 8, TILE = TL * STR, KK = HD / 16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sda = sq + TILE;
+  __nv_bfloat16* sk = sda + TILE;  // two tiles
+  __nv_bfloat16* sv = sk + 2 * TILE;
+
+  const int h = blockIdx.y, b = blockIdx.z, heads = gridDim.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int nch = (n + CH - 1) / CH, ntiles = (n + TL - 1) / TL;
+  const long long row3 = 3LL * d;
+  const __nv_bfloat16* base = qkv + (long long)b * n * row3 + h * HD;
+  const int q0 = blockIdx.x * TL + warp * 16;
+
+  t_load_tile<HD>(sq, base, row3, blockIdx.x * TL, n, tid);
+  t_load_tile<HD>(sda, dattn + (long long)b * n * d + h * HD, d, blockIdx.x * TL, n, tid);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  uint32_t qf[KK][4], daf[KK][4];
+  t_load_a<HD>(qf, sq, warp * 16, lane);
+  t_load_a<HD>(daf, sda, warp * 16, lane);
+  auto none = [](int, int) {};
+
+  // sweep 1: row max and sum (rows g, g + 8), online per 16-key chunk
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  float s[2][4], ds[2][4];
+  stream_tiles<HD>(ntiles, base + d, nullptr, row3, n, sk, sv, tid,
+                   [&](int t, const __nv_bfloat16* skt, const __nv_bfloat16*) {
+#pragma unroll
+    for (int c = 0; c < TL / CH; ++c) {
+      if (t * (TL / CH) + c >= nch) break;
+      t_product_nt<HD>(s, qf, skt, c * CH, lane);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int key = t * TL + c * CH + j * 8 + tq * 2;
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[j][e] = (key + (e & 1) < n) ? s[j][e] * scale : -INFINITY;
+      }
+      const float n0 = fmaxf(m0, quad_max(fmaxf(fmaxf(s[0][0], s[0][1]), fmaxf(s[1][0], s[1][1]))));
+      const float n1 = fmaxf(m1, quad_max(fmaxf(fmaxf(s[0][2], s[0][3]), fmaxf(s[1][2], s[1][3]))));
+      l0 = l0 * expf(m0 - n0) + expf(s[0][0] - n0) + expf(s[0][1] - n0) +
+           expf(s[1][0] - n0) + expf(s[1][1] - n0);
+      l1 = l1 * expf(m1 - n1) + expf(s[0][2] - n1) + expf(s[0][3] - n1) +
+           expf(s[1][2] - n1) + expf(s[1][3] - n1);
+      m0 = n0;
+      m1 = n1;
+    }
+  }, none);
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+
+  // S (fp32) of the chunk at row c * 16 of the tiles into s, dS into ds
+  auto probs = [&](int key0, const __nv_bfloat16* skt, const __nv_bfloat16* svt, int c) {
+    t_product_nt<HD>(s, qf, skt, c * CH, lane);
+    t_product_nt<HD>(ds, daf, svt, c * CH, lane);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int key = key0 + c * CH + j * 8 + tq * 2;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float m = e < 2 ? m0 : m1, l = e < 2 ? l0 : l1;
+        s[j][e] = (key + (e & 1) < n) ? expf(s[j][e] * scale - m) / l : 0.f;
+      }
+    }
+  };
+
+  // sweep 2: the row term rowsum(dS * S)
+  float r0 = 0.f, r1 = 0.f;
+  stream_tiles<HD>(ntiles, base + d, base + 2 * d, row3, n, sk, sv, tid,
+                   [&](int t, const __nv_bfloat16* skt, const __nv_bfloat16* svt) {
+#pragma unroll
+    for (int c = 0; c < TL / CH; ++c) {
+      if (t * (TL / CH) + c >= nch) break;
+      probs(t * TL, skt, svt, c);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        r0 += ds[j][0] * s[j][0] + ds[j][1] * s[j][1];
+        r1 += ds[j][2] * s[j][2] + ds[j][3] * s[j][3];
+      }
+    }
+  }, none);
+  r0 = quad_sum(r0);
+  r1 = quad_sum(r1);
+
+  // sweep 3: dQ += bf16(dZ * scale) . K
+  float dq[HD / 8][4];
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
+  stream_tiles<HD>(ntiles, base + d, base + 2 * d, row3, n, sk, sv, tid,
+                   [&](int t, const __nv_bfloat16* skt, const __nv_bfloat16* svt) {
+#pragma unroll
+    for (int c = 0; c < TL / CH; ++c) {
+      if (t * (TL / CH) + c >= nch) break;
+      probs(t * TL, skt, svt, c);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[j][e] = s[j][e] * (ds[j][e] - (e < 2 ? r0 : r1)) * scale;
+      uint32_t za[4];
+      to_a_frag(za, s);
+      t_product_nn<HD>(dq, za, skt, c * CH, lane);
+    }
+  }, none);
+  t_store_rows<HD>(dqkv + (long long)b * n * row3 + h * HD, dq, q0, n, row3, lane);
+  if (tq == 0) {
+    const long long bhn = (long long)gridDim.z * heads * n;
+    float* row = ws + ((long long)b * heads + h) * n;
+    if (q0 + g < n) {
+      row[q0 + g] = m0;
+      row[bhn + q0 + g] = l0;
+      row[2 * bhn + q0 + g] = r0;
+    }
+    if (q0 + g + 8 < n) {
+      row[q0 + g + 8] = m1;
+      row[bhn + q0 + g + 8] = l1;
+      row[2 * bhn + q0 + g + 8] = r1;
+    }
+  }
+}
+
+// Launch 2, by 64-row key tiles: the kept kernel's phase B with Q and dA
+// streamed in 64-query tiles, beside their rows' max, sum and D from
+// launch 1. dK and dV sum over the queries in order and are stored.
+template <int HD>
+__global__ void __launch_bounds__(TL_THREADS)
+attn_tiled_bwd_kv_kernel(const __nv_bfloat16* __restrict__ qkv,
+                         const __nv_bfloat16* __restrict__ dattn, __nv_bfloat16* __restrict__ dqkv,
+                         const float* __restrict__ ws, int n, int d, float scale) {
+  constexpr int STR = HD + 8, TILE = TL * STR, KK = HD / 16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sk = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sv = sk + TILE;
+  __nv_bfloat16* sq = sv + TILE;      // two tiles
+  __nv_bfloat16* sda = sq + 2 * TILE;  // two tiles
+  float* stats = reinterpret_cast<float*>(sda + 2 * TILE);  // [buffer][max, sum, D][64]
+
+  const int h = blockIdx.y, b = blockIdx.z, heads = gridDim.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tq = lane & 3;
+  const int nch = (n + CH - 1) / CH, ntiles = (n + TL - 1) / TL;
+  const long long row3 = 3LL * d;
+  const __nv_bfloat16* base = qkv + (long long)b * n * row3 + h * HD;
+  const __nv_bfloat16* dbase = dattn + (long long)b * n * d + h * HD;
+  const long long bhn = (long long)gridDim.z * heads * n;
+  const float* wrow = ws + ((long long)b * heads + h) * n;
+
+  t_load_tile<HD>(sk, base + d, row3, blockIdx.x * TL, n, tid);
+  t_load_tile<HD>(sv, base + 2 * d, row3, blockIdx.x * TL, n, tid);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  uint32_t kf[KK][4], vf[KK][4];
+  t_load_a<HD>(kf, sk, warp * 16, lane);
+  t_load_a<HD>(vf, sv, warp * 16, lane);
+  float dk[HD / 8][4], dv[HD / 8][4];
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      dk[j][e] = 0.f;
+      dv[j][e] = 0.f;
+    }
+
+  // Q tiles from qkv (row stride 3d) and dA tiles from dattn (row stride
+  // d): stream_tiles takes one stride, so dA is staged by `extra`.
+  auto stage = [&](int t, int buf) {
+    t_load_tile<HD>(sda + buf * TILE, dbase, d, t * TL, n, tid);
+    for (int r = tid; r < TL; r += TL_THREADS) {
+      const int q = t * TL + r;
+      float* st = stats + buf * 3 * TL;
+      st[r] = q < n ? wrow[q] : 0.f;
+      st[TL + r] = q < n ? wrow[bhn + q] : 1.f;
+      st[2 * TL + r] = q < n ? wrow[2 * bhn + q] : 0.f;
+    }
+  };
+  stream_tiles<HD>(ntiles, base, nullptr, row3, n, sq, sq, tid,
+                   [&](int t, const __nv_bfloat16* sqt, const __nv_bfloat16*) {
+    const __nv_bfloat16* sdat = sda + (t & 1) * TILE;
+    const float* st = stats + (t & 1) * 3 * TL;
+#pragma unroll
+    for (int c = 0; c < TL / CH; ++c) {
+      if (t * (TL / CH) + c >= nch) break;
+      float sT[2][4], dsT[2][4];
+      t_product_nt<HD>(sT, kf, sqt, c * CH, lane);   // S^T: keys x queries
+      t_product_nt<HD>(dsT, vf, sdat, c * CH, lane);  // dS^T
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ql = c * CH + j * 8 + tq * 2 + (e & 1);
+          float p = 0.f, z = 0.f;
+          if (t * TL + ql < n) {
+            p = expf(sT[j][e] * scale - st[ql]) / st[TL + ql];
+            z = p * (dsT[j][e] - st[2 * TL + ql]) * scale;
+          }
+          sT[j][e] = p;
+          dsT[j][e] = z;
+        }
+      }
+      uint32_t pa[4], za[4];
+      to_a_frag(pa, sT);
+      to_a_frag(za, dsT);
+      t_product_nn<HD>(dv, pa, sdat, c * CH, lane);
+      t_product_nn<HD>(dk, za, sqt, c * CH, lane);
+    }
+  }, stage);
+  __nv_bfloat16* out = dqkv + (long long)b * n * row3 + h * HD;
+  const int k0 = blockIdx.x * TL + warp * 16;
+  t_store_rows<HD>(out + d, dk, k0, n, row3, lane);
+  t_store_rows<HD>(out + 2 * d, dv, k0, n, row3, lane);
+}
+
+template <int HD>
+int launch_tiled(const __nv_bfloat16* qkv, const __nv_bfloat16* dattn, __nv_bfloat16* dqkv,
+                 float* ws, int b, int n, int d, int heads, float scale, cudaStream_t stream) {
+  constexpr int TILE_BYTES = TL * (HD + 8) * 2;
+  constexpr int smem_q = 6 * TILE_BYTES;
+  constexpr int smem_kv = 6 * TILE_BYTES + 2 * 3 * TL * 4;
+  auto kq = attn_tiled_bwd_q_kernel<HD>;
+  auto kkv = attn_tiled_bwd_kv_kernel<HD>;
+  cudaError_t err = cudaFuncSetAttribute(kq, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_q);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kkv, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((n + TL - 1) / TL, heads, b);
+  kq<<<grid, TL_THREADS, smem_q, stream>>>(qkv, dattn, dqkv, ws, n, d, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  kkv<<<grid, TL_THREADS, smem_kv, stream>>>(qkv, dattn, dqkv, ws, n, d, scale);
+  return (int)cudaGetLastError();
+}
+
+// 1 the wgmma kernel, 0 the kept kernel, 2 the key-tiled pair, -1 none.
+int bwd_route(int n, int head_dim) {
+  if (head_dim == 64 && n <= WG_MAX_KEYS) return 1;
+  if (head_dim == 64 && n <= KEPT_MAX_TOKENS) return 0;
+  return head_dim == 32 || head_dim == 64 ? 2 : -1;
+}
+
 }  // namespace
 
-// qkv: (b, n, 3d) bf16 packed as [q | k | v], head h at columns h*64;
-// dattn: (b, n, d) bf16; dqkv: (b, n, 3d) bf16, the same layout as qkv.
-// head_dim must be 64, d a multiple of 64, n at most 384 and the pointers
-// 16-byte aligned (the wrapper checks). n <= 256 runs the wgmma kernel, a
-// larger n the earlier kernel (peekvit_attn_softmax_bwd_route). scale =
-// head_dim^-0.5. Returns the cudaError_t of the launch.
-extern "C" int peekvit_attn_softmax_bwd(const void* qkv, const void* dattn, void* dqkv, int b,
-                                        int n, int d, int num_heads, float scale,
-                                        void* stream) {
+// qkv: (b, n, 3d) bf16 packed as [q | k | v], head h at columns
+// h*head_dim; dattn: (b, n, d) bf16; dqkv: (b, n, 3d) bf16, the same layout
+// as qkv. The head dim is d / num_heads and must be 32 or 64; the pointers
+// 16-byte aligned (the wrapper checks). The kernel is chosen by shape
+// (peekvit_attn_softmax_bwd_route): at head dim 64 the wgmma kernel up to
+// 256 tokens and the earlier kernel up to 384, else the key-tiled pair
+// (head dim 32 at any n, head dim 64 past 384), which needs `workspace`:
+// 3 * b * num_heads * n fp32 (each row's max, sum and D between its two
+// launches); the other routes take null. scale = head_dim^-0.5. Returns
+// the cudaError_t of the launch.
+extern "C" int peekvit_attn_softmax_bwd(const void* qkv, const void* dattn, void* dqkv,
+                                        void* workspace, int b, int n, int d, int num_heads,
+                                        float scale, void* stream) {
   if (b == 0 || n == 0) return 0;
-  if (d != num_heads * HD) return (int)cudaErrorInvalidValue;
+  if (num_heads <= 0 || d % num_heads != 0) return (int)cudaErrorInvalidValue;
+  const int head_dim = d / num_heads;
+  const int route = bwd_route(n, head_dim);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n <= WG_MAX_KEYS) {
+  const __nv_bfloat16* qb = static_cast<const __nv_bfloat16*>(qkv);
+  const __nv_bfloat16* db = static_cast<const __nv_bfloat16*>(dattn);
+  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(dqkv);
+  if (route == 2) {
+    if (!workspace) return (int)cudaErrorInvalidValue;
+    float* ws = static_cast<float*>(workspace);
+    return head_dim == 32 ? launch_tiled<32>(qb, db, o, ws, b, n, d, num_heads, scale, st)
+                          : launch_tiled<64>(qb, db, o, ws, b, n, d, num_heads, scale, st);
+  }
+  if (route == 1) {
     const int nt = (n + 15) / 16;
     CUtensorMap qm, dm;
     const uint64_t qdims[3] = {(uint64_t)(3 * d), (uint64_t)n, (uint64_t)b};
@@ -901,7 +1307,6 @@ extern "C" int peekvit_attn_softmax_bwd(const void* qkv, const void* dattn, void
     if (!hopper::make_map_bf16(&qm, qkv, 3, qdims, qstr, box) ||
         !hopper::make_map_bf16(&dm, dattn, 3, ddims, dstr, box))
       return (int)cudaErrorInvalidValue;
-    __nv_bfloat16* o = static_cast<__nv_bfloat16*>(dqkv);
     switch (nt) {
 #define PEEKVIT_NT(k) \
   case k:             \
@@ -913,6 +1318,7 @@ extern "C" int peekvit_attn_softmax_bwd(const void* qkv, const void* dattn, void
     }
     return (int)cudaErrorInvalidValue;
   }
+  if (route != 0) return (int)cudaErrorInvalidValue;
   const int npad = (n + CH - 1) / CH * CH;
   const int smem = npad * (4 * STRIDE * 2 + 3 * 4);
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
@@ -920,12 +1326,13 @@ extern "C" int peekvit_attn_softmax_bwd(const void* qkv, const void* dattn, void
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(num_heads, b);
-  attn_bwd_kernel<<<grid, THREADS, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(qkv), static_cast<const __nv_bfloat16*>(dattn),
-      static_cast<__nv_bfloat16*>(dqkv), n, d, scale);
+  attn_bwd_kernel<<<grid, THREADS, smem, st>>>(qb, db, o, n, d, scale);
   return (int)cudaGetLastError();
 }
 
-// Which kernel peekvit_attn_softmax_bwd runs at n tokens: 1 the wgmma
-// kernel, 0 the earlier one.
-extern "C" int peekvit_attn_softmax_bwd_route(int n) { return n <= WG_MAX_KEYS ? 1 : 0; }
+// Which kernel peekvit_attn_softmax_bwd runs at n tokens and this head
+// dim: 1 the wgmma kernel, 0 the earlier one, 2 the key-tiled pair, -1
+// none (the head dim is neither 32 nor 64).
+extern "C" int peekvit_attn_softmax_bwd_route(int n, int head_dim) {
+  return bwd_route(n, head_dim);
+}

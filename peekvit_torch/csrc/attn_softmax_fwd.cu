@@ -46,7 +46,7 @@
 //     operand;
 //   O = P V: NT wgmma m64n64k16 with V in shared memory as the MN-major
 //     (transposed) B operand, the fp32 O rounded to bf16 on store.
-// So Q K^T is computed once per logit and exp once (the two-pass kernel
+// So Q K^T is computed once per logit and exp once (the key-tiled kernel
 // below computes both twice and divides per logit). 96 KB of shared
 // memory and ~140 registers a thread: two CTAs per SM.
 // Numerics decisions: exp is taken as exp2f of the raw logit times
@@ -63,14 +63,29 @@
 // of keys needs no guard; a row with one attended key gets the plain
 // version's softmax wherever that key sits.
 //
-// For 256 < n_k <= 768 the C entry point keeps the earlier two-pass
-// kernel (attn_fwd_kernel, its code and bits unchanged): grid (query tile
-// of 64, head, image), 4 warps of 16 query rows, the head's whole K and V
-// (n_k padded to a multiple of 64) in shared memory by cp.async; pass 1
-// takes each row's max and sum online (the masked instance takes the
-// exponent's base as 0 while a row's max is still -inf), pass 2 forms the
-// normalised bf16 P with mma.sync and multiplies. The choice is by shape
-// inside the entry point, never a fallback on error.
+// Every other shape takes the key-tiled kernel (attn_tiled_fwd_kernel, a
+// template on the head dim, 32 or 64, and on the mask): head dim 32 at
+// any n_k (ViT-Ti and RankViT at 160 px: 401 tokens; at 224 px: 785) and
+// head dim 64 past 256 keys (ResidualViT: 402 and 786). Grid (query tile
+// of 64, head, image), four warps of 16 query rows with mma.sync, K (pass
+// 1) and K and V (pass 2) streamed through two shared buffers of 64 keys
+// each by cp.async, the next tile in flight while the warps work on this
+// one. Pass 1 takes each row's max and sum online, pass 2 forms the
+// normalised bf16 P (expf and a division per logit: the same P as the
+// backward recomputes) and multiplies. Keys past n_k and excluded
+// keys have logit -inf; a tile wholly excluded adds exp(-inf) = 0 once a
+// row has seen a key, and before that the exponent's base is 0 (the
+// masked instance), so no NaN. 46.6 KB (head dim 64) or 25.6 KB (32) of
+// shared memory; four CTAs an SM, which caps a thread at 128 registers
+// (without the bound ptxas held the masked head-dim-32 instance at 96 and
+// spilled 8 bytes).
+// Bound at ViT-Ti bs128 (N = 401, head dim 32, 8 heads): q, k, v and the
+// output are 105 MB (0.031 ms) against 2.1e10 flops (0.021 ms), but each
+// pass takes 1.65e8 exponentials, 0.039 ms at the SFU's rate: the two
+// passes' exponentials bound it.
+//
+// The choice between the two is by shape inside the entry point
+// (peekvit_attn_softmax_fwd_route), never a fallback on error.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -81,12 +96,8 @@
 
 namespace {
 
-constexpr int HD = 64;          // head dim the kernel is built for
-constexpr int QT = 64;          // query rows per block
-constexpr int KT = 64;          // keys per tile
-constexpr int STRIDE = HD + 8;  // padded smem row (bf16 elements)
+constexpr int HD = 64;  // the wgmma kernel's head dim
 constexpr int THREADS = 128;
-constexpr int MAX_SMEM = 232448;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -127,175 +138,6 @@ __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
-
-// S = Q K^T for the warp's 16 query rows x the 64 keys of tile t, times
-// scale, with keys past n (and, with MASK, keys whose skm entry is not
-// > 0; skm is 0 past n) at -inf.
-template <bool MASK>
-__device__ __forceinline__ void scaled_logits(float (*s)[4], uint32_t (*qf)[4],
-                                              const __nv_bfloat16* sk, const float* skm, int t,
-                                              int n, float scale, int lane) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-  for (int jp = 0; jp < 4; ++jp) {
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t kf[4];
-      const int r = t * KT + jp * 16 + (lane & 7) + (lane >> 4) * 8;
-      const int c = kk * 16 + ((lane >> 3) & 1) * 8;
-      ldmatrix_x4(kf, &sk[r * STRIDE + c]);
-      mma_bf16(s[2 * jp], qf[kk], kf[0], kf[1]);
-      mma_bf16(s[2 * jp + 1], qf[kk], kf[2], kf[3]);
-    }
-  }
-  const int tq = lane & 3;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int key = t * KT + j * 8 + tq * 2;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      if constexpr (MASK)
-        s[j][e] = (skm[key + (e & 1)] > 0.f) ? s[j][e] * scale : -INFINITY;
-      else
-        s[j][e] = (key + (e & 1) < n) ? s[j][e] * scale : -INFINITY;
-    }
-  }
-}
-
-// nq query rows at q_stride, nk key / value rows at kv_stride; out is
-// (b, nq, d). kmask (b, nk) is read only by the MASK instance.
-template <bool MASK>
-__global__ void __launch_bounds__(THREADS)
-attn_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                const float* __restrict__ kmask, int nq, int n, int d, int q_stride,
-                int row_stride, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ntiles = (n + KT - 1) / KT;
-  const int npad = ntiles * KT;
-  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sk = sq + QT * STRIDE;
-  __nv_bfloat16* sv = sk + npad * STRIDE;
-  float* skm = reinterpret_cast<float*>(sv + npad * STRIDE);
-
-  const int q0 = blockIdx.x * QT, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const long long qhead = (long long)b * nq * q_stride + h * HD;
-  const long long head = (long long)b * n * row_stride + h * HD;
-
-  for (int chunk = tid; chunk < QT * 8; chunk += THREADS) {
-    const int r = chunk >> 3, c = (chunk & 7) * 8;
-    const int row = q0 + r;
-    const int ok = row < nq;
-    cp_async16(&sq[r * STRIDE + c], q + qhead + (long long)(ok ? row : 0) * q_stride + c,
-               ok ? 16 : 0);
-  }
-  for (int chunk = tid; chunk < npad * 8; chunk += THREADS) {
-    const int r = chunk >> 3, c = (chunk & 7) * 8;
-    const int ok = r < n;
-    const long long off = head + (long long)(ok ? r : 0) * row_stride + c;
-    cp_async16(&sk[r * STRIDE + c], k + off, ok ? 16 : 0);
-    cp_async16(&sv[r * STRIDE + c], v + off, ok ? 16 : 0);
-  }
-  if constexpr (MASK) {
-    for (int r = tid; r < npad; r += THREADS)
-      skm[r] = r < n ? kmask[(long long)b * n + r] : 0.f;
-  }
-  cp_async_commit();
-  cp_async_wait_all();
-  __syncthreads();
-
-  uint32_t qf[4][4];
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const int r = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-    const int c = kk * 16 + (lane >> 4) * 8;
-    ldmatrix_x4(qf[kk], &sq[r * STRIDE + c]);
-  }
-
-  // Pass 1: row max and sum of exp(x - max), rows g and g + 8.
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-  float s[8][4];
-  for (int t = 0; t < ntiles; ++t) {
-    scaled_logits<MASK>(s, qf, sk, skm, t, n, scale, lane);
-    float c0 = -INFINITY, c1 = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      c0 = fmaxf(c0, fmaxf(s[j][0], s[j][1]));
-      c1 = fmaxf(c1, fmaxf(s[j][2], s[j][3]));
-    }
-    const float n0 = fmaxf(m0, quad_max(c0)), n1 = fmaxf(m1, quad_max(c1));
-    if constexpr (MASK) {  // no key of the row seen yet: every term below is 0
-      const float e0 = n0 == -INFINITY ? 0.f : n0, e1 = n1 == -INFINITY ? 0.f : n1;
-      l0 *= expf(m0 - e0);
-      l1 *= expf(m1 - e1);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        l0 += expf(s[j][0] - e0) + expf(s[j][1] - e0);
-        l1 += expf(s[j][2] - e1) + expf(s[j][3] - e1);
-      }
-    } else {
-      l0 *= expf(m0 - n0);
-      l1 *= expf(m1 - n1);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        l0 += expf(s[j][0] - n0) + expf(s[j][1] - n0);
-        l1 += expf(s[j][2] - n1) + expf(s[j][3] - n1);
-      }
-    }
-    m0 = n0;
-    m1 = n1;
-  }
-  l0 = quad_sum(l0);
-  l1 = quad_sum(l1);
-
-  // Pass 2: P = bf16(exp(x - max) / sum), O += P V.
-  float o[8][4];
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
-  for (int t = 0; t < ntiles; ++t) {
-    scaled_logits<MASK>(s, qf, sk, skm, t, n, scale, lane);
-    uint32_t pa[4][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float p0 = expf(s[j][0] - m0) / l0, p1 = expf(s[j][1] - m0) / l0;
-      const float p2 = expf(s[j][2] - m1) / l1, p3 = expf(s[j][3] - m1) / l1;
-      pa[j >> 1][(j & 1) * 2] = pack_bf16(p0, p1);
-      pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
-    }
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-#pragma unroll
-      for (int jn = 0; jn < 4; ++jn) {
-        uint32_t vf[4];
-        const int r = t * KT + jj * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-        const int c = jn * 16 + (lane >> 4) * 8;
-        ldmatrix_x4_trans(vf, &sv[r * STRIDE + c]);
-        mma_bf16(o[2 * jn], pa[jj], vf[0], vf[1]);
-        mma_bf16(o[2 * jn + 1], pa[jj], vf[2], vf[3]);
-      }
-    }
-  }
-
-  const int g = lane >> 2, tq = lane & 3;
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  __nv_bfloat16* obase = out + (long long)b * nq * d + h * HD + tq * 2;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    if (r0 < nq)
-      *reinterpret_cast<__nv_bfloat162*>(obase + (long long)r0 * d + j * 8) =
-          __floats2bfloat162_rn(o[j][0], o[j][1]);
-    if (r1 < nq)
-      *reinterpret_cast<__nv_bfloat162*>(obase + (long long)r1 * d + j * 8) =
-          __floats2bfloat162_rn(o[j][2], o[j][3]);
-  }
-}
-
 
 // ------------------------------------------------------- the wgmma kernel
 
@@ -489,55 +331,288 @@ int dispatch_wgmma(int nt, const CUtensorMap& qm, const CUtensorMap& km, const C
   return (int)cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------- the key-tiled kernel
+
+constexpr int TL_Q = 64;  // query rows per CTA: four warps of 16
+constexpr int TL_K = 64;  // keys per streamed tile
+
+// Rows [r0, r0 + 64) of one head (HD columns, row stride `stride`) into a
+// padded shared tile by cp.async; rows at or past `rows` read as zero.
+template <int HD>
+__device__ __forceinline__ void load_tile_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                               long long stride, int r0, int rows, int tid) {
+  constexpr int STR = HD + 8, CPR = HD / 8;  // 16-byte chunks a row
+  for (int chunk = tid; chunk < 64 * CPR; chunk += THREADS) {
+    const int r = chunk / CPR, c = (chunk % CPR) * 8;
+    const int row = r0 + r;
+    const int ok = row < rows;
+    cp_async16(&dst[r * STR + c], src + (long long)(ok ? row : 0) * stride + c, ok ? 16 : 0);
+  }
+}
+
+// S = Q K^T for the warp's 16 query rows x the 64 keys of one staged tile
+// (key0 its first key), times scale; keys past n (and, with MASK, keys
+// whose tile mask entry is not > 0; the entry is 0 past n) at -inf.
+template <int HD, bool MASK>
+__device__ __forceinline__ void tile_logits(float (*s)[4], uint32_t (*qf)[4],
+                                            const __nv_bfloat16* sk, const float* skm, int key0,
+                                            int n, float scale, int lane) {
+  constexpr int STR = HD + 8;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+  for (int jp = 0; jp < 4; ++jp) {
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      uint32_t kf[4];
+      const int r = jp * 16 + (lane & 7) + (lane >> 4) * 8;
+      const int c = kk * 16 + ((lane >> 3) & 1) * 8;
+      ldmatrix_x4(kf, &sk[r * STR + c]);
+      mma_bf16(s[2 * jp], qf[kk], kf[0], kf[1]);
+      mma_bf16(s[2 * jp + 1], qf[kk], kf[2], kf[3]);
+    }
+  }
+  const int tq = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = j * 8 + tq * 2;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if constexpr (MASK)
+        s[j][e] = (skm[col + (e & 1)] > 0.f) ? s[j][e] * scale : -INFINITY;
+      else
+        s[j][e] = (key0 + col + (e & 1) < n) ? s[j][e] * scale : -INFINITY;
+    }
+  }
+}
+
+// Two passes over the keys with K and V streamed through shared memory in
+// 64-key tiles (double-buffered cp.async), the head dim a template
+// argument: any n_k, head dim 32 or 64.
+template <int HD, bool MASK>
+__global__ void __launch_bounds__(THREADS, 4)
+attn_tiled_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+                      const float* __restrict__ kmask, int nq, int n, int d, int q_stride,
+                      int kv_stride, float scale) {
+  constexpr int STR = HD + 8, TILE = TL_K * STR, KK = HD / 16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sk = sq + TL_Q * STR;  // two tiles
+  __nv_bfloat16* sv = sk + 2 * TILE;    // two tiles
+  float* skm = reinterpret_cast<float*>(sv + 2 * TILE);  // two tiles' key mask
+
+  const int q0 = blockIdx.x * TL_Q, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int ntiles = (n + TL_K - 1) / TL_K;
+  const __nv_bfloat16* kh = k + (long long)b * n * kv_stride + h * HD;
+  const __nv_bfloat16* vh = v + (long long)b * n * kv_stride + h * HD;
+
+  auto load_kv = [&](int t, bool with_v) {
+    const int buf = t & 1;
+    load_tile_rows<HD>(sk + buf * TILE, kh, kv_stride, t * TL_K, n, tid);
+    if (with_v) load_tile_rows<HD>(sv + buf * TILE, vh, kv_stride, t * TL_K, n, tid);
+    if constexpr (MASK) {
+      for (int r = tid; r < TL_K; r += THREADS) {
+        const int key = t * TL_K + r;
+        skm[buf * TL_K + r] = key < n ? kmask[(long long)b * n + key] : 0.f;
+      }
+    }
+    cp_async_commit();
+  };
+  // Tile t's buffers are complete and visible once this returns; the
+  // next tile is then in flight.
+  auto next_tile = [&](int t, bool with_v) {
+    if (t + 1 < ntiles) {
+      load_kv(t + 1, with_v);
+      asm volatile("cp.async.wait_group 1;\n" ::);
+    } else {
+      cp_async_wait_all();
+    }
+    __syncthreads();
+  };
+
+  load_tile_rows<HD>(sq, q + (long long)b * nq * q_stride + h * HD, q_stride, q0, nq, tid);
+  cp_async_commit();
+  load_kv(0, false);
+  asm volatile("cp.async.wait_group 1;\n" ::);
+  __syncthreads();
+  uint32_t qf[KK][4];
+#pragma unroll
+  for (int kk = 0; kk < KK; ++kk) {
+    const int r = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+    const int c = kk * 16 + (lane >> 4) * 8;
+    ldmatrix_x4(qf[kk], &sq[r * STR + c]);
+  }
+
+  // Pass 1: row max and sum of exp(x - max), rows g and g + 8.
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  float s[8][4];
+  for (int t = 0; t < ntiles; ++t) {
+    next_tile(t, false);
+    const int buf = t & 1;
+    tile_logits<HD, MASK>(s, qf, sk + buf * TILE, skm + buf * TL_K, t * TL_K, n, scale, lane);
+    float c0 = -INFINITY, c1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      c0 = fmaxf(c0, fmaxf(s[j][0], s[j][1]));
+      c1 = fmaxf(c1, fmaxf(s[j][2], s[j][3]));
+    }
+    const float n0 = fmaxf(m0, quad_max(c0)), n1 = fmaxf(m1, quad_max(c1));
+    if constexpr (MASK) {  // no key of the row seen yet: every term below is 0
+      const float e0 = n0 == -INFINITY ? 0.f : n0, e1 = n1 == -INFINITY ? 0.f : n1;
+      l0 *= expf(m0 - e0);
+      l1 *= expf(m1 - e1);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        l0 += expf(s[j][0] - e0) + expf(s[j][1] - e0);
+        l1 += expf(s[j][2] - e1) + expf(s[j][3] - e1);
+      }
+    } else {
+      l0 *= expf(m0 - n0);
+      l1 *= expf(m1 - n1);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        l0 += expf(s[j][0] - n0) + expf(s[j][1] - n0);
+        l1 += expf(s[j][2] - n1) + expf(s[j][3] - n1);
+      }
+    }
+    m0 = n0;
+    m1 = n1;
+    __syncthreads();  // every warp is done with this buffer before it is refilled
+  }
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+
+  // Pass 2: P = bf16(exp(x - max) / sum), O += P V.
+  float o[HD / 8][4];
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  load_kv(0, true);
+  for (int t = 0; t < ntiles; ++t) {
+    next_tile(t, true);
+    const int buf = t & 1;
+    tile_logits<HD, MASK>(s, qf, sk + buf * TILE, skm + buf * TL_K, t * TL_K, n, scale, lane);
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float p0 = expf(s[j][0] - m0) / l0, p1 = expf(s[j][1] - m0) / l0;
+      const float p2 = expf(s[j][2] - m1) / l1, p3 = expf(s[j][3] - m1) / l1;
+      pa[j >> 1][(j & 1) * 2] = pack_bf16(p0, p1);
+      pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
+    }
+    const __nv_bfloat16* svt = sv + buf * TILE;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+      for (int jn = 0; jn < HD / 16; ++jn) {
+        uint32_t vf[4];
+        const int r = jj * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+        const int c = jn * 16 + (lane >> 4) * 8;
+        ldmatrix_x4_trans(vf, &svt[r * STR + c]);
+        mma_bf16(o[2 * jn], pa[jj], vf[0], vf[1]);
+        mma_bf16(o[2 * jn + 1], pa[jj], vf[2], vf[3]);
+      }
+    }
+    __syncthreads();
+  }
+
+  const int g = lane >> 2, tq = lane & 3;
+  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
+  __nv_bfloat16* obase = out + (long long)b * nq * d + h * HD + tq * 2;
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
+    if (r0 < nq)
+      *reinterpret_cast<__nv_bfloat162*>(obase + (long long)r0 * d + j * 8) =
+          __floats2bfloat162_rn(o[j][0], o[j][1]);
+    if (r1 < nq)
+      *reinterpret_cast<__nv_bfloat162*>(obase + (long long)r1 * d + j * 8) =
+          __floats2bfloat162_rn(o[j][2], o[j][3]);
+  }
+}
+
+template <int HD>
+int launch_tiled(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+                 __nv_bfloat16* out, const float* kmask, int b, int nq, int nk, int d,
+                 int q_stride, int kv_stride, int heads, float scale, cudaStream_t stream) {
+  const int smem = (TL_Q + 4 * TL_K) * (HD + 8) * 2 + 2 * TL_K * 4;
+  auto kernel = kmask ? attn_tiled_fwd_kernel<HD, true> : attn_tiled_fwd_kernel<HD, false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((nq + TL_Q - 1) / TL_Q, heads, b);
+  kernel<<<grid, THREADS, smem, stream>>>(q, k, v, out, kmask, nq, nk, d, q_stride, kv_stride,
+                                          scale);
+  return (int)cudaGetLastError();
+}
+
+// The kernel peekvit_attn_softmax_fwd runs at n_k keys and this head dim,
+// with or without a key mask: 1 the wgmma kernel, 2 the key-tiled kernel,
+// -1 none.
+int fwd_route(int nk, int head_dim) {
+  if (head_dim == 64 && nk <= WG_MAX_KEYS) return 1;
+  return head_dim == 32 || head_dim == 64 ? 2 : -1;
+}
+
 }  // namespace
 
 // q: row r of image b at q + (b * nq + r) * q_stride, k and v at base +
-// (b * nk + r) * kv_stride, head h at columns h*64 (packed qkv: qkv,
+// (b * nk + r) * kv_stride, head h at columns h*head_dim (packed qkv: qkv,
 // qkv + d, qkv + 2d and both strides 3d, nq = nk; separate (b, n, d)
 // tensors: strides d; the SP tail: q a slice of the local qkv, stride 3d,
 // k and v of the gathered kv, stride 2d); out: (b, nq, d) bf16. kmask:
-// null, or (b, nk) fp32 with 1 = attend (the MASK instances). head_dim
-// must be 64, d a multiple of 64, nk at most 768, the pointers 16-byte
-// aligned and the strides multiples of 8 (the wrappers check). nk <= 256
-// runs the wgmma kernel, a larger nk the two-pass kernel. scale =
-// head_dim^-0.5. Returns the cudaError_t of the launch.
+// null, or (b, nk) fp32 with 1 = attend (the MASK instances). The head
+// dim is d / num_heads and must be 32 or 64; the pointers must be 16-byte
+// aligned and the strides multiples of 8 (the wrappers check). The kernel
+// is chosen by shape (peekvit_attn_softmax_fwd_route): at head dim 64 the
+// wgmma kernel up to 256 keys, else the key-tiled kernel (head dim 32 at
+// any nk, head dim 64 past 256). scale = head_dim^-0.5. Returns the
+// cudaError_t of the launch.
 extern "C" int peekvit_attn_softmax_fwd(const void* q, const void* k, const void* v, void* out,
                                         const void* kmask, int b, int nq, int nk, int d,
                                         int q_stride, int kv_stride, int num_heads, float scale,
                                         void* stream) {
   if (b == 0 || nq == 0) return 0;
-  if (nk == 0 || d != num_heads * HD || q_stride < d || kv_stride < d)
+  if (nk == 0 || num_heads <= 0 || d % num_heads != 0 || q_stride < d || kv_stride < d)
     return (int)cudaErrorInvalidValue;
+  const int head_dim = d / num_heads;
+  const int route = fwd_route(nk, head_dim);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
   const float* km = static_cast<const float*>(kmask);
-  if (nk <= WG_MAX_KEYS) {
-    const int nt = (nk + 15) / 16;
-    CUtensorMap qmap, kmap, vmap;
-    const uint64_t qdims[3] = {(uint64_t)d, (uint64_t)nq, (uint64_t)b};
-    const uint64_t qstr[2] = {(uint64_t)q_stride * 2, (uint64_t)q_stride * 2 * nq};
-    const uint64_t kdims[3] = {(uint64_t)d, (uint64_t)nk, (uint64_t)b};
-    const uint64_t kstr[2] = {(uint64_t)kv_stride * 2, (uint64_t)kv_stride * 2 * nk};
-    const uint32_t qbox[3] = {64, 64, 1}, kbox[3] = {64, (uint32_t)(16 * nt), 1};
-    if (!hopper::make_map_bf16(&qmap, q, 3, qdims, qstr, qbox) ||
-        !hopper::make_map_bf16(&kmap, k, 3, kdims, kstr, kbox) ||
-        !hopper::make_map_bf16(&vmap, v, 3, kdims, kstr, kbox))
-      return (int)cudaErrorInvalidValue;
-    const float sl2e = scale * 1.4426950408889634f;
-    return km ? dispatch_wgmma<true>(nt, qmap, kmap, vmap, o, km, b, nq, nk, d, num_heads, sl2e, st)
-              : dispatch_wgmma<false>(nt, qmap, kmap, vmap, o, km, b, nq, nk, d, num_heads, sl2e,
-                                      st);
-  }
-  const int npad = (nk + KT - 1) / KT * KT;
-  const int smem = (QT + 2 * npad) * STRIDE * 2 + (kmask ? npad * 4 : 0);
-  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  auto kernel = kmask ? attn_fwd_kernel<true> : attn_fwd_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((nq + QT - 1) / QT, num_heads, b);
-  kernel<<<grid, THREADS, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), o, km, nq, nk, d, q_stride, kv_stride, scale);
-  return (int)cudaGetLastError();
+  const __nv_bfloat16* qb = static_cast<const __nv_bfloat16*>(q);
+  const __nv_bfloat16* kb = static_cast<const __nv_bfloat16*>(k);
+  const __nv_bfloat16* vb = static_cast<const __nv_bfloat16*>(v);
+  if (route == 2)
+    return head_dim == 32
+               ? launch_tiled<32>(qb, kb, vb, o, km, b, nq, nk, d, q_stride, kv_stride, num_heads,
+                                  scale, st)
+               : launch_tiled<64>(qb, kb, vb, o, km, b, nq, nk, d, q_stride, kv_stride, num_heads,
+                                  scale, st);
+  if (route != 1) return (int)cudaErrorInvalidValue;
+  const int nt = (nk + 15) / 16;
+  CUtensorMap qmap, kmap, vmap;
+  const uint64_t qdims[3] = {(uint64_t)d, (uint64_t)nq, (uint64_t)b};
+  const uint64_t qstr[2] = {(uint64_t)q_stride * 2, (uint64_t)q_stride * 2 * nq};
+  const uint64_t kdims[3] = {(uint64_t)d, (uint64_t)nk, (uint64_t)b};
+  const uint64_t kstr[2] = {(uint64_t)kv_stride * 2, (uint64_t)kv_stride * 2 * nk};
+  const uint32_t qbox[3] = {64, 64, 1}, kbox[3] = {64, (uint32_t)(16 * nt), 1};
+  if (!hopper::make_map_bf16(&qmap, q, 3, qdims, qstr, qbox) ||
+      !hopper::make_map_bf16(&kmap, k, 3, kdims, kstr, kbox) ||
+      !hopper::make_map_bf16(&vmap, v, 3, kdims, kstr, kbox))
+    return (int)cudaErrorInvalidValue;
+  const float sl2e = scale * 1.4426950408889634f;
+  return km ? dispatch_wgmma<true>(nt, qmap, kmap, vmap, o, km, b, nq, nk, d, num_heads, sl2e, st)
+            : dispatch_wgmma<false>(nt, qmap, kmap, vmap, o, km, b, nq, nk, d, num_heads, sl2e,
+                                    st);
+}
+
+// Which kernel peekvit_attn_softmax_fwd runs at nk keys and this head dim,
+// with or without a key mask: 1 the wgmma kernel, 2 the key-tiled kernel,
+// -1 none (the head dim is neither 32 nor 64).
+extern "C" int peekvit_attn_softmax_fwd_route(int nk, int head_dim) {
+  return fwd_route(nk, head_dim);
 }

@@ -46,7 +46,7 @@ _SIGNATURES = {
     "attn_softmax_fwd": ("peekvit_attn_softmax_fwd",
                          [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]),
     "attn_softmax_bwd": ("peekvit_attn_softmax_bwd",
-                         [_P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P]),
+                         [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P]),
     "ln_bwd_rows": ("peekvit_ln_bwd_rows",
                     [_P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, ctypes.c_float,
                      _I, _P, _P, _P, _I, _P, _P]),
@@ -68,7 +68,8 @@ _SIGNATURES = {
 # point), and the attention's exhaustive check of its exp2 terms.
 _EXTRA = {
     "gemm_bias_epilogue": [("peekvit_gemm_bias_epilogue_plan", [_I, _I, _I, _P])],
-    "attn_softmax_bwd": [("peekvit_attn_softmax_bwd_route", [_I])],
+    "attn_softmax_fwd": [("peekvit_attn_softmax_fwd_route", [_I, _I])],
+    "attn_softmax_bwd": [("peekvit_attn_softmax_bwd_route", [_I, _I])],
     "attn_scores_pv": [("peekvit_attn_scores_pv_plan", [_I, _I, _I, _I, _P]),
                        ("peekvit_attn_scores_pv_ex2_check", [_P, _P])],
     "gemm_s8_epilogue": [("peekvit_gemm_s8_epilogue_plan", [_I, _I, _P])],

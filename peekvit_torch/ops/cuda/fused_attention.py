@@ -65,6 +65,7 @@ variant; :func:`reset_launch_counts` zeroes it.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -273,6 +274,9 @@ def _check_epilogue(epilogue, residual, mask):
     return needs_res, needs_mask
 
 
+GEMM_K_MULTIPLE, GEMM_N_MULTIPLE = 32, 8  # gemm_bias_epilogue.cu's K and N
+
+
 def _check_gemm(key, a, w, nt: bool):
     """(m, n, k) of a @ w (``nt``: a @ w^T) after the GEMM kernel's checks."""
     _require(a.dim() == 2 and w.dim() == 2 and a.shape[1] == w.shape[1 if nt else 0],
@@ -280,8 +284,8 @@ def _check_gemm(key, a, w, nt: bool):
              "do not chain")
     m, k = a.shape
     n = w.shape[0 if nt else 1]
-    _require(k % 32 == 0, f"{key}: K={k} must be a multiple of 32")
-    _require(n % 8 == 0, f"{key}: N={n} must be a multiple of 8")
+    _require(k % GEMM_K_MULTIPLE == 0, f"{key}: K={k} must be a multiple of {GEMM_K_MULTIPLE}")
+    _require(n % GEMM_N_MULTIPLE == 0, f"{key}: N={n} must be a multiple of {GEMM_N_MULTIPLE}")
     for name, t in (("a", a), ("w", w)):
         _check_bf16(f"{key} {name}", t)
     return m, n, k
@@ -659,10 +663,41 @@ def attn_scores_pv(qkv: torch.Tensor, num_heads: int, phantom_idx: int = -1,
 
 # ----------------------------------------------- the attention switch's kernels
 
-# attn_softmax_fwd.cu is built for head dim 64 and keeps one head's K and V
-# in shared memory up to 768 tokens.
-SOFTMAX_HEAD_DIM = 64
-SOFTMAX_MAX_TOKENS = 768
+# The head dims attn_softmax_fwd.cu and attn_softmax_bwd.cu are built for,
+# at any token count. Their C entry points choose the kernel by shape (the
+# wgmma kernels, the kept backward, or the key-tiled ones where those
+# stop); ``softmax_route`` asks them, and a call on a key-tiled kernel is
+# counted with ``.tiled`` appended to its key.
+SOFTMAX_HEAD_DIMS = (32, 64)
+_SOFTMAX_ROUTES = {1: "wgmma", 0: "kept", 2: "tiled"}
+
+
+@functools.lru_cache(maxsize=None)
+def softmax_route(head_dim: int, n: int, backward: bool = False) -> str:
+    """The kernel ``attn_softmax_fwd`` (``n`` keys, with or without a key
+    mask) or ``attn_softmax_bwd`` (``n`` tokens) runs at ``head_dim`` on
+    the card: ``"wgmma"``, ``"kept"`` (the backward only) or ``"tiled"``,
+    as its C entry point chooses it
+    (``peekvit_attn_softmax_{fwd,bwd}_route``). Needs the built library."""
+    _require(head_dim in SOFTMAX_HEAD_DIMS, f"attn_softmax: the kernels are built for head dims "
+             f"{SOFTMAX_HEAD_DIMS}, got {head_dim}")
+    name = "attn_softmax_bwd" if backward else "attn_softmax_fwd"
+    return _SOFTMAX_ROUTES[_build.extra(name)(n, head_dim)]
+
+
+def softmax_head_dim(key: str, d: int, num_heads: int) -> int:
+    """d // num_heads after the softmax kernels' head-dim check."""
+    hd = d // num_heads
+    _require(hd in SOFTMAX_HEAD_DIMS and d == num_heads * hd,
+             f"{key}: the kernel is built for head dims {SOFTMAX_HEAD_DIMS}, got D={d}, "
+             f"H={num_heads}")
+    return hd
+
+
+def softmax_key(key: str, head_dim: int, n: int, backward: bool = False) -> str:
+    """The launch key of a softmax kernel call: ``key``, plus ``.tiled``
+    where the shape takes the key-tiled kernel."""
+    return key + (".tiled" if softmax_route(head_dim, n, backward) == "tiled" else "")
 
 
 def _check_b15(key: str, t: torch.Tensor) -> None:
@@ -706,9 +741,10 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Pallas site 2 (``fused_attention``, :220): softmax(q k^T / sqrt(hd)) v
     per image and head over separate q, k, v (B, N, D) -> (B, N, D), the
     max-subtracted softmax normalised and rounded to the input dtype
-    before PV. On CUDA: ``attn_softmax_fwd``'s kernel on three pointers
-    (``attn_softmax_fwd.separate``), bf16, head dim 64, N <= 768; an fp32
-    input raises naming B15."""
+    before PV. On CUDA: ``attn_softmax_fwd``'s kernels on three pointers
+    (``attn_softmax_fwd.separate``), bf16, head dim 32 or 64, any N (the
+    key-tiled kernel, ``.separate.tiled``, at head dim 32 and past 256
+    tokens); an fp32 input raises naming B15."""
     if _on_cpu(q, k, v):
         return fused_attention_ref(q, k, v, num_heads)
     key = "attn_softmax_fwd.separate"
@@ -718,15 +754,12 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, n, d = q.shape
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_bf16(f"{key} {name}", t)
-    _require(d == num_heads * SOFTMAX_HEAD_DIM, f"{key}: the kernel is built for head dim "
-             f"{SOFTMAX_HEAD_DIM}, got D={d}, H={num_heads}")
-    _require(n <= SOFTMAX_MAX_TOKENS, f"{key}: N={n} tokens exceed the kernel's "
-             f"{SOFTMAX_MAX_TOKENS}")
+    hd = softmax_head_dim(key, d, num_heads)
     out = torch.empty((b, n, d), dtype=torch.bfloat16, device=q.device)
     err = _build.library("attn_softmax_fwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, b, n, n, d, d, d,
-        num_heads, SOFTMAX_HEAD_DIM ** -0.5, _stream())
-    _launched(key, err)
+        num_heads, hd ** -0.5, _stream())
+    _launched(softmax_key(key, hd, n), err)
     return out
 
 

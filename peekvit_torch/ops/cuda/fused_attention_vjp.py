@@ -55,8 +55,6 @@ import torch
 
 from peekvit_torch.ops.cuda import _build
 from peekvit_torch.ops.cuda.fused_attention import (
-    SOFTMAX_HEAD_DIM,
-    SOFTMAX_MAX_TOKENS,
     _check_bf16,
     _launched,
     _on_cpu,
@@ -72,10 +70,13 @@ from peekvit_torch.ops.cuda.fused_attention import (
     gemm_nt_ref,
     ln_rows,
     ln_rows_ref,
+    softmax_head_dim,
+    softmax_key,
+    softmax_route,
 )
 
-MAX_TOKENS_BWD = 384  # Q, K, V and dA of one head in shared memory
 ROWS_PER_PARTIAL = 64  # ln_bwd_rows writes one LN-grad partial per 64 rows
+LN_BWD_MAX_WIDTH = 1024  # ln_bwd_rows.cu holds a row in registers
 
 
 def _ln_f32(x, gamma, beta, eps):
@@ -119,31 +120,32 @@ def attn_softmax_fwd_ref(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     return fused_attention_ref(qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:], num_heads)
 
 
-def _check_qkv(key: str, qkv: torch.Tensor, num_heads: int, max_tokens: int):
+def _check_qkv(key: str, qkv: torch.Tensor, num_heads: int):
+    """(b, n, d, head dim) of packed qkv after the softmax kernels' checks."""
     _check_bf16(f"{key} qkv", qkv)
     _require(qkv.dim() == 3 and qkv.shape[-1] % 3 == 0, f"{key}: qkv must be (B, N, 3D)")
     b, n, three_d = qkv.shape
     d = three_d // 3
-    _require(d == num_heads * SOFTMAX_HEAD_DIM, f"{key}: the kernel is built for head dim "
-             f"{SOFTMAX_HEAD_DIM}, got D={d}, H={num_heads}")
-    _require(n <= max_tokens, f"{key}: N={n} tokens exceed the kernel's {max_tokens}")
-    return b, n, d
+    return b, n, d, softmax_head_dim(key, d, num_heads)
 
 
 def attn_softmax_fwd(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     """softmax(q k^T * hd^-0.5) v per image and head over packed qkv
     (B, N, 3D) -> (B, N, D), with the trainable block's numerics (max
     subtracted, normalised, rounded to bf16 before PV). On CUDA: bf16,
-    head dim 64, N <= 768."""
+    head dim 32 or 64, any N. Its C entry point chooses the kernel by
+    shape (``fused_attention.softmax_route``): at head dim 64 the wgmma
+    kernel up to 256 tokens, else the key-tiled kernel (counted as
+    ``attn_softmax_fwd.tiled``)."""
     if _on_cpu(qkv):
         return attn_softmax_fwd_ref(qkv, num_heads)
-    b, n, d = _check_qkv("attn_softmax_fwd", qkv, num_heads, SOFTMAX_MAX_TOKENS)
+    b, n, d, hd = _check_qkv("attn_softmax_fwd", qkv, num_heads)
     out = torch.empty((b, n, d), dtype=torch.bfloat16, device=qkv.device)
     base, step = qkv.data_ptr(), d * qkv.element_size()
     err = _build.library("attn_softmax_fwd")(
         base, base + step, base + 2 * step, out.data_ptr(), None, b, n, n, d, 3 * d, 3 * d,
-        num_heads, SOFTMAX_HEAD_DIM ** -0.5, _stream())
-    _launched("attn_softmax_fwd", err)
+        num_heads, hd ** -0.5, _stream())
+    _launched(softmax_key("attn_softmax_fwd", hd, n), err)
     return out
 
 
@@ -167,28 +169,37 @@ def attn_softmax_bwd_ref(qkv: torch.Tensor, dattn: torch.Tensor, num_heads: int)
     return torch.cat([_merge_heads(dq), _merge_heads(dk), _merge_heads(dv)], dim=-1)
 
 
-def attn_softmax_bwd_route(n: int) -> str:
+def attn_softmax_bwd_route(n: int, head_dim: int = 64) -> str:
     """Which kernel :func:`attn_softmax_bwd` runs at ``n`` tokens on the
-    card, chosen by shape inside its C entry point: ``"wgmma"`` (n <= 256)
-    or ``"kept"`` (the earlier kernel). For the record; needs the built
+    card, chosen by shape inside its C entry point: ``"wgmma"`` (head dim
+    64, n <= 256), ``"kept"`` (the earlier kernel, head dim 64, n <= 384)
+    or ``"tiled"`` (the key-tiled pair). For the record; needs the built
     library."""
-    return "wgmma" if _build.extra("attn_softmax_bwd")(n) else "kept"
+    return softmax_route(head_dim, n, backward=True)
 
 
 def attn_softmax_bwd(qkv: torch.Tensor, dattn: torch.Tensor, num_heads: int) -> torch.Tensor:
     """dqkv (B, N, 3D) in qkv's packed layout from qkv and the attention
-    output's cotangent dattn (B, N, D). On CUDA: bf16, head dim 64,
-    N <= 384."""
+    output's cotangent dattn (B, N, D). On CUDA: bf16, head dim 32 or 64,
+    any N. Its C entry point chooses the kernel by shape
+    (``fused_attention.softmax_route``): at head dim 64 the wgmma kernel up
+    to 256 tokens and the kept kernel up to 384, else the key-tiled pair
+    of launches (counted once, as ``attn_softmax_bwd.tiled``), which
+    passes each row's max, sum and D through a (3, B, H, N) fp32
+    workspace allocated here."""
     if _on_cpu(qkv, dattn):
         return attn_softmax_bwd_ref(qkv, dattn, num_heads)
-    b, n, d = _check_qkv("attn_softmax_bwd", qkv, num_heads, MAX_TOKENS_BWD)
+    b, n, d, hd = _check_qkv("attn_softmax_bwd", qkv, num_heads)
     _check_bf16("attn_softmax_bwd dattn", dattn)
     _require(dattn.shape == (b, n, d), f"attn_softmax_bwd: dattn must be {(b, n, d)}")
     dqkv = torch.empty((b, n, 3 * d), dtype=torch.bfloat16, device=qkv.device)
+    key = softmax_key("attn_softmax_bwd", hd, n, backward=True)
+    ws = (torch.empty((3, b, num_heads, n), dtype=torch.float32, device=qkv.device)
+          if key.endswith(".tiled") else None)
     err = _build.library("attn_softmax_bwd")(
-        qkv.data_ptr(), dattn.data_ptr(), dqkv.data_ptr(), b, n, d, num_heads,
-        SOFTMAX_HEAD_DIM ** -0.5, _stream())
-    _launched("attn_softmax_bwd", err)
+        qkv.data_ptr(), dattn.data_ptr(), dqkv.data_ptr(), None if ws is None else ws.data_ptr(),
+        b, n, d, num_heads, hd ** -0.5, _stream())
+    _launched(key, err)
     return dqkv
 
 
@@ -210,7 +221,8 @@ def _check_ln_bwd(key, x, dln, g, gamma):
     _require(x.dim() == 2 and dln.shape == x.shape and g.shape == x.shape,
              f"{key}: x, dln and g must be the same (R, D)")
     rows, d = x.shape
-    _require(d % 8 == 0 and d <= 1024, f"{key}: D={d} must be a multiple of 8, <= 1024")
+    _require(d % 8 == 0 and d <= LN_BWD_MAX_WIDTH,
+             f"{key}: D={d} must be a multiple of 8, <= {LN_BWD_MAX_WIDTH}")
     gamma = gamma.reshape(-1)
     _require(gamma.numel() == d, f"{key}: gamma must have {d} values")
     _check_bf16(f"{key} gamma", gamma)

@@ -78,8 +78,6 @@ import torch.nn.functional as F
 
 from peekvit_torch.ops.cuda import _build
 from peekvit_torch.ops.cuda.fused_attention import (
-    SOFTMAX_HEAD_DIM,
-    SOFTMAX_MAX_TOKENS,
     _check_b15,
     _check_bf16,
     _count,
@@ -97,6 +95,8 @@ from peekvit_torch.ops.cuda.fused_attention import (
     gemm_nt_ref,
     ln_rows,
     ln_rows_ref,
+    softmax_head_dim,
+    softmax_key,
 )
 from peekvit_torch.ops.cuda.fused_attention_vjp import (
     _ln_f32,
@@ -378,7 +378,7 @@ def layer_block_trainable(x, lns1, lnb1, w_qkv, b_qkv, w_out, b_out, lns2, lnb2,
     x: (B, N, D); kernels in the (in, out) layout, (D, 3D), (D, D), (D, M),
     (M, D). Seven launches forward, seventeen backward; the backward emits
     dx and all twelve parameter gradients. On CUDA every tensor is bf16,
-    head dim 64."""
+    head dim 32 or 64, any N."""
     return _LayerBlock.apply(_KERNELS, False, x, lns1, lnb1, w_qkv, b_qkv, w_out, b_out, lns2,
                              lnb2, w1, b1, w2, b2, num_heads, eps)
 
@@ -448,18 +448,17 @@ def attn_softmax_fwd_kmask(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     be a column slice of a wider buffer (the local qkv) and k, v of another
     (the gathered kv); k and v share one row stride. A row needs one
     attended key. On CUDA: ``attn_softmax_fwd``'s masked mode, bf16, head
-    dim 64, n_k <= 768, kmask fp32; counted as ``attn_softmax_fwd.kmask``."""
+    dim 32 or 64, any n_k, kmask fp32; counted as
+    ``attn_softmax_fwd.kmask``, or ``attn_softmax_fwd.kmask.tiled`` where
+    the shape takes the key-tiled kernel (head dim 32, or past 256 keys)."""
     if _on_cpu(q, k, v, kmask):
         return attn_softmax_fwd_kmask_ref(q, k, v, kmask, num_heads)
     key = "attn_softmax_fwd.kmask"
     b, nq, d = q.shape
     nk = k.shape[1]
-    _require(d == num_heads * SOFTMAX_HEAD_DIM, f"{key}: the kernel is built for head dim "
-             f"{SOFTMAX_HEAD_DIM}, got D={d}, H={num_heads}")
+    hd = softmax_head_dim(key, d, num_heads)
     _require(k.shape == (b, nk, d) and v.shape == (b, nk, d),
              f"{key}: k and v must be {(b, nk, d)}")
-    _require(nk <= SOFTMAX_MAX_TOKENS, f"{key}: n_k={nk} keys exceed the kernel's "
-             f"{SOFTMAX_MAX_TOKENS}")
     q_stride = _row_stride(key, "q", q, d)
     kv_stride = _row_stride(key, "k", k, d)
     _require(_row_stride(key, "v", v, d) == kv_stride, f"{key}: k and v must share a row stride")
@@ -468,8 +467,8 @@ def attn_softmax_fwd_kmask(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((b, nq, d), dtype=torch.bfloat16, device=q.device)
     err = _build.library("attn_softmax_fwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), kmask.data_ptr(), b, nq, nk,
-        d, q_stride, kv_stride, num_heads, SOFTMAX_HEAD_DIM ** -0.5, _stream())
-    _launched(key, err)
+        d, q_stride, kv_stride, num_heads, hd ** -0.5, _stream())
+    _launched(softmax_key(key, hd, nk), err)
     return out
 
 
@@ -529,7 +528,7 @@ def sp_tail_block(x, q, k, v, kmask, w_out, b_out, lns2, lnb2, w1, b1, w2, b2,
     D); k, v: (B, n_full, D); kmask: (B, n_full) fp32, 1 = attend. Weights
     in the (in, out) layout. Differentiable in every tensor but kmask. On
     the CPU the plain versions; on CUDA five kernel launches, every tensor
-    bf16 but kmask (fp32 raises naming B15), head dim 64, n_full <= 768."""
+    bf16 but kmask (fp32 raises naming B15), head dim 32 or 64, any n_full."""
     if not _on_cpu(x, q, k, v, kmask):
         _check_b15("sp_tail_block", x)
     return _SpTail.apply(_TAIL_KERNELS, x, q, k, v, kmask, w_out, b_out, lns2, lnb2, w1, b1,

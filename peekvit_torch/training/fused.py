@@ -13,6 +13,12 @@ in fp32.
 fp32 plain torch and their gradients flowing back through the block's
 mask cotangent.
 
+On the card the kernels take head dims 32 and 64 at any token count
+(``attn_softmax_fwd`` / ``_bwd`` take the key-tiled kernels past the
+wgmma kernels' 256 tokens), so every shipped training config runs here;
+``Trainer`` holds a model's shapes to the kernels' limits at
+construction (``training.trainer.fused_train_limit``).
+
 ``merged=True`` runs each layer through the merged layer VJP
 (``layer_block_trainable``, ops/cuda/fused_layer_vjp.py: the whole layer
 forward and backward on CUDA kernels, every weight gradient included) and

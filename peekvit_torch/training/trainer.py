@@ -24,6 +24,16 @@ conditions of trainer.py:278-308):
   ranks there; on the fused path a budget raises (it would be ignored),
   as in JAX (trainer.py:814-828).
 
+Which of the three runs is decided at construction from the model type
+(the JAX rule). A fused path then holds the shapes to one predicate,
+:func:`fused_train_limit`: on CUDA the fused paths' kernels take head
+dims 32 and 64 at any token count, GEMM widths that are multiples of 32
+and rows of at most 1024 for the LN backward. Every shipped training
+config holds them. Where a CUDA model breaks one, ``fused="auto"`` and
+``fused=True`` raise at construction, naming the limit; ``fused=False``
+takes the module path. On the CPU the plain versions take any shape and
+the predicate always holds.
+
 - **sp** (``sequence_parallel_devices=S`` > 1, a plain ViT or a RankViT,
   the JAX ``_build_sp_train_step``, trainer.py:582-676): the token axis
   sharded over the mesh's model axis, one rank per process
@@ -66,7 +76,12 @@ from peekvit_torch.models.rankvit import RankVisionTransformer
 from peekvit_torch.models.registry import resolve_device
 from peekvit_torch.models.residualvit import DROPOUT_ITEM, ResidualVisionTransformer
 from peekvit_torch.models.vit import VisionTransformer
-from peekvit_torch.ops.cuda.fused_attention import SOFTMAX_HEAD_DIM, SOFTMAX_MAX_TOKENS
+from peekvit_torch.ops.cuda.fused_attention import (
+    GEMM_K_MULTIPLE,
+    GEMM_N_MULTIPLE,
+    SOFTMAX_HEAD_DIMS,
+)
+from peekvit_torch.ops.cuda.fused_attention_vjp import LN_BWD_MAX_WIDTH
 from peekvit_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, make_mesh
 from peekvit_torch.parallel.sequence import sequence_parallel_vit_forward
 from peekvit_torch.training.fused import (
@@ -117,6 +132,30 @@ def _main_logits(out, output_format: Optional[str]):
     if output_format in ("logits_recon_mask", "logits_recon"):
         return out[0]
     return out
+
+
+def fused_train_limit(hidden_dim: int, num_heads: int, mlp_dim: int, device) -> Optional[str]:
+    """The first limit of the fused train paths' CUDA kernels (the split,
+    merged and SP-tail steps) that these widths break on ``device``, or
+    None where every kernel takes them. On the CPU the plain versions take
+    any shape: always None. Limits on CUDA: a head dim of 32 or 64
+    (``attn_softmax_fwd`` / ``_bwd``, at any token count); every GEMM's K a
+    multiple of 32 and N of 8 (``gemm_bias_epilogue``: K and N are d, 3 d
+    and mlp_dim); rows of at most 1024 values, a multiple of 8, for the LN
+    backward (``ln_bwd_rows``)."""
+    if torch.device(device).type != "cuda":
+        return None
+    d, h, m = hidden_dim, num_heads, mlp_dim
+    if d % h or d // h not in SOFTMAX_HEAD_DIMS:
+        return (f"head dim {d / h:g} (hidden_dim {d} over {h} heads): the attention kernels "
+                f"take head dims {SOFTMAX_HEAD_DIMS}")
+    for name, width in (("hidden_dim", d), ("mlp_dim", m)):
+        if width % GEMM_K_MULTIPLE or width % GEMM_N_MULTIPLE:
+            return (f"{name} {width}: the GEMM kernel takes K a multiple of {GEMM_K_MULTIPLE} "
+                    f"and N a multiple of {GEMM_N_MULTIPLE}")
+    if d > LN_BWD_MAX_WIDTH:
+        return f"hidden_dim {d}: the LN backward kernel takes rows of at most {LN_BWD_MAX_WIDTH}"
+    return None
 
 
 # field -> (value that means "unused", ROADMAP.md port queue A item);
@@ -193,6 +232,10 @@ class Trainer:
                 f"training with dropout is not ported yet ({DROPOUT_ITEM}): "
                 "build the model with dropout=0.0 and attention_dropout=0.0")
         self.device = resolve_device(self.device)
+        self.output_format = getattr(self.model, "output_format", None)
+        # the fused path, decided here from the model and its shapes, before
+        # anything moves (raises outside the kernels' limits)
+        self._fused_path = None if sp else self._fused_kind()
         self.model.to(self.device)
         if self.main_criterion is None:
             self.main_criterion = CrossEntropyLoss()
@@ -201,7 +244,6 @@ class Trainer:
         self.torch_optimizer = self.optimizer.build(self.params, param_mask=mask)
         self.tx = GradientTransform(self.torch_optimizer, [p for _, p in tree_leaves(self.params)],
                                     self.clip_grad_norm, self.grad_accumulation)
-        self.output_format = getattr(self.model, "output_format", None)
         self._forward = None
         self._train_kind = None
         self._sp_world = 1
@@ -211,7 +253,21 @@ class Trainer:
 
     def _fused_kind(self):
         """'vit' | 'residual' | None: which fused train path applies, under
-        the JAX conditions (trainer.py:278-308)."""
+        the JAX conditions (trainer.py:278-308); a fused path raises where
+        the shapes break the kernels' limits (:func:`fused_train_limit`)."""
+        kind = self._jax_fused_kind()
+        if kind is None:
+            return None
+        model = self.model
+        limit = fused_train_limit(model.hidden_dim, model.num_heads, model.mlp_dim, self.device)
+        if limit is not None:
+            raise ValueError(f"Trainer(fused={self.fused!r}): the fused {kind} train path's CUDA "
+                             f"kernels do not take {limit}; fused=False trains this model on "
+                             "the module path")
+        return kind
+
+    def _jax_fused_kind(self):
+        """The JAX rule alone (trainer.py:278-308), from the model type."""
         model = self.model
         if self.fused in (False, "never"):
             return None
@@ -239,7 +295,7 @@ class Trainer:
         if (self.sequence_parallel_devices or 0) > 1:
             self._train_kind = "sp"
             return self._build_sp_forward()
-        kind = self._fused_kind()
+        kind = self._fused_path
         if self.remat and kind != "vit":
             raise NotImplementedError(
                 "remat=True is a fused plain-ViT train-path knob (per-layer checkpoint in "
@@ -262,18 +318,16 @@ class Trainer:
 
     def _sp_kernels(self, model, s: int) -> str:
         """``parallel_kernels`` resolved: ``"auto"`` takes the tail kernel
-        (``"pallas"``) on a CUDA device where its limits hold (head dim 64,
-        the padded sequence at most 768 keys), ``"xla"`` otherwise (so
-        always on the CPU), decided from the shapes up front. JAX's rule
-        (``_train_layer_fusable``, training/fused.py:26: the weights and
-        gradient accumulators fit VMEM, TPU only) is a TPU layout artefact;
-        both rules pick the tail kernel at ViT-B/16."""
+        (``"pallas"``) on a CUDA device where the fused path's limits hold
+        (:func:`fused_train_limit`), ``"xla"`` otherwise (so always on the
+        CPU), decided from the shapes up front.
+        JAX's rule (``_train_layer_fusable``, training/fused.py:26: the
+        weights and gradient accumulators fit VMEM, TPU only) is a TPU
+        layout artefact; both rules pick the tail kernel at ViT-B/16."""
         if self.parallel_kernels != "auto":
             return self.parallel_kernels
-        n = model.encoder.pos_embedding.shape[1]
-        n_pad = -(-n // s) * s
-        fits = (model.hidden_dim == model.num_heads * SOFTMAX_HEAD_DIM
-                and n_pad <= SOFTMAX_MAX_TOKENS)
+        fits = fused_train_limit(model.hidden_dim, model.num_heads, model.mlp_dim,
+                                 self.device) is None
         return "pallas" if self.device.type == "cuda" and fits else "xla"
 
     def _build_sp_forward(self):

@@ -44,9 +44,12 @@ for the comparison. ``attn_softmax_bwd.kept`` (300 tokens, the kernel
 kept past 256) is not redesigned and must keep its bits.
 
 A mode in RETIMED belongs to a kernel rewritten with its bits kept
-(``norm_rows.cu`` in every mode, ``arpe_tokens``): it is held bit for bit
-like any other, and a third child times it at its shapes (ViT-B/16,
-ResidualViT-B/16 N = 198 and 107, A-ViT-S/16, PCT) in one process with
+(``norm_rows.cu`` in every mode, ``arpe_tokens``, and ``attn_softmax_fwd``,
+whose key-tiled kernel took the place of the two-pass one from 257 to 768
+keys): it is held bit for bit like any other, and a third child times it
+at its shapes (ViT-B/16, ResidualViT-B/16 N = 198 and 107, A-ViT-S/16,
+PCT; the packed forward at bs128, d 256, 4 heads, N = 402 and 768) in one
+process with
 the other checkout's library of its kernel and with this one's, in turns
 (other, this, this, other), each from a CUDA graph of 20 launches, so the
 wrapper's Python between launches is not timed; those C entry points are
@@ -72,6 +75,16 @@ products), ``ln_bwd_rows`` (bf16 and fp32 g, masked, fp32 y),
 (its six epilogues) and ``arpe_tokens``, at ViT-B/16 bs256 shapes and at
 a small ragged shape. A mode only this checkout has is reported as new
 and must launch; it is held against its plain version by chip_smoke.py.
+
+The trainable attention's route edges (``_softmax_modes``, at width 256):
+``attn_softmax_fwd`` (packed and separate), ``attn_softmax_bwd`` and the
+key-masked forward at head dim 64 where a build without the key-tiled
+kernels takes its routes (1-768 tokens; 704 keys masked), bit for bit;
+and, in a build with the
+key-tiled kernels, the shapes only it takes (head dim 32 at 1-1,024
+tokens, head dim 64 past the kept kernels' reach, the masked mode at 402,
+705 and 1,024 keys): new modes, each held against its plain version
+within NEW_PLAIN_TOL (2e-2 of max|plain|: bf16 P and outputs).
 """
 
 from __future__ import annotations
@@ -91,12 +104,15 @@ REDESIGNED = {"attn_softmax_bwd": {"torch.bfloat16": 2e-2},
               "gemm_bias_epilogue": _GEMM_TOL, "gemm_nt": _GEMM_TOL,
               "attn_scores_pv": {"torch.bfloat16": 2e-2},
               "gemm_s8_epilogue": {"torch.bfloat16": 2.0 ** -7, "torch.float32": 2.0 ** -20}}
-KEPT = ("attn_softmax_bwd.kept",)  # modes under a redesigned prefix that keep their bits
+# modes under a redesigned prefix that keep their bits (the earlier backward
+# kernel, past 256 tokens)
+KEPT = ("attn_softmax_bwd.kept", "attn_softmax_bwd.hd64.N257", "attn_softmax_bwd.hd64.N384")
 # rewritten kernels that must keep their bits: held bit for bit like every
 # other mode, and timed with both builds' libraries in one process (their C
 # entry points are unchanged): mode prefix -> source
-RETIMED = {"norm_rows": "norm_rows", "ln_rows": "norm_rows", "arpe_tokens": "arpe_tokens"}
-TIMED_TAGS = ("vit_b16_bs256", "pct_bs128", "residual_bs256", "avit_bs256")
+RETIMED = {"norm_rows": "norm_rows", "ln_rows": "norm_rows", "arpe_tokens": "arpe_tokens",
+           "attn_softmax_fwd": "attn_softmax_fwd"}
+TIMED_TAGS = ("vit_b16_bs256", "pct_bs128", "residual_bs256", "avit_bs256", "attn_bs128")
 # the edges: attn_scores_pv at these token counts (head dim 64 and 32), the
 # s8 GEMM at these (M, N, K)
 EDGE_TOKENS = (1, 17, 64, 65, 148, 208, 257, 786)
@@ -106,6 +122,23 @@ EDGE_GEMMS = ((1, 8, 16), (129, 136, 144), (300, 264, 784))
 NORM_EDGE_WIDTHS = (128, 200, 384, 768, 1024, 1280)
 NORM_EDGE_ROWS = (1, 7, 27392, 50688)
 ARPE_EDGES = ((1, (1,)), (33, (1, 16, 33)), (1000, (1, 16, 64, 1000)), (1024, (1, 16, 64, 1024)))
+# the trainable attention (attn_softmax_fwd.cu / attn_softmax_bwd.cu) at head
+# dim 64 where a build without the key-tiled kernels takes its routes (wgmma
+# up to 256, the two-pass forward to 768 keys, 704 with a key mask, the
+# earlier backward to 384): the key-tiled forward took the two-pass
+# forward's place and must give its bits; and the shapes only a build with
+# the key-tiled kernels takes (head dim 32 at any N, head dim 64 past those),
+# held against their plain versions at NEW_PLAIN_TOL (bf16 P and outputs)
+# instead
+SOFTMAX_KEPT_EDGES = {"fwd": (1, 17, 256, 257, 704, 768), "bwd": (1, 17, 256, 257, 384),
+                      "kmask": ((99, 198), (130, 260), (300, 704))}
+# the packed forward at ResidualViT's width (d 256, 4 heads) and bs128, at
+# its 160 px token count and at the two-pass forward's last: bit for bit
+# and timed with both builds' libraries (RETIMED, tag "attn_bs128")
+SOFTMAX_TIMED_TOKENS = (402, 768)
+SOFTMAX_TILED_EDGES = {32: (1, 17, 401, 785, 1024), 64: (385, 402, 769, 786, 1024)}
+SOFTMAX_TILED_KMASK = ((32, 201, 402), (64, 300, 705), (64, 512, 1024))
+NEW_PLAIN_TOL = 2e-2
 # name -> (images, tokens, width, heads, mlp width)
 SHAPES = {"vit_b16_bs256": (256, 197, 768, 12, 3072), "ragged": (3, 50, 128, 2, 256)}
 EPS = 1e-6
@@ -318,13 +351,21 @@ def child(root: str) -> dict:
                 torch.save([t.cpu() for t in got], _saved(root, mode))
                 if tag in TIMED_TAGS:
                     out[mode]["ms"] = _cuda_ms(torch, fn)
-    for mode, fn in _extra_modes(torch, dev, fa, tq, pe).items():
+    extra = _extra_modes(torch, dev, fa, tq, pe)
+    softmax = _softmax_modes(torch, dev, fa, vjp, lv)
+    for mode, fn in {**extra, **{m: fn for m, (fn, _) in softmax.items()}}.items():
         fa.reset_launch_counts()
         with torch.inference_mode():
             got = fn()
         torch.cuda.synchronize()
         got = tuple(got if isinstance(got, tuple) else (got,))
         out[mode] = {"sha256": [_digest(t) for t in got], "launches": dict(fa.LAUNCHES)}
+        ref = softmax.get(mode, (None, None))[1]
+        if ref is not None:  # a shape only this build takes: its plain version is the yardstick
+            with torch.inference_mode():
+                want = ref()
+            out[mode]["plain_rel"] = ((got[0].float() - want.float()).abs().max()
+                                      / want.float().abs().max().clamp_min(1e-30)).item()
         if _redesigned(mode) is not None:
             torch.save([t.cpu() for t in got], _saved(root, mode))
             if mode.split("/")[0] in TIMED_TAGS:
@@ -363,8 +404,14 @@ def child_ab(root: str, other: str) -> dict:
         fn = getattr(ctypes.CDLL(other_build._target(src)), symbol)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
         libs[src] = {"this": _build.library(src), "other": fn}
+    from peekvit_torch.ops.cuda import fused_attention_vjp as vjp
+    from peekvit_torch.ops.cuda import fused_layer_vjp as lv
+
+    dev = torch.device("cuda")
+    modes = _extra_modes(torch, dev, fa, tq, pe)
+    modes.update({m: fn for m, (fn, _) in _softmax_modes(torch, dev, fa, vjp, lv).items()})
     out = {}
-    for mode, fn in _extra_modes(torch, torch.device("cuda"), fa, tq, pe).items():
+    for mode, fn in modes.items():
         src = _retimed(mode)
         if src is None:
             continue
@@ -495,6 +542,74 @@ def _extra_modes(torch, dev, fa, tq, pe) -> dict:
     return modes
 
 
+def _softmax_modes(torch, dev, fa, vjp, lv) -> dict:
+    """The trainable attention at its route edges, 2 images at width 256:
+    attn_softmax_fwd (packed, separate), attn_softmax_bwd and the masked
+    mode at SOFTMAX_KEPT_EDGES (head dim 64, 4 heads; both builds), the
+    packed forward at SOFTMAX_TIMED_TOKENS (128 images; both builds), and,
+    where this build has the key-tiled kernels (``fa.softmax_route``), at
+    SOFTMAX_TILED_EDGES and SOFTMAX_TILED_KMASK with each mode's plain
+    version. {mode: (fn, plain fn or None)}."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    bf16 = torch.bfloat16
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf16)
+
+    def kmask_for(nk):
+        km = (torch.rand(2, nk, generator=gen, device=dev) > 0.5).float()
+        km[:, 0] = 1.0
+        km[1, :min(64, nk - 1)] = 0.0  # a whole key tile excluded
+        km[1, nk - 1] = 1.0
+        return km
+
+    modes = {}
+
+    def attn_modes(hd, n, which, plain):
+        heads = 256 // hd
+        qkv, da = randn(2, n, 768), randn(2, n, 256, scale=0.05)
+        q, k, v = (qkv[..., i * 256:(i + 1) * 256].contiguous() for i in range(3))
+        tag = f"edges/attn_softmax_{{}}.hd{hd}.N{n}"
+        if "fwd" in which:
+            modes[tag.format("fwd")] = (lambda: vjp.attn_softmax_fwd(qkv, heads),
+                                        (lambda: vjp.attn_softmax_fwd_ref(qkv, heads))
+                                        if plain else None)
+            modes[tag.format("fwd.separate")] = (
+                lambda: fa.fused_attention(q, k, v, heads),
+                (lambda: fa.fused_attention_ref(q, k, v, heads)) if plain else None)
+        if "bwd" in which:
+            modes[tag.format("bwd")] = (lambda: vjp.attn_softmax_bwd(qkv, da, heads),
+                                        (lambda: vjp.attn_softmax_bwd_ref(qkv, da, heads))
+                                        if plain else None)
+
+    def kmask_mode(hd, nq, nk, plain):
+        heads = 256 // hd
+        q, kv, km = randn(2, nq, 768)[..., :256], randn(2, nk, 512), kmask_for(nk)
+        modes[f"edges/attn_softmax_fwd.kmask.hd{hd}.{nq}x{nk}"] = (
+            lambda: lv.attn_softmax_fwd_kmask(q, kv[..., :256], kv[..., 256:], km, heads),
+            (lambda: lv.attn_softmax_fwd_kmask_ref(q, kv[..., :256], kv[..., 256:], km, heads))
+            if plain else None)
+
+    for n in sorted(set(SOFTMAX_KEPT_EDGES["fwd"]) | set(SOFTMAX_KEPT_EDGES["bwd"])):
+        which = [w for w in ("fwd", "bwd") if n in SOFTMAX_KEPT_EDGES[w]]
+        attn_modes(64, n, which, plain=False)
+    for nq, nk in SOFTMAX_KEPT_EDGES["kmask"]:
+        kmask_mode(64, nq, nk, plain=False)
+    for n in SOFTMAX_TIMED_TOKENS:
+        qkv_t = randn(128, n, 768)
+        modes[f"attn_bs128/attn_softmax_fwd.hd64.N{n}"] = (
+            lambda qkv_t=qkv_t: vjp.attn_softmax_fwd(qkv_t, 4), None)
+    if hasattr(fa, "softmax_route"):  # a build with the key-tiled kernels
+        for hd, tokens in SOFTMAX_TILED_EDGES.items():
+            for n in tokens:
+                which = [w for w in ("fwd", "bwd")
+                         if fa.softmax_route(hd, n, backward=w == "bwd") == "tiled"]
+                attn_modes(hd, n, which, plain=True)
+        for hd, nq, nk in SOFTMAX_TILED_KMASK:
+            kmask_mode(hd, nq, nk, plain=True)
+    return modes
+
+
 def _saved(root: str, mode: str) -> str:
     folder = os.path.join(root, "build", "bit_identity")
     os.makedirs(folder, exist_ok=True)
@@ -551,8 +666,11 @@ def main() -> int:
         other = runs["other"].get(mode)
         if other is None:  # a mode this checkout adds: nothing to compare with
             new.append(mode)
-            print(json.dumps({"mode": mode, "new_in_this": True, "launches": this["launches"]}))
-            if not sum(this["launches"].values()):
+            plain = this.get("plain_rel")
+            print(json.dumps({"mode": mode, "new_in_this": True, "launches": this["launches"],
+                              "max_rel_diff_vs_plain": plain, "tolerance_rel": NEW_PLAIN_TOL}))
+            if not sum(this["launches"].values()) or (plain is not None
+                                                        and not plain <= NEW_PLAIN_TOL):
                 failed.append(mode)
             continue
         same = this["sha256"] == other["sha256"]

@@ -389,8 +389,9 @@ def test_sp_guards():
     with pytest.raises(ValueError, match="kernels must be"):
         sequence_parallel_vit_forward({}, torch.zeros(1, 16, 16, 3), num_heads=2, patch_size=8,
                                       mesh=_fake_mesh(), kernels="cuda")
-    # "auto" resolves from the shapes: the tail kernel needs head dim 64 and
-    # at most 768 padded keys, and a CUDA device
+    # "auto" resolves from the shapes: the tail kernel needs head dim 32 or
+    # 64 (at any number of padded keys: the key-tiled kernel past the kept
+    # one's 704 masked keys), and a CUDA device
     trainer = Trainer(model=vit, sequence_parallel_devices=2, **base)
     assert trainer._sp_kernels(vit, 2) == "xla"
     trainer.device = torch.device("cuda")
@@ -398,4 +399,4 @@ def test_sp_guards():
     assert trainer._sp_kernels(b16, 2) == "pallas"
     assert trainer._sp_kernels(vit, 2) == "xla"  # head dim 16
     big = build_model("vit", dict(VIT, hidden_dim=128, image_size=224), device="cpu")  # N 785
-    assert trainer._sp_kernels(big, 2) == "xla"
+    assert trainer._sp_kernels(big, 2) == "pallas"
