@@ -248,8 +248,9 @@ prints no final result):
    (none may spill);
 38. the training attention at every shipped shape (see
    tiled_kernel_checks): attn_softmax_fwd (packed, separate, kmask) and
-   attn_softmax_bwd at head dims 32 and 64 at every route and tile edge
-   (1-1024 tokens) against their plain versions, each call's launch key
+   attn_softmax_bwd at head dims 32 and 64 at every route, stage, ring and
+   query-tile edge (1-1024 tokens) against their plain versions, each
+   call's launch key
    and the C entry points' routes against the documented reach, the
    backward rerun bit-identical; ptxas of both sources (none may spill);
 39. the shipped training configs (vit_tiny, rankvit, residualvit at full
@@ -262,7 +263,9 @@ prints no final result):
    step beside the module path's; at 224 px (785 / 786 tokens) one
    counted step each and the gradients at bs32;
 40. the key-tiled kernels' times at the Trainer's shapes beside their
-   bounds, plain versions and SDPA (see tiled_timing);
+   bounds, plain versions and SDPA, and the tiled backward at head dim
+   64 one token past the kept backward's reach beside it (see
+   tiled_timing);
 41. the {"kernels": [...]} line, then the card's nvidia-smi line, then
    {"ok": true, "device": {...}} as the last line.
 
@@ -4985,11 +4988,18 @@ def arpe_norm_build_checks(smi, build_info) -> None:
 TILED_WIDTHS = ((32, 256, 8), (64, 256, 4))
 # every route and tile edge of attn_softmax_fwd / _bwd at both head dims:
 # the wgmma kernels stop at 256 and the kept backward at 384; 704 and 768
-# fill whole 64-key tiles, 705 and 769 one key past them; 401 / 402 and
-# 785 / 786 are the shipped models at 160 and 224 px
-TILED_EDGE_TOKENS = (1, 17, 64, 65, 256, 257, 384, 385, 401, 402, 704, 705, 768, 769, 785, 786,
-                     1024)
-TILED_KMASK_EDGES = ((201, 402), (300, 705), (512, 1024))  # n_q, n_k
+# fill whole 64-key stages, 705 and 769 one key past them; 401 / 402 and
+# 785 / 786 are the shipped models at 160 and 224 px. The key-tiled
+# kernels' CTA takes 128 rows in two warpgroups of 64 (127-129: a full
+# CTA, then a next CTA of one row; 192 / 193: its second warpgroup full,
+# then one row past it) and streams 64-row stages through a ring of four
+# slots (256 / 257 and 512 / 513: the ring's first and second wrap, one
+# stage past each; 448 / 449 the same stage edge past the kept backward)
+TILED_EDGE_TOKENS = (1, 17, 64, 65, 127, 128, 129, 192, 193, 255, 256, 257, 384, 385, 401, 402,
+                     448, 449, 512, 513, 704, 705, 768, 769, 785, 786, 1024)
+# n_q, n_k: two CTAs' query rows and one stage past the ring's first wrap,
+# then the shipped SP tail's shapes
+TILED_KMASK_EDGES = ((64, 129), (129, 257), (201, 402), (300, 705), (512, 1024))
 # configs/model/{vit_tiny,rankvit,residualvit}.yaml at
 # configs/dataset/imagenette.yaml (160 px, 10 classes); full width and depth
 SHIPPED_WIDTHS = dict(patch_size=8, hidden_dim=256, mlp_dim=768, num_layers=4, num_classes=10)
@@ -5294,8 +5304,9 @@ def tiled_timing(torch, F, fa, vjp, lv, smi, check, checks, randn, shipped) -> l
     launches replayed from one CUDA graph). Bound = max(bytes: each input
     read once, each output written once, over 3.35 TB/s; the products'
     flops over the bf16 peak); beside it ``exp_ms``, the kernel's own
-    exponentials at the SFU's rate (forward: two sweeps, backward: four).
-    Returns the kernels-line entries."""
+    exponentials at the SFU's rate (forward: two sweeps, backward: three).
+    Then the tiled backward at head dim 64, bs128, N 385 beside the kept
+    backward at 384 (device ms). Returns the kernels-line entries."""
     bf = 2
     entries = []
 
@@ -5368,7 +5379,7 @@ def tiled_timing(torch, F, fa, vjp, lv, smi, check, checks, randn, shipped) -> l
             row(name, shape, tag, lambda: vjp.attn_softmax_bwd(qkv, da, heads),
                 lambda: vjp.attn_softmax_bwd_ref(qkv, da, heads),
                 lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True),
-                10.0 * logits * hd, b * n * (3 * d + d + 3 * d) * bf, 4.0 * logits, count_key,
+                10.0 * logits * hd, b * n * (3 * d + d + 3 * d) * bf, 3.0 * logits, count_key,
                 bwd_replaces, "shipped_train", runs)
             del leaves, out, dout
         del qkv, da
@@ -5413,6 +5424,18 @@ def tiled_timing(torch, F, fa, vjp, lv, smi, check, checks, randn, shipped) -> l
         2.0 * heads * nq * b * nk, "attn_softmax_fwd.kmask.tiled",
         f"{REPLACES_LAYER}:560 (site 12, the attention of _sp_tail_math :478-514)", "sp",
         vit_runs)
+    # the tiled backward one token past the kept backward's reach, beside it
+    # (head dim 64, bs128, 4 heads): whether the tiled pair could take over
+    # 256 < N <= 384
+    beside = {}
+    for n in (384, 385):
+        qkv, da = randn(SHIPPED_BATCH, n, 768), randn(SHIPPED_BATCH, n, 256, scale=0.05)
+        with torch.inference_mode():
+            dev_ms = graph_ms(torch, lambda: vjp.attn_softmax_bwd(qkv, da, 4))
+        beside[f"N{n}"] = {"route": vjp.attn_softmax_bwd_route(n, 64), "device_ms": dev_ms}
+        del qkv, da
+    emit({"phase": "timing_tiled_vs_kept", "shape": f"bs{SHIPPED_BATCH}.hd64.h4", **beside,
+          "card": smi})
     return entries
 
 

@@ -94,25 +94,53 @@
 //
 // Every other shape takes the key-tiled pair (a template on the head dim,
 // 32 or 64): head dim 32 at any N (ViT-Ti at 160 px: 401 tokens) and head
-// dim 64 past 384 (ResidualViT at 160 px: 402). It is the kernel above
-// with its operands streamed, in two launches and no atomics, so every run
-// gives the same bits:
-//   attn_tiled_bwd_q_kernel, grid (64-row query tile, head, image), four
-//   warps of 16 query rows: phase A with K and V streamed in 64-key tiles
-//   through two shared buffers each (cp.async, the next tile in flight).
-//   Three sweeps over the keys: the rows' max and sum, D = rowsum(dS * P),
-//   dQ. It stores dQ and each row's max, sum and D, fp32, in a (3, B, H,
-//   N) workspace the wrapper allocates.
-//   attn_tiled_bwd_kv_kernel, grid (64-row key tile, head, image): phase B
-//   with Q, dA and those statistics streamed in 64-query tiles; dK and dV
-//   sum over the query chunks in order.
-// The statistics are stored as the max, the sum and D (not 1/sum), so P
-// is expf(logit * scale - max) / sum in both launches, as in the kernel
-// above and the forward. Keys past N have logit -inf in phase A (only the
-// last chunk can hold any) and their rows of dK and dV are never stored;
-// queries past N get P = dZ = 0 in phase B.
+// dim 64 past 384 (ResidualViT at 160 px: 402). Two launches, no atomics,
+// so every run gives the same bits. Each is a CTA of 512 threads: three
+// consumer warpgroups of 64 rows and a producer warpgroup whose first
+// thread (or warp) streams 64-row stages by TMA (3-D tensor maps over
+// (column, token, image); 128-byte swizzle at head dim 64, 64-byte at 32)
+// through a ring of four slots,
+// each with a `full` and an `empty` mbarrier, so the three warpgroups
+// share every stage and nothing waits on a CTA-wide barrier. The producer
+// warpgroup gives back registers by setmaxnreg (32 a thread) and the
+// consumers take them (160), which holds the products, the statistics and
+// the operands of a stage without a spill at 12 consumer warps an SM (one
+// CTA an SM; with a producer warp and two consumer warpgroups, 8):
+//   attn_tiled_bwd_q_kernel, grid (three 64-row query tiles, head,
+//   image): Q and dA resident (register A operands), K and V streamed in
+//   two sweeps of 64-key stages. Sweep 1: S = Q K^T and dS = dA V^T by
+//   wgmma; the online row max, sum and D numerator sum(e * dS), the last
+//   two rescaled together as the max grows; then D = numerator * (1 /
+//   sum).
+//   Sweep 2: S and dS again, P and bf16(P * (dS - D) * scale) as the
+//   register A operand of dQ += dZ K (K MN-major), which completes under
+//   the next stage's wait. It stores dQ and each row's -max * scale *
+//   log2(e), 1 / sum and D, fp32, in the (3, B, H, N) workspace the
+//   wrapper allocates.
+//   attn_tiled_bwd_kv_kernel, grid (three 64-row key tiles, head, image):
+//   K and V resident (register A operands at head dim 32; at 64 read from
+//   their tiles, which keeps the kernel free of spills), Q and dA streamed
+//   in 64-query stages beside their rows' statistics (copied into the slot
+//   by the producer's first warp). S^T = K Q^T and dS^T = V dA^T; bf16(P^T)
+//   and bf16(dZ^T * scale) the register A operands of dV += P^T dA and dK
+//   += dZ^T Q (dA and Q MN-major). dK and dV sum over the stages in order.
+// So S is computed three times and dS three times, with dQ, dK and dV
+// nine products a logit (the contract needs five), and three
+// exponentials a logit.
+// Numerics decisions (stated also in PERF.md): P is ex2(logit * scale
+// log2(e) - max * scale log2(e)) * (1 / sum), the same operations in both
+// launches (ex2 the SFU's exp2 alone, exp2f's result wherever that is a
+// normal float, a term below 2^-126 flushed to 0; one IEEE reciprocal a
+// row); D is taken online, sum(e dS) rescaled with the sum and divided by
+// it once (an fp32 reassociation of rowsum(dS * P): within a few ulps).
+// Keys past N have logit -inf in launch 1 (the last stage only); queries
+// past N get -max 0, 1 / sum 0 and D 0 in launch 2, and their Q and dA
+// rows load as zeros, so their P and dZ are 0. 116-119 KB of shared
+// memory at head dim 64 (58-61 at 32): one CTA an SM.
 // Bound at ResidualViT bs128 (N = 402, head dim 64, 4 heads): ~184 MB
-// (0.055 ms) against ~5.3e10 flops (0.054 ms).
+// (0.055 ms) against ~5.3e10 flops (0.054 ms); at ViT-Ti bs128 (N = 401,
+// head dim 32, 8 heads) the three exponentials a logit take 0.118 ms at the
+// SFU's rate.
 //
 // The choice between the three is by shape (peekvit_attn_softmax_bwd_route),
 // never a fallback on error.
@@ -902,361 +930,475 @@ int launch_wgmma(const CUtensorMap& qm, const CUtensorMap& dm, __nv_bfloat16* dq
 // --------------------------------------------------- the key-tiled kernels
 
 constexpr int KEPT_MAX_TOKENS = 384;  // the kernel above: Q, K, V, dA whole in shared memory
-constexpr int TL = 64;                // rows of a CTA and of a streamed tile
-constexpr int TL_THREADS = 128;       // four warps of 16 rows
+constexpr int TL = 64;                // rows of a warpgroup's tile and of a streamed stage
+constexpr int TL_STAGES = 4;          // stages of the ring
+constexpr int TL_NWG = 3;             // consumer warpgroups of 64 rows
+constexpr int TL_CONSUMERS = 128 * TL_NWG;
+constexpr int TL_THREADS = TL_CONSUMERS + 128;  // and the producer warpgroup
+// Registers a thread after setmaxnreg: the producer gives back what the
+// consumers take (128 a thread at launch: 128 * 32 + 384 * 160 = 65,536).
+constexpr int PRODUCER_REGS = 32, CONSUMER_REGS = 160;
 
-// The helpers above with the head dim a parameter (for HD = 64 the same
-// instructions in the same order).
 template <int HD>
-__device__ __forceinline__ void t_load_a(uint32_t (*f)[4], const __nv_bfloat16* s, int r0,
-                                         int lane) {
+__host__ __device__ constexpr int tile_bytes() {
+  return TL * 2 * HD;  // one 64-row tile (TMA's box {HD, 64})
+}
+// Dynamic shared memory: each warpgroup's two resident tiles (Q and dA in
+// launch 1, K and V in launch 2), the ring of two tiles a stage (K and V;
+// Q and dA) and, in launch 2, each stage's 64 rows of statistics; the
+// mbarriers.
+template <int HD>
+constexpr int tiled_smem(bool stats) {
+  return 1024 + (2 * TL_NWG + 2 * TL_STAGES) * tile_bytes<HD>() +
+         (stats ? TL_STAGES * 3 * TL * 4 : 0) + (2 * TL_STAGES + 1) * 8;
+}
+
+// acc (m64n64 accumulators) += A B^T for a warpgroup's 64 rows of A and the
+// 64 rows of a K-major stage tile: A as register fragments (a), or
+// (A_SMEM) read from its K-major tile at a_tile.
+template <int HD, bool A_SMEM>
+__device__ __forceinline__ void tile_nt(float* acc, uint32_t (*a)[4], uint32_t a_tile,
+                                        uint32_t tile) {
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
-    const int r = r0 + (lane & 7) + ((lane >> 3) & 1) * 8;
-    const int c = kk * 16 + (lane >> 4) * 8;
-    ldmatrix_x4(f[kk], &s[r * (HD + 8) + c]);
+    if constexpr (A_SMEM)
+      hopper::wgmma_m64n64k16_ss<0, 0>(acc, hopper::desc_kmajor<HD>(a_tile + kk * 32),
+                                       hopper::desc_kmajor<HD>(tile + kk * 32));
+    else
+      hopper::wgmma_m64n64k16_rs<0>(acc, a[kk], hopper::desc_kmajor<HD>(tile + kk * 32));
   }
 }
-
-template <int HD>
-__device__ __forceinline__ void t_product_nt(float (*acc)[4], uint32_t (*a)[4],
-                                             const __nv_bfloat16* s, int r0, int lane) {
+__device__ __forceinline__ void zero32(float* a) {
 #pragma unroll
-  for (int j = 0; j < 2; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    uint32_t f[4];
-    const int r = r0 + (lane & 7) + (lane >> 4) * 8;
-    const int c = kk * 16 + ((lane >> 3) & 1) * 8;
-    ldmatrix_x4(f, &s[r * (HD + 8) + c]);
-    mma_bf16(acc[0], a[kk], f[0], f[1]);
-    mma_bf16(acc[1], a[kk], f[2], f[3]);
-  }
+  for (int r = 0; r < 32; ++r) a[r] = 0.f;
+  hopper::fence_regs<32>(a);
 }
-
+// acc (m64n{HD}) += X . B over a stage's 64 rows: X's four 16-column
+// slices as register A operands, B the stage tile read MN-major.
 template <int HD>
-__device__ __forceinline__ void t_product_nn(float (*acc)[4], const uint32_t* p,
-                                             const __nv_bfloat16* s, int r0, int lane) {
+__device__ __forceinline__ void tile_nn(float* acc, uint32_t (*x)[4], uint32_t tile) {
 #pragma unroll
-  for (int jn = 0; jn < HD / 16; ++jn) {
-    uint32_t f[4];
-    const int r = r0 + (lane & 7) + ((lane >> 3) & 1) * 8;
-    const int c = jn * 16 + (lane >> 4) * 8;
-    ldmatrix_x4_trans(f, &s[r * (HD + 8) + c]);
-    mma_bf16(acc[2 * jn], p, f[0], f[1]);
-    mma_bf16(acc[2 * jn + 1], p, f[2], f[3]);
-  }
+  for (int sl = 0; sl < 4; ++sl)
+    hopper::wgmma_m64nhd_rs_mn<HD>(acc, x[sl], hopper::desc_mnmajor<HD>(tile + sl * 16 * 2 * HD));
 }
-
+__device__ __forceinline__ void fence_frags(uint32_t (*x)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) hopper::fence_regs<4>(x[j]);
+}
+// Accumulator rows g and g + 8 of the warp's 16, columns 8 j + 2 t4 + e,
+// as the m64n{HD} tile's rows r0, r0 + 8 of the packed output at dst.
 template <int HD>
-__device__ __forceinline__ void t_store_rows(__nv_bfloat16* dst, float (*acc)[4], int r0, int n,
-                                             long long row_stride, int lane) {
-  const int g = lane >> 2, tq = lane & 3;
+__device__ __forceinline__ void store_rows64(__nv_bfloat16* dst, const float* acc, int r0, int n,
+                                             long long stride, int t4) {
 #pragma unroll
   for (int j = 0; j < HD / 8; ++j) {
-    const int c = j * 8 + tq * 2;
-    if (r0 + g < n)
-      *reinterpret_cast<__nv_bfloat162*>(dst + (long long)(r0 + g) * row_stride + c) =
-          __floats2bfloat162_rn(acc[j][0], acc[j][1]);
-    if (r0 + g + 8 < n)
-      *reinterpret_cast<__nv_bfloat162*>(dst + (long long)(r0 + g + 8) * row_stride + c) =
-          __floats2bfloat162_rn(acc[j][2], acc[j][3]);
+    if (r0 < n)
+      *reinterpret_cast<__nv_bfloat162*>(dst + (long long)r0 * stride + 8 * j + 2 * t4) =
+          __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
+    if (r0 + 8 < n)
+      *reinterpret_cast<__nv_bfloat162*>(dst + (long long)(r0 + 8) * stride + 8 * j + 2 * t4) =
+          __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
   }
 }
 
-// Rows [r0, r0 + 64) of one head (HD columns at row stride `stride`) into
-// a padded shared tile by cp.async; rows at or past n read as zero.
+// Launch 1, grid (three 64-row query tiles, head, image), 512 threads:
+// three consumer warpgroups of 64 query rows and a producer warpgroup. The
+// producer's first thread loads the warpgroups' Q and dA tiles onto one
+// mbarrier and then streams K and V, two sweeps of 64-key stages, through
+// a ring of TL_STAGES slots by TMA (full / empty mbarriers; a slot is
+// refilled once every consumer warp has arrived on its empty barrier after
+// the wgmma that read it completed). Sweep 1: S = Q K^T and dS = dA V^T,
+// the online row max, sum and D numerator sum(e dS), rescaled together.
+// Sweep 2: S and dS again, P and bf16(dZ * scale) as the register A
+// operand of dQ += dZ K (K MN-major); that product completes under the next
+// stage's wait and releases its slot then. Writes dQ and each row's
+// statistics (ws: -max * scale log2 e, 1 / sum, D; fp32, (b, heads, n)
+// each at ws, ws + bhn, ws + 2 bhn).
 template <int HD>
-__device__ __forceinline__ void t_load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                            long long stride, int r0, int n, int tid) {
-  constexpr int CPR = HD / 8;  // 16-byte chunks a row
-  for (int chunk = tid; chunk < TL * CPR; chunk += TL_THREADS) {
-    const int r = chunk / CPR, c = (chunk % CPR) * 8;
-    const int row = r0 + r;
-    const int ok = row < n;
-    cp_async16(&dst[r * (HD + 8) + c], src + (long long)(ok ? row : 0) * stride + c,
-               ok ? 16 : 0);
-  }
-}
+__global__ void __launch_bounds__(TL_THREADS, 1)
+attn_tiled_bwd_q_kernel(const __grid_constant__ CUtensorMap qkvmap,
+                        const __grid_constant__ CUtensorMap damap,
+                        __nv_bfloat16* __restrict__ dqkv, float* __restrict__ ws, int n, int d,
+                        float scale_log2e, float scale) {
+  constexpr int TB = tile_bytes<HD>();
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  const uint32_t sq = (raw + 1023) & ~1023u;  // Q tiles, then dA tiles
+  const uint32_t sda = sq + TL_NWG * TB;
+  const uint32_t sk = sda + TL_NWG * TB;  // the ring: K, then V
+  const uint32_t sv = sk + TL_STAGES * TB;
+  const uint32_t full = sv + TL_STAGES * TB, empty = full + 8 * TL_STAGES;
+  const uint32_t qbar = empty + 8 * TL_STAGES;
 
-// Streams `ntiles` pairs of 64-row tiles (a from a_src, b from b_src, or
-// a alone when b_src is null) through two shared buffers each, double-
-// buffered by cp.async, and calls body(t, a_tile, b_tile) with tile t
-// resident and visible to every thread. extra(t, buf), if given, stages
-// more of tile t (plain stores) beside the cp.async copies.
-template <int HD, class Body, class Extra>
-__device__ __forceinline__ void stream_tiles(int ntiles, const __nv_bfloat16* a_src,
-                                             const __nv_bfloat16* b_src, long long stride, int n,
-                                             __nv_bfloat16* sa, __nv_bfloat16* sb, int tid,
-                                             Body body, Extra extra) {
-  constexpr int TILE = TL * (HD + 8);
-  auto load = [&](int t) {
-    const int buf = t & 1;
-    t_load_tile<HD>(sa + buf * TILE, a_src, stride, t * TL, n, tid);
-    if (b_src) t_load_tile<HD>(sb + buf * TILE, b_src, stride, t * TL, n, tid);
-    extra(t, buf);
-    cp_async_commit();
-  };
-  load(0);
-  for (int t = 0; t < ntiles; ++t) {
-    if (t + 1 < ntiles) {
-      load(t + 1);
-      asm volatile("cp.async.wait_group 1;\n" ::);
-    } else {
-      cp_async_wait_all();
+  const int q0 = blockIdx.x * TL_NWG * TL, h = blockIdx.y, b = blockIdx.z;
+  const int left = (n - q0 + TL - 1) / TL, nwg = left < TL_NWG ? left : TL_NWG;
+  const int ns = (n + TL - 1) / TL;
+  const int tid = threadIdx.x, lane = tid & 31;
+  if (tid == 0) {
+    for (int i = 0; i < TL_STAGES; ++i) {
+      hopper::mbar_init(full + 8 * i, 1);
+      hopper::mbar_init(empty + 8 * i, 4 * nwg);
     }
-    __syncthreads();
-    body(t, sa + (t & 1) * TILE, sb + (t & 1) * TILE);
-    __syncthreads();  // every warp is done with this buffer before it is refilled
+    hopper::mbar_init(qbar, 1);
+    hopper::mbar_fence_init();
   }
-}
-
-// Launch 1, by 64-row query tiles: the kept kernel's phase A with K and V
-// streamed in 64-key tiles. Three sweeps over the keys: the row max and
-// sum, the row term D = rowsum(dS * P), then dQ. Writes dQ and each row's
-// max, sum and D (fp32, (b, heads, n) each, at ws, ws + bhn, ws + 2 bhn).
-template <int HD>
-__global__ void __launch_bounds__(TL_THREADS)
-attn_tiled_bwd_q_kernel(const __nv_bfloat16* __restrict__ qkv,
-                        const __nv_bfloat16* __restrict__ dattn, __nv_bfloat16* __restrict__ dqkv,
-                        float* __restrict__ ws, int n, int d, float scale) {
-  constexpr int STR = HD + 8, TILE = TL * STR, KK = HD / 16;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sda = sq + TILE;
-  __nv_bfloat16* sk = sda + TILE;  // two tiles
-  __nv_bfloat16* sv = sk + 2 * TILE;
-
-  const int h = blockIdx.y, b = blockIdx.z, heads = gridDim.y;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tq = lane & 3;
-  const int nch = (n + CH - 1) / CH, ntiles = (n + TL - 1) / TL;
-  const long long row3 = 3LL * d;
-  const __nv_bfloat16* base = qkv + (long long)b * n * row3 + h * HD;
-  const int q0 = blockIdx.x * TL + warp * 16;
-
-  t_load_tile<HD>(sq, base, row3, blockIdx.x * TL, n, tid);
-  t_load_tile<HD>(sda, dattn + (long long)b * n * d + h * HD, d, blockIdx.x * TL, n, tid);
-  cp_async_commit();
-  cp_async_wait_all();
   __syncthreads();
-  uint32_t qf[KK][4], daf[KK][4];
-  t_load_a<HD>(qf, sq, warp * 16, lane);
-  t_load_a<HD>(daf, sda, warp * 16, lane);
-  auto none = [](int, int) {};
 
-  // sweep 1: row max and sum (rows g, g + 8), online per 16-key chunk
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-  float s[2][4], ds[2][4];
-  stream_tiles<HD>(ntiles, base + d, nullptr, row3, n, sk, sv, tid,
-                   [&](int t, const __nv_bfloat16* skt, const __nv_bfloat16*) {
-#pragma unroll
-    for (int c = 0; c < TL / CH; ++c) {
-      if (t * (TL / CH) + c >= nch) break;
-      t_product_nt<HD>(s, qf, skt, c * CH, lane);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int key = t * TL + c * CH + j * 8 + tq * 2;
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          s[j][e] = (key + (e & 1) < n) ? s[j][e] * scale : -INFINITY;
+  if (tid >= TL_CONSUMERS) {  // the producer warpgroup
+    hopper::setmaxnreg_dec<PRODUCER_REGS>();
+    if (tid == TL_CONSUMERS) {
+      hopper::mbar_expect_tx(qbar, 2 * nwg * TB);
+      for (int w = 0; w < nwg; ++w) {
+        hopper::tma_load_3d(sq + w * TB, &qkvmap, h * HD, q0 + TL * w, b, qbar);
+        hopper::tma_load_3d(sda + w * TB, &damap, h * HD, q0 + TL * w, b, qbar);
       }
-      const float n0 = fmaxf(m0, quad_max(fmaxf(fmaxf(s[0][0], s[0][1]), fmaxf(s[1][0], s[1][1]))));
-      const float n1 = fmaxf(m1, quad_max(fmaxf(fmaxf(s[0][2], s[0][3]), fmaxf(s[1][2], s[1][3]))));
-      l0 = l0 * expf(m0 - n0) + expf(s[0][0] - n0) + expf(s[0][1] - n0) +
-           expf(s[1][0] - n0) + expf(s[1][1] - n0);
-      l1 = l1 * expf(m1 - n1) + expf(s[0][2] - n1) + expf(s[0][3] - n1) +
-           expf(s[1][2] - n1) + expf(s[1][3] - n1);
-      m0 = n0;
-      m1 = n1;
+      for (int it = 0; it < 2 * ns; ++it) {
+        const int slot = it % TL_STAGES, c = it < ns ? it : it - ns;
+        if (it >= TL_STAGES) hopper::mbar_wait(empty + 8 * slot, (it / TL_STAGES - 1) & 1);
+        const uint32_t bar = full + 8 * slot;
+        hopper::mbar_expect_tx(bar, 2 * TB);
+        hopper::tma_load_3d(sk + slot * TB, &qkvmap, d + h * HD, c * TL, b, bar);
+        hopper::tma_load_3d(sv + slot * TB, &qkvmap, 2 * d + h * HD, c * TL, b, bar);
+      }
     }
-  }, none);
-  l0 = quad_sum(l0);
-  l1 = quad_sum(l1);
+    return;
+  }
 
-  // S (fp32) of the chunk at row c * 16 of the tiles into s, dS into ds
-  auto probs = [&](int key0, const __nv_bfloat16* skt, const __nv_bfloat16* svt, int c) {
-    t_product_nt<HD>(s, qf, skt, c * CH, lane);
-    t_product_nt<HD>(ds, daf, svt, c * CH, lane);
+  hopper::setmaxnreg_inc<CONSUMER_REGS>();
+  const int w = tid >> 7, warp = (tid >> 5) & 3, g = lane >> 2, t4 = lane & 3;
+  if (w >= nwg) return;
+  hopper::mbar_wait(qbar, 0);
+  uint32_t qa[HD / 16][4], dfa[HD / 16][4];
+  hopper::ldmatrix_a<HD>(qa, sq + w * TB, warp * 16, lane);
+  hopper::ldmatrix_a<HD>(dfa, sda + w * TB, warp * 16, lane);
+  // keys of the last stage at or past n: the thread's columns 8 j + 2 t4 + e
+  const int lim = n - (ns - 1) * TL - 2 * t4;
+  auto past_n = [&](int r) { return 8 * (r >> 2) + (r & 1) >= lim; };
+
+  // Sweep 1, rows g (registers 4 j + e) and g + 8 (4 j + 2 + e).
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f, u0 = 0.f, u1 = 0.f;
+  float s[32], ds[32];
+  for (int c = 0; c < ns; ++c) {
+    const int slot = c % TL_STAGES;
+    hopper::mbar_wait(full + 8 * slot, (c / TL_STAGES) & 1);
+    zero32(s);
+    zero32(ds);
+    hopper::wgmma_fence();
+    tile_nt<HD, false>(s, qa, 0, sk + slot * TB);
+    tile_nt<HD, false>(ds, dfa, 0, sv + slot * TB);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs<32>(s);
+    hopper::fence_regs<32>(ds);
+    if (lane == 0) hopper::mbar_arrive(empty + 8 * slot);
+    if (c == ns - 1) {
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int key = key0 + c * CH + j * 8 + tq * 2;
+      for (int r = 0; r < 32; ++r)
+        if (past_n(r)) s[r] = -INFINITY;
+    }
+    float c0 = -INFINITY, c1 = -INFINITY;
+#pragma unroll
+    for (int r = 0; r < 32; ++r) {
+      if ((r >> 1) & 1)
+        c1 = fmaxf(c1, s[r]);
+      else
+        c0 = fmaxf(c0, s[r]);
+    }
+    const float n0 = fmaxf(m0, quad_max(c0)), n1 = fmaxf(m1, quad_max(c1));
+    const float b0 = -n0 * scale_log2e, b1 = -n1 * scale_log2e;
+    float e0 = 0.f, e1 = 0.f, x0 = 0.f, x1 = 0.f;
+#pragma unroll
+    for (int r = 0; r < 32; ++r) {
+      if ((r >> 1) & 1) {
+        const float e = hopper::ex2(fmaf(s[r], scale_log2e, b1));
+        e1 += e;
+        x1 = fmaf(e, ds[r], x1);
+      } else {
+        const float e = hopper::ex2(fmaf(s[r], scale_log2e, b0));
+        e0 += e;
+        x0 = fmaf(e, ds[r], x0);
+      }
+    }
+    const float a0 = hopper::ex2(fmaf(m0, scale_log2e, b0)), a1 = hopper::ex2(fmaf(m1, scale_log2e, b1));
+    l0 = fmaf(l0, a0, e0);
+    l1 = fmaf(l1, a1, e1);
+    u0 = fmaf(u0, a0, x0);
+    u1 = fmaf(u1, a1, x1);
+    m0 = n0;
+    m1 = n1;
+  }
+  const float i0 = 1.f / quad_sum(l0), i1 = 1.f / quad_sum(l1);
+  const float dd0 = quad_sum(u0) * i0, dd1 = quad_sum(u1) * i1;
+  const float b0 = -m0 * scale_log2e, b1 = -m1 * scale_log2e;
+
+  // Sweep 2: dQ += bf16(P (dS - D) scale) K.
+  float dq[HD / 2];
+#pragma unroll
+  for (int r = 0; r < HD / 2; ++r) dq[r] = 0.f;
+  uint32_t za[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) za[j][e] = 0u;
+  int prev = 0;
+  for (int c = 0; c < ns; ++c) {
+    const int it = ns + c, slot = it % TL_STAGES;
+    hopper::mbar_wait(full + 8 * slot, (it / TL_STAGES) & 1);
+    zero32(s);
+    zero32(ds);
+    hopper::wgmma_fence();
+    tile_nt<HD, false>(s, qa, 0, sk + slot * TB);
+    tile_nt<HD, false>(ds, dfa, 0, sv + slot * TB);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();  // these products, and the previous stage's dQ
+    hopper::fence_regs<32>(s);
+    hopper::fence_regs<32>(ds);
+    hopper::fence_regs<HD / 2>(dq);
+    fence_frags(za);
+    if (c > 0 && lane == 0) hopper::mbar_arrive(empty + 8 * prev);
+    if (c == ns - 1) {  // P = 0 past n
+#pragma unroll
+      for (int r = 0; r < 32; ++r)
+        if (past_n(r)) s[r] = -INFINITY;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float z[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float m = e < 2 ? m0 : m1, l = e < 2 ? l0 : l1;
-        s[j][e] = (key + (e & 1) < n) ? expf(s[j][e] * scale - m) / l : 0.f;
+        const int r = 4 * j + e;
+        const bool hi = (e >> 1) & 1;
+        const float p = hopper::ex2(fmaf(s[r], scale_log2e, hi ? b1 : b0)) * (hi ? i1 : i0);
+        z[e] = p * (ds[r] - (hi ? dd1 : dd0)) * scale;
       }
+      za[j >> 1][(j & 1) * 2] = pack_bf16(z[0], z[1]);
+      za[j >> 1][(j & 1) * 2 + 1] = pack_bf16(z[2], z[3]);
     }
-  };
+    fence_frags(za);
+    hopper::fence_regs<HD / 2>(dq);
+    hopper::wgmma_fence();
+    tile_nn<HD>(dq, za, sk + slot * TB);
+    hopper::wgmma_commit();
+    hopper::fence_regs<HD / 2>(dq);
+    prev = slot;
+  }
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs<HD / 2>(dq);
+  fence_frags(za);
 
-  // sweep 2: the row term rowsum(dS * S)
-  float r0 = 0.f, r1 = 0.f;
-  stream_tiles<HD>(ntiles, base + d, base + 2 * d, row3, n, sk, sv, tid,
-                   [&](int t, const __nv_bfloat16* skt, const __nv_bfloat16* svt) {
-#pragma unroll
-    for (int c = 0; c < TL / CH; ++c) {
-      if (t * (TL / CH) + c >= nch) break;
-      probs(t * TL, skt, svt, c);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        r0 += ds[j][0] * s[j][0] + ds[j][1] * s[j][1];
-        r1 += ds[j][2] * s[j][2] + ds[j][3] * s[j][3];
-      }
+  const int r0 = q0 + TL * w + warp * 16 + g;
+  store_rows64<HD>(dqkv + (long long)b * n * 3 * d + h * HD, dq, r0, n, 3LL * d, t4);
+  if (t4 == 0) {
+    const long long bhn = (long long)gridDim.z * gridDim.y * n;
+    float* row = ws + ((long long)b * gridDim.y + h) * n;
+    if (r0 < n) {
+      row[r0] = b0;
+      row[bhn + r0] = i0;
+      row[2 * bhn + r0] = dd0;
     }
-  }, none);
-  r0 = quad_sum(r0);
-  r1 = quad_sum(r1);
-
-  // sweep 3: dQ += bf16(dZ * scale) . K
-  float dq[HD / 8][4];
-#pragma unroll
-  for (int j = 0; j < HD / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
-  stream_tiles<HD>(ntiles, base + d, base + 2 * d, row3, n, sk, sv, tid,
-                   [&](int t, const __nv_bfloat16* skt, const __nv_bfloat16* svt) {
-#pragma unroll
-    for (int c = 0; c < TL / CH; ++c) {
-      if (t * (TL / CH) + c >= nch) break;
-      probs(t * TL, skt, svt, c);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          s[j][e] = s[j][e] * (ds[j][e] - (e < 2 ? r0 : r1)) * scale;
-      uint32_t za[4];
-      to_a_frag(za, s);
-      t_product_nn<HD>(dq, za, skt, c * CH, lane);
-    }
-  }, none);
-  t_store_rows<HD>(dqkv + (long long)b * n * row3 + h * HD, dq, q0, n, row3, lane);
-  if (tq == 0) {
-    const long long bhn = (long long)gridDim.z * heads * n;
-    float* row = ws + ((long long)b * heads + h) * n;
-    if (q0 + g < n) {
-      row[q0 + g] = m0;
-      row[bhn + q0 + g] = l0;
-      row[2 * bhn + q0 + g] = r0;
-    }
-    if (q0 + g + 8 < n) {
-      row[q0 + g + 8] = m1;
-      row[bhn + q0 + g + 8] = l1;
-      row[2 * bhn + q0 + g + 8] = r1;
+    if (r0 + 8 < n) {
+      row[r0 + 8] = b1;
+      row[bhn + r0 + 8] = i1;
+      row[2 * bhn + r0 + 8] = dd1;
     }
   }
 }
 
-// Launch 2, by 64-row key tiles: the kept kernel's phase B with Q and dA
-// streamed in 64-query tiles, beside their rows' max, sum and D from
-// launch 1. dK and dV sum over the queries in order and are stored.
+// Launch 2, grid (three 64-row key tiles, head, image), 512 threads: three
+// consumer warpgroups of 64 keys and a producer warpgroup. Its first warp
+// loads the warpgroups' K and V tiles onto one mbarrier and then streams
+// the 64-query stages of Q and dA by TMA through the ring, each beside its
+// rows' statistics from launch 1, which the warp's 32 lanes copy into the
+// slot (the full barrier takes the TMA bytes and the 32 lanes' arrivals; queries
+// past n get -max 0, 1 / sum 0 and D 0, so P and dZ are 0 there). Per
+// stage: S^T = K Q^T and dS^T = V dA^T with K and V as register A
+// operands; bf16(P^T) and bf16(dZ^T * scale) the register A operands of dV
+// += P^T dA and dK += dZ^T Q (dA and Q MN-major). dK and dV sum over the
+// stages in order in one warpgroup and are stored. A stage's two products
+// complete under the next stage's wait and release its slot then.
 template <int HD>
-__global__ void __launch_bounds__(TL_THREADS)
-attn_tiled_bwd_kv_kernel(const __nv_bfloat16* __restrict__ qkv,
-                         const __nv_bfloat16* __restrict__ dattn, __nv_bfloat16* __restrict__ dqkv,
-                         const float* __restrict__ ws, int n, int d, float scale) {
-  constexpr int STR = HD + 8, TILE = TL * STR, KK = HD / 16;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sk = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sv = sk + TILE;
-  __nv_bfloat16* sq = sv + TILE;      // two tiles
-  __nv_bfloat16* sda = sq + 2 * TILE;  // two tiles
-  float* stats = reinterpret_cast<float*>(sda + 2 * TILE);  // [buffer][max, sum, D][64]
+__global__ void __launch_bounds__(TL_THREADS, 1)
+attn_tiled_bwd_kv_kernel(const __grid_constant__ CUtensorMap qkvmap,
+                         const __grid_constant__ CUtensorMap damap,
+                         __nv_bfloat16* __restrict__ dqkv, const float* __restrict__ ws, int n,
+                         int d, float scale_log2e, float scale) {
+  constexpr int TB = tile_bytes<HD>();
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  const uint32_t skk = (raw + 1023) & ~1023u;  // K tiles, then V tiles
+  const uint32_t svv = skk + TL_NWG * TB;
+  const uint32_t sq = svv + TL_NWG * TB;  // the ring: Q, then dA
+  const uint32_t sda = sq + TL_STAGES * TB;
+  const uint32_t sst = sda + TL_STAGES * TB;  // [slot][-max, 1 / sum, D][64]
+  float* stats = reinterpret_cast<float*>(smem_raw + (sst - raw));
+  const uint32_t full = sst + TL_STAGES * 3 * TL * 4, empty = full + 8 * TL_STAGES;
+  const uint32_t kvbar = empty + 8 * TL_STAGES;
 
-  const int h = blockIdx.y, b = blockIdx.z, heads = gridDim.y;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int tq = lane & 3;
-  const int nch = (n + CH - 1) / CH, ntiles = (n + TL - 1) / TL;
-  const long long row3 = 3LL * d;
-  const __nv_bfloat16* base = qkv + (long long)b * n * row3 + h * HD;
-  const __nv_bfloat16* dbase = dattn + (long long)b * n * d + h * HD;
-  const long long bhn = (long long)gridDim.z * heads * n;
-  const float* wrow = ws + ((long long)b * heads + h) * n;
-
-  t_load_tile<HD>(sk, base + d, row3, blockIdx.x * TL, n, tid);
-  t_load_tile<HD>(sv, base + 2 * d, row3, blockIdx.x * TL, n, tid);
-  cp_async_commit();
-  cp_async_wait_all();
+  const int k0 = blockIdx.x * TL_NWG * TL, h = blockIdx.y, b = blockIdx.z;
+  const int left = (n - k0 + TL - 1) / TL, nwg = left < TL_NWG ? left : TL_NWG;
+  const int ns = (n + TL - 1) / TL;
+  const int tid = threadIdx.x, lane = tid & 31;
+  if (tid == 0) {
+    for (int i = 0; i < TL_STAGES; ++i) {
+      hopper::mbar_init(full + 8 * i, 1 + 32);
+      hopper::mbar_init(empty + 8 * i, 4 * nwg);
+    }
+    hopper::mbar_init(kvbar, 1);
+    hopper::mbar_fence_init();
+  }
   __syncthreads();
-  uint32_t kf[KK][4], vf[KK][4];
-  t_load_a<HD>(kf, sk, warp * 16, lane);
-  t_load_a<HD>(vf, sv, warp * 16, lane);
-  float dk[HD / 8][4], dv[HD / 8][4];
+
+  if (tid >= TL_CONSUMERS) {  // the producer warpgroup: its first warp
+    hopper::setmaxnreg_dec<PRODUCER_REGS>();
+    if (tid >= TL_CONSUMERS + 32) return;
+    if (lane == 0) {
+      hopper::mbar_expect_tx(kvbar, 2 * nwg * TB);
+      for (int w = 0; w < nwg; ++w) {
+        hopper::tma_load_3d(skk + w * TB, &qkvmap, d + h * HD, k0 + TL * w, b, kvbar);
+        hopper::tma_load_3d(svv + w * TB, &qkvmap, 2 * d + h * HD, k0 + TL * w, b, kvbar);
+      }
+    }
+    const long long bhn = (long long)gridDim.z * gridDim.y * n;
+    const float* wrow = ws + ((long long)b * gridDim.y + h) * n;
+    for (int c = 0; c < ns; ++c) {
+      const int slot = c % TL_STAGES;
+      if (c >= TL_STAGES) hopper::mbar_wait(empty + 8 * slot, (c / TL_STAGES - 1) & 1);
+      const uint32_t bar = full + 8 * slot;
+      if (lane == 0) {
+        hopper::mbar_expect_tx(bar, 2 * TB);
+        hopper::tma_load_3d(sq + slot * TB, &qkvmap, h * HD, c * TL, b, bar);
+        hopper::tma_load_3d(sda + slot * TB, &damap, h * HD, c * TL, b, bar);
+      }
+      float* st = stats + slot * 3 * TL;
 #pragma unroll
-  for (int j = 0; j < HD / 8; ++j)
+      for (int i = 0; i < 2; ++i) {
+        const int r = lane + 32 * i, qq = c * TL + r;
+        const bool ok = qq < n;
+        st[r] = ok ? wrow[qq] : 0.f;
+        st[TL + r] = ok ? wrow[bhn + qq] : 0.f;
+        st[2 * TL + r] = ok ? wrow[2 * bhn + qq] : 0.f;
+      }
+      hopper::mbar_arrive(bar);
+    }
+    return;
+  }
+
+  hopper::setmaxnreg_inc<CONSUMER_REGS>();
+  const int w = tid >> 7, warp = (tid >> 5) & 3, g = lane >> 2, t4 = lane & 3;
+  if (w >= nwg) return;
+  hopper::mbar_wait(kvbar, 0);
+  // K and V as register A operands at head dim 32; at 64 read from their
+  // tiles (their 32 registers a thread would spill beside dK, dV, S^T and
+  // dS^T)
+  uint32_t ka[HD / 16][4], va[HD / 16][4];
+  if constexpr (HD == 32) {
+    hopper::ldmatrix_a<HD>(ka, skk + w * TB, warp * 16, lane);
+    hopper::ldmatrix_a<HD>(va, svv + w * TB, warp * 16, lane);
+  }
+  float dk[HD / 2], dv[HD / 2];
+#pragma unroll
+  for (int r = 0; r < HD / 2; ++r) {
+    dk[r] = 0.f;
+    dv[r] = 0.f;
+  }
+  uint32_t pa[4][4], za[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      dk[j][e] = 0.f;
-      dv[j][e] = 0.f;
+      pa[j][e] = 0u;
+      za[j][e] = 0u;
     }
-
-  // Q tiles from qkv (row stride 3d) and dA tiles from dattn (row stride
-  // d): stream_tiles takes one stride, so dA is staged by `extra`.
-  auto stage = [&](int t, int buf) {
-    t_load_tile<HD>(sda + buf * TILE, dbase, d, t * TL, n, tid);
-    for (int r = tid; r < TL; r += TL_THREADS) {
-      const int q = t * TL + r;
-      float* st = stats + buf * 3 * TL;
-      st[r] = q < n ? wrow[q] : 0.f;
-      st[TL + r] = q < n ? wrow[bhn + q] : 1.f;
-      st[2 * TL + r] = q < n ? wrow[2 * bhn + q] : 0.f;
-    }
-  };
-  stream_tiles<HD>(ntiles, base, nullptr, row3, n, sq, sq, tid,
-                   [&](int t, const __nv_bfloat16* sqt, const __nv_bfloat16*) {
-    const __nv_bfloat16* sdat = sda + (t & 1) * TILE;
-    const float* st = stats + (t & 1) * 3 * TL;
+  float s[32], ds[32];
+  int prev = 0;
+  for (int c = 0; c < ns; ++c) {
+    const int slot = c % TL_STAGES;
+    hopper::mbar_wait(full + 8 * slot, (c / TL_STAGES) & 1);
+    zero32(s);
+    zero32(ds);
+    hopper::wgmma_fence();
+    tile_nt<HD, HD == 64>(s, ka, skk + w * TB, sq + slot * TB);    // S^T: keys x queries
+    tile_nt<HD, HD == 64>(ds, va, svv + w * TB, sda + slot * TB);  // dS^T
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();  // these products, and the previous stage's dV, dK
+    hopper::fence_regs<32>(s);
+    hopper::fence_regs<32>(ds);
+    hopper::fence_regs<HD / 2>(dk);
+    hopper::fence_regs<HD / 2>(dv);
+    fence_frags(pa);
+    fence_frags(za);
+    if (c > 0 && lane == 0) hopper::mbar_arrive(empty + 8 * prev);
+    const float* st = stats + slot * 3 * TL;
 #pragma unroll
-    for (int c = 0; c < TL / CH; ++c) {
-      if (t * (TL / CH) + c >= nch) break;
-      float sT[2][4], dsT[2][4];
-      t_product_nt<HD>(sT, kf, sqt, c * CH, lane);   // S^T: keys x queries
-      t_product_nt<HD>(dsT, vf, sdat, c * CH, lane);  // dS^T
+    for (int j = 0; j < 8; ++j) {
+      const int col = 8 * j + 2 * t4;  // the thread's queries col, col + 1
+      const float2 mb = *reinterpret_cast<const float2*>(st + col);
+      const float2 iv = *reinterpret_cast<const float2*>(st + TL + col);
+      const float2 dd = *reinterpret_cast<const float2*>(st + 2 * TL + col);
+      float p[4], z[4];
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int ql = c * CH + j * 8 + tq * 2 + (e & 1);
-          float p = 0.f, z = 0.f;
-          if (t * TL + ql < n) {
-            p = expf(sT[j][e] * scale - st[ql]) / st[TL + ql];
-            z = p * (dsT[j][e] - st[2 * TL + ql]) * scale;
-          }
-          sT[j][e] = p;
-          dsT[j][e] = z;
-        }
+      for (int e = 0; e < 4; ++e) {
+        const int r = 4 * j + e;
+        const bool odd = e & 1;
+        p[e] = hopper::ex2(fmaf(s[r], scale_log2e, odd ? mb.y : mb.x)) * (odd ? iv.y : iv.x);
+        z[e] = p[e] * (ds[r] - (odd ? dd.y : dd.x)) * scale;
       }
-      uint32_t pa[4], za[4];
-      to_a_frag(pa, sT);
-      to_a_frag(za, dsT);
-      t_product_nn<HD>(dv, pa, sdat, c * CH, lane);
-      t_product_nn<HD>(dk, za, sqt, c * CH, lane);
+      pa[j >> 1][(j & 1) * 2] = pack_bf16(p[0], p[1]);
+      pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+      za[j >> 1][(j & 1) * 2] = pack_bf16(z[0], z[1]);
+      za[j >> 1][(j & 1) * 2 + 1] = pack_bf16(z[2], z[3]);
     }
-  }, stage);
-  __nv_bfloat16* out = dqkv + (long long)b * n * row3 + h * HD;
-  const int k0 = blockIdx.x * TL + warp * 16;
-  t_store_rows<HD>(out + d, dk, k0, n, row3, lane);
-  t_store_rows<HD>(out + 2 * d, dv, k0, n, row3, lane);
+    fence_frags(pa);
+    fence_frags(za);
+    hopper::fence_regs<HD / 2>(dk);
+    hopper::fence_regs<HD / 2>(dv);
+    hopper::wgmma_fence();
+    tile_nn<HD>(dv, pa, sda + slot * TB);
+    tile_nn<HD>(dk, za, sq + slot * TB);
+    hopper::wgmma_commit();
+    hopper::fence_regs<HD / 2>(dk);
+    hopper::fence_regs<HD / 2>(dv);
+    prev = slot;
+  }
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs<HD / 2>(dk);
+  hopper::fence_regs<HD / 2>(dv);
+  fence_frags(pa);
+  fence_frags(za);
+  const int r0 = k0 + TL * w + warp * 16 + g;
+  __nv_bfloat16* out = dqkv + (long long)b * n * 3 * d + h * HD;
+  store_rows64<HD>(out + d, dk, r0, n, 3LL * d, t4);
+  store_rows64<HD>(out + 2 * d, dv, r0, n, 3LL * d, t4);
 }
 
+// Tensor maps over (column, token, image) of qkv and dattn (each image's
+// rows past n load as zeros), then the two launches.
 template <int HD>
-int launch_tiled(const __nv_bfloat16* qkv, const __nv_bfloat16* dattn, __nv_bfloat16* dqkv,
-                 float* ws, int b, int n, int d, int heads, float scale, cudaStream_t stream) {
-  constexpr int TILE_BYTES = TL * (HD + 8) * 2;
-  constexpr int smem_q = 6 * TILE_BYTES;
-  constexpr int smem_kv = 6 * TILE_BYTES + 2 * 3 * TL * 4;
+int launch_tiled(const void* qkv, const void* dattn, __nv_bfloat16* dqkv, float* ws, int b, int n,
+                 int d, int heads, float scale, cudaStream_t stream) {
+  CUtensorMap qm, dm;
+  const uint64_t qdims[3] = {(uint64_t)(3 * d), (uint64_t)n, (uint64_t)b};
+  const uint64_t qstr[2] = {(uint64_t)d * 6, (uint64_t)d * 6 * n};
+  const uint64_t ddims[3] = {(uint64_t)d, (uint64_t)n, (uint64_t)b};
+  const uint64_t dstr[2] = {(uint64_t)d * 2, (uint64_t)d * 2 * n};
+  const uint32_t box[3] = {HD, TL, 1};
+  const CUtensorMapSwizzle sw = HD == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  if (!hopper::make_map_bf16(&qm, qkv, 3, qdims, qstr, box, sw) ||
+      !hopper::make_map_bf16(&dm, dattn, 3, ddims, dstr, box, sw))
+    return (int)cudaErrorInvalidValue;
+  constexpr int smem_q = tiled_smem<HD>(false), smem_kv = tiled_smem<HD>(true);
   auto kq = attn_tiled_bwd_q_kernel<HD>;
   auto kkv = attn_tiled_bwd_kv_kernel<HD>;
   cudaError_t err = cudaFuncSetAttribute(kq, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_q);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(kkv, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((n + TL - 1) / TL, heads, b);
-  kq<<<grid, TL_THREADS, smem_q, stream>>>(qkv, dattn, dqkv, ws, n, d, scale);
+  const float sl2e = scale * 1.4426950408889634f;
+  dim3 grid((n + TL_NWG * TL - 1) / (TL_NWG * TL), heads, b);
+  kq<<<grid, TL_THREADS, smem_q, stream>>>(qm, dm, dqkv, ws, n, d, sl2e, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  kkv<<<grid, TL_THREADS, smem_kv, stream>>>(qkv, dattn, dqkv, ws, n, d, scale);
+  kkv<<<grid, TL_THREADS, smem_kv, stream>>>(qm, dm, dqkv, ws, n, d, sl2e, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1276,8 +1418,8 @@ int bwd_route(int n, int head_dim) {
 // (peekvit_attn_softmax_bwd_route): at head dim 64 the wgmma kernel up to
 // 256 tokens and the earlier kernel up to 384, else the key-tiled pair
 // (head dim 32 at any n, head dim 64 past 384), which needs `workspace`:
-// 3 * b * num_heads * n fp32 (each row's max, sum and D between its two
-// launches); the other routes take null. scale = head_dim^-0.5. Returns
+// 3 * b * num_heads * n fp32 (each row's -max * scale * log2(e), 1 / sum
+// and D between its two launches); the other routes take null. scale = head_dim^-0.5. Returns
 // the cudaError_t of the launch.
 extern "C" int peekvit_attn_softmax_bwd(const void* qkv, const void* dattn, void* dqkv,
                                         void* workspace, int b, int n, int d, int num_heads,
@@ -1293,8 +1435,8 @@ extern "C" int peekvit_attn_softmax_bwd(const void* qkv, const void* dattn, void
   if (route == 2) {
     if (!workspace) return (int)cudaErrorInvalidValue;
     float* ws = static_cast<float*>(workspace);
-    return head_dim == 32 ? launch_tiled<32>(qb, db, o, ws, b, n, d, num_heads, scale, st)
-                          : launch_tiled<64>(qb, db, o, ws, b, n, d, num_heads, scale, st);
+    return head_dim == 32 ? launch_tiled<32>(qkv, dattn, o, ws, b, n, d, num_heads, scale, st)
+                          : launch_tiled<64>(qkv, dattn, o, ws, b, n, d, num_heads, scale, st);
   }
   if (route == 1) {
     const int nt = (n + 15) / 16;

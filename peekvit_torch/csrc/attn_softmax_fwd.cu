@@ -47,8 +47,8 @@
 //   O = P V: NT wgmma m64n64k16 with V in shared memory as the MN-major
 //     (transposed) B operand, the fp32 O rounded to bf16 on store.
 // So Q K^T is computed once per logit and exp once (the key-tiled kernel
-// below computes both twice and divides per logit). 96 KB of shared
-// memory and ~140 registers a thread: two CTAs per SM.
+// below computes both twice). 96 KB of shared memory and ~140 registers a
+// thread: two CTAs per SM.
 // Numerics decisions: exp is taken as exp2f of the raw logit times
 // scale * log2(e) less the raw row max times the same factor (one FFMA and
 // one MUFU.EX2 a logit; the max commutes with the positive scale), and
@@ -66,19 +66,39 @@
 // Every other shape takes the key-tiled kernel (attn_tiled_fwd_kernel, a
 // template on the head dim, 32 or 64, and on the mask): head dim 32 at
 // any n_k (ViT-Ti and RankViT at 160 px: 401 tokens; at 224 px: 785) and
-// head dim 64 past 256 keys (ResidualViT: 402 and 786). Grid (query tile
-// of 64, head, image), four warps of 16 query rows with mma.sync, K (pass
-// 1) and K and V (pass 2) streamed through two shared buffers of 64 keys
-// each by cp.async, the next tile in flight while the warps work on this
-// one. Pass 1 takes each row's max and sum online, pass 2 forms the
-// normalised bf16 P (expf and a division per logit: the same P as the
-// backward recomputes) and multiplies. Keys past n_k and excluded
-// keys have logit -inf; a tile wholly excluded adds exp(-inf) = 0 once a
-// row has seen a key, and before that the exponent's base is 0 (the
-// masked instance), so no NaN. 46.6 KB (head dim 64) or 25.6 KB (32) of
-// shared memory; four CTAs an SM, which caps a thread at 128 registers
-// (without the bound ptxas held the masked head-dim-32 instance at 96 and
-// spilled 8 bytes).
+// head dim 64 past 256 keys (ResidualViT: 402 and 786), in all three
+// modes (packed, separate, the masked rectangular SP tail). Grid (pair of
+// 64-row query tiles, head, image), 288 threads: two consumer warpgroups
+// of 64 query rows and one producer warp. The producer loads both Q tiles
+// by TMA and then streams K (pass 1) and K and V (pass 2) in 64-key stages
+// through a ring of four slots (3-D tensor maps over (column, token,
+// image): keys past n_k load as zeros; 128-byte swizzle at head dim 64,
+// 64-byte at 32, where a row is 64 bytes), each slot with a `full` and an
+// `empty` mbarrier: both warpgroups read every stage, so K and V are
+// fetched once per 128 query rows, and nothing waits on a CTA-wide
+// barrier. Per stage:
+//   pass 1: S = Q K^T by wgmma m64n64k16 (Q's fragments the register A
+//     operand at head dim 32; at 64 Q read from its tile, which keeps the
+//     kernel at two CTAs an SM without a spill), the key mask as bits, the
+//     stage's row max and the running sum rescaled to the new max: one
+//     exponential a logit;
+//   pass 2: S again, P = bf16(exp2(...) * (1 / sum)) packed in registers as
+//     the A operand of O += P V (wgmma m64n{64,32}k16, V MN-major); a
+//     stage's P V completes under the next stage's wait, which releases
+//     its slot.
+// Numerics decisions (stated also in PERF.md): the exponent is the wgmma
+// kernel's FFMA form above, exp2 is ex2.approx.ftz (MUFU.EX2 alone:
+// exp2f's result wherever that is a normal float, a term below 2^-126
+// flushed to 0), and the division is one IEEE reciprocal per row and a
+// multiply a logit. The running sum sums each stage's terms, then adds
+// them to the rescaled sum. P is still normalised before its bf16
+// rounding, as the contract asks.
+// The key mask (and the n_k edge, last stage only) becomes 64 bits a
+// stage from a per-CTA bitmap built by ballots; excluded keys have logit
+// -inf. A stage wholly excluded adds exp2(-inf) = 0 once a row has seen a
+// key, and before that the exponent's base is 0 (the masked instance), so
+// no NaN. 82 KB (head dim 64) or 41 KB (32) of shared memory, 82-90
+// registers: two CTAs an SM.
 // Bound at ViT-Ti bs128 (N = 401, head dim 32, 8 heads): q, k, v and the
 // output are 105 MB (0.031 ms) against 2.1e10 flops (0.021 ms), but each
 // pass takes 1.65e8 exponentials, 0.039 ms at the SFU's rate: the two
@@ -97,35 +117,6 @@
 namespace {
 
 constexpr int HD = 64;  // the wgmma kernel's head dim
-constexpr int THREADS = 128;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -333,219 +324,271 @@ int dispatch_wgmma(int nt, const CUtensorMap& qm, const CUtensorMap& km, const C
 
 // ---------------------------------------------------- the key-tiled kernel
 
-constexpr int TL_Q = 64;  // query rows per CTA: four warps of 16
-constexpr int TL_K = 64;  // keys per streamed tile
+constexpr int TL = 64;                         // keys a stage, query rows a warpgroup
+constexpr int TL_STAGES = 4;                   // stages of the K / V ring
+constexpr int TL_CONSUMERS = 256;              // two warpgroups of 64 query rows
+constexpr int TL_THREADS = TL_CONSUMERS + 32;  // and the producer warp
 
-// Rows [r0, r0 + 64) of one head (HD columns, row stride `stride`) into a
-// padded shared tile by cp.async; rows at or past `rows` read as zero.
+// Bytes of one 64-row tile of K, V or Q (TMA's box {HD, 64}).
 template <int HD>
-__device__ __forceinline__ void load_tile_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                               long long stride, int r0, int rows, int tid) {
-  constexpr int STR = HD + 8, CPR = HD / 8;  // 16-byte chunks a row
-  for (int chunk = tid; chunk < 64 * CPR; chunk += THREADS) {
-    const int r = chunk / CPR, c = (chunk % CPR) * 8;
-    const int row = r0 + r;
-    const int ok = row < rows;
-    cp_async16(&dst[r * STR + c], src + (long long)(ok ? row : 0) * stride + c, ok ? 16 : 0);
-  }
+__host__ __device__ constexpr int tile_bytes() {
+  return TL * 2 * HD;
 }
 
-// S = Q K^T for the warp's 16 query rows x the 64 keys of one staged tile
-// (key0 its first key), times scale; keys past n (and, with MASK, keys
-// whose tile mask entry is not > 0; the entry is 0 past n) at -inf.
-template <int HD, bool MASK>
-__device__ __forceinline__ void tile_logits(float (*s)[4], uint32_t (*qf)[4],
-                                            const __nv_bfloat16* sk, const float* skm, int key0,
-                                            int n, float scale, int lane) {
-  constexpr int STR = HD + 8;
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-  for (int jp = 0; jp < 4; ++jp) {
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t kf[4];
-      const int r = jp * 16 + (lane & 7) + (lane >> 4) * 8;
-      const int c = kk * 16 + ((lane >> 3) & 1) * 8;
-      ldmatrix_x4(kf, &sk[r * STR + c]);
-      mma_bf16(s[2 * jp], qf[kk], kf[0], kf[1]);
-      mma_bf16(s[2 * jp + 1], qf[kk], kf[2], kf[3]);
-    }
-  }
-  const int tq = lane & 3;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int col = j * 8 + tq * 2;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      if constexpr (MASK)
-        s[j][e] = (skm[col + (e & 1)] > 0.f) ? s[j][e] * scale : -INFINITY;
-      else
-        s[j][e] = (key0 + col + (e & 1) < n) ? s[j][e] * scale : -INFINITY;
-    }
-  }
+// Dynamic shared memory of the key-tiled kernel: two Q tiles, the ring's
+// K and V tiles, its mbarriers and the key mask's bits (8 bytes a stage;
+// mask_stages is 0 without a mask).
+template <int HD>
+int tiled_smem(int mask_stages) {
+  return 1024 + (2 + 2 * TL_STAGES) * tile_bytes<HD>() + (2 * TL_STAGES + 1) * 8 +
+         8 * mask_stages;
 }
 
-// Two passes over the keys with K and V streamed through shared memory in
-// 64-key tiles (double-buffered cp.async), the head dim a template
-// argument: any n_k, head dim 32 or 64.
+// The thread's key columns of 64-key stage c, bit 8 j + e for accumulator
+// registers 4 j + 2 h + e (column 8 j + 2 t4 + e): attended and below n_k.
+template <bool MASK>
+__device__ __forceinline__ uint64_t stage_keys(const uint32_t* keep, int c, int nk, int t4) {
+  if constexpr (MASK) {
+    const uint64_t kb = (uint64_t)keep[2 * c] | ((uint64_t)keep[2 * c + 1] << 32);
+    return kb >> (2 * t4);
+  } else {
+    const int lim = nk - c * TL - 2 * t4;
+    return lim >= 64 ? ~0ull : lim <= 0 ? 0ull : (1ull << lim) - 1;
+  }
+}
+__device__ __forceinline__ void mask_keys(float* s, uint64_t kb) {
+#pragma unroll
+  for (int r = 0; r < 32; ++r)
+    if (!((kb >> (8 * (r >> 2) + (r & 1))) & 1)) s[r] = -INFINITY;
+}
+
+// s (m64n64 accumulators, zeroed here) = Q K^T for the warpgroup's 64 query
+// rows and a stage's 64 keys; issued, not waited for. Q is the register A
+// operand at head dim 32 (qa) and read from its tile sq at 64, where its
+// 16 registers a thread would not fit beside S, O and P at two CTAs an SM.
+template <int HD>
+__device__ __forceinline__ void stage_logits(float* s, uint32_t (*qa)[4], uint32_t sq,
+                                             uint32_t sk) {
+#pragma unroll
+  for (int r = 0; r < 32; ++r) s[r] = 0.f;
+  hopper::fence_regs<32>(s);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    if constexpr (HD == 64)
+      hopper::wgmma_m64n64k16_ss<0, 0>(s, hopper::desc_kmajor<HD>(sq + kk * 32),
+                                       hopper::desc_kmajor<HD>(sk + kk * 32));
+    else
+      hopper::wgmma_m64n64k16_rs<0>(s, qa[kk], hopper::desc_kmajor<HD>(sk + kk * 32));
+  }
+  hopper::wgmma_commit();
+}
+
+// Grid (pair of 64-row query tiles, head, image); 288 threads: warps 0-7
+// are two consumer warpgroups (query tiles 2 x and 2 x + 1), warp 8 the
+// producer. The producer's lane 0 loads both Q tiles onto one mbarrier,
+// then K (pass 1) and K and V (pass 2) of every 64-key stage through a
+// ring of TL_STAGES slots by TMA: a slot's `full` barrier takes the bytes,
+// its `empty` barrier one arrival from each consumer warp once the wgmma
+// that read it has completed, and the producer refills the slot only
+// then. Both warpgroups read each stage, so K and V are fetched once per
+// 128 query rows.
 template <int HD, bool MASK>
-__global__ void __launch_bounds__(THREADS, 4)
-attn_tiled_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                      const float* __restrict__ kmask, int nq, int n, int d, int q_stride,
-                      int kv_stride, float scale) {
-  constexpr int STR = HD + 8, TILE = TL_K * STR, KK = HD / 16;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sk = sq + TL_Q * STR;  // two tiles
-  __nv_bfloat16* sv = sk + 2 * TILE;    // two tiles
-  float* skm = reinterpret_cast<float*>(sv + 2 * TILE);  // two tiles' key mask
+__global__ void __launch_bounds__(TL_THREADS, 2)
+attn_tiled_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
+                      const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ out,
+                      const float* __restrict__ kmask, int nq, int nk, int d, float scale_log2e) {
+  constexpr int TB = tile_bytes<HD>();
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  const uint32_t sq = (raw + 1023) & ~1023u;  // 1024-aligned for the swizzle
+  const uint32_t sk = sq + 2 * TB;
+  const uint32_t sv = sk + TL_STAGES * TB;
+  const uint32_t full = sv + TL_STAGES * TB, empty = full + 8 * TL_STAGES;
+  const uint32_t qbar = empty + 8 * TL_STAGES;
+  uint32_t* keep = reinterpret_cast<uint32_t*>(smem_raw + (qbar + 8 - raw));
 
-  const int q0 = blockIdx.x * TL_Q, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int ntiles = (n + TL_K - 1) / TL_K;
-  const __nv_bfloat16* kh = k + (long long)b * n * kv_stride + h * HD;
-  const __nv_bfloat16* vh = v + (long long)b * n * kv_stride + h * HD;
+  const int q0 = blockIdx.x * 2 * TL, h = blockIdx.y, b = blockIdx.z;
+  const int nwg = nq - q0 > TL ? 2 : 1;  // warpgroups with query rows
+  const int ns = (nk + TL - 1) / TL;     // 64-key stages a pass
+  const int tid = threadIdx.x, lane = tid & 31;
 
-  auto load_kv = [&](int t, bool with_v) {
-    const int buf = t & 1;
-    load_tile_rows<HD>(sk + buf * TILE, kh, kv_stride, t * TL_K, n, tid);
-    if (with_v) load_tile_rows<HD>(sv + buf * TILE, vh, kv_stride, t * TL_K, n, tid);
-    if constexpr (MASK) {
-      for (int r = tid; r < TL_K; r += THREADS) {
-        const int key = t * TL_K + r;
-        skm[buf * TL_K + r] = key < n ? kmask[(long long)b * n + key] : 0.f;
+  if (tid == 0) {
+    for (int i = 0; i < TL_STAGES; ++i) {
+      hopper::mbar_init(full + 8 * i, 1);
+      hopper::mbar_init(empty + 8 * i, 4 * nwg);
+    }
+    hopper::mbar_init(qbar, 1);
+    hopper::mbar_fence_init();
+  }
+  if constexpr (MASK) {  // one bit a key, 0 past n_k: a ballot per 32 keys
+    for (int w = tid >> 5; w < 2 * ns; w += TL_THREADS / 32) {
+      const int key = 32 * w + lane;
+      const uint32_t bits =
+          __ballot_sync(0xffffffffu, key < nk && kmask[(long long)b * nk + key] > 0.f);
+      if (lane == 0) keep[w] = bits;
+    }
+  }
+  __syncthreads();
+
+  if (tid >= TL_CONSUMERS) {  // the producer warp
+    if (tid == TL_CONSUMERS) {
+      hopper::mbar_expect_tx(qbar, nwg * TB);
+      for (int w = 0; w < nwg; ++w)
+        hopper::tma_load_3d(sq + w * TB, &qmap, h * HD, q0 + TL * w, b, qbar);
+      for (int it = 0; it < 2 * ns; ++it) {  // pass 1: K; pass 2: K and V
+        const int slot = it % TL_STAGES, c = it < ns ? it : it - ns;
+        if (it >= TL_STAGES) hopper::mbar_wait(empty + 8 * slot, (it / TL_STAGES - 1) & 1);
+        const uint32_t bar = full + 8 * slot;
+        hopper::mbar_expect_tx(bar, (it < ns ? 1 : 2) * TB);
+        hopper::tma_load_3d(sk + slot * TB, &kmap, h * HD, c * TL, b, bar);
+        if (it >= ns) hopper::tma_load_3d(sv + slot * TB, &vmap, h * HD, c * TL, b, bar);
       }
     }
-    cp_async_commit();
-  };
-  // Tile t's buffers are complete and visible once this returns; the
-  // next tile is then in flight.
-  auto next_tile = [&](int t, bool with_v) {
-    if (t + 1 < ntiles) {
-      load_kv(t + 1, with_v);
-      asm volatile("cp.async.wait_group 1;\n" ::);
-    } else {
-      cp_async_wait_all();
-    }
-    __syncthreads();
-  };
-
-  load_tile_rows<HD>(sq, q + (long long)b * nq * q_stride + h * HD, q_stride, q0, nq, tid);
-  cp_async_commit();
-  load_kv(0, false);
-  asm volatile("cp.async.wait_group 1;\n" ::);
-  __syncthreads();
-  uint32_t qf[KK][4];
-#pragma unroll
-  for (int kk = 0; kk < KK; ++kk) {
-    const int r = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-    const int c = kk * 16 + (lane >> 4) * 8;
-    ldmatrix_x4(qf[kk], &sq[r * STR + c]);
+    return;
   }
 
-  // Pass 1: row max and sum of exp(x - max), rows g and g + 8.
+  const int w = tid >> 7, warp = (tid >> 5) & 3, g = lane >> 2, t4 = lane & 3;
+  if (w >= nwg) return;
+  auto release = [&](int slot) {
+    if (lane == 0) hopper::mbar_arrive(empty + 8 * slot);
+  };
+  hopper::mbar_wait(qbar, 0);
+  const uint32_t myq = sq + w * TB;
+  uint32_t qa[HD / 16][4];
+  if constexpr (HD == 32) hopper::ldmatrix_a<HD>(qa, myq, warp * 16, lane);
+
+  // Pass 1: each row's max (of the raw logits: the scale is positive) and
+  // its sum of exp2(x * scale log2 e - max * scale log2 e), online per
+  // stage; rows g (registers 4 j + e) and g + 8 (4 j + 2 + e). A row that
+  // has seen no attended key (MASK) keeps the exponent's base at 0, so its
+  // terms are exp2(-inf) = 0 and no NaN arises.
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-  float s[8][4];
-  for (int t = 0; t < ntiles; ++t) {
-    next_tile(t, false);
-    const int buf = t & 1;
-    tile_logits<HD, MASK>(s, qf, sk + buf * TILE, skm + buf * TL_K, t * TL_K, n, scale, lane);
+  float s[32];
+  for (int c = 0; c < ns; ++c) {
+    const int slot = c % TL_STAGES;
+    hopper::mbar_wait(full + 8 * slot, (c / TL_STAGES) & 1);
+    stage_logits<HD>(s, qa, myq, sk + slot * TB);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs<32>(s);
+    release(slot);
+    if (MASK || c == ns - 1) mask_keys(s, stage_keys<MASK>(keep, c, nk, t4));
     float c0 = -INFINITY, c1 = -INFINITY;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      c0 = fmaxf(c0, fmaxf(s[j][0], s[j][1]));
-      c1 = fmaxf(c1, fmaxf(s[j][2], s[j][3]));
+    for (int r = 0; r < 32; ++r) {
+      if ((r >> 1) & 1)
+        c1 = fmaxf(c1, s[r]);
+      else
+        c0 = fmaxf(c0, s[r]);
     }
     const float n0 = fmaxf(m0, quad_max(c0)), n1 = fmaxf(m1, quad_max(c1));
-    if constexpr (MASK) {  // no key of the row seen yet: every term below is 0
-      const float e0 = n0 == -INFINITY ? 0.f : n0, e1 = n1 == -INFINITY ? 0.f : n1;
-      l0 *= expf(m0 - e0);
-      l1 *= expf(m1 - e1);
+    const float b0 = MASK && n0 == -INFINITY ? 0.f : -n0 * scale_log2e;
+    const float b1 = MASK && n1 == -INFINITY ? 0.f : -n1 * scale_log2e;
+    float e0 = 0.f, e1 = 0.f;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        l0 += expf(s[j][0] - e0) + expf(s[j][1] - e0);
-        l1 += expf(s[j][2] - e1) + expf(s[j][3] - e1);
-      }
-    } else {
-      l0 *= expf(m0 - n0);
-      l1 *= expf(m1 - n1);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        l0 += expf(s[j][0] - n0) + expf(s[j][1] - n0);
-        l1 += expf(s[j][2] - n1) + expf(s[j][3] - n1);
-      }
+    for (int r = 0; r < 32; ++r) {
+      if ((r >> 1) & 1)
+        e1 += hopper::ex2(fmaf(s[r], scale_log2e, b1));
+      else
+        e0 += hopper::ex2(fmaf(s[r], scale_log2e, b0));
     }
+    l0 = fmaf(l0, hopper::ex2(fmaf(m0, scale_log2e, b0)), e0);
+    l1 = fmaf(l1, hopper::ex2(fmaf(m1, scale_log2e, b1)), e1);
     m0 = n0;
     m1 = n1;
-    __syncthreads();  // every warp is done with this buffer before it is refilled
   }
-  l0 = quad_sum(l0);
-  l1 = quad_sum(l1);
+  const float i0 = 1.f / quad_sum(l0), i1 = 1.f / quad_sum(l1);
+  const float b0 = MASK && m0 == -INFINITY ? 0.f : -m0 * scale_log2e;
+  const float b1 = MASK && m1 == -INFINITY ? 0.f : -m1 * scale_log2e;
 
-  // Pass 2: P = bf16(exp(x - max) / sum), O += P V.
-  float o[HD / 8][4];
+  // Pass 2: P = bf16(exp2(x * scale log2 e - max * scale log2 e) / sum), the
+  // register A operand of O += P V (V MN-major). A stage's P V completes
+  // under the next stage's wait, and its slot is released then.
+  float o[HD / 2];
 #pragma unroll
-  for (int j = 0; j < HD / 8; ++j)
+  for (int r = 0; r < HD / 2; ++r) o[r] = 0.f;
+  uint32_t pa[4][4];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
-  load_kv(0, true);
-  for (int t = 0; t < ntiles; ++t) {
-    next_tile(t, true);
-    const int buf = t & 1;
-    tile_logits<HD, MASK>(s, qf, sk + buf * TILE, skm + buf * TL_K, t * TL_K, n, scale, lane);
-    uint32_t pa[4][4];
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) pa[j][e] = 0u;
+  int prev = 0;
+  for (int c = 0; c < ns; ++c) {
+    const int it = ns + c, slot = it % TL_STAGES;
+    hopper::mbar_wait(full + 8 * slot, (it / TL_STAGES) & 1);
+    stage_logits<HD>(s, qa, myq, sk + slot * TB);
+    hopper::wgmma_wait<0>();  // this S, and the previous stage's P V
+    hopper::fence_regs<32>(s);
+    hopper::fence_regs<HD / 2>(o);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) hopper::fence_regs<4>(pa[j]);
+    if (c > 0) release(prev);
+    if (MASK || c == ns - 1) mask_keys(s, stage_keys<MASK>(keep, c, nk, t4));
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const float p0 = expf(s[j][0] - m0) / l0, p1 = expf(s[j][1] - m0) / l0;
-      const float p2 = expf(s[j][2] - m1) / l1, p3 = expf(s[j][3] - m1) / l1;
+      const float p0 = hopper::ex2(fmaf(s[4 * j], scale_log2e, b0)) * i0;
+      const float p1 = hopper::ex2(fmaf(s[4 * j + 1], scale_log2e, b0)) * i0;
+      const float p2 = hopper::ex2(fmaf(s[4 * j + 2], scale_log2e, b1)) * i1;
+      const float p3 = hopper::ex2(fmaf(s[4 * j + 3], scale_log2e, b1)) * i1;
       pa[j >> 1][(j & 1) * 2] = pack_bf16(p0, p1);
       pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
     }
-    const __nv_bfloat16* svt = sv + buf * TILE;
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
+    for (int j = 0; j < 4; ++j) hopper::fence_regs<4>(pa[j]);
+    hopper::fence_regs<HD / 2>(o);
+    hopper::wgmma_fence();
 #pragma unroll
-      for (int jn = 0; jn < HD / 16; ++jn) {
-        uint32_t vf[4];
-        const int r = jj * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-        const int c = jn * 16 + (lane >> 4) * 8;
-        ldmatrix_x4_trans(vf, &svt[r * STR + c]);
-        mma_bf16(o[2 * jn], pa[jj], vf[0], vf[1]);
-        mma_bf16(o[2 * jn + 1], pa[jj], vf[2], vf[3]);
-      }
-    }
-    __syncthreads();
+    for (int sl = 0; sl < 4; ++sl)
+      hopper::wgmma_m64nhd_rs_mn<HD>(
+          o, pa[sl], hopper::desc_mnmajor<HD>(sv + slot * TB + sl * 16 * 2 * HD));
+    hopper::wgmma_commit();
+    hopper::fence_regs<HD / 2>(o);
+    prev = slot;
   }
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs<HD / 2>(o);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) hopper::fence_regs<4>(pa[j]);
 
-  const int g = lane >> 2, tq = lane & 3;
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  __nv_bfloat16* obase = out + (long long)b * nq * d + h * HD + tq * 2;
+  const int r0 = q0 + TL * w + warp * 16 + g, r1 = r0 + 8;
+  __nv_bfloat16* obase = out + (long long)b * nq * d + h * HD + t4 * 2;
 #pragma unroll
   for (int j = 0; j < HD / 8; ++j) {
     if (r0 < nq)
       *reinterpret_cast<__nv_bfloat162*>(obase + (long long)r0 * d + j * 8) =
-          __floats2bfloat162_rn(o[j][0], o[j][1]);
+          __floats2bfloat162_rn(o[4 * j], o[4 * j + 1]);
     if (r1 < nq)
       *reinterpret_cast<__nv_bfloat162*>(obase + (long long)r1 * d + j * 8) =
-          __floats2bfloat162_rn(o[j][2], o[j][3]);
+          __floats2bfloat162_rn(o[4 * j + 2], o[4 * j + 3]);
   }
 }
 
+// Tensor maps over (column, token, image) of q, k and v (each image's rows
+// past nq / nk load as zeros), then the launch.
 template <int HD>
-int launch_tiled(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-                 __nv_bfloat16* out, const float* kmask, int b, int nq, int nk, int d,
-                 int q_stride, int kv_stride, int heads, float scale, cudaStream_t stream) {
-  const int smem = (TL_Q + 4 * TL_K) * (HD + 8) * 2 + 2 * TL_K * 4;
+int launch_tiled(const void* q, const void* k, const void* v, __nv_bfloat16* out,
+                 const float* kmask, int b, int nq, int nk, int d, int q_stride, int kv_stride,
+                 int heads, float scale_log2e, cudaStream_t stream) {
+  CUtensorMap qmap, kmap, vmap;
+  const uint64_t qdims[3] = {(uint64_t)d, (uint64_t)nq, (uint64_t)b};
+  const uint64_t qstr[2] = {(uint64_t)q_stride * 2, (uint64_t)q_stride * 2 * nq};
+  const uint64_t kdims[3] = {(uint64_t)d, (uint64_t)nk, (uint64_t)b};
+  const uint64_t kstr[2] = {(uint64_t)kv_stride * 2, (uint64_t)kv_stride * 2 * nk};
+  const uint32_t box[3] = {HD, TL, 1};
+  const CUtensorMapSwizzle sw = HD == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  if (!hopper::make_map_bf16(&qmap, q, 3, qdims, qstr, box, sw) ||
+      !hopper::make_map_bf16(&kmap, k, 3, kdims, kstr, box, sw) ||
+      !hopper::make_map_bf16(&vmap, v, 3, kdims, kstr, box, sw))
+    return (int)cudaErrorInvalidValue;
+  const int ns = (nk + TL - 1) / TL;
+  const int smem = tiled_smem<HD>(kmask ? ns : 0);
   auto kernel = kmask ? attn_tiled_fwd_kernel<HD, true> : attn_tiled_fwd_kernel<HD, false>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((nq + TL_Q - 1) / TL_Q, heads, b);
-  kernel<<<grid, THREADS, smem, stream>>>(q, k, v, out, kmask, nq, nk, d, q_stride, kv_stride,
-                                          scale);
+  dim3 grid((nq + 2 * TL - 1) / (2 * TL), heads, b);
+  kernel<<<grid, TL_THREADS, smem, stream>>>(qmap, kmap, vmap, out, kmask, nq, nk, d,
+                                             scale_log2e);
   return (int)cudaGetLastError();
 }
 
@@ -583,15 +626,13 @@ extern "C" int peekvit_attn_softmax_fwd(const void* q, const void* k, const void
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
   const float* km = static_cast<const float*>(kmask);
-  const __nv_bfloat16* qb = static_cast<const __nv_bfloat16*>(q);
-  const __nv_bfloat16* kb = static_cast<const __nv_bfloat16*>(k);
-  const __nv_bfloat16* vb = static_cast<const __nv_bfloat16*>(v);
+  const float sl2e = scale * 1.4426950408889634f;
   if (route == 2)
     return head_dim == 32
-               ? launch_tiled<32>(qb, kb, vb, o, km, b, nq, nk, d, q_stride, kv_stride, num_heads,
-                                  scale, st)
-               : launch_tiled<64>(qb, kb, vb, o, km, b, nq, nk, d, q_stride, kv_stride, num_heads,
-                                  scale, st);
+               ? launch_tiled<32>(q, k, v, o, km, b, nq, nk, d, q_stride, kv_stride, num_heads,
+                                  sl2e, st)
+               : launch_tiled<64>(q, k, v, o, km, b, nq, nk, d, q_stride, kv_stride, num_heads,
+                                  sl2e, st);
   if (route != 1) return (int)cudaErrorInvalidValue;
   const int nt = (nk + 15) / 16;
   CUtensorMap qmap, kmap, vmap;
@@ -604,7 +645,6 @@ extern "C" int peekvit_attn_softmax_fwd(const void* q, const void* k, const void
       !hopper::make_map_bf16(&kmap, k, 3, kdims, kstr, kbox) ||
       !hopper::make_map_bf16(&vmap, v, 3, kdims, kstr, kbox))
     return (int)cudaErrorInvalidValue;
-  const float sl2e = scale * 1.4426950408889634f;
   return km ? dispatch_wgmma<true>(nt, qmap, kmap, vmap, o, km, b, nq, nk, d, num_heads, sl2e, st)
             : dispatch_wgmma<false>(nt, qmap, kmap, vmap, o, km, b, nq, nk, d, num_heads, sl2e,
                                     st);

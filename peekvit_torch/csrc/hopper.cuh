@@ -57,6 +57,20 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
+// ------------------------------------------------------------------ registers
+
+// A warpgroup gives back registers (dec) or takes them (inc) down or up to
+// N a thread; every thread of the warpgroup executes it. An inc waits until
+// the CTA's pool holds enough (what the other warpgroups gave back).
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
 // ------------------------------------------------------------------ TMA
 
 __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
@@ -190,6 +204,22 @@ __device__ __forceinline__ void wgmma_m64n256k16_ss(float* d, uint64_t da, uint6
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
 template <int TB>
 __device__ __forceinline__ void wgmma_m64n16k16_rs(float* d, const uint32_t* a, uint64_t db) {
   asm volatile(
@@ -229,6 +259,59 @@ __device__ __forceinline__ void wgmma_m64n32k16_rs(float* d, const uint32_t* a, 
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
+}
+
+// exp2 on the SFU alone (ex2.approx.ftz.f32, one MUFU.EX2): exp2f's result
+// wherever that is a normal float (exp2f adds a range fix around the same
+// instruction for results below 2^-126, which flush to 0 here); exp2(-inf)
+// = 0.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Tiles of 64 rows of HD bf16 (HD 64: 128-byte rows, the 128-byte swizzle;
+// HD 32: 64-byte rows, the 64-byte swizzle), as TMA writes them from a box
+// of {HD, 64}: their wgmma descriptors read K-major (the rows are the N
+// dimension, the head dim the reduction; add 32 bytes per 16-column step)
+// and MN-major (the rows are the reduction, the head dim N, one swizzle
+// atom wide; add 16 rows per 16-deep step), and the register A fragments
+// (m16n8k16 layout) of 16 of their rows.
+template <int HD>
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t addr) {
+  if constexpr (HD == 64)
+    return desc_sw128(addr, 16, 1024);
+  else
+    return desc_sw64(addr, 16, 512);
+}
+template <int HD>
+__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t addr) {
+  if constexpr (HD == 64)
+    return desc_sw128(addr, 1024, 1024);
+  else
+    return desc_sw64(addr, 512, 512);
+}
+template <int HD>
+__device__ __forceinline__ void ldmatrix_a(uint32_t (*f)[4], uint32_t tile, int row0, int lane) {
+  const int r = row0 + (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const int chunk = 2 * kk + (lane >> 4);
+    const int swz = HD == 64 ? (chunk ^ (r & 7)) : (chunk ^ ((r >> 1) & 3));
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(f[kk][0]), "=r"(f[kk][1]), "=r"(f[kk][2]), "=r"(f[kk][3])
+                 : "r"(tile + r * (2 * HD) + (swz << 4))
+                 : "memory");
+  }
+}
+// d (m64n{HD}) += A . B with B MN-major: wgmma m64n64k16 or m64n32k16.
+template <int HD>
+__device__ __forceinline__ void wgmma_m64nhd_rs_mn(float* d, const uint32_t* a, uint64_t db) {
+  if constexpr (HD == 64)
+    wgmma_m64n64k16_rs<1>(d, a, db);
+  else
+    wgmma_m64n32k16_rs<1>(d, a, db);
 }
 
 // wgmma with s32 accumulators d (+= A . B) on s8 operands, both K-major in

@@ -185,8 +185,8 @@ def attn_softmax_bwd(qkv: torch.Tensor, dattn: torch.Tensor, num_heads: int) -> 
     (``fused_attention.softmax_route``): at head dim 64 the wgmma kernel up
     to 256 tokens and the kept kernel up to 384, else the key-tiled pair
     of launches (counted once, as ``attn_softmax_bwd.tiled``), which
-    passes each row's max, sum and D through a (3, B, H, N) fp32
-    workspace allocated here."""
+    passes each row's -max * scale * log2(e), 1 / sum and D through a (3,
+    B, H, N) fp32 workspace allocated here."""
     if _on_cpu(qkv, dattn):
         return attn_softmax_bwd_ref(qkv, dattn, num_heads)
     b, n, d, hd = _check_qkv("attn_softmax_bwd", qkv, num_heads)

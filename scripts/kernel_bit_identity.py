@@ -43,17 +43,18 @@ redesigned modes are kept under each checkout's ``build/bit_identity/``
 for the comparison. ``attn_softmax_bwd.kept`` (300 tokens, the kernel
 kept past 256) is not redesigned and must keep its bits.
 
-A mode in RETIMED belongs to a kernel rewritten with its bits kept
-(``norm_rows.cu`` in every mode, ``arpe_tokens``, and ``attn_softmax_fwd``,
-whose key-tiled kernel took the place of the two-pass one from 257 to 768
-keys): it is held bit for bit like any other, and a third child times it
-at its shapes (ViT-B/16, ResidualViT-B/16 N = 198 and 107, A-ViT-S/16,
-PCT; the packed forward at bs128, d 256, 4 heads, N = 402 and 768) in one
-process with
-the other checkout's library of its kernel and with this one's, in turns
-(other, this, this, other), each from a CUDA graph of 20 launches, so the
+A mode in RETIMED is timed by a third child in one process with the other
+checkout's library of its kernel and with this one's, in turns (other,
+this, this, other), each from a CUDA graph of 20 launches, so the
 wrapper's Python between launches is not timed; those C entry points are
-unchanged. Its ``edges`` modes: every ``norm_rows.cu`` mode at widths 128,
+unchanged. ``norm_rows.cu`` in every mode and ``arpe_tokens`` were
+rewritten with their bits kept and are held bit for bit like any other
+mode, timed at their shapes (ViT-B/16, ResidualViT-B/16 N = 198 and 107,
+A-ViT-S/16, PCT). ``attn_softmax_fwd`` and ``attn_softmax_bwd`` are timed
+at the Trainer's shapes (tag ``attn_bs128``: bs128, width 256, head dim
+32 at 401 tokens and head dim 64 at 402, the forward also at 768), which
+take the key-tiled kernels: those routes are redesigned (``TILED_TOL``,
+below). Its ``edges`` modes: every ``norm_rows.cu`` mode at widths 128,
 200, 384, 768 and 1,024 (one to four chunks a lane) and 1,280 (the
 one-warp-a-row kernel kept for wider rows) and 1, 7, 27,392 and 50,688
 rows, masks holding zeros and fractions; ``arpe_tokens`` at 1, 33, 1,000
@@ -78,13 +79,14 @@ and must launch; it is held against its plain version by chip_smoke.py.
 
 The trainable attention's route edges (``_softmax_modes``, at width 256):
 ``attn_softmax_fwd`` (packed and separate), ``attn_softmax_bwd`` and the
-key-masked forward at head dim 64 where a build without the key-tiled
-kernels takes its routes (1-768 tokens; 704 keys masked), bit for bit;
-and, in a build with the
-key-tiled kernels, the shapes only it takes (head dim 32 at 1-1,024
-tokens, head dim 64 past the kept kernels' reach, the masked mode at 402,
-705 and 1,024 keys): new modes, each held against its plain version
-within NEW_PLAIN_TOL (2e-2 of max|plain|: bf16 P and outputs).
+key-masked forward at head dim 64 on the routes that keep their bits (the
+wgmma kernels up to 256 tokens, the kept backward from 257 to 384), bit
+for bit; and on the key-tiled routes (head dim 32 at any N, head dim 64
+past 256 keys forward and past 384 backward), redesigned with wgmma on a
+TMA-fed ring, exp2, one reciprocal a row and the backward's online D:
+each such mode (``edges/`` and ``attn_bs128/``) is held against the other
+build's output within TILED_TOL and against its plain version within
+NEW_PLAIN_TOL (2e-2 of max|.|: bf16 P and dZ, bf16 outputs).
 """
 
 from __future__ import annotations
@@ -107,11 +109,18 @@ REDESIGNED = {"attn_softmax_bwd": {"torch.bfloat16": 2e-2},
 # modes under a redesigned prefix that keep their bits (the earlier backward
 # kernel, past 256 tokens)
 KEPT = ("attn_softmax_bwd.kept", "attn_softmax_bwd.hd64.N257", "attn_softmax_bwd.hd64.N384")
-# rewritten kernels that must keep their bits: held bit for bit like every
-# other mode, and timed with both builds' libraries in one process (their C
-# entry points are unchanged): mode prefix -> source
+# the key-tiled kernels' routes of the trainable attention (head dim 32 at
+# any N; head dim 64 past 256 keys forward and past 384 tokens backward),
+# redesigned (wgmma on a TMA-fed ring, exp2 and one reciprocal a row, the
+# online D): held against the other build's output and against their plain
+# versions at these tolerances
+TILED_TOL = {"torch.bfloat16": 2e-2}
+# kernels timed with both builds' libraries in one process (their C entry
+# points are unchanged): mode prefix -> source. norm_rows, ln_rows and
+# arpe_tokens were rewritten with their bits kept; attn_softmax_fwd and
+# attn_softmax_bwd keep their bits outside the key-tiled routes
 RETIMED = {"norm_rows": "norm_rows", "ln_rows": "norm_rows", "arpe_tokens": "arpe_tokens",
-           "attn_softmax_fwd": "attn_softmax_fwd"}
+           "attn_softmax_fwd": "attn_softmax_fwd", "attn_softmax_bwd": "attn_softmax_bwd"}
 TIMED_TAGS = ("vit_b16_bs256", "pct_bs128", "residual_bs256", "avit_bs256", "attn_bs128")
 # the edges: attn_scores_pv at these token counts (head dim 64 and 32), the
 # s8 GEMM at these (M, N, K)
@@ -123,21 +132,23 @@ NORM_EDGE_WIDTHS = (128, 200, 384, 768, 1024, 1280)
 NORM_EDGE_ROWS = (1, 7, 27392, 50688)
 ARPE_EDGES = ((1, (1,)), (33, (1, 16, 33)), (1000, (1, 16, 64, 1000)), (1024, (1, 16, 64, 1024)))
 # the trainable attention (attn_softmax_fwd.cu / attn_softmax_bwd.cu) at head
-# dim 64 where a build without the key-tiled kernels takes its routes (wgmma
-# up to 256, the two-pass forward to 768 keys, 704 with a key mask, the
-# earlier backward to 384): the key-tiled forward took the two-pass
-# forward's place and must give its bits; and the shapes only a build with
-# the key-tiled kernels takes (head dim 32 at any N, head dim 64 past those),
-# held against their plain versions at NEW_PLAIN_TOL (bf16 P and outputs)
-# instead
-SOFTMAX_KEPT_EDGES = {"fwd": (1, 17, 256, 257, 704, 768), "bwd": (1, 17, 256, 257, 384),
-                      "kmask": ((99, 198), (130, 260), (300, 704))}
-# the packed forward at ResidualViT's width (d 256, 4 heads) and bs128, at
-# its 160 px token count and at the two-pass forward's last: bit for bit
-# and timed with both builds' libraries (RETIMED, tag "attn_bs128")
-SOFTMAX_TIMED_TOKENS = (402, 768)
-SOFTMAX_TILED_EDGES = {32: (1, 17, 401, 785, 1024), 64: (385, 402, 769, 786, 1024)}
-SOFTMAX_TILED_KMASK = ((32, 201, 402), (64, 300, 705), (64, 512, 1024))
+# dim 64 on the routes that keep their bits (the wgmma forward and backward
+# up to 256, the kept backward from 257 to 384): bit for bit
+SOFTMAX_KEPT_EDGES = {"fwd": (1, 17, 256), "bwd": (1, 17, 256, 257, 384),
+                      "kmask": ((50, 200), (99, 198))}
+# the key-tiled routes (redesigned, TILED_TOL against the other build, and
+# NEW_PLAIN_TOL against their plain versions): head dim 32 at any N (128 /
+# 129 the two-warpgroup CTA's edge), head dim 64 past the kept reach, the
+# key-masked forward past 256 keys
+SOFTMAX_TILED_EDGES = {32: (1, 17, 128, 129, 401, 785, 1024),
+                       64: (257, 385, 402, 704, 768, 769, 786, 1024)}
+SOFTMAX_TILED_KMASK = ((32, 201, 402), (64, 130, 260), (64, 300, 704), (64, 300, 705),
+                       (64, 512, 1024))
+# the key-tiled kernels at the Trainer's shapes, bs128, width 256 (tag
+# "attn_bs128", timed with both builds' libraries in turns, RETIMED):
+# (head dim, tokens, forward and / or backward): vit_tiny / rankvit at 160
+# px, residualvit at 160 px, and the 768-key forward
+SOFTMAX_TIMED = ((32, 401, ("fwd", "bwd")), (64, 402, ("fwd", "bwd")), (64, 768, ("fwd",)))
 NEW_PLAIN_TOL = 2e-2
 # name -> (images, tokens, width, heads, mlp width)
 SHAPES = {"vit_b16_bs256": (256, 197, 768, 12, 3072), "ragged": (3, 50, 128, 2, 256)}
@@ -151,12 +162,26 @@ def _digest(t) -> str:
     return hashlib.sha256(raw.numpy().tobytes()).hexdigest()
 
 
+def _tiled_route(name: str) -> bool:
+    """Whether a trainable-attention mode ("attn_softmax_{fwd,bwd}[.sub].hd<H>.N<n>"
+    or "...hd<H>.<nq>x<nk>") takes a key-tiled kernel."""
+    import re
+
+    found = re.match(r"attn_softmax_(fwd|bwd)[a-z.]*\.hd(\d+)\.(?:N(\d+)|\d+x(\d+))$", name)
+    if not found:
+        return False
+    n = int(found.group(3) or found.group(4))
+    return found.group(2) == "32" or n > (384 if found.group(1) == "bwd" else 256)
+
+
 def _redesigned(mode: str):
     """The tolerances (by output dtype) of a redesigned mode ("<tag>/<name>"),
     else None."""
     name = mode.split("/", 1)[1]
     if name in KEPT:
         return None
+    if _tiled_route(name):
+        return TILED_TOL
     return next((tol for key, tol in REDESIGNED.items() if name.split(".")[0] == key), None)
 
 
@@ -595,10 +620,17 @@ def _softmax_modes(torch, dev, fa, vjp, lv) -> dict:
         attn_modes(64, n, which, plain=False)
     for nq, nk in SOFTMAX_KEPT_EDGES["kmask"]:
         kmask_mode(64, nq, nk, plain=False)
-    for n in SOFTMAX_TIMED_TOKENS:
-        qkv_t = randn(128, n, 768)
-        modes[f"attn_bs128/attn_softmax_fwd.hd64.N{n}"] = (
-            lambda qkv_t=qkv_t: vjp.attn_softmax_fwd(qkv_t, 4), None)
+    for hd, n, which in SOFTMAX_TIMED:
+        heads = 256 // hd
+        qkv_t, da_t = randn(128, n, 768), randn(128, n, 256, scale=0.05)
+        if "fwd" in which:
+            modes[f"attn_bs128/attn_softmax_fwd.hd{hd}.N{n}"] = (
+                lambda qkv_t=qkv_t, h=heads: vjp.attn_softmax_fwd(qkv_t, h),
+                lambda qkv_t=qkv_t, h=heads: vjp.attn_softmax_fwd_ref(qkv_t, h))
+        if "bwd" in which:
+            modes[f"attn_bs128/attn_softmax_bwd.hd{hd}.N{n}"] = (
+                lambda qkv_t=qkv_t, da_t=da_t, h=heads: vjp.attn_softmax_bwd(qkv_t, da_t, h),
+                lambda qkv_t=qkv_t, da_t=da_t, h=heads: vjp.attn_softmax_bwd_ref(qkv_t, da_t, h))
     if hasattr(fa, "softmax_route"):  # a build with the key-tiled kernels
         for hd, tokens in SOFTMAX_TILED_EDGES.items():
             for n in tokens:
@@ -675,19 +707,25 @@ def main() -> int:
             continue
         same = this["sha256"] == other["sha256"]
         launched = sum(this["launches"].values()) > 0 and sum(other["launches"].values()) > 0
+        turns = {}
+        if mode in ab:  # the mean of the two turns of each build
+            turns = {"graph_ms": sum(ab[mode]["this"]) / 2,
+                     "other_graph_ms": sum(ab[mode]["other"]) / 2, "turns_ms": ab[mode]}
         tol = _redesigned(mode)
         if tol is not None:  # meant to change its bits: held at the plain tolerance
             held = _against_other(mode, roots, tol)
+            plain = this.get("plain_rel")
             print(json.dumps({"mode": mode, "redesigned": True, "bit_identical": same, **held,
-                              "ms": this.get("ms"), "other_ms": other.get("ms"),
+                              "max_rel_diff_vs_plain": plain, "ms": this.get("ms"),
+                              "other_ms": other.get("ms"), **turns,
                               "launches": this["launches"],
                               "other_launches": other["launches"]}))
-            if not (held["within"] and launched):
+            if not (held["within"] and launched and (plain is None or plain <= NEW_PLAIN_TOL)):
                 failed.append(mode)
             continue
         times = {}
-        if mode in ab:  # the mean of the two turns of each build
-            times = {"ms": sum(ab[mode]["this"]) / 2, "other_ms": sum(ab[mode]["other"]) / 2,
+        if turns:
+            times = {"ms": turns["graph_ms"], "other_ms": turns["other_graph_ms"],
                      "turns_ms": ab[mode]}
         print(json.dumps({"mode": mode, "bit_identical": same, "outputs": len(this["sha256"]),
                           **times, "launches": this["launches"],

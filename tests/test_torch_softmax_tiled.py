@@ -218,7 +218,8 @@ def test_block_gradients_match_jax_at_the_trainer_shapes(case, dtype):
 
 # --------------------------------------- the tiled kernels' order, in torch
 
-TILE, CHUNK = 64, 16  # keys (queries) per streamed tile; per mma chunk of the backward
+TILE = 64  # keys (queries) per streamed stage of the key-tiled kernels
+LOG2E = 1.4426950408889634
 
 
 def _heads(t, parts, heads):
@@ -226,74 +227,93 @@ def _heads(t, parts, heads):
     return t.float().reshape(b, n, parts, heads, w // parts // heads).permute(2, 0, 3, 1, 4)
 
 
+def _scale_log2e(scale):
+    """scale * log2(e) as the kernels' entry points form it, in fp32."""
+    return torch.tensor(scale, dtype=torch.float32) * torch.tensor(LOG2E, dtype=torch.float32)
+
+
 def _tiled_forward(q, k, v, kmask, scale, dt):
     """attn_tiled_fwd_kernel's work per (image, head) in fp32: pass 1 takes
-    each 64-key tile's logits, its row max, and the running sum rescaled to
-    the new max (the exponent's base 0 while a row has seen no key); pass
-    2 forms P = exp(s - m) / l tile by tile, rounds it to ``dt`` and sums
-    P V over the tiles. q (B, H, nq, hd), k, v (B, H, nk, hd) fp32;
+    each 64-key stage's raw logits (scaled only in the exponent), the row
+    max, and the running sum of exp2(x * scale log2 e - max * scale log2
+    e): the stage's terms summed, then added to the sum rescaled to the new
+    max (the exponent's base 0 while a row has seen no key); pass 2 forms
+    P = exp2(...) * (1 / sum) stage by stage, rounds it to ``dt`` and sums
+    P V over the stages. q (B, H, nq, hd), k, v (B, H, nk, hd) fp32;
     kmask (B, nk) or None."""
     nk = k.shape[2]
+    sl2e = _scale_log2e(scale)
     m = torch.full(q.shape[:3], float("-inf"))
     l = torch.zeros(q.shape[:3])
-    tiles = range(0, nk, TILE)
+    stages = range(0, nk, TILE)
 
     def logits(t0):
-        s = torch.matmul(q, k[:, :, t0:t0 + TILE].transpose(-1, -2)) * scale
+        s = torch.matmul(q, k[:, :, t0:t0 + TILE].transpose(-1, -2))
         if kmask is not None:
             s = torch.where(kmask[:, None, None, t0:t0 + TILE] > 0, s, float("-inf"))
         return s
 
-    for t0 in tiles:
+    def base_of(mx):  # -max * scale log2 e, 0 where a row has seen no key
+        return torch.where(mx == float("-inf"), torch.zeros_like(mx), -mx * sl2e)
+
+    for t0 in stages:
         s = logits(t0)
         new = torch.maximum(m, s.amax(-1))
-        base = torch.where(new == float("-inf"), torch.zeros_like(new), new)
-        l = l * torch.exp(m - base) + torch.exp(s - base[..., None]).sum(-1)
+        base = base_of(new)
+        terms = torch.exp2(s * sl2e + base[..., None]).sum(-1)
+        l = l * torch.exp2(m * sl2e + base) + terms
         m = new
+    inv, base = 1.0 / l, base_of(m)
     o = torch.zeros(q.shape)
-    for t0 in tiles:
-        p = (torch.exp(logits(t0) - m[..., None]) / l[..., None]).to(dt).float()
+    for t0 in stages:
+        p = (torch.exp2(logits(t0) * sl2e + base[..., None]) * inv[..., None]).to(dt).float()
         o = o + torch.matmul(p, v[:, :, t0:t0 + TILE].to(dt).float())
     return o
 
 
 def _tiled_backward(q, k, v, da, scale, dt):
-    """The tiled backward pair per (image, head) in fp32. Launch 1 (query
-    tiles) sweeps the keys in 16-key chunks three times: the online row
-    max and sum, D = rowsum(dS * P), then dQ = sum of bf16(dZ * scale) K;
-    it keeps (max, sum, D). Launch 2 (key tiles) sweeps the queries in
-    16-query chunks with those statistics: dV = sum of bf16(P)^T dA, dK =
-    sum of bf16(dZ * scale)^T Q. Returns dq, dk, dv (B, H, N, hd)."""
+    """The key-tiled backward pair per (image, head) in fp32. Launch 1
+    (query tiles) sweeps the keys in 64-key stages twice: first the online
+    row max, sum and D numerator sum(e dS), the last two rescaled together
+    as the max grows, then D = numerator * (1 / sum); then dQ = sum of
+    bf16(P (dS - D) scale) K with P = exp2(s * scale log2 e - max * scale
+    log2 e) * (1 / sum). It keeps (-max * scale log2 e, 1 / sum, D). Launch 2
+    (key tiles) sweeps the queries in 64-query stages with those statistics,
+    forming the same P: dV = sum of bf16(P)^T dA, dK = sum of bf16(dZ *
+    scale)^T Q. Returns dq, dk, dv (B, H, N, hd)."""
     n = q.shape[2]
+    sl2e = _scale_log2e(scale)
     m = torch.full(q.shape[:3], float("-inf"))
-    l = torch.zeros(q.shape[:3])
-    chunks = range(0, n, CHUNK)
-    for c0 in chunks:
-        s = torch.matmul(q, k[:, :, c0:c0 + CHUNK].transpose(-1, -2)) * scale
+    l, u = torch.zeros(q.shape[:3]), torch.zeros(q.shape[:3])
+    stages = range(0, n, TILE)
+    for c0 in stages:
+        s = torch.matmul(q, k[:, :, c0:c0 + TILE].transpose(-1, -2))
+        ds = torch.matmul(da, v[:, :, c0:c0 + TILE].transpose(-1, -2))
         new = torch.maximum(m, s.amax(-1))
-        l = l * torch.exp(m - new) + torch.exp(s - new[..., None]).sum(-1)
+        e = torch.exp2(s * sl2e - new[..., None] * sl2e)
+        rescale = torch.exp2(m * sl2e - new * sl2e)
+        l = l * rescale + e.sum(-1)
+        u = u * rescale + (e * ds).sum(-1)
         m = new
+    base, inv = -m * sl2e, 1.0 / l
+    dd = u * inv
 
-    def probs(qq, kk, mm, ll):  # P of rows qq against keys kk with their rows' stats
-        return torch.exp(torch.matmul(qq, kk.transpose(-1, -2)) * scale - mm[..., None]) / \
-            ll[..., None]
+    def probs(qq, kk, bb, ii):  # P of rows qq against keys kk with their rows' stats
+        return torch.exp2(torch.matmul(qq, kk.transpose(-1, -2)) * sl2e + bb[..., None]) * \
+            ii[..., None]
 
-    row = torch.zeros(q.shape[:3])
-    for c0 in chunks:
-        p = probs(q, k[:, :, c0:c0 + CHUNK], m, l)
-        row = row + (torch.matmul(da, v[:, :, c0:c0 + CHUNK].transpose(-1, -2)) * p).sum(-1)
     dq = torch.zeros(q.shape)
-    for c0 in chunks:
-        kc = k[:, :, c0:c0 + CHUNK]
-        p = probs(q, kc, m, l)
-        dz = p * (torch.matmul(da, v[:, :, c0:c0 + CHUNK].transpose(-1, -2)) - row[..., None])
+    for c0 in stages:
+        kc = k[:, :, c0:c0 + TILE]
+        p = probs(q, kc, base, inv)
+        dz = p * (torch.matmul(da, v[:, :, c0:c0 + TILE].transpose(-1, -2)) - dd[..., None])
         dq = dq + torch.matmul((dz * scale).to(dt).float(), kc)
     dk, dv = torch.zeros(q.shape), torch.zeros(q.shape)
-    for c0 in chunks:  # launch 2: S^T and dS^T of every key against 16 queries
-        sl = slice(c0, c0 + CHUNK)
-        pt = probs(q[:, :, sl], k, m[..., sl], l[..., sl]).transpose(-1, -2)
+    for c0 in stages:  # launch 2: S^T and dS^T of every key against 64 queries
+        sl = slice(c0, c0 + TILE)
+        pt = probs(q[:, :, sl], k, base[..., sl], inv[..., sl]).transpose(-1, -2)
         dst = torch.matmul(v, da[:, :, sl].transpose(-1, -2))
-        dzt = pt * (dst - row[..., None, sl])
+        dzt = pt * (dst - dd[..., None, sl])
         dv = dv + torch.matmul(pt.to(dt).float(), da[:, :, sl])
         dk = dk + torch.matmul((dzt * scale).to(dt).float(), q[:, :, sl])
     return dq, dk, dv
@@ -302,13 +322,14 @@ def _tiled_backward(q, k, v, da, scale, dt):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("n", [1, 65, 200])
 def test_tiled_order_matches_plain_versions(n, dtype):
-    """The key-tiled kernels' order of work (per 64-key tile: the tile's
-    row max and the rescaled running sum, the combined statistics, P
-    normalised and rounded per tile before its P V; the backward's three
-    key sweeps and its key-tile pass) on the same inputs as the plain
-    versions, at head dim 32, with a partial last tile (65, 200) and,
-    under a key mask, image 0's first 64-key tile wholly excluded: no NaN,
-    fp32 within 2e-5 and bf16 within 3e-2 of the plain versions."""
+    """The key-tiled kernels' order of work (per 64-key stage: the stage's
+    row max and the rescaled running sum in exp2 form, one reciprocal a
+    row, P normalised and rounded per stage before its P V; the backward's
+    merged statistics-and-D sweep, its dQ sweep and its query-stage pass)
+    on the same inputs as the plain versions, at head dim 32, with a
+    partial last stage (65, 200) and, under a key mask, image 0's first
+    64-key stage wholly excluded: no NaN, fp32 within 2e-5 and bf16 within
+    3e-2 of the plain versions."""
     rng = np.random.default_rng(n)
     b, hd = 2, 32
     d = HEADS * hd
