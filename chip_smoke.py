@@ -242,8 +242,8 @@ prints no final result):
    rank, 12 attn_softmax_fwd.kmask per forward); every rank's losses and
    final parameters bit-identical; ms per step per rank (gloo through the
    host: not NCCL across cards);
-36. attn_scores_pv and gemm_s8_epilogue at their edges (see
-   scores_pv_s8_edge_checks);
+36. attn_scores_pv (head dims 64, 32 and 48) and gemm_s8_epilogue at
+   their edges (see scores_pv_s8_edge_checks);
 37. ptxas's registers and spills of arpe_tokens.cu and norm_rows.cu
    (none may spill);
 38. the training attention at every shipped shape (see
@@ -266,7 +266,15 @@ prints no final result):
    bounds, plain versions and SDPA, and the tiled backward at head dim
    64 one token past the kept backward's reach beside it (see
    tiled_timing);
-41. the {"kernels": [...]} line, then the card's nvidia-smi line, then
+41. the reconstruction decoders (see recon_phases): the EncDec
+   ResidualViT (configs/model/residualvitwithdecoder.yaml: its decoder at
+   d 192 over 4 heads, attn_scores_pv.hd48) and the MAE ViT
+   (configs/model/maevit.yaml) at 160 px serve 8 and 512 images through
+   InferenceEngine(recon_outputs=True), counted per forward and held
+   against their plain twins; attn_scores_pv.hd48 timed at bs512 beside
+   its bound, plain version and SDPA; both engines logits-only and with
+   the decoder; ptxas of the head-dim-48 instances (none may spill);
+42. the {"kernels": [...]} line, then the card's nvidia-smi line, then
    {"ok": true, "device": {...}} as the last line.
 
 Imports nothing of JAX or of peekvit_tpu.
@@ -3619,7 +3627,14 @@ def gemm_attn_bwd_timing(torch, F, fa, vjp, smi, randn, build_info) -> None:
 
 
 SCORES_PV_EDGE_TOKENS = (1, 15, 16, 17, 63, 64, 65, 148, 197, 208, 256, 257, 786, 1024)
-SCORES_PV_WIDTHS = ((64, 768, 12), (32, 128, 4), (64, 256, 4))  # head dim, d, heads
+# head dim 48 (the EncDec decoder's d 192 over 4 heads: the mma.sync kernel at
+# every N): the 16-key slice and 64-key tile edges, the decoder's 400 tokens
+SCORES_PV_HD48_TOKENS = (1, 15, 16, 17, 63, 64, 65, 400, 401)
+SCORES_PV_WIDTHS = (  # head dim, d, heads, token counts, batches
+    (64, 768, 12, SCORES_PV_EDGE_TOKENS, (EDGE_BATCH,)),
+    (32, 128, 4, SCORES_PV_EDGE_TOKENS, (EDGE_BATCH,)),
+    (64, 256, 4, (786,), (EDGE_BATCH,)),
+    (48, 192, 4, SCORES_PV_HD48_TOKENS, (1, 512)))
 S8_EDGE_M = (1, 127, 129, 300, 50432)
 S8_EDGE_N = (8, 136, 264, 768, 2304)
 S8_EDGE_K = (16, 144, 784, 3072)
@@ -3630,7 +3645,9 @@ def scores_pv_s8_edge_checks(torch, fa, tq, randn, smi, build_info) -> None:
     edges: the attention at every N of SCORES_PV_EDGE_TOKENS (16-key slices,
     64-key chunks and tiles, the kept kernel past 832 tokens at head dim
     64) at ViT-B/16 width (head dim 64) and PCT's (32), and at the EE
-    ResidualViT's (d 256, 4 heads) at its 786 tokens, 4 images, in every
+    ResidualViT's (d 256, 4 heads) at its 786 tokens, 4 images; at head
+    dim 48 (the EncDec decoder's d 192, the mma.sync kernel) at every N of
+    SCORES_PV_HD48_TOKENS for 1 and 512 images; in every
     mode (plain; the phantom key at the last token with mult 0 and 45; a
     key mask with about half the keys excluded and their rows poisoned with
     NaN and Inf, the attended rows compared and bit-equal to a clean
@@ -3656,11 +3673,11 @@ def scores_pv_s8_edge_checks(torch, fa, tq, randn, smi, build_info) -> None:
 
     with torch.inference_mode():
         ex2 = fa.attn_scores_pv_ex2_check()
-        for hd, d, h in SCORES_PV_WIDTHS:
-            for n in SCORES_PV_EDGE_TOKENS if d != 256 else (786,):
-                qkv = randn(EDGE_BATCH, n, 3 * d)
+        for hd, d, h, tokens, batches in SCORES_PV_WIDTHS:
+            for n, b in ((n, b) for n in tokens for b in batches):
+                qkv = randn(b, n, 3 * d)
                 gen = torch.Generator(device=qkv.device).manual_seed(n)
-                km = (torch.rand(EDGE_BATCH, n, generator=gen, device=qkv.device) > 0.5).to(bf16)
+                km = (torch.rand(b, n, generator=gen, device=qkv.device) > 0.5).to(bf16)
                 km[:, 0] = 1
                 poison = torch.tensor([float("nan"), float("inf"), -float("inf")],
                                       device=qkv.device, dtype=bf16)
@@ -3668,8 +3685,8 @@ def scores_pv_s8_edge_checks(torch, fa, tq, randn, smi, build_info) -> None:
                 garbage = poison[torch.randint(0, 3, qkv.shape, generator=gen,
                                                device=qkv.device)]
                 qkv_km = torch.where(bad, garbage, qkv)
-                tag = f"hd{hd}.d{d}.N{n}"
-                plans[tag] = fa.attn_scores_pv_plan(EDGE_BATCH, n, h, hd)
+                tag = f"hd{hd}.d{d}.N{n}" + ("" if b == EDGE_BATCH else f".b{b}")
+                plans[tag] = fa.attn_scores_pv_plan(b, n, h, hd)
                 modes = {"plain": (qkv, {})}
                 for mult in ((45.0,) if n == 1 else (0.0, 45.0)):
                     modes[f"kweight{mult:g}"] = (qkv, {"phantom_idx": n - 1, "phantom_mult": mult})
@@ -5439,6 +5456,180 @@ def tiled_timing(torch, F, fa, vjp, lv, smi, check, checks, randn, shipped) -> l
     return entries
 
 
+# ------------------------------------------- the reconstruction decoders (41)
+
+# configs/model/residualvitwithdecoder.yaml and configs/model/maevit.yaml at
+# configs/dataset/imagenette.yaml's 160 px and 10 classes, full width and depth
+RECON_MODELS = {
+    "encdecresidualvit": dict(
+        image_size=160, patch_size=8, hidden_dim=256, mlp_dim=768, num_layers=4, num_heads=4,
+        num_classes=10, residual_layers=["attention+mlp"] * 4, gate_temp=1, add_input=False,
+        gate_type="sigmoid", gate_threshold=0.5, gate_bias=0, add_budget_token="learnable",
+        decoder_hidden_dim=192, decoder_num_layers=2, decoder_num_heads=4, decoder_mlp_dim=512),
+    "maevit": dict(
+        image_size=160, patch_size=8, hidden_dim=256, mlp_dim=768, num_layers=4, num_heads=8,
+        num_classes=10, mask_ratio=0.75, decoder_hidden_dim=128, decoder_mlp_dim=512,
+        num_decoder_layers=2, num_decoder_heads=4),
+}
+RECON_REQUESTS = (8, 512)  # 512: configs/training/base.yaml's eval_batch_size
+RECON_BUDGET = 0.5
+RECON_TOL = 3e-2  # of max|plain|: the repo's bf16 tolerance (tests/test_pallas.py:42)
+# the plain folded layer (the decoders, MAE's encoder) without its attention
+FOLDED_PER_LAYER = {k: v for k, v in PCT_PER_LAYER.items() if not k.startswith("attn_scores_pv")}
+
+
+def recon_counts(fa, name: str) -> dict:
+    """Launches per forward of ``name``'s recon_outputs engine: 7 per layer
+    on each stack, the attention keyed by its head dim."""
+    args = RECON_MODELS[name]
+    counts: dict = {}
+
+    def stack(per_layer, layers, d, heads):
+        key = fa.attn_scores_pv_key(d // heads)
+        for k, v in dict(per_layer, **{key: per_layer.get(key, 0) + 1}).items():
+            counts[k] = counts.get(k, 0) + v * layers
+
+    d, heads = args["hidden_dim"], args["num_heads"]
+    if name == "encdecresidualvit":
+        masked = {k: v for k, v in RESIDUAL_PER_LAYER.items() if k != "attn_scores_pv"}
+        stack(masked, args["num_layers"], d, heads)
+        stack(FOLDED_PER_LAYER, args["decoder_num_layers"], args["decoder_hidden_dim"],
+              args["decoder_num_heads"])
+    else:
+        stack(FOLDED_PER_LAYER, args["num_layers"], d, heads)
+        stack(FOLDED_PER_LAYER, args["num_decoder_layers"], args["decoder_hidden_dim"],
+              args["num_decoder_heads"])
+    return counts
+
+
+def recon_phases(torch, F, fa, dev, smi, check, checks, build_info) -> dict:
+    """Phase 41, the reconstruction decoders: build_model("encdecresidualvit")
+    and build_model("maevit") at RECON_MODELS (seeded weights, heads and
+    class tokens re-drawn) serve 8 and 512 images through
+    InferenceEngine(recon_outputs=True), the EncDec at budget 0.5: counts
+    zeroed just before each forward and read just after (recon_counts: 7
+    per layer on each stack, attn_scores_pv.hd48 twice per EncDec forward);
+    logits, reconstruction and mask image against the plain twins
+    (residualvit_forward_plain / maevit_forward_plain in bf16, the same
+    recon branch) within 3e-2 of max|plain|, top-1 on decided images, the
+    logits-only engine's logits beside them. Then attn_scores_pv.hd48 at
+    the EncDec decoder's bs512 shape (N 400, 4 heads, d 192) against its
+    plain version and timed (ms, device_ms, plain, SDPA on the same q, k,
+    v, the bound: bytes, products, exp2 terms at the SFU's rate); both
+    engines logits-only and with recon_outputs at 8 and 512 images (ms per
+    forward, the decoder's share), one profiled recon forward of each at
+    512; ptxas's registers and spills of the head-dim-48 instances (a
+    spill fails the run). Returns the counts and the kernels-line entry."""
+    from peekvit_torch import InferenceEngine
+    from peekvit_torch.inference import maevit_forward_plain, residualvit_forward_plain
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(41)
+    engines = {}
+    for name, args in RECON_MODELS.items():
+        model = seeded_residual_model(torch, name, args)
+        engines[name] = {recon: InferenceEngine(model, device=DEVICE, recon_outputs=recon)
+                         for recon in (False, True)}
+    kwargs = {"encdecresidualvit": {"budget": RECON_BUDGET}, "maevit": {}}
+    totals: dict = {}
+    requests = {}
+    with torch.inference_mode():
+        for bb in RECON_REQUESTS:
+            size = RECON_MODELS["maevit"]["image_size"]
+            x = requests[bb] = torch.randn(bb, size, size, 3, generator=gen, device=dev)
+            for name, pair in engines.items():
+                e, kw = pair[True], kwargs[name]
+                got, counts = counted(torch, fa, lambda: e(x, **kw))
+                want_counts = recon_counts(fa, name)
+                if counts != want_counts:
+                    raise AssertionError(f"{name} b{bb}: launches {counts}, want {want_counts}")
+                for key, v in counts.items():
+                    totals[key] = totals.get(key, 0) + v
+                fwd = {k: v for k, v in e._forward.items() if k != "compute_dtype"}
+                if name == "encdecresidualvit":
+                    ref = residualvit_forward_plain(e.params, x, RECON_BUDGET, compute_dtype=bf16,
+                                                    **fwd)
+                else:
+                    ref = maevit_forward_plain(e.params, x, compute_dtype=bf16, **fwd)
+                atol = RECON_TOL * ref[0].abs().max().item()
+                rec = compare_logits(torch, f"{name} b{bb}", got[0],
+                                     [("plain_bf16", ref[0], 0.0, atol)])
+                logits_only = pair[False](x, **kw)
+                rec["logits_only_max_abs_delta"] = (logits_only - got[0]).abs().max().item()
+                for label, g, r in zip(("reconstruction", "mask_image"), got[1:], ref[1:]):
+                    scale = r.abs().max().item()
+                    rel = (g - r).abs().max().item() / max(scale, 1e-30)
+                    rec[label] = {"shape": list(g.shape), "dtype": str(g.dtype),
+                                  "max_rel_err": rel, "max_abs_ref": scale}
+                    if g.shape != r.shape or not torch.isfinite(g).all() or rel > RECON_TOL:
+                        raise AssertionError(f"{name} b{bb} {label}: {rec[label]}")
+                if name == "encdecresidualvit":
+                    rec["mask_image_open_share"] = (got[2] > 0.5).float().mean().item()
+                emit({"phase": "recon_check", "model": name, "batch": bb, "launches": counts,
+                      **rec, "tolerance_rel": RECON_TOL,
+                      "tolerance_reason": "the plain twin takes the same rounding points, fp32 "
+                      "sums in another order; the repo's bf16 tolerance (tests/test_pallas.py:42)",
+                      "card": smi})
+    emit({"phase": "recon_launches", "counts": totals, "requests": list(RECON_REQUESTS),
+          "card": smi})
+
+    # the head-dim-48 attention at the EncDec decoder's bs512 shape
+    b, n, hd, heads = RECON_REQUESTS[-1], 400, 48, 4
+    d = hd * heads
+    qkv = torch.randn(b, n, 3 * d, generator=gen, device=dev).to(bf16)
+    name = "attn_scores_pv.hd48"
+    with torch.inference_mode():
+        check(name, fa.attn_scores_pv(qkv, heads), fa.attn_scores_pv_ref(qkv, heads), 2e-2,
+              "bf16 rounding of logits before exp2, bf16 output rounding")
+        ms, dev_ms = (cuda_ms(torch, lambda: fa.attn_scores_pv(qkv, heads)),
+                      graph_ms(torch, lambda: fa.attn_scores_pv(qkv, heads)))
+        plain_ms = cuda_ms(torch, lambda: fa.attn_scores_pv_ref(qkv, heads), iters=3)
+        sdpa = [qkv[..., i * d:(i + 1) * d].reshape(b, n, heads, hd).transpose(1, 2).contiguous()
+                for i in range(3)]
+        lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(*sdpa))
+    exps = float(b * heads * n * n)
+    bnd, by = bound_ms(4.0 * exps * hd, 4.0 * b * n * d * 2)
+    entry = {"name": name, "route": "cuda", "source": "peekvit_torch/csrc/attn_scores_pv.cu",
+             "replaces": f"{REPLACES}:46 _attn_scores_pv at head dim 48 (through :788 "
+             "fused_layer_block_folded, site 8)",
+             "launches": totals.get(name, 0), "max_abs_err": checks[name], "ms": ms,
+             "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+             "library_ms": lib_ms, "exp_ms": exps / SFU_PER_S * 1e3, "path": "recon",
+             "shape_batch": b, "count_key": name}
+    emit({"phase": "timing_kernel", **{k: v for k, v in entry.items() if k != "count_key"},
+          "plan": fa.attn_scores_pv_plan(b, n, heads, hd), "share_of_bound": bnd / dev_ms,
+          "library": "SDPA on the same q, k, v", "card": smi})
+    if entry["launches"] == 0:
+        raise AssertionError(f"{name}: never launched on the recon path")
+
+    # both engines, logits-only and with recon_outputs
+    forward_ms = {}
+    with torch.inference_mode():
+        for bb, x in requests.items():
+            for name, pair in engines.items():
+                kw = kwargs[name]
+                ms = {recon: cuda_ms(torch, lambda: pair[recon](x, **kw), iters=10)
+                      for recon in (False, True)}
+                forward_ms[(name, bb)] = ms[True]
+                emit({"phase": "timing_recon", "model": name, "batch": bb,
+                      "ms_logits_only": ms[False], "ms_recon": ms[True],
+                      "decoder_share": (ms[True] - ms[False]) / ms[True],
+                      "images_per_s_recon": bb / ms[True] * 1e3, "card": smi})
+        for name, pair in engines.items():
+            x, kw = requests[RECON_REQUESTS[-1]], kwargs[name]
+            profile_step(torch, smi, lambda: pair[True](x, **kw),
+                         forward_ms[(name, RECON_REQUESTS[-1])], phase=f"profile_{name}_recon",
+                         batch=RECON_REQUESTS[-1], warmup=True)
+    rows = [r for r in ptxas_summary(build_info, ("attn_scores_pv",))
+            if "attn_kernelILi48" in r["kernel"]]
+    spilled = [r["kernel"] for r in rows if r.get("spill_store_bytes") or r.get("spill_load_bytes")]
+    emit({"phase": "ptxas_hd48", "kernels": rows if rows else "not rebuilt in this run",
+          "spilled": spilled, "card": smi})
+    if spilled:
+        raise AssertionError(f"ptxas spilled registers in {spilled}")
+    return {"counts": totals, "entries": [entry]}
+
+
 def main() -> int:
     import torch
 
@@ -5933,6 +6124,8 @@ def main() -> int:
     tiled_kernel_checks(torch, fa, vjp, lv, check, randn, smi, info)
     shipped = shipped_train_phases(torch, F, fa, vjp, dev, smi)
     tiled_entries = tiled_timing(torch, F, fa, vjp, lv, smi, check, checks, randn, shipped)
+    # ------------------------------------------- 41. the reconstruction decoders
+    recon = recon_phases(torch, F, fa, dev, smi, check, checks, info)
     for entry in kernels:  # the later paths run earlier kernels too
         entry["launches_by_path"]["merged"] = mtrain["counts"]["merged"].get(entry["name"], 0)
         entry["launches_by_path"]["hybrid"] = mtrain["counts"]["hybrid"].get(entry["name"], 0)
@@ -5940,6 +6133,7 @@ def main() -> int:
         entry["launches_by_path"]["tp"] = tp["counts"].get(entry["name"], 0)
         entry["launches_by_path"]["sp"] = sp["counts"].get(entry["name"], 0)
         entry["launches_by_path"]["shipped_train"] = shipped["counts"].get(entry["name"], 0)
+        entry["launches_by_path"]["recon"] = recon["counts"].get(entry["name"], 0)
     # every path's counts as this run measured them, read by each new
     # entry's count key
     measured = {"engine": main_counts, "split": split_counts, "train": train["counts"],
@@ -5951,13 +6145,15 @@ def main() -> int:
                 "pct": pct["counts"], "merged": mtrain["counts"]["merged"],
                 "hybrid": mtrain["counts"]["hybrid"], "module": mod["counts"],
                 "attention_alone": mod["alone"], "tp": tp["counts"], "sp": sp["counts"],
-                "shipped_train": shipped["counts"]}
-    for entry in merged_entries + [mod["entry"]] + tp_entries + sp_entries + tiled_entries:
+                "shipped_train": shipped["counts"], "recon": recon["counts"]}
+    later = merged_entries + [mod["entry"]] + tp_entries + sp_entries + tiled_entries + recon[
+        "entries"]
+    for entry in later:
         key = entry.pop("count_key")
         entry["launches_by_path"] = {path: c.get(key, 0) for path, c in measured.items()}
         if key is None:  # a composition: its calls' launches on its path
             entry["launches_by_path"][entry["path"]] = entry["launches"]
-    kernels += merged_entries + [mod["entry"]] + tp_entries + sp_entries + tiled_entries
+    kernels += later
     emit({"phase": "elapsed", "seconds": time.perf_counter() - t_start, "card": smi})
 
     emit({"kernels": kernels})

@@ -32,9 +32,11 @@
 //     and a phantom key are exclusive (no JAX path combines them).
 //
 // The head dim HD is a template parameter, instantiated at 64 (ViT-B,
-// ViT-S, every earlier model) and 32 (PCT: d = 128 over 4 heads). Only
-// the tile geometry follows HD; the arithmetic and its order are the same
-// for both.
+// ViT-S, every earlier model), 32 (PCT: d = 128 over 4 heads; MAE) and 48
+// (the EncDec ResidualViT's decoder: d = 192 over 4 heads). Only the tile
+// geometry follows HD; the arithmetic and its order are the same for all
+// three. Head dims 64 and 32 take the wgmma kernel below; head dim 48
+// takes the mma.sync kernel at every N (see "Past those token counts").
 //
 // Bound on H100: at ViT-B (N = 197, head dim 64) the two products are
 // 4 * N * N * 64 flops per (image, head) against 4 * N * 64 * 2 bytes
@@ -92,15 +94,24 @@
 // padded with (zero P, zero V) add exact zeros.
 //
 // Past those token counts (head dim 64 above 832 keys: K and V no longer
-// fit beside the Q buffers) the C entry point keeps the earlier kernel
-// (attn_kernel below, its code and bits unchanged): grid (query tile of
-// 64, head, image), 4 warps of 16 query rows, Q, K and V read straight
-// from the packed buffer by cp.async, key tiles of 64 streamed through a
-// 2-stage ring, mma.sync fed by ldmatrix, padded shared-memory rows of
-// HD + 8 bf16, V scrubbed by each thread on the chunks it copied itself
-// after the cp.async wait. The choice is by shape inside the entry point
-// (peekvit_attn_scores_pv_plan), never a fallback on error. No path the
-// port runs reaches it.
+// fit beside the Q buffers), and at head dim 48 at every N, the C entry
+// point takes the earlier kernel (attn_kernel below, its code and the bits
+// of its 64 and 32 instances unchanged): grid (query tile of 64, head,
+// image), 4 warps of 16 query rows, Q, K and V read straight from the
+// packed buffer by cp.async, key tiles of 64 streamed through a 2-stage
+// ring, mma.sync fed by ldmatrix, padded shared-memory rows of HD + 8
+// bf16, V scrubbed by each thread on the chunks it copied itself after the
+// cp.async wait. Its geometry holds at 48: rows of 56 bf16 (112 bytes,
+// 16-byte aligned for cp.async and ldmatrix, the eight rows of an
+// ldmatrix on distinct bank groups), 3 chunks of 16 bytes a thread per
+// tile, HD / 16 = 3 k-steps for Q K^T and HD / 8 = 6 n-tiles for P V; a
+// head's columns start at h * 96 bytes, a multiple of 16. The wgmma kernel
+// does not take 48: a 96-byte row fits no TMA / wgmma swizzle atom, so a
+// wgmma form needs a layout of its own (two column boxes of 32 + 16, or
+// rows padded to 64); that is later speed work. The choice is by shape
+// inside the entry point (peekvit_attn_scores_pv_plan), never a fallback
+// on error. Head dim 64 past 832 tokens is reached by no shipped path;
+// head dim 48 by the EncDec decoder (N = 400 at 160 px).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -684,7 +695,8 @@ int smem_for(int head_dim, int nchunks, int nwg) {
 
 // The schedule for b images of n tokens and `heads` heads of head_dim:
 // out[0] = 1 for the wgmma kernel (the head's K and V fit in shared
-// memory beside the Q buffers), 0 for the kept mma.sync kernel; out[1] =
+// memory beside the Q buffers), 0 for the kept mma.sync kernel (always
+// at head dim 48); out[1] =
 // CTAs per (image, head) (enough for two waves of CTAs on the card when
 // the batch is small, at most one per warpgroup's tile); out[2] = the
 // wgmma kernel's dynamic shared memory in bytes; out[3] = its warpgroups
@@ -692,6 +704,13 @@ int smem_for(int head_dim, int nchunks, int nwg) {
 // CTA an SM only (so that 16 warps share each SM all the same).
 void plan(int b, int n, int heads, int head_dim, int* out) {
   const int nchunks = (n + CHUNK - 1) / CHUNK;
+  if (head_dim == 48) {  // the mma.sync kernel: one CTA of 4 warps per 64 query rows
+    out[0] = 0;
+    out[1] = nchunks;
+    out[2] = 0;
+    out[3] = 1;
+    return;
+  }
   int nwg = 2, smem = smem_for(head_dim, nchunks, 2);
   out[0] = smem <= MAX_SMEM ? 1 : 0;
   if (smem > MAX_SMEM / 2 && smem_for(head_dim, nchunks, 4) <= MAX_SMEM) {
@@ -751,8 +770,8 @@ int launch_wgmma(const void* qkv, const __nv_bfloat16* km, __nv_bfloat16* o, int
 }  // namespace
 
 // qkv: (b, n, 3d) bf16 packed as [q | k | v] with head h at columns
-// h*head_dim, 16-byte aligned; out: (b, n, d) bf16. head_dim must be 64
-// or 32 and d = num_heads * head_dim (the wrapper checks). qscale =
+// h*head_dim, 16-byte aligned; out: (b, n, d) bf16. head_dim must be 64,
+// 32 or 48 and d = num_heads * head_dim (the wrapper checks). qscale =
 // head_dim^-0.5 * log2(e). phantom_idx < 0 (no phantom key) or in [0, n);
 // phantom_mult is rounded to bf16 here. kmask: null, or (b, n) bf16 (1 =
 // attend), and then phantom_idx < 0. The kernel is chosen by shape
@@ -761,7 +780,8 @@ extern "C" int peekvit_attn_scores_pv(const void* qkv, void* out, const void* km
                                       int n, int d, int num_heads, int head_dim, float qscale,
                                       int phantom_idx, float phantom_mult, void* stream) {
   if (b == 0 || n == 0) return 0;
-  if ((head_dim != 64 && head_dim != 32) || d != num_heads * head_dim || phantom_idx >= n ||
+  if ((head_dim != 64 && head_dim != 32 && head_dim != 48) || d != num_heads * head_dim ||
+      phantom_idx >= n ||
       (kmask != nullptr && phantom_idx >= 0))
     return (int)cudaErrorInvalidValue;
   const float phantom_w = __bfloat162float(__float2bfloat16_rn(phantom_mult));
@@ -776,6 +796,8 @@ extern "C" int peekvit_attn_scores_pv(const void* qkv, void* out, const void* km
                                              phantom_w, pl, st)
                           : launch_wgmma<32>(qkv, km, o, b, n, d, num_heads, qscale, phantom_idx,
                                              phantom_w, pl, st);
+  if (head_dim == 48)
+    return launch<48>(q, km, o, b, n, d, num_heads, qscale, phantom_idx, phantom_w, st);
   return head_dim == 64
              ? launch<64>(q, km, o, b, n, d, num_heads, qscale, phantom_idx, phantom_w, st)
              : launch<32>(q, km, o, b, n, d, num_heads, qscale, phantom_idx, phantom_w, st);
@@ -785,7 +807,8 @@ extern "C" int peekvit_attn_scores_pv(const void* qkv, void* out, const void* km
 // num_heads heads of head_dim: out[0] = 1 (the wgmma kernel) or 0 (the
 // kept mma.sync kernel), out[1] = CTAs per (image, head), out[2] = the
 // wgmma kernel's dynamic shared memory in bytes, out[3] = its warpgroups
-// per CTA. Returns 0.
+// per CTA (at head dim 48, the mma.sync kernel's: ceil(n / 64) CTAs, no
+// dynamic shared memory, one warpgroup). Returns 0.
 extern "C" int peekvit_attn_scores_pv_plan(int b, int n, int num_heads, int head_dim, int* out) {
   plan(b, n, num_heads, head_dim, out);
   return 0;

@@ -1,10 +1,11 @@
-"""Fused eval engines for the plain ViT, the ResidualViT family, RankViT,
-A-ViT, PCT and RankPCT, in bf16 and (ViT, ResidualViT, RankViT) int8
-(counterpart of peekvit_tpu/inference.py:
+"""Fused eval engines for the plain ViT, the ResidualViT family (EncDec
+included), RankViT, A-ViT, MAE, PCT and RankPCT, in bf16 and (ViT,
+ResidualViT, RankViT) int8 (counterpart of peekvit_tpu/inference.py:
 ``prepare_engine_params``, ``vit_forward_fused``, ``_encoder_stack``,
-``residualvit_forward_fused``, ``rankvit_forward_fused``,
-``rankvit_forward_padded``, ``adavit_forward_fused``, the int8 forwards
-and calibration, ``prepare_pct_engine_params``, ``pct_forward_fused``,
+``maevit_forward_fused``, ``residualvit_forward_fused`` with its ``recon``
+branch, ``rankvit_forward_fused``, ``rankvit_forward_padded``,
+``adavit_forward_fused``, the int8 forwards and calibration,
+``prepare_pct_engine_params``, ``pct_forward_fused``,
 ``rankpct_forward_fused`` and ``InferenceEngine``).
 
 For a plain ViT the engine reads the model's weights into a param tree in
@@ -29,6 +30,13 @@ keeps one set of shapes for every budget up to it
 (``rankvit_forward_padded``): the buffer keeps ``ceil(n * max_budget)``
 tokens, the tail past the budget's count is zeroed and excluded as keys by
 the key-masked folded layer.
+
+``recon_outputs=True`` serves the reconstruction decoders. An EncDec
+ResidualViT's decoder runs after the masked layers on the final-LN image
+tokens with the last gate mask (the plain folded layer, 7 launches per
+layer, at the decoder's head dim: 48 at the shipped widths); an MAE runs
+its whole sequence through both plain stacks (``maevit_forward_fused``, no
+shuffle at eval).
 
 For an A-ViT the ACT carry (cumulative halting, remainder, active mask)
 runs in torch in fp32 and each layer runs ``avit_layer_block`` on the
@@ -67,6 +75,11 @@ Usage::
     engine = InferenceEngine(build_model("adavit", args))
     logits = engine(images)
 
+    engine = InferenceEngine(build_model("encdecresidualvit", args), recon_outputs=True)
+    logits, recon, mask_image = engine(images, budget=0.5)
+
+    logits, recon = InferenceEngine(build_model("maevit", args), recon_outputs=True)(images)
+
     engine = InferenceEngine(build_model("pct", args))
     logits = engine(points)                     # (B, N, 3) -> (B, classes) fp32
 
@@ -87,6 +100,8 @@ import torch.nn.functional as F
 from peekvit_torch.models.adapters import module_params, module_state, tree_map
 from peekvit_torch.models.adavit import AdaptiveVisionTransformer
 from peekvit_torch.models.eeresidualvit import EEResidualVisionTransformer
+from peekvit_torch.models.encdecresidualvit import ResidualVisionTransformerWithDecoder
+from peekvit_torch.models.maevit import MAEVisionTransformer
 from peekvit_torch.models.pct import PointCloudTransformer
 from peekvit_torch.models.rankpct import RankPointCloudTransformer
 from peekvit_torch.models.rankvit import RankVisionTransformer
@@ -131,6 +146,8 @@ from peekvit_torch.ops.cuda.quant_blocks import (
     quantize_linear,
 )
 from peekvit_torch.ops.patch_embed import extract_patches as _patchify
+from peekvit_torch.ops.patch_embed import mask_image as _mask_image
+from peekvit_torch.ops.patch_embed import unpatchify_cmajor as _unpatchify_cmajor
 
 
 def _layer_norm(x, scale, bias, eps):
@@ -218,13 +235,16 @@ def prepare_engine_params(params: dict, compute_dtype=None, fold_ln: bool = Fals
       the (in, out) view of an (out, in) copy (``kernel_layout``: the
       layout the s8 GEMM reads), made here once; its LN affines are
       neither folded nor stacked (the int8 layer applies them);
-    - ``fold_ln=True`` (plain ViT and RankViT: a ResidualViT's row masks
+    - ``fold_ln=True`` (plain ViT, RankViT, MAE: a ResidualViT's row masks
       do not commute with a folded LN bias) folds every layer's LN affines into
       its qkv and fc1 weights in fp32 from the original weights
-      (``_folded_qkv`` / ``_folded_fc1``, then cast), stacks the layers for
-      the one-call encoder (``encoder._stacked_layers``), and folds the
+      (``_folded_qkv`` / ``_folded_fc1``, then cast) and stacks the layers for
+      the one-call encoder (``_stacked_layers``), in ``encoder`` and in
+      MAE's ``decoder_blocks`` (the same plain stack); it folds the
       pos-embedding and conv bias into ``_embed_special`` /
-      ``_embed_img_bias``.
+      ``_embed_img_bias``. MAE's top-level ``pos_embedding`` covers the
+      patches only, so there ``_embed_special`` is the class and register
+      tokens alone (JAX inference.py:180-254).
     """
     out = _prepare_tree(params, compute_dtype)
     enc = params.get("encoder", {})
@@ -237,43 +257,58 @@ def prepare_engine_params(params: dict, compute_dtype=None, fold_ln: bool = Fals
     if not (fold_ln and "encoder" in params):
         return out
     cdt = compute_dtype or torch.float32
-    for i in ids if not quantized else ():
-        sp = enc[f"layers_{i}"]
-        at, mlp = sp["self_attention"], sp["mlp"]
-        wq, bq = fold_ln_into_weights(sp["ln_1"]["scale"], sp["ln_1"]["bias"],
-                                      at["in_proj_kernel"], at["in_proj_bias"])
-        w1, b1 = fold_ln_into_weights(sp["ln_2"]["scale"], sp["ln_2"]["bias"],
-                                      mlp["fc1_kernel"], mlp["fc1_bias"])
-        out["encoder"][f"layers_{i}"]["_folded_qkv"] = {"kernel": wq.to(cdt), "bias": bq.to(cdt)}
-        out["encoder"][f"layers_{i}"]["_folded_fc1"] = {"kernel": w1.to(cdt), "bias": b1.to(cdt)}
-    if ids and not quantized:
-        layers = [out["encoder"][f"layers_{i}"] for i in ids]
-
-        def stack(get):
-            return torch.stack([get(lp) for lp in layers]).contiguous()
-
-        out["encoder"]["_stacked_layers"] = {
-            "wqkv": stack(lambda lp: lp["_folded_qkv"]["kernel"]),
-            "bqkv": stack(lambda lp: lp["_folded_qkv"]["bias"]),
-            "wo": stack(lambda lp: lp["self_attention"]["out_proj_kernel"]),
-            "bo": stack(lambda lp: lp["self_attention"]["out_proj_bias"]),
-            "w1": stack(lambda lp: lp["_folded_fc1"]["kernel"]),
-            "b1": stack(lambda lp: lp["_folded_fc1"]["bias"]),
-            "w2": stack(lambda lp: lp["mlp"]["fc2_kernel"]),
-            "b2": stack(lambda lp: lp["mlp"]["fc2_bias"]),
-        }
+    for sub in ("encoder", "decoder_blocks") if not quantized else ():
+        if sub in params:
+            _fold_and_stack(params[sub], out[sub], cdt)
     if "class_tokens" in params and "conv_proj" in params:
         d = params["conv_proj"]["kernel"].shape[-1]
-        pos = enc["pos_embedding"].float()
         spec = [params["class_tokens"].float().reshape(1, -1, d)]
         if "register_tokens" in params:
             spec.append(params["register_tokens"].float().reshape(1, -1, d))
         spec = torch.cat(spec, dim=1)
         ns = spec.shape[1]
         bias = params["conv_proj"]["bias"].float().reshape(1, 1, d)
-        out["_embed_special"] = (spec + pos[:, :ns]).to(cdt)
-        out["_embed_img_bias"] = (bias + pos[:, ns:]).to(cdt)
+        if "pos_embedding" in params:  # MAE: patches only, the special tokens take none
+            out["_embed_special"] = spec.to(cdt)
+            out["_embed_img_bias"] = (bias + params["pos_embedding"].float()).to(cdt)
+        else:
+            pos = enc["pos_embedding"].float()
+            out["_embed_special"] = (spec + pos[:, :ns]).to(cdt)
+            out["_embed_img_bias"] = (bias + pos[:, ns:]).to(cdt)
     return out
+
+
+def _fold_and_stack(stack_in: dict, stack_out: dict, cdt) -> None:
+    """Fold each layer of a plain pre-LN stack (``stack_in``, the original
+    weights) into ``stack_out``'s ``_folded_qkv`` / ``_folded_fc1``, and
+    stack the layers into ``stack_out["_stacked_layers"]``."""
+    ids = _layer_ids(stack_in)
+    for i in ids:
+        sp, op = stack_in[f"layers_{i}"], stack_out[f"layers_{i}"]
+        at, mlp = sp["self_attention"], sp["mlp"]
+        wq, bq = fold_ln_into_weights(sp["ln_1"]["scale"], sp["ln_1"]["bias"],
+                                      at["in_proj_kernel"], at["in_proj_bias"])
+        w1, b1 = fold_ln_into_weights(sp["ln_2"]["scale"], sp["ln_2"]["bias"],
+                                      mlp["fc1_kernel"], mlp["fc1_bias"])
+        op["_folded_qkv"] = {"kernel": wq.to(cdt), "bias": bq.to(cdt)}
+        op["_folded_fc1"] = {"kernel": w1.to(cdt), "bias": b1.to(cdt)}
+    if not ids:
+        return
+    layers = [stack_out[f"layers_{i}"] for i in ids]
+
+    def stack(get):
+        return torch.stack([get(lp) for lp in layers]).contiguous()
+
+    stack_out["_stacked_layers"] = {
+        "wqkv": stack(lambda lp: lp["_folded_qkv"]["kernel"]),
+        "bqkv": stack(lambda lp: lp["_folded_qkv"]["bias"]),
+        "wo": stack(lambda lp: lp["self_attention"]["out_proj_kernel"]),
+        "bo": stack(lambda lp: lp["self_attention"]["out_proj_bias"]),
+        "w1": stack(lambda lp: lp["_folded_fc1"]["kernel"]),
+        "b1": stack(lambda lp: lp["_folded_fc1"]["bias"]),
+        "w2": stack(lambda lp: lp["mlp"]["fc2_kernel"]),
+        "b2": stack(lambda lp: lp["mlp"]["fc2_bias"]),
+    }
 
 
 def _folded_weights(lp, cast):
@@ -295,26 +330,27 @@ def _folded_weights(lp, cast):
             cast(mlp["fc2_kernel"]), cast(mlp["fc2_bias"]))
 
 
-def _encoder_stack(enc, tokens, num_heads, ln_eps, cast, fused_mlp=True):
+def _encoder_stack(enc, tokens, num_heads, ln_eps, cast, fused_mlp=True, plain=False):
     """The plain pre-LN encoder stack over the kernels: the one-call stack
     when ``_stacked_layers`` is present (``prepare_engine_params`` with
     ``fold_ln=True``), else one folded layer call per layer with the LN
     affines folded here; ``fused_mlp=False`` takes the split path
-    (fused_attention_block, then the eager MLP with tanh-gelu)."""
+    (fused_attention_block, then the eager MLP with tanh-gelu). ``plain``:
+    the same on the kernels' plain versions, whatever the device."""
     ids = _layer_ids(enc)
     if not ids:
         return tokens
     if fused_mlp and "_stacked_layers" in enc:
-        return encoder_layers_one_call(
-            tokens, tree_map(cast, enc["_stacked_layers"]), num_heads, ln_eps)
+        one_call = encoder_layers_one_call_ref if plain else encoder_layers_one_call
+        return one_call(tokens, tree_map(cast, enc["_stacked_layers"]), num_heads, ln_eps)
     for i in ids:
         lp = enc[f"layers_{i}"]
         at, mlp = lp["self_attention"], lp["mlp"]
         if fused_mlp:
-            tokens = fused_layer_block_folded(tokens, *_folded_weights(lp, cast), num_heads,
-                                              ln_eps)
+            layer = fused_layer_block_folded_ref if plain else fused_layer_block_folded
+            tokens = layer(tokens, *_folded_weights(lp, cast), num_heads, ln_eps)
             continue
-        tokens = fused_attention_block(
+        tokens = (fused_attention_block_ref if plain else fused_attention_block)(
             tokens, cast(lp["ln_1"]["scale"]), cast(lp["ln_1"]["bias"]),
             cast(at["in_proj_kernel"]), cast(at["in_proj_bias"]),
             cast(at["out_proj_kernel"]), cast(at["out_proj_bias"]), num_heads, ln_eps)
@@ -366,6 +402,79 @@ def vit_forward_plain(params, images, *, patch_size: int, num_heads: int,
         num_registers=num_registers, ln_eps=ln_eps, compute_dtype=compute_dtype)
 
 
+def _maevit_forward(params, images, *, plain: bool, patch_size: int, num_heads: int,
+                    num_decoder_heads: int, num_class_tokens: int, num_registers: int,
+                    ln_eps: float, compute_dtype, recon: bool):
+    def cast(t):
+        return t.to(compute_dtype)
+
+    if "_embed_special" in params:
+        tokens, _ = _embed_posfolded(params, images, patch_size, cast)
+    else:  # the pos-embedding covers the patches only: added before the concat
+        x = cast(images)
+        wconv = cast(params["conv_proj"]["kernel"])
+        d = wconv.shape[-1]
+        img = (_patchify(x, patch_size) @ wconv.reshape(-1, d) + cast(params["conv_proj"]["bias"])
+               + cast(params["pos_embedding"]))
+        b = img.shape[0]
+        pieces = [cast(params["class_tokens"]).reshape(1, -1, d).expand(b, num_class_tokens, d)]
+        if num_registers:
+            pieces.append(cast(params["register_tokens"]).reshape(1, -1, d)
+                          .expand(b, num_registers, d))
+        tokens = torch.cat(pieces + [img], dim=1)
+    enc = params["encoder"]
+    tokens = _encoder_stack(enc, tokens, num_heads, ln_eps, cast, plain=plain)
+    # the final LN over ALL tokens: it feeds the head and the decoder
+    tokens = _layer_norm(tokens, cast(enc["ln"]["scale"]), cast(enc["ln"]["bias"]), ln_eps)
+    cls = tokens[:, :num_class_tokens].sum(dim=1)
+    logits = (cls @ cast(params["head"]["kernel"]) + cast(params["head"]["bias"])).float()
+    if not recon:
+        return logits
+    dec = tokens[:, num_class_tokens + num_registers:]
+    if "decoder_embed" in params:
+        dec = dec @ cast(params["decoder_embed"]["kernel"]) + cast(params["decoder_embed"]["bias"])
+    dec = dec + cast(params["decoder_pos_embedding"])
+    db = params["decoder_blocks"]
+    dec = _encoder_stack(db, dec, num_decoder_heads, ln_eps, cast, plain=plain)
+    dec = _layer_norm(dec, cast(db["ln"]["scale"]), cast(db["ln"]["bias"]), ln_eps)
+    rec = dec @ cast(params["decoder_head"]["kernel"]) + cast(params["decoder_head"]["bias"])
+    return logits, _unpatchify_cmajor(rec, patch_size).float()
+
+
+def maevit_forward_fused(params, images, *, patch_size: int, num_heads: int,
+                         num_decoder_heads: int, num_class_tokens: int = 1,
+                         num_registers: int = 0, ln_eps: float = 1e-5,
+                         compute_dtype=torch.bfloat16, recon: bool = False):
+    """Eval forward of an MAE ViT (JAX ``maevit_forward_fused``,
+    inference.py:445) from ``prepare_engine_params(fold_ln=True)``. No
+    shuffle at eval: the full patch sequence runs through the encoder and
+    the decoder, both on the plain folded stack (``encoder_layers_one_call``,
+    7 launches per layer). The pos-embedding covers the patches only
+    (``_embed_img_bias``); the final encoder LN runs over every token, as it
+    feeds the head and the decoder; the logits come from the summed class
+    tokens. With ``recon``: ``decoder_embed`` (where the widths differ),
+    ``decoder_pos_embedding``, the decoder stack, its LN, ``decoder_head``
+    and the channel-major unpatchify. images: (B, H, W, 3). Returns fp32
+    logits, or ``(logits, reconstruction NHWC)``."""
+    return _maevit_forward(
+        params, images, plain=False, patch_size=patch_size, num_heads=num_heads,
+        num_decoder_heads=num_decoder_heads, num_class_tokens=num_class_tokens,
+        num_registers=num_registers, ln_eps=ln_eps, compute_dtype=compute_dtype, recon=recon)
+
+
+def maevit_forward_plain(params, images, *, patch_size: int, num_heads: int,
+                         num_decoder_heads: int, num_class_tokens: int = 1,
+                         num_registers: int = 0, ln_eps: float = 1e-5,
+                         compute_dtype=torch.float32, recon: bool = False):
+    """:func:`maevit_forward_fused` on the kernels' plain versions, whatever
+    the device: the reference a check holds the engine against on the
+    card."""
+    return _maevit_forward(
+        params, images, plain=True, patch_size=patch_size, num_heads=num_heads,
+        num_decoder_heads=num_decoder_heads, num_class_tokens=num_class_tokens,
+        num_registers=num_registers, ln_eps=ln_eps, compute_dtype=compute_dtype, recon=recon)
+
+
 # Below this token count the JAX engine takes the split masked sublayers
 # in place of the merged masked layer (JAX inference.py:306-310, :2312).
 # It is a TPU speed threshold, but it decides which numerics run: the
@@ -411,11 +520,14 @@ def _residual_forward(params, images, budget, run_layer, *, patch_size: int,
                       gate_temp: float = 1.0, gate_bias: float = 0.0,
                       budget_token: Any = "learnable", compute_dtype=torch.bfloat16,
                       early_exits: bool = False, compact_caps: Optional[tuple] = None,
-                      masks: Optional[dict] = None):
+                      masks: Optional[dict] = None, recon_plain: Optional[bool] = None,
+                      decoder_num_heads: Optional[int] = None):
     """The gates, the budget token, compaction and the early exits around
     ``run_layer(tokens, fwd_mask, layer params, layer position, merged,
     phantom_mult, phantom_idx)``, the bf16 (:func:`_residual_layers`) or
-    the int8 (:func:`_quant_residual_layers`) layer."""
+    the int8 (:func:`_quant_residual_layers`) layer. ``recon_plain`` not
+    None: the EncDec decoder after the encoder (:func:`_residual_recon`),
+    on the kernels' plain versions if True."""
 
     def cast(t):
         return t.to(compute_dtype)
@@ -478,6 +590,7 @@ def _residual_forward(params, images, budget, run_layer, *, patch_size: int,
             idx = idx[:, :compact_caps[li], None]
             img = torch.gather(img, 1, idx.expand(-1, -1, d))
             mask = torch.gather(mask, 1, idx)
+        last_mask = mask  # fp32, what the decoder reads after the last layer
         mask = mask.to(compute_dtype)
         if phantom:
             # the phantom slot: mask 0 (a gated-off token), value carried
@@ -497,8 +610,44 @@ def _residual_forward(params, images, budget, run_layer, *, patch_size: int,
             cls = _layer_norm(tokens[:, :c], cast(ln_p["scale"]), cast(ln_p["bias"]), 1e-5)[:, 0]
             exits.append((cls @ cast(hd_p["kernel"]) + cast(hd_p["bias"])).float())
 
+    if recon_plain is not None:
+        return _residual_recon(params, tokens, last_mask, c, s, patch_size, recon_plain,
+                               decoder_num_heads, compute_dtype)
     final = _classify(params, tokens, c, cast, ln_eps=1e-5)
     return tuple(exits) + (final,) if early_exits else final
+
+
+def _residual_recon(params, tokens, last_mask, c: int, s: int, patch_size: int, plain: bool,
+                    decoder_num_heads: int, compute_dtype):
+    """The EncDec tail (JAX inference.py:2339-2367): the final LN over all
+    tokens (it feeds the head and the decoder), the logits from the summed
+    class tokens, then the decoder on the image tokens ``tokens[:, s:-1]``:
+    ``decoder_embed`` where the widths differ, the mask token mixed in by
+    m = sigmoid(last_mask * 100) in the compute dtype, the pos-embedding,
+    the plain stack (LN eps 1e-5) on the unfolded weights, folded per layer
+    (``_folded_weights``), its LN, the head and the channel-major
+    unpatchify. Returns (fp32 logits, fp32 reconstruction NHWC, fp32 mask
+    image (B, H, W, 1))."""
+
+    def cast(t):
+        return t.to(compute_dtype)
+
+    enc = params["encoder"]
+    tokens = _layer_norm(tokens, cast(enc["ln"]["scale"]), cast(enc["ln"]["bias"]), 1e-5)
+    cls = tokens[:, :c].sum(dim=1)
+    final = (cls @ cast(params["head"]["kernel"]) + cast(params["head"]["bias"])).float()
+    dp = params["decoder"]
+    img = tokens[:, s:-1]  # the special tokens and the budget token stripped
+    if "decoder_embed" in params:
+        img = img @ cast(params["decoder_embed"]["kernel"]) + cast(params["decoder_embed"]["bias"])
+    m = torch.sigmoid(last_mask * 100.0).to(compute_dtype)
+    dec = img * m + cast(dp["mask_token"]) * (1.0 - m) + cast(dp["pos_embedding"])
+    dec = _encoder_stack(dp["encoder"], dec, decoder_num_heads, 1e-5, cast, plain=plain)
+    dec = _layer_norm(dec, cast(dp["encoder"]["ln"]["scale"]),
+                      cast(dp["encoder"]["ln"]["bias"]), 1e-5)
+    rec = dec @ cast(dp["head"]["kernel"]) + cast(dp["head"]["bias"])
+    return (final, _unpatchify_cmajor(rec, patch_size).float(),
+            _mask_image(m.float(), patch_size))
 
 
 def residualvit_forward_fused(params, images, budget: float, *, patch_size: int,
@@ -507,13 +656,17 @@ def residualvit_forward_fused(params, images, budget: float, *, patch_size: int,
                               gate_bias: float = 0.0, budget_token: Any = "learnable",
                               compute_dtype=torch.bfloat16, early_exits: bool = False,
                               compact_caps: Optional[tuple] = None,
-                              masks: Optional[dict] = None):
+                              masks: Optional[dict] = None, recon: bool = False,
+                              decoder_num_heads: Optional[int] = None):
     """ResidualViT eval forward (sigmoid gates, 'attention+mlp' skip, a
     budget token) over the masked-layer kernels (JAX
     ``residualvit_forward_fused``, inference.py:2141). images: (B, H, W, 3);
     ``params`` from ``prepare_engine_params`` (unfolded). Returns fp32
     logits, or with ``early_exits`` the tuple (exit_0, ..., exit_{L-1},
-    final) of an early-exit model.
+    final) of an early-exit model, or with ``recon`` (an EncDec model) the
+    tuple (logits, reconstruction NHWC, mask image) of its decoder on the
+    plain folded layer (``decoder_num_heads``, default ``num_heads``;
+    JAX :2339-2367).
 
     Per layer: the gate in fp32 (Dense(1) on the image tokens, then the
     budget-token threshold), gated image tokens multiplied by their mask,
@@ -537,7 +690,8 @@ def residualvit_forward_fused(params, images, budget: float, *, patch_size: int,
         patch_size=patch_size, num_class_tokens=num_class_tokens, num_registers=num_registers,
         gate_temp=gate_temp, gate_bias=gate_bias, budget_token=budget_token,
         compute_dtype=compute_dtype, early_exits=early_exits, compact_caps=compact_caps,
-        masks=masks)
+        masks=masks, recon_plain=False if recon else None,
+        decoder_num_heads=decoder_num_heads or num_heads)
 
 
 def residualvit_forward_plain(params, images, budget: float, *, patch_size: int,
@@ -546,16 +700,18 @@ def residualvit_forward_plain(params, images, budget: float, *, patch_size: int,
                               gate_bias: float = 0.0, budget_token: Any = "learnable",
                               compute_dtype=torch.float32, early_exits: bool = False,
                               compact_caps: Optional[tuple] = None,
-                              masks: Optional[dict] = None):
-    """The same forward with the masked layers on the kernels' plain
-    versions, whatever the device: the reference a check holds the engine
-    against on the card."""
+                              masks: Optional[dict] = None, recon: bool = False,
+                              decoder_num_heads: Optional[int] = None):
+    """The same forward with the masked layers (and the decoder's layers)
+    on the kernels' plain versions, whatever the device: the reference a
+    check holds the engine against on the card."""
     return _residual_forward(
         params, images, budget, _residual_layers(_MASKED_PLAIN, num_heads, compute_dtype),
         patch_size=patch_size, num_class_tokens=num_class_tokens, num_registers=num_registers,
         gate_temp=gate_temp, gate_bias=gate_bias, budget_token=budget_token,
         compute_dtype=compute_dtype, early_exits=early_exits, compact_caps=compact_caps,
-        masks=masks)
+        masks=masks, recon_plain=True if recon else None,
+        decoder_num_heads=decoder_num_heads or num_heads)
 
 
 # ---------------------------------------------------------------- RankViT
@@ -1449,8 +1605,8 @@ def rankpct_forward_plain(params, points, *, budget: Optional[float], ranking: t
 
 
 class InferenceEngine:
-    """Fused eval forward bound to a built plain ViT, ResidualViT, RankViT,
-    A-ViT, PCT or RankPCT.
+    """Fused eval forward bound to a built plain ViT, ResidualViT (early-exit
+    and EncDec included), RankViT, A-ViT, MAE, PCT or RankPCT.
 
     ``device`` defaults to the card and raises when there is none; pass
     ``device="cpu"`` to run the kernels' plain versions on the CPU. On the
@@ -1465,6 +1621,19 @@ class InferenceEngine:
     ``True`` for min(1, budget + ``compact_slack``) per budget; a capacity
     is ceil(c * N_img) rounded up to a multiple of 8, and one that covers
     every token runs the exact path.
+
+    ``recon_outputs=True`` (an EncDec ResidualViT or an MAE, not int8, as
+    in JAX): the EncDec engine returns (logits,
+    reconstruction NHWC, mask image), its decoder on the plain folded
+    layer after the masked encoder; the MAE engine (logits,
+    reconstruction). Without it both return the logits. It raises on any
+    other family, with ``quantized=``, with ``compact=`` (compaction loses
+    the token positions the decoder needs) and under ``mesh=`` (queue A
+    item 9).
+
+    MAE: ``engine(images)`` (``maevit_forward_fused``: no shuffle at eval,
+    the encoder and ``decoder_blocks`` on the plain folded stack); bf16
+    eval only, ``quantized=`` and ``max_budget=`` raise.
 
     RankViT: ``engine(images, budget=b)``, the budget 1.0 by default. By
     default the exact physical drop (``rankvit_forward_fused``: the shapes
@@ -1518,11 +1687,24 @@ class InferenceEngine:
         residual = isinstance(model, ResidualVisionTransformer)
         avit = isinstance(model, AdaptiveVisionTransformer)
         pct = isinstance(model, (PointCloudTransformer, RankPointCloudTransformer))
-        if not (rank or residual or avit or pct or isinstance(model, VisionTransformer)):
+        mae = isinstance(model, MAEVisionTransformer)
+        if not (rank or residual or avit or pct or mae or isinstance(model, VisionTransformer)):
             raise NotImplementedError(
                 f"the port's engine serves the plain VisionTransformer, the ResidualViT "
-                f"family, RankViT, A-ViT, PCT and RankPCT; {type(model).__name__} is ROADMAP.md "
-                f"port queue A item 7")
+                f"family, RankViT, A-ViT, MAE, PCT and RankPCT; {type(model).__name__} is "
+                f"ROADMAP.md port queue A item 7")
+        if recon_outputs and not (mae or isinstance(model, ResidualVisionTransformerWithDecoder)):
+            raise NotImplementedError(
+                "recon_outputs=True needs a model with a reconstruction decoder (MAE or "
+                "EncDec-Residual)")
+        if mae and (quantized or max_budget is not None):
+            raise NotImplementedError(
+                "the MAE engine is bf16 eval only (no quantized / max_budget modes; the model "
+                "takes no budget)")
+        if recon_outputs and quantized:
+            raise NotImplementedError(
+                "recon_outputs=True is bf16-only: the int8 residual path has no quantized "
+                "decoder blocks")
         if avit and (quantized or max_budget is not None):
             raise NotImplementedError(
                 "the A-ViT engine is bf16-only by design: int8 would quantize the "
@@ -1559,7 +1741,8 @@ class InferenceEngine:
         not_ported = {
             "mesh=": (mesh is not None and not tp,
                       "item 9 (the data-parallel engine: a mesh with model axis 1)"),
-            "recon_outputs=": (recon_outputs, "item 7 (EncDec / MAE)"),
+            "recon_outputs= with mesh=": (recon_outputs and mesh is not None,
+                                          "item 9 (the decoder has no tensor-parallel partials)"),
             "routed=": (routed is not None, "item 7 (MoE)"),
         }
         for name, (used, item) in not_ported.items():
@@ -1573,7 +1756,7 @@ class InferenceEngine:
                 raise NotImplementedError(
                     "fused ResidualViT engine supports the shipped-config mode: sigmoid gates, "
                     "attention+mlp skip, budget token, add_input=False (SURVEY.md section 7.6)")
-        if tp and (avit or pct or quantized or max_budget is not None):
+        if tp and (avit or pct or mae or quantized or max_budget is not None):
             raise NotImplementedError(
                 "tensor-parallel serving (a mesh with a model axis > 1) covers the bf16 plain "
                 "ViT, RankViT (exact drop) and ResidualViT-family engines; other families and "
@@ -1594,6 +1777,7 @@ class InferenceEngine:
         self._rank = rank
         self._avit = avit
         self._pct = pct
+        self._mae = mae
         self._quantized = bool(quantized)
         self.caps = None
         self._tp_make = None
@@ -1617,6 +1801,15 @@ class InferenceEngine:
             self.params = prepare_pct_engine_params(params, stats, compute_dtype)
             return
         params = tree_map(lambda t: t.to(self.device), module_params(model))
+        if mae:
+            # no shuffle at eval: the full sequence through both stacks
+            self._forward = dict(
+                patch_size=model.patch_size, num_heads=model.num_heads,
+                num_decoder_heads=model.num_decoder_heads,
+                num_class_tokens=model.num_class_tokens, num_registers=model.num_registers,
+                ln_eps=1e-5, compute_dtype=compute_dtype, recon=bool(recon_outputs))
+            self.params = prepare_engine_params(params, compute_dtype, fold_ln=True)
+            return
         if quantized:
             params = self._quantize(params, calib_images, calib_percentile, calib_static_caps)
         if rank:
@@ -1649,6 +1842,8 @@ class InferenceEngine:
             gate_temp=model.gate_temp, gate_bias=model.gate_bias,
             budget_token=model.add_budget_token, compute_dtype=compute_dtype,
             early_exits=bool(ee_outputs))
+        if recon_outputs:
+            self._forward.update(recon=True, decoder_num_heads=model.decoder_num_heads)
         self.params = prepare_engine_params(params, compute_dtype)
         self._compact_auto = compact is True
         self._compact_slack = float(compact_slack)
@@ -1723,10 +1918,11 @@ class InferenceEngine:
     def __call__(self, images, budget: Optional[float] = None):
         """images: (B, H, W, 3), or point clouds (B, N, 3) for PCT and
         RankPCT, numpy array or tensor. Returns fp32 logits on the engine's
-        device (for ``ee_outputs``, the tuple of exits and final logits).
+        device (for ``ee_outputs``, the tuple of exits and final logits;
+        for ``recon_outputs``, the logits and the decoder's fp32 images).
         ``budget`` (ResidualViT, RankViT and a RankPCT with ranking on,
-        default 1.0) is ignored by a plain ViT, by A-ViT and by PCT, as in
-        the JAX engine."""
+        default 1.0) is ignored by a plain ViT, by A-ViT, by MAE and by
+        PCT, as in the JAX engine."""
         if isinstance(images, np.ndarray):
             images = torch.from_numpy(images)
         images = images.to(self.device, torch.float32)
@@ -1758,6 +1954,8 @@ class InferenceEngine:
                            **q)
             if self._avit:
                 return adavit_forward_fused(self.params, images, **self._forward)
+            if self._mae:
+                return maevit_forward_fused(self.params, images, **self._forward)
             if not self._residual:
                 fwd = vit_forward_quant if self._quantized else vit_forward_fused
                 return fwd(self.params, images, **self._forward, **q)

@@ -25,6 +25,7 @@ class EEResidualVisionTransformer(ResidualVisionTransformer):
     """Early-exit ResidualViT. Primary output = tuple(exits..., final)."""
 
     early_exits = True
+    both_budget_tokens = True
     output_format = "early_exits"
 
     def _current_budget(self, budget, n: int, train: bool, generator, device) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """build_model for the port (counterpart of peekvit_tpu/models/registry.py
-:115-180). The plain ViT, the ResidualViT, the early-exit ResidualViT,
-RankViT, A-ViT, PCT and RankPCT are ported; the other registered families
-raise NotImplementedError naming their ROADMAP item."""
+:115-180). The plain ViT, the ResidualViT, the early-exit and the EncDec
+ResidualViT, RankViT, A-ViT, MAE, PCT and RankPCT are ported; MoE, the
+other registered family, raises NotImplementedError naming its ROADMAP
+item."""
 
 from __future__ import annotations
 
@@ -13,6 +14,8 @@ from torch import nn
 
 from peekvit_torch.models.adavit import AdaptiveVisionTransformer
 from peekvit_torch.models.eeresidualvit import EEResidualVisionTransformer
+from peekvit_torch.models.encdecresidualvit import ResidualVisionTransformerWithDecoder
+from peekvit_torch.models.maevit import MAEVisionTransformer
 from peekvit_torch.models.pct import PointCloudTransformer
 from peekvit_torch.models.rankpct import RankPointCloudTransformer
 from peekvit_torch.models.rankvit import RankVisionTransformer
@@ -26,6 +29,9 @@ _PORTED = {
                     ResidualVisionTransformer),
     **dict.fromkeys(("EEResidualVisionTransformer", "eeResidualVisionTransformer",
                      "eeResidualvit", "eeresidualvit"), EEResidualVisionTransformer),
+    **dict.fromkeys(("ResidualVisionTransformerWithDecoder", "encdecresidualvit"),
+                    ResidualVisionTransformerWithDecoder),
+    **dict.fromkeys(("MAEVisionTransformer", "maevit"), MAEVisionTransformer),
     **dict.fromkeys(("RankingVisionTransformer", "RankVisionTransformer", "rankvit"),
                     RankVisionTransformer),
     **dict.fromkeys(("AdaptiveVisionTransformer", "adavit"), AdaptiveVisionTransformer),
@@ -35,13 +41,8 @@ _PORTED = {
                     RankPointCloudTransformer),
 }
 # JAX registry names not ported yet -> ROADMAP.md port queue A item
-_NOT_PORTED = {
-    **dict.fromkeys(("ResidualVisionTransformerWithDecoder", "encdecresidualvit"),
-                    "item 7 (EncDec, with MAE's decoder)"),
-    **dict.fromkeys(("visiontransformermoe", "VisionTransformerMoE", "vitmoe", "moevit",
-                     "MoEVisionTransformer", "MAEVisionTransformer", "maevit"),
-                    "item 7 (remaining families)"),
-}
+_NOT_PORTED = dict.fromkeys(("visiontransformermoe", "VisionTransformerMoE", "vitmoe", "moevit",
+                             "MoEVisionTransformer"), "item 7 (MoE)")
 
 
 def resolve_device(device) -> torch.device:

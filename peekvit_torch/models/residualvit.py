@@ -254,6 +254,9 @@ class ResidualVisionTransformer(nn.Module):
     aux['current_budget'] ((B,) budgets)."""
 
     early_exits = False
+    # 'learnable' allocates learnable_budget_token_2 too (the early-exit and
+    # EncDec references, :217-219)
+    both_budget_tokens = False
 
     def __init__(self, image_size: int, patch_size: int, num_layers: int, num_heads: int,
                  hidden_dim: int, mlp_dim: int, dropout: float = 0.0,
@@ -307,8 +310,7 @@ class ResidualVisionTransformer(nn.Module):
         if learnable:
             self.learnable_budget_token_1 = nn.Parameter(torch.empty(1, 1, hidden_dim))
             nn.init.normal_(self.learnable_budget_token_1, std=1.0, generator=generator)
-        # the EE reference allocates token 2 for both learnable modes (:217-219)
-        if add_budget_token == "learnable_interpolate" or (learnable and self.early_exits):
+        if add_budget_token == "learnable_interpolate" or (learnable and self.both_budget_tokens):
             self.learnable_budget_token_2 = nn.Parameter(torch.empty(1, 1, hidden_dim))
             nn.init.normal_(self.learnable_budget_token_2, std=1.0, generator=generator)
         self.head = Dense(hidden_dim, num_classes)  # zero init
@@ -360,4 +362,10 @@ class ResidualVisionTransformer(nn.Module):
         aux = {"masks": masks}
         if current_budget is not None:
             aux["current_budget"] = current_budget
-        return (tuple(exits) + (logits,) if self.early_exits else logits), aux
+        return self._outputs(tokens, logits, exits, masks), aux
+
+    def _outputs(self, tokens, logits, exits, masks):
+        """The primary output from the final tokens, the logits, the early
+        exits and the gate masks: the logits, or the tuple of exits and
+        logits of an early-exit model."""
+        return tuple(exits) + (logits,) if self.early_exits else logits

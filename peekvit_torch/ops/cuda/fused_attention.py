@@ -51,9 +51,10 @@ scrubbed, so garbage in excluded rows stays inert). ``fused_mlp_block``
 is the split MLP sublayer the exact RankViT engine takes below 128
 tokens.
 
-The attention kernel is instantiated at head dims 64 (the ViT family)
-and 32 (PCT: d = 128 over 4 heads, counted as ``attn_scores_pv.hd32``),
-so every composition here runs at either.
+The attention kernel is instantiated at head dims 64 (the ViT family), 32
+(PCT: d = 128 over 4 heads; MAE; counted as ``attn_scores_pv.hd32``) and
+48 (the EncDec ResidualViT's decoder: d = 192 over 4 heads, counted as
+``attn_scores_pv.hd48``), so every composition here runs at any of them.
 
 Dispatch is by device only. A wrapper uses the plain version for CPU
 tensors; for CUDA tensors it launches its kernel or raises (wrong dtype,
@@ -538,8 +539,8 @@ def gemm_masked_rowdot(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, g: 
 
 
 # Head dims the attention kernel is instantiated for (attn_scores_pv.cu):
-# 64 (the ViT family) and 32 (PCT).
-HEAD_DIMS = (64, 32)
+# 64 (the ViT family), 32 (PCT, MAE) and 48 (the EncDec decoder).
+HEAD_DIMS = (64, 32, 48)
 
 
 def _qscale(hd: int) -> float:
@@ -562,14 +563,23 @@ def _check_kmask(qkv, phantom_idx, kmask):
     return kmask.reshape(b, n)
 
 
+def attn_scores_pv_key(head_dim: int, kmask: bool = False, phantom: bool = False) -> str:
+    """The launch key of an :func:`attn_scores_pv` call: ``attn_scores_pv``
+    plus ``.kmask`` (a key mask) or ``.kweight`` (a phantom key), plus
+    ``.hd32`` / ``.hd48`` off head dim 64."""
+    key = ("attn_scores_pv.kmask" if kmask else "attn_scores_pv.kweight" if phantom
+           else "attn_scores_pv")
+    return key + ("" if head_dim == 64 else f".hd{head_dim}")
+
+
 def attn_scores_pv_plan(b: int, n: int, num_heads: int, head_dim: int = 64) -> dict:
     """The schedule :func:`attn_scores_pv` takes on the card for b images
     of n tokens, chosen by shape inside its C entry point: the kernel
     (``"wgmma"``, the head's K and V resident in shared memory, or
-    ``"kept"``, the earlier mma.sync kernel, at head dim 64 past 832
-    tokens), the CTAs per (image, head), the wgmma kernel's shared memory
-    in bytes and its warpgroups per CTA. For the record; needs the built
-    library."""
+    ``"kept"``, the mma.sync kernel: at head dim 64 past 832 tokens and at
+    head dim 48 at every N), the CTAs per (image, head), the wgmma kernel's
+    shared memory in bytes and its warpgroups per CTA. For the record;
+    needs the built library."""
     out = (ctypes.c_int * 4)()
     _build.extra("attn_scores_pv")(b, n, num_heads, head_dim, out)
     return {"kernel": "wgmma" if out[0] else "kept", "ctas_per_head": out[1], "smem": out[2],
@@ -635,8 +645,9 @@ def attn_scores_pv(qkv: torch.Tensor, num_heads: int, phantom_idx: int = -1,
     a key whose mask is not > 0 gets weight 0 for every query, selected
     (not multiplied) so that NaN or Inf in its row cannot leak, and
     non-finite values of v are scrubbed to 0 (Pallas ``kmask``). On CUDA:
-    bf16, head dim 64 or 32 (counted as ``attn_scores_pv[.kmask|.kweight]``,
-    with ``.hd32`` appended at head dim 32), a bf16 key mask."""
+    bf16, a bf16 key mask, head dim 64 or 32 (the wgmma kernel; 64 past
+    832 tokens the mma.sync kernel) or 48 (the mma.sync kernel at every N),
+    counted under :func:`attn_scores_pv_key`."""
     km = _check_kmask(qkv, phantom_idx, kmask)
     if _on_cpu(qkv, kmask):
         return attn_scores_pv_ref(qkv, num_heads, phantom_idx, phantom_mult, kmask)
@@ -651,13 +662,16 @@ def attn_scores_pv(qkv: torch.Tensor, num_heads: int, phantom_idx: int = -1,
     _require(hd in HEAD_DIMS and d == num_heads * hd,
              f"attn_scores_pv: the kernel is built for head dims {HEAD_DIMS}, got D={d}, "
              f"H={num_heads}")
+    # the kernels' 16-byte loads: head h's q, k and v start at bytes
+    # 2 * h * hd, 2 * (D + h * hd) and 2 * (2D + h * hd) of a 16-byte-aligned row
+    _require((2 * hd) % 16 == 0 and (2 * d) % 16 == 0,
+             f"attn_scores_pv: head offsets of {2 * hd} and row thirds of {2 * d} bytes must be "
+             "multiples of 16")
     out = torch.empty((b, n, d), dtype=torch.bfloat16, device=qkv.device)
     err = _build.library("attn_scores_pv")(
         qkv.data_ptr(), out.data_ptr(), None if km is None else km.data_ptr(), b, n, d,
         num_heads, hd, _qscale(hd), int(phantom_idx), float(phantom_mult), _stream())
-    key = ("attn_scores_pv.kmask" if km is not None
-           else "attn_scores_pv.kweight" if phantom_idx >= 0 else "attn_scores_pv")
-    _launched(key + ("" if hd == 64 else f".hd{hd}"), err)
+    _launched(attn_scores_pv_key(hd, km is not None, phantom_idx >= 0), err)
     return out
 
 
@@ -717,7 +731,7 @@ def fused_mhsa(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     heads of packed qkv (B, N, 3D) -> (B, N, D) with the fast softmax of
     ``_attn_scores_pv``, which the linen attention takes under
     ``set_attention_impl("pallas")``. On CUDA it is one ``attn_scores_pv``
-    launch (bf16, head dim 64 or 32); an fp32 input raises naming B15."""
+    launch (bf16, head dim 64, 32 or 48); an fp32 input raises naming B15."""
     if not _on_cpu(qkv):
         _check_b15("fused_mhsa", qkv)
     return attn_scores_pv(qkv, num_heads)

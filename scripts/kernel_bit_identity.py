@@ -68,7 +68,7 @@ Modes: ``norm_rows`` (bf16 and fp32 in, masked, A-ViT), ``ln_rows``
 bias, gelu, residual_f32, residual with an fp32 and a bf16 residual,
 masked_residual_f32, masked_residual, masked_rowdot, gelu_hpre, NT
 gelu_grad, partial_f32), ``gemm_nt`` (none, none_f32),
-``attn_scores_pv`` (plain, kweight, kmask, head dim 32),
+``attn_scores_pv`` (plain, kweight, kmask, head dims 32 and 48),
 ``attn_softmax_fwd`` (packed qkv, separate q, k, v, kmask),
 ``attn_softmax_bwd``, ``gemm_wgrad`` (the merged backward's four
 products), ``ln_bwd_rows`` (bf16 and fp32 g, masked, fp32 y),
@@ -125,6 +125,9 @@ TIMED_TAGS = ("vit_b16_bs256", "pct_bs128", "residual_bs256", "avit_bs256", "att
 # the edges: attn_scores_pv at these token counts (head dim 64 and 32), the
 # s8 GEMM at these (M, N, K)
 EDGE_TOKENS = (1, 17, 64, 65, 148, 208, 257, 786)
+# attn_scores_pv at head dim 48 (d 192 over 4 heads, the EncDec decoder's),
+# in a checkout that has it: a new mode against a checkout without it
+EDGE_TOKENS_HD48 = (1, 17, 64, 65, 400, 401)
 EDGE_GEMMS = ((1, 8, 16), (129, 136, 144), (300, 264, 784))
 # the row kernels (norm_rows.cu) at these widths and row counts; arpe_tokens
 # at these (points, ks)
@@ -564,6 +567,11 @@ def _extra_modes(torch, dev, fa, tq, pe) -> dict:
                 tq.gemm_s8_epilogue(c, s, w, sw, b, e, residual=r, mask=mk))
         modes[f"edges/gemm_s8_epilogue.bias.static.{m}x{n}x{k}"] = (
             lambda c=codes, w=w8, sw=sw, b=bias: tq.gemm_s8_epilogue(c, 0.02, w, sw, b, "bias"))
+    if 48 in fa.HEAD_DIMS:  # the mma.sync kernel's head-dim-48 instance, from its own seed
+        gen48 = torch.Generator(device=dev).manual_seed(48)
+        for n in EDGE_TOKENS_HD48:
+            q48 = torch.randn(2, n, 3 * 192, generator=gen48, device=dev).to(bf16)
+            modes[f"edges/attn_scores_pv.hd48.N{n}"] = lambda q=q48: fa.attn_scores_pv(q, 4)
     return modes
 
 

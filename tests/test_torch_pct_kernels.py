@@ -172,9 +172,10 @@ def test_fused_layer_block_folded_d128_h4(dtype):
 
 
 def test_attn_scores_pv_head_dims():
-    """The kernel is instantiated at head dims 64 and 32: the wrapper says
-    which it takes, and the plain version's query scale follows the head
-    dim (32^-0.5 log2 e), as JAX's."""
-    assert tfa.HEAD_DIMS == (64, 32)
+    """The kernel is instantiated at head dims 64, 32 and 48: the wrapper
+    says which it takes, and the plain version's query scale follows the
+    head dim (32^-0.5 log2 e), as JAX's."""
+    assert tfa.HEAD_DIMS == (64, 32, 48)
     assert tfa._qscale(64) == 0.125 * tfa.LOG2E
     assert tfa._qscale(32) == (1.0 / (32 ** 0.5)) * jfa.LOG2E
+    assert tfa._qscale(48) == (1.0 / (48 ** 0.5)) * jfa.LOG2E

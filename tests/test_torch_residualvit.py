@@ -356,7 +356,8 @@ def test_engine_guards():
     with pytest.raises(ValueError, match="schedule has 3 entries"):
         InferenceEngine(tm, device="cpu", compact=(0.5, 0.5, 0.5))
     for kwargs, item in ((dict(routed=True), "item 7"), (dict(max_budget=0.5), "item 5"),
-                         (dict(recon_outputs=True), "item 7"), (dict(mesh=object()), "item 9")):
+                         (dict(recon_outputs=True), "reconstruction decoder"),
+                         (dict(mesh=object()), "item 9")):
         with pytest.raises(NotImplementedError, match=item):
             InferenceEngine(tm, device="cpu", **kwargs)
     for args in (dict(SMALL, add_budget_token=False),
@@ -366,8 +367,8 @@ def test_engine_guards():
         model = build_model("residualvit", args, device="cpu")
         with pytest.raises(NotImplementedError, match="shipped-config mode"):
             InferenceEngine(model, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        build_model("encdecresidualvit", SMALL, device="cpu")
+    with pytest.raises(ValueError, match="requires add_budget_token"):
+        build_model("encdecresidualvit", dict(SMALL, add_budget_token=False), device="cpu")
 
 
 def test_engine_defaults_to_the_card(monkeypatch):
