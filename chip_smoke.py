@@ -271,9 +271,10 @@ prints no final result):
    d 192 over 4 heads, attn_scores_pv.hd48) and the MAE ViT
    (configs/model/maevit.yaml) at 160 px serve 8 and 512 images through
    InferenceEngine(recon_outputs=True), counted per forward and held
-   against their plain twins; attn_scores_pv.hd48 timed at bs512 beside
-   its bound, plain version and SDPA; both engines logits-only and with
-   the decoder; ptxas of the head-dim-48 instances (none may spill);
+   against their plain twins; attn_scores_pv.hd48 (the wgmma kernel,
+   required by its plan) timed at bs512 beside its bound, plain version
+   and SDPA; both engines logits-only and with the decoder; ptxas of the
+   head-dim-48 instances of both kernels (none may spill);
 42. the {"kernels": [...]} line, then the card's nvidia-smi line, then
    {"ok": true, "device": {...}} as the last line.
 
@@ -3627,9 +3628,13 @@ def gemm_attn_bwd_timing(torch, F, fa, vjp, smi, randn, build_info) -> None:
 
 
 SCORES_PV_EDGE_TOKENS = (1, 15, 16, 17, 63, 64, 65, 148, 197, 208, 256, 257, 786, 1024)
-# head dim 48 (the EncDec decoder's d 192 over 4 heads: the mma.sync kernel at
-# every N): the 16-key slice and 64-key tile edges, the decoder's 400 tokens
-SCORES_PV_HD48_TOKENS = (1, 15, 16, 17, 63, 64, 65, 400, 401)
+# head dim 48 (the EncDec decoder's d 192 over 4 heads): the 16-key slice and
+# 64-key tile edges, the decoder's 400 tokens, and the wgmma kernel's route
+# edges as attn_scores_pv_plan gives them: two warpgroups and two CTAs an SM
+# to 512, four warpgroups to 1,024, two warpgroups and one CTA an SM to
+# 1,088, the mma.sync kernel from 1,089
+SCORES_PV_HD48_TOKENS = (1, 15, 16, 17, 63, 64, 65, 400, 401, 512, 513, 1024, 1025, 1088,
+                         1089)
 SCORES_PV_WIDTHS = (  # head dim, d, heads, token counts, batches
     (64, 768, 12, SCORES_PV_EDGE_TOKENS, (EDGE_BATCH,)),
     (32, 128, 4, SCORES_PV_EDGE_TOKENS, (EDGE_BATCH,)),
@@ -3640,14 +3645,28 @@ S8_EDGE_N = (8, 136, 264, 768, 2304)
 S8_EDGE_K = (16, 144, 784, 3072)
 
 
+def plain_by_images(torch, fa, qkv, heads, kw, step=64):
+    """attn_scores_pv_ref on ``step`` images at a time (each image's heads
+    are independent), so that the fp32 logits of 512 images of 1,089 tokens
+    never stand in memory at once."""
+    parts = []
+    for i in range(0, qkv.shape[0], step):
+        part = dict(kw)
+        if "kmask" in part:
+            part["kmask"] = part["kmask"][i:i + step]
+        parts.append(fa.attn_scores_pv_ref(qkv[i:i + step], heads, **part))
+    return torch.cat(parts)
+
+
 def scores_pv_s8_edge_checks(torch, fa, tq, randn, smi, build_info) -> None:
     """Phase 36, the wgmma / TMA attn_scores_pv and gemm_s8_epilogue at their
     edges: the attention at every N of SCORES_PV_EDGE_TOKENS (16-key slices,
     64-key chunks and tiles, the kept kernel past 832 tokens at head dim
     64) at ViT-B/16 width (head dim 64) and PCT's (32), and at the EE
     ResidualViT's (d 256, 4 heads) at its 786 tokens, 4 images; at head
-    dim 48 (the EncDec decoder's d 192, the mma.sync kernel) at every N of
-    SCORES_PV_HD48_TOKENS for 1 and 512 images; in every
+    dim 48 (the EncDec decoder's d 192: the wgmma kernel to 1,088 tokens,
+    the mma.sync kernel past them) at every N of SCORES_PV_HD48_TOKENS for
+    1 and 512 images (the plain version taken 64 images at a time); in every
     mode (plain; the phantom key at the last token with mult 0 and 45; a
     key mask with about half the keys excluded and their rows poisoned with
     NaN and Inf, the attended rows compared and bit-equal to a clean
@@ -3693,7 +3712,7 @@ def scores_pv_s8_edge_checks(torch, fa, tq, randn, smi, build_info) -> None:
                 modes["kmask"] = (qkv_km, {"kmask": km})
                 for mode, (x, kw) in modes.items():
                     got = fa.attn_scores_pv(x, h, **kw)
-                    want = fa.attn_scores_pv_ref(x, h, **kw)
+                    want = plain_by_images(torch, fa, x, h, kw)
                     rows = (km > 0) if mode == "kmask" else None
                     held(f"attn_scores_pv.{mode}.hd{hd}.N{n}", got, want, 2e-2, rows)
                     same[f"attn_scores_pv.{mode}.{tag}.rerun"] = torch.equal(
@@ -5515,11 +5534,13 @@ def recon_phases(torch, F, fa, dev, smi, check, checks, build_info) -> dict:
     logits-only engine's logits beside them. Then attn_scores_pv.hd48 at
     the EncDec decoder's bs512 shape (N 400, 4 heads, d 192) against its
     plain version and timed (ms, device_ms, plain, SDPA on the same q, k,
-    v, the bound: bytes, products, exp2 terms at the SFU's rate); both
-    engines logits-only and with recon_outputs at 8 and 512 images (ms per
-    forward, the decoder's share), one profiled recon forward of each at
-    512; ptxas's registers and spills of the head-dim-48 instances (a
-    spill fails the run). Returns the counts and the kernels-line entry."""
+    v, the bound: bytes, products, exp2 terms at the SFU's rate), its
+    schedule required to be the wgmma kernel; both engines logits-only and
+    with recon_outputs at 8 and 512 images (ms per forward, the decoder's
+    share), one profiled recon forward of each at 512; ptxas's registers
+    and spills of every head-dim-48 instance of both kernels (a spill, or
+    a missing wgmma instance, fails the run). Returns the counts and the
+    kernels-line entry."""
     from peekvit_torch import InferenceEngine
     from peekvit_torch.inference import maevit_forward_plain, residualvit_forward_plain
 
@@ -5573,9 +5594,13 @@ def recon_phases(torch, F, fa, dev, smi, check, checks, build_info) -> dict:
     emit({"phase": "recon_launches", "counts": totals, "requests": list(RECON_REQUESTS),
           "card": smi})
 
-    # the head-dim-48 attention at the EncDec decoder's bs512 shape
+    # the head-dim-48 attention at the EncDec decoder's bs512 shape, on the
+    # wgmma kernel
     b, n, hd, heads = RECON_REQUESTS[-1], 400, 48, 4
     d = hd * heads
+    schedule = fa.attn_scores_pv_plan(b, n, heads, hd)
+    if schedule["kernel"] != "wgmma":
+        raise AssertionError(f"attn_scores_pv.hd48 at b{b}, N {n}: plan {schedule}, want wgmma")
     qkv = torch.randn(b, n, 3 * d, generator=gen, device=dev).to(bf16)
     name = "attn_scores_pv.hd48"
     with torch.inference_mode():
@@ -5597,7 +5622,7 @@ def recon_phases(torch, F, fa, dev, smi, check, checks, build_info) -> dict:
              "library_ms": lib_ms, "exp_ms": exps / SFU_PER_S * 1e3, "path": "recon",
              "shape_batch": b, "count_key": name}
     emit({"phase": "timing_kernel", **{k: v for k, v in entry.items() if k != "count_key"},
-          "plan": fa.attn_scores_pv_plan(b, n, heads, hd), "share_of_bound": bnd / dev_ms,
+          "plan": schedule, "share_of_bound": bnd / dev_ms,
           "library": "SDPA on the same q, k, v", "card": smi})
     if entry["launches"] == 0:
         raise AssertionError(f"{name}: never launched on the recon path")
@@ -5620,13 +5645,20 @@ def recon_phases(torch, F, fa, dev, smi, check, checks, build_info) -> dict:
             profile_step(torch, smi, lambda: pair[True](x, **kw),
                          forward_ms[(name, RECON_REQUESTS[-1])], phase=f"profile_{name}_recon",
                          batch=RECON_REQUESTS[-1], warmup=True)
+    # every head-dim-48 instance of both kernels: the mma.sync kernel's two
+    # (key mask off and on) and the wgmma kernel's four (key mask x 2 or 4
+    # warpgroups)
     rows = [r for r in ptxas_summary(build_info, ("attn_scores_pv",))
-            if "attn_kernelILi48" in r["kernel"]]
+            if "attn_kernelILi48" in r["kernel"] or "attn_wgmma_kernelILi48" in r["kernel"]]
     spilled = [r["kernel"] for r in rows if r.get("spill_store_bytes") or r.get("spill_load_bytes")]
+    wgmma48 = sum("attn_wgmma_kernelILi48" in r["kernel"] for r in rows)
     emit({"phase": "ptxas_hd48", "kernels": rows if rows else "not rebuilt in this run",
-          "spilled": spilled, "card": smi})
+          "wgmma_instances": wgmma48, "spilled": spilled, "card": smi})
     if spilled:
         raise AssertionError(f"ptxas spilled registers in {spilled}")
+    if rows and (wgmma48 != 4 or len(rows) != 6):
+        raise AssertionError(f"ptxas reported {len(rows)} head-dim-48 instances "
+                             f"({wgmma48} wgmma), want 6 (4 wgmma)")
     return {"counts": totals, "entries": [entry]}
 
 

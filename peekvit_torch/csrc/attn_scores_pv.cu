@@ -35,8 +35,9 @@
 // ViT-S, every earlier model), 32 (PCT: d = 128 over 4 heads; MAE) and 48
 // (the EncDec ResidualViT's decoder: d = 192 over 4 heads). Only the tile
 // geometry follows HD; the arithmetic and its order are the same for all
-// three. Head dims 64 and 32 take the wgmma kernel below; head dim 48
-// takes the mma.sync kernel at every N (see "Past those token counts").
+// three. All three take the wgmma kernel below up to a token count set by
+// shared memory, and the mma.sync kernel past it (see "Past those token
+// counts").
 //
 // Bound on H100: at ViT-B (N = 197, head dim 64) the two products are
 // 4 * N * N * 64 flops per (image, head) against 4 * N * 64 * 2 bytes
@@ -52,9 +53,10 @@
 // instructions are what limits any design.
 //
 // Design (attn_wgmma_kernel, every N the port runs: up to 832 tokens at
-// head dim 64, 1,728 at 32): one CTA of two warpgroups (four where K and V
-// leave room for one CTA an SM only, so that 16 warps share the SM all the
-// same) per (image, head, set of 64-row query tiles), no producer warp.
+// head dim 64, 1,088 at 48, 1,728 at 32): one CTA of two warpgroups (four
+// where K and V leave room for one CTA an SM only, so that 16 warps share
+// the SM all the same) per (image, head, set of 64-row query tiles), no
+// producer warp.
 // The head's whole K and V (keys padded to a multiple of 64) stay in
 // shared memory, loaded ONCE per CTA by TMA in 64-key chunks, each on its
 // own mbarrier, all waited for before the first product (a wait inside
@@ -63,16 +65,28 @@
 // serves Q, K and V, so keys past N of image b load as zeros, never as
 // image b + 1's rows. The swizzle is the row's: 128 bytes at head dim 64,
 // 64 bytes at 32 (rows of 64 bytes), in the map and in the wgmma
-// descriptors alike. Warpgroup w takes the CTA's query tiles w, w + NWG,
-// ... (of the head's tiles, interleaved over gridDim.x CTAs when the batch
-// is small), each through its own Q buffer: the next tile's TMA is issued
-// as soon as the warpgroup holds the current one in registers.
+// descriptors alike. At head dim 48 a row is 96 bytes, which fits no
+// swizzle span, so every 64-row tile of Q, K and V is three column boxes
+// of 16 (32 bytes a row, the 32-byte swizzle's span; 2,048 bytes a box),
+// one TMA each, box after box (Geo, load_tile). Each k16 step of S reads
+// one box K-major (sbo 256); PV's V, MN-major, spans the three boxes as
+// three 16-wide N atoms of one wgmma m64n48k16 (lbo 2,048, the box step).
+// That layout was chosen over two others: 32 + 16 columns (64- and 32-byte
+// swizzles) needs two descriptor kinds and a split PV for nothing that the
+// three equal boxes lack; rows padded to 64 in shared memory cost a third
+// more shared memory (one CTA an SM at the decoder's 400 tokens where this
+// keeps two) and 64-wide boxes that reach into the next head's columns.
+// The three boxes keep the shared memory at 96 bytes a row, so head dim
+// 48 reaches 1,088 tokens. Warpgroup w takes the CTA's query tiles w,
+// w + NWG, ... (of the head's tiles, interleaved over gridDim.x CTAs when
+// the batch is small), each through its own Q buffer: the next tile's TMA
+// is issued as soon as the warpgroup holds the current one in registers.
 // Per query tile, chunk by chunk:
-//   S = Q K^T: Q's fragments by ldmatrix from the swizzled tile, scaled by
-//     qscale in fp32 and rounded to bf16 (the register A operand), K
-//     K-major in shared memory; wgmma m64n64k16 over a full chunk, and
-//     m64n16k16 per 16-key slice over the last, ragged one (no work on
-//     slices wholly past N);
+//   S = Q K^T: Q's fragments by ldmatrix from the swizzled tile (or box),
+//     scaled by qscale in fp32 and rounded to bf16 (the register A
+//     operand), K K-major in shared memory; wgmma m64n64k16 over a full
+//     chunk, and m64n16k16 per 16-key slice over the last, ragged one (no
+//     work on slices wholly past N);
 //   the terms in registers: e = bf16(exp2f(bf16(clamp(s)))), two keys at
 //     a time in bf16x2 form (exp2_terms: about six instructions a score,
 //     where the scalar form took about twelve; the instructions a score
@@ -93,25 +107,22 @@
 // fed the same 16-key slices in order, and the slices the old kernel
 // padded with (zero P, zero V) add exact zeros.
 //
-// Past those token counts (head dim 64 above 832 keys: K and V no longer
-// fit beside the Q buffers), and at head dim 48 at every N, the C entry
-// point takes the earlier kernel (attn_kernel below, its code and the bits
-// of its 64 and 32 instances unchanged): grid (query tile of 64, head,
-// image), 4 warps of 16 query rows, Q, K and V read straight from the
-// packed buffer by cp.async, key tiles of 64 streamed through a 2-stage
-// ring, mma.sync fed by ldmatrix, padded shared-memory rows of HD + 8
-// bf16, V scrubbed by each thread on the chunks it copied itself after the
-// cp.async wait. Its geometry holds at 48: rows of 56 bf16 (112 bytes,
-// 16-byte aligned for cp.async and ldmatrix, the eight rows of an
-// ldmatrix on distinct bank groups), 3 chunks of 16 bytes a thread per
-// tile, HD / 16 = 3 k-steps for Q K^T and HD / 8 = 6 n-tiles for P V; a
-// head's columns start at h * 96 bytes, a multiple of 16. The wgmma kernel
-// does not take 48: a 96-byte row fits no TMA / wgmma swizzle atom, so a
-// wgmma form needs a layout of its own (two column boxes of 32 + 16, or
-// rows padded to 64); that is later speed work. The choice is by shape
-// inside the entry point (peekvit_attn_scores_pv_plan), never a fallback
-// on error. Head dim 64 past 832 tokens is reached by no shipped path;
-// head dim 48 by the EncDec decoder (N = 400 at 160 px).
+// Past those token counts (head dim 64 above 832 keys, 48 above 1,088, 32
+// above 1,728: K and V no longer fit beside the Q buffers), the C entry
+// point takes the earlier kernel (attn_kernel below, its code and bits
+// unchanged): grid (query tile of 64, head, image), 4 warps of 16 query
+// rows, Q, K and V read straight from the packed buffer by cp.async, key
+// tiles of 64 streamed through a 2-stage ring, mma.sync fed by ldmatrix,
+// padded shared-memory rows of HD + 8 bf16, V scrubbed by each thread on
+// the chunks it copied itself after the cp.async wait. Its geometry holds
+// at 48: rows of 56 bf16 (112 bytes, 16-byte aligned for cp.async and
+// ldmatrix, the eight rows of an ldmatrix on distinct bank groups), 3
+// chunks of 16 bytes a thread per tile, HD / 16 = 3 k-steps for Q K^T and
+// HD / 8 = 6 n-tiles for P V; a head's columns start at h * 96 bytes, a
+// multiple of 16. The choice is by shape inside the entry point
+// (peekvit_attn_scores_pv_plan), never a fallback on error. No shipped
+// path reaches the mma.sync kernel: the EncDec decoder runs head dim 48 at
+// N = 400 (160 px).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -376,29 +387,51 @@ int launch(const __nv_bfloat16* q, const __nv_bfloat16* km, __nv_bfloat16* o, in
 constexpr int CHUNK = 64;              // keys per TMA chunk (and query rows per tile)
 constexpr int MAX_SMEM = 232448;
 
+// A tile (64 rows of Q, K or V) is stored as BOXES column boxes, one after
+// the other, each as TMA writes it: one box of the whole row at head dims
+// 64 and 32 (128- and 64-byte rows, one swizzle span each), three boxes of
+// 16 columns at 48 (32-byte rows, the 32-byte swizzle's span).
 template <int HD>
 struct Geo {
-  static constexpr int ROW = HD * 2;            // bytes per K / V / Q row
-  static constexpr int TILE = CHUNK * ROW;      // one chunk of K or V, one Q tile
-  static constexpr int SBO = 8 * ROW;           // between 8-row groups
+  static constexpr int BOXES = HD == 48 ? 3 : 1;
+  static constexpr int BOX_COLS = HD / BOXES;
+  static constexpr int BOX_ROW = BOX_COLS * 2;  // bytes per row of a box
+  static constexpr int BOX = CHUNK * BOX_ROW;   // one box of 64 rows
+  static constexpr int TILE = BOXES * BOX;      // one chunk of K or V, one Q tile
+  static constexpr int SBO = 8 * BOX_ROW;       // between 8-row groups
+  static constexpr int KSTEP = BOXES == 1 ? 32 : BOX;  // to the next 16 columns
 };
 
 // Descriptors of K rows (K-major: lbo not read) and of V rows (MN-major:
-// lbo the step between N atoms, one atom wide here) at `addr`, in the
-// swizzle of a row of HD bf16.
+// lbo the step between N atoms: one atom wide at 64 and 32, three at 48,
+// one box each) at `addr`, in the swizzle of a box row.
 template <int HD>
 __device__ __forceinline__ uint64_t k_desc(uint32_t addr) {
   if constexpr (HD == 64)
     return hopper::desc_sw128(addr, 16, Geo<HD>::SBO);
-  else
+  else if constexpr (HD == 32)
     return hopper::desc_sw64(addr, 16, Geo<HD>::SBO);
+  else
+    return hopper::desc_sw32(addr, 16, Geo<HD>::SBO);
 }
 template <int HD>
 __device__ __forceinline__ uint64_t v_desc(uint32_t addr) {
   if constexpr (HD == 64)
     return hopper::desc_sw128(addr, 1024, Geo<HD>::SBO);
-  else
+  else if constexpr (HD == 32)
     return hopper::desc_sw64(addr, 512, Geo<HD>::SBO);
+  else
+    return hopper::desc_sw32(addr, Geo<HD>::BOX, Geo<HD>::SBO);
+}
+
+// One tile's TMA: 64 rows from token `row` of image b, columns from `col`,
+// box by box, all on barrier `bar`.
+template <int HD>
+__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map, int col, int row,
+                                          int b, uint32_t bar) {
+#pragma unroll
+  for (int j = 0; j < Geo<HD>::BOXES; ++j)
+    hopper::tma_load_3d(dst + j * Geo<HD>::BOX, map, col + j * Geo<HD>::BOX_COLS, row, b, bar);
 }
 
 __device__ __forceinline__ void wg_bar(int id) {
@@ -475,13 +508,13 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap map, const __nv_bfloat16* 
       const int t = blockIdx.x + q * gridDim.x;
       if (t < ntiles) {
         hopper::mbar_expect_tx(qbar + 8 * q, G::TILE);
-        hopper::tma_load_3d(sq + q * G::TILE, &map, h * HD, t * CHUNK, b, qbar + 8 * q);
+        load_tile<HD>(sq + q * G::TILE, &map, h * HD, t * CHUNK, b, qbar + 8 * q);
       }
     }
     for (int c = 0; c < nchunks; ++c) {
       hopper::mbar_expect_tx(kvbar + 8 * c, 2 * G::TILE);
-      hopper::tma_load_3d(sk + c * G::TILE, &map, d + h * HD, c * CHUNK, b, kvbar + 8 * c);
-      hopper::tma_load_3d(sv + c * G::TILE, &map, 2 * d + h * HD, c * CHUNK, b, kvbar + 8 * c);
+      load_tile<HD>(sk + c * G::TILE, &map, d + h * HD, c * CHUNK, b, kvbar + 8 * c);
+      load_tile<HD>(sv + c * G::TILE, &map, 2 * d + h * HD, c * CHUNK, b, kvbar + 8 * c);
     }
   }
   for (int c = 0; c < nchunks; ++c) hopper::mbar_wait(kvbar + 8 * c, 0);
@@ -507,16 +540,21 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap map, const __nv_bfloat16* 
   for (int i = 0, t = first; t < ntiles; ++i, t += step) {
     hopper::mbar_wait(my_qbar, i & 1);
     // Q's fragments from the swizzled tile, scaled by qscale in fp32 and
-    // rounded to bf16: the register A operand of S = Q K^T.
+    // rounded to bf16: the register A operand of S = Q K^T. Columns 16 kk
+    // on are 16-byte chunk 2 kk of the row at 64 and 32, chunk 0 of box kk
+    // at 48.
     uint32_t qa[HD / 16][4];
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
       const int r = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-      const int chunk = 2 * kk + (lane >> 4);
-      const int swz = HD == 64 ? (chunk ^ (r & 7)) : (chunk ^ ((r >> 1) & 3));
+      const int chunk = (G::BOXES == 1 ? 2 * kk : 0) + (lane >> 4);
+      const int swz = HD == 64   ? (chunk ^ (r & 7))
+                      : HD == 32 ? (chunk ^ ((r >> 1) & 3))
+                                 : (chunk ^ ((r >> 2) & 1));
+      const uint32_t box = G::BOXES == 1 ? 0u : (uint32_t)(kk * G::BOX);
       asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                    : "=r"(qa[kk][0]), "=r"(qa[kk][1]), "=r"(qa[kk][2]), "=r"(qa[kk][3])
-                   : "r"(my_q + r * G::ROW + (swz << 4))
+                   : "r"(my_q + box + r * G::BOX_ROW + (swz << 4))
                    : "memory");
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -534,7 +572,7 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap map, const __nv_bfloat16* 
     if (wtid == 0 && t + step < ntiles) {
       fence_async_smem();
       hopper::mbar_expect_tx(my_qbar, G::TILE);
-      hopper::tma_load_3d(my_q, &map, h * HD, (t + step) * CHUNK, b, my_qbar);
+      load_tile<HD>(my_q, &map, h * HD, (t + step) * CHUNK, b, my_qbar);
     }
 
     float o[HD / 2];
@@ -561,15 +599,15 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap map, const __nv_bfloat16* 
       if (nsl == 4) {
 #pragma unroll
         for (int kk = 0; kk < HD / 16; ++kk)
-          hopper::wgmma_m64n64k16_rs<0>(s, qa[kk], k_desc<HD>(kc + kk * 32));
+          hopper::wgmma_m64n64k16_rs<0>(s, qa[kk], k_desc<HD>(kc + kk * G::KSTEP));
       } else {
 #pragma unroll
         for (int sl = 0; sl < 3; ++sl)
           if (sl < nsl) {
 #pragma unroll
             for (int kk = 0; kk < HD / 16; ++kk)
-              hopper::wgmma_m64n16k16_rs<0>(s + 8 * sl, qa[kk],
-                                            k_desc<HD>(kc + sl * 16 * G::ROW + kk * 32));
+              hopper::wgmma_m64n16k16_rs<0>(
+                  s + 8 * sl, qa[kk], k_desc<HD>(kc + sl * 16 * G::BOX_ROW + kk * G::KSTEP));
           }
       }
       hopper::wgmma_commit();
@@ -624,10 +662,13 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap map, const __nv_bfloat16* 
 #pragma unroll
       for (int sl = 0; sl < 4; ++sl)
         if (sl < nsl) {
+          const uint64_t vd = v_desc<HD>(vc + sl * 16 * G::BOX_ROW);
           if constexpr (HD == 64)
-            hopper::wgmma_m64n64k16_rs<1>(o, pa[sl], v_desc<HD>(vc + sl * 16 * G::ROW));
+            hopper::wgmma_m64n64k16_rs<1>(o, pa[sl], vd);
+          else if constexpr (HD == 32)
+            hopper::wgmma_m64n32k16_rs<1>(o, pa[sl], vd);
           else
-            hopper::wgmma_m64n32k16_rs<1>(o, pa[sl], v_desc<HD>(vc + sl * 16 * G::ROW));
+            hopper::wgmma_m64n48k16_rs<1>(o, pa[sl], vd);
         }
       hopper::wgmma_commit();
     }
@@ -690,29 +731,34 @@ int sm_count() {
 }
 
 int smem_for(int head_dim, int nchunks, int nwg) {
-  return head_dim == 64 ? wg_smem<64>(nchunks, nwg) : wg_smem<32>(nchunks, nwg);
+  return head_dim == 64   ? wg_smem<64>(nchunks, nwg)
+         : head_dim == 48 ? wg_smem<48>(nchunks, nwg)
+                          : wg_smem<32>(nchunks, nwg);
 }
 
 // The schedule for b images of n tokens and `heads` heads of head_dim:
 // out[0] = 1 for the wgmma kernel (the head's K and V fit in shared
-// memory beside the Q buffers), 0 for the kept mma.sync kernel (always
-// at head dim 48); out[1] =
+// memory beside the Q buffers), 0 for the kept mma.sync kernel; out[1] =
 // CTAs per (image, head) (enough for two waves of CTAs on the card when
 // the batch is small, at most one per warpgroup's tile); out[2] = the
 // wgmma kernel's dynamic shared memory in bytes; out[3] = its warpgroups
 // per CTA: 2, with two CTAs an SM, or 4 where K and V leave room for one
-// CTA an SM only (so that 16 warps share each SM all the same).
+// CTA an SM only (so that 16 warps share each SM all the same). For the
+// mma.sync kernel its own: ceil(n / 64) CTAs, no dynamic shared memory,
+// one warpgroup of 4 warps. One rule at every head dim; at 48 it gives two
+// warpgroups and two CTAs an SM up to 512 tokens, four warpgroups to
+// 1,024, two warpgroups to 1,088 and the mma.sync kernel past that.
 void plan(int b, int n, int heads, int head_dim, int* out) {
   const int nchunks = (n + CHUNK - 1) / CHUNK;
-  if (head_dim == 48) {  // the mma.sync kernel: one CTA of 4 warps per 64 query rows
+  int nwg = 2, smem = smem_for(head_dim, nchunks, 2);
+  if (smem > MAX_SMEM) {  // the mma.sync kernel: one CTA of 4 warps per 64 query rows
     out[0] = 0;
     out[1] = nchunks;
     out[2] = 0;
     out[3] = 1;
     return;
   }
-  int nwg = 2, smem = smem_for(head_dim, nchunks, 2);
-  out[0] = smem <= MAX_SMEM ? 1 : 0;
+  out[0] = 1;
   if (smem > MAX_SMEM / 2 && smem_for(head_dim, nchunks, 4) <= MAX_SMEM) {
     nwg = 4;
     smem = smem_for(head_dim, nchunks, 4);
@@ -752,9 +798,11 @@ int launch_wgmma(const void* qkv, const __nv_bfloat16* km, __nv_bfloat16* o, int
   CUtensorMap map;
   const uint64_t dims[3] = {(uint64_t)(3 * d), (uint64_t)n, (uint64_t)b};
   const uint64_t strides[2] = {(uint64_t)d * 6, (uint64_t)d * 6 * n};
-  const uint32_t box[3] = {HD, CHUNK, 1};
-  if (!hopper::make_map_bf16(&map, qkv, 3, dims, strides, box,
-                             HD == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B))
+  const uint32_t box[3] = {Geo<HD>::BOX_COLS, CHUNK, 1};
+  const CUtensorMapSwizzle sw = HD == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : HD == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                           : CU_TENSOR_MAP_SWIZZLE_32B;
+  if (!hopper::make_map_bf16(&map, qkv, 3, dims, strides, box, sw))
     return (int)cudaErrorInvalidValue;
   const bool four = pl[3] == 4;
   if (km != nullptr)
@@ -791,11 +839,15 @@ extern "C" int peekvit_attn_scores_pv(const void* qkv, void* out, const void* km
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   int pl[4];
   plan(b, n, num_heads, head_dim, pl);
-  if (pl[0])
+  if (pl[0]) {
+    if (head_dim == 48)
+      return launch_wgmma<48>(qkv, km, o, b, n, d, num_heads, qscale, phantom_idx, phantom_w, pl,
+                              st);
     return head_dim == 64 ? launch_wgmma<64>(qkv, km, o, b, n, d, num_heads, qscale, phantom_idx,
                                              phantom_w, pl, st)
                           : launch_wgmma<32>(qkv, km, o, b, n, d, num_heads, qscale, phantom_idx,
                                              phantom_w, pl, st);
+  }
   if (head_dim == 48)
     return launch<48>(q, km, o, b, n, d, num_heads, qscale, phantom_idx, phantom_w, st);
   return head_dim == 64
@@ -807,8 +859,8 @@ extern "C" int peekvit_attn_scores_pv(const void* qkv, void* out, const void* km
 // num_heads heads of head_dim: out[0] = 1 (the wgmma kernel) or 0 (the
 // kept mma.sync kernel), out[1] = CTAs per (image, head), out[2] = the
 // wgmma kernel's dynamic shared memory in bytes, out[3] = its warpgroups
-// per CTA (at head dim 48, the mma.sync kernel's: ceil(n / 64) CTAs, no
-// dynamic shared memory, one warpgroup). Returns 0.
+// per CTA (for the mma.sync kernel its own: ceil(n / 64) CTAs, no dynamic
+// shared memory, one warpgroup). Returns 0.
 extern "C" int peekvit_attn_scores_pv_plan(int b, int n, int num_heads, int head_dim, int* out) {
   plan(b, n, num_heads, head_dim, out);
   return 0;

@@ -2,15 +2,17 @@
 // (attn_softmax_fwd.cu, attn_softmax_bwd.cu, gemm_wgrad.cu,
 // gemm_bias_epilogue.cu, attn_scores_pv.cu, gemm_s8_epilogue.cu):
 // mbarriers, TMA tensor loads and their host-side tensor maps, the wgmma
-// shared-memory descriptors for tiles that TMA wrote with the 128-byte or
-// the 64-byte swizzle, and the wgmma instructions the kernels issue.
+// shared-memory descriptors for tiles that TMA wrote with the 128-, 64- or
+// 32-byte swizzle, and the wgmma instructions the kernels issue.
 //
 // A tile row of 64 bf16 (or 128 int8) is 128 bytes, the 128-byte
 // swizzle's span: TMA stores row r of a box with its 16-byte chunk c at
 // chunk c ^ (r & 7), and 8 rows make one 1024-byte swizzle atom. A row of
 // 32 bf16 is 64 bytes, the 64-byte swizzle's span: chunk c of row r lands
-// at c ^ ((r >> 1) & 3), and 8 rows make one 512-byte atom. Every tile
-// here starts 1024-byte aligned, so the descriptors' base offset is 0.
+// at c ^ ((r >> 1) & 3), and 8 rows make one 512-byte atom. A row of 16
+// bf16 is 32 bytes, the 32-byte swizzle's span: chunk c of row r lands at
+// c ^ ((r >> 2) & 1), and 8 rows make one 256-byte atom. Every tile here
+// starts 1024-byte aligned, so the descriptors' base offset is 0.
 //
 // cuTensorMapEncodeTiled is a driver API call; it is reached through the
 // runtime's driver entry point, so nothing links libcuda.
@@ -140,6 +142,18 @@ __device__ __forceinline__ uint64_t desc_sw64(uint32_t addr, uint32_t lbo, uint3
   return d;
 }
 
+// The same for a 32-byte-swizzled tile (rows of 32 bytes, 16 bf16): K-major,
+// sbo = 256, the step between 8-row groups (a k16 step is the whole row);
+// MN-major, lbo = the step between 16-element atoms along M or N, sbo =
+// 256, the step between 8-row groups along the reduction.
+__device__ __forceinline__ uint64_t desc_sw32(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  uint64_t d = (uint64_t)((addr & 0x3FFFF) >> 4);
+  d |= (uint64_t)((lbo >> 4) & 0x3FFF) << 16;
+  d |= (uint64_t)((sbo >> 4) & 0x3FFF) << 32;
+  d |= (uint64_t)3 << 62;  // 32-byte swizzle
+  return d;
+}
+
 // wgmma with fp32 accumulators d (+= A . B) on bf16 operands: _ss reads A
 // and B from shared memory by descriptor, _rs takes A from registers
 // (the m16n8k16 A-fragment layout of mma.sync, four registers a
@@ -258,6 +272,21 @@ __device__ __forceinline__ void wgmma_m64n32k16_rs(float* d, const uint32_t* a, 
       "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n48k16_rs(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23"
+      "}, {%24, %25, %26, %27}, %28, p, 1, 1, %30;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
 }
 

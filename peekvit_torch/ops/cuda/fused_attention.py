@@ -54,7 +54,10 @@ tokens.
 The attention kernel is instantiated at head dims 64 (the ViT family), 32
 (PCT: d = 128 over 4 heads; MAE; counted as ``attn_scores_pv.hd32``) and
 48 (the EncDec ResidualViT's decoder: d = 192 over 4 heads, counted as
-``attn_scores_pv.hd48``), so every composition here runs at any of them.
+``attn_scores_pv.hd48``), so every composition here runs at any of them;
+each head dim takes the wgmma kernel with the head's K and V resident in
+shared memory up to its length limit (832 tokens at 64, 1,088 at 48,
+1,728 at 32) and the mma.sync kernel past it.
 
 Dispatch is by device only. A wrapper uses the plain version for CPU
 tensors; for CUDA tensors it launches its kernel or raises (wrong dtype,
@@ -576,10 +579,11 @@ def attn_scores_pv_plan(b: int, n: int, num_heads: int, head_dim: int = 64) -> d
     """The schedule :func:`attn_scores_pv` takes on the card for b images
     of n tokens, chosen by shape inside its C entry point: the kernel
     (``"wgmma"``, the head's K and V resident in shared memory, or
-    ``"kept"``, the mma.sync kernel: at head dim 64 past 832 tokens and at
-    head dim 48 at every N), the CTAs per (image, head), the wgmma kernel's
-    shared memory in bytes and its warpgroups per CTA. For the record;
-    needs the built library."""
+    ``"kept"``, the mma.sync kernel: past 832 tokens at head dim 64, 1,088
+    at 48 and 1,728 at 32), the CTAs per (image, head), the wgmma kernel's
+    shared memory in bytes and its warpgroups per CTA (the mma.sync
+    kernel's: one CTA of one warpgroup per 64 query rows, no dynamic shared
+    memory). For the record; needs the built library."""
     out = (ctypes.c_int * 4)()
     _build.extra("attn_scores_pv")(b, n, num_heads, head_dim, out)
     return {"kernel": "wgmma" if out[0] else "kept", "ctas_per_head": out[1], "smem": out[2],
@@ -645,9 +649,10 @@ def attn_scores_pv(qkv: torch.Tensor, num_heads: int, phantom_idx: int = -1,
     a key whose mask is not > 0 gets weight 0 for every query, selected
     (not multiplied) so that NaN or Inf in its row cannot leak, and
     non-finite values of v are scrubbed to 0 (Pallas ``kmask``). On CUDA:
-    bf16, a bf16 key mask, head dim 64 or 32 (the wgmma kernel; 64 past
-    832 tokens the mma.sync kernel) or 48 (the mma.sync kernel at every N),
-    counted under :func:`attn_scores_pv_key`."""
+    bf16, a bf16 key mask, head dim 64, 48 or 32 (the wgmma kernel; past
+    832, 1,088 and 1,728 tokens the mma.sync kernel, see
+    :func:`attn_scores_pv_plan`), counted under
+    :func:`attn_scores_pv_key`."""
     km = _check_kmask(qkv, phantom_idx, kmask)
     if _on_cpu(qkv, kmask):
         return attn_scores_pv_ref(qkv, num_heads, phantom_idx, phantom_mult, kmask)

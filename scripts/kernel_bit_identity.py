@@ -23,8 +23,9 @@ bits: ``attn_softmax_bwd`` at up to 256 tokens (wgmma on TMA-fed shared
 memory, P kept in registers through phase A), every mode of the GEMM
 ``gemm_bias_epilogue`` (its 12 epilogues, ``gemm_nt`` and ``partial_f32``
 among them: wgmma on a TMA-fed ring, persistent CTAs), every mode of
-``attn_scores_pv`` (plain, kweight, kmask, head dim 32: wgmma with the
-head's K and V resident in shared memory) and of the int8 GEMM
+``attn_scores_pv`` (plain, kweight, kmask, head dims 32 and 48: wgmma with
+the head's K and V resident in shared memory; head dim 48 in three
+16-column boxes a tile) and of the int8 GEMM
 ``gemm_s8_epilogue`` (its six epilogues: s8 wgmma on a TMA-fed ring,
 persistent CTAs). All keep the earlier kernels' operations and summing
 order, so their bits come out the same, and the report says so
@@ -34,9 +35,12 @@ for the attention kernels (bf16 P and dZ, bf16 outputs), 2^-6 for a bf16
 GEMM's bf16 output and 1e-3 for its fp32 output and partials, 2^-7 for an
 int8 GEMM's bf16 output and 2^-20 for its fp32 output (its s32 sums are
 exact). Each child also times every redesigned mode at the ViT-B/16
-bs256 shapes, and ``attn_scores_pv.hd32`` at PCT's (128 clouds of 1024
-points, d 128, 4 heads), with CUDA events (20 launches after a warm-up),
-so one call gives the old and the new time on one card. The ``edges``
+bs256 shapes, ``attn_scores_pv.hd32`` at PCT's (128 clouds of 1024
+points, d 128, 4 heads) and ``attn_scores_pv`` at head dim 48 in its
+four modes at the EncDec decoder's (tag ``encdec_bs512``: 512 images of
+400 tokens, d 192, 4 heads), with CUDA events (20 launches after a
+warm-up), so one call gives the old and the new time on one card. The
+``edges``
 modes hold both kernels at the token counts and GEMM shapes where the new
 kernels change their padding, chunking or tiling. The outputs of the
 redesigned modes are kept under each checkout's ``build/bit_identity/``
@@ -47,7 +51,9 @@ A mode in RETIMED is timed by a third child in one process with the other
 checkout's library of its kernel and with this one's, in turns (other,
 this, this, other), each from a CUDA graph of 20 launches, so the
 wrapper's Python between launches is not timed; those C entry points are
-unchanged. ``norm_rows.cu`` in every mode and ``arpe_tokens`` were
+unchanged. ``attn_scores_pv`` is timed so at PCT's and the EncDec
+decoder's shapes (the old and the new head-dim-48 kernel in one
+process). ``norm_rows.cu`` in every mode and ``arpe_tokens`` were
 rewritten with their bits kept and are held bit for bit like any other
 mode, timed at their shapes (ViT-B/16, ResidualViT-B/16 N = 198 and 107,
 A-ViT-S/16, PCT). ``attn_softmax_fwd`` and ``attn_softmax_bwd`` are timed
@@ -68,7 +74,9 @@ Modes: ``norm_rows`` (bf16 and fp32 in, masked, A-ViT), ``ln_rows``
 bias, gelu, residual_f32, residual with an fp32 and a bf16 residual,
 masked_residual_f32, masked_residual, masked_rowdot, gelu_hpre, NT
 gelu_grad, partial_f32), ``gemm_nt`` (none, none_f32),
-``attn_scores_pv`` (plain, kweight, kmask, head dims 32 and 48),
+``attn_scores_pv`` (plain, kweight, kmask, head dims 32 and 48; at 48
+every mode at EDGE_TOKENS_HD48 on 2 images and at HD48_BATCHED, where
+each head takes one CTA),
 ``attn_softmax_fwd`` (packed qkv, separate q, k, v, kmask),
 ``attn_softmax_bwd``, ``gemm_wgrad`` (the merged backward's four
 products), ``ln_bwd_rows`` (bf16 and fp32 g, masked, fp32 y),
@@ -120,14 +128,22 @@ TILED_TOL = {"torch.bfloat16": 2e-2}
 # arpe_tokens were rewritten with their bits kept; attn_softmax_fwd and
 # attn_softmax_bwd keep their bits outside the key-tiled routes
 RETIMED = {"norm_rows": "norm_rows", "ln_rows": "norm_rows", "arpe_tokens": "arpe_tokens",
-           "attn_softmax_fwd": "attn_softmax_fwd", "attn_softmax_bwd": "attn_softmax_bwd"}
-TIMED_TAGS = ("vit_b16_bs256", "pct_bs128", "residual_bs256", "avit_bs256", "attn_bs128")
+           "attn_softmax_fwd": "attn_softmax_fwd", "attn_softmax_bwd": "attn_softmax_bwd",
+           "attn_scores_pv": "attn_scores_pv"}
+TIMED_TAGS = ("vit_b16_bs256", "pct_bs128", "residual_bs256", "avit_bs256", "attn_bs128",
+              "encdec_bs512")
 # the edges: attn_scores_pv at these token counts (head dim 64 and 32), the
 # s8 GEMM at these (M, N, K)
 EDGE_TOKENS = (1, 17, 64, 65, 148, 208, 257, 786)
-# attn_scores_pv at head dim 48 (d 192 over 4 heads, the EncDec decoder's),
-# in a checkout that has it: a new mode against a checkout without it
-EDGE_TOKENS_HD48 = (1, 17, 64, 65, 400, 401)
+# attn_scores_pv at head dim 48 (d 192 over 4 heads, the EncDec decoder's) in
+# every mode, 2 images: the 16-key slice and 64-key tile edges, the decoder's
+# 400 tokens, and the wgmma kernel's route edges (two CTAs an SM to 512, four
+# warpgroups to 1,024, two to 1,088, the mma.sync kernel from 1,089)
+EDGE_TOKENS_HD48 = (1, 17, 64, 65, 400, 401, 512, 513, 1024, 1025, 1088, 1089)
+# (images, tokens) at head dim 48 where each head takes one CTA, whose
+# warpgroups then take several query tiles each (the batch the card is
+# filled by); the decoder's bs512, N 400 (tag "encdec_bs512") is also timed
+HD48_BATCHED = ((512, 400), (132, 512), (66, 1024), (66, 1088))
 EDGE_GEMMS = ((1, 8, 16), (129, 136, 144), (300, 264, 784))
 # the row kernels (norm_rows.cu) at these widths and row counts; arpe_tokens
 # at these (points, ks)
@@ -567,11 +583,24 @@ def _extra_modes(torch, dev, fa, tq, pe) -> dict:
                 tq.gemm_s8_epilogue(c, s, w, sw, b, e, residual=r, mask=mk))
         modes[f"edges/gemm_s8_epilogue.bias.static.{m}x{n}x{k}"] = (
             lambda c=codes, w=w8, sw=sw, b=bias: tq.gemm_s8_epilogue(c, 0.02, w, sw, b, "bias"))
-    if 48 in fa.HEAD_DIMS:  # the mma.sync kernel's head-dim-48 instance, from its own seed
+    if 48 in fa.HEAD_DIMS:  # head dim 48, from its own seed
         gen48 = torch.Generator(device=dev).manual_seed(48)
-        for n in EDGE_TOKENS_HD48:
-            q48 = torch.randn(2, n, 3 * 192, generator=gen48, device=dev).to(bf16)
-            modes[f"edges/attn_scores_pv.hd48.N{n}"] = lambda q=q48: fa.attn_scores_pv(q, 4)
+        shapes = [(2, n, "edges", "") for n in EDGE_TOKENS_HD48] + [
+            (b, n, "encdec_bs512" if b == 512 else "edges", "" if b == 512 else f".b{b}")
+            for b, n in HD48_BATCHED]
+        for b, n, tag, suffix in shapes:
+            q48 = torch.randn(b, n, 3 * 192, generator=gen48, device=dev).to(bf16)
+            km = (torch.rand(b, n, generator=gen48, device=dev) > 0.4).to(bf16)
+            km[:, 0] = 1
+            q48_km = q48.clone()
+            q48_km[..., 192:][km == 0] = float("nan")  # excluded keys' k and v poisoned
+            at = f".hd48.N{n}{suffix}"
+            modes[f"{tag}/attn_scores_pv{at}"] = lambda q=q48: fa.attn_scores_pv(q, 4)
+            for mult in ((45.0,) if n == 1 else (0.0, 45.0)):  # mult 0 alone: 0 / 0
+                modes[f"{tag}/attn_scores_pv.kweight{mult:g}{at}"] = (
+                    lambda q=q48, n=n, m=mult: fa.attn_scores_pv(q, 4, n - 1, m))
+            modes[f"{tag}/attn_scores_pv.kmask{at}"] = (
+                lambda q=q48_km, k=km: fa.attn_scores_pv(q, 4, kmask=k))
     return modes
 
 

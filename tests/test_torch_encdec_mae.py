@@ -293,7 +293,10 @@ def test_engine_guards():
 # ------------------------------------------------- the attention at head dim 48
 
 D48 = 96  # two heads of 48
-HD48_TOKENS = (1, 15, 16, 17, 63, 64, 65, 400, 401)
+# the 16-key slice and 64-key tile edges, the EncDec decoder's 400 tokens
+# (401: one past), and the card's route edges at head dim 48: two CTAs an
+# SM up to 512 tokens, the last wgmma length 1,088
+HD48_TOKENS = (1, 15, 16, 17, 63, 64, 65, 400, 401, 512, 513, 1088, 1089)
 DTYPES = {"fp32": (jnp.float32, torch.float32, 2e-5), "bf16": (jnp.bfloat16, torch.bfloat16, 3e-2)}
 
 
@@ -332,9 +335,11 @@ def test_head_dim_48_is_instantiated():
 @pytest.mark.parametrize("n", HD48_TOKENS)
 def test_attn_scores_pv_hd48_against_jax(n, dtype):
     """The plain attention at head dim 48 against ``_attn_scores_pv`` per
-    image and head at the 16-key slice and 64-key tile edges and the EncDec
-    decoder's 400 tokens (401: one past); the wrapper is the plain version,
-    bit for bit, with no launch."""
+    image and head at the 16-key slice and 64-key tile edges, the EncDec
+    decoder's 400 tokens (401: one past) and the card's route edges (512 /
+    513, 1,088 / 1,089), so that the plain version the card holds the
+    kernel to is held to JAX at the same lengths; the wrapper is the plain
+    version, bit for bit, with no launch."""
     _, tdt, tol = DTYPES[dtype]
     x = torch.from_numpy(_qkv48(n)).to(tdt)
     tfa.reset_launch_counts()
