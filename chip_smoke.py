@@ -275,7 +275,15 @@ prints no final result):
    required by its plan) timed at bs512 beside its bound, plain version
    and SDPA; both engines logits-only and with the decoder; ptxas of the
    head-dim-48 instances of both kernels (none may spill);
-42. the {"kernels": [...]} line, then the card's nvidia-smi line, then
+42. the MoE ViT (see moe_phases): configs/model/moevit.yaml at 160 px
+   served at 8 and 256 images by four engines (dense bf16, routed at
+   capacity 2.0 and 1.0, int8), every forward counted key by key, the
+   dense and int8 logits held against their plain twins fed the engine's
+   expert choices, routed 2.0 against dense; GEMM s8 bias_f32 (the int8
+   experts' linear) bit for bit against its plain version and timed at
+   the experts' fc1 / fc2 shapes; ptxas of its instances (none may
+   spill);
+43. the {"kernels": [...]} line, then the card's nvidia-smi line, then
    {"ok": true, "device": {...}} as the last line.
 
 Imports nothing of JAX or of peekvit_tpu.
@@ -5662,6 +5670,248 @@ def recon_phases(torch, F, fa, dev, smi, check, checks, build_info) -> dict:
     return {"counts": totals, "entries": [entry]}
 
 
+# --------------------------------------------------------------------- 42. MoE
+
+# configs/model/moevit.yaml at imagenette.yaml's 160 px and 10 classes
+MOE_YAML = dict(image_size=160, patch_size=8, hidden_dim=256, mlp_dim=768, num_layers=4,
+                num_heads=8, num_classes=10, mlp_moes=[1, 1, 2, 2], attn_moes=[1, 1, 1, 1])
+MOE_REQUESTS = (8, 256)
+MOE_ENGINES = {"dense": {}, "routed_2": dict(routed=2.0, routed_min_experts=2),
+               "routed_1": dict(routed=1.0, routed_min_experts=2), "int8": dict(quantized=True)}
+MOE_TOL = {"bf16": 3e-2, "int8": 5e-2}  # of max|plain|: tests/test_pallas.py:42, test_inference.py:728
+REPLACES_MOE = f"{REPLACES_Q}:89 _quant_linear_xla (XLA, no Pallas call: the int8 MoE experts " \
+               "of peekvit_tpu/inference.py:1770 moevit_forward_quant)"
+
+
+def moe_counts(fa, quantized: bool) -> dict:
+    """Launches per forward of the MoE_YAML engine: per layer, the folded
+    layer (7; int8: 9) where both sublayers have one expert, else a
+    single attention sublayer (4; int8: 5) or E attention experts (int8: 1
+    + 3 E), then a single MLP sublayer (3; int8: 4) or E MLP experts
+    (int8: 1 + 3 E); bf16 experts run in torch."""
+    attn = fa.attn_scores_pv_key(MOE_YAML["hidden_dim"] // MOE_YAML["num_heads"])
+    if quantized:
+        folded = {"quant_rows.ln.bf16": 1, "quant_rows.bf16": 1, "quant_rows.ln.f32": 1,
+                  "quant_rows.f32": 1, "gemm_s8_epilogue.bias": 1,
+                  "gemm_s8_epilogue.residual_f32": 1, "gemm_s8_epilogue.gelu_f32": 1,
+                  "gemm_s8_epilogue.residual": 1, attn: 1}
+        attention = {"quant_rows.ln.bf16": 1, "gemm_s8_epilogue.bias": 1, attn: 1,
+                     "quant_rows.bf16": 1, "gemm_s8_epilogue.residual": 1}
+        mlp = {"quant_rows.ln.bf16": 1, "gemm_s8_epilogue.gelu_f32": 1, "quant_rows.f32": 1,
+               "gemm_s8_epilogue.residual": 1}
+    else:
+        folded = dict(FOLDED_PER_LAYER, **{attn: 1})
+        attention = {"ln_rows": 1, "gemm_bias_epilogue.bias": 1, attn: 1,
+                     "gemm_bias_epilogue.residual": 1}
+        mlp = {"ln_rows": 1, "gemm_bias_epilogue.gelu": 1, "gemm_bias_epilogue.residual": 1}
+
+    def experts(e):
+        return ({"quant_rows.bf16": 1 + e, "gemm_s8_epilogue.bias_f32": 2 * e}
+                if quantized else {})
+
+    counts: dict = {}
+    for ea, em in zip(MOE_YAML["attn_moes"], MOE_YAML["mlp_moes"]):
+        parts = [folded] if ea == em == 1 else [
+            attention if ea == 1 else experts(ea), mlp if em == 1 else experts(em)]
+        for part in parts:
+            for k, v in part.items():
+                counts[k] = counts.get(k, 0) + v
+    return counts
+
+
+def moe_overflow(torch, choices: dict, capacity_factor: float) -> dict:
+    """Each routed MLP layer's share of tokens past their expert's capacity
+    ceil(T / E * capacity_factor), from the gates' choices."""
+    out = {}
+    for (i, sub), eid in choices.items():
+        if sub != "mlp":
+            continue
+        e_total = MOE_YAML["mlp_moes"][i]
+        t = eid.numel()
+        cap = int(math.ceil(t / e_total * capacity_factor))
+        counts = torch.bincount(eid.reshape(-1), minlength=e_total)
+        out[f"layer_{i}"] = (counts - cap).clamp_min(0).sum().item() / t
+    return out
+
+
+def moe_phases(torch, F, fa, tq, dev, smi, check, checks, build_info) -> dict:
+    """Phase 42, the MoE ViT: GEMM s8 ``bias_f32`` (epilogue 6, the int8
+    experts' linear) at the MoE fc1 and fc2 shapes of a bs256 forward
+    (M 102,656; K / N 256 / 768) against its plain version, bit for bit,
+    rerun bit-identical; build_model("moevit", MOE_YAML) (seeded weights,
+    head and class token re-drawn) serves 8 and 256 images through four
+    engines (dense bf16, routed at 2.0 and at 1.0 with
+    routed_min_experts=2, int8), counts zeroed just before each forward
+    and read just after (moe_counts, key by key); the dense and int8
+    logits against their plain twins fed the engine's expert choices
+    (bf16 3e-2, int8 5e-2 of max|plain|, top-1 on decided images), the
+    free-running choice agreement, routed 2.0 against dense (no expert
+    overflows at E = 2: cap = T), routed 1.0's overflow share; ms per
+    bs256 forward of each engine and one profiled forward of each (device
+    ms by group: the port's kernels against torch work); bias_f32 timed
+    at both shapes beside its bound, plain version and torch._int_mm +
+    dequant; ptxas of the new instances (a spill fails). Returns the
+    counts and the kernels-line entry."""
+    from peekvit_torch import InferenceEngine, build_model
+    from peekvit_torch.inference import (moevit_forward_fused, moevit_forward_plain,
+                                         moevit_forward_quant, moevit_forward_quant_plain)
+
+    bf16 = torch.bfloat16
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(42)
+    d, m = MOE_YAML["hidden_dim"], MOE_YAML["mlp_dim"]
+    n = (MOE_YAML["image_size"] // MOE_YAML["patch_size"]) ** 2 + 1
+    rows = MOE_REQUESTS[-1] * n
+
+    # the new epilogue at the experts' shapes: fc1 reads the LN output's
+    # codes, fc2 the bf16 gelu output's
+    shapes = {"fc1": (d, m), "fc2": (m, d)}
+    gemm_ins = {}
+    with torch.inference_mode():
+        for name, (k, nn_) in shapes.items():
+            x = (torch.randn(rows, k, generator=gen, device=dev) * (1.0 if name == "fc1" else 0.3)
+                 ).to(bf16)
+            a, sa = tq.quant_rows(x)
+            w, sw = tq.quantize_linear(torch.randn(k, nn_, generator=gen, device=dev) * k ** -0.5)
+            w = tq.kernel_layout(w)
+            b = (torch.randn(nn_, generator=gen, device=dev) * 0.1).to(bf16)
+            gemm_ins[name] = (a, sa, w, sw, b)
+            got = tq.gemm_s8_epilogue(a, sa, w, sw, b, "bias_f32")
+            again = tq.gemm_s8_epilogue(a, sa, w, sw, b, "bias_f32")
+            torch.cuda.synchronize()
+            if got.dtype != torch.float32 or not torch.equal(got, again):
+                raise AssertionError(f"gemm_s8_epilogue.bias_f32 {name}: dtype {got.dtype} or "
+                                     "a rerun differs")
+            check(f"gemm_s8_epilogue.bias_f32.{name}", got,
+                  tq.gemm_s8_epilogue_ref(a, sa, w, sw, b, "bias_f32"), 0.0,
+                  "exact s32 sums; the dequant steps rounded as the plain version's (__f*_rn): "
+                  "bit for bit")
+    checks["gemm_s8_epilogue.bias_f32"] = max(checks["gemm_s8_epilogue.bias_f32.fc1"],
+                                              checks["gemm_s8_epilogue.bias_f32.fc2"])
+
+    model = build_model("moevit", MOE_YAML, seed=0, device=DEVICE)
+    cpu_gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for p in (model.head.kernel, model.class_token):
+            p.copy_(torch.randn(p.shape, generator=cpu_gen) * 0.02)
+    engines = {name: InferenceEngine(model, device=DEVICE, **kw) for name, kw in MOE_ENGINES.items()}
+    want = {q: moe_counts(fa, q) for q in (False, True)}
+    totals: dict = {}
+    requests = {}
+    with torch.inference_mode():
+        for bb in MOE_REQUESTS:
+            size = MOE_YAML["image_size"]
+            x = requests[bb] = torch.randn(bb, size, size, 3, generator=gen, device=dev)
+            logits = {}
+            for name, e in engines.items():
+                got, counts = counted(torch, fa, lambda: e(x))
+                if counts != want[name == "int8"]:
+                    raise AssertionError(f"moe {name} b{bb}: launches {counts}, "
+                                         f"want {want[name == 'int8']}")
+                if got.shape != (bb, MOE_YAML["num_classes"]) or not torch.isfinite(got).all():
+                    raise AssertionError(f"moe {name} b{bb}: logits {tuple(got.shape)} or "
+                                         "non-finite")
+                for key, v in counts.items():
+                    totals[key] = totals.get(key, 0) + v
+                logits[name] = got
+            rec = {}
+            for name, fused, plain, tol in (
+                    ("dense", moevit_forward_fused, moevit_forward_plain, MOE_TOL["bf16"]),
+                    ("int8", moevit_forward_quant, moevit_forward_quant_plain, MOE_TOL["int8"])):
+                e = engines[name]
+                fwd = {k: v for k, v in e._forward.items() if k != "compute_dtype"}
+                chosen, free = {}, {}
+                again = fused(e.params, x, expert_out=chosen, **e._forward)
+                if not torch.equal(again, logits[name]):
+                    raise AssertionError(f"moe {name} b{bb}: a rerun's logits differ")
+                pinned = plain(e.params, x, compute_dtype=bf16, expert_ids=chosen, **fwd)
+                plain(e.params, x, compute_dtype=bf16, expert_out=free, **fwd)
+                atol = tol * pinned.abs().max().item()
+                rec[name] = compare_logits(torch, f"moe {name} b{bb}", logits[name],
+                                           [("plain_pinned", pinned, 0.0, atol)])
+                rec[name]["free_running_choice_agreement"] = {
+                    f"layer_{i}.{sub}": (chosen[(i, sub)] == free[(i, sub)]).float().mean().item()
+                    for i, sub in chosen}
+                rec[name]["tolerance_rel"] = tol
+            # routed at capacity 2.0, E = 2: cap = T, nothing overflows
+            rec["routed_2"] = compare_logits(
+                torch, f"moe routed_2 b{bb}", logits["routed_2"],
+                [("dense", logits["dense"], 0.0,
+                  MOE_TOL["bf16"] * logits["dense"].abs().max().item())])
+            routed_choices = {}
+            e1 = engines["routed_1"]
+            moevit_forward_fused(e1.params, x, expert_out=routed_choices, **e1._forward)
+            rec["routed_1"] = {
+                "overflow_share": moe_overflow(torch, routed_choices, 1.0),
+                "top1_agreement_with_dense": (logits["routed_1"].argmax(-1)
+                                              == logits["dense"].argmax(-1)).float().mean().item(),
+                "max_abs_delta_vs_dense": (logits["routed_1"] - logits["dense"]).abs().max().item()}
+            emit({"phase": "moe_check", "batch": bb, **rec,
+                  "tolerance_reason": "the plain twins take the same rounding points and the "
+                  "engine's expert choices (bf16 near-ties of two gate scores would swap a "
+                  "token's expert); bf16: the repo's kernel tolerance (tests/test_pallas.py:42), "
+                  "int8: the repo's int8 engine tolerance (tests/test_inference.py:728-730)",
+                  "card": smi})
+    for key in want[True]:
+        if totals.get(key, 0) == 0:
+            raise AssertionError(f"{key}: never launched on the MoE paths")
+    emit({"phase": "moe_launches", "counts": totals,
+          "per_forward": {"bf16": want[False], "int8": want[True]},
+          "requests": list(MOE_REQUESTS), "engines": list(MOE_ENGINES), "card": smi})
+
+    # each engine at bs256, then one profiled forward of each
+    x = requests[MOE_REQUESTS[-1]]
+    forward_ms = {}
+    with torch.inference_mode():
+        for name, e in engines.items():
+            forward_ms[name] = cuda_ms(torch, lambda: e(x), iters=10)
+            emit({"phase": "timing_moe", "engine": name, "batch": MOE_REQUESTS[-1],
+                  "ms_per_forward": forward_ms[name],
+                  "images_per_s": MOE_REQUESTS[-1] / forward_ms[name] * 1e3, "card": smi})
+        for name, e in engines.items():
+            profile_step(torch, smi, lambda: e(x), forward_ms[name],
+                         phase=f"profile_moe_{name}_forward", batch=MOE_REQUESTS[-1],
+                         warmup=True)
+
+        # bias_f32 at both shapes beside its bound, plain and library
+        entry = None
+        for name, (a, sa, w, sw, b) in gemm_ins.items():
+            k, nn_ = w.shape
+            w_lib = int_mm_operand(torch, a, w)
+            ms = cuda_ms(torch, lambda: tq.gemm_s8_epilogue(a, sa, w, sw, b, "bias_f32"))
+            dev_ms = graph_ms(torch, lambda: tq.gemm_s8_epilogue(a, sa, w, sw, b, "bias_f32"))
+            plain_ms = cuda_ms(torch, lambda: tq.gemm_s8_epilogue_ref(a, sa, w, sw, b,
+                                                                      "bias_f32"), iters=3)
+            lib_ms = cuda_ms(torch, lambda: torch._int_mm(a, w_lib).float() * sa * sw
+                             + b.float())
+            t_ops = 2.0 * rows * k * nn_ / PEAK_INT8_OPS * 1e3
+            t_bytes = (rows * k + k * nn_ + rows * 4 + nn_ * 6 + rows * nn_ * 4) / PEAK_BYTES * 1e3
+            bnd, by = (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+            rec = {"name": "gemm_s8_epilogue.bias_f32", "route": "cuda",
+                   "source": "peekvit_torch/csrc/gemm_s8_epilogue.cu", "replaces": REPLACES_MOE,
+                   "launches": totals.get("gemm_s8_epilogue.bias_f32", 0),
+                   "max_abs_err": checks["gemm_s8_epilogue.bias_f32"], "ms": ms,
+                   "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+                   "library_ms": lib_ms, "path": "moe", "shape_batch": MOE_REQUESTS[-1],
+                   "shape": f"{name}: M {rows}, K {k}, N {nn_}", "plan": tq.gemm_s8_plan(rows, nn_)}
+            emit({"phase": "timing_kernel", **rec, "share_of_bound": bnd / dev_ms,
+                  "library": "torch._int_mm + the dequant in torch ops", "card": smi})
+            if name == "fc1":
+                entry = dict(rec, count_key="gemm_s8_epilogue.bias_f32")
+    rows_ptx = [r for r in ptxas_summary(build_info, ("gemm_s8_epilogue",))
+                if "gemm_s8_kernelILi6E" in r["kernel"]]
+    spilled = [r["kernel"] for r in rows_ptx
+               if r.get("spill_store_bytes") or r.get("spill_load_bytes")]
+    emit({"phase": "ptxas_bias_f32", "kernels": rows_ptx if rows_ptx else "not rebuilt in this run",
+          "spilled": spilled, "card": smi})
+    if spilled:
+        raise AssertionError(f"ptxas spilled registers in {spilled}")
+    if build_info.get("gemm_s8_epilogue", {}).get("ptxas") and len(rows_ptx) != 2:
+        raise AssertionError(f"ptxas reported {len(rows_ptx)} bias_f32 instances, want 2")
+    emit({"phase": "moe_elapsed", "seconds": time.perf_counter() - t0, "card": smi})
+    return {"counts": totals, "entries": [entry]}
+
+
 def main() -> int:
     import torch
 
@@ -6158,6 +6408,8 @@ def main() -> int:
     tiled_entries = tiled_timing(torch, F, fa, vjp, lv, smi, check, checks, randn, shipped)
     # ------------------------------------------- 41. the reconstruction decoders
     recon = recon_phases(torch, F, fa, dev, smi, check, checks, info)
+    # ---------------------------------------------------------------- 42. MoE
+    moe = moe_phases(torch, F, fa, tq, dev, smi, check, checks, info)
     for entry in kernels:  # the later paths run earlier kernels too
         entry["launches_by_path"]["merged"] = mtrain["counts"]["merged"].get(entry["name"], 0)
         entry["launches_by_path"]["hybrid"] = mtrain["counts"]["hybrid"].get(entry["name"], 0)
@@ -6166,6 +6418,7 @@ def main() -> int:
         entry["launches_by_path"]["sp"] = sp["counts"].get(entry["name"], 0)
         entry["launches_by_path"]["shipped_train"] = shipped["counts"].get(entry["name"], 0)
         entry["launches_by_path"]["recon"] = recon["counts"].get(entry["name"], 0)
+        entry["launches_by_path"]["moe"] = moe["counts"].get(entry["name"], 0)
     # every path's counts as this run measured them, read by each new
     # entry's count key
     measured = {"engine": main_counts, "split": split_counts, "train": train["counts"],
@@ -6177,9 +6430,9 @@ def main() -> int:
                 "pct": pct["counts"], "merged": mtrain["counts"]["merged"],
                 "hybrid": mtrain["counts"]["hybrid"], "module": mod["counts"],
                 "attention_alone": mod["alone"], "tp": tp["counts"], "sp": sp["counts"],
-                "shipped_train": shipped["counts"], "recon": recon["counts"]}
-    later = merged_entries + [mod["entry"]] + tp_entries + sp_entries + tiled_entries + recon[
-        "entries"]
+                "shipped_train": shipped["counts"], "recon": recon["counts"], "moe": moe["counts"]}
+    later = (merged_entries + [mod["entry"]] + tp_entries + sp_entries + tiled_entries
+             + recon["entries"] + moe["entries"])
     for entry in later:
         key = entry.pop("count_key")
         entry["launches_by_path"] = {path: c.get(key, 0) for path, c in measured.items()}

@@ -16,7 +16,10 @@
 // The residual is bf16 (the layer input) or fp32 (the mid residual y);
 // the mask is (M,) bf16, read as fp32, as gemm_bias_epilogue.cu's
 // epilogues 6 and 7. Site 16's MLP (_q_masked_mlp_kernel :293) keeps an
-// unmasked residual: epilogue 3.
+// unmasked residual: epilogue 3. And for the MoE experts' int8 linear
+// (_quant_linear_xla, quant_blocks.py:89-102, which XLA runs in the JAX
+// package: no Pallas kernel):
+//   epilogue 6 "bias_f32":     + bias -> fp32                 (epilogue 2 without the residual)
 //
 // Numerics: s8 x s8 products summed in s32 by the tensor cores (exact),
 // then, as _qmatmul: v = float(acc) * s_row * s_col, then + bias, then
@@ -144,7 +147,8 @@ gemm_s8_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__
   using C = Cfg<BN>;
   constexpr int STAGES = C::STAGES, NACC = BN / 2, EPI_CHUNK = C::EPI_CHUNK;
   constexpr bool kMask = EPI == 4 || EPI == 5;
-  constexpr bool kRes = EPI >= 2;
+  constexpr bool kRes = EPI >= 2 && EPI <= 5;
+  constexpr bool kOutF32 = EPI == 1 || EPI == 2 || EPI == 4 || EPI == 6;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = hopper::smem_u32(smem_raw);
   const uint32_t ring = (raw + 1023) & ~1023u;
@@ -258,7 +262,7 @@ gemm_s8_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__
             v0 = __fadd_rn(v0, in[jj][hh].x);
             v1 = __fadd_rn(v1, in[jj][hh].y);
           }
-          if (EPI == 1 || EPI == 2 || EPI == 4) {
+          if (kOutF32) {
             *reinterpret_cast<float2*>(reinterpret_cast<float*>(out) + off) = make_float2(v0, v1);
           } else {
             *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<__nv_bfloat16*>(out) + off) =
@@ -346,13 +350,13 @@ int launch_res(int res_f32, const Args& p, cudaStream_t s) {
 
 // epilogue: 0 bias -> bf16, 1 bias + tanh-gelu -> fp32, 2 bias + residual
 // -> fp32, 3 bias + residual -> bf16, 4 (bias) * mask + residual -> fp32,
-// 5 (bias) * mask + residual -> bf16. a: (m, k) int8; w: (n, k) int8 (the
-// (out, in) layout); s_row: (m,) fp32, or null to use s_static for every
-// row; s_col: (n,) fp32; bias: (n,) bf16; res: (m, n), fp32 (res_f32 = 1)
-// or bf16 (0), read by epilogues 2-5 only; mask: (m,) bf16, read by 4 and
-// 5 only; out: (m, n) in the epilogue's type. Returns the cudaError_t of
-// the launch (an unknown epilogue, 2-5 without a residual or 4-5 without
-// a mask returns cudaErrorInvalidValue).
+// 5 (bias) * mask + residual -> bf16, 6 bias -> fp32. a: (m, k) int8; w:
+// (n, k) int8 (the (out, in) layout); s_row: (m,) fp32, or null to use
+// s_static for every row; s_col: (n,) fp32; bias: (n,) bf16; res: (m, n),
+// fp32 (res_f32 = 1) or bf16 (0), read by epilogues 2-5 only; mask: (m,)
+// bf16, read by 4 and 5 only; out: (m, n) in the epilogue's type. Returns
+// the cudaError_t of the launch (an unknown epilogue, 2-5 without a
+// residual or 4-5 without a mask returns cudaErrorInvalidValue).
 extern "C" int peekvit_gemm_s8_epilogue(const void* a, const void* w, const void* s_row,
                                         float s_static, const void* s_col, const void* bias,
                                         const void* res, const void* mask, void* out, int m,
@@ -360,8 +364,8 @@ extern "C" int peekvit_gemm_s8_epilogue(const void* a, const void* w, const void
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (m == 0) return 0;
   if (k % 16 != 0 || n % 8 != 0) return (int)cudaErrorInvalidValue;
-  if (epilogue >= 2 && res == nullptr) return (int)cudaErrorInvalidValue;
-  if (epilogue >= 4 && mask == nullptr) return (int)cudaErrorInvalidValue;
+  if (epilogue >= 2 && epilogue <= 5 && res == nullptr) return (int)cudaErrorInvalidValue;
+  if ((epilogue == 4 || epilogue == 5) && mask == nullptr) return (int)cudaErrorInvalidValue;
   const Args p{a, w, s_row, s_col, bias, res, mask, s_static, out, m, n, k};
   switch (epilogue) {
     case 0:
@@ -376,6 +380,8 @@ extern "C" int peekvit_gemm_s8_epilogue(const void* a, const void* w, const void
       return launch_res<4, float>(res_f32, p, s);
     case 5:
       return launch_res<5, __nv_bfloat16>(res_f32, p, s);
+    case 6:
+      return launch<6, float, float>(p, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,10 +1,11 @@
 """Fused eval engines for the plain ViT, the ResidualViT family (EncDec
-included), RankViT, A-ViT, MAE, PCT and RankPCT, in bf16 and (ViT,
-ResidualViT, RankViT) int8 (counterpart of peekvit_tpu/inference.py:
+included), RankViT, A-ViT, MAE, MoE, PCT and RankPCT, in bf16 and (ViT,
+ResidualViT, RankViT, MoE) int8 (counterpart of peekvit_tpu/inference.py:
 ``prepare_engine_params``, ``vit_forward_fused``, ``_encoder_stack``,
 ``maevit_forward_fused``, ``residualvit_forward_fused`` with its ``recon``
 branch, ``rankvit_forward_fused``, ``rankvit_forward_padded``,
-``adavit_forward_fused``, the int8 forwards and calibration,
+``adavit_forward_fused``, ``moevit_forward_fused`` with
+``_routed_moe_mlp``, the int8 forwards and calibration,
 ``prepare_pct_engine_params``, ``pct_forward_fused``,
 ``rankpct_forward_fused`` and ``InferenceEngine``).
 
@@ -49,7 +50,16 @@ masked max, both BatchNorms folded at build), runs the plain folded stack
 head in fp32 torch (``pct_forward_fused``). A RankPCT drops tokens
 physically before each ranking layer (``rankpct_forward_fused``).
 
-``quantized=True`` (ViT, RankViT and the ResidualViT family) serves int8
+For an MoE ViT each layer whose two sublayers have one expert runs the
+folded layer on the kernels; a sublayer with one expert beside a gated
+one runs ``fused_attention_block`` / ``fused_mlp_block``; a gated
+sublayer takes its fp32 top-1 gate and runs every expert densely in torch
+with the one-hot combine, as XLA in JAX (``moevit_forward_fused``), or,
+under ``routed=``, each token's own MLP expert by a capacity dispatch
+(``_routed_moe_mlp``). Its int8 engine runs the experts' linears on the
+s8 GEMM (``ops/cuda/quant_blocks.quant_experts``, ``moevit_forward_quant``).
+
+``quantized=True`` (ViT, RankViT, the ResidualViT family and MoE) serves int8
 w8a8: the weights quantized per output column at build
 (``quantize_vit_params``, ``quantize_residualvit_params``, optionally
 after SmoothQuant and with static activation caps from calibration
@@ -80,6 +90,9 @@ Usage::
 
     logits, recon = InferenceEngine(build_model("maevit", args), recon_outputs=True)(images)
 
+    engine = InferenceEngine(build_model("moevit", args), routed=2.0)
+    logits = engine(images)
+
     engine = InferenceEngine(build_model("pct", args))
     logits = engine(points)                     # (B, N, 3) -> (B, classes) fp32
 
@@ -102,6 +115,7 @@ from peekvit_torch.models.adavit import AdaptiveVisionTransformer
 from peekvit_torch.models.eeresidualvit import EEResidualVisionTransformer
 from peekvit_torch.models.encdecresidualvit import ResidualVisionTransformerWithDecoder
 from peekvit_torch.models.maevit import MAEVisionTransformer
+from peekvit_torch.models.moevit import VisionTransformerMoE, combine
 from peekvit_torch.models.pct import PointCloudTransformer
 from peekvit_torch.models.rankpct import RankPointCloudTransformer
 from peekvit_torch.models.rankvit import RankVisionTransformer
@@ -141,6 +155,8 @@ from peekvit_torch.ops.cuda.quant_blocks import (
     quant_layer_block_ref,
     quant_masked_layer_block,
     quant_masked_layer_block_ref,
+    quant_experts,
+    quant_experts_ref,
     quant_mlp_block,
     quant_mlp_block_ref,
     quantize_linear,
@@ -201,9 +217,9 @@ def _layer_ids(enc):
 
 
 # Gate subtrees stay fp32 whatever the compute dtype: thresholding a gate
-# is discontinuous, so the engine's gate arithmetic is fp32 on purpose
-# (JAX inference.py:159-172).
-_FP32_SUBTREES = frozenset({"residual_gate", "budget_token_gate"})
+# (or an MoE gate's argmax) is discontinuous, so the engine's gate
+# arithmetic is fp32 on purpose (JAX inference.py:159-172).
+_FP32_SUBTREES = frozenset({"residual_gate", "budget_token_gate", "gating_network"})
 # int8 dequant scales stay fp32 too (JAX FP_LEAVES, inference.py:160)
 _FP32_LEAVES = frozenset({"sqkv", "so", "s1", "s2"})
 _S8_LEAVES = ("wqkv_q", "wo_q", "w1_q", "w2_q")
@@ -228,19 +244,24 @@ def prepare_engine_params(params: dict, compute_dtype=None, fold_ln: bool = Fals
     """Engine-side param preparation, once at construction:
 
     - fp32 leaves are cast to ``compute_dtype``, except the gate subtrees
-      (``residual_gate``, ``budget_token_gate``) and the int8 dequant
-      scales (``sqkv``, ``so``, ``s1``, ``s2``), which stay fp32; 1-D
-      vectors become (1, k);
-    - a quantized tree (``quantize_vit_params``) gets each int8 kernel as
-      the (in, out) view of an (out, in) copy (``kernel_layout``: the
-      layout the s8 GEMM reads), made here once; its LN affines are
-      neither folded nor stacked (the int8 layer applies them);
+      (``residual_gate``, ``budget_token_gate``, MoE's ``gating_network``)
+      and the int8 dequant scales (``sqkv``, ``so``, ``s1``, ``s2``),
+      which stay fp32; 1-D vectors become (1, k);
+    - a quantized tree (``quantize_vit_params``, or
+      ``quantize_moevit_params`` with the int8 leaves under
+      ``self_attention`` / ``mlp``) gets each int8 kernel, and each
+      expert's of a stack, as the (in, out) view of an (out, in) copy
+      (``kernel_layout``: the layout the s8 GEMM reads), made here once;
+      its LN affines are neither folded nor stacked (the int8 layer
+      applies them);
     - ``fold_ln=True`` (plain ViT, RankViT, MAE: a ResidualViT's row masks
       do not commute with a folded LN bias) folds every layer's LN affines into
       its qkv and fc1 weights in fp32 from the original weights
       (``_folded_qkv`` / ``_folded_fc1``, then cast) and stacks the layers for
       the one-call encoder (``_stacked_layers``), in ``encoder`` and in
-      MAE's ``decoder_blocks`` (the same plain stack); it folds the
+      MAE's ``decoder_blocks`` (the same plain stack); an MoE layer is
+      folded from its ``experts_0`` where both sublayers have one expert,
+      and an MoE encoder is not stacked (JAX inference.py:186-218); it folds the
       pos-embedding and conv bias into ``_embed_special`` /
       ``_embed_img_bias``. MAE's top-level ``pos_embedding`` covers the
       patches only, so there ``_embed_special`` is the class and register
@@ -249,11 +270,12 @@ def prepare_engine_params(params: dict, compute_dtype=None, fold_ln: bool = Fals
     out = _prepare_tree(params, compute_dtype)
     enc = params.get("encoder", {})
     ids = _layer_ids(enc)
-    quantized = any("wqkv_q" in enc[f"layers_{i}"] for i in ids)
+    quantized = any("wqkv_q" in node for i in ids for node in _int8_nodes(enc[f"layers_{i}"]))
     for i in ids if quantized else ():
-        lp = out["encoder"][f"layers_{i}"]
-        for key in _S8_LEAVES:
-            lp[key] = kernel_layout(lp[key])
+        for node in _int8_nodes(out["encoder"][f"layers_{i}"]):
+            for key in _S8_LEAVES:
+                if key in node:
+                    node[key] = kernel_layout(node[key])
     if not (fold_ln and "encoder" in params):
         return out
     cdt = compute_dtype or torch.float32
@@ -278,13 +300,33 @@ def prepare_engine_params(params: dict, compute_dtype=None, fold_ln: bool = Fals
     return out
 
 
+def _int8_nodes(lp: dict) -> tuple:
+    """The dicts of a quantized layer that may hold int8 kernels: the layer
+    itself (ViT, ResidualViT) and its ``self_attention`` / ``mlp`` (MoE)."""
+    return (lp, lp.get("self_attention", {}), lp.get("mlp", {}))
+
+
+def _single_expert_view(lp: dict) -> dict:
+    """An MoE layer whose sublayers have one expert each, as a plain layer:
+    ``self_attention`` / ``mlp`` are their ``experts_0``."""
+    return dict(lp, self_attention=lp["self_attention"]["experts_0"],
+                mlp=lp["mlp"]["experts_0"])
+
+
 def _fold_and_stack(stack_in: dict, stack_out: dict, cdt) -> None:
     """Fold each layer of a plain pre-LN stack (``stack_in``, the original
     weights) into ``stack_out``'s ``_folded_qkv`` / ``_folded_fc1``, and
-    stack the layers into ``stack_out["_stacked_layers"]``."""
+    stack the layers into ``stack_out["_stacked_layers"]``. An MoE layer
+    folds from its ``experts_0`` where both sublayers have one expert, and
+    an MoE stack is not stacked."""
     ids = _layer_ids(stack_in)
+    moe = any("out_proj_kernel" not in stack_in[f"layers_{i}"]["self_attention"] for i in ids)
     for i in ids:
         sp, op = stack_in[f"layers_{i}"], stack_out[f"layers_{i}"]
+        if moe:
+            if "experts_0" not in sp["self_attention"] or "experts_0" not in sp["mlp"]:
+                continue  # a multi-expert sublayer: the layer is not fused whole
+            sp = _single_expert_view(sp)
         at, mlp = sp["self_attention"], sp["mlp"]
         wq, bq = fold_ln_into_weights(sp["ln_1"]["scale"], sp["ln_1"]["bias"],
                                       at["in_proj_kernel"], at["in_proj_bias"])
@@ -292,7 +334,7 @@ def _fold_and_stack(stack_in: dict, stack_out: dict, cdt) -> None:
                                       mlp["fc1_kernel"], mlp["fc1_bias"])
         op["_folded_qkv"] = {"kernel": wq.to(cdt), "bias": bq.to(cdt)}
         op["_folded_fc1"] = {"kernel": w1.to(cdt), "bias": b1.to(cdt)}
-    if not ids:
+    if not ids or moe:
         return
     layers = [stack_out[f"layers_{i}"] for i in ids]
 
@@ -1604,9 +1646,307 @@ def rankpct_forward_plain(params, points, *, budget: Optional[float], ranking: t
                             kept_out=kept_out)
 
 
+# --------------------------------------------------------------------- MoE
+
+
+def _expert_choice(y, gp, key, expert_ids: Optional[dict], expert_out: Optional[dict]):
+    """(B, N) expert index of each token of an MoE sublayer's input y:
+    argmax of the fp32 gate scores (the eval gate, first maximal index), or
+    ``expert_ids[key]`` when given; stored in ``expert_out[key]``. The gate
+    product stays true fp32 on the card: torch leaves
+    ``torch.backends.cuda.matmul.allow_tf32`` False, and the port does not
+    turn it on (a TF32 product would move near-tied scores)."""
+    if expert_ids is not None:
+        eid = expert_ids[key]
+    else:
+        scores = y.float() @ gp["gate"]["kernel"].float() + gp["gate"]["bias"].float().reshape(-1)
+        eid = scores.argmax(-1)
+    if expert_out is not None:
+        expert_out[key] = eid
+    return eid
+
+
+def _routed_moe_mlp(z, gating, experts, cast, capacity_factor: float, eid=None):
+    """Top-1 routed MoE MLP (JAX ``_routed_moe_mlp``, inference.py:1481):
+    each token runs its own expert only. Tokens sort by expert id
+    (stable), each expert's segment gathers into an (E, cap) buffer with
+    ``cap = ceil(T / E * capacity_factor)`` rows, the experts run as one
+    batched product per weight (erf-gelu), and each token gathers its row
+    back through the inverse permutation. Equal to the dense combine while
+    no expert overflows; an overflow token (the latest in token order
+    within its expert) contributes exactly zero. ``eid``: the tokens' (B,
+    N) experts, else from the fp32 gate. Plain torch on every device, as
+    XLA in JAX."""
+    b, n, d = z.shape
+    t = b * n
+    e_total = experts["fc1_kernel"].shape[0]
+    cap = int(np.ceil(t / e_total * capacity_factor))
+    zf = z.reshape(t, d)
+    if eid is None:
+        eid = _expert_choice(zf, gating, None, None, None)
+    eid = eid.reshape(t)
+    order = torch.sort(eid, stable=True).indices
+    counts = torch.bincount(eid, minlength=e_total)
+    offsets = torch.cumsum(counts, 0) - counts
+    cidx = torch.arange(cap, device=z.device)[None, :]
+    slot_valid = cidx < counts[:, None]
+    src = torch.where(slot_valid, offsets[:, None] + cidx, 0)
+    buf = zf[order[src.reshape(-1)]]
+    buf = torch.where(slot_valid.reshape(-1, 1), buf, 0).reshape(e_total, cap, d)
+    h = F.gelu(torch.bmm(buf, cast(experts["fc1_kernel"])) + cast(experts["fc1_bias"])[:, None, :],
+               approximate="none")
+    out = torch.bmm(h, cast(experts["fc2_kernel"])) + cast(experts["fc2_bias"])[:, None, :]
+    inv = torch.empty_like(order).scatter_(0, order, torch.arange(t, device=z.device))
+    rank = inv - offsets[eid]
+    idx = (eid * cap + rank).clamp(0, e_total * cap - 1)
+    combined = torch.where((rank < cap)[:, None], out.reshape(e_total * cap, d)[idx], 0)
+    return combined.reshape(b, n, d).to(z.dtype)
+
+
+def _moe_layers(blocks, num_heads: int, ln_eps: float, compute_dtype,
+                routed_capacity: Optional[float], routed_min_experts: int):
+    """An MoE layer over the bf16 blocks (``fused_layer_block_folded``,
+    ``fused_attention_block``, ``fused_mlp_block`` or their plain twins)
+    for :func:`_moe_forward`: the folded layer where both sublayers have
+    one expert, else each sublayer on its own: one expert on its block, E
+    experts densely in torch (linen's attention core, erf-gelu MLPs) with
+    the one-hot combine, or routed (:func:`_routed_moe_mlp`)."""
+    layer_block, attention_block, mlp_block = blocks
+
+    def cast(t):
+        return t.to(compute_dtype)
+
+    def run(tokens, lp, choose, n_attn, n_mlp):
+        if n_attn == 1 and n_mlp == 1:
+            return layer_block(tokens, *_folded_weights(_single_expert_view(lp), cast),
+                               num_heads, ln_eps)
+        at, mlp = lp["self_attention"], lp["mlp"]
+        d = tokens.shape[-1]
+        if n_attn == 1:
+            a0 = at["experts_0"]
+            tokens = attention_block(
+                tokens, cast(lp["ln_1"]["scale"]), cast(lp["ln_1"]["bias"]),
+                cast(a0["in_proj_kernel"]), cast(a0["in_proj_bias"]),
+                cast(a0["out_proj_kernel"]), cast(a0["out_proj_bias"]), num_heads, ln_eps)
+        else:
+            y = _layer_norm(tokens, cast(lp["ln_1"]["scale"]), cast(lp["ln_1"]["bias"]), ln_eps)
+            eid = choose(y, at["gating_network"], "attn")
+            ex, outs = at["experts"], []
+            for e in range(n_attn):
+                qkv = y @ cast(ex["in_proj_kernel"][e]) + cast(ex["in_proj_bias"][e])
+                o = attention_core(*qkv.split(d, dim=-1), num_heads)
+                outs.append(o @ cast(ex["out_proj_kernel"][e]) + cast(ex["out_proj_bias"][e]))
+            tokens = tokens + combine(torch.stack(outs), F.one_hot(eid, n_attn).to(y.dtype))
+        if n_mlp == 1:
+            m0 = mlp["experts_0"]
+            return mlp_block(tokens, cast(lp["ln_2"]["scale"]), cast(lp["ln_2"]["bias"]),
+                             cast(m0["fc1_kernel"]), cast(m0["fc1_bias"]),
+                             cast(m0["fc2_kernel"]), cast(m0["fc2_bias"]), ln_eps)
+        z = _layer_norm(tokens, cast(lp["ln_2"]["scale"]), cast(lp["ln_2"]["bias"]), ln_eps)
+        eid = choose(z, mlp["gating_network"], "mlp")
+        ex = mlp["experts"]
+        if routed_capacity is not None and n_mlp >= routed_min_experts:
+            # below routed_min_experts the dense layer is cheaper than the
+            # dispatch (JAX inference.py:1674-1684)
+            return tokens + _routed_moe_mlp(z, mlp["gating_network"], ex, cast,
+                                            routed_capacity, eid)
+        h = F.gelu(torch.einsum("bnd,edm->ebnm", z, cast(ex["fc1_kernel"]))
+                   + cast(ex["fc1_bias"])[:, None, None, :], approximate="none")
+        outs = (torch.einsum("ebnm,emd->ebnd", h, cast(ex["fc2_kernel"]))
+                + cast(ex["fc2_bias"])[:, None, None, :])
+        return tokens + combine(outs, F.one_hot(eid, n_mlp).to(z.dtype))
+
+    return run
+
+
+def _moe_quant_layers(blocks, num_heads: int, ln_eps: float, compute_dtype):
+    """An int8 MoE layer over ``quant_layer_block``, ``quant_attention_block``,
+    ``quant_mlp_block`` and ``quant_experts`` (or their plain twins) for
+    :func:`_moe_forward`: single sublayers on the int8 blocks (dynamic
+    scales), E experts each through ``quant_experts`` (the sublayer's
+    input quantized once), erf-gelu in fp32, h in the compute dtype, the
+    one-hot fp32 combine rounded to the tokens' dtype."""
+    layer_block, attention_block, mlp_block, experts = blocks
+
+    def cast(t):
+        return t.to(compute_dtype)
+
+    def run(tokens, lp, choose, n_attn, n_mlp):
+        at, mlp = lp["self_attention"], lp["mlp"]
+        if n_attn == 1 or n_mlp == 1:
+            w = _quant_weights({**at, **mlp, "ln_1": lp["ln_1"], "ln_2": lp["ln_2"]}, cast)
+        if n_attn == 1 and n_mlp == 1:
+            return layer_block(tokens, *w, num_heads, ln_eps)
+        d = tokens.shape[-1]
+        if n_attn == 1:
+            tokens = attention_block(tokens, *w[:8], num_heads, ln_eps)
+        else:
+            y = _layer_norm(tokens, cast(lp["ln_1"]["scale"]), cast(lp["ln_1"]["bias"]), ln_eps)
+            eid = choose(y, at["gating_network"], "attn")
+            outs = []
+            for e, qkv in enumerate(experts(y, at["wqkv_q"], at["sqkv"], cast(at["bqkv"]))):
+                o = attention_core(*cast(qkv).split(d, dim=-1), num_heads)
+                outs += experts(o, at["wo_q"][e:e + 1], at["so"][e:e + 1], cast(at["bo"][e:e + 1]))
+            tokens = tokens + combine(torch.stack(outs),
+                                      F.one_hot(eid, n_attn).float()).to(tokens.dtype)
+        if n_mlp == 1:
+            return mlp_block(tokens, *w[8:], ln_eps)
+        z = _layer_norm(tokens, cast(lp["ln_2"]["scale"]), cast(lp["ln_2"]["bias"]), ln_eps)
+        eid = choose(z, mlp["gating_network"], "mlp")
+        outs = []
+        for e, h in enumerate(experts(z, mlp["w1_q"], mlp["s1"], cast(mlp["b1"]))):
+            h = cast(F.gelu(h, approximate="none"))
+            outs += experts(h, mlp["w2_q"][e:e + 1], mlp["s2"][e:e + 1], cast(mlp["b2"][e:e + 1]))
+        return tokens + combine(torch.stack(outs), F.one_hot(eid, n_mlp).float()).to(tokens.dtype)
+
+    return run
+
+
+def _moe_forward(params, images, run_layer, *, patch_size: int, mlp_moes: tuple,
+                 attn_moes: tuple, ln_eps: float, compute_dtype,
+                 expert_ids: Optional[dict] = None, expert_out: Optional[dict] = None):
+    """The MoE ViT around ``run_layer`` (:func:`_moe_layers` or
+    :func:`_moe_quant_layers`): the embed with the one class token and the
+    pos-embedding, the layers, the final LN on token 0 alone, the head,
+    fp32 logits (the model's classifier quirk, JAX inference.py:1696-1705).
+    ``expert_ids`` / ``expert_out``: {(layer id, "attn" | "mlp"): (B, N)
+    expert indices} read in place of the gates' argmax / written."""
+
+    def cast(t):
+        return t.to(compute_dtype)
+
+    x = cast(images)
+    wconv = cast(params["conv_proj"]["kernel"])
+    d = wconv.shape[-1]
+    tokens = _patchify(x, patch_size) @ wconv.reshape(-1, d) + cast(params["conv_proj"]["bias"])
+    cls = cast(params["class_token"]).reshape(1, 1, d).expand(tokens.shape[0], 1, d)
+    enc = params["encoder"]
+    tokens = torch.cat([cls, tokens], dim=1) + cast(enc["pos_embedding"])
+    for li, i in enumerate(_layer_ids(enc)):
+        def choose(y, gp, sub, i=i):
+            return _expert_choice(y, gp, (i, sub), expert_ids, expert_out)
+
+        tokens = run_layer(tokens, enc[f"layers_{i}"], choose, attn_moes[li], mlp_moes[li])
+    cls = _layer_norm(tokens[:, :1], cast(enc["ln"]["scale"]), cast(enc["ln"]["bias"]),
+                      ln_eps)[:, 0]
+    return (cls @ cast(params["head"]["kernel"]) + cast(params["head"]["bias"])).float()
+
+
+_MOE_KERNELS = (fused_layer_block_folded, fused_attention_block, fused_mlp_block)
+_MOE_PLAIN = (fused_layer_block_folded_ref, fused_attention_block_ref, fused_mlp_block_ref)
+_MOE_QUANT_KERNELS = (quant_layer_block, quant_attention_block, quant_mlp_block, quant_experts)
+_MOE_QUANT_PLAIN = (quant_layer_block_ref, quant_attention_block_ref, quant_mlp_block_ref,
+                    quant_experts_ref)
+
+
+def moevit_forward_fused(params, images, *, patch_size: int, num_heads: int, mlp_moes: tuple,
+                         attn_moes: tuple, ln_eps: float = 1e-5, compute_dtype=torch.bfloat16,
+                         routed_capacity: Optional[float] = None, routed_min_experts: int = 3,
+                         expert_out: Optional[dict] = None) -> torch.Tensor:
+    """Eval forward of the MoE ViT (JAX ``moevit_forward_fused``,
+    inference.py:1541) from ``prepare_engine_params(fold_ln=True)``.
+    images: (B, H, W, 3). Per layer: both sublayers with one expert, the
+    folded layer (``fused_layer_block_folded``, 7 launches); else the
+    attention on ``fused_attention_block`` (4) or E experts densely in
+    torch with the one-hot combine, then the MLP on ``fused_mlp_block``
+    (3) or E erf-gelu experts densely, or routed (``_routed_moe_mlp``)
+    where ``routed_capacity`` is set and E >= ``routed_min_experts``. The
+    gates argmax fp32 scores. The port has no VMEM budget: every
+    single-expert sublayer takes the kernels. ``expert_out``: if a dict is
+    given, each gate's (B, N) choices are stored in it under (layer id,
+    "attn" | "mlp"). Returns fp32 logits."""
+    return _moe_forward(params, images,
+                        _moe_layers(_MOE_KERNELS, num_heads, ln_eps, compute_dtype,
+                                    routed_capacity, routed_min_experts),
+                        patch_size=patch_size, mlp_moes=mlp_moes, attn_moes=attn_moes,
+                        ln_eps=ln_eps, compute_dtype=compute_dtype, expert_out=expert_out)
+
+
+def moevit_forward_plain(params, images, *, patch_size: int, num_heads: int, mlp_moes: tuple,
+                         attn_moes: tuple, ln_eps: float = 1e-5, compute_dtype=torch.float32,
+                         routed_capacity: Optional[float] = None, routed_min_experts: int = 3,
+                         expert_ids: Optional[dict] = None,
+                         expert_out: Optional[dict] = None) -> torch.Tensor:
+    """:func:`moevit_forward_fused` on the plain versions, whatever the
+    device. ``expert_ids`` (an ``expert_out`` of the engine's forward)
+    replaces the gates' choices, so that both run the same experts where a
+    bf16 near-tie of two scores would pick another."""
+    return _moe_forward(params, images,
+                        _moe_layers(_MOE_PLAIN, num_heads, ln_eps, compute_dtype,
+                                    routed_capacity, routed_min_experts),
+                        patch_size=patch_size, mlp_moes=mlp_moes, attn_moes=attn_moes,
+                        ln_eps=ln_eps, compute_dtype=compute_dtype, expert_ids=expert_ids,
+                        expert_out=expert_out)
+
+
+def quantize_moevit_params(params: dict) -> dict:
+    """The int8 tree of an MoE ViT (JAX ``quantize_moevit_params``,
+    inference.py:1715): every expert's four weights symmetric per output
+    column (``quantize_linear``; a stack (E, in, out) per expert, with
+    (E, 1, out) scales), under ``self_attention`` (``wqkv_q``, ``sqkv``,
+    ``bqkv``, ``wo_q``, ``so``, ``bo``, and the ``gating_network`` of a
+    multi-expert sublayer) and ``mlp`` (``w1_q`` ... ``b2``); the gates,
+    LNs, embed and head stay as they are."""
+
+    def q(w):
+        if w.dim() == 2:
+            return quantize_linear(w)
+        return tuple(torch.stack(t) for t in zip(*(quantize_linear(we) for we in w)))
+
+    enc = params["encoder"]
+    out = {"conv_proj": params["conv_proj"], "class_token": params["class_token"],
+           "head": params["head"], "encoder": {"pos_embedding": enc["pos_embedding"],
+                                               "ln": enc["ln"]}}
+    for name, lp in enc.items():
+        if not name.startswith("layers_"):
+            continue
+        subs = {}
+        for sub, names in (("self_attention", (("wqkv_q", "sqkv", "bqkv", "in_proj"),
+                                               ("wo_q", "so", "bo", "out_proj"))),
+                           ("mlp", (("w1_q", "s1", "b1", "fc1"), ("w2_q", "s2", "b2", "fc2")))):
+            src = lp[sub].get("experts_0", lp[sub].get("experts"))
+            node = subs[sub] = {}
+            for wq_key, s_key, b_key, stem in names:
+                node[wq_key], node[s_key] = q(src[f"{stem}_kernel"])
+                node[b_key] = src[f"{stem}_bias"]
+            if "gating_network" in lp[sub]:
+                node["gating_network"] = lp[sub]["gating_network"]
+        out["encoder"][name] = {"ln_1": lp["ln_1"], "ln_2": lp["ln_2"], **subs}
+    return out
+
+
+def moevit_forward_quant(qparams, images, *, patch_size: int, num_heads: int, mlp_moes: tuple,
+                         attn_moes: tuple, ln_eps: float = 1e-5, compute_dtype=torch.bfloat16,
+                         expert_out: Optional[dict] = None) -> torch.Tensor:
+    """int8 (w8a8) eval forward of the MoE ViT (JAX ``moevit_forward_quant``,
+    inference.py:1770) from ``prepare_engine_params(quantize_moevit_params(
+    ...))``, dynamic scales: both sublayers with one expert on
+    ``quant_layer_block`` (9 launches), else ``quant_attention_block`` (5)
+    or the experts through ``quant_experts`` (1 + 3 E launches), then
+    ``quant_mlp_block`` (4) or the experts (1 + 3 E). ``expert_out`` as
+    in :func:`moevit_forward_fused`. Returns fp32 logits."""
+    return _moe_forward(qparams, images,
+                        _moe_quant_layers(_MOE_QUANT_KERNELS, num_heads, ln_eps, compute_dtype),
+                        patch_size=patch_size, mlp_moes=mlp_moes, attn_moes=attn_moes,
+                        ln_eps=ln_eps, compute_dtype=compute_dtype, expert_out=expert_out)
+
+
+def moevit_forward_quant_plain(qparams, images, *, patch_size: int, num_heads: int,
+                               mlp_moes: tuple, attn_moes: tuple, ln_eps: float = 1e-5,
+                               compute_dtype=torch.float32, expert_ids: Optional[dict] = None,
+                               expert_out: Optional[dict] = None) -> torch.Tensor:
+    """:func:`moevit_forward_quant` on the plain versions, whatever the
+    device, ``expert_ids`` as in :func:`moevit_forward_plain`."""
+    return _moe_forward(qparams, images,
+                        _moe_quant_layers(_MOE_QUANT_PLAIN, num_heads, ln_eps, compute_dtype),
+                        patch_size=patch_size, mlp_moes=mlp_moes, attn_moes=attn_moes,
+                        ln_eps=ln_eps, compute_dtype=compute_dtype, expert_ids=expert_ids,
+                        expert_out=expert_out)
+
+
 class InferenceEngine:
     """Fused eval forward bound to a built plain ViT, ResidualViT (early-exit
-    and EncDec included), RankViT, A-ViT, MAE, PCT or RankPCT.
+    and EncDec included), RankViT, A-ViT, MAE, MoE, PCT or RankPCT.
 
     ``device`` defaults to the card and raises when there is none; pass
     ``device="cpu"`` to run the kernels' plain versions on the CPU. On the
@@ -1644,6 +1984,15 @@ class InferenceEngine:
     A-ViT: ``engine(images)`` (``adavit_forward_fused``: the ACT carry in
     torch, each layer on ``avit_layer_block``), bf16 only.
 
+    MoE: ``engine(images)`` (``moevit_forward_fused``: single-expert
+    sublayers on the kernels, the experts densely in torch with the
+    fp32 one-hot gate). ``routed=True`` (capacity factor 2.0) or a float >
+    0 routes the MLP experts of every layer with at least
+    ``routed_min_experts`` of them (``_routed_moe_mlp``), bf16 only.
+    ``quantized=True`` serves int8 (``quantize_moevit_params``,
+    ``moevit_forward_quant``: dynamic scales; ``calib_images=`` raises).
+    ``max_budget=`` and ``mesh=`` raise.
+
     PCT: ``engine(points)``, points (B, N, 3) (``pct_forward_fused``).
     RankPCT: ``engine(points, budget=b)`` (``rankpct_forward_fused``, the
     physical drop): the ranking flags are read when the engine is built
@@ -1680,19 +2029,34 @@ class InferenceEngine:
                  calib_images: Any = None, calib_percentile: float = 99.9,
                  calib_static_caps: bool = False,
                  mesh: Any = None, compact: Any = None, compact_slack: float = 0.0,
-                 ee_outputs: bool = False, recon_outputs: bool = False, routed: Any = None):
+                 ee_outputs: bool = False, recon_outputs: bool = False, routed: Any = None,
+                 routed_min_experts: int = 3):
         # RankViT first: it is no VisionTransformer, and a plain-ViT path
         # would ignore its budget
         rank = isinstance(model, RankVisionTransformer)
+        moe = isinstance(model, VisionTransformerMoE)
+        self._routed = 2.0 if routed is True else (float(routed) if routed is not None else None)
+        if routed is not None:
+            if not moe:
+                raise NotImplementedError(
+                    "routed= (top-1 capacity dispatch) applies to VisionTransformerMoE engines "
+                    "only")
+            if quantized:
+                raise NotImplementedError(
+                    "routed= is bf16-only: the int8 MoE engine quantizes per expert stack and "
+                    "has no routed dispatch variant (serve dense int8 or routed bf16)")
+            if self._routed <= 0:
+                raise ValueError("routed= capacity factor must be > 0")
         residual = isinstance(model, ResidualVisionTransformer)
         avit = isinstance(model, AdaptiveVisionTransformer)
         pct = isinstance(model, (PointCloudTransformer, RankPointCloudTransformer))
         mae = isinstance(model, MAEVisionTransformer)
-        if not (rank or residual or avit or pct or mae or isinstance(model, VisionTransformer)):
+        if not (rank or residual or avit or pct or mae or moe
+                or isinstance(model, VisionTransformer)):
             raise NotImplementedError(
                 f"the port's engine serves the plain VisionTransformer, the ResidualViT "
-                f"family, RankViT, A-ViT, MAE, PCT and RankPCT; {type(model).__name__} is "
-                f"ROADMAP.md port queue A item 7")
+                f"family, RankViT, A-ViT, MAE, MoE, PCT and RankPCT, not "
+                f"{type(model).__name__}")
         if recon_outputs and not (mae or isinstance(model, ResidualVisionTransformerWithDecoder)):
             raise NotImplementedError(
                 "recon_outputs=True needs a model with a reconstruction decoder (MAE or "
@@ -1718,6 +2082,12 @@ class InferenceEngine:
             raise NotImplementedError(
                 "PCT engine: num_registers > 0 not supported (the reference PCT config never "
                 "sets it)")
+        if moe and max_budget is not None:
+            raise NotImplementedError("max_budget= (padded rank drop) does not apply to MoE")
+        if moe and quantized and calib_images is not None:
+            raise NotImplementedError(
+                "calib_images=: the int8 MoE engine quantizes its activations per row, "
+                "as JAX's, and takes no calibration")
         if max_budget is not None and not rank:
             raise NotImplementedError(
                 "max_budget= (the single-shape padded drop) applies to RankViT models only "
@@ -1743,7 +2113,6 @@ class InferenceEngine:
                       "item 9 (the data-parallel engine: a mesh with model axis 1)"),
             "recon_outputs= with mesh=": (recon_outputs and mesh is not None,
                                           "item 9 (the decoder has no tensor-parallel partials)"),
-            "routed=": (routed is not None, "item 7 (MoE)"),
         }
         for name, (used, item) in not_ported.items():
             if used:
@@ -1756,7 +2125,7 @@ class InferenceEngine:
                 raise NotImplementedError(
                     "fused ResidualViT engine supports the shipped-config mode: sigmoid gates, "
                     "attention+mlp skip, budget token, add_input=False (SURVEY.md section 7.6)")
-        if tp and (avit or pct or mae or quantized or max_budget is not None):
+        if tp and (avit or pct or mae or moe or quantized or max_budget is not None):
             raise NotImplementedError(
                 "tensor-parallel serving (a mesh with a model axis > 1) covers the bf16 plain "
                 "ViT, RankViT (exact drop) and ResidualViT-family engines; other families and "
@@ -1777,6 +2146,7 @@ class InferenceEngine:
         self._rank = rank
         self._avit = avit
         self._pct = pct
+        self._moe = moe
         self._mae = mae
         self._quantized = bool(quantized)
         self.caps = None
@@ -1801,6 +2171,19 @@ class InferenceEngine:
             self.params = prepare_pct_engine_params(params, stats, compute_dtype)
             return
         params = tree_map(lambda t: t.to(self.device), module_params(model))
+        if moe:
+            self._forward = dict(patch_size=model.patch_size, num_heads=model.num_heads,
+                                 mlp_moes=model.mlp_moes, attn_moes=model.attn_moes,
+                                 ln_eps=1e-5, compute_dtype=compute_dtype)
+            if quantized:
+                with torch.no_grad():
+                    self.params = prepare_engine_params(quantize_moevit_params(params),
+                                                        compute_dtype)
+                return
+            self._forward.update(routed_capacity=self._routed,
+                                 routed_min_experts=int(routed_min_experts))
+            self.params = prepare_engine_params(params, compute_dtype, fold_ln=True)
+            return
         if mae:
             # no shuffle at eval: the full sequence through both stacks
             self._forward = dict(
@@ -1952,6 +2335,9 @@ class InferenceEngine:
                 fwd = rankvit_forward_padded_quant if self._quantized else rankvit_forward_padded
                 return fwd(self.params, images, b, max_budget=self._max_budget, **self._forward,
                            **q)
+            if self._moe:
+                fwd = moevit_forward_quant if self._quantized else moevit_forward_fused
+                return fwd(self.params, images, **self._forward)
             if self._avit:
                 return adavit_forward_fused(self.params, images, **self._forward)
             if self._mae:

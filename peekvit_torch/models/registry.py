@@ -1,8 +1,7 @@
 """build_model for the port (counterpart of peekvit_tpu/models/registry.py
-:115-180). The plain ViT, the ResidualViT, the early-exit and the EncDec
-ResidualViT, RankViT, A-ViT, MAE, PCT and RankPCT are ported; MoE, the
-other registered family, raises NotImplementedError naming its ROADMAP
-item."""
+:115-180). Every registered family is ported: the plain ViT, the
+ResidualViT, the early-exit and the EncDec ResidualViT, RankViT, A-ViT,
+MAE, MoE, PCT and RankPCT."""
 
 from __future__ import annotations
 
@@ -16,6 +15,7 @@ from peekvit_torch.models.adavit import AdaptiveVisionTransformer
 from peekvit_torch.models.eeresidualvit import EEResidualVisionTransformer
 from peekvit_torch.models.encdecresidualvit import ResidualVisionTransformerWithDecoder
 from peekvit_torch.models.maevit import MAEVisionTransformer
+from peekvit_torch.models.moevit import VisionTransformerMoE
 from peekvit_torch.models.pct import PointCloudTransformer
 from peekvit_torch.models.rankpct import RankPointCloudTransformer
 from peekvit_torch.models.rankvit import RankVisionTransformer
@@ -32,6 +32,8 @@ _PORTED = {
     **dict.fromkeys(("ResidualVisionTransformerWithDecoder", "encdecresidualvit"),
                     ResidualVisionTransformerWithDecoder),
     **dict.fromkeys(("MAEVisionTransformer", "maevit"), MAEVisionTransformer),
+    **dict.fromkeys(("visiontransformermoe", "VisionTransformerMoE", "vitmoe", "moevit",
+                     "MoEVisionTransformer"), VisionTransformerMoE),
     **dict.fromkeys(("RankingVisionTransformer", "RankVisionTransformer", "rankvit"),
                     RankVisionTransformer),
     **dict.fromkeys(("AdaptiveVisionTransformer", "adavit"), AdaptiveVisionTransformer),
@@ -40,9 +42,6 @@ _PORTED = {
     **dict.fromkeys(("RankPointCloudTransformer", "rankpointcloudtransformer", "rankpct"),
                     RankPointCloudTransformer),
 }
-# JAX registry names not ported yet -> ROADMAP.md port queue A item
-_NOT_PORTED = dict.fromkeys(("visiontransformermoe", "VisionTransformerMoE", "vitmoe", "moevit",
-                             "MoEVisionTransformer"), "item 7 (MoE)")
 
 
 def resolve_device(device) -> torch.device:
@@ -67,10 +66,6 @@ def build_model(model_class: str, model_args: dict,
     ``torch.Generator`` and then moved, so one seed gives one model on
     every device."""
     dev = resolve_device(device)
-    if model_class in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{model_class!r} is not ported yet: ROADMAP.md port queue A "
-            f"{_NOT_PORTED[model_class]}")
     if model_class not in _PORTED:
         raise ValueError(f"Unknown model class {model_class}")
     args = dict(model_args)

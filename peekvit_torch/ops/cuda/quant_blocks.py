@@ -41,6 +41,11 @@ the residual add (``masked_residual_f32`` in the merged layer,
 ``masked_residual`` in the split sublayer); the MLP's residual stays
 unmasked.
 
+The int8 MoE engine's expert sublayers are XLA in JAX (``_quant_linear_xla``,
+no Pallas kernel); here :func:`quant_experts` runs them on the same two
+kernels: ``quant_rows`` once per input, then one GEMM s8 ``bias_f32`` per
+expert.
+
 Dispatch is by device only, as in ``fused_attention.py``: a wrapper uses
 the plain version for CPU tensors; for CUDA tensors it launches its
 kernel or raises. Launches are counted in ``fused_attention.LAUNCHES``
@@ -69,7 +74,7 @@ from peekvit_torch.ops.cuda.fused_attention import (
 )
 
 _EPILOGUES = {"bias": 0, "gelu_f32": 1, "residual_f32": 2, "residual": 3,
-              "masked_residual_f32": 4, "masked_residual": 5}
+              "masked_residual_f32": 4, "masked_residual": 5, "bias_f32": 6}
 MAX_ROW_WIDTH = 3072  # quant_rows keeps a row in one warp's registers
 
 
@@ -91,8 +96,10 @@ def quantize_linear(w: torch.Tensor):
 
 def kernel_layout(wq: torch.Tensor) -> torch.Tensor:
     """The same (in, out) int8 weight as a view of an (out, in) contiguous
-    copy: the layout :func:`gemm_s8_epilogue` reads on the card."""
-    return wq.t().contiguous().t()
+    copy: the layout :func:`gemm_s8_epilogue` reads on the card. A stack
+    (E, in, out) of expert weights becomes the view of an (E, out, in)
+    copy, so that each expert's slice is in that layout."""
+    return wq.transpose(-1, -2).contiguous().transpose(-1, -2)
 
 
 def static_scale(cap: float) -> float:
@@ -259,7 +266,9 @@ def gemm_s8_epilogue(a: torch.Tensor, s_a, w: torch.Tensor, s_w: torch.Tensor,
     - ``"masked_residual_f32"``: (.) * mask + residual -> fp32 (the
       ResidualViT int8 layer's out-proj: y);
     - ``"masked_residual"``: (.) * mask + residual -> ``out_dtype`` (the
-      split masked attention sublayer's out-proj).
+      split masked attention sublayer's out-proj);
+    - ``"bias_f32"``: -> fp32, unrounded (the MoE experts' int8 linear,
+      JAX ``_quant_linear_xla``).
 
     The residual is (R, N), fp32 or bf16; the mask has one value per row
     (R values). On CUDA: bias and mask bf16, out_dtype bf16, and w the
@@ -383,6 +392,31 @@ def _q_mlp(ops, x, ln_s, ln_b, w1_q, s1, b1, w2_q, s2, b2, eps, caps, mask=None)
 
 _KERNELS = (quant_rows, gemm_s8_epilogue, attn_scores_pv)
 _PLAIN = (quant_rows_ref, gemm_s8_epilogue_ref, attn_scores_pv_ref)
+
+
+def _quant_experts(ops, x, wq, sw, b) -> list:
+    qrows, gemm, _ = ops
+    lead, k = x.shape[:-1], x.shape[-1]
+    codes, scale = qrows(x.reshape(-1, k).contiguous())
+    return [gemm(codes, scale, wq[e], sw[e], b[e], "bias_f32").reshape(*lead, -1)
+            for e in range(wq.shape[0])]
+
+
+def quant_experts(x, wq, sw, b) -> list:
+    """The int8 (w8a8) linear of each expert of an MoE sublayer on the same
+    input (JAX ``_quant_linear_xla``, quant_blocks.py:89-102, per expert,
+    with dynamic scales): x (..., K) bf16 or fp32 is quantized per row
+    once (``quant_rows``: the codes JAX's per-expert re-quantization
+    gives), then each expert e returns float(q8(x) @ wq[e]) * s_x *
+    sw[e] + b[e] in fp32, unrounded (GEMM s8 ``bias_f32``). wq: (E, K, N)
+    int8 (``quantize_linear`` per expert), sw (E, 1, N) fp32, b (E, N).
+    Returns the E outputs (..., N) as a list. 1 + E launches on CUDA."""
+    return _quant_experts(_KERNELS, x, wq, sw, b)
+
+
+def quant_experts_ref(x, wq, sw, b) -> list:
+    """Plain version of :func:`quant_experts`."""
+    return _quant_experts(_PLAIN, x, wq, sw, b)
 
 
 def quant_layer_block(x, ln1s, ln1b, wqkv_q, sqkv, b_qkv, wo_q, so, b_out, ln2s, ln2b, w1_q, s1,

@@ -83,7 +83,12 @@ products), ``ln_bwd_rows`` (bf16 and fp32 g, masked, fp32 y),
 ``quant_rows`` (LN, dynamic and static, masked), ``gemm_s8_epilogue``
 (its six epilogues) and ``arpe_tokens``, at ViT-B/16 bs256 shapes and at
 a small ragged shape. A mode only this checkout has is reported as new
-and must launch; it is held against its plain version by chip_smoke.py.
+and must launch; it is held against its plain version by chip_smoke.py,
+and here too where it has one: ``gemm_s8_epilogue.bias_f32`` (epilogue 6,
+the int8 MoE experts' linear) at EDGE_GEMMS and BIAS_F32_GEMMS, dynamic
+and static scales (``_bias_f32_modes``). The summary line counts the
+modes whose bits are the other build's (``bit_identical``) and names the
+others (``not_bit_identical``).
 
 The trainable attention's route edges (``_softmax_modes``, at width 256):
 ``attn_softmax_fwd`` (packed and separate), ``attn_softmax_bwd`` and the
@@ -145,6 +150,9 @@ EDGE_TOKENS_HD48 = (1, 17, 64, 65, 400, 401, 512, 513, 1024, 1025, 1088, 1089)
 # filled by); the decoder's bs512, N 400 (tag "encdec_bs512") is also timed
 HD48_BATCHED = ((512, 400), (132, 512), (66, 1024), (66, 1088))
 EDGE_GEMMS = ((1, 8, 16), (129, 136, 144), (300, 264, 784))
+# GEMM s8 bias_f32 (the int8 MoE experts' linear) at the MoE ViT's expert fc1 / fc2
+# (d 256, mlp 768) on 4 images of 401 tokens, beside EDGE_GEMMS
+BIAS_F32_GEMMS = ((1604, 768, 256), (1604, 256, 768))
 # the row kernels (norm_rows.cu) at these widths and row counts; arpe_tokens
 # at these (points, ks)
 NORM_EDGE_WIDTHS = (128, 200, 384, 768, 1024, 1280)
@@ -396,7 +404,7 @@ def child(root: str) -> dict:
                 if tag in TIMED_TAGS:
                     out[mode]["ms"] = _cuda_ms(torch, fn)
     extra = _extra_modes(torch, dev, fa, tq, pe)
-    softmax = _softmax_modes(torch, dev, fa, vjp, lv)
+    softmax = {**_softmax_modes(torch, dev, fa, vjp, lv), **_bias_f32_modes(torch, dev, tq)}
     for mode, fn in {**extra, **{m: fn for m, (fn, _) in softmax.items()}}.items():
         fa.reset_launch_counts()
         with torch.inference_mode():
@@ -604,6 +612,29 @@ def _extra_modes(torch, dev, fa, tq, pe) -> dict:
     return modes
 
 
+def _bias_f32_modes(torch, dev, tq) -> dict:
+    """GEMM s8 ``bias_f32`` (epilogue 6, the int8 MoE experts' linear),
+    where this build has it, at EDGE_GEMMS and at BIAS_F32_GEMMS, dynamic
+    and static scales, with its plain version. {mode: (fn, plain fn)}."""
+    if "bias_f32" not in getattr(tq, "_EPILOGUES", {}):
+        return {}
+    gen = torch.Generator(device=dev).manual_seed(6)
+    modes = {}
+    for m, n, k in EDGE_GEMMS + BIAS_F32_GEMMS:
+        wq, sw = tq.quantize_linear(torch.randn(k, n, generator=gen, device=dev) * k ** -0.5)
+        w8 = tq.kernel_layout(wq)
+        codes, scale = tq.quant_rows(torch.randn(m, k, generator=gen, device=dev).to(
+            torch.bfloat16))
+        bias = (torch.randn(n, generator=gen, device=dev) * 0.1).to(torch.bfloat16)
+        for label, sa in (("", scale), (".static", 0.02)):
+            modes[f"edges/gemm_s8_epilogue.bias_f32{label}.{m}x{n}x{k}"] = (
+                lambda c=codes, s=sa, w=w8, sw=sw, b=bias:
+                    tq.gemm_s8_epilogue(c, s, w, sw, b, "bias_f32"),
+                lambda c=codes, s=sa, w=w8, sw=sw, b=bias:
+                    tq.gemm_s8_epilogue_ref(c, s, w, sw, b, "bias_f32"))
+    return modes
+
+
 def _softmax_modes(torch, dev, fa, vjp, lv) -> dict:
     """The trainable attention at its route edges, 2 images at width 256:
     attn_softmax_fwd (packed, separate), attn_softmax_bwd and the masked
@@ -771,8 +802,11 @@ def main() -> int:
             failed.append(mode)
     missing = sorted(set(runs["other"]) - set(runs["this"]))
     redesigned = [m for m in runs["this"] if m not in new and _redesigned(m) is not None]
+    differ = [m for m in runs["this"] if m not in new
+              and runs["this"][m]["sha256"] != runs["other"][m]["sha256"]]
     print(json.dumps({"modes": len(runs["this"]) - len(new), "redesigned": redesigned,
-                      "new_in_this": new,
+                      "bit_identical": len(runs["this"]) - len(new) - len(differ),
+                      "not_bit_identical": differ, "new_in_this": new,
                       "missing_in_this": missing, "differ_or_not_launched": failed}))
     failed += missing
     return 1 if failed else 0

@@ -138,7 +138,7 @@ def test_engine_refuses_unported_modes(fp32_pair):
     for kwargs in (dict(quantized=True, max_budget=0.5), dict(max_budget=0.5), dict(compact=0.5)):
         with pytest.raises(NotImplementedError):
             InferenceEngine(tm, device="cpu", **kwargs)
-    with pytest.raises(NotImplementedError):
-        build_model("moevit", SMALL, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 10"):
+        build_model("moevit", dict(SMALL, noise_layer=1), device="cpu")
     with pytest.raises(NotImplementedError):
         build_model("vit", SMALL, noise_args={"layer": 1}, device="cpu")

@@ -258,8 +258,8 @@ def test_engine_guards(wide_pair):
         build_model("rankvit", SMALL, noise_args={"layer": 1}, device="cpu")
     with pytest.raises(ValueError, match="Registers"):
         build_model("rankvit", dict(SMALL, num_registers=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        build_model("moevit", SMALL, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 10"):
+        build_model("moevit", dict(plain_args, noise_layer=1), device="cpu")
 
 
 # ------------------------------------------------------------------ trainer

@@ -355,7 +355,8 @@ def test_engine_guards():
         InferenceEngine(tm, device="cpu", compact=0.5, quantized=True)
     with pytest.raises(ValueError, match="schedule has 3 entries"):
         InferenceEngine(tm, device="cpu", compact=(0.5, 0.5, 0.5))
-    for kwargs, item in ((dict(routed=True), "item 7"), (dict(max_budget=0.5), "item 5"),
+    for kwargs, item in ((dict(routed=True), "VisionTransformerMoE engines only"),
+                         (dict(max_budget=0.5), "item 5"),
                          (dict(recon_outputs=True), "reconstruction decoder"),
                          (dict(mesh=object()), "item 9")):
         with pytest.raises(NotImplementedError, match=item):
