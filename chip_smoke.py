@@ -283,8 +283,24 @@ prints no final result):
    experts' linear) bit for bit against its plain version and timed at
    the experts' fc1 / fc2 shapes; ptxas of its instances (none may
    spill);
-43. the {"kernels": [...]} line, then the card's nvidia-smi line, then
-   {"ok": true, "device": {...}} as the last line.
+43. the closing lines, printed after 44 and 45 (below);
+44. family training (see family_train_phases): A-ViT-S/16 at 224 px with
+   the A-ViT losses, the MAE and the EncDec (reconstruction_weight 1.0)
+   at 160 px and moevit.yaml at 160 px take three Trainer(AdamW) steps at
+   bs128 on the module path (ms per step, peak memory, finite metrics, no
+   port kernel launched); each trained model then serves 64 images
+   through its InferenceEngine on the kernels (the recon engines with
+   recon_outputs=True), counted key by key and held against its plain
+   twin at 3e-2 of max|plain|;
+45. noise on the engines (see noise_phases): ViT-B/16, ResidualViT-B/16,
+   RankViT-B/16 (noise at its first ranked layer) and moevit.yaml built
+   with noise_args, gaussian at 10 dB and token drop at 0.1, bf16 and
+   int8: each noisy forward counted (the same launches as without
+   noise), held against its plain twin fed the same realization, and
+   timed beside the same engine without noise;
+and then, as 43, the {"kernels": [...]} line (launches_by_path gains
+"family_serve" and "noise"), the card's nvidia-smi line, and {"ok": true,
+"device": {...}} as the last line.
 
 Imports nothing of JAX or of peekvit_tpu.
 """
@@ -774,16 +790,19 @@ def residual_kernel_checks(torch, fa, check, randn, w_out, b_out, d, h) -> dict:
     return ins
 
 
-def seeded_residual_model(torch, name: str, args=None):
-    """build_model(name, ResidualViT-B/16 or ``args``, seed=0) on the card
-    with its head and class token re-drawn at std 0.02 (zero-initialised,
-    they would make every logit 0), and any early-exit heads re-drawn the
-    same way, so that every output has the final logits' scale."""
+def seeded_residual_model(torch, name: str, args=None, noise_args=None):
+    """build_model(name, ResidualViT-B/16 or ``args``, seed=0, with the
+    NoiseBlock of ``noise_args``) on the card with its head and class
+    token(s) re-drawn at std 0.02 (zero-initialised, they would make every
+    logit 0), and any early-exit heads re-drawn the same way, so that
+    every output has the final logits' scale."""
     from peekvit_torch import build_model
 
-    model = build_model(name, args or RESIDUALVIT_B16, seed=0, device=DEVICE)
+    model = build_model(name, args or RESIDUALVIT_B16, noise_args=noise_args, seed=0,
+                        device=DEVICE)
     cpu_gen = torch.Generator().manual_seed(1)
-    kernels = [model.head.kernel, model.class_tokens] + [
+    cls = model.class_token if hasattr(model, "class_token") else model.class_tokens  # MoE: one
+    kernels = [model.head.kernel, cls] + [
         p for k, p in model.named_parameters() if k.startswith("encoder.early_exit_heads_")
         and k.endswith("_head.kernel")]
     with torch.no_grad():
@@ -5912,6 +5931,287 @@ def moe_phases(torch, F, fa, tq, dev, smi, check, checks, build_info) -> dict:
     return {"counts": totals, "entries": [entry]}
 
 
+# ------------------------------ 44. family training, 45. noise on the engines
+
+# 44: configs/model/avit_s_16_224.yaml at 224 px with
+# configs/loss/avit_losses.yaml, maevit.yaml and residualvitwithdecoder.yaml
+# (reconstruction_weight 1.0) at 160 px, moevit.yaml at 160 px: full width
+# and depth, seeded weights (heads and class tokens re-drawn at 0.02)
+AVIT_LOSSES = {
+    "distr_prior_loss": {"_target_": "peekvit.utils.losses.AViTDPriorLoss", "target_depth": 11,
+                         "weight": 0.2},
+    "ponder_loss": {"_target_": "peekvit.utils.losses.AViTPonderLoss", "weight": 0.0005}}
+FAMILY_TRAIN = {  # name -> (registry name, model args, Trainer keywords)
+    "avit": ("adavit", AVIT_S16, {"losses": AVIT_LOSSES}),
+    "maevit": ("maevit", RECON_MODELS["maevit"], {}),
+    "encdecresidualvit": ("encdecresidualvit", RECON_MODELS["encdecresidualvit"],
+                          {"reconstruction_weight": 1.0}),
+    "moevit": ("moevit", MOE_YAML, {}),
+}
+FAMILY_BATCH = 128
+FAMILY_STEPS = 3
+FAMILY_SERVE = 64  # images each trained model serves through its engine
+# 45: configs/noise/gaussian.yaml (10 dB) and digital.yaml (token drop at
+# 0.1) at their layer 6 where the model has one; RankViT-B/16 at its first
+# ranked layer (3: the engine refuses a later one, as JAX's does);
+# moevit.yaml has 4 layers: layer 2, its first with two MLP experts
+NOISE_VALUES = {"gaussian": 10.0, "token_drop": 0.1}
+NOISE_MODELS = {  # name -> (registry name, args, noise layer, budget, image size)
+    "vit": ("vit", B16, 6, None),
+    "residualvit": ("residualvit", RESIDUALVIT_B16, 6, 0.5),
+    "rankvit": ("rankvit", RANKVIT_B16, 3, 0.5),
+    "moevit": ("moevit", MOE_YAML, 2, None),
+}
+NOISE_CHECK_BATCH = 32
+NOISE_SEED = 45
+TOL_BF16, TOL_INT8 = 3e-2, 5e-2  # of max|plain|: tests/test_pallas.py:42, test_inference.py:728
+
+
+def family_counts(fa, key: str) -> dict:
+    """Launches per forward of a trained family's engine: A-ViT's 7 a layer,
+    the recon engines' (recon_counts), the dense MoE's (moe_counts)."""
+    if key == "avit":
+        return {k: v * AVIT_S16["num_layers"] for k, v in AVIT_PER_LAYER.items()}
+    if key == "moevit":
+        return moe_counts(fa, False)
+    return recon_counts(fa, key)
+
+
+def family_train_phases(torch, fa, dev, smi) -> dict:
+    """Phase 44, the families that train on the module path (the JAX
+    Trainer's linen step): A-ViT-S/16 with the A-ViT losses, the MAE, the
+    EncDec (reconstruction_weight 1.0) and the MoE ViT at FAMILY_TRAIN each
+    take three Trainer(AdamW(1e-4), clip 1.0) steps on one bs128 batch
+    (ms per step by CUDA events, the steps' peak memory, every metric
+    finite; the module path runs the model's fp32 forward and no kernel of
+    the port: its launches are counted and must be 0). Each trained model
+    then serves FAMILY_SERVE images through its InferenceEngine on the
+    ported kernels (the recon engines with recon_outputs=True), counts
+    zeroed just before and read just after (family_counts, key by key),
+    held against its plain twin within 3e-2 of max|plain| (A-ViT fed the
+    engine's halting decisions, the MoE its expert choices). Returns the
+    serving counts."""
+    from peekvit_torch import InferenceEngine, Trainer
+    from peekvit_torch.inference import (adavit_forward_fused, adavit_forward_plain,
+                                         maevit_forward_plain, moevit_forward_fused,
+                                         moevit_forward_plain, residualvit_forward_plain)
+    from peekvit_torch.training.optim import AdamW
+    from peekvit_torch.utils.losses import LossCompose
+
+    bf16 = torch.bfloat16
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(44)
+    totals: dict = {}
+    for key, (name, args, kw) in FAMILY_TRAIN.items():
+        model = seeded_residual_model(torch, name, args)
+        compose = LossCompose(kw["losses"]) if "losses" in kw else None
+        trainer = Trainer(model, AdamW(lr=1e-4), clip_grad_norm=1.0, loss_compose=compose,
+                          reconstruction_weight=kw.get("reconstruction_weight", 0.0),
+                          device=DEVICE)
+        size = args["image_size"]
+        x = torch.randn(FAMILY_BATCH, size, size, 3, generator=gen, device=dev)
+        y = torch.randint(0, args["num_classes"], (FAMILY_BATCH,), generator=gen, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fa.reset_launch_counts()
+        step_ms, metrics = [], []
+        for i in range(FAMILY_STEPS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            m = trainer.train_step(x, y, step_idx=i)
+            end.record()
+            end.synchronize()
+            step_ms.append(start.elapsed_time(end))
+            metrics.append({k: float(v) for k, v in m.items()})
+        train_counts = dict(fa.LAUNCHES)
+        rec = {"phase": "family_train", "model": key, "config": args, "batch": FAMILY_BATCH,
+               "train_kind": trainer._train_kind, "ms_per_step": step_ms,
+               "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "peak_over_start_gib": (torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+               "metrics": metrics, "launches": train_counts, "card": smi}
+        emit(rec)
+        if not all(math.isfinite(v) for m in metrics for v in m.values()):
+            raise AssertionError(f"{key}: non-finite training metrics {metrics}")
+        if trainer._train_kind != "module" or train_counts:
+            raise AssertionError(f"{key}: train kind {trainer._train_kind}, launches "
+                                 f"{train_counts}: the module path runs no port kernel")
+        want_keys = {"avit": {"distr_prior_loss", "ponder_loss"},
+                     "encdecresidualvit": {"reconstruction_loss"}}.get(key, set())
+        if set(metrics[0]) != {"classification_loss", "total_loss"} | want_keys:
+            raise AssertionError(f"{key}: metrics {sorted(metrics[0])}")
+
+        # the trained weights served on the ported kernels
+        recon = key in ("maevit", "encdecresidualvit")
+        engine = InferenceEngine(model, device=DEVICE, recon_outputs=recon)
+        xs = x[:FAMILY_SERVE]
+        kwb = {"budget": RECON_BUDGET} if key == "encdecresidualvit" else {}
+        with torch.inference_mode():
+            got, counts = counted(torch, fa, lambda: engine(xs, **kwb))
+            want_counts = family_counts(fa, key)
+            if counts != want_counts:
+                raise AssertionError(f"{key} served: launches {counts}, want {want_counts}")
+            for k, v in counts.items():
+                totals[k] = totals.get(k, 0) + v
+            fwd = {k: v for k, v in engine._forward.items() if k != "compute_dtype"}
+            extra = {}
+            if key == "avit":
+                decisions = []
+                adavit_forward_fused(engine.params, xs, active_out=decisions, **engine._forward)
+                ref = adavit_forward_plain(engine.params, xs, active_in=decisions,
+                                           compute_dtype=bf16, **fwd)
+            elif key == "moevit":
+                chosen = {}
+                again = moevit_forward_fused(engine.params, xs, expert_out=chosen,
+                                             **engine._forward)
+                if not torch.equal(again, got):
+                    raise AssertionError("moevit served: a rerun's logits differ")
+                ref = moevit_forward_plain(engine.params, xs, compute_dtype=bf16,
+                                           expert_ids=chosen, **fwd)
+            elif key == "maevit":
+                ref = maevit_forward_plain(engine.params, xs, compute_dtype=bf16, **fwd)
+            else:
+                ref = residualvit_forward_plain(engine.params, xs, RECON_BUDGET,
+                                                compute_dtype=bf16, **fwd)
+            outs, refs = ((t if isinstance(t, tuple) else (t,)) for t in (got, ref))
+            rec = compare_logits(torch, f"{key} served", outs[0],
+                                 [("plain_bf16", refs[0], 0.0,
+                                   TOL_BF16 * refs[0].abs().max().item())])
+            for label, g, r in zip(("reconstruction", "mask_image"), outs[1:], refs[1:]):
+                rel = (g - r).abs().max().item() / max(r.abs().max().item(), 1e-30)
+                extra[label] = {"shape": list(g.shape), "max_rel_err": rel}
+                if g.shape != r.shape or not torch.isfinite(g).all() or rel > TOL_BF16:
+                    raise AssertionError(f"{key} served {label}: {extra[label]}")
+            serve_ms = cuda_ms(torch, lambda: engine(xs, **kwb), iters=5)
+        emit({"phase": "family_serve", "model": key, "batch": FAMILY_SERVE, "launches": counts,
+              **rec, **extra, "ms_per_forward": serve_ms, "tolerance_rel": TOL_BF16,
+              "tolerance_reason": "the plain twin takes the same rounding points (the A-ViT "
+              "the engine's halting decisions, the MoE its expert choices), fp32 sums in "
+              "another order; the repo's bf16 tolerance (tests/test_pallas.py:42)", "card": smi})
+        del trainer, engine, model
+        torch.cuda.empty_cache()
+    emit({"phase": "family_elapsed", "seconds": time.perf_counter() - t0, "card": smi})
+    return {"counts": totals}
+
+
+def noise_plain_twin(torch, family: str, quantized: bool, e, x, budget, spec, bf16):
+    """The engine's forward and its plain twin under one noise realization
+    (two generators of one seed): RankViT's twin fed the engine's kept
+    tokens, the MoE's its expert choices. Returns (engine logits, twin)."""
+    from peekvit_torch import inference as ti
+
+    def fresh():
+        return spec._replace(generator=torch.Generator(device=x.device).manual_seed(NOISE_SEED))
+
+    fwd = {k: v for k, v in e._forward.items() if k != "compute_dtype"}
+    q = {"caps": e.caps} if quantized else {}
+    if family == "vit":
+        fused, plain = ((ti.vit_forward_quant, ti.vit_forward_quant_plain) if quantized
+                        else (ti.vit_forward_fused, ti.vit_forward_plain))
+        return (fused(e.params, x, noise=fresh(), **e._forward, **q),
+                plain(e.params, x, compute_dtype=bf16, noise=fresh(), **fwd, **q))
+    if family == "residualvit":
+        fused, plain = ((ti.residualvit_forward_quant, ti.residualvit_forward_quant_plain)
+                        if quantized else (ti.residualvit_forward_fused,
+                                           ti.residualvit_forward_plain))
+        return (fused(e.params, x, budget, noise=fresh(), **e._forward, **q),
+                plain(e.params, x, budget, compute_dtype=bf16, noise=fresh(), **fwd, **q))
+    if family == "rankvit":
+        fused, plain = ((ti.rankvit_forward_quant, ti.rankvit_forward_quant_plain) if quantized
+                        else (ti.rankvit_forward_fused, ti.rankvit_forward_plain))
+        kept = {}
+        got = fused(e.params, x, budget=budget, kept_out=kept, noise=fresh(), **e._forward, **q)
+        return got, plain(e.params, x, budget=budget, compute_dtype=bf16, kept_idx=kept,
+                          noise=fresh(), **fwd, **q)
+    fused, plain = ((ti.moevit_forward_quant, ti.moevit_forward_quant_plain) if quantized
+                    else (ti.moevit_forward_fused, ti.moevit_forward_plain))
+    chosen = {}
+    got = fused(e.params, x, expert_out=chosen, noise=fresh(), **e._forward)
+    return got, plain(e.params, x, compute_dtype=bf16, expert_ids=chosen, noise=fresh(), **fwd)
+
+
+def noise_phases(torch, fa, dev, smi) -> dict:
+    """Phase 45, the NoiseBlock on the engines: ViT-B/16, ResidualViT-B/16
+    (exact, budget 0.5), RankViT-B/16 (exact, budget 0.5, noise at its
+    first ranked layer) and moevit.yaml, each built with
+    noise_args={"layer", "noise_type"} (NOISE_MODELS) for gaussian noise at
+    10 dB and token drop at 0.1, served in bf16 and int8 with a noise
+    generator on the card: counts zeroed just before and read just after
+    each noisy forward, which must launch what the same engine launches
+    without noise, key by key (the ViT leaves the one-call chain for its
+    per-layer calls: the same kernels); logits against the plain twin fed
+    the same realization (a generator of the same seed; RankViT's twin the
+    kept tokens, the MoE's the expert choices) within 3e-2 (bf16) and 5e-2
+    (int8) of max|plain|, top-1 on decided images; the noise's move of the
+    logits (gaussian noise must move them); ms per bs256 forward beside the
+    same engine without noise.
+    Returns the noisy forwards' counts."""
+    from peekvit_torch import InferenceEngine
+    from peekvit_torch.ops.noise import NoiseSpec
+
+    bf16 = torch.bfloat16
+    t0 = time.perf_counter()
+    img_gen = torch.Generator(device=dev).manual_seed(NOISE_SEED)
+    totals: dict = {}
+    for family, (name, args, layer, budget) in NOISE_MODELS.items():
+        size = args["image_size"]
+        x = torch.randn(BATCH, size, size, 3, generator=img_gen, device=dev)
+        xs = x[:NOISE_CHECK_BATCH]
+        bkw = {} if budget is None else {"budget": budget}
+        for noise_type, value in NOISE_VALUES.items():
+            model = seeded_residual_model(torch, name, args,
+                                          noise_args={"layer": layer, "noise_type": noise_type})
+            for quantized in (False, True):
+                e = InferenceEngine(model, device=DEVICE, quantized=quantized)
+                label = f"{family} {'int8' if quantized else 'bf16'} {noise_type}"
+
+                def noisy(images, e=e):
+                    return e(images, noise_value=value,
+                             noise_rng=torch.Generator(device=dev).manual_seed(NOISE_SEED), **bkw)
+
+                with torch.inference_mode():
+                    got, counts = counted(torch, fa, lambda: noisy(xs))
+                    clean, clean_counts = counted(torch, fa, lambda: e(xs, **bkw))
+                    if counts != clean_counts or not counts:
+                        raise AssertionError(f"{label}: launches {counts}, without noise "
+                                             f"{clean_counts}")
+                    for k, v in counts.items():
+                        totals[k] = totals.get(k, 0) + v
+                    spec = NoiseSpec(layer, noise_type, value, None)
+                    again, ref = noise_plain_twin(torch, family, quantized, e, xs, budget, spec,
+                                                  bf16)
+                    if not torch.equal(again, got):
+                        raise AssertionError(f"{label}: the same generator seed drew otherwise")
+                    tol = TOL_INT8 if quantized else TOL_BF16
+                    rec = compare_logits(torch, label, got,
+                                         [("plain_noisy", ref, 0.0, tol * ref.abs().max().item())])
+                    ms_noisy = cuda_ms(torch, lambda: noisy(x), iters=5)
+                    ms_clean = cuda_ms(torch, lambda: e(x, **bkw), iters=5)
+                emit({"phase": "noise_check", "model": family, "noise_type": noise_type,
+                      "noise_value": value, "noise_layer": layer, "int8": quantized,
+                      "batch": NOISE_CHECK_BATCH, "launches": sum(counts.values()),
+                      "counts": counts, **rec,
+                      "noise_moved_logits_max": (got - clean).abs().max().item(),
+                      "top1_agreement_with_clean": (got.argmax(-1) == clean.argmax(-1))
+                      .float().mean().item(),
+                      "ms_per_forward_noisy": ms_noisy, "ms_per_forward_clean": ms_clean,
+                      "timing_batch": BATCH, "tolerance_rel": tol,
+                      "tolerance_reason": "the plain twin draws the same realization from a "
+                      "generator of the same seed and takes the same rounding points; bf16: "
+                      "the repo's kernel tolerance (tests/test_pallas.py:42), int8: its int8 "
+                      "engine tolerance (tests/test_inference.py:728-730)", "card": smi})
+                # gaussian noise reaches every token; a drop can fall on
+                # tokens that are gated off, so its move is only reported
+                if noise_type == "gaussian" and (got - clean).abs().max().item() == 0.0:
+                    raise AssertionError(f"{label}: the noise did not move the logits")
+                del e
+            del model
+            torch.cuda.empty_cache()
+    emit({"phase": "noise_launches", "counts": totals, "values": NOISE_VALUES,
+          "elapsed_s": time.perf_counter() - t0, "card": smi})
+    return {"counts": totals}
+
+
 def main() -> int:
     import torch
 
@@ -6410,6 +6710,9 @@ def main() -> int:
     recon = recon_phases(torch, F, fa, dev, smi, check, checks, info)
     # ---------------------------------------------------------------- 42. MoE
     moe = moe_phases(torch, F, fa, tq, dev, smi, check, checks, info)
+    # ------------------------------------ 44. family training, 45. noise
+    family = family_train_phases(torch, fa, dev, smi)
+    noise = noise_phases(torch, fa, dev, smi)
     for entry in kernels:  # the later paths run earlier kernels too
         entry["launches_by_path"]["merged"] = mtrain["counts"]["merged"].get(entry["name"], 0)
         entry["launches_by_path"]["hybrid"] = mtrain["counts"]["hybrid"].get(entry["name"], 0)
@@ -6419,6 +6722,8 @@ def main() -> int:
         entry["launches_by_path"]["shipped_train"] = shipped["counts"].get(entry["name"], 0)
         entry["launches_by_path"]["recon"] = recon["counts"].get(entry["name"], 0)
         entry["launches_by_path"]["moe"] = moe["counts"].get(entry["name"], 0)
+        entry["launches_by_path"]["family_serve"] = family["counts"].get(entry["name"], 0)
+        entry["launches_by_path"]["noise"] = noise["counts"].get(entry["name"], 0)
     # every path's counts as this run measured them, read by each new
     # entry's count key
     measured = {"engine": main_counts, "split": split_counts, "train": train["counts"],
@@ -6430,7 +6735,8 @@ def main() -> int:
                 "pct": pct["counts"], "merged": mtrain["counts"]["merged"],
                 "hybrid": mtrain["counts"]["hybrid"], "module": mod["counts"],
                 "attention_alone": mod["alone"], "tp": tp["counts"], "sp": sp["counts"],
-                "shipped_train": shipped["counts"], "recon": recon["counts"], "moe": moe["counts"]}
+                "shipped_train": shipped["counts"], "recon": recon["counts"], "moe": moe["counts"],
+                "family_serve": family["counts"], "noise": noise["counts"]}
     later = (merged_entries + [mod["entry"]] + tp_entries + sp_entries + tiled_entries
              + recon["entries"] + moe["entries"])
     for entry in later:

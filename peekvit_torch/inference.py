@@ -59,6 +59,16 @@ under ``routed=``, each token's own MLP expert by a capacity dispatch
 (``_routed_moe_mlp``). Its int8 engine runs the experts' linears on the
 s8 GEMM (``ops/cuda/quant_blocks.quant_experts``, ``moevit_forward_quant``).
 
+A model built with a NoiseBlock (``build_model(noise_args={"layer",
+"noise_type"})``) gets its noise on the engine path too, at the point in
+the token stream where its module puts it: ``engine(images,
+noise_value=, noise_rng=)`` injects it before block ``noise_layer`` in
+the ViT, RankViT (at or before the first ranked layer), ResidualViT and
+MoE forwards and their int8 and plain twins (``ops/noise.inject_noise``,
+the ``noise=`` argument of each forward); the ViT stack then runs per
+layer instead of the one-call chain. The draw runs on the engine's
+device.
+
 ``quantized=True`` (ViT, RankViT, the ResidualViT family and MoE) serves int8
 w8a8: the weights quantized per output column at build
 (``quantize_vit_params``, ``quantize_residualvit_params``, optionally
@@ -92,6 +102,10 @@ Usage::
 
     engine = InferenceEngine(build_model("moevit", args), routed=2.0)
     logits = engine(images)
+
+    model = build_model("vit", args, noise_args={"layer": 6, "noise_type": "gaussian"})
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    logits = InferenceEngine(model)(images, noise_value=10.0, noise_rng=gen)  # 10 dB
 
     engine = InferenceEngine(build_model("pct", args))
     logits = engine(points)                     # (B, N, 3) -> (B, classes) fp32
@@ -144,6 +158,7 @@ from peekvit_torch.ops.cuda.fused_attention import (
     masked_mlp_block_ref,
 )
 from peekvit_torch.ops.attention import attention_core
+from peekvit_torch.ops.noise import NoiseSpec, default_generator, inject_noise
 from peekvit_torch.ops.cuda.pct_embed import arpe_tokens, arpe_tokens_ref
 from peekvit_torch.ops.cuda.quant_blocks import (
     kernel_layout,
@@ -372,20 +387,24 @@ def _folded_weights(lp, cast):
             cast(mlp["fc2_kernel"]), cast(mlp["fc2_bias"]))
 
 
-def _encoder_stack(enc, tokens, num_heads, ln_eps, cast, fused_mlp=True, plain=False):
+def _encoder_stack(enc, tokens, num_heads, ln_eps, cast, fused_mlp=True, plain=False,
+                   noise: Optional[NoiseSpec] = None):
     """The plain pre-LN encoder stack over the kernels: the one-call stack
     when ``_stacked_layers`` is present (``prepare_engine_params`` with
     ``fold_ln=True``), else one folded layer call per layer with the LN
     affines folded here; ``fused_mlp=False`` takes the split path
     (fused_attention_block, then the eager MLP with tanh-gelu). ``plain``:
-    the same on the kernels' plain versions, whatever the device."""
+    the same on the kernels' plain versions, whatever the device.
+    ``noise``: the NoiseBlock before block ``noise.layer``; the stack then
+    leaves the one-call chain and runs per layer (JAX inference.py:361-379)."""
     ids = _layer_ids(enc)
     if not ids:
         return tokens
-    if fused_mlp and "_stacked_layers" in enc:
+    if fused_mlp and "_stacked_layers" in enc and noise is None:
         one_call = encoder_layers_one_call_ref if plain else encoder_layers_one_call
         return one_call(tokens, tree_map(cast, enc["_stacked_layers"]), num_heads, ln_eps)
     for i in ids:
+        tokens = inject_noise(tokens, i, noise)
         lp = enc[f"layers_{i}"]
         at, mlp = lp["self_attention"], lp["mlp"]
         if fused_mlp:
@@ -419,27 +438,30 @@ def _vit_forward(params, images, encoder: Callable, *, patch_size, num_class_tok
 def vit_forward_fused(params, images, *, patch_size: int, num_heads: int,
                       num_class_tokens: int = 1, num_registers: int = 0,
                       ln_eps: float = 1e-5, compute_dtype=torch.bfloat16,
-                      fused_mlp: bool = True) -> torch.Tensor:
+                      fused_mlp: bool = True, noise: Optional[NoiseSpec] = None) -> torch.Tensor:
     """Eval forward of a plain ViT from its param tree over the kernels.
-    images: (B, H, W, 3). Returns fp32 logits."""
+    images: (B, H, W, 3). ``noise``: the NoiseBlock before block
+    ``noise.layer`` (ops/noise.py; JAX inference.py:378), the stack then
+    per layer. Returns fp32 logits."""
     return _vit_forward(
         params, images,
         lambda enc, tokens, cast: _encoder_stack(enc, tokens, num_heads, ln_eps, cast,
-                                                 fused_mlp),
+                                                 fused_mlp, noise=noise),
         patch_size=patch_size, num_class_tokens=num_class_tokens,
         num_registers=num_registers, ln_eps=ln_eps, compute_dtype=compute_dtype)
 
 
 def vit_forward_plain(params, images, *, patch_size: int, num_heads: int,
                       num_class_tokens: int = 1, num_registers: int = 0,
-                      ln_eps: float = 1e-5, compute_dtype=torch.float32) -> torch.Tensor:
+                      ln_eps: float = 1e-5, compute_dtype=torch.float32,
+                      noise: Optional[NoiseSpec] = None) -> torch.Tensor:
     """The same forward with the encoder on the kernels' plain versions,
     whatever the device: the reference a check holds the engine against on
     the card. Needs params prepared with ``fold_ln=True``."""
     return _vit_forward(
         params, images,
-        lambda enc, tokens, cast: encoder_layers_one_call_ref(
-            tokens, tree_map(cast, enc["_stacked_layers"]), num_heads, ln_eps),
+        lambda enc, tokens, cast: _encoder_stack(enc, tokens, num_heads, ln_eps, cast,
+                                                 plain=True, noise=noise),
         patch_size=patch_size, num_class_tokens=num_class_tokens,
         num_registers=num_registers, ln_eps=ln_eps, compute_dtype=compute_dtype)
 
@@ -563,13 +585,17 @@ def _residual_forward(params, images, budget, run_layer, *, patch_size: int,
                       budget_token: Any = "learnable", compute_dtype=torch.bfloat16,
                       early_exits: bool = False, compact_caps: Optional[tuple] = None,
                       masks: Optional[dict] = None, recon_plain: Optional[bool] = None,
-                      decoder_num_heads: Optional[int] = None):
+                      decoder_num_heads: Optional[int] = None,
+                      noise: Optional[NoiseSpec] = None):
     """The gates, the budget token, compaction and the early exits around
     ``run_layer(tokens, fwd_mask, layer params, layer position, merged,
     phantom_mult, phantom_idx)``, the bf16 (:func:`_residual_layers`) or
     the int8 (:func:`_quant_residual_layers`) layer. ``recon_plain`` not
     None: the EncDec decoder after the encoder (:func:`_residual_recon`),
-    on the kernels' plain versions if True."""
+    on the kernels' plain versions if True. ``noise``: the NoiseBlock
+    before block ``noise.layer``, over the whole stream with the budget
+    token, ahead of the gate (JAX inference.py:2249); the engine refuses
+    it with compaction, whose phantom slot is not the module's layout."""
 
     def cast(t):
         return t.to(compute_dtype)
@@ -606,6 +632,7 @@ def _residual_forward(params, images, budget, run_layer, *, patch_size: int,
     exits = []
 
     for li, i in enumerate(_layer_ids(enc)):
+        tokens = inject_noise(tokens, i, noise)
         lp = enc[f"layers_{i}"]
         # ---- gate, in fp32 (reference residualvit.py:58-69, 154-165)
         img = tokens[:, s:-tail]
@@ -699,7 +726,8 @@ def residualvit_forward_fused(params, images, budget: float, *, patch_size: int,
                               compute_dtype=torch.bfloat16, early_exits: bool = False,
                               compact_caps: Optional[tuple] = None,
                               masks: Optional[dict] = None, recon: bool = False,
-                              decoder_num_heads: Optional[int] = None):
+                              decoder_num_heads: Optional[int] = None,
+                              noise: Optional[NoiseSpec] = None):
     """ResidualViT eval forward (sigmoid gates, 'attention+mlp' skip, a
     budget token) over the masked-layer kernels (JAX
     ``residualvit_forward_fused``, inference.py:2141). images: (B, H, W, 3);
@@ -726,14 +754,17 @@ def residualvit_forward_fused(params, images, budget: float, *, patch_size: int,
     ``masks``: if a dict is given, each layer's fp32 gate mask is stored in
     it under ``layer_{i}``, the grammar of the module's ``aux["masks"]``:
     (B, N_img, 1), or with compaction the gate's decision over the image
-    slots the layer was given, before the top-``cap`` gather."""
+    slots the layer was given, before the top-``cap`` gather.
+
+    ``noise``: the NoiseBlock before block ``noise.layer`` (ops/noise.py),
+    the module's realization where both draw from one generator state."""
     return _residual_forward(
         params, images, budget, _residual_layers(_MASKED_KERNELS, num_heads, compute_dtype),
         patch_size=patch_size, num_class_tokens=num_class_tokens, num_registers=num_registers,
         gate_temp=gate_temp, gate_bias=gate_bias, budget_token=budget_token,
         compute_dtype=compute_dtype, early_exits=early_exits, compact_caps=compact_caps,
         masks=masks, recon_plain=False if recon else None,
-        decoder_num_heads=decoder_num_heads or num_heads)
+        decoder_num_heads=decoder_num_heads or num_heads, noise=noise)
 
 
 def residualvit_forward_plain(params, images, budget: float, *, patch_size: int,
@@ -743,7 +774,8 @@ def residualvit_forward_plain(params, images, budget: float, *, patch_size: int,
                               compute_dtype=torch.float32, early_exits: bool = False,
                               compact_caps: Optional[tuple] = None,
                               masks: Optional[dict] = None, recon: bool = False,
-                              decoder_num_heads: Optional[int] = None):
+                              decoder_num_heads: Optional[int] = None,
+                              noise: Optional[NoiseSpec] = None):
     """The same forward with the masked layers (and the decoder's layers)
     on the kernels' plain versions, whatever the device: the reference a
     check holds the engine against on the card."""
@@ -753,7 +785,7 @@ def residualvit_forward_plain(params, images, budget: float, *, patch_size: int,
         gate_temp=gate_temp, gate_bias=gate_bias, budget_token=budget_token,
         compute_dtype=compute_dtype, early_exits=early_exits, compact_caps=compact_caps,
         masks=masks, recon_plain=True if recon else None,
-        decoder_num_heads=decoder_num_heads or num_heads)
+        decoder_num_heads=decoder_num_heads or num_heads, noise=noise)
 
 
 # ---------------------------------------------------------------- RankViT
@@ -837,11 +869,14 @@ def _rank_forward(params, images, budget, run_layer, *, patch_size: int, rankvit
                   max_budget: Optional[float] = None, num_class_tokens: int = 1,
                   ln_eps: float = 1e-5, compute_dtype=torch.bfloat16,
                   kept_idx: Optional[dict] = None, kept_out: Optional[dict] = None,
-                  fold_embed: bool = True):
+                  fold_embed: bool = True, noise: Optional[NoiseSpec] = None):
     """The RankViT schedule, ranking and gather around ``run_layer(tokens,
     layer params, layer position, key mask or None, merged)``, the bf16
     (:func:`_rank_layers`) or the int8 (:func:`_quant_layers`)
-    layer. ``fold_embed=False`` embeds unfolded (the JAX int8 forwards)."""
+    layer. ``fold_embed=False`` embeds unfolded (the JAX int8 forwards).
+    ``noise``: the NoiseBlock before block ``noise.layer``, ahead of its
+    rank update (JAX inference.py:1155-1160); the engine keeps it at or
+    before the first ranked layer, where the layout is the module's."""
 
     def cast(t):
         return t.to(compute_dtype)
@@ -859,6 +894,7 @@ def _rank_forward(params, images, budget, run_layer, *, patch_size: int, rankvit
                              budget, max_budget)
     valid = key_mask = None
     for li, i in enumerate(ids):
+        tokens = inject_noise(tokens, i, noise)
         if i in schedule:
             keep, n_valid = schedule[i]
             img = tokens[:, c:]
@@ -889,7 +925,8 @@ def _rank_forward(params, images, budget, run_layer, *, patch_size: int, rankvit
 def rankvit_forward_fused(params, images, *, budget: float, patch_size: int, num_heads: int,
                           rankvit_layers: tuple, num_class_tokens: int = 1,
                           ln_eps: float = 1e-5, compute_dtype=torch.bfloat16,
-                          kept_out: Optional[dict] = None) -> torch.Tensor:
+                          kept_out: Optional[dict] = None,
+                          noise: Optional[NoiseSpec] = None) -> torch.Tensor:
     """RankViT eval forward with the exact physical token drop (JAX
     ``rankvit_forward_fused``, inference.py:1118). images: (B, H, W, 3);
     ``params`` from ``prepare_engine_params(fold_ln=True)``. Returns fp32
@@ -909,14 +946,15 @@ def rankvit_forward_fused(params, images, *, budget: float, patch_size: int, num
                          _rank_layers(_RANK_KERNELS, num_heads, ln_eps, compute_dtype),
                          patch_size=patch_size, rankvit_layers=rankvit_layers,
                          num_class_tokens=num_class_tokens, ln_eps=ln_eps,
-                         compute_dtype=compute_dtype, kept_out=kept_out)
+                         compute_dtype=compute_dtype, kept_out=kept_out, noise=noise)
 
 
 def rankvit_forward_plain(params, images, *, budget: float, patch_size: int, num_heads: int,
                           rankvit_layers: tuple, num_class_tokens: int = 1,
                           ln_eps: float = 1e-5, compute_dtype=torch.float32,
                           kept_idx: Optional[dict] = None,
-                          kept_out: Optional[dict] = None) -> torch.Tensor:
+                          kept_out: Optional[dict] = None,
+                          noise: Optional[NoiseSpec] = None) -> torch.Tensor:
     """The same forward on the kernels' plain versions, whatever the device:
     the reference a check holds the engine against on the card.
     ``kept_idx`` ({layer id: (B, keep) indices}, a ``kept_out`` of the
@@ -926,14 +964,16 @@ def rankvit_forward_plain(params, images, *, budget: float, patch_size: int, num
                          _rank_layers(_RANK_PLAIN, num_heads, ln_eps, compute_dtype),
                          patch_size=patch_size, rankvit_layers=rankvit_layers,
                          num_class_tokens=num_class_tokens, ln_eps=ln_eps,
-                         compute_dtype=compute_dtype, kept_idx=kept_idx, kept_out=kept_out)
+                         compute_dtype=compute_dtype, kept_idx=kept_idx,
+                         kept_out=kept_out, noise=noise)
 
 
 def rankvit_forward_padded(params, images, budget: float, *, max_budget: float,
                            patch_size: int, num_heads: int, rankvit_layers: tuple,
                            num_class_tokens: int = 1, ln_eps: float = 1e-5,
                            compute_dtype=torch.bfloat16,
-                           kept_out: Optional[dict] = None) -> torch.Tensor:
+                           kept_out: Optional[dict] = None,
+                           noise: Optional[NoiseSpec] = None) -> torch.Tensor:
     """RankViT eval forward with the single-shape padded drop (JAX
     ``rankvit_forward_padded``, inference.py:1214): the shapes depend on
     ``max_budget`` alone, so every budget up to it runs the same launches
@@ -953,14 +993,15 @@ def rankvit_forward_padded(params, images, budget: float, *, max_budget: float,
                          _rank_layers(_RANK_KERNELS, num_heads, ln_eps, compute_dtype),
                          patch_size=patch_size, rankvit_layers=rankvit_layers,
                          max_budget=max_budget, num_class_tokens=num_class_tokens,
-                         ln_eps=ln_eps, compute_dtype=compute_dtype, kept_out=kept_out)
+                         ln_eps=ln_eps, compute_dtype=compute_dtype, kept_out=kept_out, noise=noise)
 
 
 def rankvit_forward_padded_plain(params, images, budget: float, *, max_budget: float,
                                  patch_size: int, num_heads: int, rankvit_layers: tuple,
                                  num_class_tokens: int = 1, ln_eps: float = 1e-5,
                                  compute_dtype=torch.float32, kept_idx: Optional[dict] = None,
-                                 kept_out: Optional[dict] = None) -> torch.Tensor:
+                                 kept_out: Optional[dict] = None,
+                                 noise: Optional[NoiseSpec] = None) -> torch.Tensor:
     """:func:`rankvit_forward_padded` on the plain versions, ``kept_idx``
     as in :func:`rankvit_forward_plain`."""
     return _rank_forward(params, images, budget,
@@ -968,7 +1009,7 @@ def rankvit_forward_padded_plain(params, images, budget: float, *, max_budget: f
                          patch_size=patch_size, rankvit_layers=rankvit_layers,
                          max_budget=max_budget, num_class_tokens=num_class_tokens,
                          ln_eps=ln_eps, compute_dtype=compute_dtype, kept_idx=kept_idx,
-                         kept_out=kept_out)
+                         kept_out=kept_out, noise=noise)
 
 
 # ------------------------------------------------------------ int8 (w8a8)
@@ -1131,12 +1172,12 @@ def _quant_layers(blocks, num_heads: int, ln_eps: float, compute_dtype, caps):
 
 
 def _vit_quant(blocks, params, images, *, patch_size, num_heads, num_class_tokens,
-               num_registers, ln_eps, compute_dtype, caps):
+               num_registers, ln_eps, compute_dtype, caps, noise=None):
     run = _quant_layers(blocks, num_heads, ln_eps, compute_dtype, caps)
 
     def encoder(enc, tokens, cast):
         for li, i in enumerate(_layer_ids(enc)):
-            tokens = run(tokens, enc[f"layers_{i}"], li, None, True)
+            tokens = run(inject_noise(tokens, i, noise), enc[f"layers_{i}"], li, None, True)
         return tokens
 
     return _vit_forward(params, images, encoder, patch_size=patch_size,
@@ -1146,28 +1187,29 @@ def _vit_quant(blocks, params, images, *, patch_size, num_heads, num_class_token
 
 def vit_forward_quant(qparams, images, *, patch_size: int, num_heads: int,
                       num_class_tokens: int = 1, num_registers: int = 0, ln_eps: float = 1e-5,
-                      compute_dtype=torch.bfloat16, caps=None) -> torch.Tensor:
+                      compute_dtype=torch.bfloat16, caps=None,
+                      noise: Optional[NoiseSpec] = None) -> torch.Tensor:
     """int8 (w8a8) eval forward of a plain ViT (JAX ``vit_forward_quant``,
     inference.py:1029) from ``prepare_engine_params(quantize_vit_params(
     ...), fold_ln=True)``: the folded embed, then ``quant_layer_block`` on
     every layer (the port has no VMEM guard: the merged layer at every
-    width), ``caps`` per layer or None (dynamic scales). Returns fp32
-    logits."""
+    width), ``caps`` per layer or None (dynamic scales), ``noise`` as in
+    :func:`vit_forward_fused` (JAX :1072). Returns fp32 logits."""
     return _vit_quant(_QUANT_KERNELS, qparams, images, patch_size=patch_size,
                       num_heads=num_heads, num_class_tokens=num_class_tokens,
                       num_registers=num_registers, ln_eps=ln_eps, compute_dtype=compute_dtype,
-                      caps=caps)
+                      caps=caps, noise=noise)
 
 
 def vit_forward_quant_plain(qparams, images, *, patch_size: int, num_heads: int,
                             num_class_tokens: int = 1, num_registers: int = 0,
                             ln_eps: float = 1e-5, compute_dtype=torch.float32,
-                            caps=None) -> torch.Tensor:
+                            caps=None, noise: Optional[NoiseSpec] = None) -> torch.Tensor:
     """:func:`vit_forward_quant` on the kernels' plain versions, whatever
     the device."""
     return _vit_quant(_QUANT_PLAIN, qparams, images, patch_size=patch_size, num_heads=num_heads,
                       num_class_tokens=num_class_tokens, num_registers=num_registers,
-                      ln_eps=ln_eps, compute_dtype=compute_dtype, caps=caps)
+                      ln_eps=ln_eps, compute_dtype=compute_dtype, caps=caps, noise=noise)
 
 
 def _rank_quant(blocks, qparams, images, budget, *, num_heads, ln_eps, compute_dtype, caps,
@@ -1180,7 +1222,8 @@ def _rank_quant(blocks, qparams, images, budget, *, num_heads, ln_eps, compute_d
 def rankvit_forward_quant(qparams, images, *, budget: float, patch_size: int, num_heads: int,
                           rankvit_layers: tuple, num_class_tokens: int = 1, ln_eps: float = 1e-5,
                           compute_dtype=torch.bfloat16, caps=None,
-                          kept_out: Optional[dict] = None) -> torch.Tensor:
+                          kept_out: Optional[dict] = None,
+                          noise: Optional[NoiseSpec] = None) -> torch.Tensor:
     """int8 RankViT with the exact physical drop (JAX
     ``rankvit_forward_quant``, inference.py:1393): ``rankvit_forward_fused``'s
     schedule, ranking and gather, ``quant_layer_block`` from 128 tokens up
@@ -1191,27 +1234,30 @@ def rankvit_forward_quant(qparams, images, *, budget: float, patch_size: int, nu
     return _rank_quant(_QUANT_KERNELS, qparams, images, budget, num_heads=num_heads,
                        ln_eps=ln_eps, compute_dtype=compute_dtype, caps=caps,
                        patch_size=patch_size, rankvit_layers=rankvit_layers,
-                       num_class_tokens=num_class_tokens, kept_out=kept_out)
+                       num_class_tokens=num_class_tokens, kept_out=kept_out, noise=noise)
 
 
 def rankvit_forward_quant_plain(qparams, images, *, budget: float, patch_size: int,
                                 num_heads: int, rankvit_layers: tuple, num_class_tokens: int = 1,
                                 ln_eps: float = 1e-5, compute_dtype=torch.float32, caps=None,
                                 kept_idx: Optional[dict] = None,
-                                kept_out: Optional[dict] = None) -> torch.Tensor:
+                                kept_out: Optional[dict] = None,
+                                noise: Optional[NoiseSpec] = None) -> torch.Tensor:
     """:func:`rankvit_forward_quant` on the plain versions, ``kept_idx`` as
     in :func:`rankvit_forward_plain`."""
     return _rank_quant(_QUANT_PLAIN, qparams, images, budget, num_heads=num_heads,
                        ln_eps=ln_eps, compute_dtype=compute_dtype, caps=caps,
                        patch_size=patch_size, rankvit_layers=rankvit_layers,
-                       num_class_tokens=num_class_tokens, kept_idx=kept_idx, kept_out=kept_out)
+                       num_class_tokens=num_class_tokens, kept_idx=kept_idx,
+                       kept_out=kept_out, noise=noise)
 
 
 def rankvit_forward_padded_quant(qparams, images, budget: float, *, max_budget: float,
                                  patch_size: int, num_heads: int, rankvit_layers: tuple,
                                  num_class_tokens: int = 1, ln_eps: float = 1e-5,
                                  compute_dtype=torch.bfloat16, caps=None,
-                                 kept_out: Optional[dict] = None) -> torch.Tensor:
+                                 kept_out: Optional[dict] = None,
+                                 noise: Optional[NoiseSpec] = None) -> torch.Tensor:
     """int8 RankViT with the single-shape padded drop (JAX
     ``rankvit_forward_padded_quant``, inference.py:1313):
     ``rankvit_forward_padded``'s schedule, every layer the merged int8
@@ -1221,7 +1267,7 @@ def rankvit_forward_padded_quant(qparams, images, budget: float, *, max_budget: 
                        ln_eps=ln_eps, compute_dtype=compute_dtype, caps=caps,
                        patch_size=patch_size, rankvit_layers=rankvit_layers,
                        max_budget=max_budget, num_class_tokens=num_class_tokens,
-                       kept_out=kept_out)
+                       kept_out=kept_out, noise=noise)
 
 
 def rankvit_forward_padded_quant_plain(qparams, images, budget: float, *, max_budget: float,
@@ -1229,13 +1275,14 @@ def rankvit_forward_padded_quant_plain(qparams, images, budget: float, *, max_bu
                                        num_class_tokens: int = 1, ln_eps: float = 1e-5,
                                        compute_dtype=torch.float32, caps=None,
                                        kept_idx: Optional[dict] = None,
-                                       kept_out: Optional[dict] = None) -> torch.Tensor:
+                                       kept_out: Optional[dict] = None,
+                                       noise: Optional[NoiseSpec] = None) -> torch.Tensor:
     """:func:`rankvit_forward_padded_quant` on the plain versions."""
     return _rank_quant(_QUANT_PLAIN, qparams, images, budget, num_heads=num_heads,
                        ln_eps=ln_eps, compute_dtype=compute_dtype, caps=caps,
                        patch_size=patch_size, rankvit_layers=rankvit_layers,
                        max_budget=max_budget, num_class_tokens=num_class_tokens,
-                       kept_idx=kept_idx, kept_out=kept_out)
+                       kept_idx=kept_idx, kept_out=kept_out, noise=noise)
 
 
 # ------------------------------------------------------- ResidualViT int8 (w8a8)
@@ -1350,7 +1397,8 @@ def residualvit_forward_quant(qparams, images, budget: float, *, patch_size: int
                               num_registers: int = 0, gate_temp: float = 1.0,
                               gate_bias: float = 0.0, budget_token: Any = "learnable",
                               compute_dtype=torch.bfloat16, early_exits: bool = False,
-                              caps=None, masks: Optional[dict] = None):
+                              caps=None, masks: Optional[dict] = None,
+                              noise: Optional[NoiseSpec] = None):
     """int8 (w8a8) ResidualViT eval forward (JAX
     ``residualvit_forward_quant``, inference.py:1990) from
     ``prepare_engine_params(quantize_residualvit_params(...))``: the gates,
@@ -1365,7 +1413,7 @@ def residualvit_forward_quant(qparams, images, budget: float, *, patch_size: int
         _quant_residual_layers(quant_masked_layer_block, num_heads, compute_dtype, caps),
         patch_size=patch_size, num_class_tokens=num_class_tokens, num_registers=num_registers,
         gate_temp=gate_temp, gate_bias=gate_bias, budget_token=budget_token,
-        compute_dtype=compute_dtype, early_exits=early_exits, masks=masks)
+        compute_dtype=compute_dtype, early_exits=early_exits, masks=masks, noise=noise)
 
 
 def residualvit_forward_quant_plain(qparams, images, budget: float, *, patch_size: int,
@@ -1373,7 +1421,8 @@ def residualvit_forward_quant_plain(qparams, images, budget: float, *, patch_siz
                                     num_registers: int = 0, gate_temp: float = 1.0,
                                     gate_bias: float = 0.0, budget_token: Any = "learnable",
                                     compute_dtype=torch.float32, early_exits: bool = False,
-                                    caps=None, masks: Optional[dict] = None):
+                                    caps=None, masks: Optional[dict] = None,
+                                    noise: Optional[NoiseSpec] = None):
     """:func:`residualvit_forward_quant` on the plain versions, whatever
     the device."""
     return _residual_forward(
@@ -1381,7 +1430,7 @@ def residualvit_forward_quant_plain(qparams, images, budget: float, *, patch_siz
         _quant_residual_layers(quant_masked_layer_block_ref, num_heads, compute_dtype, caps),
         patch_size=patch_size, num_class_tokens=num_class_tokens, num_registers=num_registers,
         gate_temp=gate_temp, gate_bias=gate_bias, budget_token=budget_token,
-        compute_dtype=compute_dtype, early_exits=early_exits, masks=masks)
+        compute_dtype=compute_dtype, early_exits=early_exits, masks=masks, noise=noise)
 
 
 # ------------------------------------------------------------------- A-ViT
@@ -1804,13 +1853,16 @@ def _moe_quant_layers(blocks, num_heads: int, ln_eps: float, compute_dtype):
 
 def _moe_forward(params, images, run_layer, *, patch_size: int, mlp_moes: tuple,
                  attn_moes: tuple, ln_eps: float, compute_dtype,
-                 expert_ids: Optional[dict] = None, expert_out: Optional[dict] = None):
+                 expert_ids: Optional[dict] = None, expert_out: Optional[dict] = None,
+                 noise: Optional[NoiseSpec] = None):
     """The MoE ViT around ``run_layer`` (:func:`_moe_layers` or
     :func:`_moe_quant_layers`): the embed with the one class token and the
     pos-embedding, the layers, the final LN on token 0 alone, the head,
     fp32 logits (the model's classifier quirk, JAX inference.py:1696-1705).
     ``expert_ids`` / ``expert_out``: {(layer id, "attn" | "mlp"): (B, N)
-    expert indices} read in place of the gates' argmax / written."""
+    expert indices} read in place of the gates' argmax / written.
+    ``noise``: the NoiseBlock before block ``noise.layer`` (JAX
+    inference.py:1602)."""
 
     def cast(t):
         return t.to(compute_dtype)
@@ -1826,7 +1878,8 @@ def _moe_forward(params, images, run_layer, *, patch_size: int, mlp_moes: tuple,
         def choose(y, gp, sub, i=i):
             return _expert_choice(y, gp, (i, sub), expert_ids, expert_out)
 
-        tokens = run_layer(tokens, enc[f"layers_{i}"], choose, attn_moes[li], mlp_moes[li])
+        tokens = run_layer(inject_noise(tokens, i, noise), enc[f"layers_{i}"], choose,
+                           attn_moes[li], mlp_moes[li])
     cls = _layer_norm(tokens[:, :1], cast(enc["ln"]["scale"]), cast(enc["ln"]["bias"]),
                       ln_eps)[:, 0]
     return (cls @ cast(params["head"]["kernel"]) + cast(params["head"]["bias"])).float()
@@ -1842,7 +1895,8 @@ _MOE_QUANT_PLAIN = (quant_layer_block_ref, quant_attention_block_ref, quant_mlp_
 def moevit_forward_fused(params, images, *, patch_size: int, num_heads: int, mlp_moes: tuple,
                          attn_moes: tuple, ln_eps: float = 1e-5, compute_dtype=torch.bfloat16,
                          routed_capacity: Optional[float] = None, routed_min_experts: int = 3,
-                         expert_out: Optional[dict] = None) -> torch.Tensor:
+                         expert_out: Optional[dict] = None,
+                         noise: Optional[NoiseSpec] = None) -> torch.Tensor:
     """Eval forward of the MoE ViT (JAX ``moevit_forward_fused``,
     inference.py:1541) from ``prepare_engine_params(fold_ln=True)``.
     images: (B, H, W, 3). Per layer: both sublayers with one expert, the
@@ -1859,14 +1913,16 @@ def moevit_forward_fused(params, images, *, patch_size: int, num_heads: int, mlp
                         _moe_layers(_MOE_KERNELS, num_heads, ln_eps, compute_dtype,
                                     routed_capacity, routed_min_experts),
                         patch_size=patch_size, mlp_moes=mlp_moes, attn_moes=attn_moes,
-                        ln_eps=ln_eps, compute_dtype=compute_dtype, expert_out=expert_out)
+                        ln_eps=ln_eps, compute_dtype=compute_dtype, expert_out=expert_out,
+                        noise=noise)
 
 
 def moevit_forward_plain(params, images, *, patch_size: int, num_heads: int, mlp_moes: tuple,
                          attn_moes: tuple, ln_eps: float = 1e-5, compute_dtype=torch.float32,
                          routed_capacity: Optional[float] = None, routed_min_experts: int = 3,
                          expert_ids: Optional[dict] = None,
-                         expert_out: Optional[dict] = None) -> torch.Tensor:
+                         expert_out: Optional[dict] = None,
+                         noise: Optional[NoiseSpec] = None) -> torch.Tensor:
     """:func:`moevit_forward_fused` on the plain versions, whatever the
     device. ``expert_ids`` (an ``expert_out`` of the engine's forward)
     replaces the gates' choices, so that both run the same experts where a
@@ -1876,7 +1932,7 @@ def moevit_forward_plain(params, images, *, patch_size: int, num_heads: int, mlp
                                     routed_capacity, routed_min_experts),
                         patch_size=patch_size, mlp_moes=mlp_moes, attn_moes=attn_moes,
                         ln_eps=ln_eps, compute_dtype=compute_dtype, expert_ids=expert_ids,
-                        expert_out=expert_out)
+                        expert_out=expert_out, noise=noise)
 
 
 def quantize_moevit_params(params: dict) -> dict:
@@ -1917,7 +1973,8 @@ def quantize_moevit_params(params: dict) -> dict:
 
 def moevit_forward_quant(qparams, images, *, patch_size: int, num_heads: int, mlp_moes: tuple,
                          attn_moes: tuple, ln_eps: float = 1e-5, compute_dtype=torch.bfloat16,
-                         expert_out: Optional[dict] = None) -> torch.Tensor:
+                         expert_out: Optional[dict] = None,
+                         noise: Optional[NoiseSpec] = None) -> torch.Tensor:
     """int8 (w8a8) eval forward of the MoE ViT (JAX ``moevit_forward_quant``,
     inference.py:1770) from ``prepare_engine_params(quantize_moevit_params(
     ...))``, dynamic scales: both sublayers with one expert on
@@ -1928,20 +1985,22 @@ def moevit_forward_quant(qparams, images, *, patch_size: int, num_heads: int, ml
     return _moe_forward(qparams, images,
                         _moe_quant_layers(_MOE_QUANT_KERNELS, num_heads, ln_eps, compute_dtype),
                         patch_size=patch_size, mlp_moes=mlp_moes, attn_moes=attn_moes,
-                        ln_eps=ln_eps, compute_dtype=compute_dtype, expert_out=expert_out)
+                        ln_eps=ln_eps, compute_dtype=compute_dtype, expert_out=expert_out,
+                        noise=noise)
 
 
 def moevit_forward_quant_plain(qparams, images, *, patch_size: int, num_heads: int,
                                mlp_moes: tuple, attn_moes: tuple, ln_eps: float = 1e-5,
                                compute_dtype=torch.float32, expert_ids: Optional[dict] = None,
-                               expert_out: Optional[dict] = None) -> torch.Tensor:
+                               expert_out: Optional[dict] = None,
+                               noise: Optional[NoiseSpec] = None) -> torch.Tensor:
     """:func:`moevit_forward_quant` on the plain versions, whatever the
     device, ``expert_ids`` as in :func:`moevit_forward_plain`."""
     return _moe_forward(qparams, images,
                         _moe_quant_layers(_MOE_QUANT_PLAIN, num_heads, ln_eps, compute_dtype),
                         patch_size=patch_size, mlp_moes=mlp_moes, attn_moes=attn_moes,
                         ln_eps=ln_eps, compute_dtype=compute_dtype, expert_ids=expert_ids,
-                        expert_out=expert_out)
+                        expert_out=expert_out, noise=noise)
 
 
 class InferenceEngine:
@@ -2022,7 +2081,15 @@ class InferenceEngine:
     included. Each rank takes the whole batch, which the data axis size
     must divide, and returns the whole batch's logits. ``device`` names
     the mesh device's type; a mesh with model axis 1 (the data-parallel
-    engine) is not ported."""
+    engine) is not ported.
+
+    A model with a NoiseBlock (``noise_layer``): ``engine(images,
+    noise_value=, noise_rng=)`` (see :meth:`__call__`) on the ViT,
+    ResidualViT-family, RankViT and MoE engines, bf16 and int8. As in JAX
+    (inference.py:2526-2584) it raises with ``compact=``, on a RankViT
+    whose noise layer comes after its first ranked layer, under a
+    tensor-parallel mesh, and on the A-ViT engine (its noise sits inside
+    the ACT loop: serve noise sweeps of an A-ViT from its module)."""
 
     def __init__(self, model, compute_dtype=torch.bfloat16, device="cuda",
                  quantized: bool = False, max_budget: Optional[float] = None,
@@ -2057,6 +2124,10 @@ class InferenceEngine:
                 f"the port's engine serves the plain VisionTransformer, the ResidualViT "
                 f"family, RankViT, A-ViT, MAE, MoE, PCT and RankPCT, not "
                 f"{type(model).__name__}")
+        # the NoiseBlock of a model built with one (JAX inference.py:2532-2534)
+        noise_layer = getattr(model, "noise_layer", None)
+        self._noise = (None if noise_layer is None
+                       else (int(noise_layer), getattr(model, "noise_type", "gaussian")))
         if recon_outputs and not (mae or isinstance(model, ResidualVisionTransformerWithDecoder)):
             raise NotImplementedError(
                 "recon_outputs=True needs a model with a reconstruction decoder (MAE or "
@@ -2103,6 +2174,20 @@ class InferenceEngine:
                     "calibrated grid per capacity, the recon decoder needs token positions "
                     "compaction discards, and the TP partial kernels have no compacted "
                     "variants (serve those dense or data-parallel)")
+            if noise_layer is not None:
+                raise NotImplementedError(
+                    "compact= changes the token layout under the NoiseBlock; run noise sweeps "
+                    "on the exact masked engine")
+        ranked = tuple(getattr(model, "rankvit_layers", ()) or ())
+        if noise_layer is not None and ranked and noise_layer > min(ranked):
+            raise NotImplementedError(
+                "engine noise must precede the first ranked layer (the physical drop changes "
+                "the token layout the NoiseBlock samples over); use the module for a later "
+                "noise_layer")
+        if avit and noise_layer is not None:
+            raise NotImplementedError(
+                "A-ViT applies noise inside the ACT loop on the carried tokens; use the module "
+                "for A-ViT noise sweeps")
         if ee_outputs and not isinstance(model, EEResidualVisionTransformer):
             raise NotImplementedError("ee_outputs=True needs an EEResidualVisionTransformer")
         # a mesh with a model axis > 1 serves tensor-parallel; any other is the
@@ -2125,12 +2210,13 @@ class InferenceEngine:
                 raise NotImplementedError(
                     "fused ResidualViT engine supports the shipped-config mode: sigmoid gates, "
                     "attention+mlp skip, budget token, add_input=False (SURVEY.md section 7.6)")
-        if tp and (avit or pct or mae or moe or quantized or max_budget is not None):
+        if tp and (avit or pct or mae or moe or quantized or max_budget is not None
+                   or noise_layer is not None):
             raise NotImplementedError(
                 "tensor-parallel serving (a mesh with a model axis > 1) covers the bf16 plain "
                 "ViT, RankViT (exact drop) and ResidualViT-family engines; other families and "
-                "modes (quantized=, max_budget=) have no partial kernels: serve them on one "
-                "device")
+                "modes (quantized=, max_budget=, a NoiseBlock) have no partial kernels: serve "
+                "them on one device")
         self.device = resolve_device(device)
         if tp:
             if mesh.device.type != self.device.type:
@@ -2298,14 +2384,31 @@ class InferenceEngine:
                 min(1.0, budget + self._compact_slack))
         return self._compact_caps_by_budget[budget]
 
-    def __call__(self, images, budget: Optional[float] = None):
+    def __call__(self, images, budget: Optional[float] = None, noise_value=None,
+                 noise_rng: Optional[torch.Generator] = None):
         """images: (B, H, W, 3), or point clouds (B, N, 3) for PCT and
         RankPCT, numpy array or tensor. Returns fp32 logits on the engine's
         device (for ``ee_outputs``, the tuple of exits and final logits;
         for ``recon_outputs``, the logits and the decoder's fp32 images).
         ``budget`` (ResidualViT, RankViT and a RankPCT with ranking on,
         default 1.0) is ignored by a plain ViT, by A-ViT, by MAE and by
-        PCT, as in the JAX engine."""
+        PCT, as in the JAX engine.
+
+        A model built with a NoiseBlock (``noise_layer``) takes
+        ``noise_value`` (snr in dB or drop probability; default the 0.0
+        sentinel) and ``noise_rng`` (a ``torch.Generator`` on the engine's
+        device; default one seeded 0, JAX's ``key(0)``), and injects the
+        noise before block ``noise_layer`` as its module does. An engine
+        without one raises on ``noise_value`` (JAX inference.py:2930-2934)."""
+        noise = None
+        if self._noise is not None:
+            noise = NoiseSpec(self._noise[0], self._noise[1],
+                              0.0 if noise_value is None else noise_value,
+                              noise_rng if noise_rng is not None
+                              else default_generator(self.device))
+        elif noise_value is not None:
+            raise ValueError("engine was built without a noise layer (build_model(noise_args=...) "
+                             "or noise_layer=); noise_value= has no effect here")
         if isinstance(images, np.ndarray):
             images = torch.from_numpy(images)
         images = images.to(self.device, torch.float32)
@@ -2328,25 +2431,26 @@ class InferenceEngine:
                 b = 1.0 if budget is None else float(budget)
                 if self._max_budget is None:
                     fwd = rankvit_forward_quant if self._quantized else rankvit_forward_fused
-                    return fwd(self.params, images, budget=b, **self._forward, **q)
+                    return fwd(self.params, images, budget=b, noise=noise, **self._forward, **q)
                 if b > self._max_budget + 1e-9:
                     raise ValueError(f"budget {b} exceeds the engine's static max_budget "
                                      f"{self._max_budget}")
                 fwd = rankvit_forward_padded_quant if self._quantized else rankvit_forward_padded
-                return fwd(self.params, images, b, max_budget=self._max_budget, **self._forward,
-                           **q)
+                return fwd(self.params, images, b, max_budget=self._max_budget, noise=noise,
+                           **self._forward, **q)
             if self._moe:
                 fwd = moevit_forward_quant if self._quantized else moevit_forward_fused
-                return fwd(self.params, images, **self._forward)
+                return fwd(self.params, images, noise=noise, **self._forward)
             if self._avit:
                 return adavit_forward_fused(self.params, images, **self._forward)
             if self._mae:
                 return maevit_forward_fused(self.params, images, **self._forward)
             if not self._residual:
                 fwd = vit_forward_quant if self._quantized else vit_forward_fused
-                return fwd(self.params, images, **self._forward, **q)
+                return fwd(self.params, images, noise=noise, **self._forward, **q)
             b = 1.0 if budget is None else float(budget)
             if self._quantized:
-                return residualvit_forward_quant(self.params, images, b, **self._forward, **q)
-            return residualvit_forward_fused(self.params, images, b,
+                return residualvit_forward_quant(self.params, images, b, noise=noise,
+                                                 **self._forward, **q)
+            return residualvit_forward_fused(self.params, images, b, noise=noise,
                                              compact_caps=self.compact_caps(b), **self._forward)

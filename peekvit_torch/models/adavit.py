@@ -17,6 +17,10 @@ Behavioural contract, as the JAX module:
 - documented divergence kept from JAX: each layer's mean halting score
   excludes the class token, ``mean(h[:, 1:])`` (the reference's
   ``mean(h[1:])`` slices the batch);
+- ``noise_layer`` puts the NoiseBlock (ops/noise.py) inside the ACT loop,
+  on the carried tokens before layer ``noise_layer`` masks them by the
+  active mask (JAX adavit.py:93-102), driven by the forward's
+  ``noise_value`` / ``noise_rng``;
 - ``forward`` returns ``(logits, aux)`` with aux = {"rho_token",
   "counter_token": (B, N), "halting_score_layer": (num_layers,)}, what
   the A-ViT losses read (utils/losses.py).
@@ -26,8 +30,9 @@ block's parameters carry a leading layer axis under
 ``encoder.blocks.block`` (``encoder.blocks.block.ln_1.scale`` is (L, D),
 ``encoder.blocks.block.self_attention.in_proj_kernel`` (L, D, 3D) ...).
 The port keeps that layout, so ``params_from_jax`` loads a JAX tree with
-no transpose. The forward is the eval forward; noise and training with
-dropout are refused with their ROADMAP items.
+no transpose. The eval and the train forward are one: without dropout
+(refused, with its ROADMAP item) ``train`` changes nothing. The ACT carry
+takes no ``detach``, as JAX's takes no ``stop_gradient``.
 """
 
 from __future__ import annotations
@@ -39,9 +44,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from peekvit_torch.models.residualvit import DROPOUT_ITEM
-from peekvit_torch.models.vit import Dense, LayerNorm
+from peekvit_torch.models.vit import Dense, LayerNorm, check_noise_layer, noise_spec
 from peekvit_torch.ops.attention import multi_head_attention
 from peekvit_torch.ops.mlp import lecun_normal_, mlp_forward
+from peekvit_torch.ops.noise import inject_noise
 from peekvit_torch.ops.patch_embed import PatchEmbed
 
 
@@ -142,9 +148,12 @@ class AViTEncoder(nn.Module):
 
     def __init__(self, seq_length: int, num_layers: int, num_heads: int, hidden_dim: int,
                  mlp_dim: int, eps: float = 0.01, gate_scale: float = 10.0,
-                 gate_center: float = 30.0, generator=None):
+                 gate_center: float = 30.0, generator=None, noise_layer: Optional[int] = None,
+                 noise_type: str = "gaussian"):
         super().__init__()
         self.num_layers = num_layers
+        self.noise_layer = noise_layer
+        self.noise_type = noise_type
         self.eps = eps
         self.pos_embedding = nn.Parameter(torch.empty(1, seq_length, hidden_dim))
         nn.init.normal_(self.pos_embedding, std=0.02, generator=generator)
@@ -152,10 +161,11 @@ class AViTEncoder(nn.Module):
                                         gate_center, generator))
         self.ln = LayerNorm(hidden_dim, 1e-5)
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, noise_value=None, noise_rng=None):
         """-> (LN(output), aux). The carry is the ACT state of _ACTStep
         (adavit.py:73-133)."""
         x = x + self.pos_embedding
+        spec = noise_spec(self.noise_layer, self.noise_type, noise_value, noise_rng)
         b, n = x.shape[0], x.shape[1]
         c = x.new_zeros(b, n)
         R = x.new_ones(b, n)
@@ -166,7 +176,7 @@ class AViTEncoder(nn.Module):
         out = x
         mean_h = []
         for layer in range(self.num_layers):
-            out = out * active[..., None]
+            out = inject_noise(out, layer, spec) * active[..., None]
             block_out, h = self.blocks.block(out, active, layer)
             mean_h.append(h[:, 1:].mean())  # class token excluded (module docstring)
             out = block_out
@@ -203,12 +213,12 @@ class AdaptiveVisionTransformer(nn.Module):
                  gate_center: float = 30.0, noise_layer: Optional[int] = None,
                  noise_type: str = "gaussian", generator: torch.Generator | None = None):
         super().__init__()
-        del representation_size, noise_type
+        del representation_size
         if image_size % patch_size != 0:
             raise ValueError("Input shape indivisible by patch size!")
-        if noise_layer is not None:
-            raise NotImplementedError("noise_layer (NoiseBlock) is not ported yet: ROADMAP.md "
-                                      "port queue A item 10 (noise)")
+        check_noise_layer(noise_layer, noise_type)
+        self.noise_layer = noise_layer
+        self.noise_type = noise_type
         self.dropout = dropout
         self.attention_dropout = attention_dropout
         self.image_size = image_size
@@ -231,11 +241,13 @@ class AdaptiveVisionTransformer(nn.Module):
             self.register_tokens = nn.Parameter(torch.zeros(1, num_registers, hidden_dim))
         seq_length = (image_size // patch_size) ** 2 + num_class_tokens + num_registers
         self.encoder = AViTEncoder(seq_length, num_layers, num_heads, hidden_dim, mlp_dim, eps,
-                                   gate_scale, gate_center, generator)
+                                   gate_scale, gate_center, generator, noise_layer, noise_type)
         self.head = Dense(hidden_dim, num_classes)  # zero init
 
-    def forward(self, x: torch.Tensor, budget=None, train: bool = False):
-        """(logits, aux). ``budget`` is ignored (A-ViT takes none)."""
+    def forward(self, x: torch.Tensor, budget=None, train: bool = False, noise_value=None,
+                noise_rng: torch.Generator | None = None):
+        """(logits, aux). ``budget`` is ignored (A-ViT takes none); the
+        NoiseBlock draws from ``noise_rng``."""
         del budget
         if train and (self.dropout or self.attention_dropout):
             raise NotImplementedError(f"training with dropout is not ported yet: {DROPOUT_ITEM}; "
@@ -244,5 +256,6 @@ class AdaptiveVisionTransformer(nn.Module):
         pieces = [self.class_tokens.expand(n, -1, -1)]
         if self.num_registers > 0:
             pieces.append(self.register_tokens.expand(n, -1, -1))
-        tokens, aux = self.encoder(torch.cat(pieces + [self.conv_proj(x)], dim=1))
+        tokens, aux = self.encoder(torch.cat(pieces + [self.conv_proj(x)], dim=1), noise_value,
+                                   noise_rng)
         return self.head(tokens[:, :self.num_class_tokens].sum(dim=1)), aux

@@ -21,6 +21,21 @@ import torch
 from peekvit_torch.models.residualvit import ResidualVisionTransformer
 
 
+def sample_batch_budget(model, generator, device) -> torch.Tensor:
+    """ONE training budget for the batch, a 0-d fp32 tensor on ``device``
+    (JAX :196-204): a float ``add_budget_token`` is the constant, a list or
+    tuple a uniform choice, anything else uniform in [0, 1). Drawn from
+    ``generator`` on its own device."""
+    bt = model.add_budget_token
+    if isinstance(bt, float):
+        return torch.tensor(bt, dtype=torch.float32, device=device)
+    gen_device = generator.device if generator is not None else None
+    if isinstance(bt, (list, tuple)):
+        idx = int(torch.randint(len(bt), (), generator=generator, device=gen_device))
+        return torch.tensor(float(bt[idx]), dtype=torch.float32, device=device)
+    return torch.rand((), generator=generator, device=gen_device).to(device)
+
+
 class EEResidualVisionTransformer(ResidualVisionTransformer):
     """Early-exit ResidualViT. Primary output = tuple(exits..., final)."""
 
@@ -35,11 +50,4 @@ class EEResidualVisionTransformer(ResidualVisionTransformer):
                 raise ValueError("Budget not set. Call set_budget() (or pass budget=) before "
                                  "evaluating this model.")
             return torch.as_tensor(budget, dtype=torch.float32, device=device)
-        bt = self.add_budget_token
-        if isinstance(bt, float):
-            return torch.tensor(bt, dtype=torch.float32, device=device)
-        gen_device = generator.device if generator is not None else None
-        if isinstance(bt, (list, tuple)):
-            idx = int(torch.randint(len(bt), (), generator=generator, device=gen_device))
-            return torch.tensor(float(bt[idx]), dtype=torch.float32, device=device)
-        return torch.rand((), generator=generator, device=gen_device).to(device)
+        return sample_batch_budget(self, generator, device)

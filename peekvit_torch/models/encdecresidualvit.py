@@ -70,12 +70,14 @@ class ResidualVisionTransformerWithDecoder(ResidualVisionTransformer):
             self.decoder_num_layers, self.decoder_num_heads, generator)
 
     def forward(self, x: torch.Tensor, budget=None, train: bool = False,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None, noise_value=None,
+                noise_rng: torch.Generator | None = None):
         if train and (self.decoder_dropout or self.decoder_attention_dropout):
             raise NotImplementedError(f"training with dropout is not ported yet: {DROPOUT_ITEM}; "
                                       "build the model with decoder_dropout=0.0 and "
                                       "decoder_attention_dropout=0.0")
-        return super().forward(x, budget=budget, train=train, generator=generator)
+        return super().forward(x, budget=budget, train=train, generator=generator,
+                               noise_value=noise_value, noise_rng=noise_rng)
 
     def _outputs(self, tokens, logits, exits, masks):
         img = tokens[:, self.num_class_tokens + self.num_registers:-1]

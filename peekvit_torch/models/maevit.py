@@ -21,7 +21,8 @@ Contract, as the JAX module:
   {"forward_perm", "backward_perm"} when shuffled, else {}.
 
 Dropout is not ported: ``train=True`` on a model built with dropout
-raises. Parameter names are the JAX tree's.
+raises. The forward takes ``noise_value`` and ignores it, as JAX's does.
+Parameter names are the JAX tree's.
 """
 
 from __future__ import annotations
@@ -99,9 +100,12 @@ class MAEVisionTransformer(nn.Module):
         self.decoder_head = _dense(decoder_hidden_dim, 3 * patch_size ** 2, generator)
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None, noise_value=None):
         """(outputs, aux). ``train=True`` shuffles and drops patches with a
-        permutation drawn from ``generator``."""
+        permutation drawn from ``generator``. ``noise_value`` is taken and
+        ignored, as JAX's (the MAE has no NoiseBlock: a ``noise_layer``
+        fails at construction, as JAX's does)."""
+        del noise_value
         if train and any(self.dropouts):
             raise NotImplementedError(f"training with dropout is not ported yet: {DROPOUT_ITEM}; "
                                       "build the model with every dropout rate 0.0")

@@ -21,7 +21,9 @@ Contract, as the JAX module:
   and only their gated sublayers.
 
 ``train=True`` draws each gate's Gumbel noise from ``generator``, layer by
-layer, the attention's gate before the MLP's. Dropout is not ported:
+layer, the attention's gate before the MLP's. ``noise_layer`` puts the
+NoiseBlock (ops/noise.py) before that block (JAX moevit.py:159-166),
+driven by the forward's ``noise_value`` / ``noise_rng``. Dropout is not ported:
 ``train=True`` on a model built with dropout raises. Parameter names are
 the JAX tree's.
 """
@@ -34,10 +36,11 @@ import torch
 from torch import nn
 
 from peekvit_torch.models.residualvit import DROPOUT_ITEM, _dense
-from peekvit_torch.models.vit import Dense, LayerNorm
+from peekvit_torch.models.vit import Dense, LayerNorm, check_noise_layer, noise_spec
 from peekvit_torch.ops.attention import SelfAttention, multi_head_attention
 from peekvit_torch.ops.gates import gumbel_softmax
 from peekvit_torch.ops.mlp import MLP, lecun_normal_, mlp_forward
+from peekvit_torch.ops.noise import inject_noise
 from peekvit_torch.ops.patch_embed import PatchEmbed
 
 
@@ -159,9 +162,12 @@ class ViTEncoderMoE(nn.Module):
 
     def __init__(self, seq_length: int, num_layers: int, num_heads: int, hidden_dim: int,
                  mlp_dim: int, mlp_moes: Sequence[int], attn_moes: Sequence[int],
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, noise_layer: Optional[int] = None,
+                 noise_type: str = "gaussian"):
         super().__init__()
         self.num_layers = num_layers
+        self.noise_layer = noise_layer
+        self.noise_type = noise_type
         self.pos_embedding = nn.Parameter(torch.empty(1, seq_length, hidden_dim))
         nn.init.normal_(self.pos_embedding, std=0.02, generator=generator)
         for i in range(num_layers):
@@ -169,10 +175,13 @@ class ViTEncoderMoE(nn.Module):
                                                        mlp_moes[i], attn_moes[i], generator))
         self.ln = LayerNorm(hidden_dim, 1e-5)
 
-    def forward(self, x: torch.Tensor, train: bool = False, generator=None):
+    def forward(self, x: torch.Tensor, train: bool = False, generator=None, noise_value=None,
+                noise_rng=None):
         x = x + self.pos_embedding
+        spec = noise_spec(self.noise_layer, self.noise_type, noise_value, noise_rng)
         gating = {}
         for i in range(self.num_layers):
+            x = inject_noise(x, i, spec)
             x, probs = getattr(self, f"layers_{i}")(x, train, generator)
             kept = {k: v for k, v in probs.items() if v is not None}
             if kept:
@@ -191,12 +200,12 @@ class VisionTransformerMoE(nn.Module):
                  attn_moes: Optional[Sequence[int]] = None, noise_layer: Optional[int] = None,
                  noise_type: str = "gaussian", generator: torch.Generator | None = None):
         super().__init__()
-        del representation_size, noise_type  # constructor parity: unused there too
+        del representation_size  # constructor parity: unused there too
         if image_size % patch_size != 0:
             raise ValueError("Input shape indivisible by patch size!")
-        if noise_layer is not None:
-            raise NotImplementedError(
-                "noise_layer (NoiseBlock) is not ported yet: ROADMAP.md port queue A item 10 (noise)")
+        check_noise_layer(noise_layer, noise_type)
+        self.noise_layer = noise_layer
+        self.noise_type = noise_type
         self.dropout = dropout
         self.attention_dropout = attention_dropout
         self.image_size = image_size
@@ -213,17 +222,19 @@ class VisionTransformerMoE(nn.Module):
         self.class_token = nn.Parameter(torch.zeros(1, 1, hidden_dim))
         seq_length = (image_size // patch_size) ** 2 + 1
         self.encoder = ViTEncoderMoE(seq_length, num_layers, num_heads, hidden_dim, mlp_dim,
-                                     self.mlp_moes, self.attn_moes, generator)
+                                     self.mlp_moes, self.attn_moes, generator, noise_layer,
+                                     noise_type)
         self.head = Dense(hidden_dim, num_classes)  # zero init
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None, noise_value=None,
+                noise_rng: torch.Generator | None = None):
         """(logits, aux). ``train=True`` draws the gates' Gumbel noise from
-        ``generator``."""
+        ``generator``; the NoiseBlock draws from ``noise_rng``."""
         if train and (self.dropout or self.attention_dropout):
             raise NotImplementedError(f"training with dropout is not ported yet: {DROPOUT_ITEM}; "
                                       "build the model with dropout=0.0 and attention_dropout=0.0")
         n = x.shape[0]
         tokens = torch.cat([self.class_token.expand(n, -1, -1), self.conv_proj(x)], dim=1)
-        tokens, gating = self.encoder(tokens, train, generator)
+        tokens, gating = self.encoder(tokens, train, generator, noise_value, noise_rng)
         return self.head(tokens[:, 0]), {"gating_probs": gating}

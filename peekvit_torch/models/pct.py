@@ -183,7 +183,11 @@ class PointCloudTransformer(_PointCloudBase):
                          generator, ViTBlock)
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: torch.Generator | None = None) -> tuple[torch.Tensor, dict]:
+                generator: torch.Generator | None = None,
+                noise_value=None) -> tuple[torch.Tensor, dict]:
+        """``noise_value`` is taken and ignored, as JAX's (pct.py:155-157): a
+        PCT has no NoiseBlock, and a ``noise_layer`` fails at construction."""
+        del noise_value
         tokens = self.embed(x, train)
         for i in range(self.num_layers):
             tokens = getattr(self, f"layers_{i}")(tokens)

@@ -99,7 +99,10 @@ class RankPointCloudTransformer(_PointCloudBase):
         self.ranking_enabled = tuple(bool(s) for s in sort_tokens)
 
     def forward(self, x: torch.Tensor, budget=None, train: bool = False,
-                generator: torch.Generator | None = None) -> tuple[torch.Tensor, dict]:
+                generator: torch.Generator | None = None,
+                noise_value=None) -> tuple[torch.Tensor, dict]:
+        """``noise_value`` is taken and ignored, as JAX's (rankpct.py:147-149)."""
+        del noise_value
         tokens = self.embed(x, train)
         b, n, _ = tokens.shape
         ranking = self.ranking_enabled or (False,) * self.num_layers

@@ -8,7 +8,9 @@ are excluded as attention keys from then on (the reference drops them
 physically; excluding them as keys is the same for every kept token).
 Without a budget no layer ranks. ``budget`` is a float or a per-layer
 sequence indexed by layer id. Every class token is protected from
-ranking. Registers are refused.
+ranking. Registers are refused. ``noise_layer`` puts the NoiseBlock
+(ops/noise.py) before that block, ahead of its rank update (JAX
+rankvit.py:124-131).
 
 Parameter names are the JAX module's (``conv_proj``, ``class_tokens``,
 ``encoder.pos_embedding``, ``encoder.layers_{i}``, ``encoder.ln``,
@@ -29,7 +31,8 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from peekvit_torch.models.vit import Dense, LayerNorm, ViTBlock
+from peekvit_torch.models.vit import Dense, LayerNorm, ViTBlock, check_noise_layer, noise_spec
+from peekvit_torch.ops.noise import inject_noise
 from peekvit_torch.ops.patch_embed import PatchEmbed
 
 
@@ -76,9 +79,12 @@ class RankViTEncoder(nn.Module):
 
     def __init__(self, seq_length: int, num_layers: int, num_heads: int, hidden_dim: int,
                  mlp_dim: int, rankvit_layers: tuple = (), num_class_tokens: int = 1,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, noise_layer: Optional[int] = None,
+                 noise_type: str = "gaussian"):
         super().__init__()
         self.num_layers = num_layers
+        self.noise_layer = noise_layer
+        self.noise_type = noise_type
         self.rankvit_layers = tuple(rankvit_layers)
         self.num_class_tokens = num_class_tokens
         self.n_img = seq_length - num_class_tokens
@@ -92,13 +98,15 @@ class RankViTEncoder(nn.Module):
             self.add_module(f"layers_{i}", block)
         self.ln = LayerNorm(hidden_dim, 1e-5)
 
-    def forward(self, tokens: torch.Tensor, budget=None):
+    def forward(self, tokens: torch.Tensor, budget=None, noise_value=None, noise_rng=None):
         tokens = tokens + self.pos_embedding
+        spec = noise_spec(self.noise_layer, self.noise_type, noise_value, noise_rng)
         alive = torch.ones((tokens.shape[0], self.n_img), dtype=tokens.dtype,
                            device=tokens.device)
         masks = {}
         budget_vec = None if budget is None else torch.as_tensor(budget, dtype=torch.float32)
         for i in range(self.num_layers):
+            tokens = inject_noise(tokens, i, spec)
             layer = getattr(self, f"layers_{i}")
             if i in self.rankvit_layers and budget_vec is not None:
                 # per-layer budgets are indexed by layer id
@@ -129,14 +137,14 @@ class RankVisionTransformer(nn.Module):
         # Constructor parity with the JAX module: the forward is the eval
         # forward (dropout is the identity; the Trainer refuses to train
         # with it) and representation_size is unused there too.
-        del representation_size, noise_type
+        del representation_size
         if image_size % patch_size != 0:
             raise ValueError("Input shape indivisible by patch size!")
         if num_registers > 0:
             raise ValueError("Registers are not supported yet for this model.")
-        if noise_layer is not None:
-            raise NotImplementedError(
-                "noise_layer (NoiseBlock) is not ported yet: ROADMAP.md port queue A item 10 (noise)")
+        check_noise_layer(noise_layer, noise_type)
+        self.noise_layer = noise_layer
+        self.noise_type = noise_type
         self.dropout = dropout
         self.attention_dropout = attention_dropout
         self.image_size = image_size
@@ -155,14 +163,17 @@ class RankVisionTransformer(nn.Module):
         self.class_tokens = nn.Parameter(torch.zeros(1, num_class_tokens, hidden_dim))
         seq_length = (image_size // patch_size) ** 2 + num_class_tokens
         self.encoder = RankViTEncoder(seq_length, num_layers, num_heads, hidden_dim, mlp_dim,
-                                      self.rankvit_layers, num_class_tokens, generator)
+                                      self.rankvit_layers, num_class_tokens, generator,
+                                      noise_layer, noise_type)
         self.head = Dense(hidden_dim, num_classes)  # zero init
 
-    def forward(self, x: torch.Tensor, budget=None) -> tuple[torch.Tensor, dict]:
+    def forward(self, x: torch.Tensor, budget=None, noise_value=None,
+                noise_rng: torch.Generator | None = None) -> tuple[torch.Tensor, dict]:
         """x: (B, H, W, 3). ``budget``: None (no ranking), a float, or a
-        per-layer sequence indexed by layer id."""
+        per-layer sequence indexed by layer id. ``noise_value`` /
+        ``noise_rng`` as in models/vit.py."""
         n = x.shape[0]
         tokens = torch.cat([self.class_tokens.expand(n, -1, -1), self.conv_proj(x)], dim=1)
-        tokens, masks = self.encoder(tokens, budget)
+        tokens, masks = self.encoder(tokens, budget, noise_value, noise_rng)
         logits = self.head(tokens[:, :self.num_class_tokens].sum(dim=1))
         return logits, {"masks": masks}

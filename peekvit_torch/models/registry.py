@@ -62,7 +62,8 @@ def build_model(model_class: str, model_args: dict,
                 remove_layers: Optional[list] = None,
                 seed: int = 0, device="cuda") -> nn.Module:
     """Build and initialise a model from ``seed`` on ``device`` (default
-    the card). Weights are drawn on the CPU from a seeded
+    the card), with the NoiseBlock of ``noise_args`` ({"layer",
+    "noise_type"}, configs/noise/*.yaml) where given. Weights are drawn on the CPU from a seeded
     ``torch.Generator`` and then moved, so one seed gives one model on
     every device."""
     dev = resolve_device(device)
@@ -75,7 +76,12 @@ def build_model(model_class: str, model_args: dict,
             "pretrained checkpoint loading is not ported yet (ROADMAP.md port "
             "queue A item 8); load a JAX tree with models.adapters.params_from_jax")
     if noise_args:
-        raise NotImplementedError("noise is not ported yet: ROADMAP.md port queue A item 10 (noise)")
+        # the NoiseBlock as module config (JAX registry.py:137-146); its
+        # value is the forward's noise_value, the 0.0 sentinel by default.
+        # A family without one (MAE, PCT, RankPCT) refuses the keyword, as
+        # JAX's does.
+        args["noise_layer"] = noise_args.get("layer")
+        args["noise_type"] = noise_args.get("noise_type", "gaussian")
     if remove_layers:
         raise NotImplementedError("layer removal (models/topology) is ROADMAP.md port queue A item 8")
     gen = torch.Generator().manual_seed(seed)

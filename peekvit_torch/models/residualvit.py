@@ -26,6 +26,9 @@ Behavioural contract, as the JAX modules:
   ``budget`` is broadcast instead. The draws come from ``generator``
   (budgets first, then each gumbel gate in layer order). Dropout is not
   ported: ``train=True`` on a model built with dropout raises.
+- ``noise_layer`` puts the NoiseBlock (ops/noise.py) before that block,
+  over the whole stream, the budget token included (JAX :294-301); the
+  forward's ``noise_value`` / ``noise_rng`` drive it (models/vit.py).
 - ``forward`` returns ``(logits, aux)``, aux = {"masks": {"layer_i":
   (B, N_img, 1)}, "current_budget": ...}; the early-exit model returns the
   tuple ``(exit_0, ..., exit_{L-1}, final)`` in place of the logits, its
@@ -41,10 +44,11 @@ from typing import Any, Optional, Union
 import torch
 from torch import nn
 
-from peekvit_torch.models.vit import Dense, LayerNorm
+from peekvit_torch.models.vit import Dense, LayerNorm, check_noise_layer, noise_spec
 from peekvit_torch.ops.attention import SelfAttention
 from peekvit_torch.ops.gates import gumbel_sigmoid, hard_sigmoid_eval, sigmoid_with_temp
 from peekvit_torch.ops.mlp import MLP, lecun_normal_
+from peekvit_torch.ops.noise import inject_noise
 from peekvit_torch.ops.patch_embed import PatchEmbed
 
 DROPOUT_ITEM = "ROADMAP.md port queue A item 3 (training with dropout)"
@@ -210,9 +214,12 @@ class ResidualViTEncoder(nn.Module):
                  num_class_tokens: int = 1, num_registers: int = 0, gate_type: str = "gumbel",
                  gate_temp: float = 1.0, gate_bias: float = 10.0,
                  gate_threshold: Union[float, str] = 0.5, budget_token: Any = False,
-                 early_exit_classes: Optional[int] = None, generator=None):
+                 early_exit_classes: Optional[int] = None, generator=None,
+                 noise_layer: Optional[int] = None, noise_type: str = "gaussian"):
         super().__init__()
         self.num_layers = num_layers
+        self.noise_layer = noise_layer
+        self.noise_type = noise_type
         self.num_class_tokens = num_class_tokens
         self.budget_token = budget_token
         self.early_exits = early_exit_classes is not None
@@ -231,15 +238,18 @@ class ResidualViTEncoder(nn.Module):
                                 _dense(hidden_dim, early_exit_classes, generator))
         self.ln = LayerNorm(hidden_dim, 1e-5)
 
-    def forward(self, tokens, train: bool = False, generator=None):
+    def forward(self, tokens, train: bool = False, generator=None, noise_value=None,
+                noise_rng=None):
         """-> (tokens after the final LN, early exits (a list, empty without
         exit heads), masks)."""
         if self.budget_token:
             tokens = torch.cat([tokens[:, :-1] + self.pos_embedding, tokens[:, -1:]], dim=1)
         else:
             tokens = tokens + self.pos_embedding
+        spec = noise_spec(self.noise_layer, self.noise_type, noise_value, noise_rng)
         masks, exits = {}, []
         for i in range(self.num_layers):
+            tokens = inject_noise(tokens, i, spec)
             tokens, mask = getattr(self, f"layers_{i}")(tokens, train, generator)
             if mask is not None:
                 masks[f"layer_{i}"] = mask
@@ -269,13 +279,13 @@ class ResidualVisionTransformer(nn.Module):
                  noise_type: str = "gaussian", generator: torch.Generator | None = None):
         super().__init__()
         # Constructor parity with the JAX module: there is no
-        # representation head or noise, and dropout is refused in training.
-        del representation_size, noise_type
+        # representation head, and dropout is refused in training.
+        del representation_size
         if image_size % patch_size != 0:
             raise ValueError("Input shape indivisible by patch size!")
-        if noise_layer is not None:
-            raise NotImplementedError(
-                "noise_layer (NoiseBlock) is not ported yet: ROADMAP.md port queue A item 10 (noise)")
+        check_noise_layer(noise_layer, noise_type)
+        self.noise_layer = noise_layer
+        self.noise_type = noise_type
         self.dropout = dropout
         self.attention_dropout = attention_dropout
         self.image_size = image_size
@@ -305,7 +315,8 @@ class ResidualVisionTransformer(nn.Module):
             seq_length, num_layers, num_heads, hidden_dim, mlp_dim, self.residual_layers,
             add_input, num_class_tokens, num_registers, gate_type, gate_temp, gate_bias,
             gate_threshold, add_budget_token,
-            early_exit_classes=num_classes if self.early_exits else None, generator=generator)
+            early_exit_classes=num_classes if self.early_exits else None, generator=generator,
+            noise_layer=noise_layer, noise_type=noise_type)
         learnable = add_budget_token in ("learnable", "learnable_interpolate")
         if learnable:
             self.learnable_budget_token_1 = nn.Parameter(torch.empty(1, 1, hidden_dim))
@@ -344,9 +355,11 @@ class ResidualVisionTransformer(nn.Module):
                                   (n,))
 
     def forward(self, x: torch.Tensor, budget=None, train: bool = False,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None, noise_value=None,
+                noise_rng: torch.Generator | None = None):
         """(outputs, aux). ``train=True`` draws the budgets (when ``budget``
-        is None) and the gumbel gates' noise from ``generator``."""
+        is None) and the gumbel gates' noise from ``generator``; the
+        NoiseBlock draws from ``noise_rng``."""
         if train and (self.dropout or self.attention_dropout):
             raise NotImplementedError(f"training with dropout is not ported yet: {DROPOUT_ITEM}; "
                                       "build the model with dropout=0.0 and attention_dropout=0.0")
@@ -357,7 +370,7 @@ class ResidualVisionTransformer(nn.Module):
             current_budget = self._current_budget(budget, n, train, generator, x.device)
             budget_vec = torch.broadcast_to(current_budget, (n,))
             tokens = torch.cat([tokens, self._budget_token(budget_vec)], dim=1)
-        tokens, exits, masks = self.encoder(tokens, train, generator)
+        tokens, exits, masks = self.encoder(tokens, train, generator, noise_value, noise_rng)
         logits = self.head(tokens[:, :self.num_class_tokens].sum(dim=1))
         aux = {"masks": masks}
         if current_budget is not None:

@@ -24,6 +24,7 @@ from torch import nn
 
 from peekvit_torch.ops.attention import SelfAttention
 from peekvit_torch.ops.mlp import MLP
+from peekvit_torch.ops.noise import NOISE_TYPES, NoiseSpec, inject_noise
 from peekvit_torch.ops.patch_embed import PatchEmbed
 
 
@@ -69,15 +70,36 @@ class ViTBlock(nn.Module):
         return x + self.mlp(self.ln_2(x))
 
 
+def check_noise_layer(noise_layer: Optional[int], noise_type: str) -> None:
+    """A model's NoiseBlock settings: a known noise type where a layer is
+    set (JAX raises at its first apply, in build_model's init)."""
+    if noise_layer is not None and noise_type not in NOISE_TYPES:
+        raise ValueError(f"unknown noise_type {noise_type!r}")
+
+
+def noise_spec(noise_layer: Optional[int], noise_type: str, noise_value,
+               noise_rng: Optional[torch.Generator]) -> Optional[NoiseSpec]:
+    """The NoiseSpec of a module forward: None without a noise layer; a
+    ``noise_value`` of None is the 0.0 sentinel, a ``noise_rng`` of None a
+    generator seeded 0 on the tokens' device."""
+    if noise_layer is None:
+        return None
+    return NoiseSpec(int(noise_layer), noise_type, noise_value, noise_rng)
+
+
 class ViTEncoder(nn.Module):
     """Pos-emb + block stack + final LN (reference vit.py:59-95). Layers are
-    attributes ``layers_0 .. layers_{L-1}``, the JAX names."""
+    attributes ``layers_0 .. layers_{L-1}``, the JAX names. ``noise_layer``
+    puts the NoiseBlock (ops/noise.py) before that block (JAX vit.py:94-101)."""
 
     def __init__(self, seq_length: int, num_layers: int, num_heads: int,
                  hidden_dim: int, mlp_dim: int,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 noise_layer: Optional[int] = None, noise_type: str = "gaussian"):
         super().__init__()
         self.num_layers = num_layers
+        self.noise_layer = noise_layer
+        self.noise_type = noise_type
         self.pos_embedding = nn.Parameter(torch.empty(1, seq_length, hidden_dim))
         nn.init.normal_(self.pos_embedding, std=0.02, generator=generator)
         for i in range(num_layers):
@@ -85,15 +107,22 @@ class ViTEncoder(nn.Module):
                             ViTBlock(num_heads, hidden_dim, mlp_dim, generator=generator))
         self.ln = LayerNorm(hidden_dim, 1e-5)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, noise_value=None,
+                noise_rng: torch.Generator | None = None) -> torch.Tensor:
         x = x + self.pos_embedding
+        spec = noise_spec(self.noise_layer, self.noise_type, noise_value, noise_rng)
         for i in range(self.num_layers):
+            x = inject_noise(x, i, spec)
             x = getattr(self, f"layers_{i}")(x)
         return self.ln(x)
 
 
 class VisionTransformer(nn.Module):
-    """Plain ViT classifier (eval forward). Returns (logits, aux)."""
+    """Plain ViT classifier (eval forward). Returns (logits, aux).
+    ``noise_layer`` / ``noise_type``: the NoiseBlock before that block; the
+    forward's ``noise_value`` (snr in dB or drop probability, default the
+    0.0 sentinel) and ``noise_rng`` (a ``torch.Generator`` on the input's
+    device, default one seeded 0) drive it."""
 
     def __init__(self, image_size: int, patch_size: int, num_layers: int,
                  num_heads: int, hidden_dim: int, mlp_dim: int,
@@ -107,15 +136,14 @@ class VisionTransformer(nn.Module):
         # configs. The forward is the eval forward, where dropout is the
         # identity; representation_size is unused there too. The dropout
         # rates are kept so that the Trainer can refuse to train with them.
-        del representation_size, noise_type
+        del representation_size
         self.dropout = dropout
         self.attention_dropout = attention_dropout
         if image_size % patch_size != 0:
             raise ValueError("Input shape indivisible by patch size!")
-        if noise_layer is not None:
-            raise NotImplementedError(
-                "noise_layer (NoiseBlock) is not ported yet: ROADMAP.md "
-                "port queue A item 10 (noise)")
+        check_noise_layer(noise_layer, noise_type)
+        self.noise_layer = noise_layer
+        self.noise_type = noise_type
         self.image_size = image_size
         self.patch_size = patch_size
         self.num_layers = num_layers
@@ -133,7 +161,7 @@ class VisionTransformer(nn.Module):
             self.register_tokens = nn.Parameter(torch.zeros(1, num_registers, hidden_dim))
         seq_length = (image_size // patch_size) ** 2 + num_class_tokens + num_registers
         self.encoder = ViTEncoder(seq_length, num_layers, num_heads, hidden_dim,
-                                  mlp_dim, generator)
+                                  mlp_dim, generator, noise_layer, noise_type)
         self.head = Dense(hidden_dim, num_classes)  # zero init (vit.py:186-188)
 
     def embed(self, x: torch.Tensor) -> torch.Tensor:
@@ -148,5 +176,6 @@ class VisionTransformer(nn.Module):
     def classify(self, x: torch.Tensor) -> torch.Tensor:
         return self.head(x[:, :self.num_class_tokens].sum(dim=1))
 
-    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, dict]:
-        return self.classify(self.encoder(self.embed(x))), {}
+    def forward(self, x: torch.Tensor, noise_value=None,
+                noise_rng: torch.Generator | None = None) -> tuple[torch.Tensor, dict]:
+        return self.classify(self.encoder(self.embed(x), noise_value, noise_rng)), {}

@@ -2,9 +2,10 @@
 of peekvit_tpu/training/trainer.py).
 
 A ``Trainer`` holds a built ``VisionTransformer``, ``RankVisionTransformer``,
-``ResidualVisionTransformer`` or ``EEResidualVisionTransformer`` on its
-device and runs one of three train steps (``_fused_kind``, the JAX
-conditions of trainer.py:278-308):
+a model of the ResidualViT family (the early-exit and the EncDec model
+included), an ``AdaptiveVisionTransformer``, an ``MAEVisionTransformer``
+or a ``VisionTransformerMoE`` on its device and runs one of three train
+steps (``_fused_kind``, the JAX conditions of trainer.py:278-308):
 
 - **fused_vit** (a plain ViT or a RankViT, which trains as a plain ViT:
   ranking is an eval-time mechanism; ``fused="auto"`` on the card, or
@@ -18,11 +19,18 @@ conditions of trainer.py:278-308):
   kernels, then cross-entropy plus the ``loss_compose`` regularizers
   against the batch-mean budget (trainer.py:746-764).
 - **module** (otherwise, ``fused=False`` / ``"never"``, or ``"auto"`` on
-  the CPU): the model's own fp32 forward under autograd, as the linen step
-  (trainer.py:344-380): the cross-entropy of every early exit weighted by
-  ``ee_weights``, and the regularizers. A RankViT given a ``budget=``
-  ranks there; on the fused path a budget raises (it would be ignored),
-  as in JAX (trainer.py:814-828).
+  the CPU; always for A-ViT, MAE, MoE, the early-exit and EncDec models
+  and a model with a NoiseBlock): the model's own fp32 train forward
+  under autograd, as the linen step (trainer.py:344-380): the
+  cross-entropy of the main logits (of every early exit, weighted by
+  ``ee_weights``), the EncDec's masked-pixel reconstruction loss
+  ``mean((x - recon)² · mask)`` at ``reconstruction_weight`` when it is
+  non-zero (reported as ``reconstruction_loss``; an MAE trains on its
+  logits' cross-entropy alone and any other model ignores the weight, as
+  JAX's ``loss_fn`` does), and the regularizers (the A-ViT's ponder and
+  depth-prior losses read the aux its forward returns). A RankViT given
+  a ``budget=`` ranks there; on the fused path a budget raises (it would
+  be ignored), as in JAX (trainer.py:814-828).
 
 Which of the three runs is decided at construction from the model type
 (the JAX rule). A fused path then holds the shapes to one predicate,
@@ -46,25 +54,33 @@ the predicate always holds.
 All feed the same update: optional gradient accumulation, global-norm
 clipping, freezing and the optimizer (``optim.GradientTransform``).
 
-Random numbers (the budgets drawn per sample when no ``budget=`` is
-given, the gumbel gates' noise) come from a CPU ``torch.Generator``
+Random numbers (the budgets drawn when no ``budget=`` is given, the
+gumbel gates' noise, the MAE's shuffle) come from a CPU ``torch.Generator``
 seeded, for each step, with ``(seed << 32) | step_idx`` (both taken
 modulo 2^32): one stream per step as the JAX step's
 ``fold_in(key(seed), step_idx)``, though not JAX's bits. The budgets are
-drawn first, then each gumbel gate in layer order. ``train_epoch`` passes
-``step_idx = epoch * steps_per_epoch + i`` as the JAX trainer does.
+drawn first, then each gate in layer order. The NoiseBlock's draws
+(``train_step(noise_value=)``, for a model built with a noise layer) come
+from :func:`noise_generator`, a second generator of the step's seed on
+the batch's device, as JAX's step splits a ``noise`` key off the same
+fold; ``eval_step`` draws from a generator seeded 0, JAX's ``key(0)``.
+``train_epoch`` passes ``step_idx = epoch * steps_per_epoch + i`` as the
+JAX trainer does.
 
 The JAX trainer's other multi-device options (``mesh=`` without SP, the
-pipeline, tensor-parallel, ZeRO and FSDP), its quantisation-aware,
-reconstruction and noise options are not ported; each raises
-``NotImplementedError`` naming its ROADMAP.md port queue A item. Batches
-are moved to the trainer's device as they come; the JAX
-``prefetch_to_device`` (data/loader.py) is not ported.
+pipeline, tensor-parallel, ZeRO and FSDP) and its quantisation-aware
+options are not ported; each raises ``NotImplementedError`` naming its
+ROADMAP.md port queue A item. A PCT or RankPCT is refused: the JAX
+``Trainer`` cannot train one (its step holds the BatchNorm statistics
+immutable); train it at module level. Batches are moved to the trainer's
+device as they come; the JAX ``prefetch_to_device`` (data/loader.py) is
+not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
@@ -72,6 +88,11 @@ import torch
 import torch.distributed as dist
 
 from peekvit_torch.models.adapters import live_params, tree_leaves
+from peekvit_torch.models.adavit import AdaptiveVisionTransformer
+from peekvit_torch.models.maevit import MAEVisionTransformer
+from peekvit_torch.models.moevit import VisionTransformerMoE
+from peekvit_torch.models.pct import PointCloudTransformer
+from peekvit_torch.models.rankpct import RankPointCloudTransformer
 from peekvit_torch.models.rankvit import RankVisionTransformer
 from peekvit_torch.models.registry import resolve_device
 from peekvit_torch.models.residualvit import DROPOUT_ITEM, ResidualVisionTransformer
@@ -82,6 +103,7 @@ from peekvit_torch.ops.cuda.fused_attention import (
     SOFTMAX_HEAD_DIMS,
 )
 from peekvit_torch.ops.cuda.fused_attention_vjp import LN_BWD_MAX_WIDTH
+from peekvit_torch.ops.noise import default_generator
 from peekvit_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, make_mesh
 from peekvit_torch.parallel.sequence import sequence_parallel_vit_forward
 from peekvit_torch.training.fused import (
@@ -124,6 +146,30 @@ def step_generator(seed: int, step_idx: int) -> torch.Generator:
     ``(seed << 32) | step_idx``, each modulo 2^32."""
     return torch.Generator().manual_seed(((int(seed) & 0xFFFFFFFF) << 32)
                                          | (int(step_idx) & 0xFFFFFFFF))
+
+
+# a step's NoiseBlock stream: the step seed's second generator
+_NOISE_STREAM = 0x6E6F697365  # "noise"
+
+
+def noise_generator(seed: int, step_idx: int, device="cpu") -> torch.Generator:
+    """The NoiseBlock's generator of one train step, on ``device``: seeded
+    with the step's seed (:func:`step_generator`) XOR a constant, so that
+    its stream is not the budgets' and gates'."""
+    step_seed = ((int(seed) & 0xFFFFFFFF) << 32) | (int(step_idx) & 0xFFFFFFFF)
+    return torch.Generator(device=torch.device(device)).manual_seed(step_seed ^ _NOISE_STREAM)
+
+
+# the families the Trainer trains; PCT and RankPCT are refused (module docstring)
+_TRAINED = (VisionTransformer, RankVisionTransformer, ResidualVisionTransformer,
+            AdaptiveVisionTransformer, MAEVisionTransformer, VisionTransformerMoE)
+
+
+def _dropout_rates(model) -> tuple:
+    """Every dropout rate a model was built with (MAE keeps its four in
+    ``dropouts``; the EncDec's decoder has its own pair)."""
+    names = ("dropout", "attention_dropout", "decoder_dropout", "decoder_attention_dropout")
+    return tuple(getattr(model, n, 0.0) for n in names) + tuple(getattr(model, "dropouts", ()))
 
 
 def _main_logits(out, output_format: Optional[str]):
@@ -170,7 +216,6 @@ _NOT_PORTED = {
     "qat": (False, "item 8 (QAT)"),
     "qat_caps": (None, "item 8 (QAT)"),
     "qat_smoothing": (None, "item 8 (QAT)"),
-    "reconstruction_weight": (0.0, "item 7 (EncDec / MAE reconstruction)"),
 }
 
 
@@ -222,12 +267,16 @@ class Trainer:
         if self.parallel_kernels not in ("auto", "xla", "pallas"):
             raise ValueError(f"parallel_kernels must be 'auto', 'xla' or 'pallas', got "
                              f"{self.parallel_kernels!r}")
-        if not isinstance(self.model, (VisionTransformer, RankVisionTransformer,
-                                       ResidualVisionTransformer)):
+        if isinstance(self.model, (PointCloudTransformer, RankPointCloudTransformer)):
             raise NotImplementedError(
-                f"the port's Trainer trains the plain ViT, RankViT and the ResidualViT "
-                f"family; {type(self.model).__name__} is ROADMAP.md port queue A item 7")
-        if self.model.dropout or self.model.attention_dropout:
+                f"the JAX Trainer cannot train a {type(self.model).__name__} (its step holds "
+                "the BatchNorm statistics immutable, a fault of the reference; ROADMAP.md "
+                "queue C): train it at module level, model(points, train=True)")
+        if not isinstance(self.model, _TRAINED):
+            raise NotImplementedError(
+                f"the port's Trainer trains the plain ViT, RankViT, the ResidualViT family, "
+                f"A-ViT, MAE and MoE, not {type(self.model).__name__}")
+        if any(_dropout_rates(self.model)):
             raise NotImplementedError(
                 f"training with dropout is not ported yet ({DROPOUT_ITEM}): "
                 "build the model with dropout=0.0 and attention_dropout=0.0")
@@ -273,7 +322,7 @@ class Trainer:
             return None
         if self.fused == "auto" and self.device.type != "cuda":
             return None
-        if (model.dropout or model.attention_dropout
+        if (any(_dropout_rates(model))
                 or getattr(model, "noise_layer", None) is not None
                 or self.output_format is not None):
             return None
@@ -281,6 +330,8 @@ class Trainer:
             if self.loss_compose and self.loss_compose.additional_losses:
                 return None  # a plain ViT emits no aux for regularizers
             return "vit"
+        if not isinstance(model, ResidualVisionTransformer):
+            return None  # A-ViT, MoE: the linen step (JAX :302-308)
         layers = model.residual_layers or ["attention+mlp"] * model.num_layers
         if (set(layers) == {"attention+mlp"} and model.gate_type == "sigmoid"
                 and not model.add_input and model.add_budget_token):
@@ -291,7 +342,10 @@ class Trainer:
         return self._fused_kind() is not None
 
     def _build_forward(self):
-        """(images, budget vector or None, generator) -> (outputs, aux)."""
+        """(images, budget vector or None, generator, noise keywords) ->
+        (outputs, aux). The noise keywords (``noise_value``, ``noise_rng``)
+        are empty for a model without a NoiseBlock, which no fused path
+        takes."""
         if (self.sequence_parallel_devices or 0) > 1:
             self._train_kind = "sp"
             return self._build_sp_forward()
@@ -304,17 +358,38 @@ class Trainer:
         if kind == "vit":
             self._train_kind = "fused_vit"
             fwd = trainable_forward_fn(self.model, remat=self.remat)
-            return lambda x, budget, gen: (fwd(self.params, x), {})
+            return lambda x, budget, gen, nkw: (fwd(self.params, x), {})
         if kind == "residual":
             self._train_kind = "fused_residual"
             fwd = residual_forward_fn(self.model)
-            return lambda x, bvec, gen: fwd(self.params, x, bvec)
+            return lambda x, bvec, gen, nkw: fwd(self.params, x, bvec)
         self._train_kind = "module"
-        if isinstance(self.model, ResidualVisionTransformer):
-            return lambda x, budget, gen: self.model(x, budget=budget, train=True, generator=gen)
-        if isinstance(self.model, RankVisionTransformer):
-            return lambda x, budget, gen: self.model(x, budget=budget)
-        return lambda x, budget, gen: self.model(x)
+        return functools.partial(self._module_forward, train=True)
+
+    def _module_forward(self, x, budget, gen, nkw, train: bool):
+        """The model's own forward, as the linen step applies it: the
+        budget to the families that take one, the generator to those that
+        draw (the ResidualViT family's budgets and gumbel gates, the MoE's
+        gates, the MAE's shuffle), the noise keywords to a NoiseBlock."""
+        model = self.model
+        if isinstance(model, ResidualVisionTransformer):
+            return model(x, budget=budget, train=train, generator=gen, **nkw)
+        if isinstance(model, RankVisionTransformer):
+            return model(x, budget=budget, **nkw)
+        if isinstance(model, (VisionTransformerMoE, MAEVisionTransformer)):
+            return model(x, train=train, generator=gen, **nkw)
+        if isinstance(model, AdaptiveVisionTransformer):
+            return model(x, train=train, **nkw)
+        return model(x, **nkw)
+
+    def _noise_kwargs(self, noise_value, make_generator) -> dict:
+        """The NoiseBlock's keywords: none for a model without one (JAX
+        ignores ``noise_value`` there); else the value (the 0.0 sentinel
+        when None) and the generator ``make_generator()`` returns."""
+        if getattr(self.model, "noise_layer", None) is None:
+            return {}
+        return {"noise_value": 0.0 if noise_value is None else noise_value,
+                "noise_rng": make_generator()}
 
     def _sp_kernels(self, model, s: int) -> str:
         """``parallel_kernels`` resolved: ``"auto"`` takes the tail kernel
@@ -342,6 +417,13 @@ class Trainer:
             raise NotImplementedError(
                 f"{what} with a gated ResidualViT (JAX parallel/residual.py:183, fp32 linen "
                 "math) is not ported yet: ROADMAP.md port queue A item 9 (parallel and serving)")
+        if not isinstance(model, (VisionTransformer, RankVisionTransformer)):
+            raise NotImplementedError(
+                f"{what} applies to the plain-ViT family (uniform blocks) and gated "
+                f"ResidualViT, not {type(model).__name__}")
+        if getattr(model, "noise_layer", None) is not None:
+            raise NotImplementedError(
+                f"{what} training is deterministic: set dropout=0 and no noise_layer")
         if self.loss_compose and self.loss_compose.additional_losses:
             raise NotImplementedError(f"plain ViT emits no aux for regularizers under {what}")
         s = int(self.sequence_parallel_devices)
@@ -373,7 +455,7 @@ class Trainer:
             rankvit_layers=tuple(getattr(model, "rankvit_layers", ()) or ()),
             data_axis=data_axis, kernels=self._sp_kernels(model, s),
             compute_dtype=torch.bfloat16 if self.device.type == "cuda" else torch.float32)
-        return lambda x, budget, gen: (
+        return lambda x, budget, gen, nkw: (
             sequence_parallel_vit_forward(self.params, x, budget=budget, **kw), {})
 
     def _all_reduce_grads(self) -> None:
@@ -388,9 +470,11 @@ class Trainer:
             p.grad = flat[offset:offset + p.numel()].view_as(p).to(p.dtype)
             offset += p.numel()
 
-    def _loss(self, out, aux, y, budget):
+    def _loss(self, out, aux, y, budget, x=None):
         """The linen ``loss_fn`` (trainer.py:352-380): the cross-entropy (of
-        every early exit, weighted by ``ee_weights``) plus the regularizers
+        every early exit, weighted by ``ee_weights``), the EncDec's
+        reconstruction loss at ``reconstruction_weight`` (the images ``x``
+        against the reconstruction under its mask), plus the regularizers
         against the batch-mean budget. Returns (total, metrics)."""
         if self.output_format == "early_exits":
             ces = torch.stack([self.main_criterion(o, y) for o in out])
@@ -402,6 +486,11 @@ class Trainer:
             ce = self.main_criterion(_main_logits(out, self.output_format), y)
         metrics = {"classification_loss": ce}
         total = ce
+        if self.output_format == "logits_recon_mask" and self.reconstruction_weight:
+            _, recon, rmask = out
+            rec = ((x - recon) ** 2 * rmask).mean()
+            metrics["reconstruction_loss"] = rec
+            total = total + self.reconstruction_weight * rec
         if self.loss_compose is not None and self.loss_compose.additional_losses:
             b = aux.get("current_budget", budget)
             if isinstance(b, torch.Tensor) and b.dim() > 0:
@@ -414,12 +503,14 @@ class Trainer:
 
     def train_step(self, x, y, budget=None, noise_value=None, step_idx: int = 0):
         """One forward/backward and update. Returns the metrics as 0-d
-        tensors on the device: classification_loss, the regularizers by
-        name, and total_loss. ``step_idx`` seeds the step's generator
+        tensors on the device: classification_loss, reconstruction_loss
+        (EncDec, a non-zero weight), the regularizers by name, and
+        total_loss. ``step_idx`` seeds the step's generator
         (``step_generator``); the fused residual step draws its per-sample
         budgets from it when ``budget`` is None, and broadcasts ``budget``
-        otherwise."""
-        self._check_unported_args(budget, noise_value)
+        otherwise. ``noise_value`` drives a model's NoiseBlock, its draws
+        from :func:`noise_generator`."""
+        self._check_budget(budget)
         if self._forward is None:
             self._forward = self._build_forward()
         if budget is not None and self._train_kind == "fused_vit":
@@ -432,8 +523,10 @@ class Trainer:
             n = x.shape[0]
             budget = (sample_budgets(self.model, n, gen, x.device) if budget is None
                       else torch.full((n,), float(budget), dtype=torch.float32, device=x.device))
-        out, aux = self._forward(x, budget, gen)
-        total, metrics = self._loss(out, aux, y, budget)
+        nkw = self._noise_kwargs(noise_value,
+                                 lambda: noise_generator(self.seed, step_idx, x.device))
+        out, aux = self._forward(x, budget, gen, nkw)
+        total, metrics = self._loss(out, aux, y, budget, x)
         if self._train_kind == "sp":
             (total / self._sp_world).backward()
             self._all_reduce_grads()
@@ -442,26 +535,24 @@ class Trainer:
         self.tx()
         return {k: v.detach() for k, v in metrics.items()}
 
-    def _check_unported_args(self, budget, noise_value):
+    def _check_budget(self, budget):
         if budget is not None and not isinstance(
                 self.model, (ResidualVisionTransformer, RankVisionTransformer)):
             raise NotImplementedError(
-                "a plain VisionTransformer takes no token budget: ranking is RankViT's "
-                "(build_model('rankvit'), ROADMAP.md port queue A item 5)")
-        if noise_value is not None:
-            raise NotImplementedError("noise is not ported yet: ROADMAP.md port queue A item 10")
+                f"a {type(self.model).__name__} takes no token budget (JAX ignores one): "
+                "ranking is RankViT's (build_model('rankvit'), ROADMAP.md port queue A item 5)")
 
     # ------------------------------------------------------------- eval step
 
     def eval_step(self, x, y, budget=None, noise_value=None):
-        """(correct count, mean loss, aux) of the model's fp32 forward."""
-        self._check_unported_args(budget, noise_value)
+        """(correct count, mean loss, aux) of the model's fp32 eval forward,
+        its main logits (``_main_logits``); a NoiseBlock draws from a
+        generator seeded 0 (JAX's eval step: ``rngs={"noise": key(0)}``)."""
+        self._check_budget(budget)
         x, y = self._to_device(x, y)
         with torch.no_grad():
-            out, aux = (self.model(x, budget=budget)
-                        if isinstance(self.model, (ResidualVisionTransformer,
-                                                   RankVisionTransformer))
-                        else self.model(x))
+            nkw = self._noise_kwargs(noise_value, lambda: default_generator(x.device))
+            out, aux = self._module_forward(x, budget, None, nkw, train=False)
             logits = _main_logits(out, self.output_format)
             loss = self.main_criterion(logits, y)
             correct = (logits.argmax(-1) == y).sum()

@@ -168,18 +168,21 @@ def test_engine_matches_jax_engine(pair):
 
 
 def test_guards(pair):
-    """int8 and max_budget= refused with the JAX reason; noise and
-    training with dropout refused with their ROADMAP items."""
+    """int8 and max_budget= refused with the JAX reason; the NoiseBlock
+    builds (noise_layer= and noise_args=) and the engine refuses it, as
+    JAX's does (the noise sits inside the ACT loop); training with
+    dropout refused with its ROADMAP item."""
     _, tm, _, _ = pair
     for kwargs in (dict(quantized=True), dict(max_budget=0.5)):
         with pytest.raises(NotImplementedError, match="bf16-only"):
             InferenceEngine(tm, device="cpu", **kwargs)
     with pytest.raises(NotImplementedError, match="ResidualViT family"):
         InferenceEngine(tm, device="cpu", compact=0.5)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        build_model("adavit", dict(ARGS, noise_layer=1), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        build_model("adavit", ARGS, noise_args={"layer": 1}, device="cpu")
+    for noisy in (build_model("adavit", dict(ARGS, noise_layer=1), device="cpu"),
+                  build_model("adavit", ARGS, noise_args={"layer": 1}, device="cpu")):
+        assert noisy.encoder.noise_layer == 1
+        with pytest.raises(NotImplementedError, match="ACT loop"):
+            InferenceEngine(noisy, device="cpu")
     dropout = build_model("AdaptiveVisionTransformer", dict(ARGS, dropout=0.1), device="cpu")
     with pytest.raises(NotImplementedError, match="item 3"):
         dropout(torch.zeros(1, 32, 32, 3), train=True)

@@ -285,10 +285,14 @@ def test_engine_guards():
     with pytest.raises(NotImplementedError, match="item 3"):
         build_model("maevit", dict(MAE, dropout=0.1), device="cpu")(
             torch.from_numpy(_images(1, b=1)), train=True)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        build_model("moevit", dict(image_size=32, patch_size=8, num_layers=1, num_heads=2,
-                                   hidden_dim=32, mlp_dim=64, num_classes=5, noise_layer=0),
-                    device="cpu")
+    # the NoiseBlock is ported (an MoE builds with one); the MAE has none and
+    # refuses the keyword, as JAX's module does
+    moe = build_model("moevit", dict(image_size=32, patch_size=8, num_layers=1, num_heads=2,
+                                     hidden_dim=32, mlp_dim=64, num_classes=5, noise_layer=0),
+                      device="cpu")
+    assert moe.noise_layer == 0
+    with pytest.raises(TypeError, match="noise_layer"):
+        build_model("maevit", MAE, noise_args={"layer": 0}, device="cpu")
 
 
 # ------------------------------------------------- the attention at head dim 48

@@ -138,7 +138,11 @@ def test_engine_refuses_unported_modes(fp32_pair):
     for kwargs in (dict(quantized=True, max_budget=0.5), dict(max_budget=0.5), dict(compact=0.5)):
         with pytest.raises(NotImplementedError):
             InferenceEngine(tm, device="cpu", **kwargs)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        build_model("moevit", dict(SMALL, noise_layer=1), device="cpu")
-    with pytest.raises(NotImplementedError):
-        build_model("vit", SMALL, noise_args={"layer": 1}, device="cpu")
+    # the NoiseBlock is ported: both build with it, and the ViT engine takes
+    # a noise value only where the model has one (JAX inference.py:2930-2934)
+    assert build_model("moevit", dict(SMALL, noise_layer=1), device="cpu").noise_layer == 1
+    noisy = build_model("vit", SMALL, noise_args={"layer": 1}, device="cpu")
+    x = np.zeros((1, 32, 32, 3), np.float32)
+    assert InferenceEngine(noisy, device="cpu")(x, noise_value=10.0).shape == (1, 7)
+    with pytest.raises(ValueError, match="without a noise layer"):
+        InferenceEngine(tm, device="cpu")(x, noise_value=10.0)

@@ -404,13 +404,16 @@ def test_guards(monkeypatch):
                           (dict(ee_outputs=True), "EEResidualVisionTransformer")):
         with pytest.raises(NotImplementedError, match=match):
             InferenceEngine(tm, device="cpu", **kwargs)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        build_model("moevit", dict(CONFIGS["mixed"], noise_layer=1), device="cpu")
+    noisy = build_model("moevit", dict(CONFIGS["mixed"], noise_layer=1), device="cpu")
+    assert (noisy.noise_layer, noisy.noise_type) == (1, "gaussian")  # the NoiseBlock, ported
     with pytest.raises(NotImplementedError, match="item 3"):
         build_model("moevit", dict(CONFIGS["mixed"], dropout=0.1), device="cpu")(
             torch.from_numpy(_images(1, b=1)), train=True)
-    with pytest.raises(NotImplementedError, match="item 7"):  # MoE training: queue A item 7
-        Trainer(tm, AdamW(lr=1e-4), device="cpu")
+    # MoE training, ported: the module path (JAX's linen step), never fused
+    trainer = Trainer(tm, AdamW(lr=1e-4), device="cpu")
+    assert trainer._fused_kind() is None
+    metrics = trainer.train_step(_images(2, b=2), np.array([0, 1]))
+    assert trainer._train_kind == "module" and np.isfinite(float(metrics["total_loss"]))
     with pytest.raises(ValueError, match="indivisible"):
         build_model("moevit", dict(CONFIGS["mixed"], image_size=30), device="cpu")
     for alias in ("visiontransformermoe", "VisionTransformerMoE", "vitmoe", "MoEVisionTransformer"):

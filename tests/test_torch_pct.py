@@ -291,15 +291,14 @@ def test_engine_guards(pct_pair, monkeypatch):
     del bare.head.bn1.mean, bare.head.bn1.var
     with pytest.raises(NotImplementedError, match="batch_stats"):
         InferenceEngine(bare, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="noise_layer"):  # no NoiseBlock, as in JAX
         build_model("pct", ARGS, noise_args={"layer": 1}, device="cpu")
     with pytest.raises(NotImplementedError, match="item 3"):
         build_model("pct", dict(ARGS, dropout=0.1), device="cpu")(
             torch.from_numpy(_points(0, batch=2)), train=True)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        build_model("moevit", dict(image_size=32, patch_size=8, num_layers=1, num_heads=2,
-                                   hidden_dim=32, mlp_dim=64, num_classes=5, noise_layer=0),
-                    device="cpu")
+    assert build_model("moevit", dict(image_size=32, patch_size=8, num_layers=1, num_heads=2,
+                                      hidden_dim=32, mlp_dim=64, num_classes=5, noise_layer=0),
+                       device="cpu").noise_layer == 0
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for name in ("pct", "rankpct"):
         with pytest.raises(RuntimeError, match="device='cpu'"):

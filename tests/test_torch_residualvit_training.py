@@ -477,10 +477,15 @@ def test_trainer_guards_that_still_raise():
     base = dict(model=tm, optimizer=optim.Adam(), device="cpu")
     with pytest.raises(NotImplementedError, match="remat"):
         Trainer(**base, remat=True, fused=True).train_step(x, y)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        Trainer(**base).train_step(x, y, noise_value=0.5)
-    for kwargs, item in ((dict(reconstruction_weight=0.5), "item 7"),
-                         (dict(mesh=object()), "item 9"), (dict(qat=True), "item 8")):
+    # ported: a noise value and a reconstruction weight, which a ResidualViT
+    # with neither a NoiseBlock nor a decoder ignores, as JAX's step does
+    want = Trainer(model=_pair(add_budget_token="learnable")[1], optimizer=optim.Adam(),
+                   device="cpu").train_step(x, y, budget=0.5)
+    got = Trainer(model=_pair(add_budget_token="learnable")[1], optimizer=optim.Adam(),
+                  device="cpu", reconstruction_weight=0.5).train_step(x, y, budget=0.5,
+                                                                      noise_value=0.5)
+    assert set(got) == set(want) and float(got["total_loss"]) == float(want["total_loss"])
+    for kwargs, item in ((dict(mesh=object()), "item 9"), (dict(qat=True), "item 8")):
         with pytest.raises(NotImplementedError, match=item):
             Trainer(**base, **kwargs)
     vit = build_model("vit", dict(image_size=16, patch_size=8, num_layers=1, num_heads=2,

@@ -60,6 +60,12 @@ CASES = [
          args=dict(RES_ARGS, add_budget_token=True), budgets=[0.25, 0.625, 1.0], ee=False),
     dict(name="ee", family="eeresidualvit", args=dict(RES_ARGS, add_budget_token="learnable"),
          budgets=[0.625], ee=True),
+    # the EncDec's logits without recon_outputs (JAX counts it in the
+    # ResidualViT family, tp_serving.py:469-471), at equal encoder and
+    # decoder widths, where the JAX module builds
+    dict(name="encdec", family="encdecresidualvit",
+         args=dict(RES_ARGS, add_budget_token="learnable", decoder_num_layers=1),
+         budgets=[0.625], ee=False),
 ]
 
 
@@ -298,7 +304,8 @@ def test_tp_engine_matches_jax_and_single_device(tmp_path, mesh_shape):
     ranks (one spawn for the mesh): each rank's outputs equal every other
     rank's bit for bit, and match the JAX TP engine on the virtual mesh and
     the port's single-device CPU engine at fp32 1e-4 (RankViT at every
-    budget and with none, both budget-token modes, the EE exit tuple)."""
+    budget and with none, both budget-token modes, the EE exit tuple, the
+    EncDec's logits)."""
     n_data, n_model = mesh_shape
     world = n_data * n_model
     images = _images()

@@ -430,16 +430,22 @@ def test_trainer_refuses_what_is_not_ported():
     for kwargs in (dict(mesh=object()), dict(pipeline_stages=2),
                    dict(pipeline_microbatches=2), dict(tensor_parallel=True),
                    dict(fsdp_sharded_params=True), dict(zero_sharded_optimizer=True),
-                   dict(qat=True), dict(qat="static"), dict(reconstruction_weight=0.5)):
+                   dict(qat=True), dict(qat="static")):
         with pytest.raises(NotImplementedError, match="ROADMAP.md port queue A item"):
             Trainer(**base, **kwargs)
     trainer = Trainer(**base)
     x, y = _batch(1, n=2)
+    # ported: a reconstruction weight and a noise value, which a ViT without
+    # a decoder or a NoiseBlock ignores, as JAX's loss_fn and linen step do
+    ignoring = Trainer(model=_model_pair()[1], optimizer=optim.Adam(), device="cpu",
+                       reconstruction_weight=0.5)
+    want = Trainer(model=_model_pair()[1], optimizer=optim.Adam(), device="cpu").train_step(x, y)
+    got = ignoring.train_step(x, y, noise_value=0.5)
+    assert set(got) == set(want) == {"classification_loss", "total_loss"}
+    assert float(got["total_loss"]) == float(want["total_loss"])
     # sequence parallelism is ported: without a process group of 2 ranks it raises
     with pytest.raises(ValueError, match="process group of 2 ranks"):
         Trainer(**base, sequence_parallel_devices=2).train_step(x, y)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        trainer.train_step(x, y, noise_value=0.5)
     with pytest.raises(NotImplementedError, match="item 5"):
         trainer.train_step(x, y, budget=0.5)
     with pytest.raises(NotImplementedError, match="remat"):
