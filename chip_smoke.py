@@ -298,9 +298,20 @@ prints no final result):
    int8: each noisy forward counted (the same launches as without
    noise), held against its plain twin fed the same realization, and
    timed beside the same engine without noise;
+46. the entry points (see cli_phases): python -m peekvit_torch.cli.train
+   and cli.test as a user runs them, on the repo's configs: vit_tiny and
+   residualvit (loss=crossentropy_mse) train one epoch on synthetic data
+   at 160 px (4 steps of bs128, the fused paths, each step's launches
+   phase 39's); cli.test serves each checkpoint (the residualvit at three
+   budgets with a retrofitted gaussian NoiseBlock at layer 2) and
+   ViT-B/16 from a seeded torchvision-grammar .pth at 224 px
+   (model=vit_b_16_pretrained), every engine forward counted (28 / 28 /
+   84 launches) and each sweep held against the engine's plain twin on
+   the same batches; epoch, loader and prefetch ms, wall and device
+   images/s;
 and then, as 43, the {"kernels": [...]} line (launches_by_path gains
-"family_serve" and "noise"), the card's nvidia-smi line, and {"ok": true,
-"device": {...}} as the last line.
+"family_serve", "noise", "cli_train" and "cli_test"), the card's
+nvidia-smi line, and {"ok": true, "device": {...}} as the last line.
 
 Imports nothing of JAX or of peekvit_tpu.
 """
@@ -6212,6 +6223,318 @@ def noise_phases(torch, fa, dev, smi) -> dict:
     return {"counts": totals}
 
 
+# Phase 46, the entry points: the CLI runs' overrides beside the repo's
+# configs (the shipped vit_tiny / residualvit at imagenette.yaml's 160 px on
+# synthetic data: 512 training images, 4 steps of train_batch_size 128, one
+# epoch; the base test config's batch of 128 over 256 val images)
+CLI_WORKSPACE = os.path.join("workspace", "chip_smoke_cli")
+CLI_NOISE_LAYER, CLI_NOISE_VALUE = 2, 10.0  # noise=gaussian, noise.layer=2, 10 dB
+CLI_BUDGETS = (0.25, 0.5, 1.0)
+CLI_PTH_IMAGES = 224                         # vit_b_16_pretrained at imagenet.yaml's size
+CLI_PTH_CLASSES = 10                         # the synthetic dataset's classes
+CLI_PTH_SEED = 46
+CLI_TIMING_CALLS = 2 + 5                     # utils/timing.py: warm-up and timed calls
+# launches per layer of the plain ViT engine (site 9's chain); the
+# attention is keyed by head dim (engine_per_forward)
+VIT_ENGINE_PER_LAYER = {"norm_rows.bf16": 1, "norm_rows.f32": 1, "gemm_bias_epilogue.bias": 1,
+                        "gemm_bias_epilogue.residual_f32": 1, "gemm_bias_epilogue.gelu": 1,
+                        "gemm_bias_epilogue.residual": 1}
+
+
+class CallRecorder:
+    """Wraps ``cls.name`` for a ``with`` block: per call its launches (the
+    counts' difference over the call; the counts are host-side, so no
+    synchronization), its seconds on the host clock, and, with ``keep``,
+    the object, the arguments and the output."""
+
+    def __init__(self, fa, cls, name: str, keep: bool = False):
+        self.fa, self.cls, self.name, self.keep = fa, cls, name, keep
+        self.calls: list = []
+
+    def __enter__(self):
+        orig = self.orig = getattr(self.cls, self.name)
+        fa, calls, keep = self.fa, self.calls, self.keep
+
+        def wrapped(obj, *args, **kwargs):
+            before, t0 = dict(fa.LAUNCHES), time.perf_counter()
+            out = orig(obj, *args, **kwargs)
+            rec = {"launches": {k: v - before.get(k, 0) for k, v in fa.LAUNCHES.items()
+                                if v != before.get(k, 0)},
+                   "seconds": time.perf_counter() - t0}
+            if keep:
+                rec.update(obj=obj, args=args, kwargs=kwargs, out=out)
+            calls.append(rec)
+            return out
+
+        setattr(self.cls, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.cls, self.name, self.orig)
+
+
+def run_cli(main, argv: list) -> tuple:
+    """main(argv) with its printed lines captured: (result, lines)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = main(argv)
+    return out, buf.getvalue().splitlines()
+
+
+def engine_per_forward(fa, per_layer: dict, head_dim: int, layers: int) -> dict:
+    return {k: v * layers for k, v in dict(per_layer, **{fa.attn_scores_pv_key(head_dim): 1})
+            .items()}
+
+
+def sweep_check(torch, label: str, calls: list, labels, acc: float, twin) -> dict:
+    """A sweep's engine calls (its val batches in order) against the plain
+    twin ``twin(call)`` on the same images: within 3e-2 of max|plain|, top-1
+    on every decided image (compare_logits). The engine's accuracy over
+    them must be the sweep's, and the twin's may differ from it only by the
+    undecided images."""
+    got = torch.cat([c["out"] for c in calls])
+    ref = torch.cat([twin(c) for c in calls])
+    y = torch.as_tensor(labels, device=got.device)
+    rec = compare_logits(torch, label, got, [("plain_bf16", ref, 0.0,
+                                              TOL_BF16 * ref.abs().max().item())])
+    acc_engine = (got.argmax(-1) == y).float().mean().item()
+    acc_twin = (ref.argmax(-1) == y).float().mean().item()
+    undecided = got.shape[0] - rec["plain_bf16"]["decided"]
+    rec.update(accuracy_sweep=acc, accuracy_engine=acc_engine, accuracy_twin=acc_twin,
+               undecided=undecided)
+    if abs(acc_engine - acc) > 1e-6 or abs(acc_twin - acc) * got.shape[0] > undecided + 1e-6:
+        raise AssertionError(f"{label}: accuracies {rec}")
+    return rec
+
+
+def seeded_vit_b16_pth(torch, path: str) -> None:
+    """A torchvision-grammar ViT-B/16 state dict (configs/model/vit_b_16*.yaml
+    widths, a CLI_PTH_CLASSES-class head) of seeded normal(0, 0.02) weights
+    with LayerNorm scales 1, written to ``path``."""
+    gen = torch.Generator().manual_seed(CLI_PTH_SEED)
+    d, m, p = B16["hidden_dim"], B16["mlp_dim"], B16["patch_size"]
+    n = (CLI_PTH_IMAGES // p) ** 2 + 1
+
+    def w(*shape):
+        return torch.randn(*shape, generator=gen) * 0.02
+
+    sd = {"class_token": w(1, 1, d), "conv_proj.weight": w(d, 3, p, p), "conv_proj.bias": w(d),
+          "encoder.pos_embedding": w(1, n, d), "encoder.ln.weight": torch.ones(d),
+          "encoder.ln.bias": w(d), "heads.head.weight": w(CLI_PTH_CLASSES, d),
+          "heads.head.bias": w(CLI_PTH_CLASSES)}
+    for i in range(B16["num_layers"]):
+        pre = f"encoder.layers.encoder_layer_{i}."
+        sd.update({pre + "ln_1.weight": torch.ones(d), pre + "ln_1.bias": w(d),
+                   pre + "self_attention.in_proj_weight": w(3 * d, d),
+                   pre + "self_attention.in_proj_bias": w(3 * d),
+                   pre + "self_attention.out_proj.weight": w(d, d),
+                   pre + "self_attention.out_proj.bias": w(d),
+                   pre + "ln_2.weight": torch.ones(d), pre + "ln_2.bias": w(d),
+                   pre + "mlp.0.weight": w(m, d), pre + "mlp.0.bias": w(m),
+                   pre + "mlp.3.weight": w(d, m), pre + "mlp.3.bias": w(d)})
+    torch.save(sd, path)
+
+
+def cli_phases(torch, fa, dev, smi) -> dict:
+    """Phase 46, the entry points on the card, driven by the repo's configs
+    through ``cli.train.main`` / ``cli.test.main`` as a user calls them (an
+    explicit experiment_name each, under workspace/chip_smoke_cli, removed
+    at the end):
+
+    (a) ``model=vit_tiny`` on synthetic data at 160 px, one epoch (4 steps
+        of bs128 at full width) on the fused path: each step's launches
+        equal phase 39's for that config (shipped_per_layer) and nothing
+        else launches in the run; losses finite; the checkpoint committed;
+        the epoch's ms, and the loader's ms a batch alone and through
+        prefetch_to_device;
+    (b) ``cli.test load_from=<(a)>``: every engine forward 28 launches
+        (VIT_ENGINE_PER_LAYER at head dim 32); the sweep held against the
+        engine's plain twin on the same batches (sweep_check); wall and
+        device images/s;
+    (c) ``model=residualvit loss=crossentropy_mse`` as (a) on the fused
+        residual path, then ``cli.test`` at CLI_BUDGETS with
+        ``noise=gaussian noise.layer=2`` and one noise value: the run
+        prints ``eval path: fused InferenceEngine``, 28 launches a forward
+        (RESIDUAL_PER_LAYER), each budget's sweep against the noisy plain
+        twin (one realization: a generator seeded 0, the engine's default);
+    (d) ``model=vit_b_16_pretrained model.torch_pretrained_weights=<a
+        seeded torchvision-grammar .pth>`` at 224 px and no checkpoint: 84
+        launches a forward, logits within 3e-2 of max|plain| of the plain
+        twin, top-1 on every decided image.
+
+    Any failure raises. Returns the train steps' and the engine forwards'
+    counts."""
+    import shutil
+
+    from peekvit_torch import InferenceEngine, Trainer
+    from peekvit_torch import inference as ti
+    from peekvit_torch.cli import test as cli_test
+    from peekvit_torch.cli import train as cli_train
+    from peekvit_torch.data.loader import DataLoader, prefetch_to_device
+    from peekvit_torch.ops.noise import NoiseSpec
+    from peekvit_torch.utils.checkpoint import get_checkpoint_path
+    from peekvit_torch.utils.config import instantiate, load_config
+
+    bf16 = torch.bfloat16
+    t_start = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    configs = os.path.join(root, "configs")
+    work = os.path.join(root, CLI_WORKSPACE)
+    shutil.rmtree(work, ignore_errors=True)
+    base = [f"workspace={work}", "dataset=synthetic"]
+    train_counts, test_counts = {}, {}
+
+    def add(totals, counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    def plain_kwargs(engine):
+        return {k: v for k, v in engine._forward.items() if k != "compute_dtype"}
+
+    def train_run(name, extra):
+        """One training run of a shipped config; returns its experiment dir."""
+        overrides = base + [f"experiment_name={name}", f"model={name}",
+                            "training.num_epochs=0"] + extra
+        fa.reset_launch_counts()
+        with CallRecorder(fa, Trainer, "train_step", keep=True) as steps, \
+                CallRecorder(fa, Trainer, "train_epoch") as epochs:
+            res, lines = run_cli(cli_train.main, overrides + ["--device", DEVICE])
+        torch.cuda.synchronize()
+        total, res = dict(fa.LAUNCHES), res[0]
+        trainer = steps.calls[0]["obj"]
+        layers = SHIPPED[name][1]["num_layers"]
+        want = {k: v * layers for k, v in shipped_per_layer(fa, name, 160).items()}
+        per_step = [c["launches"] for c in steps.calls]
+        losses = [float(c["out"]["total_loss"]) for c in steps.calls]
+        ckpt = get_checkpoint_path(res["experiment_dir"])
+        # the loader alone, and through prefetch_to_device, over one epoch
+        cfg = load_config(configs, "train_config", overrides)
+        loader = DataLoader(instantiate(cfg.dataset).train_dataset,
+                            cfg.training.train_batch_size, shuffle=True,
+                            num_workers=cfg.training.num_workers, drop_last=True, seed=cfg.seed)
+        t0 = time.perf_counter()
+        n_batches = sum(1 for _ in loader)
+        loader_ms = (time.perf_counter() - t0) / n_batches * 1e3
+        t0 = time.perf_counter()
+        for _ in prefetch_to_device(iter(loader), size=2, device=dev):
+            pass
+        torch.cuda.synchronize()
+        prefetch_ms = (time.perf_counter() - t0) / n_batches * 1e3
+        epoch_ms = epochs.calls[0]["seconds"] * 1e3
+        emit({"phase": "cli_train", "model": name, "overrides": overrides,
+              "steps": len(steps.calls), "train_kind": trainer._train_kind, "losses": losses,
+              "launches_per_step": [sum(c.values()) for c in per_step],
+              "want_per_step": sum(want.values()), "run_launches": total,
+              "epoch_ms": epoch_ms, "epoch_ms_per_step": epoch_ms / len(steps.calls),
+              "step_host_ms": [c["seconds"] * 1e3 for c in steps.calls],
+              "loader_ms_per_batch": loader_ms, "prefetch_ms_per_batch": prefetch_ms,
+              "batch_mb": cfg.training.train_batch_size * 160 * 160 * 3 * 4 / 1e6,
+              "checkpoint": ckpt,
+              "val_accuracy": {str(k): v for k, v in res["val_accuracy"].items()},
+              "printed": lines[-6:], "card": smi})
+        if trainer._train_kind != "fused_" + SHIPPED_KIND[name] or len(steps.calls) != 4:
+            raise AssertionError(f"cli {name}: {trainer._train_kind}, {len(steps.calls)} steps")
+        if any(c != want for c in per_step) or total != {k: 4 * v for k, v in want.items()}:
+            raise AssertionError(f"cli {name}: launches {per_step} / {total}, want {want} a step")
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"cli {name}: losses {losses}")
+        if not ckpt or not os.path.isfile(os.path.join(ckpt, "params.pt")):
+            raise AssertionError(f"cli {name}: no committed checkpoint ({ckpt})")
+        add(train_counts, total)
+        return res["experiment_dir"]
+
+    def test_run(label, overrides, per_forward, twin):
+        """One sweep: every engine forward counted, each budget's sweep
+        against the plain twin."""
+        fa.reset_launch_counts()
+        with CallRecorder(fa, InferenceEngine, "__call__", keep=True) as calls:
+            res, lines = run_cli(cli_test.main, overrides + ["--device", DEVICE])
+        torch.cuda.synchronize()
+        (_, summary), = res.items()
+        if not any(line.startswith("eval path: fused InferenceEngine") for line in lines):
+            raise AssertionError(f"{label}: not on the engine: {lines}")
+        bad = [c["launches"] for c in calls.calls if c["launches"] != per_forward]
+        if bad or not calls.calls:
+            raise AssertionError(f"{label}: forwards launched {bad[:1]}, want {per_forward}")
+        for c in calls.calls:
+            add(test_counts, c["launches"])
+        cfg = load_config(configs, "test_config", overrides)
+        val = instantiate(cfg.dataset).val_dataset
+        n_batches = -(-len(val) // cfg.test.test_batch_size)
+        # per budget (one noise value): a warm-up call, the sweep, then the
+        # device timing's calls
+        cell = 1 + n_batches + CLI_TIMING_CALLS
+        checks = {}
+        for i, (b, by_noise) in enumerate(summary["results_per_budget"].items()):
+            (acc,) = by_noise.values()
+            sweep = calls.calls[i * cell + 1:i * cell + 1 + n_batches]
+            checks[str(b)] = sweep_check(torch, f"{label} budget {b}", sweep, val.labels, acc,
+                                         twin)
+        emit({"phase": "cli_test", "run": label, "overrides": overrides,
+              "forwards": len(calls.calls), "launches_per_forward": sum(per_forward.values()),
+              "per_forward": per_forward, "wall_images_per_s": summary["timings_wall"],
+              "device_images_per_s": summary["timings_device"],
+              "flops_per_image": summary["flops"], "sweep": checks,
+              "results_per_budget": {str(b): {str(n): a for n, a in r.items()}
+                                     for b, r in summary["results_per_budget"].items()},
+              "sparsities": {str(b): s for b, s in summary["sparsities_per_budget"].items()},
+              "printed": [ln for ln in lines if ln.startswith(("eval path", "budget=", "recap",
+                                                               "no checkpoint"))],
+              "tolerance_rel": TOL_BF16, "tolerance_reason": "the plain twin takes the same "
+              "rounding points, fp32 sums in another order; the repo's bf16 tolerance "
+              "(tests/test_pallas.py:42)", "card": smi})
+        if len(calls.calls) != cell * len(summary["results_per_budget"]):
+            raise AssertionError(f"{label}: {len(calls.calls)} forwards")
+        return summary
+
+    def vit_twin(c):
+        e = c["obj"]
+        return ti.vit_forward_plain(e.params, c["args"][0], compute_dtype=bf16,
+                                    **plain_kwargs(e))
+
+    def residual_twin(c):
+        e, x = c["obj"], c["args"][0]
+        noise = NoiseSpec(CLI_NOISE_LAYER, "gaussian", c["kwargs"]["noise_value"],
+                          torch.Generator(device=x.device).manual_seed(0))
+        return ti.residualvit_forward_plain(e.params, x, c["kwargs"]["budget"],
+                                            compute_dtype=bf16, noise=noise, **plain_kwargs(e))
+
+    try:
+        exp = train_run("vit_tiny", [])
+        args = SHIPPED["vit_tiny"][1]
+        test_run("vit_tiny", base + ["experiment_name=vit_tiny_eval", f"load_from={exp}"],
+                 engine_per_forward(fa, VIT_ENGINE_PER_LAYER,
+                                    args["hidden_dim"] // args["num_heads"], args["num_layers"]),
+                 vit_twin)
+        exp = train_run("residualvit", ["loss=crossentropy_mse"])
+        args = SHIPPED["residualvit"][1]
+        masked = {k: v for k, v in RESIDUAL_PER_LAYER.items() if k != "attn_scores_pv"}
+        budgets = ",".join(str(b) for b in CLI_BUDGETS)
+        test_run("residualvit noisy",
+                 base + ["experiment_name=residualvit_eval", f"load_from={exp}",
+                         f"test.budgets=[{budgets}]", "noise=gaussian",
+                         f"noise.layer={CLI_NOISE_LAYER}", f"test.noises=[{CLI_NOISE_VALUE}]"],
+                 engine_per_forward(fa, masked, args["hidden_dim"] // args["num_heads"],
+                                    args["num_layers"]), residual_twin)
+        pth = os.path.join(work, "vit_b_16_seeded.pth")
+        seeded_vit_b16_pth(torch, pth)
+        test_run("vit_b_16 .pth",
+                 base + ["experiment_name=vit_b_16_pth", f"dataset.image_size={CLI_PTH_IMAGES}",
+                         "dataset.train_size=8", "model=vit_b_16_pretrained",
+                         f"model.torch_pretrained_weights={pth}"],
+                 engine_per_forward(fa, VIT_ENGINE_PER_LAYER,
+                                    B16["hidden_dim"] // B16["num_heads"], B16["num_layers"]),
+                 vit_twin)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "cli_elapsed", "seconds": time.perf_counter() - t_start,
+          "train_counts": train_counts, "test_counts": test_counts, "card": smi})
+    return {"train_counts": train_counts, "test_counts": test_counts}
+
+
 def main() -> int:
     import torch
 
@@ -6242,8 +6565,14 @@ def main() -> int:
                          check=True).stdout.strip().splitlines()[0]
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
+    host = {}
+    for lib in ("yaml", "PIL", "matplotlib"):  # the entry points' host packages
+        try:
+            host[lib] = __import__(lib).__version__
+        except ImportError:
+            host[lib] = None
     emit({"phase": "device", "name": kind, "count": count, "nvidia_smi": smi,
-          "torch": torch.__version__, "cuda": torch.version.cuda})
+          "torch": torch.__version__, "cuda": torch.version.cuda, "host_packages": host})
 
     # ----------------------------------------------------------------- 2. build
     t0 = time.perf_counter()
@@ -6713,6 +7042,8 @@ def main() -> int:
     # ------------------------------------ 44. family training, 45. noise
     family = family_train_phases(torch, fa, dev, smi)
     noise = noise_phases(torch, fa, dev, smi)
+    # ----------------------------------------------------- 46. the entry points
+    cli = cli_phases(torch, fa, dev, smi)
     for entry in kernels:  # the later paths run earlier kernels too
         entry["launches_by_path"]["merged"] = mtrain["counts"]["merged"].get(entry["name"], 0)
         entry["launches_by_path"]["hybrid"] = mtrain["counts"]["hybrid"].get(entry["name"], 0)
@@ -6724,6 +7055,8 @@ def main() -> int:
         entry["launches_by_path"]["moe"] = moe["counts"].get(entry["name"], 0)
         entry["launches_by_path"]["family_serve"] = family["counts"].get(entry["name"], 0)
         entry["launches_by_path"]["noise"] = noise["counts"].get(entry["name"], 0)
+        entry["launches_by_path"]["cli_train"] = cli["train_counts"].get(entry["name"], 0)
+        entry["launches_by_path"]["cli_test"] = cli["test_counts"].get(entry["name"], 0)
     # every path's counts as this run measured them, read by each new
     # entry's count key
     measured = {"engine": main_counts, "split": split_counts, "train": train["counts"],
@@ -6736,7 +7069,8 @@ def main() -> int:
                 "hybrid": mtrain["counts"]["hybrid"], "module": mod["counts"],
                 "attention_alone": mod["alone"], "tp": tp["counts"], "sp": sp["counts"],
                 "shipped_train": shipped["counts"], "recon": recon["counts"], "moe": moe["counts"],
-                "family_serve": family["counts"], "noise": noise["counts"]}
+                "family_serve": family["counts"], "noise": noise["counts"],
+                "cli_train": cli["train_counts"], "cli_test": cli["test_counts"]}
     later = (merged_entries + [mod["entry"]] + tp_entries + sp_entries + tiled_entries
              + recon["entries"] + moe["entries"])
     for entry in later:

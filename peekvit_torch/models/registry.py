@@ -57,24 +57,41 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def accepts_budget(model: nn.Module) -> bool:
+    """Whether the family takes a token budget (the JAX modules'
+    ``accepts_budget``): the ResidualViT family, RankViT and RankPCT."""
+    return isinstance(model, (ResidualVisionTransformer, RankVisionTransformer,
+                              RankPointCloudTransformer))
+
+
 def build_model(model_class: str, model_args: dict,
                 noise_args: Optional[dict] = None,
                 remove_layers: Optional[list] = None,
                 seed: int = 0, device="cuda") -> nn.Module:
     """Build and initialise a model from ``seed`` on ``device`` (default
-    the card), with the NoiseBlock of ``noise_args`` ({"layer",
-    "noise_type"}, configs/noise/*.yaml) where given. Weights are drawn on the CPU from a seeded
-    ``torch.Generator`` and then moved, so one seed gives one model on
-    every device."""
+    the card), as JAX's build_model (registry.py:115-180):
+
+    - the NoiseBlock of ``noise_args`` ({"layer", "noise_type"},
+      configs/noise/*.yaml) where given;
+    - ``torch_pretrained_weights`` / ``timm_pretrained_weights`` in
+      ``model_args``: a local ``.pth`` merged in by
+      ``adapters.load_pretrained`` (a hub name raises);
+    - ``remove_layers``: those encoder blocks taken out
+      (``topology.remove_layers_and_stitch``).
+
+    Weights are drawn on the CPU from a seeded ``torch.Generator`` and then
+    moved, so one seed gives one model on every device. The module records
+    ``model_class``, ``model_args`` (without ``_target_`` and the
+    pretrained paths) and ``noise_args``, which a checkpoint's metadata
+    holds (utils/checkpoint.py)."""
     dev = resolve_device(device)
     if model_class not in _PORTED:
         raise ValueError(f"Unknown model class {model_class}")
+    model_args = dict(model_args)
+    model_args.pop("_target_", None)
+    torch_w = model_args.pop("torch_pretrained_weights", None)
+    timm_w = model_args.pop("timm_pretrained_weights", None)
     args = dict(model_args)
-    args.pop("_target_", None)
-    if args.pop("torch_pretrained_weights", None) or args.pop("timm_pretrained_weights", None):
-        raise NotImplementedError(
-            "pretrained checkpoint loading is not ported yet (ROADMAP.md port "
-            "queue A item 8); load a JAX tree with models.adapters.params_from_jax")
     if noise_args:
         # the NoiseBlock as module config (JAX registry.py:137-146); its
         # value is the forward's noise_value, the 0.0 sentinel by default.
@@ -82,8 +99,17 @@ def build_model(model_class: str, model_args: dict,
         # JAX's does.
         args["noise_layer"] = noise_args.get("layer")
         args["noise_type"] = noise_args.get("noise_type", "gaussian")
-    if remove_layers:
-        raise NotImplementedError("layer removal (models/topology) is ROADMAP.md port queue A item 8")
     gen = torch.Generator().manual_seed(seed)
-    model = _PORTED[model_class](**args, generator=gen)
-    return model.to(dev).eval()
+    model = _PORTED[model_class](**args, generator=gen).to(dev).eval()
+    model.model_class = model_class
+    model.model_args = model_args
+    model.noise_args = dict(noise_args) if noise_args else None
+    if torch_w is not None or timm_w is not None:
+        from peekvit_torch.models.adapters import load_pretrained
+
+        model = load_pretrained(model, torch_w, timm_w)
+    if remove_layers:
+        from peekvit_torch.models.topology import remove_layers_and_stitch
+
+        model = remove_layers_and_stitch(model, remove_layers)
+    return model

@@ -72,9 +72,9 @@ pipeline, tensor-parallel, ZeRO and FSDP) and its quantisation-aware
 options are not ported; each raises ``NotImplementedError`` naming its
 ROADMAP.md port queue A item. A PCT or RankPCT is refused: the JAX
 ``Trainer`` cannot train one (its step holds the BatchNorm statistics
-immutable); train it at module level. Batches are moved to the trainer's
-device as they come; the JAX ``prefetch_to_device`` (data/loader.py) is
-not ported.
+immutable); train it at module level. ``train_epoch`` and ``validate``
+take their batches through ``data.loader.prefetch_to_device`` (two in
+flight), as the JAX trainer's ``_device_batches``.
 """
 
 from __future__ import annotations
@@ -589,7 +589,7 @@ class Trainer:
 
         steps_per_epoch = len(loader) if hasattr(loader, "__len__") else 0
         interrupted = False
-        for i, (x, y) in enumerate(loader):
+        for i, (x, y) in enumerate(self._device_batches(loader)):
             step_idx = epoch * max(steps_per_epoch, 1) + i
             metrics = self.train_step(x, y, budget=budget, noise_value=noise_value,
                                       step_idx=step_idx)
@@ -623,13 +623,18 @@ class Trainer:
         total, batches = 0, 0
         correct = torch.zeros((), dtype=torch.int64, device=self.device)
         loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
-        for x, y in loader:
+        for x, y in self._device_batches(loader):
             c, loss, _ = self.eval_step(x, y, budget=budget, noise_value=noise_value)
             correct = correct + c
             loss_sum = loss_sum + loss
             total += int(y.shape[0])
             batches += 1
         return int(correct) / max(total, 1), float(loss_sum) / max(batches, 1)
+
+    def _device_batches(self, loader):
+        from peekvit_torch.data.loader import prefetch_to_device
+
+        return prefetch_to_device(iter(loader), size=2, device=self.device)
 
     def _to_device(self, x, y):
         if isinstance(x, np.ndarray):
