@@ -309,9 +309,27 @@ prints no final result):
    84 launches) and each sweep held against the engine's plain twin on
    the same batches; epoch, loader and prefetch ms, wall and device
    images/s;
+47. quantization-aware training (see qat_phases): ViT-B/16 at 224 px takes
+   three Trainer(qat=True) steps at bs64, is calibrated on 64 images
+   (collect_qat_calibration) and takes three qat="static" steps with the
+   caps and SmoothQuant vectors (ms a step beside the same model's
+   module-path step without QAT, peak memory, finite losses, no port
+   kernel launched); ResidualViT-B/16 is calibrated through the residual
+   collector at budget 0.5 (collect_qat_caps) and takes three
+   qat="static" steps; each trained model is served by its calibrated
+   int8 engine (InferenceEngine(quantized=True, calib_images=the same 64,
+   calib_static_caps=True)), counted (108 launches a forward) and held
+   against its plain twin within 5e-2 of max|logit|, top-1 on every
+   decided image, with the agreement of the module's fake-quant eval
+   forward with the engine printed; then cli.train model=vit_tiny
+   training.qat=static for one epoch and cli.test on its checkpoint with
+   test.quantized=true test.calib_images=64 test.calib_static_caps=true,
+   every engine forward counted and the sweep held against the int8 plain
+   twin;
 and then, as 43, the {"kernels": [...]} line (launches_by_path gains
-"family_serve", "noise", "cli_train" and "cli_test"), the card's
-nvidia-smi line, and {"ok": true, "device": {...}} as the last line.
+"family_serve", "noise", "cli_train", "cli_test", "qat_serve" and
+"qat_cli_test"), the card's nvidia-smi line, and {"ok": true, "device":
+{...}} as the last line.
 
 Imports nothing of JAX or of peekvit_tpu.
 """
@@ -321,6 +339,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -6289,17 +6308,19 @@ def engine_per_forward(fa, per_layer: dict, head_dim: int, layers: int) -> dict:
             .items()}
 
 
-def sweep_check(torch, label: str, calls: list, labels, acc: float, twin) -> dict:
+def sweep_check(torch, label: str, calls: list, labels, acc: float, twin,
+                tol: float = None) -> dict:
     """A sweep's engine calls (its val batches in order) against the plain
-    twin ``twin(call)`` on the same images: within 3e-2 of max|plain|, top-1
-    on every decided image (compare_logits). The engine's accuracy over
-    them must be the sweep's, and the twin's may differ from it only by the
-    undecided images."""
+    twin ``twin(call)`` on the same images: within ``tol`` (3e-2) of
+    max|plain|, top-1 on every decided image (compare_logits). The
+    engine's accuracy over them must be the sweep's, and the twin's may
+    differ from it only by the undecided images."""
+    tol = TOL_BF16 if tol is None else tol
     got = torch.cat([c["out"] for c in calls])
     ref = torch.cat([twin(c) for c in calls])
     y = torch.as_tensor(labels, device=got.device)
     rec = compare_logits(torch, label, got, [("plain_bf16", ref, 0.0,
-                                              TOL_BF16 * ref.abs().max().item())])
+                                              tol * ref.abs().max().item())])
     acc_engine = (got.argmax(-1) == y).float().mean().item()
     acc_twin = (ref.argmax(-1) == y).float().mean().item()
     undecided = got.shape[0] - rec["plain_bf16"]["decided"]
@@ -6535,6 +6556,270 @@ def cli_phases(torch, fa, dev, smi) -> dict:
     return {"train_counts": train_counts, "test_counts": test_counts}
 
 
+QAT_BATCH = 64          # the QAT steps' batch (phase 7's)
+QAT_STEPS = 3
+QAT_CALIB = 64          # calibration images: cli.train's training.qat_calib_images default
+QAT_SERVE = 64          # images each trained model serves through its int8 engine
+QAT_BUDGET = 0.5        # the ResidualViT's calibration and serving budget
+QAT_LR = 1e-4
+QAT_CLI_MODEL = "vit_tiny"
+QAT_WORKSPACE = os.path.join("workspace", "chip_smoke_qat")
+
+
+def qat_steps(torch, fa, trainer, x, y) -> dict:
+    """QAT_STEPS train steps on one batch: ms a step (CUDA events), peak
+    memory over the steps, the losses, and the port kernels they launched
+    (the module path launches none)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fa.reset_launch_counts()
+    step_ms, losses = [], []
+    for i in range(QAT_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        m = trainer.train_step(x, y, step_idx=i)
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(m["total_loss"]))
+    return {"ms_per_step": step_ms, "losses": losses, "launches": dict(fa.LAUNCHES),
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "peak_over_start_gib": (torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+            "train_kind": trainer._train_kind}
+
+
+def qat_phases(torch, fa, dev, smi) -> dict:
+    """Phase 47, quantization-aware training and its int8 serving:
+
+    (a) ViT-B/16 @224 (configs/model/vit_b_16.yaml, full width and depth,
+        seeded weights): three Trainer(AdamW(1e-4), clip 1.0, qat=True)
+        steps at bs64 beside three steps of a twin built from the same seed
+        on the module path without QAT (ms a step, peak memory), then
+        collect_qat_calibration on QAT_CALIB images and three
+        qat="static" steps with those caps and SmoothQuant vectors; every
+        loss finite, no port kernel launched (the module path);
+    (b) ResidualViT-B/16 (residualvit_b_16.yaml): collect_qat_caps through
+        the residual collector at budget 0.5, three qat="static" steps;
+    (c) each trained model served by InferenceEngine(quantized=True,
+        calib_images=the same images, calib_static_caps=True): the counts
+        zeroed before and read after one forward of QAT_SERVE images (108
+        launches, the expected keys), the logits against the plain twin
+        within 5e-2 of max|logit|, top-1 on every decided image; printed,
+        not gated: the module's fake-quant eval forward (the grid it trained
+        against) and its fp32 forward against the engine, max|delta| over
+        max|logit| and the top-1 share;
+    (d) cli.train model=vit_tiny dataset=synthetic training.qat=static for
+        one epoch (the calibrated-caps line printed, the module path, no
+        port kernel launched, finite losses), then cli.test on its
+        checkpoint with test.quantized=true test.calib_images=64
+        test.calib_static_caps=true: every engine forward counted and the
+        sweep held against the int8 plain twin (sweep_check at 5e-2).
+
+    Any failure raises. Returns the served engines' and the sweep's
+    counts."""
+    from peekvit_torch import InferenceEngine, Trainer
+    from peekvit_torch import inference as ti
+    from peekvit_torch.cli import test as cli_test
+    from peekvit_torch.cli import train as cli_train
+    from peekvit_torch.ops.fake_quant import fake_quant
+    from peekvit_torch.training.optim import AdamW
+    from peekvit_torch.utils.config import instantiate, load_config
+
+    bf16 = torch.bfloat16
+    t_start = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(47)
+    size = B16["image_size"]
+    x = torch.randn(QAT_BATCH, size, size, 3, generator=gen, device=dev)
+    y = torch.randint(0, B16["num_classes"], (QAT_BATCH,), generator=gen, device=dev)
+    calib = torch.randn(QAT_CALIB, size, size, 3, generator=gen, device=dev)
+    serve = torch.randn(QAT_SERVE, size, size, 3, generator=gen, device=dev)
+    serve_counts: dict = {}
+
+    def trainer(model, **kw):
+        return Trainer(model, AdamW(lr=QAT_LR), clip_grad_norm=1.0, fused=False, device=DEVICE,
+                       **kw)
+
+    def check_steps(label, rec):
+        if rec["train_kind"] != "module" or rec["launches"]:
+            raise AssertionError(f"{label}: {rec['train_kind']}, launches {rec['launches']}: "
+                                 "QAT trains on the module path, which runs no port kernel")
+        if not all(math.isfinite(v) for v in rec["losses"]):
+            raise AssertionError(f"{label}: losses {rec['losses']}")
+
+    def serve_check(label, model, engine, want_counts, plain, module_forward):
+        with torch.inference_mode():
+            got, counts = counted(torch, fa, lambda: engine(serve, **kw_budget(model)))
+            if counts != want_counts:
+                raise AssertionError(f"{label} int8: launches {counts}, want {want_counts}")
+            for k, v in counts.items():
+                serve_counts[k] = serve_counts.get(k, 0) + v
+            ref = plain(engine)
+            rec = compare_logits(torch, f"{label} int8", got,
+                                 [("plain_bf16", ref, 0.0, TOL_INT8 * ref.abs().max().item())])
+            spread = got.abs().max().item()
+            agree = {}
+            for name, fwd in module_forward.items():
+                out = fwd()
+                agree[name] = {"max_abs_delta_over_max_logit": (out - got).abs().max().item()
+                               / spread,
+                               "top1_share": (out.argmax(-1) == got.argmax(-1)).float()
+                               .mean().item()}
+            ms = cuda_ms(torch, lambda: engine(serve, **kw_budget(model)), iters=5)
+        emit({"phase": "qat_serve", "model": label, "batch": QAT_SERVE,
+              "launches": sum(counts.values()), "counts": counts, **rec,
+              "module_against_engine": agree, "ms_per_forward": ms,
+              "tolerance_rel": TOL_INT8, "tolerance_reason": "the plain twin on the same int8 "
+              "tree: same rounding points, sums in another order; as phase 19", "card": smi})
+
+    def kw_budget(model):
+        return {"budget": QAT_BUDGET} if hasattr(model, "add_budget_token") else {}
+
+    def module_logits(model, caps=None, smoothing=None, quantized=True):
+        def run():
+            model.eval()
+            with torch.no_grad(), fake_quant(quantized, caps, smoothing):
+                out, _ = model(serve, **kw_budget(model))
+            return out
+        return run
+
+    # (a) ViT-B/16: the module path without QAT, then dynamic and static QAT
+    plain_model = seeded_residual_model(torch, "vit", B16)
+    base = qat_steps(torch, fa, trainer(plain_model), x, y)
+    check_steps("vit plain module step", base)
+    del plain_model
+    torch.cuda.empty_cache()
+    model = seeded_residual_model(torch, "vit", B16)
+    dyn = qat_steps(torch, fa, trainer(model, qat=True), x, y)
+    check_steps("vit qat=True", dyn)
+    t0 = time.perf_counter()
+    caps, smoothing = ti.collect_qat_calibration(model, calib)
+    calib_s = time.perf_counter() - t0
+    static = qat_steps(torch, fa, trainer(model, qat="static", qat_caps=caps,
+                                          qat_smoothing=smoothing), x, y)
+    check_steps("vit qat=static", static)
+    base_ms = sorted(base["ms_per_step"])[len(base["ms_per_step"]) // 2]
+    emit({"phase": "qat_train", "model": "vit_b_16", "batch": QAT_BATCH, "module_plain": base,
+          "qat_dynamic": dyn, "qat_static_smoothed": static, "calibration_s": calib_s,
+          "calib_images": QAT_CALIB, "caps_layer0": caps[0],
+          "median_ms_over_plain": {
+              "dynamic": sorted(dyn["ms_per_step"])[1] / base_ms,
+              "static_smoothed": sorted(static["ms_per_step"])[1] / base_ms},
+          "card": smi})
+    layers = B16["num_layers"]
+    engine = InferenceEngine(model, device=DEVICE, quantized=True, calib_images=calib,
+                             calib_static_caps=True)
+    fwd = dict(engine._forward, compute_dtype=bf16)
+    serve_check("vit_b_16", model, engine,
+                {k: v * layers for k, v in quant_layer_counts("merged", True).items()},
+                lambda e: ti.vit_forward_quant_plain(e.params, serve, caps=e.caps, **fwd),
+                {"fake_quant_trained_grid": module_logits(model, caps, smoothing),
+                 "fp32": module_logits(model, quantized=False)})
+    del model, engine
+    torch.cuda.empty_cache()
+
+    # (b) ResidualViT-B/16: residual caps at budget 0.5, static QAT
+    model = seeded_residual_model(torch, "residualvit")
+    t0 = time.perf_counter()
+    rcaps = ti.collect_qat_caps(model, calib, budget=QAT_BUDGET)
+    calib_s = time.perf_counter() - t0
+    rstatic = qat_steps(torch, fa, trainer(model, qat="static", qat_caps=rcaps), x, y)
+    check_steps("residualvit qat=static", rstatic)
+    emit({"phase": "qat_train", "model": "residualvit_b_16", "batch": QAT_BATCH,
+          "qat_static": rstatic, "calibration_s": calib_s, "calib_images": QAT_CALIB,
+          "calib_budget": QAT_BUDGET, "caps_layer0": rcaps[0], "card": smi})
+    engine = InferenceEngine(model, device=DEVICE, quantized=True, calib_images=calib,
+                             calib_static_caps=True)
+    rfwd = {k: v for k, v in engine._forward.items() if k != "compute_dtype"}
+    serve_check("residualvit_b_16", model, engine,
+                {k: v * layers for k, v in residual_int8_layer_counts(True).items()},
+                lambda e: ti.residualvit_forward_quant_plain(e.params, serve, QAT_BUDGET,
+                                                             caps=e.caps, compute_dtype=bf16,
+                                                             **rfwd),
+                {"fake_quant_trained_grid": module_logits(model, rcaps),
+                 "fp32": module_logits(model, quantized=False)})
+    del model, engine
+    torch.cuda.empty_cache()
+
+    # (d) the entry points: train with static QAT, serve the int8 engine
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, QAT_WORKSPACE)
+    shutil.rmtree(work, ignore_errors=True)
+    base_args = [f"workspace={work}", "dataset=synthetic"]
+    cli_test_counts: dict = {}
+    try:
+        overrides = base_args + ["experiment_name=qat_train", f"model={QAT_CLI_MODEL}",
+                                 "training.num_epochs=0", "training.qat=static",
+                                 f"training.qat_calib_images={QAT_CALIB}"]
+        fa.reset_launch_counts()
+        with CallRecorder(fa, Trainer, "train_step", keep=True) as steps:
+            res, lines = run_cli(cli_train.main, overrides + ["--device", DEVICE])
+        torch.cuda.synchronize()
+        train_launches, res = dict(fa.LAUNCHES), res[0]
+        tr = steps.calls[0]["obj"]
+        losses = [float(c["out"]["total_loss"]) for c in steps.calls]
+        n_layers = SHIPPED[QAT_CLI_MODEL][1]["num_layers"]
+        line = (f"qat=static: calibrated {n_layers} layer caps on {QAT_CALIB} images "
+                "(SmoothQuant-aware)")
+        emit({"phase": "qat_cli_train", "overrides": overrides, "steps": len(steps.calls),
+              "train_kind": tr._train_kind, "qat": tr.qat, "losses": losses,
+              "launches": train_launches, "step_host_ms": [c["seconds"] * 1e3
+                                                           for c in steps.calls],
+              "val_accuracy": {str(k): v for k, v in res["val_accuracy"].items()},
+              "printed": [ln for ln in lines if ln.startswith(("qat=", "epoch"))], "card": smi})
+        if line not in lines or tr.qat != "static" or tr._train_kind != "module":
+            raise AssertionError(f"cli qat: {tr.qat}, {tr._train_kind}, printed {lines[:8]}")
+        if train_launches or not steps.calls or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"cli qat: launches {train_launches}, losses {losses}")
+        test_overrides = base_args + ["experiment_name=qat_eval",
+                                      f"load_from={res['experiment_dir']}",
+                                      "test.quantized=true", f"test.calib_images={QAT_CALIB}",
+                                      "test.calib_static_caps=true"]
+        fa.reset_launch_counts()
+        with CallRecorder(fa, InferenceEngine, "__call__", keep=True) as calls:
+            out, lines = run_cli(cli_test.main, test_overrides + ["--device", DEVICE])
+        torch.cuda.synchronize()
+        (_, summary), = out.items()
+        args = SHIPPED[QAT_CLI_MODEL][1]
+        per_layer = quant_layer_counts("merged", True)
+        per_layer[fa.attn_scores_pv_key(args["hidden_dim"] // args["num_heads"])] = \
+            per_layer.pop("attn_scores_pv")
+        per_forward = {k: v * n_layers for k, v in per_layer.items()}
+        want_line = (f"eval path: fused InferenceEngine (int8 w8a8) [calibrated on {QAT_CALIB}, "
+                     "static caps]")
+        bad = [c["launches"] for c in calls.calls if c["launches"] != per_forward]
+        if want_line not in lines or bad or not calls.calls:
+            raise AssertionError(f"cli qat test: {lines[:4]}, launches {bad[:1]}, "
+                                 f"want {per_forward}")
+        for c in calls.calls:
+            for k, v in c["launches"].items():
+                cli_test_counts[k] = cli_test_counts.get(k, 0) + v
+        cfg = load_config(os.path.join(root, "configs"), "test_config", test_overrides)
+        val = instantiate(cfg.dataset).val_dataset
+        n_batches = -(-len(val) // cfg.test.test_batch_size)
+        (acc,) = summary["results_per_budget"][None].values()
+
+        def twin(c):
+            e = c["obj"]
+            return ti.vit_forward_quant_plain(e.params, c["args"][0], caps=e.caps,
+                                              **dict(e._forward, compute_dtype=bf16))
+
+        check = sweep_check(torch, "cli qat int8 sweep", calls.calls[1:1 + n_batches],
+                            val.labels, acc, twin, tol=TOL_INT8)
+        emit({"phase": "qat_cli_test", "overrides": test_overrides,
+              "forwards": len(calls.calls), "launches_per_forward": sum(per_forward.values()),
+              "per_forward": per_forward, "sweep": check,
+              "wall_images_per_s": summary["timings_wall"],
+              "device_images_per_s": summary["timings_device"],
+              "printed": [ln for ln in lines if ln.startswith(("eval path", "budget="))],
+              "tolerance_rel": TOL_INT8, "card": smi})
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "qat_elapsed", "seconds": time.perf_counter() - t_start,
+          "serve_counts": serve_counts, "cli_test_counts": cli_test_counts, "card": smi})
+    return {"serve_counts": serve_counts, "cli_test_counts": cli_test_counts}
+
+
 def main() -> int:
     import torch
 
@@ -6571,6 +6856,10 @@ def main() -> int:
             host[lib] = __import__(lib).__version__
         except ImportError:
             host[lib] = None
+    # what the JAX package's native image decoder (-ljpeg -lpng) would need
+    host["g++"] = shutil.which("g++")
+    for header in ("/usr/include/jpeglib.h", "/usr/include/png.h"):
+        host[header] = os.path.isfile(header)
     emit({"phase": "device", "name": kind, "count": count, "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda, "host_packages": host})
 
@@ -7044,6 +7333,8 @@ def main() -> int:
     noise = noise_phases(torch, fa, dev, smi)
     # ----------------------------------------------------- 46. the entry points
     cli = cli_phases(torch, fa, dev, smi)
+    # ------------------------------------------- 47. quantization-aware training
+    qat = qat_phases(torch, fa, dev, smi)
     for entry in kernels:  # the later paths run earlier kernels too
         entry["launches_by_path"]["merged"] = mtrain["counts"]["merged"].get(entry["name"], 0)
         entry["launches_by_path"]["hybrid"] = mtrain["counts"]["hybrid"].get(entry["name"], 0)
@@ -7057,6 +7348,8 @@ def main() -> int:
         entry["launches_by_path"]["noise"] = noise["counts"].get(entry["name"], 0)
         entry["launches_by_path"]["cli_train"] = cli["train_counts"].get(entry["name"], 0)
         entry["launches_by_path"]["cli_test"] = cli["test_counts"].get(entry["name"], 0)
+        entry["launches_by_path"]["qat_serve"] = qat["serve_counts"].get(entry["name"], 0)
+        entry["launches_by_path"]["qat_cli_test"] = qat["cli_test_counts"].get(entry["name"], 0)
     # every path's counts as this run measured them, read by each new
     # entry's count key
     measured = {"engine": main_counts, "split": split_counts, "train": train["counts"],
@@ -7070,7 +7363,8 @@ def main() -> int:
                 "attention_alone": mod["alone"], "tp": tp["counts"], "sp": sp["counts"],
                 "shipped_train": shipped["counts"], "recon": recon["counts"], "moe": moe["counts"],
                 "family_serve": family["counts"], "noise": noise["counts"],
-                "cli_train": cli["train_counts"], "cli_test": cli["test_counts"]}
+                "cli_train": cli["train_counts"], "cli_test": cli["test_counts"],
+                "qat_serve": qat["serve_counts"], "qat_cli_test": qat["cli_test_counts"]}
     later = (merged_entries + [mod["entry"]] + tp_entries + sp_entries + tiled_entries
              + recon["entries"] + moe["entries"])
     for entry in later:

@@ -3,9 +3,12 @@
     python -m peekvit_torch.cli.train [overrides] [--device cuda|cpu]
     python -m peekvit_torch.cli.train_img_reconstruction [overrides] [--device ...]
     python -m peekvit_torch.cli.test load_from=PATH [overrides] [--device ...]
+    python -m peekvit_torch.cli.create_mask_plots load_from=PATH [overrides] [--device ...]
+    python -m peekvit_torch.cli.create_cls_token_plots load_from=PATH [overrides] [--device ...]
 
-(counterparts of train/train.py, train/train_img_reconstruction.py and
-validate/test.py). ``--device`` defaults to the card."""
+(counterparts of train/train.py, train/train_img_reconstruction.py,
+validate/test.py, validate/create_mask_plots.py and
+validate/create_cls_token_plots.py). ``--device`` defaults to the card."""
 
 import argparse
 import os
@@ -13,10 +16,7 @@ import os
 CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "configs")
 
-# the ROADMAP.md items of what the entry points do not run yet
-QAT_ITEM = ("ROADMAP.md port queue A item 8 part 2 (QAT: ops/fake_quant.py, Trainer(qat=), "
-            "collect_qat_caps / collect_qat_calibration)")
-PLOT_ITEM = "ROADMAP.md port queue A item 8 part 3 (utils/visualize.py and its plots)"
+# the ROADMAP.md item of what the entry points do not run yet
 PARALLEL_ITEM = "ROADMAP.md port queue A item 9 (parallel training and serving)"
 
 

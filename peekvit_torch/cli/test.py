@@ -20,10 +20,17 @@ to the module's own fp32 forward; the run prints ``eval path: ...``
 either way. Throughput is reported with the input pipeline (wall
 images/s) and on the device alone (``utils/timing.py``).
 
+Each swept experiment gets its recap plots under ``{experiment_dir}/images``
+(``budget_vs_acc.png``, ``flops_vs_acc.png``, ``budget_vs_throughput.png``,
+or ``budget_noise_grid.png`` over several noise values), and
+``test.cumulative_plot`` over several experiments draws
+``cumulative_budget_vs_acc.png`` and ``cumulative_flops_vs_acc.png`` into
+``test.cumulative_plot_dir`` (``utils/visualize.py``). Where matplotlib is
+missing, each is skipped with one printed line.
+
 Not ported yet, and refused: ``test.export_bundle``,
 ``test.tensor_parallel_devices > 1`` and ``distributed`` (ROADMAP.md port
-queue A item 9). The recap and cumulative plots (item 8 part 3) are
-skipped, with one printed line.
+queue A item 9).
 """
 
 from __future__ import annotations
@@ -32,7 +39,7 @@ import os
 import sys
 import time
 
-from peekvit_torch.cli import PARALLEL_ITEM, PLOT_ITEM, parse_args, refuse_distributed
+from peekvit_torch.cli import PARALLEL_ITEM, parse_args, refuse_distributed
 from peekvit_torch.utils.config import instantiate, load_config, to_plain
 
 # the families the JAX sweep serves on its engine (validate/test.py:79-85)
@@ -204,6 +211,71 @@ def validate(model, cfg, dataset, experiment_dir, logger, device="cuda") -> dict
     return summary
 
 
+def _have_matplotlib(what: str) -> bool:
+    """Whether matplotlib imports; where it does not, one printed line."""
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        print(f"{what} skipped: matplotlib is not installed", flush=True)
+        return False
+    return True
+
+
+def _noise_key(v):
+    return (v is None, v)
+
+
+def recap_plots(summary: dict, images_dir: str) -> None:
+    """One experiment's recap plots (JAX validate/test.py:379-403): the
+    budget x noise grid over several noise values, else accuracy against
+    budget and FLOPs, and throughput against budget."""
+    from peekvit_torch.utils import visualize as viz
+
+    per_budget = summary["results_per_budget"]
+    budgets = [b for b in per_budget if b is not None]
+    noises = sorted({n for r in per_budget.values() for n in r}, key=_noise_key)
+    if budgets and len(noises) > 1 and noises != [None]:
+        viz.plot_budget_noise_grid({b: per_budget[b] for b in budgets},
+                                   save_path=os.path.join(images_dir, "budget_noise_grid.png"))
+    elif budgets:
+        accs = [per_budget[b][noises[0]] for b in budgets]
+        viz.plot_budget_vs_acc(budgets, accs,
+                               save_path=os.path.join(images_dir, "budget_vs_acc.png"))
+        if summary["flops"]:
+            viz.plot_flops_vs_acc([summary["flops"][b] for b in budgets], accs,
+                                  save_path=os.path.join(images_dir, "flops_vs_acc.png"))
+        viz.plot_budget_vs_throughput(
+            budgets, [summary["timings_wall"][b] for b in budgets],
+            save_path=os.path.join(images_dir, "budget_vs_throughput.png"))
+
+
+def cumulative_plots(cfg, all_results: dict, cum_dir: str) -> None:
+    """The multi-run overlays of accuracy against budget and FLOPs (JAX
+    validate/test.py:405-436)."""
+    from peekvit_torch.utils import visualize as viz
+
+    run_names = cfg.test.get("run_names") or [os.path.basename(d.rstrip("/"))
+                                             for d in all_results]
+    runs = {}
+    for name, summary in zip(run_names, all_results.values()):
+        per_budget = summary["results_per_budget"]
+        budgets = [b for b in per_budget if b is not None]
+        if not budgets:
+            continue
+        n0 = sorted(next(iter(per_budget.values())), key=_noise_key)[0]
+        runs[name] = {"budgets": budgets,
+                      "flops": [summary["flops"].get(b, 0) for b in budgets],
+                      "accuracies": [per_budget[b][n0] for b in budgets]}
+    if not runs:
+        return
+    colors = cfg.test.get("run_colors")
+    color_map = dict(zip(run_names, colors)) if colors else None
+    for x_key, name in (("budgets", "budget"), ("flops", "flops")):
+        viz.plot_cumulative_runs(runs, x_key, "accuracies",
+                                 save_path=os.path.join(cum_dir, f"cumulative_{name}_vs_acc.png"),
+                                 run_colors=color_map)
+
+
 def _pretrained(cfg) -> bool:
     model = cfg.get("model") or {}
     return bool(model.get("torch_pretrained_weights") or model.get("timm_pretrained_weights"))
@@ -256,14 +328,15 @@ def run_test(cfg, device="cuda") -> dict:
 
         summary = validate(model, cfg, dataset, experiment_dir, logger, device=dev)
         all_results[experiment_dir] = summary
-        if any(b is not None for b in summary["results_per_budget"]):
-            print(f"recap plots skipped: {PLOT_ITEM}", flush=True)
+        if _have_matplotlib("recap plots"):
+            recap_plots(summary, os.path.join(out_dir, "images"))
         logger.close()
 
     if cfg.test.get("cumulative_plot") and len(all_results) > 1:
         cum_dir = cfg.test.get("cumulative_plot_dir") or current_dir
         os.makedirs(cum_dir, exist_ok=True)
-        print(f"cumulative plots skipped: {PLOT_ITEM}", flush=True)
+        if _have_matplotlib("cumulative plots"):
+            cumulative_plots(cfg, all_results, cum_dir)
         with open(os.path.join(cum_dir, "cumulative_log.txt"), "a") as f:
             for d, summary in all_results.items():
                 f.write(f"{d}: {summary}\n")

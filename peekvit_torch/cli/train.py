@@ -17,9 +17,21 @@ checkpoints and the SIGTERM path (``utils/preemption.py``).
 ``{experiment_dir}/profile``; ``training.debug_nans`` turns on
 ``torch.autograd.set_detect_anomaly``.
 
-Not ported yet, and refused: ``training.qat`` (ROADMAP.md port queue A
-item 8 part 2), ``training.plot_masks_every > 0`` (item 8 part 3),
-``distributed`` (item 9).
+``training.qat`` trains with fake quantization (``ops/fake_quant.py``):
+``true`` / ``dynamic`` on the dynamic int8 grid, ``static`` on the static
+grid calibrated here on the first ``training.qat_calib_images`` (64)
+training images at ``training.qat_percentile`` (99.9) and at
+``training.train_budget`` when it is a number: SmoothQuant-aware
+(``inference.collect_qat_calibration``) unless ``training.qat_smooth`` is
+false (``collect_qat_caps``). The calibration is made once, on the
+initial weights. ``training.plot_masks_every > 0`` draws the token masks
+of ``training.num_images_to_plot`` validation images at every validation
+budget into ``{experiment_dir}/images/epoch_{e}/budget_{b}/``
+(``utils/visualize.plot_masked_images``; one printed line where
+matplotlib is missing).
+
+Not ported yet, and refused: ``distributed`` (ROADMAP.md port queue A
+item 9).
 """
 
 from __future__ import annotations
@@ -29,7 +41,7 @@ import json
 import os
 import sys
 
-from peekvit_torch.cli import PLOT_ITEM, QAT_ITEM, parse_args, refuse_distributed
+from peekvit_torch.cli import parse_args, refuse_distributed
 from peekvit_torch.utils.config import instantiate, load_config, save_config, to_plain
 
 
@@ -48,11 +60,54 @@ def expand_multirun(overrides):
 def refuse_not_ported(cfg) -> None:
     """The options of the JAX entry point that the port does not run yet."""
     refuse_distributed(cfg)
+
+
+def qat_options(cfg, model, train_loader):
+    """(qat, qat_caps, qat_smoothing) of ``training.qat`` (JAX
+    train/train.py:171-232): ``static`` calibrates on the first
+    ``qat_calib_images`` training images and prints the line JAX prints."""
+    import numpy as np
+
+    from peekvit_torch.inference import collect_qat_calibration, collect_qat_caps
+
     tr = cfg.training
-    if tr.get("qat"):
-        raise NotImplementedError(f"training.qat={tr.qat!r} is not ported yet: {QAT_ITEM}")
-    if (tr.get("plot_masks_every", -1) or -1) > 0:
-        raise NotImplementedError(f"training.plot_masks_every > 0 is not ported yet: {PLOT_ITEM}")
+    qat = tr.get("qat") or False
+    if qat != "static":
+        return bool(qat), None, None
+    n_calib = int(tr.get("qat_calib_images") or 64)
+    calib = []
+    for bx, _ in train_loader:
+        calib.append(np.asarray(bx))
+        if sum(c.shape[0] for c in calib) >= n_calib:
+            break
+    calib = np.concatenate(calib, axis=0)[:n_calib]
+    tb = tr.get("train_budget")
+    kw = dict(percentile=float(tr.get("qat_percentile") or 99.9),
+              budget=float(tb) if isinstance(tb, (int, float)) else 1.0)
+    smoothing = None
+    if tr.get("qat_smooth", True):
+        caps, smoothing = collect_qat_calibration(model, calib, **kw)
+    else:
+        caps = collect_qat_caps(model, calib, **kw)
+    print(f"qat=static: calibrated {len(caps)} layer caps on {calib.shape[0]} images"
+          + (" (SmoothQuant-aware)" if smoothing is not None else ""), flush=True)
+    return "static", caps, smoothing
+
+
+def plot_masks(model, dataset, budgets, images_dir: str, epoch: int, count: int) -> None:
+    """The token masks of the first ``count`` validation images at each
+    budget (JAX train/train.py:344-362); one printed line, and no plots,
+    where matplotlib is missing."""
+    try:
+        from peekvit_torch.utils.visualize import plot_masked_images
+
+        subset = [dataset.val_dataset[i] for i in range(count)]
+        for b in (x for x in budgets if x is not None):
+            plot_masked_images(model, subset, getattr(dataset, "denormalize_transform", None),
+                               budget=b,
+                               save_dir=os.path.join(images_dir, f"epoch_{epoch}", f"budget_{b}"))
+    except ImportError:
+        print("visualize module unavailable; skipping mask plots", flush=True)
 
 
 def setup_experiment(cfg):
@@ -148,6 +203,7 @@ def train(cfg, device="cuda") -> dict:
     if tr.get("reinit_class_tokens"):
         model = topology.reinit_class_tokens(model, seed=cfg.seed)
 
+    qat, qat_caps, qat_smoothing = qat_options(cfg, model, train_loader)
     trainer = Trainer(
         model=model,
         optimizer=instantiate(cfg.optimizer),
@@ -164,6 +220,9 @@ def train(cfg, device="cuda") -> dict:
         parallel_kernels=tr.get("parallel_kernels", "auto"),
         grad_accumulation=int(tr.get("grad_accumulation") or 1),
         remat=bool(tr.get("remat")),
+        qat=qat,
+        qat_caps=qat_caps,
+        qat_smoothing=qat_smoothing,
         device=dev,
     )
     if resume and os.path.isfile(os.path.join(resume, "opt_state.pt")):
@@ -218,6 +277,10 @@ def train(cfg, device="cuda") -> dict:
                 path = save_state(checkpoints_dir, model, trainer.torch_optimizer.state_dict(),
                                   epoch, async_save=tr.get("async_checkpoints", True))
                 print(f"  checkpoint -> {path}", flush=True)
+            every = tr.get("plot_masks_every", -1) or -1
+            if every > 0 and epoch % every == 0 and accepts_budget(model):
+                plot_masks(model, dataset, val_budgets, os.path.join(experiment_dir, "images"),
+                           epoch, tr.get("num_images_to_plot", 10))
             if guard.triggered:
                 # the signal came between epochs: this epoch is complete
                 preemption_save(epoch, partial=False)

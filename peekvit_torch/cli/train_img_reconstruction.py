@@ -6,12 +6,16 @@ train/train_img_reconstruction.py).
 The skeleton of ``cli.train``, for a model with a decoder (output
 ``(logits, reconstruction, mask)`` or ``(logits, reconstruction)``): the
 Trainer adds the masked-pixel loss ``mean((x - recon)² · mask)`` at
-weight 1.0. The reconstruction plots (``training.plot_masks_every > 0``)
-are ROADMAP.md port queue A item 8 part 3 and are refused.
+weight 1.0. ``training.plot_masks_every > 0`` draws the input,
+reconstruction and mask of ``training.num_images_to_plot`` validation
+images at the first validation budget into
+``{experiment_dir}/images/epoch_{e}/recon/``
+(``utils/visualize.plot_reconstructed_images``).
 """
 
 from __future__ import annotations
 
+import os
 import sys
 
 from peekvit_torch.cli import parse_args
@@ -83,6 +87,14 @@ def train_reconstruction(cfg, reconstruction_weight: float = 1.0, device="cuda")
             if tr.checkpoint_every > 0 and epoch % tr.checkpoint_every == 0:
                 save_state(checkpoints_dir, model, trainer.torch_optimizer.state_dict(), epoch,
                            async_save=tr.get("async_checkpoints", True))
+            if tr.get("plot_masks_every", -1) > 0 and epoch % tr.plot_masks_every == 0:
+                from peekvit_torch.utils.visualize import plot_reconstructed_images
+
+                subset = [dataset.val_dataset[i] for i in range(tr.get("num_images_to_plot", 10))]
+                plot_reconstructed_images(
+                    model, subset, denormalize=getattr(dataset, "denormalize_transform", None),
+                    budget=next((b for b in val_budgets if b is not None), None),
+                    save_dir=os.path.join(experiment_dir, "images", f"epoch_{epoch}", "recon"))
     finally:
         guard.uninstall()
         wait_for_checkpoints()

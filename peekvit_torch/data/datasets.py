@@ -3,7 +3,7 @@ helpers (counterpart of peekvit_tpu/data/datasets.py).
 
 ImageFolder decodes with PIL, imported at the first image. The JAX
 package's C++ batch decoder (``native_batch``) is not ported: ROADMAP.md
-port queue A item 8 part 3.
+port queue A item 8 part 3b.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 
 IMG_EXTENSIONS = (".jpg", ".jpeg", ".png", ".ppm", ".bmp", ".webp", ".tif")
-NATIVE_ITEM = "ROADMAP.md port queue A item 8 part 3 (the native image decoder)"
+NATIVE_ITEM = "ROADMAP.md port queue A item 8 part 3b (the native image decoder)"
 
 
 class Dataset:

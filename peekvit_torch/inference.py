@@ -1376,6 +1376,85 @@ def collect_residualvit_activation_stats(params, images, budget: float = 1.0, *,
     return tuple(caps), smoothing
 
 
+# the classes whose quantized matmuls are exactly the four per-encoder-layer
+# fake-quant sites, by class name (JAX inference.py:860-863)
+_QAT_PLAIN_FAMILIES = ("VisionTransformer", "RankVisionTransformer")
+_QAT_RESIDUAL_FAMILIES = ("ResidualVisionTransformer", "EEResidualVisionTransformer")
+
+
+def _qat_family(module) -> str:
+    """'plain' | 'residual', or ``NotImplementedError`` for every class
+    outside the registry (decoders, expert stacks, ACT blocks and PCT
+    quantize outside the four calibrated per-encoder-layer sites)."""
+    name = type(module).__name__
+    if name in _QAT_PLAIN_FAMILIES:
+        return "plain"
+    if name in _QAT_RESIDUAL_FAMILIES:
+        return "residual"
+    raise NotImplementedError(
+        "calibrated qat ('static' / smoothed) supports exactly "
+        f"{_QAT_PLAIN_FAMILIES + _QAT_RESIDUAL_FAMILIES}; got {name} (decoders / expert "
+        "stacks / ACT blocks quantize outside the four calibrated per-encoder-layer sites)")
+
+
+def _qat_inputs(model, images):
+    """The model's weights (detached, on its device) and ``images`` there in
+    fp32."""
+    params = module_params(model)
+    device = next(model.parameters()).device
+    return params, torch.as_tensor(images).to(device, torch.float32)
+
+
+def _qat_geometry(model, family: str, percentile: float) -> dict:
+    geom = dict(patch_size=model.patch_size, num_heads=model.num_heads,
+                num_class_tokens=getattr(model, "num_class_tokens", 1),
+                num_registers=getattr(model, "num_registers", 0))
+    if family == "residual":
+        geom.update(gate_temp=model.gate_temp, gate_bias=model.gate_bias,
+                    budget_token=model.add_budget_token, percentile=percentile)
+    else:
+        geom["ln_eps"] = getattr(model, "ln_eps", 1e-5)
+    return geom
+
+
+def collect_qat_caps(model, images, *, percentile: float = 99.9, budget: float = 1.0) -> tuple:
+    """Static caps for ``Trainer(qat="static")`` on the unsmoothed weights
+    (JAX ``collect_qat_caps``, inference.py:882): the plain ViT and RankViT
+    through :func:`collect_activation_caps` at full token count, the
+    ResidualViT family through :func:`collect_residualvit_activation_stats`
+    at ``budget``. The engine's calibration-free static grid; to train
+    against its default calibrated grid use :func:`collect_qat_calibration`."""
+    family = _qat_family(model)
+    params, images = _qat_inputs(model, images)
+    geom = _qat_geometry(model, family, percentile)
+    if family == "residual":
+        return collect_residualvit_activation_stats(params, images, budget, **geom)[0]
+    return collect_activation_caps(params, images, percentile=percentile, **geom)
+
+
+def collect_qat_calibration(model, images, *, percentile: float = 99.9, budget: float = 1.0,
+                            alpha: float = 0.5):
+    """``(caps, smoothing)`` for ``Trainer(qat="static", qat_caps=,
+    qat_smoothing=)``, in the order the engine calibrates (JAX
+    ``collect_qat_calibration``, inference.py:918): the SmoothQuant
+    vectors from the raw weights, then the caps collected on
+    ``smooth_vit_params`` of them, so that the grid trained against is the
+    grid ``InferenceEngine(quantized=True, calib_images=,
+    calib_static_caps=True)`` serves."""
+    family = _qat_family(model)
+    params, images = _qat_inputs(model, images)
+    geom = _qat_geometry(model, family, percentile)
+    if family == "residual":
+        _, smoothing = collect_residualvit_activation_stats(params, images, budget, **geom)
+        caps, _ = collect_residualvit_activation_stats(
+            smooth_vit_params(params, smoothing), images, budget, **geom)
+        return caps, tuple(smoothing)
+    smoothing = compute_smoothing_vectors(params, images, alpha=alpha, **geom)
+    caps = collect_activation_caps(smooth_vit_params(params, smoothing), images,
+                                   percentile=percentile, **geom)
+    return caps, tuple(smoothing)
+
+
 def _quant_residual_layers(layer_block, num_heads: int, compute_dtype, caps):
     """The int8 ResidualViT layer for :func:`_residual_forward`: the merged
     masked int8 layer on every layer (the int8 engine does not compact, so

@@ -38,6 +38,7 @@ from torch import nn
 from peekvit_torch.models.residualvit import DROPOUT_ITEM, _dense
 from peekvit_torch.models.vit import Dense, LayerNorm, check_noise_layer, noise_spec
 from peekvit_torch.ops.attention import SelfAttention, multi_head_attention
+from peekvit_torch.ops.fake_quant import rewind_sites, site_counts
 from peekvit_torch.ops.gates import gumbel_softmax
 from peekvit_torch.ops.mlp import MLP, lecun_normal_, mlp_forward
 from peekvit_torch.ops.noise import inject_noise
@@ -61,6 +62,19 @@ class TopKGate(nn.Module):
         return gumbel_softmax(self.gate(x), generator, hard=True, train=train)
 
 
+def _per_expert(fn, num_experts: int) -> torch.Tensor:
+    """(E, ...): ``fn(i)`` for every expert, stacked. JAX runs the stack as
+    one ``nn.vmap`` call, traced once, so its QAT sites count one layer
+    for the whole stack: each expert rewinds the site counters to the
+    stack's first (``ops/fake_quant.rewind_sites``)."""
+    start = site_counts()
+    outs = []
+    for i in range(num_experts):
+        rewind_sites(start)
+        outs.append(fn(i))
+    return torch.stack(outs)
+
+
 class StackedSelfAttention(nn.Module):
     """E ``SelfAttention`` experts stacked on a leading axis (JAX's
     ``nn.vmap``); each initialised as the port's ``SelfAttention``."""
@@ -81,13 +95,10 @@ class StackedSelfAttention(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(E, B, N, D): every expert on every token."""
-        return torch.stack([
-            multi_head_attention(
-                x, {"in_proj": {"kernel": self.in_proj_kernel[i], "bias": self.in_proj_bias[i]},
-                    "out_proj": {"kernel": self.out_proj_kernel[i],
-                                 "bias": self.out_proj_bias[i]}},
-                self.num_heads, deterministic=not self.training)
-            for i in range(self.in_proj_kernel.shape[0])])
+        return _per_expert(lambda i: multi_head_attention(
+            x, {"in_proj": {"kernel": self.in_proj_kernel[i], "bias": self.in_proj_bias[i]},
+                "out_proj": {"kernel": self.out_proj_kernel[i], "bias": self.out_proj_bias[i]}},
+            self.num_heads, deterministic=not self.training), self.in_proj_kernel.shape[0])
 
 
 class StackedMLP(nn.Module):
@@ -108,10 +119,10 @@ class StackedMLP(nn.Module):
                 lecun_normal_(self.fc2_kernel[i], generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.stack([
-            mlp_forward(x, {"fc1": {"kernel": self.fc1_kernel[i], "bias": self.fc1_bias[i]},
-                            "fc2": {"kernel": self.fc2_kernel[i], "bias": self.fc2_bias[i]}})
-            for i in range(self.fc1_kernel.shape[0])])
+        return _per_expert(lambda i: mlp_forward(
+            x, {"fc1": {"kernel": self.fc1_kernel[i], "bias": self.fc1_bias[i]},
+                "fc2": {"kernel": self.fc2_kernel[i], "bias": self.fc2_bias[i]}}),
+            self.fc1_kernel.shape[0])
 
 
 class MoESublayer(nn.Module):

@@ -119,7 +119,9 @@ class RankViTEncoder(nn.Module):
             key_mask = None
             if budget_vec is not None and self.rankvit_layers:
                 key_mask = _with_class_keys(alive, self.num_class_tokens)
-            tokens = ViTBlock.forward(layer, tokens, key_mask=key_mask)
+            # a ranking block without a budget runs as a plain block
+            tokens = (layer(tokens, key_mask=key_mask) if i not in self.rankvit_layers
+                      else ViTBlock.forward(layer, tokens, key_mask=key_mask))
         return self.ln(tokens), masks
 
 

@@ -30,6 +30,7 @@ import torch
 from torch import nn
 
 from peekvit_torch.ops.cuda.fused_attention import fused_mhsa
+from peekvit_torch.ops.fake_quant import maybe_fq
 
 # Global switch: "xla" (the module's own attention, default) or "pallas"
 # (the fused kernel, deterministic forwards only).
@@ -81,18 +82,22 @@ def multi_head_attention(x: torch.Tensor, params: dict, num_heads: int, *,
     """Full MHSA: packed qkv proj -> attention -> out proj. x: (B, N, D).
     params: {'in_proj': {'kernel', 'bias'}, 'out_proj': {'kernel', 'bias'}}.
     Under ``set_attention_impl("pallas")`` a deterministic call without a
-    key mask takes ``fused_mhsa`` (JAX ops/attention.py:114-119)."""
+    key mask takes ``fused_mhsa`` (JAX ops/attention.py:114-119). The qkv
+    and out-proj matmuls are QAT sites (``ops/fake_quant.maybe_fq``) in
+    both branches, identity unless a ``fake_quant`` block is open."""
+    xq, wq = maybe_fq(x, params["in_proj"]["kernel"], site="qkv")
     if _ATTENTION_IMPL == "pallas" and key_mask is None and deterministic:
-        qkv = torch.matmul(x, params["in_proj"]["kernel"]) + params["in_proj"]["bias"]
+        qkv = torch.matmul(xq, wq) + params["in_proj"]["bias"]
         if qkv.is_cuda and qkv.requires_grad:
             raise RuntimeError(
                 "attention impl 'pallas': the fused kernel has no backward; run the forward "
                 "under torch.no_grad() / inference_mode, or train with impl 'xla'")
         out = fused_mhsa(qkv, num_heads)
     else:
-        q, k, v = qkv_projection(x, params["in_proj"]["kernel"], params["in_proj"]["bias"])
+        q, k, v = qkv_projection(xq, wq, params["in_proj"]["bias"])
         out = attention_core(q, k, v, num_heads, key_mask=key_mask)
-    return torch.matmul(out, params["out_proj"]["kernel"]) + params["out_proj"]["bias"]
+    oq, wo = maybe_fq(out, params["out_proj"]["kernel"], site="out")
+    return torch.matmul(oq, wo) + params["out_proj"]["bias"]
 
 
 class SelfAttention(nn.Module):

@@ -13,6 +13,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from peekvit_torch.ops.fake_quant import maybe_fq
+
 # lecun_normal: truncated normal at two standard deviations, rescaled so
 # the variance is 1/fan_in (the stddev of a unit normal truncated there).
 _TRUNC_STD = 0.87962566103423978
@@ -25,10 +27,14 @@ def lecun_normal_(t: torch.Tensor, generator: torch.Generator | None = None) -> 
 
 
 def mlp_forward(x: torch.Tensor, params: dict) -> torch.Tensor:
-    """params: {'fc1': {'kernel', 'bias'}, 'fc2': {'kernel', 'bias'}}."""
-    h = torch.matmul(x, params["fc1"]["kernel"]) + params["fc1"]["bias"]
+    """params: {'fc1': {'kernel', 'bias'}, 'fc2': {'kernel', 'bias'}}. Both
+    matmuls are QAT sites (``ops/fake_quant.maybe_fq``), identity unless a
+    ``fake_quant`` block is open."""
+    x1, w1 = maybe_fq(x, params["fc1"]["kernel"], site="fc1")
+    h = torch.matmul(x1, w1) + params["fc1"]["bias"]
     h = F.gelu(h, approximate="none")
-    return torch.matmul(h, params["fc2"]["kernel"]) + params["fc2"]["bias"]
+    h2, w2 = maybe_fq(h, params["fc2"]["kernel"], site="fc2")
+    return torch.matmul(h2, w2) + params["fc2"]["bias"]
 
 
 class MLP(nn.Module):

@@ -67,12 +67,18 @@ fold; ``eval_step`` draws from a generator seeded 0, JAX's ``key(0)``.
 ``train_epoch`` passes ``step_idx = epoch * steps_per_epoch + i`` as the
 JAX trainer does.
 
+- **QAT** (``qat=True`` / ``"dynamic"`` / ``"static"`` with ``qat_caps``
+  and optionally ``qat_smoothing``): the module path (``fused`` coerced
+  off), every train and eval forward inside ``ops/fake_quant.fake_quant``
+  (the JAX step's trace-time switch, trainer.py:340-350, :856-866). Not
+  with SP, the pipeline or ``remat`` (a checkpointed backward would rerun
+  the forward unquantized).
+
 The JAX trainer's other multi-device options (``mesh=`` without SP, the
-pipeline, tensor-parallel, ZeRO and FSDP) and its quantisation-aware
-options are not ported; each raises ``NotImplementedError`` naming its
-ROADMAP.md port queue A item. A PCT or RankPCT is refused: the JAX
-``Trainer`` cannot train one (its step holds the BatchNorm statistics
-immutable); train it at module level. ``train_epoch`` and ``validate``
+pipeline, tensor-parallel, ZeRO and FSDP) are not ported; each raises
+``NotImplementedError`` naming its ROADMAP.md port queue A item. A PCT or
+RankPCT is refused: the JAX ``Trainer`` cannot train one (its step holds
+the BatchNorm statistics immutable); train it at module level. ``train_epoch`` and ``validate``
 take their batches through ``data.loader.prefetch_to_device`` (two in
 flight), as the JAX trainer's ``_device_batches``.
 """
@@ -103,6 +109,7 @@ from peekvit_torch.ops.cuda.fused_attention import (
     SOFTMAX_HEAD_DIMS,
 )
 from peekvit_torch.ops.cuda.fused_attention_vjp import LN_BWD_MAX_WIDTH
+from peekvit_torch.ops.fake_quant import fake_quant
 from peekvit_torch.ops.noise import default_generator
 from peekvit_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, make_mesh
 from peekvit_torch.parallel.sequence import sequence_parallel_vit_forward
@@ -213,9 +220,6 @@ _NOT_PORTED = {
     "tensor_parallel": (False, "item 9 (parallel and serving)"),
     "fsdp_sharded_params": (False, "item 9 (parallel and serving)"),
     "zero_sharded_optimizer": (False, "item 9 (parallel and serving)"),
-    "qat": (False, "item 8 (QAT)"),
-    "qat_caps": (None, "item 8 (QAT)"),
-    "qat_smoothing": (None, "item 8 (QAT)"),
 }
 
 
@@ -247,6 +251,14 @@ class Trainer:
     grad_accumulation: int = 1
     zero_sharded_optimizer: bool = False
     fsdp_sharded_params: bool = False
+    # quantization-aware training (ops/fake_quant.py): the module forward's
+    # qkv / out-proj / fc1 / fc2 matmuls see int8-grid fake-quantized
+    # operands with straight-through gradients, in the train and the eval
+    # step. True / "dynamic": the dynamic engine's grid; "static": the
+    # static-caps grid of qat_caps (one ((attn_ln, attn_out), (mlp_ln,
+    # mlp_h)) per encoder layer), optionally with the SmoothQuant vectors
+    # qat_smoothing (inference.collect_qat_calibration). Takes the module
+    # path: ``fused`` is coerced off.
     qat: Any = False
     qat_caps: Optional[tuple] = None
     qat_smoothing: Optional[tuple] = None
@@ -280,6 +292,8 @@ class Trainer:
             raise NotImplementedError(
                 f"training with dropout is not ported yet ({DROPOUT_ITEM}): "
                 "build the model with dropout=0.0 and attention_dropout=0.0")
+        if self.qat:
+            self._check_qat(sp)
         self.device = resolve_device(self.device)
         self.output_format = getattr(self.model, "output_format", None)
         # the fused path, decided here from the model and its shapes, before
@@ -297,6 +311,35 @@ class Trainer:
         self._train_kind = None
         self._sp_world = 1
         self._sp_fwd_kwargs = None  # the SP forward's arguments, once the step is built
+
+    def _check_qat(self, sp: bool) -> None:
+        """JAX's QAT checks (trainer.py:180-205), then ``fused`` off: the
+        fake-quant hooks live in the module ops, not in the fused kernels."""
+        if self.qat not in (True, "dynamic", "static"):
+            raise ValueError(f"qat={self.qat!r}: expected False, True/'dynamic', or 'static'")
+        if self.qat == "static" and self.qat_caps is None:
+            raise ValueError("qat='static' requires qat_caps= (the per-layer static "
+                             "calibration tuple from inference.collect_activation_caps)")
+        if (self.qat_smoothing is not None and self.qat_caps is not None
+                and len(self.qat_smoothing) != len(self.qat_caps)):
+            raise ValueError(
+                f"qat_smoothing covers {len(self.qat_smoothing)} layers but qat_caps "
+                f"{len(self.qat_caps)}: calibrate both together "
+                "(inference.collect_qat_calibration)")
+        if sp or (self.pipeline_stages or 0) > 1:
+            raise NotImplementedError("qat=True runs the module step; the pipeline/"
+                                      "sequence-parallel stage math carries no fake-quant hooks")
+        if self.remat:
+            raise NotImplementedError(
+                "qat=True refuses remat=True: a checkpointed backward reruns the forward "
+                "outside the fake_quant block, unquantized")
+        self.fused = False
+
+    def _fake_quant(self):
+        """The fake-quant block every forward runs in (a no-op without QAT):
+        JAX's ``fake_quant(bool(qat), caps if qat == "static", smoothing)``."""
+        return fake_quant(bool(self.qat), self.qat_caps if self.qat == "static" else None,
+                          self.qat_smoothing)
 
     # ------------------------------------------------------------ train step
 
@@ -525,7 +568,8 @@ class Trainer:
                       else torch.full((n,), float(budget), dtype=torch.float32, device=x.device))
         nkw = self._noise_kwargs(noise_value,
                                  lambda: noise_generator(self.seed, step_idx, x.device))
-        out, aux = self._forward(x, budget, gen, nkw)
+        with self._fake_quant():
+            out, aux = self._forward(x, budget, gen, nkw)
         total, metrics = self._loss(out, aux, y, budget, x)
         if self._train_kind == "sp":
             (total / self._sp_world).backward()
@@ -546,11 +590,12 @@ class Trainer:
 
     def eval_step(self, x, y, budget=None, noise_value=None):
         """(correct count, mean loss, aux) of the model's fp32 eval forward,
-        its main logits (``_main_logits``); a NoiseBlock draws from a
-        generator seeded 0 (JAX's eval step: ``rngs={"noise": key(0)}``)."""
+        its main logits (``_main_logits``), fake-quantized under QAT; a
+        NoiseBlock draws from a generator seeded 0 (JAX's eval step:
+        ``rngs={"noise": key(0)}``)."""
         self._check_budget(budget)
         x, y = self._to_device(x, y)
-        with torch.no_grad():
+        with torch.no_grad(), self._fake_quant():
             nkw = self._noise_kwargs(noise_value, lambda: default_generator(x.device))
             out, aux = self._module_forward(x, budget, None, nkw, train=False)
             logits = _main_logits(out, self.output_format)

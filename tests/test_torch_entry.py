@@ -186,7 +186,8 @@ def test_residualvit_run_logs_jax_keys(tmp_path, capsys):
                          "test.noises=[10.0]"] + TEST)[res["experiment_dir"]]
     printed = capsys.readouterr().out
     assert "eval path: fused InferenceEngine" in printed
-    assert "recap plots skipped" in printed and "item 8 part 3" in printed
+    assert {"budget_vs_acc.png", "flops_vs_acc.png", "budget_vs_throughput.png"} <= set(
+        os.listdir(os.path.join(res["experiment_dir"], "images")))
     assert set(out["results_per_budget"]) == {0.25, 0.5, 1.0}
     assert all(set(v) == {10.0} for v in out["results_per_budget"].values())
     assert set(out["sparsities_per_budget"][0.5]) == {"layer_0", "layer_1"}
@@ -257,16 +258,17 @@ def test_reconstruction_run(tmp_path):
     assert model.model_class == "ResidualVisionTransformerWithDecoder"
 
 
+# the options the entry points refuse (QAT and the plots run: tests/test_torch_qat.py,
+# tests/test_torch_visualize.py); each id is the one pytest gave it in a longer list
 @pytest.mark.parametrize("entry, overrides, item", [
-    (cli_train, ["training.qat=true"], "item 8 part 2"),
-    (cli_train, ["training.qat=static"], "item 8 part 2"),
-    (cli_train, ["training.plot_masks_every=1"], "item 8 part 3"),
-    (cli_train, ["+distributed=true"], "item 9"),
-    (cli_recon, ["model=residualvitwithdecoder", "training.plot_masks_every=1"],
-     "item 8 part 3"),
-    (cli_test, ["test.export_bundle=/nonexistent/bundle"], "item 9"),
-    (cli_test, ["test.tensor_parallel_devices=2"], "item 9"),
-    (cli_test, ["+distributed=true"], "item 9"),
+    pytest.param(cli_train, ["+distributed=true"], "item 9",
+                 id="peekvit_torch.cli.train-overrides3-item 9"),
+    pytest.param(cli_test, ["test.export_bundle=/nonexistent/bundle"], "item 9",
+                 id="peekvit_torch.cli.test-overrides5-item 9"),
+    pytest.param(cli_test, ["test.tensor_parallel_devices=2"], "item 9",
+                 id="peekvit_torch.cli.test-overrides6-item 9"),
+    pytest.param(cli_test, ["+distributed=true"], "item 9",
+                 id="peekvit_torch.cli.test-overrides7-item 9"),
 ])
 def test_not_ported_options_raise(tmp_path, entry, overrides, item):
     base = TEST if entry is cli_test else TINY

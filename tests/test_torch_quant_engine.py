@@ -264,7 +264,17 @@ def test_int8_engine_guards(rank_pair):
 # ------------------------------------------------------------ ViT-B width, port alone
 
 
-def test_b16_calibrated_int8_rankvit_tracks_fp32_under_outliers():
+@pytest.fixture
+def one_thread():
+    """One intra-op thread: under the parallel test run, a ViT-B/16 forward
+    on every core of every worker spends its time waiting for cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_b16_calibrated_int8_rankvit_tracks_fp32_under_outliers(one_thread):
     """tests/test_full_scale.py:280-317's budget-1.0 contract on the port
     alone: ViT-B/16 weights with pretrained-like outlier channels
     (tests/realistic_weights.py), the calibrated int8 RankViT engine on the

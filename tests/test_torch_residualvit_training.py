@@ -485,7 +485,8 @@ def test_trainer_guards_that_still_raise():
                   device="cpu", reconstruction_weight=0.5).train_step(x, y, budget=0.5,
                                                                       noise_value=0.5)
     assert set(got) == set(want) and float(got["total_loss"]) == float(want["total_loss"])
-    for kwargs, item in ((dict(mesh=object()), "item 9"), (dict(qat=True), "item 8")):
+    for kwargs, item in ((dict(mesh=object()), "item 9"),
+                         (dict(qat=True, remat=True), "refuses remat")):
         with pytest.raises(NotImplementedError, match=item):
             Trainer(**base, **kwargs)
     vit = build_model("vit", dict(image_size=16, patch_size=8, num_layers=1, num_heads=2,

@@ -429,10 +429,13 @@ def test_trainer_refuses_what_is_not_ported():
     base = dict(model=tm, optimizer=optim.Adam(), device="cpu")
     for kwargs in (dict(mesh=object()), dict(pipeline_stages=2),
                    dict(pipeline_microbatches=2), dict(tensor_parallel=True),
-                   dict(fsdp_sharded_params=True), dict(zero_sharded_optimizer=True),
-                   dict(qat=True), dict(qat="static")):
+                   dict(fsdp_sharded_params=True), dict(zero_sharded_optimizer=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md port queue A item"):
             Trainer(**base, **kwargs)
+    # QAT is ported (tests/test_torch_qat.py); it refuses remat, whose
+    # checkpointed backward would rerun the forward unquantized
+    with pytest.raises(NotImplementedError, match="refuses remat"):
+        Trainer(**base, qat=True, remat=True)
     trainer = Trainer(**base)
     x, y = _batch(1, n=2)
     # ported: a reconstruction weight and a noise value, which a ViT without
