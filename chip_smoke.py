@@ -326,10 +326,20 @@ prints no final result):
    test.quantized=true test.calib_images=64 test.calib_static_caps=true,
    every engine forward counted and the sweep held against the int8 plain
    twin;
+48. serving bundles and the micro-batching host (see serving_phases):
+   ViT-B/16 at 224 px saved as a bucketed bundle (1, 8, 64, 256) and
+   reloaded (bytes of all and of the live leaves, seconds to save and
+   from load to the first served batch beside building the engine), each
+   bucket's forward counted (84 launches) and bit-identical to the live
+   engine's; every other family's bundle against its live engine, bit
+   for bit; the MicroBatcher with 1-256 closed-loop clients and the HTTP
+   host with 1-64 urllib clients (images/s, p50 / p99, the batching
+   counters), every reply held against its own image's plain twin; then
+   cli.test's bundle export and python -m peekvit_torch.serving on it;
 and then, as 43, the {"kernels": [...]} line (launches_by_path gains
-"family_serve", "noise", "cli_train", "cli_test", "qat_serve" and
-"qat_cli_test"), the card's nvidia-smi line, and {"ok": true, "device":
-{...}} as the last line.
+"family_serve", "noise", "cli_train", "cli_test", "qat_serve",
+"qat_cli_test" and "serving"), the card's nvidia-smi line, and {"ok":
+true, "device": {...}} as the last line.
 
 Imports nothing of JAX or of peekvit_tpu.
 """
@@ -6820,6 +6830,478 @@ def qat_phases(torch, fa, dev, smi) -> dict:
     return {"serve_counts": serve_counts, "cli_test_counts": cli_test_counts}
 
 
+# ----------------------------------------------------------------- 48. serving
+
+SERVE_BUCKETS = (1, 8, 64, 256)  # the (a) bundle's batch geometries
+SERVE_CLIENTS = (1, 8, 64, 256)  # closed-loop client threads of the MicroBatcher runs
+HTTP_CLIENTS = (1, 8, 64)        # urllib clients of the HTTP runs
+SERVE_SECONDS = 3.0              # each closed-loop run
+SERVE_POOL = 512                 # distinct images the clients draw from
+SERVE_DELAY_MS = 5.0             # serving_host's default max_delay_ms
+SERVE_PIPELINE_CLIENTS = 64      # where pipeline_fetches 4 and 0 are compared
+SERVE_FAMILY_LAYERS = 4          # (b): depth of the ViT-B/16-width families
+SERVE_FAMILY_RANKED = [1, 2, 3]  # (b): RankViT-B/16's ranked layers at that depth
+SERVE_FAMILY_BATCH = 8           # (b): the bucket, and the padded call's rows
+SERVE_FAMILY_PADDED = 5
+SERVE_CLI_BUCKETS = (1, 8)
+SERVE_CLI_PIXELS = 160           # configs/dataset/synthetic.yaml
+SERVE_CLI_BENCH = 20
+SERVE_WORKSPACE = os.path.join("workspace", "chip_smoke_serving")
+
+
+def serve_depth(args: dict, layers: int = SERVE_FAMILY_LAYERS) -> dict:
+    """``args`` at ``layers`` layers (the residual and ranked schedules cut
+    with it)."""
+    out = dict(args, num_layers=layers)
+    if "residual_layers" in out:
+        out["residual_layers"] = ["attention+mlp"] * layers
+    if "rankvit_layers" in out:
+        out["rankvit_layers"] = SERVE_FAMILY_RANKED
+    return out
+
+
+def closed_loop(submit, clients: int, seconds: float, pool: int) -> tuple:
+    """``clients`` threads, each sending one image at a time through
+    ``submit(index)`` for ``seconds``, client c drawing pool indices c,
+    c + clients, ...: ([(index, reply, latency s)], elapsed s). A client's
+    failure raises."""
+    import threading
+
+    stop = time.perf_counter() + seconds
+    results = [[] for _ in range(clients)]
+    errors = []
+
+    def run(c):
+        i = c
+        try:
+            while time.perf_counter() < stop:
+                idx = i % pool
+                t0 = time.perf_counter()
+                out = submit(idx)
+                results[c].append((idx, out, time.perf_counter() - t0))
+                i += clients
+        except Exception as e:  # re-raised below, in the caller's thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(c,)) for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    elapsed = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    return [r for rs in results for r in rs], elapsed
+
+
+def latency_summary(replies: list, elapsed: float) -> dict:
+    lat = sorted(r[2] for r in replies)
+    return {"replies": len(lat), "seconds": elapsed, "images_per_s": len(lat) / elapsed,
+            "p50_ms": lat[len(lat) // 2] * 1e3, "p99_ms": lat[int(0.99 * (len(lat) - 1))] * 1e3}
+
+
+def serving_phases(torch, fa, dev, smi) -> dict:
+    """Phase 48, serving bundles and the micro-batching host on the card
+    (peekvit_torch/serving.py, serving_host.py), under workspace/
+    chip_smoke_serving (removed at the end):
+
+    (a) ViT-B/16 @224 bf16 (seeded), saved as a bucketed bundle at
+        SERVE_BUCKETS: the bytes of all leaves and of the live ones, the
+        seconds to save, from load_serving_bundle to the first served
+        batch (files warm in the page cache) beside building the engine
+        from the model; at each bucket the bundle's launches (counted;
+        the live engine's 84, key by key) and its logits bit-identical to
+        the live engine's on the same input (where the engine's own rerun
+        is not bit-identical, a kernel is nondeterministic: then 3e-2 of
+        max|logit|); a padded call (5 rows) bit-identical to the engine on
+        the zero-padded batch and within 3e-2 of max|logit| of the plain
+        twin; the bundle alone timed at each bucket;
+    (b) every other family's bundle at its shipped widths (the
+        ViT-B/16-width ones at SERVE_FAMILY_LAYERS layers) against its
+        live engine, bit-identical, exact and padded: ResidualViT-B/16
+        (traced, budgets 0.5 and 1.0), the same with add_budget_token=True
+        (batch-coupled: exact buckets serve, a padded batch is refused),
+        compact-auto at 0.5; RankViT-B/16 exact at 0.5 (static) and padded
+        at max_budget=0.75; int8 ViT-B/16; moevit.yaml @160 dense, routed
+        and int8; A-ViT-S/16; PCT and RankPCT at ModelNet40 width;
+        the EncDec and MAE with recon_outputs=True; the EE ResidualViT
+        (eeresidualvit.yaml) with its exit tuple;
+    (c) MicroBatcher over (a)'s bundle: closed-loop client threads
+        (SERVE_CLIENTS) sending single images for SERVE_SECONDS each:
+        images/s, p50 / p99 latency, mean items a batch, the padded share,
+        the stats breakdown a batch, pipeline_fetches 4 against 0 at 64
+        clients, beside the bundle alone at each bucket; every reply
+        within 3e-2 of max|logit| of its own image's plain twin, top-1
+        equal on decided images (distinct images: a reply routed to the
+        wrong caller fails);
+    (d) build_server on port 0 with HTTP_CLIENTS urllib clients posting
+        .npy single images: requests/s, p50 / p99, the same reply check;
+    (e) cli.test on vit_tiny (synthetic.yaml at 160 px) with
+        test.export_bundle and test.export_buckets=[1,8], then
+        ``python -m peekvit_torch.serving`` on the bundle with --bench 20,
+        its outputs against the sweep engine's on the same images.
+
+    Any failure raises. Returns the bundles' launch counts (the
+    ``serving`` path)."""
+    import io
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from peekvit_torch import InferenceEngine
+    from peekvit_torch import inference as ti
+    from peekvit_torch import serving as sv
+    from peekvit_torch.cli import test as cli_test
+    from peekvit_torch.serving_host import MicroBatcher, build_server
+    from peekvit_torch.utils.checkpoint import save_state
+
+    bf16 = torch.bfloat16
+    t_start = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, SERVE_WORKSPACE)
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    gen = torch.Generator(device=dev).manual_seed(48)
+    counts: dict = {}
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+
+    def served(fn):
+        """fn() on a bundle: its output and launches, added to the path's."""
+        out, c = counted(torch, fa, fn)
+        add(c)
+        return out, c
+
+    def images(n, size=B16["image_size"]):
+        return torch.randn(n, size, size, 3, generator=gen, device=dev)
+
+    def leaves(out):
+        return list(out) if isinstance(out, (tuple, list)) else [out]
+
+    def held(label, got, want, rerun) -> dict:
+        """The bundle's outputs bit-identical to the live engine's; where
+        the engine's own rerun is not (a nondeterministic kernel), within
+        TOL_BF16 of max|output| instead."""
+        g, w = leaves(got), leaves(want)
+        if len(g) != len(w) or any(a.shape != b.shape for a, b in zip(g, w)):
+            raise AssertionError(f"{label}: outputs {[a.shape for a in g]}, "
+                                 f"want {[b.shape for b in w]}")
+        delta = max((a.float() - b.float()).abs().max().item() for a, b in zip(g, w))
+        if delta == 0.0 and all(torch.equal(a, b) for a, b in zip(g, w)):
+            return {"bit_identical": True}
+        if all(torch.equal(a, b) for a, b in zip(leaves(rerun()), w)):
+            raise AssertionError(f"{label}: the bundle differs from its deterministic engine "
+                                 f"by {delta}")
+        spread = max(b.float().abs().max().item() for b in w)
+        if not delta <= TOL_BF16 * spread:
+            raise AssertionError(f"{label}: {delta} over {TOL_BF16} of {spread}")
+        return {"bit_identical": False, "engine_rerun_bit_identical": False,
+                "max_abs_delta": delta, "tolerance_rel": TOL_BF16}
+
+    def vit_twin(engine, x):
+        kw = {k: v for k, v in engine._forward.items() if k != "compute_dtype"}
+        return ti.vit_forward_plain(engine.params, x, compute_dtype=bf16, **kw)
+
+    try:
+        # (a) the main path: ViT-B/16 @224 bf16, bucketed
+        model = seeded_residual_model(torch, "vit", B16)
+        sample = images(8)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine = InferenceEngine(model, device=DEVICE)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        with torch.inference_mode():
+            engine(sample[:1])
+        torch.cuda.synchronize()
+        build_first_s = time.perf_counter() - t0
+        path = os.path.join(work, "vit_b16")
+        t0 = time.perf_counter()
+        sv.save_bucketed_bundle(engine, path, sample, SERVE_BUCKETS)
+        save_s = time.perf_counter() - t0
+        flat = sv._flatten(engine.params)
+        live = set(np.load(os.path.join(path, "params.npz")).files)
+        x1 = images(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        srv = sv.load_serving_bundle(path, device=DEVICE)
+        served(lambda: srv(x1))
+        load_first_s = time.perf_counter() - t0
+        want_counts = engine_per_forward(fa, VIT_ENGINE_PER_LAYER,
+                                         B16["hidden_dim"] // B16["num_heads"], B16["num_layers"])
+        buckets, alone = {}, {}
+        with torch.inference_mode():
+            for n in SERVE_BUCKETS:
+                x = images(n)
+                got, c = served(lambda: srv(x))
+                want, wc = counted(torch, fa, lambda: engine(x))
+                if c != want_counts or wc != want_counts:
+                    raise AssertionError(f"vit_b16 bundle b{n}: launches {c}, engine {wc}, "
+                                         f"want {want_counts}")
+                rec = held(f"vit_b16 bundle b{n}", got, want, lambda: engine(x))
+                ms = cuda_ms(torch, lambda: srv(x), iters=10)
+                engine_ms = cuda_ms(torch, lambda: engine(x), iters=10)
+                alone[n] = n / ms * 1e3
+                buckets[n] = dict(rec, launches=sum(c.values()), ms=ms, images_per_s=alone[n],
+                                  engine_ms=engine_ms)
+            x5 = images(SERVE_FAMILY_PADDED)
+            got, _ = served(lambda: srv(x5))
+            padded = torch.cat([x5, x5.new_zeros((3,) + tuple(x5.shape[1:]))])
+            rec_pad = held("vit_b16 bundle padded 5 -> 8", got, engine(padded)[:5],
+                           lambda: engine(padded)[:5])
+            ref = vit_twin(engine, x5)
+            rec_pad.update(compare_logits(torch, "vit_b16 bundle padded", got, [
+                ("plain_bf16", ref, 0.0, TOL_BF16 * ref.abs().max().item())]))
+        emit({"phase": "serving_bundle", "model": "vit_b_16", "buckets": list(SERVE_BUCKETS),
+              "all_leaves_bytes": sum(t.numel() * t.element_size() for t in flat.values()),
+              "live_leaves_bytes": sum(flat[k].numel() * flat[k].element_size() for k in live),
+              "params_npz_bytes": os.path.getsize(os.path.join(path, "params.npz")),
+              "leaves": len(flat), "live_leaves": len(live), "save_s": save_s,
+              "load_to_first_batch_s": load_first_s, "engine_build_s": build_s,
+              "engine_build_to_first_batch_s": build_first_s, "page_cache": "warm",
+              "launches_per_forward": sum(want_counts.values()), "per_bucket": buckets,
+              "padded_5": rec_pad, "card": smi})
+
+        # (c) the MicroBatcher over (a)'s bundle, closed-loop clients
+        pool = images(SERVE_POOL)
+        with torch.inference_mode():
+            twin = torch.cat([vit_twin(engine, pool[i:i + 64]) for i in range(0, SERVE_POOL, 64)])
+        pool_host = pool.cpu().numpy()
+        distinct = len(set(twin.argmax(-1).tolist()))
+
+        def reply_check(label, replies):
+            idx = torch.tensor([r[0] for r in replies], device=dev)
+            got = torch.from_numpy(np.concatenate([r[1] for r in replies])).to(dev)
+            ref = twin[idx]
+            return compare_logits(torch, label, got, [
+                ("plain_bf16", ref, 0.0, TOL_BF16 * ref.abs().max().item())])
+
+        def batcher_run(clients, fetches):
+            mb = MicroBatcher(srv, max_delay_ms=SERVE_DELAY_MS, pipeline_fetches=fetches)
+            try:
+                fa.reset_launch_counts()
+                mb.predict(pool_host[0], timeout=120)  # warm-up
+                replies, elapsed = closed_loop(
+                    lambda i: mb.submit(pool_host[i]).result(120), clients, SERVE_SECONDS,
+                    SERVE_POOL)
+            finally:
+                mb.close()
+            torch.cuda.synchronize()
+            add(fa.LAUNCHES)
+            st = dict(mb.stats)
+            nb = max(st["batches"], 1)
+            rec = dict(latency_summary(replies, elapsed), clients=clients,
+                       pipeline_fetches=fetches, max_delay_ms=SERVE_DELAY_MS,
+                       mean_items_per_batch=st["items"] / nb,
+                       padded_share=st["padded_rows"] / max(st["items"] + st["padded_rows"], 1),
+                       per_batch_ms={k: st[k] / nb for k in ("t_concat_ms", "t_dispatch_ms",
+                                                             "t_fetch_ms", "t_deliver_ms")},
+                       stats=st, bundle_alone_images_per_s=alone,
+                       check=reply_check(f"microbatcher C={clients} fetches={fetches}",
+                                         replies))
+            if st["errors"] or st["shed"] or st["rejected"]:
+                raise AssertionError(f"microbatcher C={clients}: {st}")
+            return rec
+
+        runs = [batcher_run(c, 4) for c in SERVE_CLIENTS]
+        runs.append(batcher_run(SERVE_PIPELINE_CLIENTS, 0))
+        for rec in runs:
+            emit({"phase": "serving_microbatcher", "model": "vit_b_16",
+                  "distinct_top1_in_pool": distinct, **rec, "card": smi})
+
+        # (d) HTTP: build_server on port 0, urllib clients
+        bodies = []
+        for i in range(SERVE_POOL):
+            buf = io.BytesIO()
+            np.save(buf, pool_host[i])
+            bodies.append(buf.getvalue())
+        for clients in HTTP_CLIENTS:
+            mb = MicroBatcher(srv, max_delay_ms=SERVE_DELAY_MS)
+            httpd = build_server(mb, port=0)
+            thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+            thread.start()
+            url = f"http://127.0.0.1:{httpd.server_port}/predict"
+
+            def post(i):
+                req = urllib.request.Request(url, data=bodies[i], method="POST")
+                with urllib.request.urlopen(req, timeout=120) as resp:
+                    return np.load(io.BytesIO(resp.read()))
+
+            try:
+                fa.reset_launch_counts()
+                post(0)  # warm-up
+                replies, elapsed = closed_loop(post, clients, SERVE_SECONDS, SERVE_POOL)
+            finally:
+                httpd.shutdown()
+                httpd.server_close()
+                thread.join()
+                mb.close()
+            torch.cuda.synchronize()
+            add(fa.LAUNCHES)
+            st = dict(mb.stats)
+            emit({"phase": "serving_http", "model": "vit_b_16", "clients": clients,
+                  **latency_summary(replies, elapsed),
+                  "mean_items_per_batch": st["items"] / max(st["batches"], 1), "stats": st,
+                  "bundle_alone_images_per_s": alone,
+                  "check": reply_check(f"http C={clients}", replies), "card": smi})
+        del engine, srv, model, pool, twin
+        torch.cuda.empty_cache()
+
+        # (b) every other family's bundle against its live engine
+        def family(label, engine, x, save_budget=None, budgets=(None,), coupled=False,
+                   compact=False):
+            path = os.path.join(work, label)
+            t0 = time.perf_counter()
+            sv.save_bucketed_bundle(engine, path, x, (SERVE_FAMILY_BATCH,), budget=save_budget)
+            save_s = time.perf_counter() - t0
+            bundle = sv.load_serving_bundle(path, device=DEVICE)
+            recs = {}
+            xp = x[:SERVE_FAMILY_PADDED]
+            zeros = xp.new_zeros((SERVE_FAMILY_BATCH - SERVE_FAMILY_PADDED,) + tuple(x.shape[1:]))
+            with torch.inference_mode():
+                for b in budgets:
+                    kw = {} if b is None else {"budget": b}
+                    got, c = served(lambda: bundle(x, **kw))
+                    want, wc = counted(torch, fa, lambda: engine(x, **kw))
+                    if c != wc:
+                        raise AssertionError(f"{label} bundle: launches {c}, engine {wc}")
+                    recs[f"{b}/exact"] = dict(held(f"{label} {b}", got, want,
+                                                   lambda: engine(x, **kw)),
+                                              launches=sum(c.values()))
+                    if coupled:
+                        try:
+                            bundle(xp, **kw)
+                        except ValueError as e:
+                            recs[f"{b}/padded"] = {"refused": str(e)[:80]}
+                            continue
+                        raise AssertionError(f"{label}: a padded coupled batch was served")
+                    got, _ = served(lambda: bundle(xp, **kw))
+                    xz = torch.cat([xp, zeros])
+                    recs[f"{b}/padded"] = held(
+                        f"{label} {b} padded", got,
+                        tuple(v[:SERVE_FAMILY_PADDED] for v in leaves(engine(xz, **kw))),
+                        lambda: tuple(v[:SERVE_FAMILY_PADDED] for v in leaves(engine(xz, **kw))))
+                if compact:  # a lower budget runs with the export budget's capacities
+                    fwd, fkw, _ = engine._resolve(save_budget)
+                    got, _ = served(lambda: bundle(x, budget=save_budget / 2))
+                    recs["compact_lower_budget"] = held(
+                        f"{label} budget {save_budget / 2}", got,
+                        fwd(engine.params, x, save_budget / 2, **fkw),
+                        lambda: fwd(engine.params, x, save_budget / 2, **fkw))
+            meta = bundle.meta
+            with open(os.path.join(path, f"b{SERVE_FAMILY_BATCH}", "meta.json")) as f:
+                sub_meta = json.load(f)
+            emit({"phase": "serving_family", "family": label, "budget_mode": meta["budget_mode"],
+                  "batch_coupled": bool(meta.get("batch_coupled")),
+                  "forward": sub_meta["forward"], "save_s": save_s,
+                  "params_npz_bytes": os.path.getsize(os.path.join(path, "params.npz")),
+                  "checks": recs, "card": smi})
+            shutil.rmtree(path)
+            torch.cuda.empty_cache()
+
+        b16 = serve_depth(B16)
+        res16 = serve_depth(RESIDUALVIT_B16)
+        rank16 = serve_depth(RANKVIT_B16)
+        x8 = images(SERVE_FAMILY_BATCH)
+        res = seeded_residual_model(torch, "residualvit", res16)
+        family("residualvit_b16", InferenceEngine(res, device=DEVICE), x8,
+               budgets=(0.5, 1.0))
+        family("residualvit_b16_compact_auto", InferenceEngine(res, device=DEVICE, compact=True),
+               x8, save_budget=0.5, budgets=(0.5,), compact=True)
+        del res
+        coupled = seeded_residual_model(torch, "residualvit",
+                                        dict(res16, add_budget_token=True))
+        family("residualvit_b16_coupled", InferenceEngine(coupled, device=DEVICE), x8,
+               budgets=(0.5, 1.0), coupled=True)
+        del coupled
+        rank = seeded_residual_model(torch, "rankvit", rank16)
+        family("rankvit_b16_exact", InferenceEngine(rank, device=DEVICE), x8, save_budget=0.5,
+               budgets=(0.5,))
+        family("rankvit_b16_padded", InferenceEngine(rank, device=DEVICE, max_budget=0.75), x8,
+               budgets=(0.75, 0.5, 0.25))
+        del rank
+        vit = seeded_residual_model(torch, "vit", b16)
+        family("vit_b16_int8", InferenceEngine(vit, device=DEVICE, quantized=True), x8)
+        del vit
+        moe = seeded_residual_model(torch, "moevit", MOE_YAML)
+        xm = images(SERVE_FAMILY_BATCH, MOE_YAML["image_size"])
+        for name in ("dense", "routed_2", "int8"):
+            family(f"moevit_{name}", InferenceEngine(moe, device=DEVICE, **MOE_ENGINES[name]),
+                   xm)
+        del moe
+        avit = seeded_residual_model(torch, "adavit", dict(AVIT_S16, gate_scale=5.0,
+                                                            gate_center=0.0))
+        family("adavit_s16", InferenceEngine(avit, device=DEVICE), x8)
+        del avit
+        clouds = surface_clouds(torch, gen, SERVE_FAMILY_BATCH, PCT_M40["num_points"], dev)
+        for name in ("pct", "rankpct"):
+            pct = seeded_pct_model(torch, name)
+            family(name, InferenceEngine(pct, device=DEVICE), clouds,
+                   save_budget=0.5 if name == "rankpct" else None,
+                   budgets=(0.5,) if name == "rankpct" else (None,))
+            del pct
+        xr = images(SERVE_FAMILY_BATCH, RECON_MODELS["maevit"]["image_size"])
+        for name, budgets in (("encdecresidualvit", (0.5, 1.0)), ("maevit", (None,))):
+            recon = seeded_residual_model(torch, name, RECON_MODELS[name])
+            family(f"{name}_recon", InferenceEngine(recon, device=DEVICE, recon_outputs=True),
+                   xr, budgets=budgets)
+            del recon
+        ee = seeded_residual_model(torch, "eeresidualvit", EE_YAML)
+        family("eeresidualvit", InferenceEngine(ee, device=DEVICE, ee_outputs=True),
+               images(SERVE_FAMILY_BATCH, EE_YAML["image_size"]), budgets=(0.5, 1.0))
+        del ee
+        torch.cuda.empty_cache()
+
+        # (e) the CLIs: cli.test's bundle export, then the serving CLI
+        tiny = seeded_residual_model(torch, "vit", dict(SHIPPED["vit_tiny"][1],
+                                                           image_size=SERVE_CLI_PIXELS))
+        ckpt = save_state(os.path.join(work, "vit_tiny_ckpt"), tiny)
+        del tiny
+        bdir = os.path.join(work, "vit_tiny_bundle")
+        overrides = [f"workspace={work}", "dataset=synthetic", "experiment_name=serve_eval",
+                     f"load_from={ckpt}", f"test.export_bundle={bdir}",
+                     "test.export_buckets=[" + ",".join(map(str, SERVE_CLI_BUCKETS)) + "]"]
+        with CallRecorder(fa, InferenceEngine, "__call__", keep=True) as calls:
+            _, lines = run_cli(cli_test.main, overrides + ["--device", DEVICE])
+        if f"exported serving bundle: {bdir}" not in lines:
+            raise AssertionError(f"cli.test export: {lines[-4:]}")
+        sweep_engine = calls.calls[0]["obj"]
+        x = calls.calls[1]["args"][0][:SERVE_CLI_BUCKETS[-1]]
+        inp, out = os.path.join(work, "input.npy"), os.path.join(work, "out.npy")
+        np.save(inp, x.float().cpu().numpy())
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "peekvit_torch.serving", bdir, inp,
+                               "--bench", str(SERVE_CLI_BENCH), "--out", out,
+                               "--device", DEVICE], cwd=root,
+                              capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"serving CLI: rc {proc.returncode}: {proc.stderr[-2000:]}")
+        info = json.loads(proc.stdout.strip().splitlines()[-1])
+        with torch.inference_mode():
+            want = sweep_engine(x)
+        got = torch.from_numpy(np.load(out)).to(dev)
+        rec = compare_logits(torch, "serving CLI", got, [
+            ("sweep_engine", want, 0.0, TOL_BF16 * want.abs().max().item())])
+        emit({"phase": "serving_cli", "overrides": overrides,
+              "printed": [ln for ln in lines if ln.startswith(("eval path", "exported"))],
+              "bundle_buckets": sorted(os.listdir(bdir)), "serving_cli": info,
+              "serving_cli_process_s": cli_s, "bit_identical": bool(torch.equal(got, want)),
+              "check": rec, "card": smi})
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    missing = [k for k in want_counts if not counts.get(k)]
+    if missing:
+        raise AssertionError(f"kernels never launched on the serving path: {missing}")
+    emit({"phase": "serving_elapsed", "seconds": time.perf_counter() - t_start,
+          "counts": counts, "card": smi})
+    return {"counts": counts}
+
+
 def main() -> int:
     import torch
 
@@ -7335,6 +7817,8 @@ def main() -> int:
     cli = cli_phases(torch, fa, dev, smi)
     # ------------------------------------------- 47. quantization-aware training
     qat = qat_phases(torch, fa, dev, smi)
+    # ------------------------------------- 48. serving bundles and the host
+    serving = serving_phases(torch, fa, dev, smi)
     for entry in kernels:  # the later paths run earlier kernels too
         entry["launches_by_path"]["merged"] = mtrain["counts"]["merged"].get(entry["name"], 0)
         entry["launches_by_path"]["hybrid"] = mtrain["counts"]["hybrid"].get(entry["name"], 0)
@@ -7350,6 +7834,7 @@ def main() -> int:
         entry["launches_by_path"]["cli_test"] = cli["test_counts"].get(entry["name"], 0)
         entry["launches_by_path"]["qat_serve"] = qat["serve_counts"].get(entry["name"], 0)
         entry["launches_by_path"]["qat_cli_test"] = qat["cli_test_counts"].get(entry["name"], 0)
+        entry["launches_by_path"]["serving"] = serving["counts"].get(entry["name"], 0)
     # every path's counts as this run measured them, read by each new
     # entry's count key
     measured = {"engine": main_counts, "split": split_counts, "train": train["counts"],
@@ -7364,7 +7849,8 @@ def main() -> int:
                 "shipped_train": shipped["counts"], "recon": recon["counts"], "moe": moe["counts"],
                 "family_serve": family["counts"], "noise": noise["counts"],
                 "cli_train": cli["train_counts"], "cli_test": cli["test_counts"],
-                "qat_serve": qat["serve_counts"], "qat_cli_test": qat["cli_test_counts"]}
+                "qat_serve": qat["serve_counts"], "qat_cli_test": qat["cli_test_counts"],
+                "serving": serving["counts"]}
     later = (merged_entries + [mod["entry"]] + tp_entries + sp_entries + tiled_entries
              + recon["entries"] + moe["entries"])
     for entry in later:

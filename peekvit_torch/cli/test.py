@@ -28,9 +28,16 @@ or ``budget_noise_grid.png`` over several noise values), and
 ``test.cumulative_plot_dir`` (``utils/visualize.py``). Where matplotlib is
 missing, each is skipped with one printed line.
 
-Not ported yet, and refused: ``test.export_bundle``,
-``test.tensor_parallel_devices > 1`` and ``distributed`` (ROADMAP.md port
-queue A item 9).
+``test.export_bundle=DIR`` packages the engine the sweep just validated
+into serving bundles (``peekvit_torch/serving.py``): a bucketed bundle
+with ``test.export_buckets=[1,8,...]``, else one at the sweep's own batch
+geometry; an exact-drop ranking engine gets one ``budget_{b}/`` bundle per
+swept budget. The export is best-effort: a mode that cannot be packaged
+prints ``export_bundle: not exportable (...)`` and the sweep's results
+stand.
+
+Not ported yet, and refused: ``test.tensor_parallel_devices > 1`` and
+``distributed`` (ROADMAP.md port queue A item 9).
 """
 
 from __future__ import annotations
@@ -53,8 +60,6 @@ ENGINE_FAMILIES = ("VisionTransformer", "RankVisionTransformer", "ResidualVision
 def refuse_not_ported(cfg) -> None:
     refuse_distributed(cfg)
     tcfg = cfg.test
-    if tcfg.get("export_bundle"):
-        raise NotImplementedError(f"test.export_bundle is not ported yet: {PARALLEL_ITEM}")
     if int(tcfg.get("tensor_parallel_devices", 0) or 0) > 1:
         raise NotImplementedError(
             f"test.tensor_parallel_devices > 1 is not ported yet: {PARALLEL_ITEM}")
@@ -204,11 +209,48 @@ def validate(model, cfg, dataset, experiment_dir, logger, device="cuda") -> dict
             flops_per_budget[b], _ = compute_flops(model, flops_batch, budget=b)
             sparsities_per_budget[b] = sparsity_per_module(model, flops_batch, budget=b)
 
+    if tcfg.get("export_bundle"):
+        export_bundles(engine, tcfg.export_bundle, flops_batch, budgets,
+                       tcfg.get("export_buckets"))
+
     summary = {"results_per_budget": results_per_budget, "flops": flops_per_budget,
                "timings_wall": timings, "timings_device": device_timings,
                "sparsities_per_budget": sparsities_per_budget}
     logger.log(summary)
     return summary
+
+
+def export_bundles(engine, bundle_dir: str, sample, budgets, buckets) -> None:
+    """``test.export_bundle``: the sweep's engine as serving bundles, a
+    bucketed one at ``buckets`` where given, else at ``sample``'s batch
+    geometry; one ``budget_{b}/`` bundle per swept budget for an
+    exact-drop ranking engine (JAX validate/test.py:273-316)."""
+    if engine is None:
+        print("export_bundle: no fused engine for this model/mode; nothing exported",
+              flush=True)
+        return
+    from peekvit_torch.serving import save_bucketed_bundle, save_serving_bundle
+
+    def export(path, budget=None):
+        if buckets:
+            return save_bucketed_bundle(engine, path, sample, batch_sizes=buckets,
+                                        budget=budget)
+        return save_serving_bundle(engine, path, sample, budget=budget)
+
+    exact_drop = ((engine._rank and engine._max_budget is None)
+                  or getattr(engine, "_ranking", None) is not None)
+    try:
+        if exact_drop:
+            for b in budgets:
+                p = export(os.path.join(bundle_dir, f"budget_{b}"), budget=b)
+                print(f"exported serving bundle: {p}", flush=True)
+        else:
+            p = export(bundle_dir)
+            print(f"exported serving bundle: {p}", flush=True)
+    except (NotImplementedError, ValueError) as e:
+        # best-effort: never lose the completed sweep's results to a
+        # packaging error
+        print(f"export_bundle: not exportable ({e})", flush=True)
 
 
 def _have_matplotlib(what: str) -> bool:

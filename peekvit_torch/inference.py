@@ -2308,6 +2308,14 @@ class InferenceEngine:
                 "ROADMAP.md port queue B item 15 (fp32 on CUDA)")
         self._module = model
         self._residual = residual
+        # every budget-token mode but 'learnable' takes the whole batch's
+        # budget-token mean (_residual_forward), so one image's outputs
+        # depend on its batchmates: serving must not zero-pad such a batch
+        # (JAX inference.py:2559-2567). The routed MoE's whole-batch
+        # capacity couples a batch too; JAX does not mark it, nor does the
+        # port (ROADMAP.md queue C)
+        self._batch_coupled = bool(residual and model.add_budget_token
+                                   not in (False, None, "learnable"))
         self._rank = rank
         self._avit = avit
         self._pct = pct
@@ -2315,6 +2323,7 @@ class InferenceEngine:
         self._mae = mae
         self._quantized = bool(quantized)
         self.caps = None
+        self._mesh = mesh
         self._tp_make = None
         if tp:
             from peekvit_torch.parallel.tp_serving import tp_serving_engine
@@ -2498,38 +2507,49 @@ class InferenceEngine:
                     return self._tp_make(None)(self.params, images, b)
                 b = None if not self._rank or budget is None else float(budget)
                 return self._tp_make(b)(self.params, images)
-            if self._pct:
-                if self._ranking is None:
-                    return pct_forward_fused(self.params, images, **self._forward)
-                b = (None if not any(self._ranking)
-                     else 1.0 if budget is None else float(budget))
-                return rankpct_forward_fused(self.params, images, budget=b,
-                                             ranking=self._ranking, **self._forward)
-            q = dict(caps=self.caps) if self._quantized else {}
-            if self._rank:
-                b = 1.0 if budget is None else float(budget)
-                if self._max_budget is None:
-                    fwd = rankvit_forward_quant if self._quantized else rankvit_forward_fused
-                    return fwd(self.params, images, budget=b, noise=noise, **self._forward, **q)
-                if b > self._max_budget + 1e-9:
-                    raise ValueError(f"budget {b} exceeds the engine's static max_budget "
-                                     f"{self._max_budget}")
-                fwd = rankvit_forward_padded_quant if self._quantized else rankvit_forward_padded
-                return fwd(self.params, images, b, max_budget=self._max_budget, noise=noise,
-                           **self._forward, **q)
-            if self._moe:
-                fwd = moevit_forward_quant if self._quantized else moevit_forward_fused
-                return fwd(self.params, images, noise=noise, **self._forward)
-            if self._avit:
-                return adavit_forward_fused(self.params, images, **self._forward)
-            if self._mae:
-                return maevit_forward_fused(self.params, images, **self._forward)
-            if not self._residual:
-                fwd = vit_forward_quant if self._quantized else vit_forward_fused
-                return fwd(self.params, images, noise=noise, **self._forward, **q)
+            fwd, kw, operand = self._resolve(budget, noise)
+            if operand is None:
+                return fwd(self.params, images, **kw)
+            return fwd(self.params, images, operand, **kw)
+
+    def _resolve(self, budget: Optional[float], noise: Optional[NoiseSpec] = None) -> tuple:
+        """What a call at ``budget`` runs: ``(forward, keywords, operand)``.
+        The engine computes ``forward(params, images, **keywords)``, or
+        ``forward(params, images, operand, **keywords)`` where the operand
+        (the budget of a ResidualViT or of the padded RankViT) is not None.
+        ``__call__`` and the serving bundles (``serving.py``) both resolve
+        here, so a bundle runs what its engine runs. Not for a
+        tensor-parallel engine."""
+        if self._pct:
+            if self._ranking is None:
+                return pct_forward_fused, dict(self._forward), None
+            b = (None if not any(self._ranking)
+                 else 1.0 if budget is None else float(budget))
+            return (rankpct_forward_fused, dict(self._forward, budget=b, ranking=self._ranking),
+                    None)
+        q = dict(caps=self.caps) if self._quantized else {}
+        if self._rank:
             b = 1.0 if budget is None else float(budget)
-            if self._quantized:
-                return residualvit_forward_quant(self.params, images, b, noise=noise,
-                                                 **self._forward, **q)
-            return residualvit_forward_fused(self.params, images, b, noise=noise,
-                                             compact_caps=self.compact_caps(b), **self._forward)
+            if self._max_budget is None:
+                fwd = rankvit_forward_quant if self._quantized else rankvit_forward_fused
+                return fwd, dict(self._forward, budget=b, noise=noise, **q), None
+            if b > self._max_budget + 1e-9:
+                raise ValueError(f"budget {b} exceeds the engine's static max_budget "
+                                 f"{self._max_budget}")
+            fwd = rankvit_forward_padded_quant if self._quantized else rankvit_forward_padded
+            return fwd, dict(self._forward, max_budget=self._max_budget, noise=noise, **q), b
+        if self._moe:
+            fwd = moevit_forward_quant if self._quantized else moevit_forward_fused
+            return fwd, dict(self._forward, noise=noise), None
+        if self._avit:
+            return adavit_forward_fused, dict(self._forward), None
+        if self._mae:
+            return maevit_forward_fused, dict(self._forward), None
+        if not self._residual:
+            fwd = vit_forward_quant if self._quantized else vit_forward_fused
+            return fwd, dict(self._forward, noise=noise, **q), None
+        b = 1.0 if budget is None else float(budget)
+        if self._quantized:
+            return residualvit_forward_quant, dict(self._forward, noise=noise, **q), b
+        return (residualvit_forward_fused,
+                dict(self._forward, noise=noise, compact_caps=self.compact_caps(b)), b)

@@ -263,8 +263,6 @@ def test_reconstruction_run(tmp_path):
 @pytest.mark.parametrize("entry, overrides, item", [
     pytest.param(cli_train, ["+distributed=true"], "item 9",
                  id="peekvit_torch.cli.train-overrides3-item 9"),
-    pytest.param(cli_test, ["test.export_bundle=/nonexistent/bundle"], "item 9",
-                 id="peekvit_torch.cli.test-overrides5-item 9"),
     pytest.param(cli_test, ["test.tensor_parallel_devices=2"], "item 9",
                  id="peekvit_torch.cli.test-overrides6-item 9"),
     pytest.param(cli_test, ["+distributed=true"], "item 9",
@@ -275,6 +273,26 @@ def test_not_ported_options_raise(tmp_path, entry, overrides, item):
     with pytest.raises(NotImplementedError, match=item):
         entry.main([f"workspace={tmp_path}", "experiment_name=x", "--device", "cpu"]
                    + base + overrides)
+
+
+def test_cli_test_exports_a_loadable_bundle(tmp_path, capsys):
+    """test.export_bundle (no longer refused) writes a bundle of the sweep's
+    engine at its batch geometry, which loads and serves the engine's
+    logits bit for bit."""
+    from peekvit_torch.inference import InferenceEngine
+    from peekvit_torch.serving import load_serving_bundle
+
+    model = build_model("vit", dict(image_size=16, patch_size=8, num_layers=2, hidden_dim=32,
+                                    mlp_dim=64, num_heads=2, num_classes=10), device="cpu")
+    ckpt = save_state(str(tmp_path / "ckpt"), model)
+    bundle = str(tmp_path / "bundle")
+    cli_test.main([f"workspace={tmp_path}", "experiment_name=x", f"load_from={ckpt}",
+                   f"test.export_bundle={bundle}", "--device", "cpu"] + TEST)
+    assert f"exported serving bundle: {bundle}" in capsys.readouterr().out
+    srv = load_serving_bundle(bundle, device="cpu")
+    x = np.random.default_rng(0).normal(size=(16, 16, 16, 3)).astype(np.float32)
+    assert srv.batch_sizes == (16,)
+    assert torch.equal(srv(x), InferenceEngine(model, device="cpu")(x))
 
 
 @pytest.mark.parametrize("entry", [cli_train, cli_recon, cli_test])

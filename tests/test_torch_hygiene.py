@@ -5,6 +5,7 @@ asks for the CPU."""
 import ast
 import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -42,10 +43,12 @@ def test_port_imports_no_jax():
     assert not {f: b for f, b in bad.items() if b}
 
 
-def test_entry_points_default_to_the_card(monkeypatch):
-    """Without device="cpu", build_model, InferenceEngine and Trainer need a
-    card and raise when there is none (decided here, not at import time)."""
+def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    """Without device="cpu", build_model, InferenceEngine, Trainer,
+    load_serving_bundle and the serving CLIs need a card and raise when
+    there is none (decided here, not at import time)."""
     from peekvit_torch import InferenceEngine, Trainer, build_model
+    from peekvit_torch import serving, serving_host
     from peekvit_torch.training.optim import AdamW
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -59,6 +62,15 @@ def test_entry_points_default_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Trainer(model, AdamW())
     assert Trainer(model, AdamW(), device="cpu").device == torch.device("cpu")
+    path = serving.save_serving_bundle(
+        InferenceEngine(model, compute_dtype=torch.float32, device="cpu"),
+        str(tmp_path / "bundle"), np.zeros((2, 32, 32, 3), np.float32))
+    for load in (lambda: serving.load_serving_bundle(path),
+                 lambda: serving._main([path, str(tmp_path / "x.npy")]),
+                 lambda: serving_host._main([path, "--port", "0"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            load()
+    assert serving.load_serving_bundle(path, device="cpu").device == torch.device("cpu")
 
 
 def test_import_builds_nothing():
