@@ -336,10 +336,25 @@ prints no final result):
    host with 1-64 urllib clients (images/s, p50 / p99, the batching
    counters), every reply held against its own image's plain twin; then
    cli.test's bundle export and python -m peekvit_torch.serving on it;
+49. training with dropout and data parallelism (see dropout_phases and
+   dp_phases): a ViT-B/16 Trainer at dropout = attention_dropout = 0.1
+   takes 5 module-path steps at bs64 (finite, falling losses; every
+   site's keep share within 5 sigma of 0.9; the time to draw one step's
+   masks; ms a step and peak memory beside the same model's module step
+   at rate 0), A-ViT-S/16, MoE and MAE one step each at 0.1; then 2
+   spawned ranks on cuda:0 over gloo (a (2, 1) data mesh) serve ViT-B/16,
+   a ResidualViT-B/16 with a constant budget token at 0.4 / 0.9 and int8
+   ViT-B/16 at a global bs256 through InferenceEngine(mesh=) and train
+   the fused ViT-B/16 and ResidualViT-B/16 steps and a ZeRO-1 step for 3
+   steps at a global bs64 through Trainer(mesh=): every rank bit-identical,
+   each rank's launches a forward and a step the single-device ones, the
+   logits, losses and updates against the single-device engine and step
+   of the same seed, ms per rank ("gloo through the host, 2 processes
+   sharing one card: not NCCL"), ZeRO-1's optimizer bytes a rank;
 and then, as 43, the {"kernels": [...]} line (launches_by_path gains
 "family_serve", "noise", "cli_train", "cli_test", "qat_serve",
-"qat_cli_test" and "serving"), the card's nvidia-smi line, and {"ok":
-true, "device": {...}} as the last line.
+"qat_cli_test", "serving", "dp_serve" and "dp_train"), the card's
+nvidia-smi line, and {"ok": true, "device": {...}} as the last line.
 
 Imports nothing of JAX or of peekvit_tpu.
 """
@@ -7302,6 +7317,392 @@ def serving_phases(torch, fa, dev, smi) -> dict:
     return {"counts": counts}
 
 
+
+# --------------------------- 49. training with dropout, data parallelism
+
+DROPOUT_RATE = 0.1
+DROPOUT_BATCH = 64
+DROPOUT_STEPS = 5
+DROPOUT_FAMILY_BATCH = 32
+DROPOUT_FAMILIES = {  # phase 44's configs, one step each at both rates
+    "avit": ("adavit", AVIT_S16), "moevit": ("moevit", MOE_YAML),
+    "maevit": ("maevit", RECON_MODELS["maevit"])}
+DP_RANKS = 2                        # data-parallel ranks sharing cuda:0
+DP_SERVE_BATCH = 256                # the global batch every rank receives
+DP_SERVE_ITERS = 3
+DP_TRAIN_BATCH = 64
+DP_TRAIN_STEPS = 3
+DP_TRAIN_LR = 1e-2                  # SGD(momentum 0.9): the update is linear in the gradients
+DP_JOIN_TIMEOUT = 600.0             # seconds for every rank of the spawn
+DP_LABEL = "gloo through the host, 2 processes sharing one card: not NCCL"
+# key -> (registry name, args, engine keywords, budgets); the ResidualViT
+# with a constant budget token, whose whole-batch mean spans the data column
+DP_SERVE_RUNS = {
+    "vit": ("vit", B16, {}, (None,)),
+    "residualvit": ("residualvit", dict(RESIDUALVIT_B16, add_budget_token=0.5), {}, (0.4, 0.9)),
+    "vit_int8": ("vit", B16, dict(quantized=True), (None,)),
+}
+# key -> (registry name, args, Trainer keywords): the fused paths ("auto"
+# on the card), ZeRO-1 on the fused ViT step
+DP_TRAIN_RUNS = {
+    "fused_vit": ("vit", B16, {}),
+    "fused_residual": ("residualvit", RESIDUALVIT_B16, dict(loss_compose=CROSSENTROPY_MSE)),
+    "zero": ("vit", B16, dict(zero_sharded_optimizer=True)),
+}
+
+
+def dropout_phases(torch, fa, dev, smi) -> dict:
+    """Phase 49a, training with dropout on the module path (JAX's linen
+    step at a nonzero rate): a ViT-B/16 Trainer(AdamW, clip 1.0) at
+    dropout = attention_dropout = DROPOUT_RATE takes DROPOUT_STEPS steps on
+    one bs64 batch (ms per step by CUDA events, peak memory; losses finite
+    and falling; no port kernel launched), then one more step with every
+    mask recorded: each site's keep share within 5 sigma of 1 - rate, and
+    the time to draw all of one step's masks alone (the RNG work a
+    data-parallel rank repeats for the global batch); then the same model
+    at rate 0 takes the same steps on the module path too (ms, peak
+    memory: the fused path has no dropout). A-ViT-S/16, MoE and
+    MAE (phase 44's configs) take one step each at both rates."""
+    from peekvit_torch import Trainer
+    from peekvit_torch.ops import dropout as drop
+    from peekvit_torch.training.optim import AdamW
+
+    gen = torch.Generator(device=dev).manual_seed(49)
+    size = B16["image_size"]
+    x = torch.randn(DROPOUT_BATCH, size, size, 3, generator=gen, device=dev)
+    y = torch.randint(0, B16["num_classes"], (DROPOUT_BATCH,), generator=gen, device=dev)
+    runs = {}
+    for rate in (DROPOUT_RATE, 0.0):
+        model = seeded_residual_model(torch, "vit", dict(B16, dropout=rate,
+                                                         attention_dropout=rate))
+        trainer = Trainer(model, AdamW(lr=TRAIN_LR), clip_grad_norm=1.0, fused=False,
+                          device=DEVICE)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        step_ms, losses = [], []
+        for i in range(DROPOUT_STEPS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            m = trainer.train_step(x, y, step_idx=i)
+            end.record()
+            end.synchronize()
+            step_ms.append(start.elapsed_time(end))
+            losses.append(float(m["total_loss"]))
+        rec = {"phase": "dropout_train", "model": "vit_b_16", "rate": rate,
+               "batch": DROPOUT_BATCH, "train_kind": trainer._train_kind, "losses": losses,
+               "ms_per_step": step_ms, "launches": dict(fa.LAUNCHES),
+               "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        if rate:
+            sites, orig = [], drop.keep_mask
+
+            def recording(shape, keep_prob, generator, device, orig=orig, sites=sites):
+                mask = orig(shape, keep_prob, generator, device)
+                sites.append((tuple(shape), keep_prob, mask.float().mean()))
+                return mask
+
+            drop.keep_mask = recording
+            try:
+                trainer.train_step(x, y, step_idx=DROPOUT_STEPS)
+            finally:
+                drop.keep_mask = orig
+            shares = []
+            for shape, p, share in sites:
+                n = math.prod(shape)
+                share = float(share)
+                shares.append({"shape": list(shape), "keep_share": share,
+                               "sigmas": abs(share - p) / math.sqrt(p * (1 - p) / n)})
+            draw_gen = torch.Generator(device=dev).manual_seed(0)
+            draw_ms = cuda_ms(torch, lambda: [drop.keep_mask(s, p, draw_gen, dev)
+                                              for s, p, _ in sites], iters=5)
+            rec.update(sites=len(shares), keep_shares=shares, mask_draw_ms=draw_ms,
+                       mask_draw_share_of_step=draw_ms / min(step_ms))
+            if any(s["sigmas"] > 5 for s in shares) or len(shares) != 1 + 2 * B16["num_layers"]:
+                raise AssertionError(f"dropout keep shares {shares}")
+        runs[rate] = rec
+        emit(dict(rec, card=smi))
+        if (trainer._train_kind != "module" or rec["launches"]
+                or not all(math.isfinite(v) for v in losses)
+                or (rate and not losses[-1] < losses[0])):
+            raise AssertionError(f"dropout {rate}: {trainer._train_kind}, losses {losses}, "
+                                 f"launches {rec['launches']}")
+        del trainer, model
+        torch.cuda.empty_cache()
+    emit({"phase": "dropout_cost", "model": "vit_b_16", "batch": DROPOUT_BATCH,
+          "ms_per_step_ratio": min(runs[DROPOUT_RATE]["ms_per_step"])
+          / min(runs[0.0]["ms_per_step"]),
+          "peak_memory_ratio": runs[DROPOUT_RATE]["peak_memory_gib"]
+          / runs[0.0]["peak_memory_gib"], "card": smi})
+    for key, (name, args) in DROPOUT_FAMILIES.items():
+        model = seeded_residual_model(torch, name, dict(args, dropout=DROPOUT_RATE,
+                                                        attention_dropout=DROPOUT_RATE))
+        trainer = Trainer(model, AdamW(lr=1e-4), clip_grad_norm=1.0, device=DEVICE)
+        s = args["image_size"]
+        xf = torch.randn(DROPOUT_FAMILY_BATCH, s, s, 3, generator=gen, device=dev)
+        yf = torch.randint(0, args["num_classes"], (DROPOUT_FAMILY_BATCH,), generator=gen,
+                           device=dev)
+        sites, orig = [], drop.keep_mask
+        drop.keep_mask = lambda *a, orig=orig, sites=sites: sites.append(a[0]) or orig(*a)
+        try:
+            t0 = time.perf_counter()
+            m = trainer.train_step(xf, yf, step_idx=0)
+            loss = float(m["total_loss"])
+            seconds = time.perf_counter() - t0
+        finally:
+            drop.keep_mask = orig
+        emit({"phase": "dropout_family_step", "model": key, "batch": DROPOUT_FAMILY_BATCH,
+              "rate": DROPOUT_RATE, "train_kind": trainer._train_kind, "loss": loss,
+              "masks_drawn": len(sites), "seconds_with_first_call": seconds, "card": smi})
+        if trainer._train_kind != "module" or not math.isfinite(loss) or not sites:
+            raise AssertionError(f"dropout {key}: {trainer._train_kind}, loss {loss}, "
+                                 f"{len(sites)} masks")
+        del trainer, model
+        torch.cuda.empty_cache()
+    return runs
+
+
+def dp_images(torch, b: int, size: int, classes: int, seed: int):
+    """A global batch seeded on the CPU, so every rank draws the same."""
+    gen = torch.Generator().manual_seed(seed)
+    return (torch.randn(b, size, size, 3, generator=gen).to(DEVICE),
+            torch.randint(0, classes, (b,), generator=gen).to(DEVICE))
+
+
+def param_digest(torch, params) -> str:
+    import hashlib
+
+    from peekvit_torch.models.adapters import tree_leaves
+
+    digest = hashlib.sha256()
+    for _, p in tree_leaves(params):
+        digest.update(p.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def tensor_digest(torch, t) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy()
+                          .tobytes()).hexdigest()
+
+
+def dp_rank(rank: int, world: int, rdzv: str, out_dir: str) -> None:
+    """Phase 49b, one rank of a (world, 1) data mesh on cuda:0 over gloo.
+    Serving: each run of DP_SERVE_RUNS through InferenceEngine(mesh=) on the
+    global bs256 batch (a warm-up, then DP_SERVE_ITERS forwards timed on
+    the host clock after a barrier; the launch counts zeroed just before
+    the last and read just after); rank 0 also serves it on one device and
+    holds the dp logits against it. Training: each run of DP_TRAIN_RUNS,
+    a Trainer(SGD(momentum 0.9), clip 1.0, mesh=) from the seeded weights
+    (an update linear in the gradients, so that their sums are compared;
+    ZeRO-1 shards the momentum) takes
+    DP_TRAIN_STEPS steps on the global bs64 batch (counts zeroed just
+    before each step, read just after; ms on the host clock between a
+    barrier and a synchronize); rank 0 then takes the same steps on one
+    device (the single-device step of the same seed, while rank 1 waits)
+    and holds losses and parameter updates against the dp run's. Writes
+    rank<r>.pt into out_dir."""
+    import torch
+    import torch.distributed as dist
+
+    from peekvit_torch import InferenceEngine, Trainer
+    from peekvit_torch.ops.cuda import fused_attention as fa
+    from peekvit_torch.parallel import make_mesh
+    from peekvit_torch.training.optim import SGD
+    from peekvit_torch.utils.losses import LossCompose
+
+    dist.init_process_group("gloo", init_method=f"file://{rdzv}", world_size=world, rank=rank)
+    try:
+        mesh = make_mesh(world, 1, device=DEVICE)  # cuda:0 for every rank on one card
+        res = {"device": str(mesh.device), "serve": {}, "train": {}}
+        x, _ = dp_images(torch, DP_SERVE_BATCH, B16["image_size"], B16["num_classes"], 49)
+        for key, (name, args, kw, budgets) in DP_SERVE_RUNS.items():
+            model = seeded_residual_model(torch, name, args)
+            engine = InferenceEngine(model, device=DEVICE, mesh=mesh, **kw)
+            single = InferenceEngine(model, device=DEVICE, **kw) if rank == 0 else None
+            for budget in budgets:
+                bkw = {} if budget is None else {"budget": budget}
+                with torch.inference_mode():
+                    engine(x, **bkw)
+                    torch.cuda.synchronize()
+                    dist.barrier()
+                    t0 = time.perf_counter()
+                    for _ in range(DP_SERVE_ITERS - 1):
+                        engine(x, **bkw)
+                    fa.reset_launch_counts()
+                    out = engine(x, **bkw)
+                    torch.cuda.synchronize()
+                    ms = (time.perf_counter() - t0) / DP_SERVE_ITERS * 1e3
+                    rec = {"counts": dict(fa.LAUNCHES), "ms": ms, "shape": list(out.shape),
+                           "digest": tensor_digest(torch, out)}
+                    if rank == 0:
+                        single(x, **bkw)
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        for _ in range(DP_SERVE_ITERS - 1):
+                            single(x, **bkw)
+                        fa.reset_launch_counts()
+                        want = single(x, **bkw)
+                        torch.cuda.synchronize()
+                        rec.update(
+                            single_ms=(time.perf_counter() - t0) / DP_SERVE_ITERS * 1e3,
+                            single_counts=dict(fa.LAUNCHES),
+                            bit_identical=bool(torch.equal(out, want)),
+                            max_abs_diff=float((out - want).abs().max()),
+                            max_abs_logit=float(want.abs().max()),
+                            rows_differing=int((out != want).any(-1).sum()),
+                            top1_agree=float((out.argmax(-1) == want.argmax(-1)).float().mean()))
+                    res["serve"][f"{key}/{budget}"] = rec
+                    dist.barrier()
+            del engine, single, model
+            torch.cuda.empty_cache()
+        xt, yt = dp_images(torch, DP_TRAIN_BATCH, B16["image_size"], B16["num_classes"], 50)
+        for key, (name, args, kw) in DP_TRAIN_RUNS.items():
+            kw = dict(kw)
+            if "loss_compose" in kw:
+                kw["loss_compose"] = LossCompose(kw["loss_compose"])
+            runs = {"dp": mesh} if rank else {"dp": mesh, "single": None}
+            rec = {}
+            for run, run_mesh in runs.items():
+                model = seeded_residual_model(torch, name, args)
+                start = ({k: p.detach().clone() for k, p in model.named_parameters()}
+                         if rank == 0 else None)
+                run_kw = kw if run == "dp" else {k: v for k, v in kw.items()
+                                                 if k != "zero_sharded_optimizer"}
+                trainer = Trainer(model, SGD(lr=DP_TRAIN_LR, momentum=0.9),
+                                  clip_grad_norm=1.0, mesh=run_mesh, device=DEVICE, **run_kw)
+                out = {"losses": [], "counts": [], "ms": []}
+                for step in range(DP_TRAIN_STEPS):
+                    torch.cuda.synchronize()
+                    if run == "dp":
+                        dist.barrier()
+                    fa.reset_launch_counts()
+                    t0 = time.perf_counter()
+                    m = trainer.train_step(xt, yt, step_idx=step)
+                    torch.cuda.synchronize()
+                    out["ms"].append((time.perf_counter() - t0) * 1e3)
+                    out["counts"].append(dict(fa.LAUNCHES))
+                    out["losses"].append(float(m["total_loss"]))
+                out["kind"] = trainer._train_kind
+                out["digest"] = param_digest(torch, trainer.params)
+                opt = trainer.torch_optimizer
+                out["opt_bytes"] = (opt.state_bytes() if hasattr(opt, "state_bytes") else sum(
+                    t.numel() * t.element_size() for st in opt.state.values()
+                    for t in st.values() if isinstance(t, torch.Tensor)))
+                if start is not None:
+                    out["update"] = {k: (p.detach() - start[k]).float()
+                                     for k, p in model.named_parameters()}
+                rec[run] = out
+                del trainer, model
+                torch.cuda.empty_cache()
+            if rank == 0:
+                got, want = rec["dp"].pop("update"), rec["single"].pop("update")
+                rec["update_rel_l2"] = rel_l2(torch, got, want)
+                # the whole update's (SGD: the gradients' sums); a leaf whose
+                # gradient is 0 in exact arithmetic (the key bias's) is all noise
+                num = sum(float((got[k] - want[k]).square().sum()) for k in want)
+                rec["update_rel_l2_all"] = math.sqrt(
+                    num / sum(float(want[k].square().sum()) for k in want))
+            res["train"][key] = rec
+            dist.barrier()
+        torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_phases(torch, smi) -> dict:
+    """Phase 49b: data parallelism as DP_RANKS spawned ranks on cuda:0 over
+    a gloo group (every library built before a rank starts, the ranks
+    joined with a deadline, a rank's exception failing the run; dp_rank):
+    every rank's logits, losses and final parameters bit-identical; each
+    rank's launches a forward and a step those of the single-device
+    forward and step (each rank runs the whole chain on its rows); the dp
+    logits against the single-device engine's (bit-identical, or the
+    largest difference within 3e-2 of max|logit| and top-1 on 99% of
+    images), the dp steps' losses within 1e-2 and their whole parameter
+    update within rel-L2 3e-2 of the single-device step's (the repo's bf16
+    bars; the worst leaf reported); ZeRO-1's parameters bit-identical to the replicated dp step's
+    and its optimizer bytes a rank. Returns the launches summed over every
+    rank, forward and step, by path ("dp_serve", "dp_train")."""
+    import shutil
+
+    from peekvit_torch.ops.cuda import _build
+
+    _build.build_all()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "dp_smoke")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    spawn_ranks(torch, dp_rank, DP_RANKS, (DP_RANKS, os.path.join(out_dir, "rdzv"), out_dir),
+                DP_JOIN_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt")) for r in range(DP_RANKS)]
+    totals = {"dp_serve": {}, "dp_train": {}}
+
+    def add(path, counts):
+        for k, v in counts.items():
+            totals[path][k] = totals[path].get(k, 0) + v
+
+    for key, rec0 in ranks[0]["serve"].items():
+        recs = [rk["serve"][key] for rk in ranks]
+        if any(r["digest"] != rec0["digest"] for r in recs):
+            raise AssertionError(f"dp serve {key}: the ranks' logits differ")
+        for r in recs:
+            if r["counts"] != rec0["single_counts"]:
+                raise AssertionError(f"dp serve {key}: a rank launched {r['counts']}, the "
+                                     f"single-device forward {rec0['single_counts']}")
+            add("dp_serve", r["counts"])
+        ok = rec0["bit_identical"] or (
+            rec0["max_abs_diff"] <= 3e-2 * rec0["max_abs_logit"] and rec0["top1_agree"] >= 0.99)
+        emit({"phase": "dp_serve", "run": key, "ranks": DP_RANKS, "global_batch": DP_SERVE_BATCH,
+              "launches_per_rank_per_forward": sum(rec0["counts"].values()),
+              "ranks_bit_identical": True,
+              **{k: rec0[k] for k in ("bit_identical", "max_abs_diff", "max_abs_logit",
+                                      "rows_differing", "top1_agree", "single_ms")},
+              "ms_per_forward_by_rank": [r["ms"] for r in recs], "label": DP_LABEL,
+              "card": smi})
+        if not ok:
+            raise AssertionError(f"dp serve {key}: against the single device {rec0}")
+    for key, rec0 in ranks[0]["train"].items():
+        recs = [rk["train"][key] for rk in ranks]
+        dp = [r["dp"] for r in recs]
+        if any(d["digest"] != dp[0]["digest"] or d["losses"] != dp[0]["losses"] for d in dp):
+            raise AssertionError(f"dp train {key}: the ranks' losses or parameters differ")
+        single = rec0["single"]
+        for d in dp:
+            for i, counts in enumerate(d["counts"]):
+                if counts != single["counts"][i]:
+                    raise AssertionError(f"dp train {key} step {i}: a rank launched {counts}, "
+                                         f"the single-device step {single['counts'][i]}")
+                add("dp_train", counts)
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(dp[0]["losses"], single["losses"]))
+        err = rec0["update_rel_l2"]
+        ok = (dp[0]["kind"] == single["kind"] and dp[0]["kind"].startswith("fused")
+              and loss_rel <= 1e-2 and rec0["update_rel_l2_all"] <= 3e-2
+              and all(math.isfinite(v) for v in dp[0]["losses"]))
+        rec = {"phase": "dp_train", "run": key, "ranks": DP_RANKS,
+               "global_batch": DP_TRAIN_BATCH, "train_kind": dp[0]["kind"],
+               "losses": dp[0]["losses"], "single_losses": single["losses"],
+               "loss_rel_max": loss_rel, "update_rel_l2": rec0["update_rel_l2_all"],
+               "update_rel_l2_worst_leaf": [max(err, key=err.get), max(err.values())],
+               "launches_per_rank_per_step": sum(dp[0]["counts"][0].values()),
+               "ranks_bit_identical": True,
+               "ms_per_step_by_rank": [d["ms"] for d in dp], "single_ms": single["ms"],
+               "optimizer_bytes_per_rank": [d["opt_bytes"] for d in dp],
+               "single_optimizer_bytes": single["opt_bytes"], "label": DP_LABEL, "card": smi}
+        if key == "zero":
+            rec["params_equal_replicated_dp"] = (
+                dp[0]["digest"] == ranks[0]["train"]["fused_vit"]["dp"]["digest"])
+            ok = ok and rec["params_equal_replicated_dp"]
+        emit(rec)
+        if not ok:
+            raise AssertionError(f"dp train {key}: {rec}")
+    emit({"phase": "dp_spawn", "ranks": DP_RANKS, "seconds_for_spawn": seconds, "card": smi})
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -7819,6 +8220,9 @@ def main() -> int:
     qat = qat_phases(torch, fa, dev, smi)
     # ------------------------------------- 48. serving bundles and the host
     serving = serving_phases(torch, fa, dev, smi)
+    # --------------------- 49. training with dropout, data parallelism
+    dropout_phases(torch, fa, dev, smi)
+    dp = dp_phases(torch, smi)
     for entry in kernels:  # the later paths run earlier kernels too
         entry["launches_by_path"]["merged"] = mtrain["counts"]["merged"].get(entry["name"], 0)
         entry["launches_by_path"]["hybrid"] = mtrain["counts"]["hybrid"].get(entry["name"], 0)
@@ -7835,6 +8239,8 @@ def main() -> int:
         entry["launches_by_path"]["qat_serve"] = qat["serve_counts"].get(entry["name"], 0)
         entry["launches_by_path"]["qat_cli_test"] = qat["cli_test_counts"].get(entry["name"], 0)
         entry["launches_by_path"]["serving"] = serving["counts"].get(entry["name"], 0)
+        entry["launches_by_path"]["dp_serve"] = dp["dp_serve"].get(entry["name"], 0)
+        entry["launches_by_path"]["dp_train"] = dp["dp_train"].get(entry["name"], 0)
     # every path's counts as this run measured them, read by each new
     # entry's count key
     measured = {"engine": main_counts, "split": split_counts, "train": train["counts"],
@@ -7850,7 +8256,8 @@ def main() -> int:
                 "family_serve": family["counts"], "noise": noise["counts"],
                 "cli_train": cli["train_counts"], "cli_test": cli["test_counts"],
                 "qat_serve": qat["serve_counts"], "qat_cli_test": qat["cli_test_counts"],
-                "serving": serving["counts"]}
+                "serving": serving["counts"], "dp_serve": dp["dp_serve"],
+                "dp_train": dp["dp_train"]}
     later = (merged_entries + [mod["entry"]] + tp_entries + sp_entries + tiled_entries
              + recon["entries"] + moe["entries"])
     for entry in later:

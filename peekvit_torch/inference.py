@@ -158,6 +158,7 @@ from peekvit_torch.ops.cuda.fused_attention import (
     masked_mlp_block_ref,
 )
 from peekvit_torch.ops.attention import attention_core
+from peekvit_torch.ops.global_batch import batch_mean
 from peekvit_torch.ops.noise import NoiseSpec, default_generator, inject_noise
 from peekvit_torch.ops.cuda.pct_embed import arpe_tokens, arpe_tokens_ref
 from peekvit_torch.ops.cuda.quant_blocks import (
@@ -647,7 +648,7 @@ def _residual_forward(params, images, budget, run_layer, *, patch_size: int,
         else:
             # the mean over the WHOLE batch's (evolving) budget token, a
             # reference quirk (residualvit.py:208) kept for parity
-            cur_b = tokens[:, -1:].float().mean()
+            cur_b = batch_mean(tokens[:, -1:].float())  # over the data column under dp
             mask = torch.relu(sig - (1.0 - cur_b))
         if masks is not None:
             masks[f"layer_{i}"] = mask  # fp32 (B, N_img, 1), what the module's aux holds
@@ -2082,6 +2083,11 @@ def moevit_forward_quant_plain(qparams, images, *, patch_size: int, num_heads: i
                         expert_out=expert_out, noise=noise)
 
 
+def _model_axis(mesh) -> int:
+    """A mesh's model axis size (1 without a mesh)."""
+    return 1 if mesh is None else mesh.shape.get("model", 1)
+
+
 class InferenceEngine:
     """Fused eval forward bound to a built plain ViT, ResidualViT (early-exit
     and EncDec included), RankViT, A-ViT, MAE, MoE, PCT or RankPCT.
@@ -2106,8 +2112,8 @@ class InferenceEngine:
     layer after the masked encoder; the MAE engine (logits,
     reconstruction). Without it both return the logits. It raises on any
     other family, with ``quantized=``, with ``compact=`` (compaction loses
-    the token positions the decoder needs) and under ``mesh=`` (queue A
-    item 9).
+    the token positions the decoder needs) and under a tensor-parallel
+    ``mesh=`` (queue A item 9).
 
     MAE: ``engine(images)`` (``maevit_forward_fused``: no shuffle at eval,
     the encoder and ``decoder_blocks`` on the plain folded stack); bf16
@@ -2129,7 +2135,7 @@ class InferenceEngine:
     ``routed_min_experts`` of them (``_routed_moe_mlp``), bf16 only.
     ``quantized=True`` serves int8 (``quantize_moevit_params``,
     ``moevit_forward_quant``: dynamic scales; ``calib_images=`` raises).
-    ``max_budget=`` and ``mesh=`` raise.
+    ``max_budget=`` raises.
 
     PCT: ``engine(points)``, points (B, N, 3) (``pct_forward_fused``).
     RankPCT: ``engine(points, budget=b)`` (``rankpct_forward_fused``, the
@@ -2152,15 +2158,23 @@ class InferenceEngine:
     ResidualViT calibrates on its own gated, masked forward
     (``collect_residualvit_activation_stats``) at budget 1.0.
 
-    ``mesh=`` (``parallel.make_mesh`` with a model axis > 1, built by every
-    rank of the process group, and so is the engine) serves tensor-parallel
-    (``parallel/tp_serving.py``: the Megatron partials of
-    ``ops/cuda/tp_blocks.py``, one all-reduce per sublayer): the bf16 plain
-    ViT, RankViT's exact drop and the ResidualViT family, early exits
-    included. Each rank takes the whole batch, which the data axis size
-    must divide, and returns the whole batch's logits. ``device`` names
-    the mesh device's type; a mesh with model axis 1 (the data-parallel
-    engine) is not ported.
+    ``mesh=`` (``parallel.make_mesh``, built by every rank of the process
+    group, and so is the engine; ``device`` names the mesh device's type).
+    Each rank takes the whole batch, which the data axis size must divide
+    (JAX's message), and returns the whole batch's outputs. A model axis
+    > 1 serves tensor-parallel (``parallel/tp_serving.py``: the Megatron
+    partials of ``ops/cuda/tp_blocks.py``, one all-reduce per sublayer):
+    the bf16 plain ViT, RankViT's exact drop and the ResidualViT family,
+    early exits included. A model axis of 1 serves data-parallel, what
+    JAX's shard-mapped engine serves (inference.py:2444-2462): every family
+    and mode above, each rank running the single-device forward on its rows
+    and the outputs gathered over the data column
+    (``parallel/data.over_data``); the ResidualViT budget token's
+    whole-batch mean is averaged over the data column (JAX's ``pmean``),
+    and the NoiseBlock draws over the global batch, so the outputs are
+    the single-device engine's (JAX's shards each redraw their own rows'
+    noise from the same key). A routed MoE sizes each rank's expert
+    capacity from its own tokens, as JAX's shards do (ROADMAP queue C).
 
     A model with a NoiseBlock (``noise_layer``): ``engine(images,
     noise_value=, noise_rng=)`` (see :meth:`__call__`) on the ViT,
@@ -2247,7 +2261,7 @@ class InferenceEngine:
                 raise NotImplementedError(
                     "compact= (token-compaction serving) applies to the ResidualViT family "
                     "- other families either have no gates or already drop physically (RankViT)")
-            if quantized or recon_outputs or mesh is not None:
+            if quantized or recon_outputs or _model_axis(mesh) > 1:
                 raise NotImplementedError(
                     "compact= is a bf16 single-program mode: int8 would redefine the "
                     "calibrated grid per capacity, the recon decoder needs token positions "
@@ -2269,19 +2283,13 @@ class InferenceEngine:
                 "for A-ViT noise sweeps")
         if ee_outputs and not isinstance(model, EEResidualVisionTransformer):
             raise NotImplementedError("ee_outputs=True needs an EEResidualVisionTransformer")
-        # a mesh with a model axis > 1 serves tensor-parallel; any other is the
-        # data-parallel engine, not ported
-        tp = mesh is not None and getattr(mesh, "shape", {}).get("model", 1) > 1
-        not_ported = {
-            "mesh=": (mesh is not None and not tp,
-                      "item 9 (the data-parallel engine: a mesh with model axis 1)"),
-            "recon_outputs= with mesh=": (recon_outputs and mesh is not None,
-                                          "item 9 (the decoder has no tensor-parallel partials)"),
-        }
-        for name, (used, item) in not_ported.items():
-            if used:
-                raise NotImplementedError(
-                    f"{name} is not ported yet: ROADMAP.md port queue A {item}")
+        # a mesh with a model axis > 1 serves tensor-parallel; any other
+        # data-parallel
+        tp = _model_axis(mesh) > 1
+        if recon_outputs and tp:
+            raise NotImplementedError(
+                "recon_outputs= with a tensor-parallel mesh= is not ported yet: ROADMAP.md port "
+                "queue A item 9 (the decoder has no tensor-parallel partials)")
         if residual:
             layers = model.residual_layers or ["attention+mlp"] * model.num_layers
             if (set(layers) != {"attention+mlp"} or model.gate_type != "sigmoid"
@@ -2297,7 +2305,7 @@ class InferenceEngine:
                 "modes (quantized=, max_budget=, a NoiseBlock) have no partial kernels: serve "
                 "them on one device")
         self.device = resolve_device(device)
-        if tp:
+        if mesh is not None:
             if mesh.device.type != self.device.type:
                 raise ValueError(f"the mesh's device {mesh.device} is not on the engine's "
                                  f"device type {self.device.type!r}")
@@ -2324,6 +2332,7 @@ class InferenceEngine:
         self._quantized = bool(quantized)
         self.caps = None
         self._mesh = mesh
+        self._dp = None if mesh is None or tp else mesh
         self._tp_make = None
         if tp:
             from peekvit_torch.parallel.tp_serving import tp_serving_engine
@@ -2508,6 +2517,10 @@ class InferenceEngine:
                 b = None if not self._rank or budget is None else float(budget)
                 return self._tp_make(b)(self.params, images)
             fwd, kw, operand = self._resolve(budget, noise)
+            if self._dp is not None:
+                from peekvit_torch.parallel.data import over_data
+
+                fwd = over_data(self._dp, fwd)
             if operand is None:
                 return fwd(self.params, images, **kw)
             return fwd(self.params, images, operand, **kw)

@@ -6,7 +6,10 @@ Behavioural contract, as the JAX module:
 
 - each block masks both sublayers' inputs by the still-computing mask a:
   ``x + Attn(LN(x * a) * a)``, then ``x + MLP(LN(x * a) * a)``, LN eps
-  1e-5, no dropout on the residual adds (adavit.py:21-80);
+  1e-5, no dropout on the residual adds (adavit.py:21-80); a train
+  forward drops the attention weights at ``attention_dropout`` and the
+  tokens after the pos-embedding at ``dropout`` (JAX :49, :65, :166;
+  ops/dropout.py), drawn from ``generator``;
 - the per-token halting score is ``sigmoid(x[:, :, 0] * gate_scale -
   gate_center)`` of the block's output;
 - the ACT loop carries the cumulative halting c, the remainder R, the
@@ -16,7 +19,8 @@ Behavioural contract, as the JAX module:
   layer forces h = 1, so every token halts (adavit.py:140-219);
 - documented divergence kept from JAX: each layer's mean halting score
   excludes the class token, ``mean(h[:, 1:])`` (the reference's
-  ``mean(h[1:])`` slices the batch);
+  ``mean(h[1:])`` slices the batch), over the global batch under data
+  parallelism (ops/global_batch.batch_mean);
 - ``noise_layer`` puts the NoiseBlock (ops/noise.py) inside the ACT loop,
   on the carried tokens before layer ``noise_layer`` masks them by the
   active mask (JAX adavit.py:93-102), driven by the forward's
@@ -30,9 +34,8 @@ block's parameters carry a leading layer axis under
 ``encoder.blocks.block`` (``encoder.blocks.block.ln_1.scale`` is (L, D),
 ``encoder.blocks.block.self_attention.in_proj_kernel`` (L, D, 3D) ...).
 The port keeps that layout, so ``params_from_jax`` loads a JAX tree with
-no transpose. The eval and the train forward are one: without dropout
-(refused, with its ROADMAP item) ``train`` changes nothing. The ACT carry
-takes no ``detach``, as JAX's takes no ``stop_gradient``.
+no transpose. Without dropout the eval and the train forward are one. The
+ACT carry takes no ``detach``, as JAX's takes no ``stop_gradient``.
 """
 
 from __future__ import annotations
@@ -43,9 +46,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from peekvit_torch.models.residualvit import DROPOUT_ITEM
 from peekvit_torch.models.vit import Dense, LayerNorm, check_noise_layer, noise_spec
 from peekvit_torch.ops.attention import multi_head_attention
+from peekvit_torch.ops.dropout import dropout
+from peekvit_torch.ops.global_batch import batch_mean
 from peekvit_torch.ops.mlp import lecun_normal_, mlp_forward
 from peekvit_torch.ops.noise import inject_noise
 from peekvit_torch.ops.patch_embed import PatchEmbed
@@ -68,10 +72,12 @@ class _StackedSelfAttention(nn.Module):
     """One MHSA per layer with the JAX names and a leading layer axis;
     each layer's kernels xavier-uniform, biases zero (ops/attention.py)."""
 
-    def __init__(self, num_layers: int, hidden_dim: int, num_heads: int, generator=None):
+    def __init__(self, num_layers: int, hidden_dim: int, num_heads: int, generator=None,
+                 dropout: float = 0.0):
         super().__init__()
         d = hidden_dim
         self.num_heads = num_heads
+        self.dropout = dropout
         self.in_proj_kernel = nn.Parameter(torch.empty(num_layers, d, 3 * d))
         self.in_proj_bias = nn.Parameter(torch.zeros(num_layers, 3 * d))
         self.out_proj_kernel = nn.Parameter(torch.empty(num_layers, d, d))
@@ -81,13 +87,15 @@ class _StackedSelfAttention(nn.Module):
                 nn.init.xavier_uniform_(self.in_proj_kernel[i], generator=generator)
                 nn.init.xavier_uniform_(self.out_proj_kernel[i], generator=generator)
 
-    def forward(self, x: torch.Tensor, layer: int) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, layer: int, train: bool = False,
+                generator=None) -> torch.Tensor:
         return multi_head_attention(
             x, {"in_proj": {"kernel": self.in_proj_kernel[layer],
                             "bias": self.in_proj_bias[layer]},
                 "out_proj": {"kernel": self.out_proj_kernel[layer],
                              "bias": self.out_proj_bias[layer]}}, self.num_heads,
-            deterministic=not self.training)
+            deterministic=not (self.training or train),
+            dropout_rate=self.dropout if train else 0.0, generator=generator)
 
 
 class _StackedMLP(nn.Module):
@@ -117,19 +125,22 @@ class AViTBlock(nn.Module):
     weights in one module, the layer chosen per call."""
 
     def __init__(self, num_layers: int, num_heads: int, hidden_dim: int, mlp_dim: int,
-                 gate_scale: float = 10.0, gate_center: float = 30.0, generator=None):
+                 gate_scale: float = 10.0, gate_center: float = 30.0, generator=None,
+                 attention_dropout: float = 0.0):
         super().__init__()
         self.gate_scale = gate_scale
         self.gate_center = gate_center
         self.ln_1 = _StackedLayerNorm(num_layers, hidden_dim)
-        self.self_attention = _StackedSelfAttention(num_layers, hidden_dim, num_heads, generator)
+        self.self_attention = _StackedSelfAttention(num_layers, hidden_dim, num_heads, generator,
+                                                    attention_dropout)
         self.ln_2 = _StackedLayerNorm(num_layers, hidden_dim)
         self.mlp = _StackedMLP(num_layers, hidden_dim, mlp_dim, generator)
 
-    def forward(self, x: torch.Tensor, active: torch.Tensor, layer: int):
+    def forward(self, x: torch.Tensor, active: torch.Tensor, layer: int, train: bool = False,
+                generator=None):
         """active: (B, N), 1 = still computing. Returns (x, halting score)."""
         a = active[..., None]
-        x = x + self.self_attention(self.ln_1(x * a, layer) * a, layer)
+        x = x + self.self_attention(self.ln_1(x * a, layer) * a, layer, train, generator)
         x = x + self.mlp(self.ln_2(x * a, layer) * a, layer)
         return x, torch.sigmoid(x[:, :, 0] * self.gate_scale - self.gate_center)
 
@@ -149,22 +160,25 @@ class AViTEncoder(nn.Module):
     def __init__(self, seq_length: int, num_layers: int, num_heads: int, hidden_dim: int,
                  mlp_dim: int, eps: float = 0.01, gate_scale: float = 10.0,
                  gate_center: float = 30.0, generator=None, noise_layer: Optional[int] = None,
-                 noise_type: str = "gaussian"):
+                 noise_type: str = "gaussian", dropout: float = 0.0,
+                 attention_dropout: float = 0.0):
         super().__init__()
         self.num_layers = num_layers
+        self.dropout = dropout
         self.noise_layer = noise_layer
         self.noise_type = noise_type
         self.eps = eps
         self.pos_embedding = nn.Parameter(torch.empty(1, seq_length, hidden_dim))
         nn.init.normal_(self.pos_embedding, std=0.02, generator=generator)
         self.blocks = _Blocks(AViTBlock(num_layers, num_heads, hidden_dim, mlp_dim, gate_scale,
-                                        gate_center, generator))
+                                        gate_center, generator, attention_dropout))
         self.ln = LayerNorm(hidden_dim, 1e-5)
 
-    def forward(self, x: torch.Tensor, noise_value=None, noise_rng=None):
+    def forward(self, x: torch.Tensor, noise_value=None, noise_rng=None, train: bool = False,
+                generator=None):
         """-> (LN(output), aux). The carry is the ACT state of _ACTStep
         (adavit.py:73-133)."""
-        x = x + self.pos_embedding
+        x = dropout(x + self.pos_embedding, self.dropout, generator, train=train)
         spec = noise_spec(self.noise_layer, self.noise_type, noise_value, noise_rng)
         b, n = x.shape[0], x.shape[1]
         c = x.new_zeros(b, n)
@@ -177,8 +191,8 @@ class AViTEncoder(nn.Module):
         mean_h = []
         for layer in range(self.num_layers):
             out = inject_noise(out, layer, spec) * active[..., None]
-            block_out, h = self.blocks.block(out, active, layer)
-            mean_h.append(h[:, 1:].mean())  # class token excluded (module docstring)
+            block_out, h = self.blocks.block(out, active, layer, train, generator)
+            mean_h.append(batch_mean(h[:, 1:]))  # class token excluded (module docstring)
             out = block_out
             block_out = block_out * active[..., None]
             if layer == self.num_layers - 1:  # every remaining token halts
@@ -241,21 +255,21 @@ class AdaptiveVisionTransformer(nn.Module):
             self.register_tokens = nn.Parameter(torch.zeros(1, num_registers, hidden_dim))
         seq_length = (image_size // patch_size) ** 2 + num_class_tokens + num_registers
         self.encoder = AViTEncoder(seq_length, num_layers, num_heads, hidden_dim, mlp_dim, eps,
-                                   gate_scale, gate_center, generator, noise_layer, noise_type)
+                                   gate_scale, gate_center, generator, noise_layer, noise_type,
+                                   dropout, attention_dropout)
         self.head = Dense(hidden_dim, num_classes)  # zero init
 
     def forward(self, x: torch.Tensor, budget=None, train: bool = False, noise_value=None,
-                noise_rng: torch.Generator | None = None):
+                noise_rng: torch.Generator | None = None,
+                generator: torch.Generator | None = None):
         """(logits, aux). ``budget`` is ignored (A-ViT takes none); the
-        NoiseBlock draws from ``noise_rng``."""
+        NoiseBlock draws from ``noise_rng``, the dropout masks of a train
+        forward from ``generator``."""
         del budget
-        if train and (self.dropout or self.attention_dropout):
-            raise NotImplementedError(f"training with dropout is not ported yet: {DROPOUT_ITEM}; "
-                                      "build the model with dropout=0.0 and attention_dropout=0.0")
         n = x.shape[0]
         pieces = [self.class_tokens.expand(n, -1, -1)]
         if self.num_registers > 0:
             pieces.append(self.register_tokens.expand(n, -1, -1))
         tokens, aux = self.encoder(torch.cat(pieces + [self.conv_proj(x)], dim=1), noise_value,
-                                   noise_rng)
+                                   noise_rng, train, generator)
         return self.head(tokens[:, :self.num_class_tokens].sum(dim=1)), aux

@@ -8,7 +8,9 @@ encoder's final LN, ``tokens[:, c + r : -1]`` (class, register and budget
 tokens stripped, :329-333), with the LAST layer's gate mask (:336). The
 forward returns ``((logits, reconstruction NHWC, mask image), aux)``, aux =
 {"masks", "current_budget"}, with ONE budget per batch (:245-301; drawn
-under ``train=True`` as the early-exit model draws it). A falsy
+under ``train=True`` as the early-exit model draws it); a train forward
+drops at the encoder's rates and, in the decoder, at ``decoder_dropout`` /
+``decoder_attention_dropout`` (JAX :93-94, :129-130). A falsy
 ``add_budget_token`` is refused at construction (JAX :68-72: the token
 slicing needs the budget token).
 
@@ -30,7 +32,7 @@ from typing import Any, Optional
 import torch
 
 from peekvit_torch.models.eeresidualvit import EEResidualVisionTransformer
-from peekvit_torch.models.residualvit import DROPOUT_ITEM, ResidualVisionTransformer, _dense
+from peekvit_torch.models.residualvit import ResidualVisionTransformer, _dense
 from peekvit_torch.models.vitdecoder import VisionTransformerDecoder
 
 
@@ -67,21 +69,13 @@ class ResidualVisionTransformerWithDecoder(ResidualVisionTransformer):
             self.decoder_embed = _dense(hidden_dim, self.decoder_hidden_dim, generator)
         self.decoder = VisionTransformerDecoder(
             image_size, patch_size, self.decoder_hidden_dim, self.decoder_mlp_dim, seq_length,
-            self.decoder_num_layers, self.decoder_num_heads, generator)
+            self.decoder_num_layers, self.decoder_num_heads, generator, decoder_dropout,
+            decoder_attention_dropout)
 
-    def forward(self, x: torch.Tensor, budget=None, train: bool = False,
-                generator: torch.Generator | None = None, noise_value=None,
-                noise_rng: torch.Generator | None = None):
-        if train and (self.decoder_dropout or self.decoder_attention_dropout):
-            raise NotImplementedError(f"training with dropout is not ported yet: {DROPOUT_ITEM}; "
-                                      "build the model with decoder_dropout=0.0 and "
-                                      "decoder_attention_dropout=0.0")
-        return super().forward(x, budget=budget, train=train, generator=generator,
-                               noise_value=noise_value, noise_rng=noise_rng)
-
-    def _outputs(self, tokens, logits, exits, masks):
+    def _outputs(self, tokens, logits, exits, masks, train, generator):
         img = tokens[:, self.num_class_tokens + self.num_registers:-1]
         if hasattr(self, "decoder_embed"):
             img = self.decoder_embed(img)
-        recon, recon_mask = self.decoder(img, masks[f"layer_{self.num_layers - 1}"])
+        recon, recon_mask = self.decoder(img, masks[f"layer_{self.num_layers - 1}"], train,
+                                         generator)
         return logits, recon, recon_mask

@@ -20,8 +20,11 @@ Contract, as the JAX module:
 - the forward returns ``((logits, reconstruction NHWC), aux)``, aux =
   {"forward_perm", "backward_perm"} when shuffled, else {}.
 
-Dropout is not ported: ``train=True`` on a model built with dropout
-raises. The forward takes ``noise_value`` and ignores it, as JAX's does.
+A train forward drops the encoder's input tokens, attention weights and
+attention outputs at ``dropout`` / ``attention_dropout`` and the decoder
+stack's at ``decoder_dropout`` / ``decoder_attention_dropout`` (JAX
+:48-52, :107, :127; ops/dropout.py), drawn from ``generator`` after the
+shuffle. The forward takes ``noise_value`` and ignores it, as JAX's does.
 Parameter names are the JAX tree's.
 """
 
@@ -32,7 +35,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from peekvit_torch.models.residualvit import DROPOUT_ITEM, _dense
+from peekvit_torch.models.residualvit import _dense
 from peekvit_torch.models.vit import Dense
 from peekvit_torch.models.vitdecoder import ViTDecoderEncoder
 from peekvit_torch.ops.patch_embed import PatchEmbed, unpatchify_cmajor
@@ -88,7 +91,8 @@ class MAEVisionTransformer(nn.Module):
         self.class_tokens = nn.Parameter(torch.zeros(1, num_class_tokens, hidden_dim))
         if num_registers > 0:
             self.register_tokens = nn.Parameter(torch.zeros(1, num_registers, hidden_dim))
-        self.encoder = MAEViTEncoder(num_layers, num_heads, hidden_dim, mlp_dim, generator)
+        self.encoder = MAEViTEncoder(num_layers, num_heads, hidden_dim, mlp_dim, generator,
+                                     dropout, attention_dropout)
         self.head = Dense(hidden_dim, num_classes)  # zero init
         self.mask_token = nn.Parameter(torch.zeros(1, 1, decoder_hidden_dim))
         self.decoder_pos_embedding = nn.Parameter(torch.empty(1, n_patches, decoder_hidden_dim))
@@ -96,19 +100,18 @@ class MAEVisionTransformer(nn.Module):
         if decoder_hidden_dim != hidden_dim:
             self.decoder_embed = _dense(hidden_dim, decoder_hidden_dim, generator)
         self.decoder_blocks = MAEViTEncoder(num_decoder_layers, num_decoder_heads,
-                                            decoder_hidden_dim, decoder_mlp_dim, generator)
+                                            decoder_hidden_dim, decoder_mlp_dim, generator,
+                                            decoder_dropout, decoder_attention_dropout)
         self.decoder_head = _dense(decoder_hidden_dim, 3 * patch_size ** 2, generator)
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: torch.Generator | None = None, noise_value=None):
         """(outputs, aux). ``train=True`` shuffles and drops patches with a
-        permutation drawn from ``generator``. ``noise_value`` is taken and
+        permutation drawn from ``generator``, then draws the dropout masks
+        from it. ``noise_value`` is taken and
         ignored, as JAX's (the MAE has no NoiseBlock: a ``noise_layer``
         fails at construction, as JAX's does)."""
         del noise_value
-        if train and any(self.dropouts):
-            raise NotImplementedError(f"training with dropout is not ported yet: {DROPOUT_ITEM}; "
-                                      "build the model with every dropout rate 0.0")
         n = x.shape[0]
         tokens = self.conv_proj(x) + self.pos_embedding
         n_patches = tokens.shape[1]
@@ -121,7 +124,7 @@ class MAEVisionTransformer(nn.Module):
         pieces = [self.class_tokens.expand(n, -1, -1)]
         if self.num_registers > 0:
             pieces.append(self.register_tokens.expand(n, -1, -1))
-        tokens = self.encoder(torch.cat(pieces + [tokens], dim=1))
+        tokens = self.encoder(torch.cat(pieces + [tokens], dim=1), train, generator)
         logits = self.head(tokens[:, :self.num_class_tokens].sum(dim=1))
         img = tokens[:, self.num_class_tokens + self.num_registers:]
         if hasattr(self, "decoder_embed"):
@@ -130,5 +133,6 @@ class MAEVisionTransformer(nn.Module):
             missing = n_patches - img.shape[1]
             img = torch.cat([img, self.mask_token.expand(n, missing, -1)], dim=1)
             img = img[:, aux["backward_perm"]]
-        dec = self.decoder_head(self.decoder_blocks(img + self.decoder_pos_embedding))
+        dec = self.decoder_head(self.decoder_blocks(img + self.decoder_pos_embedding, train,
+                                                    generator))
         return (logits, unpatchify_cmajor(dec, self.patch_size)), aux

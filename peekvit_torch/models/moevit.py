@@ -23,9 +23,14 @@ Contract, as the JAX module:
 ``train=True`` draws each gate's Gumbel noise from ``generator``, layer by
 layer, the attention's gate before the MLP's. ``noise_layer`` puts the
 NoiseBlock (ops/noise.py) before that block (JAX moevit.py:159-166),
-driven by the forward's ``noise_value`` / ``noise_rng``. Dropout is not ported:
-``train=True`` on a model built with dropout raises. Parameter names are
-the JAX tree's.
+driven by the forward's ``noise_value`` / ``noise_rng``. A train forward
+drops the tokens after the pos-embedding and each attention output at
+``dropout``, and a one-expert attention's weights at
+``attention_dropout`` (JAX :79-93, :117, :156; ops/dropout.py), each mask
+from ``generator`` in call order. A stack of attention experts drops
+nothing, as in JAX: flax's ``nn.vmap`` does not pass the ``deterministic``
+keyword on (moevit.py:88-95), so the vmapped experts run deterministic.
+Parameter names are the JAX tree's.
 """
 
 from __future__ import annotations
@@ -35,9 +40,10 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from peekvit_torch.models.residualvit import DROPOUT_ITEM, _dense
+from peekvit_torch.models.residualvit import _dense
 from peekvit_torch.models.vit import Dense, LayerNorm, check_noise_layer, noise_spec
 from peekvit_torch.ops.attention import SelfAttention, multi_head_attention
+from peekvit_torch.ops.dropout import dropout
 from peekvit_torch.ops.fake_quant import rewind_sites, site_counts
 from peekvit_torch.ops.gates import gumbel_softmax
 from peekvit_torch.ops.mlp import MLP, lecun_normal_, mlp_forward
@@ -133,6 +139,9 @@ class MoESublayer(nn.Module):
     def __init__(self, experts: nn.Module, num_experts: int, hidden_dim: int,
                  generator: torch.Generator | None = None):
         super().__init__()
+        # a one-expert attention takes the train forward's dropout (a
+        # stack runs deterministic, as JAX's vmapped stack)
+        self.attention = isinstance(experts, SelfAttention)
         if num_experts == 1:
             self.experts_0 = experts
         else:
@@ -140,21 +149,24 @@ class MoESublayer(nn.Module):
             self.gating_network = TopKGate(hidden_dim, num_experts, generator)
 
     def forward(self, x: torch.Tensor, train: bool, generator):
+        kw = dict(train=train, generator=generator) if self.attention else {}
         if hasattr(self, "experts_0"):
-            return self.experts_0(x), None
+            return self.experts_0(x, **kw), None
         probs = self.gating_network(x, train, generator)
-        return combine(self.experts(x), probs), probs
+        return combine(self.experts(x, **kw), probs), probs
 
 
 class ViTBlockMoE(nn.Module):
     """MoE pre-LN block (reference moevit.py:106-141)."""
 
     def __init__(self, num_heads: int, hidden_dim: int, mlp_dim: int, mlp_num_experts: int = 1,
-                 attn_num_experts: int = 1, generator: torch.Generator | None = None):
+                 attn_num_experts: int = 1, generator: torch.Generator | None = None,
+                 dropout: float = 0.0, attention_dropout: float = 0.0):
         super().__init__()
         d, ea, em = hidden_dim, attn_num_experts, mlp_num_experts
+        self.dropout = dropout
         self.ln_1 = LayerNorm(d, 1e-5)
-        attn = (SelfAttention(d, num_heads, generator) if ea == 1
+        attn = (SelfAttention(d, num_heads, generator, attention_dropout) if ea == 1
                 else StackedSelfAttention(ea, d, num_heads, generator))
         self.self_attention = MoESublayer(attn, ea, d, generator)
         self.ln_2 = LayerNorm(d, 1e-5)
@@ -163,7 +175,7 @@ class ViTBlockMoE(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False, generator=None):
         y, attn_probs = self.self_attention(self.ln_1(x), train, generator)
-        x = x + y
+        x = x + dropout(y, self.dropout, generator, train=train)
         z, mlp_probs = self.mlp(self.ln_2(x), train, generator)
         return x + z, {"attn": attn_probs, "mlp": mlp_probs}
 
@@ -174,21 +186,24 @@ class ViTEncoderMoE(nn.Module):
     def __init__(self, seq_length: int, num_layers: int, num_heads: int, hidden_dim: int,
                  mlp_dim: int, mlp_moes: Sequence[int], attn_moes: Sequence[int],
                  generator: torch.Generator | None = None, noise_layer: Optional[int] = None,
-                 noise_type: str = "gaussian"):
+                 noise_type: str = "gaussian", dropout: float = 0.0,
+                 attention_dropout: float = 0.0):
         super().__init__()
         self.num_layers = num_layers
         self.noise_layer = noise_layer
         self.noise_type = noise_type
+        self.dropout = dropout
         self.pos_embedding = nn.Parameter(torch.empty(1, seq_length, hidden_dim))
         nn.init.normal_(self.pos_embedding, std=0.02, generator=generator)
         for i in range(num_layers):
             self.add_module(f"layers_{i}", ViTBlockMoE(num_heads, hidden_dim, mlp_dim,
-                                                       mlp_moes[i], attn_moes[i], generator))
+                                                       mlp_moes[i], attn_moes[i], generator,
+                                                       dropout, attention_dropout))
         self.ln = LayerNorm(hidden_dim, 1e-5)
 
     def forward(self, x: torch.Tensor, train: bool = False, generator=None, noise_value=None,
                 noise_rng=None):
-        x = x + self.pos_embedding
+        x = dropout(x + self.pos_embedding, self.dropout, generator, train=train)
         spec = noise_spec(self.noise_layer, self.noise_type, noise_value, noise_rng)
         gating = {}
         for i in range(self.num_layers):
@@ -234,17 +249,15 @@ class VisionTransformerMoE(nn.Module):
         seq_length = (image_size // patch_size) ** 2 + 1
         self.encoder = ViTEncoderMoE(seq_length, num_layers, num_heads, hidden_dim, mlp_dim,
                                      self.mlp_moes, self.attn_moes, generator, noise_layer,
-                                     noise_type)
+                                     noise_type, dropout, attention_dropout)
         self.head = Dense(hidden_dim, num_classes)  # zero init
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: torch.Generator | None = None, noise_value=None,
                 noise_rng: torch.Generator | None = None):
-        """(logits, aux). ``train=True`` draws the gates' Gumbel noise from
-        ``generator``; the NoiseBlock draws from ``noise_rng``."""
-        if train and (self.dropout or self.attention_dropout):
-            raise NotImplementedError(f"training with dropout is not ported yet: {DROPOUT_ITEM}; "
-                                      "build the model with dropout=0.0 and attention_dropout=0.0")
+        """(logits, aux). ``train=True`` draws the gates' Gumbel noise and the
+        dropout masks from ``generator``; the NoiseBlock draws from
+        ``noise_rng``."""
         n = x.shape[0]
         tokens = torch.cat([self.class_token.expand(n, -1, -1), self.conv_proj(x)], dim=1)
         tokens, gating = self.encoder(tokens, train, generator, noise_value, noise_rng)

@@ -8,7 +8,9 @@ Contract, as the JAX module:
   distances, [point, point - neighbour] concatenated, Linear -> BatchNorm
   -> elu, max-pool over the neighbours, Linear -> BatchNorm -> elu;
 - pre-LN blocks (LayerNorm eps 1e-5), residuals after attention and MLP,
-  no dropout inside: the ViT block (``models/vit.ViTBlock``);
+  no dropout on the residual adds (pct.py:78), attention dropout on the
+  softmax weights (:89): the ViT block (``models/vit.ViTBlock``) at
+  dropout 0;
 - classifier: the MEAN over all tokens (class tokens exist as a parameter
   but are never prepended, a reference quirk kept for checkpoint parity),
   then Linear -> BatchNorm -> exact gelu -> Dropout(0.5) -> Linear.
@@ -23,9 +25,10 @@ params, batch_stats)`` loads both.
 
 Points are (B, N, 3). ``forward(x, train=False, generator=None)`` returns
 ``(logits, {})``; in train mode the batch statistics normalize and
-update the buffers, and the head's dropout draws from ``generator``.
-Training with the configurable ``dropout`` / ``attention_dropout`` is
-refused, as in the other modules of the port.
+update the buffers, and every dropout draws from ``generator``: the
+tokens after the embedder at ``dropout`` (pct.py:146, :164), the blocks'
+attention weights at ``attention_dropout``, the head's Dropout(0.5), in
+that order (ops/dropout.py).
 """
 
 from __future__ import annotations
@@ -36,8 +39,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from peekvit_torch.models.residualvit import DROPOUT_ITEM, _dense
+from peekvit_torch.models.residualvit import _dense
 from peekvit_torch.models.vit import ViTBlock
+from peekvit_torch.ops.dropout import dropout
 
 
 def knn_indices(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -103,14 +107,6 @@ class ARPE(nn.Module):
         return F.elu(h)
 
 
-def _dropout(h: torch.Tensor, rate: float, generator: torch.Generator | None):
-    """flax ``nn.Dropout``: keep with probability 1 - rate, scaled by its
-    inverse; the mask drawn from ``generator``."""
-    keep_prob = 1.0 - rate
-    keep = torch.rand(h.shape, generator=generator, device=h.device) < keep_prob
-    return torch.where(keep, h / keep_prob, torch.zeros((), dtype=h.dtype, device=h.device))
-
-
 class ClassfHead(nn.Module):
     """Linear -> BatchNorm -> exact gelu -> Dropout(0.5) -> Linear
     (pct.py:95)."""
@@ -125,9 +121,7 @@ class ClassfHead(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         h = F.gelu(self.bn1(self.lin1(x), train), approximate="none")
-        if train:
-            h = _dropout(h, 0.5, generator)
-        return self.lin2(h)
+        return self.lin2(dropout(h, 0.5, generator, train=train))
 
 
 class _PointCloudBase(nn.Module):
@@ -155,17 +149,16 @@ class _PointCloudBase(nn.Module):
             self.registers = nn.Parameter(torch.zeros(1, num_registers, hidden_dim))
         for i in range(num_layers):
             self.add_module(f"layers_{i}",
-                            block_cls(num_heads, hidden_dim, mlp_dim, generator=generator))
+                            block_cls(num_heads, hidden_dim, mlp_dim, generator=generator,
+                                      attention_dropout=attention_dropout))
         self.head = ClassfHead(hidden_dim, num_classes, generator)
 
-    def embed(self, x: torch.Tensor, train: bool) -> torch.Tensor:
-        if train and (self.dropout or self.attention_dropout):
-            raise NotImplementedError(f"training with dropout is not ported yet: {DROPOUT_ITEM}")
+    def embed(self, x: torch.Tensor, train: bool, generator) -> torch.Tensor:
         tokens = self.embedder(x, train)
         if self.num_registers > 0:
             regs = self.registers.expand(x.shape[0], -1, -1)
             tokens = torch.cat([regs, tokens], dim=1)
-        return tokens
+        return dropout(tokens, self.dropout, generator, train=train)
 
 
 class PointCloudTransformer(_PointCloudBase):
@@ -188,7 +181,7 @@ class PointCloudTransformer(_PointCloudBase):
         """``noise_value`` is taken and ignored, as JAX's (pct.py:155-157): a
         PCT has no NoiseBlock, and a ``noise_layer`` fails at construction."""
         del noise_value
-        tokens = self.embed(x, train)
+        tokens = self.embed(x, train, generator)
         for i in range(self.num_layers):
-            tokens = getattr(self, f"layers_{i}")(tokens)
+            tokens = getattr(self, f"layers_{i}")(tokens, train=train, generator=generator)
         return self.head(tokens.mean(dim=1), train, generator), {}

@@ -19,7 +19,8 @@ Contract, quirks kept (rankpct.py:48-146):
 
 ``forward(x, budget=None, train=False, generator=None)`` returns
 ``(logits, {"masks": {"layer_i": (B, N, 1)}})``, one keep mask per block
-that ranked.
+that ranked. A train forward drops as PCT's does (models/pct.py;
+rankpct.py:93, :138, :156).
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ class RankingPCTBlock(ViTBlock):
     """The PCT block with optional ranking (rankpct.py:44)."""
 
     def forward(self, tokens: torch.Tensor, alive: torch.Tensor, budget, rank: bool,
-                train: bool = False):
+                train: bool = False, generator: torch.Generator | None = None):
         b, n, _ = tokens.shape
         mask = key_mask = None
         if rank and budget is not None:
@@ -68,7 +69,7 @@ class RankingPCTBlock(ViTBlock):
         y = self.ln_1(tokens)
         if train and mask is not None:
             y = y * mask[..., None]  # mask_tokens re-applied to the LN output (:135)
-        x = self.self_attention(y, key_mask=key_mask) + tokens
+        x = self.self_attention(y, key_mask=key_mask, train=train, generator=generator) + tokens
         z = self.ln_2(x)
         if train and mask is not None:
             z = z * mask[..., None]
@@ -103,14 +104,14 @@ class RankPointCloudTransformer(_PointCloudBase):
                 noise_value=None) -> tuple[torch.Tensor, dict]:
         """``noise_value`` is taken and ignored, as JAX's (rankpct.py:147-149)."""
         del noise_value
-        tokens = self.embed(x, train)
+        tokens = self.embed(x, train, generator)
         b, n, _ = tokens.shape
         ranking = self.ranking_enabled or (False,) * self.num_layers
         alive = torch.ones((b, n), dtype=tokens.dtype, device=tokens.device)
         masks = {}
         for i in range(self.num_layers):
             tokens, alive, mask = getattr(self, f"layers_{i}")(tokens, alive, budget, ranking[i],
-                                                               train)
+                                                               train, generator)
             if mask is not None:
                 masks[f"layer_{i}"] = mask
         if masks and not train:

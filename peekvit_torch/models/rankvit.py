@@ -17,7 +17,9 @@ Parameter names are the JAX module's (``conv_proj``, ``class_tokens``,
 ``head``); a ranking layer has the plain block's parameters, so a JAX
 tree loads through ``params_from_jax`` unchanged. ``forward`` returns
 ``(logits, {"masks": {"layer_i": (B, N_img, 1)}})`` with one keep mask
-per ranking layer.
+per ranking layer. ``train=True`` applies ``dropout`` (after the
+pos-embedding and on each attention output) and ``attention_dropout``,
+drawn from ``generator`` (JAX rankvit.py:75-77, :115; ops/dropout.py).
 
 ``RankVisionTransformer`` is not a ``VisionTransformer`` subclass: the
 engine and the Trainer dispatch on it by name, so that a budget is never
@@ -32,6 +34,7 @@ import torch
 from torch import nn
 
 from peekvit_torch.models.vit import Dense, LayerNorm, ViTBlock, check_noise_layer, noise_spec
+from peekvit_torch.ops.dropout import dropout
 from peekvit_torch.ops.noise import inject_noise
 from peekvit_torch.ops.patch_embed import PatchEmbed
 
@@ -63,14 +66,18 @@ class RankViTBlock(ViTBlock):
     (reference rankvit.py:24-101)."""
 
     def __init__(self, num_heads: int, hidden_dim: int, mlp_dim: int, num_class_tokens: int = 1,
-                 ln_eps: float = 1e-5, generator: torch.Generator | None = None):
-        super().__init__(num_heads, hidden_dim, mlp_dim, ln_eps, generator)
+                 ln_eps: float = 1e-5, generator: torch.Generator | None = None,
+                 dropout: float = 0.0, attention_dropout: float = 0.0):
+        super().__init__(num_heads, hidden_dim, mlp_dim, ln_eps, generator, dropout,
+                         attention_dropout)
         self.num_class_tokens = num_class_tokens
 
-    def forward(self, tokens: torch.Tensor, alive: torch.Tensor, budget):
+    def forward(self, tokens: torch.Tensor, alive: torch.Tensor, budget, train: bool = False,
+                generator: torch.Generator | None = None):
         c = self.num_class_tokens
         alive = _rank_update(tokens[:, c:], alive, budget)
-        return super().forward(tokens, key_mask=_with_class_keys(alive, c)), alive
+        return super().forward(tokens, key_mask=_with_class_keys(alive, c), train=train,
+                               generator=generator), alive
 
 
 class RankViTEncoder(nn.Module):
@@ -80,9 +87,11 @@ class RankViTEncoder(nn.Module):
     def __init__(self, seq_length: int, num_layers: int, num_heads: int, hidden_dim: int,
                  mlp_dim: int, rankvit_layers: tuple = (), num_class_tokens: int = 1,
                  generator: torch.Generator | None = None, noise_layer: Optional[int] = None,
-                 noise_type: str = "gaussian"):
+                 noise_type: str = "gaussian", dropout: float = 0.0,
+                 attention_dropout: float = 0.0):
         super().__init__()
         self.num_layers = num_layers
+        self.dropout = dropout
         self.noise_layer = noise_layer
         self.noise_type = noise_type
         self.rankvit_layers = tuple(rankvit_layers)
@@ -90,16 +99,18 @@ class RankViTEncoder(nn.Module):
         self.n_img = seq_length - num_class_tokens
         self.pos_embedding = nn.Parameter(torch.empty(1, seq_length, hidden_dim))
         nn.init.normal_(self.pos_embedding, std=0.02, generator=generator)
+        rates = dict(dropout=dropout, attention_dropout=attention_dropout)
         for i in range(num_layers):
             block = (RankViTBlock(num_heads, hidden_dim, mlp_dim, num_class_tokens,
-                                  generator=generator)
+                                  generator=generator, **rates)
                      if i in self.rankvit_layers
-                     else ViTBlock(num_heads, hidden_dim, mlp_dim, generator=generator))
+                     else ViTBlock(num_heads, hidden_dim, mlp_dim, generator=generator, **rates))
             self.add_module(f"layers_{i}", block)
         self.ln = LayerNorm(hidden_dim, 1e-5)
 
-    def forward(self, tokens: torch.Tensor, budget=None, noise_value=None, noise_rng=None):
-        tokens = tokens + self.pos_embedding
+    def forward(self, tokens: torch.Tensor, budget=None, noise_value=None, noise_rng=None,
+                train: bool = False, generator: torch.Generator | None = None):
+        tokens = dropout(tokens + self.pos_embedding, self.dropout, generator, train=train)
         spec = noise_spec(self.noise_layer, self.noise_type, noise_value, noise_rng)
         alive = torch.ones((tokens.shape[0], self.n_img), dtype=tokens.dtype,
                            device=tokens.device)
@@ -111,7 +122,7 @@ class RankViTEncoder(nn.Module):
             if i in self.rankvit_layers and budget_vec is not None:
                 # per-layer budgets are indexed by layer id
                 b_i = budget_vec[i] if budget_vec.dim() == 1 else budget_vec
-                tokens, alive = layer(tokens, alive, b_i)
+                tokens, alive = layer(tokens, alive, b_i, train, generator)
                 masks[f"layer_{i}"] = alive[..., None]
                 continue
             # dropped tokens were physically removed in the reference, so
@@ -120,13 +131,15 @@ class RankViTEncoder(nn.Module):
             if budget_vec is not None and self.rankvit_layers:
                 key_mask = _with_class_keys(alive, self.num_class_tokens)
             # a ranking block without a budget runs as a plain block
-            tokens = (layer(tokens, key_mask=key_mask) if i not in self.rankvit_layers
-                      else ViTBlock.forward(layer, tokens, key_mask=key_mask))
+            tokens = (layer(tokens, key_mask=key_mask, train=train, generator=generator)
+                      if i not in self.rankvit_layers
+                      else ViTBlock.forward(layer, tokens, key_mask=key_mask, train=train,
+                                            generator=generator))
         return self.ln(tokens), masks
 
 
 class RankVisionTransformer(nn.Module):
-    """RankViT classifier (eval forward). Returns (logits, aux["masks"])."""
+    """RankViT classifier. Returns (logits, aux["masks"])."""
 
     def __init__(self, image_size: int, patch_size: int, num_layers: int, num_heads: int,
                  hidden_dim: int, mlp_dim: int, dropout: float = 0.0,
@@ -136,9 +149,7 @@ class RankVisionTransformer(nn.Module):
                  noise_layer: Optional[int] = None, noise_type: str = "gaussian",
                  generator: torch.Generator | None = None):
         super().__init__()
-        # Constructor parity with the JAX module: the forward is the eval
-        # forward (dropout is the identity; the Trainer refuses to train
-        # with it) and representation_size is unused there too.
+        # constructor parity with the JAX module: unused there too
         del representation_size
         if image_size % patch_size != 0:
             raise ValueError("Input shape indivisible by patch size!")
@@ -166,16 +177,17 @@ class RankVisionTransformer(nn.Module):
         seq_length = (image_size // patch_size) ** 2 + num_class_tokens
         self.encoder = RankViTEncoder(seq_length, num_layers, num_heads, hidden_dim, mlp_dim,
                                       self.rankvit_layers, num_class_tokens, generator,
-                                      noise_layer, noise_type)
+                                      noise_layer, noise_type, dropout, attention_dropout)
         self.head = Dense(hidden_dim, num_classes)  # zero init
 
     def forward(self, x: torch.Tensor, budget=None, noise_value=None,
-                noise_rng: torch.Generator | None = None) -> tuple[torch.Tensor, dict]:
+                noise_rng: torch.Generator | None = None, train: bool = False,
+                generator: torch.Generator | None = None) -> tuple[torch.Tensor, dict]:
         """x: (B, H, W, 3). ``budget``: None (no ranking), a float, or a
         per-layer sequence indexed by layer id. ``noise_value`` /
-        ``noise_rng`` as in models/vit.py."""
+        ``noise_rng``, ``train`` / ``generator`` as in models/vit.py."""
         n = x.shape[0]
         tokens = torch.cat([self.class_tokens.expand(n, -1, -1), self.conv_proj(x)], dim=1)
-        tokens, masks = self.encoder(tokens, budget, noise_value, noise_rng)
+        tokens, masks = self.encoder(tokens, budget, noise_value, noise_rng, train, generator)
         logits = self.head(tokens[:, :self.num_class_tokens].sum(dim=1))
         return logits, {"masks": masks}

@@ -18,14 +18,17 @@ Behavioural contract, as the JAX modules:
 - The budget token is the LAST token: the budget as a constant fill,
   'learnable' (embedding * budget) or 'learnable_interpolate' (a lerp of
   two embeddings). Non-'learnable' modes gate on the mean of the WHOLE
-  batch's budget token (a scalar, residualvit.py:208).
+  batch's budget token (a scalar, residualvit.py:208), over the global
+  batch under data parallelism (ops/global_batch.batch_mean).
 - The pos-embedding skips the budget token (JAX :283-288).
 - Under ``train=True`` a budget is drawn per sample (JAX :408-417): a
   float ``add_budget_token`` is the constant, a list or tuple a uniform
   choice, anything else uniform over ``budget_interval``; a given
   ``budget`` is broadcast instead. The draws come from ``generator``
-  (budgets first, then each gumbel gate in layer order). Dropout is not
-  ported: ``train=True`` on a model built with dropout raises.
+  (budgets first, then each gumbel gate in layer order), as are the
+  dropout masks: the tokens after the pos-embedding, each block's
+  attention weights and attention output (JAX :135-171, :289;
+  ops/dropout.py).
 - ``noise_layer`` puts the NoiseBlock (ops/noise.py) before that block,
   over the whole stream, the budget token included (JAX :294-301); the
   forward's ``noise_value`` / ``noise_rng`` drive it (models/vit.py).
@@ -46,13 +49,12 @@ from torch import nn
 
 from peekvit_torch.models.vit import Dense, LayerNorm, check_noise_layer, noise_spec
 from peekvit_torch.ops.attention import SelfAttention
+from peekvit_torch.ops.dropout import dropout
 from peekvit_torch.ops.gates import gumbel_sigmoid, hard_sigmoid_eval, sigmoid_with_temp
+from peekvit_torch.ops.global_batch import batch_mean, per_sample
 from peekvit_torch.ops.mlp import MLP, lecun_normal_
 from peekvit_torch.ops.noise import inject_noise
 from peekvit_torch.ops.patch_embed import PatchEmbed
-
-DROPOUT_ITEM = "ROADMAP.md port queue A item 3 (training with dropout)"
-
 
 def _dense(in_dim: int, out_dim: int, generator) -> Dense:
     """A linen nn.Dense: lecun-normal kernel, zero bias."""
@@ -68,16 +70,19 @@ def sample_budgets(model, batch: int, generator: Optional[torch.Generator] = Non
     ``device`` (JAX residualvit.py:408-417, training/fused.py:273-283): a
     float ``add_budget_token`` is the constant; a list or tuple, a uniform
     choice; anything else, uniform over ``budget_interval``. Drawn from
-    ``generator`` on its own device, then moved."""
+    ``generator`` on its own device, then moved; over the global batch
+    under data parallelism (ops/global_batch.per_sample)."""
     bt = model.add_budget_token
     if isinstance(bt, float):
         return torch.full((batch,), bt, dtype=torch.float32, device=device)
     gen_device = generator.device if generator is not None else None
     if isinstance(bt, (list, tuple)):
-        idx = torch.randint(len(bt), (batch,), generator=generator, device=gen_device)
+        idx = per_sample(lambda s: torch.randint(len(bt), s, generator=generator,
+                                                 device=gen_device), (batch,))
         return torch.tensor(bt, dtype=torch.float32, device=gen_device)[idx].to(device)
     lo, hi = getattr(model, "budget_interval", (0.0, 1.0))
-    return (torch.rand(batch, generator=generator, device=gen_device) * (hi - lo) + lo).to(device)
+    u = per_sample(lambda s: torch.rand(s, generator=generator, device=gen_device), (batch,))
+    return (u * (hi - lo) + lo).to(device)
 
 
 class ResidualGate(nn.Module):
@@ -126,8 +131,10 @@ class ResidualViTBlock(nn.Module):
                  add_input: bool = False, num_class_tokens: int = 1, num_registers: int = 0,
                  skip: Optional[str] = None, gate_type: str = "gumbel", gate_bias: float = 10.0,
                  gate_threshold: Union[float, str] = 0.5, budget_token: Any = False,
-                 ln_eps: float = 1e-6, generator=None):
+                 ln_eps: float = 1e-6, generator=None, dropout: float = 0.0,
+                 attention_dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         if skip == "attention" and budget_token:
             raise ValueError("skip='attention' with a budget token is inconsistent in the "
                              "spec (reference crashes); use 'attention+mlp'.")
@@ -140,7 +147,7 @@ class ResidualViTBlock(nn.Module):
                                               gate_bias, own_threshold=not budget_token,
                                               generator=generator)
         self.ln_1 = LayerNorm(hidden_dim, ln_eps)
-        self.self_attention = SelfAttention(hidden_dim, num_heads, generator)
+        self.self_attention = SelfAttention(hidden_dim, num_heads, generator, attention_dropout)
         self.ln_2 = LayerNorm(hidden_dim, ln_eps)
         self.mlp = MLP(hidden_dim, mlp_dim, generator)
         if budget_token == "learnable":
@@ -158,7 +165,7 @@ class ResidualViTBlock(nn.Module):
         if self.budget_token == "learnable":
             threshold = torch.sigmoid(self.budget_token_gate(budget_token))
         elif self.budget_token:
-            current_budget = budget_token.mean()  # the whole batch's (reference quirk)
+            current_budget = batch_mean(budget_token)  # the whole batch's (reference quirk)
         return self.residual_gate(img, budget=current_budget, threshold=threshold, train=train,
                                   generator=generator)
 
@@ -174,9 +181,18 @@ class ResidualViTBlock(nn.Module):
             pad.append(torch.zeros_like(budget_token))
         return y + torch.cat(pad, dim=1)
 
-    def plain_forward(self, tokens, mask=None):
+    def _attn(self, x, train, generator):
+        """The attention sublayer (attention dropout inside) before the
+        dropout on its output (JAX :165-171)."""
+        return self.self_attention(x, train=train, generator=generator)
+
+    def _drop(self, x, train, generator):
+        return dropout(x, self.dropout, generator, train=train)
+
+    def plain_forward(self, tokens, mask=None, train: bool = False, generator=None):
         m = 1.0 if mask is None else mask
-        x = m * self.self_attention(m * self.ln_1(tokens)) + tokens
+        x = m * self._attn(m * self.ln_1(tokens), train, generator)
+        x = self._drop(x, train, generator) + tokens
         return x + self.mlp(m * self.ln_2(x))
 
     def forward(self, tokens, train: bool = False, generator=None):
@@ -184,10 +200,12 @@ class ResidualViTBlock(nn.Module):
         if self.skip == "attention":
             special, img, _ = self._split(tokens)
             mask = self._gate(img, None, train, generator)
-            x = self.self_attention(self.ln_1(torch.cat([special, mask * img], dim=1))) + tokens
+            x = self._attn(self.ln_1(torch.cat([special, mask * img], dim=1)), train, generator)
+            x = self._drop(x, train, generator) + tokens
             return self.mlp(self.ln_2(x)), mask  # literal: final residual dropped
         if self.skip == "mlp":
-            x = self.self_attention(self.ln_1(tokens)) + tokens
+            x = self._drop(self._attn(self.ln_1(tokens), train, generator), train,
+                           generator) + tokens
             special, img, budget_token = self._split(x)
             mask = self._gate(img, budget_token, train, generator)
             y = self.mlp(self.ln_2(self._with_budget(special, mask * img, budget_token)))
@@ -199,9 +217,9 @@ class ResidualViTBlock(nn.Module):
                               device=mask.device)
             fwd_mask = self._with_budget(ones, mask, ones[:, :1])
             y = self.plain_forward(self._with_budget(special, mask * img, budget_token),
-                                   fwd_mask)
+                                   fwd_mask, train, generator)
             return self._add_input(y, special, img, mask, budget_token), mask
-        return self.plain_forward(tokens), None
+        return self.plain_forward(tokens, None, train, generator), None
 
 
 class ResidualViTEncoder(nn.Module):
@@ -215,9 +233,11 @@ class ResidualViTEncoder(nn.Module):
                  gate_temp: float = 1.0, gate_bias: float = 10.0,
                  gate_threshold: Union[float, str] = 0.5, budget_token: Any = False,
                  early_exit_classes: Optional[int] = None, generator=None,
-                 noise_layer: Optional[int] = None, noise_type: str = "gaussian"):
+                 noise_layer: Optional[int] = None, noise_type: str = "gaussian",
+                 dropout: float = 0.0, attention_dropout: float = 0.0):
         super().__init__()
         self.num_layers = num_layers
+        self.dropout = dropout
         self.noise_layer = noise_layer
         self.noise_type = noise_type
         self.num_class_tokens = num_class_tokens
@@ -231,7 +251,8 @@ class ResidualViTEncoder(nn.Module):
                 num_heads, hidden_dim, mlp_dim, temp=gate_temp, add_input=add_input,
                 num_class_tokens=num_class_tokens, num_registers=num_registers,
                 skip=residual_layers[i], gate_type=gate_type, gate_bias=gate_bias,
-                gate_threshold=gate_threshold, budget_token=budget_token, generator=generator))
+                gate_threshold=gate_threshold, budget_token=budget_token, generator=generator,
+                dropout=dropout, attention_dropout=attention_dropout))
             if self.early_exits:
                 self.add_module(f"early_exit_heads_{i}_ln", LayerNorm(hidden_dim, 1e-5))
                 self.add_module(f"early_exit_heads_{i}_head",
@@ -246,6 +267,7 @@ class ResidualViTEncoder(nn.Module):
             tokens = torch.cat([tokens[:, :-1] + self.pos_embedding, tokens[:, -1:]], dim=1)
         else:
             tokens = tokens + self.pos_embedding
+        tokens = dropout(tokens, self.dropout, generator, train=train)
         spec = noise_spec(self.noise_layer, self.noise_type, noise_value, noise_rng)
         masks, exits = {}, []
         for i in range(self.num_layers):
@@ -278,8 +300,7 @@ class ResidualVisionTransformer(nn.Module):
                  budget_interval: tuple = (0, 1), noise_layer: Optional[int] = None,
                  noise_type: str = "gaussian", generator: torch.Generator | None = None):
         super().__init__()
-        # Constructor parity with the JAX module: there is no
-        # representation head, and dropout is refused in training.
+        # constructor parity with the JAX module: there is no representation head
         del representation_size
         if image_size % patch_size != 0:
             raise ValueError("Input shape indivisible by patch size!")
@@ -316,7 +337,8 @@ class ResidualVisionTransformer(nn.Module):
             add_input, num_class_tokens, num_registers, gate_type, gate_temp, gate_bias,
             gate_threshold, add_budget_token,
             early_exit_classes=num_classes if self.early_exits else None, generator=generator,
-            noise_layer=noise_layer, noise_type=noise_type)
+            noise_layer=noise_layer, noise_type=noise_type, dropout=dropout,
+            attention_dropout=attention_dropout)
         learnable = add_budget_token in ("learnable", "learnable_interpolate")
         if learnable:
             self.learnable_budget_token_1 = nn.Parameter(torch.empty(1, 1, hidden_dim))
@@ -358,11 +380,8 @@ class ResidualVisionTransformer(nn.Module):
                 generator: torch.Generator | None = None, noise_value=None,
                 noise_rng: torch.Generator | None = None):
         """(outputs, aux). ``train=True`` draws the budgets (when ``budget``
-        is None) and the gumbel gates' noise from ``generator``; the
-        NoiseBlock draws from ``noise_rng``."""
-        if train and (self.dropout or self.attention_dropout):
-            raise NotImplementedError(f"training with dropout is not ported yet: {DROPOUT_ITEM}; "
-                                      "build the model with dropout=0.0 and attention_dropout=0.0")
+        is None), the gumbel gates' noise and the dropout masks from
+        ``generator``; the NoiseBlock draws from ``noise_rng``."""
         tokens = self.embed(x)
         n = tokens.shape[0]
         current_budget = None
@@ -375,10 +394,11 @@ class ResidualVisionTransformer(nn.Module):
         aux = {"masks": masks}
         if current_budget is not None:
             aux["current_budget"] = current_budget
-        return self._outputs(tokens, logits, exits, masks), aux
+        return self._outputs(tokens, logits, exits, masks, train, generator), aux
 
-    def _outputs(self, tokens, logits, exits, masks):
+    def _outputs(self, tokens, logits, exits, masks, train, generator):
         """The primary output from the final tokens, the logits, the early
         exits and the gate masks: the logits, or the tuple of exits and
-        logits of an early-exit model."""
+        logits of an early-exit model (``train`` / ``generator`` for a
+        decoder's dropout)."""
         return tuple(exits) + (logits,) if self.early_exits else logits

@@ -5,7 +5,12 @@ Behavioural contract (reference models/vit.py):
 - [class tokens] + [registers] + [patches] token layout (vit.py:229-236);
 - learned pos-emb added inside the encoder (vit.py:92);
 - pre-LN blocks, LayerNorm eps 1e-5;
-- classifier = SUM of class tokens -> zero-init linear head (vit.py:242-247).
+- classifier = SUM of class tokens -> zero-init linear head (vit.py:242-247);
+- ``forward(train=True, generator=g)``: dropout after the pos-embedding and
+  on each block's attention output, attention dropout on the softmax
+  weights (JAX vit.py:49-51, :92), every mask drawn from ``g``
+  (ops/dropout.py); the default is the eval forward, where dropout is the
+  identity.
 
 Parameter names and layouts are the JAX package's, so a state_dict key is
 the JAX tree path joined by dots (``encoder.layers_0.ln_1.scale``,
@@ -23,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from peekvit_torch.ops.attention import SelfAttention
+from peekvit_torch.ops.dropout import dropout
 from peekvit_torch.ops.mlp import MLP
 from peekvit_torch.ops.noise import NOISE_TYPES, NoiseSpec, inject_noise
 from peekvit_torch.ops.patch_embed import PatchEmbed
@@ -54,19 +60,26 @@ class Dense(nn.Module):
 
 
 class ViTBlock(nn.Module):
-    """Pre-LN transformer encoder block (reference vit.py:19-55)."""
+    """Pre-LN transformer encoder block (reference vit.py:19-55). A train
+    forward drops the attention weights at ``attention_dropout`` and the
+    attention output at ``dropout`` (JAX vit.py:49-51), drawn from
+    ``generator``."""
 
     def __init__(self, num_heads: int, hidden_dim: int, mlp_dim: int,
-                 ln_eps: float = 1e-5, generator: torch.Generator | None = None):
+                 ln_eps: float = 1e-5, generator: torch.Generator | None = None,
+                 dropout: float = 0.0, attention_dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.ln_1 = LayerNorm(hidden_dim, ln_eps)
-        self.self_attention = SelfAttention(hidden_dim, num_heads, generator)
+        self.self_attention = SelfAttention(hidden_dim, num_heads, generator, attention_dropout)
         self.ln_2 = LayerNorm(hidden_dim, ln_eps)
         self.mlp = MLP(hidden_dim, mlp_dim, generator)
 
-    def forward(self, x: torch.Tensor, *,
-                key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = x + self.self_attention(self.ln_1(x), key_mask=key_mask)
+    def forward(self, x: torch.Tensor, *, key_mask: Optional[torch.Tensor] = None,
+                train: bool = False, generator: torch.Generator | None = None) -> torch.Tensor:
+        y = self.self_attention(self.ln_1(x), key_mask=key_mask, train=train,
+                                generator=generator)
+        x = x + dropout(y, self.dropout, generator, train=train)
         return x + self.mlp(self.ln_2(x))
 
 
@@ -90,39 +103,45 @@ def noise_spec(noise_layer: Optional[int], noise_type: str, noise_value,
 class ViTEncoder(nn.Module):
     """Pos-emb + block stack + final LN (reference vit.py:59-95). Layers are
     attributes ``layers_0 .. layers_{L-1}``, the JAX names. ``noise_layer``
-    puts the NoiseBlock (ops/noise.py) before that block (JAX vit.py:94-101)."""
+    puts the NoiseBlock (ops/noise.py) before that block (JAX vit.py:94-101);
+    a train forward drops the tokens after the pos-embedding (:92)."""
 
     def __init__(self, seq_length: int, num_layers: int, num_heads: int,
                  hidden_dim: int, mlp_dim: int,
                  generator: torch.Generator | None = None,
-                 noise_layer: Optional[int] = None, noise_type: str = "gaussian"):
+                 noise_layer: Optional[int] = None, noise_type: str = "gaussian",
+                 dropout: float = 0.0, attention_dropout: float = 0.0):
         super().__init__()
         self.num_layers = num_layers
+        self.dropout = dropout
         self.noise_layer = noise_layer
         self.noise_type = noise_type
         self.pos_embedding = nn.Parameter(torch.empty(1, seq_length, hidden_dim))
         nn.init.normal_(self.pos_embedding, std=0.02, generator=generator)
         for i in range(num_layers):
             self.add_module(f"layers_{i}",
-                            ViTBlock(num_heads, hidden_dim, mlp_dim, generator=generator))
+                            ViTBlock(num_heads, hidden_dim, mlp_dim, generator=generator,
+                                     dropout=dropout, attention_dropout=attention_dropout))
         self.ln = LayerNorm(hidden_dim, 1e-5)
 
     def forward(self, x: torch.Tensor, noise_value=None,
-                noise_rng: torch.Generator | None = None) -> torch.Tensor:
-        x = x + self.pos_embedding
+                noise_rng: torch.Generator | None = None, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        x = dropout(x + self.pos_embedding, self.dropout, generator, train=train)
         spec = noise_spec(self.noise_layer, self.noise_type, noise_value, noise_rng)
         for i in range(self.num_layers):
             x = inject_noise(x, i, spec)
-            x = getattr(self, f"layers_{i}")(x)
+            x = getattr(self, f"layers_{i}")(x, train=train, generator=generator)
         return self.ln(x)
 
 
 class VisionTransformer(nn.Module):
-    """Plain ViT classifier (eval forward). Returns (logits, aux).
+    """Plain ViT classifier. Returns (logits, aux).
     ``noise_layer`` / ``noise_type``: the NoiseBlock before that block; the
     forward's ``noise_value`` (snr in dB or drop probability, default the
     0.0 sentinel) and ``noise_rng`` (a ``torch.Generator`` on the input's
-    device, default one seeded 0) drive it."""
+    device, default one seeded 0) drive it. ``train=True`` applies
+    ``dropout`` / ``attention_dropout``, drawn from ``generator``."""
 
     def __init__(self, image_size: int, patch_size: int, num_layers: int,
                  num_heads: int, hidden_dim: int, mlp_dim: int,
@@ -133,9 +152,7 @@ class VisionTransformer(nn.Module):
                  generator: torch.Generator | None = None):
         super().__init__()
         # Accepted for constructor parity with the JAX module and its
-        # configs. The forward is the eval forward, where dropout is the
-        # identity; representation_size is unused there too. The dropout
-        # rates are kept so that the Trainer can refuse to train with them.
+        # configs; unused there too.
         del representation_size
         self.dropout = dropout
         self.attention_dropout = attention_dropout
@@ -161,7 +178,8 @@ class VisionTransformer(nn.Module):
             self.register_tokens = nn.Parameter(torch.zeros(1, num_registers, hidden_dim))
         seq_length = (image_size // patch_size) ** 2 + num_class_tokens + num_registers
         self.encoder = ViTEncoder(seq_length, num_layers, num_heads, hidden_dim,
-                                  mlp_dim, generator, noise_layer, noise_type)
+                                  mlp_dim, generator, noise_layer, noise_type, dropout,
+                                  attention_dropout)
         self.head = Dense(hidden_dim, num_classes)  # zero init (vit.py:186-188)
 
     def embed(self, x: torch.Tensor) -> torch.Tensor:
@@ -177,5 +195,7 @@ class VisionTransformer(nn.Module):
         return self.head(x[:, :self.num_class_tokens].sum(dim=1))
 
     def forward(self, x: torch.Tensor, noise_value=None,
-                noise_rng: torch.Generator | None = None) -> tuple[torch.Tensor, dict]:
-        return self.classify(self.encoder(self.embed(x), noise_value, noise_rng)), {}
+                noise_rng: torch.Generator | None = None, train: bool = False,
+                generator: torch.Generator | None = None) -> tuple[torch.Tensor, dict]:
+        tokens = self.encoder(self.embed(x), noise_value, noise_rng, train, generator)
+        return self.classify(tokens), {}

@@ -13,6 +13,10 @@ their own, then the final LN; a Dense ``head`` maps each token to
 mask image broadcasts the mask's first channel over each patch (JAX
 :96-103).
 
+A train forward drops the stack's input tokens, each block's attention
+weights and attention output at the decoder's own rates (JAX
+vitdecoder.py:38-45, :84-85; ops/dropout.py).
+
 Parameter names are the JAX tree's: ``mask_token``, ``pos_embedding``,
 ``encoder.layers_i``, ``encoder.ln``, ``head``.
 """
@@ -24,6 +28,7 @@ from torch import nn
 
 from peekvit_torch.models.residualvit import _dense
 from peekvit_torch.models.vit import LayerNorm, ViTBlock
+from peekvit_torch.ops.dropout import dropout
 from peekvit_torch.ops.patch_embed import mask_image, unpatchify_cmajor
 
 
@@ -32,17 +37,22 @@ class ViTDecoderEncoder(nn.Module):
     vitdecoder.py:21-58). Layers are ``layers_0 .. layers_{L-1}``."""
 
     def __init__(self, num_layers: int, num_heads: int, hidden_dim: int, mlp_dim: int,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, dropout: float = 0.0,
+                 attention_dropout: float = 0.0):
         super().__init__()
         self.num_layers = num_layers
+        self.dropout = dropout
         for i in range(num_layers):
             self.add_module(f"layers_{i}",
-                            ViTBlock(num_heads, hidden_dim, mlp_dim, generator=generator))
+                            ViTBlock(num_heads, hidden_dim, mlp_dim, generator=generator,
+                                     dropout=dropout, attention_dropout=attention_dropout))
         self.ln = LayerNorm(hidden_dim, 1e-5)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        x = dropout(x, self.dropout, generator, train=train)
         for i in range(self.num_layers):
-            x = getattr(self, f"layers_{i}")(x)
+            x = getattr(self, f"layers_{i}")(x, train=train, generator=generator)
         return self.ln(x)
 
 
@@ -52,7 +62,8 @@ class VisionTransformerDecoder(nn.Module):
 
     def __init__(self, image_size: int, patch_size: int, hidden_dim: int, mlp_dim: int,
                  seq_length: int, num_layers: int, num_heads: int,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, dropout: float = 0.0,
+                 attention_dropout: float = 0.0):
         super().__init__()
         self.image_size = image_size
         self.patch_size = patch_size
@@ -60,11 +71,14 @@ class VisionTransformerDecoder(nn.Module):
         # seq_length counts the class token (the reference's API)
         self.pos_embedding = nn.Parameter(torch.empty(1, seq_length - 1, hidden_dim))
         nn.init.normal_(self.pos_embedding, std=0.02, generator=generator)
-        self.encoder = ViTDecoderEncoder(num_layers, num_heads, hidden_dim, mlp_dim, generator)
+        self.encoder = ViTDecoderEncoder(num_layers, num_heads, hidden_dim, mlp_dim, generator,
+                                         dropout, attention_dropout)
         self.head = _dense(hidden_dim, 3 * patch_size ** 2, generator)
 
-    def forward(self, tokens: torch.Tensor, mask: torch.Tensor):
+    def forward(self, tokens: torch.Tensor, mask: torch.Tensor, train: bool = False,
+                generator: torch.Generator | None = None):
         m = torch.sigmoid(mask * 100.0).expand(tokens.shape)  # soft binarisation (:98-100)
         tokens = tokens * m + self.mask_token * (1.0 - m) + self.pos_embedding
-        img = unpatchify_cmajor(self.head(self.encoder(tokens)), self.patch_size)
+        img = unpatchify_cmajor(self.head(self.encoder(tokens, train, generator)),
+                                self.patch_size)
         return img, mask_image(m, self.patch_size)

@@ -18,7 +18,14 @@ a key mask runs the attention core through ``fused_mhsa`` (the fast
 clamped exp2 softmax; ``attn_scores_pv`` on the card). That kernel has no
 backward, so a CUDA forward under "pallas" whose qkv needs a gradient
 raises; ``SelfAttention`` is deterministic exactly when the module is in
-eval mode.
+eval mode and its forward is not a train forward.
+
+Attention dropout (``SelfAttention(dropout=rate)``, JAX's
+``attention_core`` at ops/attention.py:84-86): in a train forward at a
+nonzero rate the softmax weights (fp32, cast to the compute dtype) go
+through ``ops/dropout.dropout`` before the PV product, always on this
+explicit-softmax form: never SDPA's ``dropout_p`` (its draws cannot be
+fed) and never ``fused_mhsa``.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import torch
 from torch import nn
 
 from peekvit_torch.ops.cuda.fused_attention import fused_mhsa
+from peekvit_torch.ops.dropout import dropout
 from peekvit_torch.ops.fake_quant import maybe_fq
 
 # Global switch: "xla" (the module's own attention, default) or "pallas"
@@ -57,9 +65,13 @@ def qkv_projection(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor):
 
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    num_heads: int, *,
-                   key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   key_mask: Optional[torch.Tensor] = None, dropout_rate: float = 0.0,
+                   deterministic: bool = True,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Scaled dot-product attention over heads. q/k/v: (B, N, D).
-    key_mask: optional (B, N), 1 = attend, 0 = exclude. Returns (B, N, D)."""
+    key_mask: optional (B, N), 1 = attend, 0 = exclude. A nonzero
+    ``dropout_rate`` in a non-deterministic call drops softmax weights
+    (B, H, N, N), drawn from ``generator``. Returns (B, N, D)."""
     b, n, d = q.shape
     hd = d // num_heads
     q = q.reshape(b, n, num_heads, hd)
@@ -72,17 +84,21 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         logits = torch.where(key_mask[:, None, None, :] > 0, logits,
                              torch.full_like(logits, neg))
     weights = torch.softmax(logits, dim=-1).to(q.dtype)
+    weights = dropout(weights, dropout_rate, generator, train=not deterministic)
     out = torch.einsum("bhqk,bkhd->bqhd", weights, v)
     return out.reshape(b, n, d)
 
 
 def multi_head_attention(x: torch.Tensor, params: dict, num_heads: int, *,
                          key_mask: Optional[torch.Tensor] = None,
-                         deterministic: bool = True) -> torch.Tensor:
+                         deterministic: bool = True, dropout_rate: float = 0.0,
+                         generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Full MHSA: packed qkv proj -> attention -> out proj. x: (B, N, D).
     params: {'in_proj': {'kernel', 'bias'}, 'out_proj': {'kernel', 'bias'}}.
     Under ``set_attention_impl("pallas")`` a deterministic call without a
-    key mask takes ``fused_mhsa`` (JAX ops/attention.py:114-119). The qkv
+    key mask takes ``fused_mhsa`` (JAX ops/attention.py:114-119); a
+    non-deterministic call drops attention weights at ``dropout_rate``,
+    drawn from ``generator`` (``attention_core``). The qkv
     and out-proj matmuls are QAT sites (``ops/fake_quant.maybe_fq``) in
     both branches, identity unless a ``fake_quant`` block is open."""
     xq, wq = maybe_fq(x, params["in_proj"]["kernel"], site="qkv")
@@ -95,20 +111,23 @@ def multi_head_attention(x: torch.Tensor, params: dict, num_heads: int, *,
         out = fused_mhsa(qkv, num_heads)
     else:
         q, k, v = qkv_projection(xq, wq, params["in_proj"]["bias"])
-        out = attention_core(q, k, v, num_heads, key_mask=key_mask)
+        out = attention_core(q, k, v, num_heads, key_mask=key_mask, dropout_rate=dropout_rate,
+                             deterministic=deterministic, generator=generator)
     oq, wo = maybe_fq(out, params["out_proj"]["kernel"], site="out")
     return torch.matmul(oq, wo) + params["out_proj"]["bias"]
 
 
 class SelfAttention(nn.Module):
     """MHSA module with the JAX parameter names. Init: xavier-uniform
-    kernels, zero biases (the torch nn.MultiheadAttention init)."""
+    kernels, zero biases (the torch nn.MultiheadAttention init).
+    ``dropout``: the attention-weight dropout rate of a train forward."""
 
     def __init__(self, hidden_dim: int, num_heads: int,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, dropout: float = 0.0):
         super().__init__()
         d = hidden_dim
         self.num_heads = num_heads
+        self.dropout = dropout
         self.in_proj_kernel = nn.Parameter(torch.empty(d, 3 * d))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d))
         self.out_proj_kernel = nn.Parameter(torch.empty(d, d))
@@ -116,10 +135,11 @@ class SelfAttention(nn.Module):
         nn.init.xavier_uniform_(self.in_proj_kernel, generator=generator)
         nn.init.xavier_uniform_(self.out_proj_kernel, generator=generator)
 
-    def forward(self, x: torch.Tensor, *,
-                key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, *, key_mask: Optional[torch.Tensor] = None,
+                train: bool = False, generator: torch.Generator | None = None) -> torch.Tensor:
         return multi_head_attention(
             x,
             {"in_proj": {"kernel": self.in_proj_kernel, "bias": self.in_proj_bias},
              "out_proj": {"kernel": self.out_proj_kernel, "bias": self.out_proj_bias}},
-            self.num_heads, key_mask=key_mask, deterministic=not self.training)
+            self.num_heads, key_mask=key_mask, deterministic=not (self.training or train),
+            dropout_rate=self.dropout if train else 0.0, generator=generator)

@@ -25,6 +25,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from peekvit_torch.ops.global_batch import per_sample
+
 _TINY = torch.finfo(torch.float32).tiny
 
 
@@ -39,9 +41,11 @@ def hard_sigmoid_eval(logits: torch.Tensor) -> torch.Tensor:
 
 def _gumbel_noise(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
     """Gumbel(0, 1) draws -log(-log(u)), u uniform in [tiny, 1) as
-    jax.random.gumbel, drawn on the generator's device (else ``device``)."""
+    jax.random.gumbel, drawn on the generator's device (else ``device``),
+    over the global batch under data parallelism (ops/global_batch.py)."""
     gen_device = generator.device if generator is not None else device
-    u = torch.rand(shape, generator=generator, device=gen_device).clamp_min(_TINY)
+    u = per_sample(lambda s: torch.rand(s, generator=generator, device=gen_device),
+                   shape).clamp_min(_TINY)
     return -torch.log(-torch.log(u))
 
 

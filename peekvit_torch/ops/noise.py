@@ -33,6 +33,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from peekvit_torch.ops.global_batch import per_sample
+
 NOISE_TYPES = ("gaussian", "token_drop")
 
 
@@ -63,9 +65,11 @@ def _generator_for(x: torch.Tensor, generator: Optional[torch.Generator]) -> tor
 
 
 def standard_normal(x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """fp32 standard normals of x's shape on x's device."""
-    return torch.randn(x.shape, generator=_generator_for(x, generator), device=x.device,
-                       dtype=torch.float32)
+    """fp32 standard normals of x's shape on x's device (over the global
+    batch under data parallelism, ops/global_batch.py)."""
+    gen = _generator_for(x, generator)
+    return per_sample(lambda s: torch.randn(s, generator=gen, device=x.device,
+                                            dtype=torch.float32), x.shape)
 
 
 def token_permutation(x: torch.Tensor,

@@ -19,9 +19,9 @@ batch's logits, as JAX's global-in, global-out ``shard_map`` does.
 Where JAX runs one program over a device mesh, each rank here is one
 process (``parallel/mesh.py``). The caller builds the process group and
 so picks the backend: NCCL across cards, or gloo, which also takes CUDA
-tensors for ``all_reduce`` (several ranks may share one card that way;
-gloo's ``all_gather`` takes CPU tensors only, so a mesh with a data axis
-over gloo runs on the CPU).
+tensors for ``all_reduce`` (several ranks may share one card that way).
+The data axis's gather is ``parallel/data.over_data``'s all-reduce of a
+zero-filled buffer, which gloo takes on the card too.
 """
 
 from __future__ import annotations
@@ -51,6 +51,7 @@ from peekvit_torch.ops.cuda.tp_blocks import (
     tp_masked_mlp_partial,
     tp_mlp_partial,
 )
+from peekvit_torch.parallel.data import over_data
 from peekvit_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS
 
 
@@ -206,32 +207,6 @@ def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
     return t
 
 
-def _over_data(mesh, shard_fn):
-    """(prepared, images, *rest) -> outputs over the whole batch: this rank
-    serves its data slice, and the outputs (a tensor or a tuple) are
-    all-gathered over its data column."""
-    n_data = mesh.shape[DATA_AXIS]
-
-    def gather(t):
-        parts = [torch.empty_like(t) for _ in range(n_data)]
-        dist.all_gather(parts, t.contiguous(), group=mesh.data_group)
-        return torch.cat(parts)
-
-    def fn(prepared, images, *rest):
-        if images.shape[0] % n_data:
-            raise ValueError(f"batch size {images.shape[0]} must divide the mesh's "
-                             f"'{DATA_AXIS}' axis size {n_data} for data-parallel serving "
-                             "(each data slice takes an equal share)")
-        per = images.shape[0] // n_data
-        out = shard_fn(prepared, images[mesh.data_index * per:(mesh.data_index + 1) * per],
-                       *rest)
-        if n_data == 1:
-            return out
-        return tuple(gather(t) for t in out) if isinstance(out, tuple) else gather(out)
-
-    return fn
-
-
 def make_tp_vit_forward(mesh, *, num_heads: int, patch_size: int, num_class_tokens: int = 1,
                         ln_eps: float = 1e-5, compute_dtype=torch.bfloat16, rank_layers=(),
                         budget: Optional[float] = None, kept_out: Optional[dict] = None):
@@ -273,7 +248,7 @@ def make_tp_vit_forward(mesh, *, num_heads: int, patch_size: int, num_class_toke
             tokens = (tokens.float() + pm + shared["b2"][li].float()).to(compute_dtype)
         return _classify(shared, tokens, c, cast, ln_eps)
 
-    return _over_data(mesh, shard_fn)
+    return over_data(mesh, shard_fn)
 
 
 def make_tp_residual_forward(mesh, *, num_heads: int, patch_size: int,
@@ -352,7 +327,7 @@ def make_tp_residual_forward(mesh, *, num_heads: int, patch_size: int,
         final = _classify(shared, tokens, c, cast, 1e-5)
         return tuple(exits) + (final,) if early_exits else final
 
-    return _over_data(mesh, shard_fn)
+    return over_data(mesh, shard_fn)
 
 
 def tp_serving_engine(model, mesh, *, compute_dtype=torch.bfloat16, ee_outputs: bool = False):

@@ -38,6 +38,7 @@ from torch.utils.checkpoint import checkpoint
 from peekvit_torch.inference import _classify, _embed, _layer_ids, _layer_norm
 from peekvit_torch.models.adapters import live_params
 from peekvit_torch.models.residualvit import sample_budgets
+from peekvit_torch.ops.global_batch import batch_mean
 from peekvit_torch.ops.cuda.fused_attention_vjp import (
     attention_block_trainable,
     attention_block_trainable_ref,
@@ -166,7 +167,8 @@ def residualvit_forward_trainable(params, images, budget_vec, *, patch_size: int
     - Each layer's gate runs in fp32 on the image tokens:
       relu(sigmoid(logits / temp + bias) - threshold), the threshold
       sigmoid(budget_token_gate(budget token)) under ``learnable``, else
-      1 - the mean of the WHOLE batch's budget token (a reference quirk).
+      1 - the mean of the WHOLE batch's budget token (a reference quirk;
+      over the data column under data parallelism, JAX's ``pmean_axis``).
       ``learnable_interpolate`` gates as the module does (the block has no
       ``budget_token_gate``; the JAX fused forward reads one and raises).
     - The attention sublayer is ``masked_attention_block_trainable`` at LN
@@ -213,7 +215,7 @@ def residualvit_forward_trainable(params, images, budget_vec, *, patch_size: int
                                 + bg["bias"].float())
             mask = torch.relu(sig - thr)
         else:
-            mask = torch.relu(sig - (1.0 - tokens[:, -1:].float().mean()))
+            mask = torch.relu(sig - (1.0 - batch_mean(tokens[:, -1:].float())))
         masks[f"layer_{i}"] = mask
         mask_c = mask.to(compute_dtype)
         fwd_mask = torch.cat([ones, mask_c, ones[:, :1]], dim=1)

@@ -54,12 +54,34 @@ the predicate always holds.
 All feed the same update: optional gradient accumulation, global-norm
 clipping, freezing and the optimizer (``optim.GradientTransform``).
 
+- **data-parallel** (``mesh=make_mesh(n, 1)``, one process per rank; the
+  JAX step under a data mesh, trainer.py:313-400, :721-809): every rank
+  receives the global batch and runs the step's forward (fused or module)
+  on its rows (``parallel/data.py``); the outputs and the per-sample aux
+  are gathered with autograd, so every rank computes the global batch's
+  loss, metrics and regularizers; it backpropagates ``loss / n`` and the
+  gradients are summed in one fp32 all-reduce over the data column, so
+  clipping, ``grad_accumulation`` and the update see the global gradient
+  and every rank ends the step with the same parameters. Per-sample draws
+  (budgets, dropout masks, gumbel gates, NoiseBlock normals) are made
+  over the global batch's shape and each rank keeps its rows, and the
+  ResidualViT budget token's whole-batch mean (the A-ViT's mean halting
+  score) is averaged over the data column (``ops/global_batch.py``): an
+  n-rank step is the single-device step of the same seed on the same
+  global batch, up to the order of the sums. The data axis must divide
+  the batch (JAX's message). ``zero_sharded_optimizer=True`` keeps each
+  rank's 1/n share of the optimizer state (``training/zero.py``). A mesh
+  with a model axis > 1 takes ``sequence_parallel_devices``; without it
+  (tensor-parallel training) it raises naming ROADMAP item 9. The eval
+  step runs the whole batch on every rank.
+
 Random numbers (the budgets drawn when no ``budget=`` is given, the
-gumbel gates' noise, the MAE's shuffle) come from a CPU ``torch.Generator``
-seeded, for each step, with ``(seed << 32) | step_idx`` (both taken
-modulo 2^32): one stream per step as the JAX step's
-``fold_in(key(seed), step_idx)``, though not JAX's bits. The budgets are
-drawn first, then each gate in layer order. The NoiseBlock's draws
+gumbel gates' noise, the MAE's shuffle, the dropout masks) come from a
+``torch.Generator`` on the batch's device seeded, for each step, with
+``(seed << 32) | step_idx`` (both taken modulo 2^32): one stream per step
+as the JAX step's ``fold_in(key(seed), step_idx)``, though not JAX's
+bits. The budgets are drawn first, then each gate and dropout mask in
+the forward's order. The NoiseBlock's draws
 (``train_step(noise_value=)``, for a model built with a noise layer) come
 from :func:`noise_generator`, a second generator of the step's seed on
 the batch's device, as JAX's step splits a ``noise`` key off the same
@@ -74,8 +96,13 @@ JAX trainer does.
   with SP, the pipeline or ``remat`` (a checkpointed backward would rerun
   the forward unquantized).
 
-The JAX trainer's other multi-device options (``mesh=`` without SP, the
-pipeline, tensor-parallel, ZeRO and FSDP) are not ported; each raises
+Dropout (``dropout`` / ``attention_dropout`` > 0, the decoder's rates)
+trains on the module path, as JAX's step takes linen at a nonzero rate
+(trainer.py:284-288): ``fused=True`` with dropout raises, naming it, and
+SP refuses dropout with JAX's words.
+
+The JAX trainer's other multi-device options (the pipeline,
+tensor-parallel and FSDP) are not ported; each raises
 ``NotImplementedError`` naming its ROADMAP.md port queue A item. A PCT or
 RankPCT is refused: the JAX ``Trainer`` cannot train one (its step holds
 the BatchNorm statistics immutable); train it at module level. ``train_epoch`` and ``validate``
@@ -101,7 +128,7 @@ from peekvit_torch.models.pct import PointCloudTransformer
 from peekvit_torch.models.rankpct import RankPointCloudTransformer
 from peekvit_torch.models.rankvit import RankVisionTransformer
 from peekvit_torch.models.registry import resolve_device
-from peekvit_torch.models.residualvit import DROPOUT_ITEM, ResidualVisionTransformer
+from peekvit_torch.models.residualvit import ResidualVisionTransformer
 from peekvit_torch.models.vit import VisionTransformer
 from peekvit_torch.ops.cuda.fused_attention import (
     GEMM_K_MULTIPLE,
@@ -111,6 +138,7 @@ from peekvit_torch.ops.cuda.fused_attention import (
 from peekvit_torch.ops.cuda.fused_attention_vjp import LN_BWD_MAX_WIDTH
 from peekvit_torch.ops.fake_quant import fake_quant
 from peekvit_torch.ops.noise import default_generator
+from peekvit_torch.parallel.data import check_divisible, data_rows, data_slice, gather_tree
 from peekvit_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, make_mesh
 from peekvit_torch.parallel.sequence import sequence_parallel_vit_forward
 from peekvit_torch.training.fused import (
@@ -126,6 +154,7 @@ from peekvit_torch.training.optim import (
     get_learning_rate,
     set_learning_rate,
 )
+from peekvit_torch.training.zero import ZeroShardedOptimizer
 
 # params that stay trainable when train_backbone=False
 # (reference train.py:99-100 -> topology.py:128-157)
@@ -148,11 +177,11 @@ def param_filter_mask(params: dict, keywords=FINETUNE_KEYWORDS) -> dict:
     return visit(params, "")
 
 
-def step_generator(seed: int, step_idx: int) -> torch.Generator:
-    """The CPU generator of one train step: seeded with
-    ``(seed << 32) | step_idx``, each modulo 2^32."""
-    return torch.Generator().manual_seed(((int(seed) & 0xFFFFFFFF) << 32)
-                                         | (int(step_idx) & 0xFFFFFFFF))
+def step_generator(seed: int, step_idx: int, device="cpu") -> torch.Generator:
+    """The generator of one train step, on ``device`` (the Trainer's: the
+    batch's): seeded with ``(seed << 32) | step_idx``, each modulo 2^32."""
+    return torch.Generator(device=torch.device(device)).manual_seed(
+        ((int(seed) & 0xFFFFFFFF) << 32) | (int(step_idx) & 0xFFFFFFFF))
 
 
 # a step's NoiseBlock stream: the step seed's second generator
@@ -211,16 +240,18 @@ def fused_train_limit(hidden_dim: int, num_heads: int, mlp_dim: int, device) -> 
     return None
 
 
-# field -> (value that means "unused", ROADMAP.md port queue A item);
-# ``mesh`` is ported with sequence_parallel_devices > 1 only
+# field -> (value that means "unused", ROADMAP.md port queue A item)
 _NOT_PORTED = {
-    "mesh": (None, "item 9 (parallel and serving)"),
     "pipeline_stages": (0, "item 9 (parallel and serving)"),
     "pipeline_microbatches": (0, "item 9 (parallel and serving)"),
     "tensor_parallel": (False, "item 9 (parallel and serving)"),
     "fsdp_sharded_params": (False, "item 9 (parallel and serving)"),
-    "zero_sharded_optimizer": (False, "item 9 (parallel and serving)"),
 }
+
+# aux entries that hold the whole batch's values already under data
+# parallelism (no leading batch axis): the MAE's shared permutation, the
+# A-ViT's per-layer mean halting score (averaged over the data column)
+_WHOLE_BATCH_AUX = ("forward_perm", "backward_perm", "halting_score_layer")
 
 
 @dataclasses.dataclass
@@ -271,9 +302,7 @@ class Trainer:
     def __post_init__(self):
         sp = (self.sequence_parallel_devices or 0) > 1
         for name, (unused, item) in _NOT_PORTED.items():
-            value = getattr(self, name)
-            used = value is not None if unused is None else value != unused
-            if used and not (name == "mesh" and sp):
+            if getattr(self, name) != unused:
                 raise NotImplementedError(
                     f"Trainer({name}=...) is not ported yet: ROADMAP.md port queue A {item}")
         if self.parallel_kernels not in ("auto", "xla", "pallas"):
@@ -288,13 +317,10 @@ class Trainer:
             raise NotImplementedError(
                 f"the port's Trainer trains the plain ViT, RankViT, the ResidualViT family, "
                 f"A-ViT, MAE and MoE, not {type(self.model).__name__}")
-        if any(_dropout_rates(self.model)):
-            raise NotImplementedError(
-                f"training with dropout is not ported yet ({DROPOUT_ITEM}): "
-                "build the model with dropout=0.0 and attention_dropout=0.0")
         if self.qat:
             self._check_qat(sp)
         self.device = resolve_device(self.device)
+        self._dp = self._data_mesh(sp)
         self.output_format = getattr(self.model, "output_format", None)
         # the fused path, decided here from the model and its shapes, before
         # anything moves (raises outside the kernels' limits)
@@ -304,13 +330,43 @@ class Trainer:
             self.main_criterion = CrossEntropyLoss()
         self.params = live_params(self.model)
         mask = None if self.train_backbone else param_filter_mask(self.params)
-        self.torch_optimizer = self.optimizer.build(self.params, param_mask=mask)
+        if self.zero_sharded_optimizer:
+            self.torch_optimizer = ZeroShardedOptimizer(self.optimizer, self.params, self._dp,
+                                                        param_mask=mask)
+        else:
+            self.torch_optimizer = self.optimizer.build(self.params, param_mask=mask)
         self.tx = GradientTransform(self.torch_optimizer, [p for _, p in tree_leaves(self.params)],
                                     self.clip_grad_norm, self.grad_accumulation)
         self._forward = None
         self._train_kind = None
         self._sp_world = 1
         self._sp_fwd_kwargs = None  # the SP forward's arguments, once the step is built
+
+    def _data_mesh(self, sp: bool):
+        """The data-parallel mesh (``mesh=`` without SP), after JAX's checks
+        (trainer.py:258-275): ZeRO-1 needs a mesh; a model axis > 1 is SP's
+        or not ported. None without one. The Trainer moves to the mesh's
+        device (the rank's own card)."""
+        mesh = self.mesh
+        if self.zero_sharded_optimizer and mesh is None:
+            raise ValueError("zero_sharded_optimizer requires mesh= (the optimizer state shards "
+                             "over the mesh's data axis)")
+        if mesh is None or sp:
+            if self.zero_sharded_optimizer:
+                raise NotImplementedError(
+                    "Trainer(zero_sharded_optimizer=True) with sequence_parallel_devices is not "
+                    "ported yet: ROADMAP.md port queue A item 9 (parallel and serving)")
+            return None
+        if mesh.shape[MODEL_AXIS] > 1:
+            raise NotImplementedError(
+                f"Trainer(mesh=...) with a '{MODEL_AXIS}' axis of {mesh.shape[MODEL_AXIS]} and no "
+                "sequence_parallel_devices (tensor-parallel training) is not ported yet: "
+                "ROADMAP.md port queue A item 9 (parallel and serving)")
+        if mesh.device.type != self.device.type:
+            raise ValueError(f"the mesh's device {mesh.device} is not on the Trainer's device "
+                             f"type {self.device.type}")
+        self.device = mesh.device
+        return mesh
 
     def _check_qat(self, sp: bool) -> None:
         """JAX's QAT checks (trainer.py:180-205), then ``fused`` off: the
@@ -347,6 +403,11 @@ class Trainer:
         """'vit' | 'residual' | None: which fused train path applies, under
         the JAX conditions (trainer.py:278-308); a fused path raises where
         the shapes break the kernels' limits (:func:`fused_train_limit`)."""
+        if self.fused is True and any(_dropout_rates(self.model)):
+            raise ValueError(
+                "Trainer(fused=True): the fused train paths have no dropout; a model with a "
+                "nonzero dropout rate trains on the module path (fused=False or 'auto'), as "
+                "JAX's step takes linen")
         kind = self._jax_fused_kind()
         if kind is None:
             return None
@@ -411,19 +472,16 @@ class Trainer:
 
     def _module_forward(self, x, budget, gen, nkw, train: bool):
         """The model's own forward, as the linen step applies it: the
-        budget to the families that take one, the generator to those that
-        draw (the ResidualViT family's budgets and gumbel gates, the MoE's
-        gates, the MAE's shuffle), the noise keywords to a NoiseBlock."""
+        budget to the families that take one, the generator to every draw
+        (the ResidualViT family's budgets and gumbel gates, the MoE's
+        gates, the MAE's shuffle, the dropout masks), the noise keywords
+        to a NoiseBlock."""
         model = self.model
         if isinstance(model, ResidualVisionTransformer):
             return model(x, budget=budget, train=train, generator=gen, **nkw)
         if isinstance(model, RankVisionTransformer):
-            return model(x, budget=budget, **nkw)
-        if isinstance(model, (VisionTransformerMoE, MAEVisionTransformer)):
-            return model(x, train=train, generator=gen, **nkw)
-        if isinstance(model, AdaptiveVisionTransformer):
-            return model(x, train=train, **nkw)
-        return model(x, **nkw)
+            return model(x, budget=budget, train=train, generator=gen, **nkw)
+        return model(x, train=train, generator=gen, **nkw)
 
     def _noise_kwargs(self, noise_value, make_generator) -> dict:
         """The NoiseBlock's keywords: none for a model without one (JAX
@@ -464,7 +522,7 @@ class Trainer:
             raise NotImplementedError(
                 f"{what} applies to the plain-ViT family (uniform blocks) and gated "
                 f"ResidualViT, not {type(model).__name__}")
-        if getattr(model, "noise_layer", None) is not None:
+        if any(_dropout_rates(model)) or getattr(model, "noise_layer", None) is not None:
             raise NotImplementedError(
                 f"{what} training is deterministic: set dropout=0 and no noise_layer")
         if self.loss_compose and self.loss_compose.additional_losses:
@@ -501,13 +559,28 @@ class Trainer:
         return lambda x, budget, gen, nkw: (
             sequence_parallel_vit_forward(self.params, x, budget=budget, **kw), {})
 
-    def _all_reduce_grads(self) -> None:
-        """Every parameter's gradient summed over all ranks: one fp32
-        all-reduce of the flattened gradients (gloo pays per call)."""
+    def _dp_forward(self, x, budget, gen, nkw):
+        """The step's forward under data parallelism: this rank's rows of
+        the global batch (and of a per-sample budget vector) inside
+        ``parallel.data.data_slice``, then the outputs and the per-sample
+        aux gathered over the data column with autograd."""
+        mesh = self._dp
+        rows = data_rows(x, mesh)
+        if isinstance(budget, torch.Tensor) and budget.dim():
+            budget = data_rows(budget, mesh)
+        with data_slice(mesh):
+            out, aux = self._forward(rows, budget, gen, nkw)
+        n = rows.shape[0]
+        return gather_tree(out, mesh, n), gather_tree(aux, mesh, n, keep=_WHOLE_BATCH_AUX)
+
+    def _all_reduce_grads(self, group=None) -> None:
+        """Every parameter's gradient summed over the ranks of ``group``
+        (the default: all): one fp32 all-reduce of the flattened gradients
+        (gloo pays per call)."""
         params = self.tx.params
         flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p))
                           .reshape(-1).float() for p in params])
-        dist.all_reduce(flat)
+        dist.all_reduce(flat, group=group)
         offset = 0
         for p in params:
             p.grad = flat[offset:offset + p.numel()].view_as(p).to(p.dtype)
@@ -549,7 +622,8 @@ class Trainer:
         tensors on the device: classification_loss, reconstruction_loss
         (EncDec, a non-zero weight), the regularizers by name, and
         total_loss. ``step_idx`` seeds the step's generator
-        (``step_generator``); the fused residual step draws its per-sample
+        (``step_generator``, on the batch's device); the fused residual step
+        draws its per-sample
         budgets from it when ``budget`` is None, and broadcasts ``budget``
         otherwise. ``noise_value`` drives a model's NoiseBlock, its draws
         from :func:`noise_generator`."""
@@ -561,7 +635,12 @@ class Trainer:
                 "the fused train path treats RankViT as a plain ViT: pass fused='never' to "
                 "train with an active ranking budget")
         x, y = self._to_device(x, y)
-        gen = step_generator(self.seed, step_idx)
+        dp = self._dp
+        if dp is not None:
+            check_divisible(x.shape[0], dp, "the dp-fused train step"
+                            if self._train_kind.startswith("fused") else "the data-parallel "
+                            "train step")
+        gen = step_generator(self.seed, step_idx, x.device)
         if self._train_kind == "fused_residual":
             n = x.shape[0]
             budget = (sample_budgets(self.model, n, gen, x.device) if budget is None
@@ -569,11 +648,15 @@ class Trainer:
         nkw = self._noise_kwargs(noise_value,
                                  lambda: noise_generator(self.seed, step_idx, x.device))
         with self._fake_quant():
-            out, aux = self._forward(x, budget, gen, nkw)
+            out, aux = (self._forward(x, budget, gen, nkw) if dp is None
+                        else self._dp_forward(x, budget, gen, nkw))
         total, metrics = self._loss(out, aux, y, budget, x)
         if self._train_kind == "sp":
             (total / self._sp_world).backward()
             self._all_reduce_grads()
+        elif dp is not None and dp.shape[DATA_AXIS] > 1:
+            (total / dp.shape[DATA_AXIS]).backward()
+            self._all_reduce_grads(dp.data_group)
         else:
             total.backward()
         self.tx()

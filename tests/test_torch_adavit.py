@@ -171,7 +171,7 @@ def test_guards(pair):
     """int8 and max_budget= refused with the JAX reason; the NoiseBlock
     builds (noise_layer= and noise_args=) and the engine refuses it, as
     JAX's does (the noise sits inside the ACT loop); training with
-    dropout refused with its ROADMAP item."""
+    dropout draws from its generator."""
     _, tm, _, _ = pair
     for kwargs in (dict(quantized=True), dict(max_budget=0.5)):
         with pytest.raises(NotImplementedError, match="bf16-only"):
@@ -183,9 +183,16 @@ def test_guards(pair):
         assert noisy.encoder.noise_layer == 1
         with pytest.raises(NotImplementedError, match="ACT loop"):
             InferenceEngine(noisy, device="cpu")
+    # dropout is ported (tests/test_torch_dropout.py): a train forward draws
+    # its masks from the generator; the eval forward has none
     dropout = build_model("AdaptiveVisionTransformer", dict(ARGS, dropout=0.1), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        dropout(torch.zeros(1, 32, 32, 3), train=True)
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(2, 32, 32, 3)).astype(np.float32))
+    drawn = [dropout(x, train=True, generator=torch.Generator().manual_seed(s))[1]["rho_token"]
+             for s in (0, 0, 1)]
+    assert torch.equal(drawn[0], drawn[1]) and not torch.equal(drawn[0], drawn[2])
+    plain = build_model("AdaptiveVisionTransformer", ARGS, device="cpu")
+    plain.load_state_dict(dropout.state_dict())
+    assert torch.equal(dropout(x)[1]["rho_token"], plain(x)[1]["rho_token"])
 
 
 def test_entry_points_default_to_the_card(monkeypatch):

@@ -39,6 +39,7 @@ from peekvit_torch.inference import (maevit_forward_fused, maevit_forward_plain,
 from peekvit_torch.models import maevit as tmae
 from peekvit_torch.models.adapters import params_from_jax, params_to_jax
 from peekvit_torch.ops.cuda import fused_attention as tfa
+from peekvit_torch.parallel import DATA_AXIS, MODEL_AXIS, Mesh
 
 ENCDEC = dict(image_size=32, patch_size=8, num_layers=2, num_heads=3, hidden_dim=96,
               mlp_dim=128, num_classes=7, residual_layers=["attention+mlp"] * 2,
@@ -261,7 +262,8 @@ def test_encdec_engine_bf16_matches_jax_engine():
 
 def test_engine_guards():
     """The JAX engine's refusals (inference.py:2518-2544, :2631-2634,
-    :2751-2754) and recon under a mesh (queue A item 9)."""
+    :2751-2754), recon under a tensor-parallel mesh (queue A item 9) and
+    under a data-parallel one."""
     _, enc, _ = _pair("encdecresidualvit")
     _, mae, _ = _pair("maevit")
     vit = build_model("vit", dict(image_size=32, patch_size=8, num_layers=1, num_heads=2,
@@ -277,14 +279,24 @@ def test_engine_guards():
             (res, dict(recon_outputs=True), "reconstruction decoder"),
             (enc, dict(recon_outputs=True, mesh=types.SimpleNamespace(shape={"model": 2})),
              "item 9"),
-            (mae, dict(recon_outputs=True, mesh=object()), "item 9")):
+            (mae, dict(recon_outputs=True, mesh=types.SimpleNamespace(shape={"model": 2})),
+             "item 9")):
         with pytest.raises(NotImplementedError, match=match):
             InferenceEngine(model, device="cpu", **kwargs)
+    # recon under a data-parallel mesh is ported: on a one-rank data axis
+    # the engine is the single-device one
+    one = Mesh({DATA_AXIS: 1, MODEL_AXIS: 1}, None, None, 0, 0, torch.device("cpu"))
+    x = _images(3, b=2)
+    for model, kw in ((mae, {}), (enc, dict(budget=BUDGET))):
+        got = InferenceEngine(model, device="cpu", recon_outputs=True, mesh=one)(x, **kw)
+        want = InferenceEngine(model, device="cpu", recon_outputs=True)(x, **kw)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
     with pytest.raises(ValueError, match="requires add_budget_token"):
         build_model("encdecresidualvit", dict(ENCDEC, add_budget_token=False), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        build_model("maevit", dict(MAE, dropout=0.1), device="cpu")(
-            torch.from_numpy(_images(1, b=1)), train=True)
+    # dropout is ported (tests/test_torch_dropout.py)
+    (logits, recon), _ = build_model("maevit", dict(MAE, dropout=0.1), device="cpu")(
+        torch.from_numpy(_images(1, b=1)), train=True)
+    assert torch.isfinite(logits).all() and torch.isfinite(recon).all()
     # the NoiseBlock is ported (an MoE builds with one); the MAE has none and
     # refuses the keyword, as JAX's module does
     moe = build_model("moevit", dict(image_size=32, patch_size=8, num_layers=1, num_heads=2,

@@ -43,6 +43,7 @@ from peekvit_torch.models.adapters import params_from_jax, params_to_jax, tree_m
 from peekvit_torch.ops import gates as tgates
 from peekvit_torch.ops.cuda import fused_attention as tfa
 from peekvit_torch.ops.cuda import quant_blocks as tq
+from peekvit_torch.parallel import DATA_AXIS, MODEL_AXIS, Mesh
 from peekvit_torch.training.optim import AdamW
 
 BASE = dict(image_size=32, patch_size=8, num_layers=3, num_heads=2, hidden_dim=32, mlp_dim=64,
@@ -394,7 +395,8 @@ def test_guards(monkeypatch):
             InferenceEngine(tm, device="cpu", routed=bad)
     assert InferenceEngine(tm, device="cpu", routed=True)._forward["routed_capacity"] == 2.0
     for kwargs, match in ((dict(max_budget=0.5), "does not apply to MoE"),
-                          (dict(mesh=object()), "item 9"),
+                          (dict(mesh=types.SimpleNamespace(shape={"model": 2}), routed=True),
+                           "tensor-parallel"),
                           (dict(mesh=types.SimpleNamespace(shape={"model": 2})),
                            "tensor-parallel"),
                           (dict(quantized=True, calib_images=_images(0, b=1)),
@@ -406,9 +408,17 @@ def test_guards(monkeypatch):
             InferenceEngine(tm, device="cpu", **kwargs)
     noisy = build_model("moevit", dict(CONFIGS["mixed"], noise_layer=1), device="cpu")
     assert (noisy.noise_layer, noisy.noise_type) == (1, "gaussian")  # the NoiseBlock, ported
-    with pytest.raises(NotImplementedError, match="item 3"):
-        build_model("moevit", dict(CONFIGS["mixed"], dropout=0.1), device="cpu")(
-            torch.from_numpy(_images(1, b=1)), train=True)
+    # dropout is ported (tests/test_torch_dropout.py), and so is the
+    # data-parallel engine (tests/test_torch_data_parallel.py): on a
+    # one-rank data axis it is the single-device engine
+    logits, _ = build_model("moevit", dict(CONFIGS["mixed"], dropout=0.1), device="cpu")(
+        torch.from_numpy(_images(1, b=1)), train=True)
+    assert torch.isfinite(logits).all()
+    one = Mesh({DATA_AXIS: 1, MODEL_AXIS: 1}, None, None, 0, 0, torch.device("cpu"))
+    x = _images(2, b=2)
+    assert torch.equal(InferenceEngine(tm, device="cpu", compute_dtype=torch.float32,
+                                       mesh=one)(x),
+                       InferenceEngine(tm, device="cpu", compute_dtype=torch.float32)(x))
     # MoE training, ported: the module path (JAX's linen step), never fused
     trainer = Trainer(tm, AdamW(lr=1e-4), device="cpu")
     assert trainer._fused_kind() is None

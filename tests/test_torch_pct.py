@@ -293,9 +293,12 @@ def test_engine_guards(pct_pair, monkeypatch):
         InferenceEngine(bare, device="cpu")
     with pytest.raises(TypeError, match="noise_layer"):  # no NoiseBlock, as in JAX
         build_model("pct", ARGS, noise_args={"layer": 1}, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        build_model("pct", dict(ARGS, dropout=0.1), device="cpu")(
-            torch.from_numpy(_points(0, batch=2)), train=True)
+    # dropout is ported (tests/test_torch_dropout.py): a train forward draws
+    # its masks, the token dropout's first, from the generator
+    drop = build_model("pct", dict(ARGS, dropout=0.1), device="cpu")
+    drawn = [drop(torch.from_numpy(_points(0, batch=2)), train=True,
+                  generator=torch.Generator().manual_seed(s))[0] for s in (0, 0, 1)]
+    assert torch.equal(drawn[0], drawn[1]) and not torch.equal(drawn[0], drawn[2])
     assert build_model("moevit", dict(image_size=32, patch_size=8, num_layers=1, num_heads=2,
                                       hidden_dim=32, mlp_dim=64, num_classes=5, noise_layer=0),
                        device="cpu").noise_layer == 0

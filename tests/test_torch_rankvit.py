@@ -5,6 +5,8 @@ exact drop and single-shape padded drop against the JAX engine run as its
 own tests run it (``interpret=True``, fp32), the Trainer against the JAX
 Trainer, and the MAC count. Images come from numpy with a seed."""
 
+import types
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -25,6 +27,7 @@ from peekvit_torch.inference import (
     rankvit_forward_plain,
 )
 from peekvit_torch.models.adapters import params_from_jax, params_to_jax
+from peekvit_torch.parallel import DATA_AXIS, MODEL_AXIS, Mesh
 from peekvit_torch.training import optim
 from peekvit_torch.utils.flops_count import analytic_macs
 
@@ -248,7 +251,8 @@ def test_engine_guards(wide_pair):
     residual = build_model("residualvit", dict(plain_args, residual_layers=["attention+mlp"] * 3),
                            device="cpu")
     for model, kwargs, item in ((residual, dict(quantized=True, compact=0.5), "single-program"),
-                                (tm, dict(mesh=object()), "item 9"),
+                                (tm, dict(mesh=types.SimpleNamespace(shape={"model": 2}),
+                                          max_budget=0.5), "tensor-parallel"),
                                 (vit, dict(quantized=True, max_budget=0.5), "RankViT")):
         with pytest.raises(NotImplementedError, match=item):
             InferenceEngine(model, device="cpu", **kwargs)
@@ -262,6 +266,14 @@ def test_engine_guards(wide_pair):
                     device="cpu")
     with pytest.raises(ValueError, match="Registers"):
         build_model("rankvit", dict(SMALL, num_registers=2), device="cpu")
+    # the data-parallel engine is ported (tests/test_torch_data_parallel.py):
+    # on a one-rank data axis it is the single-device engine, padded too
+    one = Mesh({DATA_AXIS: 1, MODEL_AXIS: 1}, None, None, 0, 0, torch.device("cpu"))
+    x = _images(4, 2, 48)
+    for kw in (dict(), dict(max_budget=0.5)):
+        got = InferenceEngine(tm, device="cpu", compute_dtype=torch.float32, mesh=one, **kw)
+        want = InferenceEngine(tm, device="cpu", compute_dtype=torch.float32, **kw)
+        assert torch.equal(got(x, budget=0.5), want(x, budget=0.5))
     assert build_model("moevit", dict(plain_args, noise_layer=1), device="cpu").noise_layer == 1
 
 

@@ -4,6 +4,8 @@ forward against linen, and the InferenceEngine (exact masked path, early
 exits, token compaction) against the JAX engine run as its own tests run
 it (``interpret=True``, fp32). Images come from numpy with a seed."""
 
+import types
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -16,6 +18,7 @@ from peekvit_tpu.utils.flops_count import analytic_macs as jax_analytic_macs
 from peekvit_torch import InferenceEngine, Trainer, build_model
 from peekvit_torch.inference import residualvit_forward_fused, residualvit_forward_plain
 from peekvit_torch.models.adapters import params_from_jax, params_to_jax
+from peekvit_torch.parallel import DATA_AXIS, MODEL_AXIS, Mesh
 from peekvit_torch.training.optim import AdamW
 from peekvit_torch.utils.flops_count import analytic_macs, compact_macs
 
@@ -160,17 +163,21 @@ def test_ee_module_matches_linen():
 
 
 def test_module_refuses_training_and_a_missing_budget():
-    """Eval needs a budget; training (ported since) still refuses dropout."""
+    """Eval needs a budget; training with dropout is ported since
+    (tests/test_torch_dropout.py): a train forward draws its masks from the
+    generator, an eval forward is the dropout-free one."""
     _, tm, _ = _pair("residualvit", dict(SMALL, add_budget_token="learnable"), 7)
     x = torch.from_numpy(_images(1, 1, 32))
     with pytest.raises(ValueError, match="Budget not set"):
         tm(x)
     dropout = build_model("residualvit", dict(SMALL, add_budget_token="learnable",
                                               attention_dropout=0.1), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        dropout(x, budget=0.5, train=True)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        Trainer(dropout, AdamW(), device="cpu")
+    dropout.load_state_dict(tm.state_dict())
+    drawn = [dropout(x, budget=0.5, train=True, generator=torch.Generator().manual_seed(s))[0]
+             for s in (0, 0, 1)]
+    assert torch.equal(drawn[0], drawn[1]) and not torch.equal(drawn[0], drawn[2])
+    assert torch.equal(dropout(x, budget=0.5)[0], tm(x, budget=0.5)[0])
+    assert Trainer(dropout, AdamW(), device="cpu")._fused_path is None
 
 
 # ------------------------------------------------------------------- engine
@@ -358,9 +365,18 @@ def test_engine_guards():
     for kwargs, item in ((dict(routed=True), "VisionTransformerMoE engines only"),
                          (dict(max_budget=0.5), "item 5"),
                          (dict(recon_outputs=True), "reconstruction decoder"),
-                         (dict(mesh=object()), "item 9")):
+                         (dict(quantized=True, mesh=types.SimpleNamespace(
+                             shape={"model": 2})), "tensor-parallel serving")):
         with pytest.raises(NotImplementedError, match=item):
             InferenceEngine(tm, device="cpu", **kwargs)
+    # the data-parallel engine is ported (tests/test_torch_data_parallel.py):
+    # on a one-rank data axis it is the single-device engine, compact= too
+    one = Mesh({DATA_AXIS: 1, MODEL_AXIS: 1}, None, None, 0, 0, torch.device("cpu"))
+    x = _images(3, 2, 32)
+    for kwargs in (dict(), dict(compact=0.5)):
+        want = InferenceEngine(tm, device="cpu", compute_dtype=torch.float32, **kwargs)
+        got = InferenceEngine(tm, device="cpu", compute_dtype=torch.float32, mesh=one, **kwargs)
+        assert torch.equal(got(x, budget=0.5), want(x, budget=0.5))
     for args in (dict(SMALL, add_budget_token=False),
                  dict(SMALL, gate_type="gumbel", add_budget_token="learnable"),
                  dict(SMALL, residual_layers=["mlp", "attention+mlp"], add_budget_token=0.5),

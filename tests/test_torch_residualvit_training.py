@@ -23,6 +23,7 @@ from peekvit_tpu.utils import losses as jax_losses
 from peekvit_torch import Trainer, build_model
 from peekvit_torch.models.adapters import live_params, params_from_jax, tree_leaves
 from peekvit_torch.ops.gates import gumbel_sigmoid
+from peekvit_torch.parallel import DATA_AXIS, MODEL_AXIS, Mesh
 from peekvit_torch.training import optim
 from peekvit_torch.training import trainer as trainer_mod
 from peekvit_torch.training.fused import (
@@ -485,7 +486,8 @@ def test_trainer_guards_that_still_raise():
                   device="cpu", reconstruction_weight=0.5).train_step(x, y, budget=0.5,
                                                                       noise_value=0.5)
     assert set(got) == set(want) and float(got["total_loss"]) == float(want["total_loss"])
-    for kwargs, item in ((dict(mesh=object()), "item 9"),
+    tp_mesh = Mesh({DATA_AXIS: 1, MODEL_AXIS: 2}, None, None, 0, 0, torch.device("cpu"))
+    for kwargs, item in ((dict(mesh=tp_mesh), "item 9"),
                          (dict(qat=True, remat=True), "refuses remat")):
         with pytest.raises(NotImplementedError, match=item):
             Trainer(**base, **kwargs)
@@ -493,11 +495,16 @@ def test_trainer_guards_that_still_raise():
                                   hidden_dim=32, mlp_dim=64, num_classes=5), device="cpu")
     with pytest.raises(NotImplementedError, match="item 5"):
         Trainer(model=vit, optimizer=optim.Adam(), device="cpu").train_step(x, y, budget=0.5)
+    # dropout is ported (tests/test_torch_dropout.py): the module path; the
+    # fused residual path has none and refuses it under fused=True
     dropout = build_model("residualvit", dict(ARGS, add_budget_token="learnable", dropout=0.1),
                           device="cpu")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        Trainer(model=dropout, optimizer=optim.Adam(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        dropout(torch.from_numpy(x), train=True)
+    with pytest.raises(ValueError, match="module path"):
+        Trainer(model=dropout, optimizer=optim.Adam(), device="cpu", fused=True)
+    trainer = Trainer(model=dropout, optimizer=optim.Adam(), device="cpu")
+    assert np.isfinite(float(trainer.train_step(x, y, budget=0.5)["total_loss"]))
+    assert trainer._train_kind == "module"
+    logits, _ = dropout(torch.from_numpy(x), train=True)
+    assert torch.isfinite(logits).all()
     with pytest.raises(ValueError, match="Budget not set"):
         Trainer(**base).eval_step(x, y)

@@ -374,8 +374,12 @@ def test_tp_engine_guards():
     for model, kw in refused:
         with pytest.raises(NotImplementedError):
             InferenceEngine(model, compute_dtype=torch.float32, device="cpu", mesh=mesh, **kw)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        InferenceEngine(vit, compute_dtype=torch.float32, device="cpu", mesh=_fake_mesh(8, 1))
+    # a model axis of 1 is the data-parallel engine, ported since
+    # (tests/test_torch_data_parallel.py): it builds, and refuses a batch
+    # its data axis does not divide with JAX's message, before any collective
+    dp = InferenceEngine(vit, compute_dtype=torch.float32, device="cpu", mesh=_fake_mesh(8, 1))
+    with pytest.raises(ValueError, match="must divide the mesh's 'data' axis size 8"):
+        dp(_images(3))
     with pytest.raises(ValueError, match="device"):
         InferenceEngine(vit, compute_dtype=torch.float32, device="cpu",
                         mesh=Mesh({DATA_AXIS: 1, MODEL_AXIS: 4}, None, None, 0, 0,

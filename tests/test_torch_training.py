@@ -25,6 +25,7 @@ from peekvit_tpu.training.trainer import param_filter_mask as jax_param_filter_m
 from peekvit_torch import Trainer, build_model
 from peekvit_torch.models.adapters import live_params, params_from_jax, tree_leaves
 from peekvit_torch.ops.cuda import fused_attention as tfa
+from peekvit_torch.parallel import DATA_AXIS, MODEL_AXIS, Mesh
 from peekvit_torch.ops.cuda import fused_attention_vjp as tvjp
 from peekvit_torch.training import optim
 from peekvit_torch.training.fused import make_fused_train_step, vit_forward_trainable
@@ -427,11 +428,16 @@ def test_trainer_grad_accumulation_and_freezing():
 def test_trainer_refuses_what_is_not_ported():
     _, tm = _model_pair()
     base = dict(model=tm, optimizer=optim.Adam(), device="cpu")
-    for kwargs in (dict(mesh=object()), dict(pipeline_stages=2),
+    tp_mesh = Mesh({DATA_AXIS: 1, MODEL_AXIS: 2}, None, None, 0, 0, torch.device("cpu"))
+    for kwargs in (dict(mesh=tp_mesh), dict(pipeline_stages=2),
                    dict(pipeline_microbatches=2), dict(tensor_parallel=True),
-                   dict(fsdp_sharded_params=True), dict(zero_sharded_optimizer=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md port queue A item"):
+                   dict(fsdp_sharded_params=True),
+                   dict(zero_sharded_optimizer=True, sequence_parallel_devices=2, mesh=tp_mesh)):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md port queue A item 9"):
             Trainer(**base, **kwargs)
+    # ZeRO-1 is ported (tests/test_torch_data_parallel.py): it needs a mesh, as in JAX
+    with pytest.raises(ValueError, match="zero_sharded_optimizer requires mesh="):
+        Trainer(**base, zero_sharded_optimizer=True)
     # QAT is ported (tests/test_torch_qat.py); it refuses remat, whose
     # checkpointed backward would rerun the forward unquantized
     with pytest.raises(NotImplementedError, match="refuses remat"):
@@ -453,6 +459,12 @@ def test_trainer_refuses_what_is_not_ported():
         trainer.train_step(x, y, budget=0.5)
     with pytest.raises(NotImplementedError, match="remat"):
         Trainer(**base, remat=True, fused=False).train_step(x, y)
+    # dropout is ported (tests/test_torch_dropout.py): the module path, and
+    # fused=True, which has none, raises naming it
     dropout = build_model("vit", dict(ARGS, dropout=0.1), device="cpu")
-    with pytest.raises(NotImplementedError, match="dropout"):
-        Trainer(model=dropout, optimizer=optim.Adam(), device="cpu")
+    with pytest.raises(ValueError, match="module path"):
+        Trainer(model=dropout, optimizer=optim.Adam(), device="cpu", fused=True)
+    trainer = Trainer(model=dropout, optimizer=optim.Adam(), device="cpu", fused="auto")
+    assert trainer._fused_path is None
+    assert np.isfinite(float(trainer.train_step(x, y)["total_loss"]))
+    assert trainer._train_kind == "module"
