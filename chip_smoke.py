@@ -351,10 +351,26 @@ prints no final result):
    logits, losses and updates against the single-device engine and step
    of the same seed, ms per rank ("gloo through the host, 2 processes
    sharing one card: not NCCL"), ZeRO-1's optimizer bytes a rank;
+50. sharded training and the native image decoder (see shard_phases and
+   native_phase): 2 spawned ranks on cuda:0 over gloo train ViT-B/16 with
+   Trainer(fsdp_sharded_params=True) on a (2, 1) mesh and with
+   Trainer(tensor_parallel=True) on (1, 2), and moevit.yaml at 160 px with
+   its experts split on (1, 2) (the module step, global bs64, SGD momentum
+   0.9, 3 steps); 4 ranks train the ViT-B/16 SP step with ZeRO-1 on a
+   (2, 2) mesh (global bs16, 2 steps) beside the same step without ZeRO:
+   every rank bit-identical, each rank's launches the unsharded step's,
+   losses and updates against rank 0's single-device step (FSDP and TP at
+   fp32 limits on every leaf, SHARD_TOLERANCES), ms a step,
+   parameter and optimizer bytes held and peak memory per rank against the
+   single device's; then the native decoder's available() and
+   build_error(), and 64 PIL-written JPEGs through the loader's native and
+   PIL paths (or, where it did not build, the fallback's batches against
+   PIL's);
 and then, as 43, the {"kernels": [...]} line (launches_by_path gains
 "family_serve", "noise", "cli_train", "cli_test", "qat_serve",
-"qat_cli_test", "serving", "dp_serve" and "dp_train"), the card's
-nvidia-smi line, and {"ok": true, "device": {...}} as the last line.
+"qat_cli_test", "serving", "dp_serve", "dp_train", "fsdp_train",
+"tp_train" and "zero_sp_train"), the card's nvidia-smi line, and
+{"ok": true, "device": {...}} as the last line.
 
 Imports nothing of JAX or of peekvit_tpu.
 """
@@ -7703,6 +7719,318 @@ def dp_phases(torch, smi) -> dict:
     return totals
 
 
+# --------------------------------------------------- 50. sharded training
+
+SHARD_RANKS = 2                     # (a) FSDP and (b) tensor parallelism share one spawn
+SHARD_SP_RANKS = 4                  # (c) ZeRO-1 under SP on a (2, 2) mesh
+SHARD_STEPS = 3
+SHARD_SP_STEPS = 2
+SHARD_LR = 1e-2                     # SGD(momentum 0.9): the update is linear in the gradients
+SHARD_JOIN_TIMEOUT = 600.0
+SHARD_LABEL = ("gloo through the host, processes sharing one card: not NCCL; FSDP and TP take "
+               "the fp32 module step (no port kernel), ZeRO-1 under SP the SP step")
+# key -> (registry name, args, mesh (n_data, n_model), Trainer keywords, global batch, steps)
+SHARD_RUNS = {
+    "fsdp_vit": ("vit", B16, (2, 1), dict(fused=False, fsdp_sharded_params=True), 64,
+                 SHARD_STEPS),
+    "tp_vit": ("vit", B16, (1, 2), dict(fused=False, tensor_parallel=True), 64, SHARD_STEPS),
+    "tp_moe": ("moevit", MOE_YAML, (1, 2), dict(fused=False, tensor_parallel=True), 64,
+               SHARD_STEPS),
+}
+SHARD_SP_RUNS = {
+    "zero_sp_vit": ("vit", B16, (2, 2), dict(sequence_parallel_devices=2,
+                                             zero_sharded_optimizer=True), 16, SHARD_SP_STEPS),
+}
+# (loss rel, whole update rel-L2, worst leaf's update rel-L2) against rank
+# 0's single-device step: FSDP and TP against the same fp32 module step, at
+# fp32 limits (every leaf checked, so a fault confined to small leaves, an
+# LN gradient left partial or a misplaced bias slice, shows); ZeRO-1 under
+# SP against the bf16 fused step, at phase 49's bars on the whole update
+SHARD_TOLERANCES = {"fsdp_vit": (1e-4, 1e-3, 1e-3), "tp_vit": (1e-4, 1e-3, 1e-3),
+                    "tp_moe": (1e-4, 1e-3, 1e-3), "zero_sp_vit": (1e-2, 3e-2, None)}
+# the path name of each run's launches in the kernels line
+SHARD_PATHS = {"fsdp_vit": "fsdp_train", "tp_vit": "tp_train", "tp_moe": "tp_train",
+               "zero_sp_vit": "zero_sp_train"}
+NATIVE_IMAGES = 64
+NATIVE_PIXELS = (375, 500)          # an Imagenette-like JPEG, eval recipe 256 -> 224
+NATIVE_WORKSPACE = os.path.join("workspace", "chip_smoke_native")
+
+
+def shard_variants(rank: int, kw: dict) -> dict:
+    """A run's Trainers: the sharded one on every rank; for ZeRO-1 under SP
+    the same SP step without ZeRO on every rank; rank 0's single-device
+    step (the module step of FSDP / TP, the fused step beside SP)."""
+    out = {"sharded": (True, kw)}
+    if kw.get("zero_sharded_optimizer"):
+        out["unsharded"] = (True, {k: v for k, v in kw.items() if k != "zero_sharded_optimizer"})
+    if rank == 0:
+        single = {k: v for k, v in kw.items()
+                  if k not in ("fsdp_sharded_params", "tensor_parallel", "zero_sharded_optimizer",
+                               "sequence_parallel_devices")}
+        out["single"] = (False, single)
+    return out
+
+
+def shard_rank(rank: int, world: int, rdzv: str, out_dir: str) -> None:
+    """Phase 50, one rank on cuda:0 over gloo: every run of SHARD_RUNS (a
+    world of SHARD_RANKS) or SHARD_SP_RUNS (SHARD_SP_RANKS) on its mesh.
+    Each Trainer (SGD(momentum 0.9), clip 1.0) from the seeded weights takes
+    the run's steps on its global batch: counts zeroed just before each
+    step, read just after; ms on the host clock between a barrier and a
+    synchronize; peak memory since the Trainer was built; the parameter
+    and optimizer bytes held between steps beside the whole model's; the
+    whole parameters' digest (gathered). Rank 0 then takes the same steps
+    on one device while the others wait, and holds the update against the
+    sharded run's. Writes rank<r>.pt into out_dir."""
+    import torch
+    import torch.distributed as dist
+
+    from peekvit_torch import Trainer
+    from peekvit_torch.models.adapters import module_params
+    from peekvit_torch.ops.cuda import fused_attention as fa
+    from peekvit_torch.parallel import make_mesh
+    from peekvit_torch.training.optim import SGD
+
+    dist.init_process_group("gloo", init_method=f"file://{rdzv}", world_size=world, rank=rank)
+    try:
+        runs = SHARD_RUNS if world == SHARD_RANKS else SHARD_SP_RUNS
+        meshes, res = {}, {}
+        for key, (name, args, shape, kw, batch, steps) in runs.items():
+            if shape not in meshes:
+                meshes[shape] = make_mesh(*shape, device=DEVICE)
+            x, y = dp_images(torch, batch, args["image_size"], args["num_classes"], 50)
+            rec = {}
+            for variant, (sharded, vkw) in shard_variants(rank, kw).items():
+                model = seeded_residual_model(torch, name, args)
+                start = ({k: v.clone() for k, v in _flat(module_params(model)).items()}
+                         if rank == 0 else None)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                trainer = Trainer(model, SGD(lr=SHARD_LR, momentum=0.9), clip_grad_norm=1.0,
+                                  mesh=meshes[shape] if sharded else None, device=DEVICE, **vkw)
+                out = {"losses": [], "counts": [], "ms": []}
+                for step in range(steps):
+                    torch.cuda.synchronize()
+                    if sharded:
+                        dist.barrier()
+                    fa.reset_launch_counts()
+                    t0 = time.perf_counter()
+                    m = trainer.train_step(x, y, step_idx=step)
+                    torch.cuda.synchronize()
+                    out["ms"].append((time.perf_counter() - t0) * 1e3)
+                    out["counts"].append(dict(fa.LAUNCHES))
+                    out["losses"].append(float(m["total_loss"]))
+                out["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+                out["kind"] = trainer._train_kind
+                shards = trainer._shards
+                out["param_bytes"] = (shards.held_bytes() if shards is not None else sum(
+                    p.numel() * p.element_size() for p in model.parameters()))
+                out["whole_param_bytes"] = (shards.whole_bytes() if shards is not None
+                                            else out["param_bytes"])
+                opt = trainer.torch_optimizer
+                out["opt_bytes"] = (opt.state_bytes() if hasattr(opt, "state_bytes") else sum(
+                    t.numel() * t.element_size() for st in opt.state.values()
+                    for t in st.values() if isinstance(t, torch.Tensor)))
+                whole = _flat(trainer.gathered_params())  # a collective when sharded
+                out["digest"] = param_digest(torch, {k: whole[k] for k in sorted(whole)})
+                if start is not None:
+                    out["update"] = {k: (whole[k] - start[k]).float() for k in start}
+                rec[variant] = out
+                del trainer, model, whole
+                torch.cuda.empty_cache()
+                if not sharded:
+                    continue
+                dist.barrier()
+            if rank == 0:
+                got, want = rec["sharded"].pop("update"), rec["single"].pop("update")
+                num = sum(float((got[k] - want[k]).square().sum()) for k in want)
+                rec["update_rel_l2_all"] = math.sqrt(
+                    num / sum(float(want[k].square().sum()) for k in want))
+                err = rel_l2(torch, got, want)
+                rec["update_rel_l2_worst_leaf"] = [max(err, key=err.get), max(err.values())]
+                rec.get("unsharded", {}).pop("update", None)
+            res[key] = rec
+            dist.barrier()
+        torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _flat(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def shard_phases(torch, smi) -> dict:
+    """Phase 50 (a)-(c): sharded training as spawned ranks on cuda:0 over a
+    gloo group (shard_rank): FSDP on a (2, 1) mesh and tensor parallelism
+    on (1, 2) (ViT-B/16, and moevit.yaml at 160 px with its experts split)
+    in one spawn of 2 ranks; ZeRO-1 under SP on (2, 2) in a spawn of 4.
+    Every rank's losses and whole parameters bit-identical within a run;
+    each rank's launches a step those of the unsharded step (the module
+    step launches no port kernel; SP's tail launches site 12's); losses
+    and updates against rank 0's single-device step within
+    SHARD_TOLERANCES (fp32 limits on every leaf for FSDP and TP, phase
+    49's bf16 bars for ZeRO-1 under SP); ZeRO's parameters bit-identical
+    to the SP step's without it; FSDP holding about half of the parameters
+    and of the momentum, TP the split share. Returns the launches summed
+    over every rank and step by path ("fsdp_train", "tp_train",
+    "zero_sp_train")."""
+    import shutil
+
+    from peekvit_torch.ops.cuda import _build
+
+    _build.build_all()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    totals = {path: {} for path in set(SHARD_PATHS.values())}
+    for world in (SHARD_RANKS, SHARD_SP_RANKS):
+        out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                               f"shard_smoke_{world}")
+        shutil.rmtree(out_dir, ignore_errors=True)
+        os.makedirs(out_dir)
+        t0 = time.perf_counter()
+        spawn_ranks(torch, shard_rank, world, (world, os.path.join(out_dir, "rdzv"), out_dir),
+                    SHARD_JOIN_TIMEOUT)
+        seconds = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt")) for r in range(world)]
+        for key, rec0 in ranks[0].items():
+            recs = [rk[key]["sharded"] for rk in ranks]
+            if any(r["digest"] != recs[0]["digest"] or r["losses"] != recs[0]["losses"]
+                   for r in recs):
+                raise AssertionError(f"{key}: the ranks' losses or whole parameters differ")
+            base = rec0.get("unsharded", rec0["single"])
+            path = SHARD_PATHS[key]
+            for r in recs:
+                for i, counts in enumerate(r["counts"]):
+                    if counts != base["counts"][i]:
+                        raise AssertionError(f"{key} step {i}: a rank launched {counts}, the "
+                                             f"unsharded step {base['counts'][i]}")
+                    for k, v in counts.items():
+                        totals[path][k] = totals[path].get(k, 0) + v
+            single = rec0["single"]
+            loss_rel = max(abs(a - b) / abs(b) for a, b in zip(recs[0]["losses"],
+                                                               single["losses"]))
+            loss_tol, update_tol, leaf_tol = SHARD_TOLERANCES[key]
+            ok = (loss_rel <= loss_tol and rec0["update_rel_l2_all"] <= update_tol
+                  and (leaf_tol is None or rec0["update_rel_l2_worst_leaf"][1] <= leaf_tol)
+                  and all(math.isfinite(v) for v in recs[0]["losses"]))
+            out = {"phase": "shard_train", "run": key, "ranks": world,
+                   "mesh": list(SHARD_RUNS.get(key, SHARD_SP_RUNS.get(key))[2]),
+                   "global_batch": SHARD_RUNS.get(key, SHARD_SP_RUNS.get(key))[4],
+                   "train_kind": recs[0]["kind"], "losses": recs[0]["losses"],
+                   "single_losses": single["losses"], "single_kind": single["kind"],
+                   "loss_rel_max": loss_rel, "update_rel_l2": rec0["update_rel_l2_all"],
+                   "update_rel_l2_worst_leaf": rec0["update_rel_l2_worst_leaf"],
+                   "tolerance": dict(zip(("loss_rel", "update_rel_l2", "worst_leaf"),
+                                         SHARD_TOLERANCES[key])),
+                   "launches_per_rank_per_step": sum(recs[0]["counts"][0].values()),
+                   "ranks_bit_identical": True,
+                   "ms_per_step_by_rank": [r["ms"] for r in recs], "single_ms": single["ms"],
+                   "param_bytes_per_rank": [r["param_bytes"] for r in recs],
+                   "single_param_bytes": single["param_bytes"],
+                   "optimizer_bytes_per_rank": [r["opt_bytes"] for r in recs],
+                   "single_optimizer_bytes": single["opt_bytes"],
+                   "peak_memory_gib_by_rank": [r["peak_memory_gib"] for r in recs],
+                   "single_peak_memory_gib": single["peak_memory_gib"],
+                   "label": SHARD_LABEL, "card": smi}
+            held = max(r["param_bytes"] for r in recs) / single["param_bytes"]
+            opt = max(r["opt_bytes"] for r in recs) / max(single["opt_bytes"], 1)
+            if key.startswith("fsdp"):
+                ok = ok and held < 0.55 and opt < 0.55
+            elif key.startswith("tp"):
+                ok = ok and held < 0.9 and opt < 0.9
+            else:
+                unsharded = rec0["unsharded"]
+                out["params_equal_sp_without_zero"] = (recs[0]["digest"]
+                                                       == unsharded["digest"])
+                out["unsharded_optimizer_bytes"] = unsharded["opt_bytes"]
+                out["unsharded_ms"] = unsharded["ms"]
+                ok = (ok and out["params_equal_sp_without_zero"]
+                      and max(r["opt_bytes"] for r in recs) < 0.55 * unsharded["opt_bytes"])
+            out["held_param_share"], out["held_optimizer_share"] = held, opt
+            emit(out)
+            if not ok:
+                raise AssertionError(f"{key}: {out}")
+        emit({"phase": "shard_spawn", "ranks": world, "seconds_for_spawn": seconds, "card": smi})
+    return totals
+
+
+def native_phase(smi) -> None:
+    """Phase 50 (d): the native image decoder (peekvit_torch.native): its
+    available() and build_error() printed as they are. Where it built,
+    NATIVE_IMAGES JPEGs that PIL wrote under NATIVE_WORKSPACE go through
+    the DataLoader's native batch path and its PIL path (the ImageFolder's
+    native spec turned off) at the eval recipe (256 -> 224): the batches
+    within tests/test_native.py's bounds (mean |diff| < 0.1, 95th
+    percentile < 0.35 in normalized units), images/s of each. Where it did
+    not, the loader's batches (which then decode with PIL) equal the PIL
+    transform's image by image, and the line says so."""
+    import numpy as np
+    from PIL import Image
+
+    from peekvit_torch import native
+    from peekvit_torch.data import transforms as T
+    from peekvit_torch.data.datasets import ImageFolder
+    from peekvit_torch.data.loader import DataLoader
+
+    ok, err = native.available(), native.build_error()
+    shutil.rmtree(NATIVE_WORKSPACE, ignore_errors=True)
+    folder = os.path.join(NATIVE_WORKSPACE, "c")
+    os.makedirs(folder)
+    rng = np.random.default_rng(50)
+    h, w = NATIVE_PIXELS
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    for i in range(NATIVE_IMAGES):  # smooth content with some texture
+        a, b, ph = rng.uniform(0.5, 4.0, 3)
+        img = np.stack([127 + 60 * np.sin(a * (c + 1) * 2 * np.pi * yy / h + ph)
+                        + 50 * np.cos(b * 2 * np.pi * xx / w) for c in range(3)], -1)
+        img += rng.normal(0, 6, img.shape)
+        Image.fromarray(np.clip(img, 0, 255).astype(np.uint8), "RGB").save(
+            os.path.join(folder, f"{i}.jpg"), quality=90)
+    transform = T.test_transform(224)
+    transform.transforms[0] = T.Resize(256)
+
+    def load(ds):
+        t0 = time.perf_counter()
+        batches = list(DataLoader(ds, 16, num_workers=4))
+        seconds = time.perf_counter() - t0
+        return (np.concatenate([b[0] for b in batches]),
+                np.concatenate([b[1] for b in batches]), NATIVE_IMAGES / seconds)
+
+    rec = {"phase": "native_decoder", "available": ok, "build_error": err,
+           "images": NATIVE_IMAGES, "pixels": list(NATIVE_PIXELS), "recipe": [256, 224],
+           "card": smi}
+    pil_ds = ImageFolder(NATIVE_WORKSPACE, transform)
+    pil_ds._native_spec = False
+    pil_x, pil_y, rec["pil_images_per_s"] = load(pil_ds)
+    if ok:
+        nat_x, nat_y, rec["native_images_per_s"] = load(ImageFolder(NATIVE_WORKSPACE, transform))
+        diff = np.abs(nat_x - pil_x)
+        rec.update(mean_abs_diff=float(diff.mean()), q95_abs_diff=float(np.quantile(diff, 0.95)),
+                   labels_equal=bool((nat_y == pil_y).all()))
+        good = rec["mean_abs_diff"] < 0.1 and rec["q95_abs_diff"] < 0.35 and rec["labels_equal"]
+    else:
+        got_x, got_y, rec["fallback_images_per_s"] = load(ImageFolder(NATIVE_WORKSPACE,
+                                                                      transform))
+        want = np.stack([transform(Image.open(os.path.join(folder, f"{i}.jpg")).convert("RGB"))
+                         for i in sorted(range(NATIVE_IMAGES), key=lambda i: f"{i}.jpg")])
+        rec["fallback"] = "the library did not build: the loader decoded with PIL"
+        rec["fallback_equals_pil"] = bool(np.array_equal(got_x, want)
+                                          and np.array_equal(got_x, pil_x)
+                                          and (got_y == pil_y).all())
+        good = rec["fallback_equals_pil"]
+    shutil.rmtree(NATIVE_WORKSPACE, ignore_errors=True)
+    emit(rec)
+    if not good:
+        raise AssertionError(f"native decoder: {rec}")
+
+
 def main() -> int:
     import torch
 
@@ -8223,6 +8551,9 @@ def main() -> int:
     # --------------------- 49. training with dropout, data parallelism
     dropout_phases(torch, fa, dev, smi)
     dp = dp_phases(torch, smi)
+    # ----------------- 50. sharded training, the native image decoder
+    shard = shard_phases(torch, smi)
+    native_phase(smi)
     for entry in kernels:  # the later paths run earlier kernels too
         entry["launches_by_path"]["merged"] = mtrain["counts"]["merged"].get(entry["name"], 0)
         entry["launches_by_path"]["hybrid"] = mtrain["counts"]["hybrid"].get(entry["name"], 0)
@@ -8241,6 +8572,8 @@ def main() -> int:
         entry["launches_by_path"]["serving"] = serving["counts"].get(entry["name"], 0)
         entry["launches_by_path"]["dp_serve"] = dp["dp_serve"].get(entry["name"], 0)
         entry["launches_by_path"]["dp_train"] = dp["dp_train"].get(entry["name"], 0)
+        for path, counts in shard.items():
+            entry["launches_by_path"][path] = counts.get(entry["name"], 0)
     # every path's counts as this run measured them, read by each new
     # entry's count key
     measured = {"engine": main_counts, "split": split_counts, "train": train["counts"],
@@ -8257,7 +8590,7 @@ def main() -> int:
                 "cli_train": cli["train_counts"], "cli_test": cli["test_counts"],
                 "qat_serve": qat["serve_counts"], "qat_cli_test": qat["cli_test_counts"],
                 "serving": serving["counts"], "dp_serve": dp["dp_serve"],
-                "dp_train": dp["dp_train"]}
+                "dp_train": dp["dp_train"], **shard}
     later = (merged_entries + [mod["entry"]] + tp_entries + sp_entries + tiled_entries
              + recon["entries"] + moe["entries"])
     for entry in later:

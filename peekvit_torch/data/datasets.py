@@ -1,9 +1,11 @@
 """Dataset primitives: the ImageFolder scan and the download and extract
 helpers (counterpart of peekvit_tpu/data/datasets.py).
 
-ImageFolder decodes with PIL, imported at the first image. The JAX
-package's C++ batch decoder (``native_batch``) is not ported: ROADMAP.md
-port queue A item 8 part 3b.
+ImageFolder decodes with the C++ decoder (``peekvit_torch.native``) where
+its transform is the standard eval recipe (``transforms.native_spec``) and
+the library built, per image and per batch (``native_batch``), as the JAX
+package's does; otherwise, and for a file the decoder rejects, with PIL,
+imported at the first image.
 """
 
 from __future__ import annotations
@@ -18,7 +20,6 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 
 IMG_EXTENSIONS = (".jpg", ".jpeg", ".png", ".ppm", ".bmp", ".webp", ".tif")
-NATIVE_ITEM = "ROADMAP.md port queue A item 8 part 3b (the native image decoder)"
 
 
 class Dataset:
@@ -52,23 +53,65 @@ class ImageFolder(Dataset):
         if not self.samples:
             raise RuntimeError(f"No images found under {self.root}")
         self._rng = np.random.default_rng(seed)
+        self._native_spec = None  # resolved at first use; False: decode with PIL
 
     def __len__(self):
         return len(self.samples)
 
+    def _resolve_native(self):
+        """The native spec, resolved once: False where the transform is not
+        the eval recipe or the library did not build."""
+        if self._native_spec is None:
+            from peekvit_torch import native
+            from peekvit_torch.data.transforms import native_spec
+
+            spec = native_spec(self.transform)
+            self._native_spec = spec if (spec and native.available()) else False
+        return self._native_spec
+
+    def _native_decode(self, path):
+        """One image through the C++ decoder, or None (no native path, or
+        the file rejected)."""
+        if not self._resolve_native():
+            return None
+        from peekvit_torch import native
+
+        resize, size, mean, std = self._native_spec
+        with open(path, "rb") as f:
+            return native.decode_transform(f.read(), resize, size, mean, std)
+
     def native_batch(self, indices, num_threads: int = 8):
-        raise NotImplementedError(f"ImageFolder.native_batch is not ported yet: {NATIVE_ITEM}")
+        """A whole batch decoded and transformed in ``num_threads`` C++
+        threads: (batch, int64 labels), or None without the native path.
+        Files the decoder rejects are decoded one by one with PIL."""
+        if not self._resolve_native():
+            return None
+        from peekvit_torch import native
+
+        resize, size, mean, std = self._native_spec
+        paths = [self.samples[int(i)][0] for i in indices]
+        batch, ok = native.load_batch(paths, resize, size, mean, std, num_threads=num_threads)
+        if batch is None:
+            return None
+        for j in np.nonzero(~ok)[0]:
+            batch[j] = np.asarray(self[int(indices[j])][0], np.float32)
+        labels = np.asarray([self.samples[int(i)][1] for i in indices], np.int64)
+        if self.target_transform:
+            labels = np.asarray([self.target_transform(int(t)) for t in labels])
+        return batch, labels
 
     def __getitem__(self, idx):
-        from PIL import Image
-
         path, target = self.samples[idx]
-        with Image.open(path) as img:
-            img = img.convert("RGB")
-            if _is_random(self.transform):
-                sample = self.transform(img, self._rng)
-            else:
-                sample = self.transform(img) if self.transform else img
+        sample = self._native_decode(path)
+        if sample is None:
+            from PIL import Image
+
+            with Image.open(path) as img:
+                img = img.convert("RGB")
+                if _is_random(self.transform):
+                    sample = self.transform(img, self._rng)
+                else:
+                    sample = self.transform(img) if self.transform else img
         if self.target_transform:
             target = self.target_transform(target)
         return sample, target

@@ -4,7 +4,9 @@ peekvit_tpu/data/loader.py).
 - ``DataLoader``: the seeded per-epoch shuffle, ``drop_last``,
   ``shard=(rank, world)`` and a thread pool that decodes a few batches
   ahead, yielding NHWC float32 images and int32 labels as numpy arrays;
-  one seed gives the JAX loader's batches, bit for bit.
+  one seed gives the JAX loader's batches, bit for bit. With workers, a
+  dataset that has a native whole-batch path (``ImageFolder.native_batch``)
+  is decoded through it, two batches in flight.
 - ``prefetch_to_device``: ``size`` batches in flight to the card. Each is
   copied into pinned host memory and sent with ``non_blocking`` copies on
   a side stream; the consumer's stream waits on the copy's event before
@@ -87,6 +89,19 @@ class DataLoader:
         idx = self._indices()
         batches = [idx[i * self.batch_size:(i + 1) * self.batch_size]
                    for i in range(len(self))]
+
+        # the C++ whole-batch path (an ImageFolder with the eval recipe):
+        # the decode threads live in native code, one GIL release a batch
+        native_fn = getattr(self.dataset, "native_batch", None)
+        if native_fn is not None and self.num_workers > 0:
+            probe = native_fn(batches[0][:1], num_threads=1) if batches else None
+            if probe is not None:
+                def fetch_native(b):
+                    x, y = native_fn(b, num_threads=self.num_workers)
+                    return x, y.astype(np.int32)
+
+                yield from _pipelined(batches, fetch_native, workers=2)
+                return
 
         def fetch(b):
             return self._collate([self.dataset[int(i)] for i in b])

@@ -200,3 +200,18 @@ def train_transform(image_size: int, augmentation_ops: int = 2,
 def test_transform(image_size: int) -> Compose:
     """Resize -> CenterCrop -> ToArray -> Normalize."""
     return Compose([Resize(image_size), CenterCrop(image_size), ToArray(), Normalize()])
+
+
+def native_spec(transform):
+    """``(resize, crop, mean, std)`` where ``transform`` is the standard
+    eval recipe (Resize to a square -> CenterCrop -> ToArray -> Normalize),
+    which the C++ decoder (``peekvit_torch.native``) runs end to end; else
+    None."""
+    if not isinstance(transform, Compose):
+        return None
+    ts = transform.transforms
+    if (len(ts) == 4 and isinstance(ts[0], Resize) and isinstance(ts[1], CenterCrop)
+            and isinstance(ts[2], ToArray) and isinstance(ts[3], Normalize)
+            and ts[0].size[0] == ts[0].size[1]):
+        return (ts[0].size[0], ts[1].size, ts[3].mean, ts[3].std)
+    return None

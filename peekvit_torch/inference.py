@@ -2288,8 +2288,9 @@ class InferenceEngine:
         tp = _model_axis(mesh) > 1
         if recon_outputs and tp:
             raise NotImplementedError(
-                "recon_outputs= with a tensor-parallel mesh= is not ported yet: ROADMAP.md port "
-                "queue A item 9 (the decoder has no tensor-parallel partials)")
+                "tensor-parallel serving (mesh model axis > 1) covers the bf16 plain/Rank "
+                "VisionTransformer and ResidualViT-family engines; serve other families / modes "
+                "data-parallel (make_mesh(n_model=1))")
         if residual:
             layers = model.residual_layers or ["attention+mlp"] * model.num_layers
             if (set(layers) != {"attention+mlp"} or model.gate_type != "sigmoid"

@@ -56,6 +56,27 @@ def _nest(items) -> dict:
     return tree
 
 
+def mark_sharded(model: nn.Module, how: str) -> None:
+    """Mark ``model`` as one whose parameters a ``Trainer(how=True)``
+    placed over ranks: this rank holds only its share (empty or sliced
+    leaves), so :func:`live_params`, ``state_dict`` (and with it
+    :func:`module_params`, :func:`params_to_jax`, an engine or a
+    checkpoint of the model) and ``load_state_dict`` raise from then on."""
+    model._sharded_by = how
+    model.register_state_dict_pre_hook(_refuse_sharded)
+    model.register_load_state_dict_pre_hook(_refuse_sharded)
+
+
+def _refuse_sharded(model: nn.Module, *_) -> None:
+    how = getattr(model, "_sharded_by", None)
+    if how is not None:
+        raise ValueError(
+            f"the model's parameters are sharded by Trainer({how}=True): this rank holds only "
+            "its share. Read whole leaves with Trainer.gathered_params() or "
+            "Trainer.full_state_dict() (save_state(..., state_dict=trainer.full_state_dict())), "
+            "and load them with Trainer.load_full_state_dict()")
+
+
 def module_params(model: nn.Module) -> dict:
     """The module's weights as a nested dict in the JAX tree's grammar, of
     detached tensors on the module's device."""
@@ -67,6 +88,7 @@ def live_params(model: nn.Module) -> dict:
     live: the leaves are the module's own ``nn.Parameter``s, not detached
     copies, so gradients taken through the tree reach the model (what a
     train step needs; :func:`module_params` is for read-only use)."""
+    _refuse_sharded(model)
     return _nest(model.named_parameters())
 
 

@@ -67,11 +67,14 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    num_heads: int, *,
                    key_mask: Optional[torch.Tensor] = None, dropout_rate: float = 0.0,
                    deterministic: bool = True,
-                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                   generator: Optional[torch.Generator] = None,
+                   head_shard: Optional[tuple] = None) -> torch.Tensor:
     """Scaled dot-product attention over heads. q/k/v: (B, N, D).
     key_mask: optional (B, N), 1 = attend, 0 = exclude. A nonzero
     ``dropout_rate`` in a non-deterministic call drops softmax weights
-    (B, H, N, N), drawn from ``generator``. Returns (B, N, D)."""
+    (B, H, N, N), drawn from ``generator``; ``head_shard=(n, index)``: these
+    are head group ``index`` of ``n`` (a tensor-parallel rank's), and the
+    mask is drawn over every head. Returns (B, N, D)."""
     b, n, d = q.shape
     hd = d // num_heads
     q = q.reshape(b, n, num_heads, hd)
@@ -84,7 +87,8 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         logits = torch.where(key_mask[:, None, None, :] > 0, logits,
                              torch.full_like(logits, neg))
     weights = torch.softmax(logits, dim=-1).to(q.dtype)
-    weights = dropout(weights, dropout_rate, generator, train=not deterministic)
+    weights = dropout(weights, dropout_rate, generator, train=not deterministic,
+                      shard=None if head_shard is None else (1,) + tuple(head_shard))
     out = torch.einsum("bhqk,bkhd->bqhd", weights, v)
     return out.reshape(b, n, d)
 

@@ -11,7 +11,8 @@ shape and comes from :func:`keep_mask`, drawn from the caller's
 device): ``torch.rand(shape) < 1 - rate``. JAX's bits cannot be drawn in
 torch, so a parity test replaces :func:`keep_mask`, the one seam every
 mask passes through. Under data parallelism the mask is drawn over the
-global batch and this rank's rows are kept (``ops/global_batch.py``).
+global batch and this rank's rows are kept (``ops/global_batch.py``);
+under tensor parallelism over every head, and this rank's heads kept.
 """
 
 from __future__ import annotations
@@ -34,13 +35,26 @@ def keep_mask(shape, keep_prob: float, generator: Optional[torch.Generator],
 
 
 def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator] = None, *,
-            train: bool = True) -> torch.Tensor:
+            train: bool = True, shard: Optional[tuple] = None) -> torch.Tensor:
     """flax ``nn.Dropout(rate)(x, deterministic=not train)``: x where kept,
-    divided by ``1 - rate``, else 0."""
+    divided by ``1 - rate``, else 0. ``shard=(axis, n, index)``: ``x`` is
+    part ``index`` of ``n`` equal parts of a whole tensor along ``axis``
+    (the attention weights of a tensor-parallel rank's heads); the mask is
+    drawn over the whole shape and this part kept, as the single device
+    draws it."""
     if not train or rate == 0.0:
         return x
     if rate == 1.0:
         return torch.zeros_like(x)
     keep_prob = 1.0 - rate
-    keep = per_sample(lambda s: keep_mask(s, keep_prob, generator, x.device), x.shape)
+
+    def draw(shape):
+        if shard is None:
+            return keep_mask(shape, keep_prob, generator, x.device)
+        axis, n, index = shard
+        k = shape[axis]
+        whole = shape[:axis] + (k * n,) + shape[axis + 1:]
+        return keep_mask(whole, keep_prob, generator, x.device).narrow(axis, index * k, k)
+
+    keep = per_sample(draw, x.shape)
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))

@@ -13,10 +13,19 @@ Rank r sits at (data r // n_model, model r % n_model), the row-major
 consecutive ranks. The caller initializes the default process group
 (``torch.distributed.init_process_group``: address, world size, rank and
 backend are the caller's); the mesh only splits it.
+
+The placement rules of sharded training are JAX's, leaf by leaf:
+:func:`param_spec` (the Megatron and expert rules of
+``Trainer(tensor_parallel=True)``) and :func:`data_axis_spec` (FSDP's and
+ZeRO-1's first divisible dimension). A spec is a tuple of axis names, one
+per leading dimension it names, ``None`` where a dimension is whole: the
+``PartitionSpec`` of the JAX package as a plain tuple, ``()`` for a
+replicated leaf.
 """
 
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass
 from typing import Any, Optional
 
@@ -79,3 +88,51 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1, device=None) -> Me
             data_group = group
     return Mesh({DATA_AXIS: n_data, MODEL_AXIS: n_model}, data_group, model_group,
                 data_index, model_index, dev)
+
+
+# Tensor-parallel rules: a regex on the "/"-joined parameter path -> spec.
+# Column-parallel for qkv / fc1 (the output features split), row-parallel
+# for the out-projection / fc2 (the input features split), the qkv / fc1
+# biases on the split output (JAX parallel/mesh.py:110-138).
+_TP_RULES = [
+    (re.compile(r"(in_proj|fc1)_?kernel$"), (None, MODEL_AXIS)),
+    (re.compile(r"(out_proj|fc2)_?kernel$"), (MODEL_AXIS, None)),
+    (re.compile(r"(in_proj|fc1)_?bias$"), (MODEL_AXIS,)),
+]
+# Expert parallelism: the stacked MoE MLP experts split their leading
+# expert axis.
+_EP_RULES = [
+    (re.compile(r"experts/fc[12]_kernel$"), (MODEL_AXIS, None, None)),
+    (re.compile(r"experts/fc[12]_bias$"), (MODEL_AXIS, None)),
+]
+
+
+def param_spec(path: str, ndim: int) -> tuple:
+    """JAX's ``param_spec`` under ``Trainer(tensor_parallel=True)``: the
+    spec of the leaf at ``path`` (of rank ``ndim``); ``()`` replicated.
+    The expert rules first, on a leaf of the rule's rank; then the Megatron
+    rules on a 1-D or 2-D leaf (a 2-D bias takes the 1-D bias spec, which
+    splits its leading axis, as in JAX)."""
+    for pat, spec in _EP_RULES:
+        if pat.search(path) and ndim == len(spec):
+            return spec
+    if ndim in (1, 2):
+        for pat, spec in _TP_RULES:
+            if pat.search(path):
+                return spec
+    return ()
+
+
+def split_axis(spec: tuple, axis_name: str) -> Optional[int]:
+    """The dimension ``spec`` splits over ``axis_name``, or None."""
+    return spec.index(axis_name) if axis_name in spec else None
+
+
+def data_axis_spec(shape, n: int) -> tuple:
+    """JAX's ``_data_axis_spec``: the first dimension ``s`` with ``s >= n``
+    and ``s % n == 0`` splits over the data axis; a leaf with none, and a
+    scalar, stays replicated (``()``)."""
+    for axis, s in enumerate(shape):
+        if s >= n and s % n == 0:
+            return (None,) * axis + (DATA_AXIS,)
+    return ()

@@ -75,11 +75,14 @@ def _zero_grads(params) -> None:
             p.grad.zero_()
 
 
-def clip_by_global_norm_(grads: list, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: list, max_norm: float, sq_norm=None) -> torch.Tensor:
     """optax.clip_by_global_norm in place: with norm the global L2 norm,
     each g becomes (g / norm) * max_norm unless norm < max_norm. Decided on
-    the device (no host sync). Returns the norm."""
-    norm = torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads))
+    the device (no host sync). ``sq_norm(grads)``: the squared global norm
+    where ``grads`` are slices of a sharded gradient (the default sums
+    their squares). Returns the norm."""
+    norm = torch.sqrt(sq_norm(grads) if sq_norm is not None
+                      else sum(torch.sum(g.float() * g.float()) for g in grads))
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, (g / norm.to(g.dtype)) * max_norm))
@@ -92,13 +95,17 @@ class GradientTransform:
     with its Welford mean, acc += (g - acc) / (n + 1), applied on the k-th
     call) -> clip_by_global_norm -> the optimizer (whose pre-hook zeroes
     frozen grads). Call it after ``backward()``; it clears the grads and
-    returns whether the parameters moved."""
+    returns whether the parameters moved. ``sq_norm``: the squared global
+    norm of the gradients, for parameters that are slices of sharded
+    leaves (``training/fsdp.ShardedParams.sq_norm``)."""
 
     def __init__(self, optimizer: torch.optim.Optimizer, params: list,
-                 clip_grad_norm: Optional[float] = None, grad_accumulation: int = 1):
+                 clip_grad_norm: Optional[float] = None, grad_accumulation: int = 1,
+                 sq_norm=None):
         self.optimizer = optimizer
         self.params = list(params)
         self.clip_grad_norm = clip_grad_norm
+        self.sq_norm = sq_norm
         self.every_k = max(int(grad_accumulation or 1), 1)
         self.mini_step = 0
         self._acc = None
@@ -125,7 +132,7 @@ class GradientTransform:
                 g.copy_(acc)
                 acc.zero_()
         if self.clip_grad_norm:
-            clip_by_global_norm_(grads, self.clip_grad_norm)
+            clip_by_global_norm_(grads, self.clip_grad_norm, self.sq_norm)
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
         return True

@@ -70,10 +70,31 @@ clipping, freezing and the optimizer (``optim.GradientTransform``).
   n-rank step is the single-device step of the same seed on the same
   global batch, up to the order of the sums. The data axis must divide
   the batch (JAX's message). ``zero_sharded_optimizer=True`` keeps each
-  rank's 1/n share of the optimizer state (``training/zero.py``). A mesh
-  with a model axis > 1 takes ``sequence_parallel_devices``; without it
-  (tensor-parallel training) it raises naming ROADMAP item 9. The eval
-  step runs the whole batch on every rank.
+  rank's 1/n share of the optimizer state (``training/zero.py``), under
+  SP too (over the SP mesh's data axis). A mesh with a model axis > 1
+  takes ``sequence_parallel_devices`` or ``tensor_parallel``; with
+  neither, the module step runs replicated over the model axis and the
+  fused path raises (JAX's words). The eval step runs the whole batch on
+  every rank.
+- **FSDP** (``fsdp_sharded_params=True``, a mesh; JAX trainer.py:227-262):
+  the module step (``fused`` coerced off) with every divisible leaf held
+  as this rank's slice over the data column and gathered whole in front
+  of the forward, the optimizer over the slices (``training/fsdp.py``).
+- **tensor parallel** (``tensor_parallel=True``, a mesh whose model axis
+  is >= 2; JAX trainer.py:206-225): the module step (``fused`` coerced
+  off) on Megatron forms of the attention, MLP and MoE expert sublayers
+  that hold this rank's slices by JAX's ``param_spec``
+  (``parallel/tensor.py``); the data axis still splits the batch.
+
+Under FSDP and tensor parallelism ``Trainer.params`` is this rank's
+share (what its optimizer steps: the slices and the whole leaves), and the
+model is marked sharded (``models.adapters.mark_sharded``): reading or
+loading its parameters directly raises. :meth:`Trainer.gathered_params`,
+:meth:`Trainer.full_state_dict` (what ``utils/checkpoint.save_state(...,
+state_dict=)`` writes) and :meth:`Trainer.eval_step` see whole leaves in
+JAX's tree grammar (collectives: every rank of the group calls them),
+:meth:`Trainer.load_full_state_dict` loads whole leaves into the shares,
+and the optimizer state is saved per rank.
 
 Random numbers (the budgets drawn when no ``budget=`` is given, the
 gumbel gates' noise, the MAE's shuffle, the dropout masks) come from a
@@ -101,8 +122,7 @@ trains on the module path, as JAX's step takes linen at a nonzero rate
 (trainer.py:284-288): ``fused=True`` with dropout raises, naming it, and
 SP refuses dropout with JAX's words.
 
-The JAX trainer's other multi-device options (the pipeline,
-tensor-parallel and FSDP) are not ported; each raises
+The JAX trainer's pipeline is not ported; it raises
 ``NotImplementedError`` naming its ROADMAP.md port queue A item. A PCT or
 RankPCT is refused: the JAX ``Trainer`` cannot train one (its step holds
 the BatchNorm statistics immutable); train it at module level. ``train_epoch`` and ``validate``
@@ -120,7 +140,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from peekvit_torch.models.adapters import live_params, tree_leaves
+from peekvit_torch.models.adapters import _nest, live_params, mark_sharded, tree_leaves
 from peekvit_torch.models.adavit import AdaptiveVisionTransformer
 from peekvit_torch.models.maevit import MAEVisionTransformer
 from peekvit_torch.models.moevit import VisionTransformerMoE
@@ -141,6 +161,8 @@ from peekvit_torch.ops.noise import default_generator
 from peekvit_torch.parallel.data import check_divisible, data_rows, data_slice, gather_tree
 from peekvit_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, make_mesh
 from peekvit_torch.parallel.sequence import sequence_parallel_vit_forward
+from peekvit_torch.parallel.tensor import tensor_parallel_params
+from peekvit_torch.training.fsdp import fsdp_params
 from peekvit_torch.training.fused import (
     residual_forward_fn,
     sample_budgets,
@@ -244,8 +266,6 @@ def fused_train_limit(hidden_dim: int, num_heads: int, mlp_dim: int, device) -> 
 _NOT_PORTED = {
     "pipeline_stages": (0, "item 9 (parallel and serving)"),
     "pipeline_microbatches": (0, "item 9 (parallel and serving)"),
-    "tensor_parallel": (False, "item 9 (parallel and serving)"),
-    "fsdp_sharded_params": (False, "item 9 (parallel and serving)"),
 }
 
 # aux entries that hold the whole batch's values already under data
@@ -301,6 +321,7 @@ class Trainer:
 
     def __post_init__(self):
         sp = (self.sequence_parallel_devices or 0) > 1
+        self._check_placement(sp)
         for name, (unused, item) in _NOT_PORTED.items():
             if getattr(self, name) != unused:
                 raise NotImplementedError(
@@ -328,45 +349,77 @@ class Trainer:
         self.model.to(self.device)
         if self.main_criterion is None:
             self.main_criterion = CrossEntropyLoss()
-        self.params = live_params(self.model)
+        self._shards = None  # FSDP / tensor parallel: training/fsdp.ShardedParams
+        if self.tensor_parallel:
+            self._shards = tensor_parallel_params(self.model, self._dp)
+        elif self.fsdp_sharded_params:
+            self._shards = fsdp_params(self.model, self._dp)
+        # what this rank's optimizer steps: the whole tree, or its share
+        self.params = (live_params(self.model) if self._shards is None
+                       else self._shards.local_tree())
         mask = None if self.train_backbone else param_filter_mask(self.params)
-        if self.zero_sharded_optimizer:
-            self.torch_optimizer = ZeroShardedOptimizer(self.optimizer, self.params, self._dp,
+        if self.zero_sharded_optimizer and not self.fsdp_sharded_params:
+            # FSDP's optimizer runs over its slices already
+            self.torch_optimizer = ZeroShardedOptimizer(self.optimizer, self.params,
+                                                        self.mesh if sp else self._dp,
                                                         param_mask=mask)
         else:
             self.torch_optimizer = self.optimizer.build(self.params, param_mask=mask)
-        self.tx = GradientTransform(self.torch_optimizer, [p for _, p in tree_leaves(self.params)],
-                                    self.clip_grad_norm, self.grad_accumulation)
+        self.tx = GradientTransform(self.torch_optimizer,
+                                    [p for _, p in tree_leaves(self.params)],
+                                    self.clip_grad_norm, self.grad_accumulation,
+                                    sq_norm=None if self._shards is None else self._shards.sq_norm)
+        if self._shards is not None:
+            mark_sharded(self.model, "tensor_parallel" if self.tensor_parallel
+                         else "fsdp_sharded_params")
         self._forward = None
         self._train_kind = None
         self._sp_world = 1
         self._sp_fwd_kwargs = None  # the SP forward's arguments, once the step is built
 
+    def _check_placement(self, sp: bool) -> None:
+        """JAX's checks of the parameter placements (trainer.py:206-240):
+        tensor parallelism needs a model axis >= 2 and excludes FSDP, the
+        pipeline and SP; FSDP needs a mesh and excludes the pipeline and
+        SP; both take the module step (``fused`` coerced off)."""
+        pipeline = (self.pipeline_stages or 0) > 1
+        if self.tensor_parallel:
+            if self.mesh is None or self.mesh.shape.get(MODEL_AXIS, 1) < 2:
+                raise ValueError(f"tensor_parallel=True requires mesh= with a '{MODEL_AXIS}' axis "
+                                 "of size >= 2 (parallel.make_mesh(n_model=...))")
+            if self.fsdp_sharded_params:
+                raise NotImplementedError("tensor_parallel and fsdp_sharded_params both own the "
+                                          "param placement; pick one")
+            if pipeline or sp:
+                raise NotImplementedError("tensor_parallel composes with the dp linen step; "
+                                          "pipeline/sequence-parallel modes own their placement")
+            self.fused = False
+        if self.fsdp_sharded_params:
+            if self.mesh is None:
+                raise ValueError("fsdp_sharded_params requires mesh= (params shard over the "
+                                 "mesh's data axis)")
+            if pipeline or sp:
+                raise NotImplementedError(
+                    "fsdp_sharded_params composes with the dp linen step; pipeline/sequence-"
+                    "parallel modes own their param placement")
+            self.fused = False
+
     def _data_mesh(self, sp: bool):
-        """The data-parallel mesh (``mesh=`` without SP), after JAX's checks
-        (trainer.py:258-275): ZeRO-1 needs a mesh; a model axis > 1 is SP's
-        or not ported. None without one. The Trainer moves to the mesh's
-        device (the rank's own card)."""
+        """The data-parallel mesh (``mesh=`` without SP; JAX trainer.py:
+        258-275): ZeRO-1 needs a mesh. None without one, and under SP (whose
+        step takes the mesh itself). The Trainer moves to the mesh's device
+        (the rank's own card)."""
         mesh = self.mesh
         if self.zero_sharded_optimizer and mesh is None:
             raise ValueError("zero_sharded_optimizer requires mesh= (the optimizer state shards "
                              "over the mesh's data axis)")
-        if mesh is None or sp:
-            if self.zero_sharded_optimizer:
-                raise NotImplementedError(
-                    "Trainer(zero_sharded_optimizer=True) with sequence_parallel_devices is not "
-                    "ported yet: ROADMAP.md port queue A item 9 (parallel and serving)")
+        if mesh is None:
             return None
-        if mesh.shape[MODEL_AXIS] > 1:
-            raise NotImplementedError(
-                f"Trainer(mesh=...) with a '{MODEL_AXIS}' axis of {mesh.shape[MODEL_AXIS]} and no "
-                "sequence_parallel_devices (tensor-parallel training) is not ported yet: "
-                "ROADMAP.md port queue A item 9 (parallel and serving)")
         if mesh.device.type != self.device.type:
             raise ValueError(f"the mesh's device {mesh.device} is not on the Trainer's device "
                              f"type {self.device.type}")
         self.device = mesh.device
-        return mesh
+        return None if sp else mesh
 
     def _check_qat(self, sp: bool) -> None:
         """JAX's QAT checks (trainer.py:180-205), then ``fused`` off: the
@@ -385,6 +438,11 @@ class Trainer:
         if sp or (self.pipeline_stages or 0) > 1:
             raise NotImplementedError("qat=True runs the module step; the pipeline/"
                                       "sequence-parallel stage math carries no fake-quant hooks")
+        if self.tensor_parallel:
+            raise NotImplementedError(
+                "Trainer(qat=..., tensor_parallel=True) is not ported yet (a fake-quant scale "
+                "needs the whole leaf's absmax): ROADMAP.md port queue A item 9 (parallel and "
+                "serving)")
         if self.remat:
             raise NotImplementedError(
                 "qat=True refuses remat=True: a checkpointed backward reruns the forward "
@@ -454,6 +512,11 @@ class Trainer:
             self._train_kind = "sp"
             return self._build_sp_forward()
         kind = self._fused_path
+        if kind is not None and self._dp is not None and self._dp.shape[MODEL_AXIS] > 1:
+            # JAX's refusal (trainer.py:702-707)
+            raise NotImplementedError(
+                "the fused train path shards over 'data' only; for a 'model' axis use "
+                "sequence_parallel_devices/pipeline_stages or fused='never'")
         if self.remat and kind != "vit":
             raise NotImplementedError(
                 "remat=True is a fused plain-ViT train-path knob (per-layer checkpoint in "
@@ -573,11 +636,11 @@ class Trainer:
         n = rows.shape[0]
         return gather_tree(out, mesh, n), gather_tree(aux, mesh, n, keep=_WHOLE_BATCH_AUX)
 
-    def _all_reduce_grads(self, group=None) -> None:
-        """Every parameter's gradient summed over the ranks of ``group``
-        (the default: all): one fp32 all-reduce of the flattened gradients
-        (gloo pays per call)."""
-        params = self.tx.params
+    def _all_reduce_grads(self, group=None, params=None) -> None:
+        """Every gradient of ``params`` (the default: the optimizer's)
+        summed over the ranks of ``group`` (the default: all): one fp32
+        all-reduce of the flattened gradients (gloo pays per call)."""
+        params = self.tx.params if params is None else params
         flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p))
                           .reshape(-1).float() for p in params])
         dist.all_reduce(flat, group=group)
@@ -647,19 +710,29 @@ class Trainer:
                       else torch.full((n,), float(budget), dtype=torch.float32, device=x.device))
         nkw = self._noise_kwargs(noise_value,
                                  lambda: noise_generator(self.seed, step_idx, x.device))
-        with self._fake_quant():
-            out, aux = (self._forward(x, budget, gen, nkw) if dp is None
-                        else self._dp_forward(x, budget, gen, nkw))
-        total, metrics = self._loss(out, aux, y, budget, x)
-        if self._train_kind == "sp":
-            (total / self._sp_world).backward()
-            self._all_reduce_grads()
-        elif dp is not None and dp.shape[DATA_AXIS] > 1:
-            (total / dp.shape[DATA_AXIS]).backward()
-            self._all_reduce_grads(dp.data_group)
-        else:
-            total.backward()
-        self.tx()
+        shards = self._shards
+        if shards is not None:
+            shards.gather()
+        try:
+            with self._fake_quant():
+                out, aux = (self._forward(x, budget, gen, nkw) if dp is None
+                            else self._dp_forward(x, budget, gen, nkw))
+            total, metrics = self._loss(out, aux, y, budget, x)
+            if self._train_kind == "sp":
+                (total / self._sp_world).backward()
+                self._all_reduce_grads()
+            elif dp is not None and dp.shape[DATA_AXIS] > 1:
+                (total / dp.shape[DATA_AXIS]).backward()
+                self._all_reduce_grads(dp.data_group,
+                                       None if shards is None else shards.module_params())
+            else:
+                total.backward()
+            if shards is not None:
+                shards.collect_grads()
+            self.tx()
+        finally:
+            if shards is not None:
+                shards.free()
         return {k: v.detach() for k, v in metrics.items()}
 
     def _check_budget(self, budget):
@@ -678,13 +751,43 @@ class Trainer:
         ``rngs={"noise": key(0)}``)."""
         self._check_budget(budget)
         x, y = self._to_device(x, y)
-        with torch.no_grad(), self._fake_quant():
-            nkw = self._noise_kwargs(noise_value, lambda: default_generator(x.device))
-            out, aux = self._module_forward(x, budget, None, nkw, train=False)
-            logits = _main_logits(out, self.output_format)
-            loss = self.main_criterion(logits, y)
-            correct = (logits.argmax(-1) == y).sum()
+        shards = self._shards
+        if shards is not None:  # whole leaves (FSDP; the leaves TP gathers)
+            shards.gather()
+        try:
+            with torch.no_grad(), self._fake_quant():
+                nkw = self._noise_kwargs(noise_value, lambda: default_generator(x.device))
+                out, aux = self._module_forward(x, budget, None, nkw, train=False)
+                logits = _main_logits(out, self.output_format)
+                loss = self.main_criterion(logits, y)
+                correct = (logits.argmax(-1) == y).sum()
+        finally:
+            if shards is not None:
+                shards.free()
         return correct, loss, aux
+
+    def gathered_params(self) -> dict:
+        """The model's parameters as whole leaves in JAX's tree grammar,
+        detached: under FSDP and tensor parallelism gathered from every
+        rank's share (a collective over the sharding group)."""
+        return _nest(self.full_state_dict().items())
+
+    def full_state_dict(self) -> dict:
+        """:meth:`gathered_params` keyed as the single-device model's
+        ``state_dict`` (what ``utils/checkpoint.save_state(...,
+        state_dict=)`` writes)."""
+        if self._shards is None:
+            return {k: v.detach() for k, v in self.model.state_dict().items()}
+        return self._shards.full_state_dict()
+
+    def load_full_state_dict(self, state: dict) -> None:
+        """Load whole leaves (a single-device model's ``state_dict``) into
+        the model, under FSDP and tensor parallelism into this rank's
+        share."""
+        if self._shards is None:
+            self.model.load_state_dict(state)
+        else:
+            self._shards.load_full_state_dict(state)
 
     # --------------------------------------------------------------- epochs
 

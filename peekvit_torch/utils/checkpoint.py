@@ -15,6 +15,14 @@ it returns and writes the copy from a background thread, so the
 optimizer's in-place updates of the next steps cannot reach the file.
 The JAX package's orbax checkpoints (a ``params/`` directory) are
 refused: the port does not read orbax.
+
+``save_state(..., state_dict=)`` writes the given whole leaves in place
+of ``model.state_dict()``: a sharded ``Trainer`` (FSDP, tensor
+parallelism) passes ``Trainer.full_state_dict()``, gathered over the
+sharding group, so the checkpoint loads into a single-device model byte
+for byte, and ``Trainer.load_full_state_dict`` puts each rank's share of
+such a model's ``state_dict()`` back in place. The optimizer state is the
+caller's: a sharded one is saved per rank.
 """
 
 from __future__ import annotations
@@ -84,9 +92,12 @@ def model_metadata(model: nn.Module) -> dict:
 
 def save_state(checkpoints_dir: str, model: nn.Module, optimizer_state: Any = None,
                epoch: int = 0, skip_optimizer: bool = True, async_save: bool = False,
-               extra_metadata: Optional[dict] = None) -> str:
+               extra_metadata: Optional[dict] = None,
+               state_dict: Optional[dict] = None) -> str:
     """Save a self-describing checkpoint; return its path. One save is in
-    flight at a time: a second waits for the first."""
+    flight at a time: a second waits for the first. ``state_dict``: the
+    whole leaves to write (``state_dict`` keys), by default
+    ``model.state_dict()``."""
     global _pending
     path = os.path.abspath(os.path.join(checkpoints_dir, f"epoch_{epoch:03d}"))
     os.makedirs(path, exist_ok=True)
@@ -94,7 +105,7 @@ def save_state(checkpoints_dir: str, model: nn.Module, optimizer_state: Any = No
     meta = {**model_metadata(model), "epoch": epoch, **(extra_metadata or {})}
     with open(os.path.join(path, "metadata.json"), "w") as f:
         json.dump(meta, f, indent=2, default=str)
-    params = _host_copy(model.state_dict())
+    params = _host_copy(model.state_dict() if state_dict is None else state_dict)
     opt = (None if optimizer_state is None or skip_optimizer
            else _host_copy(optimizer_state))
 

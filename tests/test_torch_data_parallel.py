@@ -307,9 +307,10 @@ def _fake_mesh(n_data=2, n_model=1):
 
 
 def test_data_parallel_guards():
-    """An indivisible batch (JAX's message, engine and Trainer), a model
-    axis of 2 without SP, ZeRO-1 without a mesh, FSDP; a dp Trainer refuses
-    what the single-device one refuses, with the same message."""
+    """An indivisible batch (JAX's message, engine and Trainer), the
+    pipeline, tensor parallelism without a model axis, ZeRO-1 without a
+    mesh; a model axis of 2 without SP and FSDP construct; a dp Trainer
+    refuses what the single-device one refuses, with the same message."""
     vit = build_model("vit", VIT16, device="cpu")
     x = np.zeros((3, 16, 16, 3), np.float32)
     y = np.zeros(3, np.int64)
@@ -321,11 +322,18 @@ def test_data_parallel_guards():
             Trainer(vit, optim.SGD(lr=0.1), device="cpu", mesh=_fake_mesh(),
                     fused=fused).train_step(x, y)
     base = dict(optimizer=optim.SGD(lr=0.1), device="cpu")
-    for kwargs in (dict(mesh=_fake_mesh(1, 2)), dict(mesh=_fake_mesh(), fsdp_sharded_params=True),
-                   dict(mesh=_fake_mesh(), tensor_parallel=True),
-                   dict(mesh=_fake_mesh(), pipeline_stages=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md port queue A item 9"):
-            Trainer(model=vit, **base, **kwargs)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md port queue A item 9"):
+        Trainer(model=vit, **base, mesh=_fake_mesh(), pipeline_stages=2)
+    # ported (tests/test_torch_sharded_training.py): a model axis of 2 without
+    # SP (the module step replicated over it), FSDP and tensor parallelism
+    # (JAX's checks and words)
+    assert Trainer(model=vit, **base, mesh=_fake_mesh(1, 2), fused=False)._dp is not None
+    fsdp = Trainer(model=build_model("vit", VIT16, device="cpu"), **base, mesh=_fake_mesh(),
+                   fsdp_sharded_params=True)
+    assert fsdp.fused is False and fsdp._shards.split_fraction() > 0.9
+    with pytest.raises(ValueError, match="tensor_parallel=True requires mesh= with a 'model' "
+                                         "axis of size >= 2"):
+        Trainer(model=vit, **base, mesh=_fake_mesh(), tensor_parallel=True)
     with pytest.raises(ValueError, match="zero_sharded_optimizer requires mesh="):
         Trainer(model=vit, zero_sharded_optimizer=True, **base)
     moe = build_model("moevit", dict(VIT16, mlp_moes=[1, 2]), device="cpu")

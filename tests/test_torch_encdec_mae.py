@@ -262,8 +262,8 @@ def test_encdec_engine_bf16_matches_jax_engine():
 
 def test_engine_guards():
     """The JAX engine's refusals (inference.py:2518-2544, :2631-2634,
-    :2751-2754), recon under a tensor-parallel mesh (queue A item 9) and
-    under a data-parallel one."""
+    :2751-2754), recon under a tensor-parallel mesh (refused in JAX's words,
+    inference.py:2575-2584) and under a data-parallel one."""
     _, enc, _ = _pair("encdecresidualvit")
     _, mae, _ = _pair("maevit")
     vit = build_model("vit", dict(image_size=32, patch_size=8, num_layers=1, num_heads=2,
@@ -278,9 +278,9 @@ def test_engine_guards():
             (vit, dict(recon_outputs=True), "reconstruction decoder"),
             (res, dict(recon_outputs=True), "reconstruction decoder"),
             (enc, dict(recon_outputs=True, mesh=types.SimpleNamespace(shape={"model": 2})),
-             "item 9"),
+             "serve other families / modes data-parallel"),
             (mae, dict(recon_outputs=True, mesh=types.SimpleNamespace(shape={"model": 2})),
-             "item 9")):
+             "serve other families / modes data-parallel")):
         with pytest.raises(NotImplementedError, match=match):
             InferenceEngine(model, device="cpu", **kwargs)
     # recon under a data-parallel mesh is ported: on a one-rank data axis

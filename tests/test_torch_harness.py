@@ -246,7 +246,8 @@ def test_transforms_bit_equal_to_jax(seed):
 
 def test_imagefolder_matches_jax_pil_path(tmp_path):
     """The scan (classes, samples, labels) equals JAX's, and each decoded
-    sample its PIL path's (JAX's native decoder turned off)."""
+    sample its PIL path's (both native decoders turned off; the native
+    paths are tests/test_torch_native.py's)."""
     for c, cls in enumerate(["b_dog", "a_cat", "c_owl"]):
         for i in range(2 + c):
             sub = tmp_path / cls / ("nested" if i == 2 else "")
@@ -255,13 +256,13 @@ def test_imagefolder_matches_jax_pil_path(tmp_path):
     (tmp_path / "a_cat" / "notes.txt").write_text("not an image")
     got, want = ImageFolder(tmp_path, T.test_transform(16)), JaxImageFolder(tmp_path,
                                                                             JT.test_transform(16))
-    want._native_spec = False
+    got._native_spec = want._native_spec = False
     assert got.classes == want.classes and got.samples == want.samples
     for i in range(len(want)):
         np.testing.assert_array_equal(got[i][0], want[i][0])
         assert got[i][1] == want[i][1]
-    with pytest.raises(NotImplementedError, match="item 8 part 3"):
-        got.native_batch([0])
+    # with the native path off, the batch path declines as JAX's does
+    assert got.native_batch([0]) is None and want.native_batch([0]) is None
 
 
 def test_prefetch_keeps_order_and_needs_a_card_unless_asked(monkeypatch):

@@ -487,10 +487,15 @@ def test_trainer_guards_that_still_raise():
                                                                       noise_value=0.5)
     assert set(got) == set(want) and float(got["total_loss"]) == float(want["total_loss"])
     tp_mesh = Mesh({DATA_AXIS: 1, MODEL_AXIS: 2}, None, None, 0, 0, torch.device("cpu"))
-    for kwargs, item in ((dict(mesh=tp_mesh), "item 9"),
-                         (dict(qat=True, remat=True), "refuses remat")):
-        with pytest.raises(NotImplementedError, match=item):
-            Trainer(**base, **kwargs)
+    # a model axis without SP is ported (tests/test_torch_sharded_training.py):
+    # the module step runs replicated over it, the fused path refuses it in
+    # JAX's words at the first step
+    with pytest.raises(NotImplementedError, match="the fused train path shards over 'data' "
+                                                  "only"):
+        Trainer(model=_pair(add_budget_token="learnable")[1], optimizer=optim.Adam(),
+                device="cpu", mesh=tp_mesh, fused=True).train_step(x, y, budget=0.5)
+    with pytest.raises(NotImplementedError, match="refuses remat"):
+        Trainer(**base, qat=True, remat=True)
     vit = build_model("vit", dict(image_size=16, patch_size=8, num_layers=1, num_heads=2,
                                   hidden_dim=32, mlp_dim=64, num_classes=5), device="cpu")
     with pytest.raises(NotImplementedError, match="item 5"):

@@ -384,8 +384,11 @@ def test_sp_guards():
         Trainer(model=res, sequence_parallel_devices=2, **base).train_step(x, y)
     with pytest.raises(ValueError, match="parallel_kernels"):
         Trainer(model=vit, sequence_parallel_devices=2, parallel_kernels="cuda", **base)
-    with pytest.raises(NotImplementedError, match="item 9"):  # mesh= without SP
-        Trainer(model=vit, mesh=_fake_mesh(), **base)
+    # mesh= without SP runs the module step, replicated over the model axis
+    # (tests/test_torch_sharded_training.py); the fused path refuses it
+    assert Trainer(model=vit, mesh=_fake_mesh(), fused=False, **base).fused is False
+    with pytest.raises(NotImplementedError, match="shards over 'data' only"):
+        Trainer(model=vit, mesh=_fake_mesh(), fused=True, **base).train_step(x, y)
     with pytest.raises(ValueError, match="kernels must be"):
         sequence_parallel_vit_forward({}, torch.zeros(1, 16, 16, 3), num_heads=2, patch_size=8,
                                       mesh=_fake_mesh(), kernels="cuda")

@@ -429,12 +429,25 @@ def test_trainer_refuses_what_is_not_ported():
     _, tm = _model_pair()
     base = dict(model=tm, optimizer=optim.Adam(), device="cpu")
     tp_mesh = Mesh({DATA_AXIS: 1, MODEL_AXIS: 2}, None, None, 0, 0, torch.device("cpu"))
-    for kwargs in (dict(mesh=tp_mesh), dict(pipeline_stages=2),
-                   dict(pipeline_microbatches=2), dict(tensor_parallel=True),
-                   dict(fsdp_sharded_params=True),
-                   dict(zero_sharded_optimizer=True, sequence_parallel_devices=2, mesh=tp_mesh)):
+    for kwargs in (dict(pipeline_stages=2), dict(pipeline_microbatches=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md port queue A item 9"):
             Trainer(**base, **kwargs)
+    # ported (tests/test_torch_sharded_training.py): a model axis without SP
+    # (the module step replicated over it; the fused path refuses it in
+    # JAX's words), tensor parallelism and FSDP (JAX's checks and words),
+    # and ZeRO-1 under SP (over the SP mesh's data axis)
+    with pytest.raises(NotImplementedError, match="the fused train path shards over 'data' "
+                                                  "only"):
+        Trainer(**dict(base, model=_model_pair()[1]), mesh=tp_mesh,
+                fused=True).train_step(*_batch(1, n=2))
+    with pytest.raises(ValueError, match="tensor_parallel=True requires mesh= with a 'model' "
+                                         "axis of size >= 2"):
+        Trainer(**base, tensor_parallel=True)
+    with pytest.raises(ValueError, match="fsdp_sharded_params requires mesh="):
+        Trainer(**base, fsdp_sharded_params=True)
+    zero_sp = Trainer(**dict(base, model=_model_pair()[1]), zero_sharded_optimizer=True,
+                      sequence_parallel_devices=2, mesh=tp_mesh)
+    assert zero_sp.torch_optimizer.n == 1  # a pure-SP mesh: the one-slice case
     # ZeRO-1 is ported (tests/test_torch_data_parallel.py): it needs a mesh, as in JAX
     with pytest.raises(ValueError, match="zero_sharded_optimizer requires mesh="):
         Trainer(**base, zero_sharded_optimizer=True)
