@@ -352,7 +352,8 @@ prints no final result):
    of the same seed, ms per rank ("gloo through the host, 2 processes
    sharing one card: not NCCL"), ZeRO-1's optimizer bytes a rank;
 50. sharded training and the native image decoder (see shard_phases and
-   native_phase): 2 spawned ranks on cuda:0 over gloo train ViT-B/16 with
+   native_phase): 2 spawned ranks on cuda:0 over gloo train ViT-B/16 at 4
+   of its 12 layers (SHARD_B16) with
    Trainer(fsdp_sharded_params=True) on a (2, 1) mesh and with
    Trainer(tensor_parallel=True) on (1, 2), and moevit.yaml at 160 px with
    its experts split on (1, 2) (the module step, global bs64, SGD momentum
@@ -366,10 +367,21 @@ prints no final result):
    build_error(), and 64 PIL-written JPEGs through the loader's native and
    PIL paths (or, where it did not build, the fallback's batches against
    PIL's);
+51. pipeline-parallel training (see pipe_phases): 4 spawned ranks on
+   cuda:0 over gloo train ViT-B/16 pipelined on a (1, 4) stage mesh
+   (global bs32, M = 8, parallel_kernels "auto", which must resolve to
+   the trainable attention kernels, AdamW; and the fp32 "xla" form) and
+   dp x pp on (2, 2) (M = 4), and the gated residualvit_b_16.yaml
+   pipelined and sequence-parallel (bs16, budget 0.6, l1 sparsity, fp32):
+   every rank bit-identical, each rank's launches a step the predicted
+   count (PIPE_PER_LAYER x layers a stage x M), losses and updates
+   against rank 0's single-device step within PIPE_TOLERANCES, ms a step
+   a rank, the bubble, peak memory;
 and then, as 43, the {"kernels": [...]} line (launches_by_path gains
 "family_serve", "noise", "cli_train", "cli_test", "qat_serve",
 "qat_cli_test", "serving", "dp_serve", "dp_train", "fsdp_train",
-"tp_train" and "zero_sp_train"), the card's nvidia-smi line, and
+"tp_train", "zero_sp_train" and "pipeline_train"), the card's nvidia-smi
+line, and
 {"ok": true, "device": {...}} as the last line.
 
 Imports nothing of JAX or of peekvit_tpu.
@@ -7729,17 +7741,23 @@ SHARD_LR = 1e-2                     # SGD(momentum 0.9): the update is linear in
 SHARD_JOIN_TIMEOUT = 600.0
 SHARD_LABEL = ("gloo through the host, processes sharing one card: not NCCL; FSDP and TP take "
                "the fp32 module step (no port kernel), ZeRO-1 under SP the SP step")
+# ViT-B/16 at full width and a third of its depth: phase 51 brought the
+# whole script past 650 s of its 1200 s limit (746.5 s on one H100), and these
+# worlds run paths that phase 51 and phase 49 drive at full depth
+SHARD_B16 = dict(B16, num_layers=4)
 # key -> (registry name, args, mesh (n_data, n_model), Trainer keywords, global batch, steps)
 SHARD_RUNS = {
-    "fsdp_vit": ("vit", B16, (2, 1), dict(fused=False, fsdp_sharded_params=True), 64,
+    "fsdp_vit": ("vit", SHARD_B16, (2, 1), dict(fused=False, fsdp_sharded_params=True), 64,
                  SHARD_STEPS),
-    "tp_vit": ("vit", B16, (1, 2), dict(fused=False, tensor_parallel=True), 64, SHARD_STEPS),
+    "tp_vit": ("vit", SHARD_B16, (1, 2), dict(fused=False, tensor_parallel=True), 64,
+               SHARD_STEPS),
     "tp_moe": ("moevit", MOE_YAML, (1, 2), dict(fused=False, tensor_parallel=True), 64,
                SHARD_STEPS),
 }
 SHARD_SP_RUNS = {
-    "zero_sp_vit": ("vit", B16, (2, 2), dict(sequence_parallel_devices=2,
-                                             zero_sharded_optimizer=True), 16, SHARD_SP_STEPS),
+    "zero_sp_vit": ("vit", SHARD_B16, (2, 2), dict(sequence_parallel_devices=2,
+                                                   zero_sharded_optimizer=True), 16,
+                    SHARD_SP_STEPS),
 }
 # (loss rel, whole update rel-L2, worst leaf's update rel-L2) against rank
 # 0's single-device step: FSDP and TP against the same fp32 module step, at
@@ -8029,6 +8047,271 @@ def native_phase(smi) -> None:
     emit(rec)
     if not good:
         raise AssertionError(f"native decoder: {rec}")
+
+
+# ------------------------------------------- 51. pipeline-parallel training
+
+PIPE_RANKS = 4
+PIPE_STEPS = 3
+PIPE_BATCH = 32                     # (a) and (b): the global batch
+PIPE_GATED_BATCH = 16               # (c)
+PIPE_LR = 1e-4                      # AdamW, the fused train phases' rate
+PIPE_JOIN_TIMEOUT = 600.0
+PIPE_BUDGET = 0.6
+PIPE_SPARSITY = {"sparsity": {"_target_": "peekvit.utils.losses.SparsityLoss", "weight": 0.2,
+                              "sparsity_type": "l1"}}
+PIPE_LABEL = ("gloo through the host, 4 processes sharing one card: not NCCL; each stage hand-off "
+              "is one all-reduce of the stage group's zero-filled slots")
+# key -> (registry name, args, mesh (n_data, n_second, axis), Trainer keywords, optimizer,
+# global batch, rank 0's single-device reference). "pallas" steps against
+# the fused bf16 step (AdamW, clip 1.0), the fp32 ones against the module
+# step (phase 50's SGD with momentum 0.9, clip 1.0: an update linear in the
+# gradients, so that fp32 limits hold it)
+PIPE_RUNS = {
+    "pp_vit": ("vit", B16, (1, 4, "stage"), dict(pipeline_stages=4, pipeline_microbatches=8),
+               "adamw", PIPE_BATCH, "fused"),
+    "pp_vit_xla": ("vit", B16, (1, 4, "stage"),
+                   dict(pipeline_stages=4, pipeline_microbatches=8, parallel_kernels="xla"),
+                   "momentum", PIPE_BATCH, "module"),
+    "dppp_vit": ("vit", B16, (2, 2, "stage"), dict(pipeline_stages=2, pipeline_microbatches=4),
+                 "adamw", PIPE_BATCH, "fused"),
+    "pp_res": ("residualvit", RESIDUALVIT_B16, (1, 4, "stage"),
+               dict(pipeline_stages=4, pipeline_microbatches=8), "momentum", PIPE_GATED_BATCH,
+               "module_res"),
+    "sp_res": ("residualvit", RESIDUALVIT_B16, (1, 4, "model"),
+               dict(sequence_parallel_devices=4), "momentum", PIPE_GATED_BATCH, "module_res"),
+}
+# Launches a layer a microbatch of the "pallas" pipeline step: the trainable
+# attention block's forward (ln_rows, qkv GEMM, attention, out-proj GEMM)
+# and its recompute backward (save_qkv=False: ln_rows and the qkv GEMM
+# again, g Wo^T, the attention backward, dqkv Wqkv^T, the LN backward)
+PIPE_PER_LAYER = {"ln_rows": 2, "gemm_bias_epilogue.bias": 2, "attn_softmax_fwd": 1,
+                  "gemm_bias_epilogue.residual": 1, "gemm_nt.none": 1, "attn_softmax_bwd": 1,
+                  "gemm_nt.none_f32": 1, "ln_bwd_rows": 1}
+# (loss rel, whole update rel-L2, worst leaf's update rel-L2) against rank
+# 0's reference: the fp32 runs at phase 50's fp32 limits; the bf16 runs
+# from their first reading (PERF.md: loss rel 1.10e-3, update 7.20e-2,
+# worst leaf 0.735, AdamW turning bf16 roundings into sign-sized steps on
+# near-zero gradients) at 2-5 times it
+PIPE_TOLERANCES = {"pp_vit": (5e-3, 0.2, 1.5), "dppp_vit": (5e-3, 0.2, 1.5),
+                   "pp_vit_xla": SHARD_TOLERANCES["fsdp_vit"],
+                   "pp_res": SHARD_TOLERANCES["fsdp_vit"], "sp_res": SHARD_TOLERANCES["fsdp_vit"]}
+
+
+def pipe_expected(fa, key: str) -> dict:
+    """The launches a rank a step of PIPE_RUNS[key]: PIPE_PER_LAYER times
+    the layers a stage and the microbatches, the attention keyed by the
+    route its shape takes; none for the fp32 runs."""
+    name, args, mesh, kw, _, _, ref = PIPE_RUNS[key]
+    if ref != "fused" or kw.get("parallel_kernels") == "xla":
+        return {}
+    hd = args["hidden_dim"] // args["num_heads"]
+    n = (args["image_size"] // args["patch_size"]) ** 2 + 1
+    times = args["num_layers"] // kw["pipeline_stages"] * kw["pipeline_microbatches"]
+    keys = {"attn_softmax_fwd": fa.softmax_key("attn_softmax_fwd", hd, n),
+            "attn_softmax_bwd": fa.softmax_key("attn_softmax_bwd", hd, n, backward=True)}
+    return {keys.get(k, k): v * times for k, v in PIPE_PER_LAYER.items()}
+
+
+def pipe_trainer(torch, key: str, parallel: bool, mesh=None):
+    """A run's Trainer from the seeded weights: the parallel one on every
+    rank, or rank 0's single-device reference."""
+    from peekvit_torch import Trainer
+    from peekvit_torch.training.optim import SGD, AdamW
+    from peekvit_torch.utils.losses import LossCompose
+
+    name, args, _, kw, opt, _, ref = PIPE_RUNS[key]
+    model = seeded_residual_model(torch, name, args)
+    optimizer = AdamW(lr=PIPE_LR) if opt == "adamw" else SGD(lr=SHARD_LR, momentum=0.9)
+    extra = dict(loss_compose=LossCompose(PIPE_SPARSITY)) if name == "residualvit" else {}
+    if parallel:
+        extra.update(kw, mesh=mesh)
+    else:
+        extra["fused"] = ref == "fused"
+    return model, Trainer(model, optimizer, clip_grad_norm=1.0, device=DEVICE, **extra)
+
+
+def pipe_steps(torch, dist, fa, trainer, x, y, budget, parallel: bool) -> dict:
+    """PIPE_STEPS steps: counts zeroed just before each step and read just
+    after, ms on the host clock between a barrier and a synchronize, the
+    metric names, peak memory since the Trainer was built."""
+    out = {"losses": [], "counts": [], "ms": [], "metrics": []}
+    for step in range(PIPE_STEPS):
+        torch.cuda.synchronize()
+        if parallel:
+            dist.barrier()
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        m = trainer.train_step(x, y, budget=budget, step_idx=step)
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["counts"].append(dict(fa.LAUNCHES))
+        out["losses"].append(float(m["total_loss"]))
+        out["metrics"] = sorted(m)
+    out["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["kind"] = trainer._train_kind
+    return out
+
+
+def pipe_rank(rank: int, world: int, rdzv: str, out_dir: str) -> None:
+    """Phase 51, one rank on cuda:0 over gloo: every run of PIPE_RUNS on its
+    mesh, each Trainer from the seeded weights taking PIPE_STEPS steps on
+    its global batch (pipe_steps); the whole parameters' digest. Rank 0
+    then takes each distinct reference's steps on one device while the
+    others wait, and holds losses and updates against each run's. cuDNN's
+    TF32 is off in the phase: the module step embeds with a convolution,
+    the parallel forwards with a matmul, and TF32 would round one but not
+    the other. Writes rank<r>.pt into out_dir."""
+    import torch
+    import torch.distributed as dist
+
+    from peekvit_torch.models.adapters import module_params
+    from peekvit_torch.ops.cuda import fused_attention as fa
+    from peekvit_torch.parallel import make_mesh
+
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{rdzv}", world_size=world, rank=rank)
+    try:
+        meshes, res, starts = {}, {}, {}
+        for key, (name, args, shape, kw, _, batch, ref) in PIPE_RUNS.items():
+            if shape not in meshes:
+                meshes[shape] = make_mesh(shape[0], shape[1], device=DEVICE, axis=shape[2])
+            x, y = dp_images(torch, batch, args["image_size"], args["num_classes"], 51)
+            budget = PIPE_BUDGET if name == "residualvit" else None
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            model, trainer = pipe_trainer(torch, key, True, meshes[shape])
+            if rank == 0 and ref not in starts:
+                starts[ref] = {k: v.clone() for k, v in _flat(module_params(model)).items()}
+            rec = pipe_steps(torch, dist, fa, trainer, x, y, budget, True)
+            kwargs = trainer._pipeline_fwd_kwargs or trainer._sp_fwd_kwargs
+            rec["kernels"] = kwargs.get("kernels", "fp32 (the gated forward)")
+            whole = _flat(module_params(model))
+            rec["digest"] = param_digest(torch, {k: whole[k] for k in sorted(whole)})
+            if rank == 0:
+                rec["update"] = {k: (whole[k] - starts[ref][k]).float() for k in whole}
+            res[key] = rec
+            del trainer, model, whole
+            torch.cuda.empty_cache()
+            dist.barrier()
+        if rank == 0:
+            singles = {}
+            for key, (name, args, _, _, _, batch, ref) in PIPE_RUNS.items():
+                if ref in singles:
+                    continue
+                x, y = dp_images(torch, batch, args["image_size"], args["num_classes"], 51)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                model, trainer = pipe_trainer(torch, key, False)
+                rec = pipe_steps(torch, dist, fa, trainer, x, y,
+                                 PIPE_BUDGET if name == "residualvit" else None, False)
+                whole = _flat(module_params(model))
+                rec["update"] = {k: (whole[k] - starts[ref][k]).float() for k in whole}
+                singles[ref] = rec
+                del trainer, model, whole
+                torch.cuda.empty_cache()
+            for key, rec in res.items():
+                single = singles[PIPE_RUNS[key][6]]
+                got, want = rec.pop("update"), single["update"]
+                num = sum(float((got[k] - want[k]).square().sum()) for k in want)
+                rec["update_rel_l2_all"] = math.sqrt(
+                    num / sum(float(want[k].square().sum()) for k in want))
+                err = rel_l2(torch, got, want)
+                rec["update_rel_l2_worst_leaf"] = [max(err, key=err.get), max(err.values())]
+                rec["single"] = {k: v for k, v in single.items() if k != "update"}
+        dist.barrier()
+        torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def pipe_phases(torch, smi) -> dict:
+    """Phase 51 (a)-(c): pipeline-parallel training as 4 spawned ranks on
+    cuda:0 over a gloo group (pipe_rank). (a) ViT-B/16 on a (1, 4) stage
+    mesh at a global bs32, M = 8, parallel_kernels "auto" (which must
+    resolve to "pallas": the trainable attention kernels, sites 18-19)
+    against rank 0's fused single-device step (AdamW), and the "xla"
+    form (fp32) against the module step; (b) dp x pp on (2, 2), M = 4,
+    "pallas", against the same fused step; (c) the gated
+    residualvit_b_16.yaml at budget 0.6 with the l1 sparsity regularizer,
+    pipelined on (1, 4) with M = 8 and sequence-parallel on 4 ranks, fp32,
+    against the module step. Every rank's losses and whole parameters
+    bit-identical within a run; each "pallas" rank's launches a step
+    pipe_expected's (and > 0), the fp32 runs' none; losses and updates
+    within PIPE_TOLERANCES; the regularizer's loss among (c)'s metrics; ms a
+    step a rank (steps 2-3) beside the single device's, the bubble, peak
+    memory a rank. Returns the launches summed over every rank and step
+    ("pipeline_train")."""
+    from peekvit_torch.ops.cuda import _build
+    from peekvit_torch.ops.cuda import fused_attention as fa
+    from peekvit_torch.parallel.pipeline import bubble_fraction
+
+    _build.build_all()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "pipe_smoke")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    spawn_ranks(torch, pipe_rank, PIPE_RANKS, (PIPE_RANKS, os.path.join(out_dir, "rdzv"),
+                                               out_dir), PIPE_JOIN_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt")) for r in range(PIPE_RANKS)]
+    totals = {}
+    failed = []
+    for key, rec0 in ranks[0].items():
+        name, args, shape, kw, opt, batch, ref = PIPE_RUNS[key]
+        recs = [rk[key] for rk in ranks]
+        same = all(r["digest"] == recs[0]["digest"] and r["losses"] == recs[0]["losses"]
+                   for r in recs)
+        want = pipe_expected(fa, key)
+        counts_ok = all(c == want for r in recs for c in r["counts"])
+        for r in recs:
+            for counts in r["counts"]:
+                for k, v in counts.items():
+                    totals[k] = totals.get(k, 0) + v
+        single = rec0["single"]
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(recs[0]["losses"], single["losses"]))
+        loss_tol, update_tol, leaf_tol = PIPE_TOLERANCES[key]
+        kernels_ok = recs[0]["kernels"] == (kw.get("parallel_kernels", "pallas")
+                                            if name == "vit" else "fp32 (the gated forward)")
+        stages = kw.get("pipeline_stages", 1)
+        m = kw.get("pipeline_microbatches", 1)
+        out = {"phase": "pipeline_train", "run": key, "ranks": PIPE_RANKS, "mesh": list(shape),
+               "global_batch": batch, "train_kind": recs[0]["kind"],
+               "kernels": recs[0]["kernels"], "reference": single["kind"],
+               "optimizer": "AdamW(lr=1e-4)" if opt == "adamw" else
+               f"SGD(lr={SHARD_LR}, momentum=0.9)", "clip_grad_norm": 1.0,
+               "microbatches": m if "pipeline_stages" in kw else None,
+               "bubble_fraction": bubble_fraction(stages, m) if "pipeline_stages" in kw
+               else None,
+               "losses": recs[0]["losses"], "single_losses": single["losses"],
+               "metrics": recs[0]["metrics"], "loss_rel_max": loss_rel,
+               "update_rel_l2": rec0["update_rel_l2_all"],
+               "update_rel_l2_worst_leaf": rec0["update_rel_l2_worst_leaf"],
+               "tolerance": dict(zip(("loss_rel", "update_rel_l2", "worst_leaf"),
+                                     PIPE_TOLERANCES[key])),
+               "launches_per_rank_per_step": recs[0]["counts"][0],
+               "expected_launches_per_rank_per_step": want,
+               "ranks_bit_identical": same,
+               "ms_per_step_by_rank": [r["ms"][1:] for r in recs], "single_ms": single["ms"][1:],
+               "peak_memory_gib_by_rank": [r["peak_memory_gib"] for r in recs],
+               "single_peak_memory_gib": single["peak_memory_gib"],
+               "label": PIPE_LABEL, "tf32": "cuDNN TF32 off in the phase", "card": smi}
+        ok = (same and counts_ok and kernels_ok and loss_rel <= loss_tol
+              and rec0["update_rel_l2_all"] <= update_tol
+              and rec0["update_rel_l2_worst_leaf"][1] <= leaf_tol
+              and all(math.isfinite(v) for v in recs[0]["losses"])
+              and (not want or sum(want.values()) > 0)
+              and (name != "residualvit" or "sparsity" in recs[0]["metrics"]))
+        emit(out)
+        if not ok:
+            failed.append(key)
+    emit({"phase": "pipeline_spawn", "ranks": PIPE_RANKS, "seconds_for_spawn": seconds,
+          "card": smi})
+    if failed:
+        raise AssertionError(f"phase 51: {failed} failed their checks (lines above)")
+    return {"pipeline_train": totals}
 
 
 def main() -> int:
@@ -8554,6 +8837,8 @@ def main() -> int:
     # ----------------- 50. sharded training, the native image decoder
     shard = shard_phases(torch, smi)
     native_phase(smi)
+    # ---------------------------------------- 51. pipeline-parallel training
+    shard.update(pipe_phases(torch, smi))
     for entry in kernels:  # the later paths run earlier kernels too
         entry["launches_by_path"]["merged"] = mtrain["counts"]["merged"].get(entry["name"], 0)
         entry["launches_by_path"]["hybrid"] = mtrain["counts"]["hybrid"].get(entry["name"], 0)

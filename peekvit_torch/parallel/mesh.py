@@ -1,5 +1,7 @@
 """A (data, model) mesh over the ranks of a ``torch.distributed`` group
-(counterpart of peekvit_tpu/parallel/mesh.py ``make_mesh``).
+(counterpart of peekvit_tpu/parallel/mesh.py ``make_mesh``), or a (data,
+stage) mesh for the pipeline (JAX's ``Mesh(devices.reshape(n, S), ("data",
+"stage"))``).
 
 The JAX mesh is a grid of devices in one program; here each rank is one
 process, and the mesh is that rank's view of the grid: its position, the
@@ -36,14 +38,16 @@ from peekvit_torch.models.registry import resolve_device
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
+STAGE_AXIS = "stage"
 
 
 @dataclass(frozen=True)
 class Mesh:
-    """One rank's view of a (data, model) mesh. ``shape`` maps
-    ``DATA_AXIS`` / ``MODEL_AXIS`` to their sizes; ``model_group`` holds the
-    ranks of this rank's model row, ``data_group`` those of its data
-    column; ``data_index`` / ``model_index`` are its position."""
+    """One rank's view of a (data, model) or (data, stage) mesh. ``shape``
+    maps ``DATA_AXIS`` and the second axis (``MODEL_AXIS`` or ``STAGE_AXIS``)
+    to their sizes; ``model_group`` holds the ranks of this rank's row along
+    the second axis, ``data_group`` those of its data column;
+    ``data_index`` / ``model_index`` are its position."""
 
     shape: dict
     data_group: Any
@@ -53,9 +57,12 @@ class Mesh:
     device: torch.device
 
 
-def make_mesh(n_data: Optional[int] = None, n_model: int = 1, device=None) -> Mesh:
+def make_mesh(n_data: Optional[int] = None, n_model: int = 1, device=None,
+              axis: str = MODEL_AXIS) -> Mesh:
     """The calling rank's view of an ``n_data`` × ``n_model`` mesh over the
-    default process group (``n_data`` defaults to world size // n_model).
+    default process group (``n_data`` defaults to world size // n_model);
+    ``axis`` names the second axis: ``MODEL_AXIS``, or ``STAGE_AXIS`` for a
+    pipeline's (data, stage) mesh.
     Every rank must call it, with the same arguments: each model row and
     each data column becomes a group (``dist.new_group``, called by every
     rank in the same order). ``device``: by default (or ``"cuda"`` with
@@ -66,6 +73,8 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1, device=None) -> Me
         raise RuntimeError("make_mesh needs an initialized default process group "
                            "(torch.distributed.init_process_group)")
     world, rank = dist.get_world_size(), dist.get_rank()
+    if axis not in (MODEL_AXIS, STAGE_AXIS):
+        raise ValueError(f"the second mesh axis is {MODEL_AXIS!r} or {STAGE_AXIS!r}, got {axis!r}")
     if n_model < 1:
         raise ValueError(f"n_model must be >= 1, got {n_model}")
     if n_data is None:
@@ -86,7 +95,7 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1, device=None) -> Me
         group = dist.new_group([i * n_model + j for i in range(n_data)])
         if j == model_index:
             data_group = group
-    return Mesh({DATA_AXIS: n_data, MODEL_AXIS: n_model}, data_group, model_group,
+    return Mesh({DATA_AXIS: n_data, axis: n_model}, data_group, model_group,
                 data_index, model_index, dev)
 
 

@@ -45,13 +45,13 @@ _ln = _layer_norm  # two-pass fp32 LN rounded to x's dtype (JAX sequence.py:25)
 
 
 def _axis(mesh, axis: str):
-    """(size, this rank's index, process group) of a mesh axis."""
-    if axis == MODEL_AXIS:
-        return mesh.shape[MODEL_AXIS], mesh.model_index, mesh.model_group
+    """(size, this rank's index, process group) of a mesh axis: the data
+    axis, or the second (``model`` or ``stage``)."""
     if axis == DATA_AXIS:
         return mesh.shape[DATA_AXIS], mesh.data_index, mesh.data_group
-    raise ValueError(f"unknown mesh axis {axis!r}: the port's mesh has {DATA_AXIS!r} and "
-                     f"{MODEL_AXIS!r}")
+    if axis in mesh.shape:
+        return mesh.shape[axis], mesh.model_index, mesh.model_group
+    raise ValueError(f"unknown mesh axis {axis!r}: this mesh has {tuple(mesh.shape)}")
 
 
 class _GatherTokens(torch.autograd.Function):

@@ -122,8 +122,20 @@ trains on the module path, as JAX's step takes linen at a nonzero rate
 (trainer.py:284-288): ``fused=True`` with dropout raises, naming it, and
 SP refuses dropout with JAX's words.
 
-The JAX trainer's pipeline is not ported; it raises
-``NotImplementedError`` naming its ROADMAP.md port queue A item. A PCT or
+- **Pipeline parallelism** (``pipeline_stages=S``, ``pipeline_microbatches=M``,
+  default S): GPipe over the ranks of a ``(data, stage)`` mesh
+  (``parallel.make_mesh(n, S, axis=STAGE_AXIS)``), or of a default
+  process group of S ranks without one (``parallel/pipeline.py``): every
+  rank holds the whole model and optimizer, as JAX's replicated tree, and
+  runs its stage's layers; the gradient is summed over every rank as
+  under SP. ``parallel_kernels`` picks each stage's layer math as under SP
+  (``"pallas"``: the trainable attention kernels, sites 18-19, in bf16).
+  A gated ResidualViT in the shipped-config mode trains pipelined or
+  sequence-parallel through ``parallel/residual.py``'s fp32 forwards, its
+  masks reaching the regularizers; JAX's checks and words throughout
+  (trainer.py:401-580).
+
+A PCT or
 RankPCT is refused: the JAX ``Trainer`` cannot train one (its step holds
 the BatchNorm statistics immutable); train it at module level. ``train_epoch`` and ``validate``
 take their batches through ``data.loader.prefetch_to_device`` (two in
@@ -134,6 +146,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import warnings
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
@@ -159,7 +172,12 @@ from peekvit_torch.ops.cuda.fused_attention_vjp import LN_BWD_MAX_WIDTH
 from peekvit_torch.ops.fake_quant import fake_quant
 from peekvit_torch.ops.noise import default_generator
 from peekvit_torch.parallel.data import check_divisible, data_rows, data_slice, gather_tree
-from peekvit_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, make_mesh
+from peekvit_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, STAGE_AXIS, make_mesh
+from peekvit_torch.parallel.pipeline import bubble_fraction, pipelined_vit_forward
+from peekvit_torch.parallel.residual import (
+    pipelined_residualvit_forward,
+    sequence_parallel_residualvit_forward,
+)
 from peekvit_torch.parallel.sequence import sequence_parallel_vit_forward
 from peekvit_torch.parallel.tensor import tensor_parallel_params
 from peekvit_torch.training.fsdp import fsdp_params
@@ -262,12 +280,6 @@ def fused_train_limit(hidden_dim: int, num_heads: int, mlp_dim: int, device) -> 
     return None
 
 
-# field -> (value that means "unused", ROADMAP.md port queue A item)
-_NOT_PORTED = {
-    "pipeline_stages": (0, "item 9 (parallel and serving)"),
-    "pipeline_microbatches": (0, "item 9 (parallel and serving)"),
-}
-
 # aux entries that hold the whole batch's values already under data
 # parallelism (no leading batch axis): the MAE's shared permutation, the
 # A-ViT's per-layer mean halting score (averaged over the data column)
@@ -321,11 +333,8 @@ class Trainer:
 
     def __post_init__(self):
         sp = (self.sequence_parallel_devices or 0) > 1
+        pipeline = (self.pipeline_stages or 0) > 1
         self._check_placement(sp)
-        for name, (unused, item) in _NOT_PORTED.items():
-            if getattr(self, name) != unused:
-                raise NotImplementedError(
-                    f"Trainer({name}=...) is not ported yet: ROADMAP.md port queue A {item}")
         if self.parallel_kernels not in ("auto", "xla", "pallas"):
             raise ValueError(f"parallel_kernels must be 'auto', 'xla' or 'pallas', got "
                              f"{self.parallel_kernels!r}")
@@ -341,11 +350,11 @@ class Trainer:
         if self.qat:
             self._check_qat(sp)
         self.device = resolve_device(self.device)
-        self._dp = self._data_mesh(sp)
+        self._dp = self._data_mesh(sp or pipeline)
         self.output_format = getattr(self.model, "output_format", None)
         # the fused path, decided here from the model and its shapes, before
         # anything moves (raises outside the kernels' limits)
-        self._fused_path = None if sp else self._fused_kind()
+        self._fused_path = None if sp or pipeline else self._fused_kind()
         self.model.to(self.device)
         if self.main_criterion is None:
             self.main_criterion = CrossEntropyLoss()
@@ -361,7 +370,8 @@ class Trainer:
         if self.zero_sharded_optimizer and not self.fsdp_sharded_params:
             # FSDP's optimizer runs over its slices already
             self.torch_optimizer = ZeroShardedOptimizer(self.optimizer, self.params,
-                                                        self.mesh if sp else self._dp,
+                                                        self.mesh if sp or pipeline
+                                                        else self._dp,
                                                         param_mask=mask)
         else:
             self.torch_optimizer = self.optimizer.build(self.params, param_mask=mask)
@@ -374,8 +384,9 @@ class Trainer:
                          else "fsdp_sharded_params")
         self._forward = None
         self._train_kind = None
-        self._sp_world = 1
+        self._parallel_world = 1  # SP / pipeline: the ranks the loss is split over
         self._sp_fwd_kwargs = None  # the SP forward's arguments, once the step is built
+        self._pipeline_fwd_kwargs = None  # the pipeline forward's, likewise
 
     def _check_placement(self, sp: bool) -> None:
         """JAX's checks of the parameter placements (trainer.py:206-240):
@@ -404,11 +415,12 @@ class Trainer:
                     "parallel modes own their param placement")
             self.fused = False
 
-    def _data_mesh(self, sp: bool):
-        """The data-parallel mesh (``mesh=`` without SP; JAX trainer.py:
-        258-275): ZeRO-1 needs a mesh. None without one, and under SP (whose
-        step takes the mesh itself). The Trainer moves to the mesh's device
-        (the rank's own card)."""
+    def _data_mesh(self, own_mesh: bool):
+        """The data-parallel mesh (``mesh=`` without SP or the pipeline;
+        JAX trainer.py:258-275): ZeRO-1 needs a mesh. None without one, and
+        under SP and the pipeline (``own_mesh``: their steps take the mesh
+        themselves). The Trainer moves to the mesh's device (the rank's own
+        card)."""
         mesh = self.mesh
         if self.zero_sharded_optimizer and mesh is None:
             raise ValueError("zero_sharded_optimizer requires mesh= (the optimizer state shards "
@@ -419,7 +431,7 @@ class Trainer:
             raise ValueError(f"the mesh's device {mesh.device} is not on the Trainer's device "
                              f"type {self.device.type}")
         self.device = mesh.device
-        return None if sp else mesh
+        return None if own_mesh else mesh
 
     def _check_qat(self, sp: bool) -> None:
         """JAX's QAT checks (trainer.py:180-205), then ``fused`` off: the
@@ -508,6 +520,9 @@ class Trainer:
         (outputs, aux). The noise keywords (``noise_value``, ``noise_rng``)
         are empty for a model without a NoiseBlock, which no fused path
         takes."""
+        if (self.pipeline_stages or 0) > 1:
+            self._train_kind = "pipeline"
+            return self._build_pipeline_forward()
         if (self.sequence_parallel_devices or 0) > 1:
             self._train_kind = "sp"
             return self._build_sp_forward()
@@ -556,8 +571,9 @@ class Trainer:
                 "noise_rng": make_generator()}
 
     def _sp_kernels(self, model, s: int) -> str:
-        """``parallel_kernels`` resolved: ``"auto"`` takes the tail kernel
-        (``"pallas"``) on a CUDA device where the fused path's limits hold
+        """``parallel_kernels`` resolved (SP and the pipeline): ``"auto"``
+        takes the kernels (``"pallas"``: SP's tail, the pipeline's trainable
+        attention block) on a CUDA device where the fused path's limits hold
         (:func:`fused_train_limit`), ``"xla"`` otherwise (so always on the
         CPU), decided from the shapes up front.
         JAX's rule (``_train_layer_fusable``, training/fused.py:26: the
@@ -569,49 +585,123 @@ class Trainer:
                                  self.device) is None
         return "pallas" if self.device.type == "cuda" and fits else "xla"
 
-    def _build_sp_forward(self):
-        """The SP step's forward (the JAX ``_build_sp_train_step``,
-        trainer.py:582-676): the mesh checks, then
-        ``sequence_parallel_vit_forward`` with dp x sp where the mesh's data
-        axis is > 1, the tail in bf16 on CUDA and fp32 on the CPU (JAX: bf16
-        on a TPU, fp32 elsewhere)."""
+    def _check_parallel_model(self, what: str):
+        """JAX's ``_check_deterministic_parallel_model`` (trainer.py:
+        509-539), in its words: a gated ResidualViT in the shipped-config
+        mode, or the plain-ViT family; no dropout and no NoiseBlock; no
+        regularizers on a plain ViT (it emits no aux)."""
         model = self.model
-        what = "sequence_parallel_devices"
-        if isinstance(model, ResidualVisionTransformer):
-            raise NotImplementedError(
-                f"{what} with a gated ResidualViT (JAX parallel/residual.py:183, fp32 linen "
-                "math) is not ported yet: ROADMAP.md port queue A item 9 (parallel and serving)")
-        if not isinstance(model, (VisionTransformer, RankVisionTransformer)):
+        name = type(model).__name__
+        if name == "ResidualVisionTransformer":
+            layers = model.residual_layers or ["attention+mlp"] * model.num_layers
+            if (set(layers) != {"attention+mlp"} or model.gate_type != "sigmoid"
+                    or model.add_input or model.add_budget_token != "learnable"):
+                raise NotImplementedError(
+                    f"{what} supports ResidualViT in the shipped-config mode: sigmoid gates, "
+                    "attention+mlp skip, budget_token='learnable', add_input=False")
+        elif name not in ("VisionTransformer", "RankVisionTransformer"):
             raise NotImplementedError(
                 f"{what} applies to the plain-ViT family (uniform blocks) and gated "
-                f"ResidualViT, not {type(model).__name__}")
+                f"ResidualViT, not {name}")
         if any(_dropout_rates(model)) or getattr(model, "noise_layer", None) is not None:
             raise NotImplementedError(
                 f"{what} training is deterministic: set dropout=0 and no noise_layer")
-        if self.loss_compose and self.loss_compose.additional_losses:
+        if (name != "ResidualVisionTransformer" and self.loss_compose
+                and self.loss_compose.additional_losses):
             raise NotImplementedError(f"plain ViT emits no aux for regularizers under {what}")
-        s = int(self.sequence_parallel_devices)
+        return model
+
+    def _parallel_mesh(self, what: str, s: int, axis: str):
+        """The SP / pipeline mesh: ``mesh=`` where it has ``axis`` (of size
+        ``s``, else JAX's ValueError naming the axis; dp x sp / dp x pp where
+        its data axis is > 1), else a (1, s) mesh over a default process
+        group of ``s`` ranks. Returns (mesh, data_axis or None); the
+        Trainer and its model move to the mesh's device."""
         data_axis = None
-        if self.mesh is not None:
+        if self.mesh is not None and axis in self.mesh.shape:
             mesh = self.mesh
-            if mesh.shape[MODEL_AXIS] != s:
-                raise ValueError(f"mesh 'model' axis has {mesh.shape[MODEL_AXIS]} devices but "
+            if mesh.shape[axis] != s:
+                raise ValueError(f"mesh '{axis}' axis has {mesh.shape[axis]} devices but "
                                  f"{what}={s}")
             if mesh.device.type != self.device.type:
                 raise ValueError(f"the mesh's device {mesh.device} is not on the Trainer's "
                                  f"device type {self.device.type}")
             if mesh.shape[DATA_AXIS] > 1:
-                data_axis = DATA_AXIS  # dp x sp
+                data_axis = DATA_AXIS
         else:
             world = dist.get_world_size() if dist.is_initialized() else 1
             if world != s:
                 raise ValueError(f"{what}={s} needs a default process group of {s} ranks "
                                  f"(torch.distributed.init_process_group), have {world}")
-            mesh = make_mesh(1, s, device=self.device)
+            mesh = make_mesh(1, s, device=self.device, axis=axis)
         if mesh.device != self.device:  # the rank's own card ("cuda" names the current one)
             self.device = mesh.device
-            model.to(self.device)
-        self._sp_world = mesh.shape[MODEL_AXIS] * mesh.shape[DATA_AXIS]
+            self.model.to(self.device)
+        self._parallel_world = mesh.shape[axis] * mesh.shape[DATA_AXIS]
+        return mesh, data_axis
+
+    def _residual_parallel_forward(self, fwd, mesh, data_axis):
+        """The gated ResidualViT's pipeline / SP step forward (JAX
+        ``_build_residual_parallel_step``, trainer.py:541-580): ``fwd`` of
+        ``parallel/residual.py`` with the model's gate settings; the step
+        passes the budget vector (``train_step``)."""
+        model = self.model
+        self._train_kind += "_residual"
+        kw = dict(mesh=mesh, num_heads=model.num_heads, patch_size=model.patch_size,
+                  num_class_tokens=model.num_class_tokens,
+                  num_registers=getattr(model, "num_registers", 0), gate_temp=model.gate_temp,
+                  gate_bias=model.gate_bias, budget_token=model.add_budget_token,
+                  data_axis=data_axis)
+        return kw, lambda x, bvec, gen, nkw: fwd(self.params, x, bvec, **kw)
+
+    def _build_pipeline_forward(self):
+        """The pipeline step's forward (JAX ``_build_pipeline_train_step``,
+        trainer.py:401-496): the checks in JAX's order and words, then
+        ``pipelined_vit_forward`` (``parallel_kernels`` resolved as under
+        SP) or, for a gated ResidualViT, ``pipelined_residualvit_forward``;
+        dp x pp where the mesh's data axis is > 1."""
+        what = "pipeline_stages"
+        model = self._check_parallel_model(what)
+        s = int(self.pipeline_stages)
+        if model.num_layers % s:
+            raise ValueError(f"num_layers={model.num_layers} not divisible into {s} pipeline "
+                             "stages")
+        mesh, data_axis = self._parallel_mesh(what, s, STAGE_AXIS)
+        m = int(self.pipeline_microbatches) or s
+        if m < 2 * s:
+            warnings.warn(
+                f"pipeline_microbatches={m} with pipeline_stages={s} idles "
+                f"{bubble_fraction(s, m):.0%} of every stage (GPipe bubble (S-1)/(M+S-1)); set "
+                f"pipeline_microbatches >= {2 * s} to keep it under ~33%", stacklevel=3)
+        if isinstance(model, ResidualVisionTransformer):
+            kw, fwd = self._residual_parallel_forward(
+                functools.partial(pipelined_residualvit_forward, num_microbatches=m), mesh,
+                data_axis)
+            self._pipeline_fwd_kwargs = dict(kw, num_microbatches=m)
+            return fwd
+        self._pipeline_fwd_kwargs = kw = dict(
+            mesh=mesh, num_microbatches=m, num_heads=model.num_heads,
+            patch_size=model.patch_size, num_class_tokens=model.num_class_tokens,
+            num_registers=getattr(model, "num_registers", 0), ln_eps=model.ln_eps,
+            data_axis=data_axis, kernels=self._sp_kernels(model, s),
+            compute_dtype=torch.bfloat16 if self.device.type == "cuda" else torch.float32)
+        return lambda x, budget, gen, nkw: (pipelined_vit_forward(self.params, x, **kw), {})
+
+    def _build_sp_forward(self):
+        """The SP step's forward (the JAX ``_build_sp_train_step``,
+        trainer.py:582-676): the checks, then ``sequence_parallel_vit_forward``
+        with dp x sp where the mesh's data axis is > 1, the tail in bf16 on
+        CUDA and fp32 on the CPU (JAX: bf16 on a TPU, fp32 elsewhere); for a
+        gated ResidualViT, ``sequence_parallel_residualvit_forward``."""
+        what = "sequence_parallel_devices"
+        model = self._check_parallel_model(what)
+        s = int(self.sequence_parallel_devices)
+        mesh, data_axis = self._parallel_mesh(what, s, MODEL_AXIS)
+        if isinstance(model, ResidualVisionTransformer):
+            kw, fwd = self._residual_parallel_forward(sequence_parallel_residualvit_forward,
+                                                      mesh, data_axis)
+            self._sp_fwd_kwargs = kw
+            return fwd
         self._sp_fwd_kwargs = kw = dict(
             num_heads=model.num_heads, patch_size=model.patch_size, mesh=mesh,
             num_class_tokens=model.num_class_tokens,
@@ -693,6 +783,12 @@ class Trainer:
         self._check_budget(budget)
         if self._forward is None:
             self._forward = self._build_forward()
+        if (budget is not None and self._train_kind == "pipeline"
+                and getattr(self.model, "rankvit_layers", None)):
+            # JAX's refusal (trainer.py:815-823)
+            raise NotImplementedError(
+                "pipeline_stages training has no RankViT ranking path: a train budget would be "
+                "silently ignored (use sequence_parallel_devices or the single-device step)")
         if budget is not None and self._train_kind == "fused_vit":
             raise NotImplementedError(
                 "the fused train path treats RankViT as a plain ViT: pass fused='never' to "
@@ -704,7 +800,7 @@ class Trainer:
                             if self._train_kind.startswith("fused") else "the data-parallel "
                             "train step")
         gen = step_generator(self.seed, step_idx, x.device)
-        if self._train_kind == "fused_residual":
+        if self._train_kind in ("fused_residual", "pipeline_residual", "sp_residual"):
             n = x.shape[0]
             budget = (sample_budgets(self.model, n, gen, x.device) if budget is None
                       else torch.full((n,), float(budget), dtype=torch.float32, device=x.device))
@@ -718,8 +814,8 @@ class Trainer:
                 out, aux = (self._forward(x, budget, gen, nkw) if dp is None
                             else self._dp_forward(x, budget, gen, nkw))
             total, metrics = self._loss(out, aux, y, budget, x)
-            if self._train_kind == "sp":
-                (total / self._sp_world).backward()
+            if self._train_kind.startswith(("sp", "pipeline")):
+                (total / self._parallel_world).backward()
                 self._all_reduce_grads()
             elif dp is not None and dp.shape[DATA_AXIS] > 1:
                 (total / dp.shape[DATA_AXIS]).backward()

@@ -322,8 +322,13 @@ def test_data_parallel_guards():
             Trainer(vit, optim.SGD(lr=0.1), device="cpu", mesh=_fake_mesh(),
                     fused=fused).train_step(x, y)
     base = dict(optimizer=optim.SGD(lr=0.1), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md port queue A item 9"):
-        Trainer(model=vit, **base, mesh=_fake_mesh(), pipeline_stages=2)
+    # the pipeline is ported (tests/test_torch_pipeline.py): a mesh without a
+    # 'stage' axis leaves its stages over the default process group, as
+    # JAX lays them over jax.devices() (trainer.py:438-444)
+    with pytest.raises(ValueError, match="pipeline_stages=2 needs a default process group of 2 "
+                                         "ranks"):
+        Trainer(model=vit, **base, mesh=_fake_mesh(), pipeline_stages=2).train_step(
+            np.zeros((4, 16, 16, 3), np.float32), np.zeros(4, np.int64))
     # ported (tests/test_torch_sharded_training.py): a model axis of 2 without
     # SP (the module step replicated over it), FSDP and tensor parallelism
     # (JAX's checks and words)

@@ -380,8 +380,17 @@ def test_sp_guards():
     res = build_model("residualvit", dict(VIT, residual_layers=["attention+mlp"] * 2,
                                           gate_type="sigmoid", add_budget_token="learnable"),
                       device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # the gated ResidualViT's SP step is ported (tests/test_torch_pipeline.py):
+    # the shipped-config model passes JAX's model check and needs its ranks
+    with pytest.raises(ValueError, match="process group of 2 ranks .* have 1"):
         Trainer(model=res, sequence_parallel_devices=2, **base).train_step(x, y)
+    with pytest.raises(NotImplementedError, match="supports ResidualViT in the shipped-config "
+                                                  "mode"):
+        Trainer(model=build_model("residualvit", dict(VIT, residual_layers=["attention+mlp"] * 2,
+                                                      gate_type="gumbel",
+                                                      add_budget_token="learnable"),
+                                  device="cpu"),
+                sequence_parallel_devices=2, **base).train_step(x, y)
     with pytest.raises(ValueError, match="parallel_kernels"):
         Trainer(model=vit, sequence_parallel_devices=2, parallel_kernels="cuda", **base)
     # mesh= without SP runs the module step, replicated over the model axis

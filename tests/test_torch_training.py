@@ -429,9 +429,16 @@ def test_trainer_refuses_what_is_not_ported():
     _, tm = _model_pair()
     base = dict(model=tm, optimizer=optim.Adam(), device="cpu")
     tp_mesh = Mesh({DATA_AXIS: 1, MODEL_AXIS: 2}, None, None, 0, 0, torch.device("cpu"))
-    for kwargs in (dict(pipeline_stages=2), dict(pipeline_microbatches=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md port queue A item 9"):
-            Trainer(**base, **kwargs)
+    # the pipeline is ported (tests/test_torch_pipeline.py): its stages lie
+    # over a default process group of pipeline_stages ranks, and
+    # pipeline_microbatches alone is ignored, as in JAX
+    with pytest.raises(ValueError, match="pipeline_stages=2 needs a default process group of 2 "
+                                         "ranks"):
+        Trainer(**dict(base, model=_model_pair()[1]), pipeline_stages=2,
+                fused=False).train_step(*_batch(1, n=2))
+    alone = Trainer(**dict(base, model=_model_pair()[1]), pipeline_microbatches=2)
+    alone.train_step(*_batch(1, n=2))
+    assert alone._train_kind == "module"
     # ported (tests/test_torch_sharded_training.py): a model axis without SP
     # (the module step replicated over it; the fused path refuses it in
     # JAX's words), tensor parallelism and FSDP (JAX's checks and words),
